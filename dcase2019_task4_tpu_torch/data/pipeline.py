@@ -4,8 +4,9 @@ of dcase2019_task4_tpu/data/pipeline.py, which imports the jax frontend).
 Batches are fixed-size int16 PCM buffers, reflect-padded per clip on the
 host exactly as librosa's centre padding (ops/mel.host_reflect_pad); the
 evaluator dequantizes them on the device. Plain wav sources go through the
-C++ batch packer of the JAX package (dcase2019_task4_tpu.native, no jax),
-as BatchPipeline._pack_audio does; other sources through Python.
+C++ batch packer (dcase2019_task4_tpu_torch.native, built with g++ on
+first use), as the JAX package's BatchPipeline._pack_audio does; other
+sources, and machines without g++, through Python.
 """
 
 from __future__ import annotations
@@ -76,7 +77,7 @@ def _native_pack(stream: Stream, idx: List[int], max_samples: int, n_fft: int, h
     not apply (no toolchain, or a source that is not a wav directory)."""
     if not hasattr(stream.source, "path_for"):
         return None
-    from dcase2019_task4_tpu import native
+    from dcase2019_task4_tpu_torch import native
 
     if not native.available():
         return None

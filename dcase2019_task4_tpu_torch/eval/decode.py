@@ -17,7 +17,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from dcase2019_task4_tpu_torch._host import LabelCodec
+from dcase2019_task4_tpu_torch.data.encoder import LabelCodec
 from dcase2019_task4_tpu_torch.ops.mel import median_filter_binary
 
 COLUMNS = ("event_label", "onset", "offset", "filename")

@@ -15,15 +15,17 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from dcase2019_task4_tpu.config import Config, DSPConfig, ModelConfig, PathsConfig, TrainConfig
-from dcase2019_task4_tpu.utils.logger import get_logger
-from dcase2019_task4_tpu.utils.scaler import Scaler
-from dcase2019_task4_tpu_torch._host import LabelCodec, SyntheticAudioSource, WavAudioSource
+from dcase2019_task4_tpu_torch.config import Config, DSPConfig, ModelConfig, PathsConfig, TrainConfig
+from dcase2019_task4_tpu_torch.data.audio_io import SyntheticAudioSource, WavAudioSource
+from dcase2019_task4_tpu_torch.data.encoder import LabelCodec
 from dcase2019_task4_tpu_torch.data.pipeline import Stream, dir_manifest, iter_eval_batches, read_manifest
 from dcase2019_task4_tpu_torch.eval.decode import decode_batch, write_events_tsv
 from dcase2019_task4_tpu_torch.models.crnn import CRNN
 from dcase2019_task4_tpu_torch.ops.mel import MelFrontend
 from dcase2019_task4_tpu_torch.train import checkpoints as ckpt
+from dcase2019_task4_tpu_torch.train.steps import make_eval_features, make_predict_step
+from dcase2019_task4_tpu_torch.utils.logger import get_logger
+from dcase2019_task4_tpu_torch.utils.scaler import Scaler
 
 
 def config_from_metadata(meta: Dict) -> Config:
@@ -77,19 +79,16 @@ class CheckpointEvaluator:
             amin=d.amin, top_db=d.top_db, device=self.device,
         )
         mean, std = self.scaler.mean_std_f32
-        self.scaler_mean = torch.as_tensor(mean, device=self.device)
-        self.scaler_std = torch.as_tensor(std, device=self.device)
+        self._features = make_eval_features(self.frontend, mean, std)
+        self._predict = make_predict_step(self.model)
         self.synthetic_audio = synthetic_audio
         self.log.info(f"Model loaded at epoch: {meta['epoch']} on {self.device}")
 
     def features(self, audio: np.ndarray, frames: np.ndarray) -> torch.Tensor:
         """int16 padded audio [B, Lp] + valid frames [B] → normalised
         log-mel [B, T, M] on the device (dequantized there)."""
-        a = torch.as_tensor(audio, device=self.device)
-        if a.dtype == torch.int16:
-            a = a.to(torch.float32) * (1.0 / 32768.0)
-        x = self.frontend.log_mel(a, torch.as_tensor(frames, device=self.device))
-        return (x - self.scaler_mean) / self.scaler_std
+        return self._features(torch.as_tensor(audio, device=self.device),
+                              torch.as_tensor(frames, device=self.device))
 
     def load_thresholds(self, path: str) -> np.ndarray:
         """Per-class threshold vector from JSON: a {class: threshold} dict
@@ -158,7 +157,7 @@ class CheckpointEvaluator:
         events, weak_rows, strong_all, weak_all = [], [], [], []
         for batch in iter_eval_batches(stream, self.cfg.train.batch_size, d.max_samples,
                                        d.n_window, d.hop_length, d.max_frames):
-            strong, weak = self.model(self.features(batch["audio"], batch["frames"]))
+            strong, weak = self._predict(self.features(batch["audio"], batch["frames"]))
             nv = batch["n_valid"]
             strong = strong[:nv].cpu()
             weak = weak[:nv].cpu().numpy()

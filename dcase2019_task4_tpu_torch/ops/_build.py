@@ -1,10 +1,12 @@
 """Build and load the package's CUDA kernels (csrc/*.cu).
 
-All sources compile with nvcc into one shared library with a plain C
-interface, loaded with ctypes:
+Every source compiles with its own nvcc process, all started together, and
+the objects link into one shared library with a plain C interface, loaded
+with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/libdcase_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
+         -Xptxas -v -c csrc/<name>.cu -o build/<tmp>/<name>.o     (one per source)
+    nvcc -shared -o build/libdcase_kernels_<hash>.so build/<tmp>/*.o
 
 The build runs at first use, into `dcase2019_task4_tpu_torch/build/`
 (listed in .gitignore), keyed by a hash of the sources so an edited source
@@ -31,13 +33,14 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
+_U = ctypes.c_uint
 
 # C signature of every entry the sources export: name -> (restype, argtypes)
 SIGNATURES = {
@@ -48,9 +51,16 @@ SIGNATURES = {
     ),
     "dcase_conv3x3": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "dcase_bn_glu_pool_tiles": (_I, [_I, _I, _I]),
-    "dcase_bn_glu_pool_eval": (
-        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "dcase_conv3x3_tiles": (_I, [_I, _I]),
+    "dcase_conv3x3_wgrad": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "dcase_bn_glu_pool": (
+        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _U, _F, _I, _P],
     ),
+    "dcase_bn_glu_pool_bwd": (
+        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _U, _F, _I, _P],
+    ),
+    "dcase_bn_bwd_fixup": (_I, [_P, _P, _P, _P, _P, _LL, _I, _P]),
+    "dcase_batch_stats": (_I, [_P, _P, _P, _LL, _I, _I, _P]),
 }
 
 
@@ -95,16 +105,31 @@ def build() -> dict:
     if target.exists():
         return {"path": str(target), "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        jobs = []
+        for src in sources():
+            obj = os.path.join(objdir, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+            jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = "", []
+        for cmd, _, proc in jobs:  # wait for every compiler before judging any
+            out, _ = proc.communicate()
+            log += out
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        if failed:
+            raise KernelError("\n".join(failed))
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, "-shared", "-o", tmp, *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise KernelError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
     os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
     (BUILD_DIR / "build.log").write_text(log)
     return {"path": str(target), "seconds": seconds, "log": log}

@@ -199,6 +199,37 @@ class MelFrontend(nn.Module):
         db = self.amplitude_to_db(mel, mask)
         return torch.where(mask[..., None], db, torch.zeros((), dtype=db.dtype, device=db.device))
 
+    def log_mel_pair(self, padded: torch.Tensor, n_valid_frames: torch.Tensor,
+                     generator: torch.Generator, noise_std: float = 0.25,
+                     teacher_padded: Optional[torch.Tensor] = None) -> tuple:
+        """(student, teacher) features of the Mean-Teacher step, the noise
+        drawn from `generator`: standard normals of the linear mel's shape
+        [B, T, M], made on the generator's device and moved to the audio's
+        (see `log_mel_pair_with_noise`)."""
+        shape = (padded.shape[0], self.max_frames, self.n_mels)
+        noise = torch.randn(shape, generator=generator, device=generator.device, dtype=torch.float32)
+        return self.log_mel_pair_with_noise(padded, n_valid_frames, noise, noise_std, teacher_padded)
+
+    def log_mel_pair_with_noise(self, padded: torch.Tensor, n_valid_frames: torch.Tensor,
+                                noise: torch.Tensor, noise_std: float = 0.25,
+                                teacher_padded: Optional[torch.Tensor] = None) -> tuple:
+        """(student, teacher) features from given standard-normal `noise`
+        [B, T, M]. |noise_std · noise| is added to the teacher's *linear*
+        mel (the reference's AugmentGaussianNoise); the student gets the
+        clean tensor; dB, top_db and the padding mask then run on both. With
+        `teacher_padded` the teacher's linear mel comes from that second
+        audio view (a second K1 launch) and the noise still goes on top. No
+        gradient flows into the frontend."""
+        with torch.no_grad():
+            mel = self.linear_mel(padded)
+            mask = self.frame_mask(n_valid_frames)
+            zero = torch.zeros((), dtype=mel.dtype, device=mel.device)
+            student = torch.where(mask[..., None], self.amplitude_to_db(mel, mask), zero)
+            t_mel = mel if teacher_padded is None else self.linear_mel(teacher_padded)
+            teacher_mel = t_mel + (noise_std * noise.to(mel.device)).abs()
+            teacher = torch.where(mask[..., None], self.amplitude_to_db(teacher_mel, mask), zero)
+        return student, teacher
+
 
 def median_filter_binary(x: torch.Tensor, window: int = 5) -> torch.Tensor:
     """Median filter over the time axis of a binary [..., T, C] grid with

@@ -196,3 +196,85 @@ def params_to_jax(model) -> Tuple[Dict, Dict]:
     if model.dense_softmax is not None:
         params["dense_softmax"] = {"w": np_(model.dense_softmax.weight.t()), "b": np_(model.dense_softmax.bias)}
     return params, bn_state
+
+
+# ------------------------------------------------- training-state bridge
+
+
+def _named_from_jax(params: Dict) -> Dict[str, torch.Tensor]:
+    """A JAX params-shaped pytree (params, Adam mu or nu) → tensors by the
+    port's parameter names."""
+    zeros = {"cnn": [{"mean": 0.0, "var": 0.0}] * len(params["cnn"])}
+    sd = params_from_jax(params, zeros)
+    return {k: v for k, v in sd.items() if "running_" not in k and "num_batches" not in k}
+
+
+def _named_to_jax(named: Dict[str, torch.Tensor]) -> Dict:
+    """Tensors by the port's parameter names → a JAX params-shaped pytree."""
+
+    def np_(t):
+        return t.detach().cpu().numpy().astype(np.float32)
+
+    cnn, i = [], 0
+    while f"cnn.{i}.conv.weight" in named:
+        p = f"cnn.{i}"
+        entry = {
+            "conv": {"w": np_(named[f"{p}.conv.weight"].permute(2, 3, 1, 0)), "b": np_(named[f"{p}.conv.bias"])},
+            "bn": {"scale": np_(named[f"{p}.bn.weight"]), "bias": np_(named[f"{p}.bn.bias"])},
+        }
+        if f"{p}.act.weight" in named:
+            entry["act"] = {"w": np_(named[f"{p}.act.weight"].t()), "b": np_(named[f"{p}.act.bias"])}
+        cnn.append(entry)
+        i += 1
+    rnn, layer = [], 0
+    while f"rnn.weight_ih_l{layer}" in named:
+        rnn.append({
+            d: {jk: np_(named[f"rnn.{tk}_l{layer}{suf}"])
+                for jk, tk in (("w_ih", "weight_ih"), ("w_hh", "weight_hh"), ("b_ih", "bias_ih"), ("b_hh", "bias_hh"))}
+            for d, suf in (("fwd", ""), ("bwd", "_reverse"))
+        })
+        layer += 1
+    tree: Dict = {"cnn": cnn, "rnn": rnn}
+    for head in ("dense", "dense_softmax"):
+        if f"{head}.weight" in named:
+            tree[head] = {"w": np_(named[f"{head}.weight"].t()), "b": np_(named[f"{head}.bias"])}
+    return tree
+
+
+def train_state_from_jax(state, params, bn_state, ema_params=None, ema_bn_state=None,
+                         mu=None, nu=None, step: int = 0):
+    """Load numpy pytrees in the JAX layout into a TrainState (train/steps.py)
+    in place: student, teacher (when given), Adam's `exp_avg` / `exp_avg_sq`
+    / `step` (when mu and nu are given; both packages then take the same
+    step from the same state) and the step counter. Returns `state`."""
+    state.student.load_state_dict(params_from_jax(params, bn_state))
+    if ema_params is not None:
+        state.teacher.load_state_dict(params_from_jax(ema_params, ema_bn_state))
+    if mu is not None:
+        first, second = _named_from_jax(mu), _named_from_jax(nu)
+        for name, p in state.student.named_parameters():
+            state.optimizer.state[p] = {
+                "step": torch.tensor(float(step)),
+                "exp_avg": first[name].to(p.device),
+                "exp_avg_sq": second[name].to(p.device),
+            }
+    state.step = int(step)
+    return state
+
+
+def train_state_to_jax(state) -> Dict:
+    """The inverse: {"params", "bn_state", "ema_params", "ema_bn_state",
+    "mu", "nu", "step"} as numpy pytrees in the JAX layout (mu and nu zeros
+    before the first update, the EMA entries None without a teacher)."""
+    params, bn_state = params_to_jax(state.student)
+    out: Dict = {"params": params, "bn_state": bn_state, "ema_params": None, "ema_bn_state": None,
+                 "step": int(state.step)}
+    if state.teacher is not None:
+        out["ema_params"], out["ema_bn_state"] = params_to_jax(state.teacher)
+    for key, field in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+        named = {}
+        for name, p in state.student.named_parameters():
+            moment = state.optimizer.state.get(p, {}).get(field)
+            named[name] = torch.zeros_like(p) if moment is None else moment
+        out[key] = _named_to_jax(named)
+    return out

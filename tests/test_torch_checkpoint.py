@@ -6,6 +6,7 @@ loads through the port's load_inference_state with params and bn_state
 equal leaf for leaf; the port's writer round-trips through the port.
 """
 
+import dataclasses
 import json
 
 import jax
@@ -71,7 +72,9 @@ def test_metadata_and_config_match_jax(jax_checkpoint):
     path, _ = jax_checkpoint
     meta = tckpt.read_metadata(path)
     assert meta == jckpt.read_metadata(path)
-    assert config_from_metadata(meta) == jax_config_from_metadata(meta) == CFG
+    # the port's Config is its own dataclass: equal field for field
+    assert jax_config_from_metadata(meta) == CFG
+    assert dataclasses.asdict(config_from_metadata(meta)) == dataclasses.asdict(CFG)
 
 
 def test_jax_checkpoint_feeds_the_port_model(jax_checkpoint):

@@ -90,6 +90,12 @@ def test_eval_forward_matches_jax_from_seeded_port_weights(fused):
 
 
 def test_training_mode_is_refused():
+    """Training mode is not refused: it runs with a graph and updates the
+    BatchNorm buffers; eval mode runs without a graph."""
     model = tcrnn.CRNN(_cfg(True))
-    with pytest.raises(RuntimeError, match="eval mode"):
-        model(torch.zeros(1, T, F))
+    before = model.cnn[0].bn.running_var.clone()
+    strong, weak = model(torch.ones(2, T, F), torch.Generator().manual_seed(0))
+    assert strong.requires_grad and weak.requires_grad
+    assert not torch.equal(model.cnn[0].bn.running_var, before)
+    strong, _ = model.eval()(torch.ones(2, T, F))
+    assert not strong.requires_grad

@@ -63,6 +63,12 @@ def test_applicable_geometries(shape, ok):
 
 
 def test_train_mode_dropout_is_refused():
+    """Train-mode dropout is not refused: only a rate outside [0, 1) is, and
+    rate 0.5 changes the pooled output."""
     args = [torch.from_numpy(a) for a in _inputs((1, 4, 8, 8), 0)]
-    with pytest.raises(NotImplementedError):
-        tfb.fused_bn_glu_pool(*args, POOL, EPS, rate=0.5)
+    for bad in (1.0, -0.1):
+        with pytest.raises(ValueError):
+            tfb.fused_bn_glu_pool(*args, POOL, EPS, rate=bad)
+    kept = tfb.fused_bn_glu_pool(*args, POOL, EPS, rate=0.5, seed=3)
+    full = tfb.fused_bn_glu_pool(*args, POOL, EPS)
+    assert kept.shape == full.shape and not torch.equal(kept, full)
