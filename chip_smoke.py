@@ -15,14 +15,26 @@ printing a result:
      (CUDA events) for the kernel, for the plain version and, where one
      PyTorch call computes the same function, for that call; the kernel's
      bound (the larger of its bytes over 3.35 TB/s and its operations over
-     67 TFLOP/s, float32 outside the tensor cores). K2b, K2s and K3w run
-     twice and must repeat bit for bit;
+     67 TFLOP/s, float32 outside the tensor cores). Every kernel that folds
+     per-block sums (K2b, K2s, K3w, K4f, K4w, K5s, K5b1, K5b2) runs twice and
+     must repeat bit for bit. The entry-block family runs at the block-1
+     shape: K4f's and K5s's sums are also held to K2s's on the stored y, K5f
+     with a seed to F.conv2d -> K2f with that seed, the crows entries
+     (statistics, forward, and both backward passes through their autograd
+     Function) bit for bit to the fused entry block's own wrappers and to
+     the plain versions on their own, and the keep-mask kernel bit for bit
+     to `dropout_keep_mask`. K4w's library time is autograd through the
+     model's own conv, as the default path reaches cuDNN;
   4. predict — 48 synthetic 10 s wavs (two batches of 24) and a checkpoint
      of a seeded flagship CRNN written by the port's own writer, through
      `cli.predict(... --device cuda)`: the TSVs parse, every kernel of the
      path was launched and no training kernel was, strong probabilities are finite and agree with the same
      run on `--device cpu` (the plain versions) within 1e-4; clips/s of a
-     second, warm CUDA pass;
+     second, warm CUDA pass. Then the same weights in a checkpoint whose
+     stored configuration has `entry_block_pallas=True`: the fused first
+     block launches once per batch, block 1 launches no K2 forward, and the
+     strong probabilities agree with the default configuration's and with
+     that checkpoint's CPU run within 1e-4;
   5. train — five Mean-Teacher steps at the flagship `Config()`, batch 24
      laid out [weak 6 | unlabeled 12 | synthetic 6], int16 audio of 24 seeded
      synthetic clips, state from a seeded CPU generator, Adam(1e-3): losses
@@ -35,7 +47,13 @@ printing a result:
      logits, get a noise floor of 1e-6 of the largest gradient on top, and
      step 2 holds them in function space); ms per step, a torch.profiler
      breakdown of one warm step, and ms per step with the random generator
-     on the card.
+     on the card. Then the same state and seeds under each first-block
+     configuration: `entry_block_pallas` (five steps; launches per step
+     counted exactly; step 1 against the default configuration's step 1 and
+     against its own CPU step), `entry_block_crows` and `entry_conv_pallas`
+     (three steps each, step 1 against the default's), each with ms per step
+     with the generator on the card and the device time of block 1 in one
+     profiled step beside the default's.
 
 The line before the last is {"kernels": [...]}: every number in it is one
 this run measured (launches on both paths as counted, the largest error
@@ -83,17 +101,57 @@ KERNELS = {
     "batch_stats": (CSRC + "fused_block.cu", JAX_OPS + "fused_block.py:591"),
     "bwd_reduce": (CSRC + "fused_block.cu", JAX_OPS + "fused_block.py:289"),
     "bwd_fixup": (CSRC + "fused_block.cu", JAX_OPS + "fused_block.py:332"),
+    "entry_conv": (CSRC + "entry_block.cu", JAX_OPS + "entry_conv.py:181"),
+    "entry_conv_wgrad": (CSRC + "entry_block.cu", JAX_OPS + "entry_conv.py:214"),
+    "entry_block_stats": (CSRC + "entry_block.cu", JAX_OPS + "fused_entry_block.py:255"),
+    "entry_block_fwd_eval": (CSRC + "entry_block.cu", JAX_OPS + "fused_entry_block.py:283"),
+    "entry_block_fwd_train": (CSRC + "entry_block.cu", JAX_OPS + "fused_entry_block.py:283"),
+    "entry_block_bwd_reduce": (CSRC + "entry_block.cu", JAX_OPS + "fused_entry_block.py:325"),
+    "entry_block_bwd_wgrad": (CSRC + "entry_block.cu", JAX_OPS + "fused_entry_block.py:361"),
+    # the same four functions in the JAX package's other TPU layout: the same
+    # kernels, counted where a call came through ops/crows_block.py
+    "crows_stats": (CSRC + "entry_block.cu", JAX_OPS + "crows_block.py:375"),
+    "crows_fwd": (CSRC + "entry_block.cu", JAX_OPS + "crows_block.py:404"),
+    "crows_bwd_reduce": (CSRC + "entry_block.cu", JAX_OPS + "crows_block.py:442"),
+    "crows_bwd_wgrad": (CSRC + "entry_block.cu", JAX_OPS + "crows_block.py:479"),
 }
-# launches each path must make: at least these on predict (two batches) and
-# on one MT step, and none of a kernel the path has no entry for
+# a crows row names the kernel it launches; phase 3 calls the crows entries
+# themselves and holds them bit for bit to that kernel's own wrapper
+SAME_KERNEL = {"crows_stats": "entry_block_stats", "crows_fwd": "entry_block_fwd_train",
+               "crows_bwd_reduce": "entry_block_bwd_reduce", "crows_bwd_wgrad": "entry_block_bwd_wgrad"}
+# Launches each path makes: exactly these on predict (two batches) and on one
+# MT step (teacher forward, student forward and backward), and none of a
+# kernel the path has no entry for.
 PREDICT_MIN = {"fused_stft_mel": 2, "conv2d_forward": 4, "fused_bn_glu_pool_eval": 6}
 STEP_MIN = {"fused_stft_mel": 1, "conv2d_forward": 4, "conv2d_dx": 2, "conv2d_wgrad": 2,
             "fused_bn_glu_pool_train": 6, "batch_stats": 6, "bwd_reduce": 3, "bwd_fixup": 3}
+# the fused first block takes block 1 off K2 and cuDNN
+PREDICT_ENTRY_BLOCK = {"fused_stft_mel": 2, "conv2d_forward": 4, "fused_bn_glu_pool_eval": 4,
+                       "entry_block_fwd_eval": 2}
+STEP_ENTRY_BLOCK = {"fused_stft_mel": 1, "conv2d_forward": 4, "conv2d_dx": 2, "conv2d_wgrad": 2,
+                    "fused_bn_glu_pool_train": 4, "batch_stats": 4, "bwd_reduce": 2, "bwd_fixup": 2,
+                    "entry_block_stats": 2, "entry_block_fwd_train": 2, "entry_block_bwd_reduce": 1,
+                    "entry_block_bwd_wgrad": 1}
+STEP_CROWS = dict(STEP_ENTRY_BLOCK, crows_stats=2, crows_fwd=2, crows_bwd_reduce=1, crows_bwd_wgrad=1)
+# K4f hands its sums to the fused block: no K2s launch for block 1
+STEP_ENTRY_CONV = dict(STEP_MIN, batch_stats=4, entry_conv=2, entry_conv_wgrad=1)
+PATHS = {"predict": PREDICT_MIN, "predict_entry_block": PREDICT_ENTRY_BLOCK, "step": STEP_MIN,
+         "step_entry_block": STEP_ENTRY_BLOCK, "step_crows": STEP_CROWS, "step_entry_conv": STEP_ENTRY_CONV}
+# the path whose run gives a row its `launches`
+ROW_PATH = {name: "predict" if name in PREDICT_MIN else "step" for name in list(PREDICT_MIN) + list(STEP_MIN)}
+ROW_PATH.update({"entry_block_fwd_eval": "predict_entry_block", "entry_conv": "step_entry_conv",
+                 "entry_conv_wgrad": "step_entry_conv", "entry_block_stats": "step_entry_block",
+                 "entry_block_fwd_train": "step_entry_block", "entry_block_bwd_reduce": "step_entry_block",
+                 "entry_block_bwd_wgrad": "step_entry_block", "crows_stats": "step_crows", "crows_fwd": "step_crows",
+                 "crows_bwd_reduce": "step_crows", "crows_bwd_wgrad": "step_crows"})
+FIRST_BLOCK_FLAGS = {"step_entry_block": "entry_block_pallas", "step_crows": "entry_block_crows",
+                     "step_entry_conv": "entry_conv_pallas"}
 
 
 def wrappers():
     """name -> (wrapper, the attribute of it that counts that kernel's launches)."""
-    from dcase2019_task4_tpu_torch.ops import fused_block, fused_mel, packed_conv
+    from dcase2019_task4_tpu_torch.ops import (crows_block, entry_conv, fused_block, fused_entry_block, fused_mel,
+                                               packed_conv)
 
     return {
         "fused_stft_mel": (fused_mel.fused_stft_mel, "launches"),
@@ -105,6 +163,17 @@ def wrappers():
         "batch_stats": (fused_block.batch_stats, "launches"),
         "bwd_reduce": (fused_block.bwd_reduce, "launches"),
         "bwd_fixup": (fused_block.bwd_fixup, "launches"),
+        "entry_conv": (entry_conv.entry_conv_forward, "launches"),
+        "entry_conv_wgrad": (entry_conv.entry_conv_wgrad, "launches"),
+        "entry_block_stats": (fused_entry_block.entry_block_stats_apply, "launches"),
+        "entry_block_fwd_eval": (fused_entry_block.entry_block_fwd, "launches_eval"),
+        "entry_block_fwd_train": (fused_entry_block.entry_block_fwd, "launches_train"),
+        "entry_block_bwd_reduce": (fused_entry_block.entry_block_bwd_reduce, "launches"),
+        "entry_block_bwd_wgrad": (fused_entry_block.entry_block_bwd_wgrad, "launches"),
+        "crows_stats": (crows_block.crows_stats_apply, "launches"),
+        "crows_fwd": (crows_block.crows_apply, "launches_train"),
+        "crows_bwd_reduce": (crows_block.crows_apply, "launches_bwd_reduce"),
+        "crows_bwd_wgrad": (crows_block.crows_apply, "launches_bwd_wgrad"),
     }
 
 
@@ -118,13 +187,13 @@ def read_launches():
     return {name: getattr(fn, counter) for name, (fn, counter) in wrappers().items()}
 
 
-def check_launches(launches, least, times: int, path: str):
-    """Every kernel of the path launched at least `times` × its minimum, and
+def check_launches(launches, per_run, times: int, path: str):
+    """Every kernel of the path launched exactly `times` × its count, and
     every kernel that is not of the path launched no time."""
     for name, count in launches.items():
-        if name in least and count < times * least[name]:
-            raise AssertionError(f"{name} launched {count} times on {path} (expected >= {times * least[name]})")
-        if name not in least and count != 0:
+        if name in per_run and count != times * per_run[name]:
+            raise AssertionError(f"{name} launched {count} times on {path} (expected {times * per_run[name]})")
+        if name not in per_run and count != 0:
             raise AssertionError(f"{name} launched {count} times on {path}, which has no use for it")
 
 
@@ -152,6 +221,78 @@ def time_ms(fn, warmup: int = 3, runs: int = 10) -> float:
     return float(np.median(times))
 
 
+def event_us(e) -> float:
+    """Device time of one profiler event, in microseconds."""
+    for attr in ("self_device_time_total", "device_time_total", "cuda_time_total"):
+        v = getattr(e, attr, None)
+        if v:
+            return float(v)
+    return float(e.time_range.elapsed_us())
+
+
+def shown(ms, digits: int = 4) -> str:
+    """A profiler reading for a printed line; None is one that was not taken."""
+    return "not measured" if ms is None else f"{ms:.{digits}f}"
+
+
+def less(ms, other):
+    """`ms - other`, not below 0; None where either reading is missing."""
+    return None if ms is None or other is None else max(ms - other, 0.0)
+
+
+PROFILER = {"lost": False}  # set once every try of one reading came back without its device events
+
+
+def profiled(fn, with_host: bool = False, complete=None, tries: int = 3):
+    """`fn()` under torch.profiler → the profile, or None. A trace can come
+    back without some or all of its device events (seen on an H100 in three
+    of nine runs of this script: empty traces, and traces that held a third
+    of their kernels). One that holds no device event, or that
+    `complete(prof)` rejects, is taken again, `tries` times in all. When all
+    of them fail the reading is given up as None ("not measured" in the
+    lines that print it) and later readings get one try each: the profiler
+    only adds readings beside the CUDA-event times, and no check of a kernel
+    or a path rests on it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if with_host else [])
+    tries = 1 if PROFILER["lost"] else tries
+    for attempt in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            fn()
+            torch.cuda.synchronize()
+        if any(e.device_type == DeviceType.CUDA and event_us(e) > 0 for e in prof.events()) \
+                and (complete is None or complete(prof)):
+            return prof
+        print(f"  torch.profiler lost device events (attempt {attempt + 1} of {tries})")
+    PROFILER["lost"] = True
+    print("  torch.profiler recorded no device time, or not every kernel: this reading is not measured")
+    return None
+
+
+def device_ms(fn, runs: int = 3) -> Optional[float]:
+    """What the card itself spends on one call of `fn`: torch.profiler's sum
+    over every kernel and copy the call puts on the device, median of `runs`
+    traces of one call each (a trace that lost events reads low and falls
+    out of the median). Unlike `time_ms` it leaves out the gaps in which the device waits
+    for the wrapper's host-side work (argument checks, allocations, the
+    copy of the seed), which move with the host's load from call to call.
+    None when the profiler gave no usable trace."""
+    from torch.autograd import DeviceType
+
+    fn()
+    totals = []
+    for _ in range(runs):
+        prof = profiled(fn)
+        if prof is None:
+            return None
+        totals.append(sum(event_us(e) for e in prof.events() if e.device_type == DeviceType.CUDA))
+    return float(np.median(totals)) / 1e3
+
+
 def bound_ms(n_bytes: float, n_ops: float):
     """The least time the card could take: each input read once and each
     output written once at the HBM rate, or the operations at the FP32 rate."""
@@ -167,6 +308,8 @@ class Result(NamedTuple):
     ms: float
     plain_ms: float
     library_ms: Optional[float]
+    device_ms: Optional[float] = 0.0
+    library_device_ms: Optional[float] = None
 
 
 class Row:
@@ -174,6 +317,9 @@ class Row:
 
     def __init__(self):
         self.err, self.limit, self.ms, self.plain_ms, self.library_ms = 0.0, 0.0, 0.0, 0.0, None
+        # the kernels' own time on the card (profiler), without the wrapper's host gaps; None once a shape's is missing
+        self.device_ms = 0.0
+        self.library_device_ms = None  # the same reading of the library call
         self.shapes = []  # per shape: what binds it and its bound
 
     def note_err(self, res: Result):
@@ -184,9 +330,17 @@ class Row:
         b, by = bound_ms(n_bytes, n_ops)
         self.note_err(res)
         self.ms, self.plain_ms = self.ms + res.ms, self.plain_ms + res.plain_ms
+        self.device_ms = None if self.device_ms is None or res.device_ms is None else self.device_ms + res.device_ms
         self.shapes.append({"shape": list(shape), "bound_by": by, "bound_ms": b})
         if res.library_ms is not None:
+            first = self.library_ms is None
             self.library_ms = (self.library_ms or 0.0) + res.library_ms
+            if first:
+                self.library_device_ms = res.library_device_ms
+            elif self.library_device_ms is not None and res.library_device_ms is not None:
+                self.library_device_ms += res.library_device_ms
+            else:
+                self.library_device_ms = None
 
     @property
     def bound(self) -> float:
@@ -199,25 +353,41 @@ class Row:
         return "operations" if by_ops > self.bound - by_ops else "bytes"
 
 
-def compare(name, kernel_fn, plain_fn, atol=None, rtol_of_max=None, library_fn=None, repeat=False) -> Result:
+def compare(name, kernel_fn, plain_fn, atol=None, rtol_of_max=None, library_fn=None, repeat=False,
+            tols=None, exact_fn=None) -> Result:
     """Run kernel and plain version once, check every output's error, then
     time both (and the library call). Functions return a tensor or a tuple.
-    With `repeat` the kernel runs again and must give the same bits."""
+    With `repeat` the kernel runs again and must give the same bits. `tols`:
+    one ("abs", v) or ("max", v) per output where they differ, else `atol` or
+    `rtol_of_max` holds every output. `exact_fn`: a float64 run of the plain
+    version to hold the outputs to instead (`plain_fn` is still what is
+    timed); it returns (outputs, floor per output), the floor added to that
+    output's limit."""
     import torch
 
     def as_list(out):
         return [out] if isinstance(out, torch.Tensor) else list(out)
 
-    outs, refs = as_list(kernel_fn()), as_list(plain_fn())
+    outs = as_list(kernel_fn())
+    if exact_fn is not None:
+        refs, floors = exact_fn()
+        refs = as_list(refs)
+    else:
+        refs = as_list(plain_fn())
+        floors = [0.0] * len(refs)
     torch.cuda.synchronize()
+    if tols is None:
+        tols = [("abs", atol) if atol is not None else ("max", rtol_of_max)] * len(refs)
+    if not len(outs) == len(refs) == len(tols):
+        raise AssertionError(f"{name}: {len(outs)} outputs, {len(refs)} references, {len(tols)} tolerances")
     worst, worst_limit, report = 0.0, 0.0, []
-    for out, ref in zip(outs, refs):
+    for out, ref, (kind, tol), floor in zip(outs, refs, tols, floors):
         if out.shape != ref.shape:
             raise AssertionError(f"{name}: shape {tuple(out.shape)} != plain {tuple(ref.shape)}")
         if not torch.isfinite(out).all():
             raise AssertionError(f"{name}: non-finite output")
-        err = (out - ref).abs().max().item()
-        limit = atol if atol is not None else rtol_of_max * ref.abs().max().item()
+        err = (out.to(ref.dtype) - ref).abs().max().item()
+        limit = (tol if kind == "abs" else tol * ref.abs().max().item()) + floor
         report.append(f"{err:.3e}/{limit:.3e}")
         if not err <= limit:
             raise AssertionError(f"{name}: max abs error {err} exceeds {limit}")
@@ -230,10 +400,12 @@ def compare(name, kernel_fn, plain_fn, atol=None, rtol_of_max=None, library_fn=N
     del outs, refs
     ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
     library_ms = time_ms(library_fn) if library_fn is not None else None
-    lib = f", library {library_ms:.4f} ms" if library_ms is not None else ""
+    on_device = device_ms(kernel_fn)
+    library_on_device = device_ms(library_fn) if library_fn is not None else None
+    lib = f", library {library_ms:.4f} ms ({shown(library_on_device)} on the device)" if library_ms is not None else ""
     print(f"  {name}: err/limit {' '.join(report)}{', repeats bit for bit' if repeat else ''}; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}")
-    return Result(worst, worst_limit, ms, plain_ms, library_ms)
+          f"kernel {ms:.4f} ms ({shown(on_device)} ms of it on the device), plain {plain_ms:.4f} ms{lib}")
+    return Result(worst, worst_limit, ms, plain_ms, library_ms, on_device, library_on_device)
 
 
 def flagship_frontend(device):
@@ -375,7 +547,8 @@ def phase_kernels(device):
                       lambda: fb.bwd_fixup_reference(y, dyp.clone(), a, b2, mean), rtol_of_max=1e-4, repeat=True)
         # both timed with a clone of dy_partial (the kernel writes in place); take it off
         clone_ms = time_ms(lambda: dyp.clone())
-        res = res._replace(ms=max(res.ms - clone_ms, 0.0), plain_ms=max(res.plain_ms - clone_ms, 0.0))
+        res = res._replace(ms=max(res.ms - clone_ms, 0.0), plain_ms=max(res.plain_ms - clone_ms, 0.0),
+                           device_ms=less(res.device_ms, device_ms(lambda: dyp.clone())))
         rows["bwd_fixup"].add(shape, res, 3 * y_bytes, 3.0 * y.numel())
         print(f"  K2b bwd_fixup {shape}: clone of dy_partial {clone_ms:.4f} ms taken off both times")
 
@@ -390,7 +563,228 @@ def phase_kernels(device):
                 raise AssertionError(f"K2b Function {shape}: {name} error {err} exceeds {limit}")
         del y, dout, mask, dyp, leaves, ref, pooled
         torch.cuda.empty_cache()
-    return rows
+    helpers = entry_kernels(device, rows, rng)
+    return rows, helpers
+
+
+def entry_kernels(device, rows, rng):
+    """Phase 3 for the entry-block family at the flagship block-1 shape:
+    x [B, 864, 64] -> y [B, 864, 64, 64] -> pooled [B, 432, 16, 64]. Returns
+    the helper kernels' readings (kernels no path runs)."""
+    import torch
+    import torch.nn.functional as F
+
+    from dcase2019_task4_tpu_torch.config import Config
+    from dcase2019_task4_tpu_torch.models import layers as L
+    from dcase2019_task4_tpu_torch.ops import crows_block as cr
+    from dcase2019_task4_tpu_torch.ops import entry_conv as ec
+    from dcase2019_task4_tpu_torch.ops import fused_block as fb
+    from dcase2019_task4_tpu_torch.ops import fused_entry_block as fe
+
+    cfg = Config()
+    d, m = cfg.dsp, cfg.model
+    B, T, Fq, C = cfg.train.batch_size, d.max_frames, d.n_mels, m.nb_filters[0]
+    pool, eps, rate = tuple(m.pooling[0]), m.bn_eps, m.dropout
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    x = t(rng.standard_normal((B, T, Fq)))
+    lim = np.sqrt(2.0) * np.sqrt(6.0 / (9 * (1 + C)))
+    conv = {"w": t(rng.uniform(-lim, lim, (3, 3, 1, C))), "b": t(0.1 * rng.standard_normal(C))}
+    scale, bias = t(1 + 0.1 * rng.standard_normal(C)), t(0.1 * rng.standard_normal(C))
+    gw, gb = t(rng.standard_normal((C, C)) / np.sqrt(C)), t(0.1 * rng.standard_normal(C))
+    run_mean, run_var = t(0.2 * rng.standard_normal(C)), t(rng.uniform(0.5, 2.0, C))
+    dy = t(rng.standard_normal((B, T, Fq, C)))
+    dout = t(rng.standard_normal((B, T // pool[0], Fq // pool[1], C)))
+    seed = torch.tensor([20190415], dtype=torch.int64)
+    pixels = B * T * Fq
+    shape = [B, T, Fq, C]
+    x_bytes, y_bytes, out_bytes = x.numel() * 4, pixels * C * 4, dout.numel() * 4
+    small = (10 * C + C * C + 5 * C) * 4
+    conv_ops, mix_ops = 2.0 * 9 * pixels * C, 2.0 * pixels * C * C
+    # What the function needs beside the nine-tap and C×C products, per element
+    # of the [pixels, C] conv output, one count per step of the chain:
+    #   up to lin: conv bias 1, x̂ = (y − mean)·inv 2, xn = x̂·γ + β 2,
+    #     σ(xn) = 1 / (1 + exp(−xn)) 4, lin + glu_b 1                          = 10
+    #   forward: g = lin·σ 1, pooling sum 1 (= 12); dropout compare and scale 2 (= 14)
+    #   back to dxn: dout·mask·scale 2, dlin = dg·σ 1, dσ = dg·lin 1,
+    #     σ' = σ·(1 − σ) 2, dxn = dlin·Wᵀ + dσ·σ' 2                             = 8
+    #   pass 1 sums: d glu_b 1, S1 1, S2 = Σdxn·x̂ 2                            = 4
+    #   pass 2: dy = inv·γ·dxn − a − (y − mean)·b2 5, d conv_b 1               = 6
+    # A kernel's own recomputation (y again for x̂ or dy) is not the function's.
+    elements = float(pixels * C)
+    fwd_eval_ops, fwd_train_ops = (10 + 2) * elements, (10 + 2 + 2) * elements
+    pass1_ops, pass2_ops = (10 + 8 + 4) * elements, (10 + 8 + 6) * elements
+    w_oihw = conv["w"].permute(3, 2, 0, 1).contiguous()
+    x_cl = x[:, None].contiguous(memory_format=torch.channels_last)  # NCHW view of one channel
+    dy_cl = dy.permute(0, 3, 1, 2)  # NCHW view in channels-last memory
+
+    # K4f: y, and the sums of y as stored
+    res = compare(f"K4f entry_conv {shape} (y, sum, sum of squares)", lambda: ec.entry_conv_forward(conv, x),
+                  lambda: ec.entry_conv_reference(conv, x), tols=[("abs", 1e-5), ("max", 1e-5), ("max", 1e-5)],
+                  repeat=True, library_fn=lambda: F.conv2d(x_cl, w_oihw, conv["b"], padding=1))
+    rows["entry_conv"].add(shape, res, x_bytes + y_bytes + small, conv_ops + 3.0 * pixels * C)
+    y, s1, s2 = ec.entry_conv_forward(conv, x)
+    res = compare(f"K5s entry_block_stats {shape} (sum, sum of squares; y not written)",
+                  lambda: fe.entry_block_stats_apply(conv, x), lambda: ec.entry_conv_reference(conv, x)[1:],
+                  rtol_of_max=1e-5, repeat=True)
+    rows["entry_block_stats"].add(shape, res, x_bytes + small, conv_ops + 3.0 * pixels * C)
+    # both held to K2s on the stored y: the running variance is sum y^2 / n - mean^2
+    k2s = fb.batch_stats(y)
+    for name, sums in (("K4f", (s1, s2)), ("K5s", fe.entry_block_stats_apply(conv, x))):
+        for got, want in zip(sums, k2s):
+            err, limit = (got - want).abs().max().item(), 1e-6 * want.abs().max().item()
+            if not err <= limit:
+                raise AssertionError(f"{name} sums against batch_stats(y): {err} exceeds {limit}")
+    print("  K4f and K5s sums equal K2s batch_stats(y) within 1e-6 of max")
+    n = float(pixels)
+    mean = s1 / n
+    var = s2 / n - mean * mean
+
+    # the library as the default path reaches it: autograd through the model's
+    # own conv (`layers.conv2d`), which gives dW and db in one backward call
+    w_leaf, b_leaf = w_oihw.clone().requires_grad_(True), conv["b"].clone().requires_grad_(True)
+    y_graph = L.conv2d(w_leaf, b_leaf, x[..., None])
+
+    def library_wgrad():
+        return torch.autograd.grad(y_graph, (w_leaf, b_leaf), dy, retain_graph=True)
+
+    (lib_dw, lib_db), (dw, db) = library_wgrad(), ec.entry_conv_wgrad(x, dy)
+    for what, got, want in (("dW", dw, lib_dw.permute(2, 3, 1, 0)), ("db", db, lib_db)):  # OIHW → HWIO
+        err, limit = (got - want).abs().max().item(), 1e-4 * want.abs().max().item()
+        if not err <= limit:
+            raise AssertionError(f"K4w {what} against autograd through layers.conv2d: {err} exceeds {limit}")
+    res = compare(f"K4w entry_conv_wgrad {shape} (dW, db)", lambda: ec.entry_conv_wgrad(x, dy),
+                  lambda: ec.entry_conv_wgrad_reference(x, dy), rtol_of_max=1e-4, repeat=True,
+                  library_fn=library_wgrad)
+    rows["entry_conv_wgrad"].add(shape, res, x_bytes + y_bytes + small, conv_ops + 1.0 * pixels * C)
+    alone = lambda: torch.nn.grad.conv2d_weight(x_cl, w_oihw.shape, dy_cl, padding=1)  # noqa: E731
+    print(f"  K4w library: autograd through layers.conv2d (dW and db) {res.library_ms:.4f} ms "
+          f"({shown(res.library_device_ms)} on the device); torch.nn.grad.conv2d_weight called alone (dW only) "
+          f"{time_ms(alone):.4f} ms ({shown(device_ms(alone))} on the device)")
+    del dy, dy_cl, y_graph, w_leaf, b_leaf
+
+    # K5f: eval (running statistics, rate 0) and train (batch statistics, dropout)
+    block = (conv["w"], conv["b"], scale, bias)
+    res = compare(f"K5f entry_block_fwd eval {shape}",
+                  lambda: fe.entry_block_fwd(x, *block, run_mean, run_var, gw, gb, pool, eps),
+                  lambda: fe.reference_entry_block(x, *block, run_mean, run_var, gw, gb, pool, eps), atol=1e-5)
+    rows["entry_block_fwd_eval"].add(shape, res, x_bytes + out_bytes + small, conv_ops + mix_ops + fwd_eval_ops)
+    mask = fb.dropout_keep_mask(seed, shape, rate, device=device)
+    res = compare(f"K5f entry_block_fwd train rate {rate} {shape}",
+                  lambda: fe.entry_block_fwd(x, *block, mean, var, gw, gb, pool, eps, rate=rate, seed=seed),
+                  lambda: fe.reference_entry_block(x, *block, mean, var, gw, gb, pool, eps, mask, 1.0 - rate),
+                  atol=1e-5)
+    rows["entry_block_fwd_train"].add(shape, res, x_bytes + out_bytes + small, conv_ops + mix_ops + fwd_train_ops)
+    for r in (0.0, rate):  # the same mask as K2f: F.conv2d -> K2f with that seed
+        fused = fe.entry_block_fwd(x, *block, mean, var, gw, gb, pool, eps, rate=r, seed=seed)
+        pair = fb.fused_bn_glu_pool(ec.entry_conv_reference(conv, x)[0], scale, bias, mean, var, gw, gb, pool, eps,
+                                    rate=r, seed=seed)
+        err = (fused - pair).abs().max().item()
+        if not err <= 1e-5:
+            raise AssertionError(f"K5f rate {r} against F.conv2d -> K2f with the same seed: {err} exceeds 1e-5")
+        print(f"  K5f rate {r} equals F.conv2d -> K2f with the same seed within {err:.3e} (limit 1e-5)")
+    del fused, pair, y
+
+    # K5b1, K5b2: the two backward passes with the host-side step between them
+    args = (x, dout, *block, mean, var, gw, gb)
+    res = compare(f"K5b1 entry_block_bwd_reduce rate {rate} {shape} (d glu_w, d glu_b, S1, S2)",
+                  lambda: fe.entry_block_bwd_reduce(*args, pool, eps, rate=rate, seed=seed),
+                  lambda: fe.entry_block_bwd_reduce_reference(*args, pool, eps, mask, 1.0 - rate),
+                  rtol_of_max=1e-4, repeat=True)
+    rows["entry_block_bwd_reduce"].add(shape, res, x_bytes + out_bytes + 2 * small,
+                                       conv_ops + 3 * mix_ops + pass1_ops)  # conv; lin, dxn, d glu_w
+    dgw, dgb, r1, r2 = fe.entry_block_bwd_reduce(*args, pool, eps, rate=rate, seed=seed)
+    a, b2 = fb.bwd_coefficients(scale, var, eps, r1, r2, pixels)
+
+    def exact_wgrad():
+        """Pass 2 in float64. d conv_b is zero in exact arithmetic (a shift of
+        the conv bias cancels in the normalisation): the gauge-leaf rule holds
+        it, 1e-4 of its max plus 1e-6 of the block's largest gradient."""
+        dbl = [v.double() for v in (*args, a, b2)]
+        dw64, dcb64 = fe.entry_block_bwd_wgrad_reference(*dbl, pool, eps, mask.double(), 1.0 - rate)
+        top = max(v.abs().max().item() for v in (dw64, dgw, dgb, r1, r2))
+        return (dw64, dcb64), (0.0, GRAD_FLOOR * top)
+
+    res = compare(f"K5b2 entry_block_bwd_wgrad rate {rate} {shape} (dW, d conv_b against float64)",
+                  lambda: fe.entry_block_bwd_wgrad(*args, a, b2, pool, eps, rate=rate, seed=seed),
+                  lambda: fe.entry_block_bwd_wgrad_reference(*args, a, b2, pool, eps, mask, 1.0 - rate),
+                  rtol_of_max=1e-4, repeat=True, exact_fn=exact_wgrad)
+    rows["entry_block_bwd_wgrad"].add(shape, res, x_bytes + out_bytes + 2 * small,
+                                      2 * conv_ops + 2 * mix_ops + pass2_ops)  # conv, dW; lin, dxn
+
+    # K6: the crows entries themselves at this shape (their gate, their
+    # counting, the autograd Function under them): bit for bit what K5's
+    # wrappers give, and held to the plain versions on their own
+    def same_bits(what, outs, wants):
+        for out, want in zip(outs, wants):
+            if not torch.equal(out, want):
+                raise AssertionError(f"{what} differs from the fused entry block's own wrapper")
+
+    def held(what, outs, refs, floors=None):
+        """→ (largest error, its limit): each output within 1e-4 of its
+        reference's max, plus its floor."""
+        worst, worst_limit = 0.0, 0.0
+        for out, ref, floor in zip(outs, refs, floors or [0.0] * len(outs)):
+            err, limit = (out - ref).abs().max().item(), 1e-4 * ref.abs().max().item() + floor
+            if not err <= limit:
+                raise AssertionError(f"{what}: max abs error {err} exceeds {limit}")
+            if err >= worst:
+                worst, worst_limit = err, limit
+        return worst, worst_limit
+
+    res = compare(f"K6 crows_stats_apply {shape} (sum, sum of squares)", lambda: cr.crows_stats_apply(conv, x),
+                  lambda: ec.entry_conv_reference(conv, x)[1:], rtol_of_max=1e-5, repeat=True)
+    rows["crows_stats"].add(shape, res, x_bytes + small, conv_ops + 3.0 * pixels * C)
+    same_bits("crows_stats_apply", cr.crows_stats_apply(conv, x), fe.entry_block_stats_apply(conv, x))
+    crows_fwd = lambda: cr.crows_apply(conv, scale, bias, mean, var, gw, gb, x, seed, rate, pool, eps, True)  # noqa: E731
+    res = compare(f"K6 crows_apply forward rate {rate} {shape}", crows_fwd,
+                  lambda: fe.reference_entry_block(x, *block, mean, var, gw, gb, pool, eps, mask, 1.0 - rate),
+                  atol=1e-5)
+    rows["crows_fwd"].add(shape, res, x_bytes + out_bytes + small, conv_ops + mix_ops + fwd_train_ops)
+    same_bits("crows_apply forward", [crows_fwd()],
+              [fe.entry_block_fwd(x, *block, mean, var, gw, gb, pool, eps, rate=rate, seed=seed)])
+    leaves = [v.clone().requires_grad_(True) for v in (*block, gw, gb)]
+    cr.crows_apply({"w": leaves[0], "b": leaves[1]}, leaves[2], leaves[3], mean, var, leaves[4], leaves[5], x, seed,
+                   rate, pool, eps, True).backward(dout)
+    dw_c, dcb_c, dscale_c, dbias_c, dgw_c, dgb_c = (leaf.grad for leaf in leaves)
+    pass1, pass2 = (dgw_c, dgb_c, dbias_c, dscale_c), (dw_c, dcb_c)  # d bias = S1, d scale = S2
+    same_bits("crows_apply backward, pass 1", pass1, (dgw, dgb, r1, r2))
+    same_bits("crows_apply backward, pass 2", pass2,
+              fe.entry_block_bwd_wgrad(*args, a, b2, pool, eps, rate=rate, seed=seed))
+    exact, floors = exact_wgrad()
+    crows_errs = {
+        "crows_bwd_reduce": held("crows_apply backward, pass 1", pass1,
+                                 fe.entry_block_bwd_reduce_reference(*args, pool, eps, mask, 1.0 - rate)),
+        "crows_bwd_wgrad": held("crows_apply backward, pass 2 (against float64)", [v.double() for v in pass2],
+                                exact, floors),
+    }
+    for name, (err, limit) in crows_errs.items():
+        # the Function's backward launches both passes in one call: the
+        # errors are this call's, the times those of the same kernel above
+        rows[name] = copy.copy(rows[SAME_KERNEL[name]])
+        rows[name].err, rows[name].limit = err, limit
+        print(f"  K6 {name} {shape}: bit for bit as {SAME_KERNEL[name]}; err/limit {err:.3e}/{limit:.3e}")
+    del leaves, pass1, pass2, exact
+
+    # the keep-mask kernel (a test helper): bit-equal to dropout_keep_mask
+    got = fb.dropout_mask(seed, shape, rate, device)
+    if not torch.equal(got, mask):
+        raise AssertionError("dropout_mask kernel differs from dropout_keep_mask")
+    mask_err = (got.float() - mask.float()).abs().max().item()
+    mask_ms = time_ms(lambda: fb.dropout_mask(seed, shape, rate, device))
+    mask_device_ms = device_ms(lambda: fb.dropout_mask(seed, shape, rate, device))
+    plain_ms = time_ms(lambda: fb.dropout_keep_mask(seed, shape, rate, device=device), warmup=1, runs=3)
+    mask_bound, _ = bound_ms(y_bytes, 0.0)
+    print(f"  dropout_mask {shape}: bit-equal to dropout_keep_mask ({int(got.sum().item())} kept); "
+          f"kernel {mask_ms:.4f} ms ({shown(mask_device_ms)} ms of it on the device), plain {plain_ms:.4f} ms, "
+          f"bound {mask_bound:.4f} ms (bytes)")
+    del got, mask
+    torch.cuda.empty_cache()
+    return [{"name": "dropout_mask", "route": "cuda", "source": CSRC + "entry_block.cu",
+             "replaces": "tests/test_fused_block.py:189", "launches": None, "max_abs_err": mask_err, "ms": mask_ms,
+             "device_ms": mask_device_ms, "plain_ms": plain_ms, "bound_ms": mask_bound, "bound_by": "bytes", "library_ms": None}]
 
 
 def make_clips(n: int, rng):
@@ -435,8 +829,10 @@ def fit_scaler(frontend, audio_i16, frames, device):
 
 
 def write_inputs(workdir: str, device):
-    """48 synthetic wavs, and a checkpoint of a seeded flagship CRNN whose
-    scaler is fitted on the first batch's log-mel features."""
+    """48 synthetic wavs, and two checkpoints of one seeded flagship CRNN
+    whose scaler is fitted on the first batch's log-mel features: one with
+    the default configuration, one whose stored configuration has
+    `entry_block_pallas=True` (the parameters are the same)."""
     from dcase2019_task4_tpu_torch.config import DEFAULT_CLASSES, Config
     from dcase2019_task4_tpu_torch.data.audio_io import write_wav
     from dcase2019_task4_tpu_torch.data.encoder import LabelCodec
@@ -455,18 +851,22 @@ def write_inputs(workdir: str, device):
 
     model = seeded_init_(CRNN(cfg.model), SEED)
     params, bn_state = ckpt.params_to_jax(model)
-    meta = {
-        "epoch": 0,
-        "valid_metric": {},
-        "pooling_time_ratio": cfg.model.pooling_time_ratio,
-        "scaler": scaler,
-        "many_hot_encoder": LabelCodec(DEFAULT_CLASSES, d.max_frames // cfg.model.pooling_time_ratio).state_dict(),
-        "config": dataclasses.asdict(cfg),
-        "mean_teacher": True,
-    }
-    path = os.path.join(workdir, "model.npz")
-    ckpt.save_inference_checkpoint(path, params, bn_state, meta)
-    return wav_dir, path
+    paths = []
+    for name, stored in (("model.npz", cfg),
+                         ("model_entry_block.npz",
+                          dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, entry_block_pallas=True)))):
+        meta = {
+            "epoch": 0,
+            "valid_metric": {},
+            "pooling_time_ratio": cfg.model.pooling_time_ratio,
+            "scaler": scaler,
+            "many_hot_encoder": LabelCodec(DEFAULT_CLASSES, d.max_frames // cfg.model.pooling_time_ratio).state_dict(),
+            "config": dataclasses.asdict(stored),
+            "mean_teacher": True,
+        }
+        paths.append(os.path.join(workdir, name))
+        ckpt.save_inference_checkpoint(paths[-1], params, bn_state, meta)
+    return wav_dir, paths[0], paths[1]
 
 
 def read_tsv(path):
@@ -480,7 +880,7 @@ def phase_predict(device, card: str):
     from dcase2019_task4_tpu_torch import cli
 
     with tempfile.TemporaryDirectory() as work:
-        wav_dir, model = write_inputs(work, device)
+        wav_dir, model, model_entry_block = write_inputs(work, device)
         out, tags = os.path.join(work, "events.tsv"), os.path.join(work, "tags.tsv")
         argv = ["-m", model, "-i", wav_dir, "-p", out, "--weak_fname", tags]
 
@@ -514,7 +914,30 @@ def phase_predict(device, card: str):
         print(f"  CUDA vs CPU (plain versions) strong max abs diff: {diff:.3e} (limit {STRONG_TOL})")
         if not diff <= STRONG_TOL:
             raise AssertionError(f"CUDA and CPU strong probabilities differ by {diff}")
-    return launches, clips_per_s
+
+        # the same weights, stored with entry_block_pallas=True: the checkpoint's
+        # configuration alone selects the fused first block
+        argv = ["-m", model_entry_block, "-i", wav_dir, "-p", out, "--weak_fname", tags]
+        zero_launches()
+        res = cli.predict(argv + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        launches_entry = read_launches()
+        print(f"  launches during predict with entry_block_pallas=True in the checkpoint: {launches_entry}")
+        check_launches(launches_entry, PREDICT_ENTRY_BLOCK, 1, "the predict run with the fused first block")
+        if res["strong"].shape != strong.shape or not np.isfinite(res["strong"]).all():
+            raise AssertionError(f"strong probabilities with the fused first block: shape {res['strong'].shape}")
+        cpu_entry = cli.predict(argv + ["--device", "cpu"])
+        for what, other in (("the default configuration on the card", strong), ("its own CPU run", cpu_entry["strong"])):
+            diff = float(np.abs(res["strong"] - other).max())
+            print(f"  fused first block vs {what}: strong max abs diff {diff:.3e} (limit {STRONG_TOL})")
+            if not diff <= STRONG_TOL:
+                raise AssertionError(f"strong probabilities with the fused first block differ from {what} by {diff}")
+        t0 = time.perf_counter()
+        cli.predict(argv + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        print(f"  warm CUDA predict with the fused first block: {N_CLIPS / (time.perf_counter() - t0):.2f} clips/s "
+              f"({clips_per_s:.2f} with the default configuration) on {card}")
+    return {"predict": launches, "predict_entry_block": launches_entry}, clips_per_s
 
 
 def train_batch(cfg, n_weak: int, n_unlabel: int, n_strong: int):
@@ -649,8 +1072,10 @@ def phase_train(device, card: str):
         card_ms.append(1e3 * (time.perf_counter() - t0))
     if not all(np.isfinite(v.item()) for v in metrics.values()):
         raise AssertionError("a training metric is not finite with the generator on the card")
-    print(f"  MT step with the generator on the card: {float(np.median(card_ms[1:])):.3f} ms per step "
+    default_card_ms = float(np.median(card_ms[1:]))
+    print(f"  MT step with the generator on the card: {default_card_ms:.3f} ms per step "
           f"(median of {TRAIN_STEPS - 1}; {warm_ms:.3f} ms with the CPU generator) on {card}")
+    default_block1 = block1_device_ms(step, state, batch, card_generator, acc, "step", card)
 
     # steps 1 and 2 again on the CPU: plain versions, same state, same generator seed
     cpu_state = steps.TrainState(base.student, base.teacher, base.optimizer)
@@ -661,22 +1086,96 @@ def phase_train(device, card: str):
     print(f"  CPU step 1 (plain versions): {time.perf_counter() - t0:.1f} s")
     compare_metrics(1, history[0], cpu_metrics)
     names = [n for n, _ in cpu_state.student.named_parameters()]
-    cpu_grads = dict(zip(names, (p.grad.detach().clone() for p in cpu_state.student.parameters())))
-    gpu_grads = dict(zip(names, first_grads))
-    # Every leaf within 1e-4 of its own max. The gauge leaves alone get a
-    # float32 noise floor of 1e-6 of the step's largest gradient on top: a conv
-    # bias ahead of a BatchNorm has a zero gradient in exact arithmetic, and
-    # the attention head's logits (near-uniform softmax at this init) have
-    # sums that cancel almost completely, so what float32 leaves there is
-    # rounding noise of the terms summed. Those are held in function space
-    # instead: Adam divides such noise by its own size and moves these leaves
-    # by about the learning rate in either run, and step 2, taken after that
-    # update, must give the same loss and metrics in both.
-    top = max(g.abs().max().item() for g in cpu_grads.values())
+    cpu_grads = [p.grad.detach().clone() for p in cpu_state.student.parameters()]
+    worst, worst_gauge = compare_step1_gradients(names, cpu_grads, first_grads, "CUDA against CPU")
+    t0 = time.perf_counter()
+    cpu_state, cpu_metrics2, cpu_acc = cpu_step(cpu_state, cpu_batch, cpu_generator, cpu_acc)
+    print(f"  CPU step 2 (plain versions, after the first update): {time.perf_counter() - t0:.1f} s")
+    compare_metrics(2, history[1], cpu_metrics2)
+    print(f"  CUDA vs CPU: step 1 loss {history[0]['loss']:.6f} vs {cpu_metrics['loss'].item():.6f}, "
+          f"step 2 loss {history[1]['loss']:.6f} vs {cpu_metrics2['loss'].item():.6f} (limit {TRAIN_TOL}); "
+          f"worst gradient leaf at {worst:.2f} of its limit ({TRAIN_TOL} of its max), worst gauge leaf at "
+          f"{worst_gauge:.2f} of its ({TRAIN_TOL} of its max + {GRAD_FLOOR} of the largest)")
+    all_launches = {"step": launches}
+
+    # the same state, batch and seeds under each first-block configuration
+    for path, n_steps, cpu_check in (("step_entry_block", TRAIN_STEPS, True), ("step_crows", 3, False),
+                                     ("step_entry_conv", 3, False)):
+        flag = FIRST_BLOCK_FLAGS[path]
+        print(f"  -- {flag}=True: {n_steps} steps from the same state, batch and generator seed")
+        model_cfg = dataclasses.replace(cfg.model, **{flag: True})
+        fresh = steps.init_train_state(model_cfg, adam, torch.Generator().manual_seed(SEED))
+        st = steps.TrainState(copy.deepcopy(fresh.student).to(device), copy.deepcopy(fresh.teacher).to(device), None)
+        st.optimizer = adam(st.student.parameters())
+        gen, acc2 = torch.Generator().manual_seed(SEED + 2), step.zero_metrics(device)
+        hist, grads1 = [], None
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        for i in range(n_steps):
+            st, metrics, acc2 = step(st, batch, gen, acc2)
+            torch.cuda.synchronize()
+            hist.append({k: v.item() for k, v in metrics.items()})
+            print(f"  step {i + 1}: " + ", ".join(f"{k} {v:.5f}" for k, v in hist[-1].items()))
+            if i == 0:
+                grads1 = [p.grad.detach().cpu().clone() for p in st.student.parameters()]
+        all_launches[path] = read_launches()
+        print(f"  launches during {n_steps} steps with {flag}: {all_launches[path]}")
+        check_launches(all_launches[path], PATHS[path], n_steps, f"{n_steps} train steps with {flag}")
+        if not all(np.isfinite(v) for h in hist for v in h.values()):
+            raise AssertionError(f"a training metric is not finite with {flag}")
+        if not hist[-1]["loss"] < hist[0]["loss"]:
+            raise AssertionError(f"loss did not fall with {flag}: {hist[0]['loss']} -> {hist[-1]['loss']}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        # step 1 against the default configuration's step 1 on the card
+        for k, v in history[0].items():
+            if not abs(v - hist[0][k]) <= TRAIN_TOL:
+                raise AssertionError(f"step 1 {k} with {flag}: {hist[0][k]} vs default {v}")
+        w, wg = compare_step1_gradients(names, first_grads, grads1, f"{flag} against the default configuration")
+        print(f"  {flag}: step 1 loss {hist[0]['loss']:.6f} (default {history[0]['loss']:.6f}), loss after {n_steps} "
+              f"steps {hist[-1]['loss']:.6f}; worst gradient leaf at {w:.2f} of its limit, worst gauge leaf at "
+              f"{wg:.2f}; peak device memory {peak:.0f} MiB")
+        if cpu_check:
+            cpu_st = steps.TrainState(fresh.student, fresh.teacher, fresh.optimizer)
+            t0 = time.perf_counter()
+            cpu_st, cpu_m, _ = cpu_step(cpu_st, cpu_batch, torch.Generator().manual_seed(SEED + 2), cpu_step.zero_metrics())
+            print(f"  CPU step 1 with {flag} (plain versions): {time.perf_counter() - t0:.1f} s")
+            compare_metrics(1, hist[0], cpu_m)
+            compare_step1_gradients(names, [p.grad.detach().clone() for p in cpu_st.student.parameters()], grads1,
+                                    f"{flag}, CUDA against CPU")
+        gen_card, ms = torch.Generator(device=device).manual_seed(SEED + 3), []
+        for _ in range(max(n_steps, 4)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, metrics, acc2 = step(st, batch, gen_card, acc2)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        if not all(np.isfinite(v.item()) for v in metrics.values()):
+            raise AssertionError(f"a training metric is not finite with {flag} and the generator on the card")
+        print(f"  MT step with {flag} and the generator on the card: {float(np.median(ms[1:])):.3f} ms per step "
+              f"(median of {len(ms) - 1}; default configuration {default_card_ms:.3f} ms) on {card}")
+        block1 = block1_device_ms(step, st, batch, gen_card, acc2, path, card)
+        print(f"  block 1 device time in one step: {shown(block1, 3)} ms with {flag}, {shown(default_block1, 3)} ms default, on {card}")
+        del st, fresh
+        torch.cuda.empty_cache()
+    return all_launches, warm_ms
+
+
+def compare_step1_gradients(names, want, got, what: str):
+    """Every leaf within 1e-4 of its own max. The gauge leaves alone get a
+    float32 noise floor of 1e-6 of the step's largest gradient on top: a conv
+    bias ahead of a BatchNorm has a zero gradient in exact arithmetic, and
+    the attention head's logits (near-uniform softmax at this init) have
+    sums that cancel almost completely, so what float32 leaves there is
+    rounding noise of the terms summed. Those are held in function space
+    instead: Adam divides such noise by its own size and moves these leaves
+    by about the learning rate in either run, and step 2, taken after that
+    update, must give the same loss and metrics in both.
+    → (worst leaf, worst gauge leaf) as shares of their limits."""
+    top = max(g.abs().max().item() for g in want)
     worst, worst_gauge, failures = 0.0, 0.0, []
-    print(f"  step 1 gradients, CUDA against CPU (largest gradient {top:.3e}):")
-    for name in names:
-        a, b = cpu_grads[name], gpu_grads[name]
+    print(f"  step 1 gradients, {what} (largest gradient {top:.3e}):")
+    for name, a, b in zip(names, want, got):
+        a, b = a.cpu(), b.cpu()
         err, own = (a - b).abs().max().item(), a.abs().max().item()
         gauge = is_gauge_leaf(name)
         limit = TRAIN_TOL * own + (GRAD_FLOOR * top if gauge else 0.0)
@@ -687,38 +1186,87 @@ def phase_train(device, card: str):
         else:
             worst = max(worst, err / max(limit, 1e-300))
         if not err <= limit:
-            failures.append(f"{name}: CUDA and CPU differ by {err:.3e} (limit {limit:.3e})")
+            failures.append(f"{name}: differ by {err:.3e} (limit {limit:.3e})")
     if failures:
-        raise AssertionError("step 1 gradients:\n  " + "\n  ".join(failures))
-    t0 = time.perf_counter()
-    cpu_state, cpu_metrics2, cpu_acc = cpu_step(cpu_state, cpu_batch, cpu_generator, cpu_acc)
-    print(f"  CPU step 2 (plain versions, after the first update): {time.perf_counter() - t0:.1f} s")
-    compare_metrics(2, history[1], cpu_metrics2)
-    print(f"  CUDA vs CPU: step 1 loss {history[0]['loss']:.6f} vs {cpu_metrics['loss'].item():.6f}, "
-          f"step 2 loss {history[1]['loss']:.6f} vs {cpu_metrics2['loss'].item():.6f} (limit {TRAIN_TOL}); "
-          f"worst gradient leaf at {worst:.2f} of its limit ({TRAIN_TOL} of its max), worst gauge leaf at "
-          f"{worst_gauge:.2f} of its ({TRAIN_TOL} of its max + {GRAD_FLOOR} of the largest)")
-    return launches, warm_ms
+        raise AssertionError(f"step 1 gradients, {what}:\n  " + "\n  ".join(failures))
+    return worst, worst_gauge
+
+
+# Kernels of block 1 in one profiled MT step, by first-block configuration:
+# (substring of the kernel's name, launches that belong to block 1). K2's
+# kernels run for all three blocks; block 1's activation is eight times the
+# next one's, so its launches are the longest of each name.
+BLOCK1_KERNELS = {
+    "step": (("bn_glu_pool_kernel", 2), ("bn_glu_pool_bwd_kernel", 1), ("bn_bwd_fixup_kernel", 1), ("stats_kernel", 2)),
+    "step_entry_block": (("entry_conv_kernel", 2), ("entry_block_fwd_kernel", 2), ("entry_block_bwd_reduce_kernel", 1),
+                         ("entry_block_bwd_wgrad_kernel", 1)),
+    "step_entry_conv": (("entry_conv_kernel", 2), ("entry_conv_wgrad_kernel", 1), ("bn_glu_pool_kernel", 2),
+                        ("bn_glu_pool_bwd_kernel", 1), ("bn_bwd_fixup_kernel", 1)),
+}
+BLOCK1_KERNELS["step_crows"] = BLOCK1_KERNELS["step_entry_block"]
+
+
+def block1_device_ms(step, state, batch, generator, acc, path: str, card: str) -> Optional[float]:
+    """Device time of CRNN block 1 (teacher and student forward, student
+    backward) in one profiled step: its kernels by name, plus, in the default
+    configuration, what the cuDNN convolution operators spent on the device
+    (forward ×2 and the weight gradient). A reading, printed per item; None
+    when the profiler gave no trace with all of block 1's kernels."""
+    from torch.autograd import DeviceType
+
+    def kernels_of(prof):
+        return [(e.name, event_us(e)) for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    def complete(prof):
+        names = [name for name, _ in kernels_of(prof)]
+        return all(sum(pattern in name for name in names) >= count for pattern, count in BLOCK1_KERNELS[path])
+
+    prof = profiled(lambda: step(state, batch, generator, acc), with_host=True, complete=complete)
+    if prof is None:
+        print(f"  block 1 in one step ({path}, {card}): not measured")
+        return None
+    launches = kernels_of(prof)
+    total, items = 0.0, []
+    for pattern, count in BLOCK1_KERNELS[path]:
+        times = sorted((us for name, us in launches if pattern in name), reverse=True)
+        if len(times) < count:
+            raise AssertionError(f"block 1 of {path}: {len(times)} launches of {pattern} in the profile, expected >= {count}")
+        ms = sum(times[:count]) / 1e3
+        total += ms
+        items.append(f"{pattern} ×{count} {ms:.3f}")
+    if path == "step":
+        for op in ("aten::cudnn_convolution", "aten::convolution_backward"):
+            found = [e for e in prof.key_averages() if e.key == op]
+            ms = sum(float(getattr(e, "device_time_total", 0.0) or getattr(e, "cuda_time_total", 0.0)) for e in found) / 1e3
+            total += ms
+            items.append(f"{op} ×{sum(e.count for e in found)} {ms:.3f}" if found else f"{op} not measured")
+    print(f"  block 1 in one step ({path}, {card}): {total:.3f} ms = " + " + ".join(items))
+    return total
 
 
 def profile_step(step, state, batch, generator, acc, card: str, step_ms: float, noise_shape):
     """torch.profiler over one warm step: device time by kernel (kernel
     events only: an operator's row repeats the time of the kernels it
-    launched), and the device's idle share of an unprofiled step."""
+    launched), and the device's idle share of an unprofiled step. Prints
+    "not measured" when the profiler gave no trace."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    wall = []
+
+    def timed_step():
+        t0 = time.perf_counter()
         step(state, batch, generator, acc)
         torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - t0)
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        wall.append(1e3 * (time.perf_counter() - t0))
+
+    prof = profiled(timed_step, with_host=True)
+    events = [] if prof is None else [e for e in prof.key_averages()
+                                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not events:
-        raise AssertionError("torch.profiler recorded no device time")
+        print(f"  profile of one warm step on {card}: not measured")
+        return
+    wall_ms = wall[-1]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     print(f"  profile of one warm step on {card}: wall {wall_ms:.2f} ms (profiler on), "
           f"device busy {busy_ms:.3f} ms in {sum(e.count for e in events)} kernels and copies = "
@@ -768,32 +1316,41 @@ def main() -> int:
     _build.library()
 
     print("== phase 3: kernels against their plain versions (float32, TF32 off)")
-    rows = phase_kernels(device)
+    rows, helpers = phase_kernels(device)
+    from dcase2019_task4_tpu_torch.ops import fused_block
+
+    fused_block.dropout_mask.launches = 0  # a test helper: phases 4 and 5 may not launch it
 
     print("== phase 4: predict through the CLI")
-    predict_launches, clips_per_s = phase_predict(device, card)
+    launches, clips_per_s = phase_predict(device, card)
 
     print("== phase 5: Mean-Teacher training steps")
     train_launches, step_ms = phase_train(device, card)
+    launches.update(train_launches)
 
     report = []
     for name, (src, replaces) in KERNELS.items():
         row = rows[name]
-        on_path = predict_launches[name] if name in PREDICT_MIN else train_launches[name]
+        on_path = launches[ROW_PATH[name]][name]
         if on_path < 1:
-            raise AssertionError(f"{name} was launched no time on its path")
+            raise AssertionError(f"{name} was launched no time on its path ({ROW_PATH[name]})")
         report.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": on_path, "max_abs_err": row.err, "err_limit": row.limit,
-            "ms": row.ms, "plain_ms": row.plain_ms,
+            "ms": row.ms, "device_ms": row.device_ms, "plain_ms": row.plain_ms,
             "bound_ms": row.bound, "bound_by": row.bound_by, "library_ms": row.library_ms,
-            "bound_by_shape": row.shapes,
-            "launches_predict": predict_launches[name], "launches_train": train_launches[name],
+            "library_device_ms": row.library_device_ms, "bound_by_shape": row.shapes, "path": ROW_PATH[name],
+            "launches_by_path": {path: counts[name] for path, counts in launches.items()},
         })
+        if name in SAME_KERNEL:
+            report[-1]["same_kernel_as"] = SAME_KERNEL[name]
+    helpers[0]["launches"] = fused_block.dropout_mask.launches  # as counted over phases 4 and 5
+    if helpers[0]["launches"] != 0:
+        raise AssertionError(f"the keep-mask helper was launched {helpers[0]['launches']} times by a path")
     print(f"  predict clips/s (warm): {clips_per_s:.2f}; MT step {step_ms:.3f} ms on {card}; "
           f"whole script {time.perf_counter() - t_start:.0f} s")
     print(card)
-    print(json.dumps({"kernels": report}))
+    print(json.dumps({"kernels": report, "helpers": helpers}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))
     return 0

@@ -7,9 +7,13 @@ Mirrors the constants of the reference flat config module
 whole configuration travels with checkpoints and can be overridden per run.
 The 10 event classes are derived from the validation TSV, like the
 reference's import-time side effect (config.py:51), but lazily and with
-the standard library's csv reader. The TPU-only model switches
-(`fused_interpret`, `entry_conv_pallas`, `entry_block_pallas`,
-`entry_block_crows`) are kept as fields and read by nothing in the port.
+the standard library's csv reader. The three first-block switches keep the
+JAX package's names and select the port's kernels of the same functions
+(models/crnn.py): `entry_block_crows` and `entry_block_pallas` the fused
+first block (ops/crows_block.py, ops/fused_entry_block.py), and
+`entry_conv_pallas` the entry conv that also emits the batch statistics
+(ops/entry_conv.py). `fused_interpret` (Pallas interpret mode) is kept as a
+field and read by nothing in the port.
 """
 
 from __future__ import annotations
@@ -139,9 +143,14 @@ class ModelConfig:
     # fused BN→GLU→dropout→pool block (ops/fused_block.py):
     # True | False | None = auto (on with GLU)
     fused_block: "bool | None" = None
-    # Switches of the JAX package's Pallas variants. The port keeps the
-    # fields so that configs stored in checkpoints load; it reads none.
+    # Pallas interpret mode of the JAX package: kept so that configs stored
+    # in checkpoints load; the port reads it nowhere.
     fused_interpret: bool = False
+    # First-block variants, all off by default (block 1 = F.conv2d + the
+    # fused block). In order of precedence: the whole first block as fused
+    # kernels, under either name (crows: F = 64, time pool 2, even batch;
+    # pallas: any geometry the fused block takes), then the entry conv
+    # kernel that hands its Σy, Σy² to the fused block. Float32 only.
     entry_conv_pallas: bool = False
     entry_block_pallas: bool = False
     entry_block_crows: bool = False

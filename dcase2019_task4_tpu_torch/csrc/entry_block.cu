@@ -1,0 +1,987 @@
+// K4 / K5 / K6: the first CRNN block, conv 3x3 from ONE input channel ->
+// BatchNorm -> GLU -> dropout -> average pool, forward and backward, float32,
+// for Hopper (sm_90a).
+//
+// Replaces the Pallas kernels of
+//   dcase2019_task4_tpu/ops/entry_conv.py         _fwd_kernel, _wgrad_kernel
+//   dcase2019_task4_tpu/ops/fused_entry_block.py  _stats_kernel, _fwd_kernel,
+//                                                 _bwd_reduce_kernel, _bwd_wgrad_kernel
+//   dcase2019_task4_tpu/ops/crows_block.py        the same four functions with
+//                                                 channels on TPU sublanes
+// by one kernel family:
+//   entry_conv_kernel<MODE>        conv + bias, y stored, per-channel sum y and
+//                                  sum y^2 (K4f); MODE 1 compiles the store out
+//                                  (K5s / K6s: statistics of a y that is never
+//                                  written); MODE 2 and 3 are the ablations of
+//                                  tools/bench_entry_conv_torch.py
+//   entry_conv_wgrad_kernel        dW = patches^T . dy, db = sum dy (K4w)
+//   entry_block_fwd_kernel         conv -> BN -> GLU -> dropout -> pool (K5f)
+//   entry_block_bwd_reduce_kernel  recompute; d glu_w, d glu_b, S1, S2 (K5b1)
+//   entry_block_bwd_wgrad_kernel   recompute; dy in registers; dW, d conv_b (K5b2)
+//   dropout_mask_kernel            the keep-mask alone, for tests
+// The parity planes, the [12, 128] patch basis, the 8-row halo blocks, the
+// shifted row copies and lane rolls, the 0/1 pooling matrices and the
+// block-diagonal GLU weights of the originals are TPU layout and are not
+// carried over: the kernels read x [B, T, F] and logical [3, 3, 1, C], [C]
+// and [C, C] parameters. The features carry no gradient, so there is no dx.
+//
+// Function, per pixel (t, f) of clip b, channel c (zeros outside the tensor):
+//   y[c] = cb[c] + sum_{dt, df} x[t + dt - 1, f + df - 1] * w[dt, df, c]
+// then the chain of fused_block.cu (xh, xn, lin, sig, g, mask, pool) on y.
+// Backward, with dh, dlin, dxn as there, in two passes with a host-side step
+// between (a, b2 from the folded S1, S2):
+//   pass 1: d glu_w += xn^T . dlin; d glu_b += dlin; S1 += dxn; S2 += dxn * xh
+//   pass 2: dy = rsqrt(var + eps) * scale * dxn - a - (y - mean) * b2
+//           dW[dt, df, c] += x[t + dt - 1, f + df - 1] * dy[c]; d cb += dy
+// Neither y nor dy ever reaches device memory in K5. The dropout mask is the
+// one of fused_block.cu (chain.cuh): Philox4x32-10 on (seed, global element
+// index of [B, T, F, C] / 4), regenerated in both backward passes.
+//
+// Bound at the flagship shape (x [24, 864, 64], C = 64): K4f writes y (340 MB,
+// 0.10 ms at 3.35 TB/s) for 1.8 GFLOP: bytes. K4w reads dy: bytes. K5s moves
+// 5 MB for 1.8 GFLOP with the sums: operations (0.03 ms). K5f moves 48 MB for
+// the conv and one 64x64 channel product per pixel (13.4 GFLOP with the
+// elementwise chain, 0.20 ms at 67 TFLOP/s): operations. Pass 1 needs the
+// conv once and three channel products (lin, dxn, d glu_w: 36.0 GFLOP with
+// the chain, 0.54 ms), pass 2 the conv, dW and two products (lin, dxn:
+// 26.8 GFLOP, 0.40 ms): operations. Each kernel computes the conv once more
+// than that (y again for xh in pass 1, for dy in pass 2, to save a third
+// slab of shared memory); that recomputation is the kernel's, not the bound's.
+//
+// Design: one block per (run of pixel tiles, clip); a tile is whole time rows
+// of up to 128 pixels, whole pooling rows in the fused kernels (the tiling of
+// fused_block.cu). Per tile the block stages x with a one-cell halo, zeros
+// outside the tensor, into shared memory: (rows + 2) x (F + 2) floats. K4: a
+// thread owns four neighbouring channels (their 36 weights in registers) of
+// every (256 / (C / 4))-th pixel, stores y as float4 and sums in double. K5:
+// a thread owns the elements it owns in the channel products (8 pixels x 4
+// or 8 channels), computes their conv outputs from the staged tile with the
+// nine weights of one channel in registers, and writes xn into the slab the
+// products read; where y is needed again (xh for S2, dy in pass 2) it is
+// recomputed from the staged tile instead of being kept (a slab of y would
+// halve the blocks per SM). Sums across blocks go to one slot per block and
+// fold_kernel adds the slots in slot order in double: no float atomics, a run
+// repeats bit for bit. Plain FP32 FMAs: no TF32, no tensor cores yet.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "chain.cuh"
+#include "fold.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kPix = 128;       // pixels per tile
+constexpr int kHalo = 4 * kPix; // floats of a staged x tile: (rows + 2) * (F + 2) <= 390
+
+// Time rows per tile: whole pooling rows, up to kPix pixels (pt * F <= kPix).
+int rows_per_tile(int F, int pt) { return pt * (kPix / (pt * F)); }
+
+// x[b, t0 - 1 .. t0 + trows, -1 .. F] -> xt [trows + 2][F + 2], zeros outside.
+__device__ __forceinline__ void stage_x(float* xt, const float* __restrict__ x, int b, int T,
+                                        int F, int t0, int trows) {
+  const int FW = F + 2;
+  const int n = (trows + 2) * FW;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int r = i / FW, q = i % FW;
+    const int t = t0 - 1 + r, f = q - 1;
+    xt[i] = (t >= 0 && t < T && f >= 0 && f < F) ? x[((long long)b * T + t) * F + f] : 0.0f;
+  }
+}
+
+// One conv output: r points at the top-left cell of the pixel's 3x3 patch in
+// the staged tile (row stride FW); w holds one channel's nine taps.
+__device__ __forceinline__ float conv9(const float* r, int FW, const float (&w)[9], float cb) {
+  float y = cb;
+#pragma unroll
+  for (int dt = 0; dt < 3; ++dt)
+#pragma unroll
+    for (int df = 0; df < 3; ++df) y = fmaf(r[dt * FW + df], w[dt * 3 + df], y);
+  return y;
+}
+
+// ------------------------------------------------------- K4: the conv alone
+
+// MODE 0: store y and emit the sums. MODE 1: the sums only (y never written).
+// MODE 2: one tap instead of nine (no patch). MODE 3: write the bias only.
+template <int MODE>
+__global__ void __launch_bounds__(kThreads)
+entry_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                  const float* __restrict__ cb, float* __restrict__ y,
+                  double* __restrict__ partials, int T, int F, int C, int rows,
+                  int tiles_per_block) {
+  __shared__ float xt[kHalo];
+  extern __shared__ double dred[];  // [groups][2 * C]
+  const int tid = threadIdx.x;
+  const int lanes = C / 4, groups = kThreads / lanes;
+  const int lane = tid % lanes, grp = tid / lanes;
+  const bool active = grp < groups;
+  const int b = blockIdx.y;
+  const int FW = F + 2;
+
+  float wr[4][9], br[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    br[k] = cb[4 * lane + k];
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) wr[k][tap] = w[tap * C + 4 * lane + k];
+  }
+  double s[4] = {0.0, 0.0, 0.0, 0.0}, q[4] = {0.0, 0.0, 0.0, 0.0};
+
+  const int n_tiles = (T + rows - 1) / rows;
+  const int first = blockIdx.x * tiles_per_block;
+  const int last = min(n_tiles, first + tiles_per_block);
+  for (int tile = first; tile < last; ++tile) {
+    const int t0 = tile * rows;
+    const int trows = min(rows, T - t0);
+    const int tpix = trows * F;
+    __syncthreads();  // the previous tile's patches are read
+    if (MODE != 3) stage_x(xt, x, b, T, F, t0, trows);
+    __syncthreads();
+    if (!active) continue;
+    for (int p = grp; p < tpix; p += groups) {
+      const float* r = xt + (p / F) * FW + (p % F);
+      float v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (MODE == 3) v[k] = br[k];
+        else if (MODE == 2) v[k] = fmaf(r[FW + 1], wr[k][4], br[k]);
+        else v[k] = conv9(r, FW, wr[k], br[k]);
+      }
+      if (MODE != 1) {
+        float* dst = y + (((long long)b * T + t0) * F + p) * C + 4 * lane;
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+      }
+      if (MODE != 3) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          s[k] += v[k];
+          q[k] += (double)v[k] * v[k];
+        }
+      }
+    }
+  }
+
+  if (active) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      dred[grp * 2 * C + 4 * lane + k] = s[k];
+      dred[grp * 2 * C + C + 4 * lane + k] = q[k];
+    }
+  }
+  __syncthreads();
+  const int slot = blockIdx.y * gridDim.x + blockIdx.x;
+  for (int i = tid; i < 2 * C; i += kThreads) {
+    double t = 0.0;
+    for (int g = 0; g < groups; ++g) t += dred[g * 2 * C + i];
+    partials[(long long)slot * 2 * C + i] = t;
+  }
+}
+
+// Slot of a block: [9 * C dW (tap-major) | C db].
+__global__ void __launch_bounds__(kThreads)
+entry_conv_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+                        float* __restrict__ partials, int T, int F, int C, int rows,
+                        int tiles_per_block) {
+  __shared__ float xt[kHalo];
+  extern __shared__ float red[];  // [groups][10 * C]
+  const int tid = threadIdx.x;
+  const int lanes = C / 4, groups = kThreads / lanes;
+  const int lane = tid % lanes, grp = tid / lanes;
+  const bool active = grp < groups;
+  const int b = blockIdx.y;
+  const int FW = F + 2;
+
+  float dw[4][9], db[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    db[k] = 0.0f;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) dw[k][tap] = 0.0f;
+  }
+
+  const int n_tiles = (T + rows - 1) / rows;
+  const int first = blockIdx.x * tiles_per_block;
+  const int last = min(n_tiles, first + tiles_per_block);
+  for (int tile = first; tile < last; ++tile) {
+    const int t0 = tile * rows;
+    const int trows = min(rows, T - t0);
+    const int tpix = trows * F;
+    __syncthreads();
+    stage_x(xt, x, b, T, F, t0, trows);
+    __syncthreads();
+    if (!active) continue;
+    for (int p = grp; p < tpix; p += groups) {
+      const float* r = xt + (p / F) * FW + (p % F);
+      const float* src = dy + (((long long)b * T + t0) * F + p) * C + 4 * lane;
+      const float4 d4 = *reinterpret_cast<const float4*>(src);
+      const float d[4] = {d4.x, d4.y, d4.z, d4.w};
+      float patch[9];
+#pragma unroll
+      for (int dt = 0; dt < 3; ++dt)
+#pragma unroll
+        for (int df = 0; df < 3; ++df) patch[dt * 3 + df] = r[dt * FW + df];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        db[k] += d[k];
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) dw[k][tap] = fmaf(patch[tap], d[k], dw[k][tap]);
+      }
+    }
+  }
+
+  if (active) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) red[(grp * 10 + tap) * C + 4 * lane + k] = dw[k][tap];
+      red[(grp * 10 + 9) * C + 4 * lane + k] = db[k];
+    }
+  }
+  __syncthreads();
+  const int slot = blockIdx.y * gridDim.x + blockIdx.x;
+  for (int i = tid; i < 10 * C; i += kThreads) {
+    float t = 0.0f;
+    for (int g = 0; g < groups; ++g) t += red[g * 10 * C + i];
+    partials[(long long)slot * 10 * C + i] = t;
+  }
+}
+
+// ------------------------------------------------ K5: the whole first block
+
+// The per-channel vectors and the conv parameters of a fused kernel, staged
+// once per block.
+struct Consts {
+  float* scale;
+  float* bias;
+  float* mean;
+  float* inv;
+  float* gb;
+  float* cw;  // [9][C]
+  float* cb;
+};
+
+__device__ __forceinline__ float* carve_consts(Consts& k, float* p, int C) {
+  k.scale = p;
+  k.bias = p + C;
+  k.mean = p + 2 * C;
+  k.inv = p + 3 * C;
+  k.gb = p + 4 * C;
+  k.cw = p + 5 * C;
+  k.cb = p + 14 * C;
+  return p + 15 * C;
+}
+
+__device__ __forceinline__ void load_consts(const Consts& k, const float* __restrict__ scale,
+                                            const float* __restrict__ bias,
+                                            const float* __restrict__ mean,
+                                            const float* __restrict__ var,
+                                            const float* __restrict__ glu_b,
+                                            const float* __restrict__ cw,
+                                            const float* __restrict__ cb, int C, float eps) {
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    k.scale[c] = scale[c];
+    k.bias[c] = bias[c];
+    k.mean[c] = mean[c];
+    k.inv[c] = rsqrtf(var[c] + eps);
+    k.gb[c] = glu_b[c];
+    k.cb[c] = cb[c];
+  }
+  for (int i = threadIdx.x; i < 9 * C; i += kThreads) k.cw[i] = cw[i];
+}
+
+// Conv + BatchNorm of the elements this thread owns in the channel products
+// (pixels pg + 16 i, channels cg + 16 j): xn into the slab, zeros in the rows
+// past the tile's pixels.
+template <int NJ>
+__device__ __forceinline__ void conv_to_xn(float* xs, int CP, const float* xt, int FW, int F,
+                                           int tpix, const Consts& k, int C, int pg, int cg) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int co = cg + 16 * j;
+    if (co >= C) continue;
+    float w[9];
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) w[tap] = k.cw[tap * C + co];
+    const float cbv = k.cb[co], mu = k.mean[co], inv = k.inv[co], sc = k.scale[co], be = k.bias[co];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int p = pg + 16 * i;
+      float xn = 0.0f;
+      if (p < tpix) {
+        const float yv = conv9(xt + (p / F) * FW + (p % F), FW, w, cbv);
+        xn = (yv - mu) * inv * sc + be;
+      }
+      xs[p * CP + co] = xn;
+    }
+  }
+}
+
+// acc[i][j] += sum_ci a[(pg + 16 i)][ci] * wmat[ci][cg + 16 j] (wmat row stride WS).
+template <int NJ>
+__device__ __forceinline__ void mix_rows(float (&acc)[8][NJ], const float* a, int CP,
+                                         const float* wmat, int WS, int C, int pg, int cg) {
+  for (int ci = 0; ci < C; ++ci) {
+    float av[8], wv[NJ];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) av[i] = a[(pg + 16 * i) * CP + ci];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int co = cg + 16 * j;
+      wv[j] = co < C ? wmat[ci * WS + co] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+  }
+}
+
+// acc[i][j] += sum_co a[(pg + 16 i)][co] * wmat[cg + 16 j][co]: the product
+// against the transpose (rows padded to WS = C + 1, so the read is conflict-free).
+template <int NJ>
+__device__ __forceinline__ void mix_cols(float (&acc)[8][NJ], const float* a, int CP,
+                                         const float* wmat, int WS, int C, int pg, int cg) {
+  for (int co = 0; co < C; ++co) {
+    float av[8], wv[NJ];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) av[i] = a[(pg + 16 * i) * CP + co];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int ci = cg + 16 * j;
+      wv[j] = ci < C ? wmat[ci * WS + co] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+  }
+}
+
+// NJ: output channels per thread / 16 (C <= 16 * NJ).
+template <int NJ>
+__global__ void __launch_bounds__(kThreads)
+entry_block_fwd_kernel(const float* __restrict__ x, const float* __restrict__ cw,
+                       const float* __restrict__ cb, const float* __restrict__ scale,
+                       const float* __restrict__ bias, const float* __restrict__ mean,
+                       const float* __restrict__ var, const float* __restrict__ glu_w,
+                       const float* __restrict__ glu_b, float* __restrict__ out, int T, int F,
+                       int C, int pt, int pf, float eps, int rows, int tiles_per_block,
+                       const long long* __restrict__ seed_ptr, uint32_t threshold,
+                       float keep_scale) {
+  extern __shared__ float smem[];
+  const int CP = C + 1;
+  float* xs = smem;            // [kPix][CP]: xn, then g
+  float* ws = xs + kPix * CP;  // [C][C] (in, out)
+  Consts k;
+  float* xt = carve_consts(k, ws + C * C, C);  // [kHalo]
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y;
+  const int FW = F + 2;
+  const bool drop = threshold != 0u;
+  const unsigned long long seed = drop ? (unsigned long long)seed_ptr[0] : 0ull;
+  for (int i = tid; i < C * C; i += kThreads) ws[i] = glu_w[i];
+  load_consts(k, scale, bias, mean, var, glu_b, cw, cb, C, eps);
+
+  const int cg = tid % 16, pg = tid / 16;
+  const int Tp = T / pt, Fp = F / pf;
+  const int n_tiles = (T + rows - 1) / rows;
+  const int first = blockIdx.x * tiles_per_block;
+  const int last = min(n_tiles, first + tiles_per_block);
+  const float inv_win = 1.0f / (float)(pt * pf);
+
+  for (int tile = first; tile < last; ++tile) {
+    const int t0 = tile * rows;
+    const int trows = min(rows, T - t0);  // a multiple of pt (T % pt == 0)
+    const int tpix = trows * F;
+    const long long tile_base = ((long long)b * T + t0) * F * C;
+
+    __syncthreads();  // constants staged / previous tile's pool read done
+    stage_x(xt, x, b, T, F, t0, trows);
+    __syncthreads();
+    conv_to_xn<NJ>(xs, CP, xt, FW, F, tpix, k, C, pg, cg);
+    __syncthreads();
+
+    float acc[8][NJ];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
+    mix_rows<NJ>(acc, xs, CP, ws, C, C, pg, cg);
+    float g[8][NJ];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int p = pg + 16 * i, co = cg + 16 * j;
+        g[i][j] = 0.0f;
+        if (p < tpix && co < C) g[i][j] = (acc[i][j] + k.gb[co]) * sigmoidf(xs[p * CP + co]);
+      }
+    __syncthreads();  // every xn read; overwrite the slab with g
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int p = pg + 16 * i, co = cg + 16 * j;
+        if (p < tpix && co < C) xs[p * CP + co] = g[i][j];
+      }
+    __syncthreads();
+    if (drop) {
+      for (int e = 4 * tid; e < tpix * C; e += 4 * kThreads)
+        mask4(xs, CP, C, e, tile_base, seed, threshold, keep_scale);
+      __syncthreads();
+    }
+
+    const int n_out = (trows / pt) * Fp * C;
+    for (int o = tid; o < n_out; o += kThreads) {
+      const int c = o % C, win = o / C;
+      const int wf = win % Fp, wt = win / Fp;
+      float s = 0.0f;
+      for (int dt = 0; dt < pt; ++dt)
+        for (int df = 0; df < pf; ++df)
+          s += xs[((wt * pt + dt) * F + wf * pf + df) * CP + c];
+      out[(((long long)b * Tp + t0 / pt + wt) * Fp + wf) * C + c] = s * inv_win;
+    }
+  }
+}
+
+// What both backward passes share, per tile: xn into xs, the masked dh into
+// ds, then lin, the gate term and dlin (over dh), and dxn into acc.
+template <int NJ>
+__device__ __forceinline__ void recompute_dxn(float (&acc)[8][NJ], float* xs, float* ds,
+                                              const float* ws, const float* xt,
+                                              const float* __restrict__ dout, const Consts& k,
+                                              int b, int T, int F, int C, int pt, int pf, int t0,
+                                              int tpix, long long tile_base, bool drop,
+                                              unsigned long long seed, uint32_t threshold,
+                                              float keep_scale, int pg, int cg) {
+  const int CP = C + 1, FW = F + 2;
+  const int Tp = T / pt, Fp = F / pf;
+  const float inv_win = 1.0f / (float)(pt * pf);
+  const int tid = threadIdx.x;
+
+  conv_to_xn<NJ>(xs, CP, xt, FW, F, tpix, k, C, pg, cg);
+  for (int i = tid; i < kPix * C; i += kThreads) {
+    const int p = i / C, c = i % C;
+    float dh = 0.0f;
+    if (p < tpix) {
+      const int t = p / F, f = p % F;
+      dh = dout[(((long long)b * Tp + (t0 + t) / pt) * Fp + f / pf) * C + c] * inv_win;
+    }
+    ds[p * CP + c] = dh;
+  }
+  __syncthreads();
+  if (drop) {
+    for (int e = 4 * tid; e < tpix * C; e += 4 * kThreads)
+      mask4(ds, CP, C, e, tile_base, seed, threshold, keep_scale);
+  }
+
+  // lin = xn . W + b (reads xs and ws only: no barrier needed before it)
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
+  mix_rows<NJ>(acc, xs, CP, ws, CP, C, pg, cg);
+  __syncthreads();  // masked dh complete
+  // gate term into acc, dlin over dh (each element owned by one thread)
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int p = pg + 16 * i, co = cg + 16 * j;
+      float gate = 0.0f;
+      if (co < C) {
+        const float sig = sigmoidf(xs[p * CP + co]);
+        const float dh = ds[p * CP + co];
+        gate = dh * (acc[i][j] + k.gb[co]) * sig * (1.0f - sig);
+        ds[p * CP + co] = dh * sig;
+      }
+      acc[i][j] = gate;
+    }
+  __syncthreads();  // dlin complete
+  // dxn = dlin . W^T + gate; thread holds (pixel pg + 16 i, channel cg + 16 j)
+  mix_cols<NJ>(acc, ds, CP, ws, CP, C, pg, cg);
+}
+
+// Pass 1. Slot of a block: [C*C d glu_w | C d glu_b | C S1 | C S2].
+template <int NJ>
+__global__ void __launch_bounds__(kThreads)
+entry_block_bwd_reduce_kernel(const float* __restrict__ x, const float* __restrict__ dout,
+                              const float* __restrict__ cw, const float* __restrict__ cb,
+                              const float* __restrict__ scale, const float* __restrict__ bias,
+                              const float* __restrict__ mean, const float* __restrict__ var,
+                              const float* __restrict__ glu_w, const float* __restrict__ glu_b,
+                              float* __restrict__ partials, int T, int F, int C, int pt, int pf,
+                              float eps, int rows, int tiles_per_block,
+                              const long long* __restrict__ seed_ptr, uint32_t threshold,
+                              float keep_scale) {
+  extern __shared__ float smem[];
+  const int CP = C + 1;
+  float* xs = smem;            // [kPix][CP]: xn
+  float* ds = xs + kPix * CP;  // [kPix][CP]: dh, then dlin
+  float* ws = ds + kPix * CP;  // [C][CP] (in, out), rows padded
+  Consts k;
+  float* xt = carve_consts(k, ws + C * CP, C);  // [kHalo]
+  float* red = xt + kHalo;                      // [16][2][16 * NJ]: S1/S2 by pixel group
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y;
+  const int FW = F + 2;
+  const bool drop = threshold != 0u;
+  const unsigned long long seed = drop ? (unsigned long long)seed_ptr[0] : 0ull;
+  for (int i = tid; i < C * C; i += kThreads) ws[(i / C) * CP + i % C] = glu_w[i];
+  load_consts(k, scale, bias, mean, var, glu_b, cw, cb, C, eps);
+
+  const int cg = tid % 16, pg = tid / 16;
+  const int n_tiles = (T + rows - 1) / rows;
+  const int first = blockIdx.x * tiles_per_block;
+  const int last = min(n_tiles, first + tiles_per_block);
+
+  // carried over all tiles of the block
+  float dw[NJ][NJ];  // d glu_w[pg + 16 i][cg + 16 j]
+  float dbv[NJ], s1[NJ], s2[NJ];
+#pragma unroll
+  for (int i = 0; i < NJ; ++i) {
+    dbv[i] = s1[i] = s2[i] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) dw[i][j] = 0.0f;
+  }
+
+  for (int tile = first; tile < last; ++tile) {
+    const int t0 = tile * rows;
+    const int trows = min(rows, T - t0);
+    const int tpix = trows * F;
+    const long long tile_base = ((long long)b * T + t0) * F * C;
+
+    __syncthreads();  // constants staged / previous tile's products done
+    stage_x(xt, x, b, T, F, t0, trows);
+    __syncthreads();
+    float acc[8][NJ];
+    recompute_dxn<NJ>(acc, xs, ds, ws, xt, dout, k, b, T, F, C, pt, pf, t0, tpix, tile_base,
+                      drop, seed, threshold, keep_scale, pg, cg);
+
+    // S1 += dxn, S2 += dxn * xh, with y recomputed from the staged tile
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = cg + 16 * j;
+      if (c >= C) continue;
+      float w[9];
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) w[tap] = k.cw[tap * C + c];
+      const float cbv = k.cb[c], mu = k.mean[c], inv = k.inv[c];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int p = pg + 16 * i;
+        if (p >= tpix) continue;
+        const float yv = conv9(xt + (p / F) * FW + (p % F), FW, w, cbv);
+        const float dxn = acc[i][j];
+        s1[j] += dxn;
+        s2[j] = fmaf(dxn, (yv - mu) * inv, s2[j]);
+      }
+    }
+
+    // d glu_w += xn^T . dlin, d glu_b += sum dlin; thread holds (ci = pg + 16 i, co = cg + 16 j)
+    for (int p = 0; p < tpix; ++p) {
+      float xv[NJ], dv[NJ];
+#pragma unroll
+      for (int i = 0; i < NJ; ++i) xv[i] = xs[p * CP + ((pg + 16 * i) < C ? pg + 16 * i : 0)];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) dv[j] = ds[p * CP + ((cg + 16 * j) < C ? cg + 16 * j : 0)];
+#pragma unroll
+      for (int i = 0; i < NJ; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) dw[i][j] = fmaf(xv[i], dv[j], dw[i][j]);
+      if (pg == 0) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) dbv[j] += dv[j];
+      }
+    }
+  }
+
+  const int slot = blockIdx.y * gridDim.x + blockIdx.x;
+  float* ps = partials + (long long)slot * (C * C + 3 * C);
+#pragma unroll
+  for (int i = 0; i < NJ; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int ci = pg + 16 * i, co = cg + 16 * j;
+      if (ci < C && co < C) ps[ci * C + co] = dw[i][j];
+    }
+  if (pg == 0) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      if (cg + 16 * j < C) ps[C * C + cg + 16 * j] = dbv[j];
+  }
+  __syncthreads();
+  const int RW = 16 * NJ;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    red[(pg * 2 + 0) * RW + cg + 16 * j] = s1[j];
+    red[(pg * 2 + 1) * RW + cg + 16 * j] = s2[j];
+  }
+  __syncthreads();
+  for (int i = tid; i < 2 * C; i += kThreads) {
+    const int which = i / C, c = i % C;
+    float s = 0.0f;
+    for (int g = 0; g < 16; ++g) s += red[(g * 2 + which) * RW + c];
+    ps[C * C + C + which * C + c] = s;
+  }
+}
+
+// Pass 2. Slot of a block: [9 * C dW (tap-major) | C d conv_b].
+template <int NJ>
+__global__ void __launch_bounds__(kThreads)
+entry_block_bwd_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dout,
+                             const float* __restrict__ cw, const float* __restrict__ cb,
+                             const float* __restrict__ scale, const float* __restrict__ bias,
+                             const float* __restrict__ mean, const float* __restrict__ var,
+                             const float* __restrict__ glu_w, const float* __restrict__ glu_b,
+                             const float* __restrict__ a, const float* __restrict__ b2,
+                             float* __restrict__ partials, int T, int F, int C, int pt, int pf,
+                             float eps, int rows, int tiles_per_block,
+                             const long long* __restrict__ seed_ptr, uint32_t threshold,
+                             float keep_scale) {
+  extern __shared__ float smem[];
+  const int CP = C + 1;
+  float* xs = smem;            // [kPix][CP]: xn
+  float* ds = xs + kPix * CP;  // [kPix][CP]: dh, then dlin
+  float* ws = ds + kPix * CP;  // [C][CP] (in, out), rows padded
+  Consts k;
+  float* xt = carve_consts(k, ws + C * CP, C);  // [kHalo]
+  float* s_a = xt + kHalo;                      // [C] each
+  float* s_b2 = s_a + C;
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y;
+  const int FW = F + 2;
+  const bool drop = threshold != 0u;
+  const unsigned long long seed = drop ? (unsigned long long)seed_ptr[0] : 0ull;
+  for (int i = tid; i < C * C; i += kThreads) ws[(i / C) * CP + i % C] = glu_w[i];
+  load_consts(k, scale, bias, mean, var, glu_b, cw, cb, C, eps);
+  for (int c = tid; c < C; c += kThreads) {
+    s_a[c] = a[c];
+    s_b2[c] = b2[c];
+  }
+
+  const int cg = tid % 16, pg = tid / 16;
+  const int n_tiles = (T + rows - 1) / rows;
+  const int first = blockIdx.x * tiles_per_block;
+  const int last = min(n_tiles, first + tiles_per_block);
+
+  // carried over all tiles of the block: this thread's pixels' share of
+  // dW[tap][cg + 16 j] and d conv_b[cg + 16 j]
+  float dwc[NJ][9], dcb[NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    dcb[j] = 0.0f;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) dwc[j][tap] = 0.0f;
+  }
+
+  for (int tile = first; tile < last; ++tile) {
+    const int t0 = tile * rows;
+    const int trows = min(rows, T - t0);
+    const int tpix = trows * F;
+    const long long tile_base = ((long long)b * T + t0) * F * C;
+
+    __syncthreads();  // constants staged / previous tile's products done
+    stage_x(xt, x, b, T, F, t0, trows);
+    __syncthreads();
+    float acc[8][NJ];
+    recompute_dxn<NJ>(acc, xs, ds, ws, xt, dout, k, b, T, F, C, pt, pf, t0, tpix, tile_base,
+                      drop, seed, threshold, keep_scale, pg, cg);
+
+    // dy = inv * scale * dxn - a - (y - mean) * b2 in registers, straight into
+    // the patch products
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = cg + 16 * j;
+      if (c >= C) continue;
+      float w[9];
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) w[tap] = k.cw[tap * C + c];
+      const float cbv = k.cb[c], mu = k.mean[c], coef = k.inv[c] * k.scale[c];
+      const float av = s_a[c], bv = s_b2[c];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int p = pg + 16 * i;
+        if (p >= tpix) continue;
+        const float* r = xt + (p / F) * FW + (p % F);
+        const float yv = conv9(r, FW, w, cbv);
+        const float dyv = coef * acc[i][j] - av - (yv - mu) * bv;
+        dcb[j] += dyv;
+#pragma unroll
+        for (int dt = 0; dt < 3; ++dt)
+#pragma unroll
+          for (int df = 0; df < 3; ++df)
+            dwc[j][dt * 3 + df] = fmaf(r[dt * FW + df], dyv, dwc[j][dt * 3 + df]);
+      }
+    }
+  }
+
+  // fixed-order sum over the 16 pixel groups, in the slabs' memory
+  __syncthreads();  // the last tile's products are done
+  float* red = smem;  // [16][10 * C]
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int c = cg + 16 * j;
+    if (c >= C) continue;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) red[(pg * 10 + tap) * C + c] = dwc[j][tap];
+    red[(pg * 10 + 9) * C + c] = dcb[j];
+  }
+  __syncthreads();
+  const int slot = blockIdx.y * gridDim.x + blockIdx.x;
+  for (int i = tid; i < 10 * C; i += kThreads) {
+    float s = 0.0f;
+    for (int g = 0; g < 16; ++g) s += red[g * 10 * C + i];
+    partials[(long long)slot * 10 * C + i] = s;
+  }
+}
+
+// ---------------------------------------------------------- the mask alone
+
+// out[e] = 1 where element e is kept, else 0: word e % 4 of Philox(e / 4, seed).
+__global__ void __launch_bounds__(kThreads)
+dropout_mask_kernel(float* __restrict__ out, long long n, const long long* __restrict__ seed_ptr,
+                    uint32_t threshold) {
+  const unsigned long long seed = (unsigned long long)seed_ptr[0];
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; 4 * i < n; i += stride) {
+    const uint4 r = philox4x32_10((unsigned long long)i, seed);
+    const uint32_t words[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (4 * i + k < n) out[4 * i + k] = words[k] >= threshold ? 1.0f : 0.0f;
+  }
+}
+
+// ----------------------------------------------------------------- launches
+
+size_t fwd_smem(int C) {
+  return sizeof(float) * ((size_t)kPix * (C + 1) + (size_t)C * C + 15 * (size_t)C + kHalo);
+}
+
+// Both backward kernels: pass 1 adds its S1/S2 scratch, pass 2 its a and b2.
+size_t bwd_smem(int C, int extra) {
+  return sizeof(float) * (2 * (size_t)kPix * (C + 1) + (size_t)C * (C + 1) + 15 * (size_t)C +
+                          kHalo + (size_t)extra);
+}
+
+dim3 tile_grid(int B, int T, int rows, int tiles_per_block) {
+  const int n_tiles = (T + rows - 1) / rows;
+  return dim3((n_tiles + tiles_per_block - 1) / tiles_per_block, B);
+}
+
+template <int MODE>
+int launch_entry_conv(const float* x, const float* w, const float* cb, float* y,
+                      double* partials, float* sums, int B, int T, int F, int C,
+                      int tiles_per_block, cudaStream_t stream) {
+  const int rows = rows_per_tile(F, 1);
+  const dim3 grid = tile_grid(B, T, rows, tiles_per_block);
+  const int groups = kThreads / (C / 4);
+  const size_t smem = sizeof(double) * (size_t)groups * 2 * C;
+  entry_conv_kernel<MODE><<<grid, kThreads, smem, stream>>>(x, w, cb, y, partials, T, F, C,
+                                                             rows, tiles_per_block);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_fold<double>(partials, sums, (int)(grid.x * grid.y), 2 * C, stream);
+}
+
+template <int NJ>
+int launch_block_fwd(const float* x, const float* cw, const float* cb, const float* scale,
+                     const float* bias, const float* mean, const float* var,
+                     const float* glu_w, const float* glu_b, float* out, int B, int T, int F,
+                     int C, int pt, int pf, float eps, int tiles_per_block,
+                     const long long* seed, uint32_t threshold, float keep_scale,
+                     cudaStream_t stream) {
+  const size_t smem = fwd_smem(C);
+  cudaError_t err = cudaFuncSetAttribute(entry_block_fwd_kernel<NJ>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = rows_per_tile(F, pt);
+  entry_block_fwd_kernel<NJ><<<tile_grid(B, T, rows, tiles_per_block), kThreads, smem, stream>>>(
+      x, cw, cb, scale, bias, mean, var, glu_w, glu_b, out, T, F, C, pt, pf, eps, rows,
+      tiles_per_block, seed, threshold, keep_scale);
+  return (int)cudaGetLastError();
+}
+
+template <int NJ>
+int launch_block_bwd_reduce(const float* x, const float* dout, const float* cw,
+                            const float* cb, const float* scale, const float* bias,
+                            const float* mean, const float* var, const float* glu_w,
+                            const float* glu_b, float* partials, float* sums, int B, int T,
+                            int F, int C, int pt, int pf, float eps, int tiles_per_block,
+                            const long long* seed, uint32_t threshold, float keep_scale,
+                            cudaStream_t stream) {
+  const size_t smem = bwd_smem(C, 16 * 2 * 16 * NJ);
+  cudaError_t err = cudaFuncSetAttribute(entry_block_bwd_reduce_kernel<NJ>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = rows_per_tile(F, pt);
+  const dim3 grid = tile_grid(B, T, rows, tiles_per_block);
+  entry_block_bwd_reduce_kernel<NJ><<<grid, kThreads, smem, stream>>>(
+      x, dout, cw, cb, scale, bias, mean, var, glu_w, glu_b, partials, T, F, C, pt, pf, eps,
+      rows, tiles_per_block, seed, threshold, keep_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_fold<float>(partials, sums, (int)(grid.x * grid.y), C * C + 3 * C, stream);
+}
+
+template <int NJ>
+int launch_block_bwd_wgrad(const float* x, const float* dout, const float* cw, const float* cb,
+                           const float* scale, const float* bias, const float* mean,
+                           const float* var, const float* glu_w, const float* glu_b,
+                           const float* a, const float* b2, float* partials, float* sums,
+                           int B, int T, int F, int C, int pt, int pf, float eps,
+                           int tiles_per_block, const long long* seed, uint32_t threshold,
+                           float keep_scale, cudaStream_t stream) {
+  const size_t smem = bwd_smem(C, 2 * C);
+  cudaError_t err = cudaFuncSetAttribute(entry_block_bwd_wgrad_kernel<NJ>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = rows_per_tile(F, pt);
+  const dim3 grid = tile_grid(B, T, rows, tiles_per_block);
+  entry_block_bwd_wgrad_kernel<NJ><<<grid, kThreads, smem, stream>>>(
+      x, dout, cw, cb, scale, bias, mean, var, glu_w, glu_b, a, b2, partials, T, F, C, pt, pf,
+      eps, rows, tiles_per_block, seed, threshold, keep_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_fold<float>(partials, sums, (int)(grid.x * grid.y), 10 * C, stream);
+}
+
+inline const float* fp(const void* p) { return static_cast<const float*>(p); }
+
+}  // namespace
+
+extern "C" {
+
+// x: [B, T, F]; w: [3, 3, 1, C]; cb: [C]; y: [B, T, F, C] (unused in mode 1);
+// partials: [slots, 2C] float64 scratch, slots = B * ceil(tiles /
+// tiles_per_block) with tiles = dcase_bn_glu_pool_tiles(T, F, 1); sums: [2, C]
+// float32 = sum y | sum y^2. F <= 128, C % 4 == 0, C <= 128
+// (ops/entry_conv.py:entry_conv_packable). mode: 0 full, 1 sums only, 2 one
+// tap, 3 bias write only.
+int dcase_entry_conv(const void* x, const void* w, const void* cb, void* y, void* partials,
+                     void* sums, int B, int T, int F, int C, int mode, int tiles_per_block,
+                     void* stream) {
+  auto* yp = static_cast<float*>(y);
+  auto* pa = static_cast<double*>(partials);
+  auto* su = static_cast<float*>(sums);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case 0: return launch_entry_conv<0>(fp(x), fp(w), fp(cb), yp, pa, su, B, T, F, C, tiles_per_block, st);
+    case 1: return launch_entry_conv<1>(fp(x), fp(w), fp(cb), yp, pa, su, B, T, F, C, tiles_per_block, st);
+    case 2: return launch_entry_conv<2>(fp(x), fp(w), fp(cb), yp, pa, su, B, T, F, C, tiles_per_block, st);
+    case 3: return launch_entry_conv<3>(fp(x), fp(w), fp(cb), yp, pa, su, B, T, F, C, tiles_per_block, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// dy: [B, T, F, C]; partials: [slots, 10C] float32; out: [10C] = dW
+// [3, 3, 1, C] | db [C], folded from the slots in slot order.
+int dcase_entry_conv_wgrad(const void* x, const void* dy, void* partials, void* out, int B,
+                           int T, int F, int C, int tiles_per_block, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* pa = static_cast<float*>(partials);
+  const int rows = rows_per_tile(F, 1);
+  const dim3 grid = tile_grid(B, T, rows, tiles_per_block);
+  const int groups = kThreads / (C / 4);
+  const size_t smem = sizeof(float) * (size_t)groups * 10 * C;
+  entry_conv_wgrad_kernel<<<grid, kThreads, smem, st>>>(fp(x), fp(dy), pa, T, F, C, rows,
+                                                         tiles_per_block);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_fold<float>(pa, static_cast<float*>(out), (int)(grid.x * grid.y), 10 * C, st);
+}
+
+// x: [B, T, F]; cw: [3, 3, 1, C]; cb, scale, bias, mean, var, glu_b: [C];
+// glu_w: [C, C] (in, out); out: [B, T/pt, F/pf, C]; float32, contiguous.
+// T % pt == 0, F % pf == 0, pt * F <= 128, C % 4 == 0, C <= 128
+// (ops/fused_entry_block.py:entry_block_applicable); tiles =
+// dcase_bn_glu_pool_tiles(T, F, pt). seed, threshold, keep_scale as in
+// dcase_bn_glu_pool.
+int dcase_entry_block_fwd(const void* x, const void* cw, const void* cb, const void* scale,
+                          const void* bias, const void* mean, const void* var,
+                          const void* glu_w, const void* glu_b, void* out, int B, int T, int F,
+                          int C, int pt, int pf, float eps, const void* seed,
+                          unsigned int threshold, float keep_scale, int tiles_per_block,
+                          void* stream) {
+  const auto* sd = static_cast<const long long*>(seed);
+  auto* o = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (C <= 64)
+    return launch_block_fwd<4>(fp(x), fp(cw), fp(cb), fp(scale), fp(bias), fp(mean), fp(var),
+                               fp(glu_w), fp(glu_b), o, B, T, F, C, pt, pf, eps,
+                               tiles_per_block, sd, threshold, keep_scale, st);
+  return launch_block_fwd<8>(fp(x), fp(cw), fp(cb), fp(scale), fp(bias), fp(mean), fp(var),
+                             fp(glu_w), fp(glu_b), o, B, T, F, C, pt, pf, eps, tiles_per_block,
+                             sd, threshold, keep_scale, st);
+}
+
+// First backward pass. dout: [B, T/pt, F/pf, C]; partials: [slots, C*C + 3C];
+// sums: [C*C + 3C] = d glu_w | d glu_b | S1 | S2, folded in slot order.
+int dcase_entry_block_bwd_reduce(const void* x, const void* dout, const void* cw,
+                                 const void* cb, const void* scale, const void* bias,
+                                 const void* mean, const void* var, const void* glu_w,
+                                 const void* glu_b, void* partials, void* sums, int B, int T,
+                                 int F, int C, int pt, int pf, float eps, const void* seed,
+                                 unsigned int threshold, float keep_scale, int tiles_per_block,
+                                 void* stream) {
+  const auto* sd = static_cast<const long long*>(seed);
+  auto* pa = static_cast<float*>(partials);
+  auto* su = static_cast<float*>(sums);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (C <= 64)
+    return launch_block_bwd_reduce<4>(fp(x), fp(dout), fp(cw), fp(cb), fp(scale), fp(bias),
+                                      fp(mean), fp(var), fp(glu_w), fp(glu_b), pa, su, B, T, F,
+                                      C, pt, pf, eps, tiles_per_block, sd, threshold,
+                                      keep_scale, st);
+  return launch_block_bwd_reduce<8>(fp(x), fp(dout), fp(cw), fp(cb), fp(scale), fp(bias),
+                                    fp(mean), fp(var), fp(glu_w), fp(glu_b), pa, su, B, T, F, C,
+                                    pt, pf, eps, tiles_per_block, sd, threshold, keep_scale, st);
+}
+
+// Second backward pass. a, b2: [C], from S1 and S2 (fused_block.py:
+// bwd_coefficients); partials: [slots, 10C]; sums: [10C] = dW [3, 3, 1, C] |
+// d conv_b [C].
+int dcase_entry_block_bwd_wgrad(const void* x, const void* dout, const void* cw, const void* cb,
+                                const void* scale, const void* bias, const void* mean,
+                                const void* var, const void* glu_w, const void* glu_b,
+                                const void* a, const void* b2, void* partials, void* sums,
+                                int B, int T, int F, int C, int pt, int pf, float eps,
+                                const void* seed, unsigned int threshold, float keep_scale,
+                                int tiles_per_block, void* stream) {
+  const auto* sd = static_cast<const long long*>(seed);
+  auto* pa = static_cast<float*>(partials);
+  auto* su = static_cast<float*>(sums);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (C <= 64)
+    return launch_block_bwd_wgrad<4>(fp(x), fp(dout), fp(cw), fp(cb), fp(scale), fp(bias),
+                                     fp(mean), fp(var), fp(glu_w), fp(glu_b), fp(a), fp(b2), pa,
+                                     su, B, T, F, C, pt, pf, eps, tiles_per_block, sd,
+                                     threshold, keep_scale, st);
+  return launch_block_bwd_wgrad<8>(fp(x), fp(dout), fp(cw), fp(cb), fp(scale), fp(bias),
+                                   fp(mean), fp(var), fp(glu_w), fp(glu_b), fp(a), fp(b2), pa,
+                                   su, B, T, F, C, pt, pf, eps, tiles_per_block, sd, threshold,
+                                   keep_scale, st);
+}
+
+// out: [n] float32 0/1 keep-mask of (seed, element index, threshold); seed:
+// one int64 in device memory.
+int dcase_dropout_mask(void* out, long long n, const void* seed, unsigned int threshold,
+                       void* stream) {
+  long long blocks = ((n + 3) / 4 + kThreads - 1) / kThreads;
+  if (blocks > 132 * 16) blocks = 132 * 16;
+  if (blocks < 1) blocks = 1;
+  dropout_mask_kernel<<<(int)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out), n, static_cast<const long long*>(seed), threshold);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

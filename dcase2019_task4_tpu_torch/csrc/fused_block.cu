@@ -56,11 +56,14 @@
 // of dW in registers across all tiles of the block. The four sums of a
 // block go to its own slot of a workspace and fold_kernel adds the slots in
 // a fixed order in double precision: no float atomics, so a run repeats bit
-// for bit. Plain FP32 FMAs: no TF32, no tensor cores yet.
+// for bit. Plain FP32 FMAs: no TF32, no tensor cores yet. The generator, the
+// four-channel mask step and the sigmoid live in chain.cuh, shared with the
+// entry-block kernels.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "chain.cuh"
 #include "fold.cuh"
 
 namespace {
@@ -70,39 +73,6 @@ constexpr int kPix = 128;  // pixels per tile
 
 // Time rows per tile: whole pooling rows, up to kPix pixels (pt * F <= kPix).
 int rows_per_tile(int F, int pt) { return pt * (kPix / (pt * F)); }
-
-__device__ __forceinline__ uint4 philox4x32_10(unsigned long long counter,
-                                               unsigned long long seed) {
-  uint32_t c0 = (uint32_t)counter, c1 = (uint32_t)(counter >> 32), c2 = 0u, c3 = 0u;
-  uint32_t k0 = (uint32_t)seed, k1 = (uint32_t)(seed >> 32);
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
-  }
-  return make_uint4(c0, c1, c2, c3);
-}
-
-__device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
-
-// Multiply four neighbouring channels starting at tile element `e` (a
-// multiple of 4; C % 4 == 0) by keep-mask * keep_scale.
-__device__ __forceinline__ void mask4(float* xs, int CP, int C, int e, long long tile_base,
-                                      unsigned long long seed, uint32_t threshold,
-                                      float keep_scale) {
-  const uint4 r = philox4x32_10((unsigned long long)(tile_base + e) >> 2, seed);
-  float* px = xs + (e / C) * CP + (e % C);
-  px[0] *= r.x >= threshold ? keep_scale : 0.0f;
-  px[1] *= r.y >= threshold ? keep_scale : 0.0f;
-  px[2] *= r.z >= threshold ? keep_scale : 0.0f;
-  px[3] *= r.w >= threshold ? keep_scale : 0.0f;
-}
 
 // ------------------------------------------------------------------ forward
 

@@ -5,9 +5,15 @@ PyTorch counterpart of dcase2019_task4_tpu/models/crnn.py. Inputs and
 outputs keep the JAX layout: x [B, T, F] → strong [B, T', nclass], weak
 [B, nclass]. Per block:
 
-  * block 1 (one input channel, 3×3 s1 p1): `F.conv2d` with autograd — the
-    JAX package computes it outside any Pallas kernel
-    (layers.conv2d_entry_packed);
+  * block 1 (one input channel, 3×3 s1 p1), in the JAX model's order of
+    precedence: with `entry_block_crows` or `entry_block_pallas` the whole
+    block as fused kernels (ops/crows_block.py, ops/fused_entry_block.py:
+    statistics without a stored y, forward, two-pass backward); with
+    `entry_conv_pallas` K4 (ops/entry_conv.py), whose forward also hands
+    Σy, Σy² to the fused block so that block 1 runs no statistics pass; by
+    default `F.conv2d` with autograd — the JAX package computes that one
+    outside any Pallas kernel (layers.conv2d_entry_packed). Where a gate
+    says a shape does not apply, the next path runs;
   * blocks with a 3×3 s1 p1 Cin == Cout conv (blocks 2 and 3): K3
     (ops/packed_conv.py: forward, dx and wgrad kernels);
   * any other conv: `F.conv2d`;
@@ -36,7 +42,7 @@ from torch import nn
 
 from dcase2019_task4_tpu_torch.config import ModelConfig
 from dcase2019_task4_tpu_torch.models import layers as L
-from dcase2019_task4_tpu_torch.ops import fused_block, packed_conv
+from dcase2019_task4_tpu_torch.ops import crows_block, entry_conv, fused_block, fused_entry_block, packed_conv
 from dcase2019_task4_tpu_torch.ops.gru import bigru, bigru_init_
 
 _SEED_HIGH = 2 ** 31 - 2 ** 20  # dropout seeds are drawn from [0, _SEED_HIGH), as in the JAX model
@@ -74,6 +80,51 @@ class CRNN(nn.Module):
             return self.cfg.activation == "glu"
         return bool(self.cfg.fused_block)
 
+    def _draw_seed(self, generator: torch.Generator) -> torch.Tensor:
+        """One dropout seed for a fused block, from the caller's generator."""
+        return L.draw(lambda shape, **kw: torch.randint(0, _SEED_HIGH, shape, dtype=torch.int64, **kw),
+                      (1,), generator, generator.device)
+
+    def _batch_moments(self, bn, s, sq, n: int):
+        """Σy, Σy² → (mean, biased var = Σy²/n − mean²) as the JAX model forms
+        them, with the running buffers updated in place."""
+        mean = s / n
+        var = sq / n - mean * mean
+        L.update_running_stats(bn.running_mean, bn.running_var, mean, var, n, self.cfg.bn_momentum)
+        return mean, var
+
+    def _entry_engine(self, block: ConvBlock, x: torch.Tensor, use_fused: bool):
+        """(statistics pass, fused block) of the entries that run the whole
+        first block as fused kernels under this configuration and input, or
+        None: crows before planes, as in the JAX model."""
+        cfg = self.cfg
+        if not (use_fused and cfg.activation == "glu"):
+            return None
+        pool, C0 = tuple(cfg.pooling[0]), block.conv.out_channels
+        if cfg.entry_block_crows and C0 == 64 and crows_block.crows_applicable(x.shape, pool):
+            return crows_block.crows_stats_apply, crows_block.crows_apply
+        if cfg.entry_block_pallas and fused_entry_block.entry_block_applicable(x.shape, pool, C0):
+            return fused_entry_block.entry_block_stats_apply, fused_entry_block.entry_block_apply
+        return None
+
+    def _entry_block(self, block: ConvBlock, x: torch.Tensor, engine,
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
+        """First block as one kernel family: batch statistics from the
+        statistics pass over a conv output that is never stored, the
+        running-stat update, one dropout seed, then the fused Function (eval
+        mode: running statistics, rate 0)."""
+        cfg, bn = self.cfg, block.bn
+        stats_apply, apply = engine
+        conv = {"w": block.conv.weight.permute(2, 3, 1, 0), "b": block.conv.bias}
+        if self.training:
+            s, sq = stats_apply(conv, x)
+            mean, var = self._batch_moments(bn, s, sq, x.shape[0] * x.shape[1] * x.shape[2])
+            seed = self._draw_seed(generator)
+        else:
+            mean, var, seed = bn.running_mean, bn.running_var, 0
+        return apply(conv, bn.weight, bn.bias, mean, var, block.act.weight.t(), block.act.bias, x, seed,
+                     cfg.dropout, tuple(cfg.pooling[0]), cfg.bn_eps, self.training)
+
     def _block(self, i: int, block: ConvBlock, x: torch.Tensor, use_fused: bool,
                generator: Optional[torch.Generator]) -> torch.Tensor:
         cfg = self.cfg
@@ -81,7 +132,29 @@ class CRNN(nn.Module):
         train = self.training
         rate = cfg.dropout if train else 0.0
         same_3x3 = cfg.kernel_size[i] == 3 and cfg.stride[i] == 1 and cfg.padding[i] == 1
+        pool = tuple(cfg.pooling[i])
+        entry_stats = None
+        entry = i == 0 and same_3x3 and x.shape[-1] == 1 and conv.in_channels == 1
+        if entry:
+            engine = self._entry_engine(block, x, use_fused)
+            if engine is not None:
+                return self._entry_block(block, x, engine, generator)
         if (
+            entry
+            and use_fused
+            and cfg.entry_conv_pallas
+            and entry_conv.entry_conv_packable(x.shape[2], conv.out_channels, x.shape[1])
+        ):
+            # K4: the conv kernel emits Σy, Σy² with its forward; in training
+            # the fused block takes block 1's statistics from there
+            params = {"w": conv.weight.permute(2, 3, 1, 0), "b": conv.bias}
+            want_stats = train and cfg.activation == "glu" and fused_block.applicable(
+                (x.shape[0], x.shape[1], x.shape[2], conv.out_channels), pool)
+            if want_stats:
+                x, *entry_stats = entry_conv.entry_conv_apply(params, x, want_stats=True)
+            else:
+                x = entry_conv.entry_conv_apply(params, x)
+        elif (
             use_fused
             and same_3x3
             and conv.in_channels == conv.out_channels
@@ -90,19 +163,14 @@ class CRNN(nn.Module):
             x = packed_conv.conv2d_packed({"w": conv.weight.permute(2, 3, 1, 0), "b": conv.bias}, x.contiguous())
         else:
             x = L.conv2d(conv.weight, conv.bias, x, cfg.stride[i], cfg.padding[i])
-        pool = tuple(cfg.pooling[i])
         bn = block.bn
         if use_fused and cfg.activation == "glu" and fused_block.applicable(x.shape, pool):
             x = x.contiguous()
             if train:
-                # Σy, Σy² without a graph; var = Σy²/n − mean² as in the JAX model
-                s, sq = fused_block.batch_stats(x)
-                n = x.numel() // x.shape[-1]
-                mean = s / n
-                var = sq / n - mean * mean
-                L.update_running_stats(bn.running_mean, bn.running_var, mean, var, n, cfg.bn_momentum)
-                seed = L.draw(lambda shape, **kw: torch.randint(0, _SEED_HIGH, shape, dtype=torch.int64, **kw),
-                              (1,), generator, generator.device)
+                # Σy, Σy² without a graph (K2s, or K4f's own sums); var = Σy²/n − mean² as in the JAX model
+                s, sq = entry_stats if entry_stats is not None else fused_block.batch_stats(x)
+                mean, var = self._batch_moments(bn, s, sq, x.numel() // x.shape[-1])
+                seed = self._draw_seed(generator)
             else:
                 mean, var, seed = bn.running_mean, bn.running_var, 0
             return fused_block.fused_bn_glu_dropout_pool(

@@ -1,0 +1,64 @@
+"""K6: the fused first block under `ModelConfig.entry_block_crows`.
+
+PyTorch counterpart of dcase2019_task4_tpu/ops/crows_block.py. The original
+is the third TPU formulation of the first CRNN block (conv 1 → C →
+BatchNorm → GLU → dropout → avg-pool): the same four functions as
+ops/fused_entry_block.py (statistics, forward, two-pass backward) with
+channels on TPU sublanes, pixels on lanes and the batch split in halves.
+That orientation, its three shifted row copies, lane rolls, 0/1 pooling
+matrices and block-diagonal weights are TPU layout. On Hopper the function
+has one kernel family, csrc/entry_block.cu, and this module dispatches to
+it: it holds the original's gate, the logical-parameter entry points, and
+launch counters of its own (`crows_stats_apply.launches`,
+`crows_apply.launches_eval`, `.launches_train`, `.launches_bwd_reduce`,
+`.launches_bwd_wgrad`), raised where a kernel is launched on a call that
+came through here, beside the kernels' own counters. CPU tensors run the
+plain versions of ops/fused_entry_block.py.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+from dcase2019_task4_tpu_torch.ops import fused_entry_block
+
+
+def crows_applicable(shape, pool: Tuple[int, int]) -> bool:
+    """[B, T, F, 1] features + pool → does this configuration take them? The
+    function-level conditions of the original (crows_block.py:66-71): one
+    input channel, F = 64, a time pool of 2, whole frequency windows, an
+    even batch and an even number of frames. Its lane-tile search
+    (`_pick_l`) is TPU tiling and is not asked for here."""
+    B, T, Fq, cin = shape
+    pt, pf = pool
+    return cin == 1 and Fq == 64 and pt == 2 and Fq % pf == 0 and B % 2 == 0 and T % 2 == 0
+
+
+def crows_stats_apply(conv_params, x, compute_dtype=None):
+    """x [B, T, F, 1] → per-channel (Σy, Σy²) of the entry conv output,
+    float32, no graph (the statistics-only mode of the conv kernel)."""
+    with fused_entry_block.called_through(crows_stats_apply):
+        return fused_entry_block.entry_block_stats_apply(conv_params, x, compute_dtype)
+
+
+crows_stats_apply.launches = 0
+
+
+def crows_apply(conv_params, scale, bias, mean, var, glu_w, glu_b, x, seed, rate: float,
+                pool: Tuple[int, int], eps: float, train: bool, compute_dtype=None):
+    """Logical-parameter entry: x [B, T, F, 1] + conv {"w": [3, 3, 1, C], "b":
+    [C]} + [C] BatchNorm vectors + [C, C] GLU weight → pooled
+    [B, T/pt, F/pf, C], with the contract of
+    `fused_entry_block.entry_block_apply` (detached mean/var, the two-pass
+    backward inside)."""
+    if not crows_applicable((*x.shape[:3], 1), pool):
+        raise ValueError(f"crows_apply does not take x {tuple(x.shape)} with pool {tuple(pool)}")
+    with fused_entry_block.called_through(crows_apply):
+        return fused_entry_block.entry_block_apply(conv_params, scale, bias, mean, var, glu_w, glu_b, x, seed, rate,
+                                                   pool, eps, train, compute_dtype)
+
+
+crows_apply.launches_eval = 0
+crows_apply.launches_train = 0
+crows_apply.launches_bwd_reduce = 0
+crows_apply.launches_bwd_wgrad = 0

@@ -11,6 +11,8 @@ version beside it:
   batch_stats                 stats_kernel + fold            batch_stats_reference
   bwd_reduce                  bn_glu_pool_bwd_kernel + fold  bwd_reference (first half)
   bwd_fixup                   bn_bwd_fixup_kernel            bwd_reference (second half)
+  dropout_mask                dropout_mask_kernel (a test    dropout_keep_mask
+                              helper, csrc/entry_block.cu)
 
 `fused_bn_glu_dropout_pool` ties them into one `torch.autograd.Function`
 with the JAX contract: mean and var come in detached (the batch statistics
@@ -100,6 +102,28 @@ def dropout_keep_mask(seed, shape, rate: float, device=None) -> torch.Tensor:
     counters = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
     bits = philox4x32(counters, seed).reshape(-1)[:n]
     return (bits >= dropout_threshold(rate)).to(torch.float32).reshape(tuple(shape))
+
+
+def dropout_mask(seed, shape, rate: float, device) -> torch.Tensor:
+    """The keep-mask written by a kernel of its own (csrc/entry_block.cu
+    dropout_mask_kernel): what every fused kernel multiplies by, laid bare so
+    that a test can hold it bit-equal to `dropout_keep_mask` on the card and
+    check its distribution. CPU: `dropout_keep_mask`."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return dropout_keep_mask(seed, shape, rate, device=device)
+    if device.type != "cuda":
+        raise ValueError(f"dropout_mask runs on cpu or cuda, got {device}")
+    out = torch.empty(tuple(int(s) for s in shape), dtype=torch.float32, device=device)
+    seed_t = _seed_tensor(seed, device)
+    status = _build.library().dcase_dropout_mask(out.data_ptr(), out.numel(), seed_t.data_ptr(),
+                                                 dropout_threshold(rate), _build.stream_handle(device))
+    _build.check(status, "dropout_mask")
+    dropout_mask.launches += 1
+    return out
+
+
+dropout_mask.launches = 0
 
 
 def reference_block(y, scale, bias, mean, var, glu_w, glu_b, pool, eps, mask=None, keep: float = 1.0):

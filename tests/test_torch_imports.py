@@ -35,16 +35,20 @@ def test_every_module_is_listed():
                  "models.crnn", "models.layers", "train.checkpoints", "data.pipeline",
                  "eval.decode", "eval.evaluate", "config", "utils.logger", "utils.scaler",
                  "data.encoder", "data.audio_io", "native", "train.ramps", "train.losses",
-                 "train.schedules", "train.steps"):
+                 "train.schedules", "train.steps", "ops.entry_conv", "ops.fused_entry_block", "ops.crows_block"):
         assert f"dcase2019_task4_tpu_torch.{name}" in MODULES
 
 
-@pytest.mark.parametrize("target", ["package", "chip_smoke"])
+@pytest.mark.parametrize("target", ["package", "chip_smoke", "bench_entry_conv_torch"])
 def test_no_jax_and_no_pandas(target):
     if target == "package":
         imports = "\n".join(f"import {m}" for m in MODULES)
-    else:  # what chip_smoke.py reaches: its module and every port module it calls
+    elif target == "chip_smoke":  # what chip_smoke.py reaches: its module and every port module it calls
         imports = "import chip_smoke\n" + "\n".join(f"import {m}" for m in MODULES)
+    else:  # the tool, run as far as it goes without a card (it imports what it uses inside main)
+        imports = ("import sys; sys.path.insert(0, 'tools')\nimport bench_entry_conv_torch\n"
+                   "rc = bench_entry_conv_torch.main([])\n"
+                   "import torch\nassert rc == 2 or torch.cuda.is_available(), rc")
     proc = _run(imports + "\nimport sys\nprint(sorted(m for m in sys.modules if m in ('jax', 'pandas') "
                           "or m == 'dcase2019_task4_tpu' or m.startswith('dcase2019_task4_tpu.')))")
     assert proc.returncode == 0, proc.stderr
@@ -63,7 +67,7 @@ _JAX_PACKAGE_USE = re.compile(
 
 def _port_sources():
     files = glob.glob(os.path.join(ROOT, "dcase2019_task4_tpu_torch", "**", "*.py"), recursive=True)
-    return sorted(files) + [os.path.join(ROOT, "chip_smoke.py")]
+    return sorted(files) + [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tools", "bench_entry_conv_torch.py")]
 
 
 def test_source_scan_finds_no_import_of_the_jax_package():
@@ -91,15 +95,22 @@ def test_chip_smoke_names_every_kernel_of_its_kernels_line():
     launch counter, and belongs to a path whose launches are checked."""
     proc = _run("import json, chip_smoke\n"
                 "print(json.dumps({'kernels': chip_smoke.KERNELS, 'wrappers': sorted(chip_smoke.wrappers()),\n"
-                "                  'paths': sorted(set(chip_smoke.PREDICT_MIN) | set(chip_smoke.STEP_MIN))}))")
+                "                  'paths': sorted(set().union(*chip_smoke.PATHS.values())),\n"
+                "                  'row_path': chip_smoke.ROW_PATH, 'path_names': sorted(chip_smoke.PATHS),\n"
+                "                  'default': sorted(set(chip_smoke.PREDICT_MIN) | set(chip_smoke.STEP_MIN))}))")
     assert proc.returncode == 0, proc.stderr
     import json
 
     doc = json.loads(proc.stdout.strip().splitlines()[-1])
     names = sorted(doc["kernels"])
-    assert names == doc["wrappers"] == doc["paths"]
-    for want in ("fused_stft_mel", "conv2d_forward", "conv2d_dx", "conv2d_wgrad", "fused_bn_glu_pool_eval",
-                 "fused_bn_glu_pool_train", "batch_stats", "bwd_reduce", "bwd_fixup"):
+    assert names == doc["wrappers"] == doc["paths"] == sorted(doc["row_path"])
+    assert set(doc["row_path"].values()) <= set(doc["path_names"])
+    default = ("fused_stft_mel", "conv2d_forward", "conv2d_dx", "conv2d_wgrad", "fused_bn_glu_pool_eval",
+               "fused_bn_glu_pool_train", "batch_stats", "bwd_reduce", "bwd_fixup")
+    assert doc["default"] == sorted(default)  # the default paths launch what they launched
+    for want in default + ("entry_conv", "entry_conv_wgrad", "entry_block_stats", "entry_block_fwd_eval",
+                           "entry_block_fwd_train", "entry_block_bwd_reduce", "entry_block_bwd_wgrad",
+                           "crows_stats", "crows_fwd", "crows_bwd_reduce", "crows_bwd_wgrad"):
         assert want in names
     with open(os.path.join(ROOT, "chip_smoke.py")) as f:
         source = f.read()

@@ -8,16 +8,18 @@ when torch sees no CUDA device. On a GPU machine:
 Shapes are small and odd-sized (partial tiles, C = 16, 64 and 128) to
 exercise the kernels' bounds checks; chip_smoke.py covers the flagship
 shapes. Forward, train-mode dropout (mask bit-equal to the plain Philox),
-batch statistics, both backward passes, conv dx and wgrad, and one whole
-training step. float32
-with TF32 off on both sides.
+batch statistics, both backward passes, conv dx and wgrad, the entry-block
+family (K4 conv with sums and weight gradient, K5 statistics, forward and
+two-pass backward, at small shapes and at the flagship block-1 shape), the
+keep-mask kernel, and one whole training step per first-block
+configuration. float32 with TF32 off on both sides.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from dcase2019_task4_tpu_torch.ops import fused_block, fused_mel, packed_conv
+from dcase2019_task4_tpu_torch.ops import crows_block, entry_conv, fused_block, fused_entry_block, fused_mel, packed_conv
 from dcase2019_task4_tpu_torch.ops.mel import MelFrontend
 
 pytestmark = pytest.mark.gpu
@@ -181,15 +183,151 @@ def test_conv2d_packed_gradients(cuda, shape):
     assert torch.equal(dw2, w.grad) and torch.equal(db2, b.grad)
 
 
+# x [B, T, F] and C: partial last tiles, F from 4 to 128, C = 8 to 128, and the flagship block-1 shape
+ENTRY_SHAPES = [((2, 98, 64), 16), ((3, 26, 4), 16), ((1, 14, 8), 64), ((2, 38, 16), 64), ((1, 9, 128), 8),
+                ((1, 8, 16), 128), ((24, 864, 64), 64)]
+
+
+def _entry_params(rng, C, device):
+    return {"w": _t(0.3 * rng.standard_normal((3, 3, 1, C)), device), "b": _t(0.1 * rng.standard_normal(C), device)}
+
+
+@pytest.mark.parametrize("shape,C", ENTRY_SHAPES)
+def test_entry_conv_forward_stats_and_wgrad(cuda, shape, C):
+    rng = np.random.default_rng(sum(shape) + C)
+    params = _entry_params(rng, C, cuda)
+    x = _t(rng.standard_normal(shape), cuda)
+    dy = _t(rng.standard_normal(shape + (C,)), cuda)
+    counts = (entry_conv.entry_conv_forward.launches, entry_conv.entry_conv_wgrad.launches)
+    w, b = (params[k].clone().requires_grad_(True) for k in ("w", "b"))
+    y, s1, s2 = entry_conv.entry_conv_apply({"w": w, "b": b}, x[..., None], want_stats=True)
+    y.backward(dy)
+    assert (entry_conv.entry_conv_forward.launches, entry_conv.entry_conv_wgrad.launches) == (counts[0] + 1, counts[1] + 1)
+    y_ref, _, _ = entry_conv.entry_conv_reference(params, x)
+    torch.testing.assert_close(y.detach(), y_ref, rtol=0, atol=1e-5)
+    for got, want in ((s1, y_ref.double().sum(dim=(0, 1, 2))), (s2, (y_ref.double() ** 2).sum(dim=(0, 1, 2)))):
+        assert (got.double() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    dw_ref, db_ref = entry_conv.entry_conv_wgrad_reference(x, dy)
+    for got, want in ((w.grad, dw_ref), (b.grad, db_ref)):
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    # the statistics-only mode and a repeat: the same bits
+    before = entry_conv.entry_conv_stats.launches
+    only = entry_conv.entry_conv_stats(params, x)
+    assert entry_conv.entry_conv_stats.launches == before + 1
+    assert torch.equal(only[0], s1) and torch.equal(only[1], s2)
+    dw2, db2 = entry_conv.entry_conv_wgrad(x, dy)
+    assert torch.equal(dw2, w.grad) and torch.equal(db2, b.grad)
+    for mode in ("no_patch", "write_only"):
+        torch.testing.assert_close(entry_conv.entry_conv_ablation(params, x, mode),
+                                   entry_conv.entry_conv_ablation_reference(params, x, mode), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("shape,C", [sc for sc in ENTRY_SHAPES if sc[0][1] % 2 == 0 and sc[0][2] * 2 <= 128])
+def test_entry_block_forward_and_backward(cuda, shape, C, rate):
+    """K5s, K5f, K5b1, K5b2 through the autograd Function against the
+    formulas, the mask shared with K2f (conv2d → fused block, same seed), and
+    bit-equal repeats."""
+    rng = np.random.default_rng(sum(shape) + C + 1)
+    B, T, Fq = shape
+    conv = _entry_params(rng, C, cuda)
+    scale, bias, _, _, gw, gb = _block_args(rng, C, cuda)
+    x = _t(rng.standard_normal(shape), cuda)
+    dout = _t(rng.standard_normal((B, T // 2, Fq // 4, C)), cuda)
+    seed = torch.tensor([4242 + T])
+    fe = fused_entry_block
+    counts = (fe.entry_block_stats_apply.launches, fe.entry_block_fwd.launches_eval, fe.entry_block_fwd.launches_train,
+              fe.entry_block_bwd_reduce.launches, fe.entry_block_bwd_wgrad.launches)
+
+    def run():
+        leaves = [t.clone().requires_grad_(True) for t in (conv["w"], conv["b"], scale, bias, gw, gb)]
+        w, b, sc, bi, w2, b2 = leaves
+        s, sq = fe.entry_block_stats_apply({"w": w, "b": b}, x)
+        mean = s / (B * T * Fq)
+        var = sq / (B * T * Fq) - mean * mean
+        out = fe.entry_block_apply({"w": w, "b": b}, sc, bi, mean, var, w2, b2, x, seed, rate, (2, 4), 1e-3, True)
+        out.backward(dout)
+        return out.detach(), mean, var, [t.grad for t in leaves]
+
+    out, mean, var, grads = run()
+    assert counts == (fe.entry_block_stats_apply.launches - 1, fe.entry_block_fwd.launches_eval - (rate == 0.0),
+                      fe.entry_block_fwd.launches_train - (rate > 0.0), fe.entry_block_bwd_reduce.launches - 1,
+                      fe.entry_block_bwd_wgrad.launches - 1)
+    mask = fused_block.dropout_keep_mask(seed, shape + (C,), rate, device=cuda) if rate else None
+    ref = fe.reference_entry_block(x, conv["w"], conv["b"], scale, bias, mean, var, gw, gb, (2, 4), 1e-3, mask, 1.0 - rate)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+    y = entry_conv.entry_conv_reference(conv, x)[0]
+    pair = fused_block.fused_bn_glu_pool(y, scale, bias, mean, var, gw, gb, (2, 4), 1e-3, rate=rate, seed=seed)
+    torch.testing.assert_close(out, pair, rtol=0, atol=1e-5)
+    # the formulas in float64: d conv_b is zero in exact arithmetic under
+    # through-statistics BatchNorm, and at the flagship shape a float32 plain
+    # version's own rounding noise there (85 M addends) exceeds the kernel's
+    dbl = [t.double() for t in (x, dout, conv["w"], conv["b"], scale, bias, mean, var, gw, gb)]
+    want = fe.entry_block_bwd_reference(*dbl, (2, 4), 1e-3, None if mask is None else mask.double(), 1.0 - rate)
+    top = max(w.abs().max().item() for w in want)
+    for name, got, w in zip(("dw", "dcb", "dscale", "dbias", "dgw", "dgb"), grads, want):
+        limit = 1e-4 * w.abs().max().item() + (1e-6 * top if name == "dcb" else 0.0)  # the gauge leaf's noise floor
+        assert (got.double() - w).abs().max().item() <= limit, name
+    out2, _, _, grads2 = run()
+    assert torch.equal(out, out2) and all(torch.equal(a, b) for a, b in zip(grads, grads2))
+
+
+def test_crows_entries_count_their_launches(cuda):
+    rng = np.random.default_rng(5)
+    B, T, Fq, C = 2, 12, 64, 64
+    conv = _entry_params(rng, C, cuda)
+    scale, bias, _, _, gw, gb = _block_args(rng, C, cuda)
+    gw.requires_grad_(True)
+    x = _t(rng.standard_normal((B, T, Fq, 1)), cuda)
+    cr, fe = crows_block, fused_entry_block
+    names = ("launches_eval", "launches_train", "launches_bwd_reduce", "launches_bwd_wgrad")
+    before = [getattr(cr.crows_apply, n) for n in names] + [cr.crows_stats_apply.launches]
+    kernel_before = (fe.entry_block_stats_apply.launches, fe.entry_block_fwd.launches_train)
+    s, sq = cr.crows_stats_apply(conv, x)
+    mean = s / (B * T * Fq)
+    out = cr.crows_apply(conv, scale, bias, mean, sq / (B * T * Fq) - mean * mean, gw, gb, x, 3, 0.5, (2, 4), 1e-3, True)
+    out.sum().backward()
+    cr.crows_apply(conv, scale, bias, mean, torch.ones_like(mean), gw, gb, x, 0, 0.5, (2, 4), 1e-3, False)
+    after = [getattr(cr.crows_apply, n) for n in names] + [cr.crows_stats_apply.launches]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1, 1]
+    assert (fe.entry_block_stats_apply.launches, fe.entry_block_fwd.launches_train) == (kernel_before[0] + 1, kernel_before[1] + 1)
+    ref = fe.entry_block_apply(conv, scale, bias, mean, sq / (B * T * Fq) - mean * mean, gw, gb, x, 3, 0.5, (2, 4), 1e-3, True)
+    assert torch.equal(out, ref)  # one kernel family behind both entries
+
+
+@pytest.mark.parametrize("rate", [0.5, 0.25])
+@pytest.mark.parametrize("shape", [(2, 6, 8, 16), (777,), (3, 38, 16, 64), (4, 512, 128)])
+def test_dropout_mask_kernel_is_bit_equal_to_the_plain_mask(cuda, shape, rate):
+    seed = torch.tensor([2019 + len(shape)])
+    before = fused_block.dropout_mask.launches
+    got = fused_block.dropout_mask(seed, shape, rate, cuda)
+    assert fused_block.dropout_mask.launches == before + 1
+    assert torch.equal(got, fused_block.dropout_keep_mask(seed, shape, rate, device=cuda))
+    assert torch.equal(got.cpu(), fused_block.dropout_keep_mask(seed, shape, rate))
+    n = got.numel()
+    if n >= 100_000:
+        assert abs(got.mean().item() - (1.0 - rate)) < 5.0 * np.sqrt(rate * (1 - rate) / n)
+
+
 def test_train_step_on_the_card_repeats_a_cpu_step(cuda):
     """One Mean-Teacher step at a small geometry on the card (kernels) and on
     the CPU (plain versions) from the same state and a CPU generator."""
+    _step_on_the_card_against_the_cpu(cuda, None)
+
+
+@pytest.mark.parametrize("flag", ["entry_conv_pallas", "entry_block_pallas", "entry_block_crows"])
+def test_train_step_under_a_first_block_flag_repeats_a_cpu_step(cuda, flag):
+    _step_on_the_card_against_the_cpu(cuda, flag)
+
+
+def _step_on_the_card_against_the_cpu(cuda, flag):
     import copy
 
     from dcase2019_task4_tpu_torch.config import ModelConfig
     from dcase2019_task4_tpu_torch.train import steps
 
-    cfg = ModelConfig(nb_filters=(16, 16, 16), n_rnn_cell=16)
+    filters = (64, 16, 16) if flag == "entry_block_crows" else (16, 16, 16)
+    cfg = ModelConfig(nb_filters=filters, n_rnn_cell=16, **({flag: True} if flag else {}))
     base = steps.init_train_state(cfg, lambda p: torch.optim.Adam(p, lr=1e-3), torch.Generator().manual_seed(0))
     g = torch.Generator().manual_seed(1)
     audio = (0.1 * torch.randn(8, 95 * 511 + 2048, generator=g) * 32768).clamp(-32768, 32767).to(torch.int16)

@@ -48,6 +48,7 @@ from dcase2019_task4_tpu.train import ramps as jramps
 from dcase2019_task4_tpu.train import schedules as jschedules
 from dcase2019_task4_tpu.train import steps as jsteps
 from dcase2019_task4_tpu_torch.models import crnn as tcrnn
+from dcase2019_task4_tpu_torch.ops import fused_entry_block as tfeb
 from dcase2019_task4_tpu_torch.ops import mel as tmel
 from dcase2019_task4_tpu_torch.train import checkpoints as tckpt
 from dcase2019_task4_tpu_torch.train import losses as tlosses
@@ -337,7 +338,26 @@ def _with_moments(jstate, opt, mu, nu, step):
 
 
 def test_one_mt_step_matches_jax_with_interpreted_kernels():
-    cfg = _cfg(True)
+    _one_mt_step_against_jax(_cfg(True))
+
+
+def test_one_mt_step_with_entry_block_pallas_matches_jax():
+    """The same step with the fused first block on both sides (64 filters in
+    block 1: the JAX gate; its Pallas kernels interpreted): statistics pass,
+    forward and two-pass backward of the first block instead of conv + fused
+    block. Same tolerances."""
+    cfg = dataclasses.replace(_cfg(True, entry_block_pallas=True), nb_filters=(64, 16, 16))
+    calls = []
+    real = tfeb.entry_block_apply
+    tfeb.entry_block_apply = lambda *a, **kw: (calls.append(1), real(*a, **kw))[1]
+    try:
+        _one_mt_step_against_jax(cfg)
+    finally:
+        tfeb.entry_block_apply = real
+    assert len(calls) == 4  # teacher and student, in the step and in the function-space check
+
+
+def _one_mt_step_against_jax(cfg):
     jfe, tfe = _frontends(interpret=True)
     batch = _batch(5)
     opt = optax.adam(LR, b1=0.9, b2=0.999, eps=1e-8)
