@@ -24,7 +24,12 @@ printing a result:
      Function) bit for bit to the fused entry block's own wrappers and to
      the plain versions on their own, and the keep-mask kernel bit for bit
      to `dropout_keep_mask`. K4w's library time is autograd through the
-     model's own conv, as the default path reaches cuDNN;
+     model's own conv, as the default path reaches cuDNN. K1 (the FFT
+     kernel) is also held to a float64 DFT of the same frames: its error
+     there may be at most twice the float32 plain version's; its library
+     time is one `torch.fft.rfft` of the windowed frames (the transform
+     alone), and one SGEMM of the TPU design's two DFT products is printed
+     beside it; its bound is recounted from what the function needs;
   4. predict — 48 synthetic 10 s wavs (two batches of 24) and a checkpoint
      of a seeded flagship CRNN written by the port's own writer, through
      `cli.predict(... --device cuda)`: the TSVs parse, every kernel of the
@@ -439,28 +444,54 @@ def phase_kernels(device):
     # K1 at the shape the frontend hands it: [B, T + extra_rows, hop]
     fe = flagship_frontend(device)
     audio = (0.1 * rng.standard_normal((B, d.max_samples + d.n_window))).astype(np.float32)
-    bases = fused_mel.FusedMelBases(fe.cos_basis, fe.sin_basis, fe.mel_fb)
+    bases = fe.bases()
     kw = dict(n_fft=d.n_window, hop=d.hop_length, T=d.max_frames)
     nb, M = fe.mel_fb.shape
+    frames_of = lambda chunks: chunks.reshape(B, -1).unfold(1, d.n_window, d.hop_length)[:, : d.max_frames]  # noqa: E731
     for dtype in ("float32", "int16"):
         a = torch.as_tensor(audio, device=device)
         if dtype == "int16":
             a = torch.clamp(torch.round(a * 32768.0), -32768, 32767).to(torch.int16)
         chunks = fe._hop_chunks(a)
+        # the function in float64: the same window and mel weights, an exact DFT
+        x64 = fused_mel._dequantize(chunks).double()
+        spec64 = torch.fft.rfft(frames_of(x64) * fe.window.double(), dim=-1)[..., :nb].abs()
+        exact = spec64 @ fe.mel_fb.double()
+        del x64, spec64
+        errs = [(fn(chunks, bases, **kw).double() - exact).abs().max().item()
+                for fn in (fused_mel.fused_stft_mel, fused_mel.fused_stft_mel_reference)]
+        scale = exact.abs().max().item()
+        print(f"  K1 {dtype} against a float64 DFT: kernel {errs[0]:.3e}, plain float32 version {errs[1]:.3e} "
+              f"({errs[0] / scale:.2e} and {errs[1] / scale:.2e} of max)")
+        if not errs[0] <= 2.0 * errs[1]:
+            raise AssertionError(f"K1 {dtype}: error {errs[0]} against float64 exceeds twice the plain version's {errs[1]}")
+        del exact
         library_fn = None
         if dtype == "float32":  # timed for the row; the train step hands K1 int16
-            frames = chunks.reshape(B, -1).unfold(1, d.n_window, d.hop_length)[:, : d.max_frames].contiguous()
+            frames = (frames_of(chunks) * fe.window).contiguous()  # windowed frames, made outside the timed call
+            library_fn = lambda: torch.fft.rfft(frames, dim=-1)  # noqa: E731 — the transform alone
             both = torch.cat([fe.cos_basis, fe.sin_basis], dim=1)
-            library_fn = lambda: torch.matmul(frames, both)  # noqa: E731 — both DFT products as one SGEMM
-        res = compare(f"K1 fused_stft_mel {dtype} {list(chunks.shape)}",
+            raw = frames_of(chunks).contiguous()
+            print(f"  K1 yardstick: one cuBLAS SGEMM of both DFT products {list(raw.shape)} @ {list(both.shape)}: "
+                  f"{time_ms(lambda: torch.matmul(raw, both)):.4f} ms "
+                  f"({shown(device_ms(lambda: torch.matmul(raw, both)))} on the device)")
+            del both, raw
+        res = compare(f"K1 fused_stft_mel {dtype} {list(chunks.shape)} (library: torch.fft.rfft, the transform alone)",
                       lambda: fused_mel.fused_stft_mel(chunks, bases, **kw),
                       lambda: fused_mel.fused_stft_mel_reference(chunks, bases, **kw),
                       rtol_of_max=1e-4, library_fn=library_fn)
+        # what the function needs: a real FFT per frame (2.5 n log2 n, the
+        # conventional count), the magnitudes, the band sums; the audio in its
+        # own dtype, the mel out and the band table
+        n_frames = B * d.max_frames
+        n_ops = n_frames * (2.5 * d.n_window * np.log2(d.n_window) + 4 * nb + 2 * bases.band_weights.numel())
+        n_bytes = (chunks.numel() * chunks.element_size() + n_frames * M * 4
+                   + (bases.band_weights.numel() + bases.bands.numel()) * 4)
+        bound, by = bound_ms(n_bytes, n_ops)
+        print(f"  K1 {dtype} bound: {n_ops / 1e9:.3f} GFLOP, {n_bytes / 1e6:.1f} MB -> {bound:.4f} ms by {by}")
         if dtype == "float32":
-            n_bytes = chunks.numel() * 4 + (2 * d.n_window * nb + nb * M) * 4 + B * d.max_frames * M * 4
-            n_ops = 2.0 * B * d.max_frames * nb * (2 * d.n_window + M)
             rows["fused_stft_mel"].add(chunks.shape, res, n_bytes, n_ops)
-            del frames, both
+            del frames
         else:
             rows["fused_stft_mel"].note_err(res)
 

@@ -6,26 +6,46 @@
 //
 // Function: for clip b and frame t, the frame is the n_fft samples that
 // start at t*hop in the clip's flattened hop-row buffer (librosa framing
-// after the centre padding). With windowed real-DFT bases cos/sin
-// [n_fft, NB] (NB = bins the mel matrix reads) and the mel matrix [NB, M]:
-//   re[t,k] = sum_n x[t*hop+n] cos[n,k],  im[t,k] = sum_n x[t*hop+n] sin[n,k]
-//   mel[t,m] = sum_k sqrt(re^2 + im^2) mel_fb[k,m]
+// after the centre padding). With the symmetric Hamming window w, the real
+// DFT X[k] of the windowed frame for the NB bins the mel matrix reads, and
+// the mel matrix [NB, M]:
+//   mel[t,m] = sum_k |X[k]| mel_fb[k,m]
 //
-// Bound: compute. At the flagship shape (B=24, T=864, n_fft=2048, NB=1024)
-// the DFT is 24*864*2048*1024*2*2 ~ 174 GFLOP per batch, against ~42 MB
-// of audio in and 5 MB of mel out, so the FP32 FMA rate of the CUDA cores
-// is the limit (about 67 TFLOP/s at 700 W).
+// Algorithm: the TPU kernel computes X as two DFT products on the MXU (the
+// only unit it has for this), 4*n_fft*NB flops a frame. Here a frame is a
+// real FFT: pack z[m] = w[2m]x[2m] + i w[2m+1]x[2m+1] (N = n_fft/2 points),
+// take the N-point complex FFT Z in shared memory (Stockham, radix 4, one
+// radix-2 pass first when log2 N is odd), and split
+//   X[k] = (Z[k] + conj Z[N-k])/2 - i e^{-2 pi i k/n_fft} (Z[k] - conj Z[N-k])/2,
+// with Z[N] = Z[0]. The mel matrix is triangles (at most 2 nonzeros a bin,
+// 1982 of 1024 x 64 at the flagship shape), so each output is a short sum
+// over its band from a table built on the host: first bin, length and the
+// float32 weights of mel_fb itself (skipped entries are exact zeros).
+// Twiddles come from a host table built in float64; no fast-math intrinsics.
 //
-// Design: one block per (frame tile of TT frames, clip). The block stages
-// the tile's audio span ((TT-1)*hop + n_fft samples, int16 dequantized on
-// load) in shared memory once, then walks the bins in chunks of KB. For
-// each chunk it accumulates re and im in registers (each thread owns 4
-// frames x 4 bins of both) over the window in stages of NK basis rows that
-// are staged in shared memory, takes the magnitude into a small shared
-// tile, and adds the chunk's contribution to the [TT, M] mel tile that
-// lives in registers for the whole block. The spectrum never reaches
-// device memory. The bases (16 MB) are re-read by every block and stay in
-// the 50 MB L2. Plain FP32 FMAs: no TF32, no tensor cores yet.
+// Bound: operations, counted conventionally: 2.5 n_fft log2 n_fft flops a
+// frame for the real transform, 4 NB for the magnitude and 2 nnz(mel_fb)
+// for the band sums, about 1.34 GFLOP a batch of 24 x 864 frames (0.020 ms
+// at 67 TFLOP/s), against 47.9 MB of float32 audio and mel (0.014 ms; int16
+// audio 26.6 MB). The DFT-as-matmul kernel that this design replaced did
+// 176.7 GFLOP of FMAs and took 10.40 ms by CUDA events, 10.28 ms on the
+// device, on an H100 at 700 W. An FFT does so little arithmetic that what
+// limits it is the shared-memory passes: every radix-4 pass reads and
+// writes each point once (plus its twiddles), about 110 KB of shared-memory
+// traffic a frame in all.
+//
+// Design: one block per (tile of TT frames, clip). The block stages the
+// tile's audio span ((TT-1)*hop + n_fft samples, int16 dequantized on
+// load, coalesced) and the twiddle table in shared memory once. It then
+// transforms the tile in rounds of FR = kPoints / N frames (4 at n_fft
+// 2048): each pass reads its points into registers (16 a thread), syncs,
+// and writes them back in place, so one 32 KB buffer serves the round; the
+// first pass reads the windowed samples straight from the staged audio.
+// The magnitudes overwrite the buffer, and the band sums read them there:
+// the spectrum never reaches device memory. TT is the largest of 16, 8, 4,
+// 2 whose shared memory stays within kSmemBudget (three blocks an SM); 8 at
+// the flagship shape (64 KB), 1 only where a long hop or n_fft allows no
+// more.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -33,135 +53,213 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTT = 32;         // frames per block
-constexpr int kKB = 128;        // bins per chunk
-constexpr int kNK = 16;         // basis rows per shared-memory stage
-constexpr int kMelPerThread = 16;  // kTT * M <= kThreads * 16  =>  M <= 128
+constexpr int kPoints = 4096;                   // complex points a round transforms
+constexpr int kPerThread = kPoints / kThreads;  // points a thread holds in a pass
+constexpr int kMaxTT = 16;
+constexpr int kMinFft = 64, kMaxFft = 4096;
+constexpr int kMaxMels = 128;
+constexpr int kMaxRoundFrames = kPoints / (kMinFft / 2);
+constexpr long long kSmemBudget = 74 * 1024;    // three blocks of 256 threads an SM
 
 __device__ __forceinline__ float load_sample(const float* p, float) { return *p; }
 __device__ __forceinline__ float load_sample(const int16_t* p, float scale) {
   return static_cast<float>(*p) * scale;
 }
 
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// W_N^e = e^{-2 pi i e/N} for e in [0, N), from tw[m] = e^{-2 pi i m/(2N)}, m < N
+__device__ __forceinline__ float2 twiddle(const float2* tw, int N, int e) {
+  const int two = 2 * e;
+  if (two < N) return tw[two];
+  const float2 t = tw[two - N];
+  return make_float2(-t.x, -t.y);
+}
+
+template <int R>
+__device__ __forceinline__ void butterfly(float2 (&v)[R]) {
+  if constexpr (R == 2) {
+    const float2 a = v[0], b = v[1];
+    v[0] = make_float2(a.x + b.x, a.y + b.y);
+    v[1] = make_float2(a.x - b.x, a.y - b.y);
+  } else {
+    const float2 a0 = make_float2(v[0].x + v[2].x, v[0].y + v[2].y);
+    const float2 a1 = make_float2(v[0].x - v[2].x, v[0].y - v[2].y);
+    const float2 a2 = make_float2(v[1].x + v[3].x, v[1].y + v[3].y);
+    const float2 a3 = make_float2(v[1].y - v[3].y, v[3].x - v[1].x);  // -i (v1 - v3)
+    v[0] = make_float2(a0.x + a2.x, a0.y + a2.y);
+    v[1] = make_float2(a1.x + a3.x, a1.y + a3.y);
+    v[2] = make_float2(a0.x - a2.x, a0.y - a2.y);
+    v[3] = make_float2(a1.x - a3.x, a1.y - a3.y);
+  }
+}
+
+// One Stockham pass of radix R over `frames` transforms of N points in buf
+// (frame-major): butterfly j of a frame combines the points j + q*N/R of Ns-point
+// sub-transforms into an (Ns*R)-point one and writes them to
+// (j - k)*R + k + q*Ns, k = j mod Ns. The first pass (Ns = 1, no twiddles)
+// packs its points from the staged audio: z[n] = w[2n]x[2n] + i w[2n+1]x[2n+1].
+template <int R, bool First>
+__device__ __forceinline__ void fft_pass(float2* buf, const float2* tw, const float* xs,
+                                         const float2* __restrict__ win, int hop, int frame0,
+                                         int frames, int N, int log2N, int Ns, int log2NsR) {
+  constexpr int kBf = kPerThread / R;
+  const int log2nr = log2N - (R == 4 ? 2 : 1);
+  const int nr = 1 << log2nr;
+  const int total = frames << log2nr;
+  float2 v[kBf][R];
+#pragma unroll
+  for (int i = 0; i < kBf; ++i) {
+    const int u = threadIdx.x + i * kThreads;
+    if (u < total) {
+      const int f = u >> log2nr, j = u & (nr - 1), k = j & (Ns - 1);
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int idx = j + q * nr;
+        if constexpr (First) {
+          const float* x = xs + (frame0 + f) * hop + 2 * idx;
+          const float2 w = win[idx];
+          v[i][q] = make_float2(w.x * x[0], w.y * x[1]);
+        } else {
+          v[i][q] = buf[(f << log2N) + idx];
+          if (q > 0) v[i][q] = cmul(v[i][q], twiddle(tw, N, (k * q) << (log2N - log2NsR)));
+        }
+      }
+      butterfly<R>(v[i]);
+    }
+  }
+  __syncthreads();  // every point of the pass read before any is overwritten
+#pragma unroll
+  for (int i = 0; i < kBf; ++i) {
+    const int u = threadIdx.x + i * kThreads;
+    if (u < total) {
+      const int f = u >> log2nr, j = u & (nr - 1), k = j & (Ns - 1);
+      float2* dst = buf + (f << log2N) + (j - k) * R + k;
+#pragma unroll
+      for (int q = 0; q < R; ++q) dst[q * Ns] = v[i][q];
+    }
+  }
+  __syncthreads();
+}
+
 template <typename In>
-__global__ void __launch_bounds__(kThreads)
-fused_stft_mel_kernel(const In* __restrict__ audio, long long clip_stride,
-                      long long clip_len, float in_scale, const float* __restrict__ cosb,
-                      const float* __restrict__ sinb,
-                      const float* __restrict__ melfb, float* __restrict__ out,
-                      int T, int hop, int n_fft, int NB, int M) {
-  extern __shared__ float smem[];
-  const int span = (kTT - 1) * hop + n_fft;
-  float* xs = smem;                  // [span] audio of this frame tile
-  float* cs = xs + span;             // [kNK][kKB] cos stage
-  float* ss = cs + kNK * kKB;        // [kNK][kKB] sin stage
-  float* mag = ss + kNK * kKB;       // [kTT][kKB] magnitude of one chunk
+__global__ void __launch_bounds__(kThreads, 3)
+fused_stft_mel_kernel(const In* __restrict__ audio, long long clip_stride, long long clip_len,
+                      float in_scale, const float* __restrict__ window,
+                      const float2* __restrict__ twiddles, const int* __restrict__ bands,
+                      const float* __restrict__ weights, float* __restrict__ out, int T, int hop,
+                      int n_fft, int M, int TT) {
+  extern __shared__ float4 smem4[];
+  const int N = n_fft / 2;
+  const int log2N = __ffs(N) - 1;
+  const int FR = min(kPoints / N, TT);  // frames a round transforms
+  const int span = (TT - 1) * hop + n_fft;
+  float2* buf = reinterpret_cast<float2*>(smem4);  // [FR][N] points, then [FR][N+1] magnitudes
+  float2* tw = buf + kPoints;                      // [N]
+  float* nyq = reinterpret_cast<float*>(tw + N);   // [FR] |X[N]|
+  float* xs = nyq + kMaxRoundFrames;               // [span] audio of this frame tile
 
   const int tid = threadIdx.x;
-  const int t0 = blockIdx.x * kTT;
+  const int t0 = blockIdx.x * TT;
   const int b = blockIdx.y;
   const In* clip = audio + (long long)b * clip_stride;
-
   const long long start = (long long)t0 * hop;
   for (int i = tid; i < span; i += kThreads) {
     const long long idx = start + i;
     xs[i] = idx < clip_len ? load_sample(clip + idx, in_scale) : 0.0f;
   }
+  for (int i = tid; i < N; i += kThreads) tw[i] = twiddles[i];
+  __syncthreads();
 
-  // DFT mapping: warp ty owns frames ty + 8*i, lane tx owns bins tx + 32*j.
-  const int ty = tid / 32;
-  const int tx = tid % 32;
+  const auto* win = reinterpret_cast<const float2*>(window);
+  const float* mag = reinterpret_cast<const float*>(buf);
+  float* mag_out = reinterpret_cast<float*>(buf);
+  for (int frame0 = 0; frame0 < TT; frame0 += FR) {
+    // the transform; the first pass's sync also orders it after the last round's band sums
+    int Ns = 1;
+    if (log2N & 1) {
+      fft_pass<2, true>(buf, tw, xs, win, hop, frame0, FR, N, log2N, 1, 1);
+      Ns = 2;
+    } else {
+      fft_pass<4, true>(buf, tw, xs, win, hop, frame0, FR, N, log2N, 1, 2);
+      Ns = 4;
+    }
+    for (; Ns < N; Ns *= 4)
+      fft_pass<4, false>(buf, tw, xs, win, hop, frame0, FR, N, log2N, Ns, __ffs(Ns) + 1);
 
-  float mel_acc[kMelPerThread];
+    // split the real spectrum and take magnitudes; |X[N]| = |Re Z[0] - Im Z[0]|
+    float m[kPerThread];
+    const int total = FR * N;
 #pragma unroll
-  for (int q = 0; q < kMelPerThread; ++q) mel_acc[q] = 0.0f;
-
-  for (int kc = 0; kc < NB; kc += kKB) {
-    float re[4][4], im[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) re[i][j] = im[i][j] = 0.0f;
-
-    for (int n0 = 0; n0 < n_fft; n0 += kNK) {
-      __syncthreads();  // previous stage fully read (and xs staged)
-      for (int i = tid; i < kNK * kKB; i += kThreads) {
-        const int r = i / kKB, c = i % kKB;
-        const int n = n0 + r, k = kc + c;
-        const bool ok = n < n_fft && k < NB;
-        cs[i] = ok ? cosb[(long long)n * NB + k] : 0.0f;
-        ss[i] = ok ? sinb[(long long)n * NB + k] : 0.0f;
-      }
-      __syncthreads();
-      const int rows = min(kNK, n_fft - n0);
-      for (int r = 0; r < rows; ++r) {
-        float xv[4], cv[4], sv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) xv[i] = xs[(ty + 8 * i) * hop + n0 + r];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          cv[j] = cs[r * kKB + tx + 32 * j];
-          sv[j] = ss[r * kKB + tx + 32 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            re[i][j] = fmaf(xv[i], cv[j], re[i][j]);
-            im[i][j] = fmaf(xv[i], sv[j], im[i][j]);
-          }
+    for (int i = 0; i < kPerThread; ++i) {
+      const int u = tid + i * kThreads;
+      if (u < total) {
+        const int f = u >> log2N, k = u & (N - 1);
+        const float2 a = buf[u];
+        const float2 c = buf[(f << log2N) + ((N - k) & (N - 1))];  // b = conj(c)
+        const float er = 0.5f * (a.x + c.x), ei = 0.5f * (a.y - c.y);
+        const float or_ = 0.5f * (a.x - c.x), oi = 0.5f * (a.y + c.y);
+        const float2 w = tw[k];
+        const float xr = er + w.x * oi + w.y * or_;
+        const float xi = ei - w.x * or_ + w.y * oi;
+        m[i] = sqrtf(xr * xr + xi * xi);
+        if (k == 0) nyq[f] = fabsf(a.x - a.y);
       }
     }
-
-    // mag is free: the last reader was the previous chunk's mel loop, and
-    // the stage loop above synchronised after it.
+    __syncthreads();
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        mag[(ty + 8 * i) * kKB + tx + 32 * j] =
-            sqrtf(re[i][j] * re[i][j] + im[i][j] * im[i][j]);
+    for (int i = 0; i < kPerThread; ++i) {
+      const int u = tid + i * kThreads;
+      if (u < total) mag_out[u + (u >> log2N)] = m[i];  // row f at f*(N+1)
+    }
+    if (tid < FR) mag_out[tid * (N + 1) + N] = nyq[tid];
     __syncthreads();
 
-    const int kn = min(kKB, NB - kc);
-#pragma unroll
-    for (int q = 0; q < kMelPerThread; ++q) {
-      const int o = tid + q * kThreads;
-      if (o < kTT * M) {
-        const int f = o / M, m = o % M;
-        const float* mrow = mag + f * kKB;
-        const float* fb = melfb + (long long)kc * M + m;
-        float acc = mel_acc[q];
-        for (int k = 0; k < kn; ++k) acc = fmaf(mrow[k], fb[(long long)k * M], acc);
-        mel_acc[q] = acc;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int q = 0; q < kMelPerThread; ++q) {
-    const int o = tid + q * kThreads;
-    if (o < kTT * M) {
-      const int f = o / M, m = o % M;
-      if (t0 + f < T) out[((long long)b * T + t0 + f) * M + m] = mel_acc[q];
+    // band sums: one output (frame, band) a thread
+    for (int o = tid; o < FR * M; o += kThreads) {
+      const int f = o / M, mb = o - f * M;
+      const int first = __ldg(bands + 3 * mb), len = __ldg(bands + 3 * mb + 1);
+      const float* row = mag + f * (N + 1) + first;
+      const float* wt = weights + __ldg(bands + 3 * mb + 2);
+      float acc = 0.0f;
+      for (int j = 0; j < len; ++j) acc = fmaf(row[j], __ldg(wt + j), acc);
+      const int t = t0 + frame0 + f;
+      if (t < T) out[((long long)b * T + t) * M + mb] = acc;
     }
   }
 }
 
+bool supported(int n_fft) {
+  return n_fft >= kMinFft && n_fft <= kMaxFft && (n_fft & (n_fft - 1)) == 0;
+}
+
+long long smem_bytes(int tt, int hop, int n_fft) {
+  const long long span = (long long)(tt - 1) * hop + n_fft;
+  return (long long)sizeof(float2) * (kPoints + n_fft / 2) +
+         (long long)sizeof(float) * (kMaxRoundFrames + span);
+}
+
+int tile_frames(int hop, int n_fft) {
+  int tt = kMaxTT;
+  while (tt > 1 && smem_bytes(tt, hop, n_fft) > kSmemBudget) tt /= 2;
+  return tt;
+}
+
 template <typename In>
 int launch(const void* audio, long long clip_stride, long long clip_len, float in_scale,
-           const float* cosb, const float* sinb, const float* melfb, float* out,
-           int B, int T, int hop, int n_fft, int NB, int M, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)(kTT - 1) * hop + n_fft + 2 * kNK * kKB + kTT * kKB);
+           const float* window, const float2* twiddles, const int* bands, const float* weights,
+           float* out, int B, int T, int hop, int n_fft, int M, cudaStream_t stream) {
+  const int tt = tile_frames(hop, n_fft);
+  const long long smem = smem_bytes(tt, hop, n_fft);
   cudaError_t err = cudaFuncSetAttribute(fused_stft_mel_kernel<In>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + kTT - 1) / kTT, B);
+  const dim3 grid((T + tt - 1) / tt, B);
   fused_stft_mel_kernel<In><<<grid, kThreads, smem, stream>>>(
-      static_cast<const In*>(audio), clip_stride, clip_len, in_scale, cosb, sinb, melfb, out,
-      T, hop, n_fft, NB, M);
+      static_cast<const In*>(audio), clip_stride, clip_len, in_scale, window, twiddles, bands,
+      weights, out, T, hop, n_fft, M, tt);
   return (int)cudaGetLastError();
 }
 
@@ -170,32 +268,33 @@ int launch(const void* audio, long long clip_stride, long long clip_len, float i
 extern "C" {
 
 // Shared memory one block needs, in bytes (the wrapper checks it against the
-// device limit before launching).
+// device limit before launching); -1 for an n_fft the kernel does not take.
 long long dcase_fused_stft_mel_smem(int hop, int n_fft) {
-  return (long long)sizeof(float) *
-         ((long long)(kTT - 1) * hop + n_fft + 2 * kNK * kKB + kTT * kKB);
+  return supported(n_fft) ? smem_bytes(tile_frames(hop, n_fft), hop, n_fft) : -1;
 }
 
-int dcase_fused_stft_mel_max_mels() { return kThreads * kMelPerThread / kTT; }
-
 // audio: B clips of clip_len contiguous samples, clip_stride samples apart,
-// int16 (in_is_int16 = 1) or float32. cosb, sinb: [n_fft, NB];
-// melfb: [NB, M]; out: [B, T, M]; all float32, contiguous.
+// int16 (in_is_int16 = 1) or float32. window: [n_fft]; twiddles: [n_fft/2]
+// (re, im) pairs e^{-2 pi i m/n_fft}; bands: [M][3] int32 (first bin, length,
+// offset into weights); weights: the bands' mel_fb values; out: [B, T, M].
+// All float32 unless stated, contiguous. n_fft: a power of two from 64 to
+// 4096; M <= 128; anything else returns cudaErrorInvalidValue unlaunched.
 int dcase_fused_stft_mel(const void* audio, int in_is_int16, long long clip_stride,
-                         long long clip_len,
-                         const void* cosb, const void* sinb, const void* melfb,
-                         void* out, int B, int T, int hop, int n_fft, int NB, int M,
-                         void* stream) {
-  const auto* c = static_cast<const float*>(cosb);
-  const auto* s = static_cast<const float*>(sinb);
-  const auto* fb = static_cast<const float*>(melfb);
+                         long long clip_len, const void* window, const void* twiddles,
+                         const void* bands, const void* weights, void* out, int B, int T, int hop,
+                         int n_fft, int M, void* stream) {
+  if (!supported(n_fft) || M < 1 || M > kMaxMels || hop < 1) return (int)cudaErrorInvalidValue;
+  const auto* w = static_cast<const float*>(window);
+  const auto* tw = static_cast<const float2*>(twiddles);
+  const auto* bd = static_cast<const int*>(bands);
+  const auto* wt = static_cast<const float*>(weights);
   auto* o = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   if (in_is_int16)
-    return launch<int16_t>(audio, clip_stride, clip_len, 1.0f / 32768.0f, c, s, fb, o, B, T, hop,
-                           n_fft, NB, M, st);
-  return launch<float>(audio, clip_stride, clip_len, 1.0f, c, s, fb, o, B, T, hop, n_fft, NB,
-                       M, st);
+    return launch<int16_t>(audio, clip_stride, clip_len, 1.0f / 32768.0f, w, tw, bd, wt, o, B, T,
+                           hop, n_fft, M, st);
+  return launch<float>(audio, clip_stride, clip_len, 1.0f, w, tw, bd, wt, o, B, T, hop, n_fft, M,
+                       st);
 }
 
 }  // extern "C"

@@ -45,9 +45,8 @@ _U = ctypes.c_uint
 # C signature of every entry the sources export: name -> (restype, argtypes)
 SIGNATURES = {
     "dcase_fused_stft_mel_smem": (_LL, [_I, _I]),
-    "dcase_fused_stft_mel_max_mels": (_I, []),
     "dcase_fused_stft_mel": (
-        _I, [_P, _I, _LL, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        _I, [_P, _I, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     ),
     "dcase_conv3x3": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "dcase_bn_glu_pool_tiles": (_I, [_I, _I, _I]),

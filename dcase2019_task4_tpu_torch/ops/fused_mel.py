@@ -1,17 +1,19 @@
 """K1: fused STFT→mel, audio hop-rows in, linear mel out.
 
-PyTorch counterpart of dcase2019_task4_tpu/ops/fused_mel.py. On a CUDA
-tensor `fused_stft_mel` launches the hand-written kernel in
-csrc/fused_mel.cu (frames and spectrum stay on chip); on a CPU tensor it
-runs `fused_stft_mel_reference`, the plain chunked DFT of the JAX
-package's "chunked" path (ops/mel.py:292-314, then the mel product).
+PyTorch counterpart of dcase2019_task4_tpu/ops/fused_mel.py. On a CPU
+tensor `fused_stft_mel` runs `fused_stft_mel_reference`, the plain chunked
+DFT of the JAX package's "chunked" path (ops/mel.py:292-314, then the mel
+product). On a CUDA tensor it launches the hand-written kernel in
+csrc/fused_mel.cu, which computes the same function as a real FFT per frame
+in shared memory (the JAX package's "fft" STFT mode, ops/mel.py:276) and
+sums each mel band over its own bins; frames and spectrum stay on chip.
 
 The constants are trimmed to the bins the mel matrix reads (1024 of 1025
 at 44.1 kHz / 2048 / 64 mels: the Nyquist triangle weight is ~1e-15, so
-the trim is lossless to float tolerance). Unlike the TPU kernel, the bases
-are kept whole ([n_fft, NB]) instead of split into hop-wide parts: frame t
-is the contiguous window starting at t·hop of the flattened hop-row
-buffer, so the part split is TPU layout, not function.
+the trim is lossless to float tolerance). The plain version reads the
+windowed-DFT bases whole ([n_fft, NB]); the kernel reads the window, a
+float64-built twiddle table and the mel matrix as a table of bands, all
+built once on the host by `build_bases`.
 """
 
 from __future__ import annotations
@@ -23,17 +25,32 @@ import torch
 
 from dcase2019_task4_tpu_torch.ops import _build
 
+FFT_SIZES = (64, 4096)  # the kernel's n_fft: a power of two in this range
+MAX_MELS = 128
+
 
 class FusedMelBases(NamedTuple):
     """Constants for the kernel (numpy arrays or tensors on one device).
 
-    cos, sin: [n_fft, NB] windowed-DFT bases trimmed to NB bins.
+    cos, sin: [n_fft, NB] windowed-DFT bases trimmed to NB bins (the plain
+              version's).
     mel_fb:   [NB, M] Slaney mel matrix trimmed to NB bins.
+    The kernel's (None where a caller built only the first three; the CPU
+    path does not read them):
+    window:   [n_fft] the Hamming window, cos[:, 0] bit for bit.
+    twiddle:  [n_fft/2, 2] e^{-2πim/n_fft} as (re, im), from float64.
+    bands:    [M, 3] int32 per band: first bin, length, offset into
+              band_weights.
+    band_weights: the bands' float32 values of mel_fb, one after another.
     """
 
     cos: object
     sin: object
     mel_fb: object
+    window: object = None
+    twiddle: object = None
+    bands: object = None
+    band_weights: object = None
 
 
 def trimmed_bins(mel_fb_full: np.ndarray, tol: float = 1e-8) -> int:
@@ -45,15 +62,55 @@ def trimmed_bins(mel_fb_full: np.ndarray, tol: float = 1e-8) -> int:
     return int(nz[-1]) + 1 if nz.size else 1
 
 
+def twiddle_table(n_fft: int) -> np.ndarray:
+    """[n_fft/2, 2] float32 (re, im) of e^{-2πim/n_fft}, m < n_fft/2,
+    computed in float64 and rounded once."""
+    ang = 2.0 * np.pi * np.arange(n_fft // 2, dtype=np.float64) / n_fft
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
+
+
+def band_table(mel_fb: np.ndarray) -> tuple:
+    """[NB, M] mel matrix → (bands [M, 3] int32: first bin, length, offset;
+    weights float32): each band runs from its first to its last nonzero
+    weight (an empty band has length 0), so the table rebuilds mel_fb
+    exactly."""
+    bands, weights, offset = [], [], 0
+    for m in range(mel_fb.shape[1]):
+        nz = np.flatnonzero(mel_fb[:, m])
+        first, n = (int(nz[0]), int(nz[-1] - nz[0]) + 1) if nz.size else (0, 0)
+        bands.append((first, n, offset))
+        weights.append(mel_fb[first:first + n, m])
+        offset += n
+    return np.asarray(bands, np.int32).reshape(-1, 3), np.concatenate(weights).astype(np.float32)
+
+
 def build_bases(cos_full: np.ndarray, sin_full: np.ndarray, mel_fb_full: np.ndarray) -> FusedMelBases:
     """Trim the [n_fft, n_bins] bases and the [n_bins, M] mel matrix to the
-    mel-reachable bins (float32, contiguous)."""
+    mel-reachable bins and build the kernel's window, twiddle and band
+    tables (contiguous numpy arrays)."""
     nb = trimmed_bins(mel_fb_full)
+    mel_fb = np.ascontiguousarray(mel_fb_full[:nb], np.float32)
+    bands, band_weights = band_table(mel_fb)
     return FusedMelBases(
         cos=np.ascontiguousarray(cos_full[:, :nb], np.float32),
         sin=np.ascontiguousarray(sin_full[:, :nb], np.float32),
-        mel_fb=np.ascontiguousarray(mel_fb_full[:nb], np.float32),
+        mel_fb=mel_fb,
+        window=np.ascontiguousarray(cos_full[:, 0], np.float32),  # bin 0's cosine is 1
+        twiddle=twiddle_table(cos_full.shape[0]),
+        bands=bands,
+        band_weights=band_weights,
     )
+
+
+def check_kernel_args(n_fft: int, n_bins: int, n_mels: int):
+    """Raise ValueError for what the kernel does not take."""
+    lo, hi = FFT_SIZES
+    if not (lo <= n_fft <= hi and n_fft & (n_fft - 1) == 0):
+        raise ValueError(f"n_fft={n_fft}: the kernel takes a power of two from {lo} to {hi}")
+    if not 1 <= n_mels <= MAX_MELS:
+        raise ValueError(f"{n_mels} mel bands: the kernel takes 1 to {MAX_MELS}")
+    if not 1 <= n_bins <= n_fft // 2 + 1:
+        raise ValueError(f"{n_bins} bins: a real FFT of {n_fft} points has {n_fft // 2 + 1}")
 
 
 def extra_rows(n_fft: int, hop: int) -> int:
@@ -85,7 +142,8 @@ def fused_stft_mel_reference(chunks: torch.Tensor, bases: FusedMelBases, *, n_ff
 
 def fused_stft_mel(chunks: torch.Tensor, bases: FusedMelBases, *, n_fft: int, hop: int, T: int) -> torch.Tensor:
     """chunks [B, R, hop] (R ≥ T + extra_rows; int16 PCM or float32) →
-    linear mel [B, T, M] float32. CPU: the plain twin. CUDA: the kernel."""
+    linear mel [B, T, M] float32. CPU: the plain twin. CUDA: the FFT
+    kernel, which needs the tables of `build_bases`."""
     B, R, hop_in = chunks.shape
     if hop_in != hop or R < T + extra_rows(n_fft, hop):
         raise ValueError(f"chunks {tuple(chunks.shape)} do not cover T={T} frames of n_fft={n_fft}, hop={hop}")
@@ -98,23 +156,29 @@ def fused_stft_mel(chunks: torch.Tensor, bases: FusedMelBases, *, n_fft: int, ho
         # longer buffer qualifies); clips may sit any distance apart
         raise ValueError(f"chunks must be float32 or int16 with contiguous clips, got {chunks.dtype}, "
                          f"strides {chunks.stride()}")
-    cos, sin, mel_fb = bases
-    nb, M = mel_fb.shape
-    for name, t, shape in (("cos", cos, (n_fft, nb)), ("sin", sin, (n_fft, nb)), ("mel_fb", mel_fb, (nb, M))):
-        if (t.device != chunks.device or t.dtype != torch.float32 or not t.is_contiguous()
-                or tuple(t.shape) != shape):
-            raise ValueError(f"{name} must be a contiguous float32 {shape} tensor on {chunks.device}")
+    nb, M = bases.mel_fb.shape
+    check_kernel_args(n_fft, nb, M)
+    tables = (("window", bases.window, torch.float32, (n_fft,)),
+              ("twiddle", bases.twiddle, torch.float32, (n_fft // 2, 2)),
+              ("bands", bases.bands, torch.int32, (M, 3)),
+              ("band_weights", bases.band_weights, torch.float32, None))
+    for name, t, dtype, shape in tables:
+        if t is None:
+            raise ValueError(f"bases.{name} is missing: the kernel needs the tables of build_bases")
+        if (t.device != chunks.device or t.dtype != dtype or not t.is_contiguous() or t.data_ptr() % 8
+                or (shape is not None and tuple(t.shape) != shape)):
+            raise ValueError(f"{name} must be a contiguous, 8-byte aligned {dtype} tensor of shape "
+                             f"{shape or '[n]'} on {chunks.device}")
     lib = _build.library()
-    if M > lib.dcase_fused_stft_mel_max_mels():
-        raise ValueError(f"{M} mel bins exceed the kernel's {lib.dcase_fused_stft_mel_max_mels()}")
     smem = lib.dcase_fused_stft_mel_smem(hop, n_fft)
     if smem > _build.max_shared_bytes(chunks.device):
         raise ValueError(f"n_fft={n_fft}, hop={hop} need {smem} bytes of shared memory per block")
     out = torch.empty((B, T, M), dtype=torch.float32, device=chunks.device)
     status = lib.dcase_fused_stft_mel(
         chunks.data_ptr(), int(chunks.dtype == torch.int16), chunks.stride(0), R * hop,
-        cos.data_ptr(), sin.data_ptr(), mel_fb.data_ptr(), out.data_ptr(),
-        B, T, hop, n_fft, nb, M, _build.stream_handle(chunks.device),
+        bases.window.data_ptr(), bases.twiddle.data_ptr(), bases.bands.data_ptr(),
+        bases.band_weights.data_ptr(), out.data_ptr(), B, T, hop, n_fft, M,
+        _build.stream_handle(chunks.device),
     )
     _build.check(status, "fused_stft_mel")
     fused_stft_mel.launches += 1

@@ -125,8 +125,11 @@ def host_reflect_pad(audio_list, max_samples: int, n_fft: int, hop_length: int, 
 # --------------------------------------------------------------------------
 
 class MelFrontend(nn.Module):
-    """Holds the trimmed DFT bases and the mel matrix as buffers on `device`
-    and featurizes padded audio batches. Arguments mirror DSPConfig."""
+    """Holds K1's constants as buffers on `device` and featurizes padded
+    audio batches. Arguments mirror DSPConfig. The trimmed DFT bases and
+    the mel matrix serve the plain version (CPU tensors); the window,
+    twiddle and band tables serve the FFT kernel (CUDA tensors). All are
+    built once here, the kernel's as non-persistent buffers."""
 
     def __init__(
         self,
@@ -155,6 +158,13 @@ class MelFrontend(nn.Module):
         self.register_buffer("cos_basis", torch.as_tensor(bases.cos, device=device))
         self.register_buffer("sin_basis", torch.as_tensor(bases.sin, device=device))
         self.register_buffer("mel_fb", torch.as_tensor(bases.mel_fb, device=device))
+        for name in ("window", "twiddle", "bands", "band_weights"):
+            self.register_buffer(name, torch.as_tensor(getattr(bases, name), device=device), persistent=False)
+
+    def bases(self) -> FusedMelBases:
+        """K1's constants as the wrapper takes them."""
+        return FusedMelBases(self.cos_basis, self.sin_basis, self.mel_fb, self.window, self.twiddle,
+                             self.bands, self.band_weights)
 
     def _hop_chunks(self, padded: torch.Tensor) -> torch.Tensor:
         """[B, Lp] → hop-row view [B, T + extra_rows, hop] in the input
@@ -172,7 +182,7 @@ class MelFrontend(nn.Module):
         [B, T, n_mels] through the fused STFT→mel kernel (K1)."""
         return fused_stft_mel(
             self._hop_chunks(padded),
-            FusedMelBases(self.cos_basis, self.sin_basis, self.mel_fb),
+            self.bases(),
             n_fft=self.n_window,
             hop=self.hop_length,
             T=self.max_frames,

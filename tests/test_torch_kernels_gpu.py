@@ -38,22 +38,64 @@ def _t(a, device):
     return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
 
+HOPS = {256: 100, 1024: 257, 2048: 511, 4096: 1023}  # n_fft -> hop (odd hops: unaligned frames)
+
+
+def _mel_inputs(cuda, n_fft, frames, audio):
+    """K1's frontend at n_fft and its chunks of `audio` [B, L] (float32 or int16)."""
+    fe = MelFrontend(n_window=n_fft, hop_length=HOPS[n_fft], max_frames=frames, device=cuda)
+    return fe, fe._hop_chunks(audio), dict(n_fft=n_fft, hop=HOPS[n_fft], T=frames)
+
+
+@pytest.mark.parametrize("n_fft", sorted(HOPS))
 @pytest.mark.parametrize("dtype", ["float32", "int16"])
-@pytest.mark.parametrize("frames", [96, 37])
-def test_fused_stft_mel(cuda, dtype, frames):
-    fe = MelFrontend(max_frames=frames, device=cuda)
-    rng = np.random.default_rng(frames)
-    audio = _t(0.2 * rng.standard_normal((3, 511 * frames + 2048)), cuda)
+@pytest.mark.parametrize("frames", [96, 37])  # 37: a partial last tile
+def test_fused_stft_mel(cuda, dtype, frames, n_fft):
+    rng = np.random.default_rng(frames + n_fft)
+    audio = _t(0.2 * rng.standard_normal((3, HOPS[n_fft] * frames + n_fft)), cuda)
     if dtype == "int16":
         audio = torch.round(audio * 32768).clamp(-32768, 32767).to(torch.int16)
-    chunks = fe._hop_chunks(audio)
-    bases = fused_mel.FusedMelBases(fe.cos_basis, fe.sin_basis, fe.mel_fb)
-    kw = dict(n_fft=2048, hop=511, T=frames)
+    fe, chunks, kw = _mel_inputs(cuda, n_fft, frames, audio)
     before = fused_mel.fused_stft_mel.launches
-    out = fused_mel.fused_stft_mel(chunks, bases, **kw)
-    ref = fused_mel.fused_stft_mel_reference(chunks, bases, **kw)
+    out = fused_mel.fused_stft_mel(chunks, fe.bases(), **kw)
+    ref = fused_mel.fused_stft_mel_reference(chunks, fe.bases(), **kw)
     assert fused_mel.fused_stft_mel.launches == before + 1
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("hz", [440.0, 1000.0, 5000.0])
+def test_fused_stft_mel_pure_tone_peaks_in_its_band(cuda, hz):
+    t = np.arange(511 * 37 + 2048) / 44100.0
+    fe, chunks, kw = _mel_inputs(cuda, 2048, 37, _t(0.5 * np.sin(2 * np.pi * hz * t)[None], cuda))
+    out = fused_mel.fused_stft_mel(chunks, fe.bases(), **kw)
+    band = fe.mel_fb[int(round(hz * 2048 / 44100.0))].argmax().item()  # the band weighting the tone's bin most
+    assert (out.argmax(-1) == band).all()
+    ref = fused_mel.fused_stft_mel_reference(chunks, fe.bases(), **kw)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int16])
+def test_fused_stft_mel_silence_is_exact_zeros(cuda, dtype):
+    fe, chunks, kw = _mel_inputs(cuda, 2048, 37, torch.zeros((2, 511 * 37 + 2048), dtype=dtype, device=cuda))
+    out = fused_mel.fused_stft_mel(chunks, fe.bases(), **kw)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+def test_fused_stft_mel_full_scale_int16(cuda):
+    rng = np.random.default_rng(7)
+    pcm = np.where(rng.random((2, 511 * 96 + 2048)) < 0.5, -32768, 32767).astype(np.int16)
+    fe, chunks, kw = _mel_inputs(cuda, 2048, 96, torch.as_tensor(pcm, device=cuda))
+    out = fused_mel.fused_stft_mel(chunks, fe.bases(), **kw)
+    ref = fused_mel.fused_stft_mel_reference(chunks, fe.bases(), **kw)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * ref.abs().max().item())
+
+
+def test_fused_stft_mel_refuses_bases_without_the_kernel_tables(cuda):
+    fe, chunks, kw = _mel_inputs(cuda, 2048, 37, torch.zeros((1, 511 * 37 + 2048), device=cuda))
+    before = fused_mel.fused_stft_mel.launches
+    with pytest.raises(ValueError, match="tables of build_bases"):
+        fused_mel.fused_stft_mel(chunks, fused_mel.FusedMelBases(fe.cos_basis, fe.sin_basis, fe.mel_fb), **kw)
+    assert fused_mel.fused_stft_mel.launches == before
 
 
 @pytest.mark.parametrize("shape", [(2, 48, 16, 16), (2, 24, 4, 16), (1, 13, 8, 64), (1, 9, 32, 128)])
