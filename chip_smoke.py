@@ -447,7 +447,10 @@ def phase_kernels(device):
     bases = fe.bases()
     kw = dict(n_fft=d.n_window, hop=d.hop_length, T=d.max_frames)
     nb, M = fe.mel_fb.shape
-    frames_of = lambda chunks: chunks.reshape(B, -1).unfold(1, d.n_window, d.hop_length)[:, : d.max_frames]  # noqa: E731
+
+    def frames_of(chunks):  # [B, T, n_fft] views of the hop rows
+        return chunks.reshape(B, -1).unfold(1, d.n_window, d.hop_length)[:, : d.max_frames]
+
     for dtype in ("float32", "int16"):
         a = torch.as_tensor(audio, device=device)
         if dtype == "int16":

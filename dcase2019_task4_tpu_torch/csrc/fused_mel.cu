@@ -14,14 +14,15 @@
 // Algorithm: the TPU kernel computes X as two DFT products on the MXU (the
 // only unit it has for this), 4*n_fft*NB flops a frame. Here a frame is a
 // real FFT: pack z[m] = w[2m]x[2m] + i w[2m+1]x[2m+1] (N = n_fft/2 points),
-// take the N-point complex FFT Z in shared memory (Stockham, radix 4, one
-// radix-2 pass first when log2 N is odd), and split
+// take the N-point complex FFT Z in shared memory (Stockham passes, see
+// Design), and split
 //   X[k] = (Z[k] + conj Z[N-k])/2 - i e^{-2 pi i k/n_fft} (Z[k] - conj Z[N-k])/2,
 // with Z[N] = Z[0]. The mel matrix is triangles (at most 2 nonzeros a bin,
 // 1982 of 1024 x 64 at the flagship shape), so each output is a short sum
 // over its band from a table built on the host: first bin, length and the
 // float32 weights of mel_fb itself (skipped entries are exact zeros).
-// Twiddles come from a host table built in float64; no fast-math intrinsics.
+// Twiddles come from a host table built in float64 (the radix-16 split's own
+// from float32 literals); no fast-math intrinsics.
 //
 // Bound: operations, counted conventionally: 2.5 n_fft log2 n_fft flops a
 // frame for the real transform, 4 NB for the magnitude and 2 nnz(mel_fb)
@@ -30,22 +31,24 @@
 // audio 26.6 MB). The DFT-as-matmul kernel that this design replaced did
 // 176.7 GFLOP of FMAs and took 10.40 ms by CUDA events, 10.28 ms on the
 // device, on an H100 at 700 W. An FFT does so little arithmetic that what
-// limits it is the shared-memory passes: every radix-4 pass reads and
-// writes each point once (plus its twiddles), about 110 KB of shared-memory
-// traffic a frame in all.
+// limits it is the shared-memory passes: every pass reads and writes each
+// point once (plus its twiddles), with a block-wide barrier after each.
 //
 // Design: one block per (tile of TT frames, clip). The block stages the
 // tile's audio span ((TT-1)*hop + n_fft samples, int16 dequantized on
-// load, coalesced) and the twiddle table in shared memory once. It then
-// transforms the tile in rounds of FR = kPoints / N frames (4 at n_fft
-// 2048): each pass reads its points into registers (16 a thread), syncs,
-// and writes them back in place, so one 32 KB buffer serves the round; the
-// first pass reads the windowed samples straight from the staged audio.
-// The magnitudes overwrite the buffer, and the band sums read them there:
-// the spectrum never reaches device memory. TT is the largest of 16, 8, 4,
-// 2 whose shared memory stays within kSmemBudget (three blocks an SM); 8 at
-// the flagship shape (64 KB), 1 only where a long hop or n_fft allows no
-// more.
+// load, coalesced) and the twiddles of its FFT passes in shared memory
+// once. It then transforms the tile in rounds of FR = kPoints / N frames
+// (4 at n_fft 2048). The passes are radix 16 where they can be (a 4 x 4
+// split in registers), so 1024 points take three passes (16, 16, 4) and
+// eight barriers a round: each pass reads its points into registers (16 a
+// thread), syncs, and writes them back in place, so one 34 KB buffer serves
+// the round; the first pass reads the windowed samples straight from the
+// staged audio, and a pad slot after every 16 points keeps the radix-16
+// writes off a single bank. The magnitudes overwrite the buffer, and the
+// band sums read them there: the spectrum never reaches device memory. TT
+// is the largest of 16, 8, 4, 2 whose shared memory stays within
+// kSmemBudget (three blocks an SM); 8 at the flagship shape (65 KB), 1 only
+// where a long hop or n_fft allows no more.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -55,6 +58,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kPoints = 4096;                   // complex points a round transforms
 constexpr int kPerThread = kPoints / kThreads;  // points a thread holds in a pass
+constexpr int kPadded = kPoints + kPoints / 16; // one pad slot after every 16 points
 constexpr int kMaxTT = 16;
 constexpr int kMinFft = 64, kMaxFft = 4096;
 constexpr int kMaxMels = 128;
@@ -66,48 +70,90 @@ __device__ __forceinline__ float load_sample(const int16_t* p, float scale) {
   return static_cast<float>(*p) * scale;
 }
 
+// Point e of the round's buffer: the pad slot spreads a thread's 16 outputs
+// of a radix-16 pass at Ns = 1 (16 points apart) over distinct banks.
+__device__ __forceinline__ int at(int e) { return e + (e >> 4); }
+
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
 
 // W_N^e = e^{-2 pi i e/N} for e in [0, N), from tw[m] = e^{-2 pi i m/(2N)}, m < N
-__device__ __forceinline__ float2 twiddle(const float2* tw, int N, int e) {
+__device__ __forceinline__ float2 twiddle(const float2* __restrict__ tw, int N, int e) {
   const int two = 2 * e;
-  if (two < N) return tw[two];
-  const float2 t = tw[two - N];
+  if (two < N) return __ldg(tw + two);
+  const float2 t = __ldg(tw + two - N);
   return make_float2(-t.x, -t.y);
 }
 
+__device__ __forceinline__ void dft4(float2& v0, float2& v1, float2& v2, float2& v3) {
+  const float2 a0 = make_float2(v0.x + v2.x, v0.y + v2.y);
+  const float2 a1 = make_float2(v0.x - v2.x, v0.y - v2.y);
+  const float2 a2 = make_float2(v1.x + v3.x, v1.y + v3.y);
+  const float2 a3 = make_float2(v1.y - v3.y, v3.x - v1.x);  // -i (v1 - v3)
+  v0 = make_float2(a0.x + a2.x, a0.y + a2.y);
+  v1 = make_float2(a1.x + a3.x, a1.y + a3.y);
+  v2 = make_float2(a0.x - a2.x, a0.y - a2.y);
+  v3 = make_float2(a1.x - a3.x, a1.y - a3.y);
+}
+
+// W_16^e for the products b*c (b, c in 1..3) of the 4 x 4 split, e != 4:
+// float32 roundings of cos and sin of multiples of pi/8
+__device__ __forceinline__ float2 w16(int e) {
+  constexpr float c = 0.923879532511286756f, s = 0.382683432365089772f, h = 0.707106781186547524f;
+  switch (e) {
+    case 1: return make_float2(c, -s);
+    case 2: return make_float2(h, -h);
+    case 3: return make_float2(s, -c);
+    case 6: return make_float2(-h, -h);
+    default: return make_float2(-c, s);  // 9
+  }
+}
+
+// In-place DFT of v[0..R-1]; output q lands in v[slot<R>(q)].
 template <int R>
-__device__ __forceinline__ void butterfly(float2 (&v)[R]) {
+__device__ __forceinline__ constexpr int slot(int q) {
+  return R == 16 ? 4 * (q & 3) + (q >> 2) : q;
+}
+
+template <int R>
+__device__ __forceinline__ void dft(float2 (&v)[R]) {
   if constexpr (R == 2) {
     const float2 a = v[0], b = v[1];
     v[0] = make_float2(a.x + b.x, a.y + b.y);
     v[1] = make_float2(a.x - b.x, a.y - b.y);
+  } else if constexpr (R == 4) {
+    dft4(v[0], v[1], v[2], v[3]);
   } else {
-    const float2 a0 = make_float2(v[0].x + v[2].x, v[0].y + v[2].y);
-    const float2 a1 = make_float2(v[0].x - v[2].x, v[0].y - v[2].y);
-    const float2 a2 = make_float2(v[1].x + v[3].x, v[1].y + v[3].y);
-    const float2 a3 = make_float2(v[1].y - v[3].y, v[3].x - v[1].x);  // -i (v1 - v3)
-    v[0] = make_float2(a0.x + a2.x, a0.y + a2.y);
-    v[1] = make_float2(a1.x + a3.x, a1.y + a3.y);
-    v[2] = make_float2(a0.x - a2.x, a0.y - a2.y);
-    v[3] = make_float2(a1.x - a3.x, a1.y - a3.y);
+    // n = 4a + b, m = c + 4d: W16^{nm} = W4^{ac} W16^{bc} W4^{bd}
+#pragma unroll
+    for (int b = 0; b < 4; ++b) dft4(v[b], v[4 + b], v[8 + b], v[12 + b]);  // over a: v[b + 4c]
+#pragma unroll
+    for (int b = 1; b < 4; ++b)
+#pragma unroll
+      for (int c = 1; c < 4; ++c) {
+        float2& x = v[b + 4 * c];
+        x = b * c == 4 ? make_float2(x.y, -x.x) : cmul(x, w16(b * c));
+      }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dft4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);  // over b: v[4c + d]
   }
 }
 
 // One Stockham pass of radix R over `frames` transforms of N points in buf
-// (frame-major): butterfly j of a frame combines the points j + q*N/R of Ns-point
-// sub-transforms into an (Ns*R)-point one and writes them to
-// (j - k)*R + k + q*Ns, k = j mod Ns. The first pass (Ns = 1, no twiddles)
+// (frame-major): butterfly j of a frame combines the points j + q*N/R of
+// Ns-point sub-transforms into an (Ns*R)-point one and writes them to
+// (j - k)*R + k + q*Ns, k = j mod Ns, after multiplying point q by
+// W_{Ns*R}^{kq} = ptw[(q-1)*Ns + k]. The first pass (Ns = 1, no twiddles)
 // packs its points from the staged audio: z[n] = w[2n]x[2n] + i w[2n+1]x[2n+1].
 template <int R, bool First>
-__device__ __forceinline__ void fft_pass(float2* buf, const float2* tw, const float* xs,
+__device__ __forceinline__ void fft_pass(float2* buf, const float2* ptw, const float* xs,
                                          const float2* __restrict__ win, int hop, int frame0,
-                                         int frames, int N, int log2N, int Ns, int log2NsR) {
+                                         int frames, int log2N, int log2Ns) {
   constexpr int kBf = kPerThread / R;
-  const int log2nr = log2N - (R == 4 ? 2 : 1);
-  const int nr = 1 << log2nr;
+  constexpr int kLog2R = R == 16 ? 4 : R == 4 ? 2 : 1;
+  const int log2nr = log2N - kLog2R;
+  const int nr = 1 << log2nr, Ns = 1 << log2Ns;
   const int total = frames << log2nr;
   float2 v[kBf][R];
 #pragma unroll
@@ -120,14 +166,14 @@ __device__ __forceinline__ void fft_pass(float2* buf, const float2* tw, const fl
         const int idx = j + q * nr;
         if constexpr (First) {
           const float* x = xs + (frame0 + f) * hop + 2 * idx;
-          const float2 w = win[idx];
+          const float2 w = __ldg(win + idx);
           v[i][q] = make_float2(w.x * x[0], w.y * x[1]);
         } else {
-          v[i][q] = buf[(f << log2N) + idx];
-          if (q > 0) v[i][q] = cmul(v[i][q], twiddle(tw, N, (k * q) << (log2N - log2NsR)));
+          v[i][q] = buf[at((f << log2N) + idx)];
+          if (q > 0) v[i][q] = cmul(v[i][q], ptw[((q - 1) << log2Ns) + k]);
         }
       }
-      butterfly<R>(v[i]);
+      dft<R>(v[i]);
     }
   }
   __syncthreads();  // every point of the pass read before any is overwritten
@@ -136,12 +182,23 @@ __device__ __forceinline__ void fft_pass(float2* buf, const float2* tw, const fl
     const int u = threadIdx.x + i * kThreads;
     if (u < total) {
       const int f = u >> log2nr, j = u & (nr - 1), k = j & (Ns - 1);
-      float2* dst = buf + (f << log2N) + (j - k) * R + k;
+      const int base = (f << log2N) + ((j - k) << kLog2R) + k;
 #pragma unroll
-      for (int q = 0; q < R; ++q) dst[q * Ns] = v[i][q];
+      for (int q = 0; q < R; ++q) buf[at(base + (q << log2Ns))] = v[i][slot<R>(q)];
     }
   }
   __syncthreads();
+}
+
+// The pass plan for N = 2^log2N points: radix 2 first when log2N is odd,
+// else radix 16; then radix 16 while 4 bits remain, and radix 4 for the last
+// 2. `visit(R, log2Ns)` sees every pass after the first, in order; each
+// takes (R - 1) * Ns twiddles (less than N in all).
+template <typename Visit>
+__device__ __forceinline__ void later_passes(int log2N, Visit visit) {
+  int log2Ns = (log2N & 1) ? 1 : 4;
+  for (; log2N - log2Ns >= 4; log2Ns += 4) visit(16, log2Ns);
+  if (log2Ns < log2N) visit(4, log2Ns);
 }
 
 template <typename In>
@@ -156,9 +213,9 @@ fused_stft_mel_kernel(const In* __restrict__ audio, long long clip_stride, long 
   const int log2N = __ffs(N) - 1;
   const int FR = min(kPoints / N, TT);  // frames a round transforms
   const int span = (TT - 1) * hop + n_fft;
-  float2* buf = reinterpret_cast<float2*>(smem4);  // [FR][N] points, then [FR][N+1] magnitudes
-  float2* tw = buf + kPoints;                      // [N]
-  float* nyq = reinterpret_cast<float*>(tw + N);   // [FR] |X[N]|
+  float2* buf = reinterpret_cast<float2*>(smem4);  // [FR][N] points (padded), then [FR][N+1] magnitudes
+  float2* ptw = buf + kPadded;                     // [< N] twiddles of the later passes
+  float* nyq = reinterpret_cast<float*>(ptw + N);  // [FR] |X[N]|
   float* xs = nyq + kMaxRoundFrames;               // [span] audio of this frame tile
 
   const int tid = threadIdx.x;
@@ -170,7 +227,16 @@ fused_stft_mel_kernel(const In* __restrict__ audio, long long clip_stride, long 
     const long long idx = start + i;
     xs[i] = idx < clip_len ? load_sample(clip + idx, in_scale) : 0.0f;
   }
-  for (int i = tid; i < N; i += kThreads) tw[i] = twiddles[i];
+  {
+    int off = 0;
+    later_passes(log2N, [&](int R, int log2Ns) {
+      const int shift = log2N - log2Ns - (R == 16 ? 4 : 2);  // W_{Ns*R}^{kq} = W_N^{kq << shift}
+      const int n = (R - 1) << log2Ns;
+      for (int i = tid; i < n; i += kThreads)
+        ptw[off + i] = twiddle(twiddles, N, ((i & ((1 << log2Ns) - 1)) * ((i >> log2Ns) + 1)) << shift);
+      off += n;
+    });
+  }
   __syncthreads();
 
   const auto* win = reinterpret_cast<const float2*>(window);
@@ -178,16 +244,18 @@ fused_stft_mel_kernel(const In* __restrict__ audio, long long clip_stride, long 
   float* mag_out = reinterpret_cast<float*>(buf);
   for (int frame0 = 0; frame0 < TT; frame0 += FR) {
     // the transform; the first pass's sync also orders it after the last round's band sums
-    int Ns = 1;
-    if (log2N & 1) {
-      fft_pass<2, true>(buf, tw, xs, win, hop, frame0, FR, N, log2N, 1, 1);
-      Ns = 2;
-    } else {
-      fft_pass<4, true>(buf, tw, xs, win, hop, frame0, FR, N, log2N, 1, 2);
-      Ns = 4;
-    }
-    for (; Ns < N; Ns *= 4)
-      fft_pass<4, false>(buf, tw, xs, win, hop, frame0, FR, N, log2N, Ns, __ffs(Ns) + 1);
+    if (log2N & 1)
+      fft_pass<2, true>(buf, nullptr, xs, win, hop, frame0, FR, log2N, 0);
+    else
+      fft_pass<16, true>(buf, nullptr, xs, win, hop, frame0, FR, log2N, 0);
+    int off = 0;
+    later_passes(log2N, [&](int R, int log2Ns) {
+      if (R == 16)
+        fft_pass<16, false>(buf, ptw + off, xs, win, hop, frame0, FR, log2N, log2Ns);
+      else
+        fft_pass<4, false>(buf, ptw + off, xs, win, hop, frame0, FR, log2N, log2Ns);
+      off += (R - 1) << log2Ns;
+    });
 
     // split the real spectrum and take magnitudes; |X[N]| = |Re Z[0] - Im Z[0]|
     float m[kPerThread];
@@ -197,11 +265,11 @@ fused_stft_mel_kernel(const In* __restrict__ audio, long long clip_stride, long 
       const int u = tid + i * kThreads;
       if (u < total) {
         const int f = u >> log2N, k = u & (N - 1);
-        const float2 a = buf[u];
-        const float2 c = buf[(f << log2N) + ((N - k) & (N - 1))];  // b = conj(c)
+        const float2 a = buf[at(u)];
+        const float2 c = buf[at((f << log2N) + ((N - k) & (N - 1)))];  // b = conj(c)
         const float er = 0.5f * (a.x + c.x), ei = 0.5f * (a.y - c.y);
         const float or_ = 0.5f * (a.x - c.x), oi = 0.5f * (a.y + c.y);
-        const float2 w = tw[k];
+        const float2 w = __ldg(twiddles + k);  // e^{-2 pi i k/n_fft}
         const float xr = er + w.x * oi + w.y * or_;
         const float xi = ei - w.x * or_ + w.y * oi;
         m[i] = sqrtf(xr * xr + xi * xi);
@@ -237,7 +305,7 @@ bool supported(int n_fft) {
 
 long long smem_bytes(int tt, int hop, int n_fft) {
   const long long span = (long long)(tt - 1) * hop + n_fft;
-  return (long long)sizeof(float2) * (kPoints + n_fft / 2) +
+  return (long long)sizeof(float2) * (kPadded + n_fft / 2) +
          (long long)sizeof(float) * (kMaxRoundFrames + span);
 }
 
@@ -266,12 +334,6 @@ int launch(const void* audio, long long clip_stride, long long clip_len, float i
 }  // namespace
 
 extern "C" {
-
-// Shared memory one block needs, in bytes (the wrapper checks it against the
-// device limit before launching); -1 for an n_fft the kernel does not take.
-long long dcase_fused_stft_mel_smem(int hop, int n_fft) {
-  return supported(n_fft) ? smem_bytes(tile_frames(hop, n_fft), hop, n_fft) : -1;
-}
 
 // audio: B clips of clip_len contiguous samples, clip_stride samples apart,
 // int16 (in_is_int16 = 1) or float32. window: [n_fft]; twiddles: [n_fft/2]

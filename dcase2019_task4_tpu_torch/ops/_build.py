@@ -44,7 +44,6 @@ _U = ctypes.c_uint
 
 # C signature of every entry the sources export: name -> (restype, argtypes)
 SIGNATURES = {
-    "dcase_fused_stft_mel_smem": (_LL, [_I, _I]),
     "dcase_fused_stft_mel": (
         _I, [_P, _I, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     ),
@@ -160,11 +159,3 @@ def stream_handle(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
-
-
-def max_shared_bytes(device) -> int:
-    """Opt-in shared memory per block (232,448 bytes on an H100)."""
-    import torch
-
-    props = torch.cuda.get_device_properties(device)
-    return int(getattr(props, "shared_memory_per_block_optin", 232448))

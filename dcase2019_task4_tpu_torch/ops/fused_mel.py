@@ -169,12 +169,8 @@ def fused_stft_mel(chunks: torch.Tensor, bases: FusedMelBases, *, n_fft: int, ho
                 or (shape is not None and tuple(t.shape) != shape)):
             raise ValueError(f"{name} must be a contiguous, 8-byte aligned {dtype} tensor of shape "
                              f"{shape or '[n]'} on {chunks.device}")
-    lib = _build.library()
-    smem = lib.dcase_fused_stft_mel_smem(hop, n_fft)
-    if smem > _build.max_shared_bytes(chunks.device):
-        raise ValueError(f"n_fft={n_fft}, hop={hop} need {smem} bytes of shared memory per block")
     out = torch.empty((B, T, M), dtype=torch.float32, device=chunks.device)
-    status = lib.dcase_fused_stft_mel(
+    status = _build.library().dcase_fused_stft_mel(
         chunks.data_ptr(), int(chunks.dtype == torch.int16), chunks.stride(0), R * hop,
         bases.window.data_ptr(), bases.twiddle.data_ptr(), bases.bands.data_ptr(),
         bases.band_weights.data_ptr(), out.data_ptr(), B, T, hop, n_fft, M,

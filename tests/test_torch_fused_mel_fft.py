@@ -1,8 +1,9 @@
 """K1's FFT design on the CPU: the kernel's tables and a mirror of its arithmetic.
 
 The CUDA kernel (csrc/fused_mel.cu) computes each frame's real DFT as an
-n_fft/2-point complex FFT of the packed, windowed samples (Stockham passes,
-radix 4 with one radix-2 pass first when log2 N is odd), splits the real
+n_fft/2-point complex FFT of the packed, windowed samples (Stockham passes
+of radix 16, with one radix-2 pass first when log2 N is odd and one radix-4
+pass last when 2 bits remain), splits the real
 spectrum, and sums each mel band over its own bins. It runs only on the
 card; here `_mirror_linear_mel` repeats those steps in torch with the same
 tables and the same index arithmetic, and is held to the port's plain DFT
@@ -37,10 +38,43 @@ def _bases(sample_rate, n_fft, n_mels, f_min, f_max):
     return tfm.build_bases(cos, sin, fb)
 
 
+def _plan(log2n: int) -> list:
+    """The kernel's passes (radix, log2 Ns): radix 2 first when log2 N is
+    odd, else radix 16; then radix 16 while 4 bits remain, radix 4 for the
+    last 2."""
+    passes = [(2, 0)] if log2n % 2 else [(16, 0)]
+    bits = passes[0][0].bit_length() - 1
+    while log2n - bits >= 4:
+        passes.append((16, bits))
+        bits += 4
+    return passes + ([(4, bits)] if bits < log2n else [])
+
+
+def _dft4(v0, v1, v2, v3):
+    a0, a1, a2, a3 = v0 + v2, v0 - v2, v1 + v3, -1j * (v1 - v3)
+    return [a0 + a2, a1 + a3, a0 - a2, a1 - a3]
+
+
+W16 = torch.tensor(np.exp(-2j * np.pi * np.arange(16) / 16), dtype=torch.complex64)
+
+
+def _dft(v: list) -> list:
+    """The kernel's in-register DFT of radix 2, 4 or 16 (16 as a 4 × 4
+    split: n = 4a + b, m = c + 4d)."""
+    if len(v) == 2:
+        return [v[0] + v[1], v[0] - v[1]]
+    if len(v) == 4:
+        return _dft4(*v)
+    cols = [_dft4(v[b], v[4 + b], v[8 + b], v[12 + b]) for b in range(4)]  # cols[b][c]
+    rows = [_dft4(*[cols[b][c] * W16[b * c] for b in range(4)]) for c in range(4)]  # rows[c][d]
+    return [rows[q % 4][q // 4] for q in range(16)]
+
+
 def _stockham(z: torch.Tensor, twiddle: np.ndarray) -> torch.Tensor:
-    """The kernel's FFT passes on z [..., N] complex64: W_N^e read from the
-    table of W_2N^m (m < N) at 2e, negated past N; pass of radix r at
-    sub-transform size Ns reads j + q·N/r and writes (j − k)·r + k + q·Ns."""
+    """The kernel's FFT passes on z [..., N] complex64: the pass of radix r
+    at sub-transform size Ns reads j + q·N/r, multiplies point q by
+    W_{Ns·r}^{kq} (k = j mod Ns; W_N^e read from the table of W_2N^m, m < N,
+    at 2e, negated past N) and writes (j − k)·r + k + q·Ns."""
     N = z.shape[-1]
     L = N.bit_length() - 1
     table = torch.complex(torch.from_numpy(twiddle[:, 0]), torch.from_numpy(twiddle[:, 1]))
@@ -49,25 +83,19 @@ def _stockham(z: torch.Tensor, twiddle: np.ndarray) -> torch.Tensor:
         two = 2 * e
         return torch.where(two < N, table[two.clamp(max=N - 1)], -table[(two - N).clamp(min=0)])
 
-    Ns = 1
-    for r in [2] * (L % 2) + [4] * (L // 2):
-        nr = N // r
+    for r, log2ns in _plan(L):
+        Ns, nr = 1 << log2ns, N // r
         j = torch.arange(nr)
         k = j & (Ns - 1)
-        shift = L - ((Ns * r).bit_length() - 1)
+        shift = L - log2ns - (r.bit_length() - 1)
         v = [z[..., j + q * nr] for q in range(r)]
         if Ns > 1:
             v = [v[0]] + [v[q] * w_n((k * q) << shift) for q in range(1, r)]
-        if r == 2:
-            y = [v[0] + v[1], v[0] - v[1]]
-        else:
-            a0, a1, a2, a3 = v[0] + v[2], v[0] - v[2], v[1] + v[3], -1j * (v[1] - v[3])
-            y = [a0 + a2, a1 + a3, a0 - a2, a1 - a3]
         out = torch.empty_like(z)
         base = (j - k) * r + k
-        for q in range(r):
-            out[..., base + q * Ns] = y[q]
-        z, Ns = out, Ns * r
+        for q, y in enumerate(_dft(v)):
+            out[..., base + q * Ns] = y
+        z = out
     return z
 
 
@@ -137,8 +165,13 @@ def test_twiddle_table_within_one_ulp_of_float64(n_fft):
         assert (np.abs(got.astype(np.float64) - want) <= ulp).all()
 
 
-@pytest.mark.parametrize("n_fft", [64, 128, 256, 512, 1024, 2048, 4096])
-def test_stockham_passes_match_torch_fft(n_fft):
+@pytest.mark.parametrize("n_fft,plan", [
+    (64, [(2, 0), (16, 1)]), (128, [(16, 0), (4, 4)]), (256, [(2, 0), (16, 1), (4, 5)]),
+    (512, [(16, 0), (16, 4)]), (1024, [(2, 0), (16, 1), (16, 5)]), (2048, [(16, 0), (16, 4), (4, 8)]),
+    (4096, [(2, 0), (16, 1), (16, 5), (4, 9)]),
+])
+def test_stockham_passes_match_torch_fft(n_fft, plan):
+    assert _plan(n_fft.bit_length() - 2) == plan
     rng = np.random.default_rng(n_fft)
     z = torch.from_numpy((rng.standard_normal((3, n_fft // 2)) + 1j * rng.standard_normal((3, n_fft // 2)))
                          .astype(np.complex64))
