@@ -39,16 +39,22 @@
 // load, coalesced) and the twiddles of its FFT passes in shared memory
 // once. It then transforms the tile in rounds of FR = kPoints / N frames
 // (4 at n_fft 2048). The passes are radix 16 where they can be (a 4 x 4
-// split in registers), so 1024 points take three passes (16, 16, 4) and
-// eight barriers a round: each pass reads its points into registers (16 a
-// thread), syncs, and writes them back in place, so one 34 KB buffer serves
-// the round; the first pass reads the windowed samples straight from the
-// staged audio, and a pad slot after every 16 points keeps the radix-16
-// writes off a single bank. The magnitudes overwrite the buffer, and the
-// band sums read them there: the spectrum never reaches device memory. TT
-// is the largest of 16, 8, 4, 2 whose shared memory stays within
-// kSmemBudget (three blocks an SM); 8 at the flagship shape (65 KB), 1 only
-// where a long hop or n_fft allows no more.
+// split in registers) and radix 4 last, so 1024 points take three passes
+// (16, 16, 4) and six barriers a round: each pass reads its points into
+// registers (16 a thread), syncs, and writes them back in place, so one
+// 34 KB buffer serves the round; the first pass reads the windowed samples
+// straight from the staged audio, and a pad slot after every 16 points
+// keeps the radix-16 writes off a single bank. The last pass gives each
+// thread the butterflies j and N/4 - j, which hold the partners Z[k] and
+// Z[N-k] of the real split, so it writes magnitudes, not points: they
+// overwrite the buffer, and the band sums read them there (a thread sums
+// a short band and a long one): the spectrum never reaches device memory.
+// Registers bound the occupancy: 16 points a thread and the 4 x 4 split
+// need more than the 80 registers that three blocks an SM would leave, so
+// the kernel asks for two (128 registers); TT is then the largest of 16, 8,
+// 4, 2 whose shared memory stays within kSmemBudget (two blocks an SM): 16
+// at the flagship shape (82 KB), 1 only where a long hop or n_fft allows
+// no more.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -56,14 +62,14 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPoints = 4096;                   // complex points a round transforms
-constexpr int kPerThread = kPoints / kThreads;  // points a thread holds in a pass
+constexpr int kPerThread = 16;                  // points a thread holds in a pass
+constexpr int kPoints = kThreads * kPerThread;  // complex points a round transforms
 constexpr int kPadded = kPoints + kPoints / 16; // one pad slot after every 16 points
 constexpr int kMaxTT = 16;
 constexpr int kMinFft = 64, kMaxFft = 4096;
 constexpr int kMaxMels = 128;
 constexpr int kMaxRoundFrames = kPoints / (kMinFft / 2);
-constexpr long long kSmemBudget = 74 * 1024;    // three blocks of 256 threads an SM
+constexpr long long kSmemBudget = 110 * 1024;   // two blocks an SM
 
 __device__ __forceinline__ float load_sample(const float* p, float) { return *p; }
 __device__ __forceinline__ float load_sample(const int16_t* p, float scale) {
@@ -190,19 +196,101 @@ __device__ __forceinline__ void fft_pass(float2* buf, const float2* ptw, const f
   __syncthreads();
 }
 
-// The pass plan for N = 2^log2N points: radix 2 first when log2N is odd,
-// else radix 16; then radix 16 while 4 bits remain, and radix 4 for the last
-// 2. `visit(R, log2Ns)` sees every pass after the first, in order; each
-// takes (R - 1) * Ns twiddles (less than N in all).
+// |X[k]| from Z[k] and c = Z[N-k]: X = (Z + conj c)/2 - i W (Z - conj c)/2,
+// W = e^{-2 pi i k/n_fft} = tw[k]
+__device__ __forceinline__ float split_magnitude(float2 z, float2 c, float2 w) {
+  const float er = 0.5f * (z.x + c.x), ei = 0.5f * (z.y - c.y);
+  const float or_ = 0.5f * (z.x - c.x), oi = 0.5f * (z.y + c.y);
+  const float xr = er + w.x * oi + w.y * or_;
+  const float xi = ei - w.x * or_ + w.y * oi;
+  return sqrtf(xr * xr + xi * xi);
+}
+
+// The last pass (radix 4 at Ns = N/4, twiddles W_N^{jq} = ptw[(q-1)N/4 + j])
+// with the real split: butterfly j yields Z[j + qN/4], and the partner bin
+// N - k of k = j + qN/4 is N/4 - j + (3 - q)N/4, in butterfly N/4 - j. So a
+// slot s < N/8 takes the butterflies s and N/4 - s (slot 0: 0 and N/8, each
+// its own partner) and holds both bins of every pair it needs. After the
+// pass's barrier it writes its 8 magnitudes (and slot 0 |X[N]| = |Re Z[0] -
+// Im Z[0]|) as rows of N + 1 floats over the buffer.
+__device__ __forceinline__ void last_pass(float2* buf, const float2* ptw,
+                                          const float2* __restrict__ twiddles, float* nyq,
+                                          int frames, int log2N) {
+  constexpr int kSlots = kPerThread / 8;
+  const int N = 1 << log2N, nq = N / 4, log2slots = log2N - 3;
+  const int total = frames << log2slots;
+  float mag[kSlots][8];
+#pragma unroll
+  for (int i = 0; i < kSlots; ++i) {
+    const int u = threadIdx.x + i * kThreads;
+    if (u < total) {
+      const int f = u >> log2slots, s = u & ((1 << log2slots) - 1);
+      const int jb[2] = {s, s == 0 ? N / 8 : nq - s};
+      float2 z[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          z[h][q] = buf[at((f << log2N) + jb[h] + q * nq)];
+          if (q > 0) z[h][q] = cmul(z[h][q], ptw[(q - 1) * nq + jb[h]]);
+        }
+        dft4(z[h][0], z[h][1], z[h][2], z[h][3]);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float2 ca = s == 0 ? z[0][(4 - q) & 3] : z[1][3 - q];
+        const float2 cb = s == 0 ? z[1][3 - q] : z[0][3 - q];
+        mag[i][q] = split_magnitude(z[0][q], ca, __ldg(twiddles + jb[0] + q * nq));
+        mag[i][4 + q] = split_magnitude(z[1][q], cb, __ldg(twiddles + jb[1] + q * nq));
+      }
+      if (s == 0) nyq[f] = fabsf(z[0][0].x - z[0][0].y);
+    }
+  }
+  __syncthreads();  // every point read before the magnitudes overwrite them
+  float* mag_out = reinterpret_cast<float*>(buf);
+#pragma unroll
+  for (int i = 0; i < kSlots; ++i) {
+    const int u = threadIdx.x + i * kThreads;
+    if (u < total) {
+      const int f = u >> log2slots, s = u & ((1 << log2slots) - 1);
+      float* row = mag_out + f * (N + 1);
+      const int jb1 = s == 0 ? N / 8 : nq - s;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        row[s + q * nq] = mag[i][q];
+        row[jb1 + q * nq] = mag[i][4 + q];
+      }
+    }
+  }
+  if (threadIdx.x < frames) mag_out[threadIdx.x * (N + 1) + N] = nyq[threadIdx.x];
+  __syncthreads();
+}
+
+// The passes for N = 2^log2N points, in order, as visit(R, log2Ns): a
+// first pass (Ns = 1) of radix 16, 2 or 4, or radix 2 then 4, that leaves
+// 2 + a multiple of 4 bits; radix-16 passes; the last, radix 4 at Ns = N/4.
+// A pass after the first takes (R - 1) * Ns twiddles (less than N in all).
 template <typename Visit>
-__device__ __forceinline__ void later_passes(int log2N, Visit visit) {
-  int log2Ns = (log2N & 1) ? 1 : 4;
-  for (; log2N - log2Ns >= 4; log2Ns += 4) visit(16, log2Ns);
-  if (log2Ns < log2N) visit(4, log2Ns);
+__device__ __forceinline__ void for_each_pass(int log2N, Visit visit) {
+  const int r = (log2N - 2) & 3;
+  int log2Ns = 0;
+  if (r == 0) {
+    visit(16, 0);
+    log2Ns = 4;
+  } else {
+    visit(r == 2 ? 4 : 2, 0);
+    log2Ns = r == 2 ? 2 : 1;
+    if (r == 3) {
+      visit(4, 1);
+      log2Ns = 3;
+    }
+  }
+  for (; log2Ns < log2N - 2; log2Ns += 4) visit(16, log2Ns);
+  visit(4, log2Ns);
 }
 
 template <typename In>
-__global__ void __launch_bounds__(kThreads, 3)
+__global__ void __launch_bounds__(kThreads, 2)
 fused_stft_mel_kernel(const In* __restrict__ audio, long long clip_stride, long long clip_len,
                       float in_scale, const float* __restrict__ window,
                       const float2* __restrict__ twiddles, const int* __restrict__ bands,
@@ -211,10 +299,10 @@ fused_stft_mel_kernel(const In* __restrict__ audio, long long clip_stride, long 
   extern __shared__ float4 smem4[];
   const int N = n_fft / 2;
   const int log2N = __ffs(N) - 1;
-  const int FR = min(kPoints / N, TT);  // frames a round transforms
   const int span = (TT - 1) * hop + n_fft;
+  const int FR = min(kPoints / N, TT);  // frames a round transforms
   float2* buf = reinterpret_cast<float2*>(smem4);  // [FR][N] points (padded), then [FR][N+1] magnitudes
-  float2* ptw = buf + kPadded;                     // [< N] twiddles of the later passes
+  float2* ptw = buf + kPadded;                     // [< N] twiddles of the passes after the first
   float* nyq = reinterpret_cast<float*>(ptw + N);  // [FR] |X[N]|
   float* xs = nyq + kMaxRoundFrames;               // [span] audio of this frame tile
 
@@ -229,7 +317,8 @@ fused_stft_mel_kernel(const In* __restrict__ audio, long long clip_stride, long 
   }
   {
     int off = 0;
-    later_passes(log2N, [&](int R, int log2Ns) {
+    for_each_pass(log2N, [&](int R, int log2Ns) {
+      if (log2Ns == 0) return;
       const int shift = log2N - log2Ns - (R == 16 ? 4 : 2);  // W_{Ns*R}^{kq} = W_N^{kq << shift}
       const int n = (R - 1) << log2Ns;
       for (int i = tid; i < n; i += kThreads)
@@ -241,60 +330,39 @@ fused_stft_mel_kernel(const In* __restrict__ audio, long long clip_stride, long 
 
   const auto* win = reinterpret_cast<const float2*>(window);
   const float* mag = reinterpret_cast<const float*>(buf);
-  float* mag_out = reinterpret_cast<float*>(buf);
+  const int pairs = (M + 1) / 2;
   for (int frame0 = 0; frame0 < TT; frame0 += FR) {
-    // the transform; the first pass's sync also orders it after the last round's band sums
-    if (log2N & 1)
-      fft_pass<2, true>(buf, nullptr, xs, win, hop, frame0, FR, log2N, 0);
-    else
-      fft_pass<16, true>(buf, nullptr, xs, win, hop, frame0, FR, log2N, 0);
+    // the transform and magnitudes; the first pass's barrier also orders it
+    // after the last round's band sums
     int off = 0;
-    later_passes(log2N, [&](int R, int log2Ns) {
-      if (R == 16)
-        fft_pass<16, false>(buf, ptw + off, xs, win, hop, frame0, FR, log2N, log2Ns);
-      else
-        fft_pass<4, false>(buf, ptw + off, xs, win, hop, frame0, FR, log2N, log2Ns);
+    for_each_pass(log2N, [&](int R, int log2Ns) {
+      if (log2Ns == 0) {
+        if (R == 16) fft_pass<16, true>(buf, nullptr, xs, win, hop, frame0, FR, log2N, 0);
+        else if (R == 4) fft_pass<4, true>(buf, nullptr, xs, win, hop, frame0, FR, log2N, 0);
+        else fft_pass<2, true>(buf, nullptr, xs, win, hop, frame0, FR, log2N, 0);
+        return;
+      }
+      if (log2Ns == log2N - 2) last_pass(buf, ptw + off, twiddles, nyq, FR, log2N);
+      else if (R == 16) fft_pass<16, false>(buf, ptw + off, xs, win, hop, frame0, FR, log2N, log2Ns);
+      else fft_pass<4, false>(buf, ptw + off, xs, win, hop, frame0, FR, log2N, log2Ns);
       off += (R - 1) << log2Ns;
     });
 
-    // split the real spectrum and take magnitudes; |X[N]| = |Re Z[0] - Im Z[0]|
-    float m[kPerThread];
-    const int total = FR * N;
-#pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      const int u = tid + i * kThreads;
-      if (u < total) {
-        const int f = u >> log2N, k = u & (N - 1);
-        const float2 a = buf[at(u)];
-        const float2 c = buf[at((f << log2N) + ((N - k) & (N - 1)))];  // b = conj(c)
-        const float er = 0.5f * (a.x + c.x), ei = 0.5f * (a.y - c.y);
-        const float or_ = 0.5f * (a.x - c.x), oi = 0.5f * (a.y + c.y);
-        const float2 w = __ldg(twiddles + k);  // e^{-2 pi i k/n_fft}
-        const float xr = er + w.x * oi + w.y * or_;
-        const float xi = ei - w.x * or_ + w.y * oi;
-        m[i] = sqrtf(xr * xr + xi * xi);
-        if (k == 0) nyq[f] = fabsf(a.x - a.y);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kPerThread; ++i) {
-      const int u = tid + i * kThreads;
-      if (u < total) mag_out[u + (u >> log2N)] = m[i];  // row f at f*(N+1)
-    }
-    if (tid < FR) mag_out[tid * (N + 1) + N] = nyq[tid];
-    __syncthreads();
-
-    // band sums: one output (frame, band) a thread
-    for (int o = tid; o < FR * M; o += kThreads) {
-      const int f = o / M, mb = o - f * M;
-      const int first = __ldg(bands + 3 * mb), len = __ldg(bands + 3 * mb + 1);
-      const float* row = mag + f * (N + 1) + first;
-      const float* wt = weights + __ldg(bands + 3 * mb + 2);
-      float acc = 0.0f;
-      for (int j = 0; j < len; ++j) acc = fmaf(row[j], __ldg(wt + j), acc);
+    // band sums: a thread takes bands p and M-1-p of one frame, so that the
+    // short low bands pair with the long high ones
+    for (int o = tid; o < FR * pairs; o += kThreads) {
+      const int f = o / pairs, p = o - f * pairs;
       const int t = t0 + frame0 + f;
-      if (t < T) out[((long long)b * T + t) * M + mb] = acc;
+      auto band_sum = [&](int mb) {
+        const float* row = mag + f * (N + 1) + __ldg(bands + 3 * mb);
+        const float* wt = weights + __ldg(bands + 3 * mb + 2);
+        const int len = __ldg(bands + 3 * mb + 1);
+        float acc = 0.0f;
+        for (int j = 0; j < len; ++j) acc = fmaf(row[j], __ldg(wt + j), acc);
+        if (t < T) out[((long long)b * T + t) * M + mb] = acc;
+      };
+      band_sum(p);
+      if (M - 1 - p != p) band_sum(M - 1 - p);
     }
   }
 }

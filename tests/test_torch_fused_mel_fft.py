@@ -1,9 +1,8 @@
 """K1's FFT design on the CPU: the kernel's tables and a mirror of its arithmetic.
 
 The CUDA kernel (csrc/fused_mel.cu) computes each frame's real DFT as an
-n_fft/2-point complex FFT of the packed, windowed samples (Stockham passes
-of radix 16, with one radix-2 pass first when log2 N is odd and one radix-4
-pass last when 2 bits remain), splits the real
+n_fft/2-point complex FFT of the packed, windowed samples (Stockham passes,
+mostly of radix 16, the last of radix 4), splits the real
 spectrum, and sums each mel band over its own bins. It runs only on the
 card; here `_mirror_linear_mel` repeats those steps in torch with the same
 tables and the same index arithmetic, and is held to the port's plain DFT
@@ -39,15 +38,16 @@ def _bases(sample_rate, n_fft, n_mels, f_min, f_max):
 
 
 def _plan(log2n: int) -> list:
-    """The kernel's passes (radix, log2 Ns): radix 2 first when log2 N is
-    odd, else radix 16; then radix 16 while 4 bits remain, radix 4 for the
-    last 2."""
-    passes = [(2, 0)] if log2n % 2 else [(16, 0)]
-    bits = passes[0][0].bit_length() - 1
-    while log2n - bits >= 4:
+    """The kernel's passes (radix, log2 Ns): a first pass of radix 16, 2 or
+    4, or radix 2 then 4, that leaves 2 + a multiple of 4 bits; radix-16
+    passes; the last, radix 4 at Ns = N/4 (where the kernel also splits the
+    real spectrum)."""
+    passes = {0: [(16, 0)], 1: [(2, 0)], 2: [(4, 0)], 3: [(2, 0), (4, 1)]}[(log2n - 2) % 4]
+    bits = sum(r.bit_length() - 1 for r, _ in passes)
+    while bits < log2n - 2:
         passes.append((16, bits))
         bits += 4
-    return passes + ([(4, bits)] if bits < log2n else [])
+    return passes + [(4, bits)]
 
 
 def _dft4(v0, v1, v2, v3):
@@ -166,9 +166,9 @@ def test_twiddle_table_within_one_ulp_of_float64(n_fft):
 
 
 @pytest.mark.parametrize("n_fft,plan", [
-    (64, [(2, 0), (16, 1)]), (128, [(16, 0), (4, 4)]), (256, [(2, 0), (16, 1), (4, 5)]),
-    (512, [(16, 0), (16, 4)]), (1024, [(2, 0), (16, 1), (16, 5)]), (2048, [(16, 0), (16, 4), (4, 8)]),
-    (4096, [(2, 0), (16, 1), (16, 5), (4, 9)]),
+    (64, [(2, 0), (4, 1), (4, 3)]), (128, [(16, 0), (4, 4)]), (256, [(2, 0), (16, 1), (4, 5)]),
+    (512, [(4, 0), (16, 2), (4, 6)]), (1024, [(2, 0), (4, 1), (16, 3), (4, 7)]),
+    (2048, [(16, 0), (16, 4), (4, 8)]), (4096, [(2, 0), (16, 1), (16, 5), (4, 9)]),
 ])
 def test_stockham_passes_match_torch_fft(n_fft, plan):
     assert _plan(n_fft.bit_length() - 2) == plan

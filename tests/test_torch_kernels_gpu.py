@@ -38,7 +38,8 @@ def _t(a, device):
     return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
 
-HOPS = {256: 100, 1024: 257, 2048: 511, 4096: 1023}  # n_fft -> hop (odd hops: unaligned frames)
+# n_fft -> hop (odd hops: unaligned frames); the n_fft cover every pass plan of the kernel
+HOPS = {64: 25, 256: 100, 512: 129, 1024: 257, 2048: 511, 4096: 1023}
 
 
 def _mel_inputs(cuda, n_fft, frames, audio):
