@@ -35,7 +35,7 @@ printing a result:
      `cli.predict(... --device cuda)`: the TSVs parse, every kernel of the
      path was launched and no training kernel was, strong probabilities are finite and agree with the same
      run on `--device cpu` (the plain versions) within 1e-4; clips/s of a
-     second, warm CUDA pass. Then the same weights in a checkpoint whose
+     second, warm CUDA pass, and the device time of a third (torch.profiler). Then the same weights in a checkpoint whose
      stored configuration has `entry_block_pallas=True`: the fused first
      block launches once per batch, block 1 launches no K2 forward, and the
      strong probabilities agree with the default configuration's and with
@@ -478,6 +478,12 @@ def phase_kernels(device):
             print(f"  K1 yardstick: one cuBLAS SGEMM of both DFT products {list(raw.shape)} @ {list(both.shape)}: "
                   f"{time_ms(lambda: torch.matmul(raw, both)):.4f} ms "
                   f"({shown(device_ms(lambda: torch.matmul(raw, both)))} on the device)")
+
+            def by_library():  # the whole function as PyTorch calls: window, rfft, magnitude, mel product
+                return torch.fft.rfft(frames_of(chunks) * fe.window, dim=-1)[..., :nb].abs() @ fe.mel_fb
+
+            print(f"  K1 yardstick: the whole function as PyTorch calls (window, rfft, |.|, mel matmul): "
+                  f"{time_ms(by_library):.4f} ms ({shown(device_ms(by_library))} on the device)")
             del both, raw
         res = compare(f"K1 fused_stft_mel {dtype} {list(chunks.shape)} (library: torch.fft.rfft, the transform alone)",
                       lambda: fused_mel.fused_stft_mel(chunks, bases, **kw),
@@ -908,6 +914,21 @@ def read_tsv(path):
         return list(csv.DictReader(f, delimiter="\t"))
 
 
+def print_device_time(what: str, fn, card: str):
+    """Prints what the card spends on one call of `fn` (torch.profiler: every
+    kernel and copy) and K1's part of it."""
+    from torch.autograd import DeviceType
+
+    prof = profiled(fn)
+    if prof is None:
+        print(f"  device time of {what}: not measured")
+        return
+    events = [(e.name, event_us(e)) for e in prof.events() if e.device_type == DeviceType.CUDA]
+    k1 = sum(us for name, us in events if "fused_stft_mel_kernel" in name) / 1e3
+    print(f"  device time of {what}: {sum(us for _, us in events) / 1e3:.3f} ms in {len(events)} kernels and "
+          f"copies, K1 {k1:.3f} ms of it, on {card}")
+
+
 def phase_predict(device, card: str):
     import torch
 
@@ -942,6 +963,7 @@ def phase_predict(device, card: str):
         clips_per_s = N_CLIPS / warm_s
         print(f"  warm CUDA predict: {N_CLIPS} clips in {warm_s:.3f} s = {clips_per_s:.2f} clips/s "
               f"(checkpoint load, wav decode, features, model, decode, TSV writes) on {card}")
+        print_device_time("one warm predict call", lambda: cli.predict(argv + ["--device", "cuda"]), card)
 
         cpu = cli.predict(argv + ["--device", "cpu"])
         diff = float(np.abs(cpu["strong"] - strong).max())
@@ -1244,8 +1266,9 @@ def block1_device_ms(step, state, batch, generator, acc, path: str, card: str) -
     """Device time of CRNN block 1 (teacher and student forward, student
     backward) in one profiled step: its kernels by name, plus, in the default
     configuration, what the cuDNN convolution operators spent on the device
-    (forward ×2 and the weight gradient). A reading, printed per item; None
-    when the profiler gave no trace with all of block 1's kernels."""
+    (forward ×2 and the weight gradient). A reading, printed per item with
+    the whole step's device time beside it; None when the profiler gave no
+    trace with all of block 1's kernels."""
     from torch.autograd import DeviceType
 
     def kernels_of(prof):
@@ -1275,6 +1298,8 @@ def block1_device_ms(step, state, batch, generator, acc, path: str, card: str) -
             total += ms
             items.append(f"{op} ×{sum(e.count for e in found)} {ms:.3f}" if found else f"{op} not measured")
     print(f"  block 1 in one step ({path}, {card}): {total:.3f} ms = " + " + ".join(items))
+    print(f"  the whole step's device time in that profile ({path}): {sum(us for _, us in launches) / 1e3:.3f} ms "
+          f"in {len(launches)} kernels and copies")
     return total
 
 
