@@ -29,7 +29,21 @@ printing a result:
      there may be at most twice the float32 plain version's; its library
      time is one `torch.fft.rfft` of the windowed frames (the transform
      alone), and one SGEMM of the TPU design's two DFT products is printed
-     beside it; its bound is recounted from what the function needs;
+     beside it; its bound is recounted from what the function needs. Then
+     the bfloat16 modes of K3 (forward, dx, wgrad) and K2 (forward eval and
+     dropout, K2s, both backward passes) at the scaled configuration's
+     shapes (batch 24, 128 channels; K2 at [24, 864, 128, 128] in window
+     tiles, [24, 432, 32, 128] and [24, 216, 8, 128] with pool (2, 8)),
+     against the plain versions, which round where the kernels round:
+     each bfloat16 output element within one bfloat16 ulp plus a stated
+     slack (what one bf16 operand rounding the other way, a second rounding
+     that follows, and the float32 rounding of the sums may add: an output
+     that cancels to near zero differs by many of its own ulps), and at most
+     1e-3 of the elements beyond the one ulp alone; float32 outputs 1e-4 of
+     max; the
+     library call is cuDNN's bfloat16 conv for K3; the bounds count the
+     channel products on bfloat16 operands at the tensor cores' 989 TFLOP/s
+     and the rest at 67 TFLOP/s, the bytes of bfloat16 tensors at two a value;
   4. predict — 48 synthetic 10 s wavs (two batches of 24) and a checkpoint
      of a seeded flagship CRNN written by the port's own writer, through
      `cli.predict(... --device cuda)`: the TSVs parse, every kernel of the
@@ -39,7 +53,13 @@ printing a result:
      stored configuration has `entry_block_pallas=True`: the fused first
      block launches once per batch, block 1 launches no K2 forward, and the
      strong probabilities agree with the default configuration's and with
-     that checkpoint's CPU run within 1e-4;
+     that checkpoint's CPU run within 1e-4. Then a checkpoint of a seeded
+     CRNN stored with `scaled_config()` (bfloat16, 128 mels, 128 channels,
+     pooling (2, 4) (2, 4) (2, 8)): launch counts exact (bfloat16 K3 and K2
+     at every block, no float32 K2 or K3, no plain block), strong
+     probabilities of the CUDA run within 5e-3 of the CPU run's (largest
+     difference and differing event rows printed), clips/s and the device
+     time of a warm call;
   5. train — five Mean-Teacher steps at the flagship `Config()`, batch 24
      laid out [weak 6 | unlabeled 12 | synthetic 6], int16 audio of 24 seeded
      synthetic clips, state from a seeded CPU generator, Adam(1e-3): losses
@@ -58,7 +78,14 @@ printing a result:
      against its own CPU step), `entry_block_crows` and `entry_conv_pallas`
      (three steps each, step 1 against the default's), each with ms per step
      with the generator on the card and the device time of block 1 in one
-     profiled step beside the default's.
+     profiled step beside the default's. Then the scaled configuration with
+     SpecAugment: step 1 at a batch of 4 clips [1|2|1] on the card and on
+     the CPU from one state and CPU generator (metrics 1e-4; gradient leaves
+     2e-2 of their max plus 1e-6 of the largest, gauge leaves 1e-3 of the
+     largest: bfloat16 roundings that flip between float32 sums in another
+     order), then five steps at the full batch of 24 with the generator on
+     the card: launches per step exact, ms per step, a torch.profiler
+     breakdown of one warm step, peak memory.
 
 The line before the last is {"kernels": [...]}: every number in it is one
 this run measured (launches on both paths as counted, the largest error
@@ -92,6 +119,11 @@ TRAIN_TOL = 1e-4
 GRAD_FLOOR = 1e-6  # float32 noise floor of a gauge leaf's gradient, as a share of the step's largest gradient
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12     # float32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12    # bfloat16 products on the tensor cores (dense)
+SCALED_STRONG_TOL = 5e-3    # bfloat16 model, card against CPU
+EPS32 = 2.0 ** -24          # float32 unit roundoff
+FLIP_SHARE = 1e-3           # share of a bfloat16 output's elements that may lie beyond one ulp
+SCALED_GRAD_TOL, SCALED_GRAD_FLOOR, SCALED_GAUGE_FLOOR = 2e-2, 1e-6, 1e-3
 CSRC = "dcase2019_task4_tpu_torch/csrc/"
 JAX_OPS = "dcase2019_task4_tpu/ops/"
 
@@ -119,6 +151,16 @@ KERNELS = {
     "crows_fwd": (CSRC + "entry_block.cu", JAX_OPS + "crows_block.py:404"),
     "crows_bwd_reduce": (CSRC + "entry_block.cu", JAX_OPS + "crows_block.py:442"),
     "crows_bwd_wgrad": (CSRC + "entry_block.cu", JAX_OPS + "crows_block.py:479"),
+    # the bfloat16 modes the scaled configuration runs: the same kernels
+    # instantiated for bfloat16 activations, counted apart
+    "conv2d_forward_bf16": (CSRC + "packed_conv.cu", JAX_OPS + "packed_conv.py:122"),
+    "conv2d_dx_bf16": (CSRC + "packed_conv.cu", JAX_OPS + "packed_conv.py:276"),
+    "conv2d_wgrad_bf16": (CSRC + "packed_conv.cu", JAX_OPS + "packed_conv.py:147"),
+    "fused_bn_glu_pool_eval_bf16": (CSRC + "fused_block.cu", JAX_OPS + "fused_block.py:243"),
+    "fused_bn_glu_pool_train_bf16": (CSRC + "fused_block.cu", JAX_OPS + "fused_block.py:243"),
+    "batch_stats_bf16": (CSRC + "fused_block.cu", JAX_OPS + "fused_block.py:591"),
+    "bwd_reduce_bf16": (CSRC + "fused_block.cu", JAX_OPS + "fused_block.py:289"),
+    "bwd_fixup_bf16": (CSRC + "fused_block.cu", JAX_OPS + "fused_block.py:332"),
 }
 # a crows row names the kernel it launches; phase 3 calls the crows entries
 # themselves and holds them bit for bit to that kernel's own wrapper
@@ -140,8 +182,13 @@ STEP_ENTRY_BLOCK = {"fused_stft_mel": 1, "conv2d_forward": 4, "conv2d_dx": 2, "c
 STEP_CROWS = dict(STEP_ENTRY_BLOCK, crows_stats=2, crows_fwd=2, crows_bwd_reduce=1, crows_bwd_wgrad=1)
 # K4f hands its sums to the fused block: no K2s launch for block 1
 STEP_ENTRY_CONV = dict(STEP_MIN, batch_stats=4, entry_conv=2, entry_conv_wgrad=1)
+# the scaled configuration: the bfloat16 kernels at every block, no float32 one
+PREDICT_SCALED = {"fused_stft_mel": 2, "conv2d_forward_bf16": 4, "fused_bn_glu_pool_eval_bf16": 6}
+STEP_SCALED = {"fused_stft_mel": 1, "conv2d_forward_bf16": 4, "conv2d_dx_bf16": 2, "conv2d_wgrad_bf16": 2,
+               "fused_bn_glu_pool_train_bf16": 6, "batch_stats_bf16": 6, "bwd_reduce_bf16": 3, "bwd_fixup_bf16": 3}
 PATHS = {"predict": PREDICT_MIN, "predict_entry_block": PREDICT_ENTRY_BLOCK, "step": STEP_MIN,
-         "step_entry_block": STEP_ENTRY_BLOCK, "step_crows": STEP_CROWS, "step_entry_conv": STEP_ENTRY_CONV}
+         "step_entry_block": STEP_ENTRY_BLOCK, "step_crows": STEP_CROWS, "step_entry_conv": STEP_ENTRY_CONV,
+         "predict_scaled": PREDICT_SCALED, "step_scaled": STEP_SCALED}
 # the path whose run gives a row its `launches`
 ROW_PATH = {name: "predict" if name in PREDICT_MIN else "step" for name in list(PREDICT_MIN) + list(STEP_MIN)}
 ROW_PATH.update({"entry_block_fwd_eval": "predict_entry_block", "entry_conv": "step_entry_conv",
@@ -149,6 +196,8 @@ ROW_PATH.update({"entry_block_fwd_eval": "predict_entry_block", "entry_conv": "s
                  "entry_block_fwd_train": "step_entry_block", "entry_block_bwd_reduce": "step_entry_block",
                  "entry_block_bwd_wgrad": "step_entry_block", "crows_stats": "step_crows", "crows_fwd": "step_crows",
                  "crows_bwd_reduce": "step_crows", "crows_bwd_wgrad": "step_crows"})
+ROW_PATH.update({name: "predict_scaled" if name in PREDICT_SCALED else "step_scaled"
+                 for name in KERNELS if name.endswith("_bf16")})
 FIRST_BLOCK_FLAGS = {"step_entry_block": "entry_block_pallas", "step_crows": "entry_block_crows",
                      "step_entry_conv": "entry_conv_pallas"}
 
@@ -179,6 +228,14 @@ def wrappers():
         "crows_fwd": (crows_block.crows_apply, "launches_train"),
         "crows_bwd_reduce": (crows_block.crows_apply, "launches_bwd_reduce"),
         "crows_bwd_wgrad": (crows_block.crows_apply, "launches_bwd_wgrad"),
+        "conv2d_forward_bf16": (packed_conv.conv2d_forward, "launches_bf16"),
+        "conv2d_dx_bf16": (packed_conv.conv2d_dx, "launches_bf16"),
+        "conv2d_wgrad_bf16": (packed_conv.conv2d_wgrad, "launches_bf16"),
+        "fused_bn_glu_pool_eval_bf16": (fused_block.fused_bn_glu_pool, "launches_eval_bf16"),
+        "fused_bn_glu_pool_train_bf16": (fused_block.fused_bn_glu_pool, "launches_train_bf16"),
+        "batch_stats_bf16": (fused_block.batch_stats, "launches_bf16"),
+        "bwd_reduce_bf16": (fused_block.bwd_reduce, "launches_bf16"),
+        "bwd_fixup_bf16": (fused_block.bwd_fixup, "launches_bf16"),
     }
 
 
@@ -298,10 +355,13 @@ def device_ms(fn, runs: int = 3) -> Optional[float]:
     return float(np.median(totals)) / 1e3
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, n_ops_bf16: float = 0.0):
     """The least time the card could take: each input read once and each
-    output written once at the HBM rate, or the operations at the FP32 rate."""
-    by_bytes, by_ops = 1e3 * n_bytes / PEAK_BYTES_PER_S, 1e3 * n_ops / PEAK_FP32_FLOPS
+    output written once at the HBM rate, or the operations at the peak rate
+    of their type (float32 outside the tensor cores; products of bfloat16
+    operands on the tensor cores)."""
+    by_bytes = 1e3 * n_bytes / PEAK_BYTES_PER_S
+    by_ops = 1e3 * n_ops / PEAK_FP32_FLOPS + 1e3 * n_ops_bf16 / PEAK_BF16_FLOPS
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -331,8 +391,8 @@ class Row:
         if res.err >= self.err:
             self.err, self.limit = res.err, res.limit
 
-    def add(self, shape, res: Result, n_bytes, n_ops):
-        b, by = bound_ms(n_bytes, n_ops)
+    def add(self, shape, res: Result, n_bytes, n_ops, n_ops_bf16=0.0):
+        b, by = bound_ms(n_bytes, n_ops, n_ops_bf16)
         self.note_err(res)
         self.ms, self.plain_ms = self.ms + res.ms, self.plain_ms + res.plain_ms
         self.device_ms = None if self.device_ms is None or res.device_ms is None else self.device_ms + res.device_ms
@@ -367,7 +427,12 @@ def compare(name, kernel_fn, plain_fn, atol=None, rtol_of_max=None, library_fn=N
     `rtol_of_max` holds every output. `exact_fn`: a float64 run of the plain
     version to hold the outputs to instead (`plain_fn` is still what is
     timed); it returns (outputs, floor per output), the floor added to that
-    output's limit."""
+    output's limit. ("ulp", slack): a bfloat16 output, held element by
+    element to one bfloat16 ulp of the larger of the two values plus `slack`
+    (a number or a tensor of the output's shape: what one operand rounding
+    the other way and the float32 rounding of the sums may add), with at
+    most FLIP_SHARE of the elements beyond the one ulp alone; its limit is
+    reported as the largest of the element limits."""
     import torch
 
     def as_list(out):
@@ -391,11 +456,26 @@ def compare(name, kernel_fn, plain_fn, atol=None, rtol_of_max=None, library_fn=N
             raise AssertionError(f"{name}: shape {tuple(out.shape)} != plain {tuple(ref.shape)}")
         if not torch.isfinite(out).all():
             raise AssertionError(f"{name}: non-finite output")
-        err = (out.to(ref.dtype) - ref).abs().max().item()
-        limit = (tol if kind == "abs" else tol * ref.abs().max().item()) + floor
-        report.append(f"{err:.3e}/{limit:.3e}")
-        if not err <= limit:
-            raise AssertionError(f"{name}: max abs error {err} exceeds {limit}")
+        if kind == "ulp":
+            o, r = out.float(), ref.float()
+            diff = (o - r).abs()
+            ulp = bf16_ulp(torch.maximum(o.abs(), r.abs()))
+            beyond = int((diff > ulp).sum().item())
+            lim = ulp + tol
+            bad = int((diff > lim).sum().item())
+            err, limit = diff.max().item(), lim.max().item()
+            del o, r, diff, lim, ulp
+            share = beyond / out.numel()
+            report.append(f"{err:.3e}/(one bfloat16 ulp + slack; {beyond} elements beyond one ulp, share {share:.1e})")
+            if bad or share > FLIP_SHARE:
+                raise AssertionError(f"{name}: {bad} elements beyond one bfloat16 ulp + slack, {beyond} beyond one ulp "
+                                     f"(share {share:.2e}, at most {FLIP_SHARE}; largest error {err})")
+        else:
+            err = (out.to(ref.dtype) - ref).abs().max().item()
+            limit = (tol if kind == "abs" else tol * ref.abs().max().item()) + floor
+            report.append(f"{err:.3e}/{limit:.3e}")
+            if not err <= limit:
+                raise AssertionError(f"{name}: max abs error {err} exceeds {limit}")
         if err >= worst:
             worst, worst_limit = err, limit
     if repeat:
@@ -413,11 +493,73 @@ def compare(name, kernel_fn, plain_fn, atol=None, rtol_of_max=None, library_fn=N
     return Result(worst, worst_limit, ms, plain_ms, library_ms, on_device, library_on_device)
 
 
-def flagship_frontend(device):
+def bf16_ulp(t):
+    """The bfloat16 spacing at |t| (floored at the smallest normal)."""
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(t.abs().float().clamp_min(2.0 ** -126))) - 7)
+
+
+def sum_slack(n: int, a_max: float, b_max: float) -> float:
+    """The float32 rounding of a sum of n products |a·b| ≤ a_max·b_max, in
+    either of two orders: n · a_max · b_max · 2^-24 (what an output that
+    cancels to near zero may differ by, many of its own ulps)."""
+    return n * a_max * b_max * EPS32
+
+
+def flip_slack(a_max: float, b_max: float) -> float:
+    """One bfloat16 operand of a product rounding to the other neighbour
+    (its float32 value differs in the last bits between two versions):
+    ulp(a_max) · b_max."""
+    import torch
+
+    return bf16_ulp(torch.tensor(a_max)).item() * b_max
+
+
+def pool_slack(y, scale, bias, mean, var, w, b, pool, eps, mask=None, keep=1.0):
+    """Slack of K2's bf16 pooled output: one pt-row column sum rounding to
+    the other bfloat16 neighbour moves a window mean by one bfloat16 ulp of
+    the window's largest column sum over pt·pf (column sums from the plain
+    formula in float32); one bf16 xn operand of lin = xn·W flipping moves one
+    element of the window by ulp(max|xn|)·max|W| / keep; the sums add their
+    float32 rounding."""
+    import torch
+
+    xn = (y.float() - mean) * torch.rsqrt(var + eps) * scale + bias
+    xn_max = xn.abs().max().item()
+    g = (xn.bfloat16().float() @ w.bfloat16().float() + b) * torch.sigmoid(xn)
+    del xn
+    if mask is not None:
+        g = g * mask * (1.0 / keep)
+    B, T, F, C = g.shape
+    pt, pf = pool
+    cols = g.reshape(B, T // pt, pt, F // pf, pf, C).sum(dim=2).abs().amax(dim=3)
+    w_max = w.abs().max().item()
+    lin = (flip_slack(xn_max, w_max) + sum_slack(C, xn_max, w_max)) / (keep * pt * pf)
+    return bf16_ulp(cols) / (pt * pf) + lin
+
+
+def dyp_slack(y, dout, scale, bias, mean, var, w, pool, eps, keep=1.0):
+    """Slack of K2b's bf16 dy_partial = inv·γ·(dlin·Wᵀ + dh·lin·σ'): one bf16
+    dlin operand flipping (ulp(max|dlin|)·max|W|), one bf16 xn operand of lin
+    flipping (max|dh|·ulp(max|xn|)·max|W| / 4, σ' ≤ 1/4), and the float32
+    rounding of both channel sums, all times max|inv·γ|."""
+    import torch
+
+    inv = torch.rsqrt(var + eps)
+    xn_max = ((y.float() - mean) * inv * scale + bias).abs().max().item()
+    dh_max = dout.float().abs().max().item() / (pool[0] * pool[1] * keep)
+    w_max, C = w.abs().max().item(), w.shape[0]
+    return (inv * scale).abs().max().item() * (flip_slack(dh_max, w_max) + dh_max * flip_slack(xn_max, w_max) / 4
+                                                 + 2 * sum_slack(C, max(dh_max, xn_max), w_max))
+
+
+def flagship_frontend(device, cfg=None):
+    """The frontend of `cfg` (the flagship Config() by default) on `device`."""
     from dcase2019_task4_tpu_torch.config import Config
     from dcase2019_task4_tpu_torch.ops.mel import MelFrontend
 
-    d = Config().dsp
+    d = (cfg or Config()).dsp
     return MelFrontend(sample_rate=d.sample_rate, n_window=d.n_window, hop_length=d.hop_length,
                        n_mels=d.n_mels, f_min=d.f_min, f_max=d.f_max, max_frames=d.max_frames,
                        amin=d.amin, top_db=d.top_db, device=device)
@@ -604,6 +746,7 @@ def phase_kernels(device):
         del y, dout, mask, dyp, leaves, ref, pooled
         torch.cuda.empty_cache()
     helpers = entry_kernels(device, rows, rng)
+    scaled_kernels(device, rows, rng)
     return rows, helpers
 
 
@@ -827,6 +970,143 @@ def entry_kernels(device, rows, rng):
              "device_ms": mask_device_ms, "plain_ms": plain_ms, "bound_ms": mask_bound, "bound_by": "bytes", "library_ms": None}]
 
 
+def scaled_kernels(device, rows, rng):
+    """Phase 3 for the bfloat16 modes at the scaled configuration's shapes:
+    K3 at blocks 2 and 3 ([B, 432, 32, 128], [B, 216, 8, 128]), K2 at the
+    three blocks ([B, 864, 128, 128] and [B, 432, 32, 128] with pool (2, 4),
+    [B, 216, 8, 128] with pool (2, 8)), batch 24, bfloat16 activations and
+    float32 parameters, as a bfloat16 model hands them over."""
+    import torch
+    import torch.nn.functional as F
+
+    from dcase2019_task4_tpu_torch.config import scaled_config
+    from dcase2019_task4_tpu_torch.ops import fused_block as fb
+    from dcase2019_task4_tpu_torch.ops import packed_conv as pc
+
+    cfg = scaled_config()
+    d, m = cfg.dsp, cfg.model
+    B, C, eps, rate = cfg.train.batch_size, m.nb_filters[1], m.bn_eps, m.dropout
+    bf16 = torch.bfloat16
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    geometries = ((d.max_frames, d.n_mels), (d.max_frames // 2, d.n_mels // 4), (d.max_frames // 4, d.n_mels // 16))
+    pools = [tuple(p) for p in m.pooling]
+
+    # K3: products of bfloat16 operands (9·C per output), float32 sums; bytes at two a value
+    for T, Fq in geometries[1:]:
+        lim = np.sqrt(2.0) * np.sqrt(6.0 / (18 * C))
+        w, b = t(rng.uniform(-lim, lim, (3, 3, C, C))), t(0.1 * rng.standard_normal(C))
+        params = {"w": w, "b": b}
+        x, dy = t(rng.standard_normal((B, T, Fq, C))).to(bf16), t(rng.standard_normal((B, T, Fq, C))).to(bf16)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous().to(bf16)
+        x_cl, dy_cl = (v.permute(0, 3, 1, 2) for v in (x, dy))  # NCHW views in channels-last memory
+        act_bytes, conv_ops = x.numel() * 2, 2.0 * x.numel() * 9 * C
+        shape = list(x.shape)
+        taps = 9 * C
+        res = compare(f"K3f conv2d_forward bf16 {shape}", lambda: pc.conv2d_forward(params, x),
+                      lambda: pc.conv2d_reference(params, x),
+                      tols=[("ulp", sum_slack(taps, x.abs().max().item(), w.abs().max().item()))],
+                      library_fn=lambda: F.conv2d(x_cl, w_oihw, b.to(bf16), padding=1))
+        rows["conv2d_forward_bf16"].add(shape, res, 2 * act_bytes + w.numel() * 4, 0.0, conv_ops)
+        res = compare(f"K3dx conv2d_dx bf16 {shape}", lambda: pc.conv2d_dx(w, dy),
+                      lambda: pc.conv2d_dx_reference(w, dy),
+                      tols=[("ulp", sum_slack(taps, dy.abs().max().item(), w.abs().max().item()))],
+                      library_fn=lambda: torch.nn.grad.conv2d_input(x_cl.shape, w_oihw, dy_cl, padding=1))
+        rows["conv2d_dx_bf16"].add(shape, res, 2 * act_bytes + w.numel() * 4, 0.0, conv_ops)
+        res = compare(f"K3w conv2d_wgrad bf16 {shape} (dW, db float32)", lambda: pc.conv2d_wgrad(x, dy),
+                      lambda: pc.conv2d_wgrad_reference(x, dy), rtol_of_max=1e-4, repeat=True,
+                      library_fn=lambda: torch.nn.grad.conv2d_weight(x_cl, w_oihw.shape, dy_cl, padding=1))
+        rows["conv2d_wgrad_bf16"].add(shape, res, 2 * act_bytes + (w.numel() + C) * 4, 0.0, conv_ops)
+        del x, dy, x_cl, dy_cl
+        torch.cuda.empty_cache()
+
+    # K2 at the three blocks: the C×C channel products on bfloat16 operands, the
+    # rest float32; y, dout, the pooled output, dy_partial and dy at two bytes a value
+    seed = torch.tensor([20190415], dtype=torch.int64)
+    for (T, Fq), pool in zip(geometries, pools):
+        y = t(rng.standard_normal((B, T, Fq, C))).to(bf16)
+        scale, bias = t(1 + 0.1 * rng.standard_normal(C)), t(0.1 * rng.standard_normal(C))
+        w, gb = t(rng.standard_normal((C, C)) / np.sqrt(C)), t(0.1 * rng.standard_normal(C))
+        run_mean, run_var = t(0.2 * rng.standard_normal(C)), t(rng.uniform(0.5, 2.0, C))
+        dout = t(rng.standard_normal((B, T // pool[0], Fq // pool[1], C))).to(bf16)
+        shape, pixels = list(y.shape), B * T * Fq
+        y_bytes, out_bytes, small = y.numel() * 2, dout.numel() * 2, (C * C + 5 * C) * 4
+        mix_ops = 2.0 * pixels * C * C
+        vecs = (scale, bias, run_mean, run_var, w, gb)
+
+        slack = pool_slack(y, *vecs, pool, eps)
+        res = compare(f"K2f fused_bn_glu_pool eval bf16 {shape} pool {pool}",
+                      lambda: fb.fused_bn_glu_pool(y, *vecs, pool, eps),
+                      lambda: fb.reference_block(y, *vecs, pool, eps), tols=[("ulp", slack)])
+        rows["fused_bn_glu_pool_eval_bf16"].add(shape, res, y_bytes + out_bytes + small, 12.0 * y.numel(), mix_ops)
+        del slack
+
+        res = compare(f"K2s batch_stats bf16 {shape}", lambda: fb.batch_stats(y), lambda: fb.batch_stats_reference(y),
+                      rtol_of_max=1e-5, repeat=True)
+        rows["batch_stats_bf16"].add(shape, res, y_bytes + 2 * C * 4, 3.0 * y.numel())
+        s, sq = fb.batch_stats(y)
+        mean = s / pixels
+        var = sq / pixels - mean * mean
+
+        mask = fb.dropout_keep_mask(seed, y.shape, rate, device=device)
+        slack = pool_slack(y, scale, bias, mean, var, w, gb, pool, eps, mask, 1.0 - rate)
+        res = compare(f"K2f fused_bn_glu_pool train bf16 rate {rate} {shape} pool {pool}",
+                      lambda: fb.fused_bn_glu_pool(y, scale, bias, mean, var, w, gb, pool, eps, rate=rate, seed=seed),
+                      lambda: fb.reference_block(y, scale, bias, mean, var, w, gb, pool, eps, mask, 1.0 - rate),
+                      tols=[("ulp", slack)])
+        rows["fused_bn_glu_pool_train_bf16"].add(shape, res, y_bytes + out_bytes + small, 14.0 * y.numel(), mix_ops)
+        del slack
+        # the mask alone, as at float32: g = mask / (2·keep) in each window
+        unit = (torch.ones(C, device=device), torch.zeros(C, device=device), torch.zeros(C, device=device),
+                torch.ones(C, device=device), torch.zeros(C, C, device=device), torch.ones(C, device=device))
+        pooled = fb.fused_bn_glu_pool(torch.zeros_like(y), *unit, pool, eps, rate=rate, seed=seed)
+        kept = pooled.double().sum().item() * pool[0] * pool[1] * 2.0 * (1.0 - rate)
+        n_kept = int(mask.sum(dtype=torch.float64).item())
+        if round(kept) != n_kept:
+            raise AssertionError(f"K2f train bf16 {shape}: kernel kept {kept} elements, dropout_keep_mask {n_kept}")
+        print(f"  K2f train bf16 {shape}: kept {n_kept} of {mask.numel()} elements, as dropout_keep_mask")
+
+        slack = dyp_slack(y, dout, scale, bias, mean, var, w, pool, eps, 1.0 - rate)
+        res = compare(f"K2b bwd_reduce bf16 rate {rate} {shape} (dy_partial bf16; dw, db, S1, S2 float32)",
+                      lambda: fb.bwd_reduce(y, dout, scale, bias, mean, var, w, gb, pool, eps, rate=rate, seed=seed),
+                      lambda: fb.bwd_reduce_reference(y, dout, scale, bias, mean, var, w, gb, pool, eps, mask, 1.0 - rate),
+                      tols=[("ulp", slack)] + [("max", 1e-4)] * 4, repeat=True)
+        rows["bwd_reduce_bf16"].add(shape, res, 2 * y_bytes + out_bytes + 2 * small, 30.0 * y.numel(), 3 * mix_ops)
+        dyp, _, _, s1, s2 = fb.bwd_reduce(y, dout, scale, bias, mean, var, w, gb, pool, eps, rate=rate, seed=seed)
+        a, b2 = fb.bwd_coefficients(scale, var, eps, s1, s2, pixels)
+        # the same inputs on both sides: what differs is the float32 rounding of three terms
+        fix_slack = 4 * EPS32 * (dyp.float().abs().max().item() + a.abs().max().item()
+                                 + (y.float() - mean).abs().max().item() * b2.abs().max().item())
+        res = compare(f"K2b bwd_fixup bf16 {shape}", lambda: fb.bwd_fixup(y, dyp.clone(), a, b2, mean),
+                      lambda: fb.bwd_fixup_reference(y, dyp.clone(), a, b2, mean), tols=[("ulp", fix_slack)],
+                      repeat=True)
+        clone_ms = time_ms(lambda: dyp.clone())
+        res = res._replace(ms=max(res.ms - clone_ms, 0.0), plain_ms=max(res.plain_ms - clone_ms, 0.0),
+                           device_ms=less(res.device_ms, device_ms(lambda: dyp.clone())))
+        rows["bwd_fixup_bf16"].add(shape, res, 3 * y_bytes, 3.0 * y.numel())
+        print(f"  K2b bwd_fixup bf16 {shape}: clone of dy_partial {clone_ms:.4f} ms taken off both times")
+
+        # the whole backward through the autograd Function against the formulas
+        leaves = [v.clone().requires_grad_(True) for v in (y, scale, bias, w, gb)]
+        fb.fused_bn_glu_dropout_pool(leaves[0], leaves[1], leaves[2], mean, var, leaves[3], leaves[4],
+                                     seed, rate, pool, eps, True).backward(dout)
+        ref = fb.bwd_reference(y, dout, scale, bias, mean, var, w, gb, pool, eps, mask, 1.0 - rate)
+        ref_dyp = fb.bwd_reduce_reference(y, dout, scale, bias, mean, var, w, gb, pool, eps, mask, 1.0 - rate)[0]
+        got, want = leaves[0].grad.float(), ref[0].float()
+        limit = bf16_ulp(torch.maximum(got.abs(), want.abs())) + bf16_ulp(ref_dyp) + slack + fix_slack
+        if ((got - want).abs() > limit).any():
+            raise AssertionError(f"K2b Function bf16 {shape}: dy beyond one ulp of dy and one of dy_partial + slack")
+        del got, want, ref_dyp
+        for name, leaf, want in zip(("dscale", "dbias", "dw", "db"), leaves[1:], ref[1:]):
+            err, limit = (leaf.grad - want).abs().max().item(), 1e-4 * want.abs().max().item()
+            if not err <= limit:
+                raise AssertionError(f"K2b Function bf16 {shape}: {name} error {err} exceeds {limit}")
+        del y, dout, mask, dyp, leaves, ref, pooled
+        torch.cuda.empty_cache()
+
+
 def make_clips(n: int, rng):
     """n seeded synthetic 10 s clips → (names, events per clip, audio)."""
     from dcase2019_task4_tpu_torch.config import DEFAULT_CLASSES, Config
@@ -872,8 +1152,10 @@ def write_inputs(workdir: str, device):
     """48 synthetic wavs, and two checkpoints of one seeded flagship CRNN
     whose scaler is fitted on the first batch's log-mel features: one with
     the default configuration, one whose stored configuration has
-    `entry_block_pallas=True` (the parameters are the same)."""
-    from dcase2019_task4_tpu_torch.config import DEFAULT_CLASSES, Config
+    `entry_block_pallas=True` (the parameters are the same); and a
+    checkpoint of a seeded CRNN stored with `scaled_config()`, its scaler
+    fitted on that configuration's 128-mel features of the same batch."""
+    from dcase2019_task4_tpu_torch.config import DEFAULT_CLASSES, Config, scaled_config
     from dcase2019_task4_tpu_torch.data.audio_io import write_wav
     from dcase2019_task4_tpu_torch.data.encoder import LabelCodec
     from dcase2019_task4_tpu_torch.models.crnn import CRNN, seeded_init_
@@ -889,24 +1171,27 @@ def write_inputs(workdir: str, device):
     audio_i16, frames = pack_clips(clips[: cfg.train.batch_size])
     scaler = fit_scaler(flagship_frontend(device), audio_i16, frames, device)
 
-    model = seeded_init_(CRNN(cfg.model), SEED)
-    params, bn_state = ckpt.params_to_jax(model)
+    scaled = scaled_config()
+    scaled_scaler = fit_scaler(flagship_frontend(device, scaled), audio_i16, frames, device)
     paths = []
-    for name, stored in (("model.npz", cfg),
-                         ("model_entry_block.npz",
-                          dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, entry_block_pallas=True)))):
+    for name, stored, fitted in (
+            ("model.npz", cfg, scaler),
+            ("model_entry_block.npz",
+             dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, entry_block_pallas=True)), scaler),
+            ("model_scaled.npz", scaled, scaled_scaler)):
+        params, bn_state = ckpt.params_to_jax(seeded_init_(CRNN(stored.model), SEED))
         meta = {
             "epoch": 0,
             "valid_metric": {},
-            "pooling_time_ratio": cfg.model.pooling_time_ratio,
-            "scaler": scaler,
-            "many_hot_encoder": LabelCodec(DEFAULT_CLASSES, d.max_frames // cfg.model.pooling_time_ratio).state_dict(),
+            "pooling_time_ratio": stored.model.pooling_time_ratio,
+            "scaler": fitted,
+            "many_hot_encoder": LabelCodec(DEFAULT_CLASSES, d.max_frames // stored.model.pooling_time_ratio).state_dict(),
             "config": dataclasses.asdict(stored),
             "mean_teacher": True,
         }
         paths.append(os.path.join(workdir, name))
         ckpt.save_inference_checkpoint(paths[-1], params, bn_state, meta)
-    return wav_dir, paths[0], paths[1]
+    return wav_dir, paths
 
 
 def read_tsv(path):
@@ -935,7 +1220,7 @@ def phase_predict(device, card: str):
     from dcase2019_task4_tpu_torch import cli
 
     with tempfile.TemporaryDirectory() as work:
-        wav_dir, model, model_entry_block = write_inputs(work, device)
+        wav_dir, (model, model_entry_block, model_scaled) = write_inputs(work, device)
         out, tags = os.path.join(work, "events.tsv"), os.path.join(work, "tags.tsv")
         argv = ["-m", model, "-i", wav_dir, "-p", out, "--weak_fname", tags]
 
@@ -993,7 +1278,47 @@ def phase_predict(device, card: str):
         torch.cuda.synchronize()
         print(f"  warm CUDA predict with the fused first block: {N_CLIPS / (time.perf_counter() - t0):.2f} clips/s "
               f"({clips_per_s:.2f} with the default configuration) on {card}")
-    return {"predict": launches, "predict_entry_block": launches_entry}, clips_per_s
+        launches_scaled = predict_scaled(model_scaled, wav_dir, work, card)
+    return {"predict": launches, "predict_entry_block": launches_entry, "predict_scaled": launches_scaled}, clips_per_s
+
+
+def predict_scaled(model: str, wav_dir: str, work: str, card: str):
+    """`cli.predict` on the scaled checkpoint: the bfloat16 kernels at every
+    block, the CUDA run against the CPU run (plain versions)."""
+    import torch
+
+    from dcase2019_task4_tpu_torch import cli
+
+    out, cpu_out = os.path.join(work, "events_scaled.tsv"), os.path.join(work, "events_scaled_cpu.tsv")
+    argv = ["-m", model, "-i", wav_dir]
+    zero_launches()
+    res = cli.predict(argv + ["-p", out, "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"  launches during predict with the scaled checkpoint: {launches}")
+    check_launches(launches, PREDICT_SCALED, 1, "the predict run with the scaled checkpoint")
+    strong = res["strong"]
+    if res["n_files"] != N_CLIPS or strong.shape != (N_CLIPS, 108, 10) or not np.isfinite(strong).all():
+        raise AssertionError(f"scaled strong probabilities: n_files {res['n_files']}, shape {strong.shape}")
+    t0 = time.perf_counter()
+    cli.predict(argv + ["-p", out, "--device", "cuda"])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    print(f"  warm CUDA predict, scaled checkpoint: {N_CLIPS} clips in {warm_s:.3f} s = {N_CLIPS / warm_s:.2f} clips/s "
+          f"on {card}")
+    print_device_time("one warm predict call with the scaled checkpoint",
+                      lambda: cli.predict(argv + ["-p", out, "--device", "cuda"]), card)
+    t0 = time.perf_counter()
+    cpu = cli.predict(argv + ["-p", cpu_out, "--device", "cpu"])
+    diff = float(np.abs(cpu["strong"] - strong).max())
+    rows_gpu = {tuple(r.values()) for r in read_tsv(out)}
+    rows_cpu = {tuple(r.values()) for r in read_tsv(cpu_out)}
+    print(f"  scaled checkpoint, CUDA vs CPU (plain versions, {time.perf_counter() - t0:.1f} s): strong max abs diff "
+          f"{diff:.3e} (limit {SCALED_STRONG_TOL}); event rows {len(rows_gpu)} vs {len(rows_cpu)}, "
+          f"{len(rows_gpu ^ rows_cpu)} rows in one TSV only")
+    if not diff <= SCALED_STRONG_TOL:
+        raise AssertionError(f"scaled checkpoint: CUDA and CPU strong probabilities differ by {diff}")
+    return launches
 
 
 def train_batch(cfg, n_weak: int, n_unlabel: int, n_strong: int):
@@ -1216,6 +1541,106 @@ def phase_train(device, card: str):
     return all_launches, warm_ms
 
 
+def phase_train_scaled(device, card: str):
+    """The scaled configuration's Mean-Teacher step with SpecAugment: step 1
+    at a batch of 4 [1|2|1] on the card against the CPU, then five steps at
+    the full batch of 24 [6|12|6] with the generator on the card."""
+    import torch
+
+    from dcase2019_task4_tpu_torch.config import scaled_config
+    from dcase2019_task4_tpu_torch.train import steps
+    from dcase2019_task4_tpu_torch.utils.scaler import Scaler
+
+    cfg = scaled_config()
+    tr = cfg.train
+    sa = dict(time_masks=tr.sa_time_masks, max_time_width=tr.sa_max_time_width, freq_masks=tr.sa_freq_masks,
+              max_freq_width=tr.sa_max_freq_width)
+    layout = (tr.batch_size // 4, tr.batch_size // 2, tr.batch_size // 4)
+    audio, frames, target = train_batch(cfg, *layout)
+    mean, std = Scaler().load_state_dict(fit_scaler(flagship_frontend(device, cfg), audio, frames, device)).mean_std_f32
+
+    def adam(params):
+        return torch.optim.Adam(params, lr=tr.lr, betas=(tr.beta1, tr.beta2), eps=tr.adam_eps)
+
+    def build(dev, n_weak, n_unlabel, n_strong, packed):
+        step = steps.make_train_step(
+            slice(0, n_weak), slice(n_weak + n_unlabel, n_weak + n_unlabel + n_strong), mean_teacher=True,
+            rampup_length=10, max_consistency_cost=tr.max_consistency_cost, ema_alpha=tr.ema_alpha,
+            frontend=flagship_frontend(dev, cfg), scaler_mean=mean, scaler_std=std, noise_std=tr.noise_std,
+            spec_augment_cfg=sa)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in zip(("audio", "frames", "target"), packed)}
+        return step, batch
+
+    def on(dev, base):
+        st = steps.TrainState(copy.deepcopy(base.student).to(dev), copy.deepcopy(base.teacher).to(dev), None)
+        st.optimizer = adam(st.student.parameters())
+        return st
+
+    # step 1 at a batch of 4, card against CPU, one state and one CPU generator
+    base = steps.init_train_state(cfg.model, adam, torch.Generator().manual_seed(SEED))
+    small = train_batch(cfg, 1, 2, 1)
+    results = []
+    for dev in (device, torch.device("cpu")):
+        step, batch = build(dev, 1, 2, 1, small)
+        zero_launches()
+        t0 = time.perf_counter()
+        st, metrics, _ = step(on(dev, base), batch, torch.Generator().manual_seed(SEED + 2), step.zero_metrics(dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            check_launches(read_launches(), STEP_SCALED, 1, "scaled step 1 at batch 4")
+        results.append(({k: v.item() for k, v in metrics.items()},
+                        {n: p.grad.detach().cpu().clone() for n, p in st.student.named_parameters()}))
+        print(f"  scaled step 1, batch 4 [1|2|1], on {dev.type}: {time.perf_counter() - t0:.1f} s, "
+              + ", ".join(f"{k} {v:.5f}" for k, v in results[-1][0].items()))
+    (m_gpu, g_gpu), (m_cpu, g_cpu) = results
+    compare_metrics(1, m_gpu, {k: torch.tensor(v) for k, v in m_cpu.items()})
+    top = max(g.abs().max().item() for g in g_cpu.values())
+    worst, worst_gauge = 0.0, 0.0
+    for name, want in g_cpu.items():
+        gauge = is_gauge_leaf(name)
+        limit = SCALED_GRAD_TOL * want.abs().max().item() + (SCALED_GAUGE_FLOOR if gauge else SCALED_GRAD_FLOOR) * top
+        err = (g_gpu[name] - want).abs().max().item()
+        print(f"    {name:28s} max {want.abs().max().item():.3e}  err {err:.3e}  err/limit {err / limit:.2f}")
+        if not err <= limit:
+            raise AssertionError(f"scaled step 1, {name}: CUDA and CPU gradients differ by {err} (limit {limit})")
+        if gauge:
+            worst_gauge = max(worst_gauge, err / limit)
+        else:
+            worst = max(worst, err / limit)
+    print(f"  scaled step 1, CUDA vs CPU: loss {m_gpu['loss']:.6f} vs {m_cpu['loss']:.6f} (limit {TRAIN_TOL}); worst "
+          f"gradient leaf at {worst:.2f} of its limit ({SCALED_GRAD_TOL} of its max + {SCALED_GRAD_FLOOR} of the "
+          f"largest), worst gauge leaf at {worst_gauge:.2f} of its ({SCALED_GAUGE_FLOOR} of the largest)")
+
+    # five steps at the full batch with the generator on the card
+    step, batch = build(device, *layout, (audio, frames, target))
+    state = on(device, base)
+    generator = torch.Generator(device=device).manual_seed(SEED + 3)
+    acc = step.zero_metrics(device)
+    history, step_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics, acc = step(state, batch, generator, acc)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        history.append({k: v.item() for k, v in metrics.items()})
+        print(f"  scaled step {i + 1}: {step_ms[-1]:.2f} ms, " + ", ".join(f"{k} {v:.5f}" for k, v in history[-1].items()))
+    launches = read_launches()
+    print(f"  launches during {TRAIN_STEPS} scaled steps: {launches}")
+    check_launches(launches, STEP_SCALED, TRAIN_STEPS, f"{TRAIN_STEPS} scaled train steps")
+    if not all(np.isfinite(v) for h in history for v in h.values()):
+        raise AssertionError("a scaled training metric is not finite")
+    warm_ms = float(np.median(step_ms[1:]))
+    print(f"  scaled MT step with the generator on the card: {warm_ms:.3f} ms per step (median of steps "
+          f"2-{TRAIN_STEPS}; first step {step_ms[0]:.1f} ms) on {card}")
+    print(f"  peak device memory over the scaled steps: {torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
+    profile_step(step, state, batch, generator, acc, card, warm_ms,
+                 noise_shape=(tr.batch_size, cfg.dsp.max_frames, cfg.dsp.n_mels))
+    return {"step_scaled": launches}, warm_ms
+
+
 def compare_step1_gradients(names, want, got, what: str):
     """Every leaf within 1e-4 of its own max. The gauge leaves alone get a
     float32 noise floor of 1e-6 of the step's largest gradient on top: a conv
@@ -1374,7 +1799,7 @@ def main() -> int:
             print(f"  ptxas: {line.strip()}")
     _build.library()
 
-    print("== phase 3: kernels against their plain versions (float32, TF32 off)")
+    print("== phase 3: kernels against their plain versions (float32 with TF32 off, then bfloat16)")
     rows, helpers = phase_kernels(device)
     from dcase2019_task4_tpu_torch.ops import fused_block
 
@@ -1386,6 +1811,9 @@ def main() -> int:
     print("== phase 5: Mean-Teacher training steps")
     train_launches, step_ms = phase_train(device, card)
     launches.update(train_launches)
+    print("== phase 5, scaled configuration (bfloat16, 128 mels, 128 channels, SpecAugment)")
+    scaled_launches, scaled_ms = phase_train_scaled(device, card)
+    launches.update(scaled_launches)
 
     report = []
     for name, (src, replaces) in KERNELS.items():
@@ -1406,8 +1834,8 @@ def main() -> int:
     helpers[0]["launches"] = fused_block.dropout_mask.launches  # as counted over phases 4 and 5
     if helpers[0]["launches"] != 0:
         raise AssertionError(f"the keep-mask helper was launched {helpers[0]['launches']} times by a path")
-    print(f"  predict clips/s (warm): {clips_per_s:.2f}; MT step {step_ms:.3f} ms on {card}; "
-          f"whole script {time.perf_counter() - t_start:.0f} s")
+    print(f"  predict clips/s (warm): {clips_per_s:.2f}; MT step {step_ms:.3f} ms; scaled MT step {scaled_ms:.3f} ms "
+          f"on {card}; whole script {time.perf_counter() - t_start:.0f} s")
     print(card)
     print(json.dumps({"kernels": report, "helpers": helpers}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

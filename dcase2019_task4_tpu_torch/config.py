@@ -137,8 +137,7 @@ class ModelConfig:
     bn_eps: float = 1e-3
     bn_momentum: float = 0.99
     # compute dtype of conv/GLU ("bfloat16" | "float32"); params, BN
-    # statistics, recurrence, heads and losses stay float32. The port runs
-    # float32 only so far.
+    # statistics, recurrence, heads and losses stay float32
     compute_dtype: str = "float32"
     # fused BN→GLU→dropout→pool block (ops/fused_block.py):
     # True | False | None = auto (on with GLU)
@@ -150,7 +149,8 @@ class ModelConfig:
     # fused block). In order of precedence: the whole first block as fused
     # kernels, under either name (crows: F = 64, time pool 2, even batch;
     # pallas: any geometry the fused block takes), then the entry conv
-    # kernel that hands its Σy, Σy² to the fused block. Float32 only.
+    # kernel that hands its Σy, Σy² to the fused block. Float32 only: a
+    # bfloat16 model with one of them raises NotImplementedError.
     entry_conv_pallas: bool = False
     entry_block_pallas: bool = False
     entry_block_crows: bool = False
@@ -222,7 +222,7 @@ class Config:
 def scaled_config() -> "Config":
     """The scaled throughput/quality config (BASELINE.json config 5):
     128 mel bins, 128-channel convs, 128-cell BiGRU, SpecAugment on the
-    student features, bf16 compute. The port does not run it yet."""
+    student features, bf16 compute."""
     return Config(
         dsp=DSPConfig(n_mels=128),
         model=ModelConfig(

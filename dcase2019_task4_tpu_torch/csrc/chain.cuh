@@ -33,17 +33,23 @@ __device__ __forceinline__ uint4 philox4x32_10(unsigned long long counter,
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-// Multiply four neighbouring channels starting at tile element `e` (a
-// multiple of 4; C % 4 == 0) by keep-mask * keep_scale.
-__device__ __forceinline__ void mask4(float* xs, int CP, int C, int e, long long tile_base,
-                                      unsigned long long seed, uint32_t threshold,
-                                      float keep_scale) {
-  const uint4 r = philox4x32_10((unsigned long long)(tile_base + e) >> 2, seed);
-  float* px = xs + (e / C) * CP + (e % C);
+// Multiply the four values at px (neighbouring channels whose first has the
+// global element index `element`, a multiple of 4) by keep-mask * keep_scale.
+__device__ __forceinline__ void mask4_at(float* px, long long element, unsigned long long seed,
+                                         uint32_t threshold, float keep_scale) {
+  const uint4 r = philox4x32_10((unsigned long long)element >> 2, seed);
   px[0] *= r.x >= threshold ? keep_scale : 0.0f;
   px[1] *= r.y >= threshold ? keep_scale : 0.0f;
   px[2] *= r.z >= threshold ? keep_scale : 0.0f;
   px[3] *= r.w >= threshold ? keep_scale : 0.0f;
+}
+
+// The same for tile element `e` (a multiple of 4; C % 4 == 0) of a tile that
+// is one contiguous run of the activation starting at element `tile_base`.
+__device__ __forceinline__ void mask4(float* xs, int CP, int C, int e, long long tile_base,
+                                      unsigned long long seed, uint32_t threshold,
+                                      float keep_scale) {
+  mask4_at(xs + (e / C) * CP + (e % C), tile_base + e, seed, threshold, keep_scale);
 }
 
 }  // namespace

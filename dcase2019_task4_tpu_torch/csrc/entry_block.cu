@@ -863,7 +863,7 @@ extern "C" {
 
 // x: [B, T, F]; w: [3, 3, 1, C]; cb: [C]; y: [B, T, F, C] (unused in mode 1);
 // partials: [slots, 2C] float64 scratch, slots = B * ceil(tiles /
-// tiles_per_block) with tiles = dcase_bn_glu_pool_tiles(T, F, 1); sums: [2, C]
+// tiles_per_block) with tiles = dcase_bn_glu_pool_tiles(T, F, 1, 1); sums: [2, C]
 // float32 = sum y | sum y^2. F <= 128, C % 4 == 0, C <= 128
 // (ops/entry_conv.py:entry_conv_packable). mode: 0 full, 1 sums only, 2 one
 // tap, 3 bias write only.
@@ -904,7 +904,7 @@ int dcase_entry_conv_wgrad(const void* x, const void* dy, void* partials, void* 
 // glu_w: [C, C] (in, out); out: [B, T/pt, F/pf, C]; float32, contiguous.
 // T % pt == 0, F % pf == 0, pt * F <= 128, C % 4 == 0, C <= 128
 // (ops/fused_entry_block.py:entry_block_applicable); tiles =
-// dcase_bn_glu_pool_tiles(T, F, pt). seed, threshold, keep_scale as in
+// dcase_bn_glu_pool_tiles(T, F, pt, pf). seed, threshold, keep_scale as in
 // dcase_bn_glu_pool.
 int dcase_entry_block_fwd(const void* x, const void* cw, const void* cb, const void* scale,
                           const void* bias, const void* mean, const void* var,

@@ -1,5 +1,6 @@
 // K2: BatchNorm -> GLU -> dropout -> average pool, forward and backward, and
-// the per-channel batch statistics, fused, float32, for Hopper (sm_90a).
+// the per-channel batch statistics, fused, on float32 or bfloat16
+// activations, for Hopper (sm_90a).
 //
 // Replaces the Pallas kernels of dcase2019_task4_tpu/ops/fused_block.py:
 //   bn_glu_pool_kernel       _fwd_kernel (via _fwd_pallas), eval and train
@@ -32,6 +33,9 @@
 // regenerates it bit for bit. The seed is read from device memory, so the
 // host never has to know it.
 //
+// At C = 128 the forward's shared memory is 134 KB (one block an SM) and the
+// backward's 212 KB.
+//
 // Bound: at block 1 of the flagship shape (y = [24, 864, 64, 64], 340 MB)
 // the forward reads y once (0.10 ms at 3.35 TB/s) and its 64x64 channel mix
 // is 10.9 GFLOP (0.16 ms at the 67 TFLOP/s FP32 peak of the CUDA cores), so
@@ -40,10 +44,24 @@
 // 340 MB in and 340 MB out (0.20 ms): operations bind it too. The fixup and
 // the statistics are pure streams (1019 MB and 340 MB).
 //
-// Design: one block per (run of pixel tiles, clip). A pixel tile is a whole
-// number of pooling rows (pt time rows x F) holding up to 128 pixels; the
-// tiles of a block are consecutive in time, so the block loads W and the
-// per-channel vectors into shared memory once. Forward, per tile: read the
+// Element type: every kernel is instantiated for float32 and for bfloat16
+// y (the model's compute dtype). In bfloat16 the arithmetic stays float32
+// and rounds where the JAX kernels round (_chain_fwd, _pool_mxu,
+// _recompute_dxn, _bwd_reduce_kernel with lp): xn and W enter the GLU
+// product as bfloat16 (the sigmoid and the gate take the float32 xn); each
+// window's pt-row time sum is rounded to bfloat16 before the frequency sum;
+// dlin and W enter dxn = dlin . W^T, and xn and dlin enter dW, as bfloat16
+// (db sums the float32 dlin); the pooled output, dy_partial and dy are
+// stored in bfloat16; dW, db, S1, S2 and the statistics stay float32.
+// Shared memory holds float32 in both modes.
+//
+// Design: one block per (run of pixel tiles, clip). A pixel tile holds up to
+// 128 pixels in whole pooling windows: whole pooling rows (pt time rows x F)
+// where pt * F <= 128, else pt time rows x the most whole windows that fit
+// (at 128 mels and pool (2, 4): 2 x 64). The dropout mask is keyed on the
+// global element index, so the tiling does not change it. The tiles of a
+// block are consecutive (frequency segments within a row pair, then time),
+// so the block loads W and the per-channel vectors into shared memory once. Forward, per tile: read the
 // slab once, normalise it into shared memory (pixel stride C + 1 against
 // bank conflicts), mix channels with each thread holding 8 pixels x 4
 // channels (8 when C > 64) in registers, gate, write g back over the slab,
@@ -63,7 +81,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "chain.cuh"
+#include "dtype.cuh"
 #include "fold.cuh"
 
 namespace {
@@ -71,25 +92,69 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kPix = 128;  // pixels per tile
 
-// Time rows per tile: whole pooling rows, up to kPix pixels (pt * F <= kPix).
-int rows_per_tile(int F, int pt) { return pt * (kPix / (pt * F)); }
+// A pixel tile: `rows` time rows (a multiple of pt) x `cols` frequency columns
+// (a multiple of pf), at most kPix pixels; pt * pf <= kPix.
+struct Tile {
+  int rows, cols;
+};
+
+__host__ __device__ inline Tile tile_of(int F, int pt, int pf) {
+  if (pt * F <= kPix) return {pt * (kPix / (pt * F)), F};  // whole pooling rows
+  return {pt, pf * (kPix / (pt * pf))};                    // whole windows of one row pair
+}
+
+__host__ __device__ inline int tiles_per_clip(int T, int F, int pt, int pf) {
+  const Tile tl = tile_of(F, pt, pf);
+  return ((T + tl.rows - 1) / tl.rows) * ((F + tl.cols - 1) / tl.cols);
+}
+
+// Where tile `tile` of clip b sits: its first time row t0 and frequency
+// column f0, its size, and the global pixel index of its pixel p.
+struct TilePos {
+  int t0, f0, trows, fcols;
+  long long row0;  // b * T + t0
+  int F;
+  __device__ __forceinline__ long long pixel(int p) const {
+    return fcols == F ? row0 * F + p : (row0 + p / fcols) * F + f0 + p % fcols;
+  }
+};
+
+__device__ __forceinline__ TilePos tile_pos(int tile, int b, int T, int F, Tile tl) {
+  const int n_ft = (F + tl.cols - 1) / tl.cols;
+  TilePos tp;
+  tp.t0 = (tile / n_ft) * tl.rows;
+  tp.f0 = (tile % n_ft) * tl.cols;
+  tp.trows = min(tl.rows, T - tp.t0);  // a multiple of pt (T % pt == 0)
+  tp.fcols = min(tl.cols, F - tp.f0);  // a multiple of pf (F % pf == 0)
+  tp.row0 = (long long)b * T + tp.t0;
+  tp.F = F;
+  return tp;
+}
+
+// An operand of a channel product: bfloat16-rounded in the bfloat16 mode.
+template <typename TY>
+__device__ __forceinline__ float operand(float v) {
+  if constexpr (std::is_same<TY, float>::value) return v;
+  else return rounded<TY>(v);
+}
 
 // ------------------------------------------------------------------ forward
 
 // NJ: output channels per thread / 16 (C <= 16 * NJ).
-template <int NJ>
+template <int NJ, typename TY>
 __global__ void __launch_bounds__(kThreads)
-bn_glu_pool_kernel(const float* __restrict__ y, const float* __restrict__ scale,
+bn_glu_pool_kernel(const TY* __restrict__ y, const float* __restrict__ scale,
                    const float* __restrict__ bias, const float* __restrict__ mean,
                    const float* __restrict__ var, const float* __restrict__ glu_w,
-                   const float* __restrict__ glu_b, float* __restrict__ out, int T,
-                   int F, int C, int pt, int pf, float eps, int rows,
+                   const float* __restrict__ glu_b, TY* __restrict__ out, int T,
+                   int F, int C, int pt, int pf, float eps, Tile tl,
                    int tiles_per_block, const long long* __restrict__ seed_ptr,
                    uint32_t threshold, float keep_scale) {
+  constexpr bool kLow = !std::is_same<TY, float>::value;
   extern __shared__ float smem[];
   const int CP = C + 1;
   float* xs = smem;              // [kPix][CP]: xn, then g
-  float* ws = xs + kPix * CP;    // [C][C] (in, out)
+  float* ws = xs + kPix * CP;    // [C][C] (in, out), as product operands
   float* s_scale = ws + C * C;   // [C] each
   float* s_bias = s_scale + C;
   float* s_mean = s_bias + C;
@@ -100,7 +165,7 @@ bn_glu_pool_kernel(const float* __restrict__ y, const float* __restrict__ scale,
   const int b = blockIdx.y;
   const bool drop = threshold != 0u;
   const unsigned long long seed = drop ? (unsigned long long)seed_ptr[0] : 0ull;
-  for (int i = tid; i < C * C; i += kThreads) ws[i] = glu_w[i];
+  for (int i = tid; i < C * C; i += kThreads) ws[i] = operand<TY>(glu_w[i]);
   for (int c = tid; c < C; c += kThreads) {
     s_scale[c] = scale[c];
     s_bias[c] = bias[c];
@@ -111,22 +176,20 @@ bn_glu_pool_kernel(const float* __restrict__ y, const float* __restrict__ scale,
 
   const int cg = tid % 16, pg = tid / 16;
   const int Tp = T / pt, Fp = F / pf;
-  const int n_tiles = (T + rows - 1) / rows;
+  const int n_tiles = tiles_per_clip(T, F, pt, pf);
   const int first = blockIdx.x * tiles_per_block;
   const int last = min(n_tiles, first + tiles_per_block);
   const float inv_win = 1.0f / (float)(pt * pf);
 
   for (int tile = first; tile < last; ++tile) {
-    const int t0 = tile * rows;
-    const int trows = min(rows, T - t0);  // a multiple of pt (T % pt == 0)
-    const int tpix = trows * F;
-    const long long tile_base = ((long long)b * T + t0) * F * C;
-    const float* yt = y + tile_base;
+    const TilePos tp = tile_pos(tile, b, T, F, tl);
+    const int tpix = tp.trows * tp.fcols;
 
     __syncthreads();  // weights staged / previous tile's pool read done
     for (int i = tid; i < tpix * C; i += kThreads) {
       const int p = i / C, c = i % C;
-      xs[p * CP + c] = (yt[i] - s_mean[c]) * s_inv[c] * s_scale[c] + s_bias[c];
+      const float v = to_float(y[tp.pixel(p) * C + c]);
+      xs[p * CP + c] = (v - s_mean[c]) * s_inv[c] * s_scale[c] + s_bias[c];
     }
     __syncthreads();
 
@@ -138,7 +201,7 @@ bn_glu_pool_kernel(const float* __restrict__ y, const float* __restrict__ scale,
     for (int ci = 0; ci < C; ++ci) {
       float a[8], wv[NJ];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = xs[(pg + 16 * i) * CP + ci];
+      for (int i = 0; i < 8; ++i) a[i] = operand<TY>(xs[(pg + 16 * i) * CP + ci]);
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int co = cg + 16 * j;
@@ -171,20 +234,33 @@ bn_glu_pool_kernel(const float* __restrict__ y, const float* __restrict__ scale,
       }
     __syncthreads();
     if (drop) {
-      for (int e = 4 * tid; e < tpix * C; e += 4 * kThreads)
-        mask4(xs, CP, C, e, tile_base, seed, threshold, keep_scale);
+      for (int e = 4 * tid; e < tpix * C; e += 4 * kThreads) {
+        const int p = e / C, c = e % C;
+        mask4_at(xs + p * CP + c, tp.pixel(p) * C + c, seed, threshold, keep_scale);
+      }
       __syncthreads();
     }
 
-    const int n_out = (trows / pt) * Fp * C;
+    const int wcols = tp.fcols / pf;
+    const int n_out = (tp.trows / pt) * wcols * C;
     for (int o = tid; o < n_out; o += kThreads) {
       const int c = o % C, win = o / C;
-      const int wf = win % Fp, wt = win / Fp;
+      const int wf = win % wcols, wt = win / wcols;
       float s = 0.0f;
-      for (int dt = 0; dt < pt; ++dt)
-        for (int df = 0; df < pf; ++df)
-          s += xs[((wt * pt + dt) * F + wf * pf + df) * CP + c];
-      out[(((long long)b * Tp + t0 / pt + wt) * Fp + wf) * C + c] = s * inv_win;
+      if constexpr (kLow) {
+        // each column's pt-row time sum rounds to bfloat16 before the frequency sum
+        for (int df = 0; df < pf; ++df) {
+          float st = 0.0f;
+          for (int dt = 0; dt < pt; ++dt) st += xs[((wt * pt + dt) * tp.fcols + wf * pf + df) * CP + c];
+          s += rounded<TY>(st);
+        }
+      } else {
+        for (int dt = 0; dt < pt; ++dt)
+          for (int df = 0; df < pf; ++df)
+            s += xs[((wt * pt + dt) * tp.fcols + wf * pf + df) * CP + c];
+      }
+      out[(((long long)b * Tp + tp.t0 / pt + wt) * Fp + tp.f0 / pf + wf) * C + c] =
+          from_float<TY>(s * inv_win);
     }
   }
 }
@@ -192,21 +268,21 @@ bn_glu_pool_kernel(const float* __restrict__ y, const float* __restrict__ scale,
 // ----------------------------------------------------------------- backward
 
 // Workspace slot of a block: [C*C dW | C db | C S1 | C S2].
-template <int NJ>
+template <int NJ, typename TY>
 __global__ void __launch_bounds__(kThreads)
-bn_glu_pool_bwd_kernel(const float* __restrict__ y, const float* __restrict__ dout,
+bn_glu_pool_bwd_kernel(const TY* __restrict__ y, const TY* __restrict__ dout,
                        const float* __restrict__ scale, const float* __restrict__ bias,
                        const float* __restrict__ mean, const float* __restrict__ var,
                        const float* __restrict__ glu_w, const float* __restrict__ glu_b,
-                       float* __restrict__ dyp, float* __restrict__ partials, int T, int F,
-                       int C, int pt, int pf, float eps, int rows, int tiles_per_block,
+                       TY* __restrict__ dyp, float* __restrict__ partials, int T, int F,
+                       int C, int pt, int pf, float eps, Tile tl, int tiles_per_block,
                        const long long* __restrict__ seed_ptr, uint32_t threshold,
                        float keep_scale) {
   extern __shared__ float smem[];
   const int CP = C + 1;
   float* xs = smem;               // [kPix][CP]: xn
   float* ds = xs + kPix * CP;     // [kPix][CP]: dh, then dlin
-  float* ws = ds + kPix * CP;     // [C][CP] (in, out), rows padded
+  float* ws = ds + kPix * CP;     // [C][CP] (in, out), rows padded, as product operands
   float* s_scale = ws + C * CP;   // [C] each
   float* s_bias = s_scale + C;
   float* s_mean = s_bias + C;
@@ -218,7 +294,7 @@ bn_glu_pool_bwd_kernel(const float* __restrict__ y, const float* __restrict__ do
   const int b = blockIdx.y;
   const bool drop = threshold != 0u;
   const unsigned long long seed = drop ? (unsigned long long)seed_ptr[0] : 0ull;
-  for (int i = tid; i < C * C; i += kThreads) ws[(i / C) * CP + i % C] = glu_w[i];
+  for (int i = tid; i < C * C; i += kThreads) ws[(i / C) * CP + i % C] = operand<TY>(glu_w[i]);
   for (int c = tid; c < C; c += kThreads) {
     s_scale[c] = scale[c];
     s_bias[c] = bias[c];
@@ -229,7 +305,7 @@ bn_glu_pool_bwd_kernel(const float* __restrict__ y, const float* __restrict__ do
 
   const int cg = tid % 16, pg = tid / 16;
   const int Tp = T / pt, Fp = F / pf;
-  const int n_tiles = (T + rows - 1) / rows;
+  const int n_tiles = tiles_per_clip(T, F, pt, pf);
   const int first = blockIdx.x * tiles_per_block;
   const int last = min(n_tiles, first + tiles_per_block);
   const float inv_win = 1.0f / (float)(pt * pf);
@@ -245,28 +321,28 @@ bn_glu_pool_bwd_kernel(const float* __restrict__ y, const float* __restrict__ do
   }
 
   for (int tile = first; tile < last; ++tile) {
-    const int t0 = tile * rows;
-    const int trows = min(rows, T - t0);
-    const int tpix = trows * F;
-    const long long tile_base = ((long long)b * T + t0) * F * C;
-    const float* yt = y + tile_base;
+    const TilePos tp = tile_pos(tile, b, T, F, tl);
+    const int tpix = tp.trows * tp.fcols;
 
     __syncthreads();  // constants staged / previous tile's products done
     for (int i = tid; i < kPix * C; i += kThreads) {
       const int p = i / C, c = i % C;
       float xn = 0.0f, dh = 0.0f;
       if (p < tpix) {
-        xn = (yt[i] - s_mean[c]) * s_inv[c] * s_scale[c] + s_bias[c];
-        const int t = p / F, f = p % F;
-        dh = dout[(((long long)b * Tp + (t0 + t) / pt) * Fp + f / pf) * C + c] * inv_win;
+        xn = (to_float(y[tp.pixel(p) * C + c]) - s_mean[c]) * s_inv[c] * s_scale[c] + s_bias[c];
+        const int t = p / tp.fcols, f = p % tp.fcols;
+        dh = to_float(dout[(((long long)b * Tp + (tp.t0 + t) / pt) * Fp + (tp.f0 + f) / pf) * C + c]) *
+             inv_win;
       }
       xs[p * CP + c] = xn;
       ds[p * CP + c] = dh;
     }
     __syncthreads();
     if (drop) {
-      for (int e = 4 * tid; e < tpix * C; e += 4 * kThreads)
-        mask4(ds, CP, C, e, tile_base, seed, threshold, keep_scale);
+      for (int e = 4 * tid; e < tpix * C; e += 4 * kThreads) {
+        const int p = e / C, c = e % C;
+        mask4_at(ds + p * CP + c, tp.pixel(p) * C + c, seed, threshold, keep_scale);
+      }
     }
 
     // lin = xn . W + b (reads xs and ws only: no barrier needed before it)
@@ -278,7 +354,7 @@ bn_glu_pool_bwd_kernel(const float* __restrict__ y, const float* __restrict__ do
     for (int ci = 0; ci < C; ++ci) {
       float a[8], wv[NJ];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = xs[(pg + 16 * i) * CP + ci];
+      for (int i = 0; i < 8; ++i) a[i] = operand<TY>(xs[(pg + 16 * i) * CP + ci]);
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int co = cg + 16 * j;
@@ -311,7 +387,7 @@ bn_glu_pool_bwd_kernel(const float* __restrict__ y, const float* __restrict__ do
     for (int co = 0; co < C; ++co) {
       float a[8], wv[NJ];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = ds[(pg + 16 * i) * CP + co];
+      for (int i = 0; i < 8; ++i) a[i] = operand<TY>(ds[(pg + 16 * i) * CP + co]);
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int ci = cg + 16 * j;
@@ -326,32 +402,36 @@ bn_glu_pool_bwd_kernel(const float* __restrict__ y, const float* __restrict__ do
     for (int i = 0; i < 8; ++i) {
       const int p = pg + 16 * i;
       if (p >= tpix) continue;
+      const long long px = tp.pixel(p) * C;
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int c = cg + 16 * j;
         if (c >= C) continue;
         const float dxn = acc[i][j];
-        const float xh = (yt[p * C + c] - s_mean[c]) * s_inv[c];
+        const float xh = (to_float(y[px + c]) - s_mean[c]) * s_inv[c];
         s1[j] += dxn;
         s2[j] = fmaf(dxn, xh, s2[j]);
-        dyp[tile_base + (long long)p * C + c] = s_inv[c] * s_scale[c] * dxn;
+        dyp[px + c] = from_float<TY>(s_inv[c] * s_scale[c] * dxn);
       }
     }
 
     // dW += xn^T . dlin, db += sum dlin; thread holds (ci = pg + 16 i, co = cg + 16 j)
     for (int p = 0; p < tpix; ++p) {
-      float xv[NJ], dv[NJ];
+      float xv[NJ], dv[NJ], dr[NJ];
 #pragma unroll
-      for (int i = 0; i < NJ; ++i) xv[i] = xs[p * CP + ((pg + 16 * i) < C ? pg + 16 * i : 0)];
+      for (int i = 0; i < NJ; ++i) xv[i] = operand<TY>(xs[p * CP + ((pg + 16 * i) < C ? pg + 16 * i : 0)]);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) dv[j] = ds[p * CP + ((cg + 16 * j) < C ? cg + 16 * j : 0)];
+      for (int j = 0; j < NJ; ++j) {
+        dr[j] = ds[p * CP + ((cg + 16 * j) < C ? cg + 16 * j : 0)];
+        dv[j] = operand<TY>(dr[j]);
+      }
 #pragma unroll
       for (int i = 0; i < NJ; ++i)
 #pragma unroll
         for (int j = 0; j < NJ; ++j) dw[i][j] = fmaf(xv[i], dv[j], dw[i][j]);
       if (pg == 0) {
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) dbv[j] += dv[j];
+        for (int j = 0; j < NJ; ++j) dbv[j] += dr[j];
       }
     }
   }
@@ -389,20 +469,21 @@ bn_glu_pool_bwd_kernel(const float* __restrict__ y, const float* __restrict__ do
 }
 
 // dy = dy_partial - a - (y - mean) * b, in place over dy_partial (C % 4 == 0).
+template <typename TY>
 __global__ void __launch_bounds__(kThreads)
-bn_bwd_fixup_kernel(const float4* __restrict__ y, float4* dyp, const float* __restrict__ a,
+bn_bwd_fixup_kernel(const TY* __restrict__ y, TY* dyp, const float* __restrict__ a,
                     const float* __restrict__ b, const float* __restrict__ mean,
                     long long n4, int C) {
   const long long stride = (long long)gridDim.x * kThreads;
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n4; i += stride) {
     const int c = (int)((i * 4) % C);
-    const float4 yv = y[i];
-    float4 d = dyp[i];
+    const float4 yv = Vec4<TY>::load(y + 4 * i);
+    float4 d = Vec4<TY>::load(dyp + 4 * i);
     d.x = d.x - a[c] - (yv.x - mean[c]) * b[c];
     d.y = d.y - a[c + 1] - (yv.y - mean[c + 1]) * b[c + 1];
     d.z = d.z - a[c + 2] - (yv.z - mean[c + 2]) * b[c + 2];
     d.w = d.w - a[c + 3] - (yv.w - mean[c + 3]) * b[c + 3];
-    dyp[i] = d;
+    Vec4<TY>::store(dyp + 4 * i, d);
   }
 }
 
@@ -411,8 +492,9 @@ bn_bwd_fixup_kernel(const float4* __restrict__ y, float4* dyp, const float* __re
 // Block `blockIdx.x` sums rows [r0, r1) of y [rows, C] per channel in double
 // and writes [C sums | C sums of squares] to its slot. A thread owns four
 // neighbouring channels of every (kThreads / (C / 4))-th row (C % 4 == 0).
+template <typename TY>
 __global__ void __launch_bounds__(kThreads)
-stats_kernel(const float4* __restrict__ y, double* __restrict__ partials, long long rows,
+stats_kernel(const TY* __restrict__ y, double* __restrict__ partials, long long rows,
              int C, long long rows_per_block) {
   extern __shared__ double dred[];  // [groups][2 * C]
   const int lanes = C / 4;
@@ -423,7 +505,7 @@ stats_kernel(const float4* __restrict__ y, double* __restrict__ partials, long l
   double s[4] = {0.0, 0.0, 0.0, 0.0}, q[4] = {0.0, 0.0, 0.0, 0.0};
   if (grp < groups) {
     for (long long r = r0 + grp; r < r1; r += groups) {
-      const float4 v = y[r * lanes + lane];
+      const float4 v = Vec4<TY>::load(y + (r * lanes + lane) * 4);
       s[0] += v.x; q[0] += (double)v.x * v.x;
       s[1] += v.y; q[1] += (double)v.y * v.y;
       s[2] += v.z; q[2] += (double)v.z * v.z;
@@ -452,147 +534,160 @@ size_t bwd_smem(int C, int NJ) {
                           (size_t)16 * 2 * 16 * NJ);
 }
 
-template <int NJ>
-int launch_fwd(const float* y, const float* scale, const float* bias, const float* mean,
-               const float* var, const float* glu_w, const float* glu_b, float* out, int B,
-               int T, int F, int C, int pt, int pf, float eps, int tiles_per_block,
-               const long long* seed, uint32_t threshold, float keep_scale,
-               cudaStream_t stream) {
-  const size_t smem = fwd_smem(C);
-  cudaError_t err = cudaFuncSetAttribute(bn_glu_pool_kernel<NJ>,
+// Arguments shared by the forward and the first backward pass.
+struct BlockArgs {
+  const void* y;
+  const float *scale, *bias, *mean, *var, *glu_w, *glu_b;
+  int B, T, F, C, pt, pf;
+  float eps;
+  int tiles_per_block;
+  const long long* seed;
+  uint32_t threshold;
+  float keep_scale;
+};
+
+dim3 block_grid(const BlockArgs& a) {
+  const int n_tiles = tiles_per_clip(a.T, a.F, a.pt, a.pf);
+  return dim3((n_tiles + a.tiles_per_block - 1) / a.tiles_per_block, a.B);
+}
+
+template <int NJ, typename TY>
+int launch_fwd(const BlockArgs& a, void* out, cudaStream_t stream) {
+  const size_t smem = fwd_smem(a.C);
+  cudaError_t err = cudaFuncSetAttribute(bn_glu_pool_kernel<NJ, TY>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int rows = rows_per_tile(F, pt);
-  const int n_tiles = (T + rows - 1) / rows;
-  const dim3 grid((n_tiles + tiles_per_block - 1) / tiles_per_block, B);
-  bn_glu_pool_kernel<NJ><<<grid, kThreads, smem, stream>>>(
-      y, scale, bias, mean, var, glu_w, glu_b, out, T, F, C, pt, pf, eps, rows,
-      tiles_per_block, seed, threshold, keep_scale);
+  bn_glu_pool_kernel<NJ, TY><<<block_grid(a), kThreads, smem, stream>>>(
+      static_cast<const TY*>(a.y), a.scale, a.bias, a.mean, a.var, a.glu_w, a.glu_b,
+      static_cast<TY*>(out), a.T, a.F, a.C, a.pt, a.pf, a.eps, tile_of(a.F, a.pt, a.pf),
+      a.tiles_per_block, a.seed, a.threshold, a.keep_scale);
   return (int)cudaGetLastError();
 }
 
-template <int NJ>
-int launch_bwd(const float* y, const float* dout, const float* scale, const float* bias,
-               const float* mean, const float* var, const float* glu_w, const float* glu_b,
-               float* dyp, float* partials, float* sums, int B, int T, int F, int C, int pt,
-               int pf, float eps, int tiles_per_block, const long long* seed,
-               uint32_t threshold, float keep_scale, cudaStream_t stream) {
-  const size_t smem = bwd_smem(C, NJ);
-  cudaError_t err = cudaFuncSetAttribute(bn_glu_pool_bwd_kernel<NJ>,
+template <int NJ, typename TY>
+int launch_bwd(const BlockArgs& a, const void* dout, void* dyp, float* partials, float* sums,
+               cudaStream_t stream) {
+  const size_t smem = bwd_smem(a.C, NJ);
+  cudaError_t err = cudaFuncSetAttribute(bn_glu_pool_bwd_kernel<NJ, TY>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int rows = rows_per_tile(F, pt);
-  const int n_tiles = (T + rows - 1) / rows;
-  const dim3 grid((n_tiles + tiles_per_block - 1) / tiles_per_block, B);
-  bn_glu_pool_bwd_kernel<NJ><<<grid, kThreads, smem, stream>>>(
-      y, dout, scale, bias, mean, var, glu_w, glu_b, dyp, partials, T, F, C, pt, pf, eps,
-      rows, tiles_per_block, seed, threshold, keep_scale);
+  const dim3 grid = block_grid(a);
+  bn_glu_pool_bwd_kernel<NJ, TY><<<grid, kThreads, smem, stream>>>(
+      static_cast<const TY*>(a.y), static_cast<const TY*>(dout), a.scale, a.bias, a.mean, a.var,
+      a.glu_w, a.glu_b, static_cast<TY*>(dyp), partials, a.T, a.F, a.C, a.pt, a.pf, a.eps,
+      tile_of(a.F, a.pt, a.pf), a.tiles_per_block, a.seed, a.threshold, a.keep_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_fold<float>(partials, sums, (int)(grid.x * grid.y), C * C + 3 * C, stream);
+  return (int)launch_fold<float>(partials, sums, (int)(grid.x * grid.y), a.C * a.C + 3 * a.C, stream);
+}
+
+template <typename TY>
+int launch_stats(const void* y, void* partials, void* out, long long rows, int C, int blocks,
+                 cudaStream_t st) {
+  const int groups = kThreads / (C / 4);
+  const size_t smem = sizeof(double) * (size_t)groups * 2 * C;
+  cudaError_t err = cudaFuncSetAttribute(
+      stats_kernel<TY>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long rows_per_block = (rows + blocks - 1) / blocks;
+  stats_kernel<TY><<<blocks, kThreads, smem, st>>>(static_cast<const TY*>(y),
+                                                   static_cast<double*>(partials), rows, C,
+                                                   rows_per_block);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_fold<double>(static_cast<const double*>(partials),
+                                  static_cast<float*>(out), blocks, 2 * C, st);
+}
+
+template <typename TY>
+int launch_fixup(const void* y, void* dyp, const void* a, const void* b, const void* mean,
+                 long long n, int C, cudaStream_t st) {
+  const long long n4 = n / 4;
+  long long blocks = (n4 + kThreads - 1) / kThreads;
+  if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride beyond 16 blocks per SM
+  if (blocks < 1) blocks = 1;
+  bn_bwd_fixup_kernel<TY><<<(int)blocks, kThreads, 0, st>>>(
+      static_cast<const TY*>(y), static_cast<TY*>(dyp), static_cast<const float*>(a),
+      static_cast<const float*>(b), static_cast<const float*>(mean), n4, C);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Pixel tiles per clip (the wrapper sizes tiles_per_block from it).
-int dcase_bn_glu_pool_tiles(int T, int F, int pt) {
-  const int rows = rows_per_tile(F, pt);
-  return (T + rows - 1) / rows;
-}
+// Pixel tiles per clip of the fused-block kernels (the wrapper sizes
+// tiles_per_block from it), and of the entry-block kernels (entry_block.cu),
+// which tile whole pooling rows: their gates keep pt * F <= 128, where the
+// two tilings are one.
+int dcase_bn_glu_pool_tiles(int T, int F, int pt, int pf) { return tiles_per_clip(T, F, pt, pf); }
 
 // y: [B, T, F, C]; scale, bias, mean, var, glu_b: [C]; glu_w: [C, C] (in,
-// out); out: [B, T/pt, F/pf, C]; all float32, contiguous. T % pt == 0,
-// F % pf == 0, pt * F <= 128, C <= 128, C % 4 == 0
-// (ops/fused_block.py:applicable). seed: one int64 in device memory;
-// threshold 0 means no dropout, else keep iff bits >= threshold and scale the
-// kept by keep_scale.
+// out); out: [B, T/pt, F/pf, C]; contiguous; y and out float32, or
+// bfloat16 when bf16 != 0, the rest float32. T % pt == 0, F % pf == 0,
+// pt * pf <= 128, C <= 128, C % 4 == 0 (ops/fused_block.py:applicable).
+// seed: one int64 in device memory; threshold 0 means no dropout, else keep
+// iff bits >= threshold and scale the kept by keep_scale.
 int dcase_bn_glu_pool(const void* y, const void* scale, const void* bias, const void* mean,
                       const void* var, const void* glu_w, const void* glu_b, void* out,
                       int B, int T, int F, int C, int pt, int pf, float eps,
                       const void* seed, unsigned int threshold, float keep_scale,
-                      int tiles_per_block, void* stream) {
-  const auto* yp = static_cast<const float*>(y);
-  const auto* sc = static_cast<const float*>(scale);
-  const auto* bi = static_cast<const float*>(bias);
-  const auto* mu = static_cast<const float*>(mean);
-  const auto* va = static_cast<const float*>(var);
-  const auto* gw = static_cast<const float*>(glu_w);
-  const auto* gb = static_cast<const float*>(glu_b);
-  const auto* sd = static_cast<const long long*>(seed);
-  auto* o = static_cast<float*>(out);
+                      int tiles_per_block, int bf16, void* stream) {
+  const BlockArgs a{y, static_cast<const float*>(scale), static_cast<const float*>(bias),
+                    static_cast<const float*>(mean), static_cast<const float*>(var),
+                    static_cast<const float*>(glu_w), static_cast<const float*>(glu_b),
+                    B, T, F, C, pt, pf, eps, tiles_per_block,
+                    static_cast<const long long*>(seed), threshold, keep_scale};
   auto st = static_cast<cudaStream_t>(stream);
-  if (C <= 64)
-    return launch_fwd<4>(yp, sc, bi, mu, va, gw, gb, o, B, T, F, C, pt, pf, eps,
-                         tiles_per_block, sd, threshold, keep_scale, st);
-  return launch_fwd<8>(yp, sc, bi, mu, va, gw, gb, o, B, T, F, C, pt, pf, eps,
-                       tiles_per_block, sd, threshold, keep_scale, st);
+  if (bf16)
+    return C <= 64 ? launch_fwd<4, __nv_bfloat16>(a, out, st) : launch_fwd<8, __nv_bfloat16>(a, out, st);
+  return C <= 64 ? launch_fwd<4, float>(a, out, st) : launch_fwd<8, float>(a, out, st);
 }
 
-// First backward pass. dout: [B, T/pt, F/pf, C]; dyp: [B, T, F, C];
-// partials: [slots, C*C + 3C] with slots = B * ceil(tiles / tiles_per_block);
-// sums: [C*C + 3C] = dW | db | S1 | S2, folded from the slots in slot order.
+// First backward pass. dout: [B, T/pt, F/pf, C]; dyp: [B, T, F, C] (both in
+// y's dtype); partials: [slots, C*C + 3C] float32 with slots = B *
+// ceil(tiles / tiles_per_block); sums: [C*C + 3C] float32 = dW | db | S1 |
+// S2, folded from the slots in slot order.
 int dcase_bn_glu_pool_bwd(const void* y, const void* dout, const void* scale,
                           const void* bias, const void* mean, const void* var,
                           const void* glu_w, const void* glu_b, void* dyp, void* partials,
                           void* sums, int B, int T, int F, int C, int pt, int pf, float eps,
                           const void* seed, unsigned int threshold, float keep_scale,
-                          int tiles_per_block, void* stream) {
-  const auto* yp = static_cast<const float*>(y);
-  const auto* dp = static_cast<const float*>(dout);
-  const auto* sc = static_cast<const float*>(scale);
-  const auto* bi = static_cast<const float*>(bias);
-  const auto* mu = static_cast<const float*>(mean);
-  const auto* va = static_cast<const float*>(var);
-  const auto* gw = static_cast<const float*>(glu_w);
-  const auto* gb = static_cast<const float*>(glu_b);
-  const auto* sd = static_cast<const long long*>(seed);
-  auto* dy = static_cast<float*>(dyp);
+                          int tiles_per_block, int bf16, void* stream) {
+  const BlockArgs a{y, static_cast<const float*>(scale), static_cast<const float*>(bias),
+                    static_cast<const float*>(mean), static_cast<const float*>(var),
+                    static_cast<const float*>(glu_w), static_cast<const float*>(glu_b),
+                    B, T, F, C, pt, pf, eps, tiles_per_block,
+                    static_cast<const long long*>(seed), threshold, keep_scale};
   auto* pa = static_cast<float*>(partials);
   auto* su = static_cast<float*>(sums);
   auto st = static_cast<cudaStream_t>(stream);
-  if (C <= 64)
-    return launch_bwd<4>(yp, dp, sc, bi, mu, va, gw, gb, dy, pa, su, B, T, F, C, pt, pf, eps,
-                         tiles_per_block, sd, threshold, keep_scale, st);
-  return launch_bwd<8>(yp, dp, sc, bi, mu, va, gw, gb, dy, pa, su, B, T, F, C, pt, pf, eps,
-                       tiles_per_block, sd, threshold, keep_scale, st);
+  if (bf16)
+    return C <= 64 ? launch_bwd<4, __nv_bfloat16>(a, dout, dyp, pa, su, st)
+                   : launch_bwd<8, __nv_bfloat16>(a, dout, dyp, pa, su, st);
+  return C <= 64 ? launch_bwd<4, float>(a, dout, dyp, pa, su, st)
+                 : launch_bwd<8, float>(a, dout, dyp, pa, su, st);
 }
 
-// Second backward pass, in place over dyp. n: elements of y; C % 4 == 0.
+// Second backward pass, in place over dyp. n: elements of y; C % 4 == 0; y
+// and dyp float32, or bfloat16 when bf16 != 0.
 int dcase_bn_bwd_fixup(const void* y, void* dyp, const void* a, const void* b,
-                       const void* mean, long long n, int C, void* stream) {
-  const long long n4 = n / 4;
-  long long blocks = (n4 + kThreads - 1) / kThreads;
-  if (blocks > 132 * 16) blocks = 132 * 16;  // grid-stride beyond 16 blocks per SM
-  if (blocks < 1) blocks = 1;
-  bn_bwd_fixup_kernel<<<(int)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(y), static_cast<float4*>(dyp),
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const float*>(mean), n4, C);
-  return (int)cudaGetLastError();
+                       const void* mean, long long n, int C, int bf16, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_fixup<__nv_bfloat16>(y, dyp, a, b, mean, n, C, st)
+              : launch_fixup<float>(y, dyp, a, b, mean, n, C, st);
 }
 
-// y: [rows, C] float32 (C % 4 == 0, C <= 1024); partials: [blocks, 2C]
-// float64 scratch; out: [2, C] float32 = sums | sums of squares.
+// y: [rows, C] float32, or bfloat16 when bf16 != 0 (C % 4 == 0, C <= 1024);
+// partials: [blocks, 2C] float64 scratch; out: [2, C] float32 = sums | sums
+// of squares.
 int dcase_batch_stats(const void* y, void* partials, void* out, long long rows, int C,
-                      int blocks, void* stream) {
+                      int blocks, int bf16, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  const int groups = kThreads / (C / 4);
-  const size_t smem = sizeof(double) * (size_t)groups * 2 * C;
-  cudaError_t err = cudaFuncSetAttribute(
-      stats_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long rows_per_block = (rows + blocks - 1) / blocks;
-  stats_kernel<<<blocks, kThreads, smem, st>>>(static_cast<const float4*>(y),
-                                               static_cast<double*>(partials), rows, C,
-                                               rows_per_block);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_fold<double>(static_cast<const double*>(partials),
-                                  static_cast<float*>(out), blocks, 2 * C, st);
+  return bf16 ? launch_stats<__nv_bfloat16>(y, partials, out, rows, C, blocks, st)
+              : launch_stats<float>(y, partials, out, rows, C, blocks, st);
 }
 
 }  // extern "C"

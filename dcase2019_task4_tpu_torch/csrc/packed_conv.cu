@@ -1,5 +1,5 @@
-// K3: 3x3, stride 1, same-padding convolution on NHWC float32, forward,
-// input gradient and weight gradient, for Hopper (sm_90a).
+// K3: 3x3, stride 1, same-padding convolution on NHWC float32 or bfloat16,
+// forward, input gradient and weight gradient, for Hopper (sm_90a).
 //
 // Replaces the Pallas kernels of dcase2019_task4_tpu/ops/packed_conv.py:
 //   conv3x3_nhwc_kernel    _conv_kernel (via _run_conv / conv2d_packed), which
@@ -16,6 +16,15 @@
 // Function: out[b,t,f,co] = bias[co]
 //   + sum_{dt,df in 0..2} sum_ci x[b, t+dt-1, f+df-1, ci] * w[dt, df, ci, co]
 // with zeros outside the time and frequency edges.
+//
+// Element type: each kernel is instantiated for float32 and for bfloat16
+// activations (the model's compute dtype). In bfloat16 it rounds where the
+// JAX kernel rounds (_conv_kernel, _wgrad_kernel): x, dy and the weights are
+// bfloat16 operands (the wrapper hands the weights over already rounded,
+// as float32), every product of two bfloat16 values is exact in float32 and
+// accumulates in float32, the float32 bias is added, and out / dx are
+// stored in bfloat16; dW and db stay float32. Staged in shared memory as
+// float32 either way: the same tiles, the same arithmetic.
 //
 // Bound: compute. At the flagship shapes ([24,432,16,64] and
 // [24,216,4,64]) the two convolutions are 5.4 and 2.7 GFLOP against 42 and
@@ -47,6 +56,7 @@
 
 #include <cuda_runtime.h>
 
+#include "dtype.cuh"
 #include "fold.cuh"
 
 namespace {
@@ -55,9 +65,10 @@ constexpr int kThreads = 256;
 constexpr int kPix = 128;   // output pixels per block
 constexpr int kCoTile = 64; // output channels per block
 
+template <typename TX>
 __global__ void __launch_bounds__(kThreads)
-conv3x3_nhwc_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                    const float* __restrict__ bias, float* __restrict__ out,
+conv3x3_nhwc_kernel(const TX* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ bias, TX* __restrict__ out,
                     int T, int F, int Cin, int Cout, int rows) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
@@ -77,7 +88,7 @@ conv3x3_nhwc_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const int t = t0 - 1 + tr, f = fc - 1;
     float v = 0.0f;
     if (t >= 0 && t < T && f >= 0 && f < F)
-      v = x[(((long long)b * T + t) * F + f) * Cin + ci];
+      v = to_float(x[(((long long)b * T + t) * F + f) * Cin + ci]);
     xs[cell * CP + ci] = v;
   }
 
@@ -121,7 +132,7 @@ conv3x3_nhwc_kernel(const float* __restrict__ x, const float* __restrict__ w,
     }
   }
 
-  float* ob = out + ((long long)b * T + t0) * F * Cout;
+  TX* ob = out + ((long long)b * T + t0) * F * Cout;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     if (!pval[i]) continue;
@@ -129,14 +140,15 @@ conv3x3_nhwc_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int co = co0 + cg + 16 * j;
-      if (co < Cout) ob[(long long)p * Cout + co] = acc[i][j] + bias[co];
+      if (co < Cout) ob[(long long)p * Cout + co] = from_float<TX>(acc[i][j] + bias[co]);
     }
   }
 }
 
 // grid: (runs of tiles, B, 3 * n_ct * n_ct); slot = b * gridDim.x + run.
+template <typename TX>
 __global__ void __launch_bounds__(kThreads)
-conv3x3_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+conv3x3_wgrad_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
                      float* __restrict__ partials, int T, int F, int C, int rows,
                      int tiles_per_block, int n_ct) {
   extern __shared__ float smem[];
@@ -177,13 +189,13 @@ conv3x3_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dy,
       const int t = t0 + r + dt - 1, f = fc - 1, ci = ci0 + c;
       float v = 0.0f;
       if (r < trows && t >= 0 && t < T && f >= 0 && f < F && ci < C)
-        v = x[(((long long)b * T + t) * F + f) * C + ci];
+        v = to_float(x[(((long long)b * T + t) * F + f) * C + ci]);
       xs[cell * CP + c] = v;
     }
     for (int i = tid; i < trows * F * kCoTile; i += kThreads) {
       const int c = i % kCoTile, p = i / kCoTile;
       const int co = co0 + c;
-      dys[p * CP + c] = co < C ? dy[(((long long)b * T + t0) * F + p) * C + co] : 0.0f;
+      dys[p * CP + c] = co < C ? to_float(dy[(((long long)b * T + t0) * F + p) * C + co]) : 0.0f;
     }
     __syncthreads();
     for (int r = 0; r < trows; ++r)
@@ -228,52 +240,68 @@ conv3x3_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   }
 }
 
+template <typename TX>
+int launch_conv(const void* x, const void* w, const void* bias, void* out, int B, int T, int F,
+                int Cin, int Cout, cudaStream_t stream) {
+  const int rows = kPix / F;
+  const size_t smem =
+      sizeof(float) * ((size_t)(rows + 2) * (F + 2) * (Cin + 1) + (size_t)Cin * kCoTile);
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_nhwc_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((T + rows - 1) / rows, B, (Cout + kCoTile - 1) / kCoTile);
+  conv3x3_nhwc_kernel<TX><<<grid, kThreads, smem, stream>>>(
+      static_cast<const TX*>(x), static_cast<const float*>(w), static_cast<const float*>(bias),
+      static_cast<TX*>(out), T, F, Cin, Cout, rows);
+  return (int)cudaGetLastError();
+}
+
+template <typename TX>
+int launch_wgrad(const void* x, const void* dy, void* partials, void* out, int B, int T, int F,
+                 int C, int tiles_per_block, cudaStream_t st) {
+  const int rows = kPix / F;
+  const size_t smem =
+      sizeof(float) * ((size_t)rows * (F + 2) + (size_t)kPix) * (kCoTile + 1);
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_wgrad_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_tiles = (T + rows - 1) / rows;
+  const int n_ct = (C + kCoTile - 1) / kCoTile;
+  const dim3 grid((n_tiles + tiles_per_block - 1) / tiles_per_block, B, 3 * n_ct * n_ct);
+  conv3x3_wgrad_kernel<TX><<<grid, kThreads, smem, st>>>(
+      static_cast<const TX*>(x), static_cast<const TX*>(dy), static_cast<float*>(partials), T, F, C,
+      rows, tiles_per_block, n_ct);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_fold<float>(static_cast<const float*>(partials), static_cast<float*>(out),
+                                 (int)(grid.x * grid.y), 9 * C * C + C, st);
+}
+
 }  // namespace
 
 extern "C" {
 
 // x: [B, T, F, Cin]; w: [3, 3, Cin, Cout] (HWIO); bias: [Cout];
-// out: [B, T, F, Cout]; all float32, contiguous. F <= 128 (one block's
-// pixel tile holds whole frequency rows); the caller checks that the
-// shared memory below fits (ops/packed_conv.py:applicable).
+// out: [B, T, F, Cout]; contiguous. x and out float32, or bfloat16 when
+// bf16 != 0; w (already rounded to the compute dtype) and bias float32.
+// F <= 128 (one block's pixel tile holds whole frequency rows); the caller
+// checks that the shared memory below fits (ops/packed_conv.py:applicable).
 int dcase_conv3x3(const void* x, const void* w, const void* bias, void* out, int B,
-                  int T, int F, int Cin, int Cout, void* stream) {
-  const int rows = kPix / F;
-  const size_t smem =
-      sizeof(float) * ((size_t)(rows + 2) * (F + 2) * (Cin + 1) + (size_t)Cin * kCoTile);
-  cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_nhwc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + rows - 1) / rows, B, (Cout + kCoTile - 1) / kCoTile);
-  conv3x3_nhwc_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(bias), static_cast<float*>(out), T, F, Cin, Cout, rows);
-  return (int)cudaGetLastError();
+                  int T, int F, int Cin, int Cout, int bf16, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_conv<__nv_bfloat16>(x, w, bias, out, B, T, F, Cin, Cout, st)
+              : launch_conv<float>(x, w, bias, out, B, T, F, Cin, Cout, st);
 }
 
-// x, dy: [B, T, F, C]; partials: [B * ceil(tiles / tiles_per_block),
-// 9*C*C + C] scratch; out: [9*C*C + C] = dW [3, 3, C, C] (HWIO) | db [C]; all
-// float32, contiguous. F <= 128.
+// x, dy: [B, T, F, C], float32 or (bf16 != 0) bfloat16; partials:
+// [B * ceil(tiles / tiles_per_block), 9*C*C + C] float32 scratch; out:
+// [9*C*C + C] float32 = dW [3, 3, C, C] (HWIO) | db [C]; all contiguous.
+// F <= 128.
 int dcase_conv3x3_wgrad(const void* x, const void* dy, void* partials, void* out, int B,
-                        int T, int F, int C, int tiles_per_block, void* stream) {
+                        int T, int F, int C, int tiles_per_block, int bf16, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  const int rows = kPix / F;
-  const size_t smem =
-      sizeof(float) * ((size_t)rows * (F + 2) + (size_t)kPix) * (kCoTile + 1);
-  cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_tiles = (T + rows - 1) / rows;
-  const int n_ct = (C + kCoTile - 1) / kCoTile;
-  const dim3 grid((n_tiles + tiles_per_block - 1) / tiles_per_block, B, 3 * n_ct * n_ct);
-  conv3x3_wgrad_kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(dy),
-      static_cast<float*>(partials), T, F, C, rows, tiles_per_block, n_ct);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_fold<float>(static_cast<const float*>(partials),
-                                 static_cast<float*>(out), (int)(grid.x * grid.y),
-                                 9 * C * C + C, st);
+  return bf16 ? launch_wgrad<__nv_bfloat16>(x, dy, partials, out, B, T, F, C, tiles_per_block, st)
+              : launch_wgrad<float>(x, dy, partials, out, B, T, F, C, tiles_per_block, st);
 }
 
 // Pixel tiles per clip of the kernels above (tiles of whole frequency rows).

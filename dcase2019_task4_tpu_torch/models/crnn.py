@@ -21,6 +21,15 @@ outputs keep the JAX layout: x [B, T, F] → strong [B, T', nclass], weak
     BN → GLU → dropout → pool in one pass each way; otherwise BatchNorm,
     activation, dropout, pool in plain ops.
 
+Compute dtype (`ModelConfig.compute_dtype`, as the JAX model,
+crnn.py:86-92,201,218,222,253): float32, or bfloat16, in which x is cast to
+bfloat16 before each conv and the conv stack's activations stay bfloat16
+(the convs and the fused blocks take and give bfloat16, accumulating in
+float32); parameters, BatchNorm statistics, the GRU (its input is cast back
+to float32), the heads and the probabilities stay float32. The bfloat16
+model runs through the fused kernels only: the plain BatchNorm branch and
+the first-block kernels (K4-K6, float32 only) raise NotImplementedError.
+
 In training mode (`model.train()`) each fused block takes the batch Σy and
 Σy² from K2s, forms mean, biased variance and the unbiased running update
 as the JAX model does (crnn.py:321-351), draws one dropout seed from the
@@ -46,6 +55,14 @@ from dcase2019_task4_tpu_torch.ops import crows_block, entry_conv, fused_block, 
 from dcase2019_task4_tpu_torch.ops.gru import bigru, bigru_init_
 
 _SEED_HIGH = 2 ** 31 - 2 ** 20  # dropout seeds are drawn from [0, _SEED_HIGH), as in the JAX model
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The torch dtype of `cfg.compute_dtype`; ValueError for any other."""
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: float32 or bfloat16")
+    return COMPUTE_DTYPES[cfg.compute_dtype]
 
 
 class ConvBlock(nn.Module):
@@ -62,6 +79,7 @@ class CRNN(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         self.cfg = cfg
+        self.compute_dtype = compute_dtype(cfg)
         blocks = []
         in_ch = cfg.n_in_channel
         for i, out_ch in enumerate(cfg.nb_filters):
@@ -134,7 +152,12 @@ class CRNN(nn.Module):
         same_3x3 = cfg.kernel_size[i] == 3 and cfg.stride[i] == 1 and cfg.padding[i] == 1
         pool = tuple(cfg.pooling[i])
         entry_stats = None
+        cd = self.compute_dtype
         entry = i == 0 and same_3x3 and x.shape[-1] == 1 and conv.in_channels == 1
+        if entry and use_fused and cd != torch.float32 and (
+                cfg.entry_block_crows or cfg.entry_block_pallas or cfg.entry_conv_pallas):
+            raise NotImplementedError(f"compute_dtype {cfg.compute_dtype!r} with a first-block flag: the "
+                                      "first-block kernels (K4-K6) are float32 only")
         if entry:
             engine = self._entry_engine(block, x, use_fused)
             if engine is not None:
@@ -160,9 +183,10 @@ class CRNN(nn.Module):
             and conv.in_channels == conv.out_channels
             and packed_conv.applicable(x.shape[2], x.shape[3])
         ):
-            x = packed_conv.conv2d_packed({"w": conv.weight.permute(2, 3, 1, 0), "b": conv.bias}, x.contiguous())
+            x = packed_conv.conv2d_packed({"w": conv.weight.permute(2, 3, 1, 0), "b": conv.bias},
+                                          x.to(cd).contiguous())
         else:
-            x = L.conv2d(conv.weight, conv.bias, x, cfg.stride[i], cfg.padding[i])
+            x = L.conv2d(conv.weight, conv.bias, x.to(cd), cfg.stride[i], cfg.padding[i])
         bn = block.bn
         if use_fused and cfg.activation == "glu" and fused_block.applicable(x.shape, pool):
             x = x.contiguous()
@@ -177,6 +201,9 @@ class CRNN(nn.Module):
                 x, bn.weight, bn.bias, mean, var, block.act.weight.t(), block.act.bias,
                 seed, rate, pool, cfg.bn_eps, train,
             )
+        if cd != torch.float32:
+            raise NotImplementedError(f"compute_dtype {cfg.compute_dtype!r}: block {i + 1} of shape "
+                                      f"{tuple(x.shape)} needs the fused block, which does not take it")
         if train:
             x = L.batchnorm_train(x, bn.weight, bn.bias, bn.running_mean, bn.running_var,
                                   cfg.bn_eps, cfg.bn_momentum)
@@ -207,7 +234,7 @@ class CRNN(nn.Module):
             x = self._block(i, block, x, use_fused, generator)
         B, T, Fq, C = x.shape
         x = x[:, :, 0, :] if Fq == 1 else x.permute(0, 1, 3, 2).reshape(B, T, C * Fq)
-        x, _ = self.rnn(x.contiguous())
+        x, _ = self.rnn(x.to(torch.float32).contiguous())
         if self.training and self.cfg.dropout > 0:
             x = L.dropout(x, self.cfg.dropout, generator)
         strong = torch.sigmoid(self.dense(x))

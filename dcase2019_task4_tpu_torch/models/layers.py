@@ -2,7 +2,8 @@
 dcase2019_task4_tpu/models/layers.py).
 
 The entry conv (block 1, one input channel) is an XLA im2col in the JAX
-package, not a Pallas kernel, so here it is `F.conv2d` (with autograd).
+package, not a Pallas kernel, so here it is `F.conv2d` (with autograd), in
+the model's compute dtype.
 BatchNorm (running or batch statistics), GLU, context gating, dropout and
 average pooling serve the geometries where the fused kernels do not apply.
 Layout is NHWC ([batch, time, freq, channel]) at every function boundary,
@@ -18,11 +19,21 @@ import torch.nn.functional as F
 
 
 def conv2d(weight, bias, x: torch.Tensor, stride: int = 1, padding: int = 1) -> torch.Tensor:
-    """NHWC conv with an OIHW weight (nn.Conv2d layout) → NHWC, contiguous.
-    Runs in channels-last memory so the result is NHWC without a copy."""
+    """NHWC conv with an OIHW weight (nn.Conv2d layout) → NHWC, contiguous,
+    in x's dtype. Runs in channels-last memory so the result is NHWC without
+    a copy.
+
+    In bfloat16 (x bfloat16, weight and bias float32) it rounds as the JAX
+    package's conv of a bfloat16 model does (layers.conv2d_apply,
+    conv2d_entry_packed): the weight is cast to bfloat16, the products
+    accumulate in float32 and round once to bfloat16 (cuDNN on the card,
+    oneDNN on the CPU), and the bias, cast to bfloat16, is added in
+    bfloat16. Autograd gives the weight the gradient of its bfloat16 copy."""
+    low = x.dtype == torch.bfloat16
     xc = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-    y = F.conv2d(xc, weight, bias, stride=stride, padding=padding)
-    return y.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    y = F.conv2d(xc, weight.to(x.dtype), None if low else bias, stride=stride, padding=padding)
+    y = y.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    return y + bias.to(x.dtype) if low else y
 
 
 def batchnorm_eval(x, scale, bias, mean, var, eps: float):

@@ -47,18 +47,18 @@ SIGNATURES = {
     "dcase_fused_stft_mel": (
         _I, [_P, _I, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     ),
-    "dcase_conv3x3": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "dcase_bn_glu_pool_tiles": (_I, [_I, _I, _I]),
+    "dcase_conv3x3": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "dcase_bn_glu_pool_tiles": (_I, [_I, _I, _I, _I]),
     "dcase_conv3x3_tiles": (_I, [_I, _I]),
-    "dcase_conv3x3_wgrad": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "dcase_conv3x3_wgrad": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "dcase_bn_glu_pool": (
-        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _U, _F, _I, _P],
+        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _U, _F, _I, _I, _P],
     ),
     "dcase_bn_glu_pool_bwd": (
-        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _U, _F, _I, _P],
+        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _U, _F, _I, _I, _P],
     ),
-    "dcase_bn_bwd_fixup": (_I, [_P, _P, _P, _P, _P, _LL, _I, _P]),
-    "dcase_batch_stats": (_I, [_P, _P, _P, _LL, _I, _I, _P]),
+    "dcase_bn_bwd_fixup": (_I, [_P, _P, _P, _P, _P, _LL, _I, _I, _P]),
+    "dcase_batch_stats": (_I, [_P, _P, _P, _LL, _I, _I, _I, _P]),
     "dcase_entry_conv": (_I, [_P] * 6 + [_I] * 6 + [_P]),
     "dcase_entry_conv_wgrad": (_I, [_P] * 4 + [_I] * 5 + [_P]),
     "dcase_entry_block_fwd": (_I, [_P] * 10 + [_I] * 6 + [_F, _P, _U, _F, _I, _P]),
@@ -153,6 +153,22 @@ def library() -> ctypes.CDLL:
 def check(status: int, what: str):
     if status != 0:
         raise KernelError(f"{what}: CUDA error {status}")
+
+
+def round_to(t, dtype):
+    """t rounded to `dtype` and held in float32 (t itself for float32): an
+    operand of a product that a kernel takes in `dtype`."""
+    return t.to(dtype).float()
+
+
+def count_launch(wrapper, name: str, dtype) -> None:
+    """One launch of `wrapper`'s kernel: added to its counter `name`, or to
+    `name`_bf16 for the bfloat16 instantiation of a kernel that has both."""
+    import torch
+
+    if dtype == torch.bfloat16:
+        name += "_bf16"
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def stream_handle(device) -> int:

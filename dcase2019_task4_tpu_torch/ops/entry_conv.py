@@ -128,7 +128,7 @@ def _launch(params, x: torch.Tensor, mode: str, what: str):
     C = w.shape[-1]
     _check_cuda(x, C, what)
     lib = _build.library()
-    tiles = lib.dcase_bn_glu_pool_tiles(T, Fq, 1)
+    tiles = lib.dcase_bn_glu_pool_tiles(T, Fq, 1, 1)
     tpb = max(1, -(-tiles * B // _TARGET_BLOCKS))
     slots = -(-tiles // tpb) * B
     partials = torch.empty((slots, 2 * C), dtype=torch.float64, device=x.device)
@@ -206,7 +206,7 @@ def entry_conv_wgrad(x: torch.Tensor, dy: torch.Tensor):
     if dy.device != x.device or dy.dtype != torch.float32 or not dy.is_contiguous():
         raise ValueError("entry_conv_wgrad: dy must be contiguous float32 on x's device")
     lib = _build.library()
-    tiles = lib.dcase_bn_glu_pool_tiles(T, Fq, 1)
+    tiles = lib.dcase_bn_glu_pool_tiles(T, Fq, 1, 1)
     tpb = max(1, -(-tiles * B // _WGRAD_SLOTS))
     slots = -(-tiles // tpb) * B
     partials = torch.empty((slots, 10 * C), dtype=torch.float32, device=x.device)

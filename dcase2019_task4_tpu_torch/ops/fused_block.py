@@ -20,6 +20,17 @@ of y, or the running ones in eval mode) and the backward carries the whole
 BatchNorm-training backward, through-statistics terms included, so callers
 must not also differentiate the statistics.
 
+The compute dtype is y's: float32, or bfloat16 in a bfloat16 model. In
+bfloat16 every function rounds where the JAX kernels round
+(fused_block.py:121-127,134,216-219,276-280,312-316): xn and glu_w enter
+the GLU product as bfloat16 (the sigmoid and the gate take the float32
+xn); each window's pt-row time sum is rounded to bfloat16 before the
+frequency sum; dlin and glu_w enter dxn, and xn and dlin enter dW, as
+bfloat16; the pooled output, dy_partial and dy are stored in y's dtype; dW,
+db, S1, S2 and the batch statistics are float32. Arithmetic is float32
+throughout: the plain versions round the operands and multiply in float32
+(no bfloat16 matmul, whose accumulation order is unspecified).
+
 Dropout: the keep-mask comes from Philox4x32-10 keyed on the seed, with the
 counter the global element index of y divided by four (one call gives the
 mask of four neighbouring channels). It depends on nothing but (seed,
@@ -48,14 +59,18 @@ _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
 _U32 = 0xFFFFFFFF
 
 
+DTYPES = (torch.float32, torch.bfloat16)  # the compute dtypes the kernels take
+
+
 def applicable(shape, pool: Tuple[int, int]) -> bool:
     """Whether the fused block takes a [B, T, F, C] activation: whole
-    pooling windows (T % pt == F % pf == 0), a pooling row of at most one
-    pixel tile, and C ≤ 128 in whole groups of four (one Philox call masks
-    four channels)."""
+    pooling windows (T % pt == F % pf == 0), a window of at most one pixel
+    tile (a tile holds whole pooling rows where they fit, else whole windows
+    of one row pair), and C ≤ 128 in whole groups of four (one Philox call
+    masks four channels)."""
     B, T, Fq, C = shape
     pt, pf = pool
-    return T % pt == 0 and Fq % pf == 0 and pt * Fq <= _TILE_PIXELS and C <= 128 and C % 4 == 0
+    return T % pt == 0 and Fq % pf == 0 and pt * pf <= _TILE_PIXELS and C <= 128 and C % 4 == 0
 
 
 # --------------------------------------------------------- plain versions
@@ -128,15 +143,20 @@ dropout_mask.launches = 0
 
 def reference_block(y, scale, bias, mean, var, glu_w, glu_b, pool, eps, mask=None, keep: float = 1.0):
     """Plain version: BN→GLU→(given mask) dropout→avg-pool on [B, T, F, C]
-    (glu_w [in, out])."""
+    (glu_w [in, out]) → [B, T/pt, F/pf, C] in y's dtype."""
+    dtype = y.dtype
     inv = torch.rsqrt(var + eps)
-    xn = (y - mean) * inv * scale + bias
-    g = (xn @ glu_w + glu_b) * torch.sigmoid(xn)
+    xn = (y.to(torch.float32) - mean) * inv * scale + bias
+    g = (_build.round_to(xn, dtype) @ _build.round_to(glu_w, dtype) + glu_b) * torch.sigmoid(xn)
     if mask is not None:
-        g = g * mask / keep
+        g = g * mask * (1.0 / keep)
     B, T, Fq, C = g.shape
     pt, pf = pool
-    return g.reshape(B, T // pt, pt, Fq // pf, pf, C).mean(dim=(2, 4))
+    if dtype == torch.float32:
+        return g.reshape(B, T // pt, pt, Fq // pf, pf, C).mean(dim=(2, 4))
+    # each column's pt-row time sum rounds to the compute dtype before the frequency sum
+    col = _build.round_to(g.reshape(B, T // pt, pt, Fq // pf, pf, C).sum(dim=2), dtype)
+    return (col.sum(dim=3) * (1.0 / (pt * pf))).to(dtype)
 
 
 def batch_stats_reference(y: torch.Tensor):
@@ -152,23 +172,27 @@ def _upsample(dout, pool):
 
 def bwd_reduce_reference(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, eps, mask=None, keep: float = 1.0):
     """First half of the backward, written out step by step (no autograd):
-    → (dy_partial, dw, db, S1, S2) with S1 = Σdxn, S2 = Σdxn·x̂."""
+    → (dy_partial in y's dtype, dw, db, S1, S2 in float32) with S1 = Σdxn,
+    S2 = Σdxn·x̂."""
+    dtype = y.dtype
+    y = y.to(torch.float32)
     inv = torch.rsqrt(var + eps)
     xhat = (y - mean) * inv
     xn = (y - mean) * inv * scale + bias
-    lin = xn @ glu_w + glu_b
+    w = _build.round_to(glu_w, dtype)
+    lin = _build.round_to(xn, dtype) @ w + glu_b
     sig = torch.sigmoid(xn)
-    dh = _upsample(dout, pool)
+    dh = _upsample(dout.to(torch.float32), pool)
     if mask is not None:
         dh = dh * mask * (1.0 / keep)
     dlin = dh * sig
-    dxn = dlin @ glu_w.t() + dh * lin * sig * (1.0 - sig)
+    dxn = _build.round_to(dlin, dtype) @ w.t() + dh * lin * sig * (1.0 - sig)
     C = y.shape[-1]
-    dw = xn.reshape(-1, C).t() @ dlin.reshape(-1, C)
+    dw = _build.round_to(xn, dtype).reshape(-1, C).t() @ _build.round_to(dlin, dtype).reshape(-1, C)
     db = dlin.sum(dim=(0, 1, 2))
     s1 = dxn.sum(dim=(0, 1, 2))
     s2 = (dxn * xhat).sum(dim=(0, 1, 2))
-    return inv * scale * dxn, dw, db, s1, s2
+    return (inv * scale * dxn).to(dtype), dw, db, s1, s2
 
 
 def bwd_coefficients(scale, var, eps, s1, s2, n: int):
@@ -179,8 +203,8 @@ def bwd_coefficients(scale, var, eps, s1, s2, n: int):
 
 
 def bwd_fixup_reference(y, dy_partial, a, b, mean):
-    """Second half: dy = dy_partial − a − (y − mean)·b."""
-    return dy_partial - a - (y - mean) * b
+    """Second half: dy = dy_partial − a − (y − mean)·b, in y's dtype."""
+    return (dy_partial.to(torch.float32) - a - (y.to(torch.float32) - mean) * b).to(y.dtype)
 
 
 def bwd_reference(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, eps, mask=None, keep: float = 1.0):
@@ -200,8 +224,10 @@ def _check(y, pool, what: str):
         raise ValueError(f"{what} does not take y {tuple(y.shape)} with pool {pool}")
     if y.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} runs on cpu or cuda tensors, got {y.device}")
-    if y.device.type == "cuda" and (y.dtype != torch.float32 or not y.is_contiguous()):
-        raise ValueError(f"y must be contiguous float32, got {y.dtype}")
+    if y.dtype not in DTYPES:
+        raise ValueError(f"{what}: y must be float32 or bfloat16, got {y.dtype}")
+    if y.device.type == "cuda" and not y.is_contiguous():
+        raise ValueError(f"{what}: y must be contiguous")
 
 
 def _vectors(y, vecs, glu_w):
@@ -219,16 +245,18 @@ def _seed_tensor(seed, device) -> torch.Tensor:
     return torch.as_tensor(seed, dtype=torch.int64).reshape(1).to(device)
 
 
-def _tiles_per_block(lib, B, T, Fq, pt, target) -> int:
-    tiles = lib.dcase_bn_glu_pool_tiles(T, Fq, pt)
+def _tiles_per_block(tiles: int, B: int, target: int) -> int:
+    """Pixel tiles each block takes so that `tiles` a clip over B clips make
+    about `target` blocks."""
     return max(1, -(-tiles * B // target))
 
 
 def fused_bn_glu_pool(y, scale, bias, mean, var, glu_w, glu_b, pool, eps, *, rate: float = 0.0, seed=0):
-    """K2 forward, no graph: y [B, T, F, C] conv output → pooled
-    [B, T/pt, F/pf, C]; BN with the given mean/var; glu_w [C, C] as (in,
-    out); dropout at `rate` from `seed` (int or integer tensor) when
-    rate > 0. CPU: the plain version. CUDA: the kernel."""
+    """K2 forward, no graph: y [B, T, F, C] conv output (float32 or
+    bfloat16) → pooled [B, T/pt, F/pf, C] in y's dtype; BN with the given
+    mean/var; glu_w [C, C] as (in, out); dropout at `rate` from `seed` (int
+    or integer tensor) when rate > 0. CPU: the plain version. CUDA: the
+    kernel."""
     pool = tuple(int(p) for p in pool)
     _check(y, pool, "fused_bn_glu_pool")
     if not 0.0 <= rate < 1.0:
@@ -240,31 +268,33 @@ def fused_bn_glu_pool(y, scale, bias, mean, var, glu_w, glu_b, pool, eps, *, rat
     (s, bi, mu, va, gb), w = _vectors(y, (scale, bias, mean, var, glu_b), glu_w)
     pt, pf = pool
     lib = _build.library()
-    out = torch.empty((B, T // pt, Fq // pf, C), dtype=torch.float32, device=y.device)
+    out = torch.empty((B, T // pt, Fq // pf, C), dtype=y.dtype, device=y.device)
     seed_t = _seed_tensor(seed, y.device)
     status = lib.dcase_bn_glu_pool(
         y.data_ptr(), s.data_ptr(), bi.data_ptr(), mu.data_ptr(), va.data_ptr(),
         w.data_ptr(), gb.data_ptr(), out.data_ptr(), B, T, Fq, C, pt, pf, float(eps),
         seed_t.data_ptr(), dropout_threshold(rate) if rate > 0.0 else 0, float(1.0 / (1.0 - rate)),
-        _tiles_per_block(lib, B, T, Fq, pt, _TARGET_BLOCKS), _build.stream_handle(y.device),
+        _tiles_per_block(lib.dcase_bn_glu_pool_tiles(T, Fq, pt, pf), B, _TARGET_BLOCKS),
+        int(y.dtype == torch.bfloat16),
+        _build.stream_handle(y.device),
     )
     _build.check(status, "fused_bn_glu_pool")
-    if rate > 0.0:
-        fused_bn_glu_pool.launches_train += 1
-    else:
-        fused_bn_glu_pool.launches_eval += 1
+    _build.count_launch(fused_bn_glu_pool, "launches_train" if rate > 0.0 else "launches_eval", y.dtype)
     return out
 
 
-fused_bn_glu_pool.launches_eval = 0  # launches of the forward kernel without dropout
+fused_bn_glu_pool.launches_eval = 0  # launches of the float32 forward kernel without dropout
 fused_bn_glu_pool.launches_train = 0  # launches with the dropout on (train mode)
+fused_bn_glu_pool.launches_eval_bf16 = 0  # the same, of the bfloat16 kernel
+fused_bn_glu_pool.launches_train_bf16 = 0
 
 
 def batch_stats(y: torch.Tensor):
-    """K2s: per-channel (Σy, Σy²) of y [B, T, F, C] as two float32 [C]
-    tensors without a graph. Each block sums a contiguous run of pixels in
-    double precision and the per-block partials are folded in a fixed
-    order, so a run repeats bit for bit. CPU: the plain version."""
+    """K2s: per-channel (Σy, Σy²) of y [B, T, F, C] (float32 or bfloat16)
+    as two float32 [C] tensors without a graph. Each block sums a
+    contiguous run of pixels in double precision and the per-block partials
+    are folded in a fixed order, so a run repeats bit for bit. CPU: the
+    plain version."""
     if y.dim() != 4:
         raise ValueError(f"batch_stats takes [B, T, F, C], got {tuple(y.shape)}")
     y = y.detach()
@@ -273,28 +303,30 @@ def batch_stats(y: torch.Tensor):
     if y.device.type != "cuda":
         raise ValueError(f"batch_stats runs on cpu or cuda tensors, got {y.device}")
     C = y.shape[-1]
-    if y.dtype != torch.float32 or not y.is_contiguous() or C % 4 != 0 or C > 1024:
-        raise ValueError(f"y must be contiguous float32 with C a multiple of 4 up to 1024, got {y.dtype}, C={C}")
+    if y.dtype not in DTYPES or not y.is_contiguous() or C % 4 != 0 or C > 1024:
+        raise ValueError(f"y must be contiguous float32 or bfloat16 with C a multiple of 4 up to 1024, "
+                         f"got {y.dtype}, C={C}")
     rows = y.numel() // C
     lib = _build.library()
     blocks = max(1, min(_TARGET_BLOCKS_BWD, -(-rows // 64)))
     partials = torch.empty((blocks, 2 * C), dtype=torch.float64, device=y.device)
     out = torch.empty((2, C), dtype=torch.float32, device=y.device)
     status = lib.dcase_batch_stats(y.data_ptr(), partials.data_ptr(), out.data_ptr(), rows, C, blocks,
-                                   _build.stream_handle(y.device))
+                                   int(y.dtype == torch.bfloat16), _build.stream_handle(y.device))
     _build.check(status, "batch_stats")
-    batch_stats.launches += 1
+    _build.count_launch(batch_stats, "launches", y.dtype)
     return out[0], out[1]
 
 
-batch_stats.launches = 0
+batch_stats.launches = 0  # float32 launches
+batch_stats.launches_bf16 = 0  # bfloat16 launches
 
 
 def bwd_reduce(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, eps, *, rate: float = 0.0, seed=0):
     """K2b, first pass: recompute the chain and the mask per pixel tile;
-    → (dy_partial [B,T,F,C], dw [C,C], db, S1, S2 [C]). Per-block partial
-    sums are folded in a fixed order (no float atomics). CPU: the plain
-    version."""
+    → (dy_partial [B,T,F,C] in y's dtype, dw [C,C], db, S1, S2 [C] in
+    float32). dout comes in y's dtype. Per-block partial sums are folded in
+    a fixed order (no float atomics). CPU: the plain version."""
     pool = tuple(int(p) for p in pool)
     _check(y, pool, "bwd_reduce")
     B, T, Fq, C = y.shape
@@ -305,10 +337,11 @@ def bwd_reduce(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, eps, *, rate
         mask = dropout_keep_mask(seed, y.shape, rate) if rate > 0.0 else None
         return bwd_reduce_reference(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, eps, mask, 1.0 - rate)
     (s, bi, mu, va, gb), w = _vectors(y, (scale, bias, mean, var, glu_b), glu_w)
-    dout = dout.to(torch.float32).contiguous()
+    dout = dout.to(y.dtype).contiguous()
     lib = _build.library()
-    tpb = _tiles_per_block(lib, B, T, Fq, pt, _TARGET_BLOCKS_BWD)
-    slots = -(-lib.dcase_bn_glu_pool_tiles(T, Fq, pt) // tpb) * B
+    tiles = lib.dcase_bn_glu_pool_tiles(T, Fq, pt, pf)
+    tpb = _tiles_per_block(tiles, B, _TARGET_BLOCKS_BWD)
+    slots = -(-tiles // tpb) * B
     width = C * C + 3 * C
     partials = torch.empty((slots, width), dtype=torch.float32, device=y.device)
     sums = torch.empty(width, dtype=torch.float32, device=y.device)
@@ -319,21 +352,22 @@ def bwd_reduce(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, eps, *, rate
         w.data_ptr(), gb.data_ptr(), dyp.data_ptr(), partials.data_ptr(), sums.data_ptr(),
         B, T, Fq, C, pt, pf, float(eps), seed_t.data_ptr(),
         dropout_threshold(rate) if rate > 0.0 else 0, float(1.0 / (1.0 - rate)), tpb,
-        _build.stream_handle(y.device),
+        int(y.dtype == torch.bfloat16), _build.stream_handle(y.device),
     )
     _build.check(status, "bwd_reduce")
-    bwd_reduce.launches += 1
+    _build.count_launch(bwd_reduce, "launches", y.dtype)
     dw, db, s1, s2 = sums[: C * C].view(C, C), sums[C * C: C * C + C], sums[C * C + C: C * C + 2 * C], sums[C * C + 2 * C:]
     return dyp, dw, db, s1, s2
 
 
 bwd_reduce.launches = 0
+bwd_reduce.launches_bf16 = 0
 
 
 def bwd_fixup(y, dy_partial, a, b, mean):
-    """K2b, second pass: dy = dy_partial − a − (y − mean)·b, written over
-    dy_partial on the card (in place: dy_partial is scratch of the
-    backward). CPU: the plain version."""
+    """K2b, second pass: dy = dy_partial − a − (y − mean)·b in y's dtype,
+    written over dy_partial on the card (in place: dy_partial is scratch of
+    the backward). CPU: the plain version."""
     if y.shape != dy_partial.shape:
         raise ValueError(f"dy_partial {tuple(dy_partial.shape)} does not match y {tuple(y.shape)}")
     if y.device.type == "cpu":
@@ -342,20 +376,22 @@ def bwd_fixup(y, dy_partial, a, b, mean):
         raise ValueError(f"bwd_fixup runs on cpu or cuda tensors, got {y.device}")
     C = y.shape[-1]
     for t in (y, dy_partial):
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("y and dy_partial must be contiguous float32")
+        if t.dtype != y.dtype or y.dtype not in DTYPES or not t.is_contiguous():
+            raise ValueError("y and dy_partial must be contiguous, of one dtype, float32 or bfloat16")
     vecs = [v.detach().to(device=y.device, dtype=torch.float32).contiguous() for v in (a, b, mean)]
     if any(tuple(v.shape) != (C,) for v in vecs) or C % 4 != 0:
         raise ValueError(f"a, b, mean must be [{C}] with C a multiple of 4")
     lib = _build.library()
     status = lib.dcase_bn_bwd_fixup(y.data_ptr(), dy_partial.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
-                                    vecs[2].data_ptr(), y.numel(), C, _build.stream_handle(y.device))
+                                    vecs[2].data_ptr(), y.numel(), C, int(y.dtype == torch.bfloat16),
+                                    _build.stream_handle(y.device))
     _build.check(status, "bwd_fixup")
-    bwd_fixup.launches += 1
+    _build.count_launch(bwd_fixup, "launches", y.dtype)
     return dy_partial
 
 
 bwd_fixup.launches = 0
+bwd_fixup.launches_bf16 = 0
 
 
 # ------------------------------------------------------- autograd Function
@@ -373,7 +409,7 @@ class _FusedBlock(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         y, scale, bias, mean, var, glu_w, glu_b, seed = ctx.saved_tensors
-        dyp, dw, db, s1, s2 = bwd_reduce(y, dout.contiguous(), scale, bias, mean, var, glu_w, glu_b,
+        dyp, dw, db, s1, s2 = bwd_reduce(y, dout.to(y.dtype).contiguous(), scale, bias, mean, var, glu_w, glu_b,
                                          ctx.pool, ctx.eps, rate=ctx.rate, seed=seed)
         B, T, Fq, _ = y.shape
         a, b = bwd_coefficients(scale.detach().to(torch.float32), var.to(torch.float32), ctx.eps, s1, s2, B * T * Fq)
@@ -387,8 +423,9 @@ def fused_bn_glu_dropout_pool(y, scale, bias, mean, var, glu_w, glu_b, seed, rat
                               pool: Tuple[int, int], eps: float, train: bool):
     """Fused BN→GLU→dropout→avg-pool with its exact backward.
 
-    y [B, T, F, C] conv output; mean/var the batch statistics of y (or the
-    running ones), passed WITHOUT a graph: the backward holds the full
+    y [B, T, F, C] conv output (float32 or bfloat16: the compute dtype,
+    which the output and dy keep); mean/var the batch statistics of y (or
+    the running ones), passed WITHOUT a graph: the backward holds the full
     BN-training backward and returns (dy, dscale, dbias, None, None, dw,
     db). seed: int or integer tensor, new each step; `train` switches the
     dropout on (rate is ignored in eval mode)."""

@@ -52,7 +52,7 @@ def entry_block_applicable(shape, pool: Tuple[int, int], channels: int = 64) -> 
     (fused_entry_block.py:80-91): the TPU's k = 2 parity packing and 8-row
     halo blocks, which the Hopper kernel has no use for."""
     B, T, Fq, cin = shape
-    return cin == 1 and fused_block.applicable((B, T, Fq, channels), tuple(pool))
+    return cin == 1 and pool[0] * Fq <= 128 and fused_block.applicable((B, T, Fq, channels), tuple(pool))
 
 
 # --------------------------------------------------------- plain versions
@@ -196,7 +196,7 @@ def entry_block_fwd(x, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, poo
     status = lib.dcase_entry_block_fwd(
         x.data_ptr(), w.data_ptr(), cb.data_ptr(), *(v.data_ptr() for v in vecs[:4]), gw.data_ptr(),
         vecs[4].data_ptr(), out.data_ptr(), B, T, Fq, C, pt, pf, float(eps), seed_t.data_ptr(), threshold,
-        keep_scale, fused_block._tiles_per_block(lib, B, T, Fq, pt, _TARGET_BLOCKS),
+        keep_scale, fused_block._tiles_per_block(lib.dcase_bn_glu_pool_tiles(T, Fq, pt, pf), B, _TARGET_BLOCKS),
         _build.stream_handle(x.device),
     )
     _build.check(status, "entry_block_fwd")
@@ -209,9 +209,10 @@ entry_block_fwd.launches_eval = 0  # launches of the forward kernel without drop
 entry_block_fwd.launches_train = 0  # launches with the dropout on (train mode)
 
 
-def _bwd_launch_geometry(lib, B, T, Fq, pt):
-    tpb = fused_block._tiles_per_block(lib, B, T, Fq, pt, _TARGET_BLOCKS_BWD)
-    return tpb, -(-lib.dcase_bn_glu_pool_tiles(T, Fq, pt) // tpb) * B
+def _bwd_launch_geometry(lib, B, T, Fq, pool):
+    tiles = lib.dcase_bn_glu_pool_tiles(T, Fq, *pool)
+    tpb = fused_block._tiles_per_block(tiles, B, _TARGET_BLOCKS_BWD)
+    return tpb, -(-tiles // tpb) * B
 
 
 def _check_dout(x, dout, pool, C):
@@ -238,7 +239,7 @@ def entry_block_bwd_reduce(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_
                                                 _mask(seed, x, C, rate), 1.0 - rate)
     pt, pf = pool
     lib = _build.library()
-    tpb, slots = _bwd_launch_geometry(lib, B, T, Fq, pt)
+    tpb, slots = _bwd_launch_geometry(lib, B, T, Fq, pool)
     width = C * C + 3 * C
     partials = torch.empty((slots, width), dtype=torch.float32, device=x.device)
     sums = torch.empty(width, dtype=torch.float32, device=x.device)
@@ -273,7 +274,7 @@ def entry_block_bwd_wgrad(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w
                                                _mask(seed, x, C, rate), 1.0 - rate)
     pt, pf = pool
     lib = _build.library()
-    tpb, slots = _bwd_launch_geometry(lib, B, T, Fq, pt)
+    tpb, slots = _bwd_launch_geometry(lib, B, T, Fq, pool)
     partials = torch.empty((slots, 10 * C), dtype=torch.float32, device=x.device)
     sums = torch.empty(10 * C, dtype=torch.float32, device=x.device)
     seed_t = fused_block._seed_tensor(seed, x.device)

@@ -15,6 +15,17 @@ beside it:
 `conv2d_packed` ties them into one `torch.autograd.Function`. The lane
 packing is TPU layout and is not ported: the name is kept so each
 counterpart sits at the same path.
+
+The compute dtype is x's (float32 or bfloat16), as in the JAX model, which
+casts x to its compute dtype before the conv. In bfloat16 every function
+rounds where the JAX kernels round (packed_conv.py:100-107,133,155,169):
+x, dy and the weights enter the products as bfloat16, products accumulate
+in float32, the float32 bias is added, and the forward and dx outputs are
+stored in bfloat16; dW and db come out of the wgrad in float32. The
+autograd Function then rounds dW to bfloat16, the gradient of the
+bfloat16 copy of the weights (JAX `_packed_conv_bwd` returns
+`dparts.astype(parts.dtype)`). The plain versions compute in float32 on
+the rounded operands.
 """
 
 from __future__ import annotations
@@ -40,31 +51,34 @@ def applicable(freq: int, channels: int) -> bool:
 
 def conv2d_reference(params, x: torch.Tensor) -> torch.Tensor:
     """Plain twin. x [B, T, F, C] NHWC, params["w"] [3, 3, Cin, Cout] HWIO,
-    params["b"] [Cout] → [B, T, F, Cout]."""
-    w = params["w"].permute(3, 2, 0, 1)  # HWIO → OIHW
-    y = F.conv2d(x.permute(0, 3, 1, 2), w, params["b"], stride=1, padding=1)
-    return y.permute(0, 2, 3, 1).contiguous()
+    params["b"] [Cout] → [B, T, F, Cout] in x's dtype."""
+    w = _build.round_to(params["w"], x.dtype).permute(3, 2, 0, 1)  # HWIO → OIHW
+    y = F.conv2d(x.to(torch.float32).permute(0, 3, 1, 2), w, params["b"].to(torch.float32), stride=1, padding=1)
+    return y.permute(0, 2, 3, 1).contiguous().to(x.dtype)
 
 
 def conv2d_dx_reference(w: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """Plain version of the input gradient: the transpose convolution as
     nine shifted slices of dy against w[dt, df]ᵀ. w [3, 3, Cin, Cout],
-    dy [B, T, F, Cout] → dx [B, T, F, Cin]."""
+    dy [B, T, F, Cout] → dx [B, T, F, Cin] in dy's dtype."""
     B, T, Fq, _ = dy.shape
-    dyp = F.pad(dy, (0, 0, 1, 1, 1, 1))
-    dx = torch.zeros((B, T, Fq, w.shape[2]), dtype=dy.dtype, device=dy.device)
+    w = _build.round_to(w, dy.dtype)
+    dyp = F.pad(dy.to(torch.float32), (0, 0, 1, 1, 1, 1))
+    dx = torch.zeros((B, T, Fq, w.shape[2]), dtype=torch.float32, device=dy.device)
     for dt in range(3):
         for df in range(3):
             # x[t, f] reaches y[t − dt + 1, f − df + 1] through w[dt, df]
             dx = dx + dyp[:, 2 - dt: 2 - dt + T, 2 - df: 2 - df + Fq, :] @ w[dt, df].t()
-    return dx
+    return dx.to(dy.dtype)
 
 
 def conv2d_wgrad_reference(x: torch.Tensor, dy: torch.Tensor):
     """Plain version of the weight gradient: dW[dt, df] = Σ shifted-xᵀ·dy
     with zeros outside the tensor, db = Σdy. x [B, T, F, Cin], dy
-    [B, T, F, Cout] → (dW [3, 3, Cin, Cout], db [Cout])."""
+    [B, T, F, Cout] (float32 or bfloat16) → (dW [3, 3, Cin, Cout], db
+    [Cout]) in float32."""
     B, T, Fq, _ = x.shape
+    x, dy = x.to(torch.float32), dy.to(torch.float32)
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
     dw = torch.stack([
         torch.stack([torch.einsum("btfi,btfo->io", xp[:, dt: dt + T, df: df + Fq, :], dy) for df in range(3)])
@@ -76,11 +90,19 @@ def conv2d_wgrad_reference(x: torch.Tensor, dy: torch.Tensor):
 _WGRAD_SLOTS = 128  # partial-sum slots of the weight gradient (9·C·C + C floats each)
 
 
+DTYPES = (torch.float32, torch.bfloat16)  # the compute dtypes the kernels take
+
+
+def _check_dtype(x: torch.Tensor, what: str):
+    if x.dtype not in DTYPES:
+        raise ValueError(f"{what}: compute dtype float32 or bfloat16, got {x.dtype}")
+
+
 def _check_cuda(x: torch.Tensor, what: str):
     if x.device.type != "cuda":
         raise ValueError(f"{what} runs on cpu or cuda tensors, got {x.device}")
-    if x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"{what}: tensors must be contiguous float32, got {x.dtype}")
+    if x.dtype not in DTYPES or not x.is_contiguous():
+        raise ValueError(f"{what}: tensors must be contiguous float32 or bfloat16, got {x.dtype}")
     if not applicable(x.shape[2], x.shape[3]):
         raise ValueError(f"{what} kernel does not take freq={x.shape[2]}, channels={x.shape[3]}")
 
@@ -88,14 +110,14 @@ def _check_cuda(x: torch.Tensor, what: str):
 def _launch_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, what: str) -> torch.Tensor:
     _check_cuda(x, what)
     B, T, Fq, C = x.shape
-    w = w.detach().to(device=x.device, dtype=torch.float32).contiguous()
+    w = _build.round_to(w.detach().to(x.device), x.dtype).contiguous()  # the kernel reads float32 weights
     b = b.detach().to(device=x.device, dtype=torch.float32).contiguous()
     if tuple(b.shape) != (C,):
         raise ValueError(f"bias must be [{C}], got {tuple(b.shape)}")
     out = torch.empty_like(x)
     status = _build.library().dcase_conv3x3(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-        B, T, Fq, C, C, _build.stream_handle(x.device),
+        B, T, Fq, C, C, int(x.dtype == torch.bfloat16), _build.stream_handle(x.device),
     )
     _build.check(status, what)
     return out
@@ -108,41 +130,46 @@ def _check_shapes(w, x, what: str):
 
 def conv2d_forward(params, x: torch.Tensor) -> torch.Tensor:
     """K3 forward, no graph: 3×3 s1 p1 conv with Cin == Cout on NHWC x
-    [B, T, F, C] (float32). params: {"w": [3, 3, C, C] HWIO, "b": [C]}.
-    CPU: the plain version. CUDA: the kernel."""
+    [B, T, F, C] (float32 or bfloat16) → x's dtype. params: {"w": [3, 3,
+    C, C] HWIO, "b": [C]} (float32). CPU: the plain version. CUDA: the
+    kernel."""
     _check_shapes(params["w"], x, "conv2d_forward")
     if x.device.type == "cpu":
         return conv2d_reference(params, x)
     out = _launch_conv(x, params["w"], params["b"], "conv2d_forward")
-    conv2d_forward.launches += 1
+    _build.count_launch(conv2d_forward, "launches", x.dtype)
     return out
 
 
-conv2d_forward.launches = 0
+conv2d_forward.launches = 0  # float32 launches
+conv2d_forward.launches_bf16 = 0  # bfloat16 launches
 
 
 def conv2d_dx(w: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """K3 input gradient: the forward kernel on the weights flipped in both
     taps and transposed in (Cin, Cout), with zero bias (built on the
-    device). CPU: the plain version."""
+    device); dy's dtype in and out. CPU: the plain version."""
     _check_shapes(w, dy, "conv2d_dx")
     if dy.device.type == "cpu":
         return conv2d_dx_reference(w, dy)
     wt = w.detach().to(dy.device).flip(0, 1).transpose(2, 3).contiguous()
     out = _launch_conv(dy, wt, torch.zeros(dy.shape[-1], dtype=torch.float32, device=dy.device), "conv2d_dx")
-    conv2d_dx.launches += 1
+    _build.count_launch(conv2d_dx, "launches", dy.dtype)
     return out
 
 
 conv2d_dx.launches = 0
+conv2d_dx.launches_bf16 = 0
 
 
 def conv2d_wgrad(x: torch.Tensor, dy: torch.Tensor):
-    """K3 weight gradient → (dW [3, 3, C, C], db [C]). Per-block partial
-    sums are folded in a fixed order (no float atomics), so a run repeats
-    bit for bit. CPU: the plain version."""
-    if x.dim() != 4 or x.shape != dy.shape:
-        raise ValueError(f"conv2d_wgrad takes x and dy of one [B,T,F,C] shape, got {tuple(x.shape)}, {tuple(dy.shape)}")
+    """K3 weight gradient → (dW [3, 3, C, C], db [C]) in float32 from x and
+    dy of one dtype. Per-block partial sums are folded in a fixed order (no
+    float atomics), so a run repeats bit for bit. CPU: the plain version."""
+    if x.dim() != 4 or x.shape != dy.shape or x.dtype != dy.dtype:
+        raise ValueError(f"conv2d_wgrad takes x and dy of one [B,T,F,C] shape and dtype, got "
+                         f"{tuple(x.shape)} {x.dtype}, {tuple(dy.shape)} {dy.dtype}")
+    _check_dtype(x, "conv2d_wgrad")
     if x.device.type == "cpu":
         return conv2d_wgrad_reference(x, dy)
     _check_cuda(x, "conv2d_wgrad")
@@ -156,13 +183,15 @@ def conv2d_wgrad(x: torch.Tensor, dy: torch.Tensor):
     partials = torch.empty((slots, width), dtype=torch.float32, device=x.device)
     out = torch.empty(width, dtype=torch.float32, device=x.device)
     status = lib.dcase_conv3x3_wgrad(x.data_ptr(), dy.data_ptr(), partials.data_ptr(), out.data_ptr(),
-                                     B, T, Fq, C, tiles_per_block, _build.stream_handle(x.device))
+                                     B, T, Fq, C, tiles_per_block, int(x.dtype == torch.bfloat16),
+                                     _build.stream_handle(x.device))
     _build.check(status, "conv2d_wgrad")
-    conv2d_wgrad.launches += 1
+    _build.count_launch(conv2d_wgrad, "launches", x.dtype)
     return out[: 9 * C * C].view(3, 3, C, C), out[9 * C * C:]
 
 
 conv2d_wgrad.launches = 0
+conv2d_wgrad.launches_bf16 = 0
 
 
 class _PackedConv(torch.autograd.Function):
@@ -174,15 +203,18 @@ class _PackedConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
-        dy = dy.contiguous()
+        dy = dy.to(x.dtype).contiguous()
         dx = conv2d_dx(w, dy) if ctx.needs_input_grad[0] else None
         dw, db = conv2d_wgrad(x, dy)
-        return dx, dw, db
+        # the gradient of the compute-dtype copy of the weights, widened
+        return dx, _build.round_to(dw, x.dtype), db
 
 
 def conv2d_packed(params, x: torch.Tensor) -> torch.Tensor:
-    """3×3 s1 p1 conv with Cin == Cout on NHWC x [B, T, F, C] (float32),
-    differentiable in x, w and b through the kernels above.
-    params: {"w": [3, 3, C, C] HWIO, "b": [C]} (the JAX layout)."""
+    """3×3 s1 p1 conv with Cin == Cout on NHWC x [B, T, F, C] (float32 or
+    bfloat16: the compute dtype), differentiable in x, w and b through the
+    kernels above. params: {"w": [3, 3, C, C] HWIO, "b": [C]} (the JAX
+    layout, float32)."""
     _check_shapes(params["w"], x, "conv2d_packed")
+    _check_dtype(x, "conv2d_packed")
     return _PackedConv.apply(x, params["w"], params["b"])

@@ -15,8 +15,10 @@ TrainState object. The step counter is a Python int on the host, so the
 consistency ramp and the EMA warm-up are host arithmetic.
 
 Randomness: every draw of a step comes from the one `torch.Generator` the
-caller passes, in a fixed order (teacher noise, teacher dropout seeds and
-mask, student dropout seeds and mask), each made on the generator's device.
+caller passes, in the order of the JAX step's key split (steps.py:214):
+the teacher's feature noise, the SpecAugment masks of the student features,
+the student's dropout, the teacher's dropout; each is made on the
+generator's device.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from dcase2019_task4_tpu_torch.models.crnn import CRNN, init_
+from dcase2019_task4_tpu_torch.ops.specaugment import spec_augment
 from dcase2019_task4_tpu_torch.train import losses
 from dcase2019_task4_tpu_torch.train.ramps import sigmoid_rampup
 
@@ -111,8 +114,9 @@ def make_train_step(
 ):
     """Build the step. The arguments are those of the JAX make_train_step
     without `model` and `optimizer` (they live in the TrainState) and without
-    `donate` and `axis_name`; `mesh` and a non-empty `spec_augment_cfg` are
-    refused: data-parallel training and SpecAugment are not ported yet.
+    `donate` and `axis_name`; `mesh` is refused: data-parallel training is
+    not ported yet. A non-empty `spec_augment_cfg` (the keyword arguments of
+    `ops.specaugment.spec_augment`) masks the student's normalised features.
 
     Batch dict (tensors on the compute device):
       * fused-frontend mode (frontend given): {"audio": [B, Lp] reflect-padded
@@ -125,8 +129,7 @@ def make_train_step(
     step's gradients."""
     if mesh is not None:
         raise NotImplementedError("make_train_step: data-parallel training (mesh=) is not ported yet")
-    if spec_augment_cfg:
-        raise NotImplementedError("make_train_step: SpecAugment (spec_augment_cfg) is not ported yet")
+    spec_augment_cfg = dict(spec_augment_cfg or {})
 
     # static metric-key set, in the JAX step's order
     metric_keys = ["loss"]
@@ -163,23 +166,26 @@ def make_train_step(
         return scale(student), scale(teacher)
 
     def step_fn(state: TrainState, batch: Dict, generator: torch.Generator, acc: Dict):
-        # float32 model: keep cuDNN's conv and GRU (forward and backward) and
-        # every matmul out of TF32
+        # float32 work (the float32 model; a bfloat16 model's GRU and heads):
+        # keep cuDNN's conv and GRU (forward and backward) and every matmul
+        # out of TF32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         student, teacher = state.student, state.teacher
         student.train()
         student_x, teacher_x = featurize(batch, generator)
+        if spec_augment_cfg:
+            student_x = spec_augment(student_x, generator, **spec_augment_cfg)
         target = batch["target"]
         metrics: Dict[str, torch.Tensor] = {}
 
+        strong_s, weak_s = student(student_x, generator)
         if mean_teacher:
             teacher.train()  # batch statistics and dropout, as the reference's EMA model
             with torch.no_grad():
                 strong_t, weak_t = teacher(teacher_x, generator)
             cons_weight = max_consistency_cost * sigmoid_rampup(float(state.step), rampup_length)
 
-        strong_s, weak_s = student(student_x, generator)
         loss = torch.zeros((), dtype=torch.float32, device=strong_s.device)
         if weak_slice is not None:
             metrics["weak_class_loss"] = losses.weak_bce(weak_s, target, weak_slice)

@@ -12,7 +12,9 @@ batch statistics, both backward passes, conv dx and wgrad, the entry-block
 family (K4 conv with sums and weight gradient, K5 statistics, forward and
 two-pass backward, at small shapes and at the flagship block-1 shape), the
 keep-mask kernel, and one whole training step per first-block
-configuration. float32 with TF32 off on both sides.
+configuration, float32 with TF32 off on both sides; then the bfloat16
+modes of K3 and K2 (window tiles included) against their plain versions
+and one scaled-configuration step against the CPU.
 """
 
 import numpy as np
@@ -401,3 +403,228 @@ def test_wrappers_refuse_non_contiguous_input(cuda):
     params = {"w": torch.zeros(3, 3, 8, 8, device=cuda), "b": torch.zeros(8, device=cuda)}
     with pytest.raises(ValueError, match="contiguous"):
         packed_conv.conv2d_packed(params, x)
+
+
+# ------------------------------------------------------------ bfloat16 modes
+#
+# The bfloat16 kernels against the plain versions, which round where the
+# kernels round and compute in float32 (float32 TF32 off). Each element of a
+# bfloat16 output is held to one bfloat16 ulp plus a slack: the float32
+# rounding of the sums (an output that cancels to near zero differs by many
+# of its own ulps), one bf16 operand rounding the other way (its float32
+# value differs in the last bits between the two versions), and for the
+# pooled output one ulp of the window's largest pt-row column sum over
+# pt·pf; at most 1e-3 of the elements may lie beyond the one ulp alone. dy =
+# dy_partial − a − (y − mean)·b gets one ulp of dy_partial on top. float32
+# outputs: 1e-4 of each output's max.
+
+
+def _ulp(t):
+    """The bfloat16 spacing at |t| (floored at the smallest normal)."""
+    return torch.exp2(torch.floor(torch.log2(t.abs().float().clamp_min(2.0 ** -126))) - 7)
+
+
+def _within_ulps(got, want, what, extra=0.0):
+    got, want = got.float(), want.float()
+    ulp = _ulp(torch.maximum(got.abs(), want.abs()))
+    share = ((got - want).abs() > ulp).sum().item() / got.numel()
+    assert share <= 1e-3, f"{what}: {share:.2e} of the elements beyond one ulp"
+    limit = ulp + extra
+    over = (got - want).abs() - limit
+    bad = int((over > 0).sum().item())
+    if bad:
+        i = int(over.argmax().item())
+        where = np.unravel_index(i, tuple(got.shape))
+        raise AssertionError(f"{what}: {bad} elements beyond the limit; the worst at {where}: "
+                             f"{got.flatten()[i].item()} against {want.flatten()[i].item()} "
+                             f"(limit {limit.flatten()[i].item()})")
+
+
+def _sum_slack(n, a, b):
+    """The float32 rounding of a sum of n products of |a|·|b| at most."""
+    return n * a.abs().max().item() * b.abs().max().item() * 2.0 ** -24
+
+
+def _flip_slack(a, b):
+    """One bf16 operand of a product rounding to the other neighbour."""
+    return _ulp(a.abs().max()).item() * b.abs().max().item()
+
+
+def _pool_slack(y, scale, bias, mean, var, w, b, pool, mask=None, keep=1.0):
+    """One bfloat16 ulp of each window's largest pt-row column sum over
+    pt·pf, plus one xn operand of lin = xn·W flipping and the sums' float32
+    rounding, carried to the window mean."""
+    xn = (y.float() - mean) * torch.rsqrt(var + 1e-3) * scale + bias
+    g = (xn.bfloat16().float() @ w.bfloat16().float() + b) * torch.sigmoid(xn)
+    if mask is not None:
+        g = g * mask / keep
+    B, T, F, C = g.shape
+    pt, pf = pool
+    cols = g.reshape(B, T // pt, pt, F // pf, pf, C).sum(dim=2).abs().amax(dim=3)
+    return _ulp(cols) / (pt * pf) + (_flip_slack(xn, w) + _sum_slack(C, xn, w)) / (keep * pt * pf)
+
+
+def _dyp_slack(y, dout, scale, bias, mean, var, w, pool, keep=1.0):
+    """dy_partial = inv·γ·(dlin·Wᵀ + dh·lin·σ'): one dlin or xn operand
+    flipping and the float32 rounding of both channel sums, times inv·γ."""
+    inv = torch.rsqrt(var + 1e-3)
+    xn = (y.float() - mean) * inv * scale + bias
+    dh = dout.float().abs().max() / (pool[0] * pool[1] * keep)
+    C = w.shape[0]
+    return (inv * scale).abs().max().item() * (_flip_slack(dh, w) + dh.item() * _flip_slack(xn, w) / 4
+                                                 + 2 * _sum_slack(C, torch.maximum(xn.abs().max(), dh), w))
+
+
+# scaled-shaped K2 geometries: whole pooling rows, window tiles of a 2 × 128
+# pooling row, a partial frequency tile (F = 96: tiles of 64 and 32), pool (2, 8)
+BF16_BLOCKS = [((2, 10, 32, 16), (2, 4)), ((2, 10, 128, 16), (2, 4)), ((1, 6, 96, 128), (2, 4)),
+               ((2, 16, 8, 128), (2, 8)), ((1, 4, 128, 128), (2, 4))]
+
+
+@pytest.mark.parametrize("shape", [(2, 48, 16, 16), (1, 13, 8, 64), (1, 9, 32, 128), (2, 37, 8, 128)])
+def test_conv2d_packed_bf16(cuda, shape):
+    rng = np.random.default_rng(sum(shape) + 3)
+    C = shape[-1]
+    w = _t(rng.uniform(-0.1, 0.1, (3, 3, C, C)), cuda).requires_grad_(True)
+    b = _t(rng.standard_normal(C), cuda).requires_grad_(True)
+    x = _t(rng.standard_normal(shape), cuda).bfloat16().requires_grad_(True)
+    dy = _t(rng.standard_normal(shape), cuda).bfloat16()
+    fns = (packed_conv.conv2d_forward, packed_conv.conv2d_dx, packed_conv.conv2d_wgrad)
+    counts = [(f.launches, f.launches_bf16) for f in fns]
+    out = packed_conv.conv2d_packed({"w": w, "b": b}, x)
+    out.backward(dy)
+    assert [(f.launches, f.launches_bf16) for f in fns] == [(a, c + 1) for a, c in counts]
+    assert out.dtype == x.grad.dtype == torch.bfloat16 and w.grad.dtype == torch.float32
+    wb = w.detach().bfloat16()
+    _within_ulps(out, packed_conv.conv2d_reference({"w": w.detach(), "b": b.detach()}, x.detach()), "out",
+                 _sum_slack(9 * C, x.detach(), wb))
+    # dx against the transpose conv in float64 on the rounded operands, rounded once
+    T, Fq = shape[1], shape[2]
+    dyp = torch.nn.functional.pad(dy.double(), (0, 0, 1, 1, 1, 1))
+    w64 = w.detach().bfloat16().double()
+    exact = sum(dyp[:, 2 - dt: 2 - dt + T, 2 - df: 2 - df + Fq, :] @ w64[dt, df].t()
+                for dt in range(3) for df in range(3))
+    _within_ulps(x.grad, exact.bfloat16(), "dx against float64", _sum_slack(9 * C, dy, wb))
+    _within_ulps(x.grad, packed_conv.conv2d_dx_reference(w.detach(), dy), "dx", 2 * _sum_slack(9 * C, dy, wb))
+    dw, db = packed_conv.conv2d_wgrad(x.detach(), dy)
+    dw_ref, db_ref = packed_conv.conv2d_wgrad_reference(x.detach(), dy)
+    for got, want in ((dw, dw_ref), (db, db_ref)):
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    assert torch.equal(w.grad, dw.bfloat16().float()) and torch.equal(b.grad, db)
+    dw2, _ = packed_conv.conv2d_wgrad(x.detach(), dy)
+    assert torch.equal(dw, dw2)
+
+
+@pytest.mark.parametrize("shape,pool", BF16_BLOCKS)
+def test_fused_block_bf16_forward(cuda, shape, pool):
+    rng = np.random.default_rng(sum(shape) + 4)
+    y = _t(rng.standard_normal(shape), cuda).bfloat16()
+    args = _block_args(rng, shape[-1], cuda)
+    fn = fused_block.fused_bn_glu_pool
+    seed = torch.tensor([4321])
+    for rate in (0.0, 0.5):
+        name = "launches_train_bf16" if rate else "launches_eval_bf16"
+        before = getattr(fn, name)
+        out = fn(y, *args, pool, 1e-3, rate=rate, seed=seed)
+        assert getattr(fn, name) == before + 1 and out.dtype == torch.bfloat16
+        mask = fused_block.dropout_keep_mask(seed, shape, rate, device=cuda) if rate else None
+        ref = fused_block.reference_block(y, *args, pool, 1e-3, mask, 1.0 - rate)
+        _within_ulps(out, ref, f"pooled output, rate {rate}", _pool_slack(y, *args, pool, mask, 1.0 - rate))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("shape,pool", BF16_BLOCKS)
+def test_fused_block_bf16_backward(cuda, shape, pool, rate):
+    rng = np.random.default_rng(sum(shape) + 5)
+    C = shape[-1]
+    y = _t(rng.standard_normal(shape), cuda).bfloat16()
+    scale, bias, _, _, w, b = _block_args(rng, C, cuda)
+    before = (fused_block.batch_stats.launches_bf16, fused_block.bwd_reduce.launches_bf16,
+              fused_block.bwd_fixup.launches_bf16)
+    s, sq = fused_block.batch_stats(y)
+    rs, rsq = (t.sum(dim=(0, 1, 2)) for t in (y.double(), y.double() ** 2))
+    torch.testing.assert_close(s.double(), rs, rtol=1e-6, atol=0)
+    torch.testing.assert_close(sq.double(), rsq, rtol=1e-6, atol=0)
+    n = y.numel() // C
+    mean, var = s / n, sq / n - (s / n) ** 2
+    dout = _t(rng.standard_normal((shape[0], shape[1] // pool[0], shape[2] // pool[1], C)), cuda).bfloat16()
+    seed = torch.tensor([99])
+    mask = fused_block.dropout_keep_mask(seed, shape, rate, device=cuda) if rate else None
+    dyp_ref = fused_block.bwd_reduce_reference(y, dout, scale, bias, mean, var, w, b, pool, 1e-3, mask, 1.0 - rate)[0]
+    ref = fused_block.bwd_reference(y, dout, scale, bias, mean, var, w, b, pool, 1e-3, mask, 1.0 - rate)
+    dyp = fused_block.bwd_reduce(y, dout, scale, bias, mean, var, w, b, pool, 1e-3, rate=rate, seed=seed)[0]
+    slack = _dyp_slack(y, dout, scale, bias, mean, var, w, pool, 1.0 - rate)
+    _within_ulps(dyp, dyp_ref, "dy_partial", slack)
+
+    def run():
+        leaves = [t.clone().requires_grad_(True) for t in (y, scale, bias, w, b)]
+        fused_block.fused_bn_glu_dropout_pool(leaves[0], leaves[1], leaves[2], mean, var, leaves[3], leaves[4],
+                                              seed, rate, pool, 1e-3, True).backward(dout)
+        return [t.grad for t in leaves]
+
+    grads = run()
+    assert (fused_block.batch_stats.launches_bf16, fused_block.bwd_reduce.launches_bf16,
+            fused_block.bwd_fixup.launches_bf16) == (before[0] + 1, before[1] + 2, before[2] + 1)
+    assert grads[0].dtype == torch.bfloat16
+    _within_ulps(grads[0], ref[0], "dy", _ulp(dyp_ref.float()) + slack + 2.0 ** -20 * dyp_ref.float().abs().max())
+    for name, got, want in zip(("dscale", "dbias", "dw", "db"), grads[1:], ref[1:]):
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item(), name
+    for got, rerun in zip(grads, run()):
+        assert torch.equal(got, rerun)  # fixed-order folds: bit-equal on a repeat
+
+
+def test_fused_block_float32_in_window_tiles(cuda):
+    """The float32 kernels at a pooling row of 2 × 128 pixels (window tiles)."""
+    rng = np.random.default_rng(6)
+    shape, pool = (2, 6, 128, 64), (2, 4)
+    y = _t(rng.standard_normal(shape), cuda)
+    args = _block_args(rng, 64, cuda)
+    out = fused_block.fused_bn_glu_pool(y, *args, pool, 1e-3)
+    torch.testing.assert_close(out, fused_block.reference_block(y, *args, pool, 1e-3), rtol=0, atol=1e-5)
+    scale, bias, mean, var, w, b = args
+    dout = _t(rng.standard_normal((2, 3, 32, 64)), cuda)
+    got = fused_block.bwd_reduce(y, dout, scale, bias, mean, var, w, b, pool, 1e-3)
+    want = fused_block.bwd_reduce_reference(y, dout, scale, bias, mean, var, w, b, pool, 1e-3)
+    for g, r in zip(got, want):
+        assert (g - r).abs().max().item() <= 1e-4 * r.abs().max().item()
+
+
+def test_scaled_train_step_on_the_card_repeats_a_cpu_step(cuda):
+    """One Mean-Teacher step of a small scaled-shaped bfloat16 model (128
+    mels, pooling (2, 4) (2, 4) (2, 8), SpecAugment) on the card and on the
+    CPU from the same state and a CPU generator: metrics 1e-4, gradient
+    leaves 2e-2 of their max plus 1e-6 of the largest (bfloat16 roundings
+    that flip between two float32 sums in another order; tests/
+    test_torch_scaled.py states the bars against JAX), gauge leaves 1e-3 of
+    the largest."""
+    import copy
+
+    from dcase2019_task4_tpu_torch.config import ModelConfig, scaled_config
+    from dcase2019_task4_tpu_torch.train import steps
+
+    sc = scaled_config()
+    cfg = ModelConfig(nb_filters=(24, 24, 24), n_rnn_cell=16, pooling=sc.model.pooling, compute_dtype="bfloat16")
+    sa = dict(time_masks=sc.train.sa_time_masks, max_time_width=sc.train.sa_max_time_width,
+              freq_masks=sc.train.sa_freq_masks, max_freq_width=sc.train.sa_max_freq_width)
+    base = steps.init_train_state(cfg, lambda p: torch.optim.Adam(p, lr=1e-3), torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    audio = (0.1 * torch.randn(4, 95 * 511 + 2048, generator=g) * 32768).clamp(-32768, 32767).to(torch.int16)
+    batch = {"audio": audio, "frames": torch.full((4,), 96), "target": (torch.rand(4, 12, 10, generator=g) > 0.8).float()}
+    results = []
+    for device in (torch.device("cpu"), cuda):
+        state = steps.TrainState(copy.deepcopy(base.student).to(device), copy.deepcopy(base.teacher).to(device), None)
+        state.optimizer = torch.optim.Adam(state.student.parameters(), lr=1e-3)
+        step = steps.make_train_step(slice(0, 1), slice(3, 4), rampup_length=10, spec_augment_cfg=sa,
+                                     frontend=MelFrontend(n_mels=128, max_frames=96, device=device))
+        _, metrics, _ = step(state, {k: v.to(device) for k, v in batch.items()},
+                             torch.Generator().manual_seed(2), step.zero_metrics(device))
+        results.append(({k: v.item() for k, v in metrics.items()},
+                        {n: p.grad.cpu() for n, p in state.student.named_parameters()}))
+    (m_cpu, g_cpu), (m_gpu, g_gpu) = results
+    for k in m_cpu:
+        assert abs(m_cpu[k] - m_gpu[k]) <= 1e-4, k
+    top = max(a.abs().max().item() for a in g_cpu.values())
+    for name, a in g_cpu.items():
+        gauge = name.endswith(".conv.bias") or name.startswith("dense_softmax.")
+        limit = 2e-2 * a.abs().max().item() + (1e-3 if gauge else 1e-6) * top
+        assert (a - g_gpu[name]).abs().max().item() <= limit, name
