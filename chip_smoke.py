@@ -43,7 +43,18 @@ printing a result:
      max; the
      library call is cuDNN's bfloat16 conv for K3; the bounds count the
      channel products on bfloat16 operands at the tensor cores' 989 TFLOP/s
-     and the rest at 67 TFLOP/s, the bytes of bfloat16 tensors at two a value;
+     and the rest at 67 TFLOP/s, the bytes of bfloat16 tensors at two a value.
+     Then the same bfloat16 K3 and K2 rows at the flagship's shapes (64
+     channels, the `_flagship` rows; K3's weight gradient there is the
+     gradient of the bfloat16 weights, each output-frequency class's sum
+     rounded, held element by element to one ulp of itself plus one of each
+     class sum), and the bfloat16 modes of the entry-block family at the
+     flagship block-1 shape: K4f (y bfloat16, its float32 sums, against
+     cuDNN's bfloat16 conv), K5s, K4w and K5b2 (dW in output-frequency
+     parities), K5f eval and dropout (also against K4f -> K2f with the same
+     seed), K5b1, and the crows entries in their own mode (each g rounded
+     before the pool, dW in batch halves: bit for bit as the fused entry
+     block's wrappers with layout "crows", and held to the plain versions);
   4. predict — 48 synthetic 10 s wavs (two batches of 24) and a checkpoint
      of a seeded flagship CRNN written by the port's own writer, through
      `cli.predict(... --device cuda)`: the TSVs parse, every kernel of the
@@ -59,7 +70,9 @@ printing a result:
      at every block, no float32 K2 or K3, no plain block), strong
      probabilities of the CUDA run within 5e-3 of the CPU run's (largest
      difference and differing event rows printed), clips/s and the device
-     time of a warm call;
+     time of a warm call; the same for a flagship checkpoint stored with
+     bfloat16 compute and `entry_block_pallas=True` (the fused first block
+     in bfloat16 once per batch, bfloat16 K3 and K2 at blocks 2 and 3);
   5. train — five Mean-Teacher steps at the flagship `Config()`, batch 24
      laid out [weak 6 | unlabeled 12 | synthetic 6], int16 audio of 24 seeded
      synthetic clips, state from a seeded CPU generator, Adam(1e-3): losses
@@ -85,7 +98,14 @@ printing a result:
      largest: bfloat16 roundings that flip between float32 sums in another
      order), then five steps at the full batch of 24 with the generator on
      the card: launches per step exact, ms per step, a torch.profiler
-     breakdown of one warm step, peak memory.
+     breakdown of one warm step, peak memory. Then the flagship `Config()`
+     in bfloat16 under the default first block and each first-block flag:
+     step 1 at [1|2|1] on the card against its own CPU run (the scaled
+     bars; under the crows flag block 1's conv weight is held as a gauge
+     leaf: its two batch-half sums nearly cancel), three steps at batch 24
+     with the generator on the card (launches per step exact, ms per step,
+     peak memory, block 1's device time), and the gap of each flag's step-1
+     loss to the bfloat16 default printed as information.
 
 The line before the last is {"kernels": [...]}: every number in it is one
 this run measured (launches on both paths as counted, the largest error
@@ -161,11 +181,39 @@ KERNELS = {
     "batch_stats_bf16": (CSRC + "fused_block.cu", JAX_OPS + "fused_block.py:591"),
     "bwd_reduce_bf16": (CSRC + "fused_block.cu", JAX_OPS + "fused_block.py:289"),
     "bwd_fixup_bf16": (CSRC + "fused_block.cu", JAX_OPS + "fused_block.py:332"),
+    # the same bfloat16 kernels at the flagship's shapes (64 channels; K3's
+    # weight gradient rounded per output-frequency class, k = 2)
+    "conv2d_forward_bf16_flagship": (CSRC + "packed_conv.cu", JAX_OPS + "packed_conv.py:122"),
+    "conv2d_dx_bf16_flagship": (CSRC + "packed_conv.cu", JAX_OPS + "packed_conv.py:276"),
+    "conv2d_wgrad_bf16_flagship": (CSRC + "packed_conv.cu", JAX_OPS + "packed_conv.py:147"),
+    "fused_bn_glu_pool_eval_bf16_flagship": (CSRC + "fused_block.cu", JAX_OPS + "fused_block.py:243"),
+    "fused_bn_glu_pool_train_bf16_flagship": (CSRC + "fused_block.cu", JAX_OPS + "fused_block.py:243"),
+    "batch_stats_bf16_flagship": (CSRC + "fused_block.cu", JAX_OPS + "fused_block.py:591"),
+    "bwd_reduce_bf16_flagship": (CSRC + "fused_block.cu", JAX_OPS + "fused_block.py:289"),
+    "bwd_fixup_bf16_flagship": (CSRC + "fused_block.cu", JAX_OPS + "fused_block.py:332"),
+    # the bfloat16 modes of the entry-block family, run by the flagship
+    # bfloat16 model under the first-block flags
+    "entry_conv_bf16": (CSRC + "entry_block.cu", JAX_OPS + "entry_conv.py:181"),
+    "entry_conv_wgrad_bf16": (CSRC + "entry_block.cu", JAX_OPS + "entry_conv.py:214"),
+    "entry_block_stats_bf16": (CSRC + "entry_block.cu", JAX_OPS + "fused_entry_block.py:255"),
+    "entry_block_fwd_eval_bf16": (CSRC + "entry_block.cu", JAX_OPS + "fused_entry_block.py:283"),
+    "entry_block_fwd_train_bf16": (CSRC + "entry_block.cu", JAX_OPS + "fused_entry_block.py:283"),
+    "entry_block_bwd_reduce_bf16": (CSRC + "entry_block.cu", JAX_OPS + "fused_entry_block.py:325"),
+    "entry_block_bwd_wgrad_bf16": (CSRC + "entry_block.cu", JAX_OPS + "fused_entry_block.py:361"),
+    "crows_stats_bf16": (CSRC + "entry_block.cu", JAX_OPS + "crows_block.py:375"),
+    "crows_fwd_bf16": (CSRC + "entry_block.cu", JAX_OPS + "crows_block.py:404"),
+    "crows_bwd_reduce_bf16": (CSRC + "entry_block.cu", JAX_OPS + "crows_block.py:442"),
+    "crows_bwd_wgrad_bf16": (CSRC + "entry_block.cu", JAX_OPS + "crows_block.py:479"),
 }
+SCALED_ROWS = ("conv2d_forward_bf16", "conv2d_dx_bf16", "conv2d_wgrad_bf16", "fused_bn_glu_pool_eval_bf16",
+               "fused_bn_glu_pool_train_bf16", "batch_stats_bf16", "bwd_reduce_bf16", "bwd_fixup_bf16")
+# a flagship row counts its kernel's launches on the counter of the scaled row
+ALIASES = {name + "_flagship": name for name in SCALED_ROWS}
 # a crows row names the kernel it launches; phase 3 calls the crows entries
 # themselves and holds them bit for bit to that kernel's own wrapper
 SAME_KERNEL = {"crows_stats": "entry_block_stats", "crows_fwd": "entry_block_fwd_train",
-               "crows_bwd_reduce": "entry_block_bwd_reduce", "crows_bwd_wgrad": "entry_block_bwd_wgrad"}
+               "crows_bwd_reduce": "entry_block_bwd_reduce", "crows_bwd_wgrad": "entry_block_bwd_wgrad",
+               "crows_bwd_reduce_bf16": "entry_block_bwd_reduce_bf16"}
 # Launches each path makes: exactly these on predict (two batches) and on one
 # MT step (teacher forward, student forward and backward), and none of a
 # kernel the path has no entry for.
@@ -186,9 +234,27 @@ STEP_ENTRY_CONV = dict(STEP_MIN, batch_stats=4, entry_conv=2, entry_conv_wgrad=1
 PREDICT_SCALED = {"fused_stft_mel": 2, "conv2d_forward_bf16": 4, "fused_bn_glu_pool_eval_bf16": 6}
 STEP_SCALED = {"fused_stft_mel": 1, "conv2d_forward_bf16": 4, "conv2d_dx_bf16": 2, "conv2d_wgrad_bf16": 2,
                "fused_bn_glu_pool_train_bf16": 6, "batch_stats_bf16": 6, "bwd_reduce_bf16": 3, "bwd_fixup_bf16": 3}
+# the flagship in bfloat16: the default first block (cuDNN's bfloat16 conv),
+# then each flag in bfloat16
+PREDICT_BF16_ENTRY_BLOCK = {"fused_stft_mel": 2, "conv2d_forward_bf16": 4, "fused_bn_glu_pool_eval_bf16": 4,
+                            "entry_block_fwd_eval_bf16": 2}
+STEP_BF16 = dict(STEP_SCALED)
+# the flagship rows are counted on these paths, under their scaled rows' counters
+STEP_BF16.update({alias: STEP_BF16[name] for alias, name in ALIASES.items() if name in STEP_BF16})
+PREDICT_BF16_ENTRY_BLOCK["fused_bn_glu_pool_eval_bf16_flagship"] = PREDICT_BF16_ENTRY_BLOCK["fused_bn_glu_pool_eval_bf16"]
+STEP_BF16_ENTRY_BLOCK = {"fused_stft_mel": 1, "conv2d_forward_bf16": 4, "conv2d_dx_bf16": 2, "conv2d_wgrad_bf16": 2,
+                         "fused_bn_glu_pool_train_bf16": 4, "batch_stats_bf16": 4, "bwd_reduce_bf16": 2,
+                         "bwd_fixup_bf16": 2, "entry_block_stats_bf16": 2, "entry_block_fwd_train_bf16": 2,
+                         "entry_block_bwd_reduce_bf16": 1, "entry_block_bwd_wgrad_bf16": 1}
+STEP_BF16_CROWS = dict(STEP_BF16_ENTRY_BLOCK, crows_stats_bf16=2, crows_fwd_bf16=2, crows_bwd_reduce_bf16=1,
+                       crows_bwd_wgrad_bf16=1)
+STEP_BF16_ENTRY_CONV = dict(STEP_BF16, batch_stats_bf16=4, entry_conv_bf16=2, entry_conv_wgrad_bf16=1)
 PATHS = {"predict": PREDICT_MIN, "predict_entry_block": PREDICT_ENTRY_BLOCK, "step": STEP_MIN,
          "step_entry_block": STEP_ENTRY_BLOCK, "step_crows": STEP_CROWS, "step_entry_conv": STEP_ENTRY_CONV,
-         "predict_scaled": PREDICT_SCALED, "step_scaled": STEP_SCALED}
+         "predict_scaled": PREDICT_SCALED, "step_scaled": STEP_SCALED,
+         "predict_bf16_entry_block": PREDICT_BF16_ENTRY_BLOCK, "step_bf16": STEP_BF16,
+         "step_bf16_entry_block": STEP_BF16_ENTRY_BLOCK, "step_bf16_crows": STEP_BF16_CROWS,
+         "step_bf16_entry_conv": STEP_BF16_ENTRY_CONV}
 # the path whose run gives a row its `launches`
 ROW_PATH = {name: "predict" if name in PREDICT_MIN else "step" for name in list(PREDICT_MIN) + list(STEP_MIN)}
 ROW_PATH.update({"entry_block_fwd_eval": "predict_entry_block", "entry_conv": "step_entry_conv",
@@ -196,10 +262,19 @@ ROW_PATH.update({"entry_block_fwd_eval": "predict_entry_block", "entry_conv": "s
                  "entry_block_fwd_train": "step_entry_block", "entry_block_bwd_reduce": "step_entry_block",
                  "entry_block_bwd_wgrad": "step_entry_block", "crows_stats": "step_crows", "crows_fwd": "step_crows",
                  "crows_bwd_reduce": "step_crows", "crows_bwd_wgrad": "step_crows"})
-ROW_PATH.update({name: "predict_scaled" if name in PREDICT_SCALED else "step_scaled"
-                 for name in KERNELS if name.endswith("_bf16")})
+ROW_PATH.update({name: "predict_scaled" if name in PREDICT_SCALED else "step_scaled" for name in SCALED_ROWS})
+ROW_PATH.update({alias: "predict_bf16_entry_block" if name in PREDICT_BF16_ENTRY_BLOCK else "step_bf16"
+                 for alias, name in ALIASES.items()})
+ROW_PATH.update({"entry_block_fwd_eval_bf16": "predict_bf16_entry_block", "entry_conv_bf16": "step_bf16_entry_conv",
+                 "entry_conv_wgrad_bf16": "step_bf16_entry_conv", "entry_block_stats_bf16": "step_bf16_entry_block",
+                 "entry_block_fwd_train_bf16": "step_bf16_entry_block",
+                 "entry_block_bwd_reduce_bf16": "step_bf16_entry_block",
+                 "entry_block_bwd_wgrad_bf16": "step_bf16_entry_block", "crows_stats_bf16": "step_bf16_crows",
+                 "crows_fwd_bf16": "step_bf16_crows", "crows_bwd_reduce_bf16": "step_bf16_crows",
+                 "crows_bwd_wgrad_bf16": "step_bf16_crows"})
 FIRST_BLOCK_FLAGS = {"step_entry_block": "entry_block_pallas", "step_crows": "entry_block_crows",
-                     "step_entry_conv": "entry_conv_pallas"}
+                     "step_entry_conv": "entry_conv_pallas", "step_bf16_entry_block": "entry_block_pallas",
+                     "step_bf16_crows": "entry_block_crows", "step_bf16_entry_conv": "entry_conv_pallas"}
 
 
 def wrappers():
@@ -207,7 +282,7 @@ def wrappers():
     from dcase2019_task4_tpu_torch.ops import (crows_block, entry_conv, fused_block, fused_entry_block, fused_mel,
                                                packed_conv)
 
-    return {
+    counters = {
         "fused_stft_mel": (fused_mel.fused_stft_mel, "launches"),
         "conv2d_forward": (packed_conv.conv2d_forward, "launches"),
         "conv2d_dx": (packed_conv.conv2d_dx, "launches"),
@@ -236,7 +311,20 @@ def wrappers():
         "batch_stats_bf16": (fused_block.batch_stats, "launches_bf16"),
         "bwd_reduce_bf16": (fused_block.bwd_reduce, "launches_bf16"),
         "bwd_fixup_bf16": (fused_block.bwd_fixup, "launches_bf16"),
+        "entry_conv_bf16": (entry_conv.entry_conv_forward, "launches_bf16"),
+        "entry_conv_wgrad_bf16": (entry_conv.entry_conv_wgrad, "launches_bf16"),
+        "entry_block_stats_bf16": (fused_entry_block.entry_block_stats_apply, "launches_bf16"),
+        "entry_block_fwd_eval_bf16": (fused_entry_block.entry_block_fwd, "launches_eval_bf16"),
+        "entry_block_fwd_train_bf16": (fused_entry_block.entry_block_fwd, "launches_train_bf16"),
+        "entry_block_bwd_reduce_bf16": (fused_entry_block.entry_block_bwd_reduce, "launches_bf16"),
+        "entry_block_bwd_wgrad_bf16": (fused_entry_block.entry_block_bwd_wgrad, "launches_bf16"),
+        "crows_stats_bf16": (crows_block.crows_stats_apply, "launches_bf16"),
+        "crows_fwd_bf16": (crows_block.crows_apply, "launches_train_bf16"),
+        "crows_bwd_reduce_bf16": (crows_block.crows_apply, "launches_bwd_reduce_bf16"),
+        "crows_bwd_wgrad_bf16": (crows_block.crows_apply, "launches_bwd_wgrad_bf16"),
     }
+    counters.update({alias: counters[name] for alias, name in ALIASES.items()})  # a flagship row: its scaled row's counter
+    return counters
 
 
 def zero_launches():
@@ -253,6 +341,8 @@ def check_launches(launches, per_run, times: int, path: str):
     """Every kernel of the path launched exactly `times` × its count, and
     every kernel that is not of the path launched no time."""
     for name, count in launches.items():
+        if name in ALIASES:
+            continue  # counted under its scaled row's name
         if name in per_run and count != times * per_run[name]:
             raise AssertionError(f"{name} launched {count} times on {path} (expected {times * per_run[name]})")
         if name not in per_run and count != 0:
@@ -297,11 +387,6 @@ def shown(ms, digits: int = 4) -> str:
     return "not measured" if ms is None else f"{ms:.{digits}f}"
 
 
-def less(ms, other):
-    """`ms - other`, not below 0; None where either reading is missing."""
-    return None if ms is None or other is None else max(ms - other, 0.0)
-
-
 PROFILER = {"lost": False}  # set once every try of one reading came back without its device events
 
 
@@ -335,24 +420,45 @@ def profiled(fn, with_host: bool = False, complete=None, tries: int = 3):
     return None
 
 
-def device_ms(fn, runs: int = 3) -> Optional[float]:
+def device_ms(fn, runs: int = 5, only: Optional[str] = None) -> Optional[float]:
     """What the card itself spends on one call of `fn`: torch.profiler's sum
-    over every kernel and copy the call puts on the device, median of `runs`
-    traces of one call each (a trace that lost events reads low and falls
-    out of the median). Unlike `time_ms` it leaves out the gaps in which the device waits
-    for the wrapper's host-side work (argument checks, allocations, the
-    copy of the seed), which move with the host's load from call to call.
-    None when the profiler gave no usable trace."""
+    over every kernel and copy the call puts on the device (those whose name
+    holds `only`, where given), median over `runs` traces of one call each.
+    A trace can come back without some of its kernels (seen on an H100: the
+    main kernel of a call lost, its fold kept), so only the traces that hold
+    every kernel any of the traces holds, as often, are counted; and each
+    trace opens with a short spin kernel, not counted, so that a kernel the
+    tracer drops at the start of a trace is not one of the call's. Unlike
+    `time_ms` it leaves out the gaps in which the device waits for the
+    wrapper's host-side work (argument checks, allocations, the copy of the
+    seed), which move with the host's load from call to call. None when the
+    profiler gave no usable trace."""
+    from collections import Counter
+
+    import torch
     from torch.autograd import DeviceType
 
+    def spin_then_call():
+        torch.cuda._sleep(20000)
+        fn()
+
     fn()
-    totals = []
+    traces = []
     for _ in range(runs):
-        prof = profiled(fn)
+        prof = profiled(spin_then_call)
         if prof is None:
             return None
-        totals.append(sum(event_us(e) for e in prof.events() if e.device_type == DeviceType.CUDA))
-    return float(np.median(totals)) / 1e3
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name
+                  and (only is None or only in e.name)]
+        traces.append((Counter(e.name for e in events), sum(event_us(e) for e in events)))
+    every = Counter()
+    for names, _ in traces:
+        every |= names
+    complete = [total for names, total in traces if names == every]
+    if not complete:
+        print(f"  torch.profiler: none of {runs} traces held every kernel of the call; not measured")
+        return None
+    return float(np.median(complete)) / 1e3
 
 
 def bound_ms(n_bytes: float, n_ops: float, n_ops_bf16: float = 0.0):
@@ -395,7 +501,13 @@ class Row:
         b, by = bound_ms(n_bytes, n_ops, n_ops_bf16)
         self.note_err(res)
         self.ms, self.plain_ms = self.ms + res.ms, self.plain_ms + res.plain_ms
-        self.device_ms = None if self.device_ms is None or res.device_ms is None else self.device_ms + res.device_ms
+        on_device = res.device_ms
+        if on_device is not None and on_device < b:
+            # below the least time the card could take: the traces lost the main
+            # kernel (seen on an H100: every trace of a call held its fold alone)
+            print(f"  {list(shape)}: device reading {on_device:.4f} ms is below the bound {b:.4f} ms; not measured")
+            on_device = None
+        self.device_ms = None if self.device_ms is None or on_device is None else self.device_ms + on_device
         self.shapes.append({"shape": list(shape), "bound_by": by, "bound_ms": b})
         if res.library_ms is not None:
             first = self.library_ms is None
@@ -419,7 +531,7 @@ class Row:
 
 
 def compare(name, kernel_fn, plain_fn, atol=None, rtol_of_max=None, library_fn=None, repeat=False,
-            tols=None, exact_fn=None) -> Result:
+            tols=None, exact_fn=None, device_only=None) -> Result:
     """Run kernel and plain version once, check every output's error, then
     time both (and the library call). Functions return a tensor or a tuple.
     With `repeat` the kernel runs again and must give the same bits. `tols`:
@@ -427,12 +539,18 @@ def compare(name, kernel_fn, plain_fn, atol=None, rtol_of_max=None, library_fn=N
     `rtol_of_max` holds every output. `exact_fn`: a float64 run of the plain
     version to hold the outputs to instead (`plain_fn` is still what is
     timed); it returns (outputs, floor per output), the floor added to that
-    output's limit. ("ulp", slack): a bfloat16 output, held element by
+    output's limit. `device_only`: the kernel's device time counts only the
+    kernels whose name holds it (a call that also copies its input).
+    ("ulp", slack): a bfloat16 output, held element by
     element to one bfloat16 ulp of the larger of the two values plus `slack`
     (a number or a tensor of the output's shape: what one operand rounding
     the other way and the float32 rounding of the sums may add), with at
     most FLIP_SHARE of the elements beyond the one ulp alone; its limit is
-    reported as the largest of the element limits."""
+    reported as the largest of the element limits. ("parts", slack): the
+    same element rule with no share asked, for a weight gradient summed from
+    parts that are each rounded to bfloat16 (few elements, and where the
+    parts nearly cancel a flipped rounding of a part exceeds the element's
+    own ulp)."""
     import torch
 
     def as_list(out):
@@ -456,7 +574,7 @@ def compare(name, kernel_fn, plain_fn, atol=None, rtol_of_max=None, library_fn=N
             raise AssertionError(f"{name}: shape {tuple(out.shape)} != plain {tuple(ref.shape)}")
         if not torch.isfinite(out).all():
             raise AssertionError(f"{name}: non-finite output")
-        if kind == "ulp":
+        if kind in ("ulp", "parts"):
             o, r = out.float(), ref.float()
             diff = (o - r).abs()
             ulp = bf16_ulp(torch.maximum(o.abs(), r.abs()))
@@ -467,7 +585,7 @@ def compare(name, kernel_fn, plain_fn, atol=None, rtol_of_max=None, library_fn=N
             del o, r, diff, lim, ulp
             share = beyond / out.numel()
             report.append(f"{err:.3e}/(one bfloat16 ulp + slack; {beyond} elements beyond one ulp, share {share:.1e})")
-            if bad or share > FLIP_SHARE:
+            if bad or (kind == "ulp" and share > FLIP_SHARE):
                 raise AssertionError(f"{name}: {bad} elements beyond one bfloat16 ulp + slack, {beyond} beyond one ulp "
                                      f"(share {share:.2e}, at most {FLIP_SHARE}; largest error {err})")
         else:
@@ -485,7 +603,7 @@ def compare(name, kernel_fn, plain_fn, atol=None, rtol_of_max=None, library_fn=N
     del outs, refs
     ms, plain_ms = time_ms(kernel_fn), time_ms(plain_fn)
     library_ms = time_ms(library_fn) if library_fn is not None else None
-    on_device = device_ms(kernel_fn)
+    on_device = device_ms(kernel_fn, only=device_only)
     library_on_device = device_ms(library_fn) if library_fn is not None else None
     lib = f", library {library_ms:.4f} ms ({shown(library_on_device)} on the device)" if library_ms is not None else ""
     print(f"  {name}: err/limit {' '.join(report)}{', repeats bit for bit' if repeat else ''}; "
@@ -498,6 +616,30 @@ def bf16_ulp(t):
     import torch
 
     return torch.exp2(torch.floor(torch.log2(t.abs().float().clamp_min(2.0 ** -126))) - 7)
+
+
+def check_parts(name, parts_fn, want, extra=0.0):
+    """A bfloat16 weight gradient's partition, read from the kernel itself.
+    `parts_fn` (a `*_wgrad_parts` wrapper) returns dW, its second output and
+    the float32 part sums the kernel's fold read; each part is held to the
+    plain version's (`want`) within 1e-4 of the parts' max plus `extra`,
+    and dW must be, bit for bit, the sum of the parts each rounded to
+    bfloat16 in part order. A kernel that splits the sum otherwise than the
+    original, or rounds the whole sum once, fails here."""
+    import torch
+
+    dw, _, parts = parts_fn()
+    want = torch.stack(list(want))
+    if parts.shape != want.shape:
+        raise AssertionError(f"{name}: part sums {tuple(parts.shape)} != plain {tuple(want.shape)}")
+    err, limit = (parts - want).abs().max().item(), 1e-4 * want.abs().max().item() + extra
+    if not err <= limit:
+        raise AssertionError(f"{name}: the kernel's part sums differ from the plain version's by {err} > {limit}")
+    if not torch.equal(dw, sum(p.bfloat16().float() for p in parts)):
+        raise AssertionError(f"{name}: dW is not the sum of the kernel's part sums each rounded to bfloat16")
+    once = int((dw != parts.sum(0).bfloat16().float()).sum().item())
+    print(f"  {name}: {parts.shape[0]} part sums, err/limit {err:.3e}/{limit:.3e}; dW is their bfloat16 sum bit "
+          f"for bit ({once} of {dw.numel()} elements differ from one rounding of the whole sum)")
 
 
 def sum_slack(n: int, a_max: float, b_max: float) -> float:
@@ -726,11 +868,12 @@ def phase_kernels(device):
         dyp, _, _, s1, s2 = fb.bwd_reduce(y, dout, scale, bias, mean, var, w, gb, pool, m.bn_eps, rate=rate, seed=seed)
         a, b2 = fb.bwd_coefficients(scale, var, m.bn_eps, s1, s2, pixels)
         res = compare(f"K2b bwd_fixup {shape}", lambda: fb.bwd_fixup(y, dyp.clone(), a, b2, mean),
-                      lambda: fb.bwd_fixup_reference(y, dyp.clone(), a, b2, mean), rtol_of_max=1e-4, repeat=True)
-        # both timed with a clone of dy_partial (the kernel writes in place); take it off
+                      lambda: fb.bwd_fixup_reference(y, dyp.clone(), a, b2, mean), rtol_of_max=1e-4, repeat=True,
+                      device_only="bn_bwd_fixup_kernel")
+        # both timed with a clone of dy_partial (the kernel writes in place); take it
+        # off the event times (the device time counts the fixup kernel alone)
         clone_ms = time_ms(lambda: dyp.clone())
-        res = res._replace(ms=max(res.ms - clone_ms, 0.0), plain_ms=max(res.plain_ms - clone_ms, 0.0),
-                           device_ms=less(res.device_ms, device_ms(lambda: dyp.clone())))
+        res = res._replace(ms=max(res.ms - clone_ms, 0.0), plain_ms=max(res.plain_ms - clone_ms, 0.0))
         rows["bwd_fixup"].add(shape, res, 3 * y_bytes, 3.0 * y.numel())
         print(f"  K2b bwd_fixup {shape}: clone of dy_partial {clone_ms:.4f} ms taken off both times")
 
@@ -746,7 +889,12 @@ def phase_kernels(device):
         del y, dout, mask, dyp, leaves, ref, pooled
         torch.cuda.empty_cache()
     helpers = entry_kernels(device, rows, rng)
-    scaled_kernels(device, rows, rng)
+    from dcase2019_task4_tpu_torch.config import scaled_config
+
+    bf16_block_kernels(device, rows, rng, scaled_config())
+    flagship = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"))
+    bf16_block_kernels(device, rows, rng, flagship, "_flagship")
+    entry_bf16_kernels(device, rows, rng)
     return rows, helpers
 
 
@@ -970,20 +1118,252 @@ def entry_kernels(device, rows, rng):
              "device_ms": mask_device_ms, "plain_ms": plain_ms, "bound_ms": mask_bound, "bound_by": "bytes", "library_ms": None}]
 
 
-def scaled_kernels(device, rows, rng):
-    """Phase 3 for the bfloat16 modes at the scaled configuration's shapes:
-    K3 at blocks 2 and 3 ([B, 432, 32, 128], [B, 216, 8, 128]), K2 at the
-    three blocks ([B, 864, 128, 128] and [B, 432, 32, 128] with pool (2, 4),
-    [B, 216, 8, 128] with pool (2, 8)), batch 24, bfloat16 activations and
-    float32 parameters, as a bfloat16 model hands them over."""
+def entry_pool_slack(y, scale, bias, mean, var, w, b, pool, eps, mask=None, keep=1.0, layout="planes"):
+    """Slack of the fused first block's bf16 pooled output: `pool_slack`'s
+    terms, with one rounding after a float32 sum flipped where `layout`
+    rounds (a pt-row column sum for "planes", each g for "crows"), plus one
+    conv output y rounding to the other bfloat16 neighbour (the kernel's and
+    the plain version's nine-term sums differ in the last bit now and then):
+    Δxn = ulp(max|y|)·max|inv·γ| moves lin by Δxn·max|W| and the gate by
+    Δxn·max|lin|/4, over pt·pf."""
+    import torch
+
+    inv = torch.rsqrt(var + eps)
+    xn = (y.float() - mean) * inv * scale + bias
+    lin = xn.bfloat16().float() @ w.bfloat16().float() + b
+    dxn = bf16_ulp(y.float().abs().max()).item() * (inv * scale).abs().max().item()
+    y_flip = dxn * (w.abs().max().item() + lin.abs().max().item() / 4) / (keep * pool[0] * pool[1])
+    if layout == "planes":
+        del xn, lin
+        return pool_slack(y, scale, bias, mean, var, w, b, pool, eps, mask, keep) + y_flip
+    g = lin * torch.sigmoid(xn)
+    del lin
+    if mask is not None:
+        g = g * mask * (1.0 / keep)
+    B, T, F, C = g.shape
+    pt, pf = pool
+    top = g.reshape(B, T // pt, pt, F // pf, pf, C).abs().amax(dim=(2, 4))
+    xn_max, w_max = xn.abs().max().item(), w.abs().max().item()
+    del g, xn
+    return bf16_ulp(top) + (flip_slack(xn_max, w_max) + sum_slack(C, xn_max, w_max)) / (keep * pt * pf) + y_flip
+
+
+def entry_bf16_kernels(device, rows, rng):
+    """Phase 3 for the bfloat16 modes of the entry-block family at the
+    flagship block-1 shape (x [B, 864, 64] -> y [B, 864, 64, 64] -> pooled
+    [B, 432, 16, 64]), as the flagship bfloat16 model hands them over: the
+    features cast to bfloat16, float32 parameters, bfloat16 cotangents.
+    Every kernel against its plain version, which rounds where the kernel
+    rounds; the folds repeated bit for bit; the crows entries bit for bit
+    as the fused entry block's wrappers in the crows layout. Bounds count
+    the conv's nine-tap and the GLU's C×C products on bfloat16 operands
+    (989 TFLOP/s), the rest at 67 TFLOP/s, bfloat16 tensors at two bytes a
+    value."""
+    import torch
+
+    from dcase2019_task4_tpu_torch.config import Config
+    from dcase2019_task4_tpu_torch.models import layers as L
+    from dcase2019_task4_tpu_torch.ops import crows_block as cr
+    from dcase2019_task4_tpu_torch.ops import entry_conv as ec
+    from dcase2019_task4_tpu_torch.ops import fused_block as fb
+    from dcase2019_task4_tpu_torch.ops import fused_entry_block as fe
+
+    cfg = Config()
+    d, m = cfg.dsp, cfg.model
+    B, T, Fq, C = cfg.train.batch_size, d.max_frames, d.n_mels, m.nb_filters[0]
+    pool, eps, rate = tuple(m.pooling[0]), m.bn_eps, m.dropout
+    bf16, keep = torch.bfloat16, 1.0 - rate
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    x = t(rng.standard_normal((B, T, Fq))).to(bf16)
+    lim = np.sqrt(2.0) * np.sqrt(6.0 / (9 * (1 + C)))
+    conv = {"w": t(rng.uniform(-lim, lim, (3, 3, 1, C))), "b": t(0.1 * rng.standard_normal(C))}
+    scale, bias = t(1 + 0.1 * rng.standard_normal(C)), t(0.1 * rng.standard_normal(C))
+    gw, gb = t(rng.standard_normal((C, C)) / np.sqrt(C)), t(0.1 * rng.standard_normal(C))
+    run_mean, run_var = t(0.2 * rng.standard_normal(C)), t(rng.uniform(0.5, 2.0, C))
+    dy = t(rng.standard_normal((B, T, Fq, C))).to(bf16)
+    dout = t(rng.standard_normal((B, T // pool[0], Fq // pool[1], C))).to(bf16)
+    seed = torch.tensor([20190416], dtype=torch.int64)
+    pixels = B * T * Fq
+    shape = [B, T, Fq, C]
+    x_bytes, y_bytes, out_bytes = x.numel() * 2, pixels * C * 2, dout.numel() * 2
+    small = (10 * C + C * C + 5 * C) * 4
+    conv_ops, mix_ops = 2.0 * 9 * pixels * C, 2.0 * pixels * C * C
+    elements = float(pixels * C)  # per element of the chain: see entry_kernels
+    fwd_eval_ops, fwd_train_ops = (10 + 2) * elements, (10 + 2 + 2) * elements
+    pass1_ops, pass2_ops = (10 + 8 + 4) * elements, (10 + 8 + 6) * elements
+    w_oihw = conv["w"].permute(3, 2, 0, 1).contiguous()
+    x_max, w_max = x.float().abs().max().item(), conv["w"].abs().max().item()
+
+    # K4f: y in bfloat16 and the float32 sums of y as stored; the library is the
+    # default bfloat16 path's own conv (cuDNN, bias added in bfloat16)
+    res = compare(f"K4f entry_conv bf16 {shape} (y bf16, sum, sum of squares)",
+                  lambda: ec.entry_conv_forward(conv, x), lambda: ec.entry_conv_reference(conv, x),
+                  tols=[("ulp", sum_slack(9, x_max, w_max)), ("max", 1e-5), ("max", 1e-5)], repeat=True,
+                  library_fn=lambda: L.conv2d(w_oihw, conv["b"], x[..., None]))
+    rows["entry_conv_bf16"].add(shape, res, x_bytes + y_bytes + small, 3.0 * pixels * C, conv_ops)
+    y, s1, s2 = ec.entry_conv_forward(conv, x)
+    res = compare(f"K5s entry_block_stats bf16 {shape} (sum, sum of squares of the rounded y; y not written)",
+                  lambda: fe.entry_block_stats_apply(conv, x), lambda: ec.entry_conv_reference(conv, x)[1:],
+                  rtol_of_max=1e-5, repeat=True)
+    rows["entry_block_stats_bf16"].add(shape, res, x_bytes + small, 3.0 * pixels * C, conv_ops)
+    k2s = fb.batch_stats(y)
+    for name, sums in (("K4f", (s1, s2)), ("K5s", fe.entry_block_stats_apply(conv, x))):
+        for got, want in zip(sums, k2s):
+            err, limit = (got - want).abs().max().item(), 1e-6 * want.abs().max().item()
+            if not err <= limit:
+                raise AssertionError(f"{name} bf16 sums against batch_stats(y): {err} exceeds {limit}")
+    print("  K4f and K5s bf16 sums equal K2s batch_stats of the stored bfloat16 y within 1e-6 of max")
+    mean = s1 / float(pixels)
+    var = s2 / float(pixels) - mean * mean
+
+    # K4w: dW of the bfloat16 weights in two output-frequency parities, db float32
+    w_leaf, b_leaf = w_oihw.clone().requires_grad_(True), conv["b"].clone().requires_grad_(True)
+    y_graph = L.conv2d(w_leaf, b_leaf, x[..., None])
+
+    def library_wgrad():
+        return torch.autograd.grad(y_graph, (w_leaf, b_leaf), dy, retain_graph=True)
+
+    parts = ec.entry_conv_wgrad_parts_reference(x, dy)
+    slack = sum(bf16_ulp(p) for p in parts)
+    res = compare(f"K4w entry_conv_wgrad bf16 {shape} (dW per output-frequency parity, db)",
+                  lambda: ec.entry_conv_wgrad(x, dy), lambda: ec.entry_conv_wgrad_reference(x, dy),
+                  tols=[("parts", slack), ("max", 1e-4)], repeat=True, library_fn=library_wgrad)
+    rows["entry_conv_wgrad_bf16"].add(shape, res, x_bytes + y_bytes + small, 1.0 * pixels * C, conv_ops)
+    check_parts("K4w bf16 output-frequency parities", lambda: ec.entry_conv_wgrad_parts(x, dy), parts)
+    del dy, y_graph, w_leaf, b_leaf, slack, parts
+
+    # K5f: eval (running statistics) and train (batch statistics, dropout), planes rounding
+    block = (conv["w"], conv["b"], scale, bias)
+    y_ref = ec.entry_conv_reference(conv, x)[0]
+    slack = entry_pool_slack(y_ref, scale, bias, run_mean, run_var, gw, gb, pool, eps)
+    res = compare(f"K5f entry_block_fwd eval bf16 {shape}",
+                  lambda: fe.entry_block_fwd(x, *block, run_mean, run_var, gw, gb, pool, eps),
+                  lambda: fe.reference_entry_block(x, *block, run_mean, run_var, gw, gb, pool, eps),
+                  tols=[("ulp", slack)])
+    rows["entry_block_fwd_eval_bf16"].add(shape, res, x_bytes + out_bytes + small, fwd_eval_ops, conv_ops + mix_ops)
+    mask = fb.dropout_keep_mask(seed, shape, rate, device=device)
+    slack = entry_pool_slack(y_ref, scale, bias, mean, var, gw, gb, pool, eps, mask, keep)
+    res = compare(f"K5f entry_block_fwd train bf16 rate {rate} {shape}",
+                  lambda: fe.entry_block_fwd(x, *block, mean, var, gw, gb, pool, eps, rate=rate, seed=seed),
+                  lambda: fe.reference_entry_block(x, *block, mean, var, gw, gb, pool, eps, mask, keep),
+                  tols=[("ulp", slack)])
+    rows["entry_block_fwd_train_bf16"].add(shape, res, x_bytes + out_bytes + small, fwd_train_ops, conv_ops + mix_ops)
+    # the planes layout rounds as K2 does: K5f equals K4f -> K2f with the same seed
+    fused = fe.entry_block_fwd(x, *block, mean, var, gw, gb, pool, eps, rate=rate, seed=seed)
+    pair = fb.fused_bn_glu_pool(y, scale, bias, mean, var, gw, gb, pool, eps, rate=rate, seed=seed)
+    o, r = fused.float(), pair.float()
+    beyond = int(((o - r).abs() > bf16_ulp(torch.maximum(o.abs(), r.abs())) + slack).sum().item())
+    if beyond:
+        raise AssertionError(f"K5f bf16 against K4f -> K2f with the same seed: {beyond} elements beyond one ulp + slack")
+    print(f"  K5f bf16 rate {rate} equals K4f -> K2f with the same seed within one bfloat16 ulp + slack "
+          f"(largest difference {(o - r).abs().max().item():.3e})")
+    del fused, pair, o, r, slack
+
+    # K5b1, K5b2: the two backward passes with the host-side step between them
+    args = (x, dout, *block, mean, var, gw, gb)
+    res = compare(f"K5b1 entry_block_bwd_reduce bf16 rate {rate} {shape} (d glu_w, d glu_b, S1, S2 float32)",
+                  lambda: fe.entry_block_bwd_reduce(*args, pool, eps, rate=rate, seed=seed),
+                  lambda: fe.entry_block_bwd_reduce_reference(*args, pool, eps, mask, keep),
+                  rtol_of_max=1e-4, repeat=True)
+    rows["entry_block_bwd_reduce_bf16"].add(shape, res, x_bytes + out_bytes + 2 * small, pass1_ops,
+                                            conv_ops + 3 * mix_ops)  # conv; lin, dxn, d glu_w
+    dgw, dgb, r1, r2 = fe.entry_block_bwd_reduce(*args, pool, eps, rate=rate, seed=seed)
+    a, b2 = fb.bwd_coefficients(scale, var, eps, r1, r2, pixels)
+
+    def pass2_slacks(layout):
+        """dW: one ulp of each part's sum plus one dy element rounding the
+        other way (ulp(max|dy|)·max|x|); d conv_b, zero in exact arithmetic,
+        is held to 1e-4 of its max plus the float32 rounding of its sum over
+        the pixels (n·max|dy|·2^-24); and the plain part sums with that one
+        dy flip, for `check_parts`."""
+        dyv, _ = fe._pass2_dy(x, dout, *block, mean, var, gw, gb, a, b2, pool, eps, mask, keep)
+        dy_max = dyv.abs().max().item()
+        del dyv
+        parts = fe.entry_block_bwd_wgrad_parts_reference(x, dout, *block, mean, var, gw, gb, a, b2, pool, eps, mask,
+                                                         keep, layout)
+        flip = bf16_ulp(torch.tensor(dy_max)).item() * x_max
+        return sum(bf16_ulp(p) for p in parts) + flip, sum_slack(pixels, dy_max, 1.0), parts, flip
+
+    def with_floor(plain, floor):
+        return lambda: (plain(), (0.0, floor))
+
+    dw_slack, dcb_floor, parts, flip = pass2_slacks("planes")
+    plain2 = lambda: fe.entry_block_bwd_wgrad_reference(*args, a, b2, pool, eps, mask, keep)  # noqa: E731
+    res = compare(f"K5b2 entry_block_bwd_wgrad bf16 rate {rate} {shape} (dW per output-frequency parity, d conv_b)",
+                  lambda: fe.entry_block_bwd_wgrad(*args, a, b2, pool, eps, rate=rate, seed=seed), plain2,
+                  tols=[("parts", dw_slack), ("max", 1e-4)], repeat=True, exact_fn=with_floor(plain2, dcb_floor))
+    rows["entry_block_bwd_wgrad_bf16"].add(shape, res, x_bytes + out_bytes + 2 * small, pass2_ops,
+                                           2 * conv_ops + 2 * mix_ops)  # conv, dW; lin, dxn
+    check_parts("K5b2 bf16 output-frequency parities",
+                lambda: fe.entry_block_bwd_wgrad_parts(*args, a, b2, pool, eps, rate=rate, seed=seed), parts, flip)
+
+    # K6 in bfloat16: the crows entries (their gate, counting and Function)
+    # with the crows mode bits: pool of element-rounded g, dW in batch halves
+    def same_bits(what, outs, wants):
+        for out, want in zip(outs, wants):
+            if not torch.equal(out, want):
+                raise AssertionError(f"{what} differs from the fused entry block's own wrapper in the crows layout")
+
+    res = compare(f"K6 crows_stats_apply bf16 {shape}", lambda: cr.crows_stats_apply(conv, x),
+                  lambda: ec.entry_conv_reference(conv, x)[1:], rtol_of_max=1e-5, repeat=True)
+    rows["crows_stats_bf16"].add(shape, res, x_bytes + small, 3.0 * pixels * C, conv_ops)
+    same_bits("crows_stats_apply bf16", cr.crows_stats_apply(conv, x), fe.entry_block_stats_apply(conv, x))
+    slack = entry_pool_slack(y_ref, scale, bias, mean, var, gw, gb, pool, eps, mask, keep, "crows")
+    crows_fwd = lambda: cr.crows_apply(conv, scale, bias, mean, var, gw, gb, x, seed, rate, pool, eps, True)  # noqa: E731
+    res = compare(f"K6 crows_apply forward bf16 rate {rate} {shape} (each g rounded before the window sum)", crows_fwd,
+                  lambda: fe.reference_entry_block(x, *block, mean, var, gw, gb, pool, eps, mask, keep, "crows"),
+                  tols=[("ulp", slack)])
+    rows["crows_fwd_bf16"].add(shape, res, x_bytes + out_bytes + small, fwd_train_ops, conv_ops + mix_ops)
+    same_bits("crows_apply forward bf16", [crows_fwd()],
+              [fe.entry_block_fwd(x, *block, mean, var, gw, gb, pool, eps, rate=rate, seed=seed, layout="crows")])
+    del slack, y_ref
+    dw_slack_c, dcb_floor_c, parts, flip = pass2_slacks("crows")
+    plain2c = lambda: fe.entry_block_bwd_wgrad_reference(*args, a, b2, pool, eps, mask, keep, "crows")  # noqa: E731
+    res = compare(f"K6 pass 2 bf16 rate {rate} {shape} (dW in batch halves, d conv_b)",
+                  lambda: fe.entry_block_bwd_wgrad(*args, a, b2, pool, eps, rate=rate, seed=seed, layout="crows"),
+                  plain2c, tols=[("parts", dw_slack_c), ("max", 1e-4)], repeat=True,
+                  exact_fn=with_floor(plain2c, dcb_floor_c))
+    rows["crows_bwd_wgrad_bf16"].add(shape, res, x_bytes + out_bytes + 2 * small, pass2_ops,
+                                     2 * conv_ops + 2 * mix_ops)
+    check_parts("K6 pass 2 bf16 batch halves",
+                lambda: fe.entry_block_bwd_wgrad_parts(*args, a, b2, pool, eps, rate=rate, seed=seed, layout="crows"),
+                parts, flip)
+    del parts
+    leaves = [v.clone().requires_grad_(True) for v in (*block, gw, gb)]
+    cr.crows_apply({"w": leaves[0], "b": leaves[1]}, leaves[2], leaves[3], mean, var, leaves[4], leaves[5], x, seed,
+                   rate, pool, eps, True).backward(dout)
+    dw_c, dcb_c, dscale_c, dbias_c, dgw_c, dgb_c = (leaf.grad for leaf in leaves)
+    same_bits("crows_apply backward bf16, pass 1", (dgw_c, dgb_c, dbias_c, dscale_c), (dgw, dgb, r1, r2))
+    same_bits("crows_apply backward bf16, pass 2", (dw_c, dcb_c),
+              fe.entry_block_bwd_wgrad(*args, a, b2, pool, eps, rate=rate, seed=seed, layout="crows"))
+    # pass 1 is the planes kernel's (no crows mode bit): its row holds that
+    # kernel's times and this call's bits
+    rows["crows_bwd_reduce_bf16"] = copy.copy(rows["entry_block_bwd_reduce_bf16"])
+    print(f"  K6 crows_apply bf16 backward through its Function: pass 1 bit for bit as entry_block_bwd_reduce, pass 2 "
+          f"as entry_block_bwd_wgrad(layout='crows')")
+    del leaves, mask, args, dw_slack, dw_slack_c
+    torch.cuda.empty_cache()
+
+
+def bf16_block_kernels(device, rows, rng, cfg, suffix: str = ""):
+    """Phase 3 for the bfloat16 modes of K3 and K2 at a configuration's
+    shapes, rows named with `suffix`: the scaled configuration's (K3 at
+    blocks 2 and 3, [B, 432, 32, 128] and [B, 216, 8, 128]; K2 at the three
+    blocks, [B, 864, 128, 128] and [B, 432, 32, 128] with pool (2, 4),
+    [B, 216, 8, 128] with pool (2, 8)), or the flagship's (K3 at
+    [B, 432, 16, 64] and [B, 216, 4, 64], where its weight gradient rounds
+    per output-frequency class; K2 at [B, 864, 64, 64], [B, 432, 16, 64],
+    [B, 216, 4, 64]), batch 24, bfloat16 activations and float32 parameters,
+    as a bfloat16 model hands them over."""
     import torch
     import torch.nn.functional as F
 
-    from dcase2019_task4_tpu_torch.config import scaled_config
     from dcase2019_task4_tpu_torch.ops import fused_block as fb
     from dcase2019_task4_tpu_torch.ops import packed_conv as pc
 
-    cfg = scaled_config()
     d, m = cfg.dsp, cfg.model
     B, C, eps, rate = cfg.train.batch_size, m.nb_filters[1], m.bn_eps, m.dropout
     bf16 = torch.bfloat16
@@ -991,8 +1371,10 @@ def scaled_kernels(device, rows, rng):
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
-    geometries = ((d.max_frames, d.n_mels), (d.max_frames // 2, d.n_mels // 4), (d.max_frames // 4, d.n_mels // 16))
     pools = [tuple(p) for p in m.pooling]
+    geometries = [(d.max_frames, d.n_mels)]
+    for pt, pf in pools[:2]:
+        geometries.append((geometries[-1][0] // pt, geometries[-1][1] // pf))
 
     # K3: products of bfloat16 operands (9·C per output), float32 sums; bytes at two a value
     for T, Fq in geometries[1:]:
@@ -1009,16 +1391,28 @@ def scaled_kernels(device, rows, rng):
                       lambda: pc.conv2d_reference(params, x),
                       tols=[("ulp", sum_slack(taps, x.abs().max().item(), w.abs().max().item()))],
                       library_fn=lambda: F.conv2d(x_cl, w_oihw, b.to(bf16), padding=1))
-        rows["conv2d_forward_bf16"].add(shape, res, 2 * act_bytes + w.numel() * 4, 0.0, conv_ops)
+        rows["conv2d_forward_bf16" + suffix].add(shape, res, 2 * act_bytes + w.numel() * 4, 0.0, conv_ops)
         res = compare(f"K3dx conv2d_dx bf16 {shape}", lambda: pc.conv2d_dx(w, dy),
                       lambda: pc.conv2d_dx_reference(w, dy),
                       tols=[("ulp", sum_slack(taps, dy.abs().max().item(), w.abs().max().item()))],
                       library_fn=lambda: torch.nn.grad.conv2d_input(x_cl.shape, w_oihw, dy_cl, padding=1))
-        rows["conv2d_dx_bf16"].add(shape, res, 2 * act_bytes + w.numel() * 4, 0.0, conv_ops)
-        res = compare(f"K3w conv2d_wgrad bf16 {shape} (dW, db float32)", lambda: pc.conv2d_wgrad(x, dy),
-                      lambda: pc.conv2d_wgrad_reference(x, dy), rtol_of_max=1e-4, repeat=True,
+        rows["conv2d_dx_bf16" + suffix].add(shape, res, 2 * act_bytes + w.numel() * 4, 0.0, conv_ops)
+        # the gradient of the bfloat16 weights: each output-frequency class's sum
+        # rounded (k lane copies in the original; the whole sum at k = 1): on
+        # top of dW's own ulp, per class one ulp of its sum and the float32
+        # bar of the class sums, 1e-4 of their max (a sum over B·T·F/k
+        # pixels that cancels near zero differs between the two versions by
+        # many of its own ulps); the kernel's class sums held by check_parts
+        k = pc.pack_factor(Fq, C)
+        parts = pc.conv2d_wgrad_parts_reference(x, dy)
+        slack = sum(bf16_ulp(p) for p in parts) + k * 1e-4 * parts.abs().max().item()
+        res = compare(f"K3w conv2d_wgrad bf16 {shape}, {k} output-frequency class(es) (dW of the bfloat16 weights, "
+                      f"db float32)", lambda: pc.conv2d_wgrad(x, dy), lambda: pc.conv2d_wgrad_reference(x, dy),
+                      tols=[("parts", slack), ("max", 1e-4)], repeat=True,
                       library_fn=lambda: torch.nn.grad.conv2d_weight(x_cl, w_oihw.shape, dy_cl, padding=1))
-        rows["conv2d_wgrad_bf16"].add(shape, res, 2 * act_bytes + (w.numel() + C) * 4, 0.0, conv_ops)
+        check_parts(f"K3w bf16 {shape} output-frequency classes", lambda: pc.conv2d_wgrad_parts(x, dy), parts)
+        del parts, slack
+        rows["conv2d_wgrad_bf16" + suffix].add(shape, res, 2 * act_bytes + (w.numel() + C) * 4, 0.0, conv_ops)
         del x, dy, x_cl, dy_cl
         torch.cuda.empty_cache()
 
@@ -1040,12 +1434,12 @@ def scaled_kernels(device, rows, rng):
         res = compare(f"K2f fused_bn_glu_pool eval bf16 {shape} pool {pool}",
                       lambda: fb.fused_bn_glu_pool(y, *vecs, pool, eps),
                       lambda: fb.reference_block(y, *vecs, pool, eps), tols=[("ulp", slack)])
-        rows["fused_bn_glu_pool_eval_bf16"].add(shape, res, y_bytes + out_bytes + small, 12.0 * y.numel(), mix_ops)
+        rows["fused_bn_glu_pool_eval_bf16" + suffix].add(shape, res, y_bytes + out_bytes + small, 12.0 * y.numel(), mix_ops)
         del slack
 
         res = compare(f"K2s batch_stats bf16 {shape}", lambda: fb.batch_stats(y), lambda: fb.batch_stats_reference(y),
                       rtol_of_max=1e-5, repeat=True)
-        rows["batch_stats_bf16"].add(shape, res, y_bytes + 2 * C * 4, 3.0 * y.numel())
+        rows["batch_stats_bf16" + suffix].add(shape, res, y_bytes + 2 * C * 4, 3.0 * y.numel())
         s, sq = fb.batch_stats(y)
         mean = s / pixels
         var = sq / pixels - mean * mean
@@ -1056,7 +1450,7 @@ def scaled_kernels(device, rows, rng):
                       lambda: fb.fused_bn_glu_pool(y, scale, bias, mean, var, w, gb, pool, eps, rate=rate, seed=seed),
                       lambda: fb.reference_block(y, scale, bias, mean, var, w, gb, pool, eps, mask, 1.0 - rate),
                       tols=[("ulp", slack)])
-        rows["fused_bn_glu_pool_train_bf16"].add(shape, res, y_bytes + out_bytes + small, 14.0 * y.numel(), mix_ops)
+        rows["fused_bn_glu_pool_train_bf16" + suffix].add(shape, res, y_bytes + out_bytes + small, 14.0 * y.numel(), mix_ops)
         del slack
         # the mask alone, as at float32: g = mask / (2·keep) in each window
         unit = (torch.ones(C, device=device), torch.zeros(C, device=device), torch.zeros(C, device=device),
@@ -1073,7 +1467,7 @@ def scaled_kernels(device, rows, rng):
                       lambda: fb.bwd_reduce(y, dout, scale, bias, mean, var, w, gb, pool, eps, rate=rate, seed=seed),
                       lambda: fb.bwd_reduce_reference(y, dout, scale, bias, mean, var, w, gb, pool, eps, mask, 1.0 - rate),
                       tols=[("ulp", slack)] + [("max", 1e-4)] * 4, repeat=True)
-        rows["bwd_reduce_bf16"].add(shape, res, 2 * y_bytes + out_bytes + 2 * small, 30.0 * y.numel(), 3 * mix_ops)
+        rows["bwd_reduce_bf16" + suffix].add(shape, res, 2 * y_bytes + out_bytes + 2 * small, 30.0 * y.numel(), 3 * mix_ops)
         dyp, _, _, s1, s2 = fb.bwd_reduce(y, dout, scale, bias, mean, var, w, gb, pool, eps, rate=rate, seed=seed)
         a, b2 = fb.bwd_coefficients(scale, var, eps, s1, s2, pixels)
         # the same inputs on both sides: what differs is the float32 rounding of three terms
@@ -1081,11 +1475,10 @@ def scaled_kernels(device, rows, rng):
                                  + (y.float() - mean).abs().max().item() * b2.abs().max().item())
         res = compare(f"K2b bwd_fixup bf16 {shape}", lambda: fb.bwd_fixup(y, dyp.clone(), a, b2, mean),
                       lambda: fb.bwd_fixup_reference(y, dyp.clone(), a, b2, mean), tols=[("ulp", fix_slack)],
-                      repeat=True)
+                      repeat=True, device_only="bn_bwd_fixup_kernel")
         clone_ms = time_ms(lambda: dyp.clone())
-        res = res._replace(ms=max(res.ms - clone_ms, 0.0), plain_ms=max(res.plain_ms - clone_ms, 0.0),
-                           device_ms=less(res.device_ms, device_ms(lambda: dyp.clone())))
-        rows["bwd_fixup_bf16"].add(shape, res, 3 * y_bytes, 3.0 * y.numel())
+        res = res._replace(ms=max(res.ms - clone_ms, 0.0), plain_ms=max(res.plain_ms - clone_ms, 0.0))
+        rows["bwd_fixup_bf16" + suffix].add(shape, res, 3 * y_bytes, 3.0 * y.numel())
         print(f"  K2b bwd_fixup bf16 {shape}: clone of dy_partial {clone_ms:.4f} ms taken off both times")
 
         # the whole backward through the autograd Function against the formulas
@@ -1152,9 +1545,11 @@ def write_inputs(workdir: str, device):
     """48 synthetic wavs, and two checkpoints of one seeded flagship CRNN
     whose scaler is fitted on the first batch's log-mel features: one with
     the default configuration, one whose stored configuration has
-    `entry_block_pallas=True` (the parameters are the same); and a
-    checkpoint of a seeded CRNN stored with `scaled_config()`, its scaler
-    fitted on that configuration's 128-mel features of the same batch."""
+    `entry_block_pallas=True` (the parameters are the same); a checkpoint of
+    a seeded CRNN stored with `scaled_config()`, its scaler fitted on that
+    configuration's 128-mel features of the same batch; and one of the
+    flagship stored with bfloat16 compute and `entry_block_pallas=True`
+    (the flagship's scaler)."""
     from dcase2019_task4_tpu_torch.config import DEFAULT_CLASSES, Config, scaled_config
     from dcase2019_task4_tpu_torch.data.audio_io import write_wav
     from dcase2019_task4_tpu_torch.data.encoder import LabelCodec
@@ -1178,7 +1573,10 @@ def write_inputs(workdir: str, device):
             ("model.npz", cfg, scaler),
             ("model_entry_block.npz",
              dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, entry_block_pallas=True)), scaler),
-            ("model_scaled.npz", scaled, scaled_scaler)):
+            ("model_scaled.npz", scaled, scaled_scaler),
+            ("model_bf16_entry_block.npz",
+             dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="bfloat16",
+                                                                entry_block_pallas=True)), scaler)):
         params, bn_state = ckpt.params_to_jax(seeded_init_(CRNN(stored.model), SEED))
         meta = {
             "epoch": 0,
@@ -1220,7 +1618,7 @@ def phase_predict(device, card: str):
     from dcase2019_task4_tpu_torch import cli
 
     with tempfile.TemporaryDirectory() as work:
-        wav_dir, (model, model_entry_block, model_scaled) = write_inputs(work, device)
+        wav_dir, (model, model_entry_block, model_scaled, model_bf16) = write_inputs(work, device)
         out, tags = os.path.join(work, "events.tsv"), os.path.join(work, "tags.tsv")
         argv = ["-m", model, "-i", wav_dir, "-p", out, "--weak_fname", tags]
 
@@ -1278,46 +1676,51 @@ def phase_predict(device, card: str):
         torch.cuda.synchronize()
         print(f"  warm CUDA predict with the fused first block: {N_CLIPS / (time.perf_counter() - t0):.2f} clips/s "
               f"({clips_per_s:.2f} with the default configuration) on {card}")
-        launches_scaled = predict_scaled(model_scaled, wav_dir, work, card)
-    return {"predict": launches, "predict_entry_block": launches_entry, "predict_scaled": launches_scaled}, clips_per_s
+        launches_scaled = predict_bf16(model_scaled, wav_dir, work, card, "scaled", PREDICT_SCALED)
+        launches_bf16 = predict_bf16(model_bf16, wav_dir, work, card, "flagship bfloat16 entry_block_pallas",
+                                     PREDICT_BF16_ENTRY_BLOCK)
+    return ({"predict": launches, "predict_entry_block": launches_entry, "predict_scaled": launches_scaled,
+             "predict_bf16_entry_block": launches_bf16}, clips_per_s)
 
 
-def predict_scaled(model: str, wav_dir: str, work: str, card: str):
-    """`cli.predict` on the scaled checkpoint: the bfloat16 kernels at every
-    block, the CUDA run against the CPU run (plain versions)."""
+def predict_bf16(model: str, wav_dir: str, work: str, card: str, what: str, per_run):
+    """`cli.predict` on a bfloat16 checkpoint: the bfloat16 kernels of its
+    path (`per_run`, exact), the CUDA run against the CPU run (plain
+    versions) within 5e-3."""
     import torch
 
     from dcase2019_task4_tpu_torch import cli
 
-    out, cpu_out = os.path.join(work, "events_scaled.tsv"), os.path.join(work, "events_scaled_cpu.tsv")
+    tag = what.split()[0]
+    out, cpu_out = os.path.join(work, f"events_{tag}.tsv"), os.path.join(work, f"events_{tag}_cpu.tsv")
     argv = ["-m", model, "-i", wav_dir]
     zero_launches()
     res = cli.predict(argv + ["-p", out, "--device", "cuda"])
     torch.cuda.synchronize()
     launches = read_launches()
-    print(f"  launches during predict with the scaled checkpoint: {launches}")
-    check_launches(launches, PREDICT_SCALED, 1, "the predict run with the scaled checkpoint")
+    print(f"  launches during predict with the {what} checkpoint: {launches}")
+    check_launches(launches, per_run, 1, f"the predict run with the {what} checkpoint")
     strong = res["strong"]
     if res["n_files"] != N_CLIPS or strong.shape != (N_CLIPS, 108, 10) or not np.isfinite(strong).all():
-        raise AssertionError(f"scaled strong probabilities: n_files {res['n_files']}, shape {strong.shape}")
+        raise AssertionError(f"{what} strong probabilities: n_files {res['n_files']}, shape {strong.shape}")
     t0 = time.perf_counter()
     cli.predict(argv + ["-p", out, "--device", "cuda"])
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    print(f"  warm CUDA predict, scaled checkpoint: {N_CLIPS} clips in {warm_s:.3f} s = {N_CLIPS / warm_s:.2f} clips/s "
-          f"on {card}")
-    print_device_time("one warm predict call with the scaled checkpoint",
+    print(f"  warm CUDA predict, {what} checkpoint: {N_CLIPS} clips in {warm_s:.3f} s = {N_CLIPS / warm_s:.2f} "
+          f"clips/s on {card}")
+    print_device_time(f"one warm predict call with the {what} checkpoint",
                       lambda: cli.predict(argv + ["-p", out, "--device", "cuda"]), card)
     t0 = time.perf_counter()
     cpu = cli.predict(argv + ["-p", cpu_out, "--device", "cpu"])
     diff = float(np.abs(cpu["strong"] - strong).max())
     rows_gpu = {tuple(r.values()) for r in read_tsv(out)}
     rows_cpu = {tuple(r.values()) for r in read_tsv(cpu_out)}
-    print(f"  scaled checkpoint, CUDA vs CPU (plain versions, {time.perf_counter() - t0:.1f} s): strong max abs diff "
+    print(f"  {what} checkpoint, CUDA vs CPU (plain versions, {time.perf_counter() - t0:.1f} s): strong max abs diff "
           f"{diff:.3e} (limit {SCALED_STRONG_TOL}); event rows {len(rows_gpu)} vs {len(rows_cpu)}, "
           f"{len(rows_gpu ^ rows_cpu)} rows in one TSV only")
     if not diff <= SCALED_STRONG_TOL:
-        raise AssertionError(f"scaled checkpoint: CUDA and CPU strong probabilities differ by {diff}")
+        raise AssertionError(f"{what} checkpoint: CUDA and CPU strong probabilities differ by {diff}")
     return launches
 
 
@@ -1541,20 +1944,22 @@ def phase_train(device, card: str):
     return all_launches, warm_ms
 
 
-def phase_train_scaled(device, card: str):
-    """The scaled configuration's Mean-Teacher step with SpecAugment: step 1
-    at a batch of 4 [1|2|1] on the card against the CPU, then five steps at
-    the full batch of 24 [6|12|6] with the generator on the card."""
+def phase_train_bf16(device, card: str, cfg, what: str, path: str, n_steps: int, profile: bool):
+    """A bfloat16 configuration's Mean-Teacher step (with SpecAugment where
+    the configuration has it): step 1 at a batch of 4 [1|2|1] on the card
+    against the CPU from one state and one CPU generator, then `n_steps`
+    steps at the full batch [6|12|6] with the generator on the card: launches
+    per step exact, ms per step, peak memory, and either a torch.profiler
+    breakdown of one warm step (`profile`) or block 1's device time in one.
+    → ({path: launches}, ms per step, step-1 loss, block 1's device ms)."""
     import torch
 
-    from dcase2019_task4_tpu_torch.config import scaled_config
     from dcase2019_task4_tpu_torch.train import steps
     from dcase2019_task4_tpu_torch.utils.scaler import Scaler
 
-    cfg = scaled_config()
     tr = cfg.train
     sa = dict(time_masks=tr.sa_time_masks, max_time_width=tr.sa_max_time_width, freq_masks=tr.sa_freq_masks,
-              max_freq_width=tr.sa_max_freq_width)
+              max_freq_width=tr.sa_max_freq_width) if tr.spec_augment else None
     layout = (tr.batch_size // 4, tr.batch_size // 2, tr.batch_size // 4)
     audio, frames, target = train_batch(cfg, *layout)
     mean, std = Scaler().load_state_dict(fit_scaler(flagship_frontend(device, cfg), audio, frames, device)).mean_std_f32
@@ -1587,31 +1992,35 @@ def phase_train_scaled(device, card: str):
         st, metrics, _ = step(on(dev, base), batch, torch.Generator().manual_seed(SEED + 2), step.zero_metrics(dev))
         if dev.type == "cuda":
             torch.cuda.synchronize()
-            check_launches(read_launches(), STEP_SCALED, 1, "scaled step 1 at batch 4")
+            check_launches(read_launches(), PATHS[path], 1, f"{what} step 1 at batch 4")
         results.append(({k: v.item() for k, v in metrics.items()},
                         {n: p.grad.detach().cpu().clone() for n, p in st.student.named_parameters()}))
-        print(f"  scaled step 1, batch 4 [1|2|1], on {dev.type}: {time.perf_counter() - t0:.1f} s, "
+        print(f"  {what} step 1, batch 4 [1|2|1], on {dev.type}: {time.perf_counter() - t0:.1f} s, "
               + ", ".join(f"{k} {v:.5f}" for k, v in results[-1][0].items()))
     (m_gpu, g_gpu), (m_cpu, g_cpu) = results
     compare_metrics(1, m_gpu, {k: torch.tensor(v) for k, v in m_cpu.items()})
     top = max(g.abs().max().item() for g in g_cpu.values())
     worst, worst_gauge = 0.0, 0.0
     for name, want in g_cpu.items():
-        gauge = is_gauge_leaf(name)
+        # under the crows layout block 1's conv weight sums two batch halves
+        # that nearly cancel, each rounded to bfloat16 as the original rounds
+        # it: one rounding of a half flipping is large against the sum
+        gauge = is_gauge_leaf(name) or (cfg.model.entry_block_crows and name == "cnn.0.conv.weight")
         limit = SCALED_GRAD_TOL * want.abs().max().item() + (SCALED_GAUGE_FLOOR if gauge else SCALED_GRAD_FLOOR) * top
         err = (g_gpu[name] - want).abs().max().item()
-        print(f"    {name:28s} max {want.abs().max().item():.3e}  err {err:.3e}  err/limit {err / limit:.2f}")
+        print(f"    {name:28s} max {want.abs().max().item():.3e}  err {err:.3e}  err/limit {err / limit:.2f}"
+              f"{'  (gauge: floor applies)' if gauge else ''}")
         if not err <= limit:
-            raise AssertionError(f"scaled step 1, {name}: CUDA and CPU gradients differ by {err} (limit {limit})")
+            raise AssertionError(f"{what} step 1, {name}: CUDA and CPU gradients differ by {err} (limit {limit})")
         if gauge:
             worst_gauge = max(worst_gauge, err / limit)
         else:
             worst = max(worst, err / limit)
-    print(f"  scaled step 1, CUDA vs CPU: loss {m_gpu['loss']:.6f} vs {m_cpu['loss']:.6f} (limit {TRAIN_TOL}); worst "
+    print(f"  {what} step 1, CUDA vs CPU: loss {m_gpu['loss']:.6f} vs {m_cpu['loss']:.6f} (limit {TRAIN_TOL}); worst "
           f"gradient leaf at {worst:.2f} of its limit ({SCALED_GRAD_TOL} of its max + {SCALED_GRAD_FLOOR} of the "
           f"largest), worst gauge leaf at {worst_gauge:.2f} of its ({SCALED_GAUGE_FLOOR} of the largest)")
 
-    # five steps at the full batch with the generator on the card
+    # n_steps at the full batch with the generator on the card
     step, batch = build(device, *layout, (audio, frames, target))
     state = on(device, base)
     generator = torch.Generator(device=device).manual_seed(SEED + 3)
@@ -1619,26 +2028,57 @@ def phase_train_scaled(device, card: str):
     history, step_ms = [], []
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
-    for i in range(TRAIN_STEPS):
+    for i in range(n_steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics, acc = step(state, batch, generator, acc)
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
         history.append({k: v.item() for k, v in metrics.items()})
-        print(f"  scaled step {i + 1}: {step_ms[-1]:.2f} ms, " + ", ".join(f"{k} {v:.5f}" for k, v in history[-1].items()))
+        print(f"  {what} step {i + 1}: {step_ms[-1]:.2f} ms, "
+              + ", ".join(f"{k} {v:.5f}" for k, v in history[-1].items()))
     launches = read_launches()
-    print(f"  launches during {TRAIN_STEPS} scaled steps: {launches}")
-    check_launches(launches, STEP_SCALED, TRAIN_STEPS, f"{TRAIN_STEPS} scaled train steps")
+    print(f"  launches during {n_steps} {what} steps: {launches}")
+    check_launches(launches, PATHS[path], n_steps, f"{n_steps} {what} train steps")
     if not all(np.isfinite(v) for h in history for v in h.values()):
-        raise AssertionError("a scaled training metric is not finite")
+        raise AssertionError(f"a {what} training metric is not finite")
     warm_ms = float(np.median(step_ms[1:]))
-    print(f"  scaled MT step with the generator on the card: {warm_ms:.3f} ms per step (median of steps "
-          f"2-{TRAIN_STEPS}; first step {step_ms[0]:.1f} ms) on {card}")
-    print(f"  peak device memory over the scaled steps: {torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
-    profile_step(step, state, batch, generator, acc, card, warm_ms,
-                 noise_shape=(tr.batch_size, cfg.dsp.max_frames, cfg.dsp.n_mels))
-    return {"step_scaled": launches}, warm_ms
+    print(f"  {what} MT step with the generator on the card: {warm_ms:.3f} ms per step (median of steps "
+          f"2-{n_steps}; first step {step_ms[0]:.1f} ms) on {card}")
+    print(f"  peak device memory over the {what} steps: {torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
+    block1 = None
+    if profile:
+        profile_step(step, state, batch, generator, acc, card, warm_ms,
+                     noise_shape=(tr.batch_size, cfg.dsp.max_frames, cfg.dsp.n_mels))
+    else:
+        block1 = block1_device_ms(step, state, batch, generator, acc, path, card)
+    return {path: launches}, warm_ms, m_gpu["loss"], block1
+
+
+def phase_train_flagship_bf16(device, card: str):
+    """The flagship `Config()` in bfloat16 under the default first block and
+    each first-block flag, each held to its own CPU run (the JAX package's
+    own engines differ in bfloat16, so the gap between flags is printed, not
+    held)."""
+    from dcase2019_task4_tpu_torch.config import Config
+
+    cfg = Config()
+    launches, summary = {}, []
+    for path in ("step_bf16", "step_bf16_entry_block", "step_bf16_crows", "step_bf16_entry_conv"):
+        flag = FIRST_BLOCK_FLAGS.get(path)
+        model = dataclasses.replace(cfg.model, compute_dtype="bfloat16", **({flag: True} if flag else {}))
+        what = f"flagship bf16 {flag or 'default first block'}"
+        print(f"  -- {what}")
+        got, ms, loss, block1 = phase_train_bf16(device, card, dataclasses.replace(cfg, model=model), what, path, 3,
+                                                 profile=False)
+        launches.update(got)
+        summary.append((what, ms, loss, block1))
+    _, base_ms, base_loss, base_block1 = summary[0]
+    for what, ms, loss, block1 in summary:
+        print(f"  {what}: {ms:.3f} ms per step (default {base_ms:.3f}), block 1 {shown(block1, 3)} ms on the device "
+              f"(default {shown(base_block1, 3)}), step-1 loss at batch 4 {loss:.6f}, {loss - base_loss:+.2e} from the "
+              f"default's (information: the JAX package's engines differ in bfloat16 too) on {card}")
+    return launches, summary[0][1]
 
 
 def compare_step1_gradients(names, want, got, what: str):
@@ -1685,6 +2125,9 @@ BLOCK1_KERNELS = {
                         ("bn_glu_pool_bwd_kernel", 1), ("bn_bwd_fixup_kernel", 1)),
 }
 BLOCK1_KERNELS["step_crows"] = BLOCK1_KERNELS["step_entry_block"]
+BLOCK1_KERNELS.update({"step_bf16": BLOCK1_KERNELS["step"], "step_bf16_entry_block": BLOCK1_KERNELS["step_entry_block"],
+                       "step_bf16_crows": BLOCK1_KERNELS["step_entry_block"],
+                       "step_bf16_entry_conv": BLOCK1_KERNELS["step_entry_conv"]})
 
 
 def block1_device_ms(step, state, batch, generator, acc, path: str, card: str) -> Optional[float]:
@@ -1716,7 +2159,7 @@ def block1_device_ms(step, state, batch, generator, acc, path: str, card: str) -
         ms = sum(times[:count]) / 1e3
         total += ms
         items.append(f"{pattern} ×{count} {ms:.3f}")
-    if path == "step":
+    if path in ("step", "step_bf16"):
         for op in ("aten::cudnn_convolution", "aten::convolution_backward"):
             found = [e for e in prof.key_averages() if e.key == op]
             ms = sum(float(getattr(e, "device_time_total", 0.0) or getattr(e, "cuda_time_total", 0.0)) for e in found) / 1e3
@@ -1812,8 +2255,14 @@ def main() -> int:
     train_launches, step_ms = phase_train(device, card)
     launches.update(train_launches)
     print("== phase 5, scaled configuration (bfloat16, 128 mels, 128 channels, SpecAugment)")
-    scaled_launches, scaled_ms = phase_train_scaled(device, card)
+    from dcase2019_task4_tpu_torch.config import scaled_config
+
+    scaled_launches, scaled_ms, _, _ = phase_train_bf16(device, card, scaled_config(), "scaled", "step_scaled",
+                                                        TRAIN_STEPS, profile=True)
     launches.update(scaled_launches)
+    print("== phase 5, the flagship in bfloat16 under the default first block and each first-block flag")
+    bf16_launches, bf16_ms = phase_train_flagship_bf16(device, card)
+    launches.update(bf16_launches)
 
     report = []
     for name, (src, replaces) in KERNELS.items():
@@ -1834,8 +2283,8 @@ def main() -> int:
     helpers[0]["launches"] = fused_block.dropout_mask.launches  # as counted over phases 4 and 5
     if helpers[0]["launches"] != 0:
         raise AssertionError(f"the keep-mask helper was launched {helpers[0]['launches']} times by a path")
-    print(f"  predict clips/s (warm): {clips_per_s:.2f}; MT step {step_ms:.3f} ms; scaled MT step {scaled_ms:.3f} ms "
-          f"on {card}; whole script {time.perf_counter() - t_start:.0f} s")
+    print(f"  predict clips/s (warm): {clips_per_s:.2f}; MT step {step_ms:.3f} ms; scaled MT step {scaled_ms:.3f} ms; "
+          f"flagship bf16 MT step {bf16_ms:.3f} ms on {card}; whole script {time.perf_counter() - t_start:.0f} s")
     print(card)
     print(json.dumps({"kernels": report, "helpers": helpers}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

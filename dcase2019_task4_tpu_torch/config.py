@@ -149,8 +149,8 @@ class ModelConfig:
     # fused block). In order of precedence: the whole first block as fused
     # kernels, under either name (crows: F = 64, time pool 2, even batch;
     # pallas: any geometry the fused block takes), then the entry conv
-    # kernel that hands its Σy, Σy² to the fused block. Float32 only: a
-    # bfloat16 model with one of them raises NotImplementedError.
+    # kernel that hands its Σy, Σy² to the fused block. Each runs in the
+    # compute dtype, float32 or bfloat16.
     entry_conv_pallas: bool = False
     entry_block_pallas: bool = False
     entry_block_crows: bool = False

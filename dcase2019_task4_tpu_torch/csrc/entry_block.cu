@@ -1,6 +1,6 @@
 // K4 / K5 / K6: the first CRNN block, conv 3x3 from ONE input channel ->
-// BatchNorm -> GLU -> dropout -> average pool, forward and backward, float32,
-// for Hopper (sm_90a).
+// BatchNorm -> GLU -> dropout -> average pool, forward and backward, on
+// float32 or bfloat16 activations, for Hopper (sm_90a).
 //
 // Replaces the Pallas kernels of
 //   dcase2019_task4_tpu/ops/entry_conv.py         _fwd_kernel, _wgrad_kernel
@@ -62,11 +62,40 @@
 // halve the blocks per SM). Sums across blocks go to one slot per block and
 // fold_kernel adds the slots in slot order in double: no float atomics, a run
 // repeats bit for bit. Plain FP32 FMAs: no TF32, no tensor cores yet.
+//
+// Element type: every kernel is instantiated for float32 and for bfloat16
+// (the model's compute dtype, `act_bf16` / `lp` in the originals). In
+// bfloat16 the arithmetic stays float32 and rounds where the JAX kernels
+// round (entry_conv.py:84,109-148, fused_entry_block.py:97-236,
+// crows_block.py:176-290): x is read as bfloat16 (the features rounded once,
+// as make_parity_planes does) and the conv weights come rounded from the
+// wrapper, so every conv product is exact in float32; the float32 conv bias
+// is added and y is rounded to bfloat16, which K4f stores, and whose rounded
+// values every sum and every later step reads (K5s's sums, xn, x-hat, dy);
+// xn and W enter lin = xn . W, dlin and W enter dxn = dlin . W^T, and xn and
+// dlin enter d glu_w, as bfloat16; d glu_b, S1, S2, d conv_b and the sums of
+// y stay float32. The pooled output is stored in bfloat16, after one of the
+// originals' two window sums: the planes kernel (fused_entry_block.py, via
+// fused_block._pool_mxu) rounds each pt-row column sum of g to bfloat16 and
+// adds the columns, as K2 does; the crows kernel (crows_block.py:240-245)
+// rounds every g to bfloat16 and adds the window (pool_elems). The weight
+// gradient (K4w, K5b2) multiplies the rounded x by dy rounded to bfloat16
+// and comes out as the gradient of the bfloat16 weights the originals
+// differentiate, which they round to bfloat16 in two parts before the parts
+// fold onto w: by output-frequency parity in the parity-plane basis
+// (entry_conv.py:65-77,232, fused_entry_block.py:416), by batch half in the
+// crows basis (crows_block.py:105-115,535). The kernels keep the parts apart
+// (a thread's pixels share one frequency parity when F is even; a block
+// holds one clip) and fold_classes_kernel rounds each part's sum and adds
+// the rounded parts. Shared memory holds float32 in both modes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "chain.cuh"
+#include "dtype.cuh"
 #include "fold.cuh"
 
 namespace {
@@ -79,14 +108,15 @@ constexpr int kHalo = 4 * kPix; // floats of a staged x tile: (rows + 2) * (F + 
 int rows_per_tile(int F, int pt) { return pt * (kPix / (pt * F)); }
 
 // x[b, t0 - 1 .. t0 + trows, -1 .. F] -> xt [trows + 2][F + 2], zeros outside.
-__device__ __forceinline__ void stage_x(float* xt, const float* __restrict__ x, int b, int T,
+template <typename TX>
+__device__ __forceinline__ void stage_x(float* xt, const TX* __restrict__ x, int b, int T,
                                         int F, int t0, int trows) {
   const int FW = F + 2;
   const int n = (trows + 2) * FW;
   for (int i = threadIdx.x; i < n; i += kThreads) {
     const int r = i / FW, q = i % FW;
     const int t = t0 - 1 + r, f = q - 1;
-    xt[i] = (t >= 0 && t < T && f >= 0 && f < F) ? x[((long long)b * T + t) * F + f] : 0.0f;
+    xt[i] = (t >= 0 && t < T && f >= 0 && f < F) ? to_float(x[((long long)b * T + t) * F + f]) : 0.0f;
   }
 }
 
@@ -105,10 +135,11 @@ __device__ __forceinline__ float conv9(const float* r, int FW, const float (&w)[
 
 // MODE 0: store y and emit the sums. MODE 1: the sums only (y never written).
 // MODE 2: one tap instead of nine (no patch). MODE 3: write the bias only.
-template <int MODE>
+// The sums are those of y rounded to TX, as stored.
+template <int MODE, typename TX>
 __global__ void __launch_bounds__(kThreads)
-entry_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                  const float* __restrict__ cb, float* __restrict__ y,
+entry_conv_kernel(const TX* __restrict__ x, const float* __restrict__ w,
+                  const float* __restrict__ cb, TX* __restrict__ y,
                   double* __restrict__ partials, int T, int F, int C, int rows,
                   int tiles_per_block) {
   __shared__ float xt[kHalo];
@@ -148,11 +179,11 @@ entry_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
         if (MODE == 3) v[k] = br[k];
         else if (MODE == 2) v[k] = fmaf(r[FW + 1], wr[k][4], br[k]);
         else v[k] = conv9(r, FW, wr[k], br[k]);
+        v[k] = rounded<TX>(v[k]);
       }
-      if (MODE != 1) {
-        float* dst = y + (((long long)b * T + t0) * F + p) * C + 4 * lane;
-        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-      }
+      if (MODE != 1)
+        Vec4<TX>::store(y + (((long long)b * T + t0) * F + p) * C + 4 * lane,
+                        make_float4(v[0], v[1], v[2], v[3]));
       if (MODE != 3) {
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
@@ -179,15 +210,19 @@ entry_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// Slot of a block: [9 * C dW (tap-major) | C db].
+// Slot of a block: classes x [9 * C dW (tap-major) | C db]. classes 2: the
+// sums over even and over odd output frequencies apart (F even; a thread's
+// pixels p = grp + groups * n then share the parity of grp, with `groups`
+// made even).
+template <typename TX>
 __global__ void __launch_bounds__(kThreads)
-entry_conv_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+entry_conv_wgrad_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
                         float* __restrict__ partials, int T, int F, int C, int rows,
-                        int tiles_per_block) {
+                        int tiles_per_block, int classes) {
   __shared__ float xt[kHalo];
   extern __shared__ float red[];  // [groups][10 * C]
   const int tid = threadIdx.x;
-  const int lanes = C / 4, groups = kThreads / lanes;
+  const int lanes = C / 4, groups = (kThreads / lanes) & (classes == 2 ? ~1 : ~0);
   const int lane = tid % lanes, grp = tid / lanes;
   const bool active = grp < groups;
   const int b = blockIdx.y;
@@ -214,8 +249,7 @@ entry_conv_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ d
     if (!active) continue;
     for (int p = grp; p < tpix; p += groups) {
       const float* r = xt + (p / F) * FW + (p % F);
-      const float* src = dy + (((long long)b * T + t0) * F + p) * C + 4 * lane;
-      const float4 d4 = *reinterpret_cast<const float4*>(src);
+      const float4 d4 = Vec4<TX>::load(dy + (((long long)b * T + t0) * F + p) * C + 4 * lane);
       const float d[4] = {d4.x, d4.y, d4.z, d4.w};
       float patch[9];
 #pragma unroll
@@ -241,11 +275,12 @@ entry_conv_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ d
   }
   __syncthreads();
   const int slot = blockIdx.y * gridDim.x + blockIdx.x;
-  for (int i = tid; i < 10 * C; i += kThreads) {
-    float t = 0.0f;
-    for (int g = 0; g < groups; ++g) t += red[g * 10 * C + i];
-    partials[(long long)slot * 10 * C + i] = t;
-  }
+  for (int i = tid; i < 10 * C; i += kThreads)
+    for (int cl = 0; cl < classes; ++cl) {
+      float t = 0.0f;
+      for (int g = cl; g < groups; g += classes) t += red[g * 10 * C + i];
+      partials[((long long)slot * classes + cl) * 10 * C + i] = t;
+    }
 }
 
 // ------------------------------------------------ K5: the whole first block
@@ -291,10 +326,10 @@ __device__ __forceinline__ void load_consts(const Consts& k, const float* __rest
   for (int i = threadIdx.x; i < 9 * C; i += kThreads) k.cw[i] = cw[i];
 }
 
-// Conv + BatchNorm of the elements this thread owns in the channel products
-// (pixels pg + 16 i, channels cg + 16 j): xn into the slab, zeros in the rows
-// past the tile's pixels.
-template <int NJ>
+// Conv (y rounded to TX) + BatchNorm of the elements this thread owns in the
+// channel products (pixels pg + 16 i, channels cg + 16 j): xn into the slab,
+// zeros in the rows past the tile's pixels.
+template <int NJ, typename TX>
 __device__ __forceinline__ void conv_to_xn(float* xs, int CP, const float* xt, int FW, int F,
                                            int tpix, const Consts& k, int C, int pg, int cg) {
 #pragma unroll
@@ -310,7 +345,7 @@ __device__ __forceinline__ void conv_to_xn(float* xs, int CP, const float* xt, i
       const int p = pg + 16 * i;
       float xn = 0.0f;
       if (p < tpix) {
-        const float yv = conv9(xt + (p / F) * FW + (p % F), FW, w, cbv);
+        const float yv = rounded<TX>(conv9(xt + (p / F) * FW + (p % F), FW, w, cbv));
         xn = (yv - mu) * inv * sc + be;
       }
       xs[p * CP + co] = xn;
@@ -318,14 +353,15 @@ __device__ __forceinline__ void conv_to_xn(float* xs, int CP, const float* xt, i
   }
 }
 
-// acc[i][j] += sum_ci a[(pg + 16 i)][ci] * wmat[ci][cg + 16 j] (wmat row stride WS).
-template <int NJ>
+// acc[i][j] += sum_ci a[(pg + 16 i)][ci] * wmat[ci][cg + 16 j] (wmat row stride WS),
+// with a rounded to TX (wmat is staged rounded).
+template <int NJ, typename TX>
 __device__ __forceinline__ void mix_rows(float (&acc)[8][NJ], const float* a, int CP,
                                          const float* wmat, int WS, int C, int pg, int cg) {
   for (int ci = 0; ci < C; ++ci) {
     float av[8], wv[NJ];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) av[i] = a[(pg + 16 * i) * CP + ci];
+    for (int i = 0; i < 8; ++i) av[i] = rounded<TX>(a[(pg + 16 * i) * CP + ci]);
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int co = cg + 16 * j;
@@ -339,14 +375,15 @@ __device__ __forceinline__ void mix_rows(float (&acc)[8][NJ], const float* a, in
 }
 
 // acc[i][j] += sum_co a[(pg + 16 i)][co] * wmat[cg + 16 j][co]: the product
-// against the transpose (rows padded to WS = C + 1, so the read is conflict-free).
-template <int NJ>
+// against the transpose (rows padded to WS = C + 1, so the read is conflict-free),
+// with a rounded to TX.
+template <int NJ, typename TX>
 __device__ __forceinline__ void mix_cols(float (&acc)[8][NJ], const float* a, int CP,
                                          const float* wmat, int WS, int C, int pg, int cg) {
   for (int co = 0; co < C; ++co) {
     float av[8], wv[NJ];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) av[i] = a[(pg + 16 * i) * CP + co];
+    for (int i = 0; i < 8; ++i) av[i] = rounded<TX>(a[(pg + 16 * i) * CP + co]);
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int ci = cg + 16 * j;
@@ -359,17 +396,20 @@ __device__ __forceinline__ void mix_cols(float (&acc)[8][NJ], const float* a, in
   }
 }
 
-// NJ: output channels per thread / 16 (C <= 16 * NJ).
-template <int NJ>
+// NJ: output channels per thread / 16 (C <= 16 * NJ). pool_elems (bfloat16):
+// the window sums g rounded element by element (crows) instead of the pt-row
+// column sums (planes).
+template <int NJ, typename TX>
 __global__ void __launch_bounds__(kThreads)
-entry_block_fwd_kernel(const float* __restrict__ x, const float* __restrict__ cw,
+entry_block_fwd_kernel(const TX* __restrict__ x, const float* __restrict__ cw,
                        const float* __restrict__ cb, const float* __restrict__ scale,
                        const float* __restrict__ bias, const float* __restrict__ mean,
                        const float* __restrict__ var, const float* __restrict__ glu_w,
-                       const float* __restrict__ glu_b, float* __restrict__ out, int T, int F,
+                       const float* __restrict__ glu_b, TX* __restrict__ out, int T, int F,
                        int C, int pt, int pf, float eps, int rows, int tiles_per_block,
                        const long long* __restrict__ seed_ptr, uint32_t threshold,
-                       float keep_scale) {
+                       float keep_scale, int pool_elems) {
+  constexpr bool kLow = !std::is_same<TX, float>::value;
   extern __shared__ float smem[];
   const int CP = C + 1;
   float* xs = smem;            // [kPix][CP]: xn, then g
@@ -382,7 +422,7 @@ entry_block_fwd_kernel(const float* __restrict__ x, const float* __restrict__ cw
   const int FW = F + 2;
   const bool drop = threshold != 0u;
   const unsigned long long seed = drop ? (unsigned long long)seed_ptr[0] : 0ull;
-  for (int i = tid; i < C * C; i += kThreads) ws[i] = glu_w[i];
+  for (int i = tid; i < C * C; i += kThreads) ws[i] = rounded<TX>(glu_w[i]);
   load_consts(k, scale, bias, mean, var, glu_b, cw, cb, C, eps);
 
   const int cg = tid % 16, pg = tid / 16;
@@ -401,7 +441,7 @@ entry_block_fwd_kernel(const float* __restrict__ x, const float* __restrict__ cw
     __syncthreads();  // constants staged / previous tile's pool read done
     stage_x(xt, x, b, T, F, t0, trows);
     __syncthreads();
-    conv_to_xn<NJ>(xs, CP, xt, FW, F, tpix, k, C, pg, cg);
+    conv_to_xn<NJ, TX>(xs, CP, xt, FW, F, tpix, k, C, pg, cg);
     __syncthreads();
 
     float acc[8][NJ];
@@ -409,7 +449,7 @@ entry_block_fwd_kernel(const float* __restrict__ x, const float* __restrict__ cw
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
-    mix_rows<NJ>(acc, xs, CP, ws, C, C, pg, cg);
+    mix_rows<NJ, TX>(acc, xs, CP, ws, C, C, pg, cg);
     float g[8][NJ];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
@@ -439,20 +479,33 @@ entry_block_fwd_kernel(const float* __restrict__ x, const float* __restrict__ cw
       const int c = o % C, win = o / C;
       const int wf = win % Fp, wt = win / Fp;
       float s = 0.0f;
-      for (int dt = 0; dt < pt; ++dt)
-        for (int df = 0; df < pf; ++df)
-          s += xs[((wt * pt + dt) * F + wf * pf + df) * CP + c];
-      out[(((long long)b * Tp + t0 / pt + wt) * Fp + wf) * C + c] = s * inv_win;
+      if (kLow && pool_elems) {
+        for (int dt = 0; dt < pt; ++dt)
+          for (int df = 0; df < pf; ++df)
+            s += rounded<TX>(xs[((wt * pt + dt) * F + wf * pf + df) * CP + c]);
+      } else if (kLow) {
+        // each column's pt-row time sum rounds to TX before the frequency sum
+        for (int df = 0; df < pf; ++df) {
+          float st = 0.0f;
+          for (int dt = 0; dt < pt; ++dt) st += xs[((wt * pt + dt) * F + wf * pf + df) * CP + c];
+          s += rounded<TX>(st);
+        }
+      } else {
+        for (int dt = 0; dt < pt; ++dt)
+          for (int df = 0; df < pf; ++df)
+            s += xs[((wt * pt + dt) * F + wf * pf + df) * CP + c];
+      }
+      out[(((long long)b * Tp + t0 / pt + wt) * Fp + wf) * C + c] = from_float<TX>(s * inv_win);
     }
   }
 }
 
 // What both backward passes share, per tile: xn into xs, the masked dh into
 // ds, then lin, the gate term and dlin (over dh), and dxn into acc.
-template <int NJ>
+template <int NJ, typename TX>
 __device__ __forceinline__ void recompute_dxn(float (&acc)[8][NJ], float* xs, float* ds,
                                               const float* ws, const float* xt,
-                                              const float* __restrict__ dout, const Consts& k,
+                                              const TX* __restrict__ dout, const Consts& k,
                                               int b, int T, int F, int C, int pt, int pf, int t0,
                                               int tpix, long long tile_base, bool drop,
                                               unsigned long long seed, uint32_t threshold,
@@ -462,13 +515,13 @@ __device__ __forceinline__ void recompute_dxn(float (&acc)[8][NJ], float* xs, fl
   const float inv_win = 1.0f / (float)(pt * pf);
   const int tid = threadIdx.x;
 
-  conv_to_xn<NJ>(xs, CP, xt, FW, F, tpix, k, C, pg, cg);
+  conv_to_xn<NJ, TX>(xs, CP, xt, FW, F, tpix, k, C, pg, cg);
   for (int i = tid; i < kPix * C; i += kThreads) {
     const int p = i / C, c = i % C;
     float dh = 0.0f;
     if (p < tpix) {
       const int t = p / F, f = p % F;
-      dh = dout[(((long long)b * Tp + (t0 + t) / pt) * Fp + f / pf) * C + c] * inv_win;
+      dh = to_float(dout[(((long long)b * Tp + (t0 + t) / pt) * Fp + f / pf) * C + c]) * inv_win;
     }
     ds[p * CP + c] = dh;
   }
@@ -483,7 +536,7 @@ __device__ __forceinline__ void recompute_dxn(float (&acc)[8][NJ], float* xs, fl
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
-  mix_rows<NJ>(acc, xs, CP, ws, CP, C, pg, cg);
+  mix_rows<NJ, TX>(acc, xs, CP, ws, CP, C, pg, cg);
   __syncthreads();  // masked dh complete
   // gate term into acc, dlin over dh (each element owned by one thread)
 #pragma unroll
@@ -502,13 +555,13 @@ __device__ __forceinline__ void recompute_dxn(float (&acc)[8][NJ], float* xs, fl
     }
   __syncthreads();  // dlin complete
   // dxn = dlin . W^T + gate; thread holds (pixel pg + 16 i, channel cg + 16 j)
-  mix_cols<NJ>(acc, ds, CP, ws, CP, C, pg, cg);
+  mix_cols<NJ, TX>(acc, ds, CP, ws, CP, C, pg, cg);
 }
 
 // Pass 1. Slot of a block: [C*C d glu_w | C d glu_b | C S1 | C S2].
-template <int NJ>
+template <int NJ, typename TX>
 __global__ void __launch_bounds__(kThreads)
-entry_block_bwd_reduce_kernel(const float* __restrict__ x, const float* __restrict__ dout,
+entry_block_bwd_reduce_kernel(const TX* __restrict__ x, const TX* __restrict__ dout,
                               const float* __restrict__ cw, const float* __restrict__ cb,
                               const float* __restrict__ scale, const float* __restrict__ bias,
                               const float* __restrict__ mean, const float* __restrict__ var,
@@ -531,7 +584,7 @@ entry_block_bwd_reduce_kernel(const float* __restrict__ x, const float* __restri
   const int FW = F + 2;
   const bool drop = threshold != 0u;
   const unsigned long long seed = drop ? (unsigned long long)seed_ptr[0] : 0ull;
-  for (int i = tid; i < C * C; i += kThreads) ws[(i / C) * CP + i % C] = glu_w[i];
+  for (int i = tid; i < C * C; i += kThreads) ws[(i / C) * CP + i % C] = rounded<TX>(glu_w[i]);
   load_consts(k, scale, bias, mean, var, glu_b, cw, cb, C, eps);
 
   const int cg = tid % 16, pg = tid / 16;
@@ -559,8 +612,8 @@ entry_block_bwd_reduce_kernel(const float* __restrict__ x, const float* __restri
     stage_x(xt, x, b, T, F, t0, trows);
     __syncthreads();
     float acc[8][NJ];
-    recompute_dxn<NJ>(acc, xs, ds, ws, xt, dout, k, b, T, F, C, pt, pf, t0, tpix, tile_base,
-                      drop, seed, threshold, keep_scale, pg, cg);
+    recompute_dxn<NJ, TX>(acc, xs, ds, ws, xt, dout, k, b, T, F, C, pt, pf, t0, tpix, tile_base,
+                          drop, seed, threshold, keep_scale, pg, cg);
 
     // S1 += dxn, S2 += dxn * xh, with y recomputed from the staged tile
 #pragma unroll
@@ -575,7 +628,7 @@ entry_block_bwd_reduce_kernel(const float* __restrict__ x, const float* __restri
       for (int i = 0; i < 8; ++i) {
         const int p = pg + 16 * i;
         if (p >= tpix) continue;
-        const float yv = conv9(xt + (p / F) * FW + (p % F), FW, w, cbv);
+        const float yv = rounded<TX>(conv9(xt + (p / F) * FW + (p % F), FW, w, cbv));
         const float dxn = acc[i][j];
         s1[j] += dxn;
         s2[j] = fmaf(dxn, (yv - mu) * inv, s2[j]);
@@ -584,18 +637,21 @@ entry_block_bwd_reduce_kernel(const float* __restrict__ x, const float* __restri
 
     // d glu_w += xn^T . dlin, d glu_b += sum dlin; thread holds (ci = pg + 16 i, co = cg + 16 j)
     for (int p = 0; p < tpix; ++p) {
-      float xv[NJ], dv[NJ];
+      float xv[NJ], dv[NJ], dr[NJ];
 #pragma unroll
-      for (int i = 0; i < NJ; ++i) xv[i] = xs[p * CP + ((pg + 16 * i) < C ? pg + 16 * i : 0)];
+      for (int i = 0; i < NJ; ++i) xv[i] = rounded<TX>(xs[p * CP + ((pg + 16 * i) < C ? pg + 16 * i : 0)]);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) dv[j] = ds[p * CP + ((cg + 16 * j) < C ? cg + 16 * j : 0)];
+      for (int j = 0; j < NJ; ++j) {
+        dr[j] = ds[p * CP + ((cg + 16 * j) < C ? cg + 16 * j : 0)];
+        dv[j] = rounded<TX>(dr[j]);
+      }
 #pragma unroll
       for (int i = 0; i < NJ; ++i)
 #pragma unroll
         for (int j = 0; j < NJ; ++j) dw[i][j] = fmaf(xv[i], dv[j], dw[i][j]);
       if (pg == 0) {
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) dbv[j] += dv[j];
+        for (int j = 0; j < NJ; ++j) dbv[j] += dr[j];
       }
     }
   }
@@ -630,10 +686,12 @@ entry_block_bwd_reduce_kernel(const float* __restrict__ x, const float* __restri
   }
 }
 
-// Pass 2. Slot of a block: [9 * C dW (tap-major) | C d conv_b].
-template <int NJ>
+// Pass 2. Slot of a block: classes x [9 * C dW (tap-major) | C d conv_b]; with
+// parity (F even) the sums over even and odd output frequencies apart (a
+// thread's pixels pg + 16 i share the parity of pg).
+template <int NJ, typename TX>
 __global__ void __launch_bounds__(kThreads)
-entry_block_bwd_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dout,
+entry_block_bwd_wgrad_kernel(const TX* __restrict__ x, const TX* __restrict__ dout,
                              const float* __restrict__ cw, const float* __restrict__ cb,
                              const float* __restrict__ scale, const float* __restrict__ bias,
                              const float* __restrict__ mean, const float* __restrict__ var,
@@ -642,7 +700,7 @@ entry_block_bwd_wgrad_kernel(const float* __restrict__ x, const float* __restric
                              float* __restrict__ partials, int T, int F, int C, int pt, int pf,
                              float eps, int rows, int tiles_per_block,
                              const long long* __restrict__ seed_ptr, uint32_t threshold,
-                             float keep_scale) {
+                             float keep_scale, int parity) {
   extern __shared__ float smem[];
   const int CP = C + 1;
   float* xs = smem;            // [kPix][CP]: xn
@@ -658,7 +716,7 @@ entry_block_bwd_wgrad_kernel(const float* __restrict__ x, const float* __restric
   const int FW = F + 2;
   const bool drop = threshold != 0u;
   const unsigned long long seed = drop ? (unsigned long long)seed_ptr[0] : 0ull;
-  for (int i = tid; i < C * C; i += kThreads) ws[(i / C) * CP + i % C] = glu_w[i];
+  for (int i = tid; i < C * C; i += kThreads) ws[(i / C) * CP + i % C] = rounded<TX>(glu_w[i]);
   load_consts(k, scale, bias, mean, var, glu_b, cw, cb, C, eps);
   for (int c = tid; c < C; c += kThreads) {
     s_a[c] = a[c];
@@ -690,8 +748,8 @@ entry_block_bwd_wgrad_kernel(const float* __restrict__ x, const float* __restric
     stage_x(xt, x, b, T, F, t0, trows);
     __syncthreads();
     float acc[8][NJ];
-    recompute_dxn<NJ>(acc, xs, ds, ws, xt, dout, k, b, T, F, C, pt, pf, t0, tpix, tile_base,
-                      drop, seed, threshold, keep_scale, pg, cg);
+    recompute_dxn<NJ, TX>(acc, xs, ds, ws, xt, dout, k, b, T, F, C, pt, pf, t0, tpix, tile_base,
+                          drop, seed, threshold, keep_scale, pg, cg);
 
     // dy = inv * scale * dxn - a - (y - mean) * b2 in registers, straight into
     // the patch products
@@ -709,14 +767,15 @@ entry_block_bwd_wgrad_kernel(const float* __restrict__ x, const float* __restric
         const int p = pg + 16 * i;
         if (p >= tpix) continue;
         const float* r = xt + (p / F) * FW + (p % F);
-        const float yv = conv9(r, FW, w, cbv);
+        const float yv = rounded<TX>(conv9(r, FW, w, cbv));
         const float dyv = coef * acc[i][j] - av - (yv - mu) * bv;
+        const float dyr = rounded<TX>(dyv);
         dcb[j] += dyv;
 #pragma unroll
         for (int dt = 0; dt < 3; ++dt)
 #pragma unroll
           for (int df = 0; df < 3; ++df)
-            dwc[j][dt * 3 + df] = fmaf(r[dt * FW + df], dyv, dwc[j][dt * 3 + df]);
+            dwc[j][dt * 3 + df] = fmaf(r[dt * FW + df], dyr, dwc[j][dt * 3 + df]);
       }
     }
   }
@@ -734,11 +793,13 @@ entry_block_bwd_wgrad_kernel(const float* __restrict__ x, const float* __restric
   }
   __syncthreads();
   const int slot = blockIdx.y * gridDim.x + blockIdx.x;
-  for (int i = tid; i < 10 * C; i += kThreads) {
-    float s = 0.0f;
-    for (int g = 0; g < 16; ++g) s += red[g * 10 * C + i];
-    partials[(long long)slot * 10 * C + i] = s;
-  }
+  const int classes = parity ? 2 : 1;
+  for (int i = tid; i < 10 * C; i += kThreads)
+    for (int cl = 0; cl < classes; ++cl) {
+      float s = 0.0f;
+      for (int g = cl; g < 16; g += classes) s += red[g * 10 * C + i];
+      partials[((long long)slot * classes + cl) * 10 * C + i] = s;
+    }
 }
 
 // ---------------------------------------------------------- the mask alone
@@ -775,84 +836,168 @@ dim3 tile_grid(int B, int T, int rows, int tiles_per_block) {
   return dim3((n_tiles + tiles_per_block - 1) / tiles_per_block, B);
 }
 
-template <int MODE>
-int launch_entry_conv(const float* x, const float* w, const float* cb, float* y,
+// The fold of a weight gradient's slots: float32 sums unrounded (float32,
+// one class), else the parts' sums rounded to TX and added. parts: 1, 2
+// (the two halves of each slot, by output-frequency parity) or -2 (two
+// classes of slots: the first and the second half of the clips).
+template <typename TX>
+cudaError_t fold_wgrad(const float* partials, float* out, int slots, int width, int n_round, int parts,
+                       cudaStream_t stream) {
+  if (std::is_same<TX, float>::value && parts == 1)
+    return launch_fold<float>(partials, out, slots, width, stream);
+  if (parts == -2)
+    return launch_fold_classes<float, TX>(partials, out, slots / 2, width, 2, width,
+                                          (long long)(slots / 2) * width, n_round, stream);
+  return launch_fold_classes<float, TX>(partials, out, slots, width, parts, (long long)parts * width,
+                                        width, n_round, stream);
+}
+
+template <int MODE, typename TX>
+int launch_entry_conv(const void* x, const float* w, const float* cb, void* y,
                       double* partials, float* sums, int B, int T, int F, int C,
                       int tiles_per_block, cudaStream_t stream) {
   const int rows = rows_per_tile(F, 1);
   const dim3 grid = tile_grid(B, T, rows, tiles_per_block);
   const int groups = kThreads / (C / 4);
   const size_t smem = sizeof(double) * (size_t)groups * 2 * C;
-  entry_conv_kernel<MODE><<<grid, kThreads, smem, stream>>>(x, w, cb, y, partials, T, F, C,
-                                                             rows, tiles_per_block);
+  entry_conv_kernel<MODE, TX><<<grid, kThreads, smem, stream>>>(
+      static_cast<const TX*>(x), w, cb, static_cast<TX*>(y), partials, T, F, C, rows, tiles_per_block);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_fold<double>(partials, sums, (int)(grid.x * grid.y), 2 * C, stream);
 }
 
-template <int NJ>
-int launch_block_fwd(const float* x, const float* cw, const float* cb, const float* scale,
-                     const float* bias, const float* mean, const float* var,
-                     const float* glu_w, const float* glu_b, float* out, int B, int T, int F,
-                     int C, int pt, int pf, float eps, int tiles_per_block,
-                     const long long* seed, uint32_t threshold, float keep_scale,
-                     cudaStream_t stream) {
-  const size_t smem = fwd_smem(C);
-  cudaError_t err = cudaFuncSetAttribute(entry_block_fwd_kernel<NJ>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+template <typename TX>
+int launch_entry_conv_mode(int mode, const void* x, const float* w, const float* cb, void* y,
+                           double* partials, float* sums, int B, int T, int F, int C,
+                           int tiles_per_block, cudaStream_t st) {
+  switch (mode) {
+    case 0: return launch_entry_conv<0, TX>(x, w, cb, y, partials, sums, B, T, F, C, tiles_per_block, st);
+    case 1: return launch_entry_conv<1, TX>(x, w, cb, y, partials, sums, B, T, F, C, tiles_per_block, st);
+    case 2: return launch_entry_conv<2, TX>(x, w, cb, y, partials, sums, B, T, F, C, tiles_per_block, st);
+    case 3: return launch_entry_conv<3, TX>(x, w, cb, y, partials, sums, B, T, F, C, tiles_per_block, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename TX>
+int launch_entry_conv_wgrad(const void* x, const void* dy, float* partials, float* out, int B, int T,
+                            int F, int C, int tiles_per_block, int classes, cudaStream_t st) {
+  if (classes != 1 && (classes != 2 || F % 2 != 0)) return (int)cudaErrorInvalidValue;
+  const int rows = rows_per_tile(F, 1);
+  const dim3 grid = tile_grid(B, T, rows, tiles_per_block);
+  const int groups = kThreads / (C / 4);
+  const size_t smem = sizeof(float) * (size_t)groups * 10 * C;
+  entry_conv_wgrad_kernel<TX><<<grid, kThreads, smem, st>>>(
+      static_cast<const TX*>(x), static_cast<const TX*>(dy), partials, T, F, C, rows, tiles_per_block,
+      classes);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int rows = rows_per_tile(F, pt);
-  entry_block_fwd_kernel<NJ><<<tile_grid(B, T, rows, tiles_per_block), kThreads, smem, stream>>>(
-      x, cw, cb, scale, bias, mean, var, glu_w, glu_b, out, T, F, C, pt, pf, eps, rows,
-      tiles_per_block, seed, threshold, keep_scale);
+  return (int)fold_wgrad<TX>(partials, out, (int)(grid.x * grid.y), 10 * C, 9 * C, classes, st);
+}
+
+// The parameters of a fused first-block launch, shared by the three kernels.
+struct BlockArgs {
+  const void* x;
+  const void* dout;
+  const float *cw, *cb, *scale, *bias, *mean, *var, *glu_w, *glu_b, *a, *b2;
+  int B, T, F, C, pt, pf;
+  float eps;
+  int tiles_per_block;
+  const long long* seed;
+  uint32_t threshold;
+  float keep_scale;
+};
+
+template <int NJ, typename TX>
+int launch_block_fwd(const BlockArgs& g, void* out, int pool_elems, cudaStream_t stream) {
+  const size_t smem = fwd_smem(g.C);
+  cudaError_t err = cudaFuncSetAttribute(entry_block_fwd_kernel<NJ, TX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = rows_per_tile(g.F, g.pt);
+  entry_block_fwd_kernel<NJ, TX><<<tile_grid(g.B, g.T, rows, g.tiles_per_block), kThreads, smem, stream>>>(
+      static_cast<const TX*>(g.x), g.cw, g.cb, g.scale, g.bias, g.mean, g.var, g.glu_w, g.glu_b,
+      static_cast<TX*>(out), g.T, g.F, g.C, g.pt, g.pf, g.eps, rows, g.tiles_per_block, g.seed,
+      g.threshold, g.keep_scale, pool_elems);
   return (int)cudaGetLastError();
 }
 
-template <int NJ>
-int launch_block_bwd_reduce(const float* x, const float* dout, const float* cw,
-                            const float* cb, const float* scale, const float* bias,
-                            const float* mean, const float* var, const float* glu_w,
-                            const float* glu_b, float* partials, float* sums, int B, int T,
-                            int F, int C, int pt, int pf, float eps, int tiles_per_block,
-                            const long long* seed, uint32_t threshold, float keep_scale,
-                            cudaStream_t stream) {
-  const size_t smem = bwd_smem(C, 16 * 2 * 16 * NJ);
-  cudaError_t err = cudaFuncSetAttribute(entry_block_bwd_reduce_kernel<NJ>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+template <int NJ, typename TX>
+int launch_block_bwd_reduce(const BlockArgs& g, float* partials, float* sums, cudaStream_t stream) {
+  const size_t smem = bwd_smem(g.C, 16 * 2 * 16 * NJ);
+  cudaError_t err = cudaFuncSetAttribute(entry_block_bwd_reduce_kernel<NJ, TX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int rows = rows_per_tile(F, pt);
-  const dim3 grid = tile_grid(B, T, rows, tiles_per_block);
-  entry_block_bwd_reduce_kernel<NJ><<<grid, kThreads, smem, stream>>>(
-      x, dout, cw, cb, scale, bias, mean, var, glu_w, glu_b, partials, T, F, C, pt, pf, eps,
-      rows, tiles_per_block, seed, threshold, keep_scale);
+  const int rows = rows_per_tile(g.F, g.pt);
+  const dim3 grid = tile_grid(g.B, g.T, rows, g.tiles_per_block);
+  entry_block_bwd_reduce_kernel<NJ, TX><<<grid, kThreads, smem, stream>>>(
+      static_cast<const TX*>(g.x), static_cast<const TX*>(g.dout), g.cw, g.cb, g.scale, g.bias, g.mean,
+      g.var, g.glu_w, g.glu_b, partials, g.T, g.F, g.C, g.pt, g.pf, g.eps, rows, g.tiles_per_block,
+      g.seed, g.threshold, g.keep_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_fold<float>(partials, sums, (int)(grid.x * grid.y), C * C + 3 * C, stream);
+  return (int)launch_fold<float>(partials, sums, (int)(grid.x * grid.y), g.C * g.C + 3 * g.C, stream);
 }
 
-template <int NJ>
-int launch_block_bwd_wgrad(const float* x, const float* dout, const float* cw, const float* cb,
-                           const float* scale, const float* bias, const float* mean,
-                           const float* var, const float* glu_w, const float* glu_b,
-                           const float* a, const float* b2, float* partials, float* sums,
-                           int B, int T, int F, int C, int pt, int pf, float eps,
-                           int tiles_per_block, const long long* seed, uint32_t threshold,
-                           float keep_scale, cudaStream_t stream) {
-  const size_t smem = bwd_smem(C, 2 * C);
-  cudaError_t err = cudaFuncSetAttribute(entry_block_bwd_wgrad_kernel<NJ>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+// partition 0: one part; 1: output-frequency parity (F even); 2: batch halves (B even).
+template <int NJ, typename TX>
+int launch_block_bwd_wgrad(const BlockArgs& g, float* partials, float* sums, int partition,
+                           cudaStream_t stream) {
+  if (partition < 0 || partition > 2 || (partition == 1 && g.F % 2 != 0) || (partition == 2 && g.B % 2 != 0))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = bwd_smem(g.C, 2 * g.C);
+  cudaError_t err = cudaFuncSetAttribute(entry_block_bwd_wgrad_kernel<NJ, TX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int rows = rows_per_tile(F, pt);
-  const dim3 grid = tile_grid(B, T, rows, tiles_per_block);
-  entry_block_bwd_wgrad_kernel<NJ><<<grid, kThreads, smem, stream>>>(
-      x, dout, cw, cb, scale, bias, mean, var, glu_w, glu_b, a, b2, partials, T, F, C, pt, pf,
-      eps, rows, tiles_per_block, seed, threshold, keep_scale);
+  const int rows = rows_per_tile(g.F, g.pt);
+  const dim3 grid = tile_grid(g.B, g.T, rows, g.tiles_per_block);
+  entry_block_bwd_wgrad_kernel<NJ, TX><<<grid, kThreads, smem, stream>>>(
+      static_cast<const TX*>(g.x), static_cast<const TX*>(g.dout), g.cw, g.cb, g.scale, g.bias, g.mean,
+      g.var, g.glu_w, g.glu_b, g.a, g.b2, partials, g.T, g.F, g.C, g.pt, g.pf, g.eps, rows,
+      g.tiles_per_block, g.seed, g.threshold, g.keep_scale, partition == 1);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_fold<float>(partials, sums, (int)(grid.x * grid.y), 10 * C, stream);
+  const int parts = partition == 0 ? 1 : partition == 1 ? 2 : -2;
+  return (int)fold_wgrad<TX>(partials, sums, (int)(grid.x * grid.y), 10 * g.C, 9 * g.C, parts, stream);
+}
+
+// One fused first-block launch with the channel tile (NJ) and element type
+// the call asks for.
+template <template <int, typename> class L, typename... Rest>
+int dispatch_block(int C, int bf16, const BlockArgs& g, Rest... rest) {
+  if (bf16) return C <= 64 ? L<4, __nv_bfloat16>::run(g, rest...) : L<8, __nv_bfloat16>::run(g, rest...);
+  return C <= 64 ? L<4, float>::run(g, rest...) : L<8, float>::run(g, rest...);
+}
+
+template <int NJ, typename TX>
+struct Fwd {
+  static int run(const BlockArgs& g, void* out, int pool_elems, cudaStream_t st) {
+    return launch_block_fwd<NJ, TX>(g, out, pool_elems, st);
+  }
+};
+template <int NJ, typename TX>
+struct BwdReduce {
+  static int run(const BlockArgs& g, float* partials, float* sums, cudaStream_t st) {
+    return launch_block_bwd_reduce<NJ, TX>(g, partials, sums, st);
+  }
+};
+template <int NJ, typename TX>
+struct BwdWgrad {
+  static int run(const BlockArgs& g, float* partials, float* sums, int partition, cudaStream_t st) {
+    return launch_block_bwd_wgrad<NJ, TX>(g, partials, sums, partition, st);
+  }
+};
+
+BlockArgs block_args(const void* x, const void* dout, const void* cw, const void* cb, const void* scale,
+                     const void* bias, const void* mean, const void* var, const void* glu_w,
+                     const void* glu_b, const void* a, const void* b2, int B, int T, int F, int C,
+                     int pt, int pf, float eps, const void* seed, unsigned int threshold,
+                     float keep_scale, int tiles_per_block) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  return BlockArgs{x, dout, f(cw), f(cb), f(scale), f(bias), f(mean), f(var), f(glu_w), f(glu_b),
+                   f(a), f(b2), B, T, F, C, pt, pf, eps, tiles_per_block,
+                   static_cast<const long long*>(seed), threshold, keep_scale};
 }
 
 inline const float* fp(const void* p) { return static_cast<const float*>(p); }
@@ -861,115 +1006,95 @@ inline const float* fp(const void* p) { return static_cast<const float*>(p); }
 
 extern "C" {
 
-// x: [B, T, F]; w: [3, 3, 1, C]; cb: [C]; y: [B, T, F, C] (unused in mode 1);
-// partials: [slots, 2C] float64 scratch, slots = B * ceil(tiles /
-// tiles_per_block) with tiles = dcase_bn_glu_pool_tiles(T, F, 1, 1); sums: [2, C]
-// float32 = sum y | sum y^2. F <= 128, C % 4 == 0, C <= 128
+// x: [B, T, F] float32, or bfloat16 when bf16 != 0; w: [3, 3, 1, C] float32
+// (rounded to the element type by the caller); cb: [C] float32; y:
+// [B, T, F, C] in x's type (unused in mode 1); partials: [slots, 2C] float64
+// scratch, slots = B * ceil(tiles / tiles_per_block) with tiles =
+// dcase_bn_glu_pool_tiles(T, F, 1, 1); sums: [2, C] float32 = sum y | sum
+// y^2 of y as stored. F <= 128, C % 4 == 0, C <= 128
 // (ops/entry_conv.py:entry_conv_packable). mode: 0 full, 1 sums only, 2 one
 // tap, 3 bias write only.
 int dcase_entry_conv(const void* x, const void* w, const void* cb, void* y, void* partials,
-                     void* sums, int B, int T, int F, int C, int mode, int tiles_per_block,
+                     void* sums, int B, int T, int F, int C, int mode, int tiles_per_block, int bf16,
                      void* stream) {
-  auto* yp = static_cast<float*>(y);
   auto* pa = static_cast<double*>(partials);
   auto* su = static_cast<float*>(sums);
   auto st = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case 0: return launch_entry_conv<0>(fp(x), fp(w), fp(cb), yp, pa, su, B, T, F, C, tiles_per_block, st);
-    case 1: return launch_entry_conv<1>(fp(x), fp(w), fp(cb), yp, pa, su, B, T, F, C, tiles_per_block, st);
-    case 2: return launch_entry_conv<2>(fp(x), fp(w), fp(cb), yp, pa, su, B, T, F, C, tiles_per_block, st);
-    case 3: return launch_entry_conv<3>(fp(x), fp(w), fp(cb), yp, pa, su, B, T, F, C, tiles_per_block, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return bf16 ? launch_entry_conv_mode<__nv_bfloat16>(mode, x, fp(w), fp(cb), y, pa, su, B, T, F, C,
+                                                      tiles_per_block, st)
+              : launch_entry_conv_mode<float>(mode, x, fp(w), fp(cb), y, pa, su, B, T, F, C,
+                                              tiles_per_block, st);
 }
 
-// dy: [B, T, F, C]; partials: [slots, 10C] float32; out: [10C] = dW
-// [3, 3, 1, C] | db [C], folded from the slots in slot order.
+// x, dy: [B, T, F], [B, T, F, C] in one type (float32, or bfloat16 when
+// bf16 != 0); partials: [slots, classes * 10C] float32; out: [10C] = dW
+// [3, 3, 1, C] | db [C], folded from the slots in slot order. classes 1, or
+// 2 (F even): dW as the sum over the output-frequency parities of each
+// parity's sum. In bfloat16 each part's dW is rounded to bfloat16 before the
+// parts are added (the gradient of the bfloat16 weights); db is not rounded.
 int dcase_entry_conv_wgrad(const void* x, const void* dy, void* partials, void* out, int B,
-                           int T, int F, int C, int tiles_per_block, void* stream) {
+                           int T, int F, int C, int tiles_per_block, int bf16, int classes,
+                           void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto* pa = static_cast<float*>(partials);
-  const int rows = rows_per_tile(F, 1);
-  const dim3 grid = tile_grid(B, T, rows, tiles_per_block);
-  const int groups = kThreads / (C / 4);
-  const size_t smem = sizeof(float) * (size_t)groups * 10 * C;
-  entry_conv_wgrad_kernel<<<grid, kThreads, smem, st>>>(fp(x), fp(dy), pa, T, F, C, rows,
-                                                         tiles_per_block);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_fold<float>(pa, static_cast<float*>(out), (int)(grid.x * grid.y), 10 * C, st);
+  auto* o = static_cast<float*>(out);
+  return bf16 ? launch_entry_conv_wgrad<__nv_bfloat16>(x, dy, pa, o, B, T, F, C, tiles_per_block, classes, st)
+              : launch_entry_conv_wgrad<float>(x, dy, pa, o, B, T, F, C, tiles_per_block, classes, st);
 }
 
-// x: [B, T, F]; cw: [3, 3, 1, C]; cb, scale, bias, mean, var, glu_b: [C];
-// glu_w: [C, C] (in, out); out: [B, T/pt, F/pf, C]; float32, contiguous.
-// T % pt == 0, F % pf == 0, pt * F <= 128, C % 4 == 0, C <= 128
+// x: [B, T, F]; out: [B, T/pt, F/pf, C], both float32, or bfloat16 when
+// bf16 != 0; cw: [3, 3, 1, C] (rounded to the element type by the caller);
+// cb, scale, bias, mean, var, glu_b: [C]; glu_w: [C, C] (in, out); the
+// parameters float32, all contiguous. T % pt == 0, F % pf == 0,
+// pt * F <= 128, C % 4 == 0, C <= 128
 // (ops/fused_entry_block.py:entry_block_applicable); tiles =
 // dcase_bn_glu_pool_tiles(T, F, pt, pf). seed, threshold, keep_scale as in
-// dcase_bn_glu_pool.
+// dcase_bn_glu_pool. pool_elems (bfloat16): round each g of a window
+// before the window sum instead of each pt-row column sum.
 int dcase_entry_block_fwd(const void* x, const void* cw, const void* cb, const void* scale,
                           const void* bias, const void* mean, const void* var,
                           const void* glu_w, const void* glu_b, void* out, int B, int T, int F,
                           int C, int pt, int pf, float eps, const void* seed,
-                          unsigned int threshold, float keep_scale, int tiles_per_block,
-                          void* stream) {
-  const auto* sd = static_cast<const long long*>(seed);
-  auto* o = static_cast<float*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (C <= 64)
-    return launch_block_fwd<4>(fp(x), fp(cw), fp(cb), fp(scale), fp(bias), fp(mean), fp(var),
-                               fp(glu_w), fp(glu_b), o, B, T, F, C, pt, pf, eps,
-                               tiles_per_block, sd, threshold, keep_scale, st);
-  return launch_block_fwd<8>(fp(x), fp(cw), fp(cb), fp(scale), fp(bias), fp(mean), fp(var),
-                             fp(glu_w), fp(glu_b), o, B, T, F, C, pt, pf, eps, tiles_per_block,
-                             sd, threshold, keep_scale, st);
+                          unsigned int threshold, float keep_scale, int tiles_per_block, int bf16,
+                          int pool_elems, void* stream) {
+  const BlockArgs g = block_args(x, nullptr, cw, cb, scale, bias, mean, var, glu_w, glu_b, nullptr, nullptr,
+                                 B, T, F, C, pt, pf, eps, seed, threshold, keep_scale, tiles_per_block);
+  return dispatch_block<Fwd>(C, bf16, g, out, pool_elems, static_cast<cudaStream_t>(stream));
 }
 
-// First backward pass. dout: [B, T/pt, F/pf, C]; partials: [slots, C*C + 3C];
-// sums: [C*C + 3C] = d glu_w | d glu_b | S1 | S2, folded in slot order.
+// First backward pass. dout: [B, T/pt, F/pf, C] in x's type; partials:
+// [slots, C*C + 3C]; sums: [C*C + 3C] = d glu_w | d glu_b | S1 | S2, folded
+// in slot order, float32.
 int dcase_entry_block_bwd_reduce(const void* x, const void* dout, const void* cw,
                                  const void* cb, const void* scale, const void* bias,
                                  const void* mean, const void* var, const void* glu_w,
                                  const void* glu_b, void* partials, void* sums, int B, int T,
                                  int F, int C, int pt, int pf, float eps, const void* seed,
                                  unsigned int threshold, float keep_scale, int tiles_per_block,
-                                 void* stream) {
-  const auto* sd = static_cast<const long long*>(seed);
-  auto* pa = static_cast<float*>(partials);
-  auto* su = static_cast<float*>(sums);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (C <= 64)
-    return launch_block_bwd_reduce<4>(fp(x), fp(dout), fp(cw), fp(cb), fp(scale), fp(bias),
-                                      fp(mean), fp(var), fp(glu_w), fp(glu_b), pa, su, B, T, F,
-                                      C, pt, pf, eps, tiles_per_block, sd, threshold,
-                                      keep_scale, st);
-  return launch_block_bwd_reduce<8>(fp(x), fp(dout), fp(cw), fp(cb), fp(scale), fp(bias),
-                                    fp(mean), fp(var), fp(glu_w), fp(glu_b), pa, su, B, T, F, C,
-                                    pt, pf, eps, tiles_per_block, sd, threshold, keep_scale, st);
+                                 int bf16, void* stream) {
+  const BlockArgs g = block_args(x, dout, cw, cb, scale, bias, mean, var, glu_w, glu_b, nullptr, nullptr,
+                                 B, T, F, C, pt, pf, eps, seed, threshold, keep_scale, tiles_per_block);
+  return dispatch_block<BwdReduce>(C, bf16, g, static_cast<float*>(partials), static_cast<float*>(sums),
+                                   static_cast<cudaStream_t>(stream));
 }
 
 // Second backward pass. a, b2: [C], from S1 and S2 (fused_block.py:
-// bwd_coefficients); partials: [slots, 10C]; sums: [10C] = dW [3, 3, 1, C] |
-// d conv_b [C].
+// bwd_coefficients); partials: [slots, parts * 10C] (parts 2 under
+// partition 1); sums: [10C] = dW [3, 3, 1, C] | d conv_b [C]. partition 0:
+// one part; 1: output-frequency parity (F even); 2: batch halves (B even).
+// In bfloat16 each part's dW is rounded to bfloat16 before the parts are
+// added; d conv_b is not rounded.
 int dcase_entry_block_bwd_wgrad(const void* x, const void* dout, const void* cw, const void* cb,
                                 const void* scale, const void* bias, const void* mean,
                                 const void* var, const void* glu_w, const void* glu_b,
                                 const void* a, const void* b2, void* partials, void* sums,
                                 int B, int T, int F, int C, int pt, int pf, float eps,
                                 const void* seed, unsigned int threshold, float keep_scale,
-                                int tiles_per_block, void* stream) {
-  const auto* sd = static_cast<const long long*>(seed);
-  auto* pa = static_cast<float*>(partials);
-  auto* su = static_cast<float*>(sums);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (C <= 64)
-    return launch_block_bwd_wgrad<4>(fp(x), fp(dout), fp(cw), fp(cb), fp(scale), fp(bias),
-                                     fp(mean), fp(var), fp(glu_w), fp(glu_b), fp(a), fp(b2), pa,
-                                     su, B, T, F, C, pt, pf, eps, tiles_per_block, sd,
-                                     threshold, keep_scale, st);
-  return launch_block_bwd_wgrad<8>(fp(x), fp(dout), fp(cw), fp(cb), fp(scale), fp(bias),
-                                   fp(mean), fp(var), fp(glu_w), fp(glu_b), fp(a), fp(b2), pa,
-                                   su, B, T, F, C, pt, pf, eps, tiles_per_block, sd, threshold,
-                                   keep_scale, st);
+                                int tiles_per_block, int bf16, int partition, void* stream) {
+  const BlockArgs g = block_args(x, dout, cw, cb, scale, bias, mean, var, glu_w, glu_b, a, b2,
+                                 B, T, F, C, pt, pf, eps, seed, threshold, keep_scale, tiles_per_block);
+  return dispatch_block<BwdWgrad>(C, bf16, g, static_cast<float*>(partials), static_cast<float*>(sums),
+                                  partition, static_cast<cudaStream_t>(stream));
 }
 
 // out: [n] float32 0/1 keep-mask of (seed, element index, threshold); seed:

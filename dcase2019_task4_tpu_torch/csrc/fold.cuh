@@ -4,10 +4,18 @@
 // refs). On the card blocks run in no order, so each block writes its sums to
 // its own slot and this kernel adds the slots in slot order, in double: no
 // float atomics, and a run repeats bit for bit.
+//
+// Where the TPU original rounds a carried sum to bfloat16 in parts before it
+// adds the parts (a weight gradient in a lane-packed basis: one part per lane
+// copy, or per batch half), fold_classes_kernel keeps one float32 sum per
+// part ("class"), rounds each to the compute dtype and adds the rounded sums
+// in class order.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "dtype.cuh"
 
 namespace {
 
@@ -29,6 +37,35 @@ cudaError_t launch_fold(const TIn* partials, float* out, int slots, int width,
                         cudaStream_t stream) {
   fold_kernel<TIn><<<(width + kFoldThreads - 1) / kFoldThreads, kFoldThreads, 0, stream>>>(
       partials, out, slots, width);
+  return cudaGetLastError();
+}
+
+// out[k] = sum over classes c = 0 .. classes-1, in that order, of R(sum over
+// s = 0 .. slots-1, in that order, in double, of partials[c * class_stride +
+// s * slot_stride + k]), where R rounds to TR (and widens back) for
+// k < n_round and is the identity after (sums the original keeps in float32).
+template <typename TIn, typename TR>
+__global__ void __launch_bounds__(kFoldThreads)
+fold_classes_kernel(const TIn* __restrict__ partials, float* __restrict__ out, int slots, int width,
+                    int classes, long long slot_stride, long long class_stride, int n_round) {
+  const int k = blockIdx.x * kFoldThreads + threadIdx.x;
+  if (k >= width) return;
+  float total = 0.0f;
+  for (int c = 0; c < classes; ++c) {
+    const TIn* p = partials + c * class_stride + k;
+    double t = 0.0;
+    for (int s = 0; s < slots; ++s) t += (double)p[s * slot_stride];
+    total += k < n_round ? rounded<TR>((float)t) : (float)t;
+  }
+  out[k] = total;
+}
+
+template <typename TIn, typename TR>
+cudaError_t launch_fold_classes(const TIn* partials, float* out, int slots, int width, int classes,
+                                long long slot_stride, long long class_stride, int n_round,
+                                cudaStream_t stream) {
+  fold_classes_kernel<TIn, TR><<<(width + kFoldThreads - 1) / kFoldThreads, kFoldThreads, 0, stream>>>(
+      partials, out, slots, width, classes, slot_stride, class_stride, n_round);
   return cudaGetLastError();
 }
 

@@ -53,6 +53,16 @@
 // of slots is bounded by the wrapper: a slot is 9*C*C + C floats, 147 KB at
 // C = 64) and fold_kernel (fold.cuh) adds the slots in a fixed order in
 // double precision: no float atomics, so a run repeats bit for bit.
+//
+// Lane copies of the weight gradient (bfloat16): at C < 128 the TPU kernel
+// packs k = 128 / C frequency columns into one 128-lane row, so each weight
+// appears k times in its part-weights, once per output-frequency class
+// f mod k, and the VJP rounds each copy's float32 sum to bfloat16 before it
+// folds the copies onto w (packed_conv.py:47-70,281). With `classes` = k the
+// kernel keeps one sum per class (a block takes the output frequencies of
+// one class: grid.z runs over the classes too), each slot holds the k class
+// sums side by side, and fold_classes_kernel rounds each class's total to
+// the compute dtype and adds the rounded totals (db is not rounded).
 
 #include <cuda_runtime.h>
 
@@ -145,17 +155,20 @@ conv3x3_nhwc_kernel(const TX* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// grid: (runs of tiles, B, 3 * n_ct * n_ct); slot = b * gridDim.x + run.
+// grid: (runs of tiles, B, classes * 3 * n_ct * n_ct); slot = b * gridDim.x
+// + run, of classes * (9*C*C + C) floats: one sum per output-frequency class.
 template <typename TX>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_wgrad_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
                      float* __restrict__ partials, int T, int F, int C, int rows,
-                     int tiles_per_block, int n_ct) {
+                     int tiles_per_block, int n_ct, int classes) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
-  const int dt = blockIdx.z % 3;
-  const int ct = blockIdx.z / 3;
+  const int per_class = 3 * n_ct * n_ct;
+  const int cls = blockIdx.z / per_class;  // output frequencies f = cls mod classes
+  const int dt = (blockIdx.z % per_class) % 3;
+  const int ct = (blockIdx.z % per_class) / 3;
   const int ci0 = (ct / n_ct) * kCoTile, co0 = (ct % n_ct) * kCoTile;
   const int W2 = F + 2;
   const int CP = kCoTile + 1;
@@ -199,7 +212,7 @@ conv3x3_wgrad_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
     }
     __syncthreads();
     for (int r = 0; r < trows; ++r)
-      for (int f = 0; f < F; ++f) {
+      for (int f = cls; f < F; f += classes) {
         const float* xc = xs + (r * W2 + f) * CP + ca;
         const float* dc = dys + (r * F + f) * CP + cb;
         float dv[4];
@@ -223,7 +236,7 @@ conv3x3_wgrad_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
   }
 
   const int slot = b * gridDim.x + blockIdx.x;
-  float* ps = partials + (long long)slot * (9 * C * C + C);
+  float* ps = partials + ((long long)slot * classes + cls) * (9 * C * C + C);
 #pragma unroll
   for (int d = 0; d < 3; ++d)
 #pragma unroll
@@ -258,7 +271,7 @@ int launch_conv(const void* x, const void* w, const void* bias, void* out, int B
 
 template <typename TX>
 int launch_wgrad(const void* x, const void* dy, void* partials, void* out, int B, int T, int F,
-                 int C, int tiles_per_block, cudaStream_t st) {
+                 int C, int tiles_per_block, int classes, cudaStream_t st) {
   const int rows = kPix / F;
   const size_t smem =
       sizeof(float) * ((size_t)rows * (F + 2) + (size_t)kPix) * (kCoTile + 1);
@@ -267,14 +280,20 @@ int launch_wgrad(const void* x, const void* dy, void* partials, void* out, int B
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (T + rows - 1) / rows;
   const int n_ct = (C + kCoTile - 1) / kCoTile;
-  const dim3 grid((n_tiles + tiles_per_block - 1) / tiles_per_block, B, 3 * n_ct * n_ct);
+  const int n_classes = classes > 0 ? classes : 1;
+  const dim3 grid((n_tiles + tiles_per_block - 1) / tiles_per_block, B, n_classes * 3 * n_ct * n_ct);
   conv3x3_wgrad_kernel<TX><<<grid, kThreads, smem, st>>>(
       static_cast<const TX*>(x), static_cast<const TX*>(dy), static_cast<float*>(partials), T, F, C,
-      rows, tiles_per_block, n_ct);
+      rows, tiles_per_block, n_ct, n_classes);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_fold<float>(static_cast<const float*>(partials), static_cast<float*>(out),
-                                 (int)(grid.x * grid.y), 9 * C * C + C, st);
+  const auto* pa = static_cast<const float*>(partials);
+  auto* o = static_cast<float*>(out);
+  const int width = 9 * C * C + C;
+  if (classes == 0)  // one float32 sum, not rounded
+    return (int)launch_fold<float>(pa, o, (int)(grid.x * grid.y), width, st);
+  return (int)launch_fold_classes<float, TX>(pa, o, (int)(grid.x * grid.y), width, classes,
+                                             (long long)classes * width, width, 9 * C * C, st);
 }
 
 }  // namespace
@@ -294,14 +313,19 @@ int dcase_conv3x3(const void* x, const void* w, const void* bias, void* out, int
 }
 
 // x, dy: [B, T, F, C], float32 or (bf16 != 0) bfloat16; partials:
-// [B * ceil(tiles / tiles_per_block), 9*C*C + C] float32 scratch; out:
-// [9*C*C + C] float32 = dW [3, 3, C, C] (HWIO) | db [C]; all contiguous.
-// F <= 128.
+// [B * ceil(tiles / tiles_per_block), max(classes, 1) * (9*C*C + C)] float32
+// scratch; out: [9*C*C + C] float32 = dW [3, 3, C, C] (HWIO) | db [C]; all
+// contiguous. F <= 128. classes 0: dW is the float32 sum; classes k >= 1:
+// dW is the sum over output-frequency classes f mod k of each class's sum
+// rounded to the element type (the gradient of the compute-dtype weights as
+// the lane-packed original folds it); db is never rounded.
 int dcase_conv3x3_wgrad(const void* x, const void* dy, void* partials, void* out, int B,
-                        int T, int F, int C, int tiles_per_block, int bf16, void* stream) {
+                        int T, int F, int C, int tiles_per_block, int bf16, int classes,
+                        void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_wgrad<__nv_bfloat16>(x, dy, partials, out, B, T, F, C, tiles_per_block, st)
-              : launch_wgrad<float>(x, dy, partials, out, B, T, F, C, tiles_per_block, st);
+  return bf16 ? launch_wgrad<__nv_bfloat16>(x, dy, partials, out, B, T, F, C, tiles_per_block,
+                                            classes, st)
+              : launch_wgrad<float>(x, dy, partials, out, B, T, F, C, tiles_per_block, classes, st);
 }
 
 // Pixel tiles per clip of the kernels above (tiles of whole frequency rows).

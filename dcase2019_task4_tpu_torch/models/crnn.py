@@ -26,9 +26,12 @@ crnn.py:86-92,201,218,222,253): float32, or bfloat16, in which x is cast to
 bfloat16 before each conv and the conv stack's activations stay bfloat16
 (the convs and the fused blocks take and give bfloat16, accumulating in
 float32); parameters, BatchNorm statistics, the GRU (its input is cast back
-to float32), the heads and the probabilities stay float32. The bfloat16
-model runs through the fused kernels only: the plain BatchNorm branch and
-the first-block kernels (K4-K6, float32 only) raise NotImplementedError.
+to float32), the heads and the probabilities stay float32. The first-block
+kernels (K4-K6) take the compute dtype too (the JAX model hands it to
+entry_conv_apply, entry_block_apply and crows_apply, crnn.py:103-199), and
+each reproduces its own original's bfloat16 roundings. The bfloat16 model
+runs through the fused kernels only: the plain BatchNorm branch raises
+NotImplementedError.
 
 In training mode (`model.train()`) each fused block takes the batch Σy and
 Σy² from K2s, forms mean, biased variance and the unbiased running update
@@ -133,15 +136,16 @@ class CRNN(nn.Module):
         mode: running statistics, rate 0)."""
         cfg, bn = self.cfg, block.bn
         stats_apply, apply = engine
+        cd = self.compute_dtype
         conv = {"w": block.conv.weight.permute(2, 3, 1, 0), "b": block.conv.bias}
         if self.training:
-            s, sq = stats_apply(conv, x)
+            s, sq = stats_apply(conv, x, cd)
             mean, var = self._batch_moments(bn, s, sq, x.shape[0] * x.shape[1] * x.shape[2])
             seed = self._draw_seed(generator)
         else:
             mean, var, seed = bn.running_mean, bn.running_var, 0
         return apply(conv, bn.weight, bn.bias, mean, var, block.act.weight.t(), block.act.bias, x, seed,
-                     cfg.dropout, tuple(cfg.pooling[0]), cfg.bn_eps, self.training)
+                     cfg.dropout, tuple(cfg.pooling[0]), cfg.bn_eps, self.training, compute_dtype=cd)
 
     def _block(self, i: int, block: ConvBlock, x: torch.Tensor, use_fused: bool,
                generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -154,10 +158,6 @@ class CRNN(nn.Module):
         entry_stats = None
         cd = self.compute_dtype
         entry = i == 0 and same_3x3 and x.shape[-1] == 1 and conv.in_channels == 1
-        if entry and use_fused and cd != torch.float32 and (
-                cfg.entry_block_crows or cfg.entry_block_pallas or cfg.entry_conv_pallas):
-            raise NotImplementedError(f"compute_dtype {cfg.compute_dtype!r} with a first-block flag: the "
-                                      "first-block kernels (K4-K6) are float32 only")
         if entry:
             engine = self._entry_engine(block, x, use_fused)
             if engine is not None:
@@ -174,9 +174,9 @@ class CRNN(nn.Module):
             want_stats = train and cfg.activation == "glu" and fused_block.applicable(
                 (x.shape[0], x.shape[1], x.shape[2], conv.out_channels), pool)
             if want_stats:
-                x, *entry_stats = entry_conv.entry_conv_apply(params, x, want_stats=True)
+                x, *entry_stats = entry_conv.entry_conv_apply(params, x, compute_dtype=cd, want_stats=True)
             else:
-                x = entry_conv.entry_conv_apply(params, x)
+                x = entry_conv.entry_conv_apply(params, x, compute_dtype=cd)
         elif (
             use_fused
             and same_3x3

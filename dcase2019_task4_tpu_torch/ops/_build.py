@@ -50,7 +50,7 @@ SIGNATURES = {
     "dcase_conv3x3": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "dcase_bn_glu_pool_tiles": (_I, [_I, _I, _I, _I]),
     "dcase_conv3x3_tiles": (_I, [_I, _I]),
-    "dcase_conv3x3_wgrad": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "dcase_conv3x3_wgrad": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "dcase_bn_glu_pool": (
         _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _U, _F, _I, _I, _P],
     ),
@@ -59,11 +59,11 @@ SIGNATURES = {
     ),
     "dcase_bn_bwd_fixup": (_I, [_P, _P, _P, _P, _P, _LL, _I, _I, _P]),
     "dcase_batch_stats": (_I, [_P, _P, _P, _LL, _I, _I, _I, _P]),
-    "dcase_entry_conv": (_I, [_P] * 6 + [_I] * 6 + [_P]),
-    "dcase_entry_conv_wgrad": (_I, [_P] * 4 + [_I] * 5 + [_P]),
-    "dcase_entry_block_fwd": (_I, [_P] * 10 + [_I] * 6 + [_F, _P, _U, _F, _I, _P]),
-    "dcase_entry_block_bwd_reduce": (_I, [_P] * 12 + [_I] * 6 + [_F, _P, _U, _F, _I, _P]),
-    "dcase_entry_block_bwd_wgrad": (_I, [_P] * 14 + [_I] * 6 + [_F, _P, _U, _F, _I, _P]),
+    "dcase_entry_conv": (_I, [_P] * 6 + [_I] * 7 + [_P]),
+    "dcase_entry_conv_wgrad": (_I, [_P] * 4 + [_I] * 7 + [_P]),
+    "dcase_entry_block_fwd": (_I, [_P] * 10 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _I, _P]),
+    "dcase_entry_block_bwd_reduce": (_I, [_P] * 12 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _P]),
+    "dcase_entry_block_bwd_wgrad": (_I, [_P] * 14 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _I, _P]),
     "dcase_dropout_mask": (_I, [_P, _LL, _P, _U, _P]),
 }
 
@@ -159,6 +159,22 @@ def round_to(t, dtype):
     """t rounded to `dtype` and held in float32 (t itself for float32): an
     operand of a product that a kernel takes in `dtype`."""
     return t.to(dtype).float()
+
+
+def fold_parts(slots):
+    """[parts, slots, width] per-block partial sums of a weight gradient →
+    [parts, width] float32: each part's slots added in slot order in
+    float64, then rounded to float32, as fold.cuh's fold_classes_kernel adds
+    them before it rounds each part. So the kernel's folded output is, bit
+    for bit, the sum over the parts in part order of each part rounded to
+    the compute dtype; and each part shows whether the kernel split the sum
+    as the original does."""
+    import torch
+
+    total = torch.zeros((slots.shape[0], slots.shape[2]), dtype=torch.float64, device=slots.device)
+    for s in range(slots.shape[1]):
+        total = total + slots[:, s].double()
+    return total.float()
 
 
 def count_launch(wrapper, name: str, dtype) -> None:

@@ -12,8 +12,25 @@ it: it holds the original's gate, the logical-parameter entry points, and
 launch counters of its own (`crows_stats_apply.launches`,
 `crows_apply.launches_eval`, `.launches_train`, `.launches_bwd_reduce`,
 `.launches_bwd_wgrad`), raised where a kernel is launched on a call that
-came through here, beside the kernels' own counters. CPU tensors run the
-plain versions of ops/fused_entry_block.py.
+came through here, beside the kernels' own counters (with `_bf16` added
+for the bfloat16 kernels). CPU tensors run the plain versions of
+ops/fused_entry_block.py.
+
+In float32 this entry gives the bits of the fused entry block's own
+wrappers. In bfloat16 it passes layout="crows", two mode bits of the same
+kernels that reproduce where the original rounds apart from
+ops/fused_entry_block.py's: every GLU output g is rounded to bfloat16 before
+the pool's window sum (crows_block.py:240-245; the planes kernel rounds
+pt-row column sums), and dW is rounded to bfloat16 in batch halves, the two
+halves of its [2C, 18] packed weight (crows_block.py:105-115,535; the
+planes kernel rounds per output-frequency parity). Every other rounding of
+the original matches the planes kernel's: the conv on bfloat16 features and
+weights with y rounded to bfloat16 (`_conv_tile`); the GLU product, dxn and
+d glu_w on bfloat16 operands (`_chain_fwd_cs`, `_recompute_dxn_cs`,
+`_contract_lanes`, which rounds both operands as the planes kernel's lp
+products do); dy rounded for dW, float32 for d conv_b; the upsample of the
+pooled cotangent (`_upsample_cs`) scales by 1/(pt·pf) before it rounds, which
+is exact here: pt = 2 and pf divides F = 64, so pt·pf is a power of two.
 """
 
 from __future__ import annotations
@@ -42,6 +59,7 @@ def crows_stats_apply(conv_params, x, compute_dtype=None):
 
 
 crows_stats_apply.launches = 0
+crows_stats_apply.launches_bf16 = 0
 
 
 def crows_apply(conv_params, scale, bias, mean, var, glu_w, glu_b, x, seed, rate: float,
@@ -55,10 +73,14 @@ def crows_apply(conv_params, scale, bias, mean, var, glu_w, glu_b, x, seed, rate
         raise ValueError(f"crows_apply does not take x {tuple(x.shape)} with pool {tuple(pool)}")
     with fused_entry_block.called_through(crows_apply):
         return fused_entry_block.entry_block_apply(conv_params, scale, bias, mean, var, glu_w, glu_b, x, seed, rate,
-                                                   pool, eps, train, compute_dtype)
+                                                   pool, eps, train, compute_dtype, layout="crows")
 
 
 crows_apply.launches_eval = 0
 crows_apply.launches_train = 0
 crows_apply.launches_bwd_reduce = 0
 crows_apply.launches_bwd_wgrad = 0
+crows_apply.launches_eval_bf16 = 0
+crows_apply.launches_train_bf16 = 0
+crows_apply.launches_bwd_reduce_bf16 = 0
+crows_apply.launches_bwd_wgrad_bf16 = 0

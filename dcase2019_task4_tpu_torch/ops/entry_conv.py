@@ -9,6 +9,7 @@ tensor every wrapper launches its hand-written kernel in csrc/entry_block.cu
   entry_conv_forward   entry_conv_kernel<0> + fold         entry_conv_reference
   entry_conv_stats     entry_conv_kernel<1> + fold         entry_conv_reference (sums only)
   entry_conv_wgrad     entry_conv_wgrad_kernel + fold      entry_conv_wgrad_reference
+  entry_conv_wgrad_parts  the same launch                 entry_conv_wgrad_parts_reference
   entry_conv_ablation  entry_conv_kernel<2>, <3>           entry_conv_ablation_reference
 
 `entry_conv_apply` ties forward and weight gradient into one
@@ -19,6 +20,21 @@ pass over y. The features carry no gradient (first layer), so there is no
 input gradient. The parity planes, the [12, 128] patch basis and the k = 2
 lane packing of the original are TPU layout and are not ported: the kernels
 read x [B, T, F] and the logical [3, 3, 1, C] weight.
+
+The compute dtype is x's: float32, or bfloat16 in a bfloat16 model
+(`entry_conv_apply` casts the features to it, as the original's
+`make_parity_planes(x, dtype)` does). In bfloat16 the functions round where
+the original rounds (entry_conv.py:109-148,163-262): the features and the
+weights enter the products as bfloat16, products and sums are float32, the
+float32 bias is added, y is stored in bfloat16 and Σy, Σy² are the float32
+sums of y as stored. The weight gradient multiplies the bfloat16 features
+by dy in bfloat16 and gives the gradient of the bfloat16 weights as the
+original folds it: its [12, 128] basis holds every weight twice, once per
+output-frequency parity (output frequency 2·f2 + h), and it rounds each
+copy's float32 sum to bfloat16 before the copies fold onto w, so
+dW = bf16(Σ over even f) + bf16(Σ over odd f), added in float32 (one
+rounding of the whole sum where F is odd, which the original does not
+take). db stays the float32 sum.
 """
 
 from __future__ import annotations
@@ -45,11 +61,38 @@ def entry_conv_packable(freq: int, channels: int, frames: int) -> bool:
     return 1 <= freq <= _TILE_PIXELS and channels % 4 == 0 and 4 <= channels <= 128 and frames >= 1
 
 
-def check_float32(compute_dtype, what: str):
-    """The port's kernels are float32 only; bf16 (`act_bf16` in the original)
-    comes with the scaled configuration."""
-    if compute_dtype is not None and compute_dtype not in (torch.float32, "float32"):
-        raise NotImplementedError(f"{what}: compute dtype {compute_dtype!r} is not ported; float32 only")
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}  # the compute dtypes the kernels take
+
+
+def compute_dtype_of(compute_dtype, x: torch.Tensor) -> torch.dtype:
+    """The compute dtype a call asks for (a torch dtype or its name), x's
+    dtype when None; ValueError for any but float32 and bfloat16."""
+    dt = x.dtype if compute_dtype is None else DTYPES.get(compute_dtype, compute_dtype)
+    if dt not in DTYPES.values():
+        raise ValueError(f"compute dtype {compute_dtype!r}: float32 or bfloat16")
+    return dt
+
+
+def wgrad_parts(dy: torch.Tensor, partition: str):
+    """dy [B, T, F, C] split into the parts whose weight-gradient sums the
+    original rounds apart: by output-frequency parity ("parity", the
+    parity-plane basis; one part where F is odd) or by batch half
+    ("halves", the crows basis). Each part is dy with zeros elsewhere."""
+    B, _, Fq, _ = dy.shape
+    if partition == "parity":
+        if Fq % 2:
+            return [dy]
+        cut = [(slice(None), slice(None), slice(h, None, 2)) for h in (0, 1)]
+    elif partition == "halves":
+        cut = [(slice(0, B // 2),), (slice(B // 2, None),)]
+    else:
+        raise ValueError(f"unknown partition {partition!r}")
+    parts = []
+    for index in cut:
+        part = torch.zeros_like(dy)
+        part[index] = dy[index]
+        parts.append(part)
+    return parts
 
 
 def _features(x: torch.Tensor) -> torch.Tensor:
@@ -66,31 +109,55 @@ def _features(x: torch.Tensor) -> torch.Tensor:
 
 def entry_conv_reference(params, x: torch.Tensor):
     """Plain version of K4f: x [B, T, F(, 1)], params["w"] [3, 3, 1, C] HWIO,
-    params["b"] [C] → (y [B, T, F, C], Σy [C], Σy² [C])."""
+    params["b"] [C] → (y [B, T, F, C] in x's dtype, Σy [C], Σy² [C]); in
+    bfloat16 the conv of the rounded weights in float32, y rounded, the sums
+    float32 over y as stored."""
     x = _features(x)
+    if x.dtype == torch.bfloat16:
+        w = _build.round_to(params["w"], x.dtype).permute(3, 2, 0, 1)
+        y = F.conv2d(x.float()[:, None], w, params["b"].float(), stride=1, padding=1)
+        y = y.permute(0, 2, 3, 1).contiguous().to(x.dtype)
+        yd = y.detach().float()
+        return y, yd.sum(dim=(0, 1, 2)), (yd * yd).sum(dim=(0, 1, 2))
     w = params["w"].permute(3, 2, 0, 1)  # HWIO → OIHW
     y = F.conv2d(x[:, None], w, params["b"], stride=1, padding=1).permute(0, 2, 3, 1).contiguous()
     yd = y.detach()
     return y, yd.sum(dim=(0, 1, 2)), (yd * yd).sum(dim=(0, 1, 2))
 
 
-def entry_conv_wgrad_reference(x: torch.Tensor, dy: torch.Tensor):
+def entry_conv_wgrad_reference(x: torch.Tensor, dy: torch.Tensor, partition: str = "parity"):
     """Plain version of K4w: dW[dt, df, 0, c] = Σ x[t+dt−1, f+df−1]·dy[t, f, c]
     with zeros outside the tensor, db = Σdy. x [B, T, F(, 1)], dy [B, T, F, C]
-    → (dW [3, 3, 1, C], db [C])."""
+    → (dW [3, 3, 1, C], db [C]). bfloat16 x and dy: dW = Σ over the parts of
+    `wgrad_parts(dy, partition)` of bf16(that part's sum), in float32."""
     x = _features(x)
-    B, T, Fq = x.shape
-    xp = F.pad(x, (1, 1, 1, 1))
-    dw = torch.stack([
+    if x.dtype != torch.bfloat16:
+        return _wgrad(F.pad(x, (1, 1, 1, 1)), dy), dy.sum(dim=(0, 1, 2))
+    dw = sum(_build.round_to(part, x.dtype) for part in entry_conv_wgrad_parts_reference(x, dy, partition))
+    return dw, dy.to(torch.float32).sum(dim=(0, 1, 2))
+
+
+def _wgrad(xp, dy):
+    """dW [3, 3, 1, C] of the padded features xp [B, T + 2, F + 2] and dy."""
+    _, T, Fq, _ = dy.shape
+    return torch.stack([
         torch.stack([torch.einsum("btf,btfc->c", xp[:, dt: dt + T, df: df + Fq], dy) for df in range(3)])
         for dt in range(3)
-    ])
-    return dw[:, :, None, :], dy.sum(dim=(0, 1, 2))
+    ])[:, :, None, :]
+
+
+def entry_conv_wgrad_parts_reference(x: torch.Tensor, dy: torch.Tensor, partition: str = "parity"):
+    """The float32 weight-gradient sums of the parts of
+    `wgrad_parts(dy, partition)`, each [3, 3, 1, C], before any rounding:
+    what the original's packed basis accumulates per copy of a weight."""
+    x = _features(x).to(torch.float32)
+    xp = F.pad(x, (1, 1, 1, 1))
+    return [_wgrad(xp, part) for part in wgrad_parts(dy.to(torch.float32), partition)]
 
 
 def entry_conv_ablation_reference(params, x: torch.Tensor, mode: str) -> torch.Tensor:
-    """What the kernel's ablation modes write: the centre tap alone plus the
-    bias ("no_patch") or the bias alone ("write_only")."""
+    """What the kernel's ablation modes write (float32): the centre tap alone
+    plus the bias ("no_patch") or the bias alone ("write_only")."""
     x = _features(x)
     C = params["b"].shape[0]
     if mode == "no_patch":
@@ -106,14 +173,16 @@ def entry_conv_ablation_reference(params, x: torch.Tensor, mode: str) -> torch.T
 def _check_cuda(x: torch.Tensor, C: int, what: str):
     if x.device.type != "cuda":
         raise ValueError(f"{what} runs on cpu or cuda tensors, got {x.device}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"{what}: tensors must be float32, got {x.dtype}")
+    if x.dtype not in DTYPES.values():
+        raise ValueError(f"{what}: tensors must be float32 or bfloat16, got {x.dtype}")
     if not entry_conv_packable(x.shape[2], C, x.shape[1]):
         raise ValueError(f"{what} kernel does not take freq={x.shape[2]}, channels={C}")
 
 
 def _params_on(params, x):
-    w = params["w"].detach().to(device=x.device, dtype=torch.float32).contiguous()
+    """The weights rounded to x's dtype (held in float32) and the float32
+    bias, on x's device."""
+    w = _build.round_to(params["w"].detach().to(device=x.device, dtype=torch.float32), x.dtype).contiguous()
     b = params["b"].detach().to(device=x.device, dtype=torch.float32).contiguous()
     if w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, 1) or tuple(b.shape) != (w.shape[-1],):
         raise ValueError(f"the entry conv takes w [3, 3, 1, C] and b [C], got {tuple(w.shape)}, {tuple(b.shape)}")
@@ -133,28 +202,31 @@ def _launch(params, x: torch.Tensor, mode: str, what: str):
     slots = -(-tiles // tpb) * B
     partials = torch.empty((slots, 2 * C), dtype=torch.float64, device=x.device)
     sums = torch.empty((2, C), dtype=torch.float32, device=x.device)
-    y = None if mode == "stats_only" else torch.empty((B, T, Fq, C), dtype=torch.float32, device=x.device)
+    y = None if mode == "stats_only" else torch.empty((B, T, Fq, C), dtype=x.dtype, device=x.device)
     status = lib.dcase_entry_conv(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), 0 if y is None else y.data_ptr(), partials.data_ptr(),
-        sums.data_ptr(), B, T, Fq, C, _MODES[mode], tpb, _build.stream_handle(x.device),
+        sums.data_ptr(), B, T, Fq, C, _MODES[mode], tpb, int(x.dtype == torch.bfloat16),
+        _build.stream_handle(x.device),
     )
     _build.check(status, what)
     return y, sums[0], sums[1]
 
 
 def entry_conv_forward(params, x: torch.Tensor):
-    """K4f, no graph: x [B, T, F(, 1)] → (y [B, T, F, C], Σy [C], Σy² [C]),
-    the sums of y as stored, accumulated in double and folded in a fixed
-    order (a run repeats bit for bit). CPU: the plain version."""
+    """K4f, no graph: x [B, T, F(, 1)] (float32 or bfloat16) → (y [B, T, F, C]
+    in x's dtype, Σy [C], Σy² [C]), the float32 sums of y as stored,
+    accumulated in double and folded in a fixed order (a run repeats bit for
+    bit). CPU: the plain version."""
     if x.device.type == "cpu":
         y, s1, s2 = entry_conv_reference(params, x)
         return y.detach(), s1, s2
     out = _launch(params, x, "full", "entry_conv_forward")
-    entry_conv_forward.launches += 1
+    _build.count_launch(entry_conv_forward, "launches", x.dtype)
     return out
 
 
-entry_conv_forward.launches = 0
+entry_conv_forward.launches = 0  # float32 launches
+entry_conv_forward.launches_bf16 = 0  # bfloat16 launches
 
 
 def entry_conv_stats(params, x: torch.Tensor):
@@ -166,11 +238,12 @@ def entry_conv_stats(params, x: torch.Tensor):
         _, s1, s2 = entry_conv_reference(params, x)
         return s1, s2
     _, s1, s2 = _launch(params, x, "stats_only", "entry_conv_stats")
-    entry_conv_stats.launches += 1
+    _build.count_launch(entry_conv_stats, "launches", x.dtype)
     return s1, s2
 
 
 entry_conv_stats.launches = 0
+entry_conv_stats.launches_bf16 = 0
 
 
 def entry_conv_ablation(params, x: torch.Tensor, mode: str) -> torch.Tensor:
@@ -180,6 +253,8 @@ def entry_conv_ablation(params, x: torch.Tensor, mode: str) -> torch.Tensor:
     version."""
     if mode not in ("no_patch", "write_only"):
         raise ValueError(f"unknown ablation mode {mode!r}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"the ablation modes are float32 only, got {x.dtype}")
     if x.device.type == "cpu":
         return entry_conv_ablation_reference(params, x, mode)
     y, _, _ = _launch(params, x, mode, f"entry_conv_ablation[{mode}]")
@@ -190,35 +265,68 @@ def entry_conv_ablation(params, x: torch.Tensor, mode: str) -> torch.Tensor:
 entry_conv_ablation.launches = 0
 
 
-def entry_conv_wgrad(x: torch.Tensor, dy: torch.Tensor):
-    """K4w → (dW [3, 3, 1, C], db [C]). Per-block partial sums are folded in
-    a fixed order (no float atomics), so a run repeats bit for bit. CPU: the
-    plain version."""
+def _wgrad_args(x: torch.Tensor, dy: torch.Tensor, what: str):
     x = _features(x)
-    if dy.dim() != 4 or tuple(dy.shape[:3]) != tuple(x.shape):
-        raise ValueError(f"entry_conv_wgrad takes x [B,T,F] and dy [B,T,F,C], got {tuple(x.shape)}, {tuple(dy.shape)}")
-    if x.device.type == "cpu":
-        return entry_conv_wgrad_reference(x, dy)
+    if dy.dim() != 4 or tuple(dy.shape[:3]) != tuple(x.shape) or dy.dtype != x.dtype:
+        raise ValueError(f"{what} takes x [B,T,F] and dy [B,T,F,C] of one dtype, got "
+                         f"{tuple(x.shape)} {x.dtype}, {tuple(dy.shape)} {dy.dtype}")
+    return x
+
+
+def _launch_wgrad(x: torch.Tensor, dy: torch.Tensor):
+    """The kernel and its fold → (dW, db, the per-block slots [parts,
+    slots, 10·C] float32 the fold read)."""
     B, T, Fq = x.shape
     C = dy.shape[-1]
     x = x.detach().contiguous()
     _check_cuda(x, C, "entry_conv_wgrad")
-    if dy.device != x.device or dy.dtype != torch.float32 or not dy.is_contiguous():
-        raise ValueError("entry_conv_wgrad: dy must be contiguous float32 on x's device")
+    if dy.device != x.device or not dy.is_contiguous():
+        raise ValueError("entry_conv_wgrad: dy must be contiguous on x's device")
+    bf16 = x.dtype == torch.bfloat16
+    classes = 2 if bf16 and Fq % 2 == 0 else 1
     lib = _build.library()
     tiles = lib.dcase_bn_glu_pool_tiles(T, Fq, 1, 1)
     tpb = max(1, -(-tiles * B // _WGRAD_SLOTS))
     slots = -(-tiles // tpb) * B
-    partials = torch.empty((slots, 10 * C), dtype=torch.float32, device=x.device)
+    partials = torch.empty((slots, classes * 10 * C), dtype=torch.float32, device=x.device)
     out = torch.empty(10 * C, dtype=torch.float32, device=x.device)
     status = lib.dcase_entry_conv_wgrad(x.data_ptr(), dy.data_ptr(), partials.data_ptr(), out.data_ptr(),
-                                        B, T, Fq, C, tpb, _build.stream_handle(x.device))
+                                        B, T, Fq, C, tpb, int(bf16), classes, _build.stream_handle(x.device))
     _build.check(status, "entry_conv_wgrad")
-    entry_conv_wgrad.launches += 1
-    return out[: 9 * C].view(3, 3, 1, C), out[9 * C:]
+    _build.count_launch(entry_conv_wgrad, "launches", x.dtype)
+    return out[: 9 * C].view(3, 3, 1, C), out[9 * C:], partials.view(slots, classes, 10 * C).transpose(0, 1)
 
 
-entry_conv_wgrad.launches = 0
+def entry_conv_wgrad(x: torch.Tensor, dy: torch.Tensor):
+    """K4w → (dW [3, 3, 1, C], db [C]) in float32 from x and dy of one dtype.
+    bfloat16: dW = bf16(Σ over even output frequencies) + bf16(Σ over odd
+    ones) (one part where F is odd), the gradient of the bfloat16 weights.
+    Per-block partial sums are folded in a fixed order (no float atomics),
+    so a run repeats bit for bit. CPU: the plain version."""
+    x = _wgrad_args(x, dy, "entry_conv_wgrad")
+    if x.device.type == "cpu":
+        return entry_conv_wgrad_reference(x, dy)
+    return _launch_wgrad(x, dy)[:2]
+
+
+def entry_conv_wgrad_parts(x: torch.Tensor, dy: torch.Tensor):
+    """`entry_conv_wgrad`'s (dW, db) and, from the same launch, the float32
+    dW sums of the parts it rounds apart, [parts, 3, 3, 1, C], folded from
+    the kernel's per-block slots by `_build.fold_parts`: dW is, bit for
+    bit, the sum in part order of each part rounded to x's dtype. For
+    checks on the card that the kernel splits the sum as the original does.
+    CPU: the plain versions."""
+    x = _wgrad_args(x, dy, "entry_conv_wgrad_parts")
+    if x.device.type == "cpu":
+        dw, db = entry_conv_wgrad_reference(x, dy)
+        return dw, db, torch.stack(entry_conv_wgrad_parts_reference(x, dy) if x.dtype == torch.bfloat16 else [dw])
+    dw, db, slots = _launch_wgrad(x, dy)
+    C = dy.shape[-1]
+    return dw, db, _build.fold_parts(slots)[:, : 9 * C].view(-1, 3, 3, 1, C)
+
+
+entry_conv_wgrad.launches = 0  # float32 launches
+entry_conv_wgrad.launches_bf16 = 0  # bfloat16 launches
 
 
 # ------------------------------------------------------- autograd Function
@@ -235,16 +343,18 @@ class _EntryConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, _ds1, _ds2):
         (x,) = ctx.saved_tensors
-        dw, db = entry_conv_wgrad(x, dy.contiguous())
+        dw, db = entry_conv_wgrad(x, dy.to(x.dtype).contiguous())
         return None, dw, db  # the features carry no gradient
 
 
 def entry_conv_apply(params, x: torch.Tensor, compute_dtype=None, want_stats: bool = False):
     """Drop-in for the entry conv: x [B, T, F, 1] (or [B, T, F]) → y
-    [B, T, F, C], differentiable in params["w"] [3, 3, 1, C] and params["b"].
+    [B, T, F, C] in the compute dtype (x's when None; the features are cast
+    to it), differentiable in params["w"] [3, 3, 1, C] and params["b"].
     With `want_stats` also the per-channel (Σy, Σy²) of y, without a graph:
     the BatchNorm batch statistics with no extra pass over y (the fused
     block's backward carries the through-statistics terms)."""
-    check_float32(compute_dtype, "entry_conv_apply")
-    y, s1, s2 = _EntryConv.apply(_features(x), params["w"], params["b"])
+    x = _features(x)
+    x = x.to(compute_dtype_of(compute_dtype, x))
+    y, s1, s2 = _EntryConv.apply(x, params["w"], params["b"])
     return (y, s1, s2) if want_stats else y

@@ -141,15 +141,24 @@ def dropout_mask(seed, shape, rate: float, device) -> torch.Tensor:
 dropout_mask.launches = 0
 
 
-def reference_block(y, scale, bias, mean, var, glu_w, glu_b, pool, eps, mask=None, keep: float = 1.0):
-    """Plain version: BN→GLU→(given mask) dropout→avg-pool on [B, T, F, C]
-    (glu_w [in, out]) → [B, T/pt, F/pf, C] in y's dtype."""
+def glu_gate(y, scale, bias, mean, var, glu_w, glu_b, eps, mask=None, keep: float = 1.0):
+    """BN→GLU→(given mask) dropout on [B, T, F, C], before the pool: g in
+    float32, with xn and glu_w rounded to y's dtype as operands of the GLU
+    product."""
     dtype = y.dtype
     inv = torch.rsqrt(var + eps)
     xn = (y.to(torch.float32) - mean) * inv * scale + bias
     g = (_build.round_to(xn, dtype) @ _build.round_to(glu_w, dtype) + glu_b) * torch.sigmoid(xn)
     if mask is not None:
         g = g * mask * (1.0 / keep)
+    return g
+
+
+def reference_block(y, scale, bias, mean, var, glu_w, glu_b, pool, eps, mask=None, keep: float = 1.0):
+    """Plain version: BN→GLU→(given mask) dropout→avg-pool on [B, T, F, C]
+    (glu_w [in, out]) → [B, T/pt, F/pf, C] in y's dtype."""
+    dtype = y.dtype
+    g = glu_gate(y, scale, bias, mean, var, glu_w, glu_b, eps, mask, keep)
     B, T, Fq, C = g.shape
     pt, pf = pool
     if dtype == torch.float32:
@@ -174,6 +183,13 @@ def bwd_reduce_reference(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, ep
     """First half of the backward, written out step by step (no autograd):
     → (dy_partial in y's dtype, dw, db, S1, S2 in float32) with S1 = Σdxn,
     S2 = Σdxn·x̂."""
+    dyp, dw, db, s1, s2 = bwd_reduce_terms(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, eps, mask, keep)
+    return dyp.to(y.dtype), dw, db, s1, s2
+
+
+def bwd_reduce_terms(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, eps, mask=None, keep: float = 1.0):
+    """`bwd_reduce_reference` with dy_partial = inv·γ·dxn left in float32
+    (a fused first block keeps it in registers)."""
     dtype = y.dtype
     y = y.to(torch.float32)
     inv = torch.rsqrt(var + eps)
@@ -192,7 +208,7 @@ def bwd_reduce_reference(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, ep
     db = dlin.sum(dim=(0, 1, 2))
     s1 = dxn.sum(dim=(0, 1, 2))
     s2 = (dxn * xhat).sum(dim=(0, 1, 2))
-    return (inv * scale * dxn).to(dtype), dw, db, s1, s2
+    return inv * scale * dxn, dw, db, s1, s2
 
 
 def bwd_coefficients(scale, var, eps, s1, s2, n: int):

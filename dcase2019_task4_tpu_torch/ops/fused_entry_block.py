@@ -12,6 +12,7 @@ version beside it:
   entry_block_fwd          entry_block_fwd_kernel                  reference_entry_block
   entry_block_bwd_reduce   entry_block_bwd_reduce_kernel + fold    entry_block_bwd_reduce_reference
   entry_block_bwd_wgrad    entry_block_bwd_wgrad_kernel + fold     entry_block_bwd_wgrad_reference
+  entry_block_bwd_wgrad_parts  the same launch                     entry_block_bwd_wgrad_parts_reference
 
 `entry_block_apply` ties them into one `torch.autograd.Function` with the
 contract of `fused_block.fused_bn_glu_dropout_pool`: mean and var come in
@@ -28,6 +29,32 @@ seed equals conv → `fused_bn_glu_dropout_pool` with that seed, outputs and
 gradients, and `fused_block.dropout_keep_mask` is the CPU twin of both. The
 parity planes, the patch basis and the lane-tiled, block-diagonal
 parameters of the original are TPU layout and are not ported.
+
+The compute dtype is x's: float32, or bfloat16 in a bfloat16 model (the
+entry points cast the features to it, as `make_parity_planes(x, dtype)`
+does). In bfloat16 every function rounds where the original's `act_bf16` /
+`lp` mode rounds (fused_entry_block.py:97-236): the features and the conv
+weights enter the conv as bfloat16 and y is rounded to bfloat16 in every
+pass, so the statistics sum the rounded values; xn and glu_w enter the GLU
+product, dlin and glu_w enter dxn, and xn and dlin enter d glu_w as
+bfloat16 (K2's bfloat16 mode); the pooled output is bfloat16; dW takes the
+features and dy as bfloat16 and is the gradient of the bfloat16 weights,
+rounded in two parts before they are added; d conv_b, S1, S2 and the
+statistics are float32. Two of those roundings differ between the
+original's two layouts, and `layout` picks one:
+
+  * "planes" (this module's original): the pool rounds each pt-row column
+    sum of g to bfloat16 and adds the columns (`_pool_mxu`, as K2), and
+    dW's parts are the output-frequency parities (the [12, 128] basis
+    holds each weight once per parity, fused_entry_block.py:416);
+  * "crows" (ops/crows_block.py's original, crows_block.py:240-245,535):
+    the pool rounds every g to bfloat16 before the window sum, and dW's
+    parts are the two batch halves its [2C, 18] basis packs.
+
+Its upsample of the pooled cotangent scales by 1/(pt·pf) before rounding
+(crows_block.py:250-255), the planes kernel after; under the crows gate
+pt·pf is a power of two (pt = 2, pf divides F = 64), so both give the same
+values. In float32 the layouts give the same bits.
 """
 
 from __future__ import annotations
@@ -62,12 +89,27 @@ def _conv(x, conv_w, conv_b):
     return entry_conv.entry_conv_reference({"w": conv_w, "b": conv_b}, x)[0]
 
 
+LAYOUTS = ("planes", "crows")
+
+
+def _check_layout(layout: str):
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+
+
 def reference_entry_block(x, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, pool, eps,
-                          mask=None, keep: float = 1.0):
+                          mask=None, keep: float = 1.0, layout: str = "planes"):
     """Plain version of K5f: x [B, T, F(, 1)], conv_w [3, 3, 1, C] → pooled
-    [B, T/pt, F/pf, C] (conv, then `fused_block.reference_block`)."""
-    return fused_block.reference_block(_conv(x, conv_w, conv_b), scale, bias, mean, var, glu_w, glu_b,
-                                       pool, eps, mask, keep)
+    [B, T/pt, F/pf, C] in x's dtype (conv, then `fused_block.reference_block`;
+    in bfloat16 under "crows" every g rounded before the window sum)."""
+    _check_layout(layout)
+    y = _conv(x, conv_w, conv_b)
+    if layout == "planes" or y.dtype != torch.bfloat16:
+        return fused_block.reference_block(y, scale, bias, mean, var, glu_w, glu_b, pool, eps, mask, keep)
+    g = _build.round_to(fused_block.glu_gate(y, scale, bias, mean, var, glu_w, glu_b, eps, mask, keep), y.dtype)
+    B, T, Fq, C = g.shape
+    pt, pf = pool
+    return (g.reshape(B, T // pt, pt, Fq // pf, pf, C).sum(dim=(2, 4)) * (1.0 / (pt * pf))).to(y.dtype)
 
 
 def entry_block_bwd_reduce_reference(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, pool, eps,
@@ -80,25 +122,53 @@ def entry_block_bwd_reduce_reference(x, dout, conv_w, conv_b, scale, bias, mean,
     return dgw, dgb, s1, s2
 
 
-def entry_block_bwd_wgrad_reference(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, a, b2,
-                                    pool, eps, mask=None, keep: float = 1.0):
-    """Plain version of pass 2: dy = inv·γ·dxn − a − (y − mean)·b2, then
-    dW = patchesᵀ·dy and d conv_b = Σdy → (dW [3, 3, 1, C], d conv_b [C])."""
+def _pass2_dy(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, a, b2, pool, eps, mask, keep):
+    """dy = inv·γ·dxn − a − (y − mean)·b2 in float32, and y's dtype."""
     y = _conv(x, conv_w, conv_b).detach()
-    dyp = fused_block.bwd_reduce_reference(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, eps, mask, keep)[0]
-    return entry_conv.entry_conv_wgrad_reference(x, fused_block.bwd_fixup_reference(y, dyp, a, b2, mean))
+    dyp = fused_block.bwd_reduce_terms(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, eps, mask, keep)[0]
+    return dyp.to(torch.float32) - a - (y.to(torch.float32) - mean) * b2, y.dtype
+
+
+def entry_block_bwd_wgrad_reference(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, a, b2,
+                                    pool, eps, mask=None, keep: float = 1.0, layout: str = "planes"):
+    """Plain version of pass 2: dy = inv·γ·dxn − a − (y − mean)·b2 (float32),
+    then dW = patchesᵀ·dy and d conv_b = Σdy → (dW [3, 3, 1, C], d conv_b
+    [C]). bfloat16: dW on dy rounded to bfloat16, in the parts of `layout`
+    (`entry_conv.wgrad_parts`), each rounded; d conv_b on the float32 dy."""
+    _check_layout(layout)
+    dy, dtype = _pass2_dy(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, a, b2, pool, eps, mask, keep)
+    if dtype != torch.bfloat16:
+        return entry_conv.entry_conv_wgrad_reference(x, dy)
+    partition = "parity" if layout == "planes" else "halves"
+    dw = entry_conv.entry_conv_wgrad_reference(x, dy.to(dtype), partition)[0]
+    return dw, dy.sum(dim=(0, 1, 2))
+
+
+def entry_block_bwd_wgrad_parts_reference(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, a, b2,
+                                          pool, eps, mask=None, keep: float = 1.0, layout: str = "planes"):
+    """Pass 2's dW as the float32 sums of its two parts under `layout`
+    (output-frequency parity, or batch halves under "crows"), before they
+    are rounded, with dy rounded to x's dtype: what the original's packed
+    basis accumulates per copy of a weight."""
+    _check_layout(layout)
+    dy, dtype = _pass2_dy(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, a, b2, pool, eps, mask, keep)
+    partition = "parity" if layout == "planes" else "halves"
+    return entry_conv.entry_conv_wgrad_parts_reference(x, dy.to(dtype), partition)
 
 
 def entry_block_bwd_reference(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, pool, eps,
-                              mask=None, keep: float = 1.0):
+                              mask=None, keep: float = 1.0, layout: str = "planes"):
     """The whole backward in formulas (no autograd), with mean/var the batch
     statistics of the conv output: → (dW, d conv_b, dscale, dbias, d glu_w,
-    d glu_b)."""
-    y = _conv(x, conv_w, conv_b).detach()
-    dy, dscale, dbias, dgw, dgb = fused_block.bwd_reference(y, dout, scale, bias, mean, var, glu_w, glu_b,
-                                                            pool, eps, mask, keep)
-    dw, dcb = entry_conv.entry_conv_wgrad_reference(x, dy)
-    return dw, dcb, dscale, dbias, dgw, dgb
+    d glu_b); the two passes' plain versions with the coefficients between
+    them."""
+    dgw, dgb, s1, s2 = entry_block_bwd_reduce_reference(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w,
+                                                        glu_b, pool, eps, mask, keep)
+    x3 = entry_conv._features(x)
+    a, b2 = fused_block.bwd_coefficients(scale, var, eps, s1, s2, x3.numel())
+    dw, dcb = entry_block_bwd_wgrad_reference(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, a, b2,
+                                              pool, eps, mask, keep, layout)
+    return dw, dcb, s2, s1, dgw, dgb
 
 
 # ------------------------------------------------------ kernel wrappers
@@ -119,17 +189,18 @@ def called_through(entry):
         _entry = prev
 
 
-def _tally(fn, counter: str, entry_counter: str = ""):
+def _tally(fn, counter: str, entry_counter: str = "", dtype=torch.float32):
     """One launch: on the wrapper's own count and, inside `called_through`,
-    on that entry's `entry_counter` (named as `counter` when empty)."""
-    setattr(fn, counter, getattr(fn, counter) + 1)
+    on that entry's `entry_counter` (named as `counter` when empty); the
+    bfloat16 instantiation's on the counters named with `_bf16` added."""
+    _build.count_launch(fn, counter, dtype)
     if _entry is not None:
-        entry_counter = entry_counter or counter
-        setattr(_entry, entry_counter, getattr(_entry, entry_counter) + 1)
+        _build.count_launch(_entry, entry_counter or counter, dtype)
 
 
 def _prepare(x, conv_w, conv_b, vecs, glu_w, pool, what: str):
-    """Checked, contiguous float32 device copies of what a kernel reads."""
+    """Checked, contiguous device copies of what a kernel reads: x in its
+    compute dtype, the conv weights rounded to it, the rest float32."""
     x = entry_conv._features(x).detach()
     C = conv_w.shape[-1]
     pool = tuple(int(p) for p in pool)
@@ -139,8 +210,8 @@ def _prepare(x, conv_w, conv_b, vecs, glu_w, pool, what: str):
         raise ValueError(f"{what} runs on cpu or cuda tensors, got {x.device}")
     if x.device.type == "cpu":
         return x, conv_w, conv_b, vecs, glu_w, pool
-    if x.dtype != torch.float32:
-        raise ValueError(f"{what}: x must be float32, got {x.dtype}")
+    if x.dtype not in entry_conv.DTYPES.values():
+        raise ValueError(f"{what}: x must be float32 or bfloat16, got {x.dtype}")
     w, cb = entry_conv._params_on({"w": conv_w, "b": conv_b}, x)
     vecs = [v.detach().to(device=x.device, dtype=torch.float32).contiguous() for v in vecs]
     gw = glu_w.detach().to(device=x.device, dtype=torch.float32).contiguous()
@@ -160,26 +231,32 @@ def _mask(seed, x, C, rate):
 
 
 def entry_block_stats_apply(conv_params, x, compute_dtype=None):
-    """K5s: x [B, T, F, 1] → per-channel (Σy, Σy²) of the entry conv output,
+    """K5s: x [B, T, F, 1] → per-channel (Σy, Σy²) of the entry conv output
+    in the compute dtype (x's when None; the features are cast to it),
     float32, no graph, y never written (callers form mean and var from them
     and pass those on detached). CPU: the plain version."""
-    entry_conv.check_float32(compute_dtype, "entry_block_stats_apply")
+    x = entry_conv._features(x)
+    x = x.to(entry_conv.compute_dtype_of(compute_dtype, x))
     if x.device.type == "cpu":
         return entry_conv.entry_conv_reference(conv_params, x)[1:]
     _, s1, s2 = entry_conv._launch(conv_params, x, "stats_only", "entry_block_stats_apply")
-    _tally(entry_block_stats_apply, "launches")
+    _tally(entry_block_stats_apply, "launches", dtype=x.dtype)
     return s1, s2
 
 
 entry_block_stats_apply.launches = 0
+entry_block_stats_apply.launches_bf16 = 0
 
 
 def entry_block_fwd(x, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, pool, eps, *,
-                    rate: float = 0.0, seed=0):
-    """K5f, no graph: x [B, T, F(, 1)] features → pooled [B, T/pt, F/pf, C];
-    conv_w [3, 3, 1, C]; BN with the given mean/var; glu_w [C, C] as (in,
-    out); dropout at `rate` from `seed` (int or integer tensor) when
-    rate > 0. CPU: the plain version. CUDA: the kernel."""
+                    rate: float = 0.0, seed=0, layout: str = "planes"):
+    """K5f, no graph: x [B, T, F(, 1)] features (float32 or bfloat16: the
+    compute dtype) → pooled [B, T/pt, F/pf, C] in x's dtype; conv_w
+    [3, 3, 1, C]; BN with the given mean/var; glu_w [C, C] as (in, out);
+    dropout at `rate` from `seed` (int or integer tensor) when rate > 0;
+    `layout` picks the bfloat16 pool rounding. CPU: the plain version.
+    CUDA: the kernel."""
+    _check_layout(layout)
     x, w, cb, vecs, gw, pool = _prepare(x, conv_w, conv_b, (scale, bias, mean, var, glu_b), glu_w, pool,
                                         "entry_block_fwd")
     threshold, keep_scale = _dropout_args(rate)
@@ -188,25 +265,27 @@ def entry_block_fwd(x, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, poo
     if x.device.type == "cpu":
         s, bi, mu, va, gb = vecs
         return reference_entry_block(x, w, cb, s, bi, mu, va, gw, gb, pool, eps, _mask(seed, x, C, rate),
-                                     1.0 - rate).detach()
+                                     1.0 - rate, layout).detach()
     pt, pf = pool
     lib = _build.library()
-    out = torch.empty((B, T // pt, Fq // pf, C), dtype=torch.float32, device=x.device)
+    out = torch.empty((B, T // pt, Fq // pf, C), dtype=x.dtype, device=x.device)
     seed_t = fused_block._seed_tensor(seed, x.device)
     status = lib.dcase_entry_block_fwd(
         x.data_ptr(), w.data_ptr(), cb.data_ptr(), *(v.data_ptr() for v in vecs[:4]), gw.data_ptr(),
         vecs[4].data_ptr(), out.data_ptr(), B, T, Fq, C, pt, pf, float(eps), seed_t.data_ptr(), threshold,
         keep_scale, fused_block._tiles_per_block(lib.dcase_bn_glu_pool_tiles(T, Fq, pt, pf), B, _TARGET_BLOCKS),
-        _build.stream_handle(x.device),
+        int(x.dtype == torch.bfloat16), int(layout == "crows"), _build.stream_handle(x.device),
     )
     _build.check(status, "entry_block_fwd")
     counter = "launches_train" if rate > 0.0 else "launches_eval"
-    _tally(entry_block_fwd, counter)
+    _tally(entry_block_fwd, counter, dtype=x.dtype)
     return out
 
 
-entry_block_fwd.launches_eval = 0  # launches of the forward kernel without dropout
+entry_block_fwd.launches_eval = 0  # launches of the float32 forward kernel without dropout
 entry_block_fwd.launches_train = 0  # launches with the dropout on (train mode)
+entry_block_fwd.launches_eval_bf16 = 0  # the same, of the bfloat16 kernel
+entry_block_fwd.launches_train_bf16 = 0
 
 
 def _bwd_launch_geometry(lib, B, T, Fq, pool):
@@ -219,14 +298,15 @@ def _check_dout(x, dout, pool, C):
     B, T, Fq = x.shape
     if tuple(dout.shape) != (B, T // pool[0], Fq // pool[1], C):
         raise ValueError(f"dout {tuple(dout.shape)} is not the pooled shape of x {tuple(x.shape)} with {C} channels")
-    return dout.detach().to(torch.float32).contiguous()
+    return dout.detach().to(x.dtype).contiguous()
 
 
 def entry_block_bwd_reduce(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, pool, eps, *,
                            rate: float = 0.0, seed=0):
     """K5b1: recompute conv, chain and mask per pixel tile → (d glu_w [C, C],
-    d glu_b, S1, S2 [C]). Per-block partial sums are folded in a fixed order
-    (no float atomics). CPU: the plain version."""
+    d glu_b, S1, S2 [C]) in float32; dout comes in x's dtype. Per-block
+    partial sums are folded in a fixed order (no float atomics). CPU: the
+    plain version."""
     x, w, cb, vecs, gw, pool = _prepare(x, conv_w, conv_b, (scale, bias, mean, var, glu_b), glu_w, pool,
                                         "entry_block_bwd_reduce")
     threshold, keep_scale = _dropout_args(rate)
@@ -247,21 +327,23 @@ def entry_block_bwd_reduce(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_
     status = lib.dcase_entry_block_bwd_reduce(
         x.data_ptr(), dout.data_ptr(), w.data_ptr(), cb.data_ptr(), *(v.data_ptr() for v in vecs[:4]),
         gw.data_ptr(), vecs[4].data_ptr(), partials.data_ptr(), sums.data_ptr(), B, T, Fq, C, pt, pf, float(eps),
-        seed_t.data_ptr(), threshold, keep_scale, tpb, _build.stream_handle(x.device),
+        seed_t.data_ptr(), threshold, keep_scale, tpb, int(x.dtype == torch.bfloat16), _build.stream_handle(x.device),
     )
     _build.check(status, "entry_block_bwd_reduce")
-    _tally(entry_block_bwd_reduce, "launches", "launches_bwd_reduce")
+    _tally(entry_block_bwd_reduce, "launches", "launches_bwd_reduce", x.dtype)
     return sums[: C * C].view(C, C), sums[C * C: C * C + C], sums[C * C + C: C * C + 2 * C], sums[C * C + 2 * C:]
 
 
 entry_block_bwd_reduce.launches = 0
+entry_block_bwd_reduce.launches_bf16 = 0
 
 
-def entry_block_bwd_wgrad(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, a, b2, pool, eps, *,
-                          rate: float = 0.0, seed=0):
-    """K5b2: recompute conv, chain, mask and dxn; dy = inv·γ·dxn − a −
-    (y − mean)·b2 stays in registers → (dW [3, 3, 1, C], d conv_b [C]), folded
-    in a fixed order. CPU: the plain version."""
+def _launch_bwd_wgrad(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, a, b2, pool, eps, rate, seed,
+                      layout):
+    """Check, launch the kernel and its fold → (dW, d conv_b, the per-block
+    slots [parts, slots, 10·C] float32 the fold read); on a CPU tensor
+    (None, the arguments the plain versions take)."""
+    _check_layout(layout)
     x, w, cb, vecs, gw, pool = _prepare(x, conv_w, conv_b, (scale, bias, mean, var, glu_b, a, b2), glu_w, pool,
                                         "entry_block_bwd_wgrad")
     threshold, keep_scale = _dropout_args(rate)
@@ -270,26 +352,68 @@ def entry_block_bwd_wgrad(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w
     dout = _check_dout(x, dout, pool, C)
     if x.device.type == "cpu":
         s, bi, mu, va, gb, av, bv = vecs
-        return entry_block_bwd_wgrad_reference(x, dout, w, cb, s, bi, mu, va, gw, gb, av, bv, pool, eps,
-                                               _mask(seed, x, C, rate), 1.0 - rate)
+        return None, (x, dout, w, cb, s, bi, mu, va, gw, gb, av, bv, pool, eps, _mask(seed, x, C, rate), 1.0 - rate,
+                      layout)
     pt, pf = pool
+    bf16 = x.dtype == torch.bfloat16
+    # 0: one part; 1: output-frequency parity; 2: batch halves (kernel and fold)
+    partition = 0 if not bf16 else 2 if layout == "crows" else 1 if Fq % 2 == 0 else 0
+    if partition == 2 and B % 2:
+        raise ValueError(f"entry_block_bwd_wgrad: the crows layout splits an even batch, got {B} clips")
     lib = _build.library()
     tpb, slots = _bwd_launch_geometry(lib, B, T, Fq, pool)
-    partials = torch.empty((slots, 10 * C), dtype=torch.float32, device=x.device)
+    partials = torch.empty((slots, (2 if partition == 1 else 1) * 10 * C), dtype=torch.float32, device=x.device)
     sums = torch.empty(10 * C, dtype=torch.float32, device=x.device)
     seed_t = fused_block._seed_tensor(seed, x.device)
     status = lib.dcase_entry_block_bwd_wgrad(
         x.data_ptr(), dout.data_ptr(), w.data_ptr(), cb.data_ptr(), *(v.data_ptr() for v in vecs[:4]),
         gw.data_ptr(), vecs[4].data_ptr(), vecs[5].data_ptr(), vecs[6].data_ptr(), partials.data_ptr(),
         sums.data_ptr(), B, T, Fq, C, pt, pf, float(eps), seed_t.data_ptr(), threshold, keep_scale, tpb,
-        _build.stream_handle(x.device),
+        int(bf16), partition, _build.stream_handle(x.device),
     )
     _build.check(status, "entry_block_bwd_wgrad")
-    _tally(entry_block_bwd_wgrad, "launches", "launches_bwd_wgrad")
-    return sums[: 9 * C].view(3, 3, 1, C), sums[9 * C:]
+    _tally(entry_block_bwd_wgrad, "launches", "launches_bwd_wgrad", x.dtype)
+    if partition == 2:  # the slots of the first half of the clips, then of the second
+        parts = partials.view(2, slots // 2, 10 * C)
+    else:
+        parts = partials.view(slots, -1, 10 * C).transpose(0, 1)
+    return (sums[: 9 * C].view(3, 3, 1, C), sums[9 * C:], parts), None
+
+
+def entry_block_bwd_wgrad(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, a, b2, pool, eps, *,
+                          rate: float = 0.0, seed=0, layout: str = "planes"):
+    """K5b2: recompute conv, chain, mask and dxn; dy = inv·γ·dxn − a −
+    (y − mean)·b2 stays in registers → (dW [3, 3, 1, C], d conv_b [C]) in
+    float32, folded in a fixed order. bfloat16: dW is the gradient of the
+    bfloat16 weights, rounded in the two parts of `layout` (output-frequency
+    parity, or batch halves under "crows") before they are added. CPU: the
+    plain version."""
+    out, plain = _launch_bwd_wgrad(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, a, b2, pool, eps,
+                                   rate, seed, layout)
+    return entry_block_bwd_wgrad_reference(*plain) if out is None else out[:2]
+
+
+def entry_block_bwd_wgrad_parts(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, a, b2, pool, eps, *,
+                                rate: float = 0.0, seed=0, layout: str = "planes"):
+    """`entry_block_bwd_wgrad`'s (dW, d conv_b) and, from the same launch,
+    the float32 dW sums of the parts it rounds apart, [parts, 3, 3, 1, C],
+    folded from the kernel's per-block slots by `_build.fold_parts`: dW is,
+    bit for bit, the sum in part order of each part rounded to x's dtype.
+    For checks on the card that the kernel splits the sum as the original
+    does. CPU: the plain versions."""
+    out, plain = _launch_bwd_wgrad(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, a, b2, pool, eps,
+                                   rate, seed, layout)
+    if out is None:
+        dw, dcb = entry_block_bwd_wgrad_reference(*plain)
+        parts = entry_block_bwd_wgrad_parts_reference(*plain) if plain[0].dtype == torch.bfloat16 else [dw]
+        return dw, dcb, torch.stack(parts)
+    dw, dcb, slots = out
+    C = dw.shape[-1]
+    return dw, dcb, _build.fold_parts(slots)[:, : 9 * C].view(-1, 3, 3, 1, C)
 
 
 entry_block_bwd_wgrad.launches = 0
+entry_block_bwd_wgrad.launches_bf16 = 0
 
 
 # ------------------------------------------------------- autograd Function
@@ -297,18 +421,19 @@ entry_block_bwd_wgrad.launches = 0
 
 class _EntryBlock(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, seed, rate, pool, eps, train):
+    def forward(ctx, x, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, seed, rate, pool, eps, train, layout):
         rate = float(rate) if train else 0.0
         seed = torch.as_tensor(seed, dtype=torch.int64).reshape(1).clone()
         ctx.save_for_backward(x, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, seed)
         ctx.rate, ctx.pool, ctx.eps, ctx.entry = rate, tuple(int(p) for p in pool), float(eps), _entry
+        ctx.layout = layout
         return entry_block_fwd(x, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, pool, eps,
-                               rate=rate, seed=seed)
+                               rate=rate, seed=seed, layout=layout)
 
     @staticmethod
     def backward(ctx, dout):
         x, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, seed = ctx.saved_tensors
-        args = (x, dout.contiguous(), conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b)
+        args = (x, dout.to(x.dtype).contiguous(), conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b)
         kw = dict(rate=ctx.rate, seed=seed)
         with called_through(ctx.entry):
             dgw, dgb, s1, s2 = entry_block_bwd_reduce(*args, ctx.pool, ctx.eps, **kw)
@@ -316,25 +441,29 @@ class _EntryBlock(torch.autograd.Function):
             # whole S1, S2 (a data-parallel run all-reduces them here)
             a, b2 = fused_block.bwd_coefficients(scale.detach().to(torch.float32), var.to(torch.float32), ctx.eps,
                                                  s1, s2, x.numel())
-            dw, dcb = entry_block_bwd_wgrad(*args, a, b2, ctx.pool, ctx.eps, **kw)
+            dw, dcb = entry_block_bwd_wgrad(*args, a, b2, ctx.pool, ctx.eps, layout=ctx.layout, **kw)
         # x carries no gradient; dscale = S2, dbias = S1; mean/var are
-        # detached inputs; seed, rate, pool, eps, train take none
-        return None, dw, dcb, s2, s1, None, None, dgw, dgb, None, None, None, None, None
+        # detached inputs; seed, rate, pool, eps, train, layout take none
+        return None, dw, dcb, s2, s1, None, None, dgw, dgb, None, None, None, None, None, None
 
 
 def entry_block_apply(conv_params, scale, bias, mean, var, glu_w, glu_b, x, seed, rate: float,
-                      pool: Tuple[int, int], eps: float, train: bool, compute_dtype=None):
+                      pool: Tuple[int, int], eps: float, train: bool, compute_dtype=None, layout: str = "planes"):
     """The fused first block with its exact backward: x [B, T, F, 1] + conv
     {"w": [3, 3, 1, C], "b": [C]} + [C] BatchNorm vectors + [C, C] GLU
-    weight (in, out) → pooled [B, T/pt, F/pf, C].
+    weight (in, out) → pooled [B, T/pt, F/pf, C] in the compute dtype (x's
+    when None; the features are cast to it).
 
     mean/var: the batch statistics of the conv output (from
     `entry_block_stats_apply`) or the running ones, passed WITHOUT a graph.
     seed: int or integer tensor, new each step; `train` switches the dropout
-    on (rate is ignored in eval mode)."""
-    entry_conv.check_float32(compute_dtype, "entry_block_apply")
+    on (rate is ignored in eval mode). `layout`: whose bfloat16 roundings to
+    reproduce, "planes" (this module's original) or "crows"."""
+    _check_layout(layout)
     if mean.requires_grad or var.requires_grad:
         raise ValueError("mean and var must be detached: the backward already carries the "
                          "through-statistics terms")
-    return _EntryBlock.apply(entry_conv._features(x), conv_params["w"], conv_params["b"], scale, bias, mean, var,
-                             glu_w, glu_b, seed, rate, pool, eps, train)
+    x = entry_conv._features(x)
+    x = x.to(entry_conv.compute_dtype_of(compute_dtype, x))
+    return _EntryBlock.apply(x, conv_params["w"], conv_params["b"], scale, bias, mean, var,
+                             glu_w, glu_b, seed, rate, pool, eps, train, layout)

@@ -11,6 +11,7 @@ beside it:
   conv2d_dx        conv3x3_nhwc_kernel on flipped,   conv2d_dx_reference
                    transposed weights, zero bias
   conv2d_wgrad     conv3x3_wgrad_kernel + fold       conv2d_wgrad_reference
+  conv2d_wgrad_parts  the same launch                conv2d_wgrad_parts_reference
 
 `conv2d_packed` ties them into one `torch.autograd.Function`. The lane
 packing is TPU layout and is not ported: the name is kept so each
@@ -22,10 +23,17 @@ rounds where the JAX kernels round (packed_conv.py:100-107,133,155,169):
 x, dy and the weights enter the products as bfloat16, products accumulate
 in float32, the float32 bias is added, and the forward and dx outputs are
 stored in bfloat16; dW and db come out of the wgrad in float32. The
-autograd Function then rounds dW to bfloat16, the gradient of the
-bfloat16 copy of the weights (JAX `_packed_conv_bwd` returns
-`dparts.astype(parts.dtype)`). The plain versions compute in float32 on
-the rounded operands.
+autograd Function then takes dW as the gradient of the bfloat16 copy of
+the weights, rounded where JAX rounds it: at C < 128 the original packs
+k = 128 // C frequency columns into one 128-lane row (`pack_factor`), so
+each weight has k copies in its part-weights, one per output-frequency
+class f mod k, and `_packed_conv_bwd` rounds each copy's float32 sum to
+bfloat16 (`dparts.astype(parts.dtype)`) before the copies fold onto w. So
+`conv2d_wgrad` in bfloat16 returns dW = Σ over the k classes of bf16(that
+class's sum), added in float32; at C = 128, k = 1 and dW is the sum rounded
+once. `conv2d_wgrad_parts` also returns the class sums themselves, for
+checks of the partition on the card. The plain versions compute in float32
+on the rounded operands.
 """
 
 from __future__ import annotations
@@ -36,6 +44,18 @@ import torch.nn.functional as F
 from dcase2019_task4_tpu_torch.ops import _build
 
 _MAX_SHARED = 232448  # opt-in shared memory per block on an H100
+
+
+LANES = 128  # lanes of the TPU's vector registers, which the original packs
+
+
+def pack_factor(freq: int, channels: int) -> int:
+    """k: the frequency columns the original packs into one 128-lane row
+    (a copy of dcase2019_task4_tpu/ops/packed_conv.py:pack_factor); the
+    number of output-frequency classes its bfloat16 weight gradient rounds
+    apart."""
+    k = LANES // channels if channels <= LANES and LANES % channels == 0 else 1
+    return k if freq % k == 0 else 1
 
 
 def applicable(freq: int, channels: int) -> bool:
@@ -72,19 +92,45 @@ def conv2d_dx_reference(w: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return dx.to(dy.dtype)
 
 
-def conv2d_wgrad_reference(x: torch.Tensor, dy: torch.Tensor):
-    """Plain version of the weight gradient: dW[dt, df] = Σ shifted-xᵀ·dy
-    with zeros outside the tensor, db = Σdy. x [B, T, F, Cin], dy
-    [B, T, F, Cout] (float32 or bfloat16) → (dW [3, 3, Cin, Cout], db
-    [Cout]) in float32."""
+def _classes(x: torch.Tensor) -> int:
+    """The output-frequency classes whose weight-gradient sums are rounded
+    apart: `pack_factor` in bfloat16, one (not rounded) in float32."""
+    return pack_factor(x.shape[2], x.shape[3]) if x.dtype == torch.bfloat16 else 1
+
+
+def conv2d_wgrad_parts_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """Plain version of the weight gradient's class sums: [k, 3, 3, Cin,
+    Cout] float32, dW[dt, df] = Σ shifted-xᵀ·dy with zeros outside the
+    tensor, over the output frequencies f ≡ c (mod k) for class c (k =
+    `_classes(x)`; in float32 one class, the whole sum). x [B, T, F, Cin],
+    dy [B, T, F, Cout]."""
     B, T, Fq, _ = x.shape
+    k = _classes(x)
     x, dy = x.to(torch.float32), dy.to(torch.float32)
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
-    dw = torch.stack([
-        torch.stack([torch.einsum("btfi,btfo->io", xp[:, dt: dt + T, df: df + Fq, :], dy) for df in range(3)])
-        for dt in range(3)
-    ])
-    return dw, dy.sum(dim=(0, 1, 2))
+    parts = []
+    for c in range(k):
+        only = dy
+        if k > 1:
+            only = torch.zeros_like(dy)
+            only[:, :, c::k] = dy[:, :, c::k]
+        parts.append(torch.stack([
+            torch.stack([torch.einsum("btfi,btfo->io", xp[:, dt: dt + T, df: df + Fq, :], only) for df in range(3)])
+            for dt in range(3)
+        ]))
+    return torch.stack(parts)
+
+
+def conv2d_wgrad_reference(x: torch.Tensor, dy: torch.Tensor):
+    """Plain version of the weight gradient → (dW [3, 3, Cin, Cout], db
+    [Cout]) in float32, as `conv2d_wgrad` rounds it: float32, the sum;
+    bfloat16, Σ over the classes of `conv2d_wgrad_parts_reference` of each
+    rounded to bfloat16, in class order."""
+    parts = conv2d_wgrad_parts_reference(x, dy)
+    db = dy.to(torch.float32).sum(dim=(0, 1, 2))
+    if x.dtype == torch.float32:
+        return parts[0], db
+    return sum(_build.round_to(p, x.dtype) for p in parts), db
 
 
 _WGRAD_SLOTS = 128  # partial-sum slots of the weight gradient (9·C·C + C floats each)
@@ -162,32 +208,65 @@ conv2d_dx.launches = 0
 conv2d_dx.launches_bf16 = 0
 
 
-def conv2d_wgrad(x: torch.Tensor, dy: torch.Tensor):
-    """K3 weight gradient → (dW [3, 3, C, C], db [C]) in float32 from x and
-    dy of one dtype. Per-block partial sums are folded in a fixed order (no
-    float atomics), so a run repeats bit for bit. CPU: the plain version."""
+def _check_wgrad(x: torch.Tensor, dy: torch.Tensor, what: str):
     if x.dim() != 4 or x.shape != dy.shape or x.dtype != dy.dtype:
-        raise ValueError(f"conv2d_wgrad takes x and dy of one [B,T,F,C] shape and dtype, got "
+        raise ValueError(f"{what} takes x and dy of one [B,T,F,C] shape and dtype, got "
                          f"{tuple(x.shape)} {x.dtype}, {tuple(dy.shape)} {dy.dtype}")
-    _check_dtype(x, "conv2d_wgrad")
-    if x.device.type == "cpu":
-        return conv2d_wgrad_reference(x, dy)
+    _check_dtype(x, what)
+
+
+def _launch_wgrad(x: torch.Tensor, dy: torch.Tensor):
+    """The kernel and its fold → (dW, db, the per-block slots [classes,
+    slots, 9·C·C + C] float32 the fold read)."""
     _check_cuda(x, "conv2d_wgrad")
     _check_cuda(dy, "conv2d_wgrad")
     B, T, Fq, C = x.shape
+    bf16 = x.dtype == torch.bfloat16
+    k = _classes(x)
     lib = _build.library()
     tiles = lib.dcase_conv3x3_tiles(T, Fq)
-    tiles_per_block = max(1, -(-tiles * B // _WGRAD_SLOTS))
+    tiles_per_block = max(1, -(-tiles * B // (_WGRAD_SLOTS // k)))  # a slot holds k sums
     slots = -(-tiles // tiles_per_block) * B
     width = 9 * C * C + C
-    partials = torch.empty((slots, width), dtype=torch.float32, device=x.device)
+    partials = torch.empty((slots, k * width), dtype=torch.float32, device=x.device)
     out = torch.empty(width, dtype=torch.float32, device=x.device)
+    # classes 0: one float32 sum, not rounded; k ≥ 1: each class's sum rounded to bfloat16
     status = lib.dcase_conv3x3_wgrad(x.data_ptr(), dy.data_ptr(), partials.data_ptr(), out.data_ptr(),
-                                     B, T, Fq, C, tiles_per_block, int(x.dtype == torch.bfloat16),
+                                     B, T, Fq, C, tiles_per_block, int(bf16), k if bf16 else 0,
                                      _build.stream_handle(x.device))
     _build.check(status, "conv2d_wgrad")
     _build.count_launch(conv2d_wgrad, "launches", x.dtype)
-    return out[: 9 * C * C].view(3, 3, C, C), out[9 * C * C:]
+    return out[: 9 * C * C].view(3, 3, C, C), out[9 * C * C:], partials.view(slots, k, width).transpose(0, 1)
+
+
+def conv2d_wgrad(x: torch.Tensor, dy: torch.Tensor):
+    """K3 weight gradient → (dW [3, 3, C, C], db [C]) in float32 from x and
+    dy of one dtype. float32: dW is the float32 sum. bfloat16: dW is the
+    gradient of the bfloat16 weights as the lane-packed original folds it,
+    the sum over the output-frequency classes f mod k (k = `pack_factor`)
+    of each class's sum rounded to bfloat16, added in float32. db is the
+    float32 sum either way. Per-block partial sums are folded in a fixed
+    order (no float atomics), so a run repeats bit for bit. CPU: the plain
+    version."""
+    _check_wgrad(x, dy, "conv2d_wgrad")
+    if x.device.type == "cpu":
+        return conv2d_wgrad_reference(x, dy)
+    return _launch_wgrad(x, dy)[:2]
+
+
+def conv2d_wgrad_parts(x: torch.Tensor, dy: torch.Tensor):
+    """`conv2d_wgrad`'s (dW, db) and, from the same launch, the float32 dW
+    sums of the classes it rounds apart, [k, 3, 3, C, C], folded from the
+    kernel's per-block slots by `_build.fold_parts`: dW is, bit for bit,
+    the sum in class order of each class sum rounded to x's dtype. For
+    checks on the card that the kernel splits the sum as the original does.
+    CPU: the plain versions."""
+    _check_wgrad(x, dy, "conv2d_wgrad_parts")
+    if x.device.type == "cpu":
+        return (*conv2d_wgrad_reference(x, dy), conv2d_wgrad_parts_reference(x, dy))
+    dw, db, slots = _launch_wgrad(x, dy)
+    C = x.shape[3]
+    return dw, db, _build.fold_parts(slots)[:, : 9 * C * C].view(-1, 3, 3, C, C)
 
 
 conv2d_wgrad.launches = 0
@@ -206,8 +285,7 @@ class _PackedConv(torch.autograd.Function):
         dy = dy.to(x.dtype).contiguous()
         dx = conv2d_dx(w, dy) if ctx.needs_input_grad[0] else None
         dw, db = conv2d_wgrad(x, dy)
-        # the gradient of the compute-dtype copy of the weights, widened
-        return dx, _build.round_to(dw, x.dtype), db
+        return dx, dw, db
 
 
 def conv2d_packed(params, x: torch.Tensor) -> torch.Tensor:

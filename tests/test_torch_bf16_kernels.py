@@ -29,6 +29,13 @@ Tolerances (measured and stated per check):
     ulp(max|xn|)·max|dlin| + ulp(max|dlin|)·max|xn|. K3's VJP gives dW as
     the gradient of the bfloat16 weights, rounded to bfloat16 on both sides
     (JAX packs no lanes at C = 128): within two bfloat16 ulps of its max.
+  * K3's dW at C = 64, where JAX packs two lane copies (k = 2) and rounds
+    each output-frequency class's sum (f even, f odd) to bfloat16 before it
+    adds them: each element within one bfloat16 ulp of itself plus one of
+    each class sum at that element (a class sum whose float32 value lies
+    next to a rounding boundary may round the other way), and at most 1e-3
+    of the elements beyond one ulp of themselves. One rounding of the whole
+    sum instead puts most elements beyond that.
 """
 
 import jax
@@ -113,15 +120,90 @@ def test_conv_forward_and_vjp_match_jax_interpret(shape):
     _close(bt.grad, db_ref, 1e-5, "db")
 
 
+# the flagship's C = 64, where JAX packs two frequency columns per row (k = 2):
+# block 2's and block 3's frequency widths at a few clips
+PACKED_SHAPES = [(1, 16, 8, 64), (1, 8, 4, 64)]
+
+
+def _class_sums(x, dy, k):
+    """The weight gradient's k output-frequency class sums (f ≡ c mod k), in
+    float64: [k, 3, 3, C, C]."""
+    x, dy = x.astype(np.float64), dy.astype(np.float64)
+    B, T, F, C = x.shape
+    xp = np.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)))
+    out = np.zeros((k, 3, 3, C, C))
+    for c in range(k):
+        d = np.zeros_like(dy)
+        d[:, :, c::k] = dy[:, :, c::k]
+        for dt in range(3):
+            for df in range(3):
+                out[c, dt, df] = np.einsum("btfi,btfo->io", xp[:, dt: dt + T, df: df + F], d)
+    return out
+
+
+@pytest.mark.parametrize("shape", PACKED_SHAPES)
+def test_conv_vjp_at_two_lane_copies_matches_jax_interpret(shape):
+    """Forward, dx and dW at C = 64 against `conv2d_packed` interpreted:
+    dW = Σ over the two output-frequency classes of bf16(class sum)."""
+    w, b, x, dy = _conv_inputs(shape, sum(shape) + 64)
+    fn = lambda w_, b_, x_: jpc.conv2d_packed({"w": w_, "b": b_}, x_, compute_dtype=jnp.bfloat16,  # noqa: E731
+                                              interpret=True)
+    out_ref, vjp = jax.vjp(fn, jnp.asarray(w), jnp.asarray(b), jnp.asarray(x, jnp.bfloat16))
+    dw_ref, db_ref, dx_ref = vjp(jnp.asarray(dy, jnp.bfloat16))
+    k = jpc.pack_factor(shape[2], shape[3])
+    assert k == 2
+    wt, bt = torch.from_numpy(w).requires_grad_(True), torch.from_numpy(b).requires_grad_(True)
+    xt = torch.from_numpy(x).to(BF16).requires_grad_(True)
+    out = tpc.conv2d_packed({"w": wt, "b": bt}, xt)
+    _within_ulps(out, out_ref, "conv out")
+    out.backward(torch.from_numpy(dy).to(BF16))
+    _within_ulps(xt.grad, dx_ref, "dx")
+    _close(bt.grad, db_ref, 1e-5, "db")
+    got, want = _np(wt.grad), _np(dw_ref)
+    own = _ulp(np.maximum(np.abs(got), np.abs(want)))
+    classes = np.abs(_class_sums(x, dy, k))
+    limit = own + sum(_ulp(classes[c]) for c in range(k))
+    diff = np.abs(got - want)
+    assert not (diff > limit).any(), f"dW: {(diff > limit).sum()} elements beyond the class rule, worst {diff.max()}"
+    share = (diff > own).mean()
+    assert share <= 1e-3, f"dW: {share:.2e} of the elements beyond one bfloat16 ulp"
+    assert tpc.pack_factor(shape[2], shape[3]) == k
+
+
+@pytest.mark.parametrize("shape,k", [((1, 6, 4, 64), 2), ((1, 6, 4, 8), 1)])
+def test_conv_wgrad_rounds_each_class_sum_in_bfloat16(shape, k):
+    """bfloat16: dW is Σ over the k = pack_factor(F, C) output-frequency
+    classes f mod k of bf16(class sum), added in class order (at k = 1 the
+    sum rounded once); `conv2d_wgrad_parts` returns the class sums (1e-5 of
+    their max against float64) beside the same dW. float32: the sum,
+    unrounded, as one class."""
+    _, _, x, dy = _conv_inputs(shape, 5)
+    assert tpc.pack_factor(shape[2], shape[3]) == k
+    xt, dyt = torch.from_numpy(x).to(BF16), torch.from_numpy(dy).to(BF16)
+    dw, db, parts = tpc.conv2d_wgrad_parts(xt, dyt)
+    assert parts.shape == (k,) + tuple(dw.shape) and parts.dtype == torch.float32
+    _close(parts, _class_sums(x, dy, k), 1e-5, "class sums")
+    assert torch.equal(dw, sum(p.to(BF16).float() for p in parts))
+    got = tpc.conv2d_wgrad(xt, dyt)
+    assert torch.equal(got[0], dw) and torch.equal(got[1], db)
+    whole = parts.sum(0)
+    assert torch.equal(dw, whole.to(BF16).float()) == (k == 1)
+    dw32, db32, parts32 = tpc.conv2d_wgrad_parts(torch.from_numpy(x), torch.from_numpy(dy))
+    assert parts32.shape == (1,) + tuple(dw.shape) and torch.equal(parts32[0], dw32)
+    _close(dw32, _class_sums(x, dy, 1)[0], 1e-5, "float32 dW")
+    _close(db32, db, 1e-6, "db")
+
+
 def test_conv_wgrad_matches_the_jax_kernel_before_its_rounding():
-    """The wgrad kernel's own float32 output: JAX `_run_wgrad` at k = 1,
+    """The wgrad's own float32 sum (its one class at k = 1): JAX `_run_wgrad`,
     before the VJP rounds it to the weights' bfloat16."""
     shape = CONV_SHAPES[0]
     _, _, x, dy = _conv_inputs(shape, 7)
     B, T, F, C = shape
     dparts, db_ref = jpc._run_wgrad(jnp.asarray(x, jnp.bfloat16), jnp.asarray(dy, jnp.bfloat16), tt=jpc._pick_tile(T),
                                     F2=F, L=C, dtype=jnp.bfloat16, interpret=True)
-    dw, db = tpc.conv2d_wgrad(torch.from_numpy(x).to(BF16), torch.from_numpy(dy).to(BF16))
+    _, db, parts = tpc.conv2d_wgrad_parts(torch.from_numpy(x).to(BF16), torch.from_numpy(dy).to(BF16))
+    dw = parts[0]  # one class at k = 1
     assert dw.dtype == db.dtype == torch.float32
     # dparts[dt, g + 1] holds w[dt, g + 1] at k = 1
     _close(dw, dparts, 1e-5, "dW")

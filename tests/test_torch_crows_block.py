@@ -157,8 +157,10 @@ def test_counters_stay_put_on_cpu_tensors():
     leaves = _t(d, *NAMES, grad=True)
     _port_out(d, leaves, 0.5, True).sum().backward()
     assert before == [getattr(tcr.crows_apply, n) for n in names] + [tcr.crows_stats_apply.launches]
-    with pytest.raises(NotImplementedError, match="float32"):
-        tcr.crows_stats_apply(dict(zip("wb", _t(d, "w", "b"))), torch.from_numpy(d["x"]), compute_dtype="bfloat16")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tcr.crows_stats_apply(dict(zip("wb", _t(d, "w", "b"))), torch.from_numpy(d["x"]), compute_dtype="float16")
+    tcr.crows_stats_apply(dict(zip("wb", _t(d, "w", "b"))), torch.from_numpy(d["x"]), compute_dtype="bfloat16")
+    assert before == [getattr(tcr.crows_apply, n) for n in names] + [tcr.crows_stats_apply.launches]
 
 
 @pytest.mark.parametrize("through_crows", [True, False])

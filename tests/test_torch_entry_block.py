@@ -250,10 +250,12 @@ def test_refusals():
     conv = {"w": w, "b": b}
     with pytest.raises(ValueError, match="detached"):
         tfe.entry_block_apply(conv, scale, bias, mean.clone().requires_grad_(True), var, gw, gb, x, 0, 0.0, POOL, EPS, True)
-    with pytest.raises(NotImplementedError, match="float32"):
-        tfe.entry_block_apply(conv, scale, bias, mean, var, gw, gb, x, 0, 0.0, POOL, EPS, True, compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="float32"):
-        tfe.entry_block_stats_apply(conv, x, compute_dtype="bfloat16")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tfe.entry_block_apply(conv, scale, bias, mean, var, gw, gb, x, 0, 0.0, POOL, EPS, True, compute_dtype="float16")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tfe.entry_block_stats_apply(conv, x, compute_dtype=torch.float16)
+    with pytest.raises(ValueError, match="layout"):
+        tfe.entry_block_apply(conv, scale, bias, mean, var, gw, gb, x, 0, 0.0, POOL, EPS, True, layout="rows")
     with pytest.raises(ValueError, match="does not take"):
         tfe.entry_block_fwd(x[:, :23], w, b, scale, bias, mean, var, gw, gb, POOL, EPS)
     with pytest.raises(ValueError, match="rate"):

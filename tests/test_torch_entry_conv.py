@@ -118,9 +118,13 @@ def test_ablation_modes_plain_versions():
 
 
 def test_other_dtypes_and_shapes_are_refused():
+    """float32 and bfloat16 are the compute dtypes (bfloat16 gives y in
+    bfloat16); any other dtype and a features tensor of more than one
+    channel are refused."""
     d = _inputs(5, (1, 6, 8), 8)
-    with pytest.raises(NotImplementedError, match="float32"):
-        tec.entry_conv_apply(_tparams(d), torch.from_numpy(d["x"]), compute_dtype="bfloat16")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tec.entry_conv_apply(_tparams(d), torch.from_numpy(d["x"]), compute_dtype=torch.float16)
+    assert tec.entry_conv_apply(_tparams(d), torch.from_numpy(d["x"]), compute_dtype="bfloat16").dtype == torch.bfloat16
     with pytest.raises(ValueError, match="one-channel"):
         tec.entry_conv_apply(_tparams(d), torch.zeros(1, 6, 8, 2))
     assert tec.entry_conv_apply(_tparams(d), torch.from_numpy(d["x"]), compute_dtype=torch.float32).shape == (1, 6, 8, 8)

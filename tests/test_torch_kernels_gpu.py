@@ -13,8 +13,12 @@ family (K4 conv with sums and weight gradient, K5 statistics, forward and
 two-pass backward, at small shapes and at the flagship block-1 shape), the
 keep-mask kernel, and one whole training step per first-block
 configuration, float32 with TF32 off on both sides; then the bfloat16
-modes of K3 and K2 (window tiles included) against their plain versions
-and one scaled-configuration step against the CPU.
+modes of K3 (its weight gradient rounded per output-frequency class where
+the original packs lane copies) and K2 (window tiles included), and of the
+entry-block family (K4, K5 and the crows layout of K6, at small shapes and
+the flagship block-1 shape), against their plain versions, one
+scaled-configuration step and one flagship bfloat16 step per first-block
+configuration against the CPU.
 """
 
 import numpy as np
@@ -424,11 +428,11 @@ def _ulp(t):
     return torch.exp2(torch.floor(torch.log2(t.abs().float().clamp_min(2.0 ** -126))) - 7)
 
 
-def _within_ulps(got, want, what, extra=0.0):
+def _within_ulps(got, want, what, extra=0.0, share_rule=True):
     got, want = got.float(), want.float()
     ulp = _ulp(torch.maximum(got.abs(), want.abs()))
     share = ((got - want).abs() > ulp).sum().item() / got.numel()
-    assert share <= 1e-3, f"{what}: {share:.2e} of the elements beyond one ulp"
+    assert share <= 1e-3 or not share_rule, f"{what}: {share:.2e} of the elements beyond one ulp"
     limit = ulp + extra
     over = (got - want).abs() - limit
     bad = int((over > 0).sum().item())
@@ -506,13 +510,32 @@ def test_conv2d_packed_bf16(cuda, shape):
                 for dt in range(3) for df in range(3))
     _within_ulps(x.grad, exact.bfloat16(), "dx against float64", _sum_slack(9 * C, dy, wb))
     _within_ulps(x.grad, packed_conv.conv2d_dx_reference(w.detach(), dy), "dx", 2 * _sum_slack(9 * C, dy, wb))
-    dw, db = packed_conv.conv2d_wgrad(x.detach(), dy)
+    # the gradient of the bfloat16 weights: each output-frequency class's sum
+    # rounded where the original packs k lane copies (one rounding at k = 1)
+    k = packed_conv.pack_factor(shape[2], C)
+    dw, db, parts = packed_conv.conv2d_wgrad_parts(x.detach(), dy)
+    assert torch.equal(w.grad, dw) and torch.equal(b.grad, db)
+    want_parts = packed_conv.conv2d_wgrad_parts_reference(x.detach(), dy)
+    assert len(want_parts) == k
+    _check_parts(dw, parts, want_parts, "dW class sums")
     dw_ref, db_ref = packed_conv.conv2d_wgrad_reference(x.detach(), dy)
-    for got, want in ((dw, dw_ref), (db, db_ref)):
-        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
-    assert torch.equal(w.grad, dw.bfloat16().float()) and torch.equal(b.grad, db)
-    dw2, _ = packed_conv.conv2d_wgrad(x.detach(), dy)
-    assert torch.equal(dw, dw2)
+    assert (db - db_ref).abs().max().item() <= 1e-4 * db_ref.abs().max().item()
+    _within_ulps(dw, dw_ref, "dW per class", sum(_ulp(p) for p in want_parts))
+    assert all(torch.equal(p, q) for p, q in zip(packed_conv.conv2d_wgrad(x.detach(), dy), (dw, db)))
+
+
+def _check_parts(dw, parts, want, what, extra=0.0):
+    """A bfloat16 weight gradient's float32 part sums, as the kernel folded
+    them (`*_wgrad_parts`), against the plain version's: as many parts,
+    each within 1e-4 of the parts' max plus `extra`; and dW, bit for bit,
+    the sum of the parts each rounded to bfloat16 in part order. A kernel
+    that splits the sum otherwise than the original, or rounds the whole
+    sum once, fails here."""
+    want = torch.stack(list(want))
+    assert parts.shape == want.shape, what
+    err, limit = (parts - want).abs().max().item(), 1e-4 * want.abs().max().item() + extra
+    assert err <= limit, f"{what}: {err} exceeds {limit}"
+    assert torch.equal(dw, sum(p.bfloat16().float() for p in parts)), f"{what}: dW is not the rounded parts' sum"
 
 
 @pytest.mark.parametrize("shape,pool", BF16_BLOCKS)
@@ -626,5 +649,204 @@ def test_scaled_train_step_on_the_card_repeats_a_cpu_step(cuda):
     top = max(a.abs().max().item() for a in g_cpu.values())
     for name, a in g_cpu.items():
         gauge = name.endswith(".conv.bias") or name.startswith("dense_softmax.")
+        limit = 2e-2 * a.abs().max().item() + (1e-3 if gauge else 1e-6) * top
+        assert (a - g_gpu[name]).abs().max().item() <= limit, name
+
+
+# ------------------------------------------------- bfloat16 entry-block family
+#
+# K4, K5 and the crows layout of K6 in bfloat16 against their plain versions.
+# On top of the rules above: a conv output y (a sum of nine exact products)
+# may round to the other bfloat16 neighbour where the two versions' float32
+# sums differ in the last bit, which moves xn by ulp(y)·inv·γ; dW, the
+# gradient of the bfloat16 weights, is rounded in two parts before they are
+# added, so each element is held to one ulp of itself plus one of each
+# part's sum, plus one dy element of pass 2 rounding the other way
+# (ulp(max|dy|)·max|x|). No share of elements is asked of dW: where the parts
+# nearly cancel, each rounding that flips between the two versions' float32
+# part sums moves an element by more than its own ulp, and dW has few
+# elements (9·C). That rule alone cannot tell the partition from one
+# rounding of the whole sum, so `_check_parts` holds the kernel's own part
+# sums and its rounding of them. d conv_b, zero in exact arithmetic, is held
+# to 1e-4 of its max plus the float32 rounding of a sum over the pixels,
+# n·max|dy|·2^-24.
+
+
+def _y_flip(y, scale, bias, mean, var, w, b):
+    """One y element rounding the other way, carried to g: Δxn = ulp(y)·inv·γ
+    moves lin by Δxn·|W| and the gate by Δxn·|lin|/4."""
+    inv = torch.rsqrt(var + 1e-3) * scale
+    dxn = _ulp(y.float().abs().max()).item() * inv.abs().max().item()
+    xn = (y.float() - mean) * torch.rsqrt(var + 1e-3) * scale + bias
+    lin = (xn.bfloat16().float() @ w.bfloat16().float() + b).abs().max().item()
+    return dxn * (w.abs().max().item() + lin / 4)
+
+
+def _entry_pool_slack(y, scale, bias, mean, var, w, b, layout, mask=None, keep=1.0):
+    """The pooled output's slack: one rounding after a float32 sum flipped
+    (a pt-row column sum under "planes", a g under "crows"), one xn operand
+    flip, the sums' float32 rounding and one y flip, carried to the window
+    mean."""
+    pool = (2, 4)
+    if layout == "planes":
+        base = _pool_slack(y, scale, bias, mean, var, w, b, pool, mask, keep)
+    else:
+        xn = (y.float() - mean) * torch.rsqrt(var + 1e-3) * scale + bias
+        g = (xn.bfloat16().float() @ w.bfloat16().float() + b) * torch.sigmoid(xn)
+        if mask is not None:
+            g = g * mask / keep
+        B, T, F, C = g.shape
+        top = g.reshape(B, T // 2, 2, F // 4, 4, C).abs().amax(dim=(2, 4))
+        base = _ulp(top) + (_flip_slack(xn, w) + _sum_slack(C, xn, w)) / (keep * 8)
+    return base + _y_flip(y, scale, bias, mean, var, w, b) / (keep * 8)
+
+
+def _parts_rule(got, want, parts, what, extra=0.0):
+    _within_ulps(got, want, what, sum(_ulp(p) for p in parts) + extra, share_rule=False)
+
+
+# x [B, T, F] and C: partial tiles, an odd F (one part), and the flagship block-1 shape
+ENTRY_BF16_SHAPES = [((2, 98, 64), 16), ((3, 26, 4), 16), ((2, 38, 16), 64), ((1, 9, 11), 8), ((24, 864, 64), 64)]
+
+
+@pytest.mark.parametrize("shape,C", ENTRY_BF16_SHAPES)
+def test_entry_conv_bf16(cuda, shape, C):
+    rng = np.random.default_rng(sum(shape) + C + 7)
+    params = _entry_params(rng, C, cuda)
+    x = _t(rng.standard_normal(shape), cuda).bfloat16()
+    dy = _t(rng.standard_normal(shape + (C,)), cuda).bfloat16()
+    fns = (entry_conv.entry_conv_forward, entry_conv.entry_conv_wgrad)
+    counts = [(f.launches, f.launches_bf16) for f in fns]
+    w, b = (params[k].clone().requires_grad_(True) for k in ("w", "b"))
+    y, s1, s2 = entry_conv.entry_conv_apply({"w": w, "b": b}, x[..., None], want_stats=True)
+    y.backward(dy)
+    assert [(f.launches, f.launches_bf16) for f in fns] == [(a, c + 1) for a, c in counts]
+    assert y.dtype == torch.bfloat16 and w.grad.dtype == b.grad.dtype == torch.float32
+    y_ref, _, _ = entry_conv.entry_conv_reference(params, x)
+    _within_ulps(y, y_ref, "y", _sum_slack(9, x, params["w"].bfloat16()))
+    yd = y.detach().double()
+    for got, want in ((s1, yd.sum(dim=(0, 1, 2))), (s2, (yd ** 2).sum(dim=(0, 1, 2)))):
+        assert (got.double() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    dw_ref, db_ref = entry_conv.entry_conv_wgrad_reference(x, dy)
+    parts = entry_conv.entry_conv_wgrad_parts_reference(x, dy)
+    assert len(parts) == (2 if shape[2] % 2 == 0 else 1)
+    _parts_rule(w.grad, dw_ref, parts, "dW")
+    dw_k, db_k, parts_k = entry_conv.entry_conv_wgrad_parts(x, dy)
+    assert torch.equal(dw_k, w.grad) and torch.equal(db_k, b.grad)
+    _check_parts(dw_k, parts_k, parts, "dW parity sums")
+    assert (b.grad - db_ref).abs().max().item() <= 1e-4 * db_ref.abs().max().item()
+    # a repeat, and the statistics-only mode (K5s): the same bits
+    assert all(torch.equal(p, q) for p, q in zip(entry_conv.entry_conv_wgrad(x, dy), (w.grad, b.grad)))
+    s_only = fused_entry_block.entry_block_stats_apply(params, x)
+    assert torch.equal(s_only[0], s1) and torch.equal(s_only[1], s2)
+
+
+@pytest.mark.parametrize("layout", ["planes", "crows"])
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("shape,C", [((2, 98, 64), 16), ((2, 38, 16), 64), ((2, 12, 64), 64), ((24, 864, 64), 64)])
+def test_entry_block_bf16(cuda, shape, C, rate, layout):
+    """K5f, K5b1, K5b2 in bfloat16 through the autograd Function, in both
+    layouts, against the plain versions; bit-equal repeats."""
+    rng = np.random.default_rng(sum(shape) + C + 8)
+    B, T, Fq = shape
+    conv = _entry_params(rng, C, cuda)
+    scale, bias, _, _, gw, gb = _block_args(rng, C, cuda)
+    x = _t(rng.standard_normal(shape), cuda).bfloat16()
+    dout = _t(rng.standard_normal((B, T // 2, Fq // 4, C)), cuda).bfloat16()
+    seed = torch.tensor([77 + T])
+    fe = fused_entry_block
+    s, sq = fe.entry_block_stats_apply(conv, x)
+    mean = s / (B * T * Fq)
+    var = sq / (B * T * Fq) - mean * mean
+    counts = (fe.entry_block_fwd.launches_train_bf16 + fe.entry_block_fwd.launches_eval_bf16,
+              fe.entry_block_bwd_reduce.launches_bf16, fe.entry_block_bwd_wgrad.launches_bf16)
+
+    def run():
+        leaves = [t.clone().requires_grad_(True) for t in (conv["w"], conv["b"], scale, bias, gw, gb)]
+        w, b, sc, bi, w2, b2 = leaves
+        out = fe.entry_block_apply({"w": w, "b": b}, sc, bi, mean, var, w2, b2, x, seed, rate, (2, 4), 1e-3, True,
+                                   layout=layout)
+        out.backward(dout)
+        return out.detach(), [t.grad for t in leaves]
+
+    out, grads = run()
+    assert (fe.entry_block_fwd.launches_train_bf16 + fe.entry_block_fwd.launches_eval_bf16,
+            fe.entry_block_bwd_reduce.launches_bf16, fe.entry_block_bwd_wgrad.launches_bf16) == tuple(c + 1 for c in counts)
+    assert out.dtype == torch.bfloat16
+    mask = fused_block.dropout_keep_mask(seed, shape + (C,), rate, device=cuda) if rate else None
+    keep = 1.0 - rate
+    vecs = (conv["w"], conv["b"], scale, bias, mean, var, gw, gb)
+    ref = fe.reference_entry_block(x, *vecs, (2, 4), 1e-3, mask, keep, layout)
+    y = entry_conv.entry_conv_reference(conv, x)[0]
+    _within_ulps(out, ref, "pooled output", _entry_pool_slack(y, scale, bias, mean, var, gw, gb, layout, mask, keep))
+    want = fe.entry_block_bwd_reference(x, dout, *vecs, (2, 4), 1e-3, mask, keep, layout)
+    red = fe.entry_block_bwd_reduce_reference(x, dout, *vecs, (2, 4), 1e-3, mask, keep)
+    a, b2 = fused_block.bwd_coefficients(scale, var, 1e-3, red[2], red[3], B * T * Fq)
+    dy = fe._pass2_dy(x, dout, *vecs, a, b2, (2, 4), 1e-3, mask, keep)[0]
+    parts = fe.entry_block_bwd_wgrad_parts_reference(x, dout, *vecs, a, b2, (2, 4), 1e-3, mask, keep, layout)
+    flip = _ulp(dy.abs().max()).item() * x.float().abs().max().item()
+    _parts_rule(grads[0], want[0], parts, "dW", flip)
+    # the kernel's own part sums, at the coefficients of its own pass 1
+    s1_k, s2_k = fe.entry_block_bwd_reduce(x, dout, *vecs, (2, 4), 1e-3, rate=rate, seed=seed)[2:]
+    a_k, b2_k = fused_block.bwd_coefficients(scale, var, 1e-3, s1_k, s2_k, B * T * Fq)
+    dw_k, dcb_k, parts_k = fe.entry_block_bwd_wgrad_parts(x, dout, *vecs, a_k, b2_k, (2, 4), 1e-3, rate=rate,
+                                                          seed=seed, layout=layout)
+    assert torch.equal(dw_k, grads[0]) and torch.equal(dcb_k, grads[1])
+    want_k = fe.entry_block_bwd_wgrad_parts_reference(x, dout, *vecs, a_k, b2_k, (2, 4), 1e-3, mask, keep, layout)
+    _check_parts(dw_k, parts_k, want_k, f"dW parts ({layout})", flip)
+    for name, got, w in zip(("dcb", "dscale", "dbias", "dgw", "dgb"), grads[1:], want[1:]):
+        limit = 1e-4 * w.abs().max().item() + (_sum_slack(B * T * Fq, dy, torch.ones(1)) if name == "dcb" else 0.0)
+        if name == "dgw":  # one bfloat16 operand of xn^T . dlin rounding the other way
+            xn = (y.float() - mean) * torch.rsqrt(var + 1e-3) * scale + bias
+            dlin = dout.float().abs().max() / (8 * keep)
+            limit += _ulp(xn.abs().max()).item() * dlin.item() + _ulp(dlin).item() * xn.abs().max().item()
+        assert (got - w).abs().max().item() <= limit, name
+    out2, grads2 = run()
+    assert torch.equal(out, out2) and all(torch.equal(p, q) for p, q in zip(grads, grads2))
+    if layout == "crows" and crows_block.crows_applicable((*shape, 1), (2, 4)):
+        # the crows entry reaches the same kernels with the same mode bits
+        ref_out = crows_block.crows_apply(conv, scale, bias, mean, var, gw, gb, x[..., None], seed, rate, (2, 4),
+                                          1e-3, True)
+        assert torch.equal(ref_out, out)
+
+
+@pytest.mark.parametrize("flag", [None, "entry_conv_pallas", "entry_block_pallas", "entry_block_crows"])
+def test_flagship_bf16_train_step_repeats_a_cpu_step(cuda, flag):
+    """One Mean-Teacher step of a bfloat16 model with the flagship's widths
+    (64 mels, 64 channels) at 96 frames, on the card and on the CPU: metrics
+    1e-4, gradient leaves 2e-2 of their max plus 1e-6 of the largest, gauge
+    leaves 1e-3 of the largest (bfloat16 roundings that flip between two
+    float32 sums in another order). Under the crows flag block 1's conv
+    weight is a gauge leaf too: its two batch-half sums, each rounded to
+    bfloat16 as the original rounds them, nearly cancel (the features' mean
+    times each half's Σdy, which the other half's takes back), so one
+    rounding of a half flipping is large against their sum."""
+    import copy
+
+    from dcase2019_task4_tpu_torch.config import ModelConfig
+    from dcase2019_task4_tpu_torch.train import steps
+
+    cfg = ModelConfig(nb_filters=(64, 64, 64), n_rnn_cell=16, compute_dtype="bfloat16", **({flag: True} if flag else {}))
+    base = steps.init_train_state(cfg, lambda p: torch.optim.Adam(p, lr=1e-3), torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    audio = (0.1 * torch.randn(4, 95 * 511 + 2048, generator=g) * 32768).clamp(-32768, 32767).to(torch.int16)
+    batch = {"audio": audio, "frames": torch.full((4,), 96), "target": (torch.rand(4, 12, 10, generator=g) > 0.8).float()}
+    results = []
+    for device in (torch.device("cpu"), cuda):
+        state = steps.TrainState(copy.deepcopy(base.student).to(device), copy.deepcopy(base.teacher).to(device), None)
+        state.optimizer = torch.optim.Adam(state.student.parameters(), lr=1e-3)
+        step = steps.make_train_step(slice(0, 1), slice(3, 4), rampup_length=10,
+                                     frontend=MelFrontend(max_frames=96, device=device))
+        _, metrics, _ = step(state, {k: v.to(device) for k, v in batch.items()},
+                             torch.Generator().manual_seed(2), step.zero_metrics(device))
+        results.append(({k: v.item() for k, v in metrics.items()},
+                        {n: p.grad.cpu() for n, p in state.student.named_parameters()}))
+    (m_cpu, g_cpu), (m_gpu, g_gpu) = results
+    for k in m_cpu:
+        assert abs(m_cpu[k] - m_gpu[k]) <= 1e-4, k
+    top = max(a.abs().max().item() for a in g_cpu.values())
+    for name, a in g_cpu.items():
+        gauge = name.endswith(".conv.bias") or name.startswith("dense_softmax.") or (
+            flag == "entry_block_crows" and name == "cnn.0.conv.weight")
         limit = 2e-2 * a.abs().max().item() + (1e-3 if gauge else 1e-6) * top
         assert (a - g_gpu[name]).abs().max().item() <= limit, name

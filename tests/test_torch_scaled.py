@@ -186,13 +186,22 @@ def test_crnn_matches_jax(jax_model, train):
 
 
 def test_bfloat16_model_runs_through_the_fused_kernels_only():
-    x = torch.zeros((2, T, M))
+    """Without the fused block a bfloat16 model is refused. The first-block
+    flags run in bfloat16: at this geometry (24 filters, 128 mels) the fused
+    first block's gates do not take block 1, so the pallas and crows flags
+    give the default model's bits, and the entry conv kernel runs."""
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal((2, T, M)).astype(np.float32))
     with pytest.raises(NotImplementedError, match="fused block"):
         tcrnn.CRNN(tconfig.ModelConfig(fused_block=False, **_model_kw())).eval()(x)
+    base = tcrnn.seeded_init_(tcrnn.CRNN(tconfig.ModelConfig(**_model_kw())), 0).eval()
+    strong_ref, _ = base(x)
     for flag in ("entry_block_pallas", "entry_block_crows", "entry_conv_pallas"):
         net = tcrnn.CRNN(tconfig.ModelConfig(**_model_kw(**{flag: True}))).eval()
-        with pytest.raises(NotImplementedError, match="float32 only"):
-            net(x)
+        net.load_state_dict(base.state_dict())
+        strong, weak = net(x)
+        assert strong.dtype == weak.dtype == torch.float32 and torch.isfinite(strong).all(), flag
+        if flag != "entry_conv_pallas":
+            assert torch.equal(strong, strong_ref), flag
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tcrnn.CRNN(tconfig.ModelConfig(**dict(_model_kw(), compute_dtype="float16")))
 
