@@ -105,7 +105,31 @@ printing a result:
      leaf: its two batch-half sums nearly cancel), three steps at batch 24
      with the generator on the card (launches per step exact, ms per step,
      peak memory, block 1's device time), and the gap of each flag's step-1
-     loss to the bfloat16 default printed as information.
+     loss to the bfloat16 default printed as information. Then the knobs
+     path: the JAX package's three A/B knobs (DCASE_FUSED_MEL_ONEDOT,
+     DCASE_FUSED_BWD_RECOMPUTE, DCASE_DROPOUT_PACK) on, as the port's module
+     constants (the default paths run with them off): the flagship float32
+     step 1 at [1|2|1] on the card against the CPU with the same knobs (the
+     float32 bars above), then steps at batch 24 with the generator on the
+     card, in turns with the default (default, knobs, knobs, default; three
+     steps each): launches per step exact (K1's onedot kernel and no FFT K1,
+     K2b's first pass without dy_partial, the recompute fixup and no stored
+     one, every dropout launch packed), ms per step, one traced step's
+     device time and peak memory beside the default's; two steps each of
+     the knobs under `entry_block_pallas`, of the scaled configuration and
+     of the flagship in bfloat16, launches exact.
+
+Phase 3 also holds the knobs' kernels at the flagship shapes (`knob_kernels`:
+K1 onedot against its plain version and a float64 DFT, 1e-5 of max, with one
+cuBLAS SGEMM of the same product as its library time; K2f, K2b's first pass
+and the recompute fixup with the packed draw, and the autograd Function with
+the fixup mode on against itself with it off, dy 1e-6 of max; K5f and K5b1
+with the packed draw; the packed keep-mask kernel bit for bit with its keep
+share within 5 sigma of 1 - t8/256), the bfloat16 recompute fixup at the
+scaled and the C = 64 shapes, and the bfloat16 fixup at C = 64 with its
+inputs rotated through more than twice the 50 MB L2 (`cold_fixup_device_ms`).
+Phase 4 also predicts from the default checkpoint with K1's onedot knob on
+(launches exact, within 1e-4 of its own CPU run and of the FFT K1's).
 
 The line before the last is {"kernels": [...]}: every number in it is one
 this run measured (launches on both paths as counted, the largest error
@@ -117,6 +141,7 @@ Imports only the port: neither jax, nor pandas, nor the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import csv
 import dataclasses
@@ -204,11 +229,23 @@ KERNELS = {
     "crows_fwd_bf16": (CSRC + "entry_block.cu", JAX_OPS + "crows_block.py:404"),
     "crows_bwd_reduce_bf16": (CSRC + "entry_block.cu", JAX_OPS + "crows_block.py:442"),
     "crows_bwd_wgrad_bf16": (CSRC + "entry_block.cu", JAX_OPS + "crows_block.py:479"),
+    # the JAX package's three A/B knobs (DCASE_FUSED_MEL_ONEDOT,
+    # DCASE_FUSED_BWD_RECOMPUTE, DCASE_DROPOUT_PACK): K1 through the cos‖sin
+    # basis; K2b's first pass without dy_partial and the recompute fixup; the
+    # packed draw in K2f and in K5's forward and first backward pass
+    "fused_stft_mel_onedot": (CSRC + "fused_mel_onedot.cu", JAX_OPS + "fused_mel.py:213"),
+    "bwd_reduce_nodyp": (CSRC + "fused_block.cu", JAX_OPS + "fused_block.py:289"),
+    "bwd_fixup_recompute": (CSRC + "fused_block.cu", JAX_OPS + "fused_block.py:341"),
+    "fused_bn_glu_pool_train_packed": (CSRC + "fused_block.cu", JAX_OPS + "fused_block.py:169"),
+    "entry_block_fwd_train_packed": (CSRC + "entry_block.cu", JAX_OPS + "fused_block.py:169"),
+    "entry_block_bwd_reduce_packed": (CSRC + "entry_block.cu", JAX_OPS + "fused_block.py:169"),
+    "bwd_fixup_recompute_bf16": (CSRC + "fused_block.cu", JAX_OPS + "fused_block.py:341"),
+    "bwd_fixup_recompute_bf16_flagship": (CSRC + "fused_block.cu", JAX_OPS + "fused_block.py:341"),
 }
 SCALED_ROWS = ("conv2d_forward_bf16", "conv2d_dx_bf16", "conv2d_wgrad_bf16", "fused_bn_glu_pool_eval_bf16",
                "fused_bn_glu_pool_train_bf16", "batch_stats_bf16", "bwd_reduce_bf16", "bwd_fixup_bf16")
 # a flagship row counts its kernel's launches on the counter of the scaled row
-ALIASES = {name + "_flagship": name for name in SCALED_ROWS}
+ALIASES = {name + "_flagship": name for name in SCALED_ROWS + ("bwd_fixup_recompute_bf16",)}
 # a crows row names the kernel it launches; phase 3 calls the crows entries
 # themselves and holds them bit for bit to that kernel's own wrapper
 SAME_KERNEL = {"crows_stats": "entry_block_stats", "crows_fwd": "entry_block_fwd_train",
@@ -249,12 +286,38 @@ STEP_BF16_ENTRY_BLOCK = {"fused_stft_mel": 1, "conv2d_forward_bf16": 4, "conv2d_
 STEP_BF16_CROWS = dict(STEP_BF16_ENTRY_BLOCK, crows_stats_bf16=2, crows_fwd_bf16=2, crows_bwd_reduce_bf16=1,
                        crows_bwd_wgrad_bf16=1)
 STEP_BF16_ENTRY_CONV = dict(STEP_BF16, batch_stats_bf16=4, entry_conv_bf16=2, entry_conv_wgrad_bf16=1)
+# the three knobs on: K1 onedot; K2b's first pass without dy_partial, the
+# recompute fixup and no stored one; every dropout launch packed (the
+# `*_packed` counters equal the dropping kernels' own)
+PREDICT_ONEDOT = {"fused_stft_mel_onedot": 2, "conv2d_forward": 4, "fused_bn_glu_pool_eval": 6}
+STEP_KNOBS = {"fused_stft_mel_onedot": 1, "conv2d_forward": 4, "conv2d_dx": 2, "conv2d_wgrad": 2,
+              "fused_bn_glu_pool_train": 6, "fused_bn_glu_pool_train_packed": 6, "batch_stats": 6,
+              "bwd_reduce_nodyp": 3, "bwd_fixup_recompute": 3}
+STEP_KNOBS_ENTRY_BLOCK = {"fused_stft_mel_onedot": 1, "conv2d_forward": 4, "conv2d_dx": 2, "conv2d_wgrad": 2,
+                          "fused_bn_glu_pool_train": 4, "fused_bn_glu_pool_train_packed": 4, "batch_stats": 4,
+                          "bwd_reduce_nodyp": 2, "bwd_fixup_recompute": 2, "entry_block_stats": 2,
+                          "entry_block_fwd_train": 2, "entry_block_fwd_train_packed": 2, "entry_block_bwd_reduce": 1,
+                          "entry_block_bwd_reduce_packed": 1, "entry_block_bwd_wgrad": 1}
+STEP_KNOBS_SCALED = {"fused_stft_mel_onedot": 1, "conv2d_forward_bf16": 4, "conv2d_dx_bf16": 2,
+                     "conv2d_wgrad_bf16": 2, "fused_bn_glu_pool_train_bf16": 6, "fused_bn_glu_pool_train_packed": 6,
+                     "batch_stats_bf16": 6, "bwd_fixup_recompute_bf16": 3}
+STEP_KNOBS_BF16 = dict(STEP_KNOBS_SCALED, bwd_fixup_recompute_bf16_flagship=3)
+# Counters of a mode that no row of the kernels line reads: on a knobs path
+# every first backward pass stores no dy_partial and every dropout launch is
+# packed; every other path must count none of them.
+MODES = {"step_knobs": {"bwd_reduce_packed": 3, "bwd_fixup_recompute_packed": 3},
+         "step_knobs_entry_block": {"bwd_reduce_packed": 2, "bwd_fixup_recompute_packed": 2,
+                                    "entry_block_bwd_wgrad_packed": 1},
+         "step_knobs_scaled": {"bwd_reduce_nodyp_bf16": 3, "bwd_reduce_packed": 3, "bwd_fixup_recompute_packed": 3}}
+MODES["step_knobs_bf16"] = MODES["step_knobs_scaled"]
 PATHS = {"predict": PREDICT_MIN, "predict_entry_block": PREDICT_ENTRY_BLOCK, "step": STEP_MIN,
          "step_entry_block": STEP_ENTRY_BLOCK, "step_crows": STEP_CROWS, "step_entry_conv": STEP_ENTRY_CONV,
          "predict_scaled": PREDICT_SCALED, "step_scaled": STEP_SCALED,
          "predict_bf16_entry_block": PREDICT_BF16_ENTRY_BLOCK, "step_bf16": STEP_BF16,
          "step_bf16_entry_block": STEP_BF16_ENTRY_BLOCK, "step_bf16_crows": STEP_BF16_CROWS,
-         "step_bf16_entry_conv": STEP_BF16_ENTRY_CONV}
+         "step_bf16_entry_conv": STEP_BF16_ENTRY_CONV, "predict_onedot": PREDICT_ONEDOT, "step_knobs": STEP_KNOBS,
+         "step_knobs_entry_block": STEP_KNOBS_ENTRY_BLOCK, "step_knobs_scaled": STEP_KNOBS_SCALED,
+         "step_knobs_bf16": STEP_KNOBS_BF16}
 # the path whose run gives a row its `launches`
 ROW_PATH = {name: "predict" if name in PREDICT_MIN else "step" for name in list(PREDICT_MIN) + list(STEP_MIN)}
 ROW_PATH.update({"entry_block_fwd_eval": "predict_entry_block", "entry_conv": "step_entry_conv",
@@ -272,6 +335,11 @@ ROW_PATH.update({"entry_block_fwd_eval_bf16": "predict_bf16_entry_block", "entry
                  "entry_block_bwd_wgrad_bf16": "step_bf16_entry_block", "crows_stats_bf16": "step_bf16_crows",
                  "crows_fwd_bf16": "step_bf16_crows", "crows_bwd_reduce_bf16": "step_bf16_crows",
                  "crows_bwd_wgrad_bf16": "step_bf16_crows"})
+ROW_PATH.update({"fused_stft_mel_onedot": "predict_onedot", "bwd_reduce_nodyp": "step_knobs",
+                 "bwd_fixup_recompute": "step_knobs", "fused_bn_glu_pool_train_packed": "step_knobs",
+                 "entry_block_fwd_train_packed": "step_knobs_entry_block",
+                 "entry_block_bwd_reduce_packed": "step_knobs_entry_block",
+                 "bwd_fixup_recompute_bf16": "step_knobs_scaled", "bwd_fixup_recompute_bf16_flagship": "step_knobs_bf16"})
 FIRST_BLOCK_FLAGS = {"step_entry_block": "entry_block_pallas", "step_crows": "entry_block_crows",
                      "step_entry_conv": "entry_conv_pallas", "step_bf16_entry_block": "entry_block_pallas",
                      "step_bf16_crows": "entry_block_crows", "step_bf16_entry_conv": "entry_conv_pallas"}
@@ -322,19 +390,42 @@ def wrappers():
         "crows_fwd_bf16": (crows_block.crows_apply, "launches_train_bf16"),
         "crows_bwd_reduce_bf16": (crows_block.crows_apply, "launches_bwd_reduce_bf16"),
         "crows_bwd_wgrad_bf16": (crows_block.crows_apply, "launches_bwd_wgrad_bf16"),
+        # the knobs' kernels and modes
+        "fused_stft_mel_onedot": (fused_mel.fused_stft_mel_onedot, "launches"),
+        "bwd_reduce_nodyp": (fused_block.bwd_reduce, "launches_nodyp"),
+        "bwd_fixup_recompute": (fused_block.bwd_fixup_recompute, "launches"),
+        "bwd_fixup_recompute_bf16": (fused_block.bwd_fixup_recompute, "launches_bf16"),
+        "fused_bn_glu_pool_train_packed": (fused_block.fused_bn_glu_pool, "launches_packed"),
+        "entry_block_fwd_train_packed": (fused_entry_block.entry_block_fwd, "launches_packed"),
+        "entry_block_bwd_reduce_packed": (fused_entry_block.entry_block_bwd_reduce, "launches_packed"),
     }
     counters.update({alias: counters[name] for alias, name in ALIASES.items()})  # a flagship row: its scaled row's counter
     return counters
 
 
+def mode_counters():
+    """name -> (wrapper, attribute) of the counters in MODES."""
+    from dcase2019_task4_tpu_torch.ops import fused_block, fused_entry_block
+
+    return {"bwd_reduce_nodyp_bf16": (fused_block.bwd_reduce, "launches_nodyp_bf16"),
+            "bwd_reduce_packed": (fused_block.bwd_reduce, "launches_packed"),
+            "bwd_fixup_recompute_packed": (fused_block.bwd_fixup_recompute, "launches_packed"),
+            "entry_block_bwd_wgrad_packed": (fused_entry_block.entry_block_bwd_wgrad, "launches_packed")}
+
+
 def zero_launches():
-    for fn, counter in wrappers().values():
+    for fn, counter in (*wrappers().values(), *mode_counters().values()):
         setattr(fn, counter, 0)
 
 
 def read_launches():
-    """Launches of every kernel since `zero_launches`."""
-    return {name: getattr(fn, counter) for name, (fn, counter) in wrappers().items()}
+    """Launches of every kernel, and the mode counters, since `zero_launches`."""
+    return {name: getattr(fn, counter) for name, (fn, counter) in {**wrappers(), **mode_counters()}.items()}
+
+
+def expected(path: str):
+    """What one run of `path` launches: its kernels and its mode counters."""
+    return {**PATHS[path], **MODES.get(path, {})}
 
 
 def check_launches(launches, per_run, times: int, path: str):
@@ -696,15 +787,34 @@ def dyp_slack(y, dout, scale, bias, mean, var, w, pool, eps, keep=1.0):
                                                  + 2 * sum_slack(C, max(dh_max, xn_max), w_max))
 
 
-def flagship_frontend(device, cfg=None):
-    """The frontend of `cfg` (the flagship Config() by default) on `device`."""
+def flagship_frontend(device, cfg=None, onedot=None):
+    """The frontend of `cfg` (the flagship Config() by default) on `device`
+    (K1's onedot variant with `onedot`; the module constant when None)."""
     from dcase2019_task4_tpu_torch.config import Config
     from dcase2019_task4_tpu_torch.ops.mel import MelFrontend
 
     d = (cfg or Config()).dsp
     return MelFrontend(sample_rate=d.sample_rate, n_window=d.n_window, hop_length=d.hop_length,
                        n_mels=d.n_mels, f_min=d.f_min, f_max=d.f_max, max_frames=d.max_frames,
-                       amin=d.amin, top_db=d.top_db, device=device)
+                       amin=d.amin, top_db=d.top_db, device=device, onedot=onedot)
+
+
+@contextlib.contextmanager
+def knobs(on: bool = True, onedot: Optional[bool] = None):
+    """The JAX package's three A/B knobs (DCASE_FUSED_MEL_ONEDOT,
+    DCASE_FUSED_BWD_RECOMPUTE, DCASE_DROPOUT_PACK) set to `on` inside, as
+    the variables set them at import: the port's module constants, which a
+    frontend reads when it is built and the fused Functions at their
+    forward. `onedot` sets K1's knob apart (predict has no other)."""
+    from dcase2019_task4_tpu_torch.ops import fused_block, fused_mel
+
+    saved = fused_mel.ONEDOT, fused_block.RECOMPUTE_FIXUP, fused_block.PACK_BITS
+    fused_mel.ONEDOT = on if onedot is None else onedot
+    fused_block.RECOMPUTE_FIXUP = fused_block.PACK_BITS = on
+    try:
+        yield
+    finally:
+        fused_mel.ONEDOT, fused_block.RECOMPUTE_FIXUP, fused_block.PACK_BITS = saved
 
 
 def phase_kernels(device):
@@ -895,6 +1005,7 @@ def phase_kernels(device):
     flagship = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"))
     bf16_block_kernels(device, rows, rng, flagship, "_flagship")
     entry_bf16_kernels(device, rows, rng)
+    helpers += knob_kernels(device, rows, rng)
     return rows, helpers
 
 
@@ -1116,6 +1227,209 @@ def entry_kernels(device, rows, rng):
     return [{"name": "dropout_mask", "route": "cuda", "source": CSRC + "entry_block.cu",
              "replaces": "tests/test_fused_block.py:189", "launches": None, "max_abs_err": mask_err, "ms": mask_ms,
              "device_ms": mask_device_ms, "plain_ms": plain_ms, "bound_ms": mask_bound, "bound_by": "bytes", "library_ms": None}]
+
+
+def knob_kernels(device, rows, rng):
+    """Phase 3 for the JAX package's three A/B knobs at the flagship shapes,
+    in the modes the knobs path runs (dropout at the model's rate, the
+    packed draw): K1 through the cos‖sin basis (against its plain version
+    and a float64 DFT, timed beside one cuBLAS SGEMM of the same product),
+    K2f with the packed draw, K2b's first pass without dy_partial and the
+    recompute fixup at the three block geometries (the autograd Function
+    with the fixup mode on against itself with it off), K5f and K5b1 with
+    the packed draw at the block-1 shape, and the packed keep-mask kernel
+    bit for bit with its keep share. Returns the helper's reading."""
+    import torch
+
+    from dcase2019_task4_tpu_torch.config import Config
+    from dcase2019_task4_tpu_torch.ops import entry_conv as ec
+    from dcase2019_task4_tpu_torch.ops import fused_block as fb
+    from dcase2019_task4_tpu_torch.ops import fused_entry_block as fe
+    from dcase2019_task4_tpu_torch.ops import fused_mel
+
+    cfg = Config()
+    d, m = cfg.dsp, cfg.model
+    B, eps, rate = cfg.train.batch_size, m.bn_eps, m.dropout
+    keep = 1.0 - rate
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    # K1 onedot at the shape the frontend hands it
+    front = flagship_frontend(device, onedot=True)
+    ob = front.onedot_bases()
+    kw = dict(n_fft=d.n_window, hop=d.hop_length, T=d.max_frames)
+    nb, M = front.mel_fb.shape
+    audio = (0.1 * rng.standard_normal((B, d.max_samples + d.n_window))).astype(np.float32)
+
+    def frames_of(chunks):  # [B, T, n_fft] views of the hop rows
+        return chunks.reshape(B, -1).unfold(1, d.n_window, d.hop_length)[:, : d.max_frames]
+
+    for dtype in ("float32", "int16"):
+        a = torch.as_tensor(audio, device=device)
+        if dtype == "int16":
+            a = torch.clamp(torch.round(a * 32768.0), -32768, 32767).to(torch.int16)
+        chunks = front._hop_chunks(a)
+        x64 = fused_mel._dequantize(chunks).double()
+        spec64 = torch.fft.rfft(frames_of(x64) * front.window.double(), dim=-1)[..., :nb].abs()
+        exact = spec64 @ front.mel_fb.double()
+        del x64, spec64
+        errs = [(fn(chunks, ob, **kw).double() - exact).abs().max().item()
+                for fn in (fused_mel.fused_stft_mel_onedot, fused_mel.fused_stft_mel_onedot_reference)]
+        scale = exact.abs().max().item()
+        print(f"  K1 onedot {dtype} against a float64 DFT: kernel {errs[0]:.3e}, plain float32 version {errs[1]:.3e} "
+              f"({errs[0] / scale:.2e} and {errs[1] / scale:.2e} of max; limit 1e-5 of max)")
+        if not errs[0] <= 1e-5 * scale:
+            raise AssertionError(f"K1 onedot {dtype}: error {errs[0]} against float64 exceeds 1e-5 of max {scale}")
+        del exact
+        library_fn = None
+        if dtype == "float32":
+            raw = frames_of(chunks).contiguous()  # the frames, made outside the timed call
+            library_fn = lambda: torch.matmul(raw, ob.dft)  # noqa: E731 — one cuBLAS SGEMM of the product
+        res = compare(f"K1 fused_stft_mel_onedot {dtype} {list(chunks.shape)} (library: one SGEMM "
+                      f"[{B}, {d.max_frames}, {d.n_window}] @ {list(ob.dft.shape)}, the product alone)",
+                      lambda: fused_mel.fused_stft_mel_onedot(chunks, ob, **kw),
+                      lambda: fused_mel.fused_stft_mel_onedot_reference(chunks, ob, **kw),
+                      rtol_of_max=1e-5, library_fn=library_fn)
+        # what the function needs: the product, the magnitudes, the mel product;
+        # the audio in its own dtype, the basis, the mel matrix and the mel out
+        n_frames = B * d.max_frames
+        n_ops = n_frames * (2.0 * d.n_window * 2 * nb + 4 * nb + 2.0 * nb * M)
+        n_bytes = chunks.numel() * chunks.element_size() + (ob.dft.numel() + ob.mel_fb.numel() + n_frames * M) * 4
+        bound, by = bound_ms(n_bytes, n_ops)
+        print(f"  K1 onedot {dtype} bound: {n_ops / 1e9:.3f} GFLOP, {n_bytes / 1e6:.1f} MB -> {bound:.4f} ms by {by}")
+        if dtype == "float32":
+            rows["fused_stft_mel_onedot"].add(chunks.shape, res, n_bytes, n_ops)
+            del raw
+        else:
+            rows["fused_stft_mel_onedot"].note_err(res)
+    del front, ob
+
+    # K2 at the three block geometries with the packed draw; K2b without dy_partial
+    C = m.nb_filters[1]
+    pool = tuple(m.pooling[0])
+    seed = torch.tensor([20190416], dtype=torch.int64)
+    packed = dict(rate=rate, seed=seed, pack_bits=True)
+    for T, Fq in ((d.max_frames, d.n_mels), (d.max_frames // 2, d.n_mels // 4), (d.max_frames // 4, d.n_mels // 16)):
+        y = t(rng.standard_normal((B, T, Fq, C)))
+        scale, bias = t(1 + 0.1 * rng.standard_normal(C)), t(0.1 * rng.standard_normal(C))
+        w, gb = t(rng.standard_normal((C, C)) / np.sqrt(C)), t(0.1 * rng.standard_normal(C))
+        dout = t(rng.standard_normal((B, T // pool[0], Fq // pool[1], C)))
+        shape, pixels = list(y.shape), B * T * Fq
+        y_bytes, out_bytes, small = y.numel() * 4, dout.numel() * 4, (C * C + 5 * C) * 4
+        mix_ops = 2.0 * pixels * C * C
+        s, sq = fb.batch_stats(y)
+        mean = s / pixels
+        var = sq / pixels - mean * mean
+        vecs = (scale, bias, mean, var, w, gb)
+        mask = fb.dropout_keep_mask(seed, y.shape, rate, device=device, pack_bits=True)
+
+        res = compare(f"K2f fused_bn_glu_pool train, packed draw, rate {rate} {shape}",
+                      lambda: fb.fused_bn_glu_pool(y, *vecs, pool, eps, **packed),
+                      lambda: fb.reference_block(y, *vecs, pool, eps, mask, keep), atol=1e-5)
+        rows["fused_bn_glu_pool_train_packed"].add(shape, res, y_bytes + out_bytes + small, mix_ops + 14.0 * y.numel())
+        unit = (torch.ones(C, device=device), torch.zeros(C, device=device), torch.zeros(C, device=device),
+                torch.ones(C, device=device), torch.zeros(C, C, device=device), torch.ones(C, device=device))
+        pooled = fb.fused_bn_glu_pool(torch.zeros_like(y), *unit, pool, eps, **packed)
+        kept = pooled.double().sum().item() * pool[0] * pool[1] * 2.0 * keep
+        n_kept = int(mask.sum(dtype=torch.float64).item())
+        if round(kept) != n_kept:
+            raise AssertionError(f"K2f packed {shape}: kernel kept {kept} elements, dropout_keep_mask {n_kept}")
+        print(f"  K2f packed {shape}: kept {n_kept} of {mask.numel()} elements, as dropout_keep_mask(pack_bits=True)")
+        del pooled
+
+        # up to dxn 9 per element (x̂ 2, xn 2, σ 4, lin + b 1) + 8 (the pass
+        # table of entry_kernels); the first pass's sums 3 more, the fixup's dy 5
+        res = compare(f"K2b bwd_reduce without dy_partial, packed draw {shape} (dw, db, S1, S2)",
+                      lambda: fb.bwd_reduce(y, dout, *vecs, pool, eps, recompute=True, **packed)[1:],
+                      lambda: fb.bwd_reduce_reference(y, dout, *vecs, pool, eps, mask, keep)[1:],
+                      rtol_of_max=1e-4, repeat=True)
+        rows["bwd_reduce_nodyp"].add(shape, res, y_bytes + out_bytes + 2 * small, 3 * mix_ops + 20.0 * y.numel())
+        _, _, _, s1, s2 = fb.bwd_reduce(y, dout, *vecs, pool, eps, recompute=True, **packed)
+        a, b2 = fb.bwd_coefficients(scale, var, eps, s1, s2, pixels)
+        res = compare(f"K2b bwd_fixup_recompute, packed draw {shape}",
+                      lambda: fb.bwd_fixup_recompute(y, dout, *vecs, a, b2, pool, eps, **packed),
+                      lambda: fb.bwd_fixup_recompute_reference(y, dout, *vecs, a, b2, pool, eps, mask, keep),
+                      rtol_of_max=1e-4, repeat=True)
+        rows["bwd_fixup_recompute"].add(shape, res, 2 * y_bytes + out_bytes + small + 2 * C * 4,
+                                        2 * mix_ops + 22.0 * y.numel())
+
+        def function_grads(recompute):
+            leaves = [v.clone().requires_grad_(True) for v in (y, scale, bias, w, gb)]
+            fb.fused_bn_glu_dropout_pool(leaves[0], leaves[1], leaves[2], mean, var, leaves[3], leaves[4], seed,
+                                         rate, pool, eps, True, pack_bits=True, recompute=recompute).backward(dout)
+            return [v.grad for v in leaves]
+
+        on, off = function_grads(True), function_grads(False)
+        err, limit = (on[0] - off[0]).abs().max().item(), 1e-6 * off[0].abs().max().item()
+        if not err <= limit or not all(torch.equal(p, q) for p, q in zip(on[1:], off[1:])):
+            raise AssertionError(f"K2b Function {shape}: the recompute fixup's dy differs from the stored one's by "
+                                 f"{err} (limit {limit}), or another gradient differs")
+        print(f"  K2b Function {shape}: dy with the recompute fixup within {err:.3e} of the stored fixup's (limit "
+              f"{limit:.3e}); dscale, dbias, dw, db bit for bit")
+        del y, dout, mask, on, off
+        torch.cuda.empty_cache()
+
+    # K5f and K5b1 with the packed draw at the block-1 shape
+    T, Fq, C = d.max_frames, d.n_mels, m.nb_filters[0]
+    x = t(rng.standard_normal((B, T, Fq)))
+    lim = np.sqrt(2.0) * np.sqrt(6.0 / (9 * (1 + C)))
+    conv = {"w": t(rng.uniform(-lim, lim, (3, 3, 1, C))), "b": t(0.1 * rng.standard_normal(C))}
+    scale, bias = t(1 + 0.1 * rng.standard_normal(C)), t(0.1 * rng.standard_normal(C))
+    gw, gb = t(rng.standard_normal((C, C)) / np.sqrt(C)), t(0.1 * rng.standard_normal(C))
+    dout = t(rng.standard_normal((B, T // pool[0], Fq // pool[1], C)))
+    pixels = B * T * Fq
+    shape = [B, T, Fq, C]
+    s, sq = fe.entry_block_stats_apply(conv, x)
+    mean = s / pixels
+    var = sq / pixels - mean * mean
+    block = (conv["w"], conv["b"], scale, bias, mean, var, gw, gb)
+    x_bytes, out_bytes, small = x.numel() * 4, dout.numel() * 4, (10 * C + C * C + 5 * C) * 4
+    conv_ops, mix_ops, elements = 2.0 * 9 * pixels * C, 2.0 * pixels * C * C, float(pixels * C)
+    mask = fb.dropout_keep_mask(seed, shape, rate, device=device, pack_bits=True)
+    res = compare(f"K5f entry_block_fwd train, packed draw, rate {rate} {shape}",
+                  lambda: fe.entry_block_fwd(x, *block, pool, eps, **packed),
+                  lambda: fe.reference_entry_block(x, *block, pool, eps, mask, keep), atol=1e-5)
+    rows["entry_block_fwd_train_packed"].add(shape, res, x_bytes + out_bytes + small,
+                                             conv_ops + mix_ops + 14.0 * elements)  # entry_kernels' counts
+    fused = fe.entry_block_fwd(x, *block, pool, eps, **packed)
+    pair = fb.fused_bn_glu_pool(ec.entry_conv_reference(conv, x)[0], scale, bias, mean, var, gw, gb, pool, eps,
+                                **packed)
+    err = (fused - pair).abs().max().item()
+    if not err <= 1e-5:
+        raise AssertionError(f"K5f packed against F.conv2d -> K2f packed with the same seed: {err} exceeds 1e-5")
+    print(f"  K5f packed equals F.conv2d -> K2f packed with the same seed within {err:.3e} (limit 1e-5)")
+    del fused, pair
+    res = compare(f"K5b1 entry_block_bwd_reduce, packed draw, rate {rate} {shape} (d glu_w, d glu_b, S1, S2)",
+                  lambda: fe.entry_block_bwd_reduce(x, dout, *block, pool, eps, **packed),
+                  lambda: fe.entry_block_bwd_reduce_reference(x, dout, *block, pool, eps, mask, keep),
+                  rtol_of_max=1e-4, repeat=True)
+    rows["entry_block_bwd_reduce_packed"].add(shape, res, x_bytes + out_bytes + 2 * small,
+                                              conv_ops + 3 * mix_ops + 22.0 * elements)
+
+    # the packed keep-mask kernel (a test helper): bit for bit, and its keep share
+    got = fb.dropout_mask(seed, shape, rate, device, pack_bits=True)
+    if not torch.equal(got, mask):
+        raise AssertionError("dropout_mask kernel (packed draw) differs from dropout_keep_mask(pack_bits=True)")
+    n = got.numel()
+    p_keep = 1.0 - fb.dropout_threshold(rate, True) / 256.0
+    share = got.double().mean().item()
+    if not abs(share - p_keep) < 5.0 * np.sqrt(p_keep * (1 - p_keep) / n):
+        raise AssertionError(f"packed keep share {share} is not within 5 sigma of {p_keep}")
+    mask_ms = time_ms(lambda: fb.dropout_mask(seed, shape, rate, device, pack_bits=True))
+    mask_device_ms = device_ms(lambda: fb.dropout_mask(seed, shape, rate, device, pack_bits=True))
+    plain_ms = time_ms(lambda: fb.dropout_keep_mask(seed, shape, rate, device=device, pack_bits=True), warmup=1,
+                       runs=3)
+    mask_bound, _ = bound_ms(n * 4, 0.0)
+    print(f"  dropout_mask packed {shape}: bit-equal to dropout_keep_mask(pack_bits=True); keep share {share:.6f} "
+          f"(1 - t8/256 = {p_keep:.6f}); kernel {mask_ms:.4f} ms ({shown(mask_device_ms)} ms of it on the device), "
+          f"plain {plain_ms:.4f} ms, bound {mask_bound:.4f} ms (bytes)")
+    del got, mask, x, dout
+    torch.cuda.empty_cache()
+    return [{"name": "dropout_mask_packed", "route": "cuda", "source": CSRC + "entry_block.cu",
+             "replaces": "tests/test_fused_block.py:227", "launches": None, "max_abs_err": 0.0, "ms": mask_ms,
+             "device_ms": mask_device_ms, "plain_ms": plain_ms, "bound_ms": mask_bound, "bound_by": "bytes",
+             "library_ms": None, "keep_share": share}]
 
 
 def entry_pool_slack(y, scale, bias, mean, var, w, b, pool, eps, mask=None, keep=1.0, layout="planes"):
@@ -1348,6 +1662,36 @@ def entry_bf16_kernels(device, rows, rng):
     torch.cuda.empty_cache()
 
 
+def cold_fixup_device_ms(y, dyp, a, b2, mean, shape, l2_bytes: float = 50e6) -> Optional[float]:
+    """Device time of K2b's fixup with its inputs out of the L2: the call
+    walks in turn through copies of (y, dy_partial) that hold together more
+    than twice the 50 MB L2, so each traced call reads tensors that the
+    calls before it have evicted. The fixup writes over its dy_partial; the
+    values drift from call to call, the bytes moved do not."""
+    import torch
+
+    from dcase2019_task4_tpu_torch.ops import fused_block as fb
+
+    per_set = 2 * y.numel() * y.element_size()
+    n_sets = max(2, int(np.ceil(2 * l2_bytes / per_set)) + 1)
+    sets = [(y.clone(), dyp.clone()) for _ in range(n_sets)]
+    turn = [0]
+
+    def next_call():
+        yk, dk = sets[turn[0] % n_sets]
+        turn[0] += 1
+        fb.bwd_fixup(yk, dk, a, b2, mean)
+
+    for _ in range(n_sets):  # one pass through every set before the traces
+        next_call()
+    on_device = device_ms(next_call, only="bn_bwd_fixup_kernel")
+    print(f"  K2b bwd_fixup bf16 {shape}: {shown(on_device)} ms on the device with the inputs out of the L2 "
+          f"({n_sets} sets of {per_set / 1e6:.1f} MB in turn)")
+    del sets
+    torch.cuda.empty_cache()
+    return on_device
+
+
 def bf16_block_kernels(device, rows, rng, cfg, suffix: str = ""):
     """Phase 3 for the bfloat16 modes of K3 and K2 at a configuration's
     shapes, rows named with `suffix`: the scaled configuration's (K3 at
@@ -1478,8 +1822,32 @@ def bf16_block_kernels(device, rows, rng, cfg, suffix: str = ""):
                       repeat=True, device_only="bn_bwd_fixup_kernel")
         clone_ms = time_ms(lambda: dyp.clone())
         res = res._replace(ms=max(res.ms - clone_ms, 0.0), plain_ms=max(res.plain_ms - clone_ms, 0.0))
+        if suffix:  # the tensors of the smaller blocks sit in the 50 MB L2: read it cold
+            res = res._replace(device_ms=cold_fixup_device_ms(y, dyp, a, b2, mean, shape))
         rows["bwd_fixup_bf16" + suffix].add(shape, res, 3 * y_bytes, 3.0 * y.numel())
         print(f"  K2b bwd_fixup bf16 {shape}: clone of dy_partial {clone_ms:.4f} ms taken off both times")
+
+        # the recompute fixup (DCASE_FUSED_BWD_RECOMPUTE) with the packed draw, as
+        # the knobs paths run it: dy rounded once, from a and b2 of the first
+        # pass without dy_partial
+        packed = dict(rate=rate, seed=seed, pack_bits=True)
+        pmask = fb.dropout_keep_mask(seed, y.shape, rate, device=device, pack_bits=True)
+        _, _, _, r1, r2 = fb.bwd_reduce(y, dout, scale, bias, mean, var, w, gb, pool, eps, recompute=True, **packed)
+        ra, rb = fb.bwd_coefficients(scale, var, eps, r1, r2, pixels)
+        rec_ref = fb.bwd_fixup_recompute_reference(y, dout, scale, bias, mean, var, w, gb, ra, rb, pool, eps, pmask,
+                                                   1.0 - rate)
+        rec_slack = (dyp_slack(y, dout, scale, bias, mean, var, w, pool, eps, 1.0 - rate)
+                     + 4 * EPS32 * (rec_ref.float().abs().max().item() + ra.abs().max().item()
+                                    + (y.float() - mean).abs().max().item() * rb.abs().max().item()))
+        res = compare(f"K2b bwd_fixup_recompute bf16, packed draw {shape} pool {pool}",
+                      lambda: fb.bwd_fixup_recompute(y, dout, scale, bias, mean, var, w, gb, ra, rb, pool, eps,
+                                                     **packed),
+                      lambda: fb.bwd_fixup_recompute_reference(y, dout, scale, bias, mean, var, w, gb, ra, rb, pool,
+                                                               eps, pmask, 1.0 - rate),
+                      tols=[("ulp", rec_slack)], repeat=True)
+        rows["bwd_fixup_recompute_bf16" + suffix].add(shape, res, 2 * y_bytes + out_bytes + small + 2 * C * 4,
+                                                      22.0 * y.numel(), 2 * mix_ops)
+        del pmask, rec_ref
 
         # the whole backward through the autograd Function against the formulas
         leaves = [v.clone().requires_grad_(True) for v in (y, scale, bias, w, gb)]
@@ -1597,9 +1965,9 @@ def read_tsv(path):
         return list(csv.DictReader(f, delimiter="\t"))
 
 
-def print_device_time(what: str, fn, card: str):
+def print_device_time(what: str, fn, card: str, k1: str = "fused_stft_mel_kernel"):
     """Prints what the card spends on one call of `fn` (torch.profiler: every
-    kernel and copy) and K1's part of it."""
+    kernel and copy) and K1's part of it (kernels whose name holds `k1`)."""
     from torch.autograd import DeviceType
 
     prof = profiled(fn)
@@ -1607,7 +1975,7 @@ def print_device_time(what: str, fn, card: str):
         print(f"  device time of {what}: not measured")
         return
     events = [(e.name, event_us(e)) for e in prof.events() if e.device_type == DeviceType.CUDA]
-    k1 = sum(us for name, us in events if "fused_stft_mel_kernel" in name) / 1e3
+    k1 = sum(us for name, us in events if k1 in name) / 1e3
     print(f"  device time of {what}: {sum(us for _, us in events) / 1e3:.3f} ms in {len(events)} kernels and "
           f"copies, K1 {k1:.3f} ms of it, on {card}")
 
@@ -1679,8 +2047,33 @@ def phase_predict(device, card: str):
         launches_scaled = predict_bf16(model_scaled, wav_dir, work, card, "scaled", PREDICT_SCALED)
         launches_bf16 = predict_bf16(model_bf16, wav_dir, work, card, "flagship bfloat16 entry_block_pallas",
                                      PREDICT_BF16_ENTRY_BLOCK)
+
+        # the default checkpoint (stored without the knob) with K1's onedot knob on
+        argv = ["-m", model, "-i", wav_dir, "-p", out, "--weak_fname", tags]
+        with knobs(False, onedot=True):
+            zero_launches()
+            res = cli.predict(argv + ["--device", "cuda"])
+            torch.cuda.synchronize()
+            launches_onedot = read_launches()
+            print(f"  launches during predict with DCASE_FUSED_MEL_ONEDOT on: {launches_onedot}")
+            check_launches(launches_onedot, PREDICT_ONEDOT, 1, "the predict run with K1's onedot variant")
+            if res["strong"].shape != strong.shape or not np.isfinite(res["strong"]).all():
+                raise AssertionError(f"strong probabilities with onedot K1: shape {res['strong'].shape}")
+            t0 = time.perf_counter()
+            cli.predict(argv + ["--device", "cuda"])
+            torch.cuda.synchronize()
+            print(f"  warm CUDA predict with onedot K1: {N_CLIPS / (time.perf_counter() - t0):.2f} clips/s "
+                  f"({clips_per_s:.2f} with the FFT K1) on {card}")
+            print_device_time("one warm predict call with onedot K1", lambda: cli.predict(argv + ["--device", "cuda"]),
+                              card, k1="fused_stft_mel_onedot_kernel")
+            cpu_onedot = cli.predict(argv + ["--device", "cpu"])
+        for what, other in (("its own CPU run", cpu_onedot["strong"]), ("the FFT K1 on the card", strong)):
+            diff = float(np.abs(res["strong"] - other).max())
+            print(f"  onedot K1 vs {what}: strong max abs diff {diff:.3e} (limit {STRONG_TOL})")
+            if not diff <= STRONG_TOL:
+                raise AssertionError(f"strong probabilities with onedot K1 differ from {what} by {diff}")
     return ({"predict": launches, "predict_entry_block": launches_entry, "predict_scaled": launches_scaled,
-             "predict_bf16_entry_block": launches_bf16}, clips_per_s)
+             "predict_bf16_entry_block": launches_bf16, "predict_onedot": launches_onedot}, clips_per_s)
 
 
 def predict_bf16(model: str, wav_dir: str, work: str, card: str, what: str, per_run):
@@ -1954,42 +2347,18 @@ def phase_train_bf16(device, card: str, cfg, what: str, path: str, n_steps: int,
     → ({path: launches}, ms per step, step-1 loss, block 1's device ms)."""
     import torch
 
-    from dcase2019_task4_tpu_torch.train import steps
-    from dcase2019_task4_tpu_torch.utils.scaler import Scaler
-
     tr = cfg.train
-    sa = dict(time_masks=tr.sa_time_masks, max_time_width=tr.sa_max_time_width, freq_masks=tr.sa_freq_masks,
-              max_freq_width=tr.sa_max_freq_width) if tr.spec_augment else None
-    layout = (tr.batch_size // 4, tr.batch_size // 2, tr.batch_size // 4)
-    audio, frames, target = train_batch(cfg, *layout)
-    mean, std = Scaler().load_state_dict(fit_scaler(flagship_frontend(device, cfg), audio, frames, device)).mean_std_f32
-
-    def adam(params):
-        return torch.optim.Adam(params, lr=tr.lr, betas=(tr.beta1, tr.beta2), eps=tr.adam_eps)
-
-    def build(dev, n_weak, n_unlabel, n_strong, packed):
-        step = steps.make_train_step(
-            slice(0, n_weak), slice(n_weak + n_unlabel, n_weak + n_unlabel + n_strong), mean_teacher=True,
-            rampup_length=10, max_consistency_cost=tr.max_consistency_cost, ema_alpha=tr.ema_alpha,
-            frontend=flagship_frontend(dev, cfg), scaler_mean=mean, scaler_std=std, noise_std=tr.noise_std,
-            spec_augment_cfg=sa)
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in zip(("audio", "frames", "target"), packed)}
-        return step, batch
-
-    def on(dev, base):
-        st = steps.TrainState(copy.deepcopy(base.student).to(dev), copy.deepcopy(base.teacher).to(dev), None)
-        st.optimizer = adam(st.student.parameters())
-        return st
+    packed, scaler = step_data(cfg, device)
 
     # step 1 at a batch of 4, card against CPU, one state and one CPU generator
-    base = steps.init_train_state(cfg.model, adam, torch.Generator().manual_seed(SEED))
     small = train_batch(cfg, 1, 2, 1)
     results = []
     for dev in (device, torch.device("cpu")):
-        step, batch = build(dev, 1, 2, 1, small)
+        step, batch = built_step(cfg, dev, small, scaler, 1, 2)
         zero_launches()
         t0 = time.perf_counter()
-        st, metrics, _ = step(on(dev, base), batch, torch.Generator().manual_seed(SEED + 2), step.zero_metrics(dev))
+        st, metrics, _ = step(seeded_state(cfg, dev), batch, torch.Generator().manual_seed(SEED + 2),
+                              step.zero_metrics(dev))
         if dev.type == "cuda":
             torch.cuda.synchronize()
             check_launches(read_launches(), PATHS[path], 1, f"{what} step 1 at batch 4")
@@ -2021,8 +2390,8 @@ def phase_train_bf16(device, card: str, cfg, what: str, path: str, n_steps: int,
           f"largest), worst gauge leaf at {worst_gauge:.2f} of its ({SCALED_GAUGE_FLOOR} of the largest)")
 
     # n_steps at the full batch with the generator on the card
-    step, batch = build(device, *layout, (audio, frames, target))
-    state = on(device, base)
+    step, batch = built_step(cfg, device, packed, scaler, tr.batch_size // 4, tr.batch_size // 2)
+    state = seeded_state(cfg, device)
     generator = torch.Generator(device=device).manual_seed(SEED + 3)
     acc = step.zero_metrics(device)
     history, step_ms = [], []
@@ -2079,6 +2448,187 @@ def phase_train_flagship_bf16(device, card: str):
               f"(default {shown(base_block1, 3)}), step-1 loss at batch 4 {loss:.6f}, {loss - base_loss:+.2e} from the "
               f"default's (information: the JAX package's engines differ in bfloat16 too) on {card}")
     return launches, summary[0][1]
+
+
+def step_data(cfg, device):
+    """The full training batch of `cfg` ([weak | unlabeled | synthetic] of
+    its batch size) and its scaler, fitted with the FFT K1 on that batch."""
+    from dcase2019_task4_tpu_torch.utils.scaler import Scaler
+
+    tr = cfg.train
+    audio, frames, target = train_batch(cfg, tr.batch_size // 4, tr.batch_size // 2, tr.batch_size // 4)
+    mean, std = Scaler().load_state_dict(
+        fit_scaler(flagship_frontend(device, cfg, onedot=False), audio, frames, device)).mean_std_f32
+    return (audio, frames, target), (mean, std)
+
+
+def built_step(cfg, dev, packed, scaler, n_weak: int, n_unlabel: int):
+    """`make_train_step` for `cfg` on `dev` (SpecAugment where `cfg` has it),
+    its frontend built now (so K1's knob as it is now), and the batch."""
+    import torch
+
+    from dcase2019_task4_tpu_torch.train import steps
+
+    tr = cfg.train
+    sa = dict(time_masks=tr.sa_time_masks, max_time_width=tr.sa_max_time_width, freq_masks=tr.sa_freq_masks,
+              max_freq_width=tr.sa_max_freq_width) if tr.spec_augment else None
+    n = len(packed[1])
+    step = steps.make_train_step(
+        slice(0, n_weak), slice(n_weak + n_unlabel, n), mean_teacher=True, rampup_length=10,
+        max_consistency_cost=tr.max_consistency_cost, ema_alpha=tr.ema_alpha, frontend=flagship_frontend(dev, cfg),
+        scaler_mean=scaler[0], scaler_std=scaler[1], noise_std=tr.noise_std, spec_augment_cfg=sa)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in zip(("audio", "frames", "target"), packed)}
+    return step, batch
+
+
+def seeded_state(cfg, dev):
+    """The seeded TrainState of `cfg` on `dev` with a fresh Adam."""
+    import torch
+
+    from dcase2019_task4_tpu_torch.train import steps
+
+    tr = cfg.train
+
+    def adam(params):
+        return torch.optim.Adam(params, lr=tr.lr, betas=(tr.beta1, tr.beta2), eps=tr.adam_eps)
+
+    base = steps.init_train_state(cfg.model, adam, torch.Generator().manual_seed(SEED))
+    st = steps.TrainState(copy.deepcopy(base.student).to(dev), copy.deepcopy(base.teacher).to(dev), None)
+    st.optimizer = adam(st.student.parameters())
+    return st
+
+
+def step_device_ms(step, state, batch, generator, acc) -> Optional[float]:
+    """What the card spends on one step: torch.profiler's sum over every
+    kernel and copy of one traced step that holds K1 (`holds_k1`), opened
+    by an uncounted spin kernel; None when no trace held it."""
+    import torch
+    from torch.autograd import DeviceType
+
+    def spin_then_step():
+        torch.cuda._sleep(20000)
+        torch.cuda.synchronize()
+        step(state, batch, generator, acc)
+
+    prof = profiled(spin_then_step, with_host=True, complete=holds_k1)
+    if prof is None:
+        return None
+    return sum(event_us(e) for e in prof.events()
+               if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name) / 1e3
+
+
+def knob_card_steps(device, cfg, path: str, n_steps: int, on: bool, data):
+    """`n_steps` MT steps of `cfg` at its full batch on the card with the
+    generator on the card, the three knobs `on` (or off): launches per step
+    exact (PATHS[path]), ms per step, peak memory and one traced step's
+    device time. → (launches, ms per step, peak MiB, device ms, state, step,
+    batch, generator, acc)."""
+    import torch
+
+    tr = cfg.train
+    packed, scaler = data
+    with knobs(on):
+        step, batch = built_step(cfg, device, packed, scaler, tr.batch_size // 4, tr.batch_size // 2)
+        state = seeded_state(cfg, device)
+        generator = torch.Generator(device=device).manual_seed(SEED + 3)
+        acc = step.zero_metrics(device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        ms = []
+        for _ in range(n_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics, acc = step(state, batch, generator, acc)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        launches = read_launches()
+        check_launches(launches, expected(path), n_steps, f"{n_steps} steps of {path}")
+        if not all(np.isfinite(v.item()) for v in metrics.values()):
+            raise AssertionError(f"a training metric of {path} is not finite")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        on_device = step_device_ms(step, state, batch, generator, acc)
+    return launches, ms, peak, on_device, (step, state, batch, generator, acc)
+
+
+def phase_train_knobs(device, card: str):
+    """The knobs path: the flagship float32 MT step with the three knobs on.
+    Step 1 at a batch of 4 [1|2|1] on the card against the CPU with the same
+    knobs (loss and metrics 1e-4, gradient leaves 1e-4 of their max, the
+    gauge leaves with their floor); then at batch 24 with the generator on
+    the card, in turns with the default (default, knobs, knobs, default;
+    three steps each, launches per step exact in each): ms per step, the
+    device time of one traced step and peak memory beside the default's,
+    and a profile of one knobs step. Then two steps each, launches exact, of
+    the same knobs under `entry_block_pallas` (K5 with the packed draw), and
+    of the scaled configuration and the flagship in bfloat16 (the bfloat16
+    recompute fixup). → {path: launches}."""
+    import torch
+
+    from dcase2019_task4_tpu_torch.config import Config, scaled_config
+
+    cfg = Config()
+    data = step_data(cfg, device)
+    small = train_batch(cfg, 1, 2, 1)
+    results = []
+    with knobs(True):
+        for dev in (device, torch.device("cpu")):
+            step, batch = built_step(cfg, dev, small, data[1], 1, 2)
+            zero_launches()
+            t0 = time.perf_counter()
+            st, metrics, _ = step(seeded_state(cfg, dev), batch, torch.Generator().manual_seed(SEED + 2),
+                                  step.zero_metrics(dev))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+                check_launches(read_launches(), expected("step_knobs"), 1, "the knobs step 1 at batch 4")
+            results.append((metrics, [p.grad.detach().cpu().clone() for p in st.student.parameters()]))
+            print(f"  knobs step 1, batch 4 [1|2|1], on {dev.type}: {time.perf_counter() - t0:.1f} s, "
+                  + ", ".join(f"{k} {v.item():.5f}" for k, v in metrics.items()))
+    (m_gpu, g_gpu), (m_cpu, g_cpu) = results
+    compare_metrics(1, {k: v.item() for k, v in m_gpu.items()}, m_cpu)
+    names = [n for n, _ in st.student.named_parameters()]
+    worst, worst_gauge = compare_step1_gradients(names, g_cpu, g_gpu, "the three knobs on, CUDA against CPU")
+    print(f"  knobs step 1, CUDA vs CPU: loss {m_gpu['loss'].item():.6f} vs {m_cpu['loss'].item():.6f} (limit "
+          f"{TRAIN_TOL}); worst gradient leaf at {worst:.2f} of its limit, worst gauge leaf at {worst_gauge:.2f}")
+
+    # batch 24, in turns with the default
+    all_launches, summary = {}, {"step": [], "step_knobs": []}
+    for path, on in (("step", False), ("step_knobs", True), ("step_knobs", True), ("step", False)):
+        launches, ms, peak, on_device, run = knob_card_steps(device, cfg, path, 3, on, data)
+        all_launches.setdefault(path, launches)
+        summary[path].append((ms, peak, on_device))
+        print(f"  {path}: ms per step {', '.join(f'{v:.2f}' for v in ms)}; one step's device time "
+              f"{shown(on_device, 3)} ms; peak device memory {peak:.0f} MiB; launches per step exact")
+        if on and len(summary[path]) == 1:
+            with knobs(True):
+                profile_step(*run, card, float(np.median(ms[1:])),
+                             noise_shape=(cfg.train.batch_size, cfg.dsp.max_frames, cfg.dsp.n_mels))
+        del run
+        torch.cuda.empty_cache()
+
+    def med(path, i):  # over the two runs of a path: i = 0 ms per step (steps 2-3), 1 peak MiB, 2 device ms
+        vals = [float(np.median(r[0][1:])) if i == 0 else r[i] for r in summary[path]]
+        vals = [v for v in vals if v is not None]
+        return float(np.median(vals)) if vals else None
+
+    print(f"  MT step with the three knobs on: {med('step_knobs', 0):.3f} ms per step (default {med('step', 0):.3f}), "
+          f"device time {shown(med('step_knobs', 2), 3)} ms (default {shown(med('step', 2), 3)}), peak memory "
+          f"{med('step_knobs', 1):.0f} MiB (default {med('step', 1):.0f}); medians of two runs each, steps 2-3, "
+          f"in turns, on {card}")
+    all_launches["step_knobs_entry_block"] = knob_card_steps(
+        device, dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, entry_block_pallas=True)),
+        "step_knobs_entry_block", 2, True, data)[0]
+    print("  knobs under entry_block_pallas: 2 steps, launches per step exact (K5 with the packed draw)")
+    del all_launches["step"]  # the default path's launches are phase 5's own
+    for path, kcfg in (("step_knobs_scaled", scaled_config()),
+                       ("step_knobs_bf16", dataclasses.replace(cfg, model=dataclasses.replace(
+                           cfg.model, compute_dtype="bfloat16")))):
+        launches, ms, peak, on_device, _ = knob_card_steps(device, kcfg, path, 2, True, step_data(kcfg, device))
+        all_launches[path] = launches
+        print(f"  {path}: 2 steps, {', '.join(f'{v:.2f}' for v in ms)} ms, device time {shown(on_device, 3)} ms, "
+              f"peak {peak:.0f} MiB; launches per step exact (the bfloat16 recompute fixup, packed draw)")
+        torch.cuda.empty_cache()
+    return all_launches
 
 
 def compare_step1_gradients(names, want, got, what: str):
@@ -2171,6 +2721,15 @@ def block1_device_ms(step, state, batch, generator, acc, path: str, card: str) -
     return total
 
 
+def holds_k1(prof) -> bool:
+    """Whether a step's trace holds its first kernel, K1 (either variant):
+    traces of an H100 lost it in some runs and kept it in others, with and
+    without an opening spin kernel, so a trace without it is taken again."""
+    from torch.autograd import DeviceType
+
+    return any(e.device_type == DeviceType.CUDA and "fused_stft_mel" in e.name for e in prof.events())
+
+
 def profile_step(step, state, batch, generator, acc, card: str, step_ms: float, noise_shape):
     """torch.profiler over one warm step: device time by kernel (kernel
     events only: an operator's row repeats the time of the kernels it
@@ -2182,14 +2741,17 @@ def profile_step(step, state, batch, generator, acc, card: str, step_ms: float, 
     wall = []
 
     def timed_step():
+        torch.cuda._sleep(20000)  # opens the trace, uncounted, so that K1 is not its first kernel
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         step(state, batch, generator, acc)
         torch.cuda.synchronize()
         wall.append(1e3 * (time.perf_counter() - t0))
 
-    prof = profiled(timed_step, with_host=True)
+    prof = profiled(timed_step, with_host=True, complete=holds_k1)
     events = [] if prof is None else [e for e in prof.key_averages()
-                                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+                                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                                      and "spin_kernel" not in e.key]
     if not events:
         print(f"  profile of one warm step on {card}: not measured")
         return
@@ -2223,6 +2785,11 @@ def main() -> int:
     from dcase2019_task4_tpu_torch.ops import _build
 
     device = torch.device("cuda", 0)
+    from dcase2019_task4_tpu_torch.ops import fused_block, fused_mel
+
+    # the default paths run with the JAX package's knobs off, as with their
+    # variables unset; the knobs path turns them on itself
+    fused_mel.ONEDOT = fused_block.RECOMPUTE_FIXUP = fused_block.PACK_BITS = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -2244,9 +2811,8 @@ def main() -> int:
 
     print("== phase 3: kernels against their plain versions (float32 with TF32 off, then bfloat16)")
     rows, helpers = phase_kernels(device)
-    from dcase2019_task4_tpu_torch.ops import fused_block
-
     fused_block.dropout_mask.launches = 0  # a test helper: phases 4 and 5 may not launch it
+    fused_block.dropout_mask.launches_packed = 0
 
     print("== phase 4: predict through the CLI")
     launches, clips_per_s = phase_predict(device, card)
@@ -2263,6 +2829,8 @@ def main() -> int:
     print("== phase 5, the flagship in bfloat16 under the default first block and each first-block flag")
     bf16_launches, bf16_ms = phase_train_flagship_bf16(device, card)
     launches.update(bf16_launches)
+    print("== phase 5, the knobs path: DCASE_FUSED_MEL_ONEDOT, DCASE_FUSED_BWD_RECOMPUTE and DCASE_DROPOUT_PACK on")
+    launches.update(phase_train_knobs(device, card))
 
     report = []
     for name, (src, replaces) in KERNELS.items():
@@ -2280,9 +2848,10 @@ def main() -> int:
         })
         if name in SAME_KERNEL:
             report[-1]["same_kernel_as"] = SAME_KERNEL[name]
-    helpers[0]["launches"] = fused_block.dropout_mask.launches  # as counted over phases 4 and 5
-    if helpers[0]["launches"] != 0:
-        raise AssertionError(f"the keep-mask helper was launched {helpers[0]['launches']} times by a path")
+    for helper, counter in zip(helpers, ("launches", "launches_packed")):  # as counted over phases 4 and 5
+        helper["launches"] = getattr(fused_block.dropout_mask, counter)
+        if helper["launches"] != 0:
+            raise AssertionError(f"the keep-mask helper was launched {helper['launches']} times by a path")
     print(f"  predict clips/s (warm): {clips_per_s:.2f}; MT step {step_ms:.3f} ms; scaled MT step {scaled_ms:.3f} ms; "
           f"flagship bf16 MT step {bf16_ms:.3f} ms on {card}; whole script {time.perf_counter() - t_start:.0f} s")
     print(card)

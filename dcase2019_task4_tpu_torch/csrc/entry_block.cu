@@ -35,7 +35,8 @@
 //           dW[dt, df, c] += x[t + dt - 1, f + df - 1] * dy[c]; d cb += dy
 // Neither y nor dy ever reaches device memory in K5. The dropout mask is the
 // one of fused_block.cu (chain.cuh): Philox4x32-10 on (seed, global element
-// index of [B, T, F, C] / 4), regenerated in both backward passes.
+// index of [B, T, F, C] / 4), or / 16 in the packed 8-bit draw
+// (DCASE_DROPOUT_PACK), regenerated in both backward passes.
 //
 // Bound at the flagship shape (x [24, 864, 64], C = 64): K4f writes y (340 MB,
 // 0.10 ms at 3.35 TB/s) for 1.8 GFLOP: bytes. K4w reads dy: bytes. K5s moves
@@ -407,8 +408,7 @@ entry_block_fwd_kernel(const TX* __restrict__ x, const float* __restrict__ cw,
                        const float* __restrict__ var, const float* __restrict__ glu_w,
                        const float* __restrict__ glu_b, TX* __restrict__ out, int T, int F,
                        int C, int pt, int pf, float eps, int rows, int tiles_per_block,
-                       const long long* __restrict__ seed_ptr, uint32_t threshold,
-                       float keep_scale, int pool_elems) {
+                       Dropout dr, int pool_elems) {
   constexpr bool kLow = !std::is_same<TX, float>::value;
   extern __shared__ float smem[];
   const int CP = C + 1;
@@ -420,8 +420,7 @@ entry_block_fwd_kernel(const TX* __restrict__ x, const float* __restrict__ cw,
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
   const int FW = F + 2;
-  const bool drop = threshold != 0u;
-  const unsigned long long seed = drop ? (unsigned long long)seed_ptr[0] : 0ull;
+  const unsigned long long seed = seed_of(dr);
   for (int i = tid; i < C * C; i += kThreads) ws[i] = rounded<TX>(glu_w[i]);
   load_consts(k, scale, bias, mean, var, glu_b, cw, cb, C, eps);
 
@@ -468,9 +467,9 @@ entry_block_fwd_kernel(const TX* __restrict__ x, const float* __restrict__ cw,
         if (p < tpix && co < C) xs[p * CP + co] = g[i][j];
       }
     __syncthreads();
-    if (drop) {
+    if (dr.mode != 0) {
       for (int e = 4 * tid; e < tpix * C; e += 4 * kThreads)
-        mask4(xs, CP, C, e, tile_base, seed, threshold, keep_scale);
+        mask4(xs, CP, C, e, tile_base, seed, dr);
       __syncthreads();
     }
 
@@ -507,9 +506,8 @@ __device__ __forceinline__ void recompute_dxn(float (&acc)[8][NJ], float* xs, fl
                                               const float* ws, const float* xt,
                                               const TX* __restrict__ dout, const Consts& k,
                                               int b, int T, int F, int C, int pt, int pf, int t0,
-                                              int tpix, long long tile_base, bool drop,
-                                              unsigned long long seed, uint32_t threshold,
-                                              float keep_scale, int pg, int cg) {
+                                              int tpix, long long tile_base, const Dropout& dr,
+                                              unsigned long long seed, int pg, int cg) {
   const int CP = C + 1, FW = F + 2;
   const int Tp = T / pt, Fp = F / pf;
   const float inv_win = 1.0f / (float)(pt * pf);
@@ -526,9 +524,9 @@ __device__ __forceinline__ void recompute_dxn(float (&acc)[8][NJ], float* xs, fl
     ds[p * CP + c] = dh;
   }
   __syncthreads();
-  if (drop) {
+  if (dr.mode != 0) {
     for (int e = 4 * tid; e < tpix * C; e += 4 * kThreads)
-      mask4(ds, CP, C, e, tile_base, seed, threshold, keep_scale);
+      mask4(ds, CP, C, e, tile_base, seed, dr);
   }
 
   // lin = xn . W + b (reads xs and ws only: no barrier needed before it)
@@ -568,8 +566,7 @@ entry_block_bwd_reduce_kernel(const TX* __restrict__ x, const TX* __restrict__ d
                               const float* __restrict__ glu_w, const float* __restrict__ glu_b,
                               float* __restrict__ partials, int T, int F, int C, int pt, int pf,
                               float eps, int rows, int tiles_per_block,
-                              const long long* __restrict__ seed_ptr, uint32_t threshold,
-                              float keep_scale) {
+                              Dropout dr) {
   extern __shared__ float smem[];
   const int CP = C + 1;
   float* xs = smem;            // [kPix][CP]: xn
@@ -582,8 +579,7 @@ entry_block_bwd_reduce_kernel(const TX* __restrict__ x, const TX* __restrict__ d
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
   const int FW = F + 2;
-  const bool drop = threshold != 0u;
-  const unsigned long long seed = drop ? (unsigned long long)seed_ptr[0] : 0ull;
+  const unsigned long long seed = seed_of(dr);
   for (int i = tid; i < C * C; i += kThreads) ws[(i / C) * CP + i % C] = rounded<TX>(glu_w[i]);
   load_consts(k, scale, bias, mean, var, glu_b, cw, cb, C, eps);
 
@@ -613,7 +609,7 @@ entry_block_bwd_reduce_kernel(const TX* __restrict__ x, const TX* __restrict__ d
     __syncthreads();
     float acc[8][NJ];
     recompute_dxn<NJ, TX>(acc, xs, ds, ws, xt, dout, k, b, T, F, C, pt, pf, t0, tpix, tile_base,
-                          drop, seed, threshold, keep_scale, pg, cg);
+                          dr, seed, pg, cg);
 
     // S1 += dxn, S2 += dxn * xh, with y recomputed from the staged tile
 #pragma unroll
@@ -699,8 +695,7 @@ entry_block_bwd_wgrad_kernel(const TX* __restrict__ x, const TX* __restrict__ do
                              const float* __restrict__ a, const float* __restrict__ b2,
                              float* __restrict__ partials, int T, int F, int C, int pt, int pf,
                              float eps, int rows, int tiles_per_block,
-                             const long long* __restrict__ seed_ptr, uint32_t threshold,
-                             float keep_scale, int parity) {
+                             Dropout dr, int parity) {
   extern __shared__ float smem[];
   const int CP = C + 1;
   float* xs = smem;            // [kPix][CP]: xn
@@ -714,8 +709,7 @@ entry_block_bwd_wgrad_kernel(const TX* __restrict__ x, const TX* __restrict__ do
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
   const int FW = F + 2;
-  const bool drop = threshold != 0u;
-  const unsigned long long seed = drop ? (unsigned long long)seed_ptr[0] : 0ull;
+  const unsigned long long seed = seed_of(dr);
   for (int i = tid; i < C * C; i += kThreads) ws[(i / C) * CP + i % C] = rounded<TX>(glu_w[i]);
   load_consts(k, scale, bias, mean, var, glu_b, cw, cb, C, eps);
   for (int c = tid; c < C; c += kThreads) {
@@ -749,7 +743,7 @@ entry_block_bwd_wgrad_kernel(const TX* __restrict__ x, const TX* __restrict__ do
     __syncthreads();
     float acc[8][NJ];
     recompute_dxn<NJ, TX>(acc, xs, ds, ws, xt, dout, k, b, T, F, C, pt, pf, t0, tpix, tile_base,
-                          drop, seed, threshold, keep_scale, pg, cg);
+                          dr, seed, pg, cg);
 
     // dy = inv * scale * dxn - a - (y - mean) * b2 in registers, straight into
     // the patch products
@@ -804,14 +798,15 @@ entry_block_bwd_wgrad_kernel(const TX* __restrict__ x, const TX* __restrict__ do
 
 // ---------------------------------------------------------- the mask alone
 
-// out[e] = 1 where element e is kept, else 0: word e % 4 of Philox(e / 4, seed).
+// out[e] = 1 where element e is kept, else 0 (the draw of chain.cuh:
+// keep_values4; dr.mode 1 or 2).
 __global__ void __launch_bounds__(kThreads)
-dropout_mask_kernel(float* __restrict__ out, long long n, const long long* __restrict__ seed_ptr,
-                    uint32_t threshold) {
-  const unsigned long long seed = (unsigned long long)seed_ptr[0];
+dropout_mask_kernel(float* __restrict__ out, long long n, Dropout dr) {
+  const unsigned long long seed = seed_of(dr);
+  const uint32_t threshold = dr.threshold;
   const long long stride = (long long)gridDim.x * kThreads;
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; 4 * i < n; i += stride) {
-    const uint4 r = philox4x32_10((unsigned long long)i, seed);
+    const uint4 r = keep_values4(4 * i, seed, dr.mode);
     const uint32_t words[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
     for (int k = 0; k < 4; ++k)
@@ -904,9 +899,7 @@ struct BlockArgs {
   int B, T, F, C, pt, pf;
   float eps;
   int tiles_per_block;
-  const long long* seed;
-  uint32_t threshold;
-  float keep_scale;
+  Dropout dr;
 };
 
 template <int NJ, typename TX>
@@ -918,8 +911,8 @@ int launch_block_fwd(const BlockArgs& g, void* out, int pool_elems, cudaStream_t
   const int rows = rows_per_tile(g.F, g.pt);
   entry_block_fwd_kernel<NJ, TX><<<tile_grid(g.B, g.T, rows, g.tiles_per_block), kThreads, smem, stream>>>(
       static_cast<const TX*>(g.x), g.cw, g.cb, g.scale, g.bias, g.mean, g.var, g.glu_w, g.glu_b,
-      static_cast<TX*>(out), g.T, g.F, g.C, g.pt, g.pf, g.eps, rows, g.tiles_per_block, g.seed,
-      g.threshold, g.keep_scale, pool_elems);
+      static_cast<TX*>(out), g.T, g.F, g.C, g.pt, g.pf, g.eps, rows, g.tiles_per_block, g.dr,
+      pool_elems);
   return (int)cudaGetLastError();
 }
 
@@ -934,7 +927,7 @@ int launch_block_bwd_reduce(const BlockArgs& g, float* partials, float* sums, cu
   entry_block_bwd_reduce_kernel<NJ, TX><<<grid, kThreads, smem, stream>>>(
       static_cast<const TX*>(g.x), static_cast<const TX*>(g.dout), g.cw, g.cb, g.scale, g.bias, g.mean,
       g.var, g.glu_w, g.glu_b, partials, g.T, g.F, g.C, g.pt, g.pf, g.eps, rows, g.tiles_per_block,
-      g.seed, g.threshold, g.keep_scale);
+      g.dr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_fold<float>(partials, sums, (int)(grid.x * grid.y), g.C * g.C + 3 * g.C, stream);
@@ -955,7 +948,7 @@ int launch_block_bwd_wgrad(const BlockArgs& g, float* partials, float* sums, int
   entry_block_bwd_wgrad_kernel<NJ, TX><<<grid, kThreads, smem, stream>>>(
       static_cast<const TX*>(g.x), static_cast<const TX*>(g.dout), g.cw, g.cb, g.scale, g.bias, g.mean,
       g.var, g.glu_w, g.glu_b, g.a, g.b2, partials, g.T, g.F, g.C, g.pt, g.pf, g.eps, rows,
-      g.tiles_per_block, g.seed, g.threshold, g.keep_scale, partition == 1);
+      g.tiles_per_block, g.dr, partition == 1);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int parts = partition == 0 ? 1 : partition == 1 ? 2 : -2;
@@ -992,12 +985,10 @@ struct BwdWgrad {
 BlockArgs block_args(const void* x, const void* dout, const void* cw, const void* cb, const void* scale,
                      const void* bias, const void* mean, const void* var, const void* glu_w,
                      const void* glu_b, const void* a, const void* b2, int B, int T, int F, int C,
-                     int pt, int pf, float eps, const void* seed, unsigned int threshold,
-                     float keep_scale, int tiles_per_block) {
+                     int pt, int pf, float eps, const Dropout& dr, int tiles_per_block) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   return BlockArgs{x, dout, f(cw), f(cb), f(scale), f(bias), f(mean), f(var), f(glu_w), f(glu_b),
-                   f(a), f(b2), B, T, F, C, pt, pf, eps, tiles_per_block,
-                   static_cast<const long long*>(seed), threshold, keep_scale};
+                   f(a), f(b2), B, T, F, C, pt, pf, eps, tiles_per_block, dr};
 }
 
 inline const float* fp(const void* p) { return static_cast<const float*>(p); }
@@ -1048,17 +1039,18 @@ int dcase_entry_conv_wgrad(const void* x, const void* dy, void* partials, void* 
 // parameters float32, all contiguous. T % pt == 0, F % pf == 0,
 // pt * F <= 128, C % 4 == 0, C <= 128
 // (ops/fused_entry_block.py:entry_block_applicable); tiles =
-// dcase_bn_glu_pool_tiles(T, F, pt, pf). seed, threshold, keep_scale as in
-// dcase_bn_glu_pool. pool_elems (bfloat16): round each g of a window
+// dcase_bn_glu_pool_tiles(T, F, pt, pf). seed, threshold, keep_scale, packed
+// as in dcase_bn_glu_pool. pool_elems (bfloat16): round each g of a window
 // before the window sum instead of each pt-row column sum.
 int dcase_entry_block_fwd(const void* x, const void* cw, const void* cb, const void* scale,
                           const void* bias, const void* mean, const void* var,
                           const void* glu_w, const void* glu_b, void* out, int B, int T, int F,
                           int C, int pt, int pf, float eps, const void* seed,
-                          unsigned int threshold, float keep_scale, int tiles_per_block, int bf16,
-                          int pool_elems, void* stream) {
+                          unsigned int threshold, float keep_scale, int packed, int tiles_per_block,
+                          int bf16, int pool_elems, void* stream) {
   const BlockArgs g = block_args(x, nullptr, cw, cb, scale, bias, mean, var, glu_w, glu_b, nullptr, nullptr,
-                                 B, T, F, C, pt, pf, eps, seed, threshold, keep_scale, tiles_per_block);
+                                 B, T, F, C, pt, pf, eps, dropout_of(seed, threshold, keep_scale, packed),
+                                 tiles_per_block);
   return dispatch_block<Fwd>(C, bf16, g, out, pool_elems, static_cast<cudaStream_t>(stream));
 }
 
@@ -1070,10 +1062,11 @@ int dcase_entry_block_bwd_reduce(const void* x, const void* dout, const void* cw
                                  const void* mean, const void* var, const void* glu_w,
                                  const void* glu_b, void* partials, void* sums, int B, int T,
                                  int F, int C, int pt, int pf, float eps, const void* seed,
-                                 unsigned int threshold, float keep_scale, int tiles_per_block,
-                                 int bf16, void* stream) {
+                                 unsigned int threshold, float keep_scale, int packed,
+                                 int tiles_per_block, int bf16, void* stream) {
   const BlockArgs g = block_args(x, dout, cw, cb, scale, bias, mean, var, glu_w, glu_b, nullptr, nullptr,
-                                 B, T, F, C, pt, pf, eps, seed, threshold, keep_scale, tiles_per_block);
+                                 B, T, F, C, pt, pf, eps, dropout_of(seed, threshold, keep_scale, packed),
+                                 tiles_per_block);
   return dispatch_block<BwdReduce>(C, bf16, g, static_cast<float*>(partials), static_cast<float*>(sums),
                                    static_cast<cudaStream_t>(stream));
 }
@@ -1090,22 +1083,25 @@ int dcase_entry_block_bwd_wgrad(const void* x, const void* dout, const void* cw,
                                 const void* a, const void* b2, void* partials, void* sums,
                                 int B, int T, int F, int C, int pt, int pf, float eps,
                                 const void* seed, unsigned int threshold, float keep_scale,
-                                int tiles_per_block, int bf16, int partition, void* stream) {
+                                int packed, int tiles_per_block, int bf16, int partition,
+                                void* stream) {
   const BlockArgs g = block_args(x, dout, cw, cb, scale, bias, mean, var, glu_w, glu_b, a, b2,
-                                 B, T, F, C, pt, pf, eps, seed, threshold, keep_scale, tiles_per_block);
+                                 B, T, F, C, pt, pf, eps, dropout_of(seed, threshold, keep_scale, packed),
+                                 tiles_per_block);
   return dispatch_block<BwdWgrad>(C, bf16, g, static_cast<float*>(partials), static_cast<float*>(sums),
                                   partition, static_cast<cudaStream_t>(stream));
 }
 
-// out: [n] float32 0/1 keep-mask of (seed, element index, threshold); seed:
-// one int64 in device memory.
-int dcase_dropout_mask(void* out, long long n, const void* seed, unsigned int threshold,
+// out: [n] float32 0/1 keep-mask of (seed, element index, threshold) in the
+// 32-bit draw, or in the packed 8-bit draw when packed != 0; seed: one int64
+// in device memory.
+int dcase_dropout_mask(void* out, long long n, const void* seed, unsigned int threshold, int packed,
                        void* stream) {
   long long blocks = ((n + 3) / 4 + kThreads - 1) / kThreads;
   if (blocks > 132 * 16) blocks = 132 * 16;
   if (blocks < 1) blocks = 1;
   dropout_mask_kernel<<<(int)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(out), n, static_cast<const long long*>(seed), threshold);
+      static_cast<float*>(out), n, dropout_of(seed, threshold, 1.0f, packed ? 1 : 0));
   return (int)cudaGetLastError();
 }
 

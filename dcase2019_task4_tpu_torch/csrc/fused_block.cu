@@ -6,6 +6,10 @@
 //   bn_glu_pool_kernel       _fwd_kernel (via _fwd_pallas), eval and train
 //   bn_glu_pool_bwd_kernel   _bwd_reduce_kernel (first pass of _bwd_pallas)
 //   bn_bwd_fixup_kernel      _bwd_fixup_kernel (second pass of _bwd_pallas)
+//   bn_bwd_fixup_recompute_kernel
+//                            _bwd_fixup_recompute_kernel (second pass of
+//                            _bwd_pallas under DCASE_FUSED_BWD_RECOMPUTE=1,
+//                            whose first pass writes no dy_partial)
 //   stats_kernel             _stats_kernel (batch_stats)
 //   fold_kernel (fold.cuh)   the carried accumulators of the sequential TPU
 //                            grid (dw_ref, db_ref, s1_ref, s2_ref, sum_ref)
@@ -24,17 +28,23 @@
 //   dy_partial = rsqrt(var + eps) * scale * dxn
 // and, once S1 and S2 are whole, dy = dy_partial - a - (y - mean) * b with
 // a = inv * scale * S1 / N, b = inv^2 * scale * S2 / N (the wrapper forms a
-// and b from the folded sums).
+// and b from the folded sums). The recompute variant stores no dy_partial:
+// its second pass rebuilds dxn from y and dout (the first pass's tile code,
+// tile_dxn) and writes dy = inv * scale * dxn - a - (y - mean) * b, rounded
+// once, so in bfloat16 it is another function than the default, whose dy
+// rounds through a bfloat16 dy_partial.
 //
 // Dropout: Philox4x32-10 keyed on the 64-bit seed, counter = global element
 // index of y divided by 4; the four output words mask four neighbouring
-// channels. The mask therefore depends only on (seed, element, rate), never
-// on tiling or launch geometry; it is never stored, and the backward
+// channels (or, in the packed 8-bit draw of DCASE_DROPOUT_PACK, counter =
+// element / 16 and the four bytes of one word mask four channels:
+// chain.cuh). The mask therefore depends only on (seed, element, rate, draw),
+// never on tiling or launch geometry; it is never stored, and the backward
 // regenerates it bit for bit. The seed is read from device memory, so the
 // host never has to know it.
 //
-// At C = 128 the forward's shared memory is 134 KB (one block an SM) and the
-// backward's 212 KB.
+// At C = 128 the forward's shared memory is 134 KB (one block an SM), the
+// reduce pass's 212 KB and the recompute fixup's 202 KB.
 //
 // Bound: at block 1 of the flagship shape (y = [24, 864, 64, 64], 340 MB)
 // the forward reads y once (0.10 ms at 3.35 TB/s) and its 64x64 channel mix
@@ -42,7 +52,10 @@
 // in plain FP32 the channel mix binds. The backward does three such
 // products (lin, dlin . W^T, xn^T . dlin: 32.6 GFLOP, 0.49 ms) and moves
 // 340 MB in and 340 MB out (0.20 ms): operations bind it too. The fixup and
-// the statistics are pure streams (1019 MB and 340 MB).
+// the statistics are pure streams (1019 MB and 340 MB). The recompute fixup
+// moves y and dout in and dy out (0.21 ms) for two products (lin and dxn:
+// 21.7 GFLOP, 0.33 ms): operations; it spends them to save the default's
+// dy_partial round trip (680 MB).
 //
 // Element type: every kernel is instantiated for float32 and for bfloat16
 // y (the model's compute dtype). In bfloat16 the arithmetic stays float32
@@ -148,8 +161,7 @@ bn_glu_pool_kernel(const TY* __restrict__ y, const float* __restrict__ scale,
                    const float* __restrict__ var, const float* __restrict__ glu_w,
                    const float* __restrict__ glu_b, TY* __restrict__ out, int T,
                    int F, int C, int pt, int pf, float eps, Tile tl,
-                   int tiles_per_block, const long long* __restrict__ seed_ptr,
-                   uint32_t threshold, float keep_scale) {
+                   int tiles_per_block, Dropout dr) {
   constexpr bool kLow = !std::is_same<TY, float>::value;
   extern __shared__ float smem[];
   const int CP = C + 1;
@@ -163,8 +175,7 @@ bn_glu_pool_kernel(const TY* __restrict__ y, const float* __restrict__ scale,
 
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
-  const bool drop = threshold != 0u;
-  const unsigned long long seed = drop ? (unsigned long long)seed_ptr[0] : 0ull;
+  const unsigned long long seed = seed_of(dr);
   for (int i = tid; i < C * C; i += kThreads) ws[i] = operand<TY>(glu_w[i]);
   for (int c = tid; c < C; c += kThreads) {
     s_scale[c] = scale[c];
@@ -233,10 +244,10 @@ bn_glu_pool_kernel(const TY* __restrict__ y, const float* __restrict__ scale,
         if (p < tpix && co < C) xs[p * CP + co] = g[i][j];
       }
     __syncthreads();
-    if (drop) {
+    if (dr.mode != 0) {
       for (int e = 4 * tid; e < tpix * C; e += 4 * kThreads) {
         const int p = e / C, c = e % C;
-        mask4_at(xs + p * CP + c, tp.pixel(p) * C + c, seed, threshold, keep_scale);
+        mask4_at(xs + p * CP + c, tp.pixel(p) * C + c, seed, dr);
       }
       __syncthreads();
     }
@@ -267,7 +278,120 @@ bn_glu_pool_kernel(const TY* __restrict__ y, const float* __restrict__ scale,
 
 // ----------------------------------------------------------------- backward
 
-// Workspace slot of a block: [C*C dW | C db | C S1 | C S2].
+// The per-channel vectors of a backward kernel, in shared memory.
+struct Vecs {
+  float *scale, *bias, *mean, *inv, *gb;
+};
+
+// Stage W (rows padded to C + 1, as product operands) and the vectors; the
+// vectors take 5C floats from `base`.
+template <typename TY>
+__device__ __forceinline__ Vecs stage_bwd(float* ws, float* base, const float* __restrict__ glu_w,
+                                          const float* __restrict__ scale, const float* __restrict__ bias,
+                                          const float* __restrict__ mean, const float* __restrict__ var,
+                                          const float* __restrict__ glu_b, int C, float eps) {
+  const Vecs v{base, base + C, base + 2 * C, base + 3 * C, base + 4 * C};
+  const int CP = C + 1;
+  for (int i = threadIdx.x; i < C * C; i += kThreads) ws[(i / C) * CP + i % C] = operand<TY>(glu_w[i]);
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    v.scale[c] = scale[c];
+    v.bias[c] = bias[c];
+    v.mean[c] = mean[c];
+    v.inv[c] = rsqrtf(var[c] + eps);
+    v.gb[c] = glu_b[c];
+  }
+  return v;
+}
+
+// What the reduce pass and the recompute fixup share, per tile (the JAX
+// package's _recompute_dxn): xn into xs, the masked dh into ds, lin = xn . W
+// + b, the gate term dh * lin * sig * (1 - sig), dlin = dh * sig written over
+// dh, and dxn = dlin . W^T + gate into acc. Thread (pg, cg) holds pixels
+// pg + 16 i and channels cg + 16 j. Leaves xn in xs and dlin in ds.
+template <int NJ, typename TY>
+__device__ __forceinline__ void tile_dxn(float (&acc)[8][NJ], float* xs, float* ds, const float* ws,
+                                         const Vecs& v, const TY* __restrict__ y,
+                                         const TY* __restrict__ dout, const TilePos& tp, int tpix,
+                                         int b, int C, int pt, int pf, int Tp, int Fp,
+                                         const Dropout& dr, unsigned long long seed, int pg, int cg) {
+  const int CP = C + 1, tid = threadIdx.x;
+  const float inv_win = 1.0f / (float)(pt * pf);
+  for (int i = tid; i < kPix * C; i += kThreads) {
+    const int p = i / C, c = i % C;
+    float xn = 0.0f, dh = 0.0f;
+    if (p < tpix) {
+      xn = (to_float(y[tp.pixel(p) * C + c]) - v.mean[c]) * v.inv[c] * v.scale[c] + v.bias[c];
+      const int t = p / tp.fcols, f = p % tp.fcols;
+      dh = to_float(dout[(((long long)b * Tp + (tp.t0 + t) / pt) * Fp + (tp.f0 + f) / pf) * C + c]) *
+           inv_win;
+    }
+    xs[p * CP + c] = xn;
+    ds[p * CP + c] = dh;
+  }
+  __syncthreads();
+  if (dr.mode != 0) {
+    for (int e = 4 * tid; e < tpix * C; e += 4 * kThreads) {
+      const int p = e / C, c = e % C;
+      mask4_at(ds + p * CP + c, tp.pixel(p) * C + c, seed, dr);
+    }
+  }
+
+  // lin = xn . W + b (reads xs and ws only: no barrier needed before it)
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
+  for (int ci = 0; ci < C; ++ci) {
+    float a[8], wv[NJ];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) a[i] = operand<TY>(xs[(pg + 16 * i) * CP + ci]);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int co = cg + 16 * j;
+      wv[j] = co < C ? ws[ci * CP + co] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], wv[j], acc[i][j]);
+  }
+  __syncthreads();  // masked dh complete
+  // gate term into acc, dlin over dh (each element owned by one thread)
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int p = pg + 16 * i, co = cg + 16 * j;
+      float gate = 0.0f;
+      if (co < C) {
+        const float sig = sigmoidf(xs[p * CP + co]);
+        const float dh = ds[p * CP + co];
+        gate = dh * (acc[i][j] + v.gb[co]) * sig * (1.0f - sig);
+        ds[p * CP + co] = dh * sig;
+      }
+      acc[i][j] = gate;
+    }
+  __syncthreads();  // dlin complete
+
+  // dxn = dlin . W^T + gate; thread holds (pixel pg + 16 i, channel cg + 16 j)
+  for (int co = 0; co < C; ++co) {
+    float a[8], wv[NJ];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) a[i] = operand<TY>(ds[(pg + 16 * i) * CP + co]);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int ci = cg + 16 * j;
+      wv[j] = ci < C ? ws[ci * CP + co] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], wv[j], acc[i][j]);
+  }
+}
+
+// Workspace slot of a block: [C*C dW | C db | C S1 | C S2]. dyp == nullptr:
+// no dy_partial (the recompute fixup rebuilds dxn instead).
 template <int NJ, typename TY>
 __global__ void __launch_bounds__(kThreads)
 bn_glu_pool_bwd_kernel(const TY* __restrict__ y, const TY* __restrict__ dout,
@@ -276,39 +400,23 @@ bn_glu_pool_bwd_kernel(const TY* __restrict__ y, const TY* __restrict__ dout,
                        const float* __restrict__ glu_w, const float* __restrict__ glu_b,
                        TY* __restrict__ dyp, float* __restrict__ partials, int T, int F,
                        int C, int pt, int pf, float eps, Tile tl, int tiles_per_block,
-                       const long long* __restrict__ seed_ptr, uint32_t threshold,
-                       float keep_scale) {
+                       Dropout dr) {
   extern __shared__ float smem[];
   const int CP = C + 1;
   float* xs = smem;               // [kPix][CP]: xn
   float* ds = xs + kPix * CP;     // [kPix][CP]: dh, then dlin
   float* ws = ds + kPix * CP;     // [C][CP] (in, out), rows padded, as product operands
-  float* s_scale = ws + C * CP;   // [C] each
-  float* s_bias = s_scale + C;
-  float* s_mean = s_bias + C;
-  float* s_inv = s_mean + C;
-  float* s_gb = s_inv + C;
-  float* red = s_gb + C;          // [16][2][16 * NJ]: S1/S2 by pixel group
+  float* red = ws + C * CP + 5 * C;  // [16][2][16 * NJ]: S1/S2 by pixel group
+  const Vecs v = stage_bwd<TY>(ws, ws + C * CP, glu_w, scale, bias, mean, var, glu_b, C, eps);
 
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
-  const bool drop = threshold != 0u;
-  const unsigned long long seed = drop ? (unsigned long long)seed_ptr[0] : 0ull;
-  for (int i = tid; i < C * C; i += kThreads) ws[(i / C) * CP + i % C] = operand<TY>(glu_w[i]);
-  for (int c = tid; c < C; c += kThreads) {
-    s_scale[c] = scale[c];
-    s_bias[c] = bias[c];
-    s_mean[c] = mean[c];
-    s_inv[c] = rsqrtf(var[c] + eps);
-    s_gb[c] = glu_b[c];
-  }
-
+  const unsigned long long seed = seed_of(dr);
   const int cg = tid % 16, pg = tid / 16;
   const int Tp = T / pt, Fp = F / pf;
   const int n_tiles = tiles_per_clip(T, F, pt, pf);
   const int first = blockIdx.x * tiles_per_block;
   const int last = min(n_tiles, first + tiles_per_block);
-  const float inv_win = 1.0f / (float)(pt * pf);
 
   // carried over all tiles of the block
   float dw[NJ][NJ];  // dW[cg_a + 16 i][cg + 16 j], cg_a = pg
@@ -325,79 +433,8 @@ bn_glu_pool_bwd_kernel(const TY* __restrict__ y, const TY* __restrict__ dout,
     const int tpix = tp.trows * tp.fcols;
 
     __syncthreads();  // constants staged / previous tile's products done
-    for (int i = tid; i < kPix * C; i += kThreads) {
-      const int p = i / C, c = i % C;
-      float xn = 0.0f, dh = 0.0f;
-      if (p < tpix) {
-        xn = (to_float(y[tp.pixel(p) * C + c]) - s_mean[c]) * s_inv[c] * s_scale[c] + s_bias[c];
-        const int t = p / tp.fcols, f = p % tp.fcols;
-        dh = to_float(dout[(((long long)b * Tp + (tp.t0 + t) / pt) * Fp + (tp.f0 + f) / pf) * C + c]) *
-             inv_win;
-      }
-      xs[p * CP + c] = xn;
-      ds[p * CP + c] = dh;
-    }
-    __syncthreads();
-    if (drop) {
-      for (int e = 4 * tid; e < tpix * C; e += 4 * kThreads) {
-        const int p = e / C, c = e % C;
-        mask4_at(ds + p * CP + c, tp.pixel(p) * C + c, seed, threshold, keep_scale);
-      }
-    }
-
-    // lin = xn . W + b (reads xs and ws only: no barrier needed before it)
     float acc[8][NJ];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
-    for (int ci = 0; ci < C; ++ci) {
-      float a[8], wv[NJ];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = operand<TY>(xs[(pg + 16 * i) * CP + ci]);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int co = cg + 16 * j;
-        wv[j] = co < C ? ws[ci * CP + co] : 0.0f;
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], wv[j], acc[i][j]);
-    }
-    __syncthreads();  // masked dh complete
-    // gate term into acc, dlin over dh (each element owned by one thread)
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int p = pg + 16 * i, co = cg + 16 * j;
-        float gate = 0.0f;
-        if (co < C) {
-          const float sig = sigmoidf(xs[p * CP + co]);
-          const float dh = ds[p * CP + co];
-          gate = dh * (acc[i][j] + s_gb[co]) * sig * (1.0f - sig);
-          ds[p * CP + co] = dh * sig;
-        }
-        acc[i][j] = gate;
-      }
-    __syncthreads();  // dlin complete
-
-    // dxn = dlin . W^T + gate; thread holds (pixel pg + 16 i, channel cg + 16 j)
-    for (int co = 0; co < C; ++co) {
-      float a[8], wv[NJ];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = operand<TY>(ds[(pg + 16 * i) * CP + co]);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int ci = cg + 16 * j;
-        wv[j] = ci < C ? ws[ci * CP + co] : 0.0f;
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], wv[j], acc[i][j]);
-    }
+    tile_dxn<NJ, TY>(acc, xs, ds, ws, v, y, dout, tp, tpix, b, C, pt, pf, Tp, Fp, dr, seed, pg, cg);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int p = pg + 16 * i;
@@ -408,22 +445,22 @@ bn_glu_pool_bwd_kernel(const TY* __restrict__ y, const TY* __restrict__ dout,
         const int c = cg + 16 * j;
         if (c >= C) continue;
         const float dxn = acc[i][j];
-        const float xh = (to_float(y[px + c]) - s_mean[c]) * s_inv[c];
+        const float xh = (to_float(y[px + c]) - v.mean[c]) * v.inv[c];
         s1[j] += dxn;
         s2[j] = fmaf(dxn, xh, s2[j]);
-        dyp[px + c] = from_float<TY>(s_inv[c] * s_scale[c] * dxn);
+        if (dyp != nullptr) dyp[px + c] = from_float<TY>(v.inv[c] * v.scale[c] * dxn);
       }
     }
 
     // dW += xn^T . dlin, db += sum dlin; thread holds (ci = pg + 16 i, co = cg + 16 j)
     for (int p = 0; p < tpix; ++p) {
-      float xv[NJ], dv[NJ], dr[NJ];
+      float xv[NJ], dv[NJ], dr_[NJ];
 #pragma unroll
       for (int i = 0; i < NJ; ++i) xv[i] = operand<TY>(xs[p * CP + ((pg + 16 * i) < C ? pg + 16 * i : 0)]);
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        dr[j] = ds[p * CP + ((cg + 16 * j) < C ? cg + 16 * j : 0)];
-        dv[j] = operand<TY>(dr[j]);
+        dr_[j] = ds[p * CP + ((cg + 16 * j) < C ? cg + 16 * j : 0)];
+        dv[j] = operand<TY>(dr_[j]);
       }
 #pragma unroll
       for (int i = 0; i < NJ; ++i)
@@ -431,7 +468,7 @@ bn_glu_pool_bwd_kernel(const TY* __restrict__ y, const TY* __restrict__ dout,
         for (int j = 0; j < NJ; ++j) dw[i][j] = fmaf(xv[i], dv[j], dw[i][j]);
       if (pg == 0) {
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) dbv[j] += dr[j];
+        for (int j = 0; j < NJ; ++j) dbv[j] += dr_[j];
       }
     }
   }
@@ -465,6 +502,65 @@ bn_glu_pool_bwd_kernel(const TY* __restrict__ y, const TY* __restrict__ dout,
     float s = 0.0f;
     for (int g = 0; g < 16; ++g) s += red[(g * 2 + which) * RW + c];
     ps[C * C + C + which * C + c] = s;
+  }
+}
+
+// The recompute fixup (the JAX package's _bwd_fixup_recompute_kernel, under
+// DCASE_FUSED_BWD_RECOMPUTE): no dy_partial; each tile rebuilds dxn from y and
+// dout with the reduce pass's own device code (tile_dxn: the same mask, the
+// same roundings) and writes dy = inv * scale * dxn - a - (y - mean) * b2 in
+// float32, rounded once to y's dtype. a, b2: [C] from the folded S1, S2.
+template <int NJ, typename TY>
+__global__ void __launch_bounds__(kThreads)
+bn_bwd_fixup_recompute_kernel(const TY* __restrict__ y, const TY* __restrict__ dout,
+                              const float* __restrict__ scale, const float* __restrict__ bias,
+                              const float* __restrict__ mean, const float* __restrict__ var,
+                              const float* __restrict__ glu_w, const float* __restrict__ glu_b,
+                              const float* __restrict__ a, const float* __restrict__ b2,
+                              TY* __restrict__ dy, int T, int F, int C, int pt, int pf, float eps,
+                              Tile tl, int tiles_per_block, Dropout dr) {
+  extern __shared__ float smem[];
+  const int CP = C + 1;
+  float* xs = smem;            // [kPix][CP]: xn
+  float* ds = xs + kPix * CP;  // [kPix][CP]: dh, then dlin
+  float* ws = ds + kPix * CP;  // [C][CP] (in, out), rows padded, as product operands
+  float* s_a = ws + C * CP + 5 * C;  // [C] each
+  float* s_b2 = s_a + C;
+  const Vecs v = stage_bwd<TY>(ws, ws + C * CP, glu_w, scale, bias, mean, var, glu_b, C, eps);
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    s_a[c] = a[c];
+    s_b2[c] = b2[c];
+  }
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y;
+  const unsigned long long seed = seed_of(dr);
+  const int cg = tid % 16, pg = tid / 16;
+  const int Tp = T / pt, Fp = F / pf;
+  const int n_tiles = tiles_per_clip(T, F, pt, pf);
+  const int first = blockIdx.x * tiles_per_block;
+  const int last = min(n_tiles, first + tiles_per_block);
+
+  for (int tile = first; tile < last; ++tile) {
+    const TilePos tp = tile_pos(tile, b, T, F, tl);
+    const int tpix = tp.trows * tp.fcols;
+
+    __syncthreads();  // constants staged / previous tile's products done
+    float acc[8][NJ];
+    tile_dxn<NJ, TY>(acc, xs, ds, ws, v, y, dout, tp, tpix, b, C, pt, pf, Tp, Fp, dr, seed, pg, cg);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int p = pg + 16 * i;
+      if (p >= tpix) continue;
+      const long long px = tp.pixel(p) * C;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int c = cg + 16 * j;
+        if (c >= C) continue;
+        const float yv = to_float(y[px + c]);
+        dy[px + c] = from_float<TY>(v.inv[c] * v.scale[c] * acc[i][j] - s_a[c] - (yv - v.mean[c]) * s_b2[c]);
+      }
+    }
   }
 }
 
@@ -529,21 +625,20 @@ size_t fwd_smem(int C) {
   return sizeof(float) * ((size_t)kPix * (C + 1) + (size_t)C * C + 5 * (size_t)C);
 }
 
-size_t bwd_smem(int C, int NJ) {
-  return sizeof(float) * (2 * (size_t)kPix * (C + 1) + (size_t)C * (C + 1) + 5 * (size_t)C +
-                          (size_t)16 * 2 * 16 * NJ);
+// Both backward kernels: the reduce pass adds its S1/S2 scratch
+// (16 * 2 * 16 * NJ floats), the recompute fixup its a and b2 (2C).
+size_t bwd_smem(int C, size_t extra) {
+  return sizeof(float) * (2 * (size_t)kPix * (C + 1) + (size_t)C * (C + 1) + 5 * (size_t)C + extra);
 }
 
-// Arguments shared by the forward and the first backward pass.
+// Arguments shared by the forward and both backward passes.
 struct BlockArgs {
   const void* y;
   const float *scale, *bias, *mean, *var, *glu_w, *glu_b;
   int B, T, F, C, pt, pf;
   float eps;
   int tiles_per_block;
-  const long long* seed;
-  uint32_t threshold;
-  float keep_scale;
+  Dropout dr;
 };
 
 dim3 block_grid(const BlockArgs& a) {
@@ -561,14 +656,14 @@ int launch_fwd(const BlockArgs& a, void* out, cudaStream_t stream) {
   bn_glu_pool_kernel<NJ, TY><<<block_grid(a), kThreads, smem, stream>>>(
       static_cast<const TY*>(a.y), a.scale, a.bias, a.mean, a.var, a.glu_w, a.glu_b,
       static_cast<TY*>(out), a.T, a.F, a.C, a.pt, a.pf, a.eps, tile_of(a.F, a.pt, a.pf),
-      a.tiles_per_block, a.seed, a.threshold, a.keep_scale);
+      a.tiles_per_block, a.dr);
   return (int)cudaGetLastError();
 }
 
 template <int NJ, typename TY>
 int launch_bwd(const BlockArgs& a, const void* dout, void* dyp, float* partials, float* sums,
                cudaStream_t stream) {
-  const size_t smem = bwd_smem(a.C, NJ);
+  const size_t smem = bwd_smem(a.C, (size_t)16 * 2 * 16 * NJ);
   cudaError_t err = cudaFuncSetAttribute(bn_glu_pool_bwd_kernel<NJ, TY>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -577,10 +672,25 @@ int launch_bwd(const BlockArgs& a, const void* dout, void* dyp, float* partials,
   bn_glu_pool_bwd_kernel<NJ, TY><<<grid, kThreads, smem, stream>>>(
       static_cast<const TY*>(a.y), static_cast<const TY*>(dout), a.scale, a.bias, a.mean, a.var,
       a.glu_w, a.glu_b, static_cast<TY*>(dyp), partials, a.T, a.F, a.C, a.pt, a.pf, a.eps,
-      tile_of(a.F, a.pt, a.pf), a.tiles_per_block, a.seed, a.threshold, a.keep_scale);
+      tile_of(a.F, a.pt, a.pf), a.tiles_per_block, a.dr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_fold<float>(partials, sums, (int)(grid.x * grid.y), a.C * a.C + 3 * a.C, stream);
+}
+
+template <int NJ, typename TY>
+int launch_fixup_recompute(const BlockArgs& a, const void* dout, const float* av, const float* b2,
+                           void* dy, cudaStream_t stream) {
+  const size_t smem = bwd_smem(a.C, 2 * (size_t)a.C);
+  cudaError_t err = cudaFuncSetAttribute(bn_bwd_fixup_recompute_kernel<NJ, TY>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  bn_bwd_fixup_recompute_kernel<NJ, TY><<<block_grid(a), kThreads, smem, stream>>>(
+      static_cast<const TY*>(a.y), static_cast<const TY*>(dout), a.scale, a.bias, a.mean, a.var,
+      a.glu_w, a.glu_b, av, b2, static_cast<TY*>(dy), a.T, a.F, a.C, a.pt, a.pf, a.eps,
+      tile_of(a.F, a.pt, a.pf), a.tiles_per_block, a.dr);
+  return (int)cudaGetLastError();
 }
 
 template <typename TY>
@@ -628,18 +738,20 @@ int dcase_bn_glu_pool_tiles(int T, int F, int pt, int pf) { return tiles_per_cli
 // out); out: [B, T/pt, F/pf, C]; contiguous; y and out float32, or
 // bfloat16 when bf16 != 0, the rest float32. T % pt == 0, F % pf == 0,
 // pt * pf <= 128, C <= 128, C % 4 == 0 (ops/fused_block.py:applicable).
-// seed: one int64 in device memory; threshold 0 means no dropout, else keep
-// iff bits >= threshold and scale the kept by keep_scale.
+// seed: one int64 in device memory. packed == 0: threshold 0 means no
+// dropout, else keep iff the element's 32 random bits >= threshold; packed
+// != 0: dropout on, keep iff its 8 random bits >= threshold (chain.cuh). The
+// kept are scaled by keep_scale.
 int dcase_bn_glu_pool(const void* y, const void* scale, const void* bias, const void* mean,
                       const void* var, const void* glu_w, const void* glu_b, void* out,
                       int B, int T, int F, int C, int pt, int pf, float eps,
-                      const void* seed, unsigned int threshold, float keep_scale,
+                      const void* seed, unsigned int threshold, float keep_scale, int packed,
                       int tiles_per_block, int bf16, void* stream) {
   const BlockArgs a{y, static_cast<const float*>(scale), static_cast<const float*>(bias),
                     static_cast<const float*>(mean), static_cast<const float*>(var),
                     static_cast<const float*>(glu_w), static_cast<const float*>(glu_b),
                     B, T, F, C, pt, pf, eps, tiles_per_block,
-                    static_cast<const long long*>(seed), threshold, keep_scale};
+                    dropout_of(seed, threshold, keep_scale, packed)};
   auto st = static_cast<cudaStream_t>(stream);
   if (bf16)
     return C <= 64 ? launch_fwd<4, __nv_bfloat16>(a, out, st) : launch_fwd<8, __nv_bfloat16>(a, out, st);
@@ -647,20 +759,21 @@ int dcase_bn_glu_pool(const void* y, const void* scale, const void* bias, const 
 }
 
 // First backward pass. dout: [B, T/pt, F/pf, C]; dyp: [B, T, F, C] (both in
-// y's dtype); partials: [slots, C*C + 3C] float32 with slots = B *
-// ceil(tiles / tiles_per_block); sums: [C*C + 3C] float32 = dW | db | S1 |
-// S2, folded from the slots in slot order.
+// y's dtype), or null for no dy_partial (the recompute fixup follows);
+// partials: [slots, C*C + 3C] float32 with slots = B * ceil(tiles /
+// tiles_per_block); sums: [C*C + 3C] float32 = dW | db | S1 | S2, folded
+// from the slots in slot order. Dropout as in dcase_bn_glu_pool.
 int dcase_bn_glu_pool_bwd(const void* y, const void* dout, const void* scale,
                           const void* bias, const void* mean, const void* var,
                           const void* glu_w, const void* glu_b, void* dyp, void* partials,
                           void* sums, int B, int T, int F, int C, int pt, int pf, float eps,
-                          const void* seed, unsigned int threshold, float keep_scale,
+                          const void* seed, unsigned int threshold, float keep_scale, int packed,
                           int tiles_per_block, int bf16, void* stream) {
   const BlockArgs a{y, static_cast<const float*>(scale), static_cast<const float*>(bias),
                     static_cast<const float*>(mean), static_cast<const float*>(var),
                     static_cast<const float*>(glu_w), static_cast<const float*>(glu_b),
                     B, T, F, C, pt, pf, eps, tiles_per_block,
-                    static_cast<const long long*>(seed), threshold, keep_scale};
+                    dropout_of(seed, threshold, keep_scale, packed)};
   auto* pa = static_cast<float*>(partials);
   auto* su = static_cast<float*>(sums);
   auto st = static_cast<cudaStream_t>(stream);
@@ -669,6 +782,32 @@ int dcase_bn_glu_pool_bwd(const void* y, const void* dout, const void* scale,
                    : launch_bwd<8, __nv_bfloat16>(a, dout, dyp, pa, su, st);
   return C <= 64 ? launch_bwd<4, float>(a, dout, dyp, pa, su, st)
                  : launch_bwd<8, float>(a, dout, dyp, pa, su, st);
+}
+
+// Second backward pass without dy_partial: dy [B, T, F, C] in y's dtype from
+// y, dout and a, b2 [C] (float32, from the folded S1, S2); the other
+// arguments as in dcase_bn_glu_pool_bwd, with the same tiles_per_block and
+// dropout (the mask is regenerated bit for bit).
+int dcase_bn_bwd_fixup_recompute(const void* y, const void* dout, const void* scale,
+                                 const void* bias, const void* mean, const void* var,
+                                 const void* glu_w, const void* glu_b, const void* a,
+                                 const void* b2, void* dy, int B, int T, int F, int C, int pt,
+                                 int pf, float eps, const void* seed, unsigned int threshold,
+                                 float keep_scale, int packed, int tiles_per_block, int bf16,
+                                 void* stream) {
+  const BlockArgs g{y, static_cast<const float*>(scale), static_cast<const float*>(bias),
+                    static_cast<const float*>(mean), static_cast<const float*>(var),
+                    static_cast<const float*>(glu_w), static_cast<const float*>(glu_b),
+                    B, T, F, C, pt, pf, eps, tiles_per_block,
+                    dropout_of(seed, threshold, keep_scale, packed)};
+  const auto* av = static_cast<const float*>(a);
+  const auto* bv = static_cast<const float*>(b2);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return C <= 64 ? launch_fixup_recompute<4, __nv_bfloat16>(g, dout, av, bv, dy, st)
+                   : launch_fixup_recompute<8, __nv_bfloat16>(g, dout, av, bv, dy, st);
+  return C <= 64 ? launch_fixup_recompute<4, float>(g, dout, av, bv, dy, st)
+                 : launch_fixup_recompute<8, float>(g, dout, av, bv, dy, st);
 }
 
 // Second backward pass, in place over dyp. n: elements of y; C % 4 == 0; y

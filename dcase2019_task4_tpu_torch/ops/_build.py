@@ -47,24 +47,23 @@ SIGNATURES = {
     "dcase_fused_stft_mel": (
         _I, [_P, _I, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     ),
+    "dcase_fused_stft_mel_onedot": (_I, [_P, _I, _LL, _LL, _P, _P, _P] + [_I] * 6 + [_P]),
     "dcase_conv3x3": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "dcase_bn_glu_pool_tiles": (_I, [_I, _I, _I, _I]),
     "dcase_conv3x3_tiles": (_I, [_I, _I]),
     "dcase_conv3x3_wgrad": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "dcase_bn_glu_pool": (
-        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _U, _F, _I, _I, _P],
-    ),
-    "dcase_bn_glu_pool_bwd": (
-        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _U, _F, _I, _I, _P],
-    ),
+    # dropout arguments of every kernel that drops: seed, threshold, keep_scale, packed
+    "dcase_bn_glu_pool": (_I, [_P] * 8 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _I, _P]),
+    "dcase_bn_glu_pool_bwd": (_I, [_P] * 11 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _I, _P]),
+    "dcase_bn_bwd_fixup_recompute": (_I, [_P] * 11 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _I, _P]),
     "dcase_bn_bwd_fixup": (_I, [_P, _P, _P, _P, _P, _LL, _I, _I, _P]),
     "dcase_batch_stats": (_I, [_P, _P, _P, _LL, _I, _I, _I, _P]),
     "dcase_entry_conv": (_I, [_P] * 6 + [_I] * 7 + [_P]),
     "dcase_entry_conv_wgrad": (_I, [_P] * 4 + [_I] * 7 + [_P]),
-    "dcase_entry_block_fwd": (_I, [_P] * 10 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _I, _P]),
-    "dcase_entry_block_bwd_reduce": (_I, [_P] * 12 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _P]),
-    "dcase_entry_block_bwd_wgrad": (_I, [_P] * 14 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _I, _P]),
-    "dcase_dropout_mask": (_I, [_P, _LL, _P, _U, _P]),
+    "dcase_entry_block_fwd": (_I, [_P] * 10 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _I, _I, _P]),
+    "dcase_entry_block_bwd_reduce": (_I, [_P] * 12 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _I, _P]),
+    "dcase_entry_block_bwd_wgrad": (_I, [_P] * 14 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _I, _I, _P]),
+    "dcase_dropout_mask": (_I, [_P, _LL, _P, _U, _I, _P]),
 }
 
 

@@ -11,6 +11,7 @@ version beside it:
   batch_stats                 stats_kernel + fold            batch_stats_reference
   bwd_reduce                  bn_glu_pool_bwd_kernel + fold  bwd_reference (first half)
   bwd_fixup                   bn_bwd_fixup_kernel            bwd_reference (second half)
+  bwd_fixup_recompute         bn_bwd_fixup_recompute_kernel  bwd_fixup_recompute_reference
   dropout_mask                dropout_mask_kernel (a test    dropout_keep_mask
                               helper, csrc/entry_block.cu)
 
@@ -40,10 +41,32 @@ generator in integer tensor ops and is bit-equal to the kernels' mask. It
 matches neither of the JAX package's masks (TPU hardware bits compiled, a
 hash in the packed layout interpreted), so parity with JAX is held at rate 0
 or with an injected mask.
+
+Two A/B knobs of the JAX package (fused_block.py:56,169) are read from the
+environment at import, under the same names, into module constants that
+every wrapper takes as the default of an explicit keyword argument:
+
+  DCASE_FUSED_BWD_RECOMPUTE=1 → RECOMPUTE_FIXUP (`recompute=`): the first
+      backward pass stores no dy_partial (counted in
+      `bwd_reduce.launches_nodyp`) and `bwd_fixup_recompute` rebuilds dxn
+      from y and dout: dy = inv·γ·dxn − a − (y − mean)·b in float32, rounded
+      once, so in bfloat16 it is another function than the default's.
+  DCASE_DROPOUT_PACK=1 → PACK_BITS (`pack_bits=`): each element draws 8
+      random bits instead of 32 (byte e % 4 of word (e / 4) % 4 of
+      Philox(e / 16)), kept iff ≥ t8 = min(round(rate·256), 255), the kept
+      scaled by 1/(1 − rate) as in JAX. JAX packs only where a tile's row
+      count is a multiple of 4 and falls back to 32 bits elsewhere; the
+      port's mask has no tiles, so it packs always. Every dropping kernel
+      (K2f, K2b, K5, K6) takes the mode and counts its packed launches in
+      `launches_packed`.
+
+`_FusedBlock` records both modes at its forward, so its backward
+regenerates the forward's mask whatever the constants are by then.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -60,6 +83,20 @@ _U32 = 0xFFFFFFFF
 
 
 DTYPES = (torch.float32, torch.bfloat16)  # the compute dtypes the kernels take
+
+# the JAX package's knobs, read at import as there (see the module docstring)
+RECOMPUTE_FIXUP = os.environ.get("DCASE_FUSED_BWD_RECOMPUTE", "0") == "1"
+PACK_BITS = os.environ.get("DCASE_DROPOUT_PACK") == "1"
+
+
+def pack_mode(pack_bits: Optional[bool] = None) -> bool:
+    """A wrapper's dropout draw: `pack_bits`, or PACK_BITS when None."""
+    return PACK_BITS if pack_bits is None else bool(pack_bits)
+
+
+def recompute_mode(recompute: Optional[bool] = None) -> bool:
+    """A backward's second pass: `recompute`, or RECOMPUTE_FIXUP when None."""
+    return RECOMPUTE_FIXUP if recompute is None else bool(recompute)
 
 
 def applicable(shape, pool: Tuple[int, int]) -> bool:
@@ -101,44 +138,78 @@ def philox4x32(counter: torch.Tensor, seed) -> torch.Tensor:
     return torch.stack([c0, c1, c2, c3], dim=-1)
 
 
-def dropout_threshold(rate: float) -> int:
-    """An element is kept iff its 32 random bits are ≥ this (P = 1 − rate)."""
+def dropout_threshold(rate: float, pack_bits: bool = False) -> int:
+    """An element is kept iff its random value is ≥ this: its 32 random bits
+    against min(rate·2³², 2³² − 1), or its 8 packed bits against
+    t8 = min(round(rate·256), 255) (the JAX package's, fused_block.py:170)."""
+    if pack_bits:
+        return min(int(round(rate * 256)), 255)
     return min(int(rate * 2 ** 32), 2 ** 32 - 1)
 
 
-def dropout_keep_mask(seed, shape, rate: float, device=None) -> torch.Tensor:
+def dropout_args(rate: float, pack_bits: bool):
+    """A kernel's dropout arguments (threshold, keep_scale, packed) at
+    `rate`: no dropout at rate 0; the kept scaled by 1/(1 − rate) in both
+    draws."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+    if rate == 0.0:
+        return 0, 1.0, 0
+    return dropout_threshold(rate, pack_bits), float(1.0 / (1.0 - rate)), int(pack_bits)
+
+
+def dropout_keep_mask(seed, shape, rate: float, device=None, pack_bits: Optional[bool] = None) -> torch.Tensor:
     """The kernels' keep-mask as a float32 0/1 tensor of `shape`: element e
-    (row-major index) reads word e % 4 of philox4x32(e // 4, seed)."""
+    (row-major index) reads word e % 4 of philox4x32(e // 4, seed), or in
+    the packed draw byte e % 4 of word (e // 4) % 4 of philox4x32(e // 16,
+    seed)."""
+    pack_bits = pack_mode(pack_bits)
     n = 1
     for s in shape:
         n *= int(s)
     if device is None:
         device = seed.device if isinstance(seed, torch.Tensor) else "cpu"
-    counters = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
-    bits = philox4x32(counters, seed).reshape(-1)[:n]
-    return (bits >= dropout_threshold(rate)).to(torch.float32).reshape(tuple(shape))
+    per_call = 16 if pack_bits else 4
+    counters = torch.arange((n + per_call - 1) // per_call, dtype=torch.int64, device=device)
+    words = philox4x32(counters, seed).reshape(-1)
+    if pack_bits:
+        shifts = torch.tensor([0, 8, 16, 24], dtype=torch.int64, device=device)
+        bits = ((words[:, None] >> shifts) & 0xFF).reshape(-1)[:n]
+    else:
+        bits = words[:n]
+    return (bits >= dropout_threshold(rate, pack_bits)).to(torch.float32).reshape(tuple(shape))
 
 
-def dropout_mask(seed, shape, rate: float, device) -> torch.Tensor:
+def count_packed(wrapper, packed) -> None:
+    """One launch of `wrapper`'s kernel that drew the packed mask."""
+    if packed:
+        wrapper.launches_packed += 1
+
+
+def dropout_mask(seed, shape, rate: float, device, pack_bits: Optional[bool] = None) -> torch.Tensor:
     """The keep-mask written by a kernel of its own (csrc/entry_block.cu
     dropout_mask_kernel): what every fused kernel multiplies by, laid bare so
     that a test can hold it bit-equal to `dropout_keep_mask` on the card and
     check its distribution. CPU: `dropout_keep_mask`."""
     device = torch.device(device)
+    pack_bits = pack_mode(pack_bits)
     if device.type == "cpu":
-        return dropout_keep_mask(seed, shape, rate, device=device)
+        return dropout_keep_mask(seed, shape, rate, device=device, pack_bits=pack_bits)
     if device.type != "cuda":
         raise ValueError(f"dropout_mask runs on cpu or cuda, got {device}")
     out = torch.empty(tuple(int(s) for s in shape), dtype=torch.float32, device=device)
     seed_t = _seed_tensor(seed, device)
     status = _build.library().dcase_dropout_mask(out.data_ptr(), out.numel(), seed_t.data_ptr(),
-                                                 dropout_threshold(rate), _build.stream_handle(device))
+                                                 dropout_threshold(rate, pack_bits), int(pack_bits),
+                                                 _build.stream_handle(device))
     _build.check(status, "dropout_mask")
     dropout_mask.launches += 1
+    count_packed(dropout_mask, pack_bits)
     return out
 
 
 dropout_mask.launches = 0
+dropout_mask.launches_packed = 0
 
 
 def glu_gate(y, scale, bias, mean, var, glu_w, glu_b, eps, mask=None, keep: float = 1.0):
@@ -187,9 +258,10 @@ def bwd_reduce_reference(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, ep
     return dyp.to(y.dtype), dw, db, s1, s2
 
 
-def bwd_reduce_terms(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, eps, mask=None, keep: float = 1.0):
-    """`bwd_reduce_reference` with dy_partial = inv·γ·dxn left in float32
-    (a fused first block keeps it in registers)."""
+def _recompute_dxn(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, eps, mask, keep):
+    """What both backward passes recompute from y and dout (the JAX
+    package's _recompute_dxn): → (x̂, xn, dlin, dxn) in float32, with the
+    compute dtype's roundings of the operands."""
     dtype = y.dtype
     y = y.to(torch.float32)
     inv = torch.rsqrt(var + eps)
@@ -203,6 +275,15 @@ def bwd_reduce_terms(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, eps, m
         dh = dh * mask * (1.0 / keep)
     dlin = dh * sig
     dxn = _build.round_to(dlin, dtype) @ w.t() + dh * lin * sig * (1.0 - sig)
+    return xhat, xn, dlin, dxn
+
+
+def bwd_reduce_terms(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, eps, mask=None, keep: float = 1.0):
+    """`bwd_reduce_reference` with dy_partial = inv·γ·dxn left in float32
+    (a fused first block keeps it in registers)."""
+    dtype = y.dtype
+    xhat, xn, dlin, dxn = _recompute_dxn(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, eps, mask, keep)
+    inv = torch.rsqrt(var + eps)
     C = y.shape[-1]
     dw = _build.round_to(xn, dtype).reshape(-1, C).t() @ _build.round_to(dlin, dtype).reshape(-1, C)
     db = dlin.sum(dim=(0, 1, 2))
@@ -221,6 +302,17 @@ def bwd_coefficients(scale, var, eps, s1, s2, n: int):
 def bwd_fixup_reference(y, dy_partial, a, b, mean):
     """Second half: dy = dy_partial − a − (y − mean)·b, in y's dtype."""
     return (dy_partial.to(torch.float32) - a - (y.to(torch.float32) - mean) * b).to(y.dtype)
+
+
+def bwd_fixup_recompute_reference(y, dout, scale, bias, mean, var, glu_w, glu_b, a, b, pool, eps, mask=None,
+                                  keep: float = 1.0):
+    """Second half without dy_partial (the JAX package's
+    _bwd_fixup_recompute_kernel): dxn rebuilt from y and dout as the first
+    half builds it, then dy = inv·γ·dxn − a − (y − mean)·b in float32,
+    rounded once to y's dtype."""
+    _, _, _, dxn = _recompute_dxn(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, eps, mask, keep)
+    inv = torch.rsqrt(var + eps)
+    return (inv * scale * dxn - a - (y.to(torch.float32) - mean) * b).to(y.dtype)
 
 
 def bwd_reference(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, eps, mask=None, keep: float = 1.0):
@@ -267,18 +359,19 @@ def _tiles_per_block(tiles: int, B: int, target: int) -> int:
     return max(1, -(-tiles * B // target))
 
 
-def fused_bn_glu_pool(y, scale, bias, mean, var, glu_w, glu_b, pool, eps, *, rate: float = 0.0, seed=0):
+def fused_bn_glu_pool(y, scale, bias, mean, var, glu_w, glu_b, pool, eps, *, rate: float = 0.0, seed=0,
+                      pack_bits: Optional[bool] = None):
     """K2 forward, no graph: y [B, T, F, C] conv output (float32 or
     bfloat16) → pooled [B, T/pt, F/pf, C] in y's dtype; BN with the given
     mean/var; glu_w [C, C] as (in, out); dropout at `rate` from `seed` (int
-    or integer tensor) when rate > 0. CPU: the plain version. CUDA: the
-    kernel."""
+    or integer tensor) when rate > 0, in the packed draw when `pack_bits`
+    (default PACK_BITS). CPU: the plain version. CUDA: the kernel."""
     pool = tuple(int(p) for p in pool)
     _check(y, pool, "fused_bn_glu_pool")
-    if not 0.0 <= rate < 1.0:
-        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+    pack_bits = pack_mode(pack_bits)
+    threshold, keep_scale, packed = dropout_args(rate, pack_bits)
     if y.device.type == "cpu":
-        mask = dropout_keep_mask(seed, y.shape, rate) if rate > 0.0 else None
+        mask = dropout_keep_mask(seed, y.shape, rate, pack_bits=pack_bits) if rate > 0.0 else None
         return reference_block(y, scale, bias, mean, var, glu_w, glu_b, pool, eps, mask, 1.0 - rate)
     B, T, Fq, C = y.shape
     (s, bi, mu, va, gb), w = _vectors(y, (scale, bias, mean, var, glu_b), glu_w)
@@ -289,13 +382,14 @@ def fused_bn_glu_pool(y, scale, bias, mean, var, glu_w, glu_b, pool, eps, *, rat
     status = lib.dcase_bn_glu_pool(
         y.data_ptr(), s.data_ptr(), bi.data_ptr(), mu.data_ptr(), va.data_ptr(),
         w.data_ptr(), gb.data_ptr(), out.data_ptr(), B, T, Fq, C, pt, pf, float(eps),
-        seed_t.data_ptr(), dropout_threshold(rate) if rate > 0.0 else 0, float(1.0 / (1.0 - rate)),
+        seed_t.data_ptr(), threshold, keep_scale, packed,
         _tiles_per_block(lib.dcase_bn_glu_pool_tiles(T, Fq, pt, pf), B, _TARGET_BLOCKS),
         int(y.dtype == torch.bfloat16),
         _build.stream_handle(y.device),
     )
     _build.check(status, "fused_bn_glu_pool")
     _build.count_launch(fused_bn_glu_pool, "launches_train" if rate > 0.0 else "launches_eval", y.dtype)
+    count_packed(fused_bn_glu_pool, packed)
     return out
 
 
@@ -303,6 +397,7 @@ fused_bn_glu_pool.launches_eval = 0  # launches of the float32 forward kernel wi
 fused_bn_glu_pool.launches_train = 0  # launches with the dropout on (train mode)
 fused_bn_glu_pool.launches_eval_bf16 = 0  # the same, of the bfloat16 kernel
 fused_bn_glu_pool.launches_train_bf16 = 0
+fused_bn_glu_pool.launches_packed = 0  # train launches of either dtype that drew the packed mask
 
 
 def batch_stats(y: torch.Tensor):
@@ -338,20 +433,33 @@ batch_stats.launches = 0  # float32 launches
 batch_stats.launches_bf16 = 0  # bfloat16 launches
 
 
-def bwd_reduce(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, eps, *, rate: float = 0.0, seed=0):
-    """K2b, first pass: recompute the chain and the mask per pixel tile;
-    → (dy_partial [B,T,F,C] in y's dtype, dw [C,C], db, S1, S2 [C] in
-    float32). dout comes in y's dtype. Per-block partial sums are folded in
-    a fixed order (no float atomics). CPU: the plain version."""
-    pool = tuple(int(p) for p in pool)
-    _check(y, pool, "bwd_reduce")
+def _check_dout(y, dout, pool, what: str):
     B, T, Fq, C = y.shape
     pt, pf = pool
     if tuple(dout.shape) != (B, T // pt, Fq // pf, C):
-        raise ValueError(f"dout {tuple(dout.shape)} is not the pooled shape of y {tuple(y.shape)}")
+        raise ValueError(f"{what}: dout {tuple(dout.shape)} is not the pooled shape of y {tuple(y.shape)}")
+
+
+def bwd_reduce(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, eps, *, rate: float = 0.0, seed=0,
+               pack_bits: Optional[bool] = None, recompute: Optional[bool] = None):
+    """K2b, first pass: recompute the chain and the mask per pixel tile;
+    → (dy_partial [B,T,F,C] in y's dtype, dw [C,C], db, S1, S2 [C] in
+    float32). dout comes in y's dtype. Per-block partial sums are folded in
+    a fixed order (no float atomics). With `recompute` (default
+    RECOMPUTE_FIXUP) no dy_partial is stored and the first output is None:
+    `bwd_fixup_recompute` follows. CPU: the plain version."""
+    pool = tuple(int(p) for p in pool)
+    _check(y, pool, "bwd_reduce")
+    _check_dout(y, dout, pool, "bwd_reduce")
+    pack_bits, recompute = pack_mode(pack_bits), recompute_mode(recompute)
+    threshold, keep_scale, packed = dropout_args(rate, pack_bits)
+    B, T, Fq, C = y.shape
+    pt, pf = pool
     if y.device.type == "cpu":
-        mask = dropout_keep_mask(seed, y.shape, rate) if rate > 0.0 else None
-        return bwd_reduce_reference(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, eps, mask, 1.0 - rate)
+        mask = dropout_keep_mask(seed, y.shape, rate, pack_bits=pack_bits) if rate > 0.0 else None
+        dyp, dw, db, s1, s2 = bwd_reduce_reference(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, eps,
+                                                   mask, 1.0 - rate)
+        return (None if recompute else dyp), dw, db, s1, s2
     (s, bi, mu, va, gb), w = _vectors(y, (scale, bias, mean, var, glu_b), glu_w)
     dout = dout.to(y.dtype).contiguous()
     lib = _build.library()
@@ -361,23 +469,67 @@ def bwd_reduce(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, eps, *, rate
     width = C * C + 3 * C
     partials = torch.empty((slots, width), dtype=torch.float32, device=y.device)
     sums = torch.empty(width, dtype=torch.float32, device=y.device)
-    dyp = torch.empty_like(y)
+    dyp = None if recompute else torch.empty_like(y)
     seed_t = _seed_tensor(seed, y.device)
     status = lib.dcase_bn_glu_pool_bwd(
         y.data_ptr(), dout.data_ptr(), s.data_ptr(), bi.data_ptr(), mu.data_ptr(), va.data_ptr(),
-        w.data_ptr(), gb.data_ptr(), dyp.data_ptr(), partials.data_ptr(), sums.data_ptr(),
-        B, T, Fq, C, pt, pf, float(eps), seed_t.data_ptr(),
-        dropout_threshold(rate) if rate > 0.0 else 0, float(1.0 / (1.0 - rate)), tpb,
+        w.data_ptr(), gb.data_ptr(), None if dyp is None else dyp.data_ptr(), partials.data_ptr(),
+        sums.data_ptr(), B, T, Fq, C, pt, pf, float(eps), seed_t.data_ptr(), threshold, keep_scale, packed, tpb,
         int(y.dtype == torch.bfloat16), _build.stream_handle(y.device),
     )
     _build.check(status, "bwd_reduce")
-    _build.count_launch(bwd_reduce, "launches", y.dtype)
+    _build.count_launch(bwd_reduce, "launches_nodyp" if recompute else "launches", y.dtype)
+    count_packed(bwd_reduce, packed)
     dw, db, s1, s2 = sums[: C * C].view(C, C), sums[C * C: C * C + C], sums[C * C + C: C * C + 2 * C], sums[C * C + 2 * C:]
     return dyp, dw, db, s1, s2
 
 
-bwd_reduce.launches = 0
+bwd_reduce.launches = 0  # float32 launches that store dy_partial
 bwd_reduce.launches_bf16 = 0
+bwd_reduce.launches_nodyp = 0  # launches that store none (the recompute fixup follows)
+bwd_reduce.launches_nodyp_bf16 = 0
+bwd_reduce.launches_packed = 0  # launches of any mode that drew the packed mask
+
+
+def bwd_fixup_recompute(y, dout, scale, bias, mean, var, glu_w, glu_b, a, b, pool, eps, *, rate: float = 0.0,
+                        seed=0, pack_bits: Optional[bool] = None):
+    """K2b, second pass without dy_partial: dxn rebuilt per pixel tile from
+    y and dout (the first pass's tiles, mask and roundings), then dy =
+    inv·γ·dxn − a − (y − mean)·b in float32, rounded once to y's dtype; a, b
+    from `bwd_coefficients`. The same rate, seed and draw as the first pass.
+    CPU: the plain version."""
+    pool = tuple(int(p) for p in pool)
+    _check(y, pool, "bwd_fixup_recompute")
+    _check_dout(y, dout, pool, "bwd_fixup_recompute")
+    pack_bits = pack_mode(pack_bits)
+    threshold, keep_scale, packed = dropout_args(rate, pack_bits)
+    if y.device.type == "cpu":
+        mask = dropout_keep_mask(seed, y.shape, rate, pack_bits=pack_bits) if rate > 0.0 else None
+        return bwd_fixup_recompute_reference(y, dout, scale, bias, mean, var, glu_w, glu_b, a, b, pool, eps, mask,
+                                             1.0 - rate)
+    B, T, Fq, C = y.shape
+    pt, pf = pool
+    (s, bi, mu, va, gb, av, bv), w = _vectors(y, (scale, bias, mean, var, glu_b, a, b), glu_w)
+    dout = dout.to(y.dtype).contiguous()
+    lib = _build.library()
+    tpb = _tiles_per_block(lib.dcase_bn_glu_pool_tiles(T, Fq, pt, pf), B, _TARGET_BLOCKS_BWD)
+    dy = torch.empty_like(y)
+    seed_t = _seed_tensor(seed, y.device)
+    status = lib.dcase_bn_bwd_fixup_recompute(
+        y.data_ptr(), dout.data_ptr(), s.data_ptr(), bi.data_ptr(), mu.data_ptr(), va.data_ptr(), w.data_ptr(),
+        gb.data_ptr(), av.data_ptr(), bv.data_ptr(), dy.data_ptr(), B, T, Fq, C, pt, pf, float(eps),
+        seed_t.data_ptr(), threshold, keep_scale, packed, tpb, int(y.dtype == torch.bfloat16),
+        _build.stream_handle(y.device),
+    )
+    _build.check(status, "bwd_fixup_recompute")
+    _build.count_launch(bwd_fixup_recompute, "launches", y.dtype)
+    count_packed(bwd_fixup_recompute, packed)
+    return dy
+
+
+bwd_fixup_recompute.launches = 0
+bwd_fixup_recompute.launches_bf16 = 0
+bwd_fixup_recompute.launches_packed = 0
 
 
 def bwd_fixup(y, dy_partial, a, b, mean):
@@ -415,28 +567,37 @@ bwd_fixup.launches_bf16 = 0
 
 class _FusedBlock(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, y, scale, bias, mean, var, glu_w, glu_b, seed, rate, pool, eps, train):
+    def forward(ctx, y, scale, bias, mean, var, glu_w, glu_b, seed, rate, pool, eps, train, pack_bits, recompute):
         rate = float(rate) if train else 0.0
         seed = torch.as_tensor(seed, dtype=torch.int64).reshape(1).clone()
         ctx.save_for_backward(y, scale, bias, mean, var, glu_w, glu_b, seed)
         ctx.rate, ctx.pool, ctx.eps = rate, tuple(int(p) for p in pool), float(eps)
-        return fused_bn_glu_pool(y, scale, bias, mean, var, glu_w, glu_b, pool, eps, rate=rate, seed=seed)
+        # the modes this forward ran under: the backward regenerates its mask
+        ctx.pack_bits, ctx.recompute = pack_mode(pack_bits), recompute_mode(recompute)
+        return fused_bn_glu_pool(y, scale, bias, mean, var, glu_w, glu_b, pool, eps, rate=rate, seed=seed,
+                                 pack_bits=ctx.pack_bits)
 
     @staticmethod
     def backward(ctx, dout):
         y, scale, bias, mean, var, glu_w, glu_b, seed = ctx.saved_tensors
-        dyp, dw, db, s1, s2 = bwd_reduce(y, dout.to(y.dtype).contiguous(), scale, bias, mean, var, glu_w, glu_b,
-                                         ctx.pool, ctx.eps, rate=ctx.rate, seed=seed)
+        dout = dout.to(y.dtype).contiguous()
+        kw = dict(rate=ctx.rate, seed=seed, pack_bits=ctx.pack_bits)
+        dyp, dw, db, s1, s2 = bwd_reduce(y, dout, scale, bias, mean, var, glu_w, glu_b, ctx.pool, ctx.eps,
+                                         recompute=ctx.recompute, **kw)
         B, T, Fq, _ = y.shape
         a, b = bwd_coefficients(scale.detach().to(torch.float32), var.to(torch.float32), ctx.eps, s1, s2, B * T * Fq)
-        dy = bwd_fixup(y, dyp, a, b, mean)
+        if ctx.recompute:
+            dy = bwd_fixup_recompute(y, dout, scale, bias, mean, var, glu_w, glu_b, a, b, ctx.pool, ctx.eps, **kw)
+        else:
+            dy = bwd_fixup(y, dyp, a, b, mean)
         # dscale = S2, dbias = S1; mean/var are detached inputs; seed, rate,
-        # pool, eps, train take no gradient
-        return dy, s2, s1, None, None, dw, db, None, None, None, None, None
+        # pool, eps, train and the modes take no gradient
+        return dy, s2, s1, None, None, dw, db, None, None, None, None, None, None, None
 
 
 def fused_bn_glu_dropout_pool(y, scale, bias, mean, var, glu_w, glu_b, seed, rate: float,
-                              pool: Tuple[int, int], eps: float, train: bool):
+                              pool: Tuple[int, int], eps: float, train: bool, *,
+                              pack_bits: Optional[bool] = None, recompute: Optional[bool] = None):
     """Fused BN→GLU→dropout→avg-pool with its exact backward.
 
     y [B, T, F, C] conv output (float32 or bfloat16: the compute dtype,
@@ -444,8 +605,11 @@ def fused_bn_glu_dropout_pool(y, scale, bias, mean, var, glu_w, glu_b, seed, rat
     the running ones), passed WITHOUT a graph: the backward holds the full
     BN-training backward and returns (dy, dscale, dbias, None, None, dw,
     db). seed: int or integer tensor, new each step; `train` switches the
-    dropout on (rate is ignored in eval mode)."""
+    dropout on (rate is ignored in eval mode). `pack_bits` and `recompute`
+    (default PACK_BITS and RECOMPUTE_FIXUP, read here) are recorded for the
+    backward."""
     if mean.requires_grad or var.requires_grad:
         raise ValueError("mean and var must be detached: the backward already carries the "
                          "through-statistics terms")
-    return _FusedBlock.apply(y, scale, bias, mean, var, glu_w, glu_b, seed, rate, pool, eps, train)
+    return _FusedBlock.apply(y, scale, bias, mean, var, glu_w, glu_b, seed, rate, pool, eps, train,
+                             pack_mode(pack_bits), recompute_mode(recompute))

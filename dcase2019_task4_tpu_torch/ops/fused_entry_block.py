@@ -24,9 +24,12 @@ is where a data-parallel run would all-reduce them. d scale = S2 and
 d bias = S1. The features carry no gradient.
 
 The dropout mask is the fused block's: Philox4x32-10 on (seed, global
-element index of the [B, T, F, C] conv output / 4). So this block with a
-seed equals conv → `fused_bn_glu_dropout_pool` with that seed, outputs and
-gradients, and `fused_block.dropout_keep_mask` is the CPU twin of both. The
+element index of the [B, T, F, C] conv output / 4), or the packed 8-bit draw
+under DCASE_DROPOUT_PACK (`pack_bits=`, default `fused_block.PACK_BITS`,
+recorded by the autograd Function at its forward; packed launches counted
+in `launches_packed`). So this block with a seed equals conv →
+`fused_bn_glu_dropout_pool` with that seed and draw, outputs and gradients,
+and `fused_block.dropout_keep_mask` is the CPU twin of both. The
 parity planes, the patch basis and the lane-tiled, block-diagonal
 parameters of the original are TPU layout and are not ported.
 
@@ -60,7 +63,7 @@ values. In float32 the layouts give the same bits.
 from __future__ import annotations
 
 import contextlib
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -220,14 +223,8 @@ def _prepare(x, conv_w, conv_b, vecs, glu_w, pool, what: str):
     return x.contiguous(), w, cb, vecs, gw, pool
 
 
-def _dropout_args(rate: float):
-    if not 0.0 <= rate < 1.0:
-        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
-    return (fused_block.dropout_threshold(rate) if rate > 0.0 else 0), float(1.0 / (1.0 - rate))
-
-
-def _mask(seed, x, C, rate):
-    return fused_block.dropout_keep_mask(seed, (*x.shape, C), rate) if rate > 0.0 else None
+def _mask(seed, x, C, rate, pack_bits):
+    return fused_block.dropout_keep_mask(seed, (*x.shape, C), rate, pack_bits=pack_bits) if rate > 0.0 else None
 
 
 def entry_block_stats_apply(conv_params, x, compute_dtype=None):
@@ -249,22 +246,23 @@ entry_block_stats_apply.launches_bf16 = 0
 
 
 def entry_block_fwd(x, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, pool, eps, *,
-                    rate: float = 0.0, seed=0, layout: str = "planes"):
+                    rate: float = 0.0, seed=0, layout: str = "planes", pack_bits: Optional[bool] = None):
     """K5f, no graph: x [B, T, F(, 1)] features (float32 or bfloat16: the
     compute dtype) → pooled [B, T/pt, F/pf, C] in x's dtype; conv_w
     [3, 3, 1, C]; BN with the given mean/var; glu_w [C, C] as (in, out);
-    dropout at `rate` from `seed` (int or integer tensor) when rate > 0;
-    `layout` picks the bfloat16 pool rounding. CPU: the plain version.
-    CUDA: the kernel."""
+    dropout at `rate` from `seed` (int or integer tensor) when rate > 0, in
+    the packed draw when `pack_bits`; `layout` picks the bfloat16 pool
+    rounding. CPU: the plain version. CUDA: the kernel."""
     _check_layout(layout)
     x, w, cb, vecs, gw, pool = _prepare(x, conv_w, conv_b, (scale, bias, mean, var, glu_b), glu_w, pool,
                                         "entry_block_fwd")
-    threshold, keep_scale = _dropout_args(rate)
+    pack_bits = fused_block.pack_mode(pack_bits)
+    threshold, keep_scale, packed = fused_block.dropout_args(rate, pack_bits)
     B, T, Fq = x.shape
     C = w.shape[-1]
     if x.device.type == "cpu":
         s, bi, mu, va, gb = vecs
-        return reference_entry_block(x, w, cb, s, bi, mu, va, gw, gb, pool, eps, _mask(seed, x, C, rate),
+        return reference_entry_block(x, w, cb, s, bi, mu, va, gw, gb, pool, eps, _mask(seed, x, C, rate, pack_bits),
                                      1.0 - rate, layout).detach()
     pt, pf = pool
     lib = _build.library()
@@ -273,12 +271,13 @@ def entry_block_fwd(x, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, poo
     status = lib.dcase_entry_block_fwd(
         x.data_ptr(), w.data_ptr(), cb.data_ptr(), *(v.data_ptr() for v in vecs[:4]), gw.data_ptr(),
         vecs[4].data_ptr(), out.data_ptr(), B, T, Fq, C, pt, pf, float(eps), seed_t.data_ptr(), threshold,
-        keep_scale, fused_block._tiles_per_block(lib.dcase_bn_glu_pool_tiles(T, Fq, pt, pf), B, _TARGET_BLOCKS),
+        keep_scale, packed, fused_block._tiles_per_block(lib.dcase_bn_glu_pool_tiles(T, Fq, pt, pf), B, _TARGET_BLOCKS),
         int(x.dtype == torch.bfloat16), int(layout == "crows"), _build.stream_handle(x.device),
     )
     _build.check(status, "entry_block_fwd")
     counter = "launches_train" if rate > 0.0 else "launches_eval"
     _tally(entry_block_fwd, counter, dtype=x.dtype)
+    fused_block.count_packed(entry_block_fwd, packed)
     return out
 
 
@@ -286,6 +285,7 @@ entry_block_fwd.launches_eval = 0  # launches of the float32 forward kernel with
 entry_block_fwd.launches_train = 0  # launches with the dropout on (train mode)
 entry_block_fwd.launches_eval_bf16 = 0  # the same, of the bfloat16 kernel
 entry_block_fwd.launches_train_bf16 = 0
+entry_block_fwd.launches_packed = 0  # train launches of either dtype that drew the packed mask
 
 
 def _bwd_launch_geometry(lib, B, T, Fq, pool):
@@ -302,21 +302,22 @@ def _check_dout(x, dout, pool, C):
 
 
 def entry_block_bwd_reduce(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, pool, eps, *,
-                           rate: float = 0.0, seed=0):
+                           rate: float = 0.0, seed=0, pack_bits: Optional[bool] = None):
     """K5b1: recompute conv, chain and mask per pixel tile → (d glu_w [C, C],
     d glu_b, S1, S2 [C]) in float32; dout comes in x's dtype. Per-block
     partial sums are folded in a fixed order (no float atomics). CPU: the
     plain version."""
     x, w, cb, vecs, gw, pool = _prepare(x, conv_w, conv_b, (scale, bias, mean, var, glu_b), glu_w, pool,
                                         "entry_block_bwd_reduce")
-    threshold, keep_scale = _dropout_args(rate)
+    pack_bits = fused_block.pack_mode(pack_bits)
+    threshold, keep_scale, packed = fused_block.dropout_args(rate, pack_bits)
     B, T, Fq = x.shape
     C = w.shape[-1]
     dout = _check_dout(x, dout, pool, C)
     if x.device.type == "cpu":
         s, bi, mu, va, gb = vecs
         return entry_block_bwd_reduce_reference(x, dout, w, cb, s, bi, mu, va, gw, gb, pool, eps,
-                                                _mask(seed, x, C, rate), 1.0 - rate)
+                                                _mask(seed, x, C, rate, pack_bits), 1.0 - rate)
     pt, pf = pool
     lib = _build.library()
     tpb, slots = _bwd_launch_geometry(lib, B, T, Fq, pool)
@@ -327,33 +328,37 @@ def entry_block_bwd_reduce(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_
     status = lib.dcase_entry_block_bwd_reduce(
         x.data_ptr(), dout.data_ptr(), w.data_ptr(), cb.data_ptr(), *(v.data_ptr() for v in vecs[:4]),
         gw.data_ptr(), vecs[4].data_ptr(), partials.data_ptr(), sums.data_ptr(), B, T, Fq, C, pt, pf, float(eps),
-        seed_t.data_ptr(), threshold, keep_scale, tpb, int(x.dtype == torch.bfloat16), _build.stream_handle(x.device),
+        seed_t.data_ptr(), threshold, keep_scale, packed, tpb, int(x.dtype == torch.bfloat16),
+        _build.stream_handle(x.device),
     )
     _build.check(status, "entry_block_bwd_reduce")
     _tally(entry_block_bwd_reduce, "launches", "launches_bwd_reduce", x.dtype)
+    fused_block.count_packed(entry_block_bwd_reduce, packed)
     return sums[: C * C].view(C, C), sums[C * C: C * C + C], sums[C * C + C: C * C + 2 * C], sums[C * C + 2 * C:]
 
 
 entry_block_bwd_reduce.launches = 0
 entry_block_bwd_reduce.launches_bf16 = 0
+entry_block_bwd_reduce.launches_packed = 0
 
 
 def _launch_bwd_wgrad(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, a, b2, pool, eps, rate, seed,
-                      layout):
+                      layout, pack_bits):
     """Check, launch the kernel and its fold → (dW, d conv_b, the per-block
     slots [parts, slots, 10·C] float32 the fold read); on a CPU tensor
     (None, the arguments the plain versions take)."""
     _check_layout(layout)
     x, w, cb, vecs, gw, pool = _prepare(x, conv_w, conv_b, (scale, bias, mean, var, glu_b, a, b2), glu_w, pool,
                                         "entry_block_bwd_wgrad")
-    threshold, keep_scale = _dropout_args(rate)
+    pack_bits = fused_block.pack_mode(pack_bits)
+    threshold, keep_scale, packed = fused_block.dropout_args(rate, pack_bits)
     B, T, Fq = x.shape
     C = w.shape[-1]
     dout = _check_dout(x, dout, pool, C)
     if x.device.type == "cpu":
         s, bi, mu, va, gb, av, bv = vecs
-        return None, (x, dout, w, cb, s, bi, mu, va, gw, gb, av, bv, pool, eps, _mask(seed, x, C, rate), 1.0 - rate,
-                      layout)
+        return None, (x, dout, w, cb, s, bi, mu, va, gw, gb, av, bv, pool, eps, _mask(seed, x, C, rate, pack_bits),
+                      1.0 - rate, layout)
     pt, pf = pool
     bf16 = x.dtype == torch.bfloat16
     # 0: one part; 1: output-frequency parity; 2: batch halves (kernel and fold)
@@ -368,11 +373,12 @@ def _launch_bwd_wgrad(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, gl
     status = lib.dcase_entry_block_bwd_wgrad(
         x.data_ptr(), dout.data_ptr(), w.data_ptr(), cb.data_ptr(), *(v.data_ptr() for v in vecs[:4]),
         gw.data_ptr(), vecs[4].data_ptr(), vecs[5].data_ptr(), vecs[6].data_ptr(), partials.data_ptr(),
-        sums.data_ptr(), B, T, Fq, C, pt, pf, float(eps), seed_t.data_ptr(), threshold, keep_scale, tpb,
+        sums.data_ptr(), B, T, Fq, C, pt, pf, float(eps), seed_t.data_ptr(), threshold, keep_scale, packed, tpb,
         int(bf16), partition, _build.stream_handle(x.device),
     )
     _build.check(status, "entry_block_bwd_wgrad")
     _tally(entry_block_bwd_wgrad, "launches", "launches_bwd_wgrad", x.dtype)
+    fused_block.count_packed(entry_block_bwd_wgrad, packed)
     if partition == 2:  # the slots of the first half of the clips, then of the second
         parts = partials.view(2, slots // 2, 10 * C)
     else:
@@ -381,7 +387,7 @@ def _launch_bwd_wgrad(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, gl
 
 
 def entry_block_bwd_wgrad(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, a, b2, pool, eps, *,
-                          rate: float = 0.0, seed=0, layout: str = "planes"):
+                          rate: float = 0.0, seed=0, layout: str = "planes", pack_bits: Optional[bool] = None):
     """K5b2: recompute conv, chain, mask and dxn; dy = inv·γ·dxn − a −
     (y − mean)·b2 stays in registers → (dW [3, 3, 1, C], d conv_b [C]) in
     float32, folded in a fixed order. bfloat16: dW is the gradient of the
@@ -389,12 +395,12 @@ def entry_block_bwd_wgrad(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w
     parity, or batch halves under "crows") before they are added. CPU: the
     plain version."""
     out, plain = _launch_bwd_wgrad(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, a, b2, pool, eps,
-                                   rate, seed, layout)
+                                   rate, seed, layout, pack_bits)
     return entry_block_bwd_wgrad_reference(*plain) if out is None else out[:2]
 
 
 def entry_block_bwd_wgrad_parts(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, a, b2, pool, eps, *,
-                                rate: float = 0.0, seed=0, layout: str = "planes"):
+                                rate: float = 0.0, seed=0, layout: str = "planes", pack_bits: Optional[bool] = None):
     """`entry_block_bwd_wgrad`'s (dW, d conv_b) and, from the same launch,
     the float32 dW sums of the parts it rounds apart, [parts, 3, 3, 1, C],
     folded from the kernel's per-block slots by `_build.fold_parts`: dW is,
@@ -402,7 +408,7 @@ def entry_block_bwd_wgrad_parts(x, dout, conv_w, conv_b, scale, bias, mean, var,
     For checks on the card that the kernel splits the sum as the original
     does. CPU: the plain versions."""
     out, plain = _launch_bwd_wgrad(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, a, b2, pool, eps,
-                                   rate, seed, layout)
+                                   rate, seed, layout, pack_bits)
     if out is None:
         dw, dcb = entry_block_bwd_wgrad_reference(*plain)
         parts = entry_block_bwd_wgrad_parts_reference(*plain) if plain[0].dtype == torch.bfloat16 else [dw]
@@ -414,6 +420,7 @@ def entry_block_bwd_wgrad_parts(x, dout, conv_w, conv_b, scale, bias, mean, var,
 
 entry_block_bwd_wgrad.launches = 0
 entry_block_bwd_wgrad.launches_bf16 = 0
+entry_block_bwd_wgrad.launches_packed = 0
 
 
 # ------------------------------------------------------- autograd Function
@@ -421,20 +428,21 @@ entry_block_bwd_wgrad.launches_bf16 = 0
 
 class _EntryBlock(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, seed, rate, pool, eps, train, layout):
+    def forward(ctx, x, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, seed, rate, pool, eps, train, layout,
+                pack_bits):
         rate = float(rate) if train else 0.0
         seed = torch.as_tensor(seed, dtype=torch.int64).reshape(1).clone()
         ctx.save_for_backward(x, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, seed)
         ctx.rate, ctx.pool, ctx.eps, ctx.entry = rate, tuple(int(p) for p in pool), float(eps), _entry
-        ctx.layout = layout
+        ctx.layout, ctx.pack_bits = layout, bool(pack_bits)  # the backward regenerates this forward's mask
         return entry_block_fwd(x, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, pool, eps,
-                               rate=rate, seed=seed, layout=layout)
+                               rate=rate, seed=seed, layout=layout, pack_bits=ctx.pack_bits)
 
     @staticmethod
     def backward(ctx, dout):
         x, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, seed = ctx.saved_tensors
         args = (x, dout.to(x.dtype).contiguous(), conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b)
-        kw = dict(rate=ctx.rate, seed=seed)
+        kw = dict(rate=ctx.rate, seed=seed, pack_bits=ctx.pack_bits)
         with called_through(ctx.entry):
             dgw, dgb, s1, s2 = entry_block_bwd_reduce(*args, ctx.pool, ctx.eps, **kw)
             # between the passes: the through-statistics coefficients from the
@@ -443,12 +451,13 @@ class _EntryBlock(torch.autograd.Function):
                                                  s1, s2, x.numel())
             dw, dcb = entry_block_bwd_wgrad(*args, a, b2, ctx.pool, ctx.eps, layout=ctx.layout, **kw)
         # x carries no gradient; dscale = S2, dbias = S1; mean/var are
-        # detached inputs; seed, rate, pool, eps, train, layout take none
-        return None, dw, dcb, s2, s1, None, None, dgw, dgb, None, None, None, None, None, None
+        # detached inputs; seed, rate, pool, eps, train, layout, pack_bits take none
+        return None, dw, dcb, s2, s1, None, None, dgw, dgb, None, None, None, None, None, None, None
 
 
 def entry_block_apply(conv_params, scale, bias, mean, var, glu_w, glu_b, x, seed, rate: float,
-                      pool: Tuple[int, int], eps: float, train: bool, compute_dtype=None, layout: str = "planes"):
+                      pool: Tuple[int, int], eps: float, train: bool, compute_dtype=None, layout: str = "planes",
+                      pack_bits: Optional[bool] = None):
     """The fused first block with its exact backward: x [B, T, F, 1] + conv
     {"w": [3, 3, 1, C], "b": [C]} + [C] BatchNorm vectors + [C, C] GLU
     weight (in, out) → pooled [B, T/pt, F/pf, C] in the compute dtype (x's
@@ -458,7 +467,8 @@ def entry_block_apply(conv_params, scale, bias, mean, var, glu_w, glu_b, x, seed
     `entry_block_stats_apply`) or the running ones, passed WITHOUT a graph.
     seed: int or integer tensor, new each step; `train` switches the dropout
     on (rate is ignored in eval mode). `layout`: whose bfloat16 roundings to
-    reproduce, "planes" (this module's original) or "crows"."""
+    reproduce, "planes" (this module's original) or "crows". `pack_bits`:
+    the dropout draw (default `fused_block.PACK_BITS`, read here)."""
     _check_layout(layout)
     if mean.requires_grad or var.requires_grad:
         raise ValueError("mean and var must be detached: the backward already carries the "
@@ -466,4 +476,4 @@ def entry_block_apply(conv_params, scale, bias, mean, var, glu_w, glu_b, x, seed
     x = entry_conv._features(x)
     x = x.to(entry_conv.compute_dtype_of(compute_dtype, x))
     return _EntryBlock.apply(x, conv_params["w"], conv_params["b"], scale, bias, mean, var,
-                             glu_w, glu_b, seed, rate, pool, eps, train, layout)
+                             glu_w, glu_b, seed, rate, pool, eps, train, layout, fused_block.pack_mode(pack_bits))

@@ -14,10 +14,21 @@ the trim is lossless to float tolerance). The plain version reads the
 windowed-DFT bases whole ([n_fft, NB]); the kernel reads the window, a
 float64-built twiddle table and the mel matrix as a table of bands, all
 built once on the host by `build_bases`.
+
+DCASE_FUSED_MEL_ONEDOT=1, read at import into ONEDOT as the JAX package
+reads it (fused_mel.py:60), selects that package's other K1 kernel,
+`_kernel_onedot`: the DFT as one product against the windowed cos‖sin
+basis [n_fft, 2·NB] (`OnedotBases`, `build_onedot_bases`), the re/im split
+at NB, the magnitude and the mel product. `fused_stft_mel_onedot` launches
+its hand-written kernel (csrc/fused_mel_onedot.cu) on a CUDA tensor and runs
+`fused_stft_mel_onedot_reference` on a CPU tensor; `ops/mel.py:MelFrontend`
+picks it at construction, as the JAX frontend does. Float32 only: under a
+bfloat16 model K1 stays float32 in either variant.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -27,6 +38,9 @@ from dcase2019_task4_tpu_torch.ops import _build
 
 FFT_SIZES = (64, 4096)  # the kernel's n_fft: a power of two in this range
 MAX_MELS = 128
+
+# the JAX package's knob, read at import as there (fused_mel.py:60)
+ONEDOT = os.environ.get("DCASE_FUSED_MEL_ONEDOT") == "1"
 
 
 class FusedMelBases(NamedTuple):
@@ -182,3 +196,79 @@ def fused_stft_mel(chunks: torch.Tensor, bases: FusedMelBases, *, n_fft: int, ho
 
 
 fused_stft_mel.launches = 0
+
+
+# ------------------------------------------------ the cos‖sin basis variant
+
+
+class OnedotBases(NamedTuple):
+    """Constants of the onedot kernel (numpy arrays or tensors on one device).
+
+    dft:    [n_fft, 2·NB] windowed cosine ‖ sine basis trimmed to NB bins
+            (the JAX package's dft_main parts and dft_tail, stacked back).
+    mel_fb: [NB, M] Slaney mel matrix trimmed to NB bins.
+    """
+
+    dft: object
+    mel_fb: object
+
+
+def build_onedot_bases(cos_full: np.ndarray, sin_full: np.ndarray, mel_fb_full: np.ndarray) -> OnedotBases:
+    """The cos‖sin basis and the mel matrix trimmed to the mel-reachable
+    bins, float32, as the JAX package's build_onedot_bases builds them in
+    float32 (fused_mel.py:76)."""
+    nb = trimmed_bins(mel_fb_full)
+    dft = np.concatenate([cos_full[:, :nb], sin_full[:, :nb]], axis=1)
+    return OnedotBases(dft=np.ascontiguousarray(dft, np.float32),
+                       mel_fb=np.ascontiguousarray(mel_fb_full[:nb], np.float32))
+
+
+def fused_stft_mel_onedot_reference(chunks: torch.Tensor, bases: OnedotBases, *, n_fft: int, hop: int,
+                                    T: int) -> torch.Tensor:
+    """Plain PyTorch twin of the onedot kernel: frames from shifted hop-row
+    slices, one product against the cos‖sin basis, the split at NB, the
+    magnitude, the mel product. [B, R, hop] → [B, T, M] float32."""
+    p_full, tail = n_fft // hop, n_fft % hop
+    rows = _dequantize(chunks)
+    parts = [rows[:, p : p + T, :] for p in range(p_full)]
+    if tail:
+        parts.append(rows[:, p_full : p_full + T, :tail])
+    reim = torch.cat(parts, dim=-1) @ bases.dft  # [B, T, 2·NB]
+    nb = reim.shape[-1] // 2
+    re, im = reim[..., :nb], reim[..., nb:]
+    return torch.sqrt(re * re + im * im) @ bases.mel_fb
+
+
+def fused_stft_mel_onedot(chunks: torch.Tensor, bases: OnedotBases, *, n_fft: int, hop: int, T: int) -> torch.Tensor:
+    """chunks [B, R, hop] (R ≥ T + extra_rows; int16 PCM or float32) →
+    linear mel [B, T, M] float32 through the cos‖sin basis. CPU: the plain
+    twin. CUDA: the onedot kernel, which computes the product in its own
+    body (no cuBLAS)."""
+    B, R, hop_in = chunks.shape
+    if hop_in != hop or R < T + extra_rows(n_fft, hop):
+        raise ValueError(f"chunks {tuple(chunks.shape)} do not cover T={T} frames of n_fft={n_fft}, hop={hop}")
+    if chunks.device.type == "cpu":
+        return fused_stft_mel_onedot_reference(chunks, bases, n_fft=n_fft, hop=hop, T=T)
+    if chunks.device.type != "cuda":
+        raise ValueError(f"fused_stft_mel_onedot runs on cpu or cuda tensors, got {chunks.device}")
+    if chunks.dtype not in (torch.float32, torch.int16) or chunks.stride()[1:] != (hop, 1):
+        raise ValueError(f"chunks must be float32 or int16 with contiguous clips, got {chunks.dtype}, "
+                         f"strides {chunks.stride()}")
+    nb, M = bases.mel_fb.shape
+    if not 1 <= M <= MAX_MELS:
+        raise ValueError(f"{M} mel bands: the kernel takes 1 to {MAX_MELS}")
+    for name, t, shape in (("dft", bases.dft, (n_fft, 2 * nb)), ("mel_fb", bases.mel_fb, (nb, M))):
+        if t.device != chunks.device or t.dtype != torch.float32 or not t.is_contiguous() or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be a contiguous float32 tensor of shape {shape} on {chunks.device}")
+    out = torch.empty((B, T, M), dtype=torch.float32, device=chunks.device)
+    status = _build.library().dcase_fused_stft_mel_onedot(
+        chunks.data_ptr(), int(chunks.dtype == torch.int16), chunks.stride(0), R * hop,
+        bases.dft.data_ptr(), bases.mel_fb.data_ptr(), out.data_ptr(), B, T, hop, n_fft, nb, M,
+        _build.stream_handle(chunks.device),
+    )
+    _build.check(status, "fused_stft_mel_onedot")
+    fused_stft_mel_onedot.launches += 1
+    return out
+
+
+fused_stft_mel_onedot.launches = 0

@@ -2,7 +2,8 @@
 dcase2019_task4_tpu/ops/mel.py).
 
     audio [B, L] → reflect pad (host) → hop-row view → fused STFT→mel
-        (K1, ops/fused_mel.py) → amplitude_to_db (per-clip top_db 80 over
+        (K1, ops/fused_mel.py; its cos‖sin basis variant under
+        DCASE_FUSED_MEL_ONEDOT=1) → amplitude_to_db (per-clip top_db 80 over
         valid frames) → zeroed padding frames
 
 The numpy constant builders are framework-free copies of the JAX module's
@@ -19,11 +20,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from dcase2019_task4_tpu_torch.ops import fused_mel
 from dcase2019_task4_tpu_torch.ops.fused_mel import (
     FusedMelBases,
+    OnedotBases,
     build_bases,
+    build_onedot_bases,
     extra_rows,
     fused_stft_mel,
+    fused_stft_mel_onedot,
 )
 
 
@@ -129,7 +134,11 @@ class MelFrontend(nn.Module):
     audio batches. Arguments mirror DSPConfig. The trimmed DFT bases and
     the mel matrix serve the plain version (CPU tensors); the window,
     twiddle and band tables serve the FFT kernel (CUDA tensors). All are
-    built once here, the kernel's as non-persistent buffers."""
+    built once here, the kernel's as non-persistent buffers. `onedot`
+    (default `fused_mel.ONEDOT`, read here, as the JAX frontend picks its
+    bases at construction) selects the cos‖sin basis variant of K1 instead:
+    its basis [n_fft, 2·NB] is one more non-persistent buffer, so a
+    checkpoint does not change with the choice."""
 
     def __init__(
         self,
@@ -143,6 +152,7 @@ class MelFrontend(nn.Module):
         amin: float = 1e-5,
         top_db: float = 80.0,
         device=None,
+        onedot: Optional[bool] = None,
     ):
         super().__init__()
         self.sample_rate = sample_rate
@@ -160,11 +170,19 @@ class MelFrontend(nn.Module):
         self.register_buffer("mel_fb", torch.as_tensor(bases.mel_fb, device=device))
         for name in ("window", "twiddle", "bands", "band_weights"):
             self.register_buffer(name, torch.as_tensor(getattr(bases, name), device=device), persistent=False)
+        self.onedot = fused_mel.ONEDOT if onedot is None else bool(onedot)
+        if self.onedot:
+            dft = build_onedot_bases(cos_b, sin_b, fb).dft
+            self.register_buffer("onedot_basis", torch.as_tensor(dft, device=device), persistent=False)
 
     def bases(self) -> FusedMelBases:
         """K1's constants as the wrapper takes them."""
         return FusedMelBases(self.cos_basis, self.sin_basis, self.mel_fb, self.window, self.twiddle,
                              self.bands, self.band_weights)
+
+    def onedot_bases(self) -> OnedotBases:
+        """The onedot variant's constants (a frontend built with onedot)."""
+        return OnedotBases(self.onedot_basis, self.mel_fb)
 
     def _hop_chunks(self, padded: torch.Tensor) -> torch.Tensor:
         """[B, Lp] → hop-row view [B, T + extra_rows, hop] in the input
@@ -179,14 +197,12 @@ class MelFrontend(nn.Module):
 
     def linear_mel(self, padded: torch.Tensor) -> torch.Tensor:
         """Padded audio [B, Lp] (float32, or int16 PCM) → linear mel
-        [B, T, n_mels] through the fused STFT→mel kernel (K1)."""
-        return fused_stft_mel(
-            self._hop_chunks(padded),
-            self.bases(),
-            n_fft=self.n_window,
-            hop=self.hop_length,
-            T=self.max_frames,
-        )
+        [B, T, n_mels] through the fused STFT→mel kernel (K1), or its onedot
+        variant in a frontend built with it."""
+        kw = dict(n_fft=self.n_window, hop=self.hop_length, T=self.max_frames)
+        if self.onedot:
+            return fused_stft_mel_onedot(self._hop_chunks(padded), self.onedot_bases(), **kw)
+        return fused_stft_mel(self._hop_chunks(padded), self.bases(), **kw)
 
     def amplitude_to_db(self, mel: torch.Tensor, frame_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """librosa amplitude_to_db with ref=1: 20·log10(max(amin, x)), then

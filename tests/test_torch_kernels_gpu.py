@@ -18,7 +18,14 @@ the original packs lane copies) and K2 (window tiles included), and of the
 entry-block family (K4, K5 and the crows layout of K6, at small shapes and
 the flagship block-1 shape), against their plain versions, one
 scaled-configuration step and one flagship bfloat16 step per first-block
-configuration against the CPU.
+configuration against the CPU. Last, the JAX package's three A/B knobs:
+K1's onedot kernel (1e-5 of max), K2b's first pass without dy_partial and
+the recompute fixup (float32 1e-4 of max, and the autograd Function with the
+mode on within 1e-6 of max of its dy with it off; bfloat16 one ulp plus the
+slack of dxn's products), the packed keep-mask kernel bit for bit, K2 and
+K5 with the packed draw against their plain versions with that mask, and
+one training step with all three knobs on against the CPU, its launches
+counted.
 """
 
 import numpy as np
@@ -850,3 +857,211 @@ def test_flagship_bf16_train_step_repeats_a_cpu_step(cuda, flag):
             flag == "entry_block_crows" and name == "cnn.0.conv.weight")
         limit = 2e-2 * a.abs().max().item() + (1e-3 if gauge else 1e-6) * top
         assert (a - g_gpu[name]).abs().max().item() <= limit, name
+
+
+# ------------------------------------------- the knobs: onedot K1, recompute
+# fixup, packed dropout (DCASE_FUSED_MEL_ONEDOT, DCASE_FUSED_BWD_RECOMPUTE,
+# DCASE_DROPOUT_PACK), each against its plain version
+
+
+@pytest.mark.parametrize("n_fft,n_mels", [(64, 8), (512, 64), (2048, 64), (2048, 128), (4096, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+@pytest.mark.parametrize("frames", [96, 37])  # 37: a partial last tile
+def test_fused_stft_mel_onedot(cuda, dtype, frames, n_fft, n_mels):
+    fe = MelFrontend(n_window=n_fft, hop_length=HOPS[n_fft], n_mels=n_mels, max_frames=frames, device=cuda,
+                     onedot=True)
+    rng = np.random.default_rng(n_fft + frames)
+    audio = _t(0.2 * rng.standard_normal((3, (frames - 1) * HOPS[n_fft] + n_fft)), cuda)
+    if dtype == "int16":
+        audio = torch.clamp(torch.round(audio * 32768.0), -32768, 32767).to(torch.int16)
+    chunks = fe._hop_chunks(audio)
+    kw = dict(n_fft=n_fft, hop=HOPS[n_fft], T=frames)
+    before = (fused_mel.fused_stft_mel_onedot.launches, fused_mel.fused_stft_mel.launches)
+    out = fused_mel.fused_stft_mel_onedot(chunks, fe.onedot_bases(), **kw)
+    assert (fused_mel.fused_stft_mel_onedot.launches, fused_mel.fused_stft_mel.launches) == (before[0] + 1, before[1])
+    ref = fused_mel.fused_stft_mel_onedot_reference(chunks, fe.onedot_bases(), **kw)
+    assert out.shape == ref.shape == (3, frames, n_mels)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    # the frontend built with onedot launches it, and K1's FFT kernel not
+    mel = fe.linear_mel(audio)
+    assert (fused_mel.fused_stft_mel_onedot.launches, fused_mel.fused_stft_mel.launches) == (before[0] + 2, before[1])
+    assert torch.equal(mel, out)
+
+
+def _fixup_inputs(rng, shape, pool, cuda, dtype):
+    C = shape[-1]
+    y = _t(rng.standard_normal(shape), cuda).to(dtype)
+    scale, bias, _, _, w, b = _block_args(rng, C, cuda)
+    s, sq = fused_block.batch_stats(y)
+    n = y.numel() // C
+    mean, var = s / n, sq / n - (s / n) ** 2
+    dout = _t(rng.standard_normal((shape[0], shape[1] // pool[0], shape[2] // pool[1], C)), cuda).to(dtype)
+    return y, dout, (scale, bias, mean, var, w, b)
+
+
+@pytest.mark.parametrize("pack", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+def test_bwd_fixup_recompute_float32(cuda, shape, rate, pack):
+    """K2b without dy_partial: both passes against the plain versions (1e-4
+    of max), and the autograd Function with the mode on against itself with
+    it off (dy within 1e-6 of max; the other gradients bit for bit: the same
+    first-pass kernel)."""
+    rng = np.random.default_rng(sum(shape) + 7)
+    y, dout, vecs = _fixup_inputs(rng, shape, (2, 4), cuda, torch.float32)
+    seed = torch.tensor([31 + shape[1]])
+    fb = fused_block
+    kw = dict(rate=rate, seed=seed, pack_bits=pack)
+    before = (fb.bwd_reduce.launches, fb.bwd_reduce.launches_nodyp, fb.bwd_fixup_recompute.launches,
+              fb.bwd_reduce.launches_packed, fb.bwd_fixup_recompute.launches_packed)
+    dyp, dw, db, s1, s2 = fb.bwd_reduce(y, dout, *vecs, (2, 4), 1e-3, recompute=True, **kw)
+    assert dyp is None
+    a, b2 = fb.bwd_coefficients(vecs[0], vecs[3], 1e-3, s1, s2, y.numel() // shape[-1])
+    dy = fb.bwd_fixup_recompute(y, dout, *vecs, a, b2, (2, 4), 1e-3, **kw)
+    packed = int(pack and rate > 0)
+    assert (fb.bwd_reduce.launches, fb.bwd_reduce.launches_nodyp, fb.bwd_fixup_recompute.launches,
+            fb.bwd_reduce.launches_packed, fb.bwd_fixup_recompute.launches_packed) == (
+        before[0], before[1] + 1, before[2] + 1, before[3] + packed, before[4] + packed)
+    mask = fb.dropout_keep_mask(seed, shape, rate, device=cuda, pack_bits=pack) if rate else None
+    want = fb.bwd_fixup_recompute_reference(y, dout, *vecs, a, b2, (2, 4), 1e-3, mask, 1.0 - rate)
+    assert (dy - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    ref = fb.bwd_reduce_reference(y, dout, *vecs, (2, 4), 1e-3, mask, 1.0 - rate)
+    for name, got, w in zip(("dw", "db", "S1", "S2"), (dw, db, s1, s2), ref[1:]):
+        assert (got - w).abs().max().item() <= 1e-4 * w.abs().max().item(), name
+
+    def run(recompute):
+        leaves = [t.clone().requires_grad_(True) for t in (y, vecs[0], vecs[1], vecs[4], vecs[5])]
+        fb.fused_bn_glu_dropout_pool(leaves[0], leaves[1], leaves[2], vecs[2], vecs[3], leaves[3], leaves[4], seed,
+                                     rate, (2, 4), 1e-3, True, pack_bits=pack, recompute=recompute).backward(dout)
+        return [t.grad for t in leaves]
+
+    on, off = run(True), run(False)
+    assert (on[0] - off[0]).abs().max().item() <= 1e-6 * off[0].abs().max().item()
+    assert all(torch.equal(p, q) for p, q in zip(on[1:], off[1:]))
+    assert all(torch.equal(p, q) for p, q in zip(on, run(True)))  # a repeat: the same bits
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("shape,pool", BF16_BLOCKS + [((2, 38, 16, 64), (2, 4))])
+def test_bwd_fixup_recompute_bf16(cuda, shape, pool, rate):
+    """The bfloat16 recompute fixup against its plain version: dy within one
+    ulp plus the slack of dxn's two channel products (at most 1e-3 of the
+    elements beyond one ulp), rounded once."""
+    rng = np.random.default_rng(sum(shape) + 8)
+    y, dout, vecs = _fixup_inputs(rng, shape, pool, cuda, torch.bfloat16)
+    seed = torch.tensor([57])
+    fb = fused_block
+    before = (fb.bwd_reduce.launches_nodyp_bf16, fb.bwd_fixup_recompute.launches_bf16)
+    _, dw, db, s1, s2 = fb.bwd_reduce(y, dout, *vecs, pool, 1e-3, rate=rate, seed=seed, recompute=True)
+    a, b2 = fb.bwd_coefficients(vecs[0], vecs[3], 1e-3, s1, s2, y.numel() // shape[-1])
+    dy = fb.bwd_fixup_recompute(y, dout, *vecs, a, b2, pool, 1e-3, rate=rate, seed=seed)
+    assert (fb.bwd_reduce.launches_nodyp_bf16, fb.bwd_fixup_recompute.launches_bf16) == (before[0] + 1, before[1] + 1)
+    assert dy.dtype == torch.bfloat16
+    mask = fb.dropout_keep_mask(seed, shape, rate, device=cuda) if rate else None
+    want = fb.bwd_fixup_recompute_reference(y, dout, *vecs, a, b2, pool, 1e-3, mask, 1.0 - rate)
+    slack = _dyp_slack(y, dout, vecs[0], vecs[1], vecs[2], vecs[3], vecs[4], pool, 1.0 - rate)
+    _within_ulps(dy, want, "dy", slack + 2.0 ** -20 * want.float().abs().max())
+    assert torch.equal(dy, fb.bwd_fixup_recompute(y, dout, *vecs, a, b2, pool, 1e-3, rate=rate, seed=seed))
+
+
+@pytest.mark.parametrize("rate", [0.5, 0.3])
+@pytest.mark.parametrize("shape", [(2, 6, 8, 16), (777,), (3, 38, 16, 64), (4, 512, 128)])
+def test_packed_dropout_mask_kernel_is_bit_equal_to_the_plain_mask(cuda, shape, rate):
+    seed = torch.tensor([2020 + len(shape)])
+    before = (fused_block.dropout_mask.launches, fused_block.dropout_mask.launches_packed)
+    got = fused_block.dropout_mask(seed, shape, rate, cuda, pack_bits=True)
+    assert (fused_block.dropout_mask.launches, fused_block.dropout_mask.launches_packed) == (before[0] + 1,
+                                                                                             before[1] + 1)
+    assert torch.equal(got, fused_block.dropout_keep_mask(seed, shape, rate, device=cuda, pack_bits=True))
+    assert torch.equal(got.cpu(), fused_block.dropout_keep_mask(seed, shape, rate, pack_bits=True))
+    assert not torch.equal(got, fused_block.dropout_mask(seed, shape, rate, cuda, pack_bits=False))
+    n = got.numel()
+    if n >= 100_000:
+        p = 1.0 - fused_block.dropout_threshold(rate, True) / 256.0
+        assert abs(got.mean().item() - p) < 5.0 * np.sqrt(p * (1 - p) / n)
+
+
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+def test_fused_block_with_the_packed_mask(cuda, shape):
+    """K2f and both backward passes with the packed draw against the plain
+    versions with the packed mask injected."""
+    rng = np.random.default_rng(sum(shape) + 9)
+    y, dout, vecs = _fixup_inputs(rng, shape, (2, 4), cuda, torch.float32)
+    seed, rate = torch.tensor([123 + shape[1]]), 0.3
+    fb = fused_block
+    mask = fb.dropout_keep_mask(seed, shape, rate, device=cuda, pack_bits=True)
+    before = (fb.fused_bn_glu_pool.launches_packed, fb.bwd_reduce.launches_packed)
+    out = fb.fused_bn_glu_pool(y, *vecs, (2, 4), 1e-3, rate=rate, seed=seed, pack_bits=True)
+    torch.testing.assert_close(out, fb.reference_block(y, *vecs, (2, 4), 1e-3, mask, 1.0 - rate), rtol=0, atol=1e-5)
+    leaves = [t.clone().requires_grad_(True) for t in (y, vecs[0], vecs[1], vecs[4], vecs[5])]
+    fb.fused_bn_glu_dropout_pool(leaves[0], leaves[1], leaves[2], vecs[2], vecs[3], leaves[3], leaves[4], seed, rate,
+                                 (2, 4), 1e-3, True, pack_bits=True).backward(dout)
+    assert (fb.fused_bn_glu_pool.launches_packed, fb.bwd_reduce.launches_packed) == (before[0] + 2, before[1] + 1)
+    ref = fb.bwd_reference(y, dout, *vecs, (2, 4), 1e-3, mask, 1.0 - rate)
+    for name, leaf, w in zip(("dy", "dscale", "dbias", "dw", "db"), leaves, ref):
+        assert (leaf.grad - w).abs().max().item() <= 1e-4 * w.abs().max().item(), name
+
+
+@pytest.mark.parametrize("shape,C", [((2, 98, 64), 16), ((2, 38, 16), 64), ((24, 864, 64), 64)])
+def test_entry_block_with_the_packed_mask(cuda, shape, C):
+    """K5f, K5b1 and K5b2 with the packed draw against the plain versions
+    with the packed mask, and K5f against conv2d → K2f with the same seed
+    and draw."""
+    rng = np.random.default_rng(sum(shape) + C + 2)
+    B, T, Fq = shape
+    conv = _entry_params(rng, C, cuda)
+    scale, bias, _, _, gw, gb = _block_args(rng, C, cuda)
+    x = _t(rng.standard_normal(shape), cuda)
+    dout = _t(rng.standard_normal((B, T // 2, Fq // 4, C)), cuda)
+    seed, rate = torch.tensor([77 + T]), 0.5
+    fe = fused_entry_block
+    s, sq = fe.entry_block_stats_apply(conv, x)
+    mean = s / (B * T * Fq)
+    var = sq / (B * T * Fq) - mean * mean
+    mask = fused_block.dropout_keep_mask(seed, shape + (C,), rate, device=cuda, pack_bits=True)
+    block = (conv["w"], conv["b"], scale, bias, mean, var, gw, gb)
+    before = (fe.entry_block_fwd.launches_packed, fe.entry_block_bwd_reduce.launches_packed,
+              fe.entry_block_bwd_wgrad.launches_packed)
+    out = fe.entry_block_fwd(x, *block, (2, 4), 1e-3, rate=rate, seed=seed, pack_bits=True)
+    torch.testing.assert_close(out, fe.reference_entry_block(x, *block, (2, 4), 1e-3, mask, 1.0 - rate), rtol=0,
+                               atol=1e-5)
+    y = entry_conv.entry_conv_reference(conv, x)[0]
+    pair = fused_block.fused_bn_glu_pool(y, scale, bias, mean, var, gw, gb, (2, 4), 1e-3, rate=rate, seed=seed,
+                                         pack_bits=True)
+    torch.testing.assert_close(out, pair, rtol=0, atol=1e-5)
+    got = fe.entry_block_bwd_reduce(x, dout, *block, (2, 4), 1e-3, rate=rate, seed=seed, pack_bits=True)
+    want = fe.entry_block_bwd_reduce_reference(x, dout, *block, (2, 4), 1e-3, mask, 1.0 - rate)
+    for name, g, w in zip(("dgw", "dgb", "S1", "S2"), got, want):
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item(), name
+    a, b2 = fused_block.bwd_coefficients(scale, var, 1e-3, got[2], got[3], B * T * Fq)
+    dw, _ = fe.entry_block_bwd_wgrad(x, dout, *block, a, b2, (2, 4), 1e-3, rate=rate, seed=seed, pack_bits=True)
+    dw_ref, _ = fe.entry_block_bwd_wgrad_reference(x, dout, *block, a, b2, (2, 4), 1e-3, mask, 1.0 - rate)
+    assert (dw - dw_ref).abs().max().item() <= 1e-4 * dw_ref.abs().max().item()
+    assert (fe.entry_block_fwd.launches_packed, fe.entry_block_bwd_reduce.launches_packed,
+            fe.entry_block_bwd_wgrad.launches_packed) == tuple(b + 1 for b in before)
+
+
+@pytest.mark.parametrize("flag", [None, "entry_block_pallas"])
+def test_train_step_with_the_three_knobs_repeats_a_cpu_step(cuda, flag, monkeypatch):
+    """One Mean-Teacher step with all three knobs on (onedot K1, the
+    recompute fixup, the packed draw), on the card against the CPU; the
+    card's launches: onedot K1 and no FFT K1, the recompute fixup and no
+    stored one, every dropout launch packed."""
+    monkeypatch.setattr(fused_mel, "ONEDOT", True)
+    monkeypatch.setattr(fused_block, "RECOMPUTE_FIXUP", True)
+    monkeypatch.setattr(fused_block, "PACK_BITS", True)
+    fb, fe = fused_block, fused_entry_block
+    counters = ((fused_mel.fused_stft_mel_onedot, "launches"), (fused_mel.fused_stft_mel, "launches"),
+                (fb.bwd_fixup, "launches"), (fb.bwd_fixup_recompute, "launches"), (fb.bwd_reduce, "launches"),
+                (fb.bwd_reduce, "launches_nodyp"), (fb.fused_bn_glu_pool, "launches_train"),
+                (fb.fused_bn_glu_pool, "launches_packed"), (fe.entry_block_fwd, "launches_train"),
+                (fe.entry_block_fwd, "launches_packed"))
+    before = [getattr(f, n) for f, n in counters]
+    _step_on_the_card_against_the_cpu(cuda, flag)
+    d = dict(zip([f"{f.__name__}.{n}" for f, n in counters], (getattr(f, n) - b for (f, n), b in zip(counters, before))))
+    blocks = 2 if flag else 3  # the fused K2 blocks; block 1 is K5 under the flag
+    assert d["fused_stft_mel_onedot.launches"] == 1 and d["fused_stft_mel.launches"] == 0, d
+    assert d["bwd_fixup.launches"] == 0 and d["bwd_reduce.launches"] == 0, d
+    assert d["bwd_fixup_recompute.launches"] == d["bwd_reduce.launches_nodyp"] == blocks, d
+    assert d["fused_bn_glu_pool.launches_packed"] == d["fused_bn_glu_pool.launches_train"] == 2 * blocks, d
+    assert d["entry_block_fwd.launches_packed"] == d["entry_block_fwd.launches_train"] == (2 if flag else 0), d
