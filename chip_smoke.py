@@ -8,12 +8,15 @@ printing a result:
 
   1. card   — nvidia-smi's name and power limit, torch's device name;
   2. build  — compile csrc/*.cu with nvcc for sm_90a, one compiler per source
-     in parallel (ptxas report printed);
+     in parallel (ptxas report printed); the matrix instruction of K3's
+     bfloat16 kernels read from the library's machine code (HGMMA or HMMA,
+     with the FFMA count; a kernel with neither fails);
   3. kernels — each hand-written kernel against its plain PyTorch version on
      the card, at the flagship shapes, float32 with TF32 off: max abs error
      against a stated tolerance, median time over 10 runs after 3 warm-ups
      (CUDA events) for the kernel, for the plain version and, where one
-     PyTorch call computes the same function, for that call; the kernel's
+     PyTorch call computes the same function, for that call (K2s:
+     `torch.var_mean`); the kernel's
      bound (the larger of its bytes over 3.35 TB/s and its operations over
      67 TFLOP/s, float32 outside the tensor cores). Every kernel that folds
      per-block sums (K2b, K2s, K3w, K4f, K4w, K5s, K5b1, K5b2) runs twice and
@@ -98,7 +101,8 @@ printing a result:
      largest: bfloat16 roundings that flip between float32 sums in another
      order), then five steps at the full batch of 24 with the generator on
      the card: launches per step exact, ms per step, a torch.profiler
-     breakdown of one warm step, peak memory. Then the flagship `Config()`
+     breakdown of one warm step with K3's share of its device time, peak
+     memory. Then the flagship `Config()`
      in bfloat16 under the default first block and each first-block flag:
      step 1 at [1|2|1] on the card against its own CPU run (the scaled
      bars; under the crows flag block 1's conv weight is held as a gauge
@@ -946,7 +950,7 @@ def phase_kernels(device):
         rows["fused_bn_glu_pool_eval"].add(shape, res, y_bytes + out_bytes + small, mix_ops + 12.0 * y.numel())
 
         res = compare(f"K2s batch_stats {shape}", lambda: fb.batch_stats(y), lambda: fb.batch_stats_reference(y),
-                      rtol_of_max=1e-5, repeat=True)
+                      rtol_of_max=1e-5, repeat=True, library_fn=lambda: torch.var_mean(y, dim=(0, 1, 2), correction=0))
         rows["batch_stats"].add(shape, res, y_bytes + 2 * C * 4, 3.0 * y.numel())
         s, sq = fb.batch_stats(y)
         mean = s / pixels
@@ -1692,36 +1696,32 @@ def cold_fixup_device_ms(y, dyp, a, b2, mean, shape, l2_bytes: float = 50e6) -> 
     return on_device
 
 
-def bf16_block_kernels(device, rows, rng, cfg, suffix: str = ""):
-    """Phase 3 for the bfloat16 modes of K3 and K2 at a configuration's
-    shapes, rows named with `suffix`: the scaled configuration's (K3 at
-    blocks 2 and 3, [B, 432, 32, 128] and [B, 216, 8, 128]; K2 at the three
-    blocks, [B, 864, 128, 128] and [B, 432, 32, 128] with pool (2, 4),
-    [B, 216, 8, 128] with pool (2, 8)), or the flagship's (K3 at
-    [B, 432, 16, 64] and [B, 216, 4, 64], where its weight gradient rounds
-    per output-frequency class; K2 at [B, 864, 64, 64], [B, 432, 16, 64],
-    [B, 216, 4, 64]), batch 24, bfloat16 activations and float32 parameters,
-    as a bfloat16 model hands them over."""
+def block_geometries(cfg):
+    """(T, F) of the activation at each of the three conv blocks of `cfg`."""
+    d, m = cfg.dsp, cfg.model
+    geometries = [(d.max_frames, d.n_mels)]
+    for pt, pf in [tuple(p) for p in m.pooling][:2]:
+        geometries.append((geometries[-1][0] // pt, geometries[-1][1] // pf))
+    return geometries
+
+
+def k3_bf16_kernels(device, rows, rng, cfg, suffix: str = ""):
+    """The bfloat16 rows of K3 (forward, dx, wgrad) at blocks 2 and 3 of
+    `cfg`, batch 24: products of bfloat16 operands (9·C per output),
+    float32 sums, bytes at two a value; the weight gradient's class sums
+    read from the kernel (`check_parts`)."""
     import torch
     import torch.nn.functional as F
 
-    from dcase2019_task4_tpu_torch.ops import fused_block as fb
     from dcase2019_task4_tpu_torch.ops import packed_conv as pc
 
-    d, m = cfg.dsp, cfg.model
-    B, C, eps, rate = cfg.train.batch_size, m.nb_filters[1], m.bn_eps, m.dropout
+    B, C = cfg.train.batch_size, cfg.model.nb_filters[1]
     bf16 = torch.bfloat16
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
-    pools = [tuple(p) for p in m.pooling]
-    geometries = [(d.max_frames, d.n_mels)]
-    for pt, pf in pools[:2]:
-        geometries.append((geometries[-1][0] // pt, geometries[-1][1] // pf))
-
-    # K3: products of bfloat16 operands (9·C per output), float32 sums; bytes at two a value
-    for T, Fq in geometries[1:]:
+    for T, Fq in block_geometries(cfg)[1:]:
         lim = np.sqrt(2.0) * np.sqrt(6.0 / (18 * C))
         w, b = t(rng.uniform(-lim, lim, (3, 3, C, C))), t(0.1 * rng.standard_normal(C))
         params = {"w": w, "b": b}
@@ -1760,6 +1760,32 @@ def bf16_block_kernels(device, rows, rng, cfg, suffix: str = ""):
         del x, dy, x_cl, dy_cl
         torch.cuda.empty_cache()
 
+
+def bf16_block_kernels(device, rows, rng, cfg, suffix: str = ""):
+    """Phase 3 for the bfloat16 modes of K3 and K2 at a configuration's
+    shapes, rows named with `suffix`: the scaled configuration's (K3 at
+    blocks 2 and 3, [B, 432, 32, 128] and [B, 216, 8, 128]; K2 at the three
+    blocks, [B, 864, 128, 128] and [B, 432, 32, 128] with pool (2, 4),
+    [B, 216, 8, 128] with pool (2, 8)), or the flagship's (K3 at
+    [B, 432, 16, 64] and [B, 216, 4, 64], where its weight gradient rounds
+    per output-frequency class; K2 at [B, 864, 64, 64], [B, 432, 16, 64],
+    [B, 216, 4, 64]), batch 24, bfloat16 activations and float32 parameters,
+    as a bfloat16 model hands them over."""
+    import torch
+
+    from dcase2019_task4_tpu_torch.ops import fused_block as fb
+
+    m = cfg.model
+    B, C, eps, rate = cfg.train.batch_size, m.nb_filters[1], m.bn_eps, m.dropout
+    bf16 = torch.bfloat16
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    pools = [tuple(p) for p in m.pooling]
+    geometries = block_geometries(cfg)
+    k3_bf16_kernels(device, rows, rng, cfg, suffix)
+
     # K2 at the three blocks: the C×C channel products on bfloat16 operands, the
     # rest float32; y, dout, the pooled output, dy_partial and dy at two bytes a value
     seed = torch.tensor([20190415], dtype=torch.int64)
@@ -1782,7 +1808,7 @@ def bf16_block_kernels(device, rows, rng, cfg, suffix: str = ""):
         del slack
 
         res = compare(f"K2s batch_stats bf16 {shape}", lambda: fb.batch_stats(y), lambda: fb.batch_stats_reference(y),
-                      rtol_of_max=1e-5, repeat=True)
+                      rtol_of_max=1e-5, repeat=True, library_fn=lambda: torch.var_mean(y, dim=(0, 1, 2), correction=0))
         rows["batch_stats_bf16" + suffix].add(shape, res, y_bytes + 2 * C * 4, 3.0 * y.numel())
         s, sq = fb.batch_stats(y)
         mean = s / pixels
@@ -2762,6 +2788,9 @@ def profile_step(step, state, batch, generator, acc, card: str, step_ms: float, 
           f"{100.0 * busy_ms / step_ms:.1f} % of the {step_ms:.3f} ms step (idle {100.0 * (1.0 - busy_ms / step_ms):.1f} %)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:24]:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    k3_ms = sum(e.self_device_time_total for e in events if "conv3x3" in e.key) / 1e3
+    print(f"  K3 (forward, dx and wgrad kernels; their fold not counted): {k3_ms:.3f} ms = "
+          f"{100.0 * k3_ms / busy_ms:.1f} % of the step's device time")
     host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
     print("  the same step on the host, by self CPU time (profiler on):")
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
@@ -2772,6 +2801,29 @@ def profile_step(step, state, batch, generator, acc, card: str, step_ms: float, 
         torch.randn(noise_shape, generator=generator, device=generator.device)
     print(f"  host: drawing the teacher's noise {list(noise_shape)} from the CPU generator takes "
           f"{1e3 * (time.perf_counter() - t0) / 5:.3f} ms per step, during which the card waits")
+
+
+# K3's bfloat16 kernels: their products must be tensor-core instructions
+MMA_KERNELS = ("conv3x3_bf16_kernel", "conv3x3_wgrad_bf16_kernel")
+
+
+def check_mma(path):
+    """Which matrix instruction each of K3's bfloat16 kernels was compiled
+    to, read from the built library's machine code (`cuobjdump -sass`):
+    HGMMA (`wgmma`) or HMMA (`mma.sync`); fails if a kernel has neither.
+    FFMA counts the float32 FMAs left on the CUDA cores."""
+    from dcase2019_task4_tpu_torch.ops import _build
+
+    counts = _build.sass_counts(path, MMA_KERNELS)
+    for kernel in MMA_KERNELS:
+        found = {name: c for name, c in counts.items() if kernel in name}
+        if not found:
+            raise AssertionError(f"{kernel}: not in the machine code of {path}")
+        for name, c in found.items():
+            op = "HGMMA" if c["HGMMA"] else "HMMA" if c["HMMA"] else None
+            print(f"  {kernel} ({name[:70]}): {op or 'no MMA'}; " + ", ".join(f"{k} {v}" for k, v in c.items()))
+            if op is None:
+                raise AssertionError(f"{name}: neither HGMMA nor HMMA in its machine code")
 
 
 def main() -> int:
@@ -2808,6 +2860,7 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
     _build.library()
+    check_mma(info["path"])
 
     print("== phase 3: kernels against their plain versions (float32 with TF32 off, then bfloat16)")
     rows, helpers = phase_kernels(device)

@@ -1,68 +1,122 @@
 // K3: 3x3, stride 1, same-padding convolution on NHWC float32 or bfloat16,
 // forward, input gradient and weight gradient, for Hopper (sm_90a).
 //
-// Replaces the Pallas kernels of dcase2019_task4_tpu/ops/packed_conv.py:
-//   conv3x3_nhwc_kernel    _conv_kernel (via _run_conv / conv2d_packed), which
-//                          runs the interior convolutions of CRNN blocks 2 and
-//                          3 as nine row-shifted matmuls in the TPU's
-//                          lane-packed layout; the input gradient is the same
-//                          kernel on flipped, transposed weights
-//                          (_packed_conv_bwd with flip_parts), here too
-//   conv3x3_wgrad_kernel   _wgrad_kernel (via _run_wgrad)
+// Replaces the Pallas kernels of dcase2019_task4_tpu/ops/packed_conv.py,
+// which run the interior convolutions of CRNN blocks 2 and 3 as nine
+// row-shifted matmuls in the TPU's lane-packed layout:
+//   _conv_kernel (:122, via _run_conv :208)   forward; the input gradient is
+//                                             the same kernel on flipped,
+//                                             transposed weights
+//                                             (_packed_conv_bwd :276)
+//     float32:  conv3x3_nhwc_kernel
+//     bfloat16: conv3x3_bf16_kernel
+//   _wgrad_kernel (:147, via _run_wgrad :228) weight gradient
+//     float32:  conv3x3_wgrad_kernel
+//     bfloat16: conv3x3_wgrad_bf16_kernel
 // The packing (kron-embedded part weights, 8-row halo blocks, freq-edge row
 // masks) is TPU layout and is not carried over: these kernels work on plain
 // NHWC.
 //
 // Function: out[b,t,f,co] = bias[co]
 //   + sum_{dt,df in 0..2} sum_ci x[b, t+dt-1, f+df-1, ci] * w[dt, df, ci, co]
-// with zeros outside the time and frequency edges.
+// with zeros outside the time and frequency edges; dW[dt, df, ci, co] =
+// sum_{b,t,f} x[b, t+dt-1, f+df-1, ci] * dy[b, t, f, co], db[co] = sum dy.
 //
-// Element type: each kernel is instantiated for float32 and for bfloat16
-// activations (the model's compute dtype). In bfloat16 it rounds where the
-// JAX kernel rounds (_conv_kernel, _wgrad_kernel): x, dy and the weights are
-// bfloat16 operands (the wrapper hands the weights over already rounded,
-// as float32), every product of two bfloat16 values is exact in float32 and
-// accumulates in float32, the float32 bias is added, and out / dx are
-// stored in bfloat16; dW and db stay float32. Staged in shared memory as
-// float32 either way: the same tiles, the same arithmetic.
+// ---- bfloat16: tensor cores ----
 //
-// Bound: compute. At the flagship shapes ([24,432,16,64] and
-// [24,216,4,64]) the two convolutions are 5.4 and 2.7 GFLOP against 42 and
-// 11 MB of activations, far above the card's FLOP-per-byte balance, so the
-// FP32 FMA rate of the CUDA cores is the limit.
+// Roundings, where the JAX kernels put them (packed_conv.py:100-107, 133,
+// 135, 143-144, 169-171, 281): x, dy and the weights enter the products as
+// bfloat16 (the wrapper rounds the float32 weights to bfloat16, as the JAX
+// model casts its part-weights); each product of two bfloat16 values is
+// exact and the products accumulate in float32 (the bf16 -> f32 MMA);
+// the float32 bias is added to the float32 sum, which is rounded once to
+// bfloat16 on store (out, dx); dW and db stay float32, and in bfloat16 the
+// fold rounds each output-frequency class's dW sum before it adds them (see
+// "Lane copies" below).
 //
-// Design: implicit GEMM, one block per (tile of whole time rows holding up
-// to 128 pixels, clip, slice of 64 output channels). The block stages its
-// input rows plus a one-row, one-column halo in shared memory once; the
-// halo cells outside the tensor are written as zeros by bounds checks (no
-// padded copy in device memory). The pixel stride in shared memory is
-// Cin + 1 floats so that neighbouring pixels fall in different banks. For
-// each of the nine taps the block stages that tap's [Cin, 64] weight slice
-// (16 KB at C = 64) and every thread accumulates 8 pixels x 4 output
-// channels in registers. Plain FP32 FMAs: no TF32, no tensor cores yet.
+// Bound: operations on the bfloat16 tensor cores (989 TFLOP/s). A 3x3 conv
+// with Cin = Cout = C does 2 * 9 * C flops per output value against 4 bytes
+// of activation in and out: 576 flops a byte at C = 128, 288 at C = 64,
+// against the card's 295 flops a byte of bf16 balance. At batch 24 the
+// scaled configuration's two shapes ([24,432,32,128], [24,216,8,128]) are
+// 97.8 + 12.2 GFLOP, a bound of 0.1113 ms; the flagship bf16 shapes
+// ([24,432,16,64], [24,216,4,64]) 12.2 + 1.5 GFLOP, 0.0139 ms, on the
+// balance point (their bytes take 0.0143 ms at 3.35 TB/s). The weight
+// gradient does the same products.
 //
-// Weight gradient: dW[dt, df, ci, co] = sum_{b,t,f} x[b, t+dt-1, f+df-1, ci]
-// * dy[b, t, f, co] with zeros outside the tensor, db[co] = sum dy. Bound:
-// compute, the same 5.4 and 2.7 GFLOP as the forward. One block per (run of
-// pixel tiles, clip, time tap dt x 64-wide ci tile x 64-wide co tile): it
-// stages the dy tile and the x rows shifted by dt - 1 with a one-column halo
-// (zeros outside the tensor) and every thread keeps a 4 x 4 patch of dW for
-// each of the three frequency taps in registers (48 accumulators) across all
-// tiles of its run. The TPU kernel carries dW across its sequential grid;
-// here each block writes its patch to its own slot of a workspace (the number
-// of slots is bounded by the wrapper: a slot is 9*C*C + C floats, 147 KB at
-// C = 64) and fold_kernel (fold.cuh) adds the slots in a fixed order in
-// double precision: no float atomics, so a run repeats bit for bit.
+// Design, forward / dx (conv3x3_bf16_kernel): an implicit GEMM with
+// M = output pixels, N = Cout, K = 9 * Cin. One block takes a tile of whole
+// frequency rows holding 128 output pixels (64 where 128-pixel tiles would
+// give fewer than two waves of blocks: the flagship's F = 4 shape) and 64
+// or 128 output channels; each warp a 32-pixel x 64-channel tile
+// (2 x 8 fragments of mma.sync m16n8k16). The block stages its input rows
+// plus a one-row, one-column halo in shared memory once, as bfloat16, the
+// halo cells outside the tensor and channels past Cin as zeros: no padded
+// copy in device memory. The pixel stride is Cin rounded up to 16, plus 8
+// values: an odd number of 16-byte units, so the eight row addresses of one
+// ldmatrix fall in distinct banks wherever eight neighbouring pixels lie on
+// one frequency row. The A fragments are an im2col done by ldmatrix: each
+// lane names one pixel's row, shifted by the tap (dt, df), and lands on the
+// zero halo at the edges; the same code takes any F <= 128. The weights
+// stream through two shared buffers of one tap's [64-channel slice of Cin,
+// N] each (cp.async, the next slice loads while this one multiplies) and
+// reach the MMA through ldmatrix.trans. Epilogue: the float32 bias is added,
+// each value rounded once to bfloat16, the tile staged in shared memory and
+// stored 16 bytes a thread. No FP32-FMA loop remains: every product is an
+// HMMA. (A wgmma variant, B through a K-major shared-memory descriptor, was
+// slower at every main-path shape: PERF.md section 6.)
+//
+// Design, weight gradient (conv3x3_wgrad_bf16_kernel): nine GEMMs
+// dW[dt, df] = X_shifted^T . dY whose K runs over the pixels of one
+// output-frequency class. One block owns all nine taps of one 64-wide Cin
+// slice x 32-wide Cout slice for one class and a run of pixel tiles; warp
+// tap (0..8) keeps its 64 x 32 sum in 64 float32 registers a thread. Per
+// pixel tile the block stages the x slab (its Cin slice, with the time and
+// frequency halo) and the dy tile (its Cout slice) once, as bfloat16, into
+// one of two buffers (cp.async: the next tile loads while this one
+// multiplies), and all nine warps multiply from them: the A fragments (x
+// shifted, transposed)
+// and the B fragments (dy) come through ldmatrix.trans, one row address a
+// pixel, read from a table of the class's pixels that applies the class
+// selection (f = c mod k), the tap's shift and the halo; the tail of the
+// table points at zero rows. The warp of tap 0 in the first Cin slice also
+// sums db with an MMA against a fragment of ones. A block writes its sums
+// to its own slot of the workspace; fold.cuh folds the slots in a fixed
+// order, so a run repeats bit for bit.
+//
+// The accumulators: 128 output pixels a tile, tiles_per_block tiles a block
+// (the wrapper bounds the slots), so one float32 register sums at most a few
+// thousand products before the fold adds the slots in double precision.
+//
+// ---- float32: CUDA cores ----
+//
+// Bound: compute on the FP32 CUDA cores (67 TFLOP/s): the flagship float32
+// shapes are 12.2 + 1.5 GFLOP against 42 and 11 MB of activations.
+//
+// Design, forward: implicit GEMM, one block per (tile of whole time rows
+// holding up to 128 pixels, clip, slice of 64 output channels). The block
+// stages its input rows plus a one-row, one-column halo in shared memory
+// once, as float32 with a pixel stride of Cin + 1; for each of the nine taps
+// it stages that tap's [Cin, 64] weight slice and every thread accumulates
+// 8 pixels x 4 output channels in registers with FP32 FMAs.
+//
+// Weight gradient: one block per (run of pixel tiles, clip, time tap dt x
+// 64-wide ci tile x 64-wide co tile): it stages the dy tile and the x rows
+// shifted by dt - 1 with a one-column halo and every thread keeps a 4 x 4
+// patch of dW for each of the three frequency taps in registers across all
+// tiles of its run, written to its own slot; fold_kernel adds the slots.
 //
 // Lane copies of the weight gradient (bfloat16): at C < 128 the TPU kernel
 // packs k = 128 / C frequency columns into one 128-lane row, so each weight
 // appears k times in its part-weights, once per output-frequency class
 // f mod k, and the VJP rounds each copy's float32 sum to bfloat16 before it
 // folds the copies onto w (packed_conv.py:47-70,281). With `classes` = k the
-// kernel keeps one sum per class (a block takes the output frequencies of
-// one class: grid.z runs over the classes too), each slot holds the k class
-// sums side by side, and fold_classes_kernel rounds each class's total to
-// the compute dtype and adds the rounded totals (db is not rounded).
+// kernel keeps one sum per class (grid.z runs over the classes too), each
+// slot holds the k class sums side by side, and fold_classes_kernel rounds
+// each class's total to bfloat16 and adds the rounded totals (db is not
+// rounded).
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -72,13 +126,14 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPix = 128;   // output pixels per block
-constexpr int kCoTile = 64; // output channels per block
+constexpr int kPix = 128;   // output pixels per tile
+constexpr int kCoTile = 64; // output channels per float32 block
 
-template <typename TX>
+// ---- float32 kernels ----
+
 __global__ void __launch_bounds__(kThreads)
-conv3x3_nhwc_kernel(const TX* __restrict__ x, const float* __restrict__ w,
-                    const float* __restrict__ bias, TX* __restrict__ out,
+conv3x3_nhwc_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ bias, float* __restrict__ out,
                     int T, int F, int Cin, int Cout, int rows) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
@@ -98,7 +153,7 @@ conv3x3_nhwc_kernel(const TX* __restrict__ x, const float* __restrict__ w,
     const int t = t0 - 1 + tr, f = fc - 1;
     float v = 0.0f;
     if (t >= 0 && t < T && f >= 0 && f < F)
-      v = to_float(x[(((long long)b * T + t) * F + f) * Cin + ci]);
+      v = x[(((long long)b * T + t) * F + f) * Cin + ci];
     xs[cell * CP + ci] = v;
   }
 
@@ -142,7 +197,7 @@ conv3x3_nhwc_kernel(const TX* __restrict__ x, const float* __restrict__ w,
     }
   }
 
-  TX* ob = out + ((long long)b * T + t0) * F * Cout;
+  float* ob = out + ((long long)b * T + t0) * F * Cout;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     if (!pval[i]) continue;
@@ -150,25 +205,22 @@ conv3x3_nhwc_kernel(const TX* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int co = co0 + cg + 16 * j;
-      if (co < Cout) ob[(long long)p * Cout + co] = from_float<TX>(acc[i][j] + bias[co]);
+      if (co < Cout) ob[(long long)p * Cout + co] = acc[i][j] + bias[co];
     }
   }
 }
 
-// grid: (runs of tiles, B, classes * 3 * n_ct * n_ct); slot = b * gridDim.x
-// + run, of classes * (9*C*C + C) floats: one sum per output-frequency class.
-template <typename TX>
+// grid: (runs of tiles, B, 3 * n_ct * n_ct); slot = b * gridDim.x + run, of
+// 9*C*C + C floats.
 __global__ void __launch_bounds__(kThreads)
-conv3x3_wgrad_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
+conv3x3_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                      float* __restrict__ partials, int T, int F, int C, int rows,
-                     int tiles_per_block, int n_ct, int classes) {
+                     int tiles_per_block, int n_ct) {
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
-  const int per_class = 3 * n_ct * n_ct;
-  const int cls = blockIdx.z / per_class;  // output frequencies f = cls mod classes
-  const int dt = (blockIdx.z % per_class) % 3;
-  const int ct = (blockIdx.z % per_class) / 3;
+  const int dt = blockIdx.z % 3;
+  const int ct = blockIdx.z / 3;
   const int ci0 = (ct / n_ct) * kCoTile, co0 = (ct % n_ct) * kCoTile;
   const int W2 = F + 2;
   const int CP = kCoTile + 1;
@@ -202,17 +254,17 @@ conv3x3_wgrad_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
       const int t = t0 + r + dt - 1, f = fc - 1, ci = ci0 + c;
       float v = 0.0f;
       if (r < trows && t >= 0 && t < T && f >= 0 && f < F && ci < C)
-        v = to_float(x[(((long long)b * T + t) * F + f) * C + ci]);
+        v = x[(((long long)b * T + t) * F + f) * C + ci];
       xs[cell * CP + c] = v;
     }
     for (int i = tid; i < trows * F * kCoTile; i += kThreads) {
       const int c = i % kCoTile, p = i / kCoTile;
       const int co = co0 + c;
-      dys[p * CP + c] = co < C ? to_float(dy[(((long long)b * T + t0) * F + p) * C + co]) : 0.0f;
+      dys[p * CP + c] = co < C ? dy[(((long long)b * T + t0) * F + p) * C + co] : 0.0f;
     }
     __syncthreads();
     for (int r = 0; r < trows; ++r)
-      for (int f = cls; f < F; f += classes) {
+      for (int f = 0; f < F; ++f) {
         const float* xc = xs + (r * W2 + f) * CP + ca;
         const float* dc = dys + (r * F + f) * CP + cb;
         float dv[4];
@@ -236,7 +288,7 @@ conv3x3_wgrad_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
   }
 
   const int slot = b * gridDim.x + blockIdx.x;
-  float* ps = partials + ((long long)slot * classes + cls) * (9 * C * C + C);
+  float* ps = partials + (long long)slot * (9 * C * C + C);
 #pragma unroll
   for (int d = 0; d < 3; ++d)
 #pragma unroll
@@ -253,47 +305,485 @@ conv3x3_wgrad_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
   }
 }
 
-template <typename TX>
-int launch_conv(const void* x, const void* w, const void* bias, void* out, int B, int T, int F,
-                int Cin, int Cout, cudaStream_t stream) {
+// ---- bfloat16 kernels: mma.sync m16n8k16 (bf16 x bf16 -> f32) ----
+
+using bf16 = __nv_bfloat16;
+constexpr int kRowPad = 8;  // bfloat16 values past each shared row: an odd number of 16-byte units
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a (16 x 16, row) . b (16 x 8, col), bfloat16 operands, float32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Eight bfloat16 values into 16 aligned bytes of shared memory: the first n
+// (0..8) from src, zeros after. With vec (src 16-byte aligned) and n == 8 an
+// asynchronous copy, else loads of the n values and one 16-byte store.
+__device__ __forceinline__ void stage8(bf16* dst, const bf16* src, int n, bool vec) {
+  if (vec && n == 8) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+                 : "memory");
+    return;
+  }
+  const auto* s = reinterpret_cast<const unsigned short*>(src);
+  uint32_t v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t lo = 2 * i < n ? s[2 * i] : 0u;
+    const uint32_t hi = 2 * i + 1 < n ? s[2 * i + 1] : 0u;
+    v[i] = lo | (hi << 16);
+  }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// One block: WM x WN warps, each a 32-pixel x 64-channel tile; kM = 32 WM
+// pixels (whole frequency rows: rows = kM / F), kN = 64 WN output channels.
+// Dynamic shared memory: the x slab [(rows+2) * (F+2)][cin_p + 8] and two
+// weight buffers [kc][kN + 8], bfloat16; the output tile [kM][kN + 8]
+// reuses it after the products.
+template <int WM, int WN>
+__global__ void __launch_bounds__(32 * WM * WN, 2)
+conv3x3_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                    const float* __restrict__ bias, bf16* __restrict__ out, int T, int F, int Cin,
+                    int Cout, int rows, int cin_p, int kc, int vec_x, int vec_w, int vec_o) {
+  constexpr int kM = 32 * WM, kN = 64 * WN, kThr = 32 * WM * WN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int t0 = blockIdx.x * rows, b = blockIdx.y, co0 = blockIdx.z * kN;
+  const int W2 = F + 2;
+  const int XS = cin_p + kRowPad, WS = kN + kRowPad;
+  const int n_cells = (rows + 2) * W2;
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ws = xs + n_cells * XS;
+  const int nkc = cin_p / kc;  // weight slices per tap
+  const int n_stages = 9 * nkc;
+
+  // the slab: input rows t0 - 1 .. t0 + rows, columns -1 .. F, zeros outside
+  const int c8 = cin_p / 8;
+  for (int i = tid; i < n_cells * c8; i += kThr) {
+    const int ch = i % c8, cell = i / c8;
+    const int t = t0 - 1 + cell / W2, f = cell % W2 - 1;
+    int n = 0;
+    const bf16* src = x;
+    if (t >= 0 && t < T && f >= 0 && f < F) {
+      n = min(8, Cin - ch * 8);
+      src = x + (((long long)b * T + t) * F + f) * Cin + ch * 8;
+    }
+    stage8(xs + cell * XS + ch * 8, src, n, vec_x);
+  }
+  // weight slice s (tap s / nkc, input channels (s % nkc) * kc ..) into buffer buf
+  auto load_w = [&](int s, int buf) {
+    const int tap = s / nkc, ci0 = (s % nkc) * kc;
+    bf16* dst = ws + buf * kc * WS;
+    constexpr int n8 = kN / 8;
+    for (int i = tid; i < kc * n8; i += kThr) {
+      const int ch = i % n8, r = i / n8;
+      const int ci = ci0 + r, co = co0 + ch * 8;
+      int n = 0;
+      const bf16* src = w;
+      if (ci < Cin && co < Cout) {
+        n = min(8, Cout - co);
+        src = w + ((long long)tap * Cin + ci) * Cout + co;
+      }
+      stage8(dst + r * WS + ch * 8, src, n, vec_w);
+    }
+  };
+  load_w(0, 0);
+  cp_async_commit();
+
+  // A (pixels x input channels): lane -> pixel row lane % 16 of each
+  // 16-pixel fragment, channel offset (lane / 16) * 8; pixels past the tile
+  // read pixel 0 (their sums are not stored)
+  const int wm = warp % WM, wn = warp / WM;
+  const int npix = rows * F;
+  int acell[2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    int p = wm * 32 + mt * 16 + lane % 16;
+    if (p >= npix) p = 0;
+    acell[mt] = (p / F) * W2 + p % F;
+  }
+  const int a_off = (lane / 16) * 8;
+  // B (input channels x output channels, row-major in shared memory): lane ->
+  // k row (lane % 8) + 8 ((lane / 8) % 2), column offset 8 (lane / 16)
+  const int b_row = lane % 8 + ((lane / 8) % 2) * 8;
+  const int b_col = wn * 64 + (lane / 16) * 8;
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+
+  for (int s = 0; s < n_stages; ++s) {
+    cp_async_wait_all();
+    __syncthreads();  // slice s landed; every warp is done with slice s - 1's buffer
+    if (s + 1 < n_stages) {
+      load_w(s + 1, (s + 1) & 1);
+      cp_async_commit();
+    }
+    const int tap = s / nkc, ci0 = (s % nkc) * kc;
+    const int toff = (tap / 3) * W2 + tap % 3;
+    const bf16* wb = ws + (s & 1) * kc * WS;
+    uint32_t a_base[2];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) a_base[mt] = smem_addr(xs + (acell[mt] + toff) * XS + ci0 + a_off);
+    const uint32_t b_base = smem_addr(wb + b_row * WS + b_col);
+    for (int k = 0; k < kc; k += 16) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) ldmatrix_x4(a[mt], a_base[mt] + 2 * k);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bq[4];
+        ldmatrix_x4_trans(bq, b_base + 2 * (k * WS + np * 16));
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_bf16(acc[mt][2 * np], a[mt], bq[0], bq[1]);
+          mma_bf16(acc[mt][2 * np + 1], a[mt], bq[2], bq[3]);
+        }
+      }
+    }
+  }
+
+  // epilogue: + bias, one rounding to bfloat16, staged, 16 bytes a thread
+  __syncthreads();  // every warp is done reading the slab and the weights
+  bf16* os = xs;    // [kM][kN + 8]
+  const int OS = kN + kRowPad;
+  const int g = lane / 4, q = lane % 4;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int col = wn * 64 + nt * 8 + 2 * q;
+    const float b0 = co0 + col < Cout ? bias[co0 + col] : 0.0f;
+    const float b1 = co0 + col + 1 < Cout ? bias[co0 + col + 1] : 0.0f;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int row = wm * 32 + mt * 16 + g;
+      *reinterpret_cast<__nv_bfloat162*>(os + row * OS + col) =
+          __floats2bfloat162_rn(acc[mt][nt][0] + b0, acc[mt][nt][1] + b1);
+      *reinterpret_cast<__nv_bfloat162*>(os + (row + 8) * OS + col) =
+          __floats2bfloat162_rn(acc[mt][nt][2] + b0, acc[mt][nt][3] + b1);
+    }
+  }
+  __syncthreads();
+  constexpr int n8 = kN / 8;
+  for (int i = tid; i < kM * n8; i += kThr) {
+    const int ch = i % n8, p = i / n8;
+    const int co = co0 + ch * 8;
+    if (p >= npix || t0 + p / F >= T || co >= Cout) continue;
+    bf16* dst = out + (((long long)b * T + t0) * F + p) * Cout + co;
+    const bf16* src = os + p * OS + ch * 8;
+    if (vec_o && co + 8 <= Cout) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int j = 0; j < min(8, Cout - co); ++j) dst[j] = src[j];
+    }
+  }
+}
+
+constexpr int kWgWarps = 9;                // one warp per tap
+constexpr int kWgThreads = 32 * kWgWarps;
+constexpr int kWgCi = 64, kWgCo = 32;      // a block's input x output channel slice
+constexpr int kWgXS = kWgCi + kRowPad;     // shared row strides (bfloat16)
+constexpr int kWgYS = kWgCo + kRowPad;
+
+// grid: (runs of tiles, B, classes * n_ci * n_co); slot = b * gridDim.x +
+// run, of classes * (9*C*C + C) floats: one sum per output-frequency class.
+// Dynamic shared memory: two buffers each of the x slab [(rows+2) * (F+2) +
+// 1][72] (a zero cell last) and of the dy tile [kPix + 1][40] (a zero row
+// last), bfloat16, and the class's pixel table (x cell, dy row) [kPix] x 2
+// ints.
+__global__ void __launch_bounds__(kWgThreads, 2)
+conv3x3_wgrad_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+                          float* __restrict__ partials, int T, int F, int C, int rows,
+                          int tiles_per_block, int n_ci, int n_co, int classes, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x, lane = tid % 32, tap = tid / 32;
+  const int b = blockIdx.y;
+  const int per_class = n_ci * n_co;
+  const int cls = blockIdx.z / per_class;
+  const int ci0 = ((blockIdx.z % per_class) / n_co) * kWgCi;
+  const int co0 = ((blockIdx.z % per_class) % n_co) * kWgCo;
+  const int W2 = F + 2;
+  const int n_cells = (rows + 2) * W2;  // time halo rows included
+  const int zero_cell = n_cells;        // a zero cell follows the slab
+  const int x_buf = (n_cells + 1) * kWgXS, y_buf = (kPix + 1) * kWgYS;
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // [2][x_buf]
+  bf16* ys = xs + 2 * x_buf;                     // [2][y_buf]
+  int* xcell = reinterpret_cast<int*>(ys + 2 * y_buf);
+  int* yrow = xcell + kPix;
+
+  // the class's pixels of a tile, in order; past them -1 (the zero cell)
+  // and the zero row
+  const int per_row = F / classes;
+  const int cnt = rows * per_row;
+  for (int j = tid; j < kPix; j += kWgThreads) {
+    if (j < cnt) {
+      const int r = j / per_row, f = cls + classes * (j % per_row);
+      xcell[j] = r * W2 + f;  // top-left tap of the window: x[t - 1, f - 1]
+      yrow[j] = r * F + f;
+    } else {
+      xcell[j] = -1;
+      yrow[j] = kPix;
+    }
+  }
+  for (int i = tid; i < 2 * (kWgXS / 8); i += kWgThreads)
+    *reinterpret_cast<uint4*>(xs + (i / (kWgXS / 8)) * x_buf + zero_cell * kWgXS + (i % (kWgXS / 8)) * 8) =
+        make_uint4(0, 0, 0, 0);
+  for (int i = tid; i < 2 * (kWgYS / 8); i += kWgThreads)
+    *reinterpret_cast<uint4*>(ys + (i / (kWgYS / 8)) * y_buf + kPix * kWgYS + (i % (kWgYS / 8)) * 8) =
+        make_uint4(0, 0, 0, 0);
+
+  // pixel tile `tile` (its x slab and dy tile) into buffer buf
+  auto stage_tile = [&](int tile, int buf) {
+    const int t0 = tile * rows, trows = min(rows, T - t0);
+    bf16* xb = xs + buf * x_buf;
+    bf16* yb = ys + buf * y_buf;
+    for (int i = tid; i < n_cells * (kWgCi / 8); i += kWgThreads) {
+      const int ch = i % (kWgCi / 8), cell = i / (kWgCi / 8);
+      const int t = t0 - 1 + cell / W2, f = cell % W2 - 1, ci = ci0 + ch * 8;
+      int n = 0;
+      const bf16* src = x;
+      if (t >= 0 && t < T && f >= 0 && f < F && ci < C) {
+        n = min(8, C - ci);
+        src = x + (((long long)b * T + t) * F + f) * C + ci;
+      }
+      stage8(xb + cell * kWgXS + ch * 8, src, n, vec);
+    }
+    for (int i = tid; i < kPix * (kWgCo / 8); i += kWgThreads) {
+      const int ch = i % (kWgCo / 8), p = i / (kWgCo / 8), co = co0 + ch * 8;
+      int n = 0;
+      const bf16* src = dy;
+      if (p < trows * F && co < C) {
+        n = min(8, C - co);
+        src = dy + (((long long)b * T + t0) * F + p) * C + co;
+      }
+      stage8(yb + p * kWgYS + ch * 8, src, n, vec);
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+  float dbacc[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dbacc[nt][e] = 0.0f;
+  const bool owns_db = tap == 0 && ci0 == 0;
+  const uint32_t ones[4] = {0x3F803F80u, 0x3F803F80u, 0x3F803F80u, 0x3F803F80u};  // bfloat16 1.0
+
+  const int toff = (tap / 3) * W2 + tap % 3;
+  // A = x^T (input channels x pixels): lane -> pixel (lane % 8) + 8 (lane / 16),
+  // channel offset 8 ((lane / 8) % 2); B = dy (pixels x output channels): lane
+  // -> pixel (lane % 8) + 8 ((lane / 8) % 2), channel offset 8 (lane / 16)
+  const int a_pix = lane % 8 + (lane / 16) * 8, a_off = ((lane / 8) % 2) * 8;
+  const int b_pix = lane % 8 + ((lane / 8) % 2) * 8, b_off = (lane / 16) * 8;
+
+  const int n_tiles = (T + rows - 1) / rows;
+  const int first = blockIdx.x * tiles_per_block;
+  const int last = min(n_tiles, first + tiles_per_block);
+  if (first < last) stage_tile(first, 0);
+  cp_async_commit();
+  for (int tile = first; tile < last; ++tile) {
+    const int buf = (tile - first) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // this tile landed; every warp is done with the other buffer
+    if (tile + 1 < last) {  // the next tile loads while this one multiplies
+      stage_tile(tile + 1, buf ^ 1);
+      cp_async_commit();
+    }
+    const bf16* xb = xs + buf * x_buf;
+    const bf16* yb = ys + buf * y_buf;
+    const int steps = (min(rows, T - tile * rows) * per_row + 15) / 16;
+    for (int ks = 0; ks < steps; ++ks) {
+      const int xc = xcell[ks * 16 + a_pix];
+      const uint32_t a_base = smem_addr(xb + (xc < 0 ? zero_cell : xc + toff) * kWgXS + a_off);
+      const uint32_t b_base = smem_addr(yb + yrow[ks * 16 + b_pix] * kWgYS + b_off);
+      uint32_t bq[2][4];
+#pragma unroll
+      for (int np = 0; np < 2; ++np) ldmatrix_x4_trans(bq[np], b_base + 2 * 16 * np);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        uint32_t a[4];
+        ldmatrix_x4_trans(a, a_base + 2 * 16 * mt);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          mma_bf16(acc[mt][2 * np], a, bq[np][0], bq[np][1]);
+          mma_bf16(acc[mt][2 * np + 1], a, bq[np][2], bq[np][3]);
+        }
+      }
+      if (owns_db) {
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          mma_bf16(dbacc[2 * np], ones, bq[np][0], bq[np][1]);
+          mma_bf16(dbacc[2 * np + 1], ones, bq[np][2], bq[np][3]);
+        }
+      }
+    }
+  }
+
+  // row g (input channel), columns 2q, 2q + 1 (output channels) of each fragment
+  const int slot = b * gridDim.x + blockIdx.x;
+  const long long width = 9LL * C * C + C;
+  float* ps = partials + ((long long)slot * classes + cls) * width;
+  const int g = lane / 4, q = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int ci = ci0 + mt * 16 + g + 8 * h, co = co0 + nt * 8 + 2 * q;
+        if (ci >= C) continue;
+        float* dst = ps + ((long long)tap * C + ci) * C + co;
+        if (co < C) dst[0] = acc[mt][nt][2 * h];
+        if (co + 1 < C) dst[1] = acc[mt][nt][2 * h + 1];
+      }
+  if (owns_db && g == 0) {  // every row of ones . dy holds the column sums
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int co = co0 + nt * 8 + 2 * q;
+      if (co < C) ps[9LL * C * C + co] = dbacc[nt][0];
+      if (co + 1 < C) ps[9LL * C * C + co + 1] = dbacc[nt][1];
+    }
+  }
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+int launch_conv_f32(const void* x, const void* w, const void* bias, void* out, int B, int T,
+                    int F, int Cin, int Cout, cudaStream_t stream) {
   const int rows = kPix / F;
   const size_t smem =
       sizeof(float) * ((size_t)(rows + 2) * (F + 2) * (Cin + 1) + (size_t)Cin * kCoTile);
   cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_nhwc_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      conv3x3_nhwc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + rows - 1) / rows, B, (Cout + kCoTile - 1) / kCoTile);
-  conv3x3_nhwc_kernel<TX><<<grid, kThreads, smem, stream>>>(
-      static_cast<const TX*>(x), static_cast<const float*>(w), static_cast<const float*>(bias),
-      static_cast<TX*>(out), T, F, Cin, Cout, rows);
+  conv3x3_nhwc_kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const float*>(bias),
+      static_cast<float*>(out), T, F, Cin, Cout, rows);
   return (int)cudaGetLastError();
 }
 
-template <typename TX>
-int launch_wgrad(const void* x, const void* dy, void* partials, void* out, int B, int T, int F,
-                 int C, int tiles_per_block, int classes, cudaStream_t st) {
-  const int rows = kPix / F;
-  const size_t smem =
-      sizeof(float) * ((size_t)rows * (F + 2) + (size_t)kPix) * (kCoTile + 1);
+template <int WM, int WN>
+int launch_conv_bf16_tile(const bf16* x, const bf16* w, const float* bias, bf16* out, int B,
+                          int T, int F, int Cin, int Cout, cudaStream_t stream) {
+  constexpr int kM = 32 * WM, kN = 64 * WN;
+  const int rows = kM / F;
+  // input channels padded to a multiple of 16 (32 above 64) and taken in slices of at most 64
+  const int cin_p = Cin <= 64 ? (Cin + 15) / 16 * 16 : (Cin + 31) / 32 * 32;
+  const int kc = cin_p <= 64 ? cin_p : cin_p / 2;
+  const size_t body = 2 * ((size_t)(rows + 2) * (F + 2) * (cin_p + kRowPad) +
+                           2 * (size_t)kc * (kN + kRowPad));
+  const size_t tile = 2 * (size_t)kM * (kN + kRowPad);
+  const size_t smem = body > tile ? body : tile;
   cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_wgrad_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      conv3x3_bf16_kernel<WM, WN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
+  const dim3 grid((T + rows - 1) / rows, B, (Cout + kN - 1) / kN);
+  conv3x3_bf16_kernel<WM, WN><<<grid, 32 * WM * WN, smem, stream>>>(
+      x, w, bias, out, T, F, Cin, Cout, rows, cin_p, kc, Cin % 8 == 0 && aligned16(x),
+      Cout % 8 == 0 && aligned16(w), Cout % 8 == 0 && aligned16(out));
+  return (int)cudaGetLastError();
+}
+
+int launch_conv_bf16(const void* xv, const void* wv, const void* biasv, void* outv, int B, int T,
+                     int F, int Cin, int Cout, cudaStream_t st) {
+  const auto* x = static_cast<const bf16*>(xv);
+  const auto* w = static_cast<const bf16*>(wv);
+  const auto* bias = static_cast<const float*>(biasv);
+  auto* out = static_cast<bf16*>(outv);
+  const bool wide = Cout > 64;  // 128 output channels a block, else 64
+  const int rows = kPix / F, kN = wide ? 128 : 64;
+  const long long blocks = (long long)((T + rows - 1) / rows) * B * ((Cout + kN - 1) / kN);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const bool half = F <= 64 && blocks < 2 * sms;  // 64-pixel tiles: more blocks
+  if (wide)
+    return half ? launch_conv_bf16_tile<2, 2>(x, w, bias, out, B, T, F, Cin, Cout, st)
+                : launch_conv_bf16_tile<4, 2>(x, w, bias, out, B, T, F, Cin, Cout, st);
+  return half ? launch_conv_bf16_tile<2, 1>(x, w, bias, out, B, T, F, Cin, Cout, st)
+              : launch_conv_bf16_tile<4, 1>(x, w, bias, out, B, T, F, Cin, Cout, st);
+}
+
+int launch_wgrad(const void* x, const void* dy, void* partials, void* out, int B, int T, int F,
+                 int C, int tiles_per_block, int bf16_mode, int classes, cudaStream_t st) {
+  const int rows = kPix / F;
   const int n_tiles = (T + rows - 1) / rows;
-  const int n_ct = (C + kCoTile - 1) / kCoTile;
   const int n_classes = classes > 0 ? classes : 1;
-  const dim3 grid((n_tiles + tiles_per_block - 1) / tiles_per_block, B, n_classes * 3 * n_ct * n_ct);
-  conv3x3_wgrad_kernel<TX><<<grid, kThreads, smem, st>>>(
-      static_cast<const TX*>(x), static_cast<const TX*>(dy), static_cast<float*>(partials), T, F, C,
-      rows, tiles_per_block, n_ct, n_classes);
+  const int runs = (n_tiles + tiles_per_block - 1) / tiles_per_block;
+  cudaError_t err;
+  if (bf16_mode) {
+    const size_t smem = 4 * ((size_t)((rows + 2) * (F + 2) + 1) * kWgXS + (size_t)(kPix + 1) * kWgYS) +
+                        2 * sizeof(int) * kPix;  // two buffers of bfloat16, the pixel table
+    err = cudaFuncSetAttribute(conv3x3_wgrad_bf16_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int n_ci = (C + kWgCi - 1) / kWgCi, n_co = (C + kWgCo - 1) / kWgCo;
+    const dim3 grid(runs, B, n_classes * n_ci * n_co);
+    conv3x3_wgrad_bf16_kernel<<<grid, kWgThreads, smem, st>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(dy), static_cast<float*>(partials),
+        T, F, C, rows, tiles_per_block, n_ci, n_co, n_classes,
+        C % 8 == 0 && aligned16(x) && aligned16(dy));
+  } else {
+    const size_t smem = sizeof(float) * ((size_t)rows * (F + 2) + (size_t)kPix) * (kCoTile + 1);
+    err = cudaFuncSetAttribute(conv3x3_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int n_ct = (C + kCoTile - 1) / kCoTile;
+    const dim3 grid(runs, B, 3 * n_ct * n_ct);
+    conv3x3_wgrad_kernel<<<grid, kThreads, smem, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(dy), static_cast<float*>(partials),
+        T, F, C, rows, tiles_per_block, n_ct);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const auto* pa = static_cast<const float*>(partials);
   auto* o = static_cast<float*>(out);
   const int width = 9 * C * C + C;
+  const int slots = runs * B;
   if (classes == 0)  // one float32 sum, not rounded
-    return (int)launch_fold<float>(pa, o, (int)(grid.x * grid.y), width, st);
-  return (int)launch_fold_classes<float, TX>(pa, o, (int)(grid.x * grid.y), width, classes,
-                                             (long long)classes * width, width, 9 * C * C, st);
+    return (int)launch_fold<float>(pa, o, slots, width, st);
+  return (int)launch_fold_classes<float, bf16>(pa, o, slots, width, classes,
+                                               (long long)classes * width, width, 9 * C * C, st);
 }
 
 }  // namespace
@@ -301,37 +791,31 @@ int launch_wgrad(const void* x, const void* dy, void* partials, void* out, int B
 extern "C" {
 
 // x: [B, T, F, Cin]; w: [3, 3, Cin, Cout] (HWIO); bias: [Cout];
-// out: [B, T, F, Cout]; contiguous. x and out float32, or bfloat16 when
-// bf16 != 0; w (already rounded to the compute dtype) and bias float32.
-// F <= 128 (one block's pixel tile holds whole frequency rows); the caller
-// checks that the shared memory below fits (ops/packed_conv.py:applicable).
+// out: [B, T, F, Cout]; contiguous. x, w and out float32, or bfloat16 when
+// bf16 != 0; bias float32. F <= 128 (one block's pixel tile holds whole
+// frequency rows); the caller checks that the shared memory fits
+// (ops/packed_conv.py:applicable).
 int dcase_conv3x3(const void* x, const void* w, const void* bias, void* out, int B,
                   int T, int F, int Cin, int Cout, int bf16, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_conv<__nv_bfloat16>(x, w, bias, out, B, T, F, Cin, Cout, st)
-              : launch_conv<float>(x, w, bias, out, B, T, F, Cin, Cout, st);
+  return bf16 ? launch_conv_bf16(x, w, bias, out, B, T, F, Cin, Cout, st)
+              : launch_conv_f32(x, w, bias, out, B, T, F, Cin, Cout, st);
 }
 
 // x, dy: [B, T, F, C], float32 or (bf16 != 0) bfloat16; partials:
 // [B * ceil(tiles / tiles_per_block), max(classes, 1) * (9*C*C + C)] float32
-// scratch; out: [9*C*C + C] float32 = dW [3, 3, C, C] (HWIO) | db [C]; all
-// contiguous. F <= 128. classes 0: dW is the float32 sum; classes k >= 1:
-// dW is the sum over output-frequency classes f mod k of each class's sum
-// rounded to the element type (the gradient of the compute-dtype weights as
-// the lane-packed original folds it); db is never rounded.
+// scratch, tiles = ceil(T / (128 / F)); out: [9*C*C + C] float32 = dW
+// [3, 3, C, C] (HWIO) | db [C]; all contiguous. F <= 128. classes 0 (float32
+// only): dW is the float32 sum; classes k >= 1 (bfloat16 only): dW is the sum
+// over output-frequency classes f mod k of each class's sum rounded to
+// bfloat16 (the gradient of the bfloat16 weights as the lane-packed original
+// folds it); db is never rounded.
 int dcase_conv3x3_wgrad(const void* x, const void* dy, void* partials, void* out, int B,
                         int T, int F, int C, int tiles_per_block, int bf16, int classes,
                         void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_wgrad<__nv_bfloat16>(x, dy, partials, out, B, T, F, C, tiles_per_block,
-                                            classes, st)
-              : launch_wgrad<float>(x, dy, partials, out, B, T, F, C, tiles_per_block, classes, st);
-}
-
-// Pixel tiles per clip of the kernels above (tiles of whole frequency rows).
-int dcase_conv3x3_tiles(int T, int F) {
-  const int rows = kPix / F;
-  return (T + rows - 1) / rows;
+  if ((bf16 != 0) != (classes > 0)) return (int)cudaErrorInvalidValue;
+  return launch_wgrad(x, dy, partials, out, B, T, F, C, tiles_per_block, bf16, classes,
+                      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

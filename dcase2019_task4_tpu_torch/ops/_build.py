@@ -50,7 +50,6 @@ SIGNATURES = {
     "dcase_fused_stft_mel_onedot": (_I, [_P, _I, _LL, _LL, _P, _P, _P] + [_I] * 6 + [_P]),
     "dcase_conv3x3": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "dcase_bn_glu_pool_tiles": (_I, [_I, _I, _I, _I]),
-    "dcase_conv3x3_tiles": (_I, [_I, _I]),
     "dcase_conv3x3_wgrad": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     # dropout arguments of every kernel that drops: seed, threshold, keep_scale, packed
     "dcase_bn_glu_pool": (_I, [_P] * 8 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _I, _P]),
@@ -147,6 +146,29 @@ def library() -> ctypes.CDLL:
         fn.restype = restype
         fn.argtypes = argtypes
     return lib
+
+
+def sass_counts(path, names, opcodes=("HGMMA", "HMMA", "FFMA")) -> dict:
+    """Opcodes in the machine code of the built library at `path`
+    (`cuobjdump -sass`): {mangled kernel name: {opcode: count}} for each
+    kernel whose name holds one of `names`. HGMMA is `wgmma`, HMMA
+    `mma.sync` (tensor cores), FFMA a float32 FMA on the CUDA cores."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True, check=True).stdout
+    counts, current = {}, None
+    for line in out.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            current = counts.setdefault(name, dict.fromkeys(opcodes, 0)) if any(n in name for n in names) else None
+        elif current is not None and "*/" in line:
+            # "/*0c10*/  @P0 HMMA.16816.F32.BF16 R24, R4, R20, R24 ;"
+            words = line.split("*/", 1)[1].split()
+            if words and words[0].startswith("@"):
+                words = words[1:]
+            op = words[0].split(".")[0] if words else ""
+            if op in current:
+                current[op] += 1
+    return counts
 
 
 def check(status: int, what: str):

@@ -6,12 +6,17 @@ CUDA tensor each wrapper launches a hand-written kernel of
 csrc/packed_conv.cu (or raises); on a CPU tensor it runs the plain version
 beside it:
 
-  wrapper          kernel                            plain version
-  conv2d_forward   conv3x3_nhwc_kernel               conv2d_reference
-  conv2d_dx        conv3x3_nhwc_kernel on flipped,   conv2d_dx_reference
-                   transposed weights, zero bias
-  conv2d_wgrad     conv3x3_wgrad_kernel + fold       conv2d_wgrad_reference
+  wrapper          kernel (float32 / bfloat16)       plain version
+  conv2d_forward   conv3x3_nhwc_kernel /             conv2d_reference
+                   conv3x3_bf16_kernel
+  conv2d_dx        the same on flipped, transposed   conv2d_dx_reference
+                   weights, zero bias
+  conv2d_wgrad     conv3x3_wgrad_kernel /            conv2d_wgrad_reference
+                   conv3x3_wgrad_bf16_kernel + fold
   conv2d_wgrad_parts  the same launch                conv2d_wgrad_parts_reference
+
+The bfloat16 kernels multiply on the tensor cores (mma.sync, bf16 products
+summed in float32); the float32 ones on the CUDA cores' FP32 FMAs.
 
 `conv2d_packed` ties them into one `torch.autograd.Function`. The lane
 packing is TPU layout and is not ported: the name is kept so each
@@ -134,6 +139,21 @@ def conv2d_wgrad_reference(x: torch.Tensor, dy: torch.Tensor):
 
 
 _WGRAD_SLOTS = 128  # partial-sum slots of the weight gradient (9·C·C + C floats each)
+_PIX_TILE = 128  # output pixels per tile of the kernels (whole frequency rows; kPix in csrc/packed_conv.cu)
+
+
+def wgrad_workspace(shape, dtype):
+    """The weight gradient's workspace for x of `shape` [B, T, F, C] and
+    `dtype` → (k, tiles, tiles_per_block, slots): k output-frequency
+    classes (`_classes`), pixel tiles per clip (whole frequency rows,
+    `_PIX_TILE` pixels), the tiles one block sums, and the slots, each of
+    k·(9·C·C + C) float32 sums (`_WGRAD_SLOTS` / k slots, rounded up to
+    whole runs of tiles per clip)."""
+    B, T, Fq, C = shape
+    k = pack_factor(Fq, C) if dtype == torch.bfloat16 else 1
+    tiles = -(-T // (_PIX_TILE // Fq))
+    tiles_per_block = max(1, -(-tiles * B // (_WGRAD_SLOTS // k)))  # a slot holds k sums
+    return k, tiles, tiles_per_block, -(-tiles // tiles_per_block) * B
 
 
 DTYPES = (torch.float32, torch.bfloat16)  # the compute dtypes the kernels take
@@ -156,7 +176,7 @@ def _check_cuda(x: torch.Tensor, what: str):
 def _launch_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, what: str) -> torch.Tensor:
     _check_cuda(x, what)
     B, T, Fq, C = x.shape
-    w = _build.round_to(w.detach().to(x.device), x.dtype).contiguous()  # the kernel reads float32 weights
+    w = w.detach().to(device=x.device, dtype=x.dtype).contiguous()  # the kernel reads weights in x's dtype
     b = b.detach().to(device=x.device, dtype=torch.float32).contiguous()
     if tuple(b.shape) != (C,):
         raise ValueError(f"bias must be [{C}], got {tuple(b.shape)}")
@@ -198,7 +218,7 @@ def conv2d_dx(w: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     _check_shapes(w, dy, "conv2d_dx")
     if dy.device.type == "cpu":
         return conv2d_dx_reference(w, dy)
-    wt = w.detach().to(dy.device).flip(0, 1).transpose(2, 3).contiguous()
+    wt = w.detach().to(dy.device).flip(0, 1).transpose(2, 3)
     out = _launch_conv(dy, wt, torch.zeros(dy.shape[-1], dtype=torch.float32, device=dy.device), "conv2d_dx")
     _build.count_launch(conv2d_dx, "launches", dy.dtype)
     return out
@@ -222,18 +242,14 @@ def _launch_wgrad(x: torch.Tensor, dy: torch.Tensor):
     _check_cuda(dy, "conv2d_wgrad")
     B, T, Fq, C = x.shape
     bf16 = x.dtype == torch.bfloat16
-    k = _classes(x)
-    lib = _build.library()
-    tiles = lib.dcase_conv3x3_tiles(T, Fq)
-    tiles_per_block = max(1, -(-tiles * B // (_WGRAD_SLOTS // k)))  # a slot holds k sums
-    slots = -(-tiles // tiles_per_block) * B
+    k, _, tiles_per_block, slots = wgrad_workspace(x.shape, x.dtype)
     width = 9 * C * C + C
     partials = torch.empty((slots, k * width), dtype=torch.float32, device=x.device)
     out = torch.empty(width, dtype=torch.float32, device=x.device)
     # classes 0: one float32 sum, not rounded; k ≥ 1: each class's sum rounded to bfloat16
-    status = lib.dcase_conv3x3_wgrad(x.data_ptr(), dy.data_ptr(), partials.data_ptr(), out.data_ptr(),
-                                     B, T, Fq, C, tiles_per_block, int(bf16), k if bf16 else 0,
-                                     _build.stream_handle(x.device))
+    status = _build.library().dcase_conv3x3_wgrad(
+        x.data_ptr(), dy.data_ptr(), partials.data_ptr(), out.data_ptr(), B, T, Fq, C, tiles_per_block,
+        int(bf16), k if bf16 else 0, _build.stream_handle(x.device))
     _build.check(status, "conv2d_wgrad")
     _build.count_launch(conv2d_wgrad, "launches", x.dtype)
     return out[: 9 * C * C].view(3, 3, C, C), out[9 * C * C:], partials.view(slots, k, width).transpose(0, 1)

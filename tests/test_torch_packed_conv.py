@@ -6,6 +6,9 @@ and runs its plain twin (F.conv2d). Tolerance 1e-5 absolute: float32 sums
 of 144 terms of O(1) taken in another order.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -51,3 +54,48 @@ def test_conv2d_packed_refuses_bad_weights_and_devices():
     with pytest.raises(ValueError, match="cpu or cuda"):
         tpc.conv2d_packed({"w": torch.from_numpy(w), "b": torch.from_numpy(b)},
                           torch.from_numpy(x).to("meta"))
+
+
+# the four activations the models send to K3 (batch 24, NHWC): the scaled
+# configuration's blocks 2 and 3, the flagship bf16's
+MAIN_PATH = [(24, 432, 32, 128), (24, 216, 8, 128), (24, 432, 16, 64), (24, 216, 4, 64)]
+
+
+@pytest.mark.parametrize("shape", MAIN_PATH)
+def test_applicable_takes_the_main_path_shapes(shape):
+    assert tpc.applicable(shape[2], shape[3])
+
+
+@pytest.mark.parametrize("freq,channels,ok", [
+    (1, 64, True), (2, 128, True), (128, 64, True), (129, 64, False), (64, 129, False),
+    # 128 rows of 3 halo-padded cells, or 3 rows of 130, do not fit a block's float32 slab
+    (1, 128, False), (128, 128, False),
+])
+def test_applicable_edges(freq, channels, ok):
+    assert tpc.applicable(freq, channels) is ok
+
+
+@pytest.mark.parametrize("shape,dtype,want", [
+    ((24, 432, 32, 128), torch.bfloat16, (1, 108, 21, 144)),
+    ((24, 216, 8, 128), torch.bfloat16, (1, 14, 3, 120)),
+    ((24, 432, 16, 64), torch.bfloat16, (2, 54, 21, 72)),
+    ((24, 216, 4, 64), torch.bfloat16, (2, 7, 3, 72)),
+    ((24, 432, 16, 64), torch.float32, (1, 54, 11, 120)),
+    ((1, 37, 3, 24), torch.bfloat16, (1, 1, 1, 1)),
+])
+def test_wgrad_workspace(shape, dtype, want):
+    """(classes k, pixel tiles per clip, tiles a block sums, slots): the
+    runs of tiles cover every tile once, and a slot holds k sums."""
+    k, tiles, per_block, slots = tpc.wgrad_workspace(shape, dtype)
+    assert (k, tiles, per_block, slots) == want
+    B, T, Fq, C = shape
+    assert k == (tpc.pack_factor(Fq, C) if dtype == torch.bfloat16 else 1)
+    rows = tpc._PIX_TILE // Fq
+    assert (tiles - 1) * rows < T <= tiles * rows
+    runs = slots // B
+    assert slots % B == 0 and (runs - 1) * per_block < tiles <= runs * per_block
+
+
+def test_pixel_tile_matches_the_kernels():
+    src = (Path(tpc.__file__).parent.parent / "csrc" / "packed_conv.cu").read_text()
+    assert re.search(r"constexpr int kPix = (\d+);", src).group(1) == str(tpc._PIX_TILE)
