@@ -8,9 +8,11 @@ printing a result:
 
   1. card   — nvidia-smi's name and power limit, torch's device name;
   2. build  — compile csrc/*.cu with nvcc for sm_90a, one compiler per source
-     in parallel (ptxas report printed); the matrix instruction of K3's
+     in parallel (ptxas report printed); the product instruction of K3's
      bfloat16 kernels read from the library's machine code (HGMMA or HMMA,
-     with the FFMA count; a kernel with neither fails);
+     with the FFMA count; a kernel with neither fails), and of the FP32
+     product kernels (onedot K1, K3's float32 weight gradient: FFMA, and
+     a kernel with HGMMA or HMMA fails);
   3. kernels — each hand-written kernel against its plain PyTorch version on
      the card, at the flagship shapes, float32 with TF32 off: max abs error
      against a stated tolerance, median time over 10 runs after 3 warm-ups
@@ -27,7 +29,10 @@ printing a result:
      Function) bit for bit to the fused entry block's own wrappers and to
      the plain versions on their own, and the keep-mask kernel bit for bit
      to `dropout_keep_mask`. K4w's library time is autograd through the
-     model's own conv, as the default path reaches cuDNN. K1 (the FFT
+     model's own conv, as the default path reaches cuDNN; K3w float32's is
+     `conv2d_weight`, with autograd through `F.conv2d` to w and b (the
+     default step's cuDNN weight gradient) held to the kernel and timed
+     beside it. K1 (the FFT
      kernel) is also held to a float64 DFT of the same frames: its error
      there may be at most twice the float32 plain version's; its library
      time is one `torch.fft.rfft` of the windowed frames (the transform
@@ -124,8 +129,8 @@ printing a result:
      of the flagship in bfloat16, launches exact.
 
 Phase 3 also holds the knobs' kernels at the flagship shapes (`knob_kernels`:
-K1 onedot against its plain version and a float64 DFT, 1e-5 of max, with one
-cuBLAS SGEMM of the same product as its library time; K2f, K2b's first pass
+K1 onedot against its plain version and a float64 DFT, 1e-5 of max, twice
+bit for bit, with one cuBLAS SGEMM of the same product as its library time; K2f, K2b's first pass
 and the recompute fixup with the packed draw, and the autograd Function with
 the fixup mode on against itself with it off, dy 1e-6 of max; K5f and K5b1
 with the packed draw; the packed keep-mask kernel bit for bit with its keep
@@ -821,14 +826,72 @@ def knobs(on: bool = True, onedot: Optional[bool] = None):
         fused_mel.ONEDOT, fused_block.RECOMPUTE_FIXUP, fused_block.PACK_BITS = saved
 
 
-def phase_kernels(device):
+def k3_f32_kernels(device, rows, rng, only_wgrad: bool = False):
+    """Phase 3 for K3 in float32 at the flagship's blocks 2 and 3 ([B, 432,
+    16, 64] and [B, 216, 4, 64]): forward (cuDNN `F.conv2d` as its library
+    call), dx (`conv2d_input`) and the weight gradient (`conv2d_weight` as
+    its library call; autograd through `F.conv2d` to w and b, x not
+    requiring grad, as the default step reaches cuDNN's weight gradient,
+    held to the kernel at 1e-4 of max and timed beside it). `only_wgrad`
+    runs the weight gradient alone (its probe)."""
     import torch
     import torch.nn.functional as F
 
     from dcase2019_task4_tpu_torch.config import Config
+    from dcase2019_task4_tpu_torch.ops import packed_conv as pc
+
+    cfg = Config()
+    d, C, B = cfg.dsp, cfg.model.nb_filters[1], cfg.train.batch_size
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    for T, Fq in ((d.max_frames // 2, d.n_mels // 4), (d.max_frames // 4, d.n_mels // 16)):
+        lim = np.sqrt(2.0) * np.sqrt(6.0 / (18 * C))
+        w, b = t(rng.uniform(-lim, lim, (3, 3, C, C))), t(0.1 * rng.standard_normal(C))
+        params = {"w": w, "b": b}
+        x, dy = t(rng.standard_normal((B, T, Fq, C))), t(rng.standard_normal((B, T, Fq, C)))
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        x_cl, dy_cl = (v.permute(0, 3, 1, 2) for v in (x, dy))  # NCHW views in channels-last memory
+        act_bytes, conv_ops = x.numel() * 4, 2.0 * x.numel() * 9 * C
+        shape = list(x.shape)
+        if not only_wgrad:
+            res = compare(f"K3f conv2d_forward {shape}", lambda: pc.conv2d_forward(params, x),
+                          lambda: pc.conv2d_reference(params, x), atol=1e-4,
+                          library_fn=lambda: F.conv2d(x_cl, w_oihw, b, padding=1))
+            rows["conv2d_forward"].add(shape, res, 2 * act_bytes + w.numel() * 4, conv_ops)
+            res = compare(f"K3dx conv2d_dx {shape}", lambda: pc.conv2d_dx(w, dy),
+                          lambda: pc.conv2d_dx_reference(w, dy), rtol_of_max=1e-4,
+                          library_fn=lambda: torch.nn.grad.conv2d_input(x_cl.shape, w_oihw, dy_cl, padding=1))
+            rows["conv2d_dx"].add(shape, res, 2 * act_bytes + w.numel() * 4, conv_ops)
+        res = compare(f"K3w conv2d_wgrad {shape}", lambda: pc.conv2d_wgrad(x, dy),
+                      lambda: pc.conv2d_wgrad_reference(x, dy), rtol_of_max=1e-4, repeat=True,
+                      library_fn=lambda: torch.nn.grad.conv2d_weight(x_cl, w_oihw.shape, dy_cl, padding=1))
+        rows["conv2d_wgrad"].add(shape, res, 2 * act_bytes + w.numel() * 4, conv_ops)
+        # the library as the default step reaches it: autograd through F.conv2d to w and b
+        w_leaf, b_leaf = w_oihw.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        y_graph = F.conv2d(x_cl, w_leaf, b_leaf, padding=1)
+
+        def library_wgrad():
+            return torch.autograd.grad(y_graph, (w_leaf, b_leaf), dy_cl, retain_graph=True)
+
+        (lib_dw, lib_db), (dw, db) = library_wgrad(), pc.conv2d_wgrad(x, dy)
+        for what, got, want in (("dW", dw, lib_dw.permute(2, 3, 1, 0)), ("db", db, lib_db)):  # OIHW → HWIO
+            err, limit = (got - want).abs().max().item(), 1e-4 * want.abs().max().item()
+            if not err <= limit:
+                raise AssertionError(f"K3w {shape} {what} against autograd through F.conv2d: {err} exceeds {limit}")
+        print(f"  K3w library {shape}: autograd through F.conv2d (dW and db, x not requiring grad) "
+              f"{time_ms(library_wgrad):.4f} ms ({shown(device_ms(library_wgrad))} on the device), "
+              f"beside conv2d_weight alone (dW only) {res.library_ms:.4f} ms ({shown(res.library_device_ms)})")
+        del x, dy, x_cl, dy_cl, y_graph, w_leaf, b_leaf, lib_dw, lib_db
+
+
+def phase_kernels(device):
+    import torch
+
+    from dcase2019_task4_tpu_torch.config import Config
     from dcase2019_task4_tpu_torch.ops import fused_block as fb
     from dcase2019_task4_tpu_torch.ops import fused_mel
-    from dcase2019_task4_tpu_torch.ops import packed_conv as pc
 
     cfg = Config()
     d, m = cfg.dsp, cfg.model
@@ -905,30 +968,7 @@ def phase_kernels(device):
     C = m.nb_filters[1]
     pool = tuple(m.pooling[0])
     geometries = ((d.max_frames, d.n_mels), (d.max_frames // 2, d.n_mels // 4), (d.max_frames // 4, d.n_mels // 16))
-
-    # K3 forward, dx and wgrad at blocks 2 and 3: [B, 432, 16, 64] and [B, 216, 4, 64]
-    for T, Fq in geometries[1:]:
-        lim = np.sqrt(2.0) * np.sqrt(6.0 / (18 * C))
-        w, b = t(rng.uniform(-lim, lim, (3, 3, C, C))), t(0.1 * rng.standard_normal(C))
-        params = {"w": w, "b": b}
-        x, dy = t(rng.standard_normal((B, T, Fq, C))), t(rng.standard_normal((B, T, Fq, C)))
-        w_oihw = w.permute(3, 2, 0, 1).contiguous()
-        x_cl, dy_cl = (v.permute(0, 3, 1, 2) for v in (x, dy))  # NCHW views in channels-last memory
-        act_bytes, conv_ops = x.numel() * 4, 2.0 * x.numel() * 9 * C
-        shape = list(x.shape)
-        res = compare(f"K3f conv2d_forward {shape}", lambda: pc.conv2d_forward(params, x),
-                      lambda: pc.conv2d_reference(params, x), atol=1e-4,
-                      library_fn=lambda: F.conv2d(x_cl, w_oihw, b, padding=1))
-        rows["conv2d_forward"].add(shape, res, 2 * act_bytes + w.numel() * 4, conv_ops)
-        res = compare(f"K3dx conv2d_dx {shape}", lambda: pc.conv2d_dx(w, dy),
-                      lambda: pc.conv2d_dx_reference(w, dy), rtol_of_max=1e-4,
-                      library_fn=lambda: torch.nn.grad.conv2d_input(x_cl.shape, w_oihw, dy_cl, padding=1))
-        rows["conv2d_dx"].add(shape, res, 2 * act_bytes + w.numel() * 4, conv_ops)
-        res = compare(f"K3w conv2d_wgrad {shape}", lambda: pc.conv2d_wgrad(x, dy),
-                      lambda: pc.conv2d_wgrad_reference(x, dy), rtol_of_max=1e-4, repeat=True,
-                      library_fn=lambda: torch.nn.grad.conv2d_weight(x_cl, w_oihw.shape, dy_cl, padding=1))
-        rows["conv2d_wgrad"].add(shape, res, 2 * act_bytes + w.numel() * 4, conv_ops)
-        del x, dy, x_cl, dy_cl
+    k3_f32_kernels(device, rows, rng)
 
     # K2 at the three block geometries: eval and train forward, statistics, backward
     seed = torch.tensor([20190415], dtype=torch.int64)  # a CPU tensor, as the model hands it
@@ -1233,33 +1273,18 @@ def entry_kernels(device, rows, rng):
              "device_ms": mask_device_ms, "plain_ms": plain_ms, "bound_ms": mask_bound, "bound_by": "bytes", "library_ms": None}]
 
 
-def knob_kernels(device, rows, rng):
-    """Phase 3 for the JAX package's three A/B knobs at the flagship shapes,
-    in the modes the knobs path runs (dropout at the model's rate, the
-    packed draw): K1 through the cos‖sin basis (against its plain version
-    and a float64 DFT, timed beside one cuBLAS SGEMM of the same product),
-    K2f with the packed draw, K2b's first pass without dy_partial and the
-    recompute fixup at the three block geometries (the autograd Function
-    with the fixup mode on against itself with it off), K5f and K5b1 with
-    the packed draw at the block-1 shape, and the packed keep-mask kernel
-    bit for bit with its keep share. Returns the helper's reading."""
+def onedot_kernels(device, rows, rng):
+    """Phase 3 for K1's onedot kernel at the shape the frontend hands it
+    (flagship, batch 24), float32 and int16 audio: against its plain version
+    and against a float64 DFT (1e-5 of max each), twice bit for bit, timed
+    beside one cuBLAS SGEMM of the same product."""
     import torch
 
     from dcase2019_task4_tpu_torch.config import Config
-    from dcase2019_task4_tpu_torch.ops import entry_conv as ec
-    from dcase2019_task4_tpu_torch.ops import fused_block as fb
-    from dcase2019_task4_tpu_torch.ops import fused_entry_block as fe
     from dcase2019_task4_tpu_torch.ops import fused_mel
 
     cfg = Config()
-    d, m = cfg.dsp, cfg.model
-    B, eps, rate = cfg.train.batch_size, m.bn_eps, m.dropout
-    keep = 1.0 - rate
-
-    def t(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
-
-    # K1 onedot at the shape the frontend hands it
+    d, B = cfg.dsp, cfg.train.batch_size
     front = flagship_frontend(device, onedot=True)
     ob = front.onedot_bases()
     kw = dict(n_fft=d.n_window, hop=d.hop_length, T=d.max_frames)
@@ -1294,20 +1319,48 @@ def knob_kernels(device, rows, rng):
                       f"[{B}, {d.max_frames}, {d.n_window}] @ {list(ob.dft.shape)}, the product alone)",
                       lambda: fused_mel.fused_stft_mel_onedot(chunks, ob, **kw),
                       lambda: fused_mel.fused_stft_mel_onedot_reference(chunks, ob, **kw),
-                      rtol_of_max=1e-5, library_fn=library_fn)
+                      rtol_of_max=1e-5, library_fn=library_fn, repeat=True)
         # what the function needs: the product, the magnitudes, the mel product;
         # the audio in its own dtype, the basis, the mel matrix and the mel out
         n_frames = B * d.max_frames
         n_ops = n_frames * (2.0 * d.n_window * 2 * nb + 4 * nb + 2.0 * nb * M)
         n_bytes = chunks.numel() * chunks.element_size() + (ob.dft.numel() + ob.mel_fb.numel() + n_frames * M) * 4
         bound, by = bound_ms(n_bytes, n_ops)
-        print(f"  K1 onedot {dtype} bound: {n_ops / 1e9:.3f} GFLOP, {n_bytes / 1e6:.1f} MB -> {bound:.4f} ms by {by}")
+        print(f"  K1 onedot {dtype} bound: {n_ops / 1e9:.3f} GFLOP, {n_bytes / 1e6:.1f} MB -> {bound:.4f} ms by {by}; "
+              f"device {shown(res.device_ms)} ms")
         if dtype == "float32":
             rows["fused_stft_mel_onedot"].add(chunks.shape, res, n_bytes, n_ops)
             del raw
         else:
             rows["fused_stft_mel_onedot"].note_err(res)
     del front, ob
+
+
+def knob_kernels(device, rows, rng):
+    """Phase 3 for the JAX package's three A/B knobs at the flagship shapes,
+    in the modes the knobs path runs (dropout at the model's rate, the
+    packed draw): K1 through the cos‖sin basis (`onedot_kernels`), K2f
+    with the packed draw, K2b's first pass without dy_partial and the
+    recompute fixup at the three block geometries (the autograd Function
+    with the fixup mode on against itself with it off), K5f and K5b1 with
+    the packed draw at the block-1 shape, and the packed keep-mask kernel
+    bit for bit with its keep share. Returns the helper's reading."""
+    import torch
+
+    from dcase2019_task4_tpu_torch.config import Config
+    from dcase2019_task4_tpu_torch.ops import entry_conv as ec
+    from dcase2019_task4_tpu_torch.ops import fused_block as fb
+    from dcase2019_task4_tpu_torch.ops import fused_entry_block as fe
+
+    cfg = Config()
+    d, m = cfg.dsp, cfg.model
+    B, eps, rate = cfg.train.batch_size, m.bn_eps, m.dropout
+    keep = 1.0 - rate
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    onedot_kernels(device, rows, rng)
 
     # K2 at the three block geometries with the packed draw; K2b without dy_partial
     C = m.nb_filters[1]
@@ -2805,25 +2858,32 @@ def profile_step(step, state, batch, generator, acc, card: str, step_ms: float, 
 
 # K3's bfloat16 kernels: their products must be tensor-core instructions
 MMA_KERNELS = ("conv3x3_bf16_kernel", "conv3x3_wgrad_bf16_kernel")
+# the float32 products redesigned as register-tiled FP32 FMAs: FFMA, and no
+# tensor-core instruction (no TF32)
+FFMA_KERNELS = ("fused_stft_mel_onedot_kernel", "conv3x3_wgrad_kernel")
 
 
 def check_mma(path):
-    """Which matrix instruction each of K3's bfloat16 kernels was compiled
-    to, read from the built library's machine code (`cuobjdump -sass`):
-    HGMMA (`wgmma`) or HMMA (`mma.sync`); fails if a kernel has neither.
-    FFMA counts the float32 FMAs left on the CUDA cores."""
+    """Which instruction each product kernel was compiled to, read from the
+    built library's machine code (`cuobjdump -sass`): K3's bfloat16 kernels
+    must hold HGMMA (`wgmma`) or HMMA (`mma.sync`), the FP32 product kernels
+    (onedot K1, K3's float32 weight gradient) FFMA and neither HGMMA nor
+    HMMA. FFMA counts the float32 FMAs on the CUDA cores."""
     from dcase2019_task4_tpu_torch.ops import _build
 
-    counts = _build.sass_counts(path, MMA_KERNELS)
-    for kernel in MMA_KERNELS:
+    counts = _build.sass_counts(path, MMA_KERNELS + FFMA_KERNELS)
+    for kernel in MMA_KERNELS + FFMA_KERNELS:
         found = {name: c for name, c in counts.items() if kernel in name}
         if not found:
             raise AssertionError(f"{kernel}: not in the machine code of {path}")
         for name, c in found.items():
-            op = "HGMMA" if c["HGMMA"] else "HMMA" if c["HMMA"] else None
-            print(f"  {kernel} ({name[:70]}): {op or 'no MMA'}; " + ", ".join(f"{k} {v}" for k, v in c.items()))
-            if op is None:
+            op = "HGMMA" if c["HGMMA"] else "HMMA" if c["HMMA"] else "FFMA" if c["FFMA"] else None
+            print(f"  {kernel} ({name[:70]}): {op or 'no product instruction'}; "
+                  + ", ".join(f"{k} {v}" for k, v in c.items()))
+            if kernel in MMA_KERNELS and op not in ("HGMMA", "HMMA"):
                 raise AssertionError(f"{name}: neither HGMMA nor HMMA in its machine code")
+            if kernel in FFMA_KERNELS and op != "FFMA":
+                raise AssertionError(f"{name}: an FP32-FMA kernel with {op or 'no FFMA'} in its machine code")
 
 
 def main() -> int:

@@ -100,11 +100,33 @@
 // it stages that tap's [Cin, 64] weight slice and every thread accumulates
 // 8 pixels x 4 output channels in registers with FP32 FMAs.
 //
-// Weight gradient: one block per (run of pixel tiles, clip, time tap dt x
-// 64-wide ci tile x 64-wide co tile): it stages the dy tile and the x rows
-// shifted by dt - 1 with a one-column halo and every thread keeps a 4 x 4
-// patch of dW for each of the three frequency taps in registers across all
-// tiles of its run, written to its own slot; fold_kernel adds the slots.
+// Weight gradient (conv3x3_wgrad_kernel): the structure of the bfloat16
+// weight gradient above, on FP32 FMAs. Nine GEMMs dW[dt, df] = X_shifted^T
+// . dY whose K runs over the pixels. One block of 18 warps owns all nine taps of one
+// 64-wide Cin slice x 64-wide Cout slice for one clip and a run of pixel
+// tiles; warp w takes tap w % 9 and the 32-wide half w / 9 of the Cout
+// slice, each thread an 8 ci x 8 co register tile of it (lane % 8 picks the
+// input channels 4 (lane % 8) + i and 32 + 4 (lane % 8) + i, lane / 8 the
+// output channels 4 (lane / 8) + j and 16 + 4 (lane / 8) + j of the half).
+// Per 128-pixel tile the block stages the x slab (its Cin slice with the
+// one-row, one-column halo, zeros outside the tensor) and the dy tile (its
+// Cout slice) once, by cp.async, into one of two buffers (one where two do
+// not fit the shared memory: F = 1 or F > 112), the next tile loading while this one
+// multiplies; rows of 64 floats, so a warp quarter's eight x loads are
+// eight neighbouring float4 and its dy loads one broadcast float4. Each
+// pixel then feeds 64 FMAs a thread from four LDS.128 (the FP32-FMA kernel
+// it replaces staged the slab and dy once per time tap and fed 48 FMAs from
+// 16 scalar loads). The blocks of the first Cin slice also sum db, every
+// thread one channel over a ninth of each dy tile's pixels (summed by the
+// tap-0 warps alone, it made them pace the block: 6 % slower). 18 warps
+// share an SM's four register files as 5 + 5 + 4 + 4, so ptxas caps a
+// thread at 96 registers (12 bytes of spill). A
+// block writes its sums to its own slot; fold_kernel adds the slots in a
+// fixed order, so a run repeats bit for bit. The wrapper sizes the slots
+// for about two waves of one block an SM (ops/packed_conv.wgrad_workspace:
+// 264 slots, so at the flagship [24, 432, 16, 64] a block sums 5 tiles and
+// one float32 register at most 640 products before the fold adds the slots
+// in double precision).
 //
 // Lane copies of the weight gradient (bfloat16): at C < 128 the TPU kernel
 // packs k = 128 / C frequency columns into one 128-lane row, so each weight
@@ -120,6 +142,7 @@
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
 #include "dtype.cuh"
 #include "fold.cuh"
 
@@ -210,98 +233,157 @@ conv3x3_nhwc_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// grid: (runs of tiles, B, 3 * n_ct * n_ct); slot = b * gridDim.x + run, of
-// 9*C*C + C floats.
-__global__ void __launch_bounds__(kThreads)
+// Four floats into 16 aligned bytes of shared memory: the first n (0..4)
+// from src, zeros after; one 16-byte copy where src is 16-byte aligned (vec:
+// C % 4 == 0 and aligned tensors), else four of 4 bytes.
+__device__ __forceinline__ void stage4(float* dst, const float* src, int n, bool vec) {
+  if (vec) {
+    cp_async16(dst, src, 4 * n);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) cp_async4(dst + i, i < n ? src + i : src, i < n ? 4 : 0);
+}
+
+constexpr int kWfWarps = 18;               // two a tap: one per 32-wide half of the Cout slice
+constexpr int kWfThreads = 32 * kWfWarps;
+constexpr int kWfC = 64;                   // a block's Cin and Cout slices; floats a shared row
+static_assert(kWfThreads == 9 * kWfC, "db: one thread a channel and pixel class mod 9");
+
+// grid: (runs of tiles, B, n_ci * n_co); slot = b * gridDim.x + run, of
+// 9*C*C + C floats. Dynamic shared memory: `buffers` (1 or 2) copies of the
+// x slab [(rows+2) * (F+2)][64] and of the dy tile [rows * F][64], float32.
+__global__ void __launch_bounds__(kWfThreads, 1)
 conv3x3_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                      float* __restrict__ partials, int T, int F, int C, int rows,
-                     int tiles_per_block, int n_ct) {
-  extern __shared__ float smem[];
-  const int tid = threadIdx.x;
+                     int tiles_per_block, int n_co, int buffers, int vec) {
+  extern __shared__ __align__(16) float smem_f[];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int tap = warp % 9, half = warp / 9;
   const int b = blockIdx.y;
-  const int dt = blockIdx.z % 3;
-  const int ct = blockIdx.z / 3;
-  const int ci0 = (ct / n_ct) * kCoTile, co0 = (ct % n_ct) * kCoTile;
+  const int ci0 = (blockIdx.z / n_co) * kWfC, co0 = (blockIdx.z % n_co) * kWfC;
   const int W2 = F + 2;
-  const int CP = kCoTile + 1;
-  float* xs = smem;                  // [rows * W2][CP]: x rows t + dt - 1, freq halo
-  float* dys = xs + rows * W2 * CP;  // [kPix][CP]
+  const int n_cells = (rows + 2) * W2;  // time halo rows included
+  const int x_buf = n_cells * kWfC, y_buf = rows * F * kWfC;
+  float* xs = smem_f;                   // [buffers][x_buf]
+  float* ys = xs + buffers * x_buf;     // [buffers][y_buf]
 
-  // thread -> 4 input channels (ca + 16 i) x 4 output channels (cb + 16 j)
-  const int cb = tid % 16, ca = tid / 16;
-  float acc[3][4][4];
-  float dbv[4];
+  // pixel tile `tile` (its x slab and dy tile) into buffer buf
+  auto stage_tile = [&](int tile, int buf) {
+    const int t0 = tile * rows, trows = min(rows, T - t0);
+    float* xb = xs + buf * x_buf;
+    float* yb = ys + buf * y_buf;
+    for (int i = tid; i < n_cells * (kWfC / 4); i += kWfThreads) {
+      const int q = i % (kWfC / 4), cell = i / (kWfC / 4);
+      const int t = t0 - 1 + cell / W2, f = cell % W2 - 1, ci = ci0 + 4 * q;
+      int n = 0;
+      const float* src = x;
+      if (t >= 0 && t < T && f >= 0 && f < F && ci < C) {
+        n = min(4, C - ci);
+        src = x + (((long long)b * T + t) * F + f) * C + ci;
+      }
+      stage4(xb + cell * kWfC + 4 * q, src, n, vec);
+    }
+    for (int i = tid; i < trows * F * (kWfC / 4); i += kWfThreads) {
+      const int q = i % (kWfC / 4), p = i / (kWfC / 4), co = co0 + 4 * q;
+      int n = 0;
+      const float* src = dy;
+      if (co < C) {
+        n = min(4, C - co);
+        src = dy + (((long long)b * T + t0) * F + p) * C + co;
+      }
+      stage4(yb + p * kWfC + 4 * q, src, n, vec);
+    }
+  };
+
+  const int cg = lane % 8, og = lane / 8;
+  float acc[8][8];  // [ci: 4 cg + i, then 32 + 4 cg + i][co: 4 og + j, then 16 + 4 og + j]
 #pragma unroll
-  for (int d = 0; d < 3; ++d)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[d][i][j] = 0.0f;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) dbv[j] = 0.0f;
-  const bool owns_db = dt == 0 && ci0 == 0 && ca == 0;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  // db (the first Cin slice's blocks): thread -> output channel tid % 64 of
+  // the pixels p = tid / 64 (mod 9) of each dy tile, so every warp adds the
+  // same few sums and none paces the block
+  const bool owns_db = ci0 == 0;
+  const int db_co = tid % kWfC, db_first = tid / kWfC;
+  float db_sum = 0.0f;
+  const int toff = ((tap / 3) * W2 + tap % 3) * kWfC + 4 * cg;  // the tap's shift: x[t + dt - 1, f + df - 1]
+  const int yoff = 32 * half + 4 * og;
 
   const int n_tiles = (T + rows - 1) / rows;
   const int first = blockIdx.x * tiles_per_block;
   const int last = min(n_tiles, first + tiles_per_block);
+  if (first < last) stage_tile(first, 0);
+  cp_async_commit();
   for (int tile = first; tile < last; ++tile) {
-    const int t0 = tile * rows;
-    const int trows = min(rows, T - t0);
-    __syncthreads();  // previous tile's products done
-    for (int i = tid; i < rows * W2 * kCoTile; i += kThreads) {
-      const int c = i % kCoTile, cell = i / kCoTile;
-      const int fc = cell % W2, r = cell / W2;
-      const int t = t0 + r + dt - 1, f = fc - 1, ci = ci0 + c;
-      float v = 0.0f;
-      if (r < trows && t >= 0 && t < T && f >= 0 && f < F && ci < C)
-        v = x[(((long long)b * T + t) * F + f) * C + ci];
-      xs[cell * CP + c] = v;
+    const int buf = buffers == 2 ? (tile - first) & 1 : 0;
+    cp_async_wait_all();
+    __syncthreads();  // this tile landed; every warp is done with the other buffer
+    if (buffers == 2 && tile + 1 < last) {  // the next tile loads while this one multiplies
+      stage_tile(tile + 1, buf ^ 1);
+      cp_async_commit();
     }
-    for (int i = tid; i < trows * F * kCoTile; i += kThreads) {
-      const int c = i % kCoTile, p = i / kCoTile;
-      const int co = co0 + c;
-      dys[p * CP + c] = co < C ? dy[(((long long)b * T + t0) * F + p) * C + co] : 0.0f;
-    }
-    __syncthreads();
-    for (int r = 0; r < trows; ++r)
+    const int trows = min(rows, T - tile * rows);
+    const float* xb = xs + buf * x_buf + toff;
+    const float* yb = ys + buf * y_buf + yoff;
+    for (int r = 0; r < trows; ++r) {
+      const float* xr = xb + r * W2 * kWfC;
+      const float* yr = yb + r * F * kWfC;
+#pragma unroll 1  // one pixel at a time: two spilled 36 bytes, not 12, and ran no faster
       for (int f = 0; f < F; ++f) {
-        const float* xc = xs + (r * W2 + f) * CP + ca;
-        const float* dc = dys + (r * F + f) * CP + cb;
-        float dv[4];
+        const float4 a0 = *reinterpret_cast<const float4*>(xr + f * kWfC);
+        const float4 a1 = *reinterpret_cast<const float4*>(xr + f * kWfC + 32);
+        const float4 d0 = *reinterpret_cast<const float4*>(yr + f * kWfC);
+        const float4 d1 = *reinterpret_cast<const float4*>(yr + f * kWfC + 16);
+        const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
 #pragma unroll
-        for (int j = 0; j < 4; ++j) dv[j] = dc[16 * j];
+        for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int d = 0; d < 3; ++d) {
-          float xv[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) xv[i] = xc[d * CP + 16 * i];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[d][i][j] = fmaf(xv[i], dv[j], acc[d][i][j]);
-        }
-        if (owns_db) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) dbv[j] += dv[j];
-        }
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], dv[j], acc[i][j]);
       }
+    }
+    if (owns_db) {
+      const float* yt = ys + buf * y_buf + db_co;
+      for (int p = db_first; p < trows * F; p += 9) db_sum += yt[p * kWfC];
+    }
+    if (buffers == 1 && tile + 1 < last) {
+      __syncthreads();  // every warp is done with the only buffer
+      stage_tile(tile + 1, 0);
+      cp_async_commit();
+    }
   }
 
   const int slot = b * gridDim.x + blockIdx.x;
-  float* ps = partials + (long long)slot * (9 * C * C + C);
+  float* ps = partials + (long long)slot * (9LL * C * C + C);
 #pragma unroll
-  for (int d = 0; d < 3; ++d)
+  for (int i = 0; i < 8; ++i) {
+    const int ci = ci0 + (i < 4 ? 0 : 32) + 4 * cg + i % 4;
+    if (ci >= C) continue;
+    float* row = ps + ((long long)tap * C + ci) * C;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int h = 0; h < 2; ++h) {
+      const int co = co0 + yoff + 16 * h;
+      if (vec && co + 4 <= C) {
+        *reinterpret_cast<float4*>(row + co) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]);
+      } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int ci = ci0 + ca + 16 * i, co = co0 + cb + 16 * j;
-        if (ci < C && co < C) ps[((long long)(dt * 3 + d) * C + ci) * C + co] = acc[d][i][j];
+        for (int e = 0; e < 4; ++e)
+          if (co + e < C) row[co + e] = acc[i][4 * h + e];
       }
-  if (owns_db) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (co0 + cb + 16 * j < C) ps[9 * C * C + co0 + cb + 16 * j] = dbv[j];
+    }
+  }
+  if (owns_db) {  // the nine pixel classes' sums of each channel, added in class order
+    __syncthreads();  // every warp is done with the tiles
+    smem_f[tid] = db_sum;
+    __syncthreads();
+    if (tid < kWfC && co0 + tid < C) {
+      float total = 0.0f;
+      for (int g = 0; g < kWfThreads / kWfC; ++g) total += smem_f[g * kWfC + tid];
+      ps[9LL * C * C + co0 + tid] = total;
+    }
   }
 }
 
@@ -309,10 +391,6 @@ conv3x3_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dy,
 
 using bf16 = __nv_bfloat16;
 constexpr int kRowPad = 8;  // bfloat16 values past each shared row: an odd number of 16-byte units
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -336,21 +414,12 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // Eight bfloat16 values into 16 aligned bytes of shared memory: the first n
 // (0..8) from src, zeros after. With vec (src 16-byte aligned) and n == 8 an
 // asynchronous copy, else loads of the n values and one 16-byte store.
 __device__ __forceinline__ void stage8(bf16* dst, const bf16* src, int n, bool vec) {
   if (vec && n == 8) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
-                 : "memory");
+    cp_async16(dst, src, 16);
     return;
   }
   const auto* s = reinterpret_cast<const unsigned short*>(src);
@@ -745,7 +814,8 @@ int launch_conv_bf16(const void* xv, const void* wv, const void* biasv, void* ou
 }
 
 int launch_wgrad(const void* x, const void* dy, void* partials, void* out, int B, int T, int F,
-                 int C, int tiles_per_block, int bf16_mode, int classes, cudaStream_t st) {
+                 int C, int tiles_per_block, int bf16_mode, int classes, int buffers,
+                 cudaStream_t st) {
   const int rows = kPix / F;
   const int n_tiles = (T + rows - 1) / rows;
   const int n_classes = classes > 0 ? classes : 1;
@@ -764,15 +834,18 @@ int launch_wgrad(const void* x, const void* dy, void* partials, void* out, int B
         T, F, C, rows, tiles_per_block, n_ci, n_co, n_classes,
         C % 8 == 0 && aligned16(x) && aligned16(dy));
   } else {
-    const size_t smem = sizeof(float) * ((size_t)rows * (F + 2) + (size_t)kPix) * (kCoTile + 1);
+    if (buffers != 1 && buffers != 2) return (int)cudaErrorInvalidValue;
+    const size_t smem =
+        sizeof(float) * buffers * ((size_t)(rows + 2) * (F + 2) + (size_t)rows * F) * kWfC;
     err = cudaFuncSetAttribute(conv3x3_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const int n_ct = (C + kCoTile - 1) / kCoTile;
-    const dim3 grid(runs, B, 3 * n_ct * n_ct);
-    conv3x3_wgrad_kernel<<<grid, kThreads, smem, st>>>(
+    const int n_c = (C + kWfC - 1) / kWfC;
+    const dim3 grid(runs, B, n_c * n_c);
+    conv3x3_wgrad_kernel<<<grid, kWfThreads, smem, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(dy), static_cast<float*>(partials),
-        T, F, C, rows, tiles_per_block, n_ct);
+        T, F, C, rows, tiles_per_block, n_c, buffers,
+        C % 4 == 0 && aligned16(x) && aligned16(dy) && aligned16(partials));
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -809,12 +882,14 @@ int dcase_conv3x3(const void* x, const void* w, const void* bias, void* out, int
 // only): dW is the float32 sum; classes k >= 1 (bfloat16 only): dW is the sum
 // over output-frequency classes f mod k of each class's sum rounded to
 // bfloat16 (the gradient of the bfloat16 weights as the lane-packed original
-// folds it); db is never rounded.
+// folds it); db is never rounded. buffers (float32 only): the shared tile
+// buffers, 2 where they fit the block's shared memory, else 1
+// (ops/packed_conv.wgrad_buffers).
 int dcase_conv3x3_wgrad(const void* x, const void* dy, void* partials, void* out, int B,
                         int T, int F, int C, int tiles_per_block, int bf16, int classes,
-                        void* stream) {
+                        int buffers, void* stream) {
   if ((bf16 != 0) != (classes > 0)) return (int)cudaErrorInvalidValue;
-  return launch_wgrad(x, dy, partials, out, B, T, F, C, tiles_per_block, bf16, classes,
+  return launch_wgrad(x, dy, partials, out, B, T, F, C, tiles_per_block, bf16, classes, buffers,
                       static_cast<cudaStream_t>(stream));
 }
 

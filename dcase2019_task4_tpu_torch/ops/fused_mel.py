@@ -20,7 +20,10 @@ reads it (fused_mel.py:60), selects that package's other K1 kernel,
 `_kernel_onedot`: the DFT as one product against the windowed cos‖sin
 basis [n_fft, 2·NB] (`OnedotBases`, `build_onedot_bases`), the re/im split
 at NB, the magnitude and the mel product. `fused_stft_mel_onedot` launches
-its hand-written kernel (csrc/fused_mel_onedot.cu) on a CUDA tensor and runs
+its hand-written kernel (csrc/fused_mel_onedot.cu: an SGEMM-class FP32
+product whose blocks each take 64 bins, the magnitude and each mel band's
+share of those bins in its epilogue, then a fold of the shares in a fixed
+order; `onedot_plan` lays out the shares) on a CUDA tensor and runs
 `fused_stft_mel_onedot_reference` on a CPU tensor; `ops/mel.py:MelFrontend`
 picks it at construction, as the JAX frontend does. Float32 only: under a
 bfloat16 model K1 stays float32 in either variant.
@@ -207,20 +210,62 @@ class OnedotBases(NamedTuple):
     dft:    [n_fft, 2·NB] windowed cosine ‖ sine basis trimmed to NB bins
             (the JAX package's dft_main parts and dft_tail, stacked back).
     mel_fb: [NB, M] Slaney mel matrix trimmed to NB bins.
+    The kernel's plan (`onedot_plan`; None where a caller built only the
+    first two: the CPU path does not read it):
+    chunks: [ceil(NB / ONEDOT_BINS), 3] int32 per bin chunk: first band,
+            band count, slot offset.
+    bands:  [M, 4] int32 per band: first bin, end bin, first chunk, end chunk.
+    slots:  the partial mel sums a frame keeps, one per (chunk, band it
+            reaches).
     """
 
     dft: object
     mel_fb: object
+    chunks: object = None
+    bands: object = None
+    slots: int = 0
+
+
+ONEDOT_BINS = 128  # bins a block of the onedot kernel takes (kBins in csrc/fused_mel_onedot.cu)
+
+
+def onedot_plan(mel_fb: np.ndarray) -> tuple:
+    """The onedot kernel's split of the bins across blocks and of the mel
+    sums across slots, from the [NB, M] mel matrix → (chunks [n_chunks, 3]
+    int32: first band, band count, slot offset; bands [M, 4] int32: first
+    bin, end bin, first chunk, end chunk; slots). Chunk c holds bins
+    c·ONEDOT_BINS up to NB; band m's nonzero weights lie in [first bin, end
+    bin), which the chunks [first chunk, end chunk) cover; each chunk keeps
+    one slot per band from its first to its last such band (an empty band
+    has no bins and no chunk), so the kernel writes each share once and the
+    fold adds a band's shares from its own chunks."""
+    nb, M = mel_fb.shape
+    n_chunks = -(-nb // ONEDOT_BINS)
+    bands = np.zeros((M, 4), np.int32)
+    for m in range(M):
+        nz = np.flatnonzero(mel_fb[:, m])
+        if nz.size:
+            first, end = int(nz[0]), int(nz[-1]) + 1
+            bands[m] = (first, end, first // ONEDOT_BINS, (end - 1) // ONEDOT_BINS + 1)
+    chunks, slots = np.zeros((n_chunks, 3), np.int32), 0
+    for c in range(n_chunks):
+        reached = np.flatnonzero((bands[:, 2] <= c) & (c < bands[:, 3]))
+        n = int(reached[-1] - reached[0]) + 1 if reached.size else 0
+        chunks[c] = (reached[0] if reached.size else 0, n, slots)
+        slots += n
+    return chunks, bands, slots
 
 
 def build_onedot_bases(cos_full: np.ndarray, sin_full: np.ndarray, mel_fb_full: np.ndarray) -> OnedotBases:
     """The cos‖sin basis and the mel matrix trimmed to the mel-reachable
     bins, float32, as the JAX package's build_onedot_bases builds them in
-    float32 (fused_mel.py:76)."""
+    float32 (fused_mel.py:76), with the kernel's `onedot_plan`."""
     nb = trimmed_bins(mel_fb_full)
     dft = np.concatenate([cos_full[:, :nb], sin_full[:, :nb]], axis=1)
-    return OnedotBases(dft=np.ascontiguousarray(dft, np.float32),
-                       mel_fb=np.ascontiguousarray(mel_fb_full[:nb], np.float32))
+    mel_fb = np.ascontiguousarray(mel_fb_full[:nb], np.float32)
+    chunks, bands, slots = onedot_plan(mel_fb)
+    return OnedotBases(dft=np.ascontiguousarray(dft, np.float32), mel_fb=mel_fb, chunks=chunks, bands=bands,
+                       slots=slots)
 
 
 def fused_stft_mel_onedot_reference(chunks: torch.Tensor, bases: OnedotBases, *, n_fft: int, hop: int,
@@ -243,7 +288,8 @@ def fused_stft_mel_onedot(chunks: torch.Tensor, bases: OnedotBases, *, n_fft: in
     """chunks [B, R, hop] (R ≥ T + extra_rows; int16 PCM or float32) →
     linear mel [B, T, M] float32 through the cos‖sin basis. CPU: the plain
     twin. CUDA: the onedot kernel, which computes the product in its own
-    body (no cuBLAS)."""
+    body (no cuBLAS) and needs the plan of `build_onedot_bases`; its
+    partial mel sums take a [B·T, slots] float32 workspace."""
     B, R, hop_in = chunks.shape
     if hop_in != hop or R < T + extra_rows(n_fft, hop):
         raise ValueError(f"chunks {tuple(chunks.shape)} do not cover T={T} frames of n_fft={n_fft}, hop={hop}")
@@ -257,13 +303,22 @@ def fused_stft_mel_onedot(chunks: torch.Tensor, bases: OnedotBases, *, n_fft: in
     nb, M = bases.mel_fb.shape
     if not 1 <= M <= MAX_MELS:
         raise ValueError(f"{M} mel bands: the kernel takes 1 to {MAX_MELS}")
-    for name, t, shape in (("dft", bases.dft, (n_fft, 2 * nb)), ("mel_fb", bases.mel_fb, (nb, M))):
-        if t.device != chunks.device or t.dtype != torch.float32 or not t.is_contiguous() or tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be a contiguous float32 tensor of shape {shape} on {chunks.device}")
+    tables = (("dft", bases.dft, torch.float32, (n_fft, 2 * nb)), ("mel_fb", bases.mel_fb, torch.float32, (nb, M)),
+              ("chunks", bases.chunks, torch.int32, (-(-nb // ONEDOT_BINS), 3)),
+              ("bands", bases.bands, torch.int32, (M, 4)))
+    for name, t, dtype, shape in tables:
+        if t is None:
+            raise ValueError(f"bases.{name} is missing: the kernel needs the plan of build_onedot_bases")
+        if t.device != chunks.device or t.dtype != dtype or not t.is_contiguous() or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor of shape {shape} on {chunks.device}")
+    if bases.slots < 1:
+        raise ValueError(f"bases.slots is {bases.slots}: the plan of build_onedot_bases has at least one")
     out = torch.empty((B, T, M), dtype=torch.float32, device=chunks.device)
+    work = torch.empty((B * T, bases.slots), dtype=torch.float32, device=chunks.device)
     status = _build.library().dcase_fused_stft_mel_onedot(
         chunks.data_ptr(), int(chunks.dtype == torch.int16), chunks.stride(0), R * hop,
-        bases.dft.data_ptr(), bases.mel_fb.data_ptr(), out.data_ptr(), B, T, hop, n_fft, nb, M,
+        bases.dft.data_ptr(), bases.mel_fb.data_ptr(), bases.chunks.data_ptr(), bases.bands.data_ptr(),
+        work.data_ptr(), bases.slots, out.data_ptr(), B, T, hop, n_fft, nb, M,
         _build.stream_handle(chunks.device),
     )
     _build.check(status, "fused_stft_mel_onedot")

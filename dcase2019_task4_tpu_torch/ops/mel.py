@@ -172,8 +172,11 @@ class MelFrontend(nn.Module):
             self.register_buffer(name, torch.as_tensor(getattr(bases, name), device=device), persistent=False)
         self.onedot = fused_mel.ONEDOT if onedot is None else bool(onedot)
         if self.onedot:
-            dft = build_onedot_bases(cos_b, sin_b, fb).dft
-            self.register_buffer("onedot_basis", torch.as_tensor(dft, device=device), persistent=False)
+            ob = build_onedot_bases(cos_b, sin_b, fb)
+            self.register_buffer("onedot_basis", torch.as_tensor(ob.dft, device=device), persistent=False)
+            self.register_buffer("onedot_chunks", torch.as_tensor(ob.chunks, device=device), persistent=False)
+            self.register_buffer("onedot_bands", torch.as_tensor(ob.bands, device=device), persistent=False)
+            self.onedot_slots = ob.slots
 
     def bases(self) -> FusedMelBases:
         """K1's constants as the wrapper takes them."""
@@ -182,7 +185,7 @@ class MelFrontend(nn.Module):
 
     def onedot_bases(self) -> OnedotBases:
         """The onedot variant's constants (a frontend built with onedot)."""
-        return OnedotBases(self.onedot_basis, self.mel_fb)
+        return OnedotBases(self.onedot_basis, self.mel_fb, self.onedot_chunks, self.onedot_bands, self.onedot_slots)
 
     def _hop_chunks(self, padded: torch.Tensor) -> torch.Tensor:
         """[B, Lp] → hop-row view [B, T + extra_rows, hop] in the input

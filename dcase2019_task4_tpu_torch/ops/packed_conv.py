@@ -16,7 +16,10 @@ beside it:
   conv2d_wgrad_parts  the same launch                conv2d_wgrad_parts_reference
 
 The bfloat16 kernels multiply on the tensor cores (mma.sync, bf16 products
-summed in float32); the float32 ones on the CUDA cores' FP32 FMAs.
+summed in float32); the float32 ones on the CUDA cores' FP32 FMAs (the
+weight gradient with 8 × 8 register tiles of all nine taps a block, fed by
+16-byte shared loads from cp.async-staged tiles: `wgrad_workspace` and
+`wgrad_buffers` plan its launch).
 
 `conv2d_packed` ties them into one `torch.autograd.Function`. The lane
 packing is TPU layout and is not ported: the name is kept so each
@@ -138,8 +141,11 @@ def conv2d_wgrad_reference(x: torch.Tensor, dy: torch.Tensor):
     return sum(_build.round_to(p, x.dtype) for p in parts), db
 
 
-_WGRAD_SLOTS = 128  # partial-sum slots of the weight gradient (9·C·C + C floats each)
+_WGRAD_SLOTS = 128  # partial-sum slots of the bfloat16 weight gradient (k·(9·C·C + C) floats each)
+# ... of the float32 one: two waves of its 576-thread blocks, one an SM on an H100's 132 SMs
+_WGRAD_SLOTS_F32 = 264
 _PIX_TILE = 128  # output pixels per tile of the kernels (whole frequency rows; kPix in csrc/packed_conv.cu)
+_WGRAD_ROW = 64  # floats a shared row of the float32 weight gradient (kWfC in csrc/packed_conv.cu)
 
 
 def wgrad_workspace(shape, dtype):
@@ -147,13 +153,26 @@ def wgrad_workspace(shape, dtype):
     `dtype` → (k, tiles, tiles_per_block, slots): k output-frequency
     classes (`_classes`), pixel tiles per clip (whole frequency rows,
     `_PIX_TILE` pixels), the tiles one block sums, and the slots, each of
-    k·(9·C·C + C) float32 sums (`_WGRAD_SLOTS` / k slots, rounded up to
-    whole runs of tiles per clip)."""
+    k·(9·C·C + C) float32 sums (`_WGRAD_SLOTS` / k slots in bfloat16,
+    `_WGRAD_SLOTS_F32` in float32, rounded up to whole runs of tiles per
+    clip)."""
     B, T, Fq, C = shape
     k = pack_factor(Fq, C) if dtype == torch.bfloat16 else 1
     tiles = -(-T // (_PIX_TILE // Fq))
-    tiles_per_block = max(1, -(-tiles * B // (_WGRAD_SLOTS // k)))  # a slot holds k sums
+    target = _WGRAD_SLOTS // k if dtype == torch.bfloat16 else _WGRAD_SLOTS_F32  # a slot holds k sums
+    tiles_per_block = max(1, -(-tiles * B // target))
     return k, tiles, tiles_per_block, -(-tiles // tiles_per_block) * B
+
+
+def wgrad_buffers(freq: int) -> tuple:
+    """The float32 weight gradient's shared tile buffers at `freq` → (buffers,
+    bytes): two copies of the x slab [(rows + 2)·(freq + 2)][64] and the dy
+    tile [rows·freq][64] (rows = `_PIX_TILE` // freq) where they fit a
+    block's shared memory, so the next tile loads while one multiplies; one
+    where they do not (freq 1 or above 112)."""
+    rows = _PIX_TILE // freq
+    one = 4 * ((rows + 2) * (freq + 2) + rows * freq) * _WGRAD_ROW
+    return (2, 2 * one) if 2 * one <= _MAX_SHARED else (1, one)
 
 
 DTYPES = (torch.float32, torch.bfloat16)  # the compute dtypes the kernels take
@@ -249,7 +268,7 @@ def _launch_wgrad(x: torch.Tensor, dy: torch.Tensor):
     # classes 0: one float32 sum, not rounded; k ≥ 1: each class's sum rounded to bfloat16
     status = _build.library().dcase_conv3x3_wgrad(
         x.data_ptr(), dy.data_ptr(), partials.data_ptr(), out.data_ptr(), B, T, Fq, C, tiles_per_block,
-        int(bf16), k if bf16 else 0, _build.stream_handle(x.device))
+        int(bf16), k if bf16 else 0, 0 if bf16 else wgrad_buffers(Fq)[0], _build.stream_handle(x.device))
     _build.check(status, "conv2d_wgrad")
     _build.count_launch(conv2d_wgrad, "launches", x.dtype)
     return out[: 9 * C * C].view(3, 3, C, C), out[9 * C * C:], partials.view(slots, k, width).transpose(0, 1)

@@ -13,6 +13,8 @@ the basis is a non-persistent buffer and the function is the same.
 """
 
 import dataclasses
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -134,3 +136,86 @@ def test_a_checkpoint_stored_without_the_knob_predicts_with_it(monkeypatch, tmp_
         strong.append(res["strong"])
     assert strong[0].shape == (3, d.max_frames // 8, 10) and np.isfinite(strong[1]).all()
     np.testing.assert_allclose(strong[1], strong[0], rtol=0, atol=1e-5)
+
+
+# the configurations' frontends (flagship 64 mels, scaled 128) and the tiny geometries above
+PLAN_GEOMETRIES = [dict(n_mels=64), dict(n_mels=128)] + [dict(TINY, **over) for over in GEOMETRIES]
+
+
+def _mel_fb(kw):
+    d = dict(sample_rate=44100, n_window=2048, f_min=0.0, f_max=22050.0)
+    d.update(kw)
+    fb_full = tmel.mel_filterbank(d["sample_rate"], d["n_window"], d["n_mels"], d["f_min"], d["f_max"])
+    return np.ascontiguousarray(fb_full[: tfm.trimmed_bins(fb_full)], np.float32)
+
+
+@pytest.mark.parametrize("kw", PLAN_GEOMETRIES)
+def test_onedot_plan_covers_every_bin_and_band_once(kw):
+    """The onedot kernel's plan: the chunks tile the bins, each band's bin
+    range is its nonzero weights and its chunks cover them, every (chunk,
+    band) share has its own slot, and the fold of the shares, mirrored in
+    float64, is the mel product."""
+    fb = _mel_fb(kw)
+    nb, M = fb.shape
+    chunks, bands, slots = tfm.onedot_plan(fb)
+    n_chunks = -(-nb // tfm.ONEDOT_BINS)
+    assert chunks.shape == (n_chunks, 3) and bands.shape == (M, 4)
+    assert chunks.dtype == bands.dtype == np.int32
+    assert np.array_equal(chunks[:, 2], np.concatenate([[0], np.cumsum(chunks[:, 1])[:-1]]))
+    # each share the fold reads has a slot; where no band is empty (the
+    # configurations' frontends) every slot is such a share
+    reads = (bands[:, 3] - bands[:, 2]).sum()
+    assert reads <= slots == chunks[:, 1].sum() <= n_chunks * M
+    if (bands[:, 1] > bands[:, 0]).all():
+        assert slots == reads
+    for m in range(M):
+        nz = np.flatnonzero(fb[:, m])
+        first, end, cf, ce = bands[m]
+        assert (first, end) == ((nz[0], nz[-1] + 1) if nz.size else (0, 0))
+        assert cf * tfm.ONEDOT_BINS <= first and end <= ce * tfm.ONEDOT_BINS
+        for c in range(cf, ce):  # each chunk of the band keeps a slot for it
+            assert chunks[c, 0] <= m < chunks[c, 0] + chunks[c, 1]
+    rng = np.random.default_rng(3)
+    mag = rng.random((5, nb))
+    work = np.zeros((5, slots))
+    for c, (m_lo, n, off) in enumerate(chunks):  # the kernel's epilogue
+        for m in range(m_lo, m_lo + n):
+            lo, hi = max(bands[m, 0], c * tfm.ONEDOT_BINS), min(bands[m, 1], (c + 1) * tfm.ONEDOT_BINS)
+            work[:, off + m - m_lo] = mag[:, lo:hi] @ fb[lo:hi, m] if lo < hi else 0.0
+    folded = np.stack([sum((work[:, chunks[c, 2] + m - chunks[c, 0]] for c in range(bands[m, 2], bands[m, 3])),
+                           np.zeros(5)) for m in range(M)], axis=1)
+    np.testing.assert_allclose(folded, mag @ fb.astype(np.float64), rtol=1e-12, atol=1e-12)
+
+
+def test_onedot_plan_of_the_configurations():
+    """The workspace the flagship (64 mels) and scaled (128 mels) frontends
+    give the kernel: 8 chunks of 128 bins, 78 and 141 slots a frame."""
+    for n_mels, want in ((64, 78), (128, 141)):
+        chunks, _, slots = tfm.onedot_plan(_mel_fb(dict(n_mels=n_mels)))
+        assert (len(chunks), slots) == (8, want)
+
+
+def test_onedot_kernel_constants_fit_the_card():
+    """The kernel's tile constants: its bins a block are ONEDOT_BINS, its
+    ring of stages (and the magnitude tile over them) fits a block's share
+    of an H100's shared memory, and its frame tiles cover every frame of
+    the configurations' clips once."""
+    src = (Path(tfm.__file__).parent.parent / "csrc" / "fused_mel_onedot.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert const["kBins"] == tfm.ONEDOT_BINS
+    stage = const["kBK"] * ((const["kBM"] + 4) + 2 * const["kBins"])
+    smem = 4 * const["kStages"] * stage
+    assert smem <= 232448 and const["kBM"] * (const["kBins"] + 1) <= const["kStages"] * stage
+    for T in (864, 37, 96, 8):
+        tiles = -(-T // const["kBM"])
+        assert (tiles - 1) * const["kBM"] < T <= tiles * const["kBM"]
+
+
+def test_onedot_bases_carry_the_plan():
+    fe = tmel.MelFrontend(max_frames=12, onedot=True)
+    ob = fe.onedot_bases()
+    chunks, bands, slots = tfm.onedot_plan(fe.mel_fb.numpy())
+    assert np.array_equal(ob.chunks.numpy(), chunks) and np.array_equal(ob.bands.numpy(), bands)
+    assert ob.slots == slots and ob.chunks.dtype == torch.int32
+    with pytest.raises(ValueError, match="runs on cpu or cuda"):
+        tfm.fused_stft_mel_onedot(torch.zeros((1, 16, 511), device="meta"), ob, n_fft=2048, hop=511, T=12)

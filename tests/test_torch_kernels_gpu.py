@@ -8,7 +8,8 @@ when torch sees no CUDA device. On a GPU machine:
 Shapes are small and odd-sized (partial tiles, C = 16, 64 and 128) to
 exercise the kernels' bounds checks; chip_smoke.py covers the flagship
 shapes. Forward, train-mode dropout (mask bit-equal to the plain Philox),
-batch statistics, both backward passes, conv dx and wgrad, the entry-block
+batch statistics, both backward passes, conv dx and wgrad (the float32
+wgrad also at its tile edges, its part sum read from its slots), the entry-block
 family (K4 conv with sums and weight gradient, K5 statistics, forward and
 two-pass backward, at small shapes and at the flagship block-1 shape), the
 keep-mask kernel, and one whole training step per first-block
@@ -21,7 +22,8 @@ entry-block family (K4, K5 and the crows layout of K6, at small shapes and
 the flagship block-1 shape), against their plain versions, one
 scaled-configuration step and one flagship bfloat16 step per first-block
 configuration against the CPU. Last, the JAX package's three A/B knobs:
-K1's onedot kernel (1e-5 of max), K2b's first pass without dy_partial and
+K1's onedot kernel (1e-5 of max of the plain version, and of a float64 DFT
+at its tile edges, twice bit for bit), K2b's first pass without dy_partial and
 the recompute fixup (float32 1e-4 of max, and the autograd Function with the
 mode on within 1e-6 of max of its dy with it off; bfloat16 one ulp plus the
 slack of dxn's products), the packed keep-mask kernel bit for bit, K2 and
@@ -239,6 +241,31 @@ def test_conv2d_packed_gradients(cuda, shape):
         assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
     dw2, db2 = packed_conv.conv2d_wgrad(x.detach(), dy)
     assert torch.equal(dw2, w.grad) and torch.equal(db2, b.grad)
+
+
+# K3's float32 weight gradient (nine taps a block, 8 × 8 register tiles): F 4 to 32 at the main path's C = 64,
+# ragged last time tiles, C not a multiple of the 64-wide channel slice (80, 24) or of 4 (18: 4-byte copies),
+# one clip, and F = 1 and 128, where one shared buffer takes the place of two
+WGRAD_F32_SHAPES = [(1, 37, 16, 64), (2, 45, 4, 64), (1, 13, 32, 64), (1, 21, 16, 80), (2, 19, 4, 24),
+                    (1, 40, 3, 18), (1, 5, 128, 64), (1, 150, 1, 16)]
+
+
+@pytest.mark.parametrize("shape", WGRAD_F32_SHAPES)
+def test_conv2d_wgrad_float32_tiles(cuda, shape):
+    """dW and db within 1e-4 of their max of the plain version's, the
+    kernel's one part sum (read from its slots) dW bit for bit, and a second
+    call the same bits."""
+    rng = np.random.default_rng(sum(shape) + 5)
+    x, dy = _t(rng.standard_normal(shape), cuda), _t(rng.standard_normal(shape), cuda)
+    before = packed_conv.conv2d_wgrad.launches
+    dw, db, parts = packed_conv.conv2d_wgrad_parts(x, dy)
+    assert packed_conv.conv2d_wgrad.launches == before + 1
+    dw_ref, db_ref = packed_conv.conv2d_wgrad_reference(x, dy)
+    for got, want in ((dw, dw_ref), (db, db_ref)):
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    assert parts.shape == (1, *dw.shape) and torch.equal(parts[0], dw)
+    again = packed_conv.conv2d_wgrad(x, dy)
+    assert torch.equal(again[0], dw) and torch.equal(again[1], db)
 
 
 # x [B, T, F] and C: partial last tiles, F from 4 to 128, C = 8 to 128, and the flagship block-1 shape
@@ -921,6 +948,32 @@ def test_fused_stft_mel_onedot(cuda, dtype, frames, n_fft, n_mels):
     mel = fe.linear_mel(audio)
     assert (fused_mel.fused_stft_mel_onedot.launches, fused_mel.fused_stft_mel.launches) == (before[0] + 2, before[1])
     assert torch.equal(mel, out)
+
+
+# the onedot kernel's tiles at the flagship geometry (n_fft 2048, hop 511) with 64 mels and the scaled
+# frontend's 128: frame counts off the 128-frame tile, one clip, the full 864 frames
+@pytest.mark.parametrize("n_mels", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+@pytest.mark.parametrize("clips,frames", [(1, 200), (2, 129), (1, 864)])
+def test_fused_stft_mel_onedot_tiles(cuda, dtype, clips, frames, n_mels):
+    """Within 1e-5 of max of the plain version and of a float64 DFT of the
+    same frames, and a second call the same bits."""
+    fe = MelFrontend(n_mels=n_mels, max_frames=frames, device=cuda, onedot=True)
+    rng = np.random.default_rng(frames + n_mels)
+    audio = _t(0.2 * rng.standard_normal((clips, (frames - 1) * 511 + 2048)), cuda)
+    if dtype == "int16":
+        audio = torch.clamp(torch.round(audio * 32768.0), -32768, 32767).to(torch.int16)
+    chunks = fe._hop_chunks(audio)
+    kw = dict(n_fft=2048, hop=511, T=frames)
+    out = fused_mel.fused_stft_mel_onedot(chunks, fe.onedot_bases(), **kw)
+    assert torch.equal(fused_mel.fused_stft_mel_onedot(chunks, fe.onedot_bases(), **kw), out)
+    ref = fused_mel.fused_stft_mel_onedot_reference(chunks, fe.onedot_bases(), **kw)
+    assert out.shape == ref.shape == (clips, frames, n_mels)
+    assert (out - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    nb = fe.mel_fb.shape[0]
+    frames64 = fused_mel._dequantize(chunks).double().reshape(clips, -1).unfold(1, 2048, 511)[:, :frames]
+    exact = torch.fft.rfft(frames64 * fe.window.double(), dim=-1)[..., :nb].abs() @ fe.mel_fb.double()
+    assert (out.double() - exact).abs().max().item() <= 1e-5 * exact.abs().max().item()
 
 
 def _fixup_inputs(rng, shape, pool, cuda, dtype):

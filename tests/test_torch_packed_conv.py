@@ -80,7 +80,11 @@ def test_applicable_edges(freq, channels, ok):
     ((24, 216, 8, 128), torch.bfloat16, (1, 14, 3, 120)),
     ((24, 432, 16, 64), torch.bfloat16, (2, 54, 21, 72)),
     ((24, 216, 4, 64), torch.bfloat16, (2, 7, 3, 72)),
-    ((24, 432, 16, 64), torch.float32, (1, 54, 11, 120)),
+    # float32: about two waves of one block an SM (264 slots)
+    ((24, 432, 16, 64), torch.float32, (1, 54, 5, 264)),
+    ((24, 216, 4, 64), torch.float32, (1, 7, 1, 168)),
+    ((2, 37, 32, 16), torch.float32, (1, 10, 1, 20)),
+    ((1, 9, 128, 64), torch.float32, (1, 9, 1, 9)),
     ((1, 37, 3, 24), torch.bfloat16, (1, 1, 1, 1)),
 ])
 def test_wgrad_workspace(shape, dtype, want):
@@ -99,3 +103,30 @@ def test_wgrad_workspace(shape, dtype, want):
 def test_pixel_tile_matches_the_kernels():
     src = (Path(tpc.__file__).parent.parent / "csrc" / "packed_conv.cu").read_text()
     assert re.search(r"constexpr int kPix = (\d+);", src).group(1) == str(tpc._PIX_TILE)
+
+
+@pytest.mark.parametrize("shape", [(24, 432, 16, 64), (24, 216, 4, 64), (2, 37, 32, 16), (1, 9, 128, 64),
+                                   (1, 300, 1, 8), (3, 11, 113, 128), (2, 50, 3, 24)])
+def test_wgrad_float32_plan_fits_and_bounds_its_slots(shape):
+    """The float32 weight gradient's launch plan: its shared buffers fit a
+    block (two where they fit, so the main path's F = 16 and 4 overlap the
+    next tile's copy), the runs of tiles cover every pixel row once, and
+    the slots stay within the target plus one partial run a clip."""
+    B, T, Fq, C = shape
+    buffers, nbytes = tpc.wgrad_buffers(Fq)
+    assert nbytes <= tpc._MAX_SHARED
+    rows = tpc._PIX_TILE // Fq
+    one = 4 * ((rows + 2) * (Fq + 2) + rows * Fq) * tpc._WGRAD_ROW
+    assert nbytes == buffers * one and (buffers == 2) == (2 * one <= tpc._MAX_SHARED)
+    if shape in MAIN_PATH:
+        assert buffers == 2
+    k, tiles, per_block, slots = tpc.wgrad_workspace(shape, torch.float32)
+    assert k == 1 and (tiles - 1) * rows < T <= tiles * rows
+    runs = slots // B
+    assert slots % B == 0 and (runs - 1) * per_block < tiles <= runs * per_block
+    assert slots <= tpc._WGRAD_SLOTS_F32 + B
+
+
+def test_wgrad_float32_row_matches_the_kernel():
+    src = (Path(tpc.__file__).parent.parent / "csrc" / "packed_conv.cu").read_text()
+    assert re.search(r"constexpr int kWfC = (\d+);", src).group(1) == str(tpc._WGRAD_ROW)
