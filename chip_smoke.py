@@ -826,14 +826,14 @@ def knobs(on: bool = True, onedot: Optional[bool] = None):
         fused_mel.ONEDOT, fused_block.RECOMPUTE_FIXUP, fused_block.PACK_BITS = saved
 
 
-def k3_f32_kernels(device, rows, rng, only_wgrad: bool = False):
+def k3_f32_kernels(device, rows, rng, which=("conv", "wgrad")):
     """Phase 3 for K3 in float32 at the flagship's blocks 2 and 3 ([B, 432,
     16, 64] and [B, 216, 4, 64]): forward (cuDNN `F.conv2d` as its library
-    call), dx (`conv2d_input`) and the weight gradient (`conv2d_weight` as
-    its library call; autograd through `F.conv2d` to w and b, x not
-    requiring grad, as the default step reaches cuDNN's weight gradient,
-    held to the kernel at 1e-4 of max and timed beside it). `only_wgrad`
-    runs the weight gradient alone (its probe)."""
+    call) and dx (`conv2d_input`), "conv"; the weight gradient
+    (`conv2d_weight` as its library call; autograd through `F.conv2d` to w
+    and b, x not requiring grad, as the default step reaches cuDNN's weight
+    gradient, held to the kernel at 1e-4 of max and timed beside it),
+    "wgrad". The probes run one of the two."""
     import torch
     import torch.nn.functional as F
 
@@ -855,7 +855,7 @@ def k3_f32_kernels(device, rows, rng, only_wgrad: bool = False):
         x_cl, dy_cl = (v.permute(0, 3, 1, 2) for v in (x, dy))  # NCHW views in channels-last memory
         act_bytes, conv_ops = x.numel() * 4, 2.0 * x.numel() * 9 * C
         shape = list(x.shape)
-        if not only_wgrad:
+        if "conv" in which:
             res = compare(f"K3f conv2d_forward {shape}", lambda: pc.conv2d_forward(params, x),
                           lambda: pc.conv2d_reference(params, x), atol=1e-4,
                           library_fn=lambda: F.conv2d(x_cl, w_oihw, b, padding=1))
@@ -864,6 +864,9 @@ def k3_f32_kernels(device, rows, rng, only_wgrad: bool = False):
                           lambda: pc.conv2d_dx_reference(w, dy), rtol_of_max=1e-4,
                           library_fn=lambda: torch.nn.grad.conv2d_input(x_cl.shape, w_oihw, dy_cl, padding=1))
             rows["conv2d_dx"].add(shape, res, 2 * act_bytes + w.numel() * 4, conv_ops)
+        if "wgrad" not in which:
+            del x, dy, x_cl, dy_cl
+            continue
         res = compare(f"K3w conv2d_wgrad {shape}", lambda: pc.conv2d_wgrad(x, dy),
                       lambda: pc.conv2d_wgrad_reference(x, dy), rtol_of_max=1e-4, repeat=True,
                       library_fn=lambda: torch.nn.grad.conv2d_weight(x_cl, w_oihw.shape, dy_cl, padding=1))
@@ -886,11 +889,120 @@ def k3_f32_kernels(device, rows, rng, only_wgrad: bool = False):
         del x, dy, x_cl, dy_cl, y_graph, w_leaf, b_leaf, lib_dw, lib_db
 
 
-def phase_kernels(device):
+def k2_f32_kernels(device, rows, rng, only_reduce: bool = False):
+    """Phase 3 for K2 in float32 at the flagship's three block geometries
+    ([B, 864, 64, 64], [B, 432, 16, 64], [B, 216, 4, 64]): eval and train
+    forward, statistics, the backward's two passes and the whole backward
+    through the autograd Function. `only_reduce` runs the first backward
+    pass alone (its probe)."""
     import torch
 
     from dcase2019_task4_tpu_torch.config import Config
     from dcase2019_task4_tpu_torch.ops import fused_block as fb
+
+    cfg = Config()
+    d, m = cfg.dsp, cfg.model
+    B, C = cfg.train.batch_size, m.nb_filters[1]
+    pool = tuple(m.pooling[0])
+    geometries = ((d.max_frames, d.n_mels), (d.max_frames // 2, d.n_mels // 4), (d.max_frames // 4, d.n_mels // 16))
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    # K2 at the three block geometries: eval and train forward, statistics, backward
+    seed = torch.tensor([20190415], dtype=torch.int64)  # a CPU tensor, as the model hands it
+    rate = m.dropout
+    for T, Fq in geometries:
+        y = t(rng.standard_normal((B, T, Fq, C)))
+        scale, bias = t(1 + 0.1 * rng.standard_normal(C)), t(0.1 * rng.standard_normal(C))
+        w, gb = t(rng.standard_normal((C, C)) / np.sqrt(C)), t(0.1 * rng.standard_normal(C))
+        run_mean, run_var = t(0.2 * rng.standard_normal(C)), t(rng.uniform(0.5, 2.0, C))
+        dout = t(rng.standard_normal((B, T // pool[0], Fq // pool[1], C)))
+        shape, pixels = list(y.shape), B * T * Fq
+        y_bytes, out_bytes, small = y.numel() * 4, dout.numel() * 4, (C * C + 5 * C) * 4
+        mix_ops = 2.0 * pixels * C * C  # one C×C channel product per pixel
+
+        if only_reduce:  # the statistics the backward takes, then its first pass alone
+            s, sq = fb.batch_stats(y)
+            mean = s / pixels
+            var = sq / pixels - mean * mean
+            mask = fb.dropout_keep_mask(seed, y.shape, rate, device=device)
+            res = compare(f"K2b bwd_reduce rate {rate} {shape} (dy_partial, dw, db, S1, S2)",
+                          lambda: fb.bwd_reduce(y, dout, scale, bias, mean, var, w, gb, pool, m.bn_eps, rate=rate,
+                                                seed=seed),
+                          lambda: fb.bwd_reduce_reference(y, dout, scale, bias, mean, var, w, gb, pool, m.bn_eps, mask,
+                                                          1.0 - rate),
+                          rtol_of_max=1e-4, repeat=True)
+            rows["bwd_reduce"].add(shape, res, 2 * y_bytes + out_bytes + 2 * small, 3 * mix_ops + 30.0 * y.numel())
+            del y, dout, mask
+            torch.cuda.empty_cache()
+            continue
+
+        res = compare(f"K2f fused_bn_glu_pool eval {shape}",
+                      lambda: fb.fused_bn_glu_pool(y, scale, bias, run_mean, run_var, w, gb, pool, m.bn_eps),
+                      lambda: fb.reference_block(y, scale, bias, run_mean, run_var, w, gb, pool, m.bn_eps),
+                      atol=1e-5)
+        rows["fused_bn_glu_pool_eval"].add(shape, res, y_bytes + out_bytes + small, mix_ops + 12.0 * y.numel())
+
+        res = compare(f"K2s batch_stats {shape}", lambda: fb.batch_stats(y), lambda: fb.batch_stats_reference(y),
+                      rtol_of_max=1e-5, repeat=True, library_fn=lambda: torch.var_mean(y, dim=(0, 1, 2), correction=0))
+        rows["batch_stats"].add(shape, res, y_bytes + 2 * C * 4, 3.0 * y.numel())
+        s, sq = fb.batch_stats(y)
+        mean = s / pixels
+        var = sq / pixels - mean * mean
+
+        mask = fb.dropout_keep_mask(seed, y.shape, rate, device=device)
+        res = compare(f"K2f fused_bn_glu_pool train rate {rate} {shape}",
+                      lambda: fb.fused_bn_glu_pool(y, scale, bias, mean, var, w, gb, pool, m.bn_eps, rate=rate, seed=seed),
+                      lambda: fb.reference_block(y, scale, bias, mean, var, w, gb, pool, m.bn_eps, mask, 1.0 - rate),
+                      atol=1e-5)
+        rows["fused_bn_glu_pool_train"].add(shape, res, y_bytes + out_bytes + small, mix_ops + 14.0 * y.numel())
+        # the mask alone: y = 0 gives xn = 0 and σ = 1/2 exactly; a GLU of weight
+        # 0 and bias 1 then gives g = mask / (2·keep), and the pooled sum counts
+        # the kept elements (exactly so at rate 1/2)
+        unit = (torch.ones(C, device=device), torch.zeros(C, device=device), torch.zeros(C, device=device),
+                torch.ones(C, device=device), torch.zeros(C, C, device=device), torch.ones(C, device=device))
+        pooled = fb.fused_bn_glu_pool(torch.zeros_like(y), *unit, pool, m.bn_eps, rate=rate, seed=seed)
+        kept = pooled.double().sum().item() * pool[0] * pool[1] * 2.0 * (1.0 - rate)
+        n_kept = int(mask.sum(dtype=torch.float64).item())
+        if round(kept) != n_kept:
+            raise AssertionError(f"K2f train {shape}: kernel kept {kept} elements, dropout_keep_mask {n_kept}")
+        print(f"  K2f train {shape}: kept {n_kept} of {mask.numel()} elements, as dropout_keep_mask")
+
+        res = compare(f"K2b bwd_reduce rate {rate} {shape} (dy_partial, dw, db, S1, S2)",
+                      lambda: fb.bwd_reduce(y, dout, scale, bias, mean, var, w, gb, pool, m.bn_eps, rate=rate, seed=seed),
+                      lambda: fb.bwd_reduce_reference(y, dout, scale, bias, mean, var, w, gb, pool, m.bn_eps, mask, 1.0 - rate),
+                      rtol_of_max=1e-4, repeat=True)
+        rows["bwd_reduce"].add(shape, res, 2 * y_bytes + out_bytes + 2 * small, 3 * mix_ops + 30.0 * y.numel())
+        dyp, _, _, s1, s2 = fb.bwd_reduce(y, dout, scale, bias, mean, var, w, gb, pool, m.bn_eps, rate=rate, seed=seed)
+        a, b2 = fb.bwd_coefficients(scale, var, m.bn_eps, s1, s2, pixels)
+        res = compare(f"K2b bwd_fixup {shape}", lambda: fb.bwd_fixup(y, dyp.clone(), a, b2, mean),
+                      lambda: fb.bwd_fixup_reference(y, dyp.clone(), a, b2, mean), rtol_of_max=1e-4, repeat=True,
+                      device_only="bn_bwd_fixup_kernel")
+        # both timed with a clone of dy_partial (the kernel writes in place); take it
+        # off the event times (the device time counts the fixup kernel alone)
+        clone_ms = time_ms(lambda: dyp.clone())
+        res = res._replace(ms=max(res.ms - clone_ms, 0.0), plain_ms=max(res.plain_ms - clone_ms, 0.0))
+        rows["bwd_fixup"].add(shape, res, 3 * y_bytes, 3.0 * y.numel())
+        print(f"  K2b bwd_fixup {shape}: clone of dy_partial {clone_ms:.4f} ms taken off both times")
+
+        # the whole backward through the autograd Function against the formulas
+        leaves = [v.clone().requires_grad_(True) for v in (y, scale, bias, w, gb)]
+        fb.fused_bn_glu_dropout_pool(leaves[0], leaves[1], leaves[2], mean, var, leaves[3], leaves[4],
+                                     seed, rate, pool, m.bn_eps, True).backward(dout)
+        ref = fb.bwd_reference(y, dout, scale, bias, mean, var, w, gb, pool, m.bn_eps, mask, 1.0 - rate)
+        for name, leaf, want in zip(("dy", "dscale", "dbias", "dw", "db"), leaves, ref):
+            err, limit = (leaf.grad - want).abs().max().item(), 1e-4 * want.abs().max().item()
+            if not err <= limit:
+                raise AssertionError(f"K2b Function {shape}: {name} error {err} exceeds {limit}")
+        del y, dout, mask, dyp, leaves, ref, pooled
+        torch.cuda.empty_cache()
+
+
+def phase_kernels(device):
+    import torch
+
+    from dcase2019_task4_tpu_torch.config import Config
     from dcase2019_task4_tpu_torch.ops import fused_mel
 
     cfg = Config()
@@ -898,9 +1010,6 @@ def phase_kernels(device):
     B = cfg.train.batch_size
     rng = np.random.default_rng(SEED)
     rows = {name: Row() for name in KERNELS}
-
-    def t(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
     # K1 at the shape the frontend hands it: [B, T + extra_rows, hop]
     fe = flagship_frontend(device)
@@ -965,83 +1074,8 @@ def phase_kernels(device):
         else:
             rows["fused_stft_mel"].note_err(res)
 
-    C = m.nb_filters[1]
-    pool = tuple(m.pooling[0])
-    geometries = ((d.max_frames, d.n_mels), (d.max_frames // 2, d.n_mels // 4), (d.max_frames // 4, d.n_mels // 16))
     k3_f32_kernels(device, rows, rng)
-
-    # K2 at the three block geometries: eval and train forward, statistics, backward
-    seed = torch.tensor([20190415], dtype=torch.int64)  # a CPU tensor, as the model hands it
-    rate = m.dropout
-    for T, Fq in geometries:
-        y = t(rng.standard_normal((B, T, Fq, C)))
-        scale, bias = t(1 + 0.1 * rng.standard_normal(C)), t(0.1 * rng.standard_normal(C))
-        w, gb = t(rng.standard_normal((C, C)) / np.sqrt(C)), t(0.1 * rng.standard_normal(C))
-        run_mean, run_var = t(0.2 * rng.standard_normal(C)), t(rng.uniform(0.5, 2.0, C))
-        dout = t(rng.standard_normal((B, T // pool[0], Fq // pool[1], C)))
-        shape, pixels = list(y.shape), B * T * Fq
-        y_bytes, out_bytes, small = y.numel() * 4, dout.numel() * 4, (C * C + 5 * C) * 4
-        mix_ops = 2.0 * pixels * C * C  # one C×C channel product per pixel
-
-        res = compare(f"K2f fused_bn_glu_pool eval {shape}",
-                      lambda: fb.fused_bn_glu_pool(y, scale, bias, run_mean, run_var, w, gb, pool, m.bn_eps),
-                      lambda: fb.reference_block(y, scale, bias, run_mean, run_var, w, gb, pool, m.bn_eps),
-                      atol=1e-5)
-        rows["fused_bn_glu_pool_eval"].add(shape, res, y_bytes + out_bytes + small, mix_ops + 12.0 * y.numel())
-
-        res = compare(f"K2s batch_stats {shape}", lambda: fb.batch_stats(y), lambda: fb.batch_stats_reference(y),
-                      rtol_of_max=1e-5, repeat=True, library_fn=lambda: torch.var_mean(y, dim=(0, 1, 2), correction=0))
-        rows["batch_stats"].add(shape, res, y_bytes + 2 * C * 4, 3.0 * y.numel())
-        s, sq = fb.batch_stats(y)
-        mean = s / pixels
-        var = sq / pixels - mean * mean
-
-        mask = fb.dropout_keep_mask(seed, y.shape, rate, device=device)
-        res = compare(f"K2f fused_bn_glu_pool train rate {rate} {shape}",
-                      lambda: fb.fused_bn_glu_pool(y, scale, bias, mean, var, w, gb, pool, m.bn_eps, rate=rate, seed=seed),
-                      lambda: fb.reference_block(y, scale, bias, mean, var, w, gb, pool, m.bn_eps, mask, 1.0 - rate),
-                      atol=1e-5)
-        rows["fused_bn_glu_pool_train"].add(shape, res, y_bytes + out_bytes + small, mix_ops + 14.0 * y.numel())
-        # the mask alone: y = 0 gives xn = 0 and σ = 1/2 exactly; a GLU of weight
-        # 0 and bias 1 then gives g = mask / (2·keep), and the pooled sum counts
-        # the kept elements (exactly so at rate 1/2)
-        unit = (torch.ones(C, device=device), torch.zeros(C, device=device), torch.zeros(C, device=device),
-                torch.ones(C, device=device), torch.zeros(C, C, device=device), torch.ones(C, device=device))
-        pooled = fb.fused_bn_glu_pool(torch.zeros_like(y), *unit, pool, m.bn_eps, rate=rate, seed=seed)
-        kept = pooled.double().sum().item() * pool[0] * pool[1] * 2.0 * (1.0 - rate)
-        n_kept = int(mask.sum(dtype=torch.float64).item())
-        if round(kept) != n_kept:
-            raise AssertionError(f"K2f train {shape}: kernel kept {kept} elements, dropout_keep_mask {n_kept}")
-        print(f"  K2f train {shape}: kept {n_kept} of {mask.numel()} elements, as dropout_keep_mask")
-
-        res = compare(f"K2b bwd_reduce rate {rate} {shape} (dy_partial, dw, db, S1, S2)",
-                      lambda: fb.bwd_reduce(y, dout, scale, bias, mean, var, w, gb, pool, m.bn_eps, rate=rate, seed=seed),
-                      lambda: fb.bwd_reduce_reference(y, dout, scale, bias, mean, var, w, gb, pool, m.bn_eps, mask, 1.0 - rate),
-                      rtol_of_max=1e-4, repeat=True)
-        rows["bwd_reduce"].add(shape, res, 2 * y_bytes + out_bytes + 2 * small, 3 * mix_ops + 30.0 * y.numel())
-        dyp, _, _, s1, s2 = fb.bwd_reduce(y, dout, scale, bias, mean, var, w, gb, pool, m.bn_eps, rate=rate, seed=seed)
-        a, b2 = fb.bwd_coefficients(scale, var, m.bn_eps, s1, s2, pixels)
-        res = compare(f"K2b bwd_fixup {shape}", lambda: fb.bwd_fixup(y, dyp.clone(), a, b2, mean),
-                      lambda: fb.bwd_fixup_reference(y, dyp.clone(), a, b2, mean), rtol_of_max=1e-4, repeat=True,
-                      device_only="bn_bwd_fixup_kernel")
-        # both timed with a clone of dy_partial (the kernel writes in place); take it
-        # off the event times (the device time counts the fixup kernel alone)
-        clone_ms = time_ms(lambda: dyp.clone())
-        res = res._replace(ms=max(res.ms - clone_ms, 0.0), plain_ms=max(res.plain_ms - clone_ms, 0.0))
-        rows["bwd_fixup"].add(shape, res, 3 * y_bytes, 3.0 * y.numel())
-        print(f"  K2b bwd_fixup {shape}: clone of dy_partial {clone_ms:.4f} ms taken off both times")
-
-        # the whole backward through the autograd Function against the formulas
-        leaves = [v.clone().requires_grad_(True) for v in (y, scale, bias, w, gb)]
-        fb.fused_bn_glu_dropout_pool(leaves[0], leaves[1], leaves[2], mean, var, leaves[3], leaves[4],
-                                     seed, rate, pool, m.bn_eps, True).backward(dout)
-        ref = fb.bwd_reference(y, dout, scale, bias, mean, var, w, gb, pool, m.bn_eps, mask, 1.0 - rate)
-        for name, leaf, want in zip(("dy", "dscale", "dbias", "dw", "db"), leaves, ref):
-            err, limit = (leaf.grad - want).abs().max().item(), 1e-4 * want.abs().max().item()
-            if not err <= limit:
-                raise AssertionError(f"K2b Function {shape}: {name} error {err} exceeds {limit}")
-        del y, dout, mask, dyp, leaves, ref, pooled
-        torch.cuda.empty_cache()
+    k2_f32_kernels(device, rows, rng)
     helpers = entry_kernels(device, rows, rng)
     from dcase2019_task4_tpu_torch.config import scaled_config
 
@@ -2233,6 +2267,59 @@ def compare_metrics(step: int, on_card: dict, on_cpu: dict):
             raise AssertionError(f"step {step} {k}: CUDA {on_card[k]} vs CPU {v.item()}")
 
 
+def dx_launches_only_its_kernel(device):
+    """Phase 5: a float32 dx call at the flagship's block 2 ([B, 432, 16,
+    64]) launches conv3x3_nhwc_kernel and nothing else: the weights are read
+    flipped and transposed by the kernel, with no bias, so no copy, flip or
+    fill runs beside it. Held on the ops the call dispatches (every op that
+    reaches PyTorch's dispatcher, under a TorchDispatchMode: an allocation
+    and views only) and on its launch count; the profiler's kernels of the
+    call are printed, and held too where the trace came back."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from dcase2019_task4_tpu_torch.config import Config
+    from dcase2019_task4_tpu_torch.ops import packed_conv as pc
+
+    cfg = Config()
+    C, B = cfg.model.nb_filters[1], cfg.train.batch_size
+    rng = np.random.default_rng(SEED + 11)
+    w = torch.as_tensor(rng.uniform(-0.1, 0.1, (3, 3, C, C)).astype(np.float32), device=device)
+    dy = torch.as_tensor(rng.standard_normal((B, cfg.dsp.max_frames // 2, cfg.dsp.n_mels // 4, C)).astype(np.float32),
+                         device=device)
+    allowed = {"aten.detach.default", "aten.empty_like.default", "aten.empty.memory_format"}
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    pc.conv2d_dx(w, dy)  # built and warm
+    torch.cuda.synchronize()
+    before = pc.conv2d_dx.launches
+    with Ops() as ops:
+        pc.conv2d_dx(w, dy)
+    torch.cuda.synchronize()
+    if pc.conv2d_dx.launches != before + 1:
+        raise AssertionError(f"float32 conv2d_dx launched its kernel {pc.conv2d_dx.launches - before} times in one call")
+    extra = [op for op in ops.seen if op not in allowed]
+    if extra:
+        raise AssertionError(f"a float32 conv2d_dx call dispatched {extra} beside its kernel")
+    prof = profiled(lambda: pc.conv2d_dx(w, dy))
+    names = None
+    if prof is not None:
+        names = sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA and event_us(e) > 0})
+        if any("conv3x3_nhwc_kernel" not in n for n in names):
+            raise AssertionError(f"a float32 conv2d_dx call ran {names} on the device")
+    print(f"  float32 conv2d_dx {list(dy.shape)}: dispatched {sorted(set(ops.seen))}, launched its kernel once; "
+          f"device kernels of the call: {names if names is not None else 'not measured'}")
+
+
 def phase_train(device, card: str):
     import torch
 
@@ -2240,6 +2327,7 @@ def phase_train(device, card: str):
     from dcase2019_task4_tpu_torch.train import steps
     from dcase2019_task4_tpu_torch.utils.scaler import Scaler
 
+    dx_launches_only_its_kernel(device)
     cfg = Config()
     tr = cfg.train
     n_weak, n_unlabel, n_strong = tr.batch_size // 4, tr.batch_size // 2, tr.batch_size // 4
@@ -2859,16 +2947,19 @@ def profile_step(step, state, batch, generator, acc, card: str, step_ms: float, 
 # K3's bfloat16 kernels: their products must be tensor-core instructions
 MMA_KERNELS = ("conv3x3_bf16_kernel", "conv3x3_wgrad_bf16_kernel")
 # the float32 products redesigned as register-tiled FP32 FMAs: FFMA, and no
-# tensor-core instruction (no TF32)
-FFMA_KERNELS = ("fused_stft_mel_onedot_kernel", "conv3x3_wgrad_kernel")
+# tensor-core instruction (no TF32); bn_glu_pool_bwd_kernel's bfloat16
+# instantiations multiply on FP32 FMAs too
+FFMA_KERNELS = ("fused_stft_mel_onedot_kernel", "conv3x3_wgrad_kernel", "conv3x3_nhwc_kernel",
+                "bn_glu_pool_bwd_kernel")
 
 
 def check_mma(path):
     """Which instruction each product kernel was compiled to, read from the
     built library's machine code (`cuobjdump -sass`): K3's bfloat16 kernels
     must hold HGMMA (`wgmma`) or HMMA (`mma.sync`), the FP32 product kernels
-    (onedot K1, K3's float32 weight gradient) FFMA and neither HGMMA nor
-    HMMA. FFMA counts the float32 FMAs on the CUDA cores."""
+    (onedot K1, K3's float32 forward / dx and weight gradient, K2b's reduce
+    pass) FFMA and neither HGMMA nor HMMA. FFMA counts the float32 FMAs on
+    the CUDA cores."""
     from dcase2019_task4_tpu_torch.ops import _build
 
     counts = _build.sass_counts(path, MMA_KERNELS + FFMA_KERNELS)

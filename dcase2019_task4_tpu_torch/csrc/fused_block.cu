@@ -44,7 +44,8 @@
 // host never has to know it.
 //
 // At C = 128 the forward's shared memory is 134 KB (one block an SM), the
-// reduce pass's 212 KB and the recompute fixup's 202 KB.
+// float32 reduce pass's 209-214 KB (205 KB where dout stays in device
+// memory), the bfloat16 one's 212 KB and the recompute fixup's 202 KB.
 //
 // Bound: at block 1 of the flagship shape (y = [24, 864, 64, 64], 340 MB)
 // the forward reads y once (0.10 ms at 3.35 TB/s) and its 64x64 channel mix
@@ -79,17 +80,24 @@
 // bank conflicts), mix channels with each thread holding 8 pixels x 4
 // channels (8 when C > 64) in registers, gate, write g back over the slab,
 // mask it four channels per Philox call, and average each pooling window
-// from there. Only the pooled tile is written. Backward, per tile: the same
-// staging, dh (with the mask) staged beside it, lin in registers, dlin
-// written over dh, the second product against W^T (W rows padded to C + 1
-// so the transposed read is conflict-free), dy_partial written from
-// registers; then xn^T . dlin with each thread holding a 4 x 4 (8 x 8) patch
-// of dW in registers across all tiles of the block. The four sums of a
-// block go to its own slot of a workspace and fold_kernel adds the slots in
-// a fixed order in double precision: no float atomics, so a run repeats bit
-// for bit. Plain FP32 FMAs: no TF32, no tensor cores yet. The generator, the
-// four-channel mask step and the sigmoid live in chain.cuh, shared with the
-// entry-block kernels.
+// from there. Only the pooled tile is written. Backward reduce pass in
+// float32 (bwd_reduce_f32): three channel products on 8-channel register
+// tiles fed by 16-byte shared loads (a Hopper SM issues one shared load for
+// four FFMAs), y and dout staged by cp.async a tile ahead, x-hat kept in shared memory so
+// that S2 needs no second read of y, and a fast sigmoid (__expf and
+// __fdividef: the full-precision exp and division took a tenth of the
+// pass): see the comment at the function. In bfloat16 (bwd_reduce_lowp) and in the
+// recompute fixup, per tile: the same staging, dh (with the mask) staged
+// beside it, lin in registers, dlin written over dh, the second product
+// against W^T (W rows padded to C + 1 so the transposed read is
+// conflict-free), dy_partial written from registers; then xn^T . dlin with
+// each thread holding a 4 x 4 (8 x 8) patch of dW in registers across all
+// tiles of the block. The four sums of a block go to its own slot of a
+// workspace and fold_kernel adds the slots in a fixed order in double
+// precision: no float atomics, so a run repeats bit for bit. Plain FP32
+// FMAs: no TF32, no tensor cores yet. The generator, the four-channel mask
+// step and the sigmoid live in chain.cuh, shared with the entry-block
+// kernels.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -97,6 +105,7 @@
 #include <type_traits>
 
 #include "chain.cuh"
+#include "cp_async.cuh"
 #include "dtype.cuh"
 #include "fold.cuh"
 
@@ -390,17 +399,16 @@ __device__ __forceinline__ void tile_dxn(float (&acc)[8][NJ], float* xs, float* 
   }
 }
 
-// Workspace slot of a block: [C*C dW | C db | C S1 | C S2]. dyp == nullptr:
-// no dy_partial (the recompute fixup rebuilds dxn instead).
+// The reduce pass in bfloat16 (tile_dxn's products, each thread 8 pixels x
+// NJ channels and a NJ x NJ patch of dW; the roundings listed above).
 template <int NJ, typename TY>
-__global__ void __launch_bounds__(kThreads)
-bn_glu_pool_bwd_kernel(const TY* __restrict__ y, const TY* __restrict__ dout,
-                       const float* __restrict__ scale, const float* __restrict__ bias,
-                       const float* __restrict__ mean, const float* __restrict__ var,
-                       const float* __restrict__ glu_w, const float* __restrict__ glu_b,
-                       TY* __restrict__ dyp, float* __restrict__ partials, int T, int F,
-                       int C, int pt, int pf, float eps, Tile tl, int tiles_per_block,
-                       Dropout dr) {
+__device__ __forceinline__ void bwd_reduce_lowp(const TY* __restrict__ y, const TY* __restrict__ dout,
+                                                const float* __restrict__ scale, const float* __restrict__ bias,
+                                                const float* __restrict__ mean, const float* __restrict__ var,
+                                                const float* __restrict__ glu_w, const float* __restrict__ glu_b,
+                                                TY* __restrict__ dyp, float* __restrict__ partials, int T, int F,
+                                                int C, int pt, int pf, float eps, Tile tl, int tiles_per_block,
+                                                Dropout dr) {
   extern __shared__ float smem[];
   const int CP = C + 1;
   float* xs = smem;               // [kPix][CP]: xn
@@ -503,6 +511,446 @@ bn_glu_pool_bwd_kernel(const TY* __restrict__ y, const TY* __restrict__ dout,
     for (int g = 0; g < 16; ++g) s += red[(g * 2 + which) * RW + c];
     ps[C * C + C + which * C + c] = s;
   }
+}
+
+// ---------------------------------------- backward, float32: register tiles
+
+// Channel plan of the float32 reduce pass for C <= 16 * NJ (NJ = 4: C <= 64,
+// NJ = 8: C <= 128); channels past C are zeros in every shared operand.
+template <int NJ>
+struct RedPlan {
+  static constexpr int CP = 16 * NJ;              // padded channels: 64 or 128
+  static constexpr int H = CP / 2;                // a thread's second channel half starts here
+  static constexpr int CG = CP / 8;               // channel groups of a product tile: 8 or 16
+  static constexpr int PG = kThreads / CG;        // pixel groups: 32 or 16
+  static constexpr int MI = kPix / PG;            // pixels a thread: 4 or 8
+  static constexpr int KS = CP + 4;               // row stride of the tiles: an odd number of 16-byte units
+  static constexpr int DG = kThreads / (CG * CG); // dW groups, each a share of a tile's pixels: 4 or 1
+  static_assert(CG % 8 == 0 && DG >= 1, "a quarter warp spans eight channel groups");
+};
+
+// Dynamic shared memory of the float32 reduce pass (ops/fused_block.reduce_plan
+// computes the same): `buffers` (1 or 2) x-hat tiles [kPix][KS], the dlin
+// tile [kPix][KS], `buffers` dout tiles [drows][KS] (drows = 0: dout is read
+// from device memory), W [CP][CP], seven vectors [CP], two tables [kPix] (int).
+template <int NJ>
+size_t red_f32_smem(int buffers, int drows) {
+  using P = RedPlan<NJ>;
+  return sizeof(float) * ((size_t)(buffers + 1) * kPix * P::KS + (size_t)buffers * drows * P::KS +
+                          P::CP * P::CP + 7 * P::CP + 2 * kPix);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ float& at(float4& v, int i) { return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w; }
+
+// Four neighbouring floats from device memory into 16 aligned bytes of shared
+// memory by cp.async: one 16-byte copy where vec (the tensor is 16-byte
+// aligned; C % 4 == 0 keeps every row so), else four of 4 bytes; zeros
+// unless ok.
+__device__ __forceinline__ void stage_row4(float* dst, const float* src, bool ok, bool vec) {
+  if (vec) {
+    cp_async16(dst, src, ok ? 16 : 0);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) cp_async4(dst + e, ok ? src + e : src, ok ? 4 : 0);
+}
+
+// The float32 reduce pass. Per tile of up to 128 pixels (whole pooling
+// windows): y and the tile's rows of dout are staged by cp.async (the next
+// tile's while this one multiplies, where two buffers fit), y normalised in
+// place into x-hat = (y - mean) * inv; lin = xn . W + b with xn = x-hat * scale
+// + bias formed from the x-hat operand as it is read; per element the gate
+// term and dlin = dh * sig; dxn = dlin . W^T + gate; S1 += dxn, S2 += dxn *
+// x-hat, dy_partial = inv * scale * dxn; M += x-hat^T . dlin, so that the
+// block's dW = xn^T . dlin = scale[ci] M + bias[ci] db. Thread (pg, cg) =
+// (tid / CG, tid % CG) holds, for both channel products and the element
+// steps, pixels pg + PG i (i < MI) x channels h H + 4 cg + j (h < 2, j < 4).
+// W is stored once, chunk q (four channels) of row r at position q ^ ((r >>
+// 2) & 7), so that lin's loads (row k, chunks cg and cg + CG) and dxn's
+// loads (rows h H + 4 cg + j, chunk k) are each eight distinct 16-byte bank
+// groups across a quarter warp: both products read float4, MI + 8 of them per
+// 32 MI FMAs. M: thread (wg, wa, wb) keeps an 8 x 8 register tile, input
+// channels h H + 4 wa + i x output channels h H + 4 wb + j, over the pixels
+// p = wg (mod DG) of each tile, four float4 per 64 FMAs; the DG groups are
+// added in group order at the block's end. db, S1 and S2 are summed by every
+// thread over its pixels and added over the pixel groups in order.
+template <int NJ>
+__device__ __forceinline__ void bwd_reduce_f32(const float* __restrict__ y, const float* __restrict__ dout,
+                                               const float* __restrict__ scale, const float* __restrict__ bias,
+                                               const float* __restrict__ mean, const float* __restrict__ var,
+                                               const float* __restrict__ glu_w, const float* __restrict__ glu_b,
+                                               float* __restrict__ dyp, float* __restrict__ partials, int T,
+                                               int F, int C, int pt, int pf, float eps, Tile tl,
+                                               int tiles_per_block, Dropout dr, int buffers, int drows, bool vec) {
+  using P = RedPlan<NJ>;
+  constexpr int CP = P::CP, H = P::H, CG = P::CG, PG = P::PG, MI = P::MI, KS = P::KS, DG = P::DG;
+  constexpr int Q = CP / 4, DP = kThreads / Q;  // staging: chunk tid % Q of every DP-th row
+  extern __shared__ __align__(16) float smem_r[];
+  float* xs = smem_r;                        // [buffers][kPix][KS]: y, then x-hat
+  float* ds = xs + buffers * kPix * KS;      // [kPix][KS]: dlin
+  float* dsm = ds + kPix * KS;               // [buffers][drows][KS]: the tile's rows of dout
+  float* wsw = dsm + buffers * drows * KS;   // [CP][CP]: W (in, out), chunks swizzled
+  float* vmean = wsw + CP * CP;              // [CP] each, zeros past C
+  float* vinv = vmean + CP;
+  float* vscale = vinv + CP;
+  float* vbias = vscale + CP;
+  float* vgb = vbias + CP;
+  float* vgain = vgb + CP;                   // inv * scale
+  float* vdb = vgain + CP;                   // the block's db, at its end
+  int* tab_y = reinterpret_cast<int*>(vdb + CP);  // [kPix]: the global pixel of tile pixel p
+  int* tab_d = tab_y + kPix;  // [kPix]: its row of dout (of the staged rows, or of dout where drows == 0)
+
+  const int tid = threadIdx.x, b = blockIdx.y;
+  const unsigned long long seed = seed_of(dr);
+  const int Tp = T / pt, Fp = F / pf;
+  const float inv_win = 1.0f / (float)(pt * pf);
+
+  for (int i = tid; i < CP * Q; i += kThreads) {  // once a block
+    const int r = i / Q, q = i % Q;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r < C && 4 * q < C) v = make_float4(glu_w[r * C + 4 * q], glu_w[r * C + 4 * q + 1], glu_w[r * C + 4 * q + 2],
+                                            glu_w[r * C + 4 * q + 3]);
+    st4(wsw + r * CP + 4 * (q ^ ((r >> 2) & 7)), v);
+  }
+  for (int c = tid; c < CP; c += kThreads) {
+    const bool in = c < C;
+    const float iv = in ? rsqrtf(var[c] + eps) : 0.0f;
+    vmean[c] = in ? mean[c] : 0.0f;
+    vinv[c] = iv;
+    vscale[c] = in ? scale[c] : 0.0f;
+    vbias[c] = in ? bias[c] : 0.0f;
+    vgb[c] = in ? glu_b[c] : 0.0f;
+    vgain[c] = in ? iv * scale[c] : 0.0f;
+  }
+
+  // y and the dout rows of tile `tile` into buffer buf by cp.async, zeros
+  // past the tile and past C; rows carried by counters (no division a row)
+  const int sq = tid % Q;
+  auto stage = [&](int tile, int buf) {
+    const TilePos tp = tile_pos(tile, b, T, F, tl);
+    const int tpix = tp.trows * tp.fcols;
+    {
+      int p = tid / Q;
+      int pr = p / tp.fcols, pc = p % tp.fcols;
+      const int dpr = DP / tp.fcols, dpc = DP % tp.fcols;
+      float* xb = xs + buf * kPix * KS + 4 * sq;
+      for (; p < kPix; p += DP) {
+        const bool ok = p < tpix && 4 * sq < C;
+        stage_row4(xb + p * KS, ok ? y + ((tp.row0 + pr) * F + tp.f0 + pc) * C + 4 * sq : y, ok, vec);
+        pc += dpc;
+        pr += dpr;
+        if (pc >= tp.fcols) {
+          pc -= tp.fcols;
+          ++pr;
+        }
+      }
+    }
+    if (drows > 0) {  // window w = (w / wcols, w % wcols) of the tile's pooled rows
+      const int wcols = tp.fcols / pf, nw = (tp.trows / pt) * wcols;
+      int w = tid / Q;
+      int wr = w / wcols, wc = w % wcols;
+      const int dwr = DP / wcols, dwc = DP % wcols;
+      float* db_ = dsm + buf * drows * KS + 4 * sq;
+      for (; w < nw; w += DP) {
+        const bool ok = 4 * sq < C;
+        const long long row = ((long long)b * Tp + tp.t0 / pt + wr) * Fp + tp.f0 / pf + wc;
+        stage_row4(db_ + w * KS, ok ? dout + row * C + 4 * sq : dout, ok, vec);
+        wc += dwc;
+        wr += dwr;
+        if (wc >= wcols) {
+          wc -= wcols;
+          ++wr;
+        }
+      }
+    }
+  };
+
+  const int cg = tid % CG, pg = tid / CG;
+  const int wa = (tid / CG) % CG, wb = tid % CG, wg = tid / (CG * CG);
+  float mw[8][8];  // M [input channel (i / 4) H + 4 wa + i % 4][output channel (j / 4) H + 4 wb + j % 4]
+  float dbs[8], s1[8], s2[8];  // channel (j / 4) H + 4 cg + j % 4
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    dbs[i] = s1[i] = s2[i] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mw[i][j] = 0.0f;
+  }
+
+  const int n_tiles = tiles_per_clip(T, F, pt, pf);
+  const int first = blockIdx.x * tiles_per_block;
+  const int last = min(n_tiles, first + tiles_per_block);
+  if (first < last) stage(first, 0);
+  cp_async_commit();
+  for (int tile = first; tile < last; ++tile) {
+    const int buf = buffers == 2 ? (tile - first) & 1 : 0;
+    const TilePos tp = tile_pos(tile, b, T, F, tl);
+    const int tpix = tp.trows * tp.fcols;
+    cp_async_wait_all();
+    __syncthreads();  // this tile landed; every warp is done with the previous tile
+    if (buffers == 2 && tile + 1 < last) {  // the next tile loads while this one multiplies
+      stage(tile + 1, buf ^ 1);
+      cp_async_commit();
+    }
+    float* xb = xs + buf * kPix * KS;
+    const float* dtile = dsm + buf * drows * KS;
+    {  // x-hat = (y - mean) * inv in place, zeros past the tile and past C
+      const float4 m = ld4(vmean + 4 * sq), iv = ld4(vinv + 4 * sq);
+      for (int p = tid / Q; p < kPix; p += DP) {
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (p < tpix) {
+          const float4 u = ld4(xb + p * KS + 4 * sq);
+          v = make_float4((u.x - m.x) * iv.x, (u.y - m.y) * iv.y, (u.z - m.z) * iv.z, (u.w - m.w) * iv.w);
+        }
+        st4(xb + p * KS + 4 * sq, v);
+      }
+    }
+    if (tid < kPix) {
+      const int p = tid;
+      int gy = 0, gd = 0;
+      if (p < tpix) {
+        const int pr = p / tp.fcols, pc = p % tp.fcols;
+        gy = (int)((tp.row0 + pr) * F + tp.f0 + pc);
+        gd = drows > 0 ? (pr / pt) * (tp.fcols / pf) + pc / pf
+                       : (b * Tp + (tp.t0 + pr) / pt) * Fp + (tp.f0 + pc) / pf;
+      }
+      tab_y[p] = gy;
+      tab_d[p] = gd;
+    }
+    __syncthreads();  // x-hat and the tables complete
+
+    // lin = xn . W (b added below), xn = x-hat * scale + bias per operand
+    float acc[MI][8];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    {
+      const float* xa = xb + pg * KS;
+      for (int kq = 0; kq < Q; ++kq) {
+        const float4 sk = ld4(vscale + 4 * kq), bk = ld4(vbias + 4 * kq);
+        float4 a[MI];
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          const float4 u = ld4(xa + i * PG * KS + 4 * kq);
+          a[i] = make_float4(fmaf(u.x, sk.x, bk.x), fmaf(u.y, sk.y, bk.y), fmaf(u.z, sk.z, bk.z),
+                             fmaf(u.w, sk.w, bk.w));
+        }
+        const int s = kq & 7;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float* wr = wsw + (4 * kq + kk) * CP;
+          const float4 b0 = ld4(wr + 4 * (cg ^ s)), b1 = ld4(wr + 4 * ((cg + CG) ^ s));
+          const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+          for (int i = 0; i < MI; ++i) {
+            const float av = at(a[i], kk);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
+          }
+        }
+      }
+    }
+
+    // per element: dh = dout / (pt pf), masked; the gate term into acc (dxn's
+    // first term), dlin = dh * sig over ds, db += dlin
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c0 = h * H + 4 * cg;
+      float4 sc = ld4(vscale + c0), bi = ld4(vbias + c0), gb = ld4(vgb + c0);
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const int p = pg + PG * i;
+        float4 xh = ld4(xb + p * KS + c0);
+        float4 dh = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (p < tpix && c0 < C) {
+          dh = drows > 0 ? ld4(dtile + tab_d[p] * KS + c0)
+                         : (vec ? __ldg(reinterpret_cast<const float4*>(dout + (long long)tab_d[p] * C + c0))
+                                : make_float4(dout[(long long)tab_d[p] * C + c0], dout[(long long)tab_d[p] * C + c0 + 1],
+                                              dout[(long long)tab_d[p] * C + c0 + 2],
+                                              dout[(long long)tab_d[p] * C + c0 + 3]));
+          dh = make_float4(dh.x * inv_win, dh.y * inv_win, dh.z * inv_win, dh.w * inv_win);
+          if (dr.mode != 0) {
+            const uint4 r = keep_values4((long long)tab_y[p] * C + c0, seed, dr.mode);
+            dh.x *= r.x >= dr.threshold ? dr.keep_scale : 0.0f;
+            dh.y *= r.y >= dr.threshold ? dr.keep_scale : 0.0f;
+            dh.z *= r.z >= dr.threshold ? dr.keep_scale : 0.0f;
+            dh.w *= r.w >= dr.threshold ? dr.keep_scale : 0.0f;
+          }
+        }
+        float4 dl;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float xn = fmaf(at(xh, e), at(sc, e), at(bi, e));
+          const float sig = __fdividef(1.0f, 1.0f + __expf(-xn));
+          const float d = at(dh, e);
+          acc[i][4 * h + e] = d * (acc[i][4 * h + e] + at(gb, e)) * sig * (1.0f - sig);
+          at(dl, e) = d * sig;
+          dbs[4 * h + e] += at(dl, e);
+        }
+        st4(ds + p * KS + c0, dl);
+      }
+    }
+    __syncthreads();  // dlin complete
+
+    // dxn = gate + dlin . W^T: row h H + 4 cg + j of W, chunk kq at kq ^ (cg & 7)
+    {
+      const float* da = ds + pg * KS;
+      for (int kq = 0; kq < Q; ++kq) {
+        float4 a[MI], bq[8];
+#pragma unroll
+        for (int i = 0; i < MI; ++i) a[i] = ld4(da + i * PG * KS + 4 * kq);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) bq[j] = ld4(wsw + ((j / 4) * H + 4 * cg + j % 4) * CP + 4 * (kq ^ (cg & 7)));
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            acc[i][j] = fmaf(a[i].x, bq[j].x, acc[i][j]);
+            acc[i][j] = fmaf(a[i].y, bq[j].y, acc[i][j]);
+            acc[i][j] = fmaf(a[i].z, bq[j].z, acc[i][j]);
+            acc[i][j] = fmaf(a[i].w, bq[j].w, acc[i][j]);
+          }
+      }
+    }
+    // S1 += dxn, S2 += dxn * x-hat, dy_partial = inv * scale * dxn
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c0 = h * H + 4 * cg;
+      if (c0 >= C) continue;
+      float4 g = ld4(vgain + c0);
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const int p = pg + PG * i;
+        if (p >= tpix) continue;
+        float4 xh = ld4(xb + p * KS + c0), out;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float dxn = acc[i][4 * h + e];
+          s1[4 * h + e] += dxn;
+          s2[4 * h + e] = fmaf(dxn, at(xh, e), s2[4 * h + e]);
+          at(out, e) = at(g, e) * dxn;
+        }
+        if (dyp != nullptr) {
+          float* dst = dyp + (long long)tab_y[p] * C + c0;
+          if (vec) {
+            st4(dst, out);
+          } else {
+            dst[0] = out.x;
+            dst[1] = out.y;
+            dst[2] = out.z;
+            dst[3] = out.w;
+          }
+        }
+      }
+    }
+
+    // M += x-hat^T . dlin over this group's pixels
+    for (int p = wg; p < tpix; p += DG) {
+      const float* xr = xb + p * KS;
+      const float* dr_ = ds + p * KS;
+      const float4 x0 = ld4(xr + 4 * wa), x1 = ld4(xr + H + 4 * wa);
+      const float4 d0 = ld4(dr_ + 4 * wb), d1 = ld4(dr_ + H + 4 * wb);
+      const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+      const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mw[i][j] = fmaf(xv[i], dv[j], mw[i][j]);
+    }
+    if (buffers == 1 && tile + 1 < last) {
+      __syncthreads();  // every warp is done with the only buffers
+      stage(tile + 1, 0);
+      cp_async_commit();
+    }
+  }
+
+  // the block's slot [C*C dW | C db | C S1 | C S2]; the tiles are scratch now
+  const int slot = blockIdx.y * gridDim.x + blockIdx.x;
+  float* ps = partials + (long long)slot * (C * C + 3 * C);
+  __syncthreads();  // every warp is done with the tiles
+  float* red = xs;  // [3][PG][CP]: db, S1, S2 of each pixel group
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = (j / 4) * H + 4 * cg + j % 4;
+    red[(0 * PG + pg) * CP + c] = dbs[j];
+    red[(1 * PG + pg) * CP + c] = s1[j];
+    red[(2 * PG + pg) * CP + c] = s2[j];
+  }
+  __syncthreads();
+  for (int i = tid; i < 3 * CP; i += kThreads) {
+    const int which = i / CP, c = i % CP;
+    float s = 0.0f;
+    for (int g = 0; g < PG; ++g) s += red[(which * PG + g) * CP + c];
+    if (which == 0) vdb[c] = s;
+    if (c < C) ps[C * C + which * C + c] = s;
+  }
+  __syncthreads();  // the sums above are read; vdb complete
+  if constexpr (DG > 1) {  // the M groups, added in group order
+    float* wred = xs;  // [DG - 1][CP][CP]
+    if (wg > 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          st4(wred + ((wg - 1) * CP + (i / 4) * H + 4 * wa + i % 4) * CP + h * H + 4 * wb,
+              make_float4(mw[i][4 * h], mw[i][4 * h + 1], mw[i][4 * h + 2], mw[i][4 * h + 3]));
+    }
+    __syncthreads();
+    if (wg == 0) {
+      for (int g = 1; g < DG; ++g)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float4 v = ld4(wred + ((g - 1) * CP + (i / 4) * H + 4 * wa + i % 4) * CP + h * H + 4 * wb);
+            mw[i][4 * h] += v.x;
+            mw[i][4 * h + 1] += v.y;
+            mw[i][4 * h + 2] += v.z;
+            mw[i][4 * h + 3] += v.w;
+          }
+    }
+  }
+  if (wg == 0) {  // dW = xn^T . dlin = scale[ci] M + bias[ci] db
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int ci = (i / 4) * H + 4 * wa + i % 4;
+      if (ci >= C) continue;
+      const float sc = vscale[ci], bi = vbias[ci];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int co = h * H + 4 * wb;
+        if (co >= C) continue;
+        const float4 dbv = ld4(vdb + co);
+        st4(ps + (long long)ci * C + co,
+            make_float4(fmaf(sc, mw[i][4 * h], bi * dbv.x), fmaf(sc, mw[i][4 * h + 1], bi * dbv.y),
+                        fmaf(sc, mw[i][4 * h + 2], bi * dbv.z), fmaf(sc, mw[i][4 * h + 3], bi * dbv.w)));
+      }
+    }
+  }
+}
+
+// Workspace slot of a block: [C*C dW | C db | C S1 | C S2]. dyp == nullptr:
+// no dy_partial (the recompute fixup rebuilds dxn instead). float32: the
+// register-tiled pass above, with `buffers` (1 or 2) tiles, `drows` staged
+// rows of dout a tile (0: read from device memory) and `vec` (y, dout and dyp
+// 16-byte aligned); bfloat16: bwd_reduce_lowp, which ignores the three.
+template <int NJ, typename TY>
+__global__ void __launch_bounds__(kThreads)
+bn_glu_pool_bwd_kernel(const TY* __restrict__ y, const TY* __restrict__ dout,
+                       const float* __restrict__ scale, const float* __restrict__ bias,
+                       const float* __restrict__ mean, const float* __restrict__ var,
+                       const float* __restrict__ glu_w, const float* __restrict__ glu_b,
+                       TY* __restrict__ dyp, float* __restrict__ partials, int T, int F,
+                       int C, int pt, int pf, float eps, Tile tl, int tiles_per_block,
+                       Dropout dr, int buffers, int drows, int vec) {
+  if constexpr (std::is_same<TY, float>::value)
+    bwd_reduce_f32<NJ>(y, dout, scale, bias, mean, var, glu_w, glu_b, dyp, partials, T, F, C, pt, pf, eps, tl,
+                       tiles_per_block, dr, buffers, drows, vec != 0);
+  else
+    bwd_reduce_lowp<NJ, TY>(y, dout, scale, bias, mean, var, glu_w, glu_b, dyp, partials, T, F, C, pt, pf, eps,
+                            tl, tiles_per_block, dr);
 }
 
 // The recompute fixup (the JAX package's _bwd_fixup_recompute_kernel, under
@@ -660,19 +1108,25 @@ int launch_fwd(const BlockArgs& a, void* out, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
 template <int NJ, typename TY>
-int launch_bwd(const BlockArgs& a, const void* dout, void* dyp, float* partials, float* sums,
-               cudaStream_t stream) {
-  const size_t smem = bwd_smem(a.C, (size_t)16 * 2 * 16 * NJ);
+int launch_bwd(const BlockArgs& a, const void* dout, void* dyp, float* partials, float* sums, int buffers,
+               int drows, cudaStream_t stream) {
+  constexpr bool kF32 = std::is_same<TY, float>::value;
+  if (kF32 && ((buffers != 1 && buffers != 2) || drows < 0 || drows * a.pt * a.pf > kPix))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = kF32 ? red_f32_smem<NJ>(buffers, drows) : bwd_smem(a.C, (size_t)16 * 2 * 16 * NJ);
   cudaError_t err = cudaFuncSetAttribute(bn_glu_pool_bwd_kernel<NJ, TY>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid = block_grid(a);
+  const bool vec = aligned16(a.y) && aligned16(dout) && (dyp == nullptr || aligned16(dyp));
   bn_glu_pool_bwd_kernel<NJ, TY><<<grid, kThreads, smem, stream>>>(
       static_cast<const TY*>(a.y), static_cast<const TY*>(dout), a.scale, a.bias, a.mean, a.var,
       a.glu_w, a.glu_b, static_cast<TY*>(dyp), partials, a.T, a.F, a.C, a.pt, a.pf, a.eps,
-      tile_of(a.F, a.pt, a.pf), a.tiles_per_block, a.dr);
+      tile_of(a.F, a.pt, a.pf), a.tiles_per_block, a.dr, buffers, drows, (int)vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_fold<float>(partials, sums, (int)(grid.x * grid.y), a.C * a.C + 3 * a.C, stream);
@@ -762,13 +1216,16 @@ int dcase_bn_glu_pool(const void* y, const void* scale, const void* bias, const 
 // y's dtype), or null for no dy_partial (the recompute fixup follows);
 // partials: [slots, C*C + 3C] float32 with slots = B * ceil(tiles /
 // tiles_per_block); sums: [C*C + 3C] float32 = dW | db | S1 | S2, folded
-// from the slots in slot order. Dropout as in dcase_bn_glu_pool.
+// from the slots in slot order. Dropout as in dcase_bn_glu_pool. buffers,
+// drows (float32 only): the tiles of y and of dout in shared memory, 2 where
+// they fit, else 1, and the rows of dout a tile stages, 128 / (pt * pf), or
+// 0 to read dout from device memory (ops/fused_block.reduce_plan).
 int dcase_bn_glu_pool_bwd(const void* y, const void* dout, const void* scale,
                           const void* bias, const void* mean, const void* var,
                           const void* glu_w, const void* glu_b, void* dyp, void* partials,
                           void* sums, int B, int T, int F, int C, int pt, int pf, float eps,
                           const void* seed, unsigned int threshold, float keep_scale, int packed,
-                          int tiles_per_block, int bf16, void* stream) {
+                          int tiles_per_block, int bf16, int buffers, int drows, void* stream) {
   const BlockArgs a{y, static_cast<const float*>(scale), static_cast<const float*>(bias),
                     static_cast<const float*>(mean), static_cast<const float*>(var),
                     static_cast<const float*>(glu_w), static_cast<const float*>(glu_b),
@@ -778,10 +1235,10 @@ int dcase_bn_glu_pool_bwd(const void* y, const void* dout, const void* scale,
   auto* su = static_cast<float*>(sums);
   auto st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return C <= 64 ? launch_bwd<4, __nv_bfloat16>(a, dout, dyp, pa, su, st)
-                   : launch_bwd<8, __nv_bfloat16>(a, dout, dyp, pa, su, st);
-  return C <= 64 ? launch_bwd<4, float>(a, dout, dyp, pa, su, st)
-                 : launch_bwd<8, float>(a, dout, dyp, pa, su, st);
+    return C <= 64 ? launch_bwd<4, __nv_bfloat16>(a, dout, dyp, pa, su, buffers, drows, st)
+                   : launch_bwd<8, __nv_bfloat16>(a, dout, dyp, pa, su, buffers, drows, st);
+  return C <= 64 ? launch_bwd<4, float>(a, dout, dyp, pa, su, buffers, drows, st)
+                 : launch_bwd<8, float>(a, dout, dyp, pa, su, buffers, drows, st);
 }
 
 // Second backward pass without dy_partial: dy [B, T, F, C] in y's dtype from

@@ -93,12 +93,27 @@
 // Bound: compute on the FP32 CUDA cores (67 TFLOP/s): the flagship float32
 // shapes are 12.2 + 1.5 GFLOP against 42 and 11 MB of activations.
 //
-// Design, forward: implicit GEMM, one block per (tile of whole time rows
-// holding up to 128 pixels, clip, slice of 64 output channels). The block
-// stages its input rows plus a one-row, one-column halo in shared memory
-// once, as float32 with a pixel stride of Cin + 1; for each of the nine taps
-// it stages that tap's [Cin, 64] weight slice and every thread accumulates
-// 8 pixels x 4 output channels in registers with FP32 FMAs.
+// Design, forward and dx (conv3x3_nhwc_kernel): an implicit GEMM on FP32
+// FMAs with M = output pixels, N = 64 output channels, K = 9 * Cin. One block
+// of four warps takes a tile of whole frequency rows holding 128 output
+// pixels (64 where 128-pixel tiles would give fewer than two blocks an SM:
+// the flagship's F = 4 shape) and a 64-wide slice of the output channels;
+// each thread an 8 x 8 register tile (4 x 8 at 64 pixels): pixels pg + 16 i
+// and channels 4 cg + j, 32 + 4 cg + j. The block stages its input rows plus
+// a one-row, one-column halo once, by cp.async, with zeros outside the
+// tensor; a pixel's channels are one shared row, its stride an odd number of
+// 16-byte units. The weights stream through two buffers of one tap's slice
+// of at most 64 input channels (cp.async: the next slice loads while this
+// one multiplies). Per four input channels a thread reads its eight pixels'
+// float4 (the eight lanes that share a pixel read one address) and the
+// slice's eight float4 (eight neighbouring float4 across the lanes) and does
+// 256 FMAs: 16 FMAs a 16-byte shared load, against the four FFMAs an SM
+// issues for each shared load. The input gradient is the same kernel
+// reading the forward weights flipped in both taps and transposed, by index
+// (kFlip: the slice is staged [output channel][input channel], rows
+// contiguous in the forward weights, and a thread takes channels cg + 8 j
+// so that its eight float4 come from eight neighbouring rows), with no
+// bias: a dx call launches this kernel and nothing else.
 //
 // Weight gradient (conv3x3_wgrad_kernel): the structure of the bfloat16
 // weight gradient above, on FP32 FMAs. Nine GEMMs dW[dt, df] = X_shifted^T
@@ -148,90 +163,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kPix = 128;   // output pixels per tile
-constexpr int kCoTile = 64; // output channels per float32 block
 
 // ---- float32 kernels ----
-
-__global__ void __launch_bounds__(kThreads)
-conv3x3_nhwc_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                    const float* __restrict__ bias, float* __restrict__ out,
-                    int T, int F, int Cin, int Cout, int rows) {
-  extern __shared__ float smem[];
-  const int tid = threadIdx.x;
-  const int t0 = blockIdx.x * rows;
-  const int b = blockIdx.y;
-  const int co0 = blockIdx.z * kCoTile;
-  const int W2 = F + 2;   // halo-padded freq width
-  const int CP = Cin + 1; // padded pixel stride
-  float* xs = smem;                        // [(rows+2) * W2][CP]
-  float* ws = xs + (rows + 2) * W2 * CP;   // [Cin][kCoTile]
-
-  const int n_x = (rows + 2) * W2 * Cin;
-  for (int i = tid; i < n_x; i += kThreads) {
-    const int ci = i % Cin;
-    const int cell = i / Cin;
-    const int fc = cell % W2, tr = cell / W2;
-    const int t = t0 - 1 + tr, f = fc - 1;
-    float v = 0.0f;
-    if (t >= 0 && t < T && f >= 0 && f < F)
-      v = x[(((long long)b * T + t) * F + f) * Cin + ci];
-    xs[cell * CP + ci] = v;
-  }
-
-  // thread -> 8 pixels (pg + 16*i) x 4 output channels (cg + 16*j)
-  const int cg = tid % 16, pg = tid / 16;
-  const int npix = rows * F;
-  int pbase[8];
-  bool pval[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int p = pg + 16 * i;
-    pval[i] = p < npix && t0 + p / F < T;
-    const int pp = pval[i] ? p : 0;
-    pbase[i] = ((pp / F) * W2 + (pp % F)) * CP;  // top-left tap of the window
-  }
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dt = tap / 3, df = tap % 3;
-    __syncthreads();  // xs staged / previous tap's weights fully read
-    for (int i = tid; i < Cin * kCoTile; i += kThreads) {
-      const int ci = i / kCoTile, c = i % kCoTile;
-      ws[i] = co0 + c < Cout ? w[((long long)tap * Cin + ci) * Cout + co0 + c] : 0.0f;
-    }
-    __syncthreads();
-    const int toff = (dt * W2 + df) * CP;
-    for (int ci = 0; ci < Cin; ++ci) {
-      float a[8], wv[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = xs[pbase[i] + toff + ci];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = ws[ci * kCoTile + cg + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], wv[j], acc[i][j]);
-    }
-  }
-
-  float* ob = out + ((long long)b * T + t0) * F * Cout;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    if (!pval[i]) continue;
-    const int p = pg + 16 * i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int co = co0 + cg + 16 * j;
-      if (co < Cout) ob[(long long)p * Cout + co] = acc[i][j] + bias[co];
-    }
-  }
-}
 
 // Four floats into 16 aligned bytes of shared memory: the first n (0..4)
 // from src, zeros after; one 16-byte copy where src is 16-byte aligned (vec:
@@ -243,6 +177,217 @@ __device__ __forceinline__ void stage4(float* dst, const float* src, int n, bool
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) cp_async4(dst + i, i < n ? src + i : src, i < n ? 4 : 0);
+}
+
+__device__ __forceinline__ float part(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+constexpr int kCvThreads = 128;  // float32 forward / dx: four warps
+constexpr int kCvN = 64;         // output channels a block
+
+// Row stride in floats of a shared operand whose rows hold n values: n
+// rounded up to 4, plus 4 where that is an even number of 16-byte units, so
+// that neighbouring rows start in different 16-byte bank groups.
+__host__ __device__ inline int odd_stride4(int n) {
+  const int r4 = (n + 3) / 4 * 4;
+  return (r4 / 4) % 2 ? r4 : r4 + 4;
+}
+
+// Dynamic shared memory of conv3x3_nhwc_kernel: the slab [(rows+2) * (F+2)]
+// [odd_stride4(Cin)] and two weight buffers of 64 * odd_stride4(kc) floats
+// (ops/packed_conv.conv_plan computes the same).
+size_t conv_f32_smem(int rows, int F, int Cin, int kc) {
+  return sizeof(float) *
+         ((size_t)(rows + 2) * (F + 2) * odd_stride4(Cin) + 2 * (size_t)kCvN * odd_stride4(kc));
+}
+
+// grid: (time tiles of `rows` whole frequency rows, B, ceil(Cout / 64)), 128
+// threads. Thread (pg, cg) = (tid / 8, tid % 8) holds pixels pg + 16 i (i <
+// MI: 16 * MI pixels a tile) x 8 output channels: 4 cg + j and 32 + 4 cg + j
+// (forward) or cg + 8 j (kFlip). kc: input channels a weight slice, a power
+// of two from 4 to 64. bias may be null (no bias).
+template <int MI, bool kFlip>
+__global__ void __launch_bounds__(kCvThreads, 2)
+conv3x3_nhwc_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                    const float* __restrict__ bias, float* __restrict__ out, int T, int F, int Cin,
+                    int Cout, int rows, int kc, int vec_x, int vec_w, int vec_o) {
+  extern __shared__ __align__(16) float smem_c[];
+  const int tid = threadIdx.x, cg = tid % 8, pg = tid / 8;
+  const int t0 = blockIdx.x * rows, b = blockIdx.y, co0 = blockIdx.z * kCvN;
+  const int W2 = F + 2;
+  const int r4 = (Cin + 3) / 4 * 4;  // input channels in whole chunks of four
+  const int CS = odd_stride4(Cin), WS = odd_stride4(kc);
+  const int n_cells = (rows + 2) * W2;
+  const int nks = (r4 + kc - 1) / kc;  // weight slices a tap
+  const int n_stages = 9 * nks;
+  float* xs = smem_c;             // the slab [n_cells][CS]
+  float* ws = xs + n_cells * CS;  // [2][64 * WS]
+
+  // the slab: input rows t0 - 1 .. t0 + rows, columns -1 .. F, zeros outside;
+  // thread -> chunk q of four channels of every (128 / Q)-th cell, the cell's
+  // row and column carried by counters (no division in the loop)
+  {
+    const int Q = r4 / 4;
+    const int dq = kCvThreads % Q, dcell = kCvThreads / Q;
+    const int dr = dcell / W2, df = dcell % W2;
+    int q = tid % Q, cell = tid / Q;
+    int r = cell / W2, f = cell % W2;
+    while (cell < n_cells) {
+      const int t = t0 - 1 + r, fi = f - 1, ci = 4 * q;
+      int n = 0;
+      const float* src = x;
+      if (t >= 0 && t < T && fi >= 0 && fi < F) {
+        n = min(4, Cin - ci);
+        src = x + (((long long)b * T + t) * F + fi) * Cin + ci;
+      }
+      stage4(xs + cell * CS + ci, src, n, vec_x);
+      q += dq;
+      cell += dcell;
+      r += dr;
+      f += df;
+      if (q >= Q) {
+        q -= Q;
+        ++cell;
+        ++f;
+      }
+      if (f >= W2) {
+        f -= W2;
+        ++r;
+      }
+    }
+  }
+
+  // weight slice s (tap s / nks, input channels k0 = (s % nks) * kc ..) into
+  // buffer buf: forward [kc][64] (row k: input channel k0 + k, its 64 output
+  // channels); kFlip [64][WS] (row n: output channel co0 + n of dx, its kc
+  // input channels, read from the forward weights flipped in both taps and
+  // transposed: w[8 - tap][n][k], w being the forward conv's [3, 3, Cout, Cin])
+  auto load_w = [&](int s, int buf) {
+    const int tap = s / nks, k0 = (s % nks) * kc;
+    float* dst = ws + buf * kCvN * WS;
+    if constexpr (!kFlip) {
+      const int q = tid % (kCvN / 4), co = co0 + 4 * q;
+      for (int k = tid / (kCvN / 4); k < kc; k += kCvThreads / (kCvN / 4)) {
+        const int ci = k0 + k;
+        int n = 0;
+        const float* src = w;
+        if (ci < Cin && co < Cout) {
+          n = min(4, Cout - co);
+          src = w + ((long long)tap * Cin + ci) * Cout + co;
+        }
+        stage4(dst + k * kCvN + 4 * q, src, n, vec_w);
+      }
+    } else {
+      const int Qk = kc / 4, q = tid % Qk, ci = k0 + 4 * q;
+      for (int n = tid / Qk; n < kCvN; n += kCvThreads / Qk) {
+        const int co = co0 + n;
+        int cnt = 0;
+        const float* src = w;
+        if (co < Cout && ci < Cin) {
+          cnt = min(4, Cin - ci);
+          src = w + ((long long)(8 - tap) * Cout + co) * Cin + ci;
+        }
+        stage4(dst + n * WS + 4 * q, src, cnt, vec_w);
+      }
+    }
+  };
+  load_w(0, 0);
+  cp_async_commit();
+
+  // each pixel's top-left tap x[t - 1, f - 1] in the slab; pixels past the
+  // tile read pixel 0 (their sums are not stored)
+  const int npix = rows * F;
+  int abase[MI];
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    int p = pg + 16 * i;
+    if (p >= npix) p = 0;
+    abase[i] = ((p / F) * W2 + p % F) * CS;
+  }
+  float acc[MI][8];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+
+  for (int s = 0; s < n_stages; ++s) {
+    cp_async_wait_all();
+    __syncthreads();  // slice s (and the slab) landed; every warp is done with slice s - 1's buffer
+    if (s + 1 < n_stages) {  // the next slice loads while this one multiplies
+      load_w(s + 1, (s + 1) & 1);
+      cp_async_commit();
+    }
+    const int tap = s / nks, k0 = (s % nks) * kc;
+    const int kn = min(kc, r4 - k0) / 4;
+    const float* xa = xs + ((tap / 3) * W2 + tap % 3) * CS + k0;  // the tap's shift
+    const float* wb = ws + (s & 1) * kCvN * WS;
+    for (int kq = 0; kq < kn; ++kq) {
+      float4 a[MI];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) a[i] = *reinterpret_cast<const float4*>(xa + abase[i] + 4 * kq);
+      if constexpr (!kFlip) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float* wr = wb + (4 * kq + kk) * kCvN + 4 * cg;
+          const float4 b0 = *reinterpret_cast<const float4*>(wr);
+          const float4 b1 = *reinterpret_cast<const float4*>(wr + kCvN / 2);
+          const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+          for (int i = 0; i < MI; ++i) {
+            const float av = part(a[i], kk);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
+          }
+        }
+      } else {
+        float4 bq[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) bq[j] = *reinterpret_cast<const float4*>(wb + (cg + 8 * j) * WS + 4 * kq);
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            acc[i][j] = fmaf(a[i].x, bq[j].x, acc[i][j]);
+            acc[i][j] = fmaf(a[i].y, bq[j].y, acc[i][j]);
+            acc[i][j] = fmaf(a[i].z, bq[j].z, acc[i][j]);
+            acc[i][j] = fmaf(a[i].w, bq[j].w, acc[i][j]);
+          }
+      }
+    }
+  }
+
+  const int valid = min(npix, (T - t0) * F);  // the tile's pixels inside the tensor
+  float* ob = out + ((long long)b * T + t0) * F * Cout;
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    const int p = pg + 16 * i;
+    if (p >= valid) continue;
+    float* orow = ob + (long long)p * Cout;
+    if constexpr (!kFlip) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int co = co0 + h * (kCvN / 2) + 4 * cg;
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[e] = acc[i][4 * h + e] + (bias != nullptr && co + e < Cout ? bias[co + e] : 0.0f);
+        if (vec_o && co + 4 <= Cout) {
+          *reinterpret_cast<float4*>(orow + co) = make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (co + e < Cout) orow[co + e] = v[e];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int co = co0 + cg + 8 * j;
+        if (co < Cout) orow[co] = acc[i][j] + (bias != nullptr ? bias[co] : 0.0f);
+      }
+    }
+  }
 }
 
 constexpr int kWfWarps = 18;               // two a tap: one per 32-wide half of the Cout slice
@@ -755,19 +900,38 @@ conv3x3_wgrad_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ d
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-int launch_conv_f32(const void* x, const void* w, const void* bias, void* out, int B, int T,
-                    int F, int Cin, int Cout, cudaStream_t stream) {
-  const int rows = kPix / F;
-  const size_t smem =
-      sizeof(float) * ((size_t)(rows + 2) * (F + 2) * (Cin + 1) + (size_t)Cin * kCoTile);
-  cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_nhwc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int MI, bool kFlip>
+int launch_conv_f32_tile(const float* x, const float* w, const float* bias, float* out, int B, int T,
+                         int F, int Cin, int Cout, int kc, cudaStream_t stream) {
+  const int rows = 16 * MI / F;
+  const size_t smem = conv_f32_smem(rows, F, Cin, kc);
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_nhwc_kernel<MI, kFlip>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + rows - 1) / rows, B, (Cout + kCoTile - 1) / kCoTile);
-  conv3x3_nhwc_kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<const float*>(bias),
-      static_cast<float*>(out), T, F, Cin, Cout, rows);
+  const dim3 grid((T + rows - 1) / rows, B, (Cout + kCvN - 1) / kCvN);
+  const int wrow = kFlip ? Cin : Cout;  // the weights' contiguous dimension
+  conv3x3_nhwc_kernel<MI, kFlip><<<grid, kCvThreads, smem, stream>>>(
+      x, w, bias, out, T, F, Cin, Cout, rows, kc, Cin % 4 == 0 && aligned16(x),
+      wrow % 4 == 0 && aligned16(w), Cout % 4 == 0 && aligned16(out));
   return (int)cudaGetLastError();
+}
+
+// pix: output pixels a tile (128, or 64 where F <= 64); kc: input channels
+// a weight slice (a power of two from 4 to 64); both from
+// ops/packed_conv.conv_plan.
+int launch_conv_f32(const void* xv, const void* wv, const void* biasv, void* outv, int B, int T,
+                    int F, int Cin, int Cout, int flip, int pix, int kc, cudaStream_t st) {
+  if ((pix != 128 && pix != 64) || F > pix || kc < 4 || kc > 64 || (kc & (kc - 1)) != 0)
+    return (int)cudaErrorInvalidValue;
+  const auto* x = static_cast<const float*>(xv);
+  const auto* w = static_cast<const float*>(wv);
+  const auto* bias = static_cast<const float*>(biasv);
+  auto* out = static_cast<float*>(outv);
+  if (pix == 128)
+    return flip ? launch_conv_f32_tile<8, true>(x, w, bias, out, B, T, F, Cin, Cout, kc, st)
+                : launch_conv_f32_tile<8, false>(x, w, bias, out, B, T, F, Cin, Cout, kc, st);
+  return flip ? launch_conv_f32_tile<4, true>(x, w, bias, out, B, T, F, Cin, Cout, kc, st)
+              : launch_conv_f32_tile<4, false>(x, w, bias, out, B, T, F, Cin, Cout, kc, st);
 }
 
 template <int WM, int WN>
@@ -867,12 +1031,18 @@ extern "C" {
 // out: [B, T, F, Cout]; contiguous. x, w and out float32, or bfloat16 when
 // bf16 != 0; bias float32. F <= 128 (one block's pixel tile holds whole
 // frequency rows); the caller checks that the shared memory fits
-// (ops/packed_conv.py:applicable).
+// (ops/packed_conv.py:applicable). float32 only: flip != 0 runs the input
+// gradient's conv, out = dx [B, T, F, Cout] of dy = x [B, T, F, Cin] through
+// the forward conv whose weights w are [3, 3, Cout, Cin], read flipped in
+// both taps and transposed, by index; bias may be null (no bias); pix and kc
+// are the launch plan (ops/packed_conv.conv_plan). bfloat16 ignores flip,
+// pix and kc and takes a bias.
 int dcase_conv3x3(const void* x, const void* w, const void* bias, void* out, int B,
-                  int T, int F, int Cin, int Cout, int bf16, void* stream) {
+                  int T, int F, int Cin, int Cout, int bf16, int flip, int pix, int kc,
+                  void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   return bf16 ? launch_conv_bf16(x, w, bias, out, B, T, F, Cin, Cout, st)
-              : launch_conv_f32(x, w, bias, out, B, T, F, Cin, Cout, st);
+              : launch_conv_f32(x, w, bias, out, B, T, F, Cin, Cout, flip, pix, kc, st);
 }
 
 // x, dy: [B, T, F, C], float32 or (bf16 != 0) bfloat16; partials:

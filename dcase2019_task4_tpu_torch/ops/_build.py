@@ -36,6 +36,8 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+MAX_SHARED = 232448  # opt-in dynamic shared memory a block may use on an H100, bytes
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
@@ -48,12 +50,12 @@ SIGNATURES = {
         _I, [_P, _I, _LL, _LL, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     ),
     "dcase_fused_stft_mel_onedot": (_I, [_P, _I, _LL, _LL, _P, _P, _P, _P, _P, _I, _P] + [_I] * 6 + [_P]),
-    "dcase_conv3x3": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "dcase_conv3x3": (_I, [_P, _P, _P, _P] + [_I] * 9 + [_P]),
     "dcase_bn_glu_pool_tiles": (_I, [_I, _I, _I, _I]),
     "dcase_conv3x3_wgrad": (_I, [_P, _P, _P, _P] + [_I] * 8 + [_P]),
     # dropout arguments of every kernel that drops: seed, threshold, keep_scale, packed
     "dcase_bn_glu_pool": (_I, [_P] * 8 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _I, _P]),
-    "dcase_bn_glu_pool_bwd": (_I, [_P] * 11 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _I, _P]),
+    "dcase_bn_glu_pool_bwd": (_I, [_P] * 11 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _I, _I, _I, _P]),
     "dcase_bn_bwd_fixup_recompute": (_I, [_P] * 11 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _I, _P]),
     "dcase_bn_bwd_fixup": (_I, [_P, _P, _P, _P, _P, _LL, _I, _I, _P]),
     "dcase_batch_stats": (_I, [_P, _P, _P, _LL, _I, _I, _I, _P]),
@@ -206,6 +208,14 @@ def count_launch(wrapper, name: str, dtype) -> None:
     if dtype == torch.bfloat16:
         name += "_bf16"
     setattr(wrapper, name, getattr(wrapper, name) + 1)
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index` (132 on an H100)."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_handle(device) -> int:

@@ -353,6 +353,29 @@ def _seed_tensor(seed, device) -> torch.Tensor:
     return torch.as_tensor(seed, dtype=torch.int64).reshape(1).to(device)
 
 
+_MAX_SHARED = _build.MAX_SHARED
+
+
+def reduce_plan(channels: int, pool):
+    """The float32 reduce pass's shared memory at `channels` C and `pool`
+    (pt, pf) → (buffers, drows, bytes): the channels padded to CP = 64 (C ≤
+    64) or 128 in rows of CP + 4 floats; `buffers` tiles of y (x-hat) [128]
+    rows and of dout [drows] rows, two where they fit (the next tile loads
+    while one multiplies: C ≤ 64), else one; drows = 128 // (pt·pf), the
+    pooled rows of a tile, or 0 where even one buffer of them does not fit
+    (C > 64 and pt·pf ≤ 2: dout is then read from device memory); and the
+    dlin tile [128], W [CP][CP], seven per-channel vectors [CP] and two
+    pixel tables [128] of int32 (csrc/fused_block.cu red_f32_smem)."""
+    cp = 64 if channels <= 64 else 128
+    rows = _TILE_PIXELS // (pool[0] * pool[1])
+    for buffers, drows in ((2, rows), (1, rows), (1, 0)):
+        nbytes = 4 * ((buffers + 1) * _TILE_PIXELS * (cp + 4) + buffers * drows * (cp + 4) + cp * cp + 7 * cp
+                      + 2 * _TILE_PIXELS)
+        if nbytes <= _MAX_SHARED:
+            return buffers, drows, nbytes
+    raise ValueError(f"the float32 reduce pass does not fit {channels} channels")
+
+
 def _tiles_per_block(tiles: int, B: int, target: int) -> int:
     """Pixel tiles each block takes so that `tiles` a clip over B clips make
     about `target` blocks."""
@@ -462,6 +485,7 @@ def bwd_reduce(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, eps, *, rate
         return (None if recompute else dyp), dw, db, s1, s2
     (s, bi, mu, va, gb), w = _vectors(y, (scale, bias, mean, var, glu_b), glu_w)
     dout = dout.to(y.dtype).contiguous()
+    bf16 = y.dtype == torch.bfloat16
     lib = _build.library()
     tiles = lib.dcase_bn_glu_pool_tiles(T, Fq, pt, pf)
     tpb = _tiles_per_block(tiles, B, _TARGET_BLOCKS_BWD)
@@ -475,7 +499,7 @@ def bwd_reduce(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, eps, *, rate
         y.data_ptr(), dout.data_ptr(), s.data_ptr(), bi.data_ptr(), mu.data_ptr(), va.data_ptr(),
         w.data_ptr(), gb.data_ptr(), None if dyp is None else dyp.data_ptr(), partials.data_ptr(),
         sums.data_ptr(), B, T, Fq, C, pt, pf, float(eps), seed_t.data_ptr(), threshold, keep_scale, packed, tpb,
-        int(y.dtype == torch.bfloat16), _build.stream_handle(y.device),
+        int(bf16), *((0, 0) if bf16 else reduce_plan(C, pool)[:2]), _build.stream_handle(y.device),
     )
     _build.check(status, "bwd_reduce")
     _build.count_launch(bwd_reduce, "launches_nodyp" if recompute else "launches", y.dtype)

@@ -9,16 +9,19 @@ beside it:
   wrapper          kernel (float32 / bfloat16)       plain version
   conv2d_forward   conv3x3_nhwc_kernel /             conv2d_reference
                    conv3x3_bf16_kernel
-  conv2d_dx        the same on flipped, transposed   conv2d_dx_reference
-                   weights, zero bias
+  conv2d_dx        the same, reading the weights     conv2d_dx_reference
+                   flipped and transposed, no bias
   conv2d_wgrad     conv3x3_wgrad_kernel /            conv2d_wgrad_reference
                    conv3x3_wgrad_bf16_kernel + fold
   conv2d_wgrad_parts  the same launch                conv2d_wgrad_parts_reference
 
 The bfloat16 kernels multiply on the tensor cores (mma.sync, bf16 products
-summed in float32); the float32 ones on the CUDA cores' FP32 FMAs (the
-weight gradient with 8 × 8 register tiles of all nine taps a block, fed by
-16-byte shared loads from cp.async-staged tiles: `wgrad_workspace` and
+summed in float32); the float32 ones on the CUDA cores' FP32 FMAs, with 8 × 8
+register tiles fed by 16-byte shared loads from cp.async-staged tiles: the
+forward / dx as an implicit GEMM over pixel tiles (`conv_plan` plans its
+launch; in dx the kernel reads the forward weights flipped and transposed by
+index, so a float32 dx call launches the kernel and nothing else), the
+weight gradient with all nine taps a block (`wgrad_workspace` and
 `wgrad_buffers` plan its launch).
 
 `conv2d_packed` ties them into one `torch.autograd.Function`. The lane
@@ -51,7 +54,7 @@ import torch.nn.functional as F
 
 from dcase2019_task4_tpu_torch.ops import _build
 
-_MAX_SHARED = 232448  # opt-in shared memory per block on an H100
+_MAX_SHARED = _build.MAX_SHARED
 
 
 LANES = 128  # lanes of the TPU's vector registers, which the original packs
@@ -192,17 +195,54 @@ def _check_cuda(x: torch.Tensor, what: str):
         raise ValueError(f"{what} kernel does not take freq={x.shape[2]}, channels={x.shape[3]}")
 
 
-def _launch_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, what: str) -> torch.Tensor:
+_SMS = 132  # streaming multiprocessors of an H100 SXM: the plan's default
+_CONV_N = 64  # output channels a block of the float32 forward / dx (kCvN in csrc/packed_conv.cu)
+
+
+def _odd_stride4(n: int) -> int:
+    """odd_stride4 of csrc/packed_conv.cu: a shared row of n floats rounded up
+    to 4, plus 4 where that is an even number of 16-byte units."""
+    r4 = -(-n // 4) * 4
+    return r4 if (r4 // 4) % 2 else r4 + 4
+
+
+def conv_plan(shape, sms: int = _SMS):
+    """The float32 forward / dx kernel's launch for x of `shape` [B, T, F, C]
+    → (pix, kc, bytes): output pixels a tile (whole frequency rows: 128, or
+    64 where F ≤ 64 and 128-pixel tiles would give fewer than two blocks an
+    SM, as at the flagship's [24, 216, 4, 64]), input channels a weight
+    slice (64, halved while the shared memory does not fit), and the dynamic
+    shared memory: the slab [(rows + 2)·(F + 2)][_odd_stride4(C)] and two
+    weight buffers [64][_odd_stride4(kc)], float32."""
+    B, T, Fq, C = shape
+    blocks = -(-T // (_PIX_TILE // Fq)) * B * -(-C // _CONV_N)
+    pix = 64 if Fq <= 64 and blocks < 2 * sms else _PIX_TILE
+    kc = min(64, 1 << max(2, (C - 1).bit_length()))
+    while True:
+        rows = pix // Fq
+        nbytes = 4 * ((rows + 2) * (Fq + 2) * _odd_stride4(C) + 2 * _CONV_N * _odd_stride4(kc))
+        if nbytes <= _MAX_SHARED or kc == 4:
+            return pix, kc, nbytes
+        kc //= 2
+
+
+def _launch_conv(x: torch.Tensor, w: torch.Tensor, b, what: str, flip: bool = False) -> torch.Tensor:
+    """One launch of the forward kernel on x; float32 `flip`: the input
+    gradient's conv, w the forward weights read flipped and transposed, and
+    b None (no bias)."""
     _check_cuda(x, what)
     B, T, Fq, C = x.shape
+    bf16 = x.dtype == torch.bfloat16
     w = w.detach().to(device=x.device, dtype=x.dtype).contiguous()  # the kernel reads weights in x's dtype
-    b = b.detach().to(device=x.device, dtype=torch.float32).contiguous()
-    if tuple(b.shape) != (C,):
-        raise ValueError(f"bias must be [{C}], got {tuple(b.shape)}")
+    if b is not None:
+        b = b.detach().to(device=x.device, dtype=torch.float32).contiguous()
+        if tuple(b.shape) != (C,):
+            raise ValueError(f"bias must be [{C}], got {tuple(b.shape)}")
+    pix, kc, _ = (0, 0, 0) if bf16 else conv_plan(x.shape, _build.sm_count(x.device.index))
     out = torch.empty_like(x)
     status = _build.library().dcase_conv3x3(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-        B, T, Fq, C, C, int(x.dtype == torch.bfloat16), _build.stream_handle(x.device),
+        x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(),
+        B, T, Fq, C, C, int(bf16), int(flip), pix, kc, _build.stream_handle(x.device),
     )
     _build.check(status, what)
     return out
@@ -232,13 +272,19 @@ conv2d_forward.launches_bf16 = 0  # bfloat16 launches
 
 def conv2d_dx(w: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """K3 input gradient: the forward kernel on the weights flipped in both
-    taps and transposed in (Cin, Cout), with zero bias (built on the
-    device); dy's dtype in and out. CPU: the plain version."""
+    taps and transposed in (Cin, Cout), without bias; dy's dtype in and
+    out. float32: the kernel reads w flipped and transposed by index, so
+    the call launches it and nothing else; bfloat16: the flipped,
+    transposed weights and a zero bias are built on the device. CPU: the
+    plain version."""
     _check_shapes(w, dy, "conv2d_dx")
     if dy.device.type == "cpu":
         return conv2d_dx_reference(w, dy)
-    wt = w.detach().to(dy.device).flip(0, 1).transpose(2, 3)
-    out = _launch_conv(dy, wt, torch.zeros(dy.shape[-1], dtype=torch.float32, device=dy.device), "conv2d_dx")
+    if dy.dtype == torch.float32:
+        out = _launch_conv(dy, w, None, "conv2d_dx", flip=True)
+    else:
+        wt = w.detach().to(dy.device).flip(0, 1).transpose(2, 3)
+        out = _launch_conv(dy, wt, torch.zeros(dy.shape[-1], dtype=torch.float32, device=dy.device), "conv2d_dx")
     _build.count_launch(conv2d_dx, "launches", dy.dtype)
     return out
 

@@ -73,3 +73,46 @@ def test_train_mode_dropout_is_refused():
     kept = tfb.fused_bn_glu_pool(*args, POOL, EPS, rate=0.5, seed=3)
     full = tfb.fused_bn_glu_pool(*args, POOL, EPS)
     assert kept.shape == full.shape and not torch.equal(kept, full)
+
+
+@pytest.mark.parametrize("pool", [(2, 4), (2, 8), (1, 1), (1, 2), (4, 4)])
+def test_reduce_plan_fits_every_admitted_width(pool):
+    """The float32 reduce pass's shared memory fits a block at every C the
+    fused block admits (C ≤ 128, C % 4 == 0): two buffers of the y and dout
+    tiles wherever they fit, else one, else dout read from device memory;
+    the bytes are the kernel's layout (csrc/fused_block.cu red_f32_smem)."""
+    rows = 128 // (pool[0] * pool[1])
+    for C in range(4, 129, 4):
+        assert tfb.applicable((1, 8 * pool[0], 8 * pool[1], C), pool)
+        buffers, drows, nbytes = tfb.reduce_plan(C, pool)
+        cp = 64 if C <= 64 else 128
+
+        def size(b, d):
+            return 4 * ((b + 1) * 128 * (cp + 4) + b * d * (cp + 4) + cp * cp + 7 * cp + 2 * 128)
+
+        assert nbytes == size(buffers, drows) <= tfb._MAX_SHARED
+        assert drows in (0, rows)
+        assert (buffers, drows) == ((2, rows) if size(2, rows) <= tfb._MAX_SHARED
+                                    else (1, rows) if size(1, rows) <= tfb._MAX_SHARED else (1, 0))
+
+
+@pytest.mark.parametrize("C,pool,want", [
+    (64, (2, 4), (2, 16, 132352)), (16, (2, 4), (2, 16, 132352)), (128, (2, 4), (1, 16, 213760)),
+    (128, (2, 8), (1, 8, 209536)), (128, (1, 2), (1, 0, 205312)),
+])
+def test_reduce_plan_at_the_main_path(C, pool, want):
+    """The flagship's C = 64 at pool (2, 4) takes two buffers (the next
+    tile's y and dout load while one multiplies), 132352 bytes: one block an
+    SM; C = 128 one; at C = 128 and pool (1, 2) dout stays in device memory."""
+    assert tfb.reduce_plan(C, pool) == want
+
+
+def test_reduce_plan_matches_the_kernel_source():
+    from pathlib import Path
+    import re
+
+    src = (Path(tfb.__file__).parent.parent / "csrc" / "fused_block.cu").read_text()
+    assert re.search(r"constexpr int kPix = (\d+);", src).group(1) == str(tfb._TILE_PIXELS)
+    assert "static constexpr int KS = CP + 4;" in src
+    assert ("(size_t)(buffers + 1) * kPix * P::KS + (size_t)buffers * drows * P::KS +\n"
+            "                          P::CP * P::CP + 7 * P::CP + 2 * kPix") in src

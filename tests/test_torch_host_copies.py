@@ -7,7 +7,11 @@ numpy inputs: equal outputs, bit for bit where the arithmetic is the same.
 """
 
 import dataclasses
+import importlib.util
+import os
 import shutil
+import subprocess
+import sysconfig
 
 import numpy as np
 import pytest
@@ -130,11 +134,29 @@ def test_logger_contract():
     assert len(log.handlers) == len(jlogger.get_logger("jax_host_copy_test").handlers)
 
 
-def test_native_packer_equals_the_original(tmp_path):
+def _original_packer(tmp_path):
+    """The JAX package's wavpack.cpp built by this test alone, with its
+    loader's own flags, into `tmp_path` (written under a temporary name and
+    renamed into place), and loaded: the package's shared `_wavpack.so`
+    next to its source is rebuilt in place by whichever process finds it
+    stale, so a test worker that loads it may read a half-written file."""
+    so = str(tmp_path / "_wavpack.so")
+    subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17", f"-I{sysconfig.get_paths()['include']}",
+                    jnative._SRC, "-o", so + ".tmp"], check=True, capture_output=True, timeout=120)
+    os.replace(so + ".tmp", so)
+    spec = importlib.util.spec_from_file_location("_wavpack", so)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_native_packer_equals_the_original(tmp_path, monkeypatch):
     if shutil.which("g++") is None:
         # the documented host-side behaviour: no toolchain, no native packer
         assert not tnative.available()
         return
+    monkeypatch.setattr(jnative, "_module", _original_packer(tmp_path))
+    monkeypatch.setattr(jnative, "_tried", True)
     assert tnative.available() and jnative.available()
     assert "build" in tnative._SO and tnative._SO != jnative._SO
     rng = np.random.default_rng(6)

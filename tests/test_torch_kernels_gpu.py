@@ -8,8 +8,11 @@ when torch sees no CUDA device. On a GPU machine:
 Shapes are small and odd-sized (partial tiles, C = 16, 64 and 128) to
 exercise the kernels' bounds checks; chip_smoke.py covers the flagship
 shapes. Forward, train-mode dropout (mask bit-equal to the plain Philox),
-batch statistics, both backward passes, conv dx and wgrad (the float32
-wgrad also at its tile edges, its part sum read from its slots), the entry-block
+batch statistics, both backward passes (the float32 reduce pass also at C
+4 to 128, partial and window tiles, both draws and the recompute knob),
+conv dx and wgrad (the float32 forward and dx also at F 1 to 128, C 16 to
+128, the flagship shapes and other launch plans; the float32 wgrad at its
+tile edges, its part sum read from its slots), the entry-block
 family (K4 conv with sums and weight gradient, K5 statistics, forward and
 two-pass backward, at small shapes and at the flagship block-1 shape), the
 keep-mask kernel, and one whole training step per first-block
@@ -116,7 +119,14 @@ def test_fused_stft_mel_refuses_bases_without_the_kernel_tables(cuda):
     assert fused_mel.fused_stft_mel.launches == before
 
 
-@pytest.mark.parametrize("shape", [(2, 48, 16, 16), (2, 24, 4, 16), (1, 13, 8, 64), (1, 9, 32, 128)])
+# K3's float32 forward / dx tiles (whole frequency rows of 128 or 64 pixels): F 1 to 128, C 16 to 128 (20: not a
+# multiple of the 64-wide channel slice or of 16), T not a multiple of the tile's rows, the flagship's blocks 2, 3
+K3_F32_EDGES = [(1, 150, 1, 16), (2, 45, 3, 20), (1, 37, 4, 64), (1, 11, 5, 20), (1, 3, 128, 64), (1, 19, 16, 128)]
+K3_F32_FLAGSHIP = [(24, 432, 16, 64), (24, 216, 4, 64)]
+
+
+@pytest.mark.parametrize("shape", [(2, 48, 16, 16), (2, 24, 4, 16), (1, 13, 8, 64), (1, 9, 32, 128)]
+                         + K3_F32_EDGES + K3_F32_FLAGSHIP)
 def test_conv2d_packed(cuda, shape):
     rng = np.random.default_rng(sum(shape))
     C = shape[-1]
@@ -223,7 +233,8 @@ def test_fused_block_backward(cuda, shape, rate):
         assert torch.equal(got, rerun)  # fixed-order folds: bit-equal on a repeat
 
 
-@pytest.mark.parametrize("shape", [(2, 48, 16, 16), (3, 26, 4, 16), (1, 13, 8, 64), (2, 37, 16, 64), (1, 9, 32, 128)])
+@pytest.mark.parametrize("shape", [(2, 48, 16, 16), (3, 26, 4, 16), (1, 13, 8, 64), (2, 37, 16, 64), (1, 9, 32, 128)]
+                         + K3_F32_EDGES + K3_F32_FLAGSHIP)
 def test_conv2d_packed_gradients(cuda, shape):
     rng = np.random.default_rng(sum(shape) + 2)
     C = shape[-1]
@@ -241,6 +252,72 @@ def test_conv2d_packed_gradients(cuda, shape):
         assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
     dw2, db2 = packed_conv.conv2d_wgrad(x.detach(), dy)
     assert torch.equal(dw2, w.grad) and torch.equal(db2, b.grad)
+
+
+@pytest.mark.parametrize("plan", [(128, 64), (128, 16), (64, 32), (64, 4)])
+@pytest.mark.parametrize("shape", [(1, 37, 16, 64), (2, 13, 5, 20), (1, 9, 32, 128), (1, 40, 3, 18)])
+def test_conv2d_float32_tile_plans(cuda, shape, plan, monkeypatch):
+    """The float32 forward and dx kernel under launch plans other than the
+    one `conv_plan` picks: both pixel tiles (8 × 8 and 4 × 8 register
+    tiles) and weight slices from 64 down to 4 input channels (several
+    slices a tap), C = 18 (4-byte copies); each launch counted."""
+    pix, kc = plan
+    monkeypatch.setattr(packed_conv, "conv_plan", lambda shape, sms=None: (pix, kc, 0))
+    rng = np.random.default_rng(sum(shape) + pix + kc)
+    C = shape[-1]
+    w, b = _t(rng.uniform(-0.1, 0.1, (3, 3, C, C)), cuda), _t(rng.standard_normal(C), cuda)
+    x = _t(rng.standard_normal(shape), cuda)
+    before = (packed_conv.conv2d_forward.launches, packed_conv.conv2d_dx.launches)
+    out, dx = packed_conv.conv2d_forward({"w": w, "b": b}, x), packed_conv.conv2d_dx(w, x)
+    assert (packed_conv.conv2d_forward.launches, packed_conv.conv2d_dx.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(out, packed_conv.conv2d_reference({"w": w, "b": b}, x), rtol=0, atol=1e-4)
+    want = packed_conv.conv2d_dx_reference(w, x)
+    assert (dx - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+# K2b's float32 reduce pass: C 4 to 128 (padded to 64 or 128 channels), partial last tiles of whole pooling rows
+# (8 rows of 16, 4 of 32, 4 of 24), window tiles (2 × 64 of a 2 × 128 row), both draws, the recompute knob
+FUSED_F32_TILES = [((2, 38, 16, 4), (2, 4)), ((1, 26, 32, 16), (2, 4)), ((2, 6, 128, 64), (2, 4)),
+                   ((1, 14, 24, 128), (2, 8))]
+
+
+@pytest.mark.parametrize("recompute", [False, True])
+@pytest.mark.parametrize("rate,pack", [(0.0, False), (0.5, False), (0.5, True)])
+@pytest.mark.parametrize("shape,pool", FUSED_F32_TILES)
+def test_fused_block_backward_float32_tiles(cuda, shape, pool, rate, pack, recompute):
+    """The whole float32 backward through the autograd Function against the
+    formulas (1e-4 of max on dy, dscale, dbias, dw, db), bit for bit on a
+    repeat, its first pass and its second counted."""
+    rng = np.random.default_rng(sum(shape) + 11)
+    C = shape[-1]
+    y = _t(rng.standard_normal(shape), cuda)
+    scale, bias, _, _, w, b = _block_args(rng, C, cuda)
+    s, sq = fused_block.batch_stats(y)
+    n = y.numel() // C
+    mean = s / n
+    var = sq / n - mean * mean
+    dout = _t(rng.standard_normal((shape[0], shape[1] // pool[0], shape[2] // pool[1], C)), cuda)
+    seed = torch.tensor([91])
+    fb = fused_block
+    mask = fb.dropout_keep_mask(seed, shape, rate, device=cuda, pack_bits=pack) if rate else None
+    ref = fb.bwd_reference(y, dout, scale, bias, mean, var, w, b, pool, 1e-3, mask, 1.0 - rate)
+
+    def run():
+        leaves = [t.clone().requires_grad_(True) for t in (y, scale, bias, w, b)]
+        out = fb.fused_bn_glu_dropout_pool(leaves[0], leaves[1], leaves[2], mean, var, leaves[3], leaves[4], seed,
+                                           rate, pool, 1e-3, True, pack_bits=pack, recompute=recompute)
+        out.backward(dout)
+        return [t.grad for t in leaves]
+
+    first = "launches_nodyp" if recompute else "launches"
+    second = fb.bwd_fixup_recompute if recompute else fb.bwd_fixup
+    before = (getattr(fb.bwd_reduce, first), second.launches)
+    grads = run()
+    assert (getattr(fb.bwd_reduce, first), second.launches) == (before[0] + 1, before[1] + 1)
+    for name, got, want in zip(("dy", "dscale", "dbias", "dw", "db"), grads, ref):
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item(), name
+    for got, rerun in zip(grads, run()):
+        assert torch.equal(got, rerun)  # fixed-order folds: bit-equal on a repeat
 
 
 # K3's float32 weight gradient (nine taps a block, 8 × 8 register tiles): F 4 to 32 at the main path's C = 64,

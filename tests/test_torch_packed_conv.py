@@ -130,3 +130,47 @@ def test_wgrad_float32_plan_fits_and_bounds_its_slots(shape):
 def test_wgrad_float32_row_matches_the_kernel():
     src = (Path(tpc.__file__).parent.parent / "csrc" / "packed_conv.cu").read_text()
     assert re.search(r"constexpr int kWfC = (\d+);", src).group(1) == str(tpc._WGRAD_ROW)
+
+
+def test_conv_plan_fits_every_admitted_shape():
+    """The float32 forward / dx kernel's plan fits a block's shared memory
+    at every (F, C) that `applicable` admits, with whole frequency rows in
+    its pixel tile and a weight slice of a power of two from 4 to 64 input
+    channels; the bytes are the kernel's layout (conv_f32_smem)."""
+    for Fq in range(1, 129):
+        for C in range(1, 129):
+            if not tpc.applicable(Fq, C):
+                continue
+            for B, T in ((1, 7), (24, 432)):
+                pix, kc, nbytes = tpc.conv_plan((B, T, Fq, C))
+                assert pix in (64, 128) and Fq <= pix and kc in (4, 8, 16, 32, 64)
+                rows = pix // Fq
+                assert nbytes == 4 * ((rows + 2) * (Fq + 2) * tpc._odd_stride4(C) + 2 * 64 * tpc._odd_stride4(kc))
+                assert nbytes <= tpc._MAX_SHARED
+
+
+@pytest.mark.parametrize("shape,want", [
+    # block 2: 1296 tiles of 128 pixels, about ten waves of 132 SMs
+    ((24, 432, 16, 64), (128, 64, 83776)),
+    # block 3: 162 tiles of 128 pixels would fill the card 1.2 times; 324 of 64
+    ((24, 216, 4, 64), (64, 64, 64192)),
+    ((1, 9, 32, 128), (64, 64, 106624)),
+    ((1, 3, 128, 64), (128, 64, 140896)),
+    # three rows of 126 halo-padded cells of 132 floats leave room for a 32-wide slice only
+    ((1, 3, 124, 128), (128, 32, 218016)),
+])
+def test_conv_plan_at_the_main_path(shape, want):
+    assert tpc.conv_plan(shape) == want
+
+
+@pytest.mark.parametrize("n,want", [(1, 4), (4, 4), (8, 12), (16, 20), (18, 20), (64, 68), (124, 124), (128, 132)])
+def test_odd_stride4(n, want):
+    """A shared row of n floats: whole 16-byte units, an odd number of them."""
+    assert tpc._odd_stride4(n) == want and (want // 4) % 2 == 1
+
+
+def test_conv_plan_matches_the_kernel_source():
+    src = (Path(tpc.__file__).parent.parent / "csrc" / "packed_conv.cu").read_text()
+    assert re.search(r"constexpr int kCvN = (\d+);", src).group(1) == str(tpc._CONV_N)
+    assert "return (r4 / 4) % 2 ? r4 : r4 + 4;" in src
+    assert "(size_t)(rows + 2) * (F + 2) * odd_stride4(Cin) + 2 * (size_t)kCvN * odd_stride4(kc)" in src

@@ -76,7 +76,7 @@ def main() -> int:
     rows = {name: cs.Row() for name in cs.KERNELS}
     rng = np.random.default_rng(cs.SEED)
     cs.onedot_kernels(device, rows, rng)
-    cs.k3_f32_kernels(device, rows, rng, only_wgrad=True)
+    cs.k3_f32_kernels(device, rows, rng, which=("wgrad",))
     print("row: device ms (events ms), bound ms, share of bound, library device ms")
     for name, row in rows.items():
         if not row.shapes:
