@@ -9,10 +9,10 @@ printing a result:
   1. card   — nvidia-smi's name and power limit, torch's device name;
   2. build  — compile csrc/*.cu with nvcc for sm_90a, one compiler per source
      in parallel (ptxas report printed); the product instruction of K3's
-     bfloat16 kernels read from the library's machine code (HGMMA or HMMA,
-     with the FFMA count; a kernel with neither fails), and of the FP32
-     product kernels (onedot K1, K3's float32 weight gradient: FFMA, and
-     a kernel with HGMMA or HMMA fails);
+     and K2's bfloat16 kernels read from the library's machine code (HGMMA
+     or HMMA, with the FFMA count; a kernel with neither fails), and of the
+     FP32 product kernels (onedot K1, K3's float32 kernels, K2b's float32
+     reduce pass: FFMA, and a kernel with HGMMA or HMMA fails);
   3. kernels — each hand-written kernel against its plain PyTorch version on
      the card, at the flagship shapes, float32 with TF32 off: max abs error
      against a stated tolerance, median time over 10 runs after 3 warm-ups
@@ -1848,7 +1848,7 @@ def k3_bf16_kernels(device, rows, rng, cfg, suffix: str = ""):
         torch.cuda.empty_cache()
 
 
-def bf16_block_kernels(device, rows, rng, cfg, suffix: str = ""):
+def bf16_block_kernels(device, rows, rng, cfg, suffix: str = "", with_k3: bool = True):
     """Phase 3 for the bfloat16 modes of K3 and K2 at a configuration's
     shapes, rows named with `suffix`: the scaled configuration's (K3 at
     blocks 2 and 3, [B, 432, 32, 128] and [B, 216, 8, 128]; K2 at the three
@@ -1857,7 +1857,7 @@ def bf16_block_kernels(device, rows, rng, cfg, suffix: str = ""):
     [B, 432, 16, 64] and [B, 216, 4, 64], where its weight gradient rounds
     per output-frequency class; K2 at [B, 864, 64, 64], [B, 432, 16, 64],
     [B, 216, 4, 64]), batch 24, bfloat16 activations and float32 parameters,
-    as a bfloat16 model hands them over."""
+    as a bfloat16 model hands them over; K2's alone without `with_k3`."""
     import torch
 
     from dcase2019_task4_tpu_torch.ops import fused_block as fb
@@ -1871,7 +1871,8 @@ def bf16_block_kernels(device, rows, rng, cfg, suffix: str = ""):
 
     pools = [tuple(p) for p in m.pooling]
     geometries = block_geometries(cfg)
-    k3_bf16_kernels(device, rows, rng, cfg, suffix)
+    if with_k3:
+        k3_bf16_kernels(device, rows, rng, cfg, suffix)
 
     # K2 at the three blocks: the C×C channel products on bfloat16 operands, the
     # rest float32; y, dout, the pooled output, dy_partial and dy at two bytes a value
@@ -2842,9 +2843,11 @@ BLOCK1_KERNELS = {
                         ("bn_glu_pool_bwd_kernel", 1), ("bn_bwd_fixup_kernel", 1)),
 }
 BLOCK1_KERNELS["step_crows"] = BLOCK1_KERNELS["step_entry_block"]
-BLOCK1_KERNELS.update({"step_bf16": BLOCK1_KERNELS["step"], "step_bf16_entry_block": BLOCK1_KERNELS["step_entry_block"],
-                       "step_bf16_crows": BLOCK1_KERNELS["step_entry_block"],
-                       "step_bf16_entry_conv": BLOCK1_KERNELS["step_entry_conv"]})
+BF16_K2_NAMES = {"bn_glu_pool_kernel": "bn_glu_pool_bf16_kernel", "bn_glu_pool_bwd_kernel": "bn_glu_pool_bwd_bf16_kernel"}
+BLOCK1_KERNELS.update({
+    "step_bf16": tuple((BF16_K2_NAMES.get(k, k), n) for k, n in BLOCK1_KERNELS["step"]),
+    "step_bf16_entry_block": BLOCK1_KERNELS["step_entry_block"], "step_bf16_crows": BLOCK1_KERNELS["step_entry_block"],
+    "step_bf16_entry_conv": tuple((BF16_K2_NAMES.get(k, k), n) for k, n in BLOCK1_KERNELS["step_entry_conv"])})
 
 
 def block1_device_ms(step, state, batch, generator, acc, path: str, card: str) -> Optional[float]:
@@ -2944,19 +2947,20 @@ def profile_step(step, state, batch, generator, acc, card: str, step_ms: float, 
           f"{1e3 * (time.perf_counter() - t0) / 5:.3f} ms per step, during which the card waits")
 
 
-# K3's bfloat16 kernels: their products must be tensor-core instructions
-MMA_KERNELS = ("conv3x3_bf16_kernel", "conv3x3_wgrad_bf16_kernel")
+# K3's and K2's bfloat16 kernels: their products must be tensor-core instructions
+MMA_KERNELS = ("conv3x3_bf16_kernel", "conv3x3_wgrad_bf16_kernel", "bn_glu_pool_bf16_kernel",
+               "bn_glu_pool_bwd_bf16_kernel")
 # the float32 products redesigned as register-tiled FP32 FMAs: FFMA, and no
-# tensor-core instruction (no TF32); bn_glu_pool_bwd_kernel's bfloat16
-# instantiations multiply on FP32 FMAs too
+# tensor-core instruction (no TF32); bn_glu_pool_bwd_kernel is K2b's float32
+# reduce pass alone (no name here is a substring of one above)
 FFMA_KERNELS = ("fused_stft_mel_onedot_kernel", "conv3x3_wgrad_kernel", "conv3x3_nhwc_kernel",
                 "bn_glu_pool_bwd_kernel")
 
 
 def check_mma(path):
     """Which instruction each product kernel was compiled to, read from the
-    built library's machine code (`cuobjdump -sass`): K3's bfloat16 kernels
-    must hold HGMMA (`wgmma`) or HMMA (`mma.sync`), the FP32 product kernels
+    built library's machine code (`cuobjdump -sass`): K3's and K2's bfloat16
+    kernels must hold HGMMA (`wgmma`) or HMMA (`mma.sync`), the FP32 product kernels
     (onedot K1, K3's float32 forward / dx and weight gradient, K2b's reduce
     pass) FFMA and neither HGMMA nor HMMA. FFMA counts the float32 FMAs on
     the CUDA cores."""

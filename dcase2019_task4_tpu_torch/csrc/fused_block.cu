@@ -3,8 +3,10 @@
 // activations, for Hopper (sm_90a).
 //
 // Replaces the Pallas kernels of dcase2019_task4_tpu/ops/fused_block.py:
-//   bn_glu_pool_kernel       _fwd_kernel (via _fwd_pallas), eval and train
-//   bn_glu_pool_bwd_kernel   _bwd_reduce_kernel (first pass of _bwd_pallas)
+//   bn_glu_pool_kernel       _fwd_kernel (via _fwd_pallas), eval and train,
+//                            float32 y; bn_glu_pool_bf16_kernel on bfloat16 y
+//   bn_glu_pool_bwd_kernel   _bwd_reduce_kernel (first pass of _bwd_pallas),
+//                            float32 y; bn_glu_pool_bwd_bf16_kernel on bfloat16 y
 //   bn_bwd_fixup_kernel      _bwd_fixup_kernel (second pass of _bwd_pallas)
 //   bn_bwd_fixup_recompute_kernel
 //                            _bwd_fixup_recompute_kernel (second pass of
@@ -43,9 +45,12 @@
 // regenerates it bit for bit. The seed is read from device memory, so the
 // host never has to know it.
 //
-// At C = 128 the forward's shared memory is 134 KB (one block an SM), the
-// float32 reduce pass's 209-214 KB (205 KB where dout stays in device
-// memory), the bfloat16 one's 212 KB and the recompute fixup's 202 KB.
+// At C = 128 the float32 forward's shared memory is 134 KB (one block an SM),
+// the float32 reduce pass's 209-214 KB (205 KB where dout stays in device
+// memory) and the recompute fixup's 202 KB; the bfloat16 forward's 139 KB
+// (two y buffers, one block of 16 warps an SM; 64 KB and 8 warps at C = 64)
+// and the bfloat16 reduce pass's 193 KB at pool (2, 4) (two buffers, 16
+// warps; 96 KB at C = 64).
 //
 // Bound: at block 1 of the flagship shape (y = [24, 864, 64, 64], 340 MB)
 // the forward reads y once (0.10 ms at 3.35 TB/s) and its 64x64 channel mix
@@ -58,16 +63,20 @@
 // 21.7 GFLOP, 0.33 ms): operations; it spends them to save the default's
 // dy_partial round trip (680 MB).
 //
-// Element type: every kernel is instantiated for float32 and for bfloat16
-// y (the model's compute dtype). In bfloat16 the arithmetic stays float32
-// and rounds where the JAX kernels round (_chain_fwd, _pool_mxu,
-// _recompute_dxn, _bwd_reduce_kernel with lp): xn and W enter the GLU
-// product as bfloat16 (the sigmoid and the gate take the float32 xn); each
-// window's pt-row time sum is rounded to bfloat16 before the frequency sum;
-// dlin and W enter dxn = dlin . W^T, and xn and dlin enter dW, as bfloat16
-// (db sums the float32 dlin); the pooled output, dy_partial and dy are
-// stored in bfloat16; dW, db, S1, S2 and the statistics stay float32.
-// Shared memory holds float32 in both modes.
+// Element type: every function takes float32 or bfloat16 y (the model's
+// compute dtype). In bfloat16 the arithmetic outside the channel products
+// stays float32 and rounds where the JAX kernels round (_chain_fwd,
+// _pool_mxu, _recompute_dxn, _bwd_reduce_kernel with lp): xn and W enter the
+// GLU product as bfloat16 (the sigmoid and the gate take the float32 xn);
+// each window's pt-row time sum is rounded to bfloat16 before the frequency
+// sum; dlin and W enter dxn = dlin . W^T, and xn and dlin enter dW, as
+// bfloat16 (db sums the float32 dlin); the pooled output, dy_partial and dy
+// are stored in bfloat16; dW, db, S1, S2 and the statistics stay float32.
+// The bfloat16 forward and reduce pass take those products on the tensor
+// cores (mma.sync m16n8k16, bfloat16 operands, float32 sums: exactly the
+// rounding of JAX's bf16 dot_general with a float32 result); only the order
+// of the sums inside a product differs from the plain version's. The
+// bfloat16 recompute fixup keeps FP32 FMAs on float32 shared tiles.
 //
 // Design: one block per (run of pixel tiles, clip). A pixel tile holds up to
 // 128 pixels in whole pooling windows: whole pooling rows (pt time rows x F)
@@ -75,8 +84,8 @@
 // (at 128 mels and pool (2, 4): 2 x 64). The dropout mask is keyed on the
 // global element index, so the tiling does not change it. The tiles of a
 // block are consecutive (frequency segments within a row pair, then time),
-// so the block loads W and the per-channel vectors into shared memory once. Forward, per tile: read the
-// slab once, normalise it into shared memory (pixel stride C + 1 against
+// so the block loads W and the per-channel vectors into shared memory once.
+// Forward in float32, per tile: read the slab once, normalise it into shared memory (pixel stride C + 1 against
 // bank conflicts), mix channels with each thread holding 8 pixels x 4
 // channels (8 when C > 64) in registers, gate, write g back over the slab,
 // mask it four channels per Philox call, and average each pooling window
@@ -86,18 +95,21 @@
 // four FFMAs), y and dout staged by cp.async a tile ahead, x-hat kept in shared memory so
 // that S2 needs no second read of y, and a fast sigmoid (__expf and
 // __fdividef: the full-precision exp and division took a tenth of the
-// pass): see the comment at the function. In bfloat16 (bwd_reduce_lowp) and in the
-// recompute fixup, per tile: the same staging, dh (with the mask) staged
+// pass): see the comment at the function. In the recompute fixup (tile_dxn),
+// per tile: xn normalised into shared memory, dh (with the mask) staged
 // beside it, lin in registers, dlin written over dh, the second product
 // against W^T (W rows padded to C + 1 so the transposed read is
-// conflict-free), dy_partial written from registers; then xn^T . dlin with
-// each thread holding a 4 x 4 (8 x 8) patch of dW in registers across all
-// tiles of the block. The four sums of a block go to its own slot of a
-// workspace and fold_kernel adds the slots in a fixed order in double
-// precision: no float atomics, so a run repeats bit for bit. Plain FP32
-// FMAs: no TF32, no tensor cores yet. The generator, the four-channel mask
-// step and the sigmoid live in chain.cuh, shared with the entry-block
-// kernels.
+// conflict-free), dy written from registers. The four sums of a reduce
+// pass's block go to its own slot of a workspace and fold_kernel adds the
+// slots in a fixed order in double precision: no float atomics, so a run
+// repeats bit for bit. Plain FP32 FMAs in float32 (no TF32). The bfloat16 forward and reduce pass (see the
+// comments at bn_glu_pool_bf16_kernel and bn_glu_pool_bwd_bf16_kernel) keep
+// the tiles in bfloat16, staged by cp.async a tile ahead, and multiply on
+// mma.sync: at the scaled shapes their products take 0.1 and 0.3 ms at the
+// tensor cores' rate where FP32 FMAs need 1.5 and 4.5 ms, so the bytes, the
+// generator and the element steps bound them. The generator, the
+// four-channel mask step and the sigmoid live in chain.cuh, shared with the
+// entry-block kernels.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -108,6 +120,7 @@
 #include "cp_async.cuh"
 #include "dtype.cuh"
 #include "fold.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -162,16 +175,15 @@ __device__ __forceinline__ float operand(float v) {
 
 // ------------------------------------------------------------------ forward
 
-// NJ: output channels per thread / 16 (C <= 16 * NJ).
-template <int NJ, typename TY>
+// The float32 forward. NJ: output channels per thread / 16 (C <= 16 * NJ).
+template <int NJ>
 __global__ void __launch_bounds__(kThreads)
-bn_glu_pool_kernel(const TY* __restrict__ y, const float* __restrict__ scale,
+bn_glu_pool_kernel(const float* __restrict__ y, const float* __restrict__ scale,
                    const float* __restrict__ bias, const float* __restrict__ mean,
                    const float* __restrict__ var, const float* __restrict__ glu_w,
-                   const float* __restrict__ glu_b, TY* __restrict__ out, int T,
+                   const float* __restrict__ glu_b, float* __restrict__ out, int T,
                    int F, int C, int pt, int pf, float eps, Tile tl,
                    int tiles_per_block, Dropout dr) {
-  constexpr bool kLow = !std::is_same<TY, float>::value;
   extern __shared__ float smem[];
   const int CP = C + 1;
   float* xs = smem;              // [kPix][CP]: xn, then g
@@ -185,7 +197,7 @@ bn_glu_pool_kernel(const TY* __restrict__ y, const float* __restrict__ scale,
   const int tid = threadIdx.x;
   const int b = blockIdx.y;
   const unsigned long long seed = seed_of(dr);
-  for (int i = tid; i < C * C; i += kThreads) ws[i] = operand<TY>(glu_w[i]);
+  for (int i = tid; i < C * C; i += kThreads) ws[i] = glu_w[i];
   for (int c = tid; c < C; c += kThreads) {
     s_scale[c] = scale[c];
     s_bias[c] = bias[c];
@@ -208,7 +220,7 @@ bn_glu_pool_kernel(const TY* __restrict__ y, const float* __restrict__ scale,
     __syncthreads();  // weights staged / previous tile's pool read done
     for (int i = tid; i < tpix * C; i += kThreads) {
       const int p = i / C, c = i % C;
-      const float v = to_float(y[tp.pixel(p) * C + c]);
+      const float v = y[tp.pixel(p) * C + c];
       xs[p * CP + c] = (v - s_mean[c]) * s_inv[c] * s_scale[c] + s_bias[c];
     }
     __syncthreads();
@@ -221,7 +233,7 @@ bn_glu_pool_kernel(const TY* __restrict__ y, const float* __restrict__ scale,
     for (int ci = 0; ci < C; ++ci) {
       float a[8], wv[NJ];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = operand<TY>(xs[(pg + 16 * i) * CP + ci]);
+      for (int i = 0; i < 8; ++i) a[i] = xs[(pg + 16 * i) * CP + ci];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int co = cg + 16 * j;
@@ -267,20 +279,10 @@ bn_glu_pool_kernel(const TY* __restrict__ y, const float* __restrict__ scale,
       const int c = o % C, win = o / C;
       const int wf = win % wcols, wt = win / wcols;
       float s = 0.0f;
-      if constexpr (kLow) {
-        // each column's pt-row time sum rounds to bfloat16 before the frequency sum
-        for (int df = 0; df < pf; ++df) {
-          float st = 0.0f;
-          for (int dt = 0; dt < pt; ++dt) st += xs[((wt * pt + dt) * tp.fcols + wf * pf + df) * CP + c];
-          s += rounded<TY>(st);
-        }
-      } else {
-        for (int dt = 0; dt < pt; ++dt)
-          for (int df = 0; df < pf; ++df)
-            s += xs[((wt * pt + dt) * tp.fcols + wf * pf + df) * CP + c];
-      }
-      out[(((long long)b * Tp + tp.t0 / pt + wt) * Fp + tp.f0 / pf + wf) * C + c] =
-          from_float<TY>(s * inv_win);
+      for (int dt = 0; dt < pt; ++dt)
+        for (int df = 0; df < pf; ++df)
+          s += xs[((wt * pt + dt) * tp.fcols + wf * pf + df) * CP + c];
+      out[(((long long)b * Tp + tp.t0 / pt + wt) * Fp + tp.f0 / pf + wf) * C + c] = s * inv_win;
     }
   }
 }
@@ -396,120 +398,6 @@ __device__ __forceinline__ void tile_dxn(float (&acc)[8][NJ], float* xs, float* 
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], wv[j], acc[i][j]);
-  }
-}
-
-// The reduce pass in bfloat16 (tile_dxn's products, each thread 8 pixels x
-// NJ channels and a NJ x NJ patch of dW; the roundings listed above).
-template <int NJ, typename TY>
-__device__ __forceinline__ void bwd_reduce_lowp(const TY* __restrict__ y, const TY* __restrict__ dout,
-                                                const float* __restrict__ scale, const float* __restrict__ bias,
-                                                const float* __restrict__ mean, const float* __restrict__ var,
-                                                const float* __restrict__ glu_w, const float* __restrict__ glu_b,
-                                                TY* __restrict__ dyp, float* __restrict__ partials, int T, int F,
-                                                int C, int pt, int pf, float eps, Tile tl, int tiles_per_block,
-                                                Dropout dr) {
-  extern __shared__ float smem[];
-  const int CP = C + 1;
-  float* xs = smem;               // [kPix][CP]: xn
-  float* ds = xs + kPix * CP;     // [kPix][CP]: dh, then dlin
-  float* ws = ds + kPix * CP;     // [C][CP] (in, out), rows padded, as product operands
-  float* red = ws + C * CP + 5 * C;  // [16][2][16 * NJ]: S1/S2 by pixel group
-  const Vecs v = stage_bwd<TY>(ws, ws + C * CP, glu_w, scale, bias, mean, var, glu_b, C, eps);
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const unsigned long long seed = seed_of(dr);
-  const int cg = tid % 16, pg = tid / 16;
-  const int Tp = T / pt, Fp = F / pf;
-  const int n_tiles = tiles_per_clip(T, F, pt, pf);
-  const int first = blockIdx.x * tiles_per_block;
-  const int last = min(n_tiles, first + tiles_per_block);
-
-  // carried over all tiles of the block
-  float dw[NJ][NJ];  // dW[cg_a + 16 i][cg + 16 j], cg_a = pg
-  float dbv[NJ], s1[NJ], s2[NJ];
-#pragma unroll
-  for (int i = 0; i < NJ; ++i) {
-    dbv[i] = s1[i] = s2[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dw[i][j] = 0.0f;
-  }
-
-  for (int tile = first; tile < last; ++tile) {
-    const TilePos tp = tile_pos(tile, b, T, F, tl);
-    const int tpix = tp.trows * tp.fcols;
-
-    __syncthreads();  // constants staged / previous tile's products done
-    float acc[8][NJ];
-    tile_dxn<NJ, TY>(acc, xs, ds, ws, v, y, dout, tp, tpix, b, C, pt, pf, Tp, Fp, dr, seed, pg, cg);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int p = pg + 16 * i;
-      if (p >= tpix) continue;
-      const long long px = tp.pixel(p) * C;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int c = cg + 16 * j;
-        if (c >= C) continue;
-        const float dxn = acc[i][j];
-        const float xh = (to_float(y[px + c]) - v.mean[c]) * v.inv[c];
-        s1[j] += dxn;
-        s2[j] = fmaf(dxn, xh, s2[j]);
-        if (dyp != nullptr) dyp[px + c] = from_float<TY>(v.inv[c] * v.scale[c] * dxn);
-      }
-    }
-
-    // dW += xn^T . dlin, db += sum dlin; thread holds (ci = pg + 16 i, co = cg + 16 j)
-    for (int p = 0; p < tpix; ++p) {
-      float xv[NJ], dv[NJ], dr_[NJ];
-#pragma unroll
-      for (int i = 0; i < NJ; ++i) xv[i] = operand<TY>(xs[p * CP + ((pg + 16 * i) < C ? pg + 16 * i : 0)]);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        dr_[j] = ds[p * CP + ((cg + 16 * j) < C ? cg + 16 * j : 0)];
-        dv[j] = operand<TY>(dr_[j]);
-      }
-#pragma unroll
-      for (int i = 0; i < NJ; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) dw[i][j] = fmaf(xv[i], dv[j], dw[i][j]);
-      if (pg == 0) {
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) dbv[j] += dr_[j];
-      }
-    }
-  }
-
-  // the block's slot: dW and db straight from their owners, S1 and S2 after a
-  // fixed-order sum over the 16 pixel groups
-  const int slot = blockIdx.y * gridDim.x + blockIdx.x;
-  float* ps = partials + (long long)slot * (C * C + 3 * C);
-#pragma unroll
-  for (int i = 0; i < NJ; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int ci = pg + 16 * i, co = cg + 16 * j;
-      if (ci < C && co < C) ps[ci * C + co] = dw[i][j];
-    }
-  if (pg == 0) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      if (cg + 16 * j < C) ps[C * C + cg + 16 * j] = dbv[j];
-  }
-  __syncthreads();
-  const int RW = 16 * NJ;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    red[(pg * 2 + 0) * RW + cg + 16 * j] = s1[j];
-    red[(pg * 2 + 1) * RW + cg + 16 * j] = s2[j];
-  }
-  __syncthreads();
-  for (int i = tid; i < 2 * C; i += kThreads) {
-    const int which = i / C, c = i % C;
-    float s = 0.0f;
-    for (int g = 0; g < 16; ++g) s += red[(g * 2 + which) * RW + c];
-    ps[C * C + C + which * C + c] = s;
   }
 }
 
@@ -931,27 +819,649 @@ __device__ __forceinline__ void bwd_reduce_f32(const float* __restrict__ y, cons
   }
 }
 
-// Workspace slot of a block: [C*C dW | C db | C S1 | C S2]. dyp == nullptr:
-// no dy_partial (the recompute fixup rebuilds dxn instead). float32: the
-// register-tiled pass above, with `buffers` (1 or 2) tiles, `drows` staged
-// rows of dout a tile (0: read from device memory) and `vec` (y, dout and dyp
-// 16-byte aligned); bfloat16: bwd_reduce_lowp, which ignores the three.
-template <int NJ, typename TY>
+// The float32 reduce pass. Workspace slot of a block: [C*C dW | C db | C S1 |
+// C S2]. dyp == nullptr: no dy_partial (the recompute fixup rebuilds dxn
+// instead). `buffers` (1 or 2) tiles, `drows` staged rows of dout a tile (0:
+// read from device memory) and `vec` (y, dout and dyp 16-byte aligned).
+template <int NJ>
 __global__ void __launch_bounds__(kThreads)
-bn_glu_pool_bwd_kernel(const TY* __restrict__ y, const TY* __restrict__ dout,
+bn_glu_pool_bwd_kernel(const float* __restrict__ y, const float* __restrict__ dout,
                        const float* __restrict__ scale, const float* __restrict__ bias,
                        const float* __restrict__ mean, const float* __restrict__ var,
                        const float* __restrict__ glu_w, const float* __restrict__ glu_b,
-                       TY* __restrict__ dyp, float* __restrict__ partials, int T, int F,
+                       float* __restrict__ dyp, float* __restrict__ partials, int T, int F,
                        int C, int pt, int pf, float eps, Tile tl, int tiles_per_block,
                        Dropout dr, int buffers, int drows, int vec) {
-  if constexpr (std::is_same<TY, float>::value)
-    bwd_reduce_f32<NJ>(y, dout, scale, bias, mean, var, glu_w, glu_b, dyp, partials, T, F, C, pt, pf, eps, tl,
-                       tiles_per_block, dr, buffers, drows, vec != 0);
-  else
-    bwd_reduce_lowp<NJ, TY>(y, dout, scale, bias, mean, var, glu_w, glu_b, dyp, partials, T, F, C, pt, pf, eps,
-                            tl, tiles_per_block, dr);
+  bwd_reduce_f32<NJ>(y, dout, scale, bias, mean, var, glu_w, glu_b, dyp, partials, T, F, C, pt, pf, eps, tl,
+                     tiles_per_block, dr, buffers, drows, vec != 0);
 }
+
+// ------------------------------------ bfloat16: products on the tensor cores
+
+using bf16 = __nv_bfloat16;
+
+// Plan of the two bfloat16 kernels at CP = 64 (C <= 64) or 128 padded
+// channels and NW (8 or 16) warps; channels past C are zeros in every shared
+// operand. For lin and dxn warp (wm, wn) = (warp / WN, warp % WN) holds
+// pixels wm 16 MT .. of the tile x channels wn 32 .. (MT 16-pixel x 4
+// 8-channel fragments); for dW warp (warp / 4, warp % 4) holds input
+// channels (warp / 4) 16 MTW .. x output channels (warp % 4) CP / 4 .. (MTW
+// x NTW fragments). A thread holds 128 CP / (32 NW) accumulators of lin or
+// dxn and CP^2 / (32 NW) of dW. 16 warps an SM, in one block (at most 128
+// registers a thread, no spill), except the forward at CP = 64 (two blocks
+// of 8 warps): the reduce pass at CP = 128 took 3.10 ms at 16 warps against
+// 4.08 at 8 (scaled block 1, NVIDIA H100 80GB HBM3, 700.00 W,
+// tools/bench_k2_bf16_torch.py --ablations), its lin and dxn then taken over
+// the tile's two pixel halves in turn to stay within the registers.
+template <int CP, int NW>
+struct BfPlan {
+  static constexpr int NTHR = 32 * NW;
+  static constexpr int RS = CP + 8;            // bfloat16 row stride: an odd number of 16-byte units
+  static constexpr int GS = CP + 8;            // float32 row stride of the forward's g tile
+  static constexpr int WN = CP / 32, WM = NW / WN;
+  static constexpr int MT = kPix / (16 * WM);
+  static constexpr int WMW = NW / 4, MTW = CP / (16 * WMW), NTW = CP / 32;
+  static constexpr int KG = CP / 4;            // four-channel groups of a row
+  static constexpr int MS = KG + 4;            // mask row stride, bytes: an odd number of words
+  static_assert(WM * WN == NW && MT >= 1 && MTW >= 1 && NTW % 2 == 0, "warp layout");
+};
+
+// the warps of each kernel (see BfPlan)
+template <int CP>
+constexpr int kFwdWarps = CP == 128 ? 16 : 8;
+template <int CP>
+constexpr int kBwdWarps = 16;
+
+// Dynamic shared memory of the bfloat16 forward: two y tiles and the A tile,
+// [kPix][RS] bfloat16 each (y0, A, y1: the float32 g tile [kPix][GS]
+// overlays the current y tile and A), W [CP][RS] bfloat16, five vectors [CP]
+// float; 139 KB at CP = 128.
+template <int CP>
+size_t fwd_bf16_smem() {
+  using P = BfPlan<CP, kFwdWarps<CP>>;
+  return 2 * (size_t)P::RS * (3 * (size_t)kPix + CP) + 4 * 5 * (size_t)CP;
+}
+
+// Dynamic shared memory of the bfloat16 reduce pass (ops/fused_block.
+// bf16_reduce_plan computes the same): per buffer (1 or 2) the
+// y tile [kPix][RS] and the tile's rows of dout [drows][RS]; A, D [kPix][RS]
+// and W [CP][RS] (bfloat16); six vectors [CP] and the block's db, S1, S2 per
+// pixel warp row [3][WM][CP] float (WM CP = 32 NW); the keep-mask [kPix][MS]
+// bytes; the dout-row table [kPix] int.
+template <int CP>
+size_t bwd_bf16_smem(int buffers, int drows) {
+  using P = BfPlan<CP, kBwdWarps<CP>>;
+  return 2 * (size_t)P::RS * ((size_t)buffers * (kPix + drows) + 2 * kPix + CP) +
+         4 * (6 + 3 * (size_t)P::WM) * CP + (size_t)kPix * P::MS + 4 * kPix;
+}
+
+__device__ __forceinline__ float2 ld_bf2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ void st_bf2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+
+// xn = ((y - mean) * inv) * scale + bias, each step rounded (no FMA), as the
+// plain version's elementwise ops round it: one formula for the bfloat16
+// operand and the float32 value the sigmoid takes. A last-bit difference in
+// xn or in the sigmoid would move a bfloat16 operand to its other neighbour
+// now and then, and one such operand moves a dW element by about 2e-4 of
+// dW's largest: so the sigmoid is chain.cuh's sigmoidf, 1 / (1 + expf(-x))
+// with the IEEE division, as torch.sigmoid computes it on the card (an
+// __expf / __fdividef sigmoid saved 0.33 and 0.64 ms of the forward and the
+// reduce pass at scaled block 1; __frcp_rn, the same bits, was slower).
+__device__ __forceinline__ float xn_of(float y, float m, float iv, float sc, float bi) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(y - m, iv), sc), bi);
+}
+
+// CH (8 or 4) bfloat16 values into CH aligned slots of shared memory: `n` (0
+// or CH) from src, zeros past them. mode 2: one 16-byte cp.async (CH 8), 1:
+// one 8-byte cp.async (CH 4), 0: loads of the values and one store (a source
+// without the alignment of a copy).
+template <int CH>
+__device__ __forceinline__ void copy_bf(bf16* dst, const bf16* src, int n, int mode) {
+  if (mode != 0) {
+    if constexpr (CH == 8) cp_async16(dst, src, 2 * n);
+    else cp_async8(dst, src, 2 * n);
+    return;
+  }
+  const auto* s = reinterpret_cast<const unsigned short*>(src);
+  uint32_t v[CH / 2];
+#pragma unroll
+  for (int i = 0; i < CH / 2; ++i) v[i] = n ? ((uint32_t)s[2 * i] | ((uint32_t)s[2 * i + 1] << 16)) : 0u;
+  if constexpr (CH == 8) *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+  else *reinterpret_cast<uint2*>(dst) = make_uint2(v[0], v[1]);
+}
+
+// y of a tile into yb [kPix][RS]: zeros past the tile and past C
+template <int CP, int CH>
+__device__ __forceinline__ void stage_y_rows(bf16* yb, const bf16* __restrict__ y, const TilePos& tp, int tpix,
+                                             int C, int mode) {
+  constexpr int NQ = CP / CH;
+  for (int i = threadIdx.x; i < kPix * NQ; i += blockDim.x) {
+    const int p = i / NQ, k = i % NQ;
+    const bool ok = p < tpix && k * CH < C;
+    copy_bf<CH>(yb + p * BfPlan<CP, 8>::RS + k * CH, ok ? y + tp.pixel(p) * C + k * CH : y, ok ? CH : 0, mode);
+  }
+}
+
+// the tile's pooled rows of dout into db [drows][RS]: window w = (w / wcols,
+// w % wcols) of the tile; zeros past C
+template <int CP, int CH>
+__device__ __forceinline__ void stage_dout_rows(bf16* db, const bf16* __restrict__ dout, const TilePos& tp, int b,
+                                                int Tp, int Fp, int pt, int pf, int C, int mode) {
+  constexpr int NQ = CP / CH;
+  const int wcols = tp.fcols / pf, nw = (tp.trows / pt) * wcols;
+  for (int i = threadIdx.x; i < nw * NQ; i += blockDim.x) {
+    const int w = i / NQ, k = i % NQ;
+    const bool ok = k * CH < C;
+    const long long row = ((long long)b * Tp + tp.t0 / pt + w / wcols) * Fp + tp.f0 / pf + w % wcols;
+    copy_bf<CH>(db + w * BfPlan<CP, 8>::RS + k * CH, ok ? dout + row * C + k * CH : dout, ok ? CH : 0, mode);
+  }
+}
+
+// Once a block: W = bf16(glu_w) into ws [CP][RS] (in, out), and the vectors
+// mean, inv, scale, bias, glu_b (and inv * scale where vgain != nullptr),
+// zeros past C.
+template <int CP>
+__device__ __forceinline__ void stage_bf16_consts(bf16* ws, float* vmean, float* vinv, float* vscale, float* vbias,
+                                                  float* vgb, float* vgain, const float* __restrict__ glu_w,
+                                                  const float* __restrict__ scale, const float* __restrict__ bias,
+                                                  const float* __restrict__ mean, const float* __restrict__ var,
+                                                  const float* __restrict__ glu_b, int C, float eps) {
+  constexpr int H = CP / 2;
+  for (int i = threadIdx.x; i < CP * H; i += blockDim.x) {
+    const int r = i / H, c = 2 * (i % H);
+    const bool ok = r < C && c < C;  // C even: c + 1 < C too
+    st_bf2(ws + r * BfPlan<CP, 8>::RS + c, ok ? glu_w[r * C + c] : 0.0f, ok ? glu_w[r * C + c + 1] : 0.0f);
+  }
+  for (int c = threadIdx.x; c < CP; c += blockDim.x) {
+    const bool in = c < C;
+    const float iv = in ? rsqrtf(var[c] + eps) : 0.0f;
+    vmean[c] = in ? mean[c] : 0.0f;
+    vinv[c] = iv;
+    vscale[c] = in ? scale[c] : 0.0f;
+    vbias[c] = in ? bias[c] : 0.0f;
+    vgb[c] = in ? glu_b[c] : 0.0f;
+    if (vgain != nullptr) vgain[c] = in ? iv * scale[c] : 0.0f;
+  }
+}
+
+// A = bf16(xn) of the y tile yb, zeros past the tile: thread tid takes one
+// 8-channel chunk of every (threads / (CP / 8))-th pixel row
+template <int CP>
+__device__ __forceinline__ void form_a(bf16* A, const bf16* yb, const float* vmean, const float* vinv,
+                                       const float* vscale, const float* vbias, int tpix) {
+  constexpr int RS = BfPlan<CP, 8>::RS, NQ = CP / 8;
+  const int c = 8 * (threadIdx.x % NQ);
+  float m[8], iv[8], sc[8], bi[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    m[e] = vmean[c + e];
+    iv[e] = vinv[c + e];
+    sc[e] = vscale[c + e];
+    bi[e] = vbias[c + e];
+  }
+  for (int p = threadIdx.x / NQ; p < kPix; p += blockDim.x / NQ) {
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (p < tpix) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(yb + p * RS + c);
+      const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+      uint32_t o[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[j]));
+        const __nv_bfloat162 r =
+            __floats2bfloat162_rn(xn_of(f.x, m[2 * j], iv[2 * j], sc[2 * j], bi[2 * j]),
+                                  xn_of(f.y, m[2 * j + 1], iv[2 * j + 1], sc[2 * j + 1], bi[2 * j + 1]));
+        o[j] = *reinterpret_cast<const uint32_t*>(&r);
+      }
+      v = make_uint4(o[0], o[1], o[2], o[3]);
+    }
+    *reinterpret_cast<uint4*>(A + p * RS + c) = v;
+  }
+}
+
+// acc += X . B on the tensor cores for a warp's MT x 4 fragments: X [kPix][RS]
+// row-major (A or D), fragment (mt, nt) = pixels wm 16 MT + 16 mt + g (+ 8) x
+// channels wn 32 + 8 nt + 2 q (+ 1), g = lane / 4, q = lane % 4. B from W
+// [in][out]: kTrans, lin = A . W (B [k][n] = W, ldmatrix.trans); else dxn =
+// D . W^T (B [n][k] = W, ldmatrix), so both products leave the same pixels
+// and channels in the same registers. MT: the warp's 16-pixel fragments
+// (rows from X).
+template <int CP, int NW, bool kTrans, int MT = BfPlan<CP, NW>::MT>
+__device__ __forceinline__ void product_w(float (&acc)[MT][4][4], const bf16* X, const bf16* ws, int wm, int wn,
+                                          int lane) {
+  constexpr int RS = BfPlan<CP, NW>::RS;
+  const uint32_t a0 = smem_addr(X + (wm * 16 * MT + lane % 16) * RS + (lane / 16) * 8);
+  const uint32_t b0 = kTrans ? smem_addr(ws + (lane % 8 + ((lane / 8) % 2) * 8) * RS + wn * 32 + (lane / 16) * 8)
+                             : smem_addr(ws + (wn * 32 + lane % 8 + (lane / 16) * 8) * RS + ((lane / 8) % 2) * 8);
+#pragma unroll
+  for (int kk = 0; kk < CP / 16; ++kk) {
+    uint32_t bq[2][4];
+    if constexpr (kTrans) {
+      ldmatrix_x4_trans(bq[0], b0 + 2 * (kk * 16 * RS));
+      ldmatrix_x4_trans(bq[1], b0 + 2 * (kk * 16 * RS + 16));
+    } else {
+      ldmatrix_x4(bq[0], b0 + 2 * (kk * 16));
+      ldmatrix_x4(bq[1], b0 + 2 * (16 * RS + kk * 16));
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      uint32_t a[4];
+      ldmatrix_x4(a, a0 + 2 * (mt * 16 * RS + kk * 16));
+      mma_bf16(acc[mt][0], a, bq[0][0], bq[0][1]);
+      mma_bf16(acc[mt][1], a, bq[0][2], bq[0][3]);
+      mma_bf16(acc[mt][2], a, bq[1][0], bq[1][1]);
+      mma_bf16(acc[mt][3], a, bq[1][2], bq[1][3]);
+    }
+  }
+}
+
+template <int MT>
+__device__ __forceinline__ void zero_acc(float (&acc)[MT][4][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+}
+
+// The bfloat16 forward (bn_glu_pool_kernel's function on bfloat16 y, the
+// JAX package's _fwd_kernel with lp). Per tile of up to 128 pixels (whole
+// pooling windows): y staged by cp.async (the next tile's while this one
+// multiplies), A = bf16(xn) formed once, lin = A . W
+// on mma.sync; in the fragment's registers g = (lin + b) * sigmoid(xn) with
+// the float32 xn rebuilt from the staged y; g to shared memory in float32 over
+// the y tile and A; then per window and four channels the keep-mask
+// (mask4_at's draw, on the global element index) and the pool, each column's
+// pt-row time sum rounded to bfloat16 before the frequency sum; 8-byte stores.
+template <int CP, int NW>
+__global__ void __launch_bounds__(32 * NW, NW == 8 ? 2 : 1)
+bn_glu_pool_bf16_kernel(const bf16* __restrict__ y, const float* __restrict__ scale, const float* __restrict__ bias,
+                        const float* __restrict__ mean, const float* __restrict__ var,
+                        const float* __restrict__ glu_w, const float* __restrict__ glu_b, bf16* __restrict__ out,
+                        int T, int F, int C, int pt, int pf, float eps, Tile tl, int tiles_per_block, Dropout dr,
+                        int mode) {
+  using P = BfPlan<CP, NW>;
+  constexpr int RS = P::RS, GS = P::GS, MT = P::MT, KG = P::KG;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* tiles = reinterpret_cast<bf16*>(smem_raw);  // [3][kPix][RS]: y0, A, y1
+  bf16* A = tiles + kPix * RS;
+  bf16* ws = tiles + 3 * kPix * RS;                 // [CP][RS]
+  float* vmean = reinterpret_cast<float*>(ws + CP * RS);
+  float* vinv = vmean + CP;
+  float* vscale = vinv + CP;
+  float* vbias = vscale + CP;
+  float* vgb = vbias + CP;
+  stage_bf16_consts<CP>(ws, vmean, vinv, vscale, vbias, vgb, nullptr, glu_w, scale, bias, mean, var, glu_b, C, eps);
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp / P::WN, wn = warp % P::WN, g = lane / 4, q = lane % 4;
+  const int b = blockIdx.y;
+  const unsigned long long seed = seed_of(dr);
+  const int Tp = T / pt, Fp = F / pf;
+  const float inv_win = 1.0f / (float)(pt * pf);
+  const int n_tiles = tiles_per_clip(T, F, pt, pf);
+  const int first = blockIdx.x * tiles_per_block;
+  const int last = min(n_tiles, first + tiles_per_block);
+  auto stage = [&](int tile, int buf) {
+    const TilePos tp = tile_pos(tile, b, T, F, tl);
+    bf16* yb = tiles + 2 * buf * kPix * RS;
+    if (mode == 2) stage_y_rows<CP, 8>(yb, y, tp, tp.trows * tp.fcols, C, mode);
+    else stage_y_rows<CP, 4>(yb, y, tp, tp.trows * tp.fcols, C, mode);
+  };
+
+  if (first < last) stage(first, 0);
+  cp_async_commit();
+  for (int tile = first; tile < last; ++tile) {
+    const int buf = (tile - first) & 1;
+    const TilePos tp = tile_pos(tile, b, T, F, tl);
+    const int tpix = tp.trows * tp.fcols;
+    cp_async_wait_all();
+    __syncthreads();  // this tile landed; every warp is done with the previous tile
+    if (tile + 1 < last) {  // the next tile loads while this one multiplies
+      stage(tile + 1, buf ^ 1);
+      cp_async_commit();
+    }
+    const bf16* yb = tiles + 2 * buf * kPix * RS;
+    form_a<CP>(A, yb, vmean, vinv, vscale, vbias, tpix);
+    __syncthreads();  // A complete
+
+    float acc[MT][4][4];
+    zero_acc(acc);
+    product_w<CP, NW, true>(acc, A, ws, wm, wn, lane);
+    // g = (lin + b) * sigmoid(xn), xn from the staged y at the fragment's pixel and channel
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int c = wn * 32 + nt * 8 + 2 * q;
+      const float2 m = ld2(vmean + c), iv = ld2(vinv + c), sc = ld2(vscale + c), bi = ld2(vbias + c),
+                   gb = ld2(vgb + c);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p = wm * 16 * MT + mt * 16 + g + 8 * h;
+          const float2 yv = ld_bf2(yb + p * RS + c);
+          acc[mt][nt][2 * h] = (acc[mt][nt][2 * h] + gb.x) * sigmoidf(xn_of(yv.x, m.x, iv.x, sc.x, bi.x));
+          acc[mt][nt][2 * h + 1] =
+              (acc[mt][nt][2 * h + 1] + gb.y) * sigmoidf(xn_of(yv.y, m.y, iv.y, sc.y, bi.y));
+        }
+    }
+    __syncthreads();  // every read of the y tile and of A done: g goes over them
+    float* gs = reinterpret_cast<float*>(tiles + buf * kPix * RS);  // [kPix][GS]
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p = wm * 16 * MT + mt * 16 + g + 8 * h, c = wn * 32 + nt * 8 + 2 * q;
+          *reinterpret_cast<float2*>(gs + p * GS + c) = make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+        }
+    __syncthreads();  // g complete
+
+    // per window and four channels: mask, pt-row time sums rounded to bfloat16, frequency sum
+    const int wcols = tp.fcols / pf, n_win = (tp.trows / pt) * wcols;
+    for (int i = tid; i < n_win * KG; i += P::NTHR) {
+      const int c = 4 * (i % KG), win = i / KG;
+      if (c >= C) continue;
+      const int wt = win / wcols, wf = win % wcols;
+      float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int df = 0; df < pf; ++df) {
+        float4 st = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        for (int dt = 0; dt < pt; ++dt) {
+          const int p = (wt * pt + dt) * tp.fcols + wf * pf + df;
+          float4 v = *reinterpret_cast<const float4*>(gs + p * GS + c);
+          if (dr.mode != 0) {
+            const uint4 r = keep_values4(tp.pixel(p) * C + c, seed, dr.mode);
+            v.x *= r.x >= dr.threshold ? dr.keep_scale : 0.0f;
+            v.y *= r.y >= dr.threshold ? dr.keep_scale : 0.0f;
+            v.z *= r.z >= dr.threshold ? dr.keep_scale : 0.0f;
+            v.w *= r.w >= dr.threshold ? dr.keep_scale : 0.0f;
+          }
+          st.x += v.x;
+          st.y += v.y;
+          st.z += v.z;
+          st.w += v.w;
+        }
+        s.x += rounded<bf16>(st.x);
+        s.y += rounded<bf16>(st.y);
+        s.z += rounded<bf16>(st.z);
+        s.w += rounded<bf16>(st.w);
+      }
+      Vec4<bf16>::store(out + (((long long)b * Tp + tp.t0 / pt + wt) * Fp + tp.f0 / pf + wf) * C + c,
+                        make_float4(s.x * inv_win, s.y * inv_win, s.z * inv_win, s.w * inv_win));
+    }
+  }
+}
+
+// The bfloat16 reduce pass (bn_glu_pool_bwd_kernel's function on bfloat16 y,
+// the JAX package's _bwd_reduce_kernel with lp). Per tile of up to 128
+// pixels: y and the tile's pooled rows of dout staged by cp.async (the next
+// tile's while this one multiplies, where two buffers fit); the keep-mask
+// bits of the tile (one Philox call per four channels, on the global element
+// index); A = bf16(xn); lin = A . W on mma.sync; in the fragment's registers
+// dh = dout / (pt pf) * mask * keep_scale, sig from the float32 xn, the gate
+// term dh (lin + b) sig (1 - sig) kept as dxn's first term, dlin = dh sig
+// summed into db in float32 and stored as D = bf16(dlin); dxn = gate + D .
+// W^T on mma.sync (W by ldmatrix without .trans: lin's and dxn's fragments
+// cover the same pixels and channels); S1 += dxn and S2 += dxn * x-hat from
+// the staged y; dy_partial = bf16(inv scale dxn) written over the y tile and
+// stored in 16- or 8-byte chunks (not at all when dyp == nullptr); dW += A^T
+// . D on mma.sync (A and D by ldmatrix.trans), its float32 sums in registers
+// across the block's tiles. At the end the block's slot [C*C dW | C db | C S1
+// | C S2]: dW from its fragments; db, S1 and S2 of each tile added over the
+// eight g lanes of a warp by shuffles into the block's sums of its pixel
+// warp row in shared memory (registers: the three sums of a thread's eight
+// channels would have to live across the products), and at the end over the
+// pixel warps in order.
+template <int CP, int NW>
+__global__ void __launch_bounds__(32 * NW, 1)
+bn_glu_pool_bwd_bf16_kernel(const bf16* __restrict__ y, const bf16* __restrict__ dout,
+                            const float* __restrict__ scale, const float* __restrict__ bias,
+                            const float* __restrict__ mean, const float* __restrict__ var,
+                            const float* __restrict__ glu_w, const float* __restrict__ glu_b, bf16* __restrict__ dyp,
+                            float* __restrict__ partials, int T, int F, int C, int pt, int pf, float eps, Tile tl,
+                            int tiles_per_block, Dropout dr, int buffers, int drows, int mode) {
+  using P = BfPlan<CP, NW>;
+  constexpr int RS = P::RS, MTW = P::MTW, NTW = P::NTW, KG = P::KG, MS = P::MS;
+  // lin and dxn over NH passes of kPix / NH pixels each (MT fragments a warp):
+  // at CP = 128 two, so that the gate's accumulators and dW's fit in 128
+  // registers beside each other at 16 warps
+  constexpr int NH = CP == 128 ? 2 : 1, MT = P::MT / NH, HP = kPix / NH;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ys = reinterpret_cast<bf16*>(smem_raw);  // [buffers][kPix][RS]: y, then dy_partial
+  bf16* dsm = ys + buffers * kPix * RS;          // [buffers][drows][RS]: the tile's rows of dout
+  bf16* A = dsm + buffers * drows * RS;          // [kPix][RS]: bf16(xn)
+  bf16* D = A + kPix * RS;                       // [kPix][RS]: bf16(dlin)
+  bf16* ws = D + kPix * RS;                      // [CP][RS]: W (in, out)
+  float* vmean = reinterpret_cast<float*>(ws + CP * RS);
+  float* vinv = vmean + CP;
+  float* vscale = vinv + CP;
+  float* vbias = vscale + CP;
+  float* vgb = vbias + CP;
+  float* vgain = vgb + CP;
+  float* sums = vgain + CP;  // [3][WM][CP]: the block's db, S1, S2 of each pixel warp row
+  unsigned char* mbits = reinterpret_cast<unsigned char*>(sums + 3 * P::WM * CP);  // [kPix][MS]: keep bits of 4 channels
+  int* tab_d = reinterpret_cast<int*>(mbits + kPix * MS);               // [kPix]: the dout row of pixel p, or -1
+  stage_bf16_consts<CP>(ws, vmean, vinv, vscale, vbias, vgb, vgain, glu_w, scale, bias, mean, var, glu_b, C, eps);
+  for (int i = threadIdx.x; i < 3 * P::WM * CP; i += P::NTHR) sums[i] = 0.0f;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp / P::WN, wn = warp % P::WN, g = lane / 4, q = lane % 4;
+  const int wmw = warp / 4, wnw = warp % 4;
+  // a tile's sums t0, t1 of channels c, c + 1 over this thread's pixels,
+  // added over the warp's g lanes, then to the block's sum `which` (one
+  // fragment's channels at a time: few registers live beside the products')
+  auto add_sums = [&](float t0, float t1, int c, int which) {
+#pragma unroll
+    for (int off = 4; off < 32; off *= 2) {
+      t0 += __shfl_xor_sync(0xffffffffu, t0, off);
+      t1 += __shfl_xor_sync(0xffffffffu, t1, off);
+    }
+    if (g == 0) {
+      float* dst = sums + (which * P::WM + wm) * CP + c;
+      dst[0] += t0;
+      dst[1] += t1;
+    }
+  };
+  const int b = blockIdx.y;
+  const unsigned long long seed = seed_of(dr);
+  const int Tp = T / pt, Fp = F / pf;
+  const float inv_win = 1.0f / (float)(pt * pf);
+  const int n_tiles = tiles_per_clip(T, F, pt, pf);
+  const int first = blockIdx.x * tiles_per_block;
+  const int last = min(n_tiles, first + tiles_per_block);
+  auto stage = [&](int tile, int buf) {
+    const TilePos tp = tile_pos(tile, b, T, F, tl);
+    bf16* yb = ys + buf * kPix * RS;
+    bf16* db_ = dsm + buf * drows * RS;
+    if (mode == 2) {
+      stage_y_rows<CP, 8>(yb, y, tp, tp.trows * tp.fcols, C, mode);
+      stage_dout_rows<CP, 8>(db_, dout, tp, b, Tp, Fp, pt, pf, C, mode);
+    } else {
+      stage_y_rows<CP, 4>(yb, y, tp, tp.trows * tp.fcols, C, mode);
+      stage_dout_rows<CP, 4>(db_, dout, tp, b, Tp, Fp, pt, pf, C, mode);
+    }
+  };
+
+  // dW: input channels wmw 16 MTW + 16 mt + g (+ 8) x output channels wnw CP / 4 + 8 nt + 2 q (+ 1)
+  float accw[MTW][NTW][4];
+#pragma unroll
+  for (int mt = 0; mt < MTW; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) accw[mt][nt][e] = 0.0f;
+
+  if (first < last) stage(first, 0);
+  cp_async_commit();
+  for (int tile = first; tile < last; ++tile) {
+    const int buf = buffers == 2 ? (tile - first) & 1 : 0;
+    const TilePos tp = tile_pos(tile, b, T, F, tl);
+    const int tpix = tp.trows * tp.fcols;
+    cp_async_wait_all();
+    __syncthreads();  // this tile landed; every warp is done with the previous tile
+    if (buffers == 2 && tile + 1 < last) {  // the next tile loads while this one multiplies
+      stage(tile + 1, buf ^ 1);
+      cp_async_commit();
+    }
+    bf16* yb = ys + buf * kPix * RS;
+    const bf16* dtile = dsm + buf * drows * RS;
+    if (tid < kPix) {
+      const int p = tid;
+      tab_d[p] = p < tpix ? (p / tp.fcols / pt) * (tp.fcols / pf) + (p % tp.fcols) / pf : -1;
+    }
+    if (dr.mode != 0) {
+      for (int i = tid; i < tpix * KG; i += P::NTHR) {
+        const int p = i / KG, k = i % KG;
+        if (4 * k >= C) continue;
+        const uint4 r = keep_values4(tp.pixel(p) * C + 4 * k, seed, dr.mode);
+        mbits[p * MS + k] = (unsigned char)((r.x >= dr.threshold ? 1 : 0) | (r.y >= dr.threshold ? 2 : 0) |
+                                            (r.z >= dr.threshold ? 4 : 0) | (r.w >= dr.threshold ? 8 : 0));
+      }
+    }
+    form_a<CP>(A, yb, vmean, vinv, vscale, vbias, tpix);
+    __syncthreads();  // A, the table and the mask complete
+
+    for (int hp = 0; hp < NH; ++hp) {  // the pixels hp HP ..
+      float acc[MT][4][4];
+      zero_acc(acc);
+      product_w<CP, NW, true, MT>(acc, A + hp * HP * RS, ws, wm, wn, lane);
+      // per element: dh, sig, the gate term into acc, dlin into db and D
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int c = wn * 32 + nt * 8 + 2 * q;
+        const float2 m = ld2(vmean + c), iv = ld2(vinv + c), sc = ld2(vscale + c), bi = ld2(vbias + c),
+                     gb = ld2(vgb + c);
+        float db0 = 0.0f, db1 = 0.0f;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int p = hp * HP + wm * 16 * MT + mt * 16 + g + 8 * h;
+            const int r = tab_d[p];
+            float2 dh = make_float2(0.0f, 0.0f);
+            if (r >= 0) {
+              dh = ld_bf2(dtile + r * RS + c);
+              dh.x *= inv_win;
+              dh.y *= inv_win;
+              if (dr.mode != 0) {
+                const int bits = mbits[p * MS + c / 4] >> (c & 3);
+                dh.x *= (bits & 1) ? dr.keep_scale : 0.0f;
+                dh.y *= (bits & 2) ? dr.keep_scale : 0.0f;
+              }
+            }
+            const float2 yv = ld_bf2(yb + p * RS + c);
+            const float sg0 = sigmoidf(xn_of(yv.x, m.x, iv.x, sc.x, bi.x));
+            const float sg1 = sigmoidf(xn_of(yv.y, m.y, iv.y, sc.y, bi.y));
+            acc[mt][nt][2 * h] = dh.x * (acc[mt][nt][2 * h] + gb.x) * sg0 * (1.0f - sg0);
+            acc[mt][nt][2 * h + 1] = dh.y * (acc[mt][nt][2 * h + 1] + gb.y) * sg1 * (1.0f - sg1);
+            const float d0 = dh.x * sg0, d1 = dh.y * sg1;
+            db0 += d0;
+            db1 += d1;
+            st_bf2(D + p * RS + c, d0, d1);
+          }
+        add_sums(db0, db1, c, 0);
+      }
+      __syncthreads();  // D of these pixels complete
+
+      product_w<CP, NW, false, MT>(acc, D + hp * HP * RS, ws, wm, wn, lane);  // dxn = gate + D . W^T
+      // S1 += dxn, S2 += dxn * x-hat; dy_partial = bf16(inv * scale * dxn) over the y tile
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int c = wn * 32 + nt * 8 + 2 * q;
+        const float2 m = ld2(vmean + c), iv = ld2(vinv + c), gn = ld2(vgain + c);
+        float s10 = 0.0f, s11 = 0.0f, s20 = 0.0f, s21 = 0.0f;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int p = hp * HP + wm * 16 * MT + mt * 16 + g + 8 * h;
+            const float2 yv = ld_bf2(yb + p * RS + c);
+            const float d0 = acc[mt][nt][2 * h], d1 = acc[mt][nt][2 * h + 1];
+            s10 += d0;
+            s11 += d1;
+            s20 = fmaf(d0, (yv.x - m.x) * iv.x, s20);
+            s21 = fmaf(d1, (yv.y - m.y) * iv.y, s21);
+            if (dyp != nullptr) st_bf2(yb + p * RS + c, gn.x * d0, gn.y * d1);
+          }
+        add_sums(s10, s11, c, 1);
+        add_sums(s20, s21, c, 2);
+      }
+    }
+    {  // dW += A^T . D over the tile's pixels
+      const uint32_t a0 =
+          smem_addr(A + (lane % 8 + (lane / 16) * 8) * RS + wmw * 16 * MTW + ((lane / 8) % 2) * 8);
+      const uint32_t b0 = smem_addr(D + (lane % 8 + ((lane / 8) % 2) * 8) * RS + wnw * (CP / 4) + (lane / 16) * 8);
+      const int ksteps = (tpix + 15) / 16;
+      for (int ks = 0; ks < ksteps; ++ks) {
+        uint32_t bq[NTW / 2][4];
+#pragma unroll
+        for (int np = 0; np < NTW / 2; ++np) ldmatrix_x4_trans(bq[np], b0 + 2 * (ks * 16 * RS + np * 16));
+#pragma unroll
+        for (int mt = 0; mt < MTW; ++mt) {
+          uint32_t a[4];
+          ldmatrix_x4_trans(a, a0 + 2 * (ks * 16 * RS + mt * 16));
+#pragma unroll
+          for (int np = 0; np < NTW / 2; ++np) {
+            mma_bf16(accw[mt][2 * np], a, bq[np][0], bq[np][1]);
+            mma_bf16(accw[mt][2 * np + 1], a, bq[np][2], bq[np][3]);
+          }
+        }
+      }
+    }
+    if (dyp != nullptr) {  // the tile's dy_partial, 16 or 8 bytes a store
+      __syncthreads();
+      const int ch = mode == 2 ? 8 : 4, nq = CP / ch;
+      for (int i = tid; i < tpix * nq; i += P::NTHR) {
+        const int p = i / nq, k = i % nq;
+        if (k * ch >= C) continue;
+        bf16* dst = dyp + tp.pixel(p) * C + k * ch;
+        const bf16* src = yb + p * RS + k * ch;
+        if (mode == 2) *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+        else *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+      }
+    }
+    if (buffers == 1 && tile + 1 < last) {
+      __syncthreads();  // every warp is done with the only y and dout tiles
+      stage(tile + 1, 0);
+      cp_async_commit();
+    }
+  }
+
+  // the block's slot [C*C dW | C db | C S1 | C S2]
+  const int slot = blockIdx.y * gridDim.x + blockIdx.x;
+  float* ps = partials + (long long)slot * (C * C + 3 * C);
+#pragma unroll
+  for (int mt = 0; mt < MTW; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int ci = wmw * 16 * MTW + mt * 16 + g + 8 * h, co = wnw * (CP / 4) + nt * 8 + 2 * q;
+        if (ci < C && co < C)  // C even: co + 1 < C too
+          *reinterpret_cast<float2*>(ps + (long long)ci * C + co) =
+              make_float2(accw[mt][nt][2 * h], accw[mt][nt][2 * h + 1]);
+      }
+  // db, S1, S2: the pixel warp rows' sums added in order
+  __syncthreads();
+  for (int i = tid; i < 3 * CP; i += P::NTHR) {
+    const int which = i / CP, c = i % CP;
+    if (c >= C) continue;
+    float s = 0.0f;
+#pragma unroll
+    for (int w = 0; w < P::WM; ++w) s += sums[(which * P::WM + w) * CP + c];
+    ps[C * C + which * C + c] = s;
+  }
+}
+
 
 // The recompute fixup (the JAX package's _bwd_fixup_recompute_kernel, under
 // DCASE_FUSED_BWD_RECOMPUTE): no dy_partial; each tile rebuilds dxn from y and
@@ -1073,10 +1583,9 @@ size_t fwd_smem(int C) {
   return sizeof(float) * ((size_t)kPix * (C + 1) + (size_t)C * C + 5 * (size_t)C);
 }
 
-// Both backward kernels: the reduce pass adds its S1/S2 scratch
-// (16 * 2 * 16 * NJ floats), the recompute fixup its a and b2 (2C).
-size_t bwd_smem(int C, size_t extra) {
-  return sizeof(float) * (2 * (size_t)kPix * (C + 1) + (size_t)C * (C + 1) + 5 * (size_t)C + extra);
+// The recompute fixup: xn and dlin tiles, W rows padded, five vectors, a and b2.
+size_t fixup_recompute_smem(int C) {
+  return sizeof(float) * (2 * (size_t)kPix * (C + 1) + (size_t)C * (C + 1) + 7 * (size_t)C);
 }
 
 // Arguments shared by the forward and both backward passes.
@@ -1094,39 +1603,82 @@ dim3 block_grid(const BlockArgs& a) {
   return dim3((n_tiles + a.tiles_per_block - 1) / a.tiles_per_block, a.B);
 }
 
-template <int NJ, typename TY>
+template <int NJ>
 int launch_fwd(const BlockArgs& a, void* out, cudaStream_t stream) {
   const size_t smem = fwd_smem(a.C);
-  cudaError_t err = cudaFuncSetAttribute(bn_glu_pool_kernel<NJ, TY>,
+  cudaError_t err = cudaFuncSetAttribute(bn_glu_pool_kernel<NJ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  bn_glu_pool_kernel<NJ, TY><<<block_grid(a), kThreads, smem, stream>>>(
-      static_cast<const TY*>(a.y), a.scale, a.bias, a.mean, a.var, a.glu_w, a.glu_b,
-      static_cast<TY*>(out), a.T, a.F, a.C, a.pt, a.pf, a.eps, tile_of(a.F, a.pt, a.pf),
+  bn_glu_pool_kernel<NJ><<<block_grid(a), kThreads, smem, stream>>>(
+      static_cast<const float*>(a.y), a.scale, a.bias, a.mean, a.var, a.glu_w, a.glu_b,
+      static_cast<float*>(out), a.T, a.F, a.C, a.pt, a.pf, a.eps, tile_of(a.F, a.pt, a.pf),
       a.tiles_per_block, a.dr);
   return (int)cudaGetLastError();
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+bool aligned(const void* p, int bytes) { return (reinterpret_cast<uintptr_t>(p) % bytes) == 0; }
+bool aligned16(const void* p) { return aligned(p, 16); }
 
-template <int NJ, typename TY>
+// How the bfloat16 kernels copy rows of C channels: 2, 16-byte cp.async (C % 8
+// == 0, every pointer 16-byte aligned); 1, 8-byte cp.async (8-byte aligned);
+// 0, loads of the values.
+int bf16_mode(int C, const void* y, const void* dout, const void* dyp) {
+  auto all = [&](int bytes) {
+    return aligned(y, bytes) && (dout == nullptr || aligned(dout, bytes)) && (dyp == nullptr || aligned(dyp, bytes));
+  };
+  return C % 8 == 0 && all(16) ? 2 : all(8) ? 1 : 0;
+}
+
+template <int CP>
+int launch_fwd_bf16(const BlockArgs& a, void* out, cudaStream_t stream) {
+  constexpr int NW = kFwdWarps<CP>;
+  const size_t smem = fwd_bf16_smem<CP>();
+  cudaError_t err = cudaFuncSetAttribute(bn_glu_pool_bf16_kernel<CP, NW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  bn_glu_pool_bf16_kernel<CP, NW><<<block_grid(a), 32 * NW, smem, stream>>>(
+      static_cast<const bf16*>(a.y), a.scale, a.bias, a.mean, a.var, a.glu_w, a.glu_b, static_cast<bf16*>(out),
+      a.T, a.F, a.C, a.pt, a.pf, a.eps, tile_of(a.F, a.pt, a.pf), a.tiles_per_block, a.dr,
+      bf16_mode(a.C, a.y, nullptr, out));
+  return (int)cudaGetLastError();
+}
+
+template <int NJ>
 int launch_bwd(const BlockArgs& a, const void* dout, void* dyp, float* partials, float* sums, int buffers,
                int drows, cudaStream_t stream) {
-  constexpr bool kF32 = std::is_same<TY, float>::value;
-  if (kF32 && ((buffers != 1 && buffers != 2) || drows < 0 || drows * a.pt * a.pf > kPix))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = kF32 ? red_f32_smem<NJ>(buffers, drows) : bwd_smem(a.C, (size_t)16 * 2 * 16 * NJ);
-  cudaError_t err = cudaFuncSetAttribute(bn_glu_pool_bwd_kernel<NJ, TY>,
+  if ((buffers != 1 && buffers != 2) || drows < 0 || drows * a.pt * a.pf > kPix) return (int)cudaErrorInvalidValue;
+  const size_t smem = red_f32_smem<NJ>(buffers, drows);
+  cudaError_t err = cudaFuncSetAttribute(bn_glu_pool_bwd_kernel<NJ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid = block_grid(a);
   const bool vec = aligned16(a.y) && aligned16(dout) && (dyp == nullptr || aligned16(dyp));
-  bn_glu_pool_bwd_kernel<NJ, TY><<<grid, kThreads, smem, stream>>>(
-      static_cast<const TY*>(a.y), static_cast<const TY*>(dout), a.scale, a.bias, a.mean, a.var,
-      a.glu_w, a.glu_b, static_cast<TY*>(dyp), partials, a.T, a.F, a.C, a.pt, a.pf, a.eps,
+  bn_glu_pool_bwd_kernel<NJ><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(a.y), static_cast<const float*>(dout), a.scale, a.bias, a.mean, a.var,
+      a.glu_w, a.glu_b, static_cast<float*>(dyp), partials, a.T, a.F, a.C, a.pt, a.pf, a.eps,
       tile_of(a.F, a.pt, a.pf), a.tiles_per_block, a.dr, buffers, drows, (int)vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_fold<float>(partials, sums, (int)(grid.x * grid.y), a.C * a.C + 3 * a.C, stream);
+}
+
+// drows: the pooled rows of a tile, kPix / (pt * pf)
+template <int CP>
+int launch_bwd_bf16(const BlockArgs& a, const void* dout, void* dyp, float* partials, float* sums, int buffers,
+                    int drows, cudaStream_t stream) {
+  if ((buffers != 1 && buffers != 2) || drows != kPix / (a.pt * a.pf)) return (int)cudaErrorInvalidValue;
+  constexpr int NW = kBwdWarps<CP>;
+  const size_t smem = bwd_bf16_smem<CP>(buffers, drows);
+  cudaError_t err = cudaFuncSetAttribute(bn_glu_pool_bwd_bf16_kernel<CP, NW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid = block_grid(a);
+  bn_glu_pool_bwd_bf16_kernel<CP, NW><<<grid, 32 * NW, smem, stream>>>(
+      static_cast<const bf16*>(a.y), static_cast<const bf16*>(dout), a.scale, a.bias, a.mean, a.var, a.glu_w,
+      a.glu_b, static_cast<bf16*>(dyp), partials, a.T, a.F, a.C, a.pt, a.pf, a.eps, tile_of(a.F, a.pt, a.pf),
+      a.tiles_per_block, a.dr, buffers, drows, bf16_mode(a.C, a.y, dout, dyp));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_fold<float>(partials, sums, (int)(grid.x * grid.y), a.C * a.C + 3 * a.C, stream);
@@ -1135,7 +1687,7 @@ int launch_bwd(const BlockArgs& a, const void* dout, void* dyp, float* partials,
 template <int NJ, typename TY>
 int launch_fixup_recompute(const BlockArgs& a, const void* dout, const float* av, const float* b2,
                            void* dy, cudaStream_t stream) {
-  const size_t smem = bwd_smem(a.C, 2 * (size_t)a.C);
+  const size_t smem = fixup_recompute_smem(a.C);
   cudaError_t err = cudaFuncSetAttribute(bn_bwd_fixup_recompute_kernel<NJ, TY>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -1208,8 +1760,8 @@ int dcase_bn_glu_pool(const void* y, const void* scale, const void* bias, const 
                     dropout_of(seed, threshold, keep_scale, packed)};
   auto st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return C <= 64 ? launch_fwd<4, __nv_bfloat16>(a, out, st) : launch_fwd<8, __nv_bfloat16>(a, out, st);
-  return C <= 64 ? launch_fwd<4, float>(a, out, st) : launch_fwd<8, float>(a, out, st);
+    return C <= 64 ? launch_fwd_bf16<64>(a, out, st) : launch_fwd_bf16<128>(a, out, st);
+  return C <= 64 ? launch_fwd<4>(a, out, st) : launch_fwd<8>(a, out, st);
 }
 
 // First backward pass. dout: [B, T/pt, F/pf, C]; dyp: [B, T, F, C] (both in
@@ -1217,9 +1769,10 @@ int dcase_bn_glu_pool(const void* y, const void* scale, const void* bias, const 
 // partials: [slots, C*C + 3C] float32 with slots = B * ceil(tiles /
 // tiles_per_block); sums: [C*C + 3C] float32 = dW | db | S1 | S2, folded
 // from the slots in slot order. Dropout as in dcase_bn_glu_pool. buffers,
-// drows (float32 only): the tiles of y and of dout in shared memory, 2 where
-// they fit, else 1, and the rows of dout a tile stages, 128 / (pt * pf), or
-// 0 to read dout from device memory (ops/fused_block.reduce_plan).
+// drows: the tiles of y and of dout in shared memory, 2 where they fit, else
+// 1, and the rows of dout a tile stages, 128 / (pt * pf), or in float32 0 to
+// read dout from device memory (ops/fused_block.reduce_plan,
+// bf16_reduce_plan).
 int dcase_bn_glu_pool_bwd(const void* y, const void* dout, const void* scale,
                           const void* bias, const void* mean, const void* var,
                           const void* glu_w, const void* glu_b, void* dyp, void* partials,
@@ -1235,10 +1788,10 @@ int dcase_bn_glu_pool_bwd(const void* y, const void* dout, const void* scale,
   auto* su = static_cast<float*>(sums);
   auto st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return C <= 64 ? launch_bwd<4, __nv_bfloat16>(a, dout, dyp, pa, su, buffers, drows, st)
-                   : launch_bwd<8, __nv_bfloat16>(a, dout, dyp, pa, su, buffers, drows, st);
-  return C <= 64 ? launch_bwd<4, float>(a, dout, dyp, pa, su, buffers, drows, st)
-                 : launch_bwd<8, float>(a, dout, dyp, pa, su, buffers, drows, st);
+    return C <= 64 ? launch_bwd_bf16<64>(a, dout, dyp, pa, su, buffers, drows, st)
+                   : launch_bwd_bf16<128>(a, dout, dyp, pa, su, buffers, drows, st);
+  return C <= 64 ? launch_bwd<4>(a, dout, dyp, pa, su, buffers, drows, st)
+                 : launch_bwd<8>(a, dout, dyp, pa, su, buffers, drows, st);
 }
 
 // Second backward pass without dy_partial: dy [B, T, F, C] in y's dtype from

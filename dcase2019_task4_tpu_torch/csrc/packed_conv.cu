@@ -160,6 +160,7 @@
 #include "cp_async.cuh"
 #include "dtype.cuh"
 #include "fold.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -532,32 +533,10 @@ conv3x3_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   }
 }
 
-// ---- bfloat16 kernels: mma.sync m16n8k16 (bf16 x bf16 -> f32) ----
+// ---- bfloat16 kernels: mma.sync m16n8k16 (bf16 x bf16 -> f32, mma.cuh) ----
 
 using bf16 = __nv_bfloat16;
 constexpr int kRowPad = 8;  // bfloat16 values past each shared row: an odd number of 16-byte units
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += a (16 x 16, row) . b (16 x 8, col), bfloat16 operands, float32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Eight bfloat16 values into 16 aligned bytes of shared memory: the first n
 // (0..8) from src, zeros after. With vec (src 16-byte aligned) and n == 8 an

@@ -7,9 +7,13 @@ csrc/fused_block.cu (or raises); on a CPU tensor it runs the plain PyTorch
 version beside it:
 
   wrapper                     kernel(s)                      plain version
-  fused_bn_glu_pool           bn_glu_pool_kernel             reference_block
+  fused_bn_glu_pool           bn_glu_pool_kernel (float32),  reference_block
+                              bn_glu_pool_bf16_kernel
   batch_stats                 stats_kernel + fold            batch_stats_reference
-  bwd_reduce                  bn_glu_pool_bwd_kernel + fold  bwd_reference (first half)
+  bwd_reduce                  bn_glu_pool_bwd_kernel         bwd_reference (first half)
+                              (float32),
+                              bn_glu_pool_bwd_bf16_kernel;
+                              + fold
   bwd_fixup                   bn_bwd_fixup_kernel            bwd_reference (second half)
   bwd_fixup_recompute         bn_bwd_fixup_recompute_kernel  bwd_fixup_recompute_reference
   dropout_mask                dropout_mask_kernel (a test    dropout_keep_mask
@@ -28,9 +32,13 @@ the GLU product as bfloat16 (the sigmoid and the gate take the float32
 xn); each window's pt-row time sum is rounded to bfloat16 before the
 frequency sum; dlin and glu_w enter dxn, and xn and dlin enter dW, as
 bfloat16; the pooled output, dy_partial and dy are stored in y's dtype; dW,
-db, S1, S2 and the batch statistics are float32. Arithmetic is float32
-throughout: the plain versions round the operands and multiply in float32
-(no bfloat16 matmul, whose accumulation order is unspecified).
+db, S1, S2 and the batch statistics are float32. The plain versions round
+the operands and multiply in float32 (no bfloat16 matmul, whose
+accumulation order is unspecified). On the card the bfloat16 forward and
+reduce pass take the channel products on the tensor cores (mma.sync,
+bfloat16 operands, float32 sums: the same roundings, the sums inside a
+product in another order); the float32 kernels and the bfloat16 recompute
+fixup multiply on FP32 FMAs.
 
 Dropout: the keep-mask comes from Philox4x32-10 keyed on the seed, with the
 counter the global element index of y divided by four (one call gives the
@@ -376,6 +384,26 @@ def reduce_plan(channels: int, pool):
     raise ValueError(f"the float32 reduce pass does not fit {channels} channels")
 
 
+def bf16_reduce_plan(channels: int, pool):
+    """The bfloat16 reduce pass's shared memory at `channels` C and `pool`
+    (pt, pf) → (buffers, drows, bytes), the channels padded to CP = 64 (C ≤
+    64) or 128 in bfloat16 rows of RS = CP + 8 (csrc/fused_block.cu
+    bwd_bf16_smem): per buffer the y tile and the tile's pooled rows of dout
+    (drows = 128 // (pt·pf)); A, D [128][RS] and W [CP][RS]; six vectors
+    [CP] and the block's db, S1, S2 per pixel warp row [3][32 NW] float32
+    (NW = 16 warps); the keep-mask [128][CP/4 + 4] bytes and the dout-row
+    table [128] int32. Two buffers where they fit a block, else one."""
+    cp = 64 if channels <= 64 else 128
+    rs = cp + 8
+    drows = _TILE_PIXELS // (pool[0] * pool[1])
+    for buffers in (2, 1):
+        nbytes = (2 * rs * (buffers * (_TILE_PIXELS + drows) + 2 * _TILE_PIXELS + cp) + 4 * (6 * cp + 96 * 16)
+                  + _TILE_PIXELS * (cp // 4 + 4) + 4 * _TILE_PIXELS)
+        if nbytes <= _MAX_SHARED:
+            return buffers, drows, nbytes
+    raise ValueError(f"the bfloat16 reduce pass does not fit {channels} channels at pool {pool}")
+
+
 def _tiles_per_block(tiles: int, B: int, target: int) -> int:
     """Pixel tiles each block takes so that `tiles` a clip over B clips make
     about `target` blocks."""
@@ -499,7 +527,8 @@ def bwd_reduce(y, dout, scale, bias, mean, var, glu_w, glu_b, pool, eps, *, rate
         y.data_ptr(), dout.data_ptr(), s.data_ptr(), bi.data_ptr(), mu.data_ptr(), va.data_ptr(),
         w.data_ptr(), gb.data_ptr(), None if dyp is None else dyp.data_ptr(), partials.data_ptr(),
         sums.data_ptr(), B, T, Fq, C, pt, pf, float(eps), seed_t.data_ptr(), threshold, keep_scale, packed, tpb,
-        int(bf16), *((0, 0) if bf16 else reduce_plan(C, pool)[:2]), _build.stream_handle(y.device),
+        int(bf16), *(bf16_reduce_plan(C, pool) if bf16 else reduce_plan(C, pool))[:2],
+        _build.stream_handle(y.device),
     )
     _build.check(status, "bwd_reduce")
     _build.count_launch(bwd_reduce, "launches_nodyp" if recompute else "launches", y.dtype)

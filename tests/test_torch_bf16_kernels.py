@@ -233,8 +233,9 @@ def test_conv_plain_versions_round_their_operands():
 
 
 # scaled block geometries at a few channels: block 1 (a pooling row of 2 × 128
-# pixels: the window-tiled gate), block 2, block 3 (pool (2, 8))
-BLOCKS = [((2, 16, 128, 16), (2, 4)), ((2, 8, 32, 16), (2, 4)), ((2, 16, 8, 16), (2, 8))]
+# pixels: the window-tiled gate), block 2, block 3 (pool (2, 8)); and the
+# flagship's width, C = 64 at pool (2, 4)
+BLOCKS = [((2, 16, 128, 16), (2, 4)), ((2, 8, 32, 16), (2, 4)), ((2, 16, 8, 16), (2, 8)), ((2, 8, 16, 64), (2, 4))]
 
 
 def _block_inputs(shape, pool, seed):

@@ -107,6 +107,50 @@ def test_reduce_plan_at_the_main_path(C, pool, want):
     assert tfb.reduce_plan(C, pool) == want
 
 
+@pytest.mark.parametrize("pool", [(2, 4), (2, 8), (1, 1), (1, 2), (4, 4)])
+def test_bf16_reduce_plan_fits_every_admitted_width(pool):
+    """The bfloat16 reduce pass's shared memory fits a block at every C the
+    fused block admits: two buffers of the y tile and the tile's pooled rows
+    of dout where they fit a block, else one, with db, S1, S2 per pixel warp
+    row of its 16 warps (csrc/fused_block.cu bwd_bf16_smem)."""
+    rows = 128 // (pool[0] * pool[1])
+    for C in range(4, 129, 4):
+        assert tfb.applicable((1, 8 * pool[0], 8 * pool[1], C), pool)
+        cp = 64 if C <= 64 else 128
+        rs = cp + 8
+
+        def size(b):
+            return 2 * rs * (b * (128 + rows) + 256 + cp) + 4 * (6 * cp + 3 * 32 * 16) + 128 * (cp // 4 + 4) + 512
+
+        want = 2 if size(2) <= tfb._MAX_SHARED else 1
+        assert tfb.bf16_reduce_plan(C, pool) == (want, rows, size(want)) and size(want) <= tfb._MAX_SHARED
+
+
+@pytest.mark.parametrize("C,pool,want", [
+    (128, (2, 4), (2, 16, 197120)), (128, (2, 8), (2, 8, 192768)), (64, (2, 4), (2, 16, 98304)),
+    (20, (2, 4), (2, 16, 98304)), (128, (1, 1), (1, 128, 188416)),
+])
+def test_bf16_reduce_plan_at_the_main_path(C, pool, want):
+    """The scaled model's C = 128 takes two buffers, 197120 bytes at pool
+    (2, 4) (one block of 16 warps an SM); the flagship's C = 64 two buffers;
+    at pool (1, 1) a tile's 128 rows of dout leave room for one buffer."""
+    assert tfb.bf16_reduce_plan(C, pool) == want
+
+
+def test_bf16_plans_match_the_kernel_source():
+    from pathlib import Path
+
+    src = (Path(tfb.__file__).parent.parent / "csrc" / "fused_block.cu").read_text()
+    for line in ("static constexpr int RS = CP + 8;", "static constexpr int KG = CP / 4;",
+                 "static constexpr int MS = KG + 4;", "static constexpr int WN = CP / 32, WM = NW / WN;",
+                 "constexpr int kFwdWarps = CP == 128 ? 16 : 8;", "constexpr int kBwdWarps = 16;",
+                 "return 2 * (size_t)P::RS * (3 * (size_t)kPix + CP) + 4 * 5 * (size_t)CP;",
+                 "return 2 * (size_t)P::RS * ((size_t)buffers * (kPix + drows) + 2 * kPix + CP) +\n"
+                 "         4 * (6 + 3 * (size_t)P::WM) * CP + (size_t)kPix * P::MS + 4 * kPix;",
+                 "using P = BfPlan<CP, kBwdWarps<CP>>;", "drows != kPix / (a.pt * a.pf)"):
+        assert line in src, line
+
+
 def test_reduce_plan_matches_the_kernel_source():
     from pathlib import Path
     import re

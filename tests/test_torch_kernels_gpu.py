@@ -20,7 +20,9 @@ configuration, float32 with TF32 off on both sides; then the bfloat16
 modes of K3 (its weight gradient rounded per output-frequency class where
 the original packs lane copies; its tensor-core tiling at F 4-32, C 64 and
 128, one and three clips, ragged last tiles and two waves of 128-pixel
-tiles) and K2 (window tiles included), and of the
+tiles) and K2 (window tiles included; its tensor-core kernels also at C 20,
+64 and 100, ragged last tiles of one clip, the packed draw, the recompute
+knob's first pass and an unaligned y), and of the
 entry-block family (K4, K5 and the crows layout of K6, at small shapes and
 the flagship block-1 shape), against their plain versions, one
 scaled-configuration step and one flagship bfloat16 step per first-block
@@ -593,9 +595,14 @@ def _dyp_slack(y, dout, scale, bias, mean, var, w, pool, keep=1.0):
 
 
 # scaled-shaped K2 geometries: whole pooling rows, window tiles of a 2 × 128
-# pooling row, a partial frequency tile (F = 96: tiles of 64 and 32), pool (2, 8)
+# pooling row, a partial frequency tile (F = 96: tiles of 64 and 32), pool (2, 8);
+# then the edges of the tensor-core kernels: the flagship's C = 64, C = 20 and
+# 100 (channels not a multiple of 16, 8-byte copies), one clip with T not a
+# multiple of the tile's rows (last tiles of 6 of 8 and of 6 of 16 rows)
 BF16_BLOCKS = [((2, 10, 32, 16), (2, 4)), ((2, 10, 128, 16), (2, 4)), ((1, 6, 96, 128), (2, 4)),
-               ((2, 16, 8, 128), (2, 8)), ((1, 4, 128, 128), (2, 4))]
+               ((2, 16, 8, 128), (2, 8)), ((1, 4, 128, 128), (2, 4)),
+               ((2, 12, 64, 64), (2, 4)), ((1, 14, 16, 20), (2, 4)), ((2, 10, 24, 100), (2, 4)),
+               ((1, 22, 8, 64), (2, 8))]
 
 
 @pytest.mark.parametrize("shape", [(2, 48, 16, 16), (1, 13, 8, 64), (1, 9, 32, 128), (2, 37, 8, 128)])
@@ -740,6 +747,58 @@ def test_fused_block_bf16_backward(cuda, shape, pool, rate):
         assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item(), name
     for got, rerun in zip(grads, run()):
         assert torch.equal(got, rerun)  # fixed-order folds: bit-equal on a repeat
+
+
+# K2's bfloat16 tensor-core kernels with the packed draw, in the recompute
+# knob's first pass, and on a y whose storage starts one element in (no copy
+# alignment: the kernels stage by loads)
+K2_BF16_EDGES = [((2, 12, 64, 64), (2, 4)), ((1, 14, 16, 20), (2, 4)), ((2, 10, 24, 100), (2, 4)),
+                 ((1, 6, 96, 128), (2, 4))]
+
+
+@pytest.mark.parametrize("shape,pool", K2_BF16_EDGES)
+def test_k2_bf16_packed_draw_recompute_pass_and_unaligned_y(cuda, shape, pool):
+    """The forward with the packed draw within the bars of
+    test_fused_block_bf16_forward against the plain version with the packed
+    mask; the reduce pass with it, dy_partial within its bar and the four
+    sums within 1e-4 of their max; the recompute first pass (no dy_partial)
+    with dW, db, S1 and S2 bit-equal to the default pass's; both kernels on
+    an unaligned y (and dout) bit-equal to their run on an aligned copy."""
+    rng = np.random.default_rng(sum(shape) + 13)
+    C = shape[-1]
+    y = _t(rng.standard_normal(shape), cuda).bfloat16()
+    scale, bias, mean, var, w, b = _block_args(rng, C, cuda)
+    dout = _t(rng.standard_normal((shape[0], shape[1] // pool[0], shape[2] // pool[1], C)), cuda).bfloat16()
+    seed, rate = torch.tensor([5150]), 0.5
+    fb = fused_block
+    mask = fb.dropout_keep_mask(seed, shape, rate, device=cuda, pack_bits=True)
+    kw = dict(rate=rate, seed=seed, pack_bits=True)
+    packed = fb.fused_bn_glu_pool.launches_packed
+    out = fb.fused_bn_glu_pool(y, scale, bias, mean, var, w, b, pool, 1e-3, **kw)
+    assert fb.fused_bn_glu_pool.launches_packed == packed + 1
+    ref = fb.reference_block(y, scale, bias, mean, var, w, b, pool, 1e-3, mask, 1.0 - rate)
+    _within_ulps(out, ref, "pooled output, packed draw", _pool_slack(y, scale, bias, mean, var, w, b, pool, mask, 0.5))
+    got = fb.bwd_reduce(y, dout, scale, bias, mean, var, w, b, pool, 1e-3, recompute=False, **kw)
+    want = fb.bwd_reduce_reference(y, dout, scale, bias, mean, var, w, b, pool, 1e-3, mask, 1.0 - rate)
+    _within_ulps(got[0], want[0], "dy_partial, packed draw", _dyp_slack(y, dout, scale, bias, mean, var, w, pool, 0.5))
+    for name, g, r in zip(("dw", "db", "S1", "S2"), got[1:], want[1:]):
+        assert (g - r).abs().max().item() <= 1e-4 * r.abs().max().item(), name
+    nodyp = fb.bwd_reduce.launches_nodyp_bf16
+    first = fb.bwd_reduce(y, dout, scale, bias, mean, var, w, b, pool, 1e-3, recompute=True, **kw)
+    assert fb.bwd_reduce.launches_nodyp_bf16 == nodyp + 1 and first[0] is None
+    assert all(torch.equal(g, f) for g, f in zip(got[1:], first[1:]))
+
+    def unaligned(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 8 != 0
+        return view
+
+    assert torch.equal(fb.fused_bn_glu_pool(unaligned(y), scale, bias, mean, var, w, b, pool, 1e-3, **kw), out)
+    again = fb.bwd_reduce(unaligned(y), unaligned(dout), scale, bias, mean, var, w, b, pool, 1e-3, recompute=False,
+                          **kw)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
 
 
 def test_fused_block_float32_in_window_tiles(cuda):

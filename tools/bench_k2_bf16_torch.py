@@ -1,0 +1,313 @@
+"""K2's two bfloat16 kernels on the tensor cores, the forward
+(`bn_glu_pool_bf16_kernel`) and the reduce pass (`bn_glu_pool_bwd_bf16_kernel`)
+of csrc/fused_block.cu, alone, on one NVIDIA GPU.
+
+    python tools/bench_k2_bf16_torch.py [--no-tests] [--variants] [--ablations]
+
+Prints the card's name and power limit; the ptxas report (registers,
+stack, spill) of every instantiation of the two (a spill fails the run at
+its end) and their HGMMA / HMMA / FFMA counts with the rest of their
+instruction mix (`cuobjdump -sass` of the built library, through
+chip_smoke.py's `check_mma`, which fails without a tensor-core instruction
+there); runs their GPU tests (`pytest tests/test_torch_kernels_gpu.py -k
+"fused_block_bf16 or k2_bf16"`) unless --no-tests; then chip_smoke.py's
+phase-3 bfloat16 K2 rows (`chip_smoke.bf16_block_kernels` without K3's
+rows) at the scaled configuration's three blocks (C = 128) and the
+flagship's (C = 64), each against its plain version under chip_smoke.py's
+bars, and a summary of device ms, bound and share of bound. With
+--variants it also times other launch plans of the two at block 1 of both
+configurations, rate 0.5: the forward with tiles a block for 528, 1056 or
+2112 blocks; the reduce pass with one or two buffers and tiles a block for
+264, 528 or 1056 blocks; each
+output first held to the plan's (the forward and dy_partial bit for bit,
+the sums within 1e-4 of their max). With --ablations it times source
+variants of the two at block 1 of the scaled shape (`ABLATIONS`: a piece
+left out or done another way), each csrc/fused_block.cu edited and built
+alone into a library of its own (all compilers started together) that the
+wrappers then call; times by CUDA events and ptxas lines only, no bars (a
+variant that leaves work out computes something else). About three minutes of card
+time, five with --ablations. Imports the port only; needs a card; exits
+non-zero when a bar fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+KERNELS = ("bn_glu_pool_bf16_kernel", "bn_glu_pool_bwd_bf16_kernel")
+ROWS = ("fused_bn_glu_pool_eval_bf16", "fused_bn_glu_pool_train_bf16", "bwd_reduce_bf16")
+
+
+def configs():
+    """(suffix, configuration) of the two bfloat16 models: the scaled one
+    (C = 128) and the flagship under `--bf16` (C = 64)."""
+    from dcase2019_task4_tpu_torch.config import Config, scaled_config
+
+    cfg = Config()
+    flagship = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"))
+    return (("", scaled_config()), ("_flagship", flagship))
+
+
+def ptxas_report(log: str) -> int:
+    """Print the ptxas lines of the two kernels; the number of instantiations
+    that spill."""
+    lines, spilled = log.splitlines(), 0
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and any(k in line for k in KERNELS):
+            report = " ".join(s.strip() for s in lines[i + 1:i + 4] if "bytes" in s or "registers" in s)
+            print(line.strip()[:150])
+            print("  ", report)
+            if "0 bytes spill stores, 0 bytes spill loads" not in report:
+                spilled += 1
+    return spilled
+
+
+# Source variants for --ablations: (name, edits), each edit
+# (text, replacement, count) applied to csrc/fused_block.cu (count -1: every
+# occurrence; the forward comes before the reduce pass in the file)
+FAST_SIGMOID = "__device__ __forceinline__ float fsig(float x) { return __fdividef(1.0f, 1.0f + __expf(-x)); }\n"
+ABLATIONS = (
+    ("as built", ()),
+    ("sigmoid by __expf and __fdividef",
+     (("// xn = ((y - mean) * inv)", FAST_SIGMOID + "// xn = ((y - mean) * inv)", 1), ("sigmoidf(xn_of(", "fsig(xn_of(", -1))),
+    ("sigmoid by __frcp_rn (the same bits)",
+     (("// xn = ((y - mean) * inv)", "__device__ __forceinline__ float rsig(float x) { return __frcp_rn(1.0f + expf(-x)); }\n"
+       "// xn = ((y - mean) * inv)", 1), ("sigmoidf(xn_of(", "rsig(xn_of(", -1))),
+    ("forward without lin", (("    product_w<CP, NW, true>(acc, A, ws, wm, wn, lane);\n    // g =", "    // g =", 1),)),
+    ("forward without the pool", (("i < n_win * KG; i += P::NTHR", "i < 0; i += P::NTHR", 1),)),
+    ("reduce without dW", (("ks < ksteps; ++ks", "ks < 0; ++ks", 1),)),
+    ("reduce without dxn", (("    product_w<CP, NW, false, MT>(acc, D + hp * HP * RS, ws, wm, wn, lane);", "", 1),)),
+    ("reduce without the mask pass", (("i < tpix * KG; i += P::NTHR", "i < 0; i += P::NTHR", 1),)),
+    ("reduce without the dy_partial stores", (("if (dyp != nullptr) {  // the tile's", "if (false) {  // the tile's", 1),)),
+    ("reduce, 8 warps at C = 128, the tile's pixels in one pass",
+     (("constexpr int kBwdWarps = 16;", "constexpr int kBwdWarps = CP == 64 ? 16 : 8;", 1),
+      ("constexpr int NH = CP == 128 ? 2 : 1,", "constexpr int NH = 1,", 1))),
+    ("reduce, 16 warps at C = 128, the tile's pixels in one pass",
+     (("constexpr int NH = CP == 128 ? 2 : 1,", "constexpr int NH = 1,", 1),)),
+)
+
+
+def ablation_libraries():
+    """Build each ABLATIONS variant of csrc/fused_block.cu alone into its own
+    library under the build directory, all compilers at once; → [(name,
+    ctypes library or None, ptxas lines)]."""
+    import ctypes
+    import shutil
+
+    from dcase2019_task4_tpu_torch.ops import _build
+
+    text = (_build.CSRC_DIR / "fused_block.cu").read_text()
+    jobs = []
+    for k, (name, edits) in enumerate(ABLATIONS):
+        work = _build.BUILD_DIR / "ablations" / str(k)
+        if work.exists():
+            shutil.rmtree(work)
+        work.mkdir(parents=True)
+        for header in _build.CSRC_DIR.glob("*.cuh"):
+            shutil.copy(header, work)
+        src = text
+        for old, new, count in edits:
+            if old not in src:
+                raise AssertionError(f"ablation {name!r}: {old[:60]!r} not in fused_block.cu")
+            src = src.replace(old, new, count)
+        (work / "fused_block.cu").write_text(src)
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-o", str(work / "lib.so"), str(work / "fused_block.cu")]
+        jobs.append((name, work, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    out = []
+    for name, work, proc in jobs:
+        log, _ = proc.communicate()
+        lines = log.splitlines()
+        ptxas = [" ".join(s.strip() for s in lines[i:i + 3] if "registers" in s or "spill" in s)
+                 for i, line in enumerate(lines) if "Compiling entry" in line and "bf16_kernel" in line]
+        lib = None
+        if proc.returncode == 0:
+            lib = ctypes.CDLL(str(work / "lib.so"))
+            for fn, (restype, argtypes) in _build.SIGNATURES.items():
+                if hasattr(lib, fn):
+                    getattr(lib, fn).restype, getattr(lib, fn).argtypes = restype, argtypes
+        else:
+            print(f"  ablation {name!r} did not build:\n{log[-2000:]}")
+        out.append((name, lib, ptxas))
+    return out
+
+
+def ablations(device):
+    """ms of each ABLATIONS variant at block 1 of the scaled shape by CUDA
+    events (`chip_smoke.time_ms`: torch.profiler traces nothing once a
+    second library with its own CUDA runtime is loaded): the forward at rate
+    0 and 0.5, the reduce pass at 0.5."""
+    import torch
+
+    import chip_smoke as cs
+    from dcase2019_task4_tpu_torch.config import scaled_config
+    from dcase2019_task4_tpu_torch.ops import _build
+    from dcase2019_task4_tpu_torch.ops import fused_block as fb
+
+    cfg = scaled_config()
+    m, d = cfg.model, cfg.dsp
+    B, C, eps, rate, pool = cfg.train.batch_size, m.nb_filters[0], m.bn_eps, m.dropout, tuple(m.pooling[0])
+    rng = np.random.default_rng(cs.SEED + 13)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    y = t(rng.standard_normal((B, d.max_frames, d.n_mels, C))).to(torch.bfloat16)
+    vecs = (t(1 + 0.1 * rng.standard_normal(C)), t(0.1 * rng.standard_normal(C)), t(0.2 * rng.standard_normal(C)),
+            t(rng.uniform(0.5, 2.0, C)), t(rng.standard_normal((C, C)) / np.sqrt(C)), t(0.1 * rng.standard_normal(C)))
+    dout = t(rng.standard_normal((B, y.shape[1] // pool[0], y.shape[2] // pool[1], C))).to(torch.bfloat16)
+    seed = torch.tensor([20190415], dtype=torch.int64)
+    library = _build.library
+    print(f"  source variants at {list(y.shape)} pool {pool}: forward eval / train, reduce pass (ms, CUDA events)")
+    try:
+        for name, lib, ptxas in ablation_libraries():
+            if lib is None:
+                continue
+            _build.library = lambda lib=lib: lib
+            ms = [cs.time_ms(lambda r=r: fb.fused_bn_glu_pool(y, *vecs, pool, eps, rate=r, seed=seed))
+                  for r in (0.0, rate)]
+            ms.append(cs.time_ms(lambda: fb.bwd_reduce(y, dout, *vecs, pool, eps, rate=rate, seed=seed)))
+            print(f"    {name}: {' / '.join(f'{v:.4f}' for v in ms)}; ptxas " + "; ".join(ptxas))
+    finally:
+        _build.library = library
+
+
+def variants(device):
+    """Device ms of other launch plans at block 1 of both configurations,
+    each output first held to the plan's."""
+    import torch
+
+    import chip_smoke as cs
+    from dcase2019_task4_tpu_torch.ops import fused_block as fb
+
+    planned, targets = fb.bf16_reduce_plan, (fb._TARGET_BLOCKS, fb._TARGET_BLOCKS_BWD)
+    rng = np.random.default_rng(cs.SEED + 12)
+    seed = torch.tensor([20190415], dtype=torch.int64)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    try:
+        for _, cfg in configs():
+            m, d = cfg.model, cfg.dsp
+            B, C, eps, rate, pool = cfg.train.batch_size, m.nb_filters[0], m.bn_eps, m.dropout, tuple(m.pooling[0])
+            y = t(rng.standard_normal((B, d.max_frames, d.n_mels, C))).to(torch.bfloat16)
+            vecs = (t(1 + 0.1 * rng.standard_normal(C)), t(0.1 * rng.standard_normal(C)),
+                    t(0.2 * rng.standard_normal(C)), t(rng.uniform(0.5, 2.0, C)))
+            w, gb = t(rng.standard_normal((C, C)) / np.sqrt(C)), t(0.1 * rng.standard_normal(C))
+            dout = t(rng.standard_normal((B, y.shape[1] // pool[0], y.shape[2] // pool[1], C))).to(torch.bfloat16)
+            fwd_args = (y, *vecs, w, gb, pool, eps)
+            bwd_args = (y, dout, *vecs, w, gb, pool, eps)
+            want_fwd = fb.fused_bn_glu_pool(*fwd_args, rate=rate, seed=seed)
+            want_bwd = fb.bwd_reduce(*bwd_args, rate=rate, seed=seed)
+            mask = fb.dropout_keep_mask(seed, y.shape, rate, device=device)
+            plain = fb.bwd_reduce_reference(*bwd_args[:2], *vecs, w, gb, pool, eps, mask, 1.0 - rate)
+            del mask
+            print(f"  {list(y.shape)} pool {pool} (the plan: reduce {planned(C, pool)[0]} buffer(s); targets "
+                  f"{targets[0]} / {targets[1]} blocks): device ms")
+            for target in (528, 1056, 2112):
+                fb._TARGET_BLOCKS = target
+                if not torch.equal(fb.fused_bn_glu_pool(*fwd_args, rate=rate, seed=seed), want_fwd):
+                    raise AssertionError(f"forward, {target} blocks: other bits than the plan's")
+                ms = cs.device_ms(lambda: fb.fused_bn_glu_pool(*fwd_args, rate=rate, seed=seed),
+                                  only="bn_glu_pool_bf16_kernel")
+                print(f"    forward, {target} blocks: {cs.shown(ms)}")
+            fb._TARGET_BLOCKS = targets[0]
+            for buffers in (1, 2):
+                for target in (264, 528, 1056):
+                    def plan(c, p, b=buffers):
+                        got = planned(c, p)
+                        return b, got[1], got[2]
+
+                    fb.bf16_reduce_plan, fb._TARGET_BLOCKS_BWD = plan, target
+                    got = fb.bwd_reduce(*bwd_args, rate=rate, seed=seed)
+                    if not torch.equal(got[0], want_bwd[0]):
+                        raise AssertionError(f"reduce pass, {buffers} buffer(s), {target} blocks: dy_partial differs")
+                    for name, g, r in zip(("dw", "db", "S1", "S2"), got[1:], plain[1:]):
+                        err, limit = (g - r).abs().max().item(), 1e-4 * r.abs().max().item()
+                        if not err <= limit:
+                            raise AssertionError(f"reduce pass, {buffers} buffer(s), {target} blocks, {name}: "
+                                                 f"{err} exceeds {limit}")
+                    ms = cs.device_ms(lambda: fb.bwd_reduce(*bwd_args, rate=rate, seed=seed),
+                                      only="bn_glu_pool_bwd_bf16_kernel")
+                    print(f"    reduce pass, {buffers} buffer(s), {target} blocks: {cs.shown(ms)}")
+            fb.bf16_reduce_plan, fb._TARGET_BLOCKS_BWD = planned, targets[1]
+            del y, dout, want_fwd, want_bwd, plain, fwd_args, bwd_args
+            torch.cuda.empty_cache()
+    finally:
+        fb.bf16_reduce_plan, (fb._TARGET_BLOCKS, fb._TARGET_BLOCKS_BWD) = planned, targets
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--no-tests", action="store_true", help="skip the GPU tests of the two kernels")
+    parser.add_argument("--variants", action="store_true", help="also time other launch plans of the two")
+    parser.add_argument("--ablations", action="store_true", help="also time source variants of the two")
+    args = parser.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("bench_k2_bf16_torch: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from dcase2019_task4_tpu_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(cs.card_line())
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    info = _build.build()
+    print(f"built in {info['seconds']:.1f} s")
+    log = info["log"]
+    if not log:  # the library was already built: its compilers' output is kept beside it
+        log = (_build.BUILD_DIR / "build.log").read_text()
+    spilled = ptxas_report(log)
+    if not any("bf16_kernel" in line and "Compiling entry" in line for line in log.splitlines()):
+        print("bench_k2_bf16_torch: no ptxas report of the two kernels", file=sys.stderr)
+        return 1
+    cs.check_mma(info["path"])
+    mix = ("HMMA", "FFMA", "LDSM", "LDS", "STS", "LDGSTS", "LDG", "STG", "SHFL", "BAR", "MUFU", "IMAD")
+    for name, counts in _build.sass_counts(info["path"], KERNELS, mix).items():
+        print(f"{name[:90]}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+
+    if not args.no_tests:
+        tests = subprocess.run([sys.executable, "-m", "pytest", "tests/test_torch_kernels_gpu.py", "-q",
+                                "-p", "no:randomly", "-k", "fused_block_bf16 or k2_bf16"],
+                               cwd=REPO, capture_output=True, text=True)
+        print(tests.stdout[-3000:], tests.stderr[-2000:])
+        if tests.returncode != 0:
+            return tests.returncode
+
+    device = torch.device("cuda", 0)
+    rows = {name: cs.Row() for name in cs.KERNELS}
+    rng = np.random.default_rng(cs.SEED)
+    for suffix, cfg in configs():
+        cs.bf16_block_kernels(device, rows, rng, cfg, suffix, with_k3=False)
+    print("row: device ms (events ms), bound ms, share of bound")
+    for suffix, _ in configs():
+        for name in (r + suffix for r in ROWS):
+            row = rows[name]
+            share = f"{100.0 * row.bound / row.device_ms:.1f} %" if row.device_ms else "not measured"
+            print(f"  {name}: {cs.shown(row.device_ms)} ({row.ms:.4f}), {row.bound:.4f} by {row.bound_by}, {share}")
+    if args.variants:
+        variants(device)
+    if args.ablations:
+        ablations(device)
+    print(cs.card_line())
+    if spilled:
+        print(f"bench_k2_bf16_torch: {spilled} instantiation(s) of the two kernels spill", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
