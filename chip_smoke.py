@@ -889,12 +889,12 @@ def k3_f32_kernels(device, rows, rng, which=("conv", "wgrad")):
         del x, dy, x_cl, dy_cl, y_graph, w_leaf, b_leaf, lib_dw, lib_db
 
 
-def k2_f32_kernels(device, rows, rng, only_reduce: bool = False):
+def k2_f32_kernels(device, rows, rng, only: Optional[str] = None):
     """Phase 3 for K2 in float32 at the flagship's three block geometries
     ([B, 864, 64, 64], [B, 432, 16, 64], [B, 216, 4, 64]): eval and train
     forward, statistics, the backward's two passes and the whole backward
-    through the autograd Function. `only_reduce` runs the first backward
-    pass alone (its probe)."""
+    through the autograd Function. `only`: "forward" runs the eval and train
+    forward alone, "reduce" the first backward pass alone (their probes)."""
     import torch
 
     from dcase2019_task4_tpu_torch.config import Config
@@ -922,7 +922,7 @@ def k2_f32_kernels(device, rows, rng, only_reduce: bool = False):
         y_bytes, out_bytes, small = y.numel() * 4, dout.numel() * 4, (C * C + 5 * C) * 4
         mix_ops = 2.0 * pixels * C * C  # one C×C channel product per pixel
 
-        if only_reduce:  # the statistics the backward takes, then its first pass alone
+        if only == "reduce":  # the statistics the backward takes, then its first pass alone
             s, sq = fb.batch_stats(y)
             mean = s / pixels
             var = sq / pixels - mean * mean
@@ -944,9 +944,11 @@ def k2_f32_kernels(device, rows, rng, only_reduce: bool = False):
                       atol=1e-5)
         rows["fused_bn_glu_pool_eval"].add(shape, res, y_bytes + out_bytes + small, mix_ops + 12.0 * y.numel())
 
-        res = compare(f"K2s batch_stats {shape}", lambda: fb.batch_stats(y), lambda: fb.batch_stats_reference(y),
-                      rtol_of_max=1e-5, repeat=True, library_fn=lambda: torch.var_mean(y, dim=(0, 1, 2), correction=0))
-        rows["batch_stats"].add(shape, res, y_bytes + 2 * C * 4, 3.0 * y.numel())
+        if only is None:
+            res = compare(f"K2s batch_stats {shape}", lambda: fb.batch_stats(y), lambda: fb.batch_stats_reference(y),
+                          rtol_of_max=1e-5, repeat=True,
+                          library_fn=lambda: torch.var_mean(y, dim=(0, 1, 2), correction=0))
+            rows["batch_stats"].add(shape, res, y_bytes + 2 * C * 4, 3.0 * y.numel())
         s, sq = fb.batch_stats(y)
         mean = s / pixels
         var = sq / pixels - mean * mean
@@ -968,6 +970,10 @@ def k2_f32_kernels(device, rows, rng, only_reduce: bool = False):
         if round(kept) != n_kept:
             raise AssertionError(f"K2f train {shape}: kernel kept {kept} elements, dropout_keep_mask {n_kept}")
         print(f"  K2f train {shape}: kept {n_kept} of {mask.numel()} elements, as dropout_keep_mask")
+        if only == "forward":
+            del y, dout, mask, pooled
+            torch.cuda.empty_cache()
+            continue
 
         res = compare(f"K2b bwd_reduce rate {rate} {shape} (dy_partial, dw, db, S1, S2)",
                       lambda: fb.bwd_reduce(y, dout, scale, bias, mean, var, w, gb, pool, m.bn_eps, rate=rate, seed=seed),
@@ -2951,18 +2957,19 @@ def profile_step(step, state, batch, generator, acc, card: str, step_ms: float, 
 MMA_KERNELS = ("conv3x3_bf16_kernel", "conv3x3_wgrad_bf16_kernel", "bn_glu_pool_bf16_kernel",
                "bn_glu_pool_bwd_bf16_kernel")
 # the float32 products redesigned as register-tiled FP32 FMAs: FFMA, and no
-# tensor-core instruction (no TF32); bn_glu_pool_bwd_kernel is K2b's float32
-# reduce pass alone (no name here is a substring of one above)
+# tensor-core instruction (no TF32); bn_glu_pool_kernel is K2f's float32
+# forward alone and bn_glu_pool_bwd_kernel K2b's float32 reduce pass alone (no
+# name here is a substring of another listed name)
 FFMA_KERNELS = ("fused_stft_mel_onedot_kernel", "conv3x3_wgrad_kernel", "conv3x3_nhwc_kernel",
-                "bn_glu_pool_bwd_kernel")
+                "bn_glu_pool_bwd_kernel", "bn_glu_pool_kernel")
 
 
 def check_mma(path):
     """Which instruction each product kernel was compiled to, read from the
     built library's machine code (`cuobjdump -sass`): K3's and K2's bfloat16
     kernels must hold HGMMA (`wgmma`) or HMMA (`mma.sync`), the FP32 product kernels
-    (onedot K1, K3's float32 forward / dx and weight gradient, K2b's reduce
-    pass) FFMA and neither HGMMA nor HMMA. FFMA counts the float32 FMAs on
+    (onedot K1, K3's float32 forward / dx and weight gradient, K2f's forward,
+    K2b's reduce pass) FFMA and neither HGMMA nor HMMA. FFMA counts the float32 FMAs on
     the CUDA cores."""
     from dcase2019_task4_tpu_torch.ops import _build
 

@@ -45,8 +45,9 @@
 // regenerates it bit for bit. The seed is read from device memory, so the
 // host never has to know it.
 //
-// At C = 128 the float32 forward's shared memory is 134 KB (one block an SM),
-// the float32 reduce pass's 209-214 KB (205 KB where dout stays in device
+// At C = 128 the float32 forward's shared memory is 199 KB (two y buffers,
+// one block an SM; 86 KB and two blocks an SM at C = 64), the float32 reduce
+// pass's 209-214 KB (205 KB where dout stays in device
 // memory) and the recompute fixup's 202 KB; the bfloat16 forward's 139 KB
 // (two y buffers, one block of 16 warps an SM; 64 KB and 8 warps at C = 64)
 // and the bfloat16 reduce pass's 193 KB at pool (2, 4) (two buffers, 16
@@ -85,12 +86,16 @@
 // global element index, so the tiling does not change it. The tiles of a
 // block are consecutive (frequency segments within a row pair, then time),
 // so the block loads W and the per-channel vectors into shared memory once.
-// Forward in float32, per tile: read the slab once, normalise it into shared memory (pixel stride C + 1 against
-// bank conflicts), mix channels with each thread holding 8 pixels x 4
-// channels (8 when C > 64) in registers, gate, write g back over the slab,
-// mask it four channels per Philox call, and average each pooling window
-// from there. Only the pooled tile is written. Backward reduce pass in
-// float32 (bwd_reduce_f32): three channel products on 8-channel register
+// Forward in float32 (bn_glu_pool_kernel): BN's scale folded into the
+// weights once a block (W' = diag(inv * scale) W, b' = b + bias . W); per
+// tile, y staged by cp.async a tile ahead and centred in place (x-hat = y -
+// mean), the product x-hat . W' on 4 x 8 (C <= 64) or 8 x 8 (C <= 128)
+// register tiles fed by 16-byte shared loads, the gate, the fast sigmoid and
+// the four-channel mask in registers; each window summed by warp shuffles at
+// block 1's geometry, elsewhere from g written over the tile by float4; only
+// the pooled tile is written (see the comment at the kernel). Backward
+// reduce pass in float32 (bwd_reduce_f32): three channel products on
+// 8-channel register
 // tiles fed by 16-byte shared loads (a Hopper SM issues one shared load for
 // four FFMAs), y and dout staged by cp.async a tile ahead, x-hat kept in shared memory so
 // that S2 needs no second read of y, and a fast sigmoid (__expf and
@@ -173,116 +178,333 @@ __device__ __forceinline__ float operand(float v) {
   else return rounded<TY>(v);
 }
 
+// ------------------------------------------------- float32: register tiles
+
+// Channel plan of the float32 reduce pass for C <= 16 * NJ (NJ = 4: C <= 64,
+// NJ = 8: C <= 128); channels past C are zeros in every shared operand.
+template <int NJ>
+struct RedPlan {
+  static constexpr int CP = 16 * NJ;              // padded channels: 64 or 128
+  static constexpr int H = CP / 2;                // a thread's second channel half starts here
+  static constexpr int CG = CP / 8;               // channel groups of a product tile: 8 or 16
+  static constexpr int PG = kThreads / CG;        // pixel groups: 32 or 16
+  static constexpr int MI = kPix / PG;            // pixels a thread: 4 or 8
+  static constexpr int KS = CP + 4;               // row stride of the tiles: an odd number of 16-byte units
+  static constexpr int DG = kThreads / (CG * CG); // dW groups, each a share of a tile's pixels: 4 or 1
+  static_assert(CG % 8 == 0 && DG >= 1, "a quarter warp spans eight channel groups");
+};
+
+// Dynamic shared memory of the float32 reduce pass (ops/fused_block.reduce_plan
+// computes the same): `buffers` (1 or 2) x-hat tiles [kPix][KS], the dlin
+// tile [kPix][KS], `buffers` dout tiles [drows][KS] (drows = 0: dout is read
+// from device memory), W [CP][CP], seven vectors [CP], two tables [kPix] (int).
+template <int NJ>
+size_t red_f32_smem(int buffers, int drows) {
+  using P = RedPlan<NJ>;
+  return sizeof(float) * ((size_t)(buffers + 1) * kPix * P::KS + (size_t)buffers * drows * P::KS +
+                          P::CP * P::CP + 7 * P::CP + 2 * kPix);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ float& at(float4& v, int i) { return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w; }
+
+// Four neighbouring floats from device memory into 16 aligned bytes of shared
+// memory by cp.async: one 16-byte copy where vec (the tensor is 16-byte
+// aligned; C % 4 == 0 keeps every row so), else four of 4 bytes; zeros
+// unless ok.
+__device__ __forceinline__ void stage_row4(float* dst, const float* src, bool ok, bool vec) {
+  if (vec) {
+    cp_async16(dst, src, ok ? 16 : 0);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) cp_async4(dst + e, ok ? src + e : src, ok ? 4 : 0);
+}
+
+// y of a tile into xb [kPix][CP + 4] by cp.async, zeros past the tile and
+// past C: thread tid of NT copies chunk tid % Q (four channels) of every (NT
+// / Q)-th pixel row, the row's place carried by counters (no division a row).
+template <int CP, int NT = kThreads>
+__device__ __forceinline__ void stage_y_f32(float* xb, const float* __restrict__ y, const TilePos& tp, int F,
+                                            int C, bool vec) {
+  constexpr int Q = CP / 4, DP = NT / Q, KS = CP + 4;
+  const int sq = threadIdx.x % Q, tpix = tp.trows * tp.fcols;
+  int p = threadIdx.x / Q;
+  int pr = p / tp.fcols, pc = p % tp.fcols;
+  const int dpr = DP / tp.fcols, dpc = DP % tp.fcols;
+  for (; p < kPix; p += DP) {
+    const bool ok = p < tpix && 4 * sq < C;
+    stage_row4(xb + p * KS + 4 * sq, ok ? y + ((tp.row0 + pr) * F + tp.f0 + pc) * C + 4 * sq : y, ok, vec);
+    pc += dpc;
+    pr += dpr;
+    if (pc >= tp.fcols) {
+      pc -= tp.fcols;
+      ++pr;
+    }
+  }
+}
+
 // ------------------------------------------------------------------ forward
 
-// The float32 forward. NJ: output channels per thread / 16 (C <= 16 * NJ).
+// Plan of the float32 forward for C <= 16 * NJ: the reduce pass's channels
+// (CP, H, CG, KS) and register tiles of MI pixels x 8 channels a thread, so
+// NT = 16 CG MI threads cover a tile of kPix pixels: 4 x 8 at C <= 64 (256
+// threads, two blocks an SM in 128 registers), 8 x 8 at C <= 128. 8 x 8 at
+// C <= 64 (128 threads) read 0.5103 ms at block 1 of the flagship shape
+// against 0.4162, and 4 x 8 without the register bound (one block an SM)
+// 0.5291 (NVIDIA H100 80GB HBM3, 700.00 W, CUDA events,
+// tools/bench_k2f_f32_torch.py --variants).
 template <int NJ>
-__global__ void __launch_bounds__(kThreads)
-bn_glu_pool_kernel(const float* __restrict__ y, const float* __restrict__ scale,
-                   const float* __restrict__ bias, const float* __restrict__ mean,
-                   const float* __restrict__ var, const float* __restrict__ glu_w,
-                   const float* __restrict__ glu_b, float* __restrict__ out, int T,
-                   int F, int C, int pt, int pf, float eps, Tile tl,
-                   int tiles_per_block, Dropout dr) {
-  extern __shared__ float smem[];
-  const int CP = C + 1;
-  float* xs = smem;              // [kPix][CP]: xn, then g
-  float* ws = xs + kPix * CP;    // [C][C] (in, out), as product operands
-  float* s_scale = ws + C * C;   // [C] each
-  float* s_bias = s_scale + C;
-  float* s_mean = s_bias + C;
-  float* s_inv = s_mean + C;
-  float* s_gb = s_inv + C;
+struct FwdPlan {
+  static constexpr int CP = 16 * NJ, H = CP / 2, CG = CP / 8, KS = CP + 4;
+  static constexpr int MI = NJ == 4 ? 4 : 8;          // pixels a thread
+  static constexpr int PG = kPix / MI;                // pixel groups
+  static constexpr int NT = PG * CG;                  // threads
+  static constexpr int MIN_BLOCKS = NJ == 4 ? 2 : 1;  // the blocks an SM that the registers must allow
+};
 
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
+// Dynamic shared memory of the float32 forward (ops/fused_block.forward_plan
+// computes the same): two buffers, each a y tile [kPix][KS] (then x-hat, then
+// g) and its pixel table [kPix] (int); W' [CP][CP], four vectors [CP]: 86 KB
+// at C <= 64 (two blocks an SM), 199 KB at C <= 128.
+template <int NJ>
+constexpr size_t fwd_f32_smem() {
+  using P = FwdPlan<NJ>;
+  return sizeof(float) * (2 * (kPix * P::KS + kPix) + P::CP * P::CP + 4 * P::CP);
+}
+static_assert(fwd_f32_smem<8>() <= 232448, "two y tiles of the float32 forward fit a block at C = 128");
+
+// The float32 forward, eval and train. BN's scale is folded into the
+// product: with G = inv * scale, xn = x-hat G + bias and lin = xn . W + b =
+// x-hat . W' + b' for W' = diag(G) W and b' = b + bias . W, both formed once a
+// block. The mean is subtracted in place as a tile lands, as the plain
+// version does, so no sum cancels a mean * G term (folding the mean into b'
+// too would lose float32 digits in proportion to |mean| / std). Per tile of
+// up to 128 pixels (whole pooling windows): y staged by cp.async with its
+// pixel table (the next tile's while this one multiplies), x-hat = y - mean
+// formed in place by float4; lin on register tiles: thread (pg, cg) = (tid / CG, tid % CG) holds pixels pg + PG
+// i (i < MI) x channels h H + 4 cg + j (h < 2, j < 4) and reads, per four
+// input channels, MI float4 of y and eight of W' (row k, chunks cg and cg +
+// CG: distinct 16-byte chunks across a quarter warp) for 32 MI FMAs; then in
+// registers g = (lin + b') * sigmoid(x-hat G + bias) (the reduce pass's fast
+// sigmoid) and, in train mode, the keep-mask of each float4 channel
+// group, whose four channels are the four words of one Philox call
+// (keep_values4 on the global element index); g goes over y, and per
+// window and four channels a float4 sum over its pt x pf pixels, scaled by
+// 1 / (pt pf), is stored in 16 bytes. At block 1's geometry (C <= 64, a tile
+// of 2 x 64 pixels at pool (2, 4)) the windows are summed in registers and
+// across the warp by shuffles instead: thread pixel pg + 32 i is (row i / 2,
+// column pg + 32 (i % 2)), and a window's four columns are the pixel groups
+// 4k .. 4k + 3 of one warp (lanes 8 (pg % 4) + cg); this saves g's round trip
+// and two barriers a tile. Rows and windows are carried by counters and
+// pixels read from a per-tile table: no division an element. Two blocks an
+// SM at C <= 64 (the registers and the shared memory allow it).
+template <int NJ>
+__global__ void __launch_bounds__(FwdPlan<NJ>::NT, FwdPlan<NJ>::MIN_BLOCKS)
+bn_glu_pool_kernel(const float* __restrict__ y, const float* __restrict__ scale, const float* __restrict__ bias,
+                   const float* __restrict__ mean, const float* __restrict__ var, const float* __restrict__ glu_w,
+                   const float* __restrict__ glu_b, float* __restrict__ out, int T, int F, int C, int pt, int pf,
+                   float eps, Tile tl, int tiles_per_block, Dropout dr, int vec) {
+  using P = FwdPlan<NJ>;
+  constexpr int CP = P::CP, H = P::H, CG = P::CG, PG = P::PG, MI = P::MI, KS = P::KS, NT = P::NT;
+  constexpr int Q = CP / 4, DP = NT / Q;  // centring and the pool: chunk tid % Q of every DP-th row or window
+  extern __shared__ __align__(16) float smem_f[];
+  float* xs = smem_f;               // [2][kPix][KS]: y, then x-hat, then g
+  float* ws = xs + 2 * kPix * KS;   // [CP][CP]: W' (in, out)
+  float* vgain = ws + CP * CP;      // [CP] each, zeros past C: G, mean, bias, b'
+  float* vmean = vgain + CP;
+  float* vbias = vmean + CP;
+  float* vgb = vbias + CP;
+  int* tabs = reinterpret_cast<int*>(vgb + CP);  // [2][kPix]: the global pixel of tile pixel p
+
+  const int tid = threadIdx.x, b = blockIdx.y;
   const unsigned long long seed = seed_of(dr);
-  for (int i = tid; i < C * C; i += kThreads) ws[i] = glu_w[i];
-  for (int c = tid; c < C; c += kThreads) {
-    s_scale[c] = scale[c];
-    s_bias[c] = bias[c];
-    s_mean[c] = mean[c];
-    s_inv[c] = rsqrtf(var[c] + eps);
-    s_gb[c] = glu_b[c];
+  const int Tp = T / pt, Fp = F / pf;
+  const float inv_win = 1.0f / (float)(pt * pf);
+  for (int c = tid; c < CP; c += NT) {  // once a block: G, mean, bias, then W' and b'
+    vgain[c] = c < C ? rsqrtf(var[c] + eps) * scale[c] : 0.0f;
+    vmean[c] = c < C ? mean[c] : 0.0f;
+    vbias[c] = c < C ? bias[c] : 0.0f;
+  }
+  __syncthreads();
+  for (int i = tid; i < CP * Q; i += NT) {
+    const int r = i / Q, q = i % Q;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r < C && 4 * q < C) {
+      const float g = vgain[r];
+      v = make_float4(g * glu_w[r * C + 4 * q], g * glu_w[r * C + 4 * q + 1], g * glu_w[r * C + 4 * q + 2],
+                      g * glu_w[r * C + 4 * q + 3]);
+    }
+    st4(ws + r * CP + 4 * q, v);
+  }
+  for (int c = tid; c < CP; c += NT) {
+    float s = 0.0f;
+    if (c < C) {
+      s = glu_b[c];
+      for (int r = 0; r < C; ++r) s = fmaf(vbias[r], glu_w[r * C + c], s);
+    }
+    vgb[c] = s;
   }
 
-  const int cg = tid % 16, pg = tid / 16;
-  const int Tp = T / pt, Fp = F / pf;
+  const int cg = tid % CG, pg = tid / CG;
+  const int nq = C / 4;  // chunks of four input channels below C
+  const int sq = tid % Q;
   const int n_tiles = tiles_per_clip(T, F, pt, pf);
   const int first = blockIdx.x * tiles_per_block;
   const int last = min(n_tiles, first + tiles_per_block);
-  const float inv_win = 1.0f / (float)(pt * pf);
-
+  // y of tile `tile` into buffer buf by cp.async, and its pixel table
+  auto stage = [&](int tile, int buf) {
+    const TilePos tp = tile_pos(tile, b, T, F, tl);
+    stage_y_f32<CP, NT>(xs + buf * kPix * KS, y, tp, F, C, vec != 0);
+    for (int p = tid; p < kPix; p += NT) tabs[buf * kPix + p] = p < tp.trows * tp.fcols ? (int)tp.pixel(p) : 0;
+  };
+  if (first < last) stage(first, 0);
+  cp_async_commit();
   for (int tile = first; tile < last; ++tile) {
+    const int buf = (tile - first) & 1;
     const TilePos tp = tile_pos(tile, b, T, F, tl);
     const int tpix = tp.trows * tp.fcols;
-
-    __syncthreads();  // weights staged / previous tile's pool read done
-    for (int i = tid; i < tpix * C; i += kThreads) {
-      const int p = i / C, c = i % C;
-      const float v = y[tp.pixel(p) * C + c];
-      xs[p * CP + c] = (v - s_mean[c]) * s_inv[c] * s_scale[c] + s_bias[c];
+    cp_async_wait_all();
+    __syncthreads();  // this tile landed; every warp is done with the previous tile
+    if (tile + 1 < last) {  // the next tile loads while this one multiplies
+      stage(tile + 1, buf ^ 1);
+      cp_async_commit();
     }
-    __syncthreads();
-
-    float acc[8][NJ];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
-    for (int ci = 0; ci < C; ++ci) {
-      float a[8], wv[NJ];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = xs[(pg + 16 * i) * CP + ci];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int co = cg + 16 * j;
-        wv[j] = co < C ? ws[ci * C + co] : 0.0f;
+    float* xb = xs + buf * kPix * KS;
+    const int* tab_y = tabs + buf * kPix;
+    {  // x-hat = y - mean in place (rows past the tile stay as staged: nothing reads their result)
+      const float4 mu = ld4(vmean + 4 * sq);
+      for (int p = tid / Q; p < tpix; p += DP) {
+        float4 v = ld4(xb + p * KS + 4 * sq);
+        v = make_float4(v.x - mu.x, v.y - mu.y, v.z - mu.z, v.w - mu.w);
+        st4(xb + p * KS + 4 * sq, v);
       }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], wv[j], acc[i][j]);
     }
-    float g[8][NJ];
+    __syncthreads();  // x-hat complete
+
+    // lin - b' = x-hat . W' over the input channels below C (W's rows past C are zeros)
+    float acc[MI][8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int p = pg + 16 * i, co = cg + 16 * j;
-        g[i][j] = 0.0f;
-        if (p < tpix && co < C) {
-          const float xn = xs[p * CP + co];
-          g[i][j] = (acc[i][j] + s_gb[co]) * sigmoidf(xn);
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    {
+      const float* xa = xb + pg * KS;
+      const float* wc = ws + 4 * cg;
+      for (int kq = 0; kq < nq; ++kq) {
+        float4 a[MI];
+#pragma unroll
+        for (int i = 0; i < MI; ++i) a[i] = ld4(xa + i * PG * KS + 4 * kq);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float* wr = wc + (4 * kq + kk) * CP;
+          const float4 b0 = ld4(wr), b1 = ld4(wr + H);
+          const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+          for (int i = 0; i < MI; ++i) {
+            const float av = at(a[i], kk);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
+          }
         }
       }
-    __syncthreads();  // every xn read; overwrite the slab with g
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int p = pg + 16 * i, co = cg + 16 * j;
-        if (p < tpix && co < C) xs[p * CP + co] = g[i][j];
-      }
-    __syncthreads();
-    if (dr.mode != 0) {
-      for (int e = 4 * tid; e < tpix * C; e += 4 * kThreads) {
-        const int p = e / C, c = e % C;
-        mask4_at(xs + p * CP + c, tp.pixel(p) * C + c, seed, dr);
-      }
-      __syncthreads();
     }
 
-    const int wcols = tp.fcols / pf;
-    const int n_out = (tp.trows / pt) * wcols * C;
-    for (int o = tid; o < n_out; o += kThreads) {
-      const int c = o % C, win = o / C;
-      const int wf = win % wcols, wt = win / wcols;
-      float s = 0.0f;
-      for (int dt = 0; dt < pt; ++dt)
-        for (int df = 0; df < pf; ++df)
-          s += xs[((wt * pt + dt) * tp.fcols + wf * pf + df) * CP + c];
-      out[(((long long)b * Tp + tp.t0 / pt + wt) * Fp + tp.f0 / pf + wf) * C + c] = s * inv_win;
+    // per element: g = (lin + b') * sigmoid(x-hat G + bias), masked four channels a Philox call
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c0 = h * H + 4 * cg;
+      float4 gb = ld4(vgb + c0), gn = ld4(vgain + c0), of = ld4(vbias + c0);
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const int p = pg + PG * i;
+        float4 yv = ld4(xb + p * KS + c0);
+        float4 g;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float xn = fmaf(at(yv, e), at(gn, e), at(of, e));
+          at(g, e) = (acc[i][4 * h + e] + at(gb, e)) * __fdividef(1.0f, 1.0f + __expf(-xn));
+        }
+        if (dr.mode != 0 && p < tpix && c0 < C) {
+          const uint4 r = keep_values4((long long)tab_y[p] * C + c0, seed, dr.mode);
+          g.x *= r.x >= dr.threshold ? dr.keep_scale : 0.0f;
+          g.y *= r.y >= dr.threshold ? dr.keep_scale : 0.0f;
+          g.z *= r.z >= dr.threshold ? dr.keep_scale : 0.0f;
+          g.w *= r.w >= dr.threshold ? dr.keep_scale : 0.0f;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][4 * h + e] = at(g, e);
+      }
+    }
+    // a window's four channels, summed, into out
+    auto put = [&](int wr, int wc, int c0, float4 v) {
+      float* dst = out + (((long long)b * Tp + tp.t0 / pt + wr) * Fp + tp.f0 / pf + wc) * C + c0;
+      v = make_float4(v.x * inv_win, v.y * inv_win, v.z * inv_win, v.w * inv_win);
+      if (vec) {
+        st4(dst, v);
+      } else {
+        dst[0] = v.x;
+        dst[1] = v.y;
+        dst[2] = v.z;
+        dst[3] = v.w;
+      }
+    };
+    bool by_shuffles = false;
+    if constexpr (PG == 32 && CG == 8) by_shuffles = pt == 2 && pf == 4 && tp.trows == 2 && tp.fcols == 2 * PG;
+    if (by_shuffles) {  // block 1's geometry: rows i / 2 of column pg + 32 (i % 2), then the warp's four columns
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c0 = h * H + 4 * cg;
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          float4 v;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float u = acc[k][4 * h + e] + acc[k + 2][4 * h + e];
+            u += __shfl_xor_sync(0xffffffffu, u, 8);
+            u += __shfl_xor_sync(0xffffffffu, u, 16);
+            at(v, e) = u;
+          }
+          if ((pg & 3) == 0 && c0 < C) put(0, pg / 4 + 8 * k, c0, v);
+        }
+      }
+    } else {
+      __syncthreads();  // every read of y done: g goes over it
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+          st4(xb + (pg + PG * i) * KS + h * H + 4 * cg,
+              make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]));
+      __syncthreads();  // g complete
+
+      // the pool: window w = (wr, wc) of the tile's (trows / pt) x (fcols / pf), carried by counters
+      if (4 * sq < C) {
+        const int wcols = tp.fcols / pf, n_win = (tp.trows / pt) * wcols;
+        const int dwr = DP / wcols, dwc = DP % wcols;
+        int w = tid / Q;
+        int wr = w / wcols, wc = w % wcols;
+        for (; w < n_win; w += DP) {
+          const float* src = xb + (wr * pt * tp.fcols + wc * pf) * KS + 4 * sq;
+          float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          for (int dt = 0; dt < pt; ++dt)
+            for (int df = 0; df < pf; ++df) {
+              const float4 u = ld4(src + (dt * tp.fcols + df) * KS);
+              v.x += u.x;
+              v.y += u.y;
+              v.z += u.z;
+              v.w += u.w;
+            }
+          put(wr, wc, 4 * sq, v);
+          wc += dwc;
+          wr += dwr;
+          if (wc >= wcols) {
+            wc -= wcols;
+            ++wr;
+          }
+        }
+      }
     }
   }
 }
@@ -401,50 +623,6 @@ __device__ __forceinline__ void tile_dxn(float (&acc)[8][NJ], float* xs, float* 
   }
 }
 
-// ---------------------------------------- backward, float32: register tiles
-
-// Channel plan of the float32 reduce pass for C <= 16 * NJ (NJ = 4: C <= 64,
-// NJ = 8: C <= 128); channels past C are zeros in every shared operand.
-template <int NJ>
-struct RedPlan {
-  static constexpr int CP = 16 * NJ;              // padded channels: 64 or 128
-  static constexpr int H = CP / 2;                // a thread's second channel half starts here
-  static constexpr int CG = CP / 8;               // channel groups of a product tile: 8 or 16
-  static constexpr int PG = kThreads / CG;        // pixel groups: 32 or 16
-  static constexpr int MI = kPix / PG;            // pixels a thread: 4 or 8
-  static constexpr int KS = CP + 4;               // row stride of the tiles: an odd number of 16-byte units
-  static constexpr int DG = kThreads / (CG * CG); // dW groups, each a share of a tile's pixels: 4 or 1
-  static_assert(CG % 8 == 0 && DG >= 1, "a quarter warp spans eight channel groups");
-};
-
-// Dynamic shared memory of the float32 reduce pass (ops/fused_block.reduce_plan
-// computes the same): `buffers` (1 or 2) x-hat tiles [kPix][KS], the dlin
-// tile [kPix][KS], `buffers` dout tiles [drows][KS] (drows = 0: dout is read
-// from device memory), W [CP][CP], seven vectors [CP], two tables [kPix] (int).
-template <int NJ>
-size_t red_f32_smem(int buffers, int drows) {
-  using P = RedPlan<NJ>;
-  return sizeof(float) * ((size_t)(buffers + 1) * kPix * P::KS + (size_t)buffers * drows * P::KS +
-                          P::CP * P::CP + 7 * P::CP + 2 * kPix);
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
-__device__ __forceinline__ float& at(float4& v, int i) { return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w; }
-
-// Four neighbouring floats from device memory into 16 aligned bytes of shared
-// memory by cp.async: one 16-byte copy where vec (the tensor is 16-byte
-// aligned; C % 4 == 0 keeps every row so), else four of 4 bytes; zeros
-// unless ok.
-__device__ __forceinline__ void stage_row4(float* dst, const float* src, bool ok, bool vec) {
-  if (vec) {
-    cp_async16(dst, src, ok ? 16 : 0);
-    return;
-  }
-#pragma unroll
-  for (int e = 0; e < 4; ++e) cp_async4(dst + e, ok ? src + e : src, ok ? 4 : 0);
-}
-
 // The float32 reduce pass. Per tile of up to 128 pixels (whole pooling
 // windows): y and the tile's rows of dout are staged by cp.async (the next
 // tile's while this one multiplies, where two buffers fit), y normalised in
@@ -518,23 +696,7 @@ __device__ __forceinline__ void bwd_reduce_f32(const float* __restrict__ y, cons
   const int sq = tid % Q;
   auto stage = [&](int tile, int buf) {
     const TilePos tp = tile_pos(tile, b, T, F, tl);
-    const int tpix = tp.trows * tp.fcols;
-    {
-      int p = tid / Q;
-      int pr = p / tp.fcols, pc = p % tp.fcols;
-      const int dpr = DP / tp.fcols, dpc = DP % tp.fcols;
-      float* xb = xs + buf * kPix * KS + 4 * sq;
-      for (; p < kPix; p += DP) {
-        const bool ok = p < tpix && 4 * sq < C;
-        stage_row4(xb + p * KS, ok ? y + ((tp.row0 + pr) * F + tp.f0 + pc) * C + 4 * sq : y, ok, vec);
-        pc += dpc;
-        pr += dpr;
-        if (pc >= tp.fcols) {
-          pc -= tp.fcols;
-          ++pr;
-        }
-      }
-    }
+    stage_y_f32<CP>(xs + buf * kPix * KS, y, tp, F, C, vec);
     if (drows > 0) {  // window w = (w / wcols, w % wcols) of the tile's pooled rows
       const int wcols = tp.fcols / pf, nw = (tp.trows / pt) * wcols;
       int w = tid / Q;
@@ -1579,10 +1741,6 @@ stats_kernel(const TY* __restrict__ y, double* __restrict__ partials, long long 
   }
 }
 
-size_t fwd_smem(int C) {
-  return sizeof(float) * ((size_t)kPix * (C + 1) + (size_t)C * C + 5 * (size_t)C);
-}
-
 // The recompute fixup: xn and dlin tiles, W rows padded, five vectors, a and b2.
 size_t fixup_recompute_smem(int C) {
   return sizeof(float) * (2 * (size_t)kPix * (C + 1) + (size_t)C * (C + 1) + 7 * (size_t)C);
@@ -1603,22 +1761,30 @@ dim3 block_grid(const BlockArgs& a) {
   return dim3((n_tiles + a.tiles_per_block - 1) / a.tiles_per_block, a.B);
 }
 
-template <int NJ>
-int launch_fwd(const BlockArgs& a, void* out, cudaStream_t stream) {
-  const size_t smem = fwd_smem(a.C);
-  cudaError_t err = cudaFuncSetAttribute(bn_glu_pool_kernel<NJ>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  bn_glu_pool_kernel<NJ><<<block_grid(a), kThreads, smem, stream>>>(
-      static_cast<const float*>(a.y), a.scale, a.bias, a.mean, a.var, a.glu_w, a.glu_b,
-      static_cast<float*>(out), a.T, a.F, a.C, a.pt, a.pf, a.eps, tile_of(a.F, a.pt, a.pf),
-      a.tiles_per_block, a.dr);
-  return (int)cudaGetLastError();
-}
-
 bool aligned(const void* p, int bytes) { return (reinterpret_cast<uintptr_t>(p) % bytes) == 0; }
 bool aligned16(const void* p) { return aligned(p, 16); }
+
+// The float32 forward's shared memory set; its blocks an SM into *resident
+// where that is not null (registers and shared memory).
+template <int NJ>
+cudaError_t fwd_f32_attrs(int* resident) {
+  constexpr size_t smem = fwd_f32_smem<NJ>();
+  cudaError_t err = cudaFuncSetAttribute(bn_glu_pool_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess || resident == nullptr) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, bn_glu_pool_kernel<NJ>, FwdPlan<NJ>::NT, smem);
+}
+
+template <int NJ>
+int launch_fwd(const BlockArgs& a, void* out, cudaStream_t stream) {
+  const cudaError_t err = fwd_f32_attrs<NJ>(nullptr);
+  if (err != cudaSuccess) return (int)err;
+  bn_glu_pool_kernel<NJ><<<block_grid(a), FwdPlan<NJ>::NT, fwd_f32_smem<NJ>(), stream>>>(
+      static_cast<const float*>(a.y), a.scale, a.bias, a.mean, a.var, a.glu_w, a.glu_b, static_cast<float*>(out),
+      a.T, a.F, a.C, a.pt, a.pf, a.eps, tile_of(a.F, a.pt, a.pf), a.tiles_per_block, a.dr,
+      (int)(aligned16(a.y) && aligned16(out)));
+  return (int)cudaGetLastError();
+}
 
 // How the bfloat16 kernels copy rows of C channels: 2, 16-byte cp.async (C % 8
 // == 0, every pointer 16-byte aligned); 1, 8-byte cp.async (8-byte aligned);
@@ -1739,6 +1905,14 @@ extern "C" {
 // which tile whole pooling rows: their gates keep pt * F <= 128, where the
 // two tilings are one.
 int dcase_bn_glu_pool_tiles(int T, int F, int pt, int pf) { return tiles_per_clip(T, F, pt, pf); }
+
+// Blocks of the float32 forward that one SM of the current device holds at
+// C channels (0 on an error); the wrapper sizes its grid from it.
+int dcase_bn_glu_pool_resident(int C) {
+  int resident = 0;
+  const cudaError_t err = C <= 64 ? fwd_f32_attrs<4>(&resident) : fwd_f32_attrs<8>(&resident);
+  return err == cudaSuccess ? resident : 0;
+}
 
 // y: [B, T, F, C]; scale, bias, mean, var, glu_b: [C]; glu_w: [C, C] (in,
 // out); out: [B, T/pt, F/pf, C]; contiguous; y and out float32, or

@@ -52,6 +52,7 @@ SIGNATURES = {
     "dcase_fused_stft_mel_onedot": (_I, [_P, _I, _LL, _LL, _P, _P, _P, _P, _P, _I, _P] + [_I] * 6 + [_P]),
     "dcase_conv3x3": (_I, [_P, _P, _P, _P] + [_I] * 9 + [_P]),
     "dcase_bn_glu_pool_tiles": (_I, [_I, _I, _I, _I]),
+    "dcase_bn_glu_pool_resident": (_I, [_I]),
     "dcase_conv3x3_wgrad": (_I, [_P, _P, _P, _P] + [_I] * 8 + [_P]),
     # dropout arguments of every kernel that drops: seed, threshold, keep_scale, packed
     "dcase_bn_glu_pool": (_I, [_P] * 8 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _I, _P]),

@@ -74,6 +74,7 @@ regenerates the forward's mask whatever the constants are by then.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Optional, Tuple
 
@@ -82,7 +83,7 @@ import torch
 from dcase2019_task4_tpu_torch.ops import _build
 
 _TILE_PIXELS = 128  # csrc/fused_block.cu kPix
-_TARGET_BLOCKS = 1056  # forward: 8 resident blocks on each of the H100's 132 SMs
+_TARGET_BLOCKS = 1056  # bfloat16 forward: 8 resident blocks on each of the H100's 132 SMs
 _TARGET_BLOCKS_BWD = 528  # backward and statistics: partial slots folded in fixed order
 
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
@@ -384,6 +385,30 @@ def reduce_plan(channels: int, pool):
     raise ValueError(f"the float32 reduce pass does not fit {channels} channels")
 
 
+def forward_plan(channels: int) -> int:
+    """The float32 forward's shared memory at `channels` C, in bytes: the
+    channels padded to CP = 64 (C ≤ 64) or 128 in rows of CP + 4 floats; two
+    y tiles [128] rows (the next tile loads while one multiplies) with their
+    pixel tables [128] of int32; W' = diag(inv·γ)·W [CP][CP] and four
+    per-channel vectors [CP] (csrc/fused_block.cu fwd_f32_smem). The pool
+    does not enter it: each window is summed from the tile or across a warp.
+    86 KB at C ≤ 64 (two blocks an SM), 199 KB at C ≤ 128."""
+    cp = 64 if channels <= 64 else 128
+    return 4 * (2 * _TILE_PIXELS * (cp + 5) + cp * cp + 4 * cp)
+
+
+@functools.cache
+def _forward_blocks(index: int, channels: int) -> int:
+    """Blocks of the float32 forward that device `index` holds at once: what
+    one SM holds (registers and shared memory, from the CUDA occupancy
+    calculator) times its SMs."""
+    with torch.cuda.device(index):
+        resident = _build.library().dcase_bn_glu_pool_resident(channels)
+    if resident < 1:
+        raise _build.KernelError(f"the float32 forward does not fit an SM at {channels} channels")
+    return resident * _build.sm_count(index)
+
+
 def bf16_reduce_plan(channels: int, pool):
     """The bfloat16 reduce pass's shared memory at `channels` C and `pool`
     (pt, pf) → (buffers, drows, bytes), the channels padded to CP = 64 (C ≤
@@ -428,14 +453,15 @@ def fused_bn_glu_pool(y, scale, bias, mean, var, glu_w, glu_b, pool, eps, *, rat
     (s, bi, mu, va, gb), w = _vectors(y, (scale, bias, mean, var, glu_b), glu_w)
     pt, pf = pool
     lib = _build.library()
+    bf16 = y.dtype == torch.bfloat16
+    target = _TARGET_BLOCKS if bf16 else _forward_blocks(y.device.index, C)
     out = torch.empty((B, T // pt, Fq // pf, C), dtype=y.dtype, device=y.device)
     seed_t = _seed_tensor(seed, y.device)
     status = lib.dcase_bn_glu_pool(
         y.data_ptr(), s.data_ptr(), bi.data_ptr(), mu.data_ptr(), va.data_ptr(),
         w.data_ptr(), gb.data_ptr(), out.data_ptr(), B, T, Fq, C, pt, pf, float(eps),
         seed_t.data_ptr(), threshold, keep_scale, packed,
-        _tiles_per_block(lib.dcase_bn_glu_pool_tiles(T, Fq, pt, pf), B, _TARGET_BLOCKS),
-        int(y.dtype == torch.bfloat16),
+        _tiles_per_block(lib.dcase_bn_glu_pool_tiles(T, Fq, pt, pf), B, target), int(bf16),
         _build.stream_handle(y.device),
     )
     _build.check(status, "fused_bn_glu_pool")

@@ -34,7 +34,10 @@ def _inputs(shape, seed):
     )
 
 
-@pytest.mark.parametrize("shape", [(2, 96, 64, 16), (2, 48, 16, 16), (2, 24, 4, 16)])
+# C = 16 at the flagship's three block geometries; the flagship's C = 64 at
+# them (tiny T), and C = 20 (not a multiple of 8)
+@pytest.mark.parametrize("shape", [(2, 96, 64, 16), (2, 48, 16, 16), (2, 24, 4, 16), (1, 8, 64, 64), (1, 16, 16, 64),
+                                   (2, 8, 4, 20)])
 def test_eval_block_matches_jax_interpret(shape):
     y, scale, bias, mean, var, w, b = _inputs(shape, sum(shape))
     ref = np.asarray(jfb.fused_bn_glu_dropout_pool(
@@ -160,3 +163,37 @@ def test_reduce_plan_matches_the_kernel_source():
     assert "static constexpr int KS = CP + 4;" in src
     assert ("(size_t)(buffers + 1) * kPix * P::KS + (size_t)buffers * drows * P::KS +\n"
             "                          P::CP * P::CP + 7 * P::CP + 2 * kPix") in src
+
+
+def test_forward_plan_fits_every_admitted_width():
+    """The float32 forward's shared memory (two y tiles) fits a block at
+    every C and pool the fused block admits (C ≤ 128, C % 4 == 0, pt·pf ≤
+    128); the bytes are the kernel's layout (csrc/fused_block.cu
+    fwd_f32_smem), the pool does not enter them."""
+    for C in range(4, 129, 4):
+        for pool in ((2, 4), (2, 8), (2, 2), (1, 1), (4, 4), (8, 16)):
+            assert tfb.applicable((1, 8 * pool[0], 8 * pool[1], C), pool)
+        cp = 64 if C <= 64 else 128
+        nbytes = tfb.forward_plan(C)
+        assert nbytes == 4 * (2 * (128 * (cp + 4) + 128) + cp * cp + 4 * cp) <= tfb._MAX_SHARED
+
+
+@pytest.mark.parametrize("C,want", [(64, 88064), (20, 88064), (4, 88064), (128, 203776), (100, 203776), (68, 203776)])
+def test_forward_plan_at_the_main_path(C, want):
+    """The flagship's C = 64 takes 88064 bytes: two blocks an SM (228 KB);
+    C = 128 (and 100, the <8> plan) 203776 bytes: one."""
+    assert tfb.forward_plan(C) == want
+
+
+def test_forward_plan_matches_the_kernel_source():
+    from pathlib import Path
+
+    src = (Path(tfb.__file__).parent.parent / "csrc" / "fused_block.cu").read_text()
+    for line in ("return sizeof(float) * (2 * (kPix * P::KS + kPix) + P::CP * P::CP + 4 * P::CP);",
+                 "static constexpr int KS = CP + 4;", "static constexpr int CP = 16 * NJ;",
+                 "__launch_bounds__(FwdPlan<NJ>::NT, FwdPlan<NJ>::MIN_BLOCKS)\nbn_glu_pool_kernel(",
+                 "static constexpr int MIN_BLOCKS = NJ == 4 ? 2 : 1;",
+                 "C <= 64 ? launch_fwd<4>(a, out, st) : launch_fwd<8>(a, out, st)",
+                 "static_assert(fwd_f32_smem<8>() <= 232448,"):
+        assert line in src, line
+    assert f"static_assert(fwd_f32_smem<8>() <= {tfb._MAX_SHARED}," in src

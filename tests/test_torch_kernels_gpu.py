@@ -7,7 +7,9 @@ when torch sees no CUDA device. On a GPU machine:
 
 Shapes are small and odd-sized (partial tiles, C = 16, 64 and 128) to
 exercise the kernels' bounds checks; chip_smoke.py covers the flagship
-shapes. Forward, train-mode dropout (mask bit-equal to the plain Philox),
+shapes. Forward (the float32 kernel's register tiles also at C 12 to 128,
+F = 128 window tiles, pools (2, 2) to (4, 4), ragged last tiles, both
+draws and an unaligned y), train-mode dropout (mask bit-equal to the plain Philox),
 batch statistics, both backward passes (the float32 reduce pass also at C
 4 to 128, partial and window tiles, both draws and the recompute knob),
 conv dx and wgrad (the float32 forward and dx also at F 1 to 128, C 16 to
@@ -140,7 +142,8 @@ def test_conv2d_packed(cuda, shape):
     torch.testing.assert_close(out, packed_conv.conv2d_reference(params, x), rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("shape", [(2, 96, 64, 16), (2, 24, 4, 16), (1, 14, 8, 64), (1, 8, 16, 128)])
+@pytest.mark.parametrize("shape", [(2, 96, 64, 16), (2, 24, 4, 16), (1, 14, 8, 64), (1, 8, 16, 128), (1, 14, 16, 20),
+                                   (2, 10, 24, 100)])
 def test_fused_bn_glu_pool(cuda, shape):
     rng = np.random.default_rng(sum(shape))
     C = shape[-1]
@@ -799,6 +802,71 @@ def test_k2_bf16_packed_draw_recompute_pass_and_unaligned_y(cuda, shape, pool):
     again = fb.bwd_reduce(unaligned(y), unaligned(dout), scale, bias, mean, var, w, b, pool, 1e-3, recompute=False,
                           **kw)
     assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+# K2f's float32 register tiles: C = 20 and 12 (padded inside a 64-channel tile), C = 100 and 128 (the <8> plan),
+# F = 64 and 128 at pool (2, 4) (tiles of one row pair: the pool by shuffles at C <= 64), pools (2, 2), (2, 8) and
+# (4, 4) (F = 40: a ragged last column tile), ragged last time tiles (T = 74 of 8-row tiles, 26 of 32, 10 of 4)
+FWD_F32_EDGES = [((1, 14, 16, 20), (2, 4)), ((2, 10, 24, 100), (2, 4)), ((1, 6, 128, 64), (2, 4)),
+                 ((2, 6, 64, 20), (2, 4)),
+                 ((2, 12, 32, 64), (2, 2)), ((1, 10, 64, 128), (2, 8)), ((1, 8, 40, 12), (4, 4)),
+                 ((1, 74, 16, 64), (2, 4)), ((3, 26, 4, 16), (2, 4))]
+
+
+@pytest.mark.parametrize("shape,pool", FWD_F32_EDGES)
+def test_fused_bn_glu_pool_float32_tiles(cuda, shape, pool):
+    """The float32 forward in eval mode and with both draws against the
+    plain version (1e-5), each launch counted; the kept elements counted by
+    the kernel equal to `dropout_keep_mask`'s; and on a y whose storage
+    starts one element in (4-byte cp.async copies) bit-equal to its run on
+    the aligned y."""
+    rng = np.random.default_rng(sum(shape) + sum(pool))
+    C = shape[-1]
+    y = _t(rng.standard_normal(shape), cuda)
+    args = _block_args(rng, C, cuda)
+    fn = fused_block.fused_bn_glu_pool
+    seed = torch.tensor([2718 + shape[1]])
+    unit = (torch.ones(C, device=cuda), torch.zeros(C, device=cuda), torch.zeros(C, device=cuda),
+            torch.ones(C, device=cuda), torch.zeros(C, C, device=cuda), torch.ones(C, device=cuda))
+    buf = torch.empty(y.numel() + 1, device=cuda)
+    unaligned = buf[1:].view(shape)
+    unaligned.copy_(y)
+    assert unaligned.is_contiguous() and unaligned.data_ptr() % 16 != 0
+    for rate, pack in ((0.0, False), (0.5, False), (0.5, True)):
+        before = (fn.launches_eval, fn.launches_train, fn.launches_packed)
+        out = fn(y, *args, pool, 1e-3, rate=rate, seed=seed, pack_bits=pack)
+        assert (fn.launches_eval, fn.launches_train, fn.launches_packed) == \
+            (before[0] + (rate == 0), before[1] + (rate > 0), before[2] + pack)
+        mask = fused_block.dropout_keep_mask(seed, shape, rate, device=cuda, pack_bits=pack) if rate else None
+        ref = fused_block.reference_block(y, *args, pool, 1e-3, mask, 1.0 - rate)
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+        assert torch.equal(fn(unaligned, *args, pool, 1e-3, rate=rate, seed=seed, pack_bits=pack), out)
+        if rate:  # y = 0, a GLU of weight 0 and bias 1: g = mask exactly, the pooled sum counts the kept
+            zeros = fn(torch.zeros(shape, device=cuda), *unit, pool, 1e-3, rate=rate, seed=seed, pack_bits=pack)
+            assert round(zeros.double().sum().item() * pool[0] * pool[1]) == int(mask.sum(dtype=torch.float64).item())
+
+
+# y with a per-channel offset of several std (a conv output's bias): (offset, std) of 20 and 3, and 100 and 1
+@pytest.mark.parametrize("offset,std", [(20.0, 3.0), (100.0, 1.0)])
+@pytest.mark.parametrize("shape,pool", [((2, 8, 64, 64), (2, 4)), ((1, 10, 64, 128), (2, 8)), ((1, 14, 16, 20), (2, 4))])
+def test_fused_bn_glu_pool_float32_channel_offset(cuda, shape, pool, offset, std):
+    """The float32 forward, eval and train, where y's mean lies many std from
+    0 and BN's mean and var are y's own: held to the plain version at the
+    same 1e-5 (the mean is subtracted before the product, so no float32 sum
+    cancels it)."""
+    rng = np.random.default_rng(sum(shape) + int(offset))
+    C = shape[-1]
+    yn = offset + std * rng.standard_normal(shape) * rng.uniform(0.5, 2.0, C)
+    y = _t(yn, cuda)
+    scale, bias, _, _, w, b = _block_args(rng, C, cuda)
+    mean, var = _t(yn.mean(axis=(0, 1, 2)), cuda), _t(yn.var(axis=(0, 1, 2)), cuda)
+    args = (scale, bias, mean, var, w, b)
+    seed = torch.tensor([3141 + shape[1]])
+    for rate in (0.0, 0.5):
+        out = fused_block.fused_bn_glu_pool(y, *args, pool, 1e-3, rate=rate, seed=seed)
+        mask = fused_block.dropout_keep_mask(seed, shape, rate, device=cuda) if rate else None
+        ref = fused_block.reference_block(y, *args, pool, 1e-3, mask, 1.0 - rate)
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
 
 
 def test_fused_block_float32_in_window_tiles(cuda):

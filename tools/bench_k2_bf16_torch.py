@@ -96,10 +96,11 @@ ABLATIONS = (
 )
 
 
-def ablation_libraries():
-    """Build each ABLATIONS variant of csrc/fused_block.cu alone into its own
-    library under the build directory, all compilers at once; → [(name,
-    ctypes library or None, ptxas lines)]."""
+def ablation_libraries(ablations=ABLATIONS, kernel="bf16_kernel"):
+    """Build each variant of csrc/fused_block.cu in `ablations` (ABLATIONS'
+    form) alone into its own library under the build directory, all
+    compilers at once; → [(name, ctypes library or None, ptxas lines of the
+    kernels whose name holds `kernel`)]."""
     import ctypes
     import shutil
 
@@ -107,7 +108,7 @@ def ablation_libraries():
 
     text = (_build.CSRC_DIR / "fused_block.cu").read_text()
     jobs = []
-    for k, (name, edits) in enumerate(ABLATIONS):
+    for k, (name, edits) in enumerate(ablations):
         work = _build.BUILD_DIR / "ablations" / str(k)
         if work.exists():
             shutil.rmtree(work)
@@ -127,7 +128,7 @@ def ablation_libraries():
         log, _ = proc.communicate()
         lines = log.splitlines()
         ptxas = [" ".join(s.strip() for s in lines[i:i + 3] if "registers" in s or "spill" in s)
-                 for i, line in enumerate(lines) if "Compiling entry" in line and "bf16_kernel" in line]
+                 for i, line in enumerate(lines) if "Compiling entry" in line and kernel in line]
         lib = None
         if proc.returncode == 0:
             lib = ctypes.CDLL(str(work / "lib.so"))

@@ -155,7 +155,7 @@ def main() -> int:
     rows = {name: cs.Row() for name in cs.KERNELS}
     rng = np.random.default_rng(cs.SEED)
     cs.k3_f32_kernels(device, rows, rng, which=("conv",))
-    cs.k2_f32_kernels(device, rows, rng, only_reduce=True)
+    cs.k2_f32_kernels(device, rows, rng, only="reduce")
     print("row: device ms (events ms), bound ms, share of bound, library device ms")
     for name, row in rows.items():
         if not row.shapes:
