@@ -490,31 +490,33 @@ def shown(ms, digits: int = 4) -> str:
 PROFILER = {"lost": False}  # set once every try of one reading came back without its device events
 
 
-def profiled(fn, with_host: bool = False, complete=None, tries: int = 3):
+def profiled(fn, with_host: bool = False, complete=None, tries: int = 3, retry: bool = False):
     """`fn()` under torch.profiler → the profile, or None. A trace can come
     back without some or all of its device events (seen on an H100 in three
     of nine runs of this script: empty traces, and traces that held a third
     of their kernels). One that holds no device event, or that
     `complete(prof)` rejects, is taken again, `tries` times in all. When all
     of them fail the reading is given up as None ("not measured" in the
-    lines that print it) and later readings get one try each: the profiler
-    only adds readings beside the CUDA-event times, and no check of a kernel
-    or a path rests on it."""
+    lines that print it) and later readings get one try each (all `tries`
+    with `retry`): the profiler only adds readings beside the CUDA-event
+    times, and no check of a kernel or a path rests on it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if with_host else [])
-    tries = 1 if PROFILER["lost"] else tries
+    tries = 1 if PROFILER["lost"] and not retry else tries
     for attempt in range(tries):
         torch.cuda.synchronize()
         with profile(activities=activities) as prof:
             fn()
             torch.cuda.synchronize()
-        if any(e.device_type == DeviceType.CUDA and event_us(e) > 0 for e in prof.events()) \
-                and (complete is None or complete(prof)):
+        on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA and event_us(e) > 0]
+        if on_device and (complete is None or complete(prof)):
             return prof
-        print(f"  torch.profiler lost device events (attempt {attempt + 1} of {tries})")
+        first = min(on_device, key=lambda e: e.time_range.start).name[:40] if on_device else ""
+        print(f"  torch.profiler lost device events (attempt {attempt + 1} of {tries}: {len(on_device)} device events"
+              f"{', not every kernel (' + complete.__name__ + '), the first ' + first if on_device else ''})")
     PROFILER["lost"] = True
     print("  torch.profiler recorded no device time, or not every kernel: this reading is not measured")
     return None
@@ -1442,14 +1444,7 @@ def knob_kernels(device, rows, rng):
                       lambda: fb.bwd_reduce_reference(y, dout, *vecs, pool, eps, mask, keep)[1:],
                       rtol_of_max=1e-4, repeat=True)
         rows["bwd_reduce_nodyp"].add(shape, res, y_bytes + out_bytes + 2 * small, 3 * mix_ops + 20.0 * y.numel())
-        _, _, _, s1, s2 = fb.bwd_reduce(y, dout, *vecs, pool, eps, recompute=True, **packed)
-        a, b2 = fb.bwd_coefficients(scale, var, eps, s1, s2, pixels)
-        res = compare(f"K2b bwd_fixup_recompute, packed draw {shape}",
-                      lambda: fb.bwd_fixup_recompute(y, dout, *vecs, a, b2, pool, eps, **packed),
-                      lambda: fb.bwd_fixup_recompute_reference(y, dout, *vecs, a, b2, pool, eps, mask, keep),
-                      rtol_of_max=1e-4, repeat=True)
-        rows["bwd_fixup_recompute"].add(shape, res, 2 * y_bytes + out_bytes + small + 2 * C * 4,
-                                        2 * mix_ops + 22.0 * y.numel())
+        fixup_recompute_row(rows["bwd_fixup_recompute"], y, dout, vecs, pool, eps, rate, seed, mask)
 
         def function_grads(recompute):
             leaves = [v.clone().requires_grad_(True) for v in (y, scale, bias, w, gb)]
@@ -1759,6 +1754,42 @@ def entry_bf16_kernels(device, rows, rng):
     torch.cuda.empty_cache()
 
 
+def fixup_recompute_row(row, y, dout, vecs, pool, eps, rate, seed, mask):
+    """K2b's recompute fixup at one shape, as the knobs paths run it (the
+    packed draw at `rate`, `mask` its keep-mask): a and b2 from the first
+    pass without dy_partial, then dy against `bwd_fixup_recompute_reference`
+    (float32: 1e-4 of max; bfloat16: rounded once, one ulp plus the slack of
+    dxn's two channel products and of dy's three float32 terms), a repeat
+    bit for bit; added to `row` with its bytes (y and dout in, dy out, the
+    parameters) and operations (two channel products, 22 an element: up to
+    dxn 17 as in `knob_kernels`, dy 5)."""
+    import torch
+
+    from dcase2019_task4_tpu_torch.ops import fused_block as fb
+
+    scale, bias, mean, var, w, gb = vecs
+    B, T, Fq, C = y.shape
+    keep, bf16 = 1.0 - rate, y.dtype == torch.bfloat16
+    packed = dict(rate=rate, seed=seed, pack_bits=True)
+    _, _, _, s1, s2 = fb.bwd_reduce(y, dout, *vecs, pool, eps, recompute=True, **packed)
+    a, b2 = fb.bwd_coefficients(scale, var, eps, s1, s2, B * T * Fq)
+    tols = dict(rtol_of_max=1e-4)
+    if bf16:
+        ref = fb.bwd_fixup_recompute_reference(y, dout, *vecs, a, b2, pool, eps, mask, keep)
+        tols = dict(tols=[("ulp", dyp_slack(y, dout, scale, bias, mean, var, w, pool, eps, keep)
+                           + 4 * EPS32 * (ref.float().abs().max().item() + a.abs().max().item()
+                                          + (y.float() - mean).abs().max().item() * b2.abs().max().item()))])
+        del ref
+    res = compare(f"K2b bwd_fixup_recompute{' bf16' if bf16 else ''}, packed draw {list(y.shape)} pool {pool}",
+                  lambda: fb.bwd_fixup_recompute(y, dout, *vecs, a, b2, pool, eps, **packed),
+                  lambda: fb.bwd_fixup_recompute_reference(y, dout, *vecs, a, b2, pool, eps, mask, keep),
+                  repeat=True, **tols)
+    n_bytes = (2 * y.numel() + dout.numel()) * y.element_size() + (C * C + 7 * C) * 4
+    mix_ops, elementwise = 2.0 * B * T * Fq * C * C, 22.0 * y.numel()
+    row.add(list(y.shape), res, n_bytes, *((elementwise, 2 * mix_ops) if bf16 else (2 * mix_ops + elementwise,)))
+    return res
+
+
 def cold_fixup_device_ms(y, dyp, a, b2, mean, shape, l2_bytes: float = 50e6) -> Optional[float]:
     """Device time of K2b's fixup with its inputs out of the L2: the call
     walks in turn through copies of (y, dy_partial) that hold together more
@@ -1948,26 +1979,11 @@ def bf16_block_kernels(device, rows, rng, cfg, suffix: str = "", with_k3: bool =
         print(f"  K2b bwd_fixup bf16 {shape}: clone of dy_partial {clone_ms:.4f} ms taken off both times")
 
         # the recompute fixup (DCASE_FUSED_BWD_RECOMPUTE) with the packed draw, as
-        # the knobs paths run it: dy rounded once, from a and b2 of the first
-        # pass without dy_partial
-        packed = dict(rate=rate, seed=seed, pack_bits=True)
+        # the knobs paths run it
         pmask = fb.dropout_keep_mask(seed, y.shape, rate, device=device, pack_bits=True)
-        _, _, _, r1, r2 = fb.bwd_reduce(y, dout, scale, bias, mean, var, w, gb, pool, eps, recompute=True, **packed)
-        ra, rb = fb.bwd_coefficients(scale, var, eps, r1, r2, pixels)
-        rec_ref = fb.bwd_fixup_recompute_reference(y, dout, scale, bias, mean, var, w, gb, ra, rb, pool, eps, pmask,
-                                                   1.0 - rate)
-        rec_slack = (dyp_slack(y, dout, scale, bias, mean, var, w, pool, eps, 1.0 - rate)
-                     + 4 * EPS32 * (rec_ref.float().abs().max().item() + ra.abs().max().item()
-                                    + (y.float() - mean).abs().max().item() * rb.abs().max().item()))
-        res = compare(f"K2b bwd_fixup_recompute bf16, packed draw {shape} pool {pool}",
-                      lambda: fb.bwd_fixup_recompute(y, dout, scale, bias, mean, var, w, gb, ra, rb, pool, eps,
-                                                     **packed),
-                      lambda: fb.bwd_fixup_recompute_reference(y, dout, scale, bias, mean, var, w, gb, ra, rb, pool,
-                                                               eps, pmask, 1.0 - rate),
-                      tols=[("ulp", rec_slack)], repeat=True)
-        rows["bwd_fixup_recompute_bf16" + suffix].add(shape, res, 2 * y_bytes + out_bytes + small + 2 * C * 4,
-                                                      22.0 * y.numel(), 2 * mix_ops)
-        del pmask, rec_ref
+        fixup_recompute_row(rows["bwd_fixup_recompute_bf16" + suffix], y, dout, (scale, bias, mean, var, w, gb), pool,
+                            eps, rate, seed, pmask)
+        del pmask
 
         # the whole backward through the autograd Function against the formulas
         leaves = [v.clone().requires_grad_(True) for v in (y, scale, bias, w, gb)]
@@ -2675,16 +2691,17 @@ def seeded_state(cfg, dev):
 def step_device_ms(step, state, batch, generator, acc) -> Optional[float]:
     """What the card spends on one step: torch.profiler's sum over every
     kernel and copy of one traced step that holds K1 (`holds_k1`), opened
-    by an uncounted spin kernel; None when no trace held it."""
+    by an uncounted spin kernel; a trace without it is taken again, up to
+    five times even after another reading was lost (the knobs steps' device
+    time went unread in two PRs); None when no trace held it."""
     import torch
     from torch.autograd import DeviceType
 
     def spin_then_step():
-        torch.cuda._sleep(20000)
-        torch.cuda.synchronize()
+        open_trace()
         step(state, batch, generator, acc)
 
-    prof = profiled(spin_then_step, with_host=True, complete=holds_k1)
+    prof = profiled(spin_then_step, with_host=True, complete=holds_k1, tries=5, retry=True)
     if prof is None:
         return None
     return sum(event_us(e) for e in prof.events()
@@ -2897,6 +2914,25 @@ def block1_device_ms(step, state, batch, generator, acc, path: str, card: str) -
     return total
 
 
+# The spin kernels that open a step's trace, uncounted. Late in a run of this
+# script on an H100 the traces of a step lost their first records: behind one
+# spin of 20000 cycles every trace (422-478 device events, five tries) lacked
+# the spin and K1, the step's first kernel, and behind one of 60 million
+# cycles (30 ms) two of seven readings still did; so the first records are
+# spent on spins, not on the step.
+STEP_SPINS = 32
+
+
+def open_trace():
+    """STEP_SPINS short spin kernels, then a wait for them: what a step's
+    trace may lose at its start."""
+    import torch
+
+    for _ in range(STEP_SPINS):
+        torch.cuda._sleep(20000)
+    torch.cuda.synchronize()
+
+
 def holds_k1(prof) -> bool:
     """Whether a step's trace holds its first kernel, K1 (either variant):
     traces of an H100 lost it in some runs and kept it in others, with and
@@ -2917,8 +2953,7 @@ def profile_step(step, state, batch, generator, acc, card: str, step_ms: float, 
     wall = []
 
     def timed_step():
-        torch.cuda._sleep(20000)  # opens the trace, uncounted, so that K1 is not its first kernel
-        torch.cuda.synchronize()
+        open_trace()  # so that K1 is not among the trace's first records
         t0 = time.perf_counter()
         step(state, batch, generator, acc)
         torch.cuda.synchronize()
@@ -2955,21 +2990,23 @@ def profile_step(step, state, batch, generator, acc, card: str, step_ms: float, 
 
 # K3's and K2's bfloat16 kernels: their products must be tensor-core instructions
 MMA_KERNELS = ("conv3x3_bf16_kernel", "conv3x3_wgrad_bf16_kernel", "bn_glu_pool_bf16_kernel",
-               "bn_glu_pool_bwd_bf16_kernel")
+               "bn_glu_pool_bwd_bf16_kernel", "bn_bwd_fixup_recompute_bf16_kernel")
 # the float32 products redesigned as register-tiled FP32 FMAs: FFMA, and no
 # tensor-core instruction (no TF32); bn_glu_pool_kernel is K2f's float32
-# forward alone and bn_glu_pool_bwd_kernel K2b's float32 reduce pass alone (no
-# name here is a substring of another listed name)
+# forward alone, bn_glu_pool_bwd_kernel K2b's float32 reduce pass alone and
+# bn_bwd_fixup_recompute_kernel its float32 recompute fixup alone (no name
+# here is a substring of another listed name)
 FFMA_KERNELS = ("fused_stft_mel_onedot_kernel", "conv3x3_wgrad_kernel", "conv3x3_nhwc_kernel",
-                "bn_glu_pool_bwd_kernel", "bn_glu_pool_kernel")
+                "bn_glu_pool_bwd_kernel", "bn_glu_pool_kernel", "bn_bwd_fixup_recompute_kernel")
 
 
 def check_mma(path):
     """Which instruction each product kernel was compiled to, read from the
     built library's machine code (`cuobjdump -sass`): K3's and K2's bfloat16
-    kernels must hold HGMMA (`wgmma`) or HMMA (`mma.sync`), the FP32 product kernels
-    (onedot K1, K3's float32 forward / dx and weight gradient, K2f's forward,
-    K2b's reduce pass) FFMA and neither HGMMA nor HMMA. FFMA counts the float32 FMAs on
+    kernels (K2b's recompute fixup too) must hold HGMMA (`wgmma`) or HMMA
+    (`mma.sync`), the FP32 product kernels (onedot K1, K3's float32 forward /
+    dx and weight gradient, K2f's forward, K2b's reduce pass and recompute
+    fixup) FFMA and neither HGMMA nor HMMA. FFMA counts the float32 FMAs on
     the CUDA cores."""
     from dcase2019_task4_tpu_torch.ops import _build
 

@@ -11,7 +11,9 @@
 //   bn_bwd_fixup_recompute_kernel
 //                            _bwd_fixup_recompute_kernel (second pass of
 //                            _bwd_pallas under DCASE_FUSED_BWD_RECOMPUTE=1,
-//                            whose first pass writes no dy_partial)
+//                            whose first pass writes no dy_partial), float32
+//                            y; bn_bwd_fixup_recompute_bf16_kernel on
+//                            bfloat16 y
 //   stats_kernel             _stats_kernel (batch_stats)
 //   fold_kernel (fold.cuh)   the carried accumulators of the sequential TPU
 //                            grid (dw_ref, db_ref, s1_ref, s2_ref, sum_ref)
@@ -31,8 +33,9 @@
 // and, once S1 and S2 are whole, dy = dy_partial - a - (y - mean) * b with
 // a = inv * scale * S1 / N, b = inv^2 * scale * S2 / N (the wrapper forms a
 // and b from the folded sums). The recompute variant stores no dy_partial:
-// its second pass rebuilds dxn from y and dout (the first pass's tile code,
-// tile_dxn) and writes dy = inv * scale * dxn - a - (y - mean) * b, rounded
+// its second pass rebuilds dxn from y and dout (the first pass's tile code:
+// lin_f32, gate_f32, dxn_f32 in float32; form_a, product_w, gate_bf16 in
+// bfloat16) and writes dy = inv * scale * dxn - a - (y - mean) * b, rounded
 // once, so in bfloat16 it is another function than the default, whose dy
 // rounds through a bfloat16 dy_partial.
 //
@@ -47,11 +50,13 @@
 //
 // At C = 128 the float32 forward's shared memory is 199 KB (two y buffers,
 // one block an SM; 86 KB and two blocks an SM at C = 64), the float32 reduce
-// pass's 209-214 KB (205 KB where dout stays in device
-// memory) and the recompute fixup's 202 KB; the bfloat16 forward's 139 KB
-// (two y buffers, one block of 16 warps an SM; 64 KB and 8 warps at C = 64)
-// and the bfloat16 reduce pass's 193 KB at pool (2, 4) (two buffers, 16
-// warps; 96 KB at C = 64).
+// pass's 209-214 KB (205 KB where dout stays in device memory) and the
+// float32 recompute fixup's 200-208 KB (one y buffer; 91 KB and two blocks of
+// 8 warps an SM at C = 64); the bfloat16 forward's 139 KB (two y buffers, one
+// block of 16 warps an SM; 64 KB and 8 warps at C = 64), the bfloat16 reduce
+// pass's 193 KB at pool (2, 4) (two buffers, 16 warps; 96 KB at C = 64) and
+// the bfloat16 recompute fixup's 188 KB (two buffers, 16 warps; 91 KB and two
+// blocks of 8 warps an SM at C = 64).
 //
 // Bound: at block 1 of the flagship shape (y = [24, 864, 64, 64], 340 MB)
 // the forward reads y once (0.10 ms at 3.35 TB/s) and its 64x64 channel mix
@@ -61,8 +66,9 @@
 // 340 MB in and 340 MB out (0.20 ms): operations bind it too. The fixup and
 // the statistics are pure streams (1019 MB and 340 MB). The recompute fixup
 // moves y and dout in and dy out (0.21 ms) for two products (lin and dxn:
-// 21.7 GFLOP, 0.33 ms): operations; it spends them to save the default's
-// dy_partial round trip (680 MB).
+// 21.7 GFLOP, 0.33 ms): operations in float32; it spends them to save the
+// default's dy_partial round trip (680 MB). In bfloat16 its products take the
+// tensor cores (0.02 ms at block 1 of the scaled shape) and the bytes bind.
 //
 // Element type: every function takes float32 or bfloat16 y (the model's
 // compute dtype). In bfloat16 the arithmetic outside the channel products
@@ -73,11 +79,11 @@
 // sum; dlin and W enter dxn = dlin . W^T, and xn and dlin enter dW, as
 // bfloat16 (db sums the float32 dlin); the pooled output, dy_partial and dy
 // are stored in bfloat16; dW, db, S1, S2 and the statistics stay float32.
-// The bfloat16 forward and reduce pass take those products on the tensor
-// cores (mma.sync m16n8k16, bfloat16 operands, float32 sums: exactly the
-// rounding of JAX's bf16 dot_general with a float32 result); only the order
-// of the sums inside a product differs from the plain version's. The
-// bfloat16 recompute fixup keeps FP32 FMAs on float32 shared tiles.
+// The bfloat16 forward, reduce pass and recompute fixup take those products
+// on the tensor cores (mma.sync m16n8k16, bfloat16 operands, float32 sums:
+// exactly the rounding of JAX's bf16 dot_general with a float32 result);
+// only the order of the sums inside a product differs from the plain
+// version's.
 //
 // Design: one block per (run of pixel tiles, clip). A pixel tile holds up to
 // 128 pixels in whole pooling windows: whole pooling rows (pt time rows x F)
@@ -100,16 +106,17 @@
 // four FFMAs), y and dout staged by cp.async a tile ahead, x-hat kept in shared memory so
 // that S2 needs no second read of y, and a fast sigmoid (__expf and
 // __fdividef: the full-precision exp and division took a tenth of the
-// pass): see the comment at the function. In the recompute fixup (tile_dxn),
-// per tile: xn normalised into shared memory, dh (with the mask) staged
-// beside it, lin in registers, dlin written over dh, the second product
-// against W^T (W rows padded to C + 1 so the transposed read is
-// conflict-free), dy written from registers. The four sums of a reduce
+// pass): see the comment at the function. The float32 recompute fixup
+// (bn_bwd_fixup_recompute_kernel) runs the same tile code without the third
+// product and the sums, on y - mean in place (so dy's (y - mean) b term is the
+// plain version's), and writes dy by float4. The four sums of a reduce
 // pass's block go to its own slot of a workspace and fold_kernel adds the
 // slots in a fixed order in double precision: no float atomics, so a run
-// repeats bit for bit. Plain FP32 FMAs in float32 (no TF32). The bfloat16 forward and reduce pass (see the
-// comments at bn_glu_pool_bf16_kernel and bn_glu_pool_bwd_bf16_kernel) keep
-// the tiles in bfloat16, staged by cp.async a tile ahead, and multiply on
+// repeats bit for bit. Plain FP32 FMAs in float32 (no TF32). The bfloat16
+// forward, reduce pass and recompute fixup (see the comments at
+// bn_glu_pool_bf16_kernel, bn_glu_pool_bwd_bf16_kernel and
+// bn_bwd_fixup_recompute_bf16_kernel) keep the tiles in bfloat16, staged by
+// cp.async a tile ahead, and multiply on
 // mma.sync: at the scaled shapes their products take 0.1 and 0.3 ms at the
 // tensor cores' rate where FP32 FMAs need 1.5 and 4.5 ms, so the bytes, the
 // generator and the element steps bound them. The generator, the
@@ -118,8 +125,6 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "chain.cuh"
 #include "cp_async.cuh"
@@ -169,13 +174,6 @@ __device__ __forceinline__ TilePos tile_pos(int tile, int b, int T, int F, Tile 
   tp.row0 = (long long)b * T + tp.t0;
   tp.F = F;
   return tp;
-}
-
-// An operand of a channel product: bfloat16-rounded in the bfloat16 mode.
-template <typename TY>
-__device__ __forceinline__ float operand(float v) {
-  if constexpr (std::is_same<TY, float>::value) return v;
-  else return rounded<TY>(v);
 }
 
 // ------------------------------------------------- float32: register tiles
@@ -511,115 +509,183 @@ bn_glu_pool_kernel(const float* __restrict__ y, const float* __restrict__ scale,
 
 // ----------------------------------------------------------------- backward
 
-// The per-channel vectors of a backward kernel, in shared memory.
-struct Vecs {
-  float *scale, *bias, *mean, *inv, *gb;
-};
+// The float32 backward's per-tile code, shared by the reduce pass
+// (bwd_reduce_f32) and the recompute fixup (bn_bwd_fixup_recompute_kernel):
+// both rebuild dxn per tile (the JAX package's _recompute_dxn). Thread (pg,
+// cg) = (tid / CG, tid % CG) of RedPlan<NJ> holds, for both channel products
+// and the element steps, pixels pg + PG i (i < MI) x channels h H + 4 cg + j
+// (h < 2, j < 4).
 
-// Stage W (rows padded to C + 1, as product operands) and the vectors; the
-// vectors take 5C floats from `base`.
-template <typename TY>
-__device__ __forceinline__ Vecs stage_bwd(float* ws, float* base, const float* __restrict__ glu_w,
-                                          const float* __restrict__ scale, const float* __restrict__ bias,
-                                          const float* __restrict__ mean, const float* __restrict__ var,
-                                          const float* __restrict__ glu_b, int C, float eps) {
-  const Vecs v{base, base + C, base + 2 * C, base + 3 * C, base + 4 * C};
-  const int CP = C + 1;
-  for (int i = threadIdx.x; i < C * C; i += kThreads) ws[(i / C) * CP + i % C] = operand<TY>(glu_w[i]);
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    v.scale[c] = scale[c];
-    v.bias[c] = bias[c];
-    v.mean[c] = mean[c];
-    v.inv[c] = rsqrtf(var[c] + eps);
-    v.gb[c] = glu_b[c];
+// Once a block: W into wsw [CP][CP] (in, out), zeros past C, chunk q (four
+// channels) of row r at position q ^ ((r >> 2) & 7), so that lin's loads
+// (row k, chunks cg and cg + CG) and dxn's loads (rows h H + 4 cg + j, chunk
+// k) are each eight distinct 16-byte bank groups across a quarter warp.
+template <int CP>
+__device__ __forceinline__ void stage_w_swizzled(float* wsw, const float* __restrict__ glu_w, int C) {
+  constexpr int Q = CP / 4;
+  for (int i = threadIdx.x; i < CP * Q; i += kThreads) {
+    const int r = i / Q, q = i % Q;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r < C && 4 * q < C) v = make_float4(glu_w[r * C + 4 * q], glu_w[r * C + 4 * q + 1], glu_w[r * C + 4 * q + 2],
+                                            glu_w[r * C + 4 * q + 3]);
+    st4(wsw + r * CP + 4 * (q ^ ((r >> 2) & 7)), v);
   }
-  return v;
 }
 
-// What the reduce pass and the recompute fixup share, per tile (the JAX
-// package's _recompute_dxn): xn into xs, the masked dh into ds, lin = xn . W
-// + b, the gate term dh * lin * sig * (1 - sig), dlin = dh * sig written over
-// dh, and dxn = dlin . W^T + gate into acc. Thread (pg, cg) holds pixels
-// pg + 16 i and channels cg + 16 j. Leaves xn in xs and dlin in ds.
-template <int NJ, typename TY>
-__device__ __forceinline__ void tile_dxn(float (&acc)[8][NJ], float* xs, float* ds, const float* ws,
-                                         const Vecs& v, const TY* __restrict__ y,
-                                         const TY* __restrict__ dout, const TilePos& tp, int tpix,
-                                         int b, int C, int pt, int pf, int Tp, int Fp,
-                                         const Dropout& dr, unsigned long long seed, int pg, int cg) {
-  const int CP = C + 1, tid = threadIdx.x;
-  const float inv_win = 1.0f / (float)(pt * pf);
-  for (int i = tid; i < kPix * C; i += kThreads) {
-    const int p = i / C, c = i % C;
-    float xn = 0.0f, dh = 0.0f;
+// The tile's pooled rows of dout into dst [drows][CP + 4] by cp.async, zeros
+// past C: window w = (w / wcols, w % wcols) of the tile, rows carried by
+// counters (no division a row).
+template <int CP>
+__device__ __forceinline__ void stage_dout_f32(float* dst, const float* __restrict__ dout, const TilePos& tp, int b,
+                                               int Tp, int Fp, int pt, int pf, int C, bool vec) {
+  constexpr int Q = CP / 4, DP = kThreads / Q, KS = CP + 4;
+  const int sq = threadIdx.x % Q;
+  const int wcols = tp.fcols / pf, nw = (tp.trows / pt) * wcols;
+  int w = threadIdx.x / Q;
+  int wr = w / wcols, wc = w % wcols;
+  const int dwr = DP / wcols, dwc = DP % wcols;
+  for (; w < nw; w += DP) {
+    const bool ok = 4 * sq < C;
+    const long long row = ((long long)b * Tp + tp.t0 / pt + wr) * Fp + tp.f0 / pf + wc;
+    stage_row4(dst + w * KS + 4 * sq, ok ? dout + row * C + 4 * sq : dout, ok, vec);
+    wc += dwc;
+    wr += dwr;
+    if (wc >= wcols) {
+      wc -= wcols;
+      ++wr;
+    }
+  }
+}
+
+// Per tile pixel p (one division a pixel): tab_y[p], its global pixel;
+// tab_d[p], its row of the staged dout rows (drows > 0) or of dout.
+__device__ __forceinline__ void tile_tables(int* tab_y, int* tab_d, const TilePos& tp, int tpix, int b, int F,
+                                            int Tp, int Fp, int pt, int pf, int drows) {
+  if (threadIdx.x < kPix) {
+    const int p = threadIdx.x;
+    int gy = 0, gd = 0;
     if (p < tpix) {
-      xn = (to_float(y[tp.pixel(p) * C + c]) - v.mean[c]) * v.inv[c] * v.scale[c] + v.bias[c];
-      const int t = p / tp.fcols, f = p % tp.fcols;
-      dh = to_float(dout[(((long long)b * Tp + (tp.t0 + t) / pt) * Fp + (tp.f0 + f) / pf) * C + c]) *
-           inv_win;
+      const int pr = p / tp.fcols, pc = p % tp.fcols;
+      gy = (int)((tp.row0 + pr) * F + tp.f0 + pc);
+      gd = drows > 0 ? (pr / pt) * (tp.fcols / pf) + pc / pf
+                     : (b * Tp + (tp.t0 + pr) / pt) * Fp + (tp.f0 + pc) / pf;
     }
-    xs[p * CP + c] = xn;
-    ds[p * CP + c] = dh;
+    tab_y[p] = gy;
+    tab_d[p] = gd;
   }
-  __syncthreads();
-  if (dr.mode != 0) {
-    for (int e = 4 * tid; e < tpix * C; e += 4 * kThreads) {
-      const int p = e / C, c = e % C;
-      mask4_at(ds + p * CP + c, tp.pixel(p) * C + c, seed, dr);
-    }
-  }
+}
 
-  // lin = xn . W + b (reads xs and ws only: no barrier needed before it)
+// lin = xn . W (b added by the element step) into acc, with xn = u * vs + vb
+// formed from each staged operand u as it is read (the reduce pass stages
+// x-hat and takes vs = scale, the fixup y - mean and vs = inv * scale)
+template <int NJ>
+__device__ __forceinline__ void lin_f32(float (&acc)[RedPlan<NJ>::MI][8], const float* xb, const float* wsw,
+                                        const float* vs, const float* vb, int pg, int cg) {
+  using P = RedPlan<NJ>;
+  constexpr int CP = P::CP, CG = P::CG, PG = P::PG, MI = P::MI, KS = P::KS, Q = CP / 4;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
-  for (int ci = 0; ci < C; ++ci) {
-    float a[8], wv[NJ];
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  const float* xa = xb + pg * KS;
+  for (int kq = 0; kq < Q; ++kq) {
+    const float4 sk = ld4(vs + 4 * kq), bk = ld4(vb + 4 * kq);
+    float4 a[MI];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) a[i] = operand<TY>(xs[(pg + 16 * i) * CP + ci]);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int co = cg + 16 * j;
-      wv[j] = co < C ? ws[ci * CP + co] : 0.0f;
+    for (int i = 0; i < MI; ++i) {
+      const float4 u = ld4(xa + i * PG * KS + 4 * kq);
+      a[i] = make_float4(fmaf(u.x, sk.x, bk.x), fmaf(u.y, sk.y, bk.y), fmaf(u.z, sk.z, bk.z), fmaf(u.w, sk.w, bk.w));
     }
+    const int s = kq & 7;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int kk = 0; kk < 4; ++kk) {
+      const float* wr = wsw + (4 * kq + kk) * CP;
+      const float4 b0 = ld4(wr + 4 * (cg ^ s)), b1 = ld4(wr + 4 * ((cg + CG) ^ s));
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], wv[j], acc[i][j]);
-  }
-  __syncthreads();  // masked dh complete
-  // gate term into acc, dlin over dh (each element owned by one thread)
+      for (int i = 0; i < MI; ++i) {
+        const float av = at(a[i], kk);
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int p = pg + 16 * i, co = cg + 16 * j;
-      float gate = 0.0f;
-      if (co < C) {
-        const float sig = sigmoidf(xs[p * CP + co]);
-        const float dh = ds[p * CP + co];
-        gate = dh * (acc[i][j] + v.gb[co]) * sig * (1.0f - sig);
-        ds[p * CP + co] = dh * sig;
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
       }
-      acc[i][j] = gate;
     }
-  __syncthreads();  // dlin complete
+  }
+}
 
-  // dxn = dlin . W^T + gate; thread holds (pixel pg + 16 i, channel cg + 16 j)
-  for (int co = 0; co < C; ++co) {
-    float a[8], wv[NJ];
+// Per element, over lin in acc: dh = dout / (pt pf), masked (keep_values4 on
+// float4 channel groups: four channels a Philox call); xn = u * vs + vb from
+// the staged operand; the gate term dh (lin + b) sig (1 - sig) into acc
+// (dxn's first term); dlin = dh sig into ds, and on_dlin(j, dlin) for
+// register j of the thread's eight channels (the reduce pass sums db there).
+template <int NJ, typename OnDlin>
+__device__ __forceinline__ void gate_f32(float (&acc)[RedPlan<NJ>::MI][8], const float* xb, float* ds,
+                                         const float* dtile, const float* __restrict__ dout, const int* tab_y,
+                                         const int* tab_d, const float* vs, const float* vb, const float* vgb,
+                                         int tpix, int C, int drows, bool vec, float inv_win, const Dropout& dr,
+                                         unsigned long long seed, int pg, int cg, OnDlin on_dlin) {
+  using P = RedPlan<NJ>;
+  constexpr int H = P::H, PG = P::PG, MI = P::MI, KS = P::KS;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) a[i] = operand<TY>(ds[(pg + 16 * i) * CP + co]);
+  for (int h = 0; h < 2; ++h) {
+    const int c0 = h * H + 4 * cg;
+    float4 sc = ld4(vs + c0), bi = ld4(vb + c0), gb = ld4(vgb + c0);
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int ci = cg + 16 * j;
-      wv[j] = ci < C ? ws[ci * CP + co] : 0.0f;
+    for (int i = 0; i < MI; ++i) {
+      const int p = pg + PG * i;
+      float4 xh = ld4(xb + p * KS + c0);
+      float4 dh = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (p < tpix && c0 < C) {
+        dh = drows > 0 ? ld4(dtile + tab_d[p] * KS + c0)
+                       : (vec ? __ldg(reinterpret_cast<const float4*>(dout + (long long)tab_d[p] * C + c0))
+                              : make_float4(dout[(long long)tab_d[p] * C + c0], dout[(long long)tab_d[p] * C + c0 + 1],
+                                            dout[(long long)tab_d[p] * C + c0 + 2],
+                                            dout[(long long)tab_d[p] * C + c0 + 3]));
+        dh = make_float4(dh.x * inv_win, dh.y * inv_win, dh.z * inv_win, dh.w * inv_win);
+        if (dr.mode != 0) {
+          const uint4 r = keep_values4((long long)tab_y[p] * C + c0, seed, dr.mode);
+          dh.x *= r.x >= dr.threshold ? dr.keep_scale : 0.0f;
+          dh.y *= r.y >= dr.threshold ? dr.keep_scale : 0.0f;
+          dh.z *= r.z >= dr.threshold ? dr.keep_scale : 0.0f;
+          dh.w *= r.w >= dr.threshold ? dr.keep_scale : 0.0f;
+        }
+      }
+      float4 dl;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float xn = fmaf(at(xh, e), at(sc, e), at(bi, e));
+        const float sig = __fdividef(1.0f, 1.0f + __expf(-xn));
+        const float d = at(dh, e);
+        acc[i][4 * h + e] = d * (acc[i][4 * h + e] + at(gb, e)) * sig * (1.0f - sig);
+        at(dl, e) = d * sig;
+        on_dlin(4 * h + e, at(dl, e));
+      }
+      st4(ds + p * KS + c0, dl);
     }
+  }
+}
+
+// acc += dlin . W^T: row h H + 4 cg + j of W, chunk kq at kq ^ (cg & 7)
+template <int NJ>
+__device__ __forceinline__ void dxn_f32(float (&acc)[RedPlan<NJ>::MI][8], const float* ds, const float* wsw, int pg,
+                                        int cg) {
+  using P = RedPlan<NJ>;
+  constexpr int CP = P::CP, H = P::H, PG = P::PG, MI = P::MI, KS = P::KS, Q = CP / 4;
+  const float* da = ds + pg * KS;
+  for (int kq = 0; kq < Q; ++kq) {
+    float4 a[MI], bq[8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < MI; ++i) a[i] = ld4(da + i * PG * KS + 4 * kq);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], wv[j], acc[i][j]);
+    for (int j = 0; j < 8; ++j) bq[j] = ld4(wsw + ((j / 4) * H + 4 * cg + j % 4) * CP + 4 * (kq ^ (cg & 7)));
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[i][j] = fmaf(a[i].x, bq[j].x, acc[i][j]);
+        acc[i][j] = fmaf(a[i].y, bq[j].y, acc[i][j]);
+        acc[i][j] = fmaf(a[i].z, bq[j].z, acc[i][j]);
+        acc[i][j] = fmaf(a[i].w, bq[j].w, acc[i][j]);
+      }
   }
 }
 
@@ -673,13 +739,7 @@ __device__ __forceinline__ void bwd_reduce_f32(const float* __restrict__ y, cons
   const int Tp = T / pt, Fp = F / pf;
   const float inv_win = 1.0f / (float)(pt * pf);
 
-  for (int i = tid; i < CP * Q; i += kThreads) {  // once a block
-    const int r = i / Q, q = i % Q;
-    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (r < C && 4 * q < C) v = make_float4(glu_w[r * C + 4 * q], glu_w[r * C + 4 * q + 1], glu_w[r * C + 4 * q + 2],
-                                            glu_w[r * C + 4 * q + 3]);
-    st4(wsw + r * CP + 4 * (q ^ ((r >> 2) & 7)), v);
-  }
+  stage_w_swizzled<CP>(wsw, glu_w, C);  // once a block
   for (int c = tid; c < CP; c += kThreads) {
     const bool in = c < C;
     const float iv = in ? rsqrtf(var[c] + eps) : 0.0f;
@@ -692,29 +752,12 @@ __device__ __forceinline__ void bwd_reduce_f32(const float* __restrict__ y, cons
   }
 
   // y and the dout rows of tile `tile` into buffer buf by cp.async, zeros
-  // past the tile and past C; rows carried by counters (no division a row)
+  // past the tile and past C
   const int sq = tid % Q;
   auto stage = [&](int tile, int buf) {
     const TilePos tp = tile_pos(tile, b, T, F, tl);
     stage_y_f32<CP>(xs + buf * kPix * KS, y, tp, F, C, vec);
-    if (drows > 0) {  // window w = (w / wcols, w % wcols) of the tile's pooled rows
-      const int wcols = tp.fcols / pf, nw = (tp.trows / pt) * wcols;
-      int w = tid / Q;
-      int wr = w / wcols, wc = w % wcols;
-      const int dwr = DP / wcols, dwc = DP % wcols;
-      float* db_ = dsm + buf * drows * KS + 4 * sq;
-      for (; w < nw; w += DP) {
-        const bool ok = 4 * sq < C;
-        const long long row = ((long long)b * Tp + tp.t0 / pt + wr) * Fp + tp.f0 / pf + wc;
-        stage_row4(db_ + w * KS, ok ? dout + row * C + 4 * sq : dout, ok, vec);
-        wc += dwc;
-        wr += dwr;
-        if (wc >= wcols) {
-          wc -= wcols;
-          ++wr;
-        }
-      }
-    }
+    if (drows > 0) stage_dout_f32<CP>(dsm + buf * drows * KS, dout, tp, b, Tp, Fp, pt, pf, C, vec);
   };
 
   const int cg = tid % CG, pg = tid / CG;
@@ -756,114 +799,16 @@ __device__ __forceinline__ void bwd_reduce_f32(const float* __restrict__ y, cons
         st4(xb + p * KS + 4 * sq, v);
       }
     }
-    if (tid < kPix) {
-      const int p = tid;
-      int gy = 0, gd = 0;
-      if (p < tpix) {
-        const int pr = p / tp.fcols, pc = p % tp.fcols;
-        gy = (int)((tp.row0 + pr) * F + tp.f0 + pc);
-        gd = drows > 0 ? (pr / pt) * (tp.fcols / pf) + pc / pf
-                       : (b * Tp + (tp.t0 + pr) / pt) * Fp + (tp.f0 + pc) / pf;
-      }
-      tab_y[p] = gy;
-      tab_d[p] = gd;
-    }
+    tile_tables(tab_y, tab_d, tp, tpix, b, F, Tp, Fp, pt, pf, drows);
     __syncthreads();  // x-hat and the tables complete
 
-    // lin = xn . W (b added below), xn = x-hat * scale + bias per operand
+    // lin = xn . W, xn = x-hat * scale + bias; the gate term, dlin over ds, db += dlin; dxn = gate + dlin . W^T
     float acc[MI][8];
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-    {
-      const float* xa = xb + pg * KS;
-      for (int kq = 0; kq < Q; ++kq) {
-        const float4 sk = ld4(vscale + 4 * kq), bk = ld4(vbias + 4 * kq);
-        float4 a[MI];
-#pragma unroll
-        for (int i = 0; i < MI; ++i) {
-          const float4 u = ld4(xa + i * PG * KS + 4 * kq);
-          a[i] = make_float4(fmaf(u.x, sk.x, bk.x), fmaf(u.y, sk.y, bk.y), fmaf(u.z, sk.z, bk.z),
-                             fmaf(u.w, sk.w, bk.w));
-        }
-        const int s = kq & 7;
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const float* wr = wsw + (4 * kq + kk) * CP;
-          const float4 b0 = ld4(wr + 4 * (cg ^ s)), b1 = ld4(wr + 4 * ((cg + CG) ^ s));
-          const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-          for (int i = 0; i < MI; ++i) {
-            const float av = at(a[i], kk);
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
-          }
-        }
-      }
-    }
-
-    // per element: dh = dout / (pt pf), masked; the gate term into acc (dxn's
-    // first term), dlin = dh * sig over ds, db += dlin
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c0 = h * H + 4 * cg;
-      float4 sc = ld4(vscale + c0), bi = ld4(vbias + c0), gb = ld4(vgb + c0);
-#pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        const int p = pg + PG * i;
-        float4 xh = ld4(xb + p * KS + c0);
-        float4 dh = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        if (p < tpix && c0 < C) {
-          dh = drows > 0 ? ld4(dtile + tab_d[p] * KS + c0)
-                         : (vec ? __ldg(reinterpret_cast<const float4*>(dout + (long long)tab_d[p] * C + c0))
-                                : make_float4(dout[(long long)tab_d[p] * C + c0], dout[(long long)tab_d[p] * C + c0 + 1],
-                                              dout[(long long)tab_d[p] * C + c0 + 2],
-                                              dout[(long long)tab_d[p] * C + c0 + 3]));
-          dh = make_float4(dh.x * inv_win, dh.y * inv_win, dh.z * inv_win, dh.w * inv_win);
-          if (dr.mode != 0) {
-            const uint4 r = keep_values4((long long)tab_y[p] * C + c0, seed, dr.mode);
-            dh.x *= r.x >= dr.threshold ? dr.keep_scale : 0.0f;
-            dh.y *= r.y >= dr.threshold ? dr.keep_scale : 0.0f;
-            dh.z *= r.z >= dr.threshold ? dr.keep_scale : 0.0f;
-            dh.w *= r.w >= dr.threshold ? dr.keep_scale : 0.0f;
-          }
-        }
-        float4 dl;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float xn = fmaf(at(xh, e), at(sc, e), at(bi, e));
-          const float sig = __fdividef(1.0f, 1.0f + __expf(-xn));
-          const float d = at(dh, e);
-          acc[i][4 * h + e] = d * (acc[i][4 * h + e] + at(gb, e)) * sig * (1.0f - sig);
-          at(dl, e) = d * sig;
-          dbs[4 * h + e] += at(dl, e);
-        }
-        st4(ds + p * KS + c0, dl);
-      }
-    }
+    lin_f32<NJ>(acc, xb, wsw, vscale, vbias, pg, cg);
+    gate_f32<NJ>(acc, xb, ds, dtile, dout, tab_y, tab_d, vscale, vbias, vgb, tpix, C, drows, vec, inv_win, dr, seed,
+                 pg, cg, [&](int j, float d) { dbs[j] += d; });
     __syncthreads();  // dlin complete
-
-    // dxn = gate + dlin . W^T: row h H + 4 cg + j of W, chunk kq at kq ^ (cg & 7)
-    {
-      const float* da = ds + pg * KS;
-      for (int kq = 0; kq < Q; ++kq) {
-        float4 a[MI], bq[8];
-#pragma unroll
-        for (int i = 0; i < MI; ++i) a[i] = ld4(da + i * PG * KS + 4 * kq);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) bq[j] = ld4(wsw + ((j / 4) * H + 4 * cg + j % 4) * CP + 4 * (kq ^ (cg & 7)));
-#pragma unroll
-        for (int i = 0; i < MI; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            acc[i][j] = fmaf(a[i].x, bq[j].x, acc[i][j]);
-            acc[i][j] = fmaf(a[i].y, bq[j].y, acc[i][j]);
-            acc[i][j] = fmaf(a[i].z, bq[j].z, acc[i][j]);
-            acc[i][j] = fmaf(a[i].w, bq[j].w, acc[i][j]);
-          }
-      }
-    }
+    dxn_f32<NJ>(acc, ds, wsw, pg, cg);
     // S1 += dxn, S2 += dxn * x-hat, dy_partial = inv * scale * dxn
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -996,6 +941,144 @@ bn_glu_pool_bwd_kernel(const float* __restrict__ y, const float* __restrict__ do
                        Dropout dr, int buffers, int drows, int vec) {
   bwd_reduce_f32<NJ>(y, dout, scale, bias, mean, var, glu_w, glu_b, dyp, partials, T, F, C, pt, pf, eps, tl,
                      tiles_per_block, dr, buffers, drows, vec != 0);
+}
+
+// Dynamic shared memory of the float32 recompute fixup (ops/fused_block.
+// fixup_plan computes the same): the y tile [kPix][KS], the dlin tile
+// [kPix][KS], the dout tile [drows][KS] (drows = 0: dout is read from device
+// memory), W [CP][CP], six vectors [CP], two tables [kPix] (int).
+template <int NJ>
+size_t fix_f32_smem(int drows) {
+  using P = RedPlan<NJ>;
+  return sizeof(float) * (2 * kPix * P::KS + (size_t)drows * P::KS + P::CP * P::CP + 6 * P::CP + 2 * kPix);
+}
+
+// The float32 recompute fixup (the JAX package's _bwd_fixup_recompute_kernel,
+// under DCASE_FUSED_BWD_RECOMPUTE: the reduce pass stored no dy_partial). Per
+// tile, the reduce pass's plan and device code without its third product and
+// its sums: y and the tile's rows of dout staged by cp.async, y - mean formed
+// in place as the plain version forms it (so the epilogue's (y - mean) b2
+// loses no digits to a large mean); lin = xn . W with xn = (y - mean) inv
+// scale + bias formed from the operand as it is read; the gate term and dlin
+// in registers, dlin into shared memory; dxn = gate + dlin . W^T; then dy =
+// inv scale dxn - a - (y - mean) b2 in float32, written by float4. a, b2: [C]
+// from the folded S1, S2. Without the reduce pass's M tile (64 registers) a
+// thread fits in 128 registers, so at C <= 64 two blocks of 8 warps share an
+// SM, each with one y buffer (91 KB): one block's loads overlap the other's
+// products. A second buffer (the next tile's y loading while one multiplies,
+// as in the reduce pass) leaves one block an SM and read 1.1344 ms at block 1
+// of the flagship shape against 0.9533 (NVIDIA H100 80GB HBM3, 700.00 W,
+// tools/bench_k2b_fixup_torch.py --variants before it was removed).
+template <int NJ>
+__global__ void __launch_bounds__(kThreads, NJ == 4 ? 2 : 1)
+bn_bwd_fixup_recompute_kernel(const float* __restrict__ y, const float* __restrict__ dout,
+                              const float* __restrict__ scale, const float* __restrict__ bias,
+                              const float* __restrict__ mean, const float* __restrict__ var,
+                              const float* __restrict__ glu_w, const float* __restrict__ glu_b,
+                              const float* __restrict__ a, const float* __restrict__ b2, float* __restrict__ dy,
+                              int B, int T, int F, int C, int pt, int pf, float eps, Tile tl, Dropout dr, int drows,
+                              int vec) {
+  using P = RedPlan<NJ>;
+  constexpr int CP = P::CP, H = P::H, CG = P::CG, PG = P::PG, MI = P::MI, KS = P::KS;
+  constexpr int Q = CP / 4, DP = kThreads / Q;  // centring: chunk tid % Q of every DP-th row
+  extern __shared__ __align__(16) float smem_x[];
+  float* xb = smem_x;                        // [kPix][KS]: y, then y - mean
+  float* ds = xb + kPix * KS;                // [kPix][KS]: dlin
+  float* dtile = ds + kPix * KS;             // [drows][KS]: the tile's rows of dout
+  float* wsw = dtile + drows * KS;           // [CP][CP]: W (in, out), chunks swizzled
+  float* vmean = wsw + CP * CP;              // [CP] each, zeros past C
+  float* vgain = vmean + CP;                 // inv * scale
+  float* vbias = vgain + CP;
+  float* vgb = vbias + CP;
+  float* va = vgb + CP;
+  float* vb2 = va + CP;
+  int* tab_y = reinterpret_cast<int*>(vb2 + CP);  // [kPix]: the global pixel of tile pixel p
+  int* tab_d = tab_y + kPix;                      // [kPix]: its row of dout
+
+  const int tid = threadIdx.x;
+  const unsigned long long seed = seed_of(dr);
+  const int Tp = T / pt, Fp = F / pf;
+  const float inv_win = 1.0f / (float)(pt * pf);
+  const bool vec4 = vec != 0;
+
+  stage_w_swizzled<CP>(wsw, glu_w, C);  // once a block
+  for (int c = tid; c < CP; c += kThreads) {
+    const bool in = c < C;
+    vmean[c] = in ? mean[c] : 0.0f;
+    vgain[c] = in ? rsqrtf(var[c] + eps) * scale[c] : 0.0f;
+    vbias[c] = in ? bias[c] : 0.0f;
+    vgb[c] = in ? glu_b[c] : 0.0f;
+    va[c] = in ? a[c] : 0.0f;
+    vb2[c] = in ? b2[c] : 0.0f;
+  }
+  // block k takes tiles [k n / G, (k + 1) n / G) of the n = B * tiles of the
+  // batch, clip after clip: one wave of G resident blocks, within one tile of
+  // each other
+  const int n_tiles = tiles_per_clip(T, F, pt, pf);
+  const long long total = (long long)B * n_tiles;
+  const int first = (int)(blockIdx.x * total / gridDim.x), last = (int)((blockIdx.x + 1) * total / gridDim.x);
+  auto stage = [&](int t) {
+    const int bt = t / n_tiles;
+    const TilePos tp = tile_pos(t - bt * n_tiles, bt, T, F, tl);
+    stage_y_f32<CP>(xb, y, tp, F, C, vec4);
+    if (drows > 0) stage_dout_f32<CP>(dtile, dout, tp, bt, Tp, Fp, pt, pf, C, vec4);
+    cp_async_commit();
+  };
+
+  const int cg = tid % CG, pg = tid / CG, sq = tid % Q;
+  if (first < last) stage(first);
+  for (int t = first; t < last; ++t) {
+    const int b = t / n_tiles;
+    const TilePos tp = tile_pos(t - b * n_tiles, b, T, F, tl);
+    const int tpix = tp.trows * tp.fcols;
+    cp_async_wait_all();
+    __syncthreads();  // this tile landed
+    {  // y - mean in place (rows past the tile stay as staged, zeros: their dh is 0)
+      const float4 m = ld4(vmean + 4 * sq);
+      for (int p = tid / Q; p < tpix; p += DP) {
+        const float4 u = ld4(xb + p * KS + 4 * sq);
+        st4(xb + p * KS + 4 * sq, make_float4(u.x - m.x, u.y - m.y, u.z - m.z, u.w - m.w));
+      }
+    }
+    tile_tables(tab_y, tab_d, tp, tpix, b, F, Tp, Fp, pt, pf, drows);
+    __syncthreads();  // y - mean and the tables complete
+
+    float acc[MI][8];
+    lin_f32<NJ>(acc, xb, wsw, vgain, vbias, pg, cg);
+    gate_f32<NJ>(acc, xb, ds, dtile, dout, tab_y, tab_d, vgain, vbias, vgb, tpix, C, drows, vec4, inv_win, dr, seed,
+                 pg, cg, [](int, float) {});
+    __syncthreads();  // dlin complete
+    dxn_f32<NJ>(acc, ds, wsw, pg, cg);
+    // dy = inv * scale * dxn - a - (y - mean) * b2
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c0 = h * H + 4 * cg;
+      if (c0 >= C) continue;
+      float4 g = ld4(vgain + c0), av = ld4(va + c0), bv = ld4(vb2 + c0);
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const int p = pg + PG * i;
+        if (p >= tpix) continue;
+        float4 yc = ld4(xb + p * KS + c0);
+        float4 out;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) at(out, e) = at(g, e) * acc[i][4 * h + e] - at(av, e) - at(yc, e) * at(bv, e);
+        float* dst = dy + (long long)tab_y[p] * C + c0;
+        if (vec4) {
+          st4(dst, out);
+        } else {
+          dst[0] = out.x;
+          dst[1] = out.y;
+          dst[2] = out.z;
+          dst[3] = out.w;
+        }
+      }
+    }
+    if (t + 1 < last) {
+      __syncthreads();  // every warp is done with the tiles
+      stage(t + 1);
+    }
+  }
 }
 
 // ------------------------------------ bfloat16: products on the tensor cores
@@ -1363,6 +1446,82 @@ bn_glu_pool_bf16_kernel(const bf16* __restrict__ y, const float* __restrict__ sc
   }
 }
 
+// Per element of lin's fragments in acc (a warp's MT x 4 fragments of
+// pixels p0 + 16 mt + g (+ 8) x channels wn 32 + 8 nt + 2 q (+ 1)): dh =
+// dout / (pt pf) * mask * keep_scale (the tile's keep bits), sig from the
+// float32 xn rebuilt from the staged y, the gate term dh (lin + b) sig (1 -
+// sig) into acc (dxn's first term), dlin = dh sig stored as D = bf16(dlin);
+// on_db(db0, db1, c) with the float32 sums of dlin over the thread's pixels
+// of channels c, c + 1 (the reduce pass's db).
+template <int CP, int MT, typename OnDb>
+__device__ __forceinline__ void gate_bf16(float (&acc)[MT][4][4], bf16* D, const bf16* yb, const bf16* dtile,
+                                          const int* tab_d, const unsigned char* mbits, const float* vmean,
+                                          const float* vinv, const float* vscale, const float* vbias,
+                                          const float* vgb, int p0, int wn, int g, int q, float inv_win,
+                                          const Dropout& dr, OnDb on_db) {
+  constexpr int RS = BfPlan<CP, 8>::RS, MS = BfPlan<CP, 8>::MS;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int c = wn * 32 + nt * 8 + 2 * q;
+    const float2 m = ld2(vmean + c), iv = ld2(vinv + c), sc = ld2(vscale + c), bi = ld2(vbias + c),
+                 gb = ld2(vgb + c);
+    float db0 = 0.0f, db1 = 0.0f;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = p0 + mt * 16 + g + 8 * h;
+        const int r = tab_d[p];
+        float2 dh = make_float2(0.0f, 0.0f);
+        if (r >= 0) {
+          dh = ld_bf2(dtile + r * RS + c);
+          dh.x *= inv_win;
+          dh.y *= inv_win;
+          if (dr.mode != 0) {
+            const int bits = mbits[p * MS + c / 4] >> (c & 3);
+            dh.x *= (bits & 1) ? dr.keep_scale : 0.0f;
+            dh.y *= (bits & 2) ? dr.keep_scale : 0.0f;
+          }
+        }
+        const float2 yv = ld_bf2(yb + p * RS + c);
+        const float sg0 = sigmoidf(xn_of(yv.x, m.x, iv.x, sc.x, bi.x));
+        const float sg1 = sigmoidf(xn_of(yv.y, m.y, iv.y, sc.y, bi.y));
+        acc[mt][nt][2 * h] = dh.x * (acc[mt][nt][2 * h] + gb.x) * sg0 * (1.0f - sg0);
+        acc[mt][nt][2 * h + 1] = dh.y * (acc[mt][nt][2 * h + 1] + gb.y) * sg1 * (1.0f - sg1);
+        const float d0 = dh.x * sg0, d1 = dh.y * sg1;
+        db0 += d0;
+        db1 += d1;
+        st_bf2(D + p * RS + c, d0, d1);
+      }
+    on_db(db0, db1, c);
+  }
+}
+
+// The tile's keep bits into mbits [kPix][MS]: one Philox call a four-channel
+// group of each pixel (keep_values4 on the global element index), bit e of
+// byte k for channel 4 k + e.
+template <int CP>
+__device__ __forceinline__ void keep_bits(unsigned char* mbits, const TilePos& tp, int tpix, int C,
+                                          unsigned long long seed, const Dropout& dr) {
+  constexpr int KG = BfPlan<CP, 8>::KG, MS = BfPlan<CP, 8>::MS;
+  for (int i = threadIdx.x; i < tpix * KG; i += blockDim.x) {
+    const int p = i / KG, k = i % KG;
+    if (4 * k >= C) continue;
+    const uint4 r = keep_values4(tp.pixel(p) * C + 4 * k, seed, dr.mode);
+    mbits[p * MS + k] = (unsigned char)((r.x >= dr.threshold ? 1 : 0) | (r.y >= dr.threshold ? 2 : 0) |
+                                        (r.z >= dr.threshold ? 4 : 0) | (r.w >= dr.threshold ? 8 : 0));
+  }
+}
+
+// The tile's dout-row table: tab_d[p], the staged dout row of tile pixel p,
+// or -1 past the tile.
+__device__ __forceinline__ void dout_rows_of(int* tab_d, const TilePos& tp, int tpix, int pt, int pf) {
+  if (threadIdx.x < kPix) {
+    const int p = threadIdx.x;
+    tab_d[p] = p < tpix ? (p / tp.fcols / pt) * (tp.fcols / pf) + (p % tp.fcols) / pf : -1;
+  }
+}
+
 // The bfloat16 reduce pass (bn_glu_pool_bwd_kernel's function on bfloat16 y,
 // the JAX package's _bwd_reduce_kernel with lp). Per tile of up to 128
 // pixels: y and the tile's pooled rows of dout staged by cp.async (the next
@@ -1392,7 +1551,7 @@ bn_glu_pool_bwd_bf16_kernel(const bf16* __restrict__ y, const bf16* __restrict__
                             float* __restrict__ partials, int T, int F, int C, int pt, int pf, float eps, Tile tl,
                             int tiles_per_block, Dropout dr, int buffers, int drows, int mode) {
   using P = BfPlan<CP, NW>;
-  constexpr int RS = P::RS, MTW = P::MTW, NTW = P::NTW, KG = P::KG, MS = P::MS;
+  constexpr int RS = P::RS, MTW = P::MTW, NTW = P::NTW, MS = P::MS;
   // lin and dxn over NH passes of kPix / NH pixels each (MT fragments a warp):
   // at CP = 128 two, so that the gate's accumulators and dW's fit in 128
   // registers beside each other at 16 warps
@@ -1476,19 +1635,8 @@ bn_glu_pool_bwd_bf16_kernel(const bf16* __restrict__ y, const bf16* __restrict__
     }
     bf16* yb = ys + buf * kPix * RS;
     const bf16* dtile = dsm + buf * drows * RS;
-    if (tid < kPix) {
-      const int p = tid;
-      tab_d[p] = p < tpix ? (p / tp.fcols / pt) * (tp.fcols / pf) + (p % tp.fcols) / pf : -1;
-    }
-    if (dr.mode != 0) {
-      for (int i = tid; i < tpix * KG; i += P::NTHR) {
-        const int p = i / KG, k = i % KG;
-        if (4 * k >= C) continue;
-        const uint4 r = keep_values4(tp.pixel(p) * C + 4 * k, seed, dr.mode);
-        mbits[p * MS + k] = (unsigned char)((r.x >= dr.threshold ? 1 : 0) | (r.y >= dr.threshold ? 2 : 0) |
-                                            (r.z >= dr.threshold ? 4 : 0) | (r.w >= dr.threshold ? 8 : 0));
-      }
-    }
+    dout_rows_of(tab_d, tp, tpix, pt, pf);
+    if (dr.mode != 0) keep_bits<CP>(mbits, tp, tpix, C, seed, dr);
     form_a<CP>(A, yb, vmean, vinv, vscale, vbias, tpix);
     __syncthreads();  // A, the table and the mask complete
 
@@ -1496,42 +1644,8 @@ bn_glu_pool_bwd_bf16_kernel(const bf16* __restrict__ y, const bf16* __restrict__
       float acc[MT][4][4];
       zero_acc(acc);
       product_w<CP, NW, true, MT>(acc, A + hp * HP * RS, ws, wm, wn, lane);
-      // per element: dh, sig, the gate term into acc, dlin into db and D
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int c = wn * 32 + nt * 8 + 2 * q;
-        const float2 m = ld2(vmean + c), iv = ld2(vinv + c), sc = ld2(vscale + c), bi = ld2(vbias + c),
-                     gb = ld2(vgb + c);
-        float db0 = 0.0f, db1 = 0.0f;
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int p = hp * HP + wm * 16 * MT + mt * 16 + g + 8 * h;
-            const int r = tab_d[p];
-            float2 dh = make_float2(0.0f, 0.0f);
-            if (r >= 0) {
-              dh = ld_bf2(dtile + r * RS + c);
-              dh.x *= inv_win;
-              dh.y *= inv_win;
-              if (dr.mode != 0) {
-                const int bits = mbits[p * MS + c / 4] >> (c & 3);
-                dh.x *= (bits & 1) ? dr.keep_scale : 0.0f;
-                dh.y *= (bits & 2) ? dr.keep_scale : 0.0f;
-              }
-            }
-            const float2 yv = ld_bf2(yb + p * RS + c);
-            const float sg0 = sigmoidf(xn_of(yv.x, m.x, iv.x, sc.x, bi.x));
-            const float sg1 = sigmoidf(xn_of(yv.y, m.y, iv.y, sc.y, bi.y));
-            acc[mt][nt][2 * h] = dh.x * (acc[mt][nt][2 * h] + gb.x) * sg0 * (1.0f - sg0);
-            acc[mt][nt][2 * h + 1] = dh.y * (acc[mt][nt][2 * h + 1] + gb.y) * sg1 * (1.0f - sg1);
-            const float d0 = dh.x * sg0, d1 = dh.y * sg1;
-            db0 += d0;
-            db1 += d1;
-            st_bf2(D + p * RS + c, d0, d1);
-          }
-        add_sums(db0, db1, c, 0);
-      }
+      gate_bf16<CP>(acc, D, yb, dtile, tab_d, mbits, vmean, vinv, vscale, vbias, vgb, hp * HP + wm * 16 * MT, wn, g,
+                    q, inv_win, dr, [&](float db0, float db1, int c) { add_sums(db0, db1, c, 0); });
       __syncthreads();  // D of these pixels complete
 
       product_w<CP, NW, false, MT>(acc, D + hp * HP * RS, ws, wm, wn, lane);  // dxn = gate + D . W^T
@@ -1625,61 +1739,161 @@ bn_glu_pool_bwd_bf16_kernel(const bf16* __restrict__ y, const bf16* __restrict__
 }
 
 
-// The recompute fixup (the JAX package's _bwd_fixup_recompute_kernel, under
-// DCASE_FUSED_BWD_RECOMPUTE): no dy_partial; each tile rebuilds dxn from y and
-// dout with the reduce pass's own device code (tile_dxn: the same mask, the
-// same roundings) and writes dy = inv * scale * dxn - a - (y - mean) * b2 in
-// float32, rounded once to y's dtype. a, b2: [C] from the folded S1, S2.
-template <int NJ, typename TY>
-__global__ void __launch_bounds__(kThreads)
-bn_bwd_fixup_recompute_kernel(const TY* __restrict__ y, const TY* __restrict__ dout,
-                              const float* __restrict__ scale, const float* __restrict__ bias,
-                              const float* __restrict__ mean, const float* __restrict__ var,
-                              const float* __restrict__ glu_w, const float* __restrict__ glu_b,
-                              const float* __restrict__ a, const float* __restrict__ b2,
-                              TY* __restrict__ dy, int T, int F, int C, int pt, int pf, float eps,
-                              Tile tl, int tiles_per_block, Dropout dr) {
-  extern __shared__ float smem[];
-  const int CP = C + 1;
-  float* xs = smem;            // [kPix][CP]: xn
-  float* ds = xs + kPix * CP;  // [kPix][CP]: dh, then dlin
-  float* ws = ds + kPix * CP;  // [C][CP] (in, out), rows padded, as product operands
-  float* s_a = ws + C * CP + 5 * C;  // [C] each
-  float* s_b2 = s_a + C;
-  const Vecs v = stage_bwd<TY>(ws, ws + C * CP, glu_w, scale, bias, mean, var, glu_b, C, eps);
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    s_a[c] = a[c];
-    s_b2[c] = b2[c];
+// the warps of the bfloat16 recompute fixup: 16 at CP = 128 (one block an SM),
+// 8 at CP = 64 (two blocks an SM in 128 registers a thread)
+template <int CP>
+constexpr int kFixWarps = CP == 128 ? 16 : 8;
+
+// Dynamic shared memory of the bfloat16 recompute fixup (ops/fused_block.
+// fixup_plan computes the same): per buffer (1 or 2) the y tile [kPix][RS]
+// (then dy) and the tile's pooled rows of dout [drows][RS]; A, D [kPix][RS]
+// and W [CP][RS] (bfloat16); eight vectors [CP] float; the keep bits
+// [kPix][MS] bytes; the dout-row table [kPix] int. 188 KB at CP = 128 and
+// pool (2, 4) with two buffers, 91 KB at CP = 64.
+template <int CP>
+size_t fix_bf16_smem(int buffers, int drows) {
+  using P = BfPlan<CP, kFixWarps<CP>>;
+  return 2 * (size_t)P::RS * ((size_t)buffers * (kPix + drows) + 2 * kPix + CP) + 4 * 8 * (size_t)CP +
+         (size_t)kPix * P::MS + 4 * kPix;
+}
+
+// The bfloat16 recompute fixup (bn_bwd_fixup_recompute_kernel's function on
+// bfloat16 y, the JAX package's _bwd_fixup_recompute_kernel with lp). Per
+// tile, the bfloat16 reduce pass's plan and device code without its dW
+// product and its sums: y and the tile's pooled rows of dout staged by
+// cp.async (the next tile's while this one multiplies), the tile's keep bits
+// (one Philox call per four channels), A = bf16(xn), lin = A . W on
+// mma.sync; in the fragments' registers dh, sig from the float32 xn, the gate
+// term and dlin = dh sig, stored as D = bf16(dlin); dxn = gate + D . W^T on
+// mma.sync; then dy = inv scale dxn - a - (y - mean) b2 in float32 from the
+// staged y, rounded once to bfloat16, written over the y tile and stored in
+// 16- or 8-byte chunks. Without dW's accumulators a warp takes its MT
+// fragments of the whole tile in one pass (NH = 1; the reduce pass needs two
+// at CP = 128).
+template <int CP, int NW>
+__global__ void __launch_bounds__(32 * NW, NW == 8 ? 2 : 1)
+bn_bwd_fixup_recompute_bf16_kernel(const bf16* __restrict__ y, const bf16* __restrict__ dout,
+                                   const float* __restrict__ scale, const float* __restrict__ bias,
+                                   const float* __restrict__ mean, const float* __restrict__ var,
+                                   const float* __restrict__ glu_w, const float* __restrict__ glu_b,
+                                   const float* __restrict__ a, const float* __restrict__ b2, bf16* __restrict__ dy,
+                                   int B, int T, int F, int C, int pt, int pf, float eps, Tile tl, Dropout dr,
+                                   int buffers, int drows, int mode) {
+  using P = BfPlan<CP, NW>;
+  constexpr int RS = P::RS, MS = P::MS;
+  // lin and dxn over NH passes of kPix / NH pixels each (MT fragments a warp)
+  constexpr int NH = 1, MT = P::MT / NH, HP = kPix / NH;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ys = reinterpret_cast<bf16*>(smem_raw);  // [buffers][kPix][RS]: y, then dy
+  bf16* dsm = ys + buffers * kPix * RS;          // [buffers][drows][RS]: the tile's rows of dout
+  bf16* A = dsm + buffers * drows * RS;          // [kPix][RS]: bf16(xn)
+  bf16* D = A + kPix * RS;                       // [kPix][RS]: bf16(dlin)
+  bf16* ws = D + kPix * RS;                      // [CP][RS]: W (in, out)
+  float* vmean = reinterpret_cast<float*>(ws + CP * RS);
+  float* vinv = vmean + CP;
+  float* vscale = vinv + CP;
+  float* vbias = vscale + CP;
+  float* vgb = vbias + CP;
+  float* vgain = vgb + CP;
+  float* va = vgain + CP;
+  float* vb2 = va + CP;
+  unsigned char* mbits = reinterpret_cast<unsigned char*>(vb2 + CP);  // [kPix][MS]: keep bits of 4 channels
+  int* tab_d = reinterpret_cast<int*>(mbits + kPix * MS);             // [kPix]: the dout row of pixel p, or -1
+  stage_bf16_consts<CP>(ws, vmean, vinv, vscale, vbias, vgb, vgain, glu_w, scale, bias, mean, var, glu_b, C, eps);
+  for (int c = threadIdx.x; c < CP; c += P::NTHR) {
+    va[c] = c < C ? a[c] : 0.0f;
+    vb2[c] = c < C ? b2[c] : 0.0f;
   }
 
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp / P::WN, wn = warp % P::WN, g = lane / 4, q = lane % 4;
   const unsigned long long seed = seed_of(dr);
-  const int cg = tid % 16, pg = tid / 16;
   const int Tp = T / pt, Fp = F / pf;
+  const float inv_win = 1.0f / (float)(pt * pf);
+  // block k takes tiles [k n / G, (k + 1) n / G) of the n = B * tiles of the batch
   const int n_tiles = tiles_per_clip(T, F, pt, pf);
-  const int first = blockIdx.x * tiles_per_block;
-  const int last = min(n_tiles, first + tiles_per_block);
+  const long long total = (long long)B * n_tiles;
+  const int first = (int)(blockIdx.x * total / gridDim.x), last = (int)((blockIdx.x + 1) * total / gridDim.x);
+  auto stage = [&](int t, int buf) {
+    const int bt = t / n_tiles;
+    const TilePos tp = tile_pos(t - bt * n_tiles, bt, T, F, tl);
+    bf16* yb = ys + buf * kPix * RS;
+    bf16* db_ = dsm + buf * drows * RS;
+    if (mode == 2) {
+      stage_y_rows<CP, 8>(yb, y, tp, tp.trows * tp.fcols, C, mode);
+      stage_dout_rows<CP, 8>(db_, dout, tp, bt, Tp, Fp, pt, pf, C, mode);
+    } else {
+      stage_y_rows<CP, 4>(yb, y, tp, tp.trows * tp.fcols, C, mode);
+      stage_dout_rows<CP, 4>(db_, dout, tp, bt, Tp, Fp, pt, pf, C, mode);
+    }
+  };
 
-  for (int tile = first; tile < last; ++tile) {
-    const TilePos tp = tile_pos(tile, b, T, F, tl);
+  if (first < last) stage(first, 0);
+  cp_async_commit();
+  for (int t = first; t < last; ++t) {
+    const int buf = buffers == 2 ? (t - first) & 1 : 0;
+    const int b = t / n_tiles;
+    const TilePos tp = tile_pos(t - b * n_tiles, b, T, F, tl);
     const int tpix = tp.trows * tp.fcols;
+    cp_async_wait_all();
+    __syncthreads();  // this tile landed; every warp is done with the previous tile
+    if (buffers == 2 && t + 1 < last) {  // the next tile loads while this one multiplies
+      stage(t + 1, buf ^ 1);
+      cp_async_commit();
+    }
+    bf16* yb = ys + buf * kPix * RS;
+    const bf16* dtile = dsm + buf * drows * RS;
+    dout_rows_of(tab_d, tp, tpix, pt, pf);
+    if (dr.mode != 0) keep_bits<CP>(mbits, tp, tpix, C, seed, dr);
+    form_a<CP>(A, yb, vmean, vinv, vscale, vbias, tpix);
+    __syncthreads();  // A, the table and the mask complete
 
-    __syncthreads();  // constants staged / previous tile's products done
-    float acc[8][NJ];
-    tile_dxn<NJ, TY>(acc, xs, ds, ws, v, y, dout, tp, tpix, b, C, pt, pf, Tp, Fp, dr, seed, pg, cg);
+    for (int hp = 0; hp < NH; ++hp) {  // the pixels hp HP ..
+      float acc[MT][4][4];
+      zero_acc(acc);
+      product_w<CP, NW, true, MT>(acc, A + hp * HP * RS, ws, wm, wn, lane);
+      gate_bf16<CP>(acc, D, yb, dtile, tab_d, mbits, vmean, vinv, vscale, vbias, vgb, hp * HP + wm * 16 * MT, wn, g,
+                    q, inv_win, dr, [](float, float, int) {});
+      __syncthreads();  // D of these pixels complete
+      product_w<CP, NW, false, MT>(acc, D + hp * HP * RS, ws, wm, wn, lane);  // dxn = gate + D . W^T
+      // dy = inv * scale * dxn - a - (y - mean) * b2, rounded once, over the y tile
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int p = pg + 16 * i;
-      if (p >= tpix) continue;
-      const long long px = tp.pixel(p) * C;
+      for (int nt = 0; nt < 4; ++nt) {
+        const int c = wn * 32 + nt * 8 + 2 * q;
+        const float2 m = ld2(vmean + c), gn = ld2(vgain + c), av = ld2(va + c), bv = ld2(vb2 + c);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int c = cg + 16 * j;
-        if (c >= C) continue;
-        const float yv = to_float(y[px + c]);
-        dy[px + c] = from_float<TY>(v.inv[c] * v.scale[c] * acc[i][j] - s_a[c] - (yv - v.mean[c]) * s_b2[c]);
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int p = hp * HP + wm * 16 * MT + mt * 16 + g + 8 * h;
+            const float2 yv = ld_bf2(yb + p * RS + c);
+            st_bf2(yb + p * RS + c, gn.x * acc[mt][nt][2 * h] - av.x - (yv.x - m.x) * bv.x,
+                   gn.y * acc[mt][nt][2 * h + 1] - av.y - (yv.y - m.y) * bv.y);
+          }
       }
+    }
+    __syncthreads();  // the tile's dy complete
+    {  // 16 or 8 bytes a store (mode 0: y, dout or dy not 8-byte aligned, two bytes a store)
+      const int ch = mode == 2 ? 8 : 4, nq = CP / ch;
+      for (int i = tid; i < tpix * nq; i += P::NTHR) {
+        const int p = i / nq, k = i % nq;
+        if (k * ch >= C) continue;
+        bf16* dst = dy + tp.pixel(p) * C + k * ch;
+        const bf16* src = yb + p * RS + k * ch;
+        if (mode == 2) {
+          *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+        } else if (mode == 1) {
+          *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dst[e] = src[e];
+        }
+      }
+    }
+    if (buffers == 1 && t + 1 < last) {
+      __syncthreads();  // every warp is done with the only y and dout tiles
+      stage(t + 1, 0);
+      cp_async_commit();
     }
   }
 }
@@ -1739,11 +1953,6 @@ stats_kernel(const TY* __restrict__ y, double* __restrict__ partials, long long 
     for (int g = 0; g < groups; ++g) t += dred[g * 2 * C + i];
     partials[(long long)blockIdx.x * 2 * C + i] = t;
   }
-}
-
-// The recompute fixup: xn and dlin tiles, W rows padded, five vectors, a and b2.
-size_t fixup_recompute_smem(int C) {
-  return sizeof(float) * (2 * (size_t)kPix * (C + 1) + (size_t)C * (C + 1) + 7 * (size_t)C);
 }
 
 // Arguments shared by the forward and both backward passes.
@@ -1850,18 +2059,62 @@ int launch_bwd_bf16(const BlockArgs& a, const void* dout, void* dyp, float* part
   return (int)launch_fold<float>(partials, sums, (int)(grid.x * grid.y), a.C * a.C + 3 * a.C, stream);
 }
 
-template <int NJ, typename TY>
-int launch_fixup_recompute(const BlockArgs& a, const void* dout, const float* av, const float* b2,
-                           void* dy, cudaStream_t stream) {
-  const size_t smem = fixup_recompute_smem(a.C);
-  cudaError_t err = cudaFuncSetAttribute(bn_bwd_fixup_recompute_kernel<NJ, TY>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+// The recompute fixups' shared memory set; their blocks an SM into *resident
+// where that is not null (registers and shared memory).
+template <int NJ>
+cudaError_t fix_f32_attrs(int drows, int* resident) {
+  const size_t smem = fix_f32_smem<NJ>(drows);
+  cudaError_t err = cudaFuncSetAttribute(bn_bwd_fixup_recompute_kernel<NJ>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess || resident == nullptr) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, bn_bwd_fixup_recompute_kernel<NJ>, kThreads, smem);
+}
+
+template <int CP>
+cudaError_t fix_bf16_attrs(int buffers, int drows, int* resident) {
+  constexpr int NW = kFixWarps<CP>;
+  const size_t smem = fix_bf16_smem<CP>(buffers, drows);
+  cudaError_t err = cudaFuncSetAttribute(bn_bwd_fixup_recompute_bf16_kernel<CP, NW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess || resident == nullptr) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, bn_bwd_fixup_recompute_bf16_kernel<CP, NW>,
+                                                       32 * NW, smem);
+}
+
+// buffers, drows: one or two buffers of drows = kPix / (pt pf) rows in
+// bfloat16; one buffer of those rows or none (dout read from device memory)
+// in float32
+bool fixup_plan_ok(int buffers, int drows, int pt, int pf, bool bf16) {
+  if (bf16) return (buffers == 1 || buffers == 2) && drows == kPix / (pt * pf);
+  return buffers == 1 && (drows == 0 || drows == kPix / (pt * pf));
+}
+
+// blocks: the grid, one dimension; each block a run of the batch's tiles
+template <int NJ>
+int launch_fixup_f32(const BlockArgs& g, const void* dout, const float* av, const float* b2, void* dy, int blocks,
+                     int buffers, int drows, cudaStream_t stream) {
+  if (!fixup_plan_ok(buffers, drows, g.pt, g.pf, false)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = fix_f32_attrs<NJ>(drows, nullptr);
   if (err != cudaSuccess) return (int)err;
-  bn_bwd_fixup_recompute_kernel<NJ, TY><<<block_grid(a), kThreads, smem, stream>>>(
-      static_cast<const TY*>(a.y), static_cast<const TY*>(dout), a.scale, a.bias, a.mean, a.var,
-      a.glu_w, a.glu_b, av, b2, static_cast<TY*>(dy), a.T, a.F, a.C, a.pt, a.pf, a.eps,
-      tile_of(a.F, a.pt, a.pf), a.tiles_per_block, a.dr);
+  const bool vec = aligned16(g.y) && aligned16(dout) && aligned16(dy);
+  bn_bwd_fixup_recompute_kernel<NJ><<<blocks, kThreads, fix_f32_smem<NJ>(drows), stream>>>(
+      static_cast<const float*>(g.y), static_cast<const float*>(dout), g.scale, g.bias, g.mean, g.var, g.glu_w,
+      g.glu_b, av, b2, static_cast<float*>(dy), g.B, g.T, g.F, g.C, g.pt, g.pf, g.eps, tile_of(g.F, g.pt, g.pf),
+      g.dr, drows, (int)vec);
+  return (int)cudaGetLastError();
+}
+
+template <int CP>
+int launch_fixup_bf16(const BlockArgs& g, const void* dout, const float* av, const float* b2, void* dy, int blocks,
+                      int buffers, int drows, cudaStream_t stream) {
+  if (!fixup_plan_ok(buffers, drows, g.pt, g.pf, true)) return (int)cudaErrorInvalidValue;
+  constexpr int NW = kFixWarps<CP>;
+  const cudaError_t err = fix_bf16_attrs<CP>(buffers, drows, nullptr);
+  if (err != cudaSuccess) return (int)err;
+  bn_bwd_fixup_recompute_bf16_kernel<CP, NW><<<blocks, 32 * NW, fix_bf16_smem<CP>(buffers, drows), stream>>>(
+      static_cast<const bf16*>(g.y), static_cast<const bf16*>(dout), g.scale, g.bias, g.mean, g.var, g.glu_w,
+      g.glu_b, av, b2, static_cast<bf16*>(dy), g.B, g.T, g.F, g.C, g.pt, g.pf, g.eps, tile_of(g.F, g.pt, g.pf),
+      g.dr, buffers, drows, bf16_mode(g.C, g.y, dout, dy));
   return (int)cudaGetLastError();
 }
 
@@ -1968,30 +2221,46 @@ int dcase_bn_glu_pool_bwd(const void* y, const void* dout, const void* scale,
                  : launch_bwd<8>(a, dout, dyp, pa, su, buffers, drows, st);
 }
 
+// Blocks of a recompute fixup that one SM of the current device holds at C
+// channels, bf16 and (buffers, drows) (0 on an error); the wrapper sizes its
+// grid from it.
+int dcase_bn_bwd_fixup_recompute_resident(int C, int bf16, int buffers, int drows) {
+  int resident = 0;
+  cudaError_t err;
+  if (bf16)
+    err = C <= 64 ? fix_bf16_attrs<64>(buffers, drows, &resident) : fix_bf16_attrs<128>(buffers, drows, &resident);
+  else
+    err = C <= 64 ? fix_f32_attrs<4>(drows, &resident) : fix_f32_attrs<8>(drows, &resident);
+  return err == cudaSuccess ? resident : 0;
+}
+
 // Second backward pass without dy_partial: dy [B, T, F, C] in y's dtype from
 // y, dout and a, b2 [C] (float32, from the folded S1, S2); the other
-// arguments as in dcase_bn_glu_pool_bwd, with the same tiles_per_block and
-// dropout (the mask is regenerated bit for bit).
+// arguments as in dcase_bn_glu_pool_bwd, with the same dropout (the mask is
+// regenerated bit for bit); blocks: the grid (1 to B * tiles), each block a
+// run of the batch's tiles; buffers, drows: the tiles of y and of dout in
+// shared memory (ops/fused_block.fixup_plan).
 int dcase_bn_bwd_fixup_recompute(const void* y, const void* dout, const void* scale,
                                  const void* bias, const void* mean, const void* var,
                                  const void* glu_w, const void* glu_b, const void* a,
                                  const void* b2, void* dy, int B, int T, int F, int C, int pt,
                                  int pf, float eps, const void* seed, unsigned int threshold,
-                                 float keep_scale, int packed, int tiles_per_block, int bf16,
-                                 void* stream) {
+                                 float keep_scale, int packed, int blocks, int bf16,
+                                 int buffers, int drows, void* stream) {
+  if (blocks < 1) return (int)cudaErrorInvalidValue;
   const BlockArgs g{y, static_cast<const float*>(scale), static_cast<const float*>(bias),
                     static_cast<const float*>(mean), static_cast<const float*>(var),
                     static_cast<const float*>(glu_w), static_cast<const float*>(glu_b),
-                    B, T, F, C, pt, pf, eps, tiles_per_block,
+                    B, T, F, C, pt, pf, eps, 0,
                     dropout_of(seed, threshold, keep_scale, packed)};
   const auto* av = static_cast<const float*>(a);
   const auto* bv = static_cast<const float*>(b2);
   auto st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return C <= 64 ? launch_fixup_recompute<4, __nv_bfloat16>(g, dout, av, bv, dy, st)
-                   : launch_fixup_recompute<8, __nv_bfloat16>(g, dout, av, bv, dy, st);
-  return C <= 64 ? launch_fixup_recompute<4, float>(g, dout, av, bv, dy, st)
-                 : launch_fixup_recompute<8, float>(g, dout, av, bv, dy, st);
+    return C <= 64 ? launch_fixup_bf16<64>(g, dout, av, bv, dy, blocks, buffers, drows, st)
+                   : launch_fixup_bf16<128>(g, dout, av, bv, dy, blocks, buffers, drows, st);
+  return C <= 64 ? launch_fixup_f32<4>(g, dout, av, bv, dy, blocks, buffers, drows, st)
+                 : launch_fixup_f32<8>(g, dout, av, bv, dy, blocks, buffers, drows, st);
 }
 
 // Second backward pass, in place over dyp. n: elements of y; C % 4 == 0; y

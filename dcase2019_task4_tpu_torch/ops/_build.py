@@ -57,7 +57,8 @@ SIGNATURES = {
     # dropout arguments of every kernel that drops: seed, threshold, keep_scale, packed
     "dcase_bn_glu_pool": (_I, [_P] * 8 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _I, _P]),
     "dcase_bn_glu_pool_bwd": (_I, [_P] * 11 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _I, _I, _I, _P]),
-    "dcase_bn_bwd_fixup_recompute": (_I, [_P] * 11 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _I, _P]),
+    "dcase_bn_bwd_fixup_recompute": (_I, [_P] * 11 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _I, _I, _I, _P]),
+    "dcase_bn_bwd_fixup_recompute_resident": (_I, [_I, _I, _I, _I]),
     "dcase_bn_bwd_fixup": (_I, [_P, _P, _P, _P, _P, _LL, _I, _I, _P]),
     "dcase_batch_stats": (_I, [_P, _P, _P, _LL, _I, _I, _I, _P]),
     "dcase_entry_conv": (_I, [_P] * 6 + [_I] * 7 + [_P]),

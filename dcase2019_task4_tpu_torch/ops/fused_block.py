@@ -16,6 +16,8 @@ version beside it:
                               + fold
   bwd_fixup                   bn_bwd_fixup_kernel            bwd_reference (second half)
   bwd_fixup_recompute         bn_bwd_fixup_recompute_kernel  bwd_fixup_recompute_reference
+                              (float32),
+                              bn_bwd_fixup_recompute_bf16_kernel
   dropout_mask                dropout_mask_kernel (a test    dropout_keep_mask
                               helper, csrc/entry_block.cu)
 
@@ -35,10 +37,10 @@ bfloat16; the pooled output, dy_partial and dy are stored in y's dtype; dW,
 db, S1, S2 and the batch statistics are float32. The plain versions round
 the operands and multiply in float32 (no bfloat16 matmul, whose
 accumulation order is unspecified). On the card the bfloat16 forward and
-reduce pass take the channel products on the tensor cores (mma.sync,
-bfloat16 operands, float32 sums: the same roundings, the sums inside a
-product in another order); the float32 kernels and the bfloat16 recompute
-fixup multiply on FP32 FMAs.
+reduce pass and recompute fixup take the channel products on the tensor
+cores (mma.sync, bfloat16 operands, float32 sums: the same roundings, the
+sums inside a product in another order); the float32 kernels multiply on
+FP32 FMAs.
 
 Dropout: the keep-mask comes from Philox4x32-10 keyed on the seed, with the
 counter the global element index of y divided by four (one call gives the
@@ -429,6 +431,49 @@ def bf16_reduce_plan(channels: int, pool):
     raise ValueError(f"the bfloat16 reduce pass does not fit {channels} channels at pool {pool}")
 
 
+def fixup_plan(channels: int, pool, dtype=torch.float32):
+    """The recompute fixup's shared memory at `channels` C, `pool` (pt, pf)
+    and y's `dtype` → (buffers, drows, bytes), the channels padded to CP =
+    64 (C ≤ 64) or 128 and drows = 128 // (pt·pf), the pooled rows of a
+    tile. float32 (csrc/fused_block.cu fix_f32_smem): the reduce pass's
+    layout with one buffer and six vectors for its seven: the y tile [128]
+    rows and the dout tile [drows] rows of CP + 4 floats, the dlin tile
+    [128], W [CP][CP], six per-channel vectors [CP] and two pixel tables
+    [128] of int32; drows = 0 where the dout rows do not fit (dout then read
+    from device memory). One buffer leaves room for two blocks an SM at C ≤
+    64. bfloat16 (fix_bf16_smem): per buffer the y tile and the tile's
+    pooled rows of dout in bfloat16 rows of RS = CP + 8; A, D [128][RS] and
+    W [CP][RS]; eight vectors [CP] float32; the keep bits [128][CP/4 + 4]
+    bytes and the dout-row table [128] int32; two buffers where they fit,
+    else one."""
+    cp = 64 if channels <= 64 else 128
+    rows = _TILE_PIXELS // (pool[0] * pool[1])
+    if dtype == torch.bfloat16:
+        plans = [(buffers, rows, 2 * (cp + 8) * (buffers * (_TILE_PIXELS + rows) + 2 * _TILE_PIXELS + cp) + 4 * 8 * cp
+                  + _TILE_PIXELS * (cp // 4 + 4) + 4 * _TILE_PIXELS) for buffers in (2, 1)]
+    else:
+        plans = [(1, drows, 4 * (2 * _TILE_PIXELS * (cp + 4) + drows * (cp + 4) + cp * cp + 6 * cp + 2 * _TILE_PIXELS))
+                 for drows in (rows, 0)]
+    for plan in plans:
+        if plan[2] <= _MAX_SHARED:
+            return plan
+    raise ValueError(f"the recompute fixup does not fit {channels} channels at pool {pool} in {dtype}")
+
+
+@functools.cache
+def _fixup_blocks(index: int, channels: int, bf16: bool, buffers: int, drows: int) -> int:
+    """Blocks of the recompute fixup that device `index` holds at once under
+    its plan: what one SM holds (registers and shared memory, from the CUDA
+    occupancy calculator) times its SMs. The fixup keeps no partial sums, so
+    its grid is one wave of long-lived blocks, each an equal run of the
+    batch's tiles (clip after clip)."""
+    with torch.cuda.device(index):
+        resident = _build.library().dcase_bn_bwd_fixup_recompute_resident(channels, int(bf16), buffers, drows)
+    if resident < 1:
+        raise _build.KernelError(f"the recompute fixup does not fit an SM at {channels} channels")
+    return resident * _build.sm_count(index)
+
+
 def _tiles_per_block(tiles: int, B: int, target: int) -> int:
     """Pixel tiles each block takes so that `tiles` a clip over B clips make
     about `target` blocks."""
@@ -591,13 +636,15 @@ def bwd_fixup_recompute(y, dout, scale, bias, mean, var, glu_w, glu_b, a, b, poo
     (s, bi, mu, va, gb, av, bv), w = _vectors(y, (scale, bias, mean, var, glu_b, a, b), glu_w)
     dout = dout.to(y.dtype).contiguous()
     lib = _build.library()
-    tpb = _tiles_per_block(lib.dcase_bn_glu_pool_tiles(T, Fq, pt, pf), B, _TARGET_BLOCKS_BWD)
+    bf16 = y.dtype == torch.bfloat16
+    buffers, drows, _ = fixup_plan(C, pool, y.dtype)
+    blocks = min(_fixup_blocks(y.device.index, C, bf16, buffers, drows), B * lib.dcase_bn_glu_pool_tiles(T, Fq, pt, pf))
     dy = torch.empty_like(y)
     seed_t = _seed_tensor(seed, y.device)
     status = lib.dcase_bn_bwd_fixup_recompute(
         y.data_ptr(), dout.data_ptr(), s.data_ptr(), bi.data_ptr(), mu.data_ptr(), va.data_ptr(), w.data_ptr(),
         gb.data_ptr(), av.data_ptr(), bv.data_ptr(), dy.data_ptr(), B, T, Fq, C, pt, pf, float(eps),
-        seed_t.data_ptr(), threshold, keep_scale, packed, tpb, int(y.dtype == torch.bfloat16),
+        seed_t.data_ptr(), threshold, keep_scale, packed, blocks, int(bf16), buffers, drows,
         _build.stream_handle(y.device),
     )
     _build.check(status, "bwd_fixup_recompute")

@@ -197,3 +197,47 @@ def test_forward_plan_matches_the_kernel_source():
                  "static_assert(fwd_f32_smem<8>() <= 232448,"):
         assert line in src, line
     assert f"static_assert(fwd_f32_smem<8>() <= {tfb._MAX_SHARED}," in src
+
+
+def test_fixup_plan_fits_every_admitted_width():
+    """The recompute fixup's shared memory fits a block at every C and pool
+    the fused block admits, in both element types: float32 one y buffer with
+    the tile's dout rows where they fit, else dout read from device memory;
+    bfloat16 two buffers where they fit, else one; the bytes are the kernels'
+    layouts (csrc/fused_block.cu fix_f32_smem, fix_bf16_smem); at the main
+    paths' C = 64 (pool (2, 4)) both leave room for two blocks an SM."""
+    for pool in ((2, 4), (2, 8), (2, 2), (1, 1), (1, 2), (4, 4), (8, 16)):
+        rows = 128 // (pool[0] * pool[1])
+        for C in range(4, 129, 4):
+            assert tfb.applicable((1, 8 * pool[0], 8 * pool[1], C), pool)
+            cp = 64 if C <= 64 else 128
+            rs = cp + 8
+
+            def f32(d):
+                return 4 * (2 * 128 * (cp + 4) + d * (cp + 4) + cp * cp + 6 * cp + 2 * 128)
+
+            def bf16(b):
+                return 2 * rs * (b * (128 + rows) + 256 + cp) + 4 * 8 * cp + 128 * (cp // 4 + 4) + 512
+
+            drows = rows if f32(rows) <= tfb._MAX_SHARED else 0
+            assert tfb.fixup_plan(C, pool) == (1, drows, f32(drows)) and f32(drows) <= tfb._MAX_SHARED
+            buffers = 2 if bf16(2) <= tfb._MAX_SHARED else 1
+            assert tfb.fixup_plan(C, pool, torch.bfloat16) == (buffers, rows, bf16(buffers))
+            assert bf16(buffers) <= tfb._MAX_SHARED
+    assert 2 * (tfb.fixup_plan(64, (2, 4))[2] + 1024) <= 233472
+    assert 2 * (tfb.fixup_plan(64, (2, 4), torch.bfloat16)[2] + 1024) <= 233472
+
+
+def test_fixup_plan_matches_the_kernel_source():
+    from pathlib import Path
+
+    src = (Path(tfb.__file__).parent.parent / "csrc" / "fused_block.cu").read_text()
+    for line in ("return sizeof(float) * (2 * kPix * P::KS + (size_t)drows * P::KS + P::CP * P::CP + 6 * P::CP + 2 * kPix);",
+                 "return 2 * (size_t)P::RS * ((size_t)buffers * (kPix + drows) + 2 * kPix + CP) + 4 * 8 * (size_t)CP +\n"
+                 "         (size_t)kPix * P::MS + 4 * kPix;",
+                 "constexpr int kFixWarps = CP == 128 ? 16 : 8;", "static constexpr int MS = KG + 4;",
+                 "__launch_bounds__(kThreads, NJ == 4 ? 2 : 1)\nbn_bwd_fixup_recompute_kernel(",
+                 "__launch_bounds__(32 * NW, NW == 8 ? 2 : 1)\nbn_bwd_fixup_recompute_bf16_kernel(",
+                 "if (bf16) return (buffers == 1 || buffers == 2) && drows == kPix / (pt * pf);",
+                 "return buffers == 1 && (drows == 0 || drows == kPix / (pt * pf));"):
+        assert line in src, line

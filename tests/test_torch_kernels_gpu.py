@@ -31,9 +31,11 @@ scaled-configuration step and one flagship bfloat16 step per first-block
 configuration against the CPU. Last, the JAX package's three A/B knobs:
 K1's onedot kernel (1e-5 of max of the plain version, and of a float64 DFT
 at its tile edges, twice bit for bit), K2b's first pass without dy_partial and
-the recompute fixup (float32 1e-4 of max, and the autograd Function with the
-mode on within 1e-6 of max of its dy with it off; bfloat16 one ulp plus the
-slack of dxn's products), the packed keep-mask kernel bit for bit, K2 and
+the recompute fixup (float32 1e-4 of max, also where y lies 20 std from 0,
+and the autograd Function with the mode on within 1e-6 of max of its dy with
+it off; bfloat16 one ulp plus the slack of dxn's products; both at C 16 to
+128, pools (2, 2) to (2, 8), window and ragged tiles, both draws, an
+unaligned y and dout bit-equal), the packed keep-mask kernel bit for bit, K2 and
 K5 with the packed draw against their plain versions with that mask, and
 one training step with all three knobs on against the CPU, its launches
 counted.
@@ -752,6 +754,15 @@ def test_fused_block_bf16_backward(cuda, shape, pool, rate):
         assert torch.equal(got, rerun)  # fixed-order folds: bit-equal on a repeat
 
 
+def _unaligned(t):
+    """A copy of t whose storage starts one element in: no 8- or 16-byte copies."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 8 != 0
+    return view
+
+
 # K2's bfloat16 tensor-core kernels with the packed draw, in the recompute
 # knob's first pass, and on a y whose storage starts one element in (no copy
 # alignment: the kernels stage by loads)
@@ -791,15 +802,8 @@ def test_k2_bf16_packed_draw_recompute_pass_and_unaligned_y(cuda, shape, pool):
     assert fb.bwd_reduce.launches_nodyp_bf16 == nodyp + 1 and first[0] is None
     assert all(torch.equal(g, f) for g, f in zip(got[1:], first[1:]))
 
-    def unaligned(t):
-        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-        view = buf[1:].view(t.shape)
-        view.copy_(t)
-        assert view.is_contiguous() and view.data_ptr() % 8 != 0
-        return view
-
-    assert torch.equal(fb.fused_bn_glu_pool(unaligned(y), scale, bias, mean, var, w, b, pool, 1e-3, **kw), out)
-    again = fb.bwd_reduce(unaligned(y), unaligned(dout), scale, bias, mean, var, w, b, pool, 1e-3, recompute=False,
+    assert torch.equal(fb.fused_bn_glu_pool(_unaligned(y), scale, bias, mean, var, w, b, pool, 1e-3, **kw), out)
+    again = fb.bwd_reduce(_unaligned(y), _unaligned(dout), scale, bias, mean, var, w, b, pool, 1e-3, recompute=False,
                           **kw)
     assert all(torch.equal(g, a) for g, a in zip(got, again))
 
@@ -1191,40 +1195,49 @@ def _fixup_inputs(rng, shape, pool, cuda, dtype):
     return y, dout, (scale, bias, mean, var, w, b)
 
 
+# the recompute fixups' tiles beyond TRAIN_SHAPES at pool (2, 4): C = 20 and 100 (padded channels), C = 128 and F =
+# 128 (window tiles of 2 x 64), pools (2, 2) and (2, 8), ragged last tiles (T = 10 of 4-row tiles, 38 of 8)
+FIXUP_EDGES = [((1, 14, 16, 20), (2, 4)), ((2, 10, 24, 100), (2, 4)), ((1, 6, 128, 128), (2, 4)),
+               ((1, 6, 128, 64), (2, 4)), ((2, 12, 32, 64), (2, 2)), ((1, 8, 32, 128), (2, 2)),
+               ((1, 10, 64, 128), (2, 8)), ((2, 38, 16, 64), (2, 8))]
+
+
 @pytest.mark.parametrize("pack", [False, True])
 @pytest.mark.parametrize("rate", [0.0, 0.5])
-@pytest.mark.parametrize("shape", TRAIN_SHAPES)
-def test_bwd_fixup_recompute_float32(cuda, shape, rate, pack):
+@pytest.mark.parametrize("shape,pool", [(s, (2, 4)) for s in TRAIN_SHAPES] + FIXUP_EDGES)
+def test_bwd_fixup_recompute_float32(cuda, shape, pool, rate, pack):
     """K2b without dy_partial: both passes against the plain versions (1e-4
-    of max), and the autograd Function with the mode on against itself with
-    it off (dy within 1e-6 of max; the other gradients bit for bit: the same
+    of max), the fixup on an unaligned y and dout bit-equal to its aligned
+    run, and the autograd Function with the mode on against itself with it
+    off (dy within 1e-6 of max; the other gradients bit for bit: the same
     first-pass kernel)."""
     rng = np.random.default_rng(sum(shape) + 7)
-    y, dout, vecs = _fixup_inputs(rng, shape, (2, 4), cuda, torch.float32)
+    y, dout, vecs = _fixup_inputs(rng, shape, pool, cuda, torch.float32)
     seed = torch.tensor([31 + shape[1]])
     fb = fused_block
     kw = dict(rate=rate, seed=seed, pack_bits=pack)
     before = (fb.bwd_reduce.launches, fb.bwd_reduce.launches_nodyp, fb.bwd_fixup_recompute.launches,
               fb.bwd_reduce.launches_packed, fb.bwd_fixup_recompute.launches_packed)
-    dyp, dw, db, s1, s2 = fb.bwd_reduce(y, dout, *vecs, (2, 4), 1e-3, recompute=True, **kw)
+    dyp, dw, db, s1, s2 = fb.bwd_reduce(y, dout, *vecs, pool, 1e-3, recompute=True, **kw)
     assert dyp is None
     a, b2 = fb.bwd_coefficients(vecs[0], vecs[3], 1e-3, s1, s2, y.numel() // shape[-1])
-    dy = fb.bwd_fixup_recompute(y, dout, *vecs, a, b2, (2, 4), 1e-3, **kw)
+    dy = fb.bwd_fixup_recompute(y, dout, *vecs, a, b2, pool, 1e-3, **kw)
     packed = int(pack and rate > 0)
     assert (fb.bwd_reduce.launches, fb.bwd_reduce.launches_nodyp, fb.bwd_fixup_recompute.launches,
             fb.bwd_reduce.launches_packed, fb.bwd_fixup_recompute.launches_packed) == (
         before[0], before[1] + 1, before[2] + 1, before[3] + packed, before[4] + packed)
     mask = fb.dropout_keep_mask(seed, shape, rate, device=cuda, pack_bits=pack) if rate else None
-    want = fb.bwd_fixup_recompute_reference(y, dout, *vecs, a, b2, (2, 4), 1e-3, mask, 1.0 - rate)
+    want = fb.bwd_fixup_recompute_reference(y, dout, *vecs, a, b2, pool, 1e-3, mask, 1.0 - rate)
     assert (dy - want).abs().max().item() <= 1e-4 * want.abs().max().item()
-    ref = fb.bwd_reduce_reference(y, dout, *vecs, (2, 4), 1e-3, mask, 1.0 - rate)
+    assert torch.equal(fb.bwd_fixup_recompute(_unaligned(y), _unaligned(dout), *vecs, a, b2, pool, 1e-3, **kw), dy)
+    ref = fb.bwd_reduce_reference(y, dout, *vecs, pool, 1e-3, mask, 1.0 - rate)
     for name, got, w in zip(("dw", "db", "S1", "S2"), (dw, db, s1, s2), ref[1:]):
         assert (got - w).abs().max().item() <= 1e-4 * w.abs().max().item(), name
 
     def run(recompute):
         leaves = [t.clone().requires_grad_(True) for t in (y, vecs[0], vecs[1], vecs[4], vecs[5])]
         fb.fused_bn_glu_dropout_pool(leaves[0], leaves[1], leaves[2], vecs[2], vecs[3], leaves[3], leaves[4], seed,
-                                     rate, (2, 4), 1e-3, True, pack_bits=pack, recompute=recompute).backward(dout)
+                                     rate, pool, 1e-3, True, pack_bits=pack, recompute=recompute).backward(dout)
         return [t.grad for t in leaves]
 
     on, off = run(True), run(False)
@@ -1233,27 +1246,56 @@ def test_bwd_fixup_recompute_float32(cuda, shape, rate, pack):
     assert all(torch.equal(p, q) for p, q in zip(on, run(True)))  # a repeat: the same bits
 
 
-@pytest.mark.parametrize("rate", [0.0, 0.5])
-@pytest.mark.parametrize("shape,pool", BF16_BLOCKS + [((2, 38, 16, 64), (2, 4))])
-def test_bwd_fixup_recompute_bf16(cuda, shape, pool, rate):
+@pytest.mark.parametrize("shape,pool", [((2, 8, 64, 64), (2, 4)), ((1, 10, 64, 128), (2, 8)), ((1, 14, 16, 20), (2, 4))])
+def test_bwd_fixup_recompute_float32_channel_offset(cuda, shape, pool):
+    """The float32 recompute fixup where y lies 20 ± 3 std from 0 per channel
+    and BN's mean and var are y's own, with and without the packed draw: dy
+    within the same 1e-4 of max (dy carries (y - mean) b2; the kernel forms y
+    - mean as the plain version does)."""
+    rng = np.random.default_rng(sum(shape) + 20)
+    C = shape[-1]
+    yn = 20.0 + 3.0 * rng.standard_normal(shape) * rng.uniform(0.5, 2.0, C)
+    y = _t(yn, cuda)
+    scale, bias, _, _, w, b = _block_args(rng, C, cuda)
+    vecs = (scale, bias, _t(yn.mean(axis=(0, 1, 2)), cuda), _t(yn.var(axis=(0, 1, 2)), cuda), w, b)
+    dout = _t(rng.standard_normal((shape[0], shape[1] // pool[0], shape[2] // pool[1], C)), cuda)
+    seed, fb = torch.tensor([2020 + shape[1]]), fused_block
+    for rate, pack in ((0.0, False), (0.5, True)):
+        kw = dict(rate=rate, seed=seed, pack_bits=pack)
+        _, _, _, s1, s2 = fb.bwd_reduce(y, dout, *vecs, pool, 1e-3, recompute=True, **kw)
+        a, b2 = fb.bwd_coefficients(vecs[0], vecs[3], 1e-3, s1, s2, y.numel() // C)
+        dy = fb.bwd_fixup_recompute(y, dout, *vecs, a, b2, pool, 1e-3, **kw)
+        mask = fb.dropout_keep_mask(seed, shape, rate, device=cuda, pack_bits=pack) if rate else None
+        want = fb.bwd_fixup_recompute_reference(y, dout, *vecs, a, b2, pool, 1e-3, mask, 1.0 - rate)
+        assert (dy - want).abs().max().item() <= 1e-4 * want.abs().max().item(), rate
+
+
+@pytest.mark.parametrize("rate,pack", [(0.0, False), (0.5, False), (0.5, True)])
+@pytest.mark.parametrize("shape,pool", BF16_BLOCKS + [((2, 38, 16, 64), (2, 4)), ((2, 12, 32, 64), (2, 2)),
+                                                      ((1, 8, 32, 128), (2, 2))])
+def test_bwd_fixup_recompute_bf16(cuda, shape, pool, rate, pack):
     """The bfloat16 recompute fixup against its plain version: dy within one
     ulp plus the slack of dxn's two channel products (at most 1e-3 of the
-    elements beyond one ulp), rounded once."""
+    elements beyond one ulp), rounded once; a repeat, and a run on an
+    unaligned y and dout (staged by loads, stored two bytes at a time), the
+    same bits."""
     rng = np.random.default_rng(sum(shape) + 8)
     y, dout, vecs = _fixup_inputs(rng, shape, pool, cuda, torch.bfloat16)
     seed = torch.tensor([57])
     fb = fused_block
+    kw = dict(rate=rate, seed=seed, pack_bits=pack)
     before = (fb.bwd_reduce.launches_nodyp_bf16, fb.bwd_fixup_recompute.launches_bf16)
-    _, dw, db, s1, s2 = fb.bwd_reduce(y, dout, *vecs, pool, 1e-3, rate=rate, seed=seed, recompute=True)
+    _, dw, db, s1, s2 = fb.bwd_reduce(y, dout, *vecs, pool, 1e-3, recompute=True, **kw)
     a, b2 = fb.bwd_coefficients(vecs[0], vecs[3], 1e-3, s1, s2, y.numel() // shape[-1])
-    dy = fb.bwd_fixup_recompute(y, dout, *vecs, a, b2, pool, 1e-3, rate=rate, seed=seed)
+    dy = fb.bwd_fixup_recompute(y, dout, *vecs, a, b2, pool, 1e-3, **kw)
     assert (fb.bwd_reduce.launches_nodyp_bf16, fb.bwd_fixup_recompute.launches_bf16) == (before[0] + 1, before[1] + 1)
     assert dy.dtype == torch.bfloat16
-    mask = fb.dropout_keep_mask(seed, shape, rate, device=cuda) if rate else None
+    mask = fb.dropout_keep_mask(seed, shape, rate, device=cuda, pack_bits=pack) if rate else None
     want = fb.bwd_fixup_recompute_reference(y, dout, *vecs, a, b2, pool, 1e-3, mask, 1.0 - rate)
     slack = _dyp_slack(y, dout, vecs[0], vecs[1], vecs[2], vecs[3], vecs[4], pool, 1.0 - rate)
     _within_ulps(dy, want, "dy", slack + 2.0 ** -20 * want.float().abs().max())
-    assert torch.equal(dy, fb.bwd_fixup_recompute(y, dout, *vecs, a, b2, pool, 1e-3, rate=rate, seed=seed))
+    assert torch.equal(dy, fb.bwd_fixup_recompute(y, dout, *vecs, a, b2, pool, 1e-3, **kw))
+    assert torch.equal(dy, fb.bwd_fixup_recompute(_unaligned(y), _unaligned(dout), *vecs, a, b2, pool, 1e-3, **kw))
 
 
 @pytest.mark.parametrize("rate", [0.5, 0.3])
