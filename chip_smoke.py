@@ -8,9 +8,10 @@ printing a result:
 
   1. card   — nvidia-smi's name and power limit, torch's device name;
   2. build  — compile csrc/*.cu with nvcc for sm_90a, one compiler per source
-     in parallel (ptxas report printed); the product instruction of K3's
-     and K2's bfloat16 kernels read from the library's machine code (HGMMA
-     or HMMA, with the FFMA count; a kernel with neither fails), and of the
+     in parallel (ptxas report printed); the product instruction of K3's,
+     K2's and K5b1 / K5b2's bfloat16 kernels read from the library's
+     machine code (HGMMA or HMMA, with the FFMA count; a kernel with neither
+     fails), and of the
      FP32 product kernels (onedot K1, K3's float32 kernels, K2b's float32
      reduce pass: FFMA, and a kernel with HGMMA or HMMA fails);
   3. kernels — each hand-written kernel against its plain PyTorch version on
@@ -60,7 +61,9 @@ printing a result:
      flagship block-1 shape: K4f (y bfloat16, its float32 sums, against
      cuDNN's bfloat16 conv), K5s, K4w and K5b2 (dW in output-frequency
      parities), K5f eval and dropout (also against K4f -> K2f with the same
-     seed), K5b1, and the crows entries in their own mode (each g rounded
+     seed), K5b1 (also against K4f -> K2b's bfloat16 reduce pass without
+     dy_partial with the same seed: the shared tile code), and the crows
+     entries in their own mode (each g rounded
      before the pool, dW in batch halves: bit for bit as the fused entry
      block's wrappers with layout "crows", and held to the plain versions);
   4. predict — 48 synthetic 10 s wavs (two batches of 24) and a checkpoint
@@ -1678,6 +1681,17 @@ def entry_bf16_kernels(device, rows, rng):
                                             conv_ops + 3 * mix_ops)  # conv; lin, dxn, d glu_w
     dgw, dgb, r1, r2 = fe.entry_block_bwd_reduce(*args, pool, eps, rate=rate, seed=seed)
     a, b2 = fb.bwd_coefficients(scale, var, eps, r1, r2, pixels)
+    # K5b1 runs K2b's bfloat16 tile code (csrc/bf16_tile.cuh) on the y it
+    # computes: against K4f -> K2b's reduce pass without dy_partial, same seed
+    pair = fb.bwd_reduce(y, dout, scale, bias, mean, var, gw, gb, pool, eps, rate=rate, seed=seed, recompute=True)[1:]
+    same = all(torch.equal(p, q) for p, q in zip((dgw, dgb, r1, r2), pair))
+    worst = max((p - q).abs().max().item() / q.abs().max().item() for p, q in zip((dgw, dgb, r1, r2), pair))
+    if not worst <= 1e-4:
+        raise AssertionError(f"K5b1 bf16 against K4f -> K2b reduce bf16: {worst} of max exceeds 1e-4")
+    print("  K5b1 bf16 against K4f -> K2b reduce bf16 without dy_partial, same seed: "
+          + ("bit-equal" if same else f"largest difference {worst:.3e} of max (the same tile code on the same y, "
+                                      "summed over other runs of tiles)"))
+    del pair
 
     def pass2_slacks(layout):
         """dW: one ulp of each part's sum plus one dy element rounding the
@@ -2866,11 +2880,11 @@ BLOCK1_KERNELS = {
                         ("bn_glu_pool_bwd_kernel", 1), ("bn_bwd_fixup_kernel", 1)),
 }
 BLOCK1_KERNELS["step_crows"] = BLOCK1_KERNELS["step_entry_block"]
-BF16_K2_NAMES = {"bn_glu_pool_kernel": "bn_glu_pool_bf16_kernel", "bn_glu_pool_bwd_kernel": "bn_glu_pool_bwd_bf16_kernel"}
-BLOCK1_KERNELS.update({
-    "step_bf16": tuple((BF16_K2_NAMES.get(k, k), n) for k, n in BLOCK1_KERNELS["step"]),
-    "step_bf16_entry_block": BLOCK1_KERNELS["step_entry_block"], "step_bf16_crows": BLOCK1_KERNELS["step_entry_block"],
-    "step_bf16_entry_conv": tuple((BF16_K2_NAMES.get(k, k), n) for k, n in BLOCK1_KERNELS["step_entry_conv"])})
+BF16_NAMES = {"bn_glu_pool_kernel": "bn_glu_pool_bf16_kernel", "bn_glu_pool_bwd_kernel": "bn_glu_pool_bwd_bf16_kernel",
+              "entry_block_bwd_reduce_kernel": "entry_block_bwd_reduce_bf16_kernel",
+              "entry_block_bwd_wgrad_kernel": "entry_block_bwd_wgrad_bf16_kernel"}
+BLOCK1_KERNELS.update({f"step_bf16{path[4:]}": tuple((BF16_NAMES.get(k, k), n) for k, n in BLOCK1_KERNELS[path])
+                       for path in ("step", "step_entry_block", "step_crows", "step_entry_conv")})
 
 
 def block1_device_ms(step, state, batch, generator, acc, path: str, card: str) -> Optional[float]:
@@ -2988,9 +3002,10 @@ def profile_step(step, state, batch, generator, acc, card: str, step_ms: float, 
           f"{1e3 * (time.perf_counter() - t0) / 5:.3f} ms per step, during which the card waits")
 
 
-# K3's and K2's bfloat16 kernels: their products must be tensor-core instructions
+# K3's, K2's and K5's bfloat16 kernels: their products must be tensor-core instructions
 MMA_KERNELS = ("conv3x3_bf16_kernel", "conv3x3_wgrad_bf16_kernel", "bn_glu_pool_bf16_kernel",
-               "bn_glu_pool_bwd_bf16_kernel", "bn_bwd_fixup_recompute_bf16_kernel")
+               "bn_glu_pool_bwd_bf16_kernel", "bn_bwd_fixup_recompute_bf16_kernel",
+               "entry_block_bwd_reduce_bf16_kernel", "entry_block_bwd_wgrad_bf16_kernel")
 # the float32 products redesigned as register-tiled FP32 FMAs: FFMA, and no
 # tensor-core instruction (no TF32); bn_glu_pool_kernel is K2f's float32
 # forward alone, bn_glu_pool_bwd_kernel K2b's float32 reduce pass alone and

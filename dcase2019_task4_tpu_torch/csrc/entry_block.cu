@@ -16,8 +16,13 @@
 //                                  tools/bench_entry_conv_torch.py
 //   entry_conv_wgrad_kernel        dW = patches^T . dy, db = sum dy (K4w)
 //   entry_block_fwd_kernel         conv -> BN -> GLU -> dropout -> pool (K5f)
-//   entry_block_bwd_reduce_kernel  recompute; d glu_w, d glu_b, S1, S2 (K5b1)
-//   entry_block_bwd_wgrad_kernel   recompute; dy in registers; dW, d conv_b (K5b2)
+//   entry_block_bwd_reduce_kernel  recompute; d glu_w, d glu_b, S1, S2 (K5b1),
+//                                  float32; entry_block_bwd_reduce_bf16_kernel
+//                                  on bfloat16 x, on the tensor cores
+//   entry_block_bwd_wgrad_kernel   recompute; dy in registers; dW, d conv_b
+//                                  (K5b2), float32;
+//                                  entry_block_bwd_wgrad_bf16_kernel on
+//                                  bfloat16 x, on the tensor cores
 //   dropout_mask_kernel            the keep-mask alone, for tests
 // The parity planes, the [12, 128] patch basis, the 8-row halo blocks, the
 // shifted row copies and lane rolls, the 0/1 pooling matrices and the
@@ -48,6 +53,9 @@
 // 26.8 GFLOP, 0.40 ms): operations. Each kernel computes the conv once more
 // than that (y again for xh in pass 1, for dy in pass 2, to save a third
 // slab of shared memory); that recomputation is the kernel's, not the bound's.
+// In bfloat16 the channel products and dW take the tensor cores (989
+// TFLOP/s): the element chain at the FP32 rate then bounds both passes
+// (0.06 ms each), and the bfloat16 passes compute y once.
 //
 // Design: one block per (run of pixel tiles, clip); a tile is whole time rows
 // of up to 128 pixels, whole pooling rows in the fused kernels (the tiling of
@@ -62,7 +70,10 @@
 // recomputed from the staged tile instead of being kept (a slab of y would
 // halve the blocks per SM). Sums across blocks go to one slot per block and
 // fold_kernel adds the slots in slot order in double: no float atomics, a run
-// repeats bit for bit. Plain FP32 FMAs: no TF32, no tensor cores yet.
+// repeats bit for bit. Plain FP32 FMAs, no TF32, except K5's two bfloat16
+// backward passes: they compute y once into a bfloat16 tile and run K2's
+// bfloat16 tile code on it (bf16_tile.cuh, mma.sync; see the comment at
+// bwd_bf16_body).
 //
 // Element type: every kernel is instantiated for float32 and for bfloat16
 // (the model's compute dtype, `act_bf16` / `lp` in the originals). In
@@ -88,21 +99,23 @@
 // crows basis (crows_block.py:105-115,535). The kernels keep the parts apart
 // (a thread's pixels share one frequency parity when F is even; a block
 // holds one clip) and fold_classes_kernel rounds each part's sum and adds
-// the rounded parts. Shared memory holds float32 in both modes.
+// the rounded parts. Shared memory holds float32 in both modes, but for the
+// bfloat16 backward passes' tiles.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "bf16_tile.cuh"
 #include "chain.cuh"
 #include "dtype.cuh"
 #include "fold.cuh"
+#include "mma.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPix = 128;       // pixels per tile
 constexpr int kHalo = 4 * kPix; // floats of a staged x tile: (rows + 2) * (F + 2) <= 390
 
 // Time rows per tile: whole pooling rows, up to kPix pixels (pt * F <= kPix).
@@ -499,12 +512,12 @@ entry_block_fwd_kernel(const TX* __restrict__ x, const float* __restrict__ cw,
   }
 }
 
-// What both backward passes share, per tile: xn into xs, the masked dh into
-// ds, then lin, the gate term and dlin (over dh), and dxn into acc.
-template <int NJ, typename TX>
+// What both float32 backward passes share, per tile: xn into xs, the masked
+// dh into ds, then lin, the gate term and dlin (over dh), and dxn into acc.
+template <int NJ>
 __device__ __forceinline__ void recompute_dxn(float (&acc)[8][NJ], float* xs, float* ds,
                                               const float* ws, const float* xt,
-                                              const TX* __restrict__ dout, const Consts& k,
+                                              const float* __restrict__ dout, const Consts& k,
                                               int b, int T, int F, int C, int pt, int pf, int t0,
                                               int tpix, long long tile_base, const Dropout& dr,
                                               unsigned long long seed, int pg, int cg) {
@@ -513,13 +526,13 @@ __device__ __forceinline__ void recompute_dxn(float (&acc)[8][NJ], float* xs, fl
   const float inv_win = 1.0f / (float)(pt * pf);
   const int tid = threadIdx.x;
 
-  conv_to_xn<NJ, TX>(xs, CP, xt, FW, F, tpix, k, C, pg, cg);
+  conv_to_xn<NJ, float>(xs, CP, xt, FW, F, tpix, k, C, pg, cg);
   for (int i = tid; i < kPix * C; i += kThreads) {
     const int p = i / C, c = i % C;
     float dh = 0.0f;
     if (p < tpix) {
       const int t = p / F, f = p % F;
-      dh = to_float(dout[(((long long)b * Tp + (t0 + t) / pt) * Fp + f / pf) * C + c]) * inv_win;
+      dh = dout[(((long long)b * Tp + (t0 + t) / pt) * Fp + f / pf) * C + c] * inv_win;
     }
     ds[p * CP + c] = dh;
   }
@@ -534,7 +547,7 @@ __device__ __forceinline__ void recompute_dxn(float (&acc)[8][NJ], float* xs, fl
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
-  mix_rows<NJ, TX>(acc, xs, CP, ws, CP, C, pg, cg);
+  mix_rows<NJ, float>(acc, xs, CP, ws, CP, C, pg, cg);
   __syncthreads();  // masked dh complete
   // gate term into acc, dlin over dh (each element owned by one thread)
 #pragma unroll
@@ -553,13 +566,13 @@ __device__ __forceinline__ void recompute_dxn(float (&acc)[8][NJ], float* xs, fl
     }
   __syncthreads();  // dlin complete
   // dxn = dlin . W^T + gate; thread holds (pixel pg + 16 i, channel cg + 16 j)
-  mix_cols<NJ, TX>(acc, ds, CP, ws, CP, C, pg, cg);
+  mix_cols<NJ, float>(acc, ds, CP, ws, CP, C, pg, cg);
 }
 
-// Pass 1. Slot of a block: [C*C d glu_w | C d glu_b | C S1 | C S2].
-template <int NJ, typename TX>
+// Pass 1 in float32. Slot of a block: [C*C d glu_w | C d glu_b | C S1 | C S2].
+template <int NJ>
 __global__ void __launch_bounds__(kThreads)
-entry_block_bwd_reduce_kernel(const TX* __restrict__ x, const TX* __restrict__ dout,
+entry_block_bwd_reduce_kernel(const float* __restrict__ x, const float* __restrict__ dout,
                               const float* __restrict__ cw, const float* __restrict__ cb,
                               const float* __restrict__ scale, const float* __restrict__ bias,
                               const float* __restrict__ mean, const float* __restrict__ var,
@@ -580,7 +593,7 @@ entry_block_bwd_reduce_kernel(const TX* __restrict__ x, const TX* __restrict__ d
   const int b = blockIdx.y;
   const int FW = F + 2;
   const unsigned long long seed = seed_of(dr);
-  for (int i = tid; i < C * C; i += kThreads) ws[(i / C) * CP + i % C] = rounded<TX>(glu_w[i]);
+  for (int i = tid; i < C * C; i += kThreads) ws[(i / C) * CP + i % C] = glu_w[i];
   load_consts(k, scale, bias, mean, var, glu_b, cw, cb, C, eps);
 
   const int cg = tid % 16, pg = tid / 16;
@@ -608,7 +621,7 @@ entry_block_bwd_reduce_kernel(const TX* __restrict__ x, const TX* __restrict__ d
     stage_x(xt, x, b, T, F, t0, trows);
     __syncthreads();
     float acc[8][NJ];
-    recompute_dxn<NJ, TX>(acc, xs, ds, ws, xt, dout, k, b, T, F, C, pt, pf, t0, tpix, tile_base,
+    recompute_dxn<NJ>(acc, xs, ds, ws, xt, dout, k, b, T, F, C, pt, pf, t0, tpix, tile_base,
                           dr, seed, pg, cg);
 
     // S1 += dxn, S2 += dxn * xh, with y recomputed from the staged tile
@@ -624,7 +637,7 @@ entry_block_bwd_reduce_kernel(const TX* __restrict__ x, const TX* __restrict__ d
       for (int i = 0; i < 8; ++i) {
         const int p = pg + 16 * i;
         if (p >= tpix) continue;
-        const float yv = rounded<TX>(conv9(xt + (p / F) * FW + (p % F), FW, w, cbv));
+        const float yv = conv9(xt + (p / F) * FW + (p % F), FW, w, cbv);
         const float dxn = acc[i][j];
         s1[j] += dxn;
         s2[j] = fmaf(dxn, (yv - mu) * inv, s2[j]);
@@ -633,21 +646,18 @@ entry_block_bwd_reduce_kernel(const TX* __restrict__ x, const TX* __restrict__ d
 
     // d glu_w += xn^T . dlin, d glu_b += sum dlin; thread holds (ci = pg + 16 i, co = cg + 16 j)
     for (int p = 0; p < tpix; ++p) {
-      float xv[NJ], dv[NJ], dr[NJ];
+      float xv[NJ], dv[NJ];
 #pragma unroll
-      for (int i = 0; i < NJ; ++i) xv[i] = rounded<TX>(xs[p * CP + ((pg + 16 * i) < C ? pg + 16 * i : 0)]);
+      for (int i = 0; i < NJ; ++i) xv[i] = xs[p * CP + ((pg + 16 * i) < C ? pg + 16 * i : 0)];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        dr[j] = ds[p * CP + ((cg + 16 * j) < C ? cg + 16 * j : 0)];
-        dv[j] = rounded<TX>(dr[j]);
-      }
+      for (int j = 0; j < NJ; ++j) dv[j] = ds[p * CP + ((cg + 16 * j) < C ? cg + 16 * j : 0)];
 #pragma unroll
       for (int i = 0; i < NJ; ++i)
 #pragma unroll
         for (int j = 0; j < NJ; ++j) dw[i][j] = fmaf(xv[i], dv[j], dw[i][j]);
       if (pg == 0) {
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) dbv[j] += dr[j];
+        for (int j = 0; j < NJ; ++j) dbv[j] += dv[j];
       }
     }
   }
@@ -682,12 +692,10 @@ entry_block_bwd_reduce_kernel(const TX* __restrict__ x, const TX* __restrict__ d
   }
 }
 
-// Pass 2. Slot of a block: classes x [9 * C dW (tap-major) | C d conv_b]; with
-// parity (F even) the sums over even and odd output frequencies apart (a
-// thread's pixels pg + 16 i share the parity of pg).
-template <int NJ, typename TX>
+// Pass 2 in float32. Slot of a block: [9 * C dW (tap-major) | C d conv_b].
+template <int NJ>
 __global__ void __launch_bounds__(kThreads)
-entry_block_bwd_wgrad_kernel(const TX* __restrict__ x, const TX* __restrict__ dout,
+entry_block_bwd_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dout,
                              const float* __restrict__ cw, const float* __restrict__ cb,
                              const float* __restrict__ scale, const float* __restrict__ bias,
                              const float* __restrict__ mean, const float* __restrict__ var,
@@ -695,7 +703,7 @@ entry_block_bwd_wgrad_kernel(const TX* __restrict__ x, const TX* __restrict__ do
                              const float* __restrict__ a, const float* __restrict__ b2,
                              float* __restrict__ partials, int T, int F, int C, int pt, int pf,
                              float eps, int rows, int tiles_per_block,
-                             Dropout dr, int parity) {
+                             Dropout dr) {
   extern __shared__ float smem[];
   const int CP = C + 1;
   float* xs = smem;            // [kPix][CP]: xn
@@ -710,7 +718,7 @@ entry_block_bwd_wgrad_kernel(const TX* __restrict__ x, const TX* __restrict__ do
   const int b = blockIdx.y;
   const int FW = F + 2;
   const unsigned long long seed = seed_of(dr);
-  for (int i = tid; i < C * C; i += kThreads) ws[(i / C) * CP + i % C] = rounded<TX>(glu_w[i]);
+  for (int i = tid; i < C * C; i += kThreads) ws[(i / C) * CP + i % C] = glu_w[i];
   load_consts(k, scale, bias, mean, var, glu_b, cw, cb, C, eps);
   for (int c = tid; c < C; c += kThreads) {
     s_a[c] = a[c];
@@ -742,7 +750,7 @@ entry_block_bwd_wgrad_kernel(const TX* __restrict__ x, const TX* __restrict__ do
     stage_x(xt, x, b, T, F, t0, trows);
     __syncthreads();
     float acc[8][NJ];
-    recompute_dxn<NJ, TX>(acc, xs, ds, ws, xt, dout, k, b, T, F, C, pt, pf, t0, tpix, tile_base,
+    recompute_dxn<NJ>(acc, xs, ds, ws, xt, dout, k, b, T, F, C, pt, pf, t0, tpix, tile_base,
                           dr, seed, pg, cg);
 
     // dy = inv * scale * dxn - a - (y - mean) * b2 in registers, straight into
@@ -761,15 +769,14 @@ entry_block_bwd_wgrad_kernel(const TX* __restrict__ x, const TX* __restrict__ do
         const int p = pg + 16 * i;
         if (p >= tpix) continue;
         const float* r = xt + (p / F) * FW + (p % F);
-        const float yv = rounded<TX>(conv9(r, FW, w, cbv));
+        const float yv = conv9(r, FW, w, cbv);
         const float dyv = coef * acc[i][j] - av - (yv - mu) * bv;
-        const float dyr = rounded<TX>(dyv);
         dcb[j] += dyv;
 #pragma unroll
         for (int dt = 0; dt < 3; ++dt)
 #pragma unroll
           for (int df = 0; df < 3; ++df)
-            dwc[j][dt * 3 + df] = fmaf(r[dt * FW + df], dyr, dwc[j][dt * 3 + df]);
+            dwc[j][dt * 3 + df] = fmaf(r[dt * FW + df], dyv, dwc[j][dt * 3 + df]);
       }
     }
   }
@@ -787,13 +794,370 @@ entry_block_bwd_wgrad_kernel(const TX* __restrict__ x, const TX* __restrict__ do
   }
   __syncthreads();
   const int slot = blockIdx.y * gridDim.x + blockIdx.x;
-  const int classes = parity ? 2 : 1;
-  for (int i = tid; i < 10 * C; i += kThreads)
-    for (int cl = 0; cl < classes; ++cl) {
-      float s = 0.0f;
-      for (int g = cl; g < 16; g += classes) s += red[g * 10 * C + i];
-      partials[((long long)slot * classes + cl) * 10 * C + i] = s;
+  for (int i = tid; i < 10 * C; i += kThreads) {
+    float s = 0.0f;
+    for (int g = 0; g < 16; ++g) s += red[g * 10 * C + i];
+    partials[(long long)slot * 10 * C + i] = s;
+  }
+}
+
+// ----------------------------------- K5's backward in bfloat16: tensor cores
+
+// The two bfloat16 passes run K2's bfloat16 tile code (bf16_tile.cuh) on a y
+// tile they compute themselves. Per tile: x with its one-cell halo (float32
+// [trows + 2][F + 2], loaded into registers during the previous tile at CP =
+// 64); y =
+// bf16(conv + bias) once, conv9's order with the float32 bias first, into a
+// bfloat16 tile [kPix][RS] that every later step reads; the tile's pooled
+// rows of dout by cp.async a tile ahead; the keep bits and the dout-row
+// table; A = bf16(xn) (form_a); then pass 1 is K2b's reduce pass without
+// dy_partial (reduce_tile_bf16), and pass 2 takes dxn (dxn_bf16), forms dy
+// = inv scale dxn - a - (y - mean) b2 in the fragments' registers, sums d
+// conv_b from the float32 dy and writes bf16(dy) over A in the class order
+// below, and multiplies dW = patches^T . bf16(dy) on mma.sync (M: the nine
+// taps padded to 16, N: channels, K: the tile's pixels). x is bfloat16, so
+// each patch value is exact in the bfloat16 operand.
+//
+// Launch plan: one wave of the resident blocks over the batch's tiles, block
+// k of G taking tiles [k n / G, (k + 1) n / G) of the n = B * tiles (clip
+// after clip), and under the crows partition blocks [0, G / 2) the first
+// half of the clips, [G / 2, G) the second (the slots' two classes). One
+// partial slot a block, folded in slot order (fold.cuh).
+//
+// dW's parts: under the parity partition (F even; a tile is whole rows, so
+// a pixel p's output-frequency parity is p's) pixel p goes to row k = (p %
+// 2) 64 + p / 2 of the dy tile and the patch matrix, so the k-chunks 0-3
+// hold even frequencies and 4-7 odd ones; else k = p. Each warp keeps the
+// sums of k < 64 and k >= 64 apart (both halves of a class-free partition
+// are added at the end).
+
+// the warps of both passes: 16 at CP = 128 (one block an SM), 8 at CP = 64
+// (two blocks an SM; 16 % faster at the flagship shape than one block of 16,
+// tools/bench_k5b_bf16_torch.py --variants), 128 registers a thread
+template <int CP>
+constexpr int kEntryWarps = CP == 128 ? 16 : 8;
+constexpr int kKS = kPix + 8;  // row stride of the patch matrix: an odd number of 16-byte units
+constexpr int kHalfK = kPix / 2;
+
+// Dynamic shared memory of pass `pass` (1 or 2) of the bfloat16 kernels
+// (ops/fused_entry_block.bf16_bwd_plan computes the same): the y, A and D
+// tiles [kPix][RS], `buffers` tiles of dout rows [drows][RS] and W [CP][RS]
+// in bfloat16, pass 2's patch matrix [16][kKS] too; the conv weights [9][CP]
+// and bias [CP], six per-channel vectors [CP] (eight in pass 2: a, b2), the
+// sums of the pixel warp rows (pass 1: db, S1, S2 [3][WM][CP]; pass 2: d
+// conv_b [WM][CP]) and the x tile [kHalo] in float32; the keep bits
+// [kPix][MS] and the dout-row table [kPix].
+template <int CP, int NW>
+size_t bwd_bf16_smem(int pass, int buffers, int drows) {
+  using P = BfPlan<CP, NW>;
+  const size_t halves = (size_t)P::RS * (3 * kPix + (size_t)buffers * drows + CP) + (pass == 2 ? 16 * (size_t)kKS : 0);
+  const size_t floats = (size_t)CP * (10 + (pass == 2 ? 8 : 6) + (pass == 2 ? 1 : 3) * P::WM) + kHalo;
+  return 2 * halves + 4 * floats + (size_t)kPix * P::MS + 4 * kPix;
+}
+
+// x of a tile into registers: xr[j] = x[b, t0 - 1 + i / FW, i % FW - 1] for
+// i = threadIdx.x + j NTHR < (trows + 2) FW (FW = F + 2), zeros outside the
+// tensor; store_x puts them into the tile xt [trows + 2][FW] (stage_x's).
+template <int NX, int NTHR>
+__device__ __forceinline__ void load_x(float (&xr)[NX], const bf16* __restrict__ x, const TilePos& tp, int b, int T,
+                                       int F) {
+  const int FW = F + 2, n = (tp.trows + 2) * FW;
+#pragma unroll
+  for (int j = 0; j < NX; ++j) {
+    const int i = threadIdx.x + j * NTHR, t = tp.t0 - 1 + i / FW, f = i % FW - 1;
+    xr[j] = (i < n && t >= 0 && t < T && f >= 0 && f < F) ? __bfloat162float(x[((long long)b * T + t) * F + f]) : 0.0f;
+  }
+}
+
+template <int NX, int NTHR>
+__device__ __forceinline__ void store_x(float* xt, const float (&xr)[NX], int n) {
+#pragma unroll
+  for (int j = 0; j < NX; ++j)
+    if (threadIdx.x + j * NTHR < n) xt[threadIdx.x + j * NTHR] = xr[j];
+}
+
+// y = bf16(conv9 + bias) of the tile's pixels into yb [kPix][RS], zeros past
+// the tile and past C: a thread takes four channels 4 (tid % (CP / 4)), their
+// 36 weights in registers, of every (NTHR / (CP / 4))-th pixel. With
+// kPatches also the patch matrix pm [16][kKS] of rows 0-8 (tap 3 dt + df):
+// column k holds the tile pixel of k (see above), zero past the tile.
+template <int CP, int NW, bool kPatches>
+__device__ __forceinline__ void conv_tile_bf16(bf16* yb, bf16* pm, const float* xt, const float* cw, const float* cbv,
+                                               int F, int tpix, int C, bool parity) {
+  constexpr int RS = BfPlan<CP, NW>::RS, NQ = CP / 4, NTHR = 32 * NW;
+  const int FW = F + 2, c = 4 * (threadIdx.x % NQ);
+  float w[4][9], cb[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    cb[e] = cbv[c + e];
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) w[e][tap] = cw[tap * CP + c + e];
+  }
+  for (int p = threadIdx.x / NQ; p < kPix; p += NTHR / NQ) {
+    uint2 v = make_uint2(0u, 0u);
+    if (p < tpix && c < C) {
+      const float* r = xt + (p / F) * FW + p % F;
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(conv9(r, FW, w[0], cb[0]), conv9(r, FW, w[1], cb[1]));
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(conv9(r, FW, w[2], cb[2]), conv9(r, FW, w[3], cb[3]));
+      v = make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
     }
+    *reinterpret_cast<uint2*>(yb + p * RS + c) = v;
+  }
+  if constexpr (kPatches) {
+    for (int i = threadIdx.x; i < 9 * kHalfK; i += NTHR) {
+      const int tap = i / kHalfK, k = 2 * (i % kHalfK), dt = tap / 3, df = tap % 3;
+      float v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int p = parity ? 2 * ((k + e) % kHalfK) + (k + e) / kHalfK : k + e;
+        v[e] = p < tpix ? xt[(p / F + dt) * FW + p % F + df] : 0.0f;
+      }
+      st_bf2(pm + tap * kKS + k, v[0], v[1]);
+    }
+  }
+}
+
+// The two passes' body; PASS 1 writes the slot [C*C d glu_w | C d glu_b | C
+// S1 | C S2], PASS 2 the slot's classes [9 C dW (tap-major) | C d conv_b]
+// (two classes under the parity partition, d conv_b whole in the first).
+// halves: the crows partition (blocks split between the batch's halves).
+template <int CP, int NW, int PASS>
+__device__ __forceinline__ void bwd_bf16_body(
+    const bf16* __restrict__ x, const bf16* __restrict__ dout, const float* __restrict__ cw,
+    const float* __restrict__ cb, const float* __restrict__ scale, const float* __restrict__ bias,
+    const float* __restrict__ mean, const float* __restrict__ var, const float* __restrict__ glu_w,
+    const float* __restrict__ glu_b, const float* __restrict__ a, const float* __restrict__ b2,
+    float* __restrict__ partials, int B, int T, int F, int C, int pt, int pf, float eps, Dropout dr, int buffers,
+    int drows, int mode, bool parity, bool halves) {
+  using P = BfPlan<CP, NW>;
+  constexpr int RS = P::RS, MS = P::MS, NTHR = P::NTHR, NX = (kHalo + NTHR - 1) / NTHR;
+  // the next tile's x is loaded into registers during this tile at CP = 64;
+  // at CP = 128 pass 1's accumulators leave no room (8 bytes spilled), and
+  // x is loaded at the top of its tile
+  constexpr bool kPrefetchX = CP == 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* yb = reinterpret_cast<bf16*>(smem_raw);  // [kPix][RS]: y
+  bf16* dsm = yb + kPix * RS;                     // [buffers][drows][RS]: the tile's rows of dout
+  BfShared sh;
+  sh.A = dsm + buffers * drows * RS;  // [kPix][RS]: bf16(xn), in pass 2 then bf16(dy) by class order
+  sh.D = sh.A + kPix * RS;            // [kPix][RS]: bf16(dlin)
+  sh.ws = sh.D + kPix * RS;           // [CP][RS]: W (in, out)
+  bf16* pm = sh.ws + CP * RS;         // pass 2: [16][kKS] patches^T
+  float* cws = reinterpret_cast<float*>(pm + (PASS == 2 ? 16 * kKS : 0));  // [9][CP] conv weights
+  float* cbs = cws + 9 * CP;                                                 // [CP] conv bias
+  sh.vmean = cbs + CP;
+  sh.vinv = sh.vmean + CP;
+  sh.vscale = sh.vinv + CP;
+  sh.vbias = sh.vscale + CP;
+  sh.vgb = sh.vbias + CP;
+  sh.vgain = sh.vgb + CP;
+  float* va = sh.vgain + CP;                                 // pass 2: [CP] a, b2
+  float* vb2 = va + CP;
+  float* sums = PASS == 2 ? vb2 + CP : va;                   // [3 or 1][WM][CP]
+  float* xt = sums + (PASS == 2 ? 1 : 3) * P::WM * CP;       // [kHalo]
+  sh.mbits = reinterpret_cast<unsigned char*>(xt + kHalo);   // [kPix][MS]
+  sh.tab_d = reinterpret_cast<int*>(sh.mbits + kPix * MS);   // [kPix]
+  stage_bf16_consts<CP>(sh.ws, sh.vmean, sh.vinv, sh.vscale, sh.vbias, sh.vgb, sh.vgain, glu_w, scale, bias, mean, var,
+                        glu_b, C, eps);
+  for (int i = threadIdx.x; i < 10 * CP; i += NTHR) {
+    const int tap = i / CP, c = i % CP;
+    const float v = c < C ? (tap < 9 ? cw[tap * C + c] : cb[c]) : 0.0f;
+    (tap < 9 ? cws[i] : cbs[c]) = v;
+  }
+  for (int i = threadIdx.x; i < (PASS == 2 ? 1 : 3) * P::WM * CP; i += NTHR) sums[i] = 0.0f;
+  if constexpr (PASS == 2) {
+    for (int c = threadIdx.x; c < CP; c += NTHR) {
+      va[c] = c < C ? a[c] : 0.0f;
+      vb2[c] = c < C ? b2[c] : 0.0f;
+    }
+    for (int i = threadIdx.x; i < 7 * kKS; i += NTHR) pm[9 * kKS + i] = __float2bfloat16_rn(0.0f);  // taps 9-15
+  }
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wm = warp / P::WN, wn = warp % P::WN, g = lane / 4, q = lane % 4;
+  const unsigned long long seed = seed_of(dr);
+  const int Tp = T / pt, Fp = F / pf;
+  const float inv_win = 1.0f / (float)(pt * pf);
+  const Tile tl = tile_of(F, pt, pf);
+  const int n_tiles = tiles_per_clip(T, F, pt, pf);
+  // this block's run of the batch's tiles (of its half of the clips under halves)
+  const int groups = halves ? 2 : 1, G = gridDim.x / groups, grp = blockIdx.x / G, kb = blockIdx.x % G;
+  const long long n = (long long)(B / groups) * n_tiles;
+  const int first = (int)(grp * n + kb * n / G), last = (int)(grp * n + (kb + 1) * n / G);
+  auto pos = [&](int t) { return tile_pos(t % n_tiles, t / n_tiles, T, F, tl); };
+  auto stage_dout = [&](int t, int buf) {
+    const TilePos tp = pos(t);
+    bf16* db_ = dsm + buf * drows * RS;
+    if (mode == 2) stage_dout_rows<CP, 8>(db_, dout, tp, t / n_tiles, Tp, Fp, pt, pf, C, mode);
+    else stage_dout_rows<CP, 4>(db_, dout, tp, t / n_tiles, Tp, Fp, pt, pf, C, mode);
+  };
+
+  // pass 1: d glu_w as K2b's reduce pass holds it (see BfPlan)
+  float accw[PASS == 1 ? P::MTW : 1][PASS == 1 ? P::NTW : 2][4];
+  // pass 2: dW of taps 0-15 (rows) x this warp's 16 channels, k < 64 and k >= 64 apart
+  constexpr int NP = CP / 16, NS = NW / NP;  // channel pairs of fragments; k-slices, warp / NP
+  static_assert(NW % NP == 0 && 4 % NS == 0, "pass 2 warp layout");
+  float accd[2][2][4];
+#pragma unroll
+  for (int i = 0; i < (PASS == 1 ? P::MTW : 1); ++i)
+#pragma unroll
+    for (int j = 0; j < (PASS == 1 ? P::NTW : 2); ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) accw[i][j][e] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) accd[i][j][e] = 0.0f;
+
+  float xr[NX];
+  if (first < last) {
+    if (kPrefetchX) load_x<NX, NTHR>(xr, x, pos(first), first / n_tiles, T, F);
+    stage_dout(first, 0);
+  }
+  cp_async_commit();
+  for (int t = first; t < last; ++t) {
+    const int buf = buffers == 2 ? (t - first) & 1 : 0;
+    const TilePos tp = pos(t);
+    const int tpix = tp.trows * tp.fcols;
+    if (!kPrefetchX) load_x<NX, NTHR>(xr, x, tp, t / n_tiles, T, F);
+    store_x<NX, NTHR>(xt, xr, (tp.trows + 2) * (F + 2));  // every warp is past the previous tile's conv
+    cp_async_wait_all();
+    __syncthreads();  // x and dout of this tile in place; every warp is done with the previous tile
+    if (t + 1 < last) {  // the next tile's x into registers, its dout into the other buffer
+      if (kPrefetchX) load_x<NX, NTHR>(xr, x, pos(t + 1), (t + 1) / n_tiles, T, F);
+      if (buffers == 2) {
+        stage_dout(t + 1, buf ^ 1);
+        cp_async_commit();
+      }
+    }
+    const bf16* dtile = dsm + buf * drows * RS;
+    conv_tile_bf16<CP, NW, PASS == 2>(yb, pm, xt, cws, cbs, F, tpix, C, parity);
+    dout_rows_of(sh.tab_d, tp, tpix, pt, pf);
+    if (dr.mode != 0) keep_bits<CP>(sh.mbits, tp, tpix, C, seed, dr);
+    __syncthreads();  // y, the patches, the table and the mask complete
+    form_a<CP>(sh.A, yb, sh.vmean, sh.vinv, sh.vscale, sh.vbias, tpix);
+    __syncthreads();  // A complete
+
+    if constexpr (PASS == 1) {
+      reduce_tile_bf16<CP, NW, CP == 128 ? 2 : 1>(accw, sh, yb, dtile, sums, tpix, inv_win, dr, false);
+    } else {
+      constexpr int MT = P::MT;
+      float acc[MT][4][4];
+      dxn_bf16<CP, NW, MT>(acc, sh, yb, dtile, 0, inv_win, dr, [](float, float, int) {});
+      // dy in the fragments; d conv_b from the float32 dy; bf16(dy) over A (read
+      // only before dxn_bf16's barrier) at row k of its pixel
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int c = wn * 32 + nt * 8 + 2 * q;
+        const float2 m = ld2(sh.vmean + c), gn = ld2(sh.vgain + c), av = ld2(va + c), bv = ld2(vb2 + c);
+        float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int p = wm * 16 * MT + mt * 16 + g + 8 * h;
+            const float2 yv = ld_bf2(yb + p * RS + c);
+            float d0 = __fsub_rn(__fsub_rn(__fmul_rn(gn.x, acc[mt][nt][2 * h]), av.x), __fmul_rn(yv.x - m.x, bv.x));
+            float d1 = __fsub_rn(__fsub_rn(__fmul_rn(gn.y, acc[mt][nt][2 * h + 1]), av.y), __fmul_rn(yv.y - m.y, bv.y));
+            if (p >= tpix) d0 = d1 = 0.0f;
+            s0 += d0;
+            s1 += d1;
+            st_bf2(sh.A + (parity ? (p % 2) * kHalfK + p / 2 : p) * RS + c, d0, d1);
+          }
+        add_warp_sums(sums + wm * CP, s0, s1, c, g);
+      }
+      __syncthreads();  // the dy tile complete
+      // dW[tap][c] += sum_k patches[tap][k] dy[k][c]: warp (slice, channel pair) = (warp / NP, warp % NP)
+      const int np = warp % NP, sl = warp / NP;
+      const uint32_t a0 = smem_addr(pm + (lane % 16) * kKS + (lane / 16) * 8);
+      const uint32_t b0 = smem_addr(sh.A + (lane % 8 + ((lane / 8) % 2) * 8) * RS + np * 16 + (lane / 16) * 8);
+#pragma unroll
+      for (int j = 0; j < kPix / 16 / NS; ++j) {
+        const int kc = sl + NS * j;  // k-chunk; kc < 4 iff NS j < 4
+        uint32_t af[4], bq[4];
+        ldmatrix_x4(af, a0 + 2 * (kc * 16));
+        ldmatrix_x4_trans(bq, b0 + 2 * (kc * 16 * RS));
+        mma_bf16(accd[(NS * j) / 4][0], af, bq[0], bq[1]);
+        mma_bf16(accd[(NS * j) / 4][1], af, bq[2], bq[3]);
+      }
+    }
+    if (buffers == 1 && t + 1 < last) {
+      __syncthreads();  // every warp is done with the only dout tile
+      stage_dout(t + 1, 0);
+      cp_async_commit();
+    }
+  }
+
+  if constexpr (PASS == 1) {
+    write_reduce_slot<CP, NW>(partials + (long long)blockIdx.x * (C * C + 3 * C), accw, sums, C);
+  } else {
+    // the k-slices' dW sums added in slice order, over the tiles' memory
+    __syncthreads();  // every warp is done with the last tile
+    float* red = reinterpret_cast<float*>(smem_raw);  // [NS][2][9][CP]
+    const int np = warp % NP, sl = warp / NP;
+#pragma unroll
+    for (int hk = 0; hk < 2; ++hk)
+#pragma unroll
+      for (int nf = 0; nf < 2; ++nf)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int tap = g + 8 * (e / 2), c = np * 16 + nf * 8 + 2 * q + e % 2;
+          if (tap < 9) red[((sl * 2 + hk) * 9 + tap) * CP + c] = accd[hk][nf][e];
+        }
+    __syncthreads();
+    const int classes = parity ? 2 : 1;
+    float* ps = partials + (long long)blockIdx.x * classes * 10 * C;
+    for (int i = threadIdx.x; i < 9 * C; i += NTHR) {
+      const int tap = i / C, c = i % C;
+      float h[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int hk = 0; hk < 2; ++hk)
+        for (int s = 0; s < NS; ++s) h[hk] += red[((s * 2 + hk) * 9 + tap) * CP + c];
+      if (parity) {
+        ps[i] = h[0];
+        ps[10 * C + i] = h[1];
+      } else {
+        ps[i] = h[0] + h[1];
+      }
+    }
+    for (int c = threadIdx.x; c < C; c += NTHR) {
+      float s = 0.0f;
+      for (int w = 0; w < P::WM; ++w) s += sums[w * CP + c];
+      ps[9 * C + c] = s;
+      if (parity) ps[19 * C + c] = 0.0f;
+    }
+  }
+}
+
+// K5b1 in bfloat16: x [B, T, F], dout [B, T/pt, F/pf, C] bfloat16; one slot a block.
+template <int CP, int NW>
+__global__ void __launch_bounds__(32 * NW, NW == 8 ? 2 : 1)
+entry_block_bwd_reduce_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dout,
+                                   const float* __restrict__ cw, const float* __restrict__ cb,
+                                   const float* __restrict__ scale, const float* __restrict__ bias,
+                                   const float* __restrict__ mean, const float* __restrict__ var,
+                                   const float* __restrict__ glu_w, const float* __restrict__ glu_b,
+                                   float* __restrict__ partials, int B, int T, int F, int C, int pt, int pf, float eps,
+                                   Dropout dr, int buffers, int drows, int mode) {
+  bwd_bf16_body<CP, NW, 1>(x, dout, cw, cb, scale, bias, mean, var, glu_w, glu_b, nullptr, nullptr, partials, B, T, F, C,
+                           pt, pf, eps, dr, buffers, drows, mode, false, false);
+}
+
+// K5b2 in bfloat16: as K5b1, with a, b2 [C]; partition 1 parity, 2 batch halves.
+template <int CP, int NW>
+__global__ void __launch_bounds__(32 * NW, NW == 8 ? 2 : 1)
+entry_block_bwd_wgrad_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dout,
+                                  const float* __restrict__ cw, const float* __restrict__ cb,
+                                  const float* __restrict__ scale, const float* __restrict__ bias,
+                                  const float* __restrict__ mean, const float* __restrict__ var,
+                                  const float* __restrict__ glu_w, const float* __restrict__ glu_b,
+                                  const float* __restrict__ a, const float* __restrict__ b2,
+                                  float* __restrict__ partials, int B, int T, int F, int C, int pt, int pf, float eps,
+                                  Dropout dr, int buffers, int drows, int mode, int partition) {
+  bwd_bf16_body<CP, NW, 2>(x, dout, cw, cb, scale, bias, mean, var, glu_w, glu_b, a, b2, partials, B, T, F, C, pt, pf,
+                           eps, dr, buffers, drows, mode, partition == 1, partition == 2);
 }
 
 // ---------------------------------------------------------- the mask alone
@@ -916,71 +1280,105 @@ int launch_block_fwd(const BlockArgs& g, void* out, int pool_elems, cudaStream_t
   return (int)cudaGetLastError();
 }
 
-template <int NJ, typename TX>
+template <int NJ>
 int launch_block_bwd_reduce(const BlockArgs& g, float* partials, float* sums, cudaStream_t stream) {
   const size_t smem = bwd_smem(g.C, 16 * 2 * 16 * NJ);
-  cudaError_t err = cudaFuncSetAttribute(entry_block_bwd_reduce_kernel<NJ, TX>,
+  cudaError_t err = cudaFuncSetAttribute(entry_block_bwd_reduce_kernel<NJ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int rows = rows_per_tile(g.F, g.pt);
   const dim3 grid = tile_grid(g.B, g.T, rows, g.tiles_per_block);
-  entry_block_bwd_reduce_kernel<NJ, TX><<<grid, kThreads, smem, stream>>>(
-      static_cast<const TX*>(g.x), static_cast<const TX*>(g.dout), g.cw, g.cb, g.scale, g.bias, g.mean,
-      g.var, g.glu_w, g.glu_b, partials, g.T, g.F, g.C, g.pt, g.pf, g.eps, rows, g.tiles_per_block,
-      g.dr);
+  entry_block_bwd_reduce_kernel<NJ><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(g.x), static_cast<const float*>(g.dout), g.cw, g.cb, g.scale, g.bias, g.mean,
+      g.var, g.glu_w, g.glu_b, partials, g.T, g.F, g.C, g.pt, g.pf, g.eps, rows, g.tiles_per_block, g.dr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_fold<float>(partials, sums, (int)(grid.x * grid.y), g.C * g.C + 3 * g.C, stream);
 }
 
-// partition 0: one part; 1: output-frequency parity (F even); 2: batch halves (B even).
-template <int NJ, typename TX>
-int launch_block_bwd_wgrad(const BlockArgs& g, float* partials, float* sums, int partition,
-                           cudaStream_t stream) {
-  if (partition < 0 || partition > 2 || (partition == 1 && g.F % 2 != 0) || (partition == 2 && g.B % 2 != 0))
-    return (int)cudaErrorInvalidValue;
+template <int NJ>
+int launch_block_bwd_wgrad(const BlockArgs& g, float* partials, float* sums, cudaStream_t stream) {
   const size_t smem = bwd_smem(g.C, 2 * g.C);
-  cudaError_t err = cudaFuncSetAttribute(entry_block_bwd_wgrad_kernel<NJ, TX>,
+  cudaError_t err = cudaFuncSetAttribute(entry_block_bwd_wgrad_kernel<NJ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int rows = rows_per_tile(g.F, g.pt);
   const dim3 grid = tile_grid(g.B, g.T, rows, g.tiles_per_block);
-  entry_block_bwd_wgrad_kernel<NJ, TX><<<grid, kThreads, smem, stream>>>(
-      static_cast<const TX*>(g.x), static_cast<const TX*>(g.dout), g.cw, g.cb, g.scale, g.bias, g.mean,
-      g.var, g.glu_w, g.glu_b, g.a, g.b2, partials, g.T, g.F, g.C, g.pt, g.pf, g.eps, rows,
-      g.tiles_per_block, g.dr, partition == 1);
+  entry_block_bwd_wgrad_kernel<NJ><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(g.x), static_cast<const float*>(g.dout), g.cw, g.cb, g.scale, g.bias, g.mean,
+      g.var, g.glu_w, g.glu_b, g.a, g.b2, partials, g.T, g.F, g.C, g.pt, g.pf, g.eps, rows, g.tiles_per_block,
+      g.dr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_fold<float>(partials, sums, (int)(grid.x * grid.y), 10 * g.C, stream);
+}
+
+// One fused first-block forward launch with the channel tile (NJ) and
+// element type the call asks for.
+template <typename... Rest>
+int dispatch_fwd(int C, int bf16, const BlockArgs& g, Rest... rest) {
+  if (bf16) return C <= 64 ? launch_block_fwd<4, __nv_bfloat16>(g, rest...) : launch_block_fwd<8, __nv_bfloat16>(g, rest...);
+  return C <= 64 ? launch_block_fwd<4, float>(g, rest...) : launch_block_fwd<8, float>(g, rest...);
+}
+
+// How a bfloat16 pass copies rows of dout: 2, 16-byte cp.async (C % 8 == 0,
+// 16-byte aligned); 1, 8-byte cp.async; 0, loads of the values.
+int dout_mode(int C, const void* dout) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(dout);
+  return C % 8 == 0 && p % 16 == 0 ? 2 : p % 8 == 0 ? 1 : 0;
+}
+
+// A bfloat16 pass's shared memory set; its blocks an SM into *resident
+// where that is not null (registers and shared memory).
+template <int CP, int PASS>
+cudaError_t bwd_bf16_attrs(int buffers, int drows, int* resident) {
+  constexpr int NW = kEntryWarps<CP>;
+  const void* fn = PASS == 1 ? reinterpret_cast<const void*>(entry_block_bwd_reduce_bf16_kernel<CP, NW>)
+                             : reinterpret_cast<const void*>(entry_block_bwd_wgrad_bf16_kernel<CP, NW>);
+  const size_t smem = bwd_bf16_smem<CP, NW>(PASS, buffers, drows);
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess || resident == nullptr) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, fn, 32 * NW, smem);
+}
+
+// blocks: the grid; buffers 1 or 2 and drows = kPix / (pt pf), the plan of
+// ops/fused_entry_block.bf16_bwd_plan
+template <int CP>
+int launch_bwd_reduce_bf16(const BlockArgs& g, float* partials, float* sums, int blocks, int buffers, int drows,
+                           cudaStream_t st) {
+  if (blocks < 1 || (buffers != 1 && buffers != 2) || drows != kPix / (g.pt * g.pf)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = bwd_bf16_attrs<CP, 1>(buffers, drows, nullptr);
+  if (err != cudaSuccess) return (int)err;
+  entry_block_bwd_reduce_bf16_kernel<CP, kEntryWarps<CP>>
+      <<<blocks, 32 * kEntryWarps<CP>, bwd_bf16_smem<CP, kEntryWarps<CP>>(1, buffers, drows), st>>>(
+          static_cast<const bf16*>(g.x), static_cast<const bf16*>(g.dout), g.cw, g.cb, g.scale, g.bias, g.mean, g.var,
+          g.glu_w, g.glu_b, partials, g.B, g.T, g.F, g.C, g.pt, g.pf, g.eps, g.dr, buffers, drows,
+          dout_mode(g.C, g.dout));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_fold<float>(partials, sums, blocks, g.C * g.C + 3 * g.C, st);
+}
+
+// partition 0: one part; 1: output-frequency parity (F even); 2: batch
+// halves (B and blocks even)
+template <int CP>
+int launch_bwd_wgrad_bf16(const BlockArgs& g, float* partials, float* sums, int blocks, int buffers, int drows,
+                          int partition, cudaStream_t st) {
+  if (blocks < 1 || (buffers != 1 && buffers != 2) || drows != kPix / (g.pt * g.pf) || partition < 0 ||
+      partition > 2 || (partition == 1 && g.F % 2 != 0) || (partition == 2 && (g.B % 2 != 0 || blocks % 2 != 0)))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = bwd_bf16_attrs<CP, 2>(buffers, drows, nullptr);
+  if (err != cudaSuccess) return (int)err;
+  entry_block_bwd_wgrad_bf16_kernel<CP, kEntryWarps<CP>>
+      <<<blocks, 32 * kEntryWarps<CP>, bwd_bf16_smem<CP, kEntryWarps<CP>>(2, buffers, drows), st>>>(
+          static_cast<const bf16*>(g.x), static_cast<const bf16*>(g.dout), g.cw, g.cb, g.scale, g.bias, g.mean, g.var,
+          g.glu_w, g.glu_b, g.a, g.b2, partials, g.B, g.T, g.F, g.C, g.pt, g.pf, g.eps, g.dr, buffers, drows,
+          dout_mode(g.C, g.dout), partition);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int parts = partition == 0 ? 1 : partition == 1 ? 2 : -2;
-  return (int)fold_wgrad<TX>(partials, sums, (int)(grid.x * grid.y), 10 * g.C, 9 * g.C, parts, stream);
+  return (int)fold_wgrad<__nv_bfloat16>(partials, sums, blocks, 10 * g.C, 9 * g.C, parts, st);
 }
-
-// One fused first-block launch with the channel tile (NJ) and element type
-// the call asks for.
-template <template <int, typename> class L, typename... Rest>
-int dispatch_block(int C, int bf16, const BlockArgs& g, Rest... rest) {
-  if (bf16) return C <= 64 ? L<4, __nv_bfloat16>::run(g, rest...) : L<8, __nv_bfloat16>::run(g, rest...);
-  return C <= 64 ? L<4, float>::run(g, rest...) : L<8, float>::run(g, rest...);
-}
-
-template <int NJ, typename TX>
-struct Fwd {
-  static int run(const BlockArgs& g, void* out, int pool_elems, cudaStream_t st) {
-    return launch_block_fwd<NJ, TX>(g, out, pool_elems, st);
-  }
-};
-template <int NJ, typename TX>
-struct BwdReduce {
-  static int run(const BlockArgs& g, float* partials, float* sums, cudaStream_t st) {
-    return launch_block_bwd_reduce<NJ, TX>(g, partials, sums, st);
-  }
-};
-template <int NJ, typename TX>
-struct BwdWgrad {
-  static int run(const BlockArgs& g, float* partials, float* sums, int partition, cudaStream_t st) {
-    return launch_block_bwd_wgrad<NJ, TX>(g, partials, sums, partition, st);
-  }
-};
 
 BlockArgs block_args(const void* x, const void* dout, const void* cw, const void* cb, const void* scale,
                      const void* bias, const void* mean, const void* var, const void* glu_w,
@@ -1051,11 +1449,12 @@ int dcase_entry_block_fwd(const void* x, const void* cw, const void* cb, const v
   const BlockArgs g = block_args(x, nullptr, cw, cb, scale, bias, mean, var, glu_w, glu_b, nullptr, nullptr,
                                  B, T, F, C, pt, pf, eps, dropout_of(seed, threshold, keep_scale, packed),
                                  tiles_per_block);
-  return dispatch_block<Fwd>(C, bf16, g, out, pool_elems, static_cast<cudaStream_t>(stream));
+  return dispatch_fwd(C, bf16, g, out, pool_elems, static_cast<cudaStream_t>(stream));
 }
 
-// First backward pass. dout: [B, T/pt, F/pf, C] in x's type; partials:
-// [slots, C*C + 3C]; sums: [C*C + 3C] = d glu_w | d glu_b | S1 | S2, folded
+// First backward pass in float32. dout: [B, T/pt, F/pf, C] float32;
+// partials: [slots, C*C + 3C] with slots = B * ceil(tiles /
+// tiles_per_block); sums: [C*C + 3C] = d glu_w | d glu_b | S1 | S2, folded
 // in slot order, float32.
 int dcase_entry_block_bwd_reduce(const void* x, const void* dout, const void* cw,
                                  const void* cb, const void* scale, const void* bias,
@@ -1063,33 +1462,87 @@ int dcase_entry_block_bwd_reduce(const void* x, const void* dout, const void* cw
                                  const void* glu_b, void* partials, void* sums, int B, int T,
                                  int F, int C, int pt, int pf, float eps, const void* seed,
                                  unsigned int threshold, float keep_scale, int packed,
-                                 int tiles_per_block, int bf16, void* stream) {
+                                 int tiles_per_block, void* stream) {
   const BlockArgs g = block_args(x, dout, cw, cb, scale, bias, mean, var, glu_w, glu_b, nullptr, nullptr,
                                  B, T, F, C, pt, pf, eps, dropout_of(seed, threshold, keep_scale, packed),
                                  tiles_per_block);
-  return dispatch_block<BwdReduce>(C, bf16, g, static_cast<float*>(partials), static_cast<float*>(sums),
-                                   static_cast<cudaStream_t>(stream));
+  auto* pa = static_cast<float*>(partials);
+  auto* su = static_cast<float*>(sums);
+  auto st = static_cast<cudaStream_t>(stream);
+  return C <= 64 ? launch_block_bwd_reduce<4>(g, pa, su, st) : launch_block_bwd_reduce<8>(g, pa, su, st);
 }
 
-// Second backward pass. a, b2: [C], from S1 and S2 (fused_block.py:
-// bwd_coefficients); partials: [slots, parts * 10C] (parts 2 under
-// partition 1); sums: [10C] = dW [3, 3, 1, C] | d conv_b [C]. partition 0:
-// one part; 1: output-frequency parity (F even); 2: batch halves (B even).
-// In bfloat16 each part's dW is rounded to bfloat16 before the parts are
-// added; d conv_b is not rounded.
+// Second backward pass in float32. a, b2: [C], from S1 and S2 (fused_block.py:
+// bwd_coefficients); partials: [slots, 10C]; sums: [10C] = dW [3, 3, 1, C] |
+// d conv_b [C], folded in slot order.
 int dcase_entry_block_bwd_wgrad(const void* x, const void* dout, const void* cw, const void* cb,
                                 const void* scale, const void* bias, const void* mean,
                                 const void* var, const void* glu_w, const void* glu_b,
                                 const void* a, const void* b2, void* partials, void* sums,
                                 int B, int T, int F, int C, int pt, int pf, float eps,
                                 const void* seed, unsigned int threshold, float keep_scale,
-                                int packed, int tiles_per_block, int bf16, int partition,
-                                void* stream) {
+                                int packed, int tiles_per_block, void* stream) {
   const BlockArgs g = block_args(x, dout, cw, cb, scale, bias, mean, var, glu_w, glu_b, a, b2,
                                  B, T, F, C, pt, pf, eps, dropout_of(seed, threshold, keep_scale, packed),
                                  tiles_per_block);
-  return dispatch_block<BwdWgrad>(C, bf16, g, static_cast<float*>(partials), static_cast<float*>(sums),
-                                  partition, static_cast<cudaStream_t>(stream));
+  auto* pa = static_cast<float*>(partials);
+  auto* su = static_cast<float*>(sums);
+  auto st = static_cast<cudaStream_t>(stream);
+  return C <= 64 ? launch_block_bwd_wgrad<4>(g, pa, su, st) : launch_block_bwd_wgrad<8>(g, pa, su, st);
+}
+
+// Blocks of bfloat16 pass `pass` (1 or 2) that one SM of the current device
+// holds at C channels under (buffers, drows) (0 on an error); the wrapper
+// sizes the grid from it.
+int dcase_entry_block_bwd_bf16_resident(int C, int pass, int buffers, int drows) {
+  int resident = 0;
+  cudaError_t err;
+  if (pass == 1)
+    err = C <= 64 ? bwd_bf16_attrs<64, 1>(buffers, drows, &resident) : bwd_bf16_attrs<128, 1>(buffers, drows, &resident);
+  else
+    err = C <= 64 ? bwd_bf16_attrs<64, 2>(buffers, drows, &resident) : bwd_bf16_attrs<128, 2>(buffers, drows, &resident);
+  return err == cudaSuccess ? resident : 0;
+}
+
+// First backward pass in bfloat16: x [B, T, F] and dout [B, T/pt, F/pf, C]
+// bfloat16, the rest as in dcase_entry_block_bwd_reduce; blocks: the grid,
+// one wave over the batch's tiles in equal runs; partials: [blocks, C*C +
+// 3C]; buffers, drows: the dout tiles in shared memory
+// (ops/fused_entry_block.bf16_bwd_plan).
+int dcase_entry_block_bwd_reduce_bf16(const void* x, const void* dout, const void* cw, const void* cb,
+                                      const void* scale, const void* bias, const void* mean, const void* var,
+                                      const void* glu_w, const void* glu_b, void* partials, void* sums, int B, int T,
+                                      int F, int C, int pt, int pf, float eps, const void* seed,
+                                      unsigned int threshold, float keep_scale, int packed, int blocks, int buffers,
+                                      int drows, void* stream) {
+  const BlockArgs g = block_args(x, dout, cw, cb, scale, bias, mean, var, glu_w, glu_b, nullptr, nullptr,
+                                 B, T, F, C, pt, pf, eps, dropout_of(seed, threshold, keep_scale, packed), 0);
+  auto* pa = static_cast<float*>(partials);
+  auto* su = static_cast<float*>(sums);
+  auto st = static_cast<cudaStream_t>(stream);
+  return C <= 64 ? launch_bwd_reduce_bf16<64>(g, pa, su, blocks, buffers, drows, st)
+                 : launch_bwd_reduce_bf16<128>(g, pa, su, blocks, buffers, drows, st);
+}
+
+// Second backward pass in bfloat16, arguments as in the first with a, b2
+// [C]; partials: [blocks, parts * 10C] (parts 2 under partition 1); sums:
+// [10C] = dW [3, 3, 1, C] | d conv_b [C]. partition 0: one part; 1:
+// output-frequency parity (F even); 2: batch halves (B and blocks even, the
+// first half of the slots the first half of the clips). Each part's dW is
+// rounded to bfloat16 before the parts are added; d conv_b is not rounded.
+int dcase_entry_block_bwd_wgrad_bf16(const void* x, const void* dout, const void* cw, const void* cb,
+                                     const void* scale, const void* bias, const void* mean, const void* var,
+                                     const void* glu_w, const void* glu_b, const void* a, const void* b2,
+                                     void* partials, void* sums, int B, int T, int F, int C, int pt, int pf, float eps,
+                                     const void* seed, unsigned int threshold, float keep_scale, int packed,
+                                     int blocks, int buffers, int drows, int partition, void* stream) {
+  const BlockArgs g = block_args(x, dout, cw, cb, scale, bias, mean, var, glu_w, glu_b, a, b2,
+                                 B, T, F, C, pt, pf, eps, dropout_of(seed, threshold, keep_scale, packed), 0);
+  auto* pa = static_cast<float*>(partials);
+  auto* su = static_cast<float*>(sums);
+  auto st = static_cast<cudaStream_t>(stream);
+  return C <= 64 ? launch_bwd_wgrad_bf16<64>(g, pa, su, blocks, buffers, drows, partition, st)
+                 : launch_bwd_wgrad_bf16<128>(g, pa, su, blocks, buffers, drows, partition, st);
 }
 
 // out: [n] float32 0/1 keep-mask of (seed, element index, threshold) in the

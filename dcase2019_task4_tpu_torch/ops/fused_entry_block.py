@@ -11,8 +11,15 @@ version beside it:
   entry_block_stats_apply  entry_conv_kernel<1> + fold             entry_conv_reference (sums)
   entry_block_fwd          entry_block_fwd_kernel                  reference_entry_block
   entry_block_bwd_reduce   entry_block_bwd_reduce_kernel + fold    entry_block_bwd_reduce_reference
+                           (bfloat16: entry_block_bwd_reduce_bf16_kernel)
   entry_block_bwd_wgrad    entry_block_bwd_wgrad_kernel + fold     entry_block_bwd_wgrad_reference
+                           (bfloat16: entry_block_bwd_wgrad_bf16_kernel)
   entry_block_bwd_wgrad_parts  the same launch                     entry_block_bwd_wgrad_parts_reference
+
+The bfloat16 backward passes run K2's bfloat16 tile code on the tensor
+cores over a y tile they compute once; their launch plan is one wave of the
+resident blocks over the batch's tiles in equal runs (`bf16_bwd_plan`,
+`bf16_bwd_grid`), the float32 passes' a grid of blocks cut per clip.
 
 `entry_block_apply` ties them into one `torch.autograd.Function` with the
 contract of `fused_block.fused_bn_glu_dropout_pool`: mean and var come in
@@ -63,6 +70,7 @@ values. In float32 the layouts give the same bits.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -70,7 +78,8 @@ import torch
 from dcase2019_task4_tpu_torch.ops import _build, entry_conv, fused_block
 
 _TARGET_BLOCKS = 1056  # forward: 8 resident blocks on each of the H100's 132 SMs
-_TARGET_BLOCKS_BWD = 528  # backward: one partial slot per block, folded in fixed order
+_TARGET_BLOCKS_BWD = 528  # float32 backward: one partial slot per block, folded in fixed order
+_TILE_PIXELS = fused_block._TILE_PIXELS  # csrc/bf16_tile.cuh kPix
 
 
 def entry_block_applicable(shape, pool: Tuple[int, int], channels: int = 64) -> bool:
@@ -289,9 +298,58 @@ entry_block_fwd.launches_packed = 0  # train launches of either dtype that drew 
 
 
 def _bwd_launch_geometry(lib, B, T, Fq, pool):
+    """float32 passes: (tiles a block takes, slots), about
+    _TARGET_BLOCKS_BWD blocks cut per clip."""
     tiles = lib.dcase_bn_glu_pool_tiles(T, Fq, *pool)
     tpb = fused_block._tiles_per_block(tiles, B, _TARGET_BLOCKS_BWD)
     return tpb, -(-tiles // tpb) * B
+
+
+def bf16_bwd_plan(channels: int, pool, which: int):
+    """Shared memory of bfloat16 pass `which` (1: K5b1, 2: K5b2) at
+    `channels` C and `pool` (pt, pf) → (buffers, drows, bytes), the channels
+    padded to CP = 64 (C ≤ 64) or 128 in bfloat16 rows of RS = CP + 8
+    (csrc/entry_block.cu bwd_bf16_smem): the y, A and D tiles [128][RS],
+    `buffers` tiles of the pooled rows of dout [drows][RS] (drows =
+    128 // (pt·pf)) and W [CP][RS], pass 2's patch matrix [16][136] too; the
+    conv weights and bias [10][CP], six per-channel vectors [CP] (pass 2:
+    eight), the pixel warp rows' sums [3][WM][CP] (pass 2: [WM][CP]; WM = 4
+    warp rows) and the x tile [512] in float32; the keep
+    bits [128][CP/4 + 4] bytes and the dout-row table [128] int32. Two dout
+    buffers where they fit a block, else one."""
+    cp = 64 if channels <= 64 else 128
+    rs, wm = cp + 8, 4  # 8 warps at CP = 64, 16 at 128: cp / 32 warp columns, four warp rows
+    drows = _TILE_PIXELS // (pool[0] * pool[1])
+    for buffers in (2, 1):
+        halves = rs * (3 * _TILE_PIXELS + buffers * drows + cp) + (16 * (_TILE_PIXELS + 8) if which == 2 else 0)
+        floats = cp * (10 + (8 if which == 2 else 6) + (1 if which == 2 else 3) * wm) + 4 * _TILE_PIXELS
+        nbytes = 2 * halves + 4 * floats + _TILE_PIXELS * (cp // 4 + 4) + 4 * _TILE_PIXELS
+        if nbytes <= _build.MAX_SHARED:
+            return buffers, drows, nbytes
+    raise ValueError(f"bfloat16 pass {which} does not fit {channels} channels at pool {tuple(pool)}")
+
+
+def bf16_bwd_grid(resident: int, B: int, tiles: int, halves: bool = False) -> int:
+    """Blocks of a bfloat16 backward pass: one wave of the `resident` blocks
+    the card holds, each an equal run of the batch's B · `tiles` tiles (clip
+    after clip; never more blocks than tiles), one partial slot each. Under
+    `halves` (the crows layout's dW in batch halves) an even number, half
+    of them over each half of the clips."""
+    if halves:
+        return 2 * max(1, min(resident // 2, (B // 2) * tiles))
+    return max(1, min(resident, B * tiles))
+
+
+@functools.cache
+def _bf16_resident(index: int, channels: int, which: int, buffers: int, drows: int) -> int:
+    """Blocks of bfloat16 pass `which` that device `index` holds at once
+    under its plan: what one SM holds (registers and shared memory, from the
+    CUDA occupancy calculator) times its SMs."""
+    with torch.cuda.device(index):
+        resident = _build.library().dcase_entry_block_bwd_bf16_resident(channels, which, buffers, drows)
+    if resident < 1:
+        raise _build.KernelError(f"bfloat16 pass {which} does not fit an SM at {channels} channels")
+    return resident * _build.sm_count(index)
 
 
 def _check_dout(x, dout, pool, C):
@@ -320,17 +378,24 @@ def entry_block_bwd_reduce(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_
                                                 _mask(seed, x, C, rate, pack_bits), 1.0 - rate)
     pt, pf = pool
     lib = _build.library()
-    tpb, slots = _bwd_launch_geometry(lib, B, T, Fq, pool)
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        buffers, drows, _ = bf16_bwd_plan(C, pool, 1)
+        slots = bf16_bwd_grid(_bf16_resident(x.device.index, C, 1, buffers, drows), B,
+                              lib.dcase_bn_glu_pool_tiles(T, Fq, pt, pf))
+    else:
+        tpb, slots = _bwd_launch_geometry(lib, B, T, Fq, pool)
     width = C * C + 3 * C
     partials = torch.empty((slots, width), dtype=torch.float32, device=x.device)
     sums = torch.empty(width, dtype=torch.float32, device=x.device)
     seed_t = fused_block._seed_tensor(seed, x.device)
-    status = lib.dcase_entry_block_bwd_reduce(
-        x.data_ptr(), dout.data_ptr(), w.data_ptr(), cb.data_ptr(), *(v.data_ptr() for v in vecs[:4]),
-        gw.data_ptr(), vecs[4].data_ptr(), partials.data_ptr(), sums.data_ptr(), B, T, Fq, C, pt, pf, float(eps),
-        seed_t.data_ptr(), threshold, keep_scale, packed, tpb, int(x.dtype == torch.bfloat16),
-        _build.stream_handle(x.device),
-    )
+    args = (x.data_ptr(), dout.data_ptr(), w.data_ptr(), cb.data_ptr(), *(v.data_ptr() for v in vecs[:4]),
+            gw.data_ptr(), vecs[4].data_ptr(), partials.data_ptr(), sums.data_ptr(), B, T, Fq, C, pt, pf, float(eps),
+            seed_t.data_ptr(), threshold, keep_scale, packed)
+    if bf16:
+        status = lib.dcase_entry_block_bwd_reduce_bf16(*args, slots, buffers, drows, _build.stream_handle(x.device))
+    else:
+        status = lib.dcase_entry_block_bwd_reduce(*args, tpb, _build.stream_handle(x.device))
     _build.check(status, "entry_block_bwd_reduce")
     _tally(entry_block_bwd_reduce, "launches", "launches_bwd_reduce", x.dtype)
     fused_block.count_packed(entry_block_bwd_reduce, packed)
@@ -366,16 +431,23 @@ def _launch_bwd_wgrad(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, gl
     if partition == 2 and B % 2:
         raise ValueError(f"entry_block_bwd_wgrad: the crows layout splits an even batch, got {B} clips")
     lib = _build.library()
-    tpb, slots = _bwd_launch_geometry(lib, B, T, Fq, pool)
+    if bf16:
+        buffers, drows, _ = bf16_bwd_plan(C, pool, 2)
+        slots = bf16_bwd_grid(_bf16_resident(x.device.index, C, 2, buffers, drows), B,
+                              lib.dcase_bn_glu_pool_tiles(T, Fq, pt, pf), partition == 2)
+    else:
+        tpb, slots = _bwd_launch_geometry(lib, B, T, Fq, pool)
     partials = torch.empty((slots, (2 if partition == 1 else 1) * 10 * C), dtype=torch.float32, device=x.device)
     sums = torch.empty(10 * C, dtype=torch.float32, device=x.device)
     seed_t = fused_block._seed_tensor(seed, x.device)
-    status = lib.dcase_entry_block_bwd_wgrad(
-        x.data_ptr(), dout.data_ptr(), w.data_ptr(), cb.data_ptr(), *(v.data_ptr() for v in vecs[:4]),
-        gw.data_ptr(), vecs[4].data_ptr(), vecs[5].data_ptr(), vecs[6].data_ptr(), partials.data_ptr(),
-        sums.data_ptr(), B, T, Fq, C, pt, pf, float(eps), seed_t.data_ptr(), threshold, keep_scale, packed, tpb,
-        int(bf16), partition, _build.stream_handle(x.device),
-    )
+    args = (x.data_ptr(), dout.data_ptr(), w.data_ptr(), cb.data_ptr(), *(v.data_ptr() for v in vecs[:4]),
+            gw.data_ptr(), vecs[4].data_ptr(), vecs[5].data_ptr(), vecs[6].data_ptr(), partials.data_ptr(),
+            sums.data_ptr(), B, T, Fq, C, pt, pf, float(eps), seed_t.data_ptr(), threshold, keep_scale, packed)
+    if bf16:
+        status = lib.dcase_entry_block_bwd_wgrad_bf16(*args, slots, buffers, drows, partition,
+                                                      _build.stream_handle(x.device))
+    else:
+        status = lib.dcase_entry_block_bwd_wgrad(*args, tpb, _build.stream_handle(x.device))
     _build.check(status, "entry_block_bwd_wgrad")
     _tally(entry_block_bwd_wgrad, "launches", "launches_bwd_wgrad", x.dtype)
     fused_block.count_packed(entry_block_bwd_wgrad, packed)

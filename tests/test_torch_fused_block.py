@@ -19,6 +19,14 @@ POOL = (2, 4)
 EPS = 1e-3
 
 
+def _kernel_source() -> str:
+    """csrc/fused_block.cu with the tile code it includes (csrc/bf16_tile.cuh)."""
+    from pathlib import Path
+
+    csrc = Path(tfb.__file__).parent.parent / "csrc"
+    return (csrc / "fused_block.cu").read_text() + (csrc / "bf16_tile.cuh").read_text()
+
+
 def _inputs(shape, seed):
     rng = np.random.default_rng(seed)
     C = shape[-1]
@@ -141,9 +149,7 @@ def test_bf16_reduce_plan_at_the_main_path(C, pool, want):
 
 
 def test_bf16_plans_match_the_kernel_source():
-    from pathlib import Path
-
-    src = (Path(tfb.__file__).parent.parent / "csrc" / "fused_block.cu").read_text()
+    src = _kernel_source()
     for line in ("static constexpr int RS = CP + 8;", "static constexpr int KG = CP / 4;",
                  "static constexpr int MS = KG + 4;", "static constexpr int WN = CP / 32, WM = NW / WN;",
                  "constexpr int kFwdWarps = CP == 128 ? 16 : 8;", "constexpr int kBwdWarps = 16;",
@@ -155,10 +161,9 @@ def test_bf16_plans_match_the_kernel_source():
 
 
 def test_reduce_plan_matches_the_kernel_source():
-    from pathlib import Path
     import re
 
-    src = (Path(tfb.__file__).parent.parent / "csrc" / "fused_block.cu").read_text()
+    src = _kernel_source()
     assert re.search(r"constexpr int kPix = (\d+);", src).group(1) == str(tfb._TILE_PIXELS)
     assert "static constexpr int KS = CP + 4;" in src
     assert ("(size_t)(buffers + 1) * kPix * P::KS + (size_t)buffers * drows * P::KS +\n"
@@ -186,9 +191,7 @@ def test_forward_plan_at_the_main_path(C, want):
 
 
 def test_forward_plan_matches_the_kernel_source():
-    from pathlib import Path
-
-    src = (Path(tfb.__file__).parent.parent / "csrc" / "fused_block.cu").read_text()
+    src = _kernel_source()
     for line in ("return sizeof(float) * (2 * (kPix * P::KS + kPix) + P::CP * P::CP + 4 * P::CP);",
                  "static constexpr int KS = CP + 4;", "static constexpr int CP = 16 * NJ;",
                  "__launch_bounds__(FwdPlan<NJ>::NT, FwdPlan<NJ>::MIN_BLOCKS)\nbn_glu_pool_kernel(",
@@ -229,9 +232,7 @@ def test_fixup_plan_fits_every_admitted_width():
 
 
 def test_fixup_plan_matches_the_kernel_source():
-    from pathlib import Path
-
-    src = (Path(tfb.__file__).parent.parent / "csrc" / "fused_block.cu").read_text()
+    src = _kernel_source()
     for line in ("return sizeof(float) * (2 * kPix * P::KS + (size_t)drows * P::KS + P::CP * P::CP + 6 * P::CP + 2 * kPix);",
                  "return 2 * (size_t)P::RS * ((size_t)buffers * (kPix + drows) + 2 * kPix + CP) + 4 * 8 * (size_t)CP +\n"
                  "         (size_t)kPix * P::MS + 4 * kPix;",

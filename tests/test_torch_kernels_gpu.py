@@ -1087,6 +1087,88 @@ def test_entry_block_bf16(cuda, shape, C, rate, layout):
         assert torch.equal(ref_out, out)
 
 
+# K5's bfloat16 passes at their tile edges: a ragged last tile at C = 16, F = 16, whole tiles, C = 96 (padded to 128)
+ENTRY_BWD_BF16_SHAPES = [((2, 98, 64), 16), ((2, 38, 16), 64), ((2, 12, 64), 64), ((2, 14, 64), 96)]
+
+
+@pytest.mark.parametrize("pack", [False, True])
+@pytest.mark.parametrize("layout", ["planes", "crows"])
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("shape,C", ENTRY_BWD_BF16_SHAPES)
+def test_entry_bwd_bf16_passes(cuda, shape, C, rate, layout, pack):
+    """K5b1 and K5b2 in bfloat16 (entry_block_bwd_reduce_bf16_kernel,
+    entry_block_bwd_wgrad_bf16_kernel) called alone, without dropout and
+    with either draw (mask modes 1 and 2), against their
+    plain versions under chip_smoke.py's bars: pass 1 1e-4 of each output's
+    max (d glu_w plus one bfloat16 operand flip); pass 2's dW parts as
+    `check_parts` holds them and dW one ulp of itself plus one of each
+    part's sum plus one dy flip; d conv_b, zero in exact arithmetic, at
+    each side's own pass-1 coefficients, 1e-4 of its max plus the float32
+    rounding of its sum; each a bit-equal repeat. Then pass 1 against K4f ->
+    K2b's bfloat16 reduce pass without dy_partial with the same seed: the
+    same tile code on the same y, summed over other runs of tiles."""
+    rng = np.random.default_rng(sum(shape) + C + 15)
+    B, T, Fq = shape
+    fe = fused_entry_block
+    conv = _entry_params(rng, C, cuda)
+    scale, bias, _, _, gw, gb = _block_args(rng, C, cuda)
+    x = _t(rng.standard_normal(shape), cuda).bfloat16()
+    dout = _t(rng.standard_normal((B, T // 2, Fq // 4, C)), cuda).bfloat16()
+    seed = torch.tensor([41 + T])
+    s, sq = fe.entry_block_stats_apply(conv, x)
+    n = B * T * Fq
+    mean = s / n
+    var = sq / n - mean * mean
+    vecs = (conv["w"], conv["b"], scale, bias, mean, var, gw, gb)
+    keep = 1.0 - rate
+    mask = fused_block.dropout_keep_mask(seed, shape + (C,), rate, device=cuda, pack_bits=pack) if rate else None
+    kw = dict(rate=rate, seed=seed, pack_bits=pack)
+    packed = int(pack and rate > 0.0)  # at rate 0 neither draw runs
+    counts = (fe.entry_block_bwd_reduce.launches_bf16, fe.entry_block_bwd_wgrad.launches_bf16,
+              fe.entry_block_bwd_reduce.launches_packed, fe.entry_block_bwd_wgrad.launches_packed)
+
+    red = fe.entry_block_bwd_reduce(x, dout, *vecs, (2, 4), 1e-3, **kw)
+    want = fe.entry_block_bwd_reduce_reference(x, dout, *vecs, (2, 4), 1e-3, mask, keep)
+    y = entry_conv.entry_conv_reference(conv, x)[0]
+    xn = (y.float() - mean) * torch.rsqrt(var + 1e-3) * scale + bias
+    dlin = dout.float().abs().max() / (8 * keep)
+    for name, got, w in zip(("d glu_w", "d glu_b", "S1", "S2"), red, want):
+        limit = 1e-4 * w.abs().max().item()
+        if name == "d glu_w":  # one bfloat16 operand of xn^T . dlin rounding the other way
+            limit += _ulp(xn.abs().max()).item() * dlin.item() + _ulp(dlin).item() * xn.abs().max().item()
+        assert (got - w).abs().max().item() <= limit, name
+    assert all(torch.equal(p, q) for p, q in zip(red, fe.entry_block_bwd_reduce(x, dout, *vecs, (2, 4), 1e-3, **kw)))
+
+    a, b2 = fused_block.bwd_coefficients(scale, var, 1e-3, red[2], red[3], n)
+    dw, dcb, parts = fe.entry_block_bwd_wgrad_parts(x, dout, *vecs, a, b2, (2, 4), 1e-3, layout=layout, **kw)
+    dy = fe._pass2_dy(x, dout, *vecs, a, b2, (2, 4), 1e-3, mask, keep)[0]
+    flip = _ulp(dy.abs().max()).item() * x.float().abs().max().item()
+    want_parts = fe.entry_block_bwd_wgrad_parts_reference(x, dout, *vecs, a, b2, (2, 4), 1e-3, mask, keep, layout)
+    _check_parts(dw, parts, want_parts, f"dW parts ({layout})", flip)
+    dw_ref = fe.entry_block_bwd_wgrad_reference(x, dout, *vecs, a, b2, (2, 4), 1e-3, mask, keep, layout)[0]
+    _parts_rule(dw, dw_ref, want_parts, "dW", flip)
+    # d conv_b is zero in exact arithmetic (a holds S1): each side at its own
+    # pass 1's coefficients, held to the float32 rounding of its sum
+    a_p, b2_p = fused_block.bwd_coefficients(scale, var, 1e-3, want[2], want[3], n)
+    dcb_ref = fe.entry_block_bwd_wgrad_reference(x, dout, *vecs, a_p, b2_p, (2, 4), 1e-3, mask, keep, layout)[1]
+    limit = 1e-4 * dcb_ref.abs().max().item() + _sum_slack(n, dy, torch.ones(1))
+    assert (dcb - dcb_ref).abs().max().item() <= limit, "d conv_b"
+    again = fe.entry_block_bwd_wgrad(x, dout, *vecs, a, b2, (2, 4), 1e-3, layout=layout, **kw)
+    assert torch.equal(again[0], dw) and torch.equal(again[1], dcb)
+    assert (fe.entry_block_bwd_reduce.launches_bf16, fe.entry_block_bwd_wgrad.launches_bf16,
+            fe.entry_block_bwd_reduce.launches_packed, fe.entry_block_bwd_wgrad.launches_packed) == \
+        (counts[0] + 2, counts[1] + 2, counts[2] + 2 * packed, counts[3] + 2 * packed)
+
+    # pass 1 against K4f -> K2b reduce bfloat16 without dy_partial, same seed and draw
+    y_k = entry_conv.entry_conv_forward(conv, x)[0]
+    pair = fused_block.bwd_reduce(y_k, dout, scale, bias, mean, var, gw, gb, (2, 4), 1e-3, recompute=True, **kw)[1:]
+    same = all(torch.equal(p, q) for p, q in zip(red, pair))
+    worst = max((p - q).abs().max().item() / max(q.abs().max().item(), 1e-30) for p, q in zip(red, pair))
+    print(f"K5b1 bf16 {shape} C={C} rate {rate} {'packed' if pack else '32-bit'}: against K4f -> K2b reduce "
+          f"{'bit-equal' if same else f'largest difference {worst:.3e} of max'}")
+    assert worst <= 1e-4
+
+
 @pytest.mark.parametrize("flag", [None, "entry_conv_pallas", "entry_block_pallas", "entry_block_crows"])
 def test_flagship_bf16_train_step_repeats_a_cpu_step(cuda, flag):
     """One Mean-Teacher step of a bfloat16 model with the flagship's widths

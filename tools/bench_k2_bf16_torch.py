@@ -72,8 +72,10 @@ def ptxas_report(log: str) -> int:
 
 
 # Source variants for --ablations: (name, edits), each edit
-# (text, replacement, count) applied to csrc/fused_block.cu (count -1: every
-# occurrence; the forward comes before the reduce pass in the file)
+# (text, replacement, count) applied to csrc/fused_block.cu or the headers it
+# includes (count -1: every occurrence; the forward comes before the reduce
+# pass in the file; the reduce pass's tile code is in bf16_tile.cuh, shared
+# with the recompute fixup and K5's bfloat16 passes)
 FAST_SIGMOID = "__device__ __forceinline__ float fsig(float x) { return __fdividef(1.0f, 1.0f + __expf(-x)); }\n"
 ABLATIONS = (
     ("as built", ()),
@@ -85,43 +87,47 @@ ABLATIONS = (
     ("forward without lin", (("    product_w<CP, NW, true>(acc, A, ws, wm, wn, lane);\n    // g =", "    // g =", 1),)),
     ("forward without the pool", (("i < n_win * KG; i += P::NTHR", "i < 0; i += P::NTHR", 1),)),
     ("reduce without dW", (("ks < ksteps; ++ks", "ks < 0; ++ks", 1),)),
-    ("reduce without dxn", (("    product_w<CP, NW, false, MT>(acc, D + hp * HP * RS, ws, wm, wn, lane);", "", 1),)),
-    ("reduce without the mask pass", (("i < tpix * KG; i += P::NTHR", "i < 0; i += P::NTHR", 1),)),
+    ("reduce without dxn", (("  product_w<CP, NW, false, MT>(acc, s.D + row0 * RS, s.ws, wm, wn, lane);", "", 1),)),
+    ("reduce without the mask pass", (("i < tpix * KG; i += blockDim.x", "i < 0; i += blockDim.x", 1),)),
     ("reduce without the dy_partial stores", (("if (dyp != nullptr) {  // the tile's", "if (false) {  // the tile's", 1),)),
     ("reduce, 8 warps at C = 128, the tile's pixels in one pass",
      (("constexpr int kBwdWarps = 16;", "constexpr int kBwdWarps = CP == 64 ? 16 : 8;", 1),
-      ("constexpr int NH = CP == 128 ? 2 : 1,", "constexpr int NH = 1,", 1))),
+      ("constexpr int NH = CP == 128 ? 2 : 1;", "constexpr int NH = 1;", 1))),
     ("reduce, 16 warps at C = 128, the tile's pixels in one pass",
-     (("constexpr int NH = CP == 128 ? 2 : 1,", "constexpr int NH = 1,", 1),)),
+     (("constexpr int NH = CP == 128 ? 2 : 1;", "constexpr int NH = 1;", 1),)),
 )
 
 
-def ablation_libraries(ablations=ABLATIONS, kernel="bf16_kernel"):
-    """Build each variant of csrc/fused_block.cu in `ablations` (ABLATIONS'
-    form) alone into its own library under the build directory, all
-    compilers at once; → [(name, ctypes library or None, ptxas lines of the
-    kernels whose name holds `kernel`)]."""
+def ablation_libraries(ablations=ABLATIONS, kernel="bf16_kernel", source="fused_block.cu"):
+    """Build each variant of csrc/`source` in `ablations` (ABLATIONS' form;
+    an edit applies to `source` or, where the text is there, to the headers
+    it includes: count -1 in every file that holds it, else in the first)
+    alone into its own library under the build directory, all compilers at
+    once; → [(name, ctypes library or None, ptxas lines of the kernels whose
+    name holds `kernel`)]."""
     import ctypes
     import shutil
 
     from dcase2019_task4_tpu_torch.ops import _build
 
-    text = (_build.CSRC_DIR / "fused_block.cu").read_text()
+    names = [source] + sorted(h.name for h in _build.CSRC_DIR.glob("*.cuh"))
+    texts = {n: (_build.CSRC_DIR / n).read_text() for n in names}
     jobs = []
     for k, (name, edits) in enumerate(ablations):
         work = _build.BUILD_DIR / "ablations" / str(k)
         if work.exists():
             shutil.rmtree(work)
         work.mkdir(parents=True)
-        for header in _build.CSRC_DIR.glob("*.cuh"):
-            shutil.copy(header, work)
-        src = text
+        files = dict(texts)
         for old, new, count in edits:
-            if old not in src:
-                raise AssertionError(f"ablation {name!r}: {old[:60]!r} not in fused_block.cu")
-            src = src.replace(old, new, count)
-        (work / "fused_block.cu").write_text(src)
-        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-o", str(work / "lib.so"), str(work / "fused_block.cu")]
+            holding = [n for n in names if old in files[n]]
+            if not holding:
+                raise AssertionError(f"ablation {name!r}: {old[:60]!r} not in {source} or its headers")
+            for n in holding if count == -1 else holding[:1]:
+                files[n] = files[n].replace(old, new, count)
+        for n, text in files.items():
+            (work / n).write_text(text)
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-o", str(work / "lib.so"), str(work / source)]
         jobs.append((name, work, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     out = []
     for name, work, proc in jobs:

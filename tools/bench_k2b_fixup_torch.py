@@ -34,9 +34,8 @@ With --variants it times other plans of the two fixups at block 1 of their
 configurations, each output first held to the as-built kernel's bit for bit
 or else to the plain version under the row's bar: launch plans (bfloat16
 one buffer; the grid at half and twice the resident blocks) through the
-wrappers, and source variants (the
-bfloat16 fixup's pixels a warp: 8 warps at C = 128, 16 at C = 64; its tile
-in two pixel halves, NH = 2), each csrc/fused_block.cu edited and built
+wrappers, and a source variant (the bfloat16 fixup's pixels a warp: 8
+warps at C = 128, 16 at C = 64), csrc/fused_block.cu edited and built
 alone into a library of its own (all compilers started together), timed by
 CUDA events around ten calls in a row (the profiler traces nothing once a
 second library is loaded). About five minutes of card time, ten with
@@ -73,8 +72,6 @@ SOURCE_VARIANTS = (
     ("as built", ()),
     ("bfloat16: 8 warps at C = 128, 16 at C = 64",
      (("constexpr int kFixWarps = CP == 128 ? 16 : 8;", "constexpr int kFixWarps = CP == 128 ? 8 : 16;", 1),)),
-    ("bfloat16: the tile in two pixel halves (NH = 2)",
-     (("constexpr int NH = 1, MT = P::MT / NH", "constexpr int NH = 2, MT = P::MT / NH", 1),)),
 )
 
 
