@@ -9,11 +9,11 @@ printing a result:
   1. card   — nvidia-smi's name and power limit, torch's device name;
   2. build  — compile csrc/*.cu with nvcc for sm_90a, one compiler per source
      in parallel (ptxas report printed); the product instruction of K3's,
-     K2's and K5b1 / K5b2's bfloat16 kernels read from the library's
+     K2's and K5f / K5b1 / K5b2's bfloat16 kernels read from the library's
      machine code (HGMMA or HMMA, with the FFMA count; a kernel with neither
-     fails), and of the
-     FP32 product kernels (onedot K1, K3's float32 kernels, K2b's float32
-     reduce pass: FFMA, and a kernel with HGMMA or HMMA fails);
+     fails), and of the FP32 product kernels (onedot K1, K3's float32
+     kernels, K2f's and K2b's float32 kernels, K5b1's float32 pass: FFMA,
+     and a kernel with HGMMA or HMMA fails);
   3. kernels — each hand-written kernel against its plain PyTorch version on
      the card, at the flagship shapes, float32 with TF32 off: max abs error
      against a stated tolerance, median time over 10 runs after 3 warm-ups
@@ -25,7 +25,9 @@ printing a result:
      per-block sums (K2b, K2s, K3w, K4f, K4w, K5s, K5b1, K5b2) runs twice and
      must repeat bit for bit. The entry-block family runs at the block-1
      shape: K4f's and K5s's sums are also held to K2s's on the stored y, K5f
-     with a seed to F.conv2d -> K2f with that seed, the crows entries
+     with a seed to F.conv2d -> K2f with that seed, K5b1 to K4f -> K2b's
+     float32 reduce pass without dy_partial with the same seed (bit for bit:
+     the shared tile code, summed into K2b's slots), the crows entries
      (statistics, forward, and both backward passes through their autograd
      Function) bit for bit to the fused entry block's own wrappers and to
      the plain versions on their own, and the keep-mask kernel bit for bit
@@ -61,7 +63,8 @@ printing a result:
      flagship block-1 shape: K4f (y bfloat16, its float32 sums, against
      cuDNN's bfloat16 conv), K5s, K4w and K5b2 (dW in output-frequency
      parities), K5f eval and dropout (also against K4f -> K2f with the same
-     seed), K5b1 (also against K4f -> K2b's bfloat16 reduce pass without
+     seed, bit for bit at rate 0 and at the model's rate: the shared tile
+     code on the same bfloat16 y), K5b1 (also against K4f -> K2b's bfloat16 reduce pass without
      dy_partial with the same seed: the shared tile code), and the crows
      entries in their own mode (each g rounded
      before the pool, dW in batch halves: bit for bit as the fused entry
@@ -1228,6 +1231,17 @@ def entry_kernels(device, rows, rng):
                                        conv_ops + 3 * mix_ops + pass1_ops)  # conv; lin, dxn, d glu_w
     dgw, dgb, r1, r2 = fe.entry_block_bwd_reduce(*args, pool, eps, rate=rate, seed=seed)
     a, b2 = fb.bwd_coefficients(scale, var, eps, r1, r2, pixels)
+    # K5b1 runs K2b's float32 reduce pass (csrc/f32_tile.cuh) on the y it
+    # computes and sums into K2b's slots: K4f -> K2b's reduce pass without
+    # dy_partial with the same seed, bit for bit
+    y = ec.entry_conv_forward(conv, x)[0]
+    pair = fb.bwd_reduce(y, dout, scale, bias, mean, var, gw, gb, pool, eps, rate=rate, seed=seed, recompute=True)[1:]
+    del y
+    if not all(torch.equal(p, q) for p, q in zip((dgw, dgb, r1, r2), pair)):
+        worst = max((p - q).abs().max().item() / q.abs().max().item() for p, q in zip((dgw, dgb, r1, r2), pair))
+        raise AssertionError(f"K5b1 float32 differs from K4f -> K2b reduce float32: {worst:.3e} of max")
+    print("  K5b1 float32 equals K4f -> K2b reduce float32 without dy_partial with the same seed bit for bit")
+    del pair
 
     def exact_wgrad():
         """Pass 2 in float64. d conv_b is zero in exact arithmetic (a shift of
@@ -1660,16 +1674,16 @@ def entry_bf16_kernels(device, rows, rng):
                   lambda: fe.reference_entry_block(x, *block, mean, var, gw, gb, pool, eps, mask, keep),
                   tols=[("ulp", slack)])
     rows["entry_block_fwd_train_bf16"].add(shape, res, x_bytes + out_bytes + small, fwd_train_ops, conv_ops + mix_ops)
-    # the planes layout rounds as K2 does: K5f equals K4f -> K2f with the same seed
-    fused = fe.entry_block_fwd(x, *block, mean, var, gw, gb, pool, eps, rate=rate, seed=seed)
-    pair = fb.fused_bn_glu_pool(y, scale, bias, mean, var, gw, gb, pool, eps, rate=rate, seed=seed)
-    o, r = fused.float(), pair.float()
-    beyond = int(((o - r).abs() > bf16_ulp(torch.maximum(o.abs(), r.abs())) + slack).sum().item())
-    if beyond:
-        raise AssertionError(f"K5f bf16 against K4f -> K2f with the same seed: {beyond} elements beyond one ulp + slack")
-    print(f"  K5f bf16 rate {rate} equals K4f -> K2f with the same seed within one bfloat16 ulp + slack "
-          f"(largest difference {(o - r).abs().max().item():.3e})")
-    del fused, pair, o, r, slack
+    # the planes layout runs K2f's bfloat16 tile code on the same bfloat16 y:
+    # K5f equals K4f -> K2f with the same seed bit for bit
+    for r in (0.0, rate):
+        fused = fe.entry_block_fwd(x, *block, mean, var, gw, gb, pool, eps, rate=r, seed=seed)
+        pair = fb.fused_bn_glu_pool(y, scale, bias, mean, var, gw, gb, pool, eps, rate=r, seed=seed)
+        if not torch.equal(fused, pair):
+            raise AssertionError(f"K5f bf16 rate {r} differs from K4f -> K2f bf16 with the same seed: largest "
+                                 f"difference {(fused.float() - pair.float()).abs().max().item():.3e}")
+        print(f"  K5f bf16 rate {r} equals K4f -> K2f bf16 with the same seed bit for bit")
+    del fused, pair, slack
 
     # K5b1, K5b2: the two backward passes with the host-side step between them
     args = (x, dout, *block, mean, var, gw, gb)
@@ -2874,14 +2888,15 @@ def compare_step1_gradients(names, want, got, what: str):
 # next one's, so its launches are the longest of each name.
 BLOCK1_KERNELS = {
     "step": (("bn_glu_pool_kernel", 2), ("bn_glu_pool_bwd_kernel", 1), ("bn_bwd_fixup_kernel", 1), ("stats_kernel", 2)),
-    "step_entry_block": (("entry_conv_kernel", 2), ("entry_block_fwd_kernel", 2), ("entry_block_bwd_reduce_kernel", 1),
-                         ("entry_block_bwd_wgrad_kernel", 1)),
+    "step_entry_block": (("entry_conv_kernel", 2), ("entry_block_fwd_kernel", 2),
+                         ("entry_block_bwd_reduce_f32_kernel", 1), ("entry_block_bwd_wgrad_kernel", 1)),
     "step_entry_conv": (("entry_conv_kernel", 2), ("entry_conv_wgrad_kernel", 1), ("bn_glu_pool_kernel", 2),
                         ("bn_glu_pool_bwd_kernel", 1), ("bn_bwd_fixup_kernel", 1)),
 }
 BLOCK1_KERNELS["step_crows"] = BLOCK1_KERNELS["step_entry_block"]
 BF16_NAMES = {"bn_glu_pool_kernel": "bn_glu_pool_bf16_kernel", "bn_glu_pool_bwd_kernel": "bn_glu_pool_bwd_bf16_kernel",
-              "entry_block_bwd_reduce_kernel": "entry_block_bwd_reduce_bf16_kernel",
+              "entry_block_fwd_kernel": "entry_block_fwd_bf16_kernel",
+              "entry_block_bwd_reduce_f32_kernel": "entry_block_bwd_reduce_bf16_kernel",
               "entry_block_bwd_wgrad_kernel": "entry_block_bwd_wgrad_bf16_kernel"}
 BLOCK1_KERNELS.update({f"step_bf16{path[4:]}": tuple((BF16_NAMES.get(k, k), n) for k, n in BLOCK1_KERNELS[path])
                        for path in ("step", "step_entry_block", "step_crows", "step_entry_conv")})
@@ -3004,25 +3019,28 @@ def profile_step(step, state, batch, generator, acc, card: str, step_ms: float, 
 
 # K3's, K2's and K5's bfloat16 kernels: their products must be tensor-core instructions
 MMA_KERNELS = ("conv3x3_bf16_kernel", "conv3x3_wgrad_bf16_kernel", "bn_glu_pool_bf16_kernel",
-               "bn_glu_pool_bwd_bf16_kernel", "bn_bwd_fixup_recompute_bf16_kernel",
+               "bn_glu_pool_bwd_bf16_kernel", "bn_bwd_fixup_recompute_bf16_kernel", "entry_block_fwd_bf16_kernel",
                "entry_block_bwd_reduce_bf16_kernel", "entry_block_bwd_wgrad_bf16_kernel")
 # the float32 products redesigned as register-tiled FP32 FMAs: FFMA, and no
 # tensor-core instruction (no TF32); bn_glu_pool_kernel is K2f's float32
-# forward alone, bn_glu_pool_bwd_kernel K2b's float32 reduce pass alone and
-# bn_bwd_fixup_recompute_kernel its float32 recompute fixup alone (no name
-# here is a substring of another listed name)
+# forward alone, bn_glu_pool_bwd_kernel K2b's float32 reduce pass alone,
+# bn_bwd_fixup_recompute_kernel its float32 recompute fixup alone and
+# entry_block_bwd_reduce_f32_kernel K5b1's float32 pass (no name here is a
+# substring of another listed name)
 FFMA_KERNELS = ("fused_stft_mel_onedot_kernel", "conv3x3_wgrad_kernel", "conv3x3_nhwc_kernel",
-                "bn_glu_pool_bwd_kernel", "bn_glu_pool_kernel", "bn_bwd_fixup_recompute_kernel")
+                "bn_glu_pool_bwd_kernel", "bn_glu_pool_kernel", "bn_bwd_fixup_recompute_kernel",
+                "entry_block_bwd_reduce_f32_kernel")
 
 
 def check_mma(path):
     """Which instruction each product kernel was compiled to, read from the
-    built library's machine code (`cuobjdump -sass`): K3's and K2's bfloat16
-    kernels (K2b's recompute fixup too) must hold HGMMA (`wgmma`) or HMMA
-    (`mma.sync`), the FP32 product kernels (onedot K1, K3's float32 forward /
-    dx and weight gradient, K2f's forward, K2b's reduce pass and recompute
-    fixup) FFMA and neither HGMMA nor HMMA. FFMA counts the float32 FMAs on
-    the CUDA cores."""
+    built library's machine code (`cuobjdump -sass`): K3's, K2's and K5's
+    bfloat16 kernels (K2b's recompute fixup and K5's bfloat16 forward too)
+    must hold HGMMA (`wgmma`) or HMMA (`mma.sync`), the FP32 product kernels
+    (onedot K1, K3's float32 forward / dx and weight gradient, K2f's forward,
+    K2b's reduce pass and recompute fixup, K5b1's float32 pass) FFMA and
+    neither HGMMA nor HMMA. FFMA counts the float32 FMAs on the CUDA
+    cores."""
     from dcase2019_task4_tpu_torch.ops import _build
 
     counts = _build.sass_counts(path, MMA_KERNELS + FFMA_KERNELS)

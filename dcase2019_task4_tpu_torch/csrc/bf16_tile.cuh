@@ -9,8 +9,10 @@
 // bf16(xn) once (form_a), take lin = A . W and dxn = gate + bf16(dlin) . W^T
 // on mma.sync m16n8k16 with the element steps in the fragments' registers
 // (dxn_bf16: product_w, gate_bf16), and the reduce pass adds S1, S2, db and
-// dW = A^T . bf16(dlin) (reduce_tile_bf16, write_reduce_slot). Every
-// rounding is the plain version's (see xn_of and gate_bf16).
+// dW = A^T . bf16(dlin) (reduce_tile_bf16, write_reduce_slot). The forwards
+// (K2's and K5's) take lin = A . W likewise and form g and the pool in
+// glu_pool_bf16. Every rounding is the plain version's (see xn_of and
+// gate_bf16).
 
 #pragma once
 
@@ -321,6 +323,103 @@ __device__ __forceinline__ void gate_bf16(float (&acc)[MT][4][4], bf16* D, const
         st_bf2(D + p * RS + c, d0, d1);
       }
     on_db(db0, db1, c);
+  }
+}
+
+// The bfloat16 forward's element steps and pool on one tile, once lin = A .
+// W lies in acc (a warp's MT x 4 fragments, as product_w lays them out): g
+// = (lin + b) * sigmoid(xn) in the fragments' registers, with the float32
+// xn rebuilt from the y tile yb at the fragment's pixel and channel; a
+// barrier (every read of yb and A done); g in float32 into gs [kPix][GS],
+// which may overlay yb and A; a barrier; then per window and four channels
+// the keep-mask (keep_values4 on the global element index) and the mean over
+// the window into out [.., F / pf, C] in bfloat16, 8 bytes a store. The sum
+// rounds as one of the JAX package's two pools: pool_elems false, each
+// pt-row column sum rounded to bfloat16 before the frequency sum (K2's
+// _pool_mxu, the planes layout); true, every g rounded to bfloat16 before
+// the window sum (the crows layout, crows_block.py:240-245). K2's and K5's
+// bfloat16 forwards share it.
+template <int CP, int NW>
+__device__ __forceinline__ void glu_pool_bf16(float (&acc)[BfPlan<CP, NW>::MT][4][4], const bf16* yb, float* gs,
+                                              const float* vmean, const float* vinv, const float* vscale,
+                                              const float* vbias, const float* vgb, const TilePos& tp, int C, int pt,
+                                              int pf, int Fp, float inv_win, const Dropout& dr,
+                                              unsigned long long seed, bool pool_elems, bf16* __restrict__ out) {
+  using P = BfPlan<CP, NW>;
+  constexpr int RS = P::RS, GS = P::GS, MT = P::MT, KG = P::KG;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp / P::WN, wn = warp % P::WN, g = lane / 4, q = lane % 4;
+  // g = (lin + b) * sigmoid(xn), xn from the staged y at the fragment's pixel and channel
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int c = wn * 32 + nt * 8 + 2 * q;
+    const float2 m = ld2(vmean + c), iv = ld2(vinv + c), sc = ld2(vscale + c), bi = ld2(vbias + c),
+                 gb = ld2(vgb + c);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = wm * 16 * MT + mt * 16 + g + 8 * h;
+        const float2 yv = ld_bf2(yb + p * RS + c);
+        acc[mt][nt][2 * h] = (acc[mt][nt][2 * h] + gb.x) * sigmoidf(xn_of(yv.x, m.x, iv.x, sc.x, bi.x));
+        acc[mt][nt][2 * h + 1] =
+            (acc[mt][nt][2 * h + 1] + gb.y) * sigmoidf(xn_of(yv.y, m.y, iv.y, sc.y, bi.y));
+      }
+  }
+  __syncthreads();  // every read of the y tile and of A done: g goes over them
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int p = wm * 16 * MT + mt * 16 + g + 8 * h, c = wn * 32 + nt * 8 + 2 * q;
+        *reinterpret_cast<float2*>(gs + p * GS + c) = make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+      }
+  __syncthreads();  // g complete
+
+  // per window and four channels: the mask, then pt-row time sums rounded
+  // to bfloat16 and the frequency sum, or every g rounded and the window sum
+  const int wcols = tp.fcols / pf, n_win = (tp.trows / pt) * wcols;
+  for (int i = tid; i < n_win * KG; i += P::NTHR) {
+    const int c = 4 * (i % KG), win = i / KG;
+    if (c >= C) continue;
+    const int wt = win / wcols, wf = win % wcols;
+    float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int df = 0; df < pf; ++df) {
+      float4 st = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int dt = 0; dt < pt; ++dt) {
+        const int p = (wt * pt + dt) * tp.fcols + wf * pf + df;
+        float4 v = *reinterpret_cast<const float4*>(gs + p * GS + c);
+        if (dr.mode != 0) {
+          const uint4 r = keep_values4(tp.pixel(p) * C + c, seed, dr.mode);
+          v.x *= r.x >= dr.threshold ? dr.keep_scale : 0.0f;
+          v.y *= r.y >= dr.threshold ? dr.keep_scale : 0.0f;
+          v.z *= r.z >= dr.threshold ? dr.keep_scale : 0.0f;
+          v.w *= r.w >= dr.threshold ? dr.keep_scale : 0.0f;
+        }
+        if (pool_elems) {
+          s.x += rounded<bf16>(v.x);
+          s.y += rounded<bf16>(v.y);
+          s.z += rounded<bf16>(v.z);
+          s.w += rounded<bf16>(v.w);
+        } else {
+          st.x += v.x;
+          st.y += v.y;
+          st.z += v.z;
+          st.w += v.w;
+        }
+      }
+      if (!pool_elems) {
+        s.x += rounded<bf16>(st.x);
+        s.y += rounded<bf16>(st.y);
+        s.z += rounded<bf16>(st.z);
+        s.w += rounded<bf16>(st.w);
+      }
+    }
+    // row0 / pt = b T / pt + t0 / pt: T and t0 are multiples of pt
+    Vec4<bf16>::store(out + ((tp.row0 / pt + wt) * Fp + tp.f0 / pf + wf) * C + c,
+                      make_float4(s.x * inv_win, s.y * inv_win, s.z * inv_win, s.w * inv_win));
   }
 }
 

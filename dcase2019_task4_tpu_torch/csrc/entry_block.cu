@@ -15,10 +15,14 @@
 //                                  written); MODE 2 and 3 are the ablations of
 //                                  tools/bench_entry_conv_torch.py
 //   entry_conv_wgrad_kernel        dW = patches^T . dy, db = sum dy (K4w)
-//   entry_block_fwd_kernel         conv -> BN -> GLU -> dropout -> pool (K5f)
-//   entry_block_bwd_reduce_kernel  recompute; d glu_w, d glu_b, S1, S2 (K5b1),
-//                                  float32; entry_block_bwd_reduce_bf16_kernel
-//                                  on bfloat16 x, on the tensor cores
+//   entry_block_fwd_kernel         conv -> BN -> GLU -> dropout -> pool (K5f),
+//                                  float32; entry_block_fwd_bf16_kernel on
+//                                  bfloat16 x, on the tensor cores
+//   entry_block_bwd_reduce_f32_kernel
+//                                  recompute; d glu_w, d glu_b, S1, S2 (K5b1),
+//                                  float32, on FP32 register tiles;
+//                                  entry_block_bwd_reduce_bf16_kernel on
+//                                  bfloat16 x, on the tensor cores
 //   entry_block_bwd_wgrad_kernel   recompute; dy in registers; dW, d conv_b
 //                                  (K5b2), float32;
 //                                  entry_block_bwd_wgrad_bf16_kernel on
@@ -50,32 +54,37 @@
 // elementwise chain, 0.20 ms at 67 TFLOP/s): operations. Pass 1 needs the
 // conv once and three channel products (lin, dxn, d glu_w: 36.0 GFLOP with
 // the chain, 0.54 ms), pass 2 the conv, dW and two products (lin, dxn:
-// 26.8 GFLOP, 0.40 ms): operations. Each kernel computes the conv once more
-// than that (y again for xh in pass 1, for dy in pass 2, to save a third
-// slab of shared memory); that recomputation is the kernel's, not the bound's.
-// In bfloat16 the channel products and dW take the tensor cores (989
-// TFLOP/s): the element chain at the FP32 rate then bounds both passes
-// (0.06 ms each), and the bfloat16 passes compute y once.
+// 26.8 GFLOP, 0.40 ms): operations. The float32 forward and pass 2 compute
+// the conv once more than that (y again for the pool's xn, for dy in pass 2,
+// to save a third slab of shared memory); that recomputation is the
+// kernel's, not the bound's. In bfloat16 the channel products and dW take
+// the tensor cores (989 TFLOP/s): the element chain at the FP32 rate then
+// bounds the forward and both passes (0.03-0.06 ms each).
 //
-// Design: one block per (run of pixel tiles, clip); a tile is whole time rows
-// of up to 128 pixels, whole pooling rows in the fused kernels (the tiling of
-// fused_block.cu). Per tile the block stages x with a one-cell halo, zeros
-// outside the tensor, into shared memory: (rows + 2) x (F + 2) floats. K4: a
-// thread owns four neighbouring channels (their 36 weights in registers) of
-// every (256 / (C / 4))-th pixel, stores y as float4 and sums in double. K5:
-// a thread owns the elements it owns in the channel products (8 pixels x 4
-// or 8 channels), computes their conv outputs from the staged tile with the
-// nine weights of one channel in registers, and writes xn into the slab the
-// products read; where y is needed again (xh for S2, dy in pass 2) it is
-// recomputed from the staged tile instead of being kept (a slab of y would
-// halve the blocks per SM). Sums across blocks go to one slot per block and
-// fold_kernel adds the slots in slot order in double: no float atomics, a run
-// repeats bit for bit. Plain FP32 FMAs, no TF32, except K5's two bfloat16
-// backward passes: they compute y once into a bfloat16 tile and run K2's
-// bfloat16 tile code on it (bf16_tile.cuh, mma.sync; see the comment at
-// bwd_bf16_body).
+// Design: a tile is whole time rows of up to 128 pixels, whole pooling rows
+// in the fused kernels (the tiling of fused_block.cu). Per tile a block
+// stages x with a one-cell halo, zeros outside the tensor, into shared
+// memory: (rows + 2) x (F + 2) floats. K4, K5s and the float32 K5f and K5b2
+// take one block per (run of pixel tiles, clip). K4: a thread owns four
+// neighbouring channels (their 36 weights in registers) of every (256 / (C /
+// 4))-th pixel, stores y as float4 and sums in double. K5f and K5b2 in
+// float32: a thread owns the elements it owns in the channel products (8
+// pixels x 4 or 8 channels), computes their conv outputs from the staged
+// tile with the nine weights of one channel in registers, and writes xn into
+// the slab the products read; where y is needed again it is recomputed from
+// the staged tile. The other four K5 kernels compute y once into a tile and
+// run their K2 counterpart's per-tile code on it, over one wave of the
+// resident blocks in equal runs of the batch's tiles: K5b1 in float32 K2b's
+// float32 reduce pass (f32_tile.cuh, FP32 register tiles; see the comment at
+// entry_block_bwd_reduce_f32_kernel), K5f in bfloat16 K2f's bfloat16 forward
+// and the two bfloat16 passes K2b's bfloat16 tile code (bf16_tile.cuh,
+// mma.sync; see the comments at entry_block_fwd_bf16_kernel and
+// bwd_bf16_body). Sums across blocks go to one slot per block and
+// fold_kernel adds the slots in slot order in double: no float atomics, a
+// run repeats bit for bit. Plain FP32 FMAs, no TF32, but for the bfloat16
+// products.
 //
-// Element type: every kernel is instantiated for float32 and for bfloat16
+// Element type: every function is computed for float32 and for bfloat16
 // (the model's compute dtype, `act_bf16` / `lp` in the originals). In
 // bfloat16 the arithmetic stays float32 and rounds where the JAX kernels
 // round (entry_conv.py:84,109-148, fused_entry_block.py:97-236,
@@ -97,10 +106,9 @@
 // fold onto w: by output-frequency parity in the parity-plane basis
 // (entry_conv.py:65-77,232, fused_entry_block.py:416), by batch half in the
 // crows basis (crows_block.py:105-115,535). The kernels keep the parts apart
-// (a thread's pixels share one frequency parity when F is even; a block
-// holds one clip) and fold_classes_kernel rounds each part's sum and adds
-// the rounded parts. Shared memory holds float32 in both modes, but for the
-// bfloat16 backward passes' tiles.
+// (K4w: a thread's pixels share one frequency parity when F is even; K5b2: the
+// pixels in class order, the blocks in batch halves) and fold_classes_kernel
+// rounds each part's sum and adds the rounded parts.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -109,13 +117,14 @@
 
 #include "bf16_tile.cuh"
 #include "chain.cuh"
+#include "cp_async.cuh"
 #include "dtype.cuh"
+#include "f32_tile.cuh"
 #include "fold.cuh"
 #include "mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kHalo = 4 * kPix; // floats of a staged x tile: (rows + 2) * (F + 2) <= 390
 
 // Time rows per tile: whole pooling rows, up to kPix pixels (pt * F <= kPix).
@@ -340,10 +349,10 @@ __device__ __forceinline__ void load_consts(const Consts& k, const float* __rest
   for (int i = threadIdx.x; i < 9 * C; i += kThreads) k.cw[i] = cw[i];
 }
 
-// Conv (y rounded to TX) + BatchNorm of the elements this thread owns in the
-// channel products (pixels pg + 16 i, channels cg + 16 j): xn into the slab,
-// zeros in the rows past the tile's pixels.
-template <int NJ, typename TX>
+// Conv + BatchNorm of the elements this thread owns in the channel products
+// (pixels pg + 16 i, channels cg + 16 j): xn into the slab, zeros in the rows
+// past the tile's pixels.
+template <int NJ>
 __device__ __forceinline__ void conv_to_xn(float* xs, int CP, const float* xt, int FW, int F,
                                            int tpix, const Consts& k, int C, int pg, int cg) {
 #pragma unroll
@@ -359,7 +368,7 @@ __device__ __forceinline__ void conv_to_xn(float* xs, int CP, const float* xt, i
       const int p = pg + 16 * i;
       float xn = 0.0f;
       if (p < tpix) {
-        const float yv = rounded<TX>(conv9(xt + (p / F) * FW + (p % F), FW, w, cbv));
+        const float yv = conv9(xt + (p / F) * FW + (p % F), FW, w, cbv);
         xn = (yv - mu) * inv * sc + be;
       }
       xs[p * CP + co] = xn;
@@ -367,15 +376,14 @@ __device__ __forceinline__ void conv_to_xn(float* xs, int CP, const float* xt, i
   }
 }
 
-// acc[i][j] += sum_ci a[(pg + 16 i)][ci] * wmat[ci][cg + 16 j] (wmat row stride WS),
-// with a rounded to TX (wmat is staged rounded).
-template <int NJ, typename TX>
+// acc[i][j] += sum_ci a[(pg + 16 i)][ci] * wmat[ci][cg + 16 j] (wmat row stride WS)
+template <int NJ>
 __device__ __forceinline__ void mix_rows(float (&acc)[8][NJ], const float* a, int CP,
                                          const float* wmat, int WS, int C, int pg, int cg) {
   for (int ci = 0; ci < C; ++ci) {
     float av[8], wv[NJ];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) av[i] = rounded<TX>(a[(pg + 16 * i) * CP + ci]);
+    for (int i = 0; i < 8; ++i) av[i] = a[(pg + 16 * i) * CP + ci];
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int co = cg + 16 * j;
@@ -389,15 +397,14 @@ __device__ __forceinline__ void mix_rows(float (&acc)[8][NJ], const float* a, in
 }
 
 // acc[i][j] += sum_co a[(pg + 16 i)][co] * wmat[cg + 16 j][co]: the product
-// against the transpose (rows padded to WS = C + 1, so the read is conflict-free),
-// with a rounded to TX.
-template <int NJ, typename TX>
+// against the transpose (rows padded to WS = C + 1, so the read is conflict-free)
+template <int NJ>
 __device__ __forceinline__ void mix_cols(float (&acc)[8][NJ], const float* a, int CP,
                                          const float* wmat, int WS, int C, int pg, int cg) {
   for (int co = 0; co < C; ++co) {
     float av[8], wv[NJ];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) av[i] = rounded<TX>(a[(pg + 16 * i) * CP + co]);
+    for (int i = 0; i < 8; ++i) av[i] = a[(pg + 16 * i) * CP + co];
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int ci = cg + 16 * j;
@@ -410,19 +417,16 @@ __device__ __forceinline__ void mix_cols(float (&acc)[8][NJ], const float* a, in
   }
 }
 
-// NJ: output channels per thread / 16 (C <= 16 * NJ). pool_elems (bfloat16):
-// the window sums g rounded element by element (crows) instead of the pt-row
-// column sums (planes).
-template <int NJ, typename TX>
+// K5f in float32; NJ: output channels per thread / 16 (C <= 16 * NJ).
+template <int NJ>
 __global__ void __launch_bounds__(kThreads)
-entry_block_fwd_kernel(const TX* __restrict__ x, const float* __restrict__ cw,
+entry_block_fwd_kernel(const float* __restrict__ x, const float* __restrict__ cw,
                        const float* __restrict__ cb, const float* __restrict__ scale,
                        const float* __restrict__ bias, const float* __restrict__ mean,
                        const float* __restrict__ var, const float* __restrict__ glu_w,
-                       const float* __restrict__ glu_b, TX* __restrict__ out, int T, int F,
+                       const float* __restrict__ glu_b, float* __restrict__ out, int T, int F,
                        int C, int pt, int pf, float eps, int rows, int tiles_per_block,
-                       Dropout dr, int pool_elems) {
-  constexpr bool kLow = !std::is_same<TX, float>::value;
+                       Dropout dr) {
   extern __shared__ float smem[];
   const int CP = C + 1;
   float* xs = smem;            // [kPix][CP]: xn, then g
@@ -434,7 +438,7 @@ entry_block_fwd_kernel(const TX* __restrict__ x, const float* __restrict__ cw,
   const int b = blockIdx.y;
   const int FW = F + 2;
   const unsigned long long seed = seed_of(dr);
-  for (int i = tid; i < C * C; i += kThreads) ws[i] = rounded<TX>(glu_w[i]);
+  for (int i = tid; i < C * C; i += kThreads) ws[i] = glu_w[i];
   load_consts(k, scale, bias, mean, var, glu_b, cw, cb, C, eps);
 
   const int cg = tid % 16, pg = tid / 16;
@@ -453,7 +457,7 @@ entry_block_fwd_kernel(const TX* __restrict__ x, const float* __restrict__ cw,
     __syncthreads();  // constants staged / previous tile's pool read done
     stage_x(xt, x, b, T, F, t0, trows);
     __syncthreads();
-    conv_to_xn<NJ, TX>(xs, CP, xt, FW, F, tpix, k, C, pg, cg);
+    conv_to_xn<NJ>(xs, CP, xt, FW, F, tpix, k, C, pg, cg);
     __syncthreads();
 
     float acc[8][NJ];
@@ -461,7 +465,7 @@ entry_block_fwd_kernel(const TX* __restrict__ x, const float* __restrict__ cw,
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
-    mix_rows<NJ, TX>(acc, xs, CP, ws, C, C, pg, cg);
+    mix_rows<NJ>(acc, xs, CP, ws, C, C, pg, cg);
     float g[8][NJ];
 #pragma unroll
     for (int i = 0; i < 8; ++i)
@@ -491,29 +495,16 @@ entry_block_fwd_kernel(const TX* __restrict__ x, const float* __restrict__ cw,
       const int c = o % C, win = o / C;
       const int wf = win % Fp, wt = win / Fp;
       float s = 0.0f;
-      if (kLow && pool_elems) {
-        for (int dt = 0; dt < pt; ++dt)
-          for (int df = 0; df < pf; ++df)
-            s += rounded<TX>(xs[((wt * pt + dt) * F + wf * pf + df) * CP + c]);
-      } else if (kLow) {
-        // each column's pt-row time sum rounds to TX before the frequency sum
-        for (int df = 0; df < pf; ++df) {
-          float st = 0.0f;
-          for (int dt = 0; dt < pt; ++dt) st += xs[((wt * pt + dt) * F + wf * pf + df) * CP + c];
-          s += rounded<TX>(st);
-        }
-      } else {
-        for (int dt = 0; dt < pt; ++dt)
-          for (int df = 0; df < pf; ++df)
-            s += xs[((wt * pt + dt) * F + wf * pf + df) * CP + c];
-      }
-      out[(((long long)b * Tp + t0 / pt + wt) * Fp + wf) * C + c] = from_float<TX>(s * inv_win);
+      for (int dt = 0; dt < pt; ++dt)
+        for (int df = 0; df < pf; ++df)
+          s += xs[((wt * pt + dt) * F + wf * pf + df) * CP + c];
+      out[(((long long)b * Tp + t0 / pt + wt) * Fp + wf) * C + c] = s * inv_win;
     }
   }
 }
 
-// What both float32 backward passes share, per tile: xn into xs, the masked
-// dh into ds, then lin, the gate term and dlin (over dh), and dxn into acc.
+// Pass 2's per-tile code in float32: xn into xs, the masked dh into ds,
+// then lin, the gate term and dlin (over dh), and dxn into acc.
 template <int NJ>
 __device__ __forceinline__ void recompute_dxn(float (&acc)[8][NJ], float* xs, float* ds,
                                               const float* ws, const float* xt,
@@ -526,7 +517,7 @@ __device__ __forceinline__ void recompute_dxn(float (&acc)[8][NJ], float* xs, fl
   const float inv_win = 1.0f / (float)(pt * pf);
   const int tid = threadIdx.x;
 
-  conv_to_xn<NJ, float>(xs, CP, xt, FW, F, tpix, k, C, pg, cg);
+  conv_to_xn<NJ>(xs, CP, xt, FW, F, tpix, k, C, pg, cg);
   for (int i = tid; i < kPix * C; i += kThreads) {
     const int p = i / C, c = i % C;
     float dh = 0.0f;
@@ -547,7 +538,7 @@ __device__ __forceinline__ void recompute_dxn(float (&acc)[8][NJ], float* xs, fl
   for (int i = 0; i < 8; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
-  mix_rows<NJ, float>(acc, xs, CP, ws, CP, C, pg, cg);
+  mix_rows<NJ>(acc, xs, CP, ws, CP, C, pg, cg);
   __syncthreads();  // masked dh complete
   // gate term into acc, dlin over dh (each element owned by one thread)
 #pragma unroll
@@ -566,130 +557,7 @@ __device__ __forceinline__ void recompute_dxn(float (&acc)[8][NJ], float* xs, fl
     }
   __syncthreads();  // dlin complete
   // dxn = dlin . W^T + gate; thread holds (pixel pg + 16 i, channel cg + 16 j)
-  mix_cols<NJ, float>(acc, ds, CP, ws, CP, C, pg, cg);
-}
-
-// Pass 1 in float32. Slot of a block: [C*C d glu_w | C d glu_b | C S1 | C S2].
-template <int NJ>
-__global__ void __launch_bounds__(kThreads)
-entry_block_bwd_reduce_kernel(const float* __restrict__ x, const float* __restrict__ dout,
-                              const float* __restrict__ cw, const float* __restrict__ cb,
-                              const float* __restrict__ scale, const float* __restrict__ bias,
-                              const float* __restrict__ mean, const float* __restrict__ var,
-                              const float* __restrict__ glu_w, const float* __restrict__ glu_b,
-                              float* __restrict__ partials, int T, int F, int C, int pt, int pf,
-                              float eps, int rows, int tiles_per_block,
-                              Dropout dr) {
-  extern __shared__ float smem[];
-  const int CP = C + 1;
-  float* xs = smem;            // [kPix][CP]: xn
-  float* ds = xs + kPix * CP;  // [kPix][CP]: dh, then dlin
-  float* ws = ds + kPix * CP;  // [C][CP] (in, out), rows padded
-  Consts k;
-  float* xt = carve_consts(k, ws + C * CP, C);  // [kHalo]
-  float* red = xt + kHalo;                      // [16][2][16 * NJ]: S1/S2 by pixel group
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const int FW = F + 2;
-  const unsigned long long seed = seed_of(dr);
-  for (int i = tid; i < C * C; i += kThreads) ws[(i / C) * CP + i % C] = glu_w[i];
-  load_consts(k, scale, bias, mean, var, glu_b, cw, cb, C, eps);
-
-  const int cg = tid % 16, pg = tid / 16;
-  const int n_tiles = (T + rows - 1) / rows;
-  const int first = blockIdx.x * tiles_per_block;
-  const int last = min(n_tiles, first + tiles_per_block);
-
-  // carried over all tiles of the block
-  float dw[NJ][NJ];  // d glu_w[pg + 16 i][cg + 16 j]
-  float dbv[NJ], s1[NJ], s2[NJ];
-#pragma unroll
-  for (int i = 0; i < NJ; ++i) {
-    dbv[i] = s1[i] = s2[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dw[i][j] = 0.0f;
-  }
-
-  for (int tile = first; tile < last; ++tile) {
-    const int t0 = tile * rows;
-    const int trows = min(rows, T - t0);
-    const int tpix = trows * F;
-    const long long tile_base = ((long long)b * T + t0) * F * C;
-
-    __syncthreads();  // constants staged / previous tile's products done
-    stage_x(xt, x, b, T, F, t0, trows);
-    __syncthreads();
-    float acc[8][NJ];
-    recompute_dxn<NJ>(acc, xs, ds, ws, xt, dout, k, b, T, F, C, pt, pf, t0, tpix, tile_base,
-                          dr, seed, pg, cg);
-
-    // S1 += dxn, S2 += dxn * xh, with y recomputed from the staged tile
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = cg + 16 * j;
-      if (c >= C) continue;
-      float w[9];
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) w[tap] = k.cw[tap * C + c];
-      const float cbv = k.cb[c], mu = k.mean[c], inv = k.inv[c];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int p = pg + 16 * i;
-        if (p >= tpix) continue;
-        const float yv = conv9(xt + (p / F) * FW + (p % F), FW, w, cbv);
-        const float dxn = acc[i][j];
-        s1[j] += dxn;
-        s2[j] = fmaf(dxn, (yv - mu) * inv, s2[j]);
-      }
-    }
-
-    // d glu_w += xn^T . dlin, d glu_b += sum dlin; thread holds (ci = pg + 16 i, co = cg + 16 j)
-    for (int p = 0; p < tpix; ++p) {
-      float xv[NJ], dv[NJ];
-#pragma unroll
-      for (int i = 0; i < NJ; ++i) xv[i] = xs[p * CP + ((pg + 16 * i) < C ? pg + 16 * i : 0)];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) dv[j] = ds[p * CP + ((cg + 16 * j) < C ? cg + 16 * j : 0)];
-#pragma unroll
-      for (int i = 0; i < NJ; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) dw[i][j] = fmaf(xv[i], dv[j], dw[i][j]);
-      if (pg == 0) {
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) dbv[j] += dv[j];
-      }
-    }
-  }
-
-  const int slot = blockIdx.y * gridDim.x + blockIdx.x;
-  float* ps = partials + (long long)slot * (C * C + 3 * C);
-#pragma unroll
-  for (int i = 0; i < NJ; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int ci = pg + 16 * i, co = cg + 16 * j;
-      if (ci < C && co < C) ps[ci * C + co] = dw[i][j];
-    }
-  if (pg == 0) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      if (cg + 16 * j < C) ps[C * C + cg + 16 * j] = dbv[j];
-  }
-  __syncthreads();
-  const int RW = 16 * NJ;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    red[(pg * 2 + 0) * RW + cg + 16 * j] = s1[j];
-    red[(pg * 2 + 1) * RW + cg + 16 * j] = s2[j];
-  }
-  __syncthreads();
-  for (int i = tid; i < 2 * C; i += kThreads) {
-    const int which = i / C, c = i % C;
-    float s = 0.0f;
-    for (int g = 0; g < 16; ++g) s += red[(g * 2 + which) * RW + c];
-    ps[C * C + C + which * C + c] = s;
-  }
+  mix_cols<NJ>(acc, ds, CP, ws, CP, C, pg, cg);
 }
 
 // Pass 2 in float32. Slot of a block: [9 * C dW (tap-major) | C d conv_b].
@@ -798,6 +666,162 @@ entry_block_bwd_wgrad_kernel(const float* __restrict__ x, const float* __restric
     float s = 0.0f;
     for (int g = 0; g < 16; ++g) s += red[g * 10 * C + i];
     partials[(long long)slot * 10 * C + i] = s;
+  }
+}
+
+// --------------------------------- K5b1 in float32: K2b's register tiles
+
+// Pass 1 in float32 runs K2b's float32 reduce pass (f32_tile.cuh) on a tile
+// it computes itself. Per tile: x with its one-cell halo [trows + 2][F + 2]
+// and the tile's pooled rows of dout staged by cp.async a tile ahead (where
+// two buffers fit); y = conv9 + cb once, in conv9's order (K4f's), centred as
+// it is written: x-hat = (y - mean) inv straight into the [kPix][KS] tile
+// that K2b's reduce pass stages y into and centres in place (the same float
+// values); then reduce_tile_f32 (lin, the gate, dxn on 8-channel FP32
+// register tiles; S1, S2, db and M = x-hat^T . dlin) and at the end of each
+// of its slots write_reduce_slot_f32 (dW = scale M + bias db). Thread tid
+// computes the conv of channels 4 (tid % (CP / 4)) .. + 3, their 36 weights
+// in registers, for every (256 / (CP / 4))-th pixel. Slots: K2b's reduce
+// pass's per-clip plan, runs of tiles_per_slot tiles of one clip (the last
+// of a clip shorter), nb = ceil(tiles / tiles_per_slot) a clip, folded in
+// slot order (fold.cuh); each slot sums its own tiles in K2b's order, so the
+// pass gives K4f -> K2b's bits. Launch plan: one wave of the resident blocks
+// (one block of 8 warps an SM: M, the gate's accumulators and the sums take
+// more than 128 registers a thread), block k of G taking slots [k S / G, (k
+// + 1) S / G) of the S = B nb slots of the batch, that is a run of
+// consecutive tiles, clip after clip. One slot a block (equal runs of the
+// batch's tiles, 1.3508 ms at the flagship shape on an NVIDIA H100 80GB
+// HBM3, 700.00 W, tools/bench_k5_torch.py) summed runs four times as long as
+// K2b's slots and drifted 5e-7 to 9e-7 of max from K2b's sums.
+
+// Dynamic shared memory of the float32 pass 1 (ops/fused_entry_block.
+// f32_reduce_plan computes the same): the x-hat and dlin tiles [kPix][KS],
+// `buffers` tiles of dout rows [drows][KS] (drows = 0: dout is read from
+// device memory), W [CP][CP], seven vectors [CP], the conv weights [9][CP]
+// and bias [CP], `buffers` x tiles [kHalo] and two tables [kPix] (int).
+template <int NJ>
+size_t red_entry_smem(int buffers, int drows) {
+  using P = RedPlan<NJ>;
+  return sizeof(float) * ((2 * kPix + (size_t)buffers * drows) * P::KS + P::CP * P::CP + 17 * P::CP +
+                          (size_t)buffers * kHalo + 2 * kPix);
+}
+
+// x[b, t0 - 1 .. t0 + trows, -1 .. F] -> xt [trows + 2][F + 2] by cp.async,
+// zeros outside the tensor (stage_x's tile)
+__device__ __forceinline__ void stage_x_async(float* xt, const float* __restrict__ x, const TilePos& tp, int T,
+                                              int F) {
+  const int FW = F + 2, n = (tp.trows + 2) * FW;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int t = tp.t0 - 1 + i / FW, f = i % FW - 1;
+    const bool ok = t >= 0 && t < T && f >= 0 && f < F;
+    cp_async4(xt + i, ok ? x + (tp.row0 - tp.t0 + t) * F + f : x, ok ? 4 : 0);
+  }
+}
+
+// A slot: [C*C d glu_w | C d glu_b | C S1 | C S2].
+template <int NJ>
+__global__ void __launch_bounds__(kThreads)
+entry_block_bwd_reduce_f32_kernel(const float* __restrict__ x, const float* __restrict__ dout,
+                                  const float* __restrict__ cw, const float* __restrict__ cb,
+                                  const float* __restrict__ scale, const float* __restrict__ bias,
+                                  const float* __restrict__ mean, const float* __restrict__ var,
+                                  const float* __restrict__ glu_w, const float* __restrict__ glu_b,
+                                  float* __restrict__ partials, int B, int T, int F, int C, int pt, int pf, float eps,
+                                  Dropout dr, int tiles_per_slot, int buffers, int drows, int vec) {
+  using P = RedPlan<NJ>;
+  constexpr int CP = P::CP, KS = P::KS;
+  constexpr int Q = CP / 4, DP = kThreads / Q;  // the conv: chunk tid % Q of every DP-th pixel
+  extern __shared__ __align__(16) float smem_e[];
+  float* xb = smem_e;                       // [kPix][KS]: x-hat (with ds: the slot's scratch at the end)
+  float* ds = xb + kPix * KS;               // [kPix][KS]: dlin
+  float* dsm = ds + kPix * KS;              // [buffers][drows][KS]: the tile's rows of dout
+  float* wsw = dsm + buffers * drows * KS;  // [CP][CP]: W (in, out), chunks swizzled
+  RedVecs v;                                // [CP] each, zeros past C
+  float* cws = carve_red_vecs(v, wsw + CP * CP, CP);  // [9][CP]: conv weights, zeros past C
+  float* cbs = cws + 9 * CP;                          // [CP]: conv bias
+  float* xts = cbs + CP;                              // [buffers][kHalo]: x with its halo
+  int* tab_y = reinterpret_cast<int*>(xts + buffers * kHalo);  // [kPix]: the global pixel of tile pixel p
+  int* tab_d = tab_y + kPix;  // [kPix]: its row of dout (of the staged rows, or of dout where drows == 0)
+
+  const int tid = threadIdx.x, sq = tid % Q, FW = F + 2;
+  const unsigned long long seed = seed_of(dr);
+  const int Tp = T / pt, Fp = F / pf;
+  const float inv_win = 1.0f / (float)(pt * pf);
+  stage_w_swizzled<CP>(wsw, glu_w, C);  // once a block
+  stage_red_vecs<CP>(v, scale, bias, mean, var, glu_b, C, eps);
+  for (int i = tid; i < 10 * CP; i += kThreads) {
+    const int tap = i / CP, c = i % CP;
+    const float u = c < C ? (tap < 9 ? cw[tap * C + c] : cb[c]) : 0.0f;
+    (tap < 9 ? cws[i] : cbs[c]) = u;
+  }
+
+  // this block's slots [s0, s1) of the batch's n = B nb, and their tiles
+  // [first, last) of the batch's, clip after clip
+  const Tile tl = tile_of(F, pt, pf);
+  const int n_tiles = tiles_per_clip(T, F, pt, pf), nb = (n_tiles + tiles_per_slot - 1) / tiles_per_slot;
+  const long long n = (long long)B * nb;
+  const int s0 = (int)(blockIdx.x * n / gridDim.x), s1 = (int)((blockIdx.x + 1) * n / gridDim.x);
+  auto slot_end = [&](int s) { return (s / nb) * n_tiles + min(n_tiles, (s % nb + 1) * tiles_per_slot); };
+  const int first = s0 < s1 ? (s0 / nb) * n_tiles + (s0 % nb) * tiles_per_slot : 0;
+  const int last = s0 < s1 ? slot_end(s1 - 1) : 0;
+  int slot = s0, slot_last = s0 < s1 ? slot_end(s0) : 0;
+  auto pos = [&](int t) { return tile_pos(t % n_tiles, t / n_tiles, T, F, tl); };
+  // x and the dout rows of tile t into buffer buf by cp.async
+  auto stage = [&](int t, int buf) {
+    const TilePos tp = pos(t);
+    stage_x_async(xts + buf * kHalo, x, tp, T, F);
+    if (drows > 0) stage_dout_f32<CP>(dsm + buf * drows * KS, dout, tp, t / n_tiles, Tp, Fp, pt, pf, C, vec != 0);
+  };
+
+  RedCarry r;
+  zero_carry(r);
+  if (first < last) stage(first, 0);
+  cp_async_commit();
+  for (int t = first; t < last; ++t) {
+    const int buf = buffers == 2 ? (t - first) & 1 : 0;
+    const TilePos tp = pos(t);
+    const int tpix = tp.trows * tp.fcols;
+    cp_async_wait_all();
+    __syncthreads();  // this tile's x and dout landed; every warp is done with the previous tile
+    if (buffers == 2 && t + 1 < last) {  // the next tile loads while this one multiplies
+      stage(t + 1, buf ^ 1);
+      cp_async_commit();
+    }
+    const float* xt = xts + buf * kHalo;
+    const float* dtile = dsm + buf * drows * KS;
+    {  // x-hat = (conv9 + cb - mean) * inv, zeros past the tile and past C
+      float w[4][9], cbv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        cbv[e] = cbs[4 * sq + e];
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) w[e][tap] = cws[tap * CP + 4 * sq + e];
+      }
+      const float4 m = ld4(v.vmean + 4 * sq), iv = ld4(v.vinv + 4 * sq);
+      for (int p = tid / Q; p < kPix; p += DP) {
+        float4 u = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (p < tpix) {
+          const float* rr = xt + (p / F) * FW + p % F;
+          u = make_float4((conv9(rr, FW, w[0], cbv[0]) - m.x) * iv.x, (conv9(rr, FW, w[1], cbv[1]) - m.y) * iv.y,
+                          (conv9(rr, FW, w[2], cbv[2]) - m.z) * iv.z, (conv9(rr, FW, w[3], cbv[3]) - m.w) * iv.w);
+        }
+        st4(xb + p * KS + 4 * sq, u);
+      }
+    }
+    tile_tables(tab_y, tab_d, tp, tpix, t / n_tiles, F, Tp, Fp, pt, pf, drows);
+    __syncthreads();  // x-hat and the tables complete
+    reduce_tile_f32<NJ>(r, xb, ds, dtile, dout, wsw, v, tab_y, tab_d, nullptr, tpix, C, drows, vec != 0, inv_win, dr,
+                        seed);
+    if (t + 1 == slot_last) {  // the slot's last tile: its sums out, the next slot's from zero
+      write_reduce_slot_f32<NJ>(partials + (long long)slot * (C * C + 3 * C), r, xb, v, C);
+      zero_carry(r);
+      if (++slot < s1) slot_last = slot_end(slot);
+    }
+    if (buffers == 1 && t + 1 < last) {
+      __syncthreads();  // every warp is done with the only buffers
+      stage(t + 1, 0);
+      cp_async_commit();
+    }
   }
 }
 
@@ -1160,6 +1184,92 @@ entry_block_bwd_wgrad_bf16_kernel(const bf16* __restrict__ x, const bf16* __rest
                            eps, dr, buffers, drows, mode, partition == 1, partition == 2);
 }
 
+// ------------------------------------ K5f in bfloat16: K2f's tensor-core tile
+
+// The bfloat16 forward runs K2f's bfloat16 tile code (bf16_tile.cuh) on a y
+// tile it computes itself. Per tile: x with its one-cell halo (float32
+// [trows + 2][F + 2], loaded into registers during the previous tile); y =
+// bf16(conv9 + cb) once (conv_tile_bf16, the order of K4f and of the
+// backward passes) into the bfloat16 tile [kPix][RS] that K2f's forward
+// stages y into; A = bf16(xn) (form_a); lin = A . W on mma.sync
+// (product_w); then glu_pool_bf16: g in the fragments' registers, g in
+// float32 over the y tile and A, and per window and four channels the mask
+// and the pool in the planes rounding (K2's: each pt-row column sum rounded)
+// or, with pool_elems, the crows rounding (every g rounded). 8 warps and two
+// blocks an SM at CP = 64, 16 warps at CP = 128 (K2f's). Launch plan: a
+// grid of `gridDim.x` blocks, block k taking tiles [k n / G, (k + 1) n / G)
+// of the n = B * tiles of the batch, clip after clip (the wrapper sizes it);
+// no output depends on it.
+template <int CP>
+constexpr int kFwdWarps = CP == 128 ? 16 : 8;
+
+// Dynamic shared memory of the bfloat16 forward (ops/fused_entry_block.
+// fwd_bf16_plan computes the same): the y and A tiles [kPix][RS] and W
+// [CP][RS] in bfloat16; five vectors [CP], the conv weights [9][CP] and bias
+// [CP] and the x tile [kHalo] in float32.
+template <int CP>
+constexpr size_t fwd_bf16_smem() {
+  return 2 * (size_t)BfPlan<CP, kFwdWarps<CP>>::RS * (2 * kPix + CP) + 4 * (15 * (size_t)CP + kHalo);
+}
+
+template <int CP, int NW>
+__global__ void __launch_bounds__(32 * NW, NW == 8 ? 2 : 1)
+entry_block_fwd_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ cw, const float* __restrict__ cb,
+                            const float* __restrict__ scale, const float* __restrict__ bias,
+                            const float* __restrict__ mean, const float* __restrict__ var,
+                            const float* __restrict__ glu_w, const float* __restrict__ glu_b, bf16* __restrict__ out,
+                            int B, int T, int F, int C, int pt, int pf, float eps, Dropout dr, int pool_elems) {
+  using P = BfPlan<CP, NW>;
+  constexpr int RS = P::RS, MT = P::MT, NTHR = P::NTHR, NX = (kHalo + NTHR - 1) / NTHR;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* yb = reinterpret_cast<bf16*>(smem_raw);  // [kPix][RS]: y (with A, the float32 g tile [kPix][GS])
+  bf16* A = yb + kPix * RS;                       // [kPix][RS]: bf16(xn)
+  bf16* ws = A + kPix * RS;                       // [CP][RS]: W (in, out)
+  float* vmean = reinterpret_cast<float*>(ws + CP * RS);
+  float* vinv = vmean + CP;
+  float* vscale = vinv + CP;
+  float* vbias = vscale + CP;
+  float* vgb = vbias + CP;
+  float* cws = vgb + CP;      // [9][CP]: conv weights, zeros past C
+  float* cbs = cws + 9 * CP;  // [CP]: conv bias
+  float* xt = cbs + CP;       // [kHalo]: x with its halo
+  stage_bf16_consts<CP>(ws, vmean, vinv, vscale, vbias, vgb, nullptr, glu_w, scale, bias, mean, var, glu_b, C, eps);
+  for (int i = threadIdx.x; i < 10 * CP; i += NTHR) {
+    const int tap = i / CP, c = i % CP;
+    const float u = c < C ? (tap < 9 ? cw[tap * C + c] : cb[c]) : 0.0f;
+    (tap < 9 ? cws[i] : cbs[c]) = u;
+  }
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, wm = warp / P::WN, wn = warp % P::WN;
+  const unsigned long long seed = seed_of(dr);
+  const int Fp = F / pf;
+  const float inv_win = 1.0f / (float)(pt * pf);
+  const Tile tl = tile_of(F, pt, pf);
+  const int n_tiles = tiles_per_clip(T, F, pt, pf);
+  const long long n = (long long)B * n_tiles;
+  const int first = (int)(blockIdx.x * n / gridDim.x), last = (int)((blockIdx.x + 1) * n / gridDim.x);
+  auto pos = [&](int t) { return tile_pos(t % n_tiles, t / n_tiles, T, F, tl); };
+
+  float xr[NX];
+  if (first < last) load_x<NX, NTHR>(xr, x, pos(first), first / n_tiles, T, F);
+  for (int t = first; t < last; ++t) {
+    const TilePos tp = pos(t);
+    const int tpix = tp.trows * tp.fcols;
+    store_x<NX, NTHR>(xt, xr, (tp.trows + 2) * (F + 2));  // every warp is past the previous tile's conv
+    __syncthreads();  // x in place; every warp is done with the previous tile's pool
+    if (t + 1 < last) load_x<NX, NTHR>(xr, x, pos(t + 1), (t + 1) / n_tiles, T, F);
+    conv_tile_bf16<CP, NW, false>(yb, nullptr, xt, cws, cbs, F, tpix, C, false);
+    __syncthreads();  // y complete
+    form_a<CP>(A, yb, vmean, vinv, vscale, vbias, tpix);
+    __syncthreads();  // A complete
+    float acc[MT][4][4];
+    zero_acc(acc);
+    product_w<CP, NW, true>(acc, A, ws, wm, wn, lane);
+    glu_pool_bf16<CP, NW>(acc, yb, reinterpret_cast<float*>(yb), vmean, vinv, vscale, vbias, vgb, tp, C, pt, pf, Fp,
+                          inv_win, dr, seed, pool_elems != 0, out);
+  }
+}
+
 // ---------------------------------------------------------- the mask alone
 
 // out[e] = 1 where element e is kept, else 0 (the draw of chain.cuh:
@@ -1184,10 +1294,9 @@ size_t fwd_smem(int C) {
   return sizeof(float) * ((size_t)kPix * (C + 1) + (size_t)C * C + 15 * (size_t)C + kHalo);
 }
 
-// Both backward kernels: pass 1 adds its S1/S2 scratch, pass 2 its a and b2.
-size_t bwd_smem(int C, int extra) {
-  return sizeof(float) * (2 * (size_t)kPix * (C + 1) + (size_t)C * (C + 1) + 15 * (size_t)C +
-                          kHalo + (size_t)extra);
+// Pass 2 in float32: the xn and dh slabs, W, the constants, the x tile, a and b2.
+size_t wgrad_smem(int C) {
+  return sizeof(float) * (2 * (size_t)kPix * (C + 1) + (size_t)C * (C + 1) + 17 * (size_t)C + kHalo);
 }
 
 dim3 tile_grid(int B, int T, int rows, int tiles_per_block) {
@@ -1266,39 +1375,58 @@ struct BlockArgs {
   Dropout dr;
 };
 
-template <int NJ, typename TX>
-int launch_block_fwd(const BlockArgs& g, void* out, int pool_elems, cudaStream_t stream) {
+template <int NJ>
+int launch_block_fwd(const BlockArgs& g, void* out, cudaStream_t stream) {
   const size_t smem = fwd_smem(g.C);
-  cudaError_t err = cudaFuncSetAttribute(entry_block_fwd_kernel<NJ, TX>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(entry_block_fwd_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int rows = rows_per_tile(g.F, g.pt);
-  entry_block_fwd_kernel<NJ, TX><<<tile_grid(g.B, g.T, rows, g.tiles_per_block), kThreads, smem, stream>>>(
-      static_cast<const TX*>(g.x), g.cw, g.cb, g.scale, g.bias, g.mean, g.var, g.glu_w, g.glu_b,
-      static_cast<TX*>(out), g.T, g.F, g.C, g.pt, g.pf, g.eps, rows, g.tiles_per_block, g.dr,
-      pool_elems);
+  entry_block_fwd_kernel<NJ><<<tile_grid(g.B, g.T, rows, g.tiles_per_block), kThreads, smem, stream>>>(
+      static_cast<const float*>(g.x), g.cw, g.cb, g.scale, g.bias, g.mean, g.var, g.glu_w, g.glu_b,
+      static_cast<float*>(out), g.T, g.F, g.C, g.pt, g.pf, g.eps, rows, g.tiles_per_block, g.dr);
   return (int)cudaGetLastError();
 }
 
+// The float32 pass 1's shared memory set; its blocks an SM into *resident
+// where that is not null (registers and shared memory).
 template <int NJ>
-int launch_block_bwd_reduce(const BlockArgs& g, float* partials, float* sums, cudaStream_t stream) {
-  const size_t smem = bwd_smem(g.C, 16 * 2 * 16 * NJ);
-  cudaError_t err = cudaFuncSetAttribute(entry_block_bwd_reduce_kernel<NJ>,
+cudaError_t red_entry_attrs(int buffers, int drows, int* resident) {
+  const size_t smem = red_entry_smem<NJ>(buffers, drows);
+  cudaError_t err = cudaFuncSetAttribute(entry_block_bwd_reduce_f32_kernel<NJ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess || resident == nullptr) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, entry_block_bwd_reduce_f32_kernel<NJ>, kThreads,
+                                                       smem);
+}
+
+// blocks: the grid; buffers 1 or 2 with drows = kPix / (pt pf), or one
+// buffer and drows 0 (dout read from device memory): the plan of
+// ops/fused_entry_block.f32_reduce_plan
+template <int NJ>
+int launch_bwd_reduce_f32(const BlockArgs& g, float* partials, float* sums, int blocks, int tiles_per_slot,
+                          int buffers, int drows, cudaStream_t stream) {
+  const int rows = kPix / (g.pt * g.pf);
+  if (blocks < 1 || tiles_per_slot < 1 || !((buffers == 1 || buffers == 2) && drows == rows) &&
+      !(buffers == 1 && drows == 0))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = red_entry_attrs<NJ>(buffers, drows, nullptr);
   if (err != cudaSuccess) return (int)err;
-  const int rows = rows_per_tile(g.F, g.pt);
-  const dim3 grid = tile_grid(g.B, g.T, rows, g.tiles_per_block);
-  entry_block_bwd_reduce_kernel<NJ><<<grid, kThreads, smem, stream>>>(
+  const bool vec = reinterpret_cast<uintptr_t>(g.dout) % 16 == 0;
+  entry_block_bwd_reduce_f32_kernel<NJ><<<blocks, kThreads, red_entry_smem<NJ>(buffers, drows), stream>>>(
       static_cast<const float*>(g.x), static_cast<const float*>(g.dout), g.cw, g.cb, g.scale, g.bias, g.mean,
-      g.var, g.glu_w, g.glu_b, partials, g.T, g.F, g.C, g.pt, g.pf, g.eps, rows, g.tiles_per_block, g.dr);
+      g.var, g.glu_w, g.glu_b, partials, g.B, g.T, g.F, g.C, g.pt, g.pf, g.eps, g.dr, tiles_per_slot, buffers, drows,
+      (int)vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_fold<float>(partials, sums, (int)(grid.x * grid.y), g.C * g.C + 3 * g.C, stream);
+  const int n_tiles = tiles_per_clip(g.T, g.F, g.pt, g.pf);
+  const int slots = g.B * ((n_tiles + tiles_per_slot - 1) / tiles_per_slot);
+  return (int)launch_fold<float>(partials, sums, slots, g.C * g.C + 3 * g.C, stream);
 }
 
 template <int NJ>
 int launch_block_bwd_wgrad(const BlockArgs& g, float* partials, float* sums, cudaStream_t stream) {
-  const size_t smem = bwd_smem(g.C, 2 * g.C);
+  const size_t smem = wgrad_smem(g.C);
   cudaError_t err = cudaFuncSetAttribute(entry_block_bwd_wgrad_kernel<NJ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1313,12 +1441,28 @@ int launch_block_bwd_wgrad(const BlockArgs& g, float* partials, float* sums, cud
   return (int)launch_fold<float>(partials, sums, (int)(grid.x * grid.y), 10 * g.C, stream);
 }
 
-// One fused first-block forward launch with the channel tile (NJ) and
-// element type the call asks for.
-template <typename... Rest>
-int dispatch_fwd(int C, int bf16, const BlockArgs& g, Rest... rest) {
-  if (bf16) return C <= 64 ? launch_block_fwd<4, __nv_bfloat16>(g, rest...) : launch_block_fwd<8, __nv_bfloat16>(g, rest...);
-  return C <= 64 ? launch_block_fwd<4, float>(g, rest...) : launch_block_fwd<8, float>(g, rest...);
+// The bfloat16 forward's shared memory set; its blocks an SM into *resident
+// where that is not null (registers and shared memory).
+template <int CP>
+cudaError_t fwd_bf16_attrs(int* resident) {
+  constexpr int NW = kFwdWarps<CP>;
+  constexpr size_t smem = fwd_bf16_smem<CP>();
+  cudaError_t err = cudaFuncSetAttribute(entry_block_fwd_bf16_kernel<CP, NW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess || resident == nullptr) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, entry_block_fwd_bf16_kernel<CP, NW>, 32 * NW, smem);
+}
+
+template <int CP>
+int launch_fwd_bf16(const BlockArgs& g, void* out, int blocks, int pool_elems, cudaStream_t stream) {
+  if (blocks < 1) return (int)cudaErrorInvalidValue;
+  constexpr int NW = kFwdWarps<CP>;
+  cudaError_t err = fwd_bf16_attrs<CP>(nullptr);
+  if (err != cudaSuccess) return (int)err;
+  entry_block_fwd_bf16_kernel<CP, NW><<<blocks, 32 * NW, fwd_bf16_smem<CP>(), stream>>>(
+      static_cast<const bf16*>(g.x), g.cw, g.cb, g.scale, g.bias, g.mean, g.var, g.glu_w, g.glu_b,
+      static_cast<bf16*>(out), g.B, g.T, g.F, g.C, g.pt, g.pf, g.eps, g.dr, pool_elems);
+  return (int)cudaGetLastError();
 }
 
 // How a bfloat16 pass copies rows of dout: 2, 16-byte cp.async (C % 8 == 0,
@@ -1431,45 +1575,83 @@ int dcase_entry_conv_wgrad(const void* x, const void* dy, void* partials, void* 
               : launch_entry_conv_wgrad<float>(x, dy, pa, o, B, T, F, C, tiles_per_block, classes, st);
 }
 
-// x: [B, T, F]; out: [B, T/pt, F/pf, C], both float32, or bfloat16 when
-// bf16 != 0; cw: [3, 3, 1, C] (rounded to the element type by the caller);
+// x: [B, T, F]; out: [B, T/pt, F/pf, C], both float32; cw: [3, 3, 1, C];
 // cb, scale, bias, mean, var, glu_b: [C]; glu_w: [C, C] (in, out); the
 // parameters float32, all contiguous. T % pt == 0, F % pf == 0,
 // pt * F <= 128, C % 4 == 0, C <= 128
 // (ops/fused_entry_block.py:entry_block_applicable); tiles =
 // dcase_bn_glu_pool_tiles(T, F, pt, pf). seed, threshold, keep_scale, packed
-// as in dcase_bn_glu_pool. pool_elems (bfloat16): round each g of a window
-// before the window sum instead of each pt-row column sum.
+// as in dcase_bn_glu_pool.
 int dcase_entry_block_fwd(const void* x, const void* cw, const void* cb, const void* scale,
                           const void* bias, const void* mean, const void* var,
                           const void* glu_w, const void* glu_b, void* out, int B, int T, int F,
                           int C, int pt, int pf, float eps, const void* seed,
                           unsigned int threshold, float keep_scale, int packed, int tiles_per_block,
-                          int bf16, int pool_elems, void* stream) {
+                          void* stream) {
   const BlockArgs g = block_args(x, nullptr, cw, cb, scale, bias, mean, var, glu_w, glu_b, nullptr, nullptr,
                                  B, T, F, C, pt, pf, eps, dropout_of(seed, threshold, keep_scale, packed),
                                  tiles_per_block);
-  return dispatch_fwd(C, bf16, g, out, pool_elems, static_cast<cudaStream_t>(stream));
+  auto st = static_cast<cudaStream_t>(stream);
+  return C <= 64 ? launch_block_fwd<4>(g, out, st) : launch_block_fwd<8>(g, out, st);
+}
+
+// Blocks of the bfloat16 forward that one SM of the current device holds at
+// C channels (0 on an error); the wrapper sizes the grid from it.
+int dcase_entry_block_fwd_bf16_resident(int C) {
+  int resident = 0;
+  const cudaError_t err = C <= 64 ? fwd_bf16_attrs<64>(&resident) : fwd_bf16_attrs<128>(&resident);
+  return err == cudaSuccess ? resident : 0;
+}
+
+// The forward in bfloat16: x [B, T, F] and out [B, T/pt, F/pf, C] bfloat16
+// (cw rounded to bfloat16 by the caller), the rest as in
+// dcase_entry_block_fwd; blocks: the grid, each block an equal run of the
+// batch's tiles. pool_elems: round each g of a window before the window sum
+// (the crows layout) instead of each pt-row column sum (the planes layout).
+int dcase_entry_block_fwd_bf16(const void* x, const void* cw, const void* cb, const void* scale, const void* bias,
+                               const void* mean, const void* var, const void* glu_w, const void* glu_b, void* out,
+                               int B, int T, int F, int C, int pt, int pf, float eps, const void* seed,
+                               unsigned int threshold, float keep_scale, int packed, int blocks, int pool_elems,
+                               void* stream) {
+  const BlockArgs g = block_args(x, nullptr, cw, cb, scale, bias, mean, var, glu_w, glu_b, nullptr, nullptr,
+                                 B, T, F, C, pt, pf, eps, dropout_of(seed, threshold, keep_scale, packed), 0);
+  auto st = static_cast<cudaStream_t>(stream);
+  return C <= 64 ? launch_fwd_bf16<64>(g, out, blocks, pool_elems, st)
+                 : launch_fwd_bf16<128>(g, out, blocks, pool_elems, st);
+}
+
+// Blocks of the float32 pass 1 that one SM of the current device holds at C
+// channels under (buffers, drows) (0 on an error); the wrapper sizes the
+// grid from it.
+int dcase_entry_block_bwd_reduce_resident(int C, int buffers, int drows) {
+  int resident = 0;
+  const cudaError_t err = C <= 64 ? red_entry_attrs<4>(buffers, drows, &resident)
+                                  : red_entry_attrs<8>(buffers, drows, &resident);
+  return err == cudaSuccess ? resident : 0;
 }
 
 // First backward pass in float32. dout: [B, T/pt, F/pf, C] float32;
-// partials: [slots, C*C + 3C] with slots = B * ceil(tiles /
-// tiles_per_block); sums: [C*C + 3C] = d glu_w | d glu_b | S1 | S2, folded
-// in slot order, float32.
+// tiles_per_slot: the tiles of a clip each slot sums (runs of a clip, the
+// last shorter; K2b's reduce pass's tiles_per_block gives its slots);
+// blocks: the grid, one wave over the batch's slots in equal runs;
+// partials: [B * ceil(tiles / tiles_per_slot), C*C + 3C]; sums: [C*C + 3C]
+// = d glu_w | d glu_b | S1 | S2, folded in slot order, float32; buffers,
+// drows: the x and dout tiles in shared memory
+// (ops/fused_entry_block.f32_reduce_plan).
 int dcase_entry_block_bwd_reduce(const void* x, const void* dout, const void* cw,
                                  const void* cb, const void* scale, const void* bias,
                                  const void* mean, const void* var, const void* glu_w,
                                  const void* glu_b, void* partials, void* sums, int B, int T,
                                  int F, int C, int pt, int pf, float eps, const void* seed,
                                  unsigned int threshold, float keep_scale, int packed,
-                                 int tiles_per_block, void* stream) {
+                                 int blocks, int tiles_per_slot, int buffers, int drows, void* stream) {
   const BlockArgs g = block_args(x, dout, cw, cb, scale, bias, mean, var, glu_w, glu_b, nullptr, nullptr,
-                                 B, T, F, C, pt, pf, eps, dropout_of(seed, threshold, keep_scale, packed),
-                                 tiles_per_block);
+                                 B, T, F, C, pt, pf, eps, dropout_of(seed, threshold, keep_scale, packed), 0);
   auto* pa = static_cast<float*>(partials);
   auto* su = static_cast<float*>(sums);
   auto st = static_cast<cudaStream_t>(stream);
-  return C <= 64 ? launch_block_bwd_reduce<4>(g, pa, su, st) : launch_block_bwd_reduce<8>(g, pa, su, st);
+  return C <= 64 ? launch_bwd_reduce_f32<4>(g, pa, su, blocks, tiles_per_slot, buffers, drows, st)
+                 : launch_bwd_reduce_f32<8>(g, pa, su, blocks, tiles_per_slot, buffers, drows, st);
 }
 
 // Second backward pass in float32. a, b2: [C], from S1 and S2 (fused_block.py:

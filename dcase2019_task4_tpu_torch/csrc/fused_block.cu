@@ -109,17 +109,17 @@
 // pass): see the comment at the function. The float32 recompute fixup
 // (bn_bwd_fixup_recompute_kernel) runs the same tile code without the third
 // product and the sums, on y - mean in place (so dy's (y - mean) b term is the
-// plain version's), and writes dy by float4. The four sums of a reduce
-// pass's block go to its own slot of a workspace and fold_kernel adds the
-// slots in a fixed order in double precision: no float atomics, so a run
-// repeats bit for bit. Plain FP32 FMAs in float32 (no TF32). The bfloat16
+// plain version's), and writes dy by float4. That float32 tile code lives
+// in f32_tile.cuh, which K5b1's float32 pass in entry_block.cu shares. The
+// four sums of a reduce pass's block go to its own slot of a workspace and
+// fold_kernel adds the slots in a fixed order in double precision: no float
+// atomics, so a run repeats bit for bit. Plain FP32 FMAs in float32 (no TF32). The bfloat16
 // forward, reduce pass and recompute fixup (see the comments at
 // bn_glu_pool_bf16_kernel, bn_glu_pool_bwd_bf16_kernel and
 // bn_bwd_fixup_recompute_bf16_kernel; their tile code, and the pixel
-// tiles, live in bf16_tile.cuh, which K5's bfloat16 backward passes in
-// entry_block.cu share) keep the tiles in bfloat16, staged by cp.async a
-// tile ahead, and multiply on
-// mma.sync: at the scaled shapes their products take 0.1 and 0.3 ms at the
+// tiles, live in bf16_tile.cuh, which K5's bfloat16 forward and backward
+// passes in entry_block.cu share) keep the tiles in bfloat16, staged by
+// cp.async a tile ahead, and multiply on mma.sync: at the scaled shapes their products take 0.1 and 0.3 ms at the
 // tensor cores' rate where FP32 FMAs need 1.5 and 4.5 ms, so the bytes, the
 // generator and the element steps bound them. The generator, the
 // four-channel mask step and the sigmoid live in chain.cuh, shared with the
@@ -132,28 +132,13 @@
 #include "chain.cuh"
 #include "cp_async.cuh"
 #include "dtype.cuh"
+#include "f32_tile.cuh"
 #include "fold.cuh"
 #include "mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
 // ------------------------------------------------- float32: register tiles
-
-// Channel plan of the float32 reduce pass for C <= 16 * NJ (NJ = 4: C <= 64,
-// NJ = 8: C <= 128); channels past C are zeros in every shared operand.
-template <int NJ>
-struct RedPlan {
-  static constexpr int CP = 16 * NJ;              // padded channels: 64 or 128
-  static constexpr int H = CP / 2;                // a thread's second channel half starts here
-  static constexpr int CG = CP / 8;               // channel groups of a product tile: 8 or 16
-  static constexpr int PG = kThreads / CG;        // pixel groups: 32 or 16
-  static constexpr int MI = kPix / PG;            // pixels a thread: 4 or 8
-  static constexpr int KS = CP + 4;               // row stride of the tiles: an odd number of 16-byte units
-  static constexpr int DG = kThreads / (CG * CG); // dW groups, each a share of a tile's pixels: 4 or 1
-  static_assert(CG % 8 == 0 && DG >= 1, "a quarter warp spans eight channel groups");
-};
 
 // Dynamic shared memory of the float32 reduce pass (ops/fused_block.reduce_plan
 // computes the same): `buffers` (1 or 2) x-hat tiles [kPix][KS], the dlin
@@ -164,23 +149,6 @@ size_t red_f32_smem(int buffers, int drows) {
   using P = RedPlan<NJ>;
   return sizeof(float) * ((size_t)(buffers + 1) * kPix * P::KS + (size_t)buffers * drows * P::KS +
                           P::CP * P::CP + 7 * P::CP + 2 * kPix);
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
-__device__ __forceinline__ float& at(float4& v, int i) { return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w; }
-
-// Four neighbouring floats from device memory into 16 aligned bytes of shared
-// memory by cp.async: one 16-byte copy where vec (the tensor is 16-byte
-// aligned; C % 4 == 0 keeps every row so), else four of 4 bytes; zeros
-// unless ok.
-__device__ __forceinline__ void stage_row4(float* dst, const float* src, bool ok, bool vec) {
-  if (vec) {
-    cp_async16(dst, src, ok ? 16 : 0);
-    return;
-  }
-#pragma unroll
-  for (int e = 0; e < 4; ++e) cp_async4(dst + e, ok ? src + e : src, ok ? 4 : 0);
 }
 
 // y of a tile into xb [kPix][CP + 4] by cp.async, zeros past the tile and
@@ -472,205 +440,31 @@ bn_glu_pool_kernel(const float* __restrict__ y, const float* __restrict__ scale,
 
 // ----------------------------------------------------------------- backward
 
-// The float32 backward's per-tile code, shared by the reduce pass
-// (bwd_reduce_f32) and the recompute fixup (bn_bwd_fixup_recompute_kernel):
-// both rebuild dxn per tile (the JAX package's _recompute_dxn). Thread (pg,
-// cg) = (tid / CG, tid % CG) of RedPlan<NJ> holds, for both channel products
-// and the element steps, pixels pg + PG i (i < MI) x channels h H + 4 cg + j
-// (h < 2, j < 4).
-
-// Once a block: W into wsw [CP][CP] (in, out), zeros past C, chunk q (four
-// channels) of row r at position q ^ ((r >> 2) & 7), so that lin's loads
-// (row k, chunks cg and cg + CG) and dxn's loads (rows h H + 4 cg + j, chunk
-// k) are each eight distinct 16-byte bank groups across a quarter warp.
-template <int CP>
-__device__ __forceinline__ void stage_w_swizzled(float* wsw, const float* __restrict__ glu_w, int C) {
-  constexpr int Q = CP / 4;
-  for (int i = threadIdx.x; i < CP * Q; i += kThreads) {
-    const int r = i / Q, q = i % Q;
-    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (r < C && 4 * q < C) v = make_float4(glu_w[r * C + 4 * q], glu_w[r * C + 4 * q + 1], glu_w[r * C + 4 * q + 2],
-                                            glu_w[r * C + 4 * q + 3]);
-    st4(wsw + r * CP + 4 * (q ^ ((r >> 2) & 7)), v);
-  }
-}
-
-// The tile's pooled rows of dout into dst [drows][CP + 4] by cp.async, zeros
-// past C: window w = (w / wcols, w % wcols) of the tile, rows carried by
-// counters (no division a row).
-template <int CP>
-__device__ __forceinline__ void stage_dout_f32(float* dst, const float* __restrict__ dout, const TilePos& tp, int b,
-                                               int Tp, int Fp, int pt, int pf, int C, bool vec) {
-  constexpr int Q = CP / 4, DP = kThreads / Q, KS = CP + 4;
-  const int sq = threadIdx.x % Q;
-  const int wcols = tp.fcols / pf, nw = (tp.trows / pt) * wcols;
-  int w = threadIdx.x / Q;
-  int wr = w / wcols, wc = w % wcols;
-  const int dwr = DP / wcols, dwc = DP % wcols;
-  for (; w < nw; w += DP) {
-    const bool ok = 4 * sq < C;
-    const long long row = ((long long)b * Tp + tp.t0 / pt + wr) * Fp + tp.f0 / pf + wc;
-    stage_row4(dst + w * KS + 4 * sq, ok ? dout + row * C + 4 * sq : dout, ok, vec);
-    wc += dwc;
-    wr += dwr;
-    if (wc >= wcols) {
-      wc -= wcols;
-      ++wr;
-    }
-  }
-}
-
-// Per tile pixel p (one division a pixel): tab_y[p], its global pixel;
-// tab_d[p], its row of the staged dout rows (drows > 0) or of dout.
-__device__ __forceinline__ void tile_tables(int* tab_y, int* tab_d, const TilePos& tp, int tpix, int b, int F,
-                                            int Tp, int Fp, int pt, int pf, int drows) {
-  if (threadIdx.x < kPix) {
-    const int p = threadIdx.x;
-    int gy = 0, gd = 0;
-    if (p < tpix) {
-      const int pr = p / tp.fcols, pc = p % tp.fcols;
-      gy = (int)((tp.row0 + pr) * F + tp.f0 + pc);
-      gd = drows > 0 ? (pr / pt) * (tp.fcols / pf) + pc / pf
-                     : (b * Tp + (tp.t0 + pr) / pt) * Fp + (tp.f0 + pc) / pf;
-    }
-    tab_y[p] = gy;
-    tab_d[p] = gd;
-  }
-}
-
-// lin = xn . W (b added by the element step) into acc, with xn = u * vs + vb
-// formed from each staged operand u as it is read (the reduce pass stages
-// x-hat and takes vs = scale, the fixup y - mean and vs = inv * scale)
-template <int NJ>
-__device__ __forceinline__ void lin_f32(float (&acc)[RedPlan<NJ>::MI][8], const float* xb, const float* wsw,
-                                        const float* vs, const float* vb, int pg, int cg) {
-  using P = RedPlan<NJ>;
-  constexpr int CP = P::CP, CG = P::CG, PG = P::PG, MI = P::MI, KS = P::KS, Q = CP / 4;
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-  const float* xa = xb + pg * KS;
-  for (int kq = 0; kq < Q; ++kq) {
-    const float4 sk = ld4(vs + 4 * kq), bk = ld4(vb + 4 * kq);
-    float4 a[MI];
-#pragma unroll
-    for (int i = 0; i < MI; ++i) {
-      const float4 u = ld4(xa + i * PG * KS + 4 * kq);
-      a[i] = make_float4(fmaf(u.x, sk.x, bk.x), fmaf(u.y, sk.y, bk.y), fmaf(u.z, sk.z, bk.z), fmaf(u.w, sk.w, bk.w));
-    }
-    const int s = kq & 7;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float* wr = wsw + (4 * kq + kk) * CP;
-      const float4 b0 = ld4(wr + 4 * (cg ^ s)), b1 = ld4(wr + 4 * ((cg + CG) ^ s));
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        const float av = at(a[i], kk);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
-      }
-    }
-  }
-}
-
-// Per element, over lin in acc: dh = dout / (pt pf), masked (keep_values4 on
-// float4 channel groups: four channels a Philox call); xn = u * vs + vb from
-// the staged operand; the gate term dh (lin + b) sig (1 - sig) into acc
-// (dxn's first term); dlin = dh sig into ds, and on_dlin(j, dlin) for
-// register j of the thread's eight channels (the reduce pass sums db there).
-template <int NJ, typename OnDlin>
-__device__ __forceinline__ void gate_f32(float (&acc)[RedPlan<NJ>::MI][8], const float* xb, float* ds,
-                                         const float* dtile, const float* __restrict__ dout, const int* tab_y,
-                                         const int* tab_d, const float* vs, const float* vb, const float* vgb,
-                                         int tpix, int C, int drows, bool vec, float inv_win, const Dropout& dr,
-                                         unsigned long long seed, int pg, int cg, OnDlin on_dlin) {
-  using P = RedPlan<NJ>;
-  constexpr int H = P::H, PG = P::PG, MI = P::MI, KS = P::KS;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int c0 = h * H + 4 * cg;
-    float4 sc = ld4(vs + c0), bi = ld4(vb + c0), gb = ld4(vgb + c0);
-#pragma unroll
-    for (int i = 0; i < MI; ++i) {
-      const int p = pg + PG * i;
-      float4 xh = ld4(xb + p * KS + c0);
-      float4 dh = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (p < tpix && c0 < C) {
-        dh = drows > 0 ? ld4(dtile + tab_d[p] * KS + c0)
-                       : (vec ? __ldg(reinterpret_cast<const float4*>(dout + (long long)tab_d[p] * C + c0))
-                              : make_float4(dout[(long long)tab_d[p] * C + c0], dout[(long long)tab_d[p] * C + c0 + 1],
-                                            dout[(long long)tab_d[p] * C + c0 + 2],
-                                            dout[(long long)tab_d[p] * C + c0 + 3]));
-        dh = make_float4(dh.x * inv_win, dh.y * inv_win, dh.z * inv_win, dh.w * inv_win);
-        if (dr.mode != 0) {
-          const uint4 r = keep_values4((long long)tab_y[p] * C + c0, seed, dr.mode);
-          dh.x *= r.x >= dr.threshold ? dr.keep_scale : 0.0f;
-          dh.y *= r.y >= dr.threshold ? dr.keep_scale : 0.0f;
-          dh.z *= r.z >= dr.threshold ? dr.keep_scale : 0.0f;
-          dh.w *= r.w >= dr.threshold ? dr.keep_scale : 0.0f;
-        }
-      }
-      float4 dl;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float xn = fmaf(at(xh, e), at(sc, e), at(bi, e));
-        const float sig = __fdividef(1.0f, 1.0f + __expf(-xn));
-        const float d = at(dh, e);
-        acc[i][4 * h + e] = d * (acc[i][4 * h + e] + at(gb, e)) * sig * (1.0f - sig);
-        at(dl, e) = d * sig;
-        on_dlin(4 * h + e, at(dl, e));
-      }
-      st4(ds + p * KS + c0, dl);
-    }
-  }
-}
-
-// acc += dlin . W^T: row h H + 4 cg + j of W, chunk kq at kq ^ (cg & 7)
-template <int NJ>
-__device__ __forceinline__ void dxn_f32(float (&acc)[RedPlan<NJ>::MI][8], const float* ds, const float* wsw, int pg,
-                                        int cg) {
-  using P = RedPlan<NJ>;
-  constexpr int CP = P::CP, H = P::H, PG = P::PG, MI = P::MI, KS = P::KS, Q = CP / 4;
-  const float* da = ds + pg * KS;
-  for (int kq = 0; kq < Q; ++kq) {
-    float4 a[MI], bq[8];
-#pragma unroll
-    for (int i = 0; i < MI; ++i) a[i] = ld4(da + i * PG * KS + 4 * kq);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) bq[j] = ld4(wsw + ((j / 4) * H + 4 * cg + j % 4) * CP + 4 * (kq ^ (cg & 7)));
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        acc[i][j] = fmaf(a[i].x, bq[j].x, acc[i][j]);
-        acc[i][j] = fmaf(a[i].y, bq[j].y, acc[i][j]);
-        acc[i][j] = fmaf(a[i].z, bq[j].z, acc[i][j]);
-        acc[i][j] = fmaf(a[i].w, bq[j].w, acc[i][j]);
-      }
-  }
-}
+// The float32 backward's per-tile code (f32_tile.cuh), shared by the reduce
+// pass (bwd_reduce_f32), the recompute fixup (bn_bwd_fixup_recompute_kernel)
+// and K5b1's float32 pass (entry_block.cu): all rebuild dxn per tile (the
+// JAX package's _recompute_dxn). Thread (pg, cg) = (tid / CG, tid % CG) of
+// RedPlan<NJ> holds, for both channel products and the element steps, pixels
+// pg + PG i (i < MI) x channels h H + 4 cg + j (h < 2, j < 4).
 
 // The float32 reduce pass. Per tile of up to 128 pixels (whole pooling
 // windows): y and the tile's rows of dout are staged by cp.async (the next
 // tile's while this one multiplies, where two buffers fit), y normalised in
-// place into x-hat = (y - mean) * inv; lin = xn . W + b with xn = x-hat * scale
-// + bias formed from the x-hat operand as it is read; per element the gate
-// term and dlin = dh * sig; dxn = dlin . W^T + gate; S1 += dxn, S2 += dxn *
-// x-hat, dy_partial = inv * scale * dxn; M += x-hat^T . dlin, so that the
-// block's dW = xn^T . dlin = scale[ci] M + bias[ci] db. Thread (pg, cg) =
-// (tid / CG, tid % CG) holds, for both channel products and the element
-// steps, pixels pg + PG i (i < MI) x channels h H + 4 cg + j (h < 2, j < 4).
-// W is stored once, chunk q (four channels) of row r at position q ^ ((r >>
-// 2) & 7), so that lin's loads (row k, chunks cg and cg + CG) and dxn's
-// loads (rows h H + 4 cg + j, chunk k) are each eight distinct 16-byte bank
-// groups across a quarter warp: both products read float4, MI + 8 of them per
-// 32 MI FMAs. M: thread (wg, wa, wb) keeps an 8 x 8 register tile, input
-// channels h H + 4 wa + i x output channels h H + 4 wb + j, over the pixels
-// p = wg (mod DG) of each tile, four float4 per 64 FMAs; the DG groups are
-// added in group order at the block's end. db, S1 and S2 are summed by every
-// thread over its pixels and added over the pixel groups in order.
+// place into x-hat = (y - mean) * inv; then f32_tile.cuh's reduce_tile_f32:
+// lin = xn . W + b with xn = x-hat * scale + bias formed from the x-hat
+// operand as it is read; per element the gate term and dlin = dh * sig; dxn
+// = dlin . W^T + gate; S1 += dxn, S2 += dxn * x-hat, dy_partial = inv *
+// scale * dxn; M += x-hat^T . dlin, so that the block's dW = xn^T . dlin =
+// scale[ci] M + bias[ci] db (write_reduce_slot_f32). W is stored once, chunk
+// q (four channels) of row r at position q ^ ((r >> 2) & 7), so that lin's
+// loads (row k, chunks cg and cg + CG) and dxn's loads (rows h H + 4 cg + j,
+// chunk k) are each eight distinct 16-byte bank groups across a quarter
+// warp: both products read float4, MI + 8 of them per 32 MI FMAs. M: thread
+// (wg, wa, wb) keeps an 8 x 8 register tile, input channels h H + 4 wa + i x
+// output channels h H + 4 wb + j, over the pixels p = wg (mod DG) of each
+// tile, four float4 per 64 FMAs; the DG groups are added in group order at
+// the block's end. db, S1 and S2 are summed by every thread over its pixels
+// and added over the pixel groups in order.
 template <int NJ>
 __device__ __forceinline__ void bwd_reduce_f32(const float* __restrict__ y, const float* __restrict__ dout,
                                                const float* __restrict__ scale, const float* __restrict__ bias,
@@ -680,21 +474,15 @@ __device__ __forceinline__ void bwd_reduce_f32(const float* __restrict__ y, cons
                                                int F, int C, int pt, int pf, float eps, Tile tl,
                                                int tiles_per_block, Dropout dr, int buffers, int drows, bool vec) {
   using P = RedPlan<NJ>;
-  constexpr int CP = P::CP, H = P::H, CG = P::CG, PG = P::PG, MI = P::MI, KS = P::KS, DG = P::DG;
+  constexpr int CP = P::CP, KS = P::KS;
   constexpr int Q = CP / 4, DP = kThreads / Q;  // staging: chunk tid % Q of every DP-th row
   extern __shared__ __align__(16) float smem_r[];
   float* xs = smem_r;                        // [buffers][kPix][KS]: y, then x-hat
   float* ds = xs + buffers * kPix * KS;      // [kPix][KS]: dlin
   float* dsm = ds + kPix * KS;               // [buffers][drows][KS]: the tile's rows of dout
   float* wsw = dsm + buffers * drows * KS;   // [CP][CP]: W (in, out), chunks swizzled
-  float* vmean = wsw + CP * CP;              // [CP] each, zeros past C
-  float* vinv = vmean + CP;
-  float* vscale = vinv + CP;
-  float* vbias = vscale + CP;
-  float* vgb = vbias + CP;
-  float* vgain = vgb + CP;                   // inv * scale
-  float* vdb = vgain + CP;                   // the block's db, at its end
-  int* tab_y = reinterpret_cast<int*>(vdb + CP);  // [kPix]: the global pixel of tile pixel p
+  RedVecs v;                                 // [CP] each, zeros past C
+  int* tab_y = reinterpret_cast<int*>(carve_red_vecs(v, wsw + CP * CP, CP));  // [kPix]: the global pixel of tile pixel p
   int* tab_d = tab_y + kPix;  // [kPix]: its row of dout (of the staged rows, or of dout where drows == 0)
 
   const int tid = threadIdx.x, b = blockIdx.y;
@@ -703,16 +491,7 @@ __device__ __forceinline__ void bwd_reduce_f32(const float* __restrict__ y, cons
   const float inv_win = 1.0f / (float)(pt * pf);
 
   stage_w_swizzled<CP>(wsw, glu_w, C);  // once a block
-  for (int c = tid; c < CP; c += kThreads) {
-    const bool in = c < C;
-    const float iv = in ? rsqrtf(var[c] + eps) : 0.0f;
-    vmean[c] = in ? mean[c] : 0.0f;
-    vinv[c] = iv;
-    vscale[c] = in ? scale[c] : 0.0f;
-    vbias[c] = in ? bias[c] : 0.0f;
-    vgb[c] = in ? glu_b[c] : 0.0f;
-    vgain[c] = in ? iv * scale[c] : 0.0f;
-  }
+  stage_red_vecs<CP>(v, scale, bias, mean, var, glu_b, C, eps);
 
   // y and the dout rows of tile `tile` into buffer buf by cp.async, zeros
   // past the tile and past C
@@ -723,17 +502,8 @@ __device__ __forceinline__ void bwd_reduce_f32(const float* __restrict__ y, cons
     if (drows > 0) stage_dout_f32<CP>(dsm + buf * drows * KS, dout, tp, b, Tp, Fp, pt, pf, C, vec);
   };
 
-  const int cg = tid % CG, pg = tid / CG;
-  const int wa = (tid / CG) % CG, wb = tid % CG, wg = tid / (CG * CG);
-  float mw[8][8];  // M [input channel (i / 4) H + 4 wa + i % 4][output channel (j / 4) H + 4 wb + j % 4]
-  float dbs[8], s1[8], s2[8];  // channel (j / 4) H + 4 cg + j % 4
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    dbs[i] = s1[i] = s2[i] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) mw[i][j] = 0.0f;
-  }
-
+  RedCarry r;
+  zero_carry(r);
   const int n_tiles = tiles_per_clip(T, F, pt, pf);
   const int first = blockIdx.x * tiles_per_block;
   const int last = min(n_tiles, first + tiles_per_block);
@@ -752,71 +522,19 @@ __device__ __forceinline__ void bwd_reduce_f32(const float* __restrict__ y, cons
     float* xb = xs + buf * kPix * KS;
     const float* dtile = dsm + buf * drows * KS;
     {  // x-hat = (y - mean) * inv in place, zeros past the tile and past C
-      const float4 m = ld4(vmean + 4 * sq), iv = ld4(vinv + 4 * sq);
+      const float4 m = ld4(v.vmean + 4 * sq), iv = ld4(v.vinv + 4 * sq);
       for (int p = tid / Q; p < kPix; p += DP) {
-        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        float4 u4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         if (p < tpix) {
           const float4 u = ld4(xb + p * KS + 4 * sq);
-          v = make_float4((u.x - m.x) * iv.x, (u.y - m.y) * iv.y, (u.z - m.z) * iv.z, (u.w - m.w) * iv.w);
+          u4 = make_float4((u.x - m.x) * iv.x, (u.y - m.y) * iv.y, (u.z - m.z) * iv.z, (u.w - m.w) * iv.w);
         }
-        st4(xb + p * KS + 4 * sq, v);
+        st4(xb + p * KS + 4 * sq, u4);
       }
     }
     tile_tables(tab_y, tab_d, tp, tpix, b, F, Tp, Fp, pt, pf, drows);
     __syncthreads();  // x-hat and the tables complete
-
-    // lin = xn . W, xn = x-hat * scale + bias; the gate term, dlin over ds, db += dlin; dxn = gate + dlin . W^T
-    float acc[MI][8];
-    lin_f32<NJ>(acc, xb, wsw, vscale, vbias, pg, cg);
-    gate_f32<NJ>(acc, xb, ds, dtile, dout, tab_y, tab_d, vscale, vbias, vgb, tpix, C, drows, vec, inv_win, dr, seed,
-                 pg, cg, [&](int j, float d) { dbs[j] += d; });
-    __syncthreads();  // dlin complete
-    dxn_f32<NJ>(acc, ds, wsw, pg, cg);
-    // S1 += dxn, S2 += dxn * x-hat, dy_partial = inv * scale * dxn
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c0 = h * H + 4 * cg;
-      if (c0 >= C) continue;
-      float4 g = ld4(vgain + c0);
-#pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        const int p = pg + PG * i;
-        if (p >= tpix) continue;
-        float4 xh = ld4(xb + p * KS + c0), out;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float dxn = acc[i][4 * h + e];
-          s1[4 * h + e] += dxn;
-          s2[4 * h + e] = fmaf(dxn, at(xh, e), s2[4 * h + e]);
-          at(out, e) = at(g, e) * dxn;
-        }
-        if (dyp != nullptr) {
-          float* dst = dyp + (long long)tab_y[p] * C + c0;
-          if (vec) {
-            st4(dst, out);
-          } else {
-            dst[0] = out.x;
-            dst[1] = out.y;
-            dst[2] = out.z;
-            dst[3] = out.w;
-          }
-        }
-      }
-    }
-
-    // M += x-hat^T . dlin over this group's pixels
-    for (int p = wg; p < tpix; p += DG) {
-      const float* xr = xb + p * KS;
-      const float* dr_ = ds + p * KS;
-      const float4 x0 = ld4(xr + 4 * wa), x1 = ld4(xr + H + 4 * wa);
-      const float4 d0 = ld4(dr_ + 4 * wb), d1 = ld4(dr_ + H + 4 * wb);
-      const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-      const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) mw[i][j] = fmaf(xv[i], dv[j], mw[i][j]);
-    }
+    reduce_tile_f32<NJ>(r, xb, ds, dtile, dout, wsw, v, tab_y, tab_d, dyp, tpix, C, drows, vec, inv_win, dr, seed);
     if (buffers == 1 && tile + 1 < last) {
       __syncthreads();  // every warp is done with the only buffers
       stage(tile + 1, 0);
@@ -826,67 +544,7 @@ __device__ __forceinline__ void bwd_reduce_f32(const float* __restrict__ y, cons
 
   // the block's slot [C*C dW | C db | C S1 | C S2]; the tiles are scratch now
   const int slot = blockIdx.y * gridDim.x + blockIdx.x;
-  float* ps = partials + (long long)slot * (C * C + 3 * C);
-  __syncthreads();  // every warp is done with the tiles
-  float* red = xs;  // [3][PG][CP]: db, S1, S2 of each pixel group
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = (j / 4) * H + 4 * cg + j % 4;
-    red[(0 * PG + pg) * CP + c] = dbs[j];
-    red[(1 * PG + pg) * CP + c] = s1[j];
-    red[(2 * PG + pg) * CP + c] = s2[j];
-  }
-  __syncthreads();
-  for (int i = tid; i < 3 * CP; i += kThreads) {
-    const int which = i / CP, c = i % CP;
-    float s = 0.0f;
-    for (int g = 0; g < PG; ++g) s += red[(which * PG + g) * CP + c];
-    if (which == 0) vdb[c] = s;
-    if (c < C) ps[C * C + which * C + c] = s;
-  }
-  __syncthreads();  // the sums above are read; vdb complete
-  if constexpr (DG > 1) {  // the M groups, added in group order
-    float* wred = xs;  // [DG - 1][CP][CP]
-    if (wg > 0) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          st4(wred + ((wg - 1) * CP + (i / 4) * H + 4 * wa + i % 4) * CP + h * H + 4 * wb,
-              make_float4(mw[i][4 * h], mw[i][4 * h + 1], mw[i][4 * h + 2], mw[i][4 * h + 3]));
-    }
-    __syncthreads();
-    if (wg == 0) {
-      for (int g = 1; g < DG; ++g)
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float4 v = ld4(wred + ((g - 1) * CP + (i / 4) * H + 4 * wa + i % 4) * CP + h * H + 4 * wb);
-            mw[i][4 * h] += v.x;
-            mw[i][4 * h + 1] += v.y;
-            mw[i][4 * h + 2] += v.z;
-            mw[i][4 * h + 3] += v.w;
-          }
-    }
-  }
-  if (wg == 0) {  // dW = xn^T . dlin = scale[ci] M + bias[ci] db
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int ci = (i / 4) * H + 4 * wa + i % 4;
-      if (ci >= C) continue;
-      const float sc = vscale[ci], bi = vbias[ci];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int co = h * H + 4 * wb;
-        if (co >= C) continue;
-        const float4 dbv = ld4(vdb + co);
-        st4(ps + (long long)ci * C + co,
-            make_float4(fmaf(sc, mw[i][4 * h], bi * dbv.x), fmaf(sc, mw[i][4 * h + 1], bi * dbv.y),
-                        fmaf(sc, mw[i][4 * h + 2], bi * dbv.z), fmaf(sc, mw[i][4 * h + 3], bi * dbv.w)));
-      }
-    }
-  }
+  write_reduce_slot_f32<NJ>(partials + (long long)slot * (C * C + 3 * C), r, xs, v, C);
 }
 
 // The float32 reduce pass. Workspace slot of a block: [C*C dW | C db | C S1 |
@@ -1080,11 +738,13 @@ size_t bwd_bf16_smem(int buffers, int drows) {
 // JAX package's _fwd_kernel with lp). Per tile of up to 128 pixels (whole
 // pooling windows): y staged by cp.async (the next tile's while this one
 // multiplies), A = bf16(xn) formed once, lin = A . W
-// on mma.sync; in the fragment's registers g = (lin + b) * sigmoid(xn) with
-// the float32 xn rebuilt from the staged y; g to shared memory in float32 over
-// the y tile and A; then per window and four channels the keep-mask
-// (mask4_at's draw, on the global element index) and the pool, each column's
-// pt-row time sum rounded to bfloat16 before the frequency sum; 8-byte stores.
+// on mma.sync; then bf16_tile.cuh's glu_pool_bf16 (shared with K5's
+// bfloat16 forward): in the fragment's registers g = (lin + b) * sigmoid(xn)
+// with the float32 xn rebuilt from the staged y; g to shared memory in
+// float32 over the y tile and A; then per window and four channels the
+// keep-mask (mask4_at's draw, on the global element index) and the pool, each
+// column's pt-row time sum rounded to bfloat16 before the frequency sum;
+// 8-byte stores.
 template <int CP, int NW>
 __global__ void __launch_bounds__(32 * NW, NW == 8 ? 2 : 1)
 bn_glu_pool_bf16_kernel(const bf16* __restrict__ y, const float* __restrict__ scale, const float* __restrict__ bias,
@@ -1093,7 +753,7 @@ bn_glu_pool_bf16_kernel(const bf16* __restrict__ y, const float* __restrict__ sc
                         int T, int F, int C, int pt, int pf, float eps, Tile tl, int tiles_per_block, Dropout dr,
                         int mode) {
   using P = BfPlan<CP, NW>;
-  constexpr int RS = P::RS, GS = P::GS, MT = P::MT, KG = P::KG;
+  constexpr int RS = P::RS, MT = P::MT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* tiles = reinterpret_cast<bf16*>(smem_raw);  // [3][kPix][RS]: y0, A, y1
   bf16* A = tiles + kPix * RS;
@@ -1105,11 +765,11 @@ bn_glu_pool_bf16_kernel(const bf16* __restrict__ y, const float* __restrict__ sc
   float* vgb = vbias + CP;
   stage_bf16_consts<CP>(ws, vmean, vinv, vscale, vbias, vgb, nullptr, glu_w, scale, bias, mean, var, glu_b, C, eps);
 
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int wm = warp / P::WN, wn = warp % P::WN, g = lane / 4, q = lane % 4;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int wm = warp / P::WN, wn = warp % P::WN;
   const int b = blockIdx.y;
   const unsigned long long seed = seed_of(dr);
-  const int Tp = T / pt, Fp = F / pf;
+  const int Fp = F / pf;
   const float inv_win = 1.0f / (float)(pt * pf);
   const int n_tiles = tiles_per_clip(T, F, pt, pf);
   const int first = blockIdx.x * tiles_per_block;
@@ -1140,68 +800,9 @@ bn_glu_pool_bf16_kernel(const bf16* __restrict__ y, const float* __restrict__ sc
     float acc[MT][4][4];
     zero_acc(acc);
     product_w<CP, NW, true>(acc, A, ws, wm, wn, lane);
-    // g = (lin + b) * sigmoid(xn), xn from the staged y at the fragment's pixel and channel
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int c = wn * 32 + nt * 8 + 2 * q;
-      const float2 m = ld2(vmean + c), iv = ld2(vinv + c), sc = ld2(vscale + c), bi = ld2(vbias + c),
-                   gb = ld2(vgb + c);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int p = wm * 16 * MT + mt * 16 + g + 8 * h;
-          const float2 yv = ld_bf2(yb + p * RS + c);
-          acc[mt][nt][2 * h] = (acc[mt][nt][2 * h] + gb.x) * sigmoidf(xn_of(yv.x, m.x, iv.x, sc.x, bi.x));
-          acc[mt][nt][2 * h + 1] =
-              (acc[mt][nt][2 * h + 1] + gb.y) * sigmoidf(xn_of(yv.y, m.y, iv.y, sc.y, bi.y));
-        }
-    }
-    __syncthreads();  // every read of the y tile and of A done: g goes over them
-    float* gs = reinterpret_cast<float*>(tiles + buf * kPix * RS);  // [kPix][GS]
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int p = wm * 16 * MT + mt * 16 + g + 8 * h, c = wn * 32 + nt * 8 + 2 * q;
-          *reinterpret_cast<float2*>(gs + p * GS + c) = make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-        }
-    __syncthreads();  // g complete
-
-    // per window and four channels: mask, pt-row time sums rounded to bfloat16, frequency sum
-    const int wcols = tp.fcols / pf, n_win = (tp.trows / pt) * wcols;
-    for (int i = tid; i < n_win * KG; i += P::NTHR) {
-      const int c = 4 * (i % KG), win = i / KG;
-      if (c >= C) continue;
-      const int wt = win / wcols, wf = win % wcols;
-      float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      for (int df = 0; df < pf; ++df) {
-        float4 st = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        for (int dt = 0; dt < pt; ++dt) {
-          const int p = (wt * pt + dt) * tp.fcols + wf * pf + df;
-          float4 v = *reinterpret_cast<const float4*>(gs + p * GS + c);
-          if (dr.mode != 0) {
-            const uint4 r = keep_values4(tp.pixel(p) * C + c, seed, dr.mode);
-            v.x *= r.x >= dr.threshold ? dr.keep_scale : 0.0f;
-            v.y *= r.y >= dr.threshold ? dr.keep_scale : 0.0f;
-            v.z *= r.z >= dr.threshold ? dr.keep_scale : 0.0f;
-            v.w *= r.w >= dr.threshold ? dr.keep_scale : 0.0f;
-          }
-          st.x += v.x;
-          st.y += v.y;
-          st.z += v.z;
-          st.w += v.w;
-        }
-        s.x += rounded<bf16>(st.x);
-        s.y += rounded<bf16>(st.y);
-        s.z += rounded<bf16>(st.z);
-        s.w += rounded<bf16>(st.w);
-      }
-      Vec4<bf16>::store(out + (((long long)b * Tp + tp.t0 / pt + wt) * Fp + tp.f0 / pf + wf) * C + c,
-                        make_float4(s.x * inv_win, s.y * inv_win, s.z * inv_win, s.w * inv_win));
-    }
+    // g = (lin + b) * sigmoid(xn) over the y tile and A, then the mask and the pool
+    glu_pool_bf16<CP, NW>(acc, yb, reinterpret_cast<float*>(tiles + buf * kPix * RS), vmean, vinv, vscale, vbias,
+                          vgb, tp, C, pt, pf, Fp, inv_win, dr, seed, false, out);
   }
 }
 

@@ -10,16 +10,24 @@ version beside it:
   wrapper                  kernel                                  plain version
   entry_block_stats_apply  entry_conv_kernel<1> + fold             entry_conv_reference (sums)
   entry_block_fwd          entry_block_fwd_kernel                  reference_entry_block
-  entry_block_bwd_reduce   entry_block_bwd_reduce_kernel + fold    entry_block_bwd_reduce_reference
+                           (bfloat16: entry_block_fwd_bf16_kernel)
+  entry_block_bwd_reduce   entry_block_bwd_reduce_f32_kernel + fold  entry_block_bwd_reduce_reference
                            (bfloat16: entry_block_bwd_reduce_bf16_kernel)
   entry_block_bwd_wgrad    entry_block_bwd_wgrad_kernel + fold     entry_block_bwd_wgrad_reference
                            (bfloat16: entry_block_bwd_wgrad_bf16_kernel)
   entry_block_bwd_wgrad_parts  the same launch                     entry_block_bwd_wgrad_parts_reference
 
-The bfloat16 backward passes run K2's bfloat16 tile code on the tensor
-cores over a y tile they compute once; their launch plan is one wave of the
-resident blocks over the batch's tiles in equal runs (`bf16_bwd_plan`,
-`bf16_bwd_grid`), the float32 passes' a grid of blocks cut per clip.
+Four of them compute the conv once into a tile and run their K2
+counterpart's per-tile code on it: pass 1 in float32 K2b's float32 reduce
+pass on FP32 register tiles (csrc/f32_tile.cuh; `f32_reduce_plan`), the
+bfloat16 forward K2f's bfloat16 forward on the tensor cores and the two
+bfloat16 passes K2b's bfloat16 tile code (csrc/bf16_tile.cuh;
+`fwd_bf16_plan`, `bf16_bwd_plan`). Their launch plan is one wave of the
+resident blocks over the batch's tiles in equal runs (`wave_grid`, from the
+CUDA occupancy calculator); pass 1 in float32 sums into the slots of K2b's
+float32 reduce pass (runs of a clip's tiles, equal runs of them a block),
+so it gives K4f → K2b's bits. The float32 forward and pass 2 take a grid of
+blocks cut per clip (`_TARGET_BLOCKS`, `_TARGET_BLOCKS_BWD`).
 
 `entry_block_apply` ties them into one `torch.autograd.Function` with the
 contract of `fused_block.fused_bn_glu_dropout_pool`: mean and var come in
@@ -77,8 +85,8 @@ import torch
 
 from dcase2019_task4_tpu_torch.ops import _build, entry_conv, fused_block
 
-_TARGET_BLOCKS = 1056  # forward: 8 resident blocks on each of the H100's 132 SMs
-_TARGET_BLOCKS_BWD = 528  # float32 backward: one partial slot per block, folded in fixed order
+_TARGET_BLOCKS = 1056  # float32 forward: 8 resident blocks on each of the H100's 132 SMs
+_TARGET_BLOCKS_BWD = 528  # float32 pass 2: one partial slot per block, folded in fixed order
 _TILE_PIXELS = fused_block._TILE_PIXELS  # csrc/bf16_tile.cuh kPix
 
 
@@ -275,14 +283,18 @@ def entry_block_fwd(x, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, poo
                                      1.0 - rate, layout).detach()
     pt, pf = pool
     lib = _build.library()
+    tiles = lib.dcase_bn_glu_pool_tiles(T, Fq, pt, pf)
     out = torch.empty((B, T // pt, Fq // pf, C), dtype=x.dtype, device=x.device)
     seed_t = fused_block._seed_tensor(seed, x.device)
-    status = lib.dcase_entry_block_fwd(
-        x.data_ptr(), w.data_ptr(), cb.data_ptr(), *(v.data_ptr() for v in vecs[:4]), gw.data_ptr(),
-        vecs[4].data_ptr(), out.data_ptr(), B, T, Fq, C, pt, pf, float(eps), seed_t.data_ptr(), threshold,
-        keep_scale, packed, fused_block._tiles_per_block(lib.dcase_bn_glu_pool_tiles(T, Fq, pt, pf), B, _TARGET_BLOCKS),
-        int(x.dtype == torch.bfloat16), int(layout == "crows"), _build.stream_handle(x.device),
-    )
+    args = (x.data_ptr(), w.data_ptr(), cb.data_ptr(), *(v.data_ptr() for v in vecs[:4]), gw.data_ptr(),
+            vecs[4].data_ptr(), out.data_ptr(), B, T, Fq, C, pt, pf, float(eps), seed_t.data_ptr(), threshold,
+            keep_scale, packed)
+    if x.dtype == torch.bfloat16:
+        blocks = wave_grid(_resident(x.device.index, "fwd_bf16", C), B, tiles)
+        status = lib.dcase_entry_block_fwd_bf16(*args, blocks, int(layout == "crows"), _build.stream_handle(x.device))
+    else:
+        status = lib.dcase_entry_block_fwd(*args, fused_block._tiles_per_block(tiles, B, _TARGET_BLOCKS),
+                                           _build.stream_handle(x.device))
     _build.check(status, "entry_block_fwd")
     counter = "launches_train" if rate > 0.0 else "launches_eval"
     _tally(entry_block_fwd, counter, dtype=x.dtype)
@@ -298,7 +310,7 @@ entry_block_fwd.launches_packed = 0  # train launches of either dtype that drew 
 
 
 def _bwd_launch_geometry(lib, B, T, Fq, pool):
-    """float32 passes: (tiles a block takes, slots), about
+    """float32 pass 2: (tiles a block takes, slots), about
     _TARGET_BLOCKS_BWD blocks cut per clip."""
     tiles = lib.dcase_bn_glu_pool_tiles(T, Fq, *pool)
     tpb = fused_block._tiles_per_block(tiles, B, _TARGET_BLOCKS_BWD)
@@ -329,26 +341,64 @@ def bf16_bwd_plan(channels: int, pool, which: int):
     raise ValueError(f"bfloat16 pass {which} does not fit {channels} channels at pool {tuple(pool)}")
 
 
-def bf16_bwd_grid(resident: int, B: int, tiles: int, halves: bool = False) -> int:
-    """Blocks of a bfloat16 backward pass: one wave of the `resident` blocks
-    the card holds, each an equal run of the batch's B · `tiles` tiles (clip
-    after clip; never more blocks than tiles), one partial slot each. Under
-    `halves` (the crows layout's dW in batch halves) an even number, half
-    of them over each half of the clips."""
+def f32_reduce_plan(channels: int, pool):
+    """Shared memory of the float32 pass 1 (K5b1) at `channels` C and `pool`
+    (pt, pf) → (buffers, drows, bytes), the channels padded to CP = 64 (C ≤
+    64) or 128 in rows of KS = CP + 4 floats (csrc/entry_block.cu
+    red_entry_smem): the x-hat and dlin tiles [128][KS], `buffers` tiles of
+    the pooled rows of dout [drows][KS] (drows = 128 // (pt·pf)), W
+    [CP][CP], seven per-channel vectors [CP], the conv weights and bias
+    [10][CP], `buffers` x tiles [512] and two pixel tables [128] of int32.
+    Two buffers where they fit a block, else one, else one with drows = 0
+    (dout read from device memory)."""
+    cp = 64 if channels <= 64 else 128
+    rows = _TILE_PIXELS // (pool[0] * pool[1])
+    for buffers, drows in ((2, rows), (1, rows), (1, 0)):
+        nbytes = 4 * ((2 * _TILE_PIXELS + buffers * drows) * (cp + 4) + cp * cp + 17 * cp + buffers * 4 * _TILE_PIXELS
+                      + 2 * _TILE_PIXELS)
+        if nbytes <= _build.MAX_SHARED:
+            return buffers, drows, nbytes
+    raise ValueError(f"the float32 pass 1 does not fit {channels} channels at pool {tuple(pool)}")
+
+
+def fwd_bf16_plan(channels: int) -> int:
+    """Shared memory of the bfloat16 forward (K5f) at `channels` C, in bytes,
+    the channels padded to CP = 64 (C ≤ 64) or 128 in bfloat16 rows of RS =
+    CP + 8 (csrc/entry_block.cu fwd_bf16_smem): the y and A tiles [128][RS]
+    (the float32 g tile overlays both) and W [CP][RS]; five per-channel
+    vectors, the conv weights and bias [15][CP] and the x tile [512] in
+    float32. The pool does not enter it."""
+    cp = 64 if channels <= 64 else 128
+    return 2 * (cp + 8) * (2 * _TILE_PIXELS + cp) + 4 * (15 * cp + 4 * _TILE_PIXELS)
+
+
+def wave_grid(resident: int, B: int, tiles: int, halves: bool = False) -> int:
+    """Blocks of a kernel launched as one wave: the `resident` blocks the
+    card holds, each an equal run of the batch's B · `tiles` tiles (clip
+    after clip; never more blocks than tiles), one partial slot each where
+    it sums. Under `halves` (the crows layout's dW in batch halves) an even
+    number, half of them over each half of the clips."""
     if halves:
         return 2 * max(1, min(resident // 2, (B // 2) * tiles))
     return max(1, min(resident, B * tiles))
 
 
+_RESIDENT_ENTRIES = {"fwd_bf16": "dcase_entry_block_fwd_bf16_resident",
+                     "reduce_f32": "dcase_entry_block_bwd_reduce_resident",
+                     "bwd_bf16": "dcase_entry_block_bwd_bf16_resident"}
+
+
 @functools.cache
-def _bf16_resident(index: int, channels: int, which: int, buffers: int, drows: int) -> int:
-    """Blocks of bfloat16 pass `which` that device `index` holds at once
-    under its plan: what one SM holds (registers and shared memory, from the
-    CUDA occupancy calculator) times its SMs."""
+def _resident(index: int, kernel: str, *plan) -> int:
+    """Blocks of `kernel` ("fwd_bf16": K5f in bfloat16, (C,); "reduce_f32":
+    pass 1 in float32, (C, buffers, drows); "bwd_bf16": a bfloat16 pass, (C,
+    which, buffers, drows)) that device `index` holds at once under its
+    plan: what one SM holds (registers and shared memory, from the CUDA
+    occupancy calculator) times its SMs."""
     with torch.cuda.device(index):
-        resident = _build.library().dcase_entry_block_bwd_bf16_resident(channels, which, buffers, drows)
+        resident = getattr(_build.library(), _RESIDENT_ENTRIES[kernel])(*plan)
     if resident < 1:
-        raise _build.KernelError(f"bfloat16 pass {which} does not fit an SM at {channels} channels")
+        raise _build.KernelError(f"{kernel} does not fit an SM under {plan}")
     return resident * _build.sm_count(index)
 
 
@@ -362,9 +412,11 @@ def _check_dout(x, dout, pool, C):
 def entry_block_bwd_reduce(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, pool, eps, *,
                            rate: float = 0.0, seed=0, pack_bits: Optional[bool] = None):
     """K5b1: recompute conv, chain and mask per pixel tile → (d glu_w [C, C],
-    d glu_b, S1, S2 [C]) in float32; dout comes in x's dtype. Per-block
-    partial sums are folded in a fixed order (no float atomics). CPU: the
-    plain version."""
+    d glu_b, S1, S2 [C]) in float32; dout comes in x's dtype. Per-slot
+    partial sums are folded in a fixed order (no float atomics): in float32
+    the slots of K2b's float32 reduce pass (`fused_block.bwd_reduce`), whose
+    bits it gives on the same y, dout and seed; in bfloat16 one a block. CPU:
+    the plain version."""
     x, w, cb, vecs, gw, pool = _prepare(x, conv_w, conv_b, (scale, bias, mean, var, glu_b), glu_w, pool,
                                         "entry_block_bwd_reduce")
     pack_bits = fused_block.pack_mode(pack_bits)
@@ -379,12 +431,17 @@ def entry_block_bwd_reduce(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_
     pt, pf = pool
     lib = _build.library()
     bf16 = x.dtype == torch.bfloat16
+    tiles = lib.dcase_bn_glu_pool_tiles(T, Fq, pt, pf)
     if bf16:
         buffers, drows, _ = bf16_bwd_plan(C, pool, 1)
-        slots = bf16_bwd_grid(_bf16_resident(x.device.index, C, 1, buffers, drows), B,
-                              lib.dcase_bn_glu_pool_tiles(T, Fq, pt, pf))
-    else:
-        tpb, slots = _bwd_launch_geometry(lib, B, T, Fq, pool)
+        blocks = slots = wave_grid(_resident(x.device.index, "bwd_bf16", C, 1, buffers, drows), B, tiles)
+        plan = (blocks, buffers, drows)
+    else:  # the slots of K2b's float32 reduce pass, over one wave of blocks
+        buffers, drows, _ = f32_reduce_plan(C, pool)
+        tps = fused_block._tiles_per_block(tiles, B, fused_block._TARGET_BLOCKS_BWD)
+        slots = B * -(-tiles // tps)
+        blocks = wave_grid(_resident(x.device.index, "reduce_f32", C, buffers, drows), 1, slots)
+        plan = (blocks, tps, buffers, drows)
     width = C * C + 3 * C
     partials = torch.empty((slots, width), dtype=torch.float32, device=x.device)
     sums = torch.empty(width, dtype=torch.float32, device=x.device)
@@ -392,10 +449,8 @@ def entry_block_bwd_reduce(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_
     args = (x.data_ptr(), dout.data_ptr(), w.data_ptr(), cb.data_ptr(), *(v.data_ptr() for v in vecs[:4]),
             gw.data_ptr(), vecs[4].data_ptr(), partials.data_ptr(), sums.data_ptr(), B, T, Fq, C, pt, pf, float(eps),
             seed_t.data_ptr(), threshold, keep_scale, packed)
-    if bf16:
-        status = lib.dcase_entry_block_bwd_reduce_bf16(*args, slots, buffers, drows, _build.stream_handle(x.device))
-    else:
-        status = lib.dcase_entry_block_bwd_reduce(*args, tpb, _build.stream_handle(x.device))
+    entry = lib.dcase_entry_block_bwd_reduce_bf16 if bf16 else lib.dcase_entry_block_bwd_reduce
+    status = entry(*args, *plan, _build.stream_handle(x.device))
     _build.check(status, "entry_block_bwd_reduce")
     _tally(entry_block_bwd_reduce, "launches", "launches_bwd_reduce", x.dtype)
     fused_block.count_packed(entry_block_bwd_reduce, packed)
@@ -433,8 +488,8 @@ def _launch_bwd_wgrad(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, gl
     lib = _build.library()
     if bf16:
         buffers, drows, _ = bf16_bwd_plan(C, pool, 2)
-        slots = bf16_bwd_grid(_bf16_resident(x.device.index, C, 2, buffers, drows), B,
-                              lib.dcase_bn_glu_pool_tiles(T, Fq, pt, pf), partition == 2)
+        slots = wave_grid(_resident(x.device.index, "bwd_bf16", C, 2, buffers, drows), B,
+                          lib.dcase_bn_glu_pool_tiles(T, Fq, pt, pf), partition == 2)
     else:
         tpb, slots = _bwd_launch_geometry(lib, B, T, Fq, pool)
     partials = torch.empty((slots, (2 if partition == 1 else 1) * 10 * C), dtype=torch.float32, device=x.device)

@@ -9,7 +9,7 @@ plain versions. Here:
   * the shared-memory plan (`fused_entry_block.bf16_bwd_plan`) fits a block
     at every width and pool the fused first block admits, and is the
     kernel's own formula;
-  * the grid (`bf16_bwd_grid`): one wave of the resident blocks, never more
+  * the grid (`wave_grid`): one wave of the resident blocks, never more
     blocks than tiles, even under the crows partition, and the kernel's run
     split covers the batch's tiles once, each half of the clips by its own
     half of the blocks;
@@ -111,7 +111,7 @@ def _runs(G, B, tiles, halves):
     (132, 2, 6, False, 12), (132, 2, 6, True, 12), (132, 2, 7, True, 14), (1, 2, 6, True, 2), (132, 1, 1, False, 1),
 ])
 def test_bf16_bwd_grid_is_one_wave_of_equal_runs(resident, B, tiles, halves, want):
-    G = tfe.bf16_bwd_grid(resident, B, tiles, halves)
+    G = tfe.wave_grid(resident, B, tiles, halves)
     assert G == want
     runs = _runs(G, B, tiles, halves)
     assert [a for a, _ in runs[1:]] == [b for _, b in runs[:-1]]  # consecutive runs

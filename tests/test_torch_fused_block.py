@@ -20,11 +20,12 @@ EPS = 1e-3
 
 
 def _kernel_source() -> str:
-    """csrc/fused_block.cu with the tile code it includes (csrc/bf16_tile.cuh)."""
+    """csrc/fused_block.cu with the tile code it includes (csrc/bf16_tile.cuh,
+    csrc/f32_tile.cuh)."""
     from pathlib import Path
 
     csrc = Path(tfb.__file__).parent.parent / "csrc"
-    return (csrc / "fused_block.cu").read_text() + (csrc / "bf16_tile.cuh").read_text()
+    return "".join((csrc / name).read_text() for name in ("fused_block.cu", "bf16_tile.cuh", "f32_tile.cuh"))
 
 
 def _inputs(shape, seed):

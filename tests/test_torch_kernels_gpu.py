@@ -26,7 +26,9 @@ tiles) and K2 (window tiles included; its tensor-core kernels also at C 20,
 64 and 100, ragged last tiles of one clip, the packed draw, the recompute
 knob's first pass and an unaligned y), and of the
 entry-block family (K4, K5 and the crows layout of K6, at small shapes and
-the flagship block-1 shape), against their plain versions, one
+the flagship block-1 shape; K5b1 float32 and K5f bf16 also at their tile
+edges and bit for bit against K4f -> K2b and K4f -> K2f with the same
+seed), against their plain versions, one
 scaled-configuration step and one flagship bfloat16 step per first-block
 configuration against the CPU. Last, the JAX package's three A/B knobs:
 K1's onedot kernel (1e-5 of max of the plain version, and of a float64 DFT
@@ -959,12 +961,12 @@ def _y_flip(y, scale, bias, mean, var, w, b):
     return dxn * (w.abs().max().item() + lin / 4)
 
 
-def _entry_pool_slack(y, scale, bias, mean, var, w, b, layout, mask=None, keep=1.0):
+def _entry_pool_slack(y, scale, bias, mean, var, w, b, layout, mask=None, keep=1.0, pool=(2, 4)):
     """The pooled output's slack: one rounding after a float32 sum flipped
     (a pt-row column sum under "planes", a g under "crows"), one xn operand
     flip, the sums' float32 rounding and one y flip, carried to the window
     mean."""
-    pool = (2, 4)
+    pt, pf = pool
     if layout == "planes":
         base = _pool_slack(y, scale, bias, mean, var, w, b, pool, mask, keep)
     else:
@@ -973,9 +975,9 @@ def _entry_pool_slack(y, scale, bias, mean, var, w, b, layout, mask=None, keep=1
         if mask is not None:
             g = g * mask / keep
         B, T, F, C = g.shape
-        top = g.reshape(B, T // 2, 2, F // 4, 4, C).abs().amax(dim=(2, 4))
-        base = _ulp(top) + (_flip_slack(xn, w) + _sum_slack(C, xn, w)) / (keep * 8)
-    return base + _y_flip(y, scale, bias, mean, var, w, b) / (keep * 8)
+        top = g.reshape(B, T // pt, pt, F // pf, pf, C).abs().amax(dim=(2, 4))
+        base = _ulp(top) + (_flip_slack(xn, w) + _sum_slack(C, xn, w)) / (keep * pt * pf)
+    return base + _y_flip(y, scale, bias, mean, var, w, b) / (keep * pt * pf)
 
 
 def _parts_rule(got, want, parts, what, extra=0.0):
@@ -1167,6 +1169,94 @@ def test_entry_bwd_bf16_passes(cuda, shape, C, rate, layout, pack):
     print(f"K5b1 bf16 {shape} C={C} rate {rate} {'packed' if pack else '32-bit'}: against K4f -> K2b reduce "
           f"{'bit-equal' if same else f'largest difference {worst:.3e} of max'}")
     assert worst <= 1e-4
+
+
+# K5b1 in float32 and K5f in bfloat16 at their tile edges, as x [B, T, F], C and the pool: a ragged last tile
+# (T not a multiple of the tile's rows) at F = 16 and F = 1, F = 128 (one row a tile), C = 20 and 36 (padded to
+# 64), 96 (padded to 128), 128 with one dout buffer (pool (2, 2)) and with dout read from device memory (pool
+# (1, 1)), and the flagship block-1 shape. C = 18 is not a width the fused block admits (C % 4 == 0).
+K5_EDGES = [((2, 38, 16), 16, (2, 4)), ((1, 150, 1), 20, (2, 1)), ((2, 38, 16), 36, (2, 4)), ((1, 9, 128), 64, (1, 4)),
+            ((2, 12, 64), 96, (2, 4)), ((1, 14, 32), 128, (2, 2)), ((1, 10, 8), 128, (1, 1)),
+            ((24, 864, 64), 64, (2, 4))]
+
+
+def _k5_inputs(rng, shape, C, pool, cuda, dtype):
+    """x [B, T, F] in `dtype`, the conv, the batch statistics of its output,
+    the block's parameters and dout [B, T/pt, F/pf, C] in `dtype`."""
+    B, T, Fq = shape
+    conv = _entry_params(rng, C, cuda)
+    scale, bias, _, _, gw, gb = _block_args(rng, C, cuda)
+    x = _t(rng.standard_normal(shape), cuda).to(dtype)
+    dout = _t(rng.standard_normal((B, T // pool[0], Fq // pool[1], C)), cuda).to(dtype)
+    s, sq = fused_entry_block.entry_block_stats_apply(conv, x)
+    n = B * T * Fq
+    mean = s / n
+    var = sq / n - mean * mean
+    return x, dout, conv, (conv["w"], conv["b"], scale, bias, mean, var, gw, gb)
+
+
+@pytest.mark.parametrize("rate,pack", [(0.0, False), (0.5, False), (0.5, True)])
+@pytest.mark.parametrize("shape,C,pool", K5_EDGES)
+def test_entry_reduce_f32_pass(cuda, shape, C, pool, rate, pack):
+    """K5b1 in float32 (entry_block_bwd_reduce_f32_kernel: K2b's float32
+    reduce pass on a conv tile) against its plain version, 1e-4 of each
+    output's max, with either draw, and a bit-equal repeat; then against K4f
+    -> K2b's float32 reduce pass without dy_partial with the same seed and
+    draw: the same tile code on the same y, summed into K2b's slots, so bit
+    for bit."""
+    rng = np.random.default_rng(sum(shape) + C + 21)
+    fe = fused_entry_block
+    x, dout, conv, vecs = _k5_inputs(rng, shape, C, pool, cuda, torch.float32)
+    seed = torch.tensor([53 + shape[1]])
+    kw = dict(rate=rate, seed=seed, pack_bits=pack)
+    before = (fe.entry_block_bwd_reduce.launches, fe.entry_block_bwd_reduce.launches_packed)
+    red = fe.entry_block_bwd_reduce(x, dout, *vecs, pool, 1e-3, **kw)
+    assert (fe.entry_block_bwd_reduce.launches, fe.entry_block_bwd_reduce.launches_packed) == \
+        (before[0] + 1, before[1] + int(pack and rate > 0.0))
+    mask = fused_block.dropout_keep_mask(seed, shape + (C,), rate, device=cuda, pack_bits=pack) if rate else None
+    want = fe.entry_block_bwd_reduce_reference(x, dout, *vecs, pool, 1e-3, mask, 1.0 - rate)
+    for name, got, w in zip(("d glu_w", "d glu_b", "S1", "S2"), red, want):
+        assert (got - w).abs().max().item() <= 1e-4 * w.abs().max().item(), name
+    assert all(torch.equal(p, q) for p, q in zip(red, fe.entry_block_bwd_reduce(x, dout, *vecs, pool, 1e-3, **kw)))
+
+    y = entry_conv.entry_conv_forward(conv, x)[0]
+    pair = fused_block.bwd_reduce(y, dout, *vecs[2:], pool, 1e-3, recompute=True, **kw)[1:]
+    worst = max((p - q).abs().max().item() / max(q.abs().max().item(), 1e-30) for p, q in zip(red, pair))
+    assert all(torch.equal(p, q) for p, q in zip(red, pair)), f"against K4f -> K2b reduce: {worst:.3e} of max"
+
+
+@pytest.mark.parametrize("rate,pack", [(0.0, False), (0.5, False), (0.5, True)])
+@pytest.mark.parametrize("shape,C,pool", K5_EDGES)
+def test_entry_fwd_bf16_kernel(cuda, shape, C, pool, rate, pack):
+    """K5f in bfloat16 (entry_block_fwd_bf16_kernel: K2f's bfloat16 forward
+    on a conv tile), planes layout: bit for bit K4f -> K2f in bfloat16 with
+    the same seed and draw (y is the same bfloat16 value, and neither the
+    product per pixel nor the pool window depends on the tiling), and within
+    one ulp plus the stated slack of the plain version; the crows layout
+    (every g rounded before the window sum) against its plain version under
+    the same bars; bit-equal repeats and the launches counted."""
+    rng = np.random.default_rng(sum(shape) + C + 22)
+    fe = fused_entry_block
+    x, _, conv, vecs = _k5_inputs(rng, shape, C, pool, cuda, torch.bfloat16)
+    seed = torch.tensor([61 + shape[1]])
+    kw = dict(rate=rate, seed=seed, pack_bits=pack)
+    fn = fe.entry_block_fwd
+    counter = "launches_train_bf16" if rate > 0.0 else "launches_eval_bf16"
+    before = getattr(fn, counter)
+    out = fn(x, *vecs, pool, 1e-3, **kw)
+    assert getattr(fn, counter) == before + 1 and out.dtype == torch.bfloat16
+    y = entry_conv.entry_conv_forward(conv, x)[0]
+    pair = fused_block.fused_bn_glu_pool(y, *vecs[2:], pool, 1e-3, **kw)
+    assert torch.equal(out, pair), f"K5f bf16 against K4f -> K2f bf16: {(out.float() - pair.float()).abs().max().item()}"
+    mask = fused_block.dropout_keep_mask(seed, shape + (C,), rate, device=cuda, pack_bits=pack) if rate else None
+    keep = 1.0 - rate
+    y_ref = entry_conv.entry_conv_reference(conv, x)[0]
+    for layout in ("planes", "crows"):
+        got = out if layout == "planes" else fn(x, *vecs, pool, 1e-3, layout=layout, **kw)
+        ref = fe.reference_entry_block(x, *vecs, pool, 1e-3, mask, keep, layout)
+        _within_ulps(got, ref, f"pooled output ({layout})",
+                     _entry_pool_slack(y_ref, *vecs[2:], layout, mask, keep, pool))
+        assert torch.equal(got, fn(x, *vecs, pool, 1e-3, layout=layout, **kw)), layout
 
 
 @pytest.mark.parametrize("flag", [None, "entry_conv_pallas", "entry_block_pallas", "entry_block_crows"])

@@ -1,43 +1,49 @@
-"""K5's two bfloat16 backward passes (`entry_block_bwd_reduce_bf16_kernel`,
-K5b1, and `entry_block_bwd_wgrad_bf16_kernel`, K5b2, of
-csrc/entry_block.cu) alone, on one NVIDIA GPU.
+"""K5's redesigned kernels alone, on one NVIDIA GPU: pass 1 in float32
+(`entry_block_bwd_reduce_f32_kernel`, K5b1: K2b's float32 reduce pass on a
+conv tile), the forward in bfloat16 (`entry_block_fwd_bf16_kernel`, K5f:
+K2f's bfloat16 forward on a conv tile) and the two bfloat16 backward passes
+(`entry_block_bwd_reduce_bf16_kernel`, `entry_block_bwd_wgrad_bf16_kernel`),
+all of csrc/entry_block.cu.
 
-    python tools/bench_k5b_bf16_torch.py [--no-tests] [--variants] [--against DIR]
+    python tools/bench_k5_torch.py [--no-tests] [--variants] [--against DIR]
 
 Prints the card's name and power limit; the ptxas report (registers,
-stack, spill) of every kernel of csrc/entry_block.cu and of K2's bfloat16
-reduce pass and recompute fixup, whose tile code the two passes share
-(csrc/bf16_tile.cuh; a spill fails the run at its end), and the two
-passes' instruction mix (`cuobjdump -sass` of the built library, through
-chip_smoke.py's `check_mma`: HMMA or HGMMA in both); runs their GPU tests
-(`pytest tests/test_torch_kernels_gpu.py -k "entry_bwd_bf16 or
+stack, spill) of every kernel of csrc/entry_block.cu and of K2's kernels
+whose tile code they share (csrc/f32_tile.cuh, csrc/bf16_tile.cuh; a spill
+of one of those fails the run at its end), and the four kernels'
+instruction mix (`cuobjdump -sass` of the built library, through
+chip_smoke.py's `check_mma`: FFMA and no HMMA in K5b1 float32, HMMA in the
+bfloat16 ones); runs their GPU tests (`pytest tests/test_torch_kernels_gpu.py
+-k "entry_reduce_f32 or entry_fwd_bf16 or entry_bwd_bf16 or
 entry_block_bf16"`) unless --no-tests; then chip_smoke.py's phase-3 rows of
-the entry-block family in bfloat16 at the flagship's block-1 shape (x [24,
-864, 64], C = 64; `chip_smoke.entry_bf16_kernels`, under its bars) with
-device ms, bound, share of bound and the earlier kernels' recorded reading.
+the entry-block family at the flagship's block-1 shape (x [24, 864, 64], C =
+64; `chip_smoke.entry_kernels` in float32 and `entry_bf16_kernels`, under
+their bars) with device ms, bound, share of bound and the earlier kernels'
+recorded reading.
 
 With --against DIR (a checkout of another commit, e.g. the parent's `git
 archive` under a directory that .gitignore lists) it measures DIR's package
 and this one in the order DIR, this, this, DIR, each in a process of its own
-that builds its package's kernels: the two passes' device ms at the flagship
-block-1 shape (K5b2 in both partitions); the SHA-256 of the outputs of every
-other kernel of csrc/fused_block.cu and csrc/entry_block.cu (K2 in float32
-and bfloat16, K4, K5s, K5f, K5's float32 passes), which must be the same in
-both trees; and the device time of one traced MT step of the flagship in
-bfloat16 under `entry_block_pallas` (FB) and `entry_block_crows` (FR), the
-generator on the card (chip_smoke.knob_card_steps, the knobs off), with
-block 1's device time in a second traced step (chip_smoke.block1_device_ms).
+that builds its package's kernels: the four kernels' device ms at the
+flagship block-1 shape (K5f bf16 eval and dropout, both layouts; K5b2 bf16
+in both partitions); the SHA-256 of the outputs of every other kernel of
+csrc/fused_block.cu and csrc/entry_block.cu (K2 in float32 and bfloat16,
+K4, K5s, K5f float32, K5b2 float32, K5's bfloat16 passes), which must be
+the same in both trees; and the device time of one traced MT step of the
+flagship under `entry_block_pallas` and `entry_block_crows`, in float32 (B,
+R) and in bfloat16 (FB, FR), the generator on the card
+(chip_smoke.knob_card_steps, the knobs off), with block 1's device time in a
+second traced step (chip_smoke.block1_device_ms).
 
-With --variants it times other plans of the two passes at the flagship
-shape, each output first held to the as-built kernel's bit for bit or else
-to the plain version under chip_smoke.py's bars: launch plans through the
-wrappers (one dout buffer; the grid at half and twice the resident blocks)
-and source variants (16 warps a block at C = 64, one block an SM; no
-prefetch of the next tile's x), csrc/entry_block.cu edited and built alone into a library
-of its own (all compilers started together), timed by CUDA events around
-ten calls in a row (the profiler traces nothing once a second library is
-loaded). About ten minutes of card time with both options. Imports the port
-only; needs a card; exits non-zero when a bar fails.
+With --variants it times other launch plans of K5b1 float32 (one of K2b's
+slots a block, K2b's own grid of 528 blocks at the flagship shape; one dout
+buffer) and of K5f bfloat16 (1056 blocks, the count of the per-clip grid at
+the float32 forward's target), each output held to the as-built kernel's
+bit for bit (neither kernel's outputs depend on its grid), timed by the
+profiler and by CUDA events around ten calls in a row, in turn and again in
+reverse order. About ten minutes of card time with both
+options. Imports the port only; needs a card; exits non-zero when a bar
+fails.
 """
 
 from __future__ import annotations
@@ -53,28 +59,29 @@ import sys
 import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNELS = ("entry_block_bwd_reduce_bf16_kernel", "entry_block_bwd_wgrad_bf16_kernel")
-SHARED = ("bn_glu_pool_bwd_bf16_kernel", "bn_bwd_fixup_recompute_bf16_kernel")
-ROWS = ("entry_block_bwd_reduce_bf16", "entry_block_bwd_wgrad_bf16", "crows_bwd_wgrad_bf16")
-# the earlier kernels (entry_block_bwd_*_kernel<4, __nv_bfloat16>, scalar FP32
-# FMAs; PERF.md §6: chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W), device ms
-RECORDED = {"entry_block_bwd_reduce_bf16": 3.6486, "entry_block_bwd_wgrad_bf16": 2.7656,
-            "crows_bwd_wgrad_bf16": 2.7498}
-STEP_PATHS = {"step_bf16_entry_block": "entry_block_pallas", "step_bf16_crows": "entry_block_crows"}
+KERNELS = ("entry_block_bwd_reduce_f32_kernel", "entry_block_fwd_bf16_kernel", "entry_block_bwd_reduce_bf16_kernel",
+           "entry_block_bwd_wgrad_bf16_kernel")
+# K2's kernels whose tile code the four share (no name a substring of another listed one)
+SHARED = ("bn_glu_pool_bwd_kernel", "bn_bwd_fixup_recompute_kernel", "bn_glu_pool_bf16_kernel",
+          "bn_glu_pool_bwd_bf16_kernel", "bn_bwd_fixup_recompute_bf16_kernel")
+ROWS = ("entry_block_bwd_reduce", "entry_block_fwd_eval_bf16", "entry_block_fwd_train_bf16", "crows_fwd_bf16",
+        "entry_block_bwd_reduce_bf16", "entry_block_bwd_wgrad_bf16", "crows_bwd_wgrad_bf16")
+# the earlier kernels' device ms (PERF.md §6: chip_smoke.py, NVIDIA H100 80GB
+# HBM3, 700.00 W): K5b1 float32 and K5f bfloat16 as first ported (scalar FP32
+# FMAs), the bfloat16 passes on the tensor cores
+RECORDED = {"entry_block_bwd_reduce": 3.0876, "entry_block_fwd_eval_bf16": 1.1587,
+            "entry_block_fwd_train_bf16": 1.2577, "crows_fwd_bf16": 1.2235, "entry_block_bwd_reduce_bf16": 0.7042,
+            "entry_block_bwd_wgrad_bf16": 0.6904, "crows_bwd_wgrad_bf16": 0.6798}
+# one traced MT step per first-block path: (flag, compute dtype)
+STEP_PATHS = {"step_entry_block": ("entry_block_pallas", "float32"), "step_crows": ("entry_block_crows", "float32"),
+              "step_bf16_entry_block": ("entry_block_pallas", "bfloat16"),
+              "step_bf16_crows": ("entry_block_crows", "bfloat16")}
 SEED = 20190415
 
-# source variants for --variants: (name, edits), each edit (text, replacement, count) applied to csrc/entry_block.cu
-SOURCE_VARIANTS = (
-    ("as built", ()),
-    ("16 warps a block at C = 64, one block an SM",
-     (("constexpr int kEntryWarps = CP == 128 ? 16 : 8;", "constexpr int kEntryWarps = 16;", 1),)),
-    ("no prefetch of the next tile's x", (("constexpr bool kPrefetchX = CP == 64;", "constexpr bool kPrefetchX = false;", 1),)),
-)
 
-
-def flagship_inputs(device):
-    """The flagship block-1 inputs in bfloat16 (x [24, 864, 64], C = 64,
-    pool (2, 4), dout bfloat16) with the batch statistics of its conv, the
+def flagship_inputs(device, dtype):
+    """The flagship block-1 inputs in `dtype` (x [24, 864, 64], C = 64, pool
+    (2, 4), dout in `dtype`) with the batch statistics of its conv, the
     model's dropout and a seed: (x, dout, vecs, pool, eps, rate, seed)."""
     import torch
 
@@ -90,7 +97,7 @@ def flagship_inputs(device):
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
-    x = t(rng.standard_normal((B, T, Fq))).bfloat16()
+    x = t(rng.standard_normal((B, T, Fq))).to(dtype)
     lim = np.sqrt(2.0) * np.sqrt(6.0 / (9 * (1 + C)))
     conv = {"w": t(rng.uniform(-lim, lim, (3, 3, 1, C))), "b": t(0.1 * rng.standard_normal(C))}
     s1, s2 = fe.entry_block_stats_apply(conv, x)
@@ -98,22 +105,31 @@ def flagship_inputs(device):
     var = s2 / float(B * T * Fq) - mean * mean
     vecs = (conv["w"], conv["b"], t(1 + 0.1 * rng.standard_normal(C)), t(0.1 * rng.standard_normal(C)), mean, var,
             t(rng.standard_normal((C, C)) / np.sqrt(C)), t(0.1 * rng.standard_normal(C)))
-    dout = t(rng.standard_normal((B, T // pool[0], Fq // pool[1], C))).bfloat16()
+    dout = t(rng.standard_normal((B, T // pool[0], Fq // pool[1], C))).to(dtype)
     return x, dout, vecs, pool, eps, rate, torch.tensor([SEED], dtype=torch.int64)
 
 
-def pass_calls(device):
-    """{name: call} of the two passes at the flagship shape: K5b1, K5b2 in
-    the planes layout (output-frequency parity) and in the crows layout
-    (batch halves), a and b2 from K5b1's sums."""
+def kernel_calls(device):
+    """{name: call} of the four kernels at the flagship shape: K5b1 float32;
+    K5f bf16 eval and with dropout (planes), with dropout (crows); K5b1
+    bf16; K5b2 bf16 in the planes layout (output-frequency parity) and the
+    crows layout (batch halves), a and b2 from K5b1's sums."""
+    import torch
+
     from dcase2019_task4_tpu_torch.ops import fused_block as fb
     from dcase2019_task4_tpu_torch.ops import fused_entry_block as fe
 
-    x, dout, vecs, pool, eps, rate, seed = flagship_inputs(device)
+    x32, dout32, vecs32, pool, eps, rate, seed = flagship_inputs(device, torch.float32)
+    x, dout, vecs, _, _, _, _ = flagship_inputs(device, torch.bfloat16)
     kw = dict(rate=rate, seed=seed)
     red = fe.entry_block_bwd_reduce(x, dout, *vecs, pool, eps, **kw)
     a, b2 = fb.bwd_coefficients(vecs[2], vecs[5], eps, red[2], red[3], x.numel())
     return {
+        "K5b1 entry_block_bwd_reduce float32": lambda: fe.entry_block_bwd_reduce(x32, dout32, *vecs32, pool, eps, **kw),
+        "K5f entry_block_fwd bf16 eval": lambda: fe.entry_block_fwd(x, *vecs, pool, eps),
+        "K5f entry_block_fwd bf16 dropout planes": lambda: fe.entry_block_fwd(x, *vecs, pool, eps, **kw),
+        "K5f entry_block_fwd bf16 dropout crows": lambda: fe.entry_block_fwd(x, *vecs, pool, eps, layout="crows",
+                                                                             **kw),
         "K5b1 entry_block_bwd_reduce bf16": lambda: fe.entry_block_bwd_reduce(x, dout, *vecs, pool, eps, **kw),
         "K5b2 entry_block_bwd_wgrad bf16 planes": lambda: fe.entry_block_bwd_wgrad(x, dout, *vecs, a, b2, pool, eps,
                                                                                    **kw),
@@ -136,9 +152,9 @@ def spills(log: str) -> list:
 
 def ptxas_report(log: str) -> int:
     """Print the ptxas lines of every kernel of csrc/entry_block.cu and of
-    K2's bfloat16 reduce pass and recompute fixup; → the number of the two
-    passes' and those two kernels' instantiations that spill (the others'
-    spills are printed, and --against prints DIR's beside them)."""
+    K2's kernels that share its tile code; → the number of instantiations of
+    the four kernels and of those K2 kernels that spill (the others' spills
+    are printed, and --against prints DIR's beside them)."""
     lines, spilled, seen = log.splitlines(), 0, 0
     for i, line in enumerate(lines):
         if "Compiling entry" in line and ("entry_block_cu" in line or any(k in line for k in SHARED)):
@@ -166,13 +182,14 @@ def digest(outs) -> str:
 
 def other_kernels(device) -> dict:
     """{call: digest} of every kernel of csrc/fused_block.cu and
-    csrc/entry_block.cu but K5's two bfloat16 passes, on seeded inputs:
-    K2 in float32 and bfloat16 at the flagship block-1 shape (C = 64) and
-    in bfloat16 at the scaled configuration's (C = 128), forward eval and
-    train in both draws, K2s, the reduce pass with and without dy_partial,
-    the fixup and the recompute fixup; K4's conv and weight gradient, K5s,
-    K5f (both layouts in bfloat16) and K5's float32 passes at the flagship
-    block-1 shape."""
+    csrc/entry_block.cu but K5b1 float32 and K5f bfloat16, on seeded
+    inputs: K2 in float32 and bfloat16 at the flagship block-1 shape (C =
+    64) and in bfloat16 at the scaled configuration's (C = 128), forward
+    eval and train in both draws, K2s, the reduce pass with and without
+    dy_partial, the fixup and the recompute fixup; K4's conv and weight
+    gradient, K5s, K5f float32, K5b2 float32 and K5's two bfloat16 passes
+    (K5b2 in both partitions) at the flagship block-1 shape. Pass 2 takes
+    seeded a and b2, so that no reading rests on K5b1 float32's bits."""
     import torch
 
     from dcase2019_task4_tpu_torch.ops import entry_conv as ec
@@ -215,6 +232,7 @@ def other_kernels(device) -> dict:
     conv = {"w": t(3, 3, 1, C, scale=0.3), "b": t(C, scale=0.1)}
     vecs = (t(C, scale=0.1, shift=1.0), t(C, scale=0.1))
     gw, gb = t(C, C, scale=C ** -0.5), t(C, scale=0.1)
+    a, b2 = t(C, scale=1e-3), t(C, scale=1e-3)
     for dtype in (torch.float32, torch.bfloat16):
         x = t(B, T, Fq).to(dtype)
         dy = t(B, T, Fq, C).to(dtype)
@@ -227,19 +245,17 @@ def other_kernels(device) -> dict:
         mean = s1 / float(B * T * Fq)
         var = s2 / float(B * T * Fq) - mean * mean
         block = (conv["w"], conv["b"], *vecs, mean, var, gw, gb)
-        for layout in ("planes", "crows") if dtype == torch.bfloat16 else ("planes",):
-            out[f"K5f eval {tag} {layout}"] = digest(fe.entry_block_fwd(x, *block, (2, 4), 1e-3, layout=layout))
-            for pack in (False, True):
-                out[f"K5f train {tag} {layout} pack {pack}"] = digest(
-                    fe.entry_block_fwd(x, *block, (2, 4), 1e-3, rate=0.5, seed=seed, layout=layout, pack_bits=pack))
         if dtype == torch.float32:
-            for pack in (False, True):
-                kw = dict(rate=0.5, seed=seed, pack_bits=pack)
-                red = fe.entry_block_bwd_reduce(x, dout, *block, (2, 4), 1e-3, **kw)
-                out[f"K5b1 float32 pack {pack}"] = digest(red)
-                a, b2 = fb.bwd_coefficients(vecs[0], var, 1e-3, red[2], red[3], B * T * Fq)
-                out[f"K5b2 float32 pack {pack}"] = digest(
-                    fe.entry_block_bwd_wgrad(x, dout, *block, a, b2, (2, 4), 1e-3, **kw))
+            out[f"K5f eval {tag}"] = digest(fe.entry_block_fwd(x, *block, (2, 4), 1e-3))
+        for pack in (False, True):
+            kw = dict(rate=0.5, seed=seed, pack_bits=pack)
+            if dtype == torch.float32:
+                out[f"K5f train {tag} pack {pack}"] = digest(fe.entry_block_fwd(x, *block, (2, 4), 1e-3, **kw))
+            else:
+                out[f"K5b1 {tag} pack {pack}"] = digest(fe.entry_block_bwd_reduce(x, dout, *block, (2, 4), 1e-3, **kw))
+            for layout in ("planes", "crows") if dtype == torch.bfloat16 else ("planes",):
+                out[f"K5b2 {tag} {layout} pack {pack}"] = digest(
+                    fe.entry_block_bwd_wgrad(x, dout, *block, a, b2, (2, 4), 1e-3, layout=layout, **kw))
         del x, dy, dout
         torch.cuda.empty_cache()
     return out
@@ -265,16 +281,16 @@ def rows_from(root: str) -> int:
     log = _build.build()["log"] or (_build.BUILD_DIR / "build.log").read_text()
     device = torch.device("cuda", 0)
     card = cs.card_line()
-    got = {"root": root, "passes": {}, "pass_digests": {}, "digests": other_kernels(device), "steps": {},
+    got = {"root": root, "kernels": {}, "kernel_digests": {}, "digests": other_kernels(device), "steps": {},
            "block1": {}, "spills": spills(log)}
-    for name, call in pass_calls(device).items():
-        got["pass_digests"][name] = digest(call())
+    for name, call in kernel_calls(device).items():
+        got["kernel_digests"][name] = digest(call())
         cs.PROFILER["lost"] = False
-        got["passes"][name] = cs.device_ms(call)
+        got["kernels"][name] = cs.device_ms(call)
     torch.cuda.empty_cache()
     cfg = Config()
-    for path, flag in STEP_PATHS.items():
-        model = dataclasses.replace(cfg.model, compute_dtype="bfloat16", **{flag: True})
+    for path, (flag, dtype) in STEP_PATHS.items():
+        model = dataclasses.replace(cfg.model, compute_dtype=dtype, **{flag: True})
         run = dataclasses.replace(cfg, model=model)
         cs.PROFILER["lost"] = False
         _, _, _, on_device, state = cs.knob_card_steps(device, run, path, 2, False, cs.step_data(run, device))
@@ -282,6 +298,7 @@ def rows_from(root: str) -> int:
         cs.PROFILER["lost"] = False
         step, st, batch, generator, acc = state
         got["block1"][path] = cs.block1_device_ms(step, st, batch, generator, acc, path, card)
+        del state, step, st, batch, generator, acc
         torch.cuda.empty_cache()
     print(json.dumps(got))
     return 0
@@ -309,26 +326,20 @@ def against(other: str) -> bool:
         return "not measured" if v is None else f"{v:.4f}"
 
     print(f"  {other} against this tree (medians of two runs each, device ms; DIR, this, this, DIR):")
-    print("  the two passes at the flagship block-1 shape (their outputs' SHA-256 in each run):")
-    for name in runs[0]["passes"]:
-        old, new = med("passes", name)
+    print("  the four kernels at the flagship block-1 shape (their outputs' SHA-256 in each run):")
+    for name in runs[0]["kernels"]:
+        old, new = med("kernels", name)
         ratio = f" ({old / new:.2f}x)" if old and new else ""
-        repeat = all(runs[i]["pass_digests"][name] == runs[j]["pass_digests"][name] for i, j in ((0, 3), (1, 2)))
+        repeat = all(runs[i]["kernel_digests"][name] == runs[j]["kernel_digests"][name] for i, j in ((0, 3), (1, 2)))
         print(f"    {name}: {shown(old)} -> {shown(new)}{ratio}; each tree's runs "
-              f"{'bit-equal' if repeat else 'DIFFER'}; runs " + ", ".join(shown(r["passes"][name]) for r in runs))
-    same = True
-    differ = []
-    for name in runs[0]["digests"]:
-        digests = {r["digests"][name] for r in runs}
-        if len(digests) != 1:
-            same = False
-            differ.append(name)
+              f"{'bit-equal' if repeat else 'DIFFER'}; runs " + ", ".join(shown(r["kernels"][name]) for r in runs))
+    differ = [name for name in runs[0]["digests"] if len({r["digests"][name] for r in runs}) != 1]
     print(f"  every other kernel of fused_block.cu and entry_block.cu, {len(runs[0]['digests'])} calls: outputs "
-          + ("bit-identical in all four runs" if same else "DIFFER in " + ", ".join(differ)))
+          + ("bit-identical in all four runs" if not differ else "DIFFER in " + ", ".join(differ)))
     for label, run in (("DIR", runs[0]), ("this tree", runs[1])):
         print(f"  kernels of entry_block.cu and fused_block.cu that spill in {label}: "
               + ("; ".join(run["spills"]) or "none"))
-    print("  one traced MT step's device time, flagship bf16 (chip_smoke.knob_card_steps, knobs off), and block 1:")
+    print("  one traced MT step's device time (chip_smoke.knob_card_steps, card generator, knobs off), and block 1:")
     for path in STEP_PATHS:
         old, new = med("steps", path)
         b_old, b_new = med("block1", path)
@@ -336,21 +347,24 @@ def against(other: str) -> bool:
         print(f"    {path}: step {shown(old)} -> {shown(new)}{delta}; runs "
               + ", ".join(shown(r["steps"][path]) for r in runs)
               + f"; block 1 {shown(b_old)} -> {shown(b_new)}; runs " + ", ".join(shown(r["block1"][path]) for r in runs))
-    return same
+    return not differ
 
 
-def pass_rows(device):
-    """chip_smoke.py's phase-3 rows of the entry-block family in bfloat16 at
-    the flagship's block-1 shape, each held to its plain version under
-    chip_smoke.py's bars; the two passes' rows printed."""
+def kernel_rows(device):
+    """chip_smoke.py's phase-3 rows of the entry-block family at the
+    flagship's block-1 shape, float32 and bfloat16, each held to its plain
+    version under chip_smoke.py's bars; the redesigned kernels' rows
+    printed."""
     import torch
 
     import chip_smoke as cs
 
     rows = collections.defaultdict(cs.Row)
+    cs.entry_kernels(device, rows, np.random.default_rng(cs.SEED + 6))
+    torch.cuda.empty_cache()
     cs.entry_bf16_kernels(device, rows, np.random.default_rng(cs.SEED + 7))
     torch.cuda.empty_cache()
-    print("row: device ms (events ms), bound ms, share of bound; the earlier kernel (recorded)")
+    print("row: device ms (events ms), bound ms, share of bound; plain ms; the earlier kernel (recorded)")
     for name in ROWS:
         row = rows[name]
         share = f"{100.0 * row.bound / row.device_ms:.1f} %" if row.device_ms else "not measured"
@@ -359,108 +373,61 @@ def pass_rows(device):
 
 
 def variants(device):
-    """ms of other plans of the two passes at the flagship shape (CUDA events
-    around ten calls in a row, a tenth of it), each output held first to the
-    as-built kernel's bits or to the plain version (chip_smoke.py's bars:
-    K5b1 1e-4 of max; K5b2 dW within one ulp plus the parts' and a dy
-    flip; d conv_b, zero in exact arithmetic, within the float32 rounding of
-    its sum and the as-built kernel's)."""
+    """Device ms (the profiler) and ms (CUDA events around ten calls in a
+    row, a tenth of it) of other launch plans at the flagship shape, each
+    plan in turn and then in reverse order: K5b1 float32 with one of its
+    slots (K2b's) a block and with one dout buffer; K5f bfloat16 with 1056
+    blocks. Each output held to the as-built kernel's bits."""
     import torch
 
-    sys.path.insert(0, os.path.join(REPO, "tools"))
-    import bench_k2_bf16_torch as k2b
     import chip_smoke as cs
     from dcase2019_task4_tpu_torch.ops import _build
     from dcase2019_task4_tpu_torch.ops import fused_block as fb
     from dcase2019_task4_tpu_torch.ops import fused_entry_block as fe
 
-    x, dout, vecs, pool, eps, rate, seed = flagship_inputs(device)
-    mask = fb.dropout_keep_mask(seed, (*x.shape, vecs[0].shape[-1]), rate, device=device)
-    keep = 1.0 - rate
-    red_want = fe.entry_block_bwd_reduce_reference(x, dout, *vecs, pool, eps, mask, keep)
-    calls = pass_calls(device)
-    # pass 2 at the coefficients pass_calls gives it: those of K5b1's own sums
-    red = fe.entry_block_bwd_reduce(x, dout, *vecs, pool, eps, rate=rate, seed=seed)
-    a, b2 = fb.bwd_coefficients(vecs[2], vecs[5], eps, red[2], red[3], x.numel())
-    wants = {}
-    for name in calls:
-        if "K5b1" in name:
-            wants[name] = red_want
-        else:
-            layout = "crows" if "crows" in name else "planes"
-            dw, dcb = fe.entry_block_bwd_wgrad_reference(x, dout, *vecs, a, b2, pool, eps, mask, keep, layout)
-            parts = fe.entry_block_bwd_wgrad_parts_reference(x, dout, *vecs, a, b2, pool, eps, mask, keep, layout)
-            wants[name] = (dw, dcb, parts)
-    dy_max = fe._pass2_dy(x, dout, *vecs, a, b2, pool, eps, mask, keep)[0].abs().max()
-    del mask
-    flip = cs.bf16_ulp(dy_max).item() * x.float().abs().max().item()
-    built = {name: call() for name, call in calls.items()}
+    x, dout, vecs, pool, eps, rate, seed = flagship_inputs(device, torch.float32)
+    reduce = lambda: fe.entry_block_bwd_reduce(x, dout, *vecs, pool, eps, rate=rate, seed=seed)  # noqa: E731
+    xb, _, vecs_b, _, _, _, _ = flagship_inputs(device, torch.bfloat16)
+    forward = lambda: fe.entry_block_fwd(xb, *vecs_b, pool, eps, rate=rate, seed=seed)  # noqa: E731
+    built = {"K5b1 float32": reduce(), "K5f bf16 dropout": [forward()]}
 
     def held(name, outs):
-        if all(torch.equal(p, q) for p, q in zip(outs, built[name])):
-            return "bit-equal to the as-built kernel"
-        if "K5b1" in name:
-            err = max((p - q).abs().max().item() / q.abs().max().item() for p, q in zip(outs, wants[name]))
-            if not err <= 1e-4:
-                raise AssertionError(f"{name}: {err} of max exceeds 1e-4")
-            return f"{err:.2e} of max"
-        dw, _, parts = wants[name]
-        slack = sum(cs.bf16_ulp(p) for p in parts) + flip
-        over = ((outs[0] - dw).abs() - cs.bf16_ulp(torch.maximum(outs[0].abs(), dw.abs())) - slack).max().item()
-        # d conv_b is zero in exact arithmetic: against the as-built kernel's, both sums' float32 rounding
-        dcb_err = (outs[1] - built[name][1]).abs().max().item()
-        if over > 0 or dcb_err > 2 * cs.sum_slack(x.numel(), dy_max.item(), 1.0):
-            raise AssertionError(f"{name}: dW beyond one ulp + slack by {over}, or d conv_b off by {dcb_err}")
-        return "within the bars"
+        outs = outs if isinstance(outs, (tuple, list)) else [outs]
+        if not all(torch.equal(p, q) for p, q in zip(outs, built[name])):
+            raise AssertionError(f"{name} depends on its launch plan")
+        return "bit-equal to the as-built kernel"
 
     def timed(fn):
         return cs.time_ms(lambda: [fn() for _ in range(10)]) / 10
 
-    print("  launch plans at the flagship shape (ms, CUDA events, ten calls in a row):")
-    planned, resident = fe.bf16_bwd_plan, fe._bf16_resident
-
-    def one_buffer(channels, pool, which):
-        return (1,) + planned(channels, pool, which)[1:]
-
-    plans = (("as planned", planned, 1.0), ("one dout buffer", one_buffer, 1.0),
-             ("grid at half the resident blocks", planned, 0.5), ("grid at twice the resident blocks", planned, 2.0))
+    B, T, Fq = x.shape
+    tiles = _build.library().dcase_bn_glu_pool_tiles(T, Fq, *pool)
+    per_clip = -(-tiles // fb._tiles_per_block(tiles, B, fb._TARGET_BLOCKS_BWD)) * B
+    per_clip_fwd = -(-tiles // fb._tiles_per_block(tiles, B, fe._TARGET_BLOCKS)) * B
+    grid, plan = fe.wave_grid, fe.f32_reduce_plan
+    one_buffer = lambda C, p: (1,) + plan(C, p)[1:]  # noqa: E731
+    cases = (("K5b1 float32", reduce, "as built (one wave over K2b's slots)", grid, plan),
+             ("K5b1 float32", reduce, f"{per_clip} blocks (one of K2b's slots a block)", lambda *a, **k: per_clip, plan),
+             ("K5b1 float32", reduce, "one dout buffer", grid, one_buffer),
+             ("K5f bf16 dropout", forward, "as built (one wave)", grid, plan),
+             ("K5f bf16 dropout", forward, f"{per_clip_fwd} blocks (the per-clip count at _TARGET_BLOCKS)",
+              lambda *a, **k: per_clip_fwd, plan))
+    print("  launch plans at the flagship shape, each timed in turn and again in reverse order (device ms from "
+          "the profiler; ms by CUDA events around ten calls in a row):")
     try:
-        for name, plan, waves in plans:
-            fe.bf16_bwd_plan = plan
-            fe._bf16_resident = lambda *args, w=waves: max(2, int(w * resident(*args)))
-            print(f"    {name}: " + "; ".join(f"{call_name} {timed(call):.4f} ({held(call_name, call())})"
-                                              for call_name, call in calls.items()))
+        for name, call, label, g, p in cases + cases[::-1]:
+            fe.wave_grid, fe.f32_reduce_plan = g, p
+            cs.PROFILER["lost"] = False
+            print(f"    {name}, {label}: device {cs.shown(cs.device_ms(call))}, events {timed(call):.4f} "
+                  f"({held(name, call())})")
     finally:
-        fe.bf16_bwd_plan, fe._bf16_resident = planned, resident
-
-    print("  source variants at the flagship shape (ms, CUDA events, ten calls in a row); ptxas of the two passes")
-    library = _build.library
-    main = library()
-
-    class Both:  # a variant's entry-block entries, the rest (the tile count) from the library as built
-        def __init__(self, lib):
-            self.lib = lib
-
-        def __getattr__(self, name):
-            return getattr(self.lib if hasattr(self.lib, name) else main, name)
-
-    try:
-        for name, lib, ptxas in k2b.ablation_libraries(SOURCE_VARIANTS, "bf16_kernel", "entry_block.cu"):
-            if lib is None:
-                continue
-            _build.library = lambda lib=lib: Both(lib)
-            fe._bf16_resident.cache_clear()
-            print(f"    {name}: " + "; ".join(f"{call_name} {timed(call):.4f} ({held(call_name, call())})"
-                                              for call_name, call in calls.items()) + "; ptxas " + "; ".join(ptxas))
-    finally:
-        _build.library = library
-        fe._bf16_resident.cache_clear()
+        fe.wave_grid, fe.f32_reduce_plan = grid, plan
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--no-tests", action="store_true", help="skip the passes' GPU tests")
-    parser.add_argument("--variants", action="store_true", help="also time other plans of the passes")
+    parser.add_argument("--no-tests", action="store_true", help="skip the kernels' GPU tests")
+    parser.add_argument("--variants", action="store_true", help="also time other launch plans")
     parser.add_argument("--against", metavar="DIR", help="also measure the package in DIR beside this one")
     parser.add_argument("--rows-from", metavar="DIR", help=argparse.SUPPRESS)
     args = parser.parse_args()
@@ -468,7 +435,7 @@ def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
-        print("bench_k5b_bf16_torch: needs an NVIDIA GPU", file=sys.stderr)
+        print("bench_k5_torch: needs an NVIDIA GPU", file=sys.stderr)
         return 2
     if args.rows_from:
         return rows_from(args.rows_from)
@@ -495,20 +462,22 @@ def main() -> int:
 
     if not args.no_tests:
         tests = subprocess.run([sys.executable, "-m", "pytest", "tests/test_torch_kernels_gpu.py", "-q", "-s",
-                                "-p", "no:randomly", "-k", "entry_bwd_bf16 or entry_block_bf16"],
+                                "-p", "no:randomly", "-k",
+                                "entry_reduce_f32 or entry_fwd_bf16 or entry_bwd_bf16 or entry_block_bf16"],
                                cwd=REPO, capture_output=True, text=True)
-        print("\n".join(line for line in tests.stdout.splitlines() if "K5b1 bf16" in line))
         print(tests.stdout[-3000:], tests.stderr[-2000:])
         if tests.returncode != 0:
             return tests.returncode
 
     device = torch.device("cuda", 0)
+    sm = _build.sm_count(0)
     for C in (16, 64, 96, 128):
-        for which in (1, 2):
-            buffers, drows, nbytes = fe.bf16_bwd_plan(C, (2, 4), which)
-            print(f"pass {which} at C = {C}, pool (2, 4): {buffers} dout buffer(s) of {drows} rows, {nbytes} bytes; "
-                  f"{fe._bf16_resident(0, C, which, buffers, drows)} blocks held at once on {_build.sm_count(0)} SMs")
-    pass_rows(device)
+        for pool in ((2, 4), (1, 1)):
+            buffers, drows, nbytes = fe.f32_reduce_plan(C, pool)
+            print(f"K5b1 float32 at C = {C}, pool {pool}: {buffers} buffer(s) of {drows} dout rows, {nbytes} bytes; "
+                  f"{fe._resident(0, 'reduce_f32', C, buffers, drows)} blocks held at once on {sm} SMs")
+        print(f"K5f bf16 at C = {C}: {fe.fwd_bf16_plan(C)} bytes; {fe._resident(0, 'fwd_bf16', C)} blocks held at once")
+    kernel_rows(device)
     same = True
     if args.against:
         same = against(args.against)
@@ -516,10 +485,10 @@ def main() -> int:
         variants(device)
     print(cs.card_line())
     if spilled:
-        print(f"bench_k5b_bf16_torch: {spilled} instantiation(s) spill", file=sys.stderr)
+        print(f"bench_k5_torch: {spilled} instantiation(s) spill", file=sys.stderr)
         return 1
     if not same:
-        print("bench_k5b_bf16_torch: another kernel's outputs differ from DIR's", file=sys.stderr)
+        print("bench_k5_torch: another kernel's outputs differ from DIR's", file=sys.stderr)
         return 1
     return 0
 
