@@ -12,8 +12,8 @@ printing a result:
      K2's and K5f / K5b1 / K5b2's bfloat16 kernels read from the library's
      machine code (HGMMA or HMMA, with the FFMA count; a kernel with neither
      fails), and of the FP32 product kernels (onedot K1, K3's float32
-     kernels, K2f's and K2b's float32 kernels, K5b1's float32 pass: FFMA,
-     and a kernel with HGMMA or HMMA fails);
+     kernels, K2f's and K2b's float32 kernels, K5's three float32 kernels:
+     FFMA, and a kernel with HGMMA or HMMA fails);
   3. kernels — each hand-written kernel against its plain PyTorch version on
      the card, at the flagship shapes, float32 with TF32 off: max abs error
      against a stated tolerance, median time over 10 runs after 3 warm-ups
@@ -25,9 +25,13 @@ printing a result:
      per-block sums (K2b, K2s, K3w, K4f, K4w, K5s, K5b1, K5b2) runs twice and
      must repeat bit for bit. The entry-block family runs at the block-1
      shape: K4f's and K5s's sums are also held to K2s's on the stored y, K5f
-     with a seed to F.conv2d -> K2f with that seed, K5b1 to K4f -> K2b's
-     float32 reduce pass without dy_partial with the same seed (bit for bit:
-     the shared tile code, summed into K2b's slots), the crows entries
+     with a seed to F.conv2d -> K2f with that seed and to K4f -> K2f (bit
+     for bit at rate 0 and the model's: the shared tile code on the same y),
+     K5b1 to K4f -> K2b's float32 reduce pass without dy_partial with the
+     same seed (bit for bit: the shared tile code, summed into K2b's slots),
+     K5b2 to K4f -> K2b's float32 recompute fixup -> K4w (1e-6 of max: the
+     same dy summed in another order; d conv_b with the gauge floor), the
+     crows entries
      (statistics, forward, and both backward passes through their autograd
      Function) bit for bit to the fused entry block's own wrappers and to
      the plain versions on their own, and the keep-mask kernel bit for bit
@@ -1219,6 +1223,13 @@ def entry_kernels(device, rows, rng):
         if not err <= 1e-5:
             raise AssertionError(f"K5f rate {r} against F.conv2d -> K2f with the same seed: {err} exceeds 1e-5")
         print(f"  K5f rate {r} equals F.conv2d -> K2f with the same seed within {err:.3e} (limit 1e-5)")
+        # K5f runs K2f's float32 tile code (csrc/f32_tile.cuh) on the y it
+        # computes in K4f's order: K4f -> K2f with the same seed, bit for bit
+        pair = fb.fused_bn_glu_pool(y, scale, bias, mean, var, gw, gb, pool, eps, rate=r, seed=seed)
+        if not torch.equal(fused, pair):
+            raise AssertionError(f"K5f float32 rate {r} differs from K4f -> K2f float32 with the same seed: largest "
+                                 f"difference {(fused - pair).abs().max().item():.3e}")
+        print(f"  K5f float32 rate {r} equals K4f -> K2f float32 with the same seed bit for bit")
     del fused, pair, y
 
     # K5b1, K5b2: the two backward passes with the host-side step between them
@@ -1258,6 +1269,24 @@ def entry_kernels(device, rows, rng):
                   rtol_of_max=1e-4, repeat=True, exact_fn=exact_wgrad)
     rows["entry_block_bwd_wgrad"].add(shape, res, x_bytes + out_bytes + 2 * small,
                                       2 * conv_ops + 2 * mix_ops + pass2_ops)  # conv, dW; lin, dxn
+    # K5b2 runs the recompute fixup's float32 tile code on the y it computes
+    # and takes dW from the dy tile: K4f -> fixup -> K4w with the same seed
+    # gives the same dy, summed in another order (d conv_b, a gauge leaf, with
+    # a floor of 1e-6 of dW's max)
+    dw, dcb = fe.entry_block_bwd_wgrad(*args, a, b2, pool, eps, rate=rate, seed=seed)
+    y = ec.entry_conv_forward(conv, x)[0]
+    dy = fb.bwd_fixup_recompute(y, dout, scale, bias, mean, var, gw, gb, a, b2, pool, eps, rate=rate, seed=seed)
+    del y
+    pair = ec.entry_conv_wgrad(x, dy)
+    del dy
+    floor = 1e-6 * pair[0].abs().max().item()
+    for what, got, want, extra in (("dW", dw, pair[0], 0.0), ("d conv_b", dcb, pair[1], floor)):
+        err, limit = (got - want).abs().max().item(), 1e-6 * want.abs().max().item() + extra
+        if not err <= limit:
+            raise AssertionError(f"K5b2 float32 {what} against K4f -> fixup -> K4w float32: {err} exceeds {limit}")
+        print(f"  K5b2 float32 {what} equals K4f -> recompute fixup -> K4w float32 within {err:.3e} "
+              f"(limit {limit:.3e}: 1e-6 of max{' + the gauge floor' if extra else ''})")
+    del dw, dcb, pair
 
     # K6: the crows entries themselves at this shape (their gate, their
     # counting, the autograd Function under them): bit for bit what K5's
@@ -2888,16 +2917,16 @@ def compare_step1_gradients(names, want, got, what: str):
 # next one's, so its launches are the longest of each name.
 BLOCK1_KERNELS = {
     "step": (("bn_glu_pool_kernel", 2), ("bn_glu_pool_bwd_kernel", 1), ("bn_bwd_fixup_kernel", 1), ("stats_kernel", 2)),
-    "step_entry_block": (("entry_conv_kernel", 2), ("entry_block_fwd_kernel", 2),
-                         ("entry_block_bwd_reduce_f32_kernel", 1), ("entry_block_bwd_wgrad_kernel", 1)),
+    "step_entry_block": (("entry_conv_kernel", 2), ("entry_block_fwd_f32_kernel", 2),
+                         ("entry_block_bwd_reduce_f32_kernel", 1), ("entry_block_bwd_wgrad_f32_kernel", 1)),
     "step_entry_conv": (("entry_conv_kernel", 2), ("entry_conv_wgrad_kernel", 1), ("bn_glu_pool_kernel", 2),
                         ("bn_glu_pool_bwd_kernel", 1), ("bn_bwd_fixup_kernel", 1)),
 }
 BLOCK1_KERNELS["step_crows"] = BLOCK1_KERNELS["step_entry_block"]
 BF16_NAMES = {"bn_glu_pool_kernel": "bn_glu_pool_bf16_kernel", "bn_glu_pool_bwd_kernel": "bn_glu_pool_bwd_bf16_kernel",
-              "entry_block_fwd_kernel": "entry_block_fwd_bf16_kernel",
+              "entry_block_fwd_f32_kernel": "entry_block_fwd_bf16_kernel",
               "entry_block_bwd_reduce_f32_kernel": "entry_block_bwd_reduce_bf16_kernel",
-              "entry_block_bwd_wgrad_kernel": "entry_block_bwd_wgrad_bf16_kernel"}
+              "entry_block_bwd_wgrad_f32_kernel": "entry_block_bwd_wgrad_bf16_kernel"}
 BLOCK1_KERNELS.update({f"step_bf16{path[4:]}": tuple((BF16_NAMES.get(k, k), n) for k, n in BLOCK1_KERNELS[path])
                        for path in ("step", "step_entry_block", "step_crows", "step_entry_conv")})
 
@@ -3025,11 +3054,11 @@ MMA_KERNELS = ("conv3x3_bf16_kernel", "conv3x3_wgrad_bf16_kernel", "bn_glu_pool_
 # tensor-core instruction (no TF32); bn_glu_pool_kernel is K2f's float32
 # forward alone, bn_glu_pool_bwd_kernel K2b's float32 reduce pass alone,
 # bn_bwd_fixup_recompute_kernel its float32 recompute fixup alone and
-# entry_block_bwd_reduce_f32_kernel K5b1's float32 pass (no name here is a
+# entry_block_*_f32_kernel K5's three float32 kernels (no name here is a
 # substring of another listed name)
 FFMA_KERNELS = ("fused_stft_mel_onedot_kernel", "conv3x3_wgrad_kernel", "conv3x3_nhwc_kernel",
                 "bn_glu_pool_bwd_kernel", "bn_glu_pool_kernel", "bn_bwd_fixup_recompute_kernel",
-                "entry_block_bwd_reduce_f32_kernel")
+                "entry_block_bwd_reduce_f32_kernel", "entry_block_fwd_f32_kernel", "entry_block_bwd_wgrad_f32_kernel")
 
 
 def check_mma(path):
@@ -3038,7 +3067,7 @@ def check_mma(path):
     bfloat16 kernels (K2b's recompute fixup and K5's bfloat16 forward too)
     must hold HGMMA (`wgmma`) or HMMA (`mma.sync`), the FP32 product kernels
     (onedot K1, K3's float32 forward / dx and weight gradient, K2f's forward,
-    K2b's reduce pass and recompute fixup, K5b1's float32 pass) FFMA and
+    K2b's reduce pass and recompute fixup, K5's float32 forward and passes) FFMA and
     neither HGMMA nor HMMA. FFMA counts the float32 FMAs on the CUDA
     cores."""
     from dcase2019_task4_tpu_torch.ops import _build

@@ -1,6 +1,6 @@
 // Device code shared by the fused-block kernels (fused_block.cu) and the
 // entry-block kernels (entry_block.cu): the counter-based dropout generator,
-// the four-channel mask step and the sigmoid. Both families key the mask on
+// its four-channel draw (keep_values4) and the sigmoid. Both families key the mask on
 // (seed, global element index of the [B, T, F, C] activation), so a fused
 // entry block with a seed drops exactly what conv -> fused block drops with
 // that seed, and ops/fused_block.py:dropout_keep_mask is the CPU twin of all
@@ -75,24 +75,6 @@ __device__ __forceinline__ uint4 keep_values4(long long element, unsigned long l
   const int q = (int)((element >> 2) & 3);
   const uint32_t w = q == 0 ? r.x : q == 1 ? r.y : q == 2 ? r.z : r.w;
   return make_uint4(w & 0xFFu, (w >> 8) & 0xFFu, (w >> 16) & 0xFFu, w >> 24);
-}
-
-// Multiply the four values at px (neighbouring channels whose first has the
-// global element index `element`, a multiple of 4) by keep-mask * keep_scale.
-__device__ __forceinline__ void mask4_at(float* px, long long element, unsigned long long seed,
-                                         const Dropout& d) {
-  const uint4 r = keep_values4(element, seed, d.mode);
-  px[0] *= r.x >= d.threshold ? d.keep_scale : 0.0f;
-  px[1] *= r.y >= d.threshold ? d.keep_scale : 0.0f;
-  px[2] *= r.z >= d.threshold ? d.keep_scale : 0.0f;
-  px[3] *= r.w >= d.threshold ? d.keep_scale : 0.0f;
-}
-
-// The same for tile element `e` (a multiple of 4; C % 4 == 0) of a tile that
-// is one contiguous run of the activation starting at element `tile_base`.
-__device__ __forceinline__ void mask4(float* xs, int CP, int C, int e, long long tile_base,
-                                      unsigned long long seed, const Dropout& d) {
-  mask4_at(xs + (e / C) * CP + (e % C), tile_base + e, seed, d);
 }
 
 }  // namespace

@@ -15,16 +15,18 @@
 //                                  written); MODE 2 and 3 are the ablations of
 //                                  tools/bench_entry_conv_torch.py
 //   entry_conv_wgrad_kernel        dW = patches^T . dy, db = sum dy (K4w)
-//   entry_block_fwd_kernel         conv -> BN -> GLU -> dropout -> pool (K5f),
-//                                  float32; entry_block_fwd_bf16_kernel on
-//                                  bfloat16 x, on the tensor cores
+//   entry_block_fwd_f32_kernel     conv -> BN -> GLU -> dropout -> pool (K5f),
+//                                  float32, on FP32 register tiles;
+//                                  entry_block_fwd_bf16_kernel on bfloat16 x,
+//                                  on the tensor cores
 //   entry_block_bwd_reduce_f32_kernel
 //                                  recompute; d glu_w, d glu_b, S1, S2 (K5b1),
 //                                  float32, on FP32 register tiles;
 //                                  entry_block_bwd_reduce_bf16_kernel on
 //                                  bfloat16 x, on the tensor cores
-//   entry_block_bwd_wgrad_kernel   recompute; dy in registers; dW, d conv_b
-//                                  (K5b2), float32;
+//   entry_block_bwd_wgrad_f32_kernel
+//                                  recompute; dy over the y tile; dW, d conv_b
+//                                  (K5b2), float32, on FP32 register tiles;
 //                                  entry_block_bwd_wgrad_bf16_kernel on
 //                                  bfloat16 x, on the tensor cores
 //   dropout_mask_kernel            the keep-mask alone, for tests
@@ -54,35 +56,29 @@
 // elementwise chain, 0.20 ms at 67 TFLOP/s): operations. Pass 1 needs the
 // conv once and three channel products (lin, dxn, d glu_w: 36.0 GFLOP with
 // the chain, 0.54 ms), pass 2 the conv, dW and two products (lin, dxn:
-// 26.8 GFLOP, 0.40 ms): operations. The float32 forward and pass 2 compute
-// the conv once more than that (y again for the pool's xn, for dy in pass 2,
-// to save a third slab of shared memory); that recomputation is the
-// kernel's, not the bound's. In bfloat16 the channel products and dW take
-// the tensor cores (989 TFLOP/s): the element chain at the FP32 rate then
-// bounds the forward and both passes (0.03-0.06 ms each).
+// 26.8 GFLOP, 0.40 ms): operations. In bfloat16 the channel products and dW
+// take the tensor cores (989 TFLOP/s): the element chain at the FP32 rate
+// then bounds the forward and both passes (0.03-0.06 ms each).
 //
 // Design: a tile is whole time rows of up to 128 pixels, whole pooling rows
 // in the fused kernels (the tiling of fused_block.cu). Per tile a block
 // stages x with a one-cell halo, zeros outside the tensor, into shared
-// memory: (rows + 2) x (F + 2) floats. K4, K5s and the float32 K5f and K5b2
-// take one block per (run of pixel tiles, clip). K4: a thread owns four
-// neighbouring channels (their 36 weights in registers) of every (256 / (C /
-// 4))-th pixel, stores y as float4 and sums in double. K5f and K5b2 in
-// float32: a thread owns the elements it owns in the channel products (8
-// pixels x 4 or 8 channels), computes their conv outputs from the staged
-// tile with the nine weights of one channel in registers, and writes xn into
-// the slab the products read; where y is needed again it is recomputed from
-// the staged tile. The other four K5 kernels compute y once into a tile and
-// run their K2 counterpart's per-tile code on it, over one wave of the
-// resident blocks in equal runs of the batch's tiles: K5b1 in float32 K2b's
-// float32 reduce pass (f32_tile.cuh, FP32 register tiles; see the comment at
-// entry_block_bwd_reduce_f32_kernel), K5f in bfloat16 K2f's bfloat16 forward
-// and the two bfloat16 passes K2b's bfloat16 tile code (bf16_tile.cuh,
-// mma.sync; see the comments at entry_block_fwd_bf16_kernel and
-// bwd_bf16_body). Sums across blocks go to one slot per block and
-// fold_kernel adds the slots in slot order in double: no float atomics, a
-// run repeats bit for bit. Plain FP32 FMAs, no TF32, but for the bfloat16
-// products.
+// memory: (rows + 2) x (F + 2) floats. K4 and K5s take one block per (run of
+// pixel tiles, clip): a thread owns four neighbouring channels (their 36
+// weights in registers) of every (256 / (C / 4))-th pixel, stores y as
+// float4 and sums in double. The six K5 kernels with a channel product
+// compute y once a tile, in conv9's order (K4f's), into the tile their K2
+// counterpart stages y into, and run that counterpart's per-tile code on it,
+// over one wave of the resident blocks in equal runs of the batch's tiles:
+// in float32 K2's FP32 register-tile code (f32_tile.cuh: K5f K2f's forward,
+// K5b1 K2b's reduce pass, K5b2 the recompute fixup's dxn and dy, then dW
+// from the dy tile; see the comments at entry_block_bwd_reduce_f32_kernel
+// and entry_block_fwd_f32_kernel), in bfloat16 K2's tensor-core tile code
+// (bf16_tile.cuh, mma.sync; see the comments at entry_block_fwd_bf16_kernel
+// and bwd_bf16_body). So each pass computes the conv once, as the bound
+// counts it. Sums across blocks go to one slot per block and fold_kernel
+// adds the slots in slot order in double: no float atomics, a run repeats
+// bit for bit. Plain FP32 FMAs, no TF32, but for the bfloat16 products.
 //
 // Element type: every function is computed for float32 and for bfloat16
 // (the model's compute dtype, `act_bf16` / `lp` in the originals). In
@@ -306,369 +302,6 @@ entry_conv_wgrad_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
     }
 }
 
-// ------------------------------------------------ K5: the whole first block
-
-// The per-channel vectors and the conv parameters of a fused kernel, staged
-// once per block.
-struct Consts {
-  float* scale;
-  float* bias;
-  float* mean;
-  float* inv;
-  float* gb;
-  float* cw;  // [9][C]
-  float* cb;
-};
-
-__device__ __forceinline__ float* carve_consts(Consts& k, float* p, int C) {
-  k.scale = p;
-  k.bias = p + C;
-  k.mean = p + 2 * C;
-  k.inv = p + 3 * C;
-  k.gb = p + 4 * C;
-  k.cw = p + 5 * C;
-  k.cb = p + 14 * C;
-  return p + 15 * C;
-}
-
-__device__ __forceinline__ void load_consts(const Consts& k, const float* __restrict__ scale,
-                                            const float* __restrict__ bias,
-                                            const float* __restrict__ mean,
-                                            const float* __restrict__ var,
-                                            const float* __restrict__ glu_b,
-                                            const float* __restrict__ cw,
-                                            const float* __restrict__ cb, int C, float eps) {
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    k.scale[c] = scale[c];
-    k.bias[c] = bias[c];
-    k.mean[c] = mean[c];
-    k.inv[c] = rsqrtf(var[c] + eps);
-    k.gb[c] = glu_b[c];
-    k.cb[c] = cb[c];
-  }
-  for (int i = threadIdx.x; i < 9 * C; i += kThreads) k.cw[i] = cw[i];
-}
-
-// Conv + BatchNorm of the elements this thread owns in the channel products
-// (pixels pg + 16 i, channels cg + 16 j): xn into the slab, zeros in the rows
-// past the tile's pixels.
-template <int NJ>
-__device__ __forceinline__ void conv_to_xn(float* xs, int CP, const float* xt, int FW, int F,
-                                           int tpix, const Consts& k, int C, int pg, int cg) {
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int co = cg + 16 * j;
-    if (co >= C) continue;
-    float w[9];
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) w[tap] = k.cw[tap * C + co];
-    const float cbv = k.cb[co], mu = k.mean[co], inv = k.inv[co], sc = k.scale[co], be = k.bias[co];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int p = pg + 16 * i;
-      float xn = 0.0f;
-      if (p < tpix) {
-        const float yv = conv9(xt + (p / F) * FW + (p % F), FW, w, cbv);
-        xn = (yv - mu) * inv * sc + be;
-      }
-      xs[p * CP + co] = xn;
-    }
-  }
-}
-
-// acc[i][j] += sum_ci a[(pg + 16 i)][ci] * wmat[ci][cg + 16 j] (wmat row stride WS)
-template <int NJ>
-__device__ __forceinline__ void mix_rows(float (&acc)[8][NJ], const float* a, int CP,
-                                         const float* wmat, int WS, int C, int pg, int cg) {
-  for (int ci = 0; ci < C; ++ci) {
-    float av[8], wv[NJ];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) av[i] = a[(pg + 16 * i) * CP + ci];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int co = cg + 16 * j;
-      wv[j] = co < C ? wmat[ci * WS + co] : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
-  }
-}
-
-// acc[i][j] += sum_co a[(pg + 16 i)][co] * wmat[cg + 16 j][co]: the product
-// against the transpose (rows padded to WS = C + 1, so the read is conflict-free)
-template <int NJ>
-__device__ __forceinline__ void mix_cols(float (&acc)[8][NJ], const float* a, int CP,
-                                         const float* wmat, int WS, int C, int pg, int cg) {
-  for (int co = 0; co < C; ++co) {
-    float av[8], wv[NJ];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) av[i] = a[(pg + 16 * i) * CP + co];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int ci = cg + 16 * j;
-      wv[j] = ci < C ? wmat[ci * WS + co] : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
-  }
-}
-
-// K5f in float32; NJ: output channels per thread / 16 (C <= 16 * NJ).
-template <int NJ>
-__global__ void __launch_bounds__(kThreads)
-entry_block_fwd_kernel(const float* __restrict__ x, const float* __restrict__ cw,
-                       const float* __restrict__ cb, const float* __restrict__ scale,
-                       const float* __restrict__ bias, const float* __restrict__ mean,
-                       const float* __restrict__ var, const float* __restrict__ glu_w,
-                       const float* __restrict__ glu_b, float* __restrict__ out, int T, int F,
-                       int C, int pt, int pf, float eps, int rows, int tiles_per_block,
-                       Dropout dr) {
-  extern __shared__ float smem[];
-  const int CP = C + 1;
-  float* xs = smem;            // [kPix][CP]: xn, then g
-  float* ws = xs + kPix * CP;  // [C][C] (in, out)
-  Consts k;
-  float* xt = carve_consts(k, ws + C * C, C);  // [kHalo]
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const int FW = F + 2;
-  const unsigned long long seed = seed_of(dr);
-  for (int i = tid; i < C * C; i += kThreads) ws[i] = glu_w[i];
-  load_consts(k, scale, bias, mean, var, glu_b, cw, cb, C, eps);
-
-  const int cg = tid % 16, pg = tid / 16;
-  const int Tp = T / pt, Fp = F / pf;
-  const int n_tiles = (T + rows - 1) / rows;
-  const int first = blockIdx.x * tiles_per_block;
-  const int last = min(n_tiles, first + tiles_per_block);
-  const float inv_win = 1.0f / (float)(pt * pf);
-
-  for (int tile = first; tile < last; ++tile) {
-    const int t0 = tile * rows;
-    const int trows = min(rows, T - t0);  // a multiple of pt (T % pt == 0)
-    const int tpix = trows * F;
-    const long long tile_base = ((long long)b * T + t0) * F * C;
-
-    __syncthreads();  // constants staged / previous tile's pool read done
-    stage_x(xt, x, b, T, F, t0, trows);
-    __syncthreads();
-    conv_to_xn<NJ>(xs, CP, xt, FW, F, tpix, k, C, pg, cg);
-    __syncthreads();
-
-    float acc[8][NJ];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
-    mix_rows<NJ>(acc, xs, CP, ws, C, C, pg, cg);
-    float g[8][NJ];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int p = pg + 16 * i, co = cg + 16 * j;
-        g[i][j] = 0.0f;
-        if (p < tpix && co < C) g[i][j] = (acc[i][j] + k.gb[co]) * sigmoidf(xs[p * CP + co]);
-      }
-    __syncthreads();  // every xn read; overwrite the slab with g
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int p = pg + 16 * i, co = cg + 16 * j;
-        if (p < tpix && co < C) xs[p * CP + co] = g[i][j];
-      }
-    __syncthreads();
-    if (dr.mode != 0) {
-      for (int e = 4 * tid; e < tpix * C; e += 4 * kThreads)
-        mask4(xs, CP, C, e, tile_base, seed, dr);
-      __syncthreads();
-    }
-
-    const int n_out = (trows / pt) * Fp * C;
-    for (int o = tid; o < n_out; o += kThreads) {
-      const int c = o % C, win = o / C;
-      const int wf = win % Fp, wt = win / Fp;
-      float s = 0.0f;
-      for (int dt = 0; dt < pt; ++dt)
-        for (int df = 0; df < pf; ++df)
-          s += xs[((wt * pt + dt) * F + wf * pf + df) * CP + c];
-      out[(((long long)b * Tp + t0 / pt + wt) * Fp + wf) * C + c] = s * inv_win;
-    }
-  }
-}
-
-// Pass 2's per-tile code in float32: xn into xs, the masked dh into ds,
-// then lin, the gate term and dlin (over dh), and dxn into acc.
-template <int NJ>
-__device__ __forceinline__ void recompute_dxn(float (&acc)[8][NJ], float* xs, float* ds,
-                                              const float* ws, const float* xt,
-                                              const float* __restrict__ dout, const Consts& k,
-                                              int b, int T, int F, int C, int pt, int pf, int t0,
-                                              int tpix, long long tile_base, const Dropout& dr,
-                                              unsigned long long seed, int pg, int cg) {
-  const int CP = C + 1, FW = F + 2;
-  const int Tp = T / pt, Fp = F / pf;
-  const float inv_win = 1.0f / (float)(pt * pf);
-  const int tid = threadIdx.x;
-
-  conv_to_xn<NJ>(xs, CP, xt, FW, F, tpix, k, C, pg, cg);
-  for (int i = tid; i < kPix * C; i += kThreads) {
-    const int p = i / C, c = i % C;
-    float dh = 0.0f;
-    if (p < tpix) {
-      const int t = p / F, f = p % F;
-      dh = dout[(((long long)b * Tp + (t0 + t) / pt) * Fp + f / pf) * C + c] * inv_win;
-    }
-    ds[p * CP + c] = dh;
-  }
-  __syncthreads();
-  if (dr.mode != 0) {
-    for (int e = 4 * tid; e < tpix * C; e += 4 * kThreads)
-      mask4(ds, CP, C, e, tile_base, seed, dr);
-  }
-
-  // lin = xn . W + b (reads xs and ws only: no barrier needed before it)
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
-  mix_rows<NJ>(acc, xs, CP, ws, CP, C, pg, cg);
-  __syncthreads();  // masked dh complete
-  // gate term into acc, dlin over dh (each element owned by one thread)
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int p = pg + 16 * i, co = cg + 16 * j;
-      float gate = 0.0f;
-      if (co < C) {
-        const float sig = sigmoidf(xs[p * CP + co]);
-        const float dh = ds[p * CP + co];
-        gate = dh * (acc[i][j] + k.gb[co]) * sig * (1.0f - sig);
-        ds[p * CP + co] = dh * sig;
-      }
-      acc[i][j] = gate;
-    }
-  __syncthreads();  // dlin complete
-  // dxn = dlin . W^T + gate; thread holds (pixel pg + 16 i, channel cg + 16 j)
-  mix_cols<NJ>(acc, ds, CP, ws, CP, C, pg, cg);
-}
-
-// Pass 2 in float32. Slot of a block: [9 * C dW (tap-major) | C d conv_b].
-template <int NJ>
-__global__ void __launch_bounds__(kThreads)
-entry_block_bwd_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dout,
-                             const float* __restrict__ cw, const float* __restrict__ cb,
-                             const float* __restrict__ scale, const float* __restrict__ bias,
-                             const float* __restrict__ mean, const float* __restrict__ var,
-                             const float* __restrict__ glu_w, const float* __restrict__ glu_b,
-                             const float* __restrict__ a, const float* __restrict__ b2,
-                             float* __restrict__ partials, int T, int F, int C, int pt, int pf,
-                             float eps, int rows, int tiles_per_block,
-                             Dropout dr) {
-  extern __shared__ float smem[];
-  const int CP = C + 1;
-  float* xs = smem;            // [kPix][CP]: xn
-  float* ds = xs + kPix * CP;  // [kPix][CP]: dh, then dlin
-  float* ws = ds + kPix * CP;  // [C][CP] (in, out), rows padded
-  Consts k;
-  float* xt = carve_consts(k, ws + C * CP, C);  // [kHalo]
-  float* s_a = xt + kHalo;                      // [C] each
-  float* s_b2 = s_a + C;
-
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const int FW = F + 2;
-  const unsigned long long seed = seed_of(dr);
-  for (int i = tid; i < C * C; i += kThreads) ws[(i / C) * CP + i % C] = glu_w[i];
-  load_consts(k, scale, bias, mean, var, glu_b, cw, cb, C, eps);
-  for (int c = tid; c < C; c += kThreads) {
-    s_a[c] = a[c];
-    s_b2[c] = b2[c];
-  }
-
-  const int cg = tid % 16, pg = tid / 16;
-  const int n_tiles = (T + rows - 1) / rows;
-  const int first = blockIdx.x * tiles_per_block;
-  const int last = min(n_tiles, first + tiles_per_block);
-
-  // carried over all tiles of the block: this thread's pixels' share of
-  // dW[tap][cg + 16 j] and d conv_b[cg + 16 j]
-  float dwc[NJ][9], dcb[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    dcb[j] = 0.0f;
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) dwc[j][tap] = 0.0f;
-  }
-
-  for (int tile = first; tile < last; ++tile) {
-    const int t0 = tile * rows;
-    const int trows = min(rows, T - t0);
-    const int tpix = trows * F;
-    const long long tile_base = ((long long)b * T + t0) * F * C;
-
-    __syncthreads();  // constants staged / previous tile's products done
-    stage_x(xt, x, b, T, F, t0, trows);
-    __syncthreads();
-    float acc[8][NJ];
-    recompute_dxn<NJ>(acc, xs, ds, ws, xt, dout, k, b, T, F, C, pt, pf, t0, tpix, tile_base,
-                          dr, seed, pg, cg);
-
-    // dy = inv * scale * dxn - a - (y - mean) * b2 in registers, straight into
-    // the patch products
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = cg + 16 * j;
-      if (c >= C) continue;
-      float w[9];
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) w[tap] = k.cw[tap * C + c];
-      const float cbv = k.cb[c], mu = k.mean[c], coef = k.inv[c] * k.scale[c];
-      const float av = s_a[c], bv = s_b2[c];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int p = pg + 16 * i;
-        if (p >= tpix) continue;
-        const float* r = xt + (p / F) * FW + (p % F);
-        const float yv = conv9(r, FW, w, cbv);
-        const float dyv = coef * acc[i][j] - av - (yv - mu) * bv;
-        dcb[j] += dyv;
-#pragma unroll
-        for (int dt = 0; dt < 3; ++dt)
-#pragma unroll
-          for (int df = 0; df < 3; ++df)
-            dwc[j][dt * 3 + df] = fmaf(r[dt * FW + df], dyv, dwc[j][dt * 3 + df]);
-      }
-    }
-  }
-
-  // fixed-order sum over the 16 pixel groups, in the slabs' memory
-  __syncthreads();  // the last tile's products are done
-  float* red = smem;  // [16][10 * C]
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int c = cg + 16 * j;
-    if (c >= C) continue;
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) red[(pg * 10 + tap) * C + c] = dwc[j][tap];
-    red[(pg * 10 + 9) * C + c] = dcb[j];
-  }
-  __syncthreads();
-  const int slot = blockIdx.y * gridDim.x + blockIdx.x;
-  for (int i = tid; i < 10 * C; i += kThreads) {
-    float s = 0.0f;
-    for (int g = 0; g < 16; ++g) s += red[g * 10 * C + i];
-    partials[(long long)slot * 10 * C + i] = s;
-  }
-}
-
 // --------------------------------- K5b1 in float32: K2b's register tiles
 
 // Pass 1 in float32 runs K2b's float32 reduce pass (f32_tile.cuh) on a tile
@@ -718,6 +351,49 @@ __device__ __forceinline__ void stage_x_async(float* xt, const float* __restrict
   }
 }
 
+// y - mean = conv9 + cb - mean of the tile's pixels (conv9's order, K4f's),
+// times inv where kInv (x-hat), into xb [kPix][CP + 4]: the float values K2
+// forms in place from a staged y. Zeros past the tile, and past C (the
+// weights, bias and mean are zeros there). Thread tid of NT computes channels
+// 4 (tid % (CP / 4)) .. + 3, their 36 weights in registers, of every (NT /
+// (CP / 4))-th pixel.
+template <int CP, int NT, bool kInv>
+__device__ __forceinline__ void conv_centred(float* xb, const float* xt, const float* cws, const float* cbs,
+                                             const float* vmean, const float* vinv, int F, int tpix) {
+  constexpr int Q = CP / 4, DP = NT / Q, KS = CP + 4;
+  const int sq = threadIdx.x % Q, FW = F + 2;
+  float w[4][9], cbv[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    cbv[e] = cbs[4 * sq + e];
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) w[e][tap] = cws[tap * CP + 4 * sq + e];
+  }
+  const float4 m = ld4(vmean + 4 * sq), iv = kInv ? ld4(vinv + 4 * sq) : m;
+  for (int p = threadIdx.x / Q; p < kPix; p += DP) {
+    float4 u = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (p < tpix) {
+      const float* rr = xt + (p / F) * FW + p % F;
+      u = make_float4(conv9(rr, FW, w[0], cbv[0]) - m.x, conv9(rr, FW, w[1], cbv[1]) - m.y,
+                      conv9(rr, FW, w[2], cbv[2]) - m.z, conv9(rr, FW, w[3], cbv[3]) - m.w);
+      if constexpr (kInv) u = make_float4(u.x * iv.x, u.y * iv.y, u.z * iv.z, u.w * iv.w);
+    }
+    st4(xb + p * KS + 4 * sq, u);
+  }
+}
+
+// The conv weights [9][CP] and bias [CP] of a fused kernel into shared
+// memory, zeros past C.
+template <int CP, int NT>
+__device__ __forceinline__ void stage_conv(float* cws, float* cbs, const float* __restrict__ cw,
+                                           const float* __restrict__ cb, int C) {
+  for (int i = threadIdx.x; i < 10 * CP; i += NT) {
+    const int tap = i / CP, c = i % CP;
+    const float u = c < C ? (tap < 9 ? cw[tap * C + c] : cb[c]) : 0.0f;
+    (tap < 9 ? cws[i] : cbs[c]) = u;
+  }
+}
+
 // A slot: [C*C d glu_w | C d glu_b | C S1 | C S2].
 template <int NJ>
 __global__ void __launch_bounds__(kThreads)
@@ -730,7 +406,6 @@ entry_block_bwd_reduce_f32_kernel(const float* __restrict__ x, const float* __re
                                   Dropout dr, int tiles_per_slot, int buffers, int drows, int vec) {
   using P = RedPlan<NJ>;
   constexpr int CP = P::CP, KS = P::KS;
-  constexpr int Q = CP / 4, DP = kThreads / Q;  // the conv: chunk tid % Q of every DP-th pixel
   extern __shared__ __align__(16) float smem_e[];
   float* xb = smem_e;                       // [kPix][KS]: x-hat (with ds: the slot's scratch at the end)
   float* ds = xb + kPix * KS;               // [kPix][KS]: dlin
@@ -743,17 +418,13 @@ entry_block_bwd_reduce_f32_kernel(const float* __restrict__ x, const float* __re
   int* tab_y = reinterpret_cast<int*>(xts + buffers * kHalo);  // [kPix]: the global pixel of tile pixel p
   int* tab_d = tab_y + kPix;  // [kPix]: its row of dout (of the staged rows, or of dout where drows == 0)
 
-  const int tid = threadIdx.x, sq = tid % Q, FW = F + 2;
+  const int tid = threadIdx.x;
   const unsigned long long seed = seed_of(dr);
   const int Tp = T / pt, Fp = F / pf;
   const float inv_win = 1.0f / (float)(pt * pf);
   stage_w_swizzled<CP>(wsw, glu_w, C);  // once a block
   stage_red_vecs<CP>(v, scale, bias, mean, var, glu_b, C, eps);
-  for (int i = tid; i < 10 * CP; i += kThreads) {
-    const int tap = i / CP, c = i % CP;
-    const float u = c < C ? (tap < 9 ? cw[tap * C + c] : cb[c]) : 0.0f;
-    (tap < 9 ? cws[i] : cbs[c]) = u;
-  }
+  stage_conv<CP, kThreads>(cws, cbs, cw, cb, C);
 
   // this block's slots [s0, s1) of the batch's n = B nb, and their tiles
   // [first, last) of the batch's, clip after clip
@@ -789,25 +460,7 @@ entry_block_bwd_reduce_f32_kernel(const float* __restrict__ x, const float* __re
     }
     const float* xt = xts + buf * kHalo;
     const float* dtile = dsm + buf * drows * KS;
-    {  // x-hat = (conv9 + cb - mean) * inv, zeros past the tile and past C
-      float w[4][9], cbv[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        cbv[e] = cbs[4 * sq + e];
-#pragma unroll
-        for (int tap = 0; tap < 9; ++tap) w[e][tap] = cws[tap * CP + 4 * sq + e];
-      }
-      const float4 m = ld4(v.vmean + 4 * sq), iv = ld4(v.vinv + 4 * sq);
-      for (int p = tid / Q; p < kPix; p += DP) {
-        float4 u = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        if (p < tpix) {
-          const float* rr = xt + (p / F) * FW + p % F;
-          u = make_float4((conv9(rr, FW, w[0], cbv[0]) - m.x) * iv.x, (conv9(rr, FW, w[1], cbv[1]) - m.y) * iv.y,
-                          (conv9(rr, FW, w[2], cbv[2]) - m.z) * iv.z, (conv9(rr, FW, w[3], cbv[3]) - m.w) * iv.w);
-        }
-        st4(xb + p * KS + 4 * sq, u);
-      }
-    }
+    conv_centred<CP, kThreads, true>(xb, xt, cws, cbs, v.vmean, v.vinv, F, tpix);  // x-hat
     tile_tables(tab_y, tab_d, tp, tpix, t / n_tiles, F, Tp, Fp, pt, pf, drows);
     __syncthreads();  // x-hat and the tables complete
     reduce_tile_f32<NJ>(r, xb, ds, dtile, dout, wsw, v, tab_y, tab_d, nullptr, tpix, C, drows, vec != 0, inv_win, dr,
@@ -824,6 +477,262 @@ entry_block_bwd_reduce_f32_kernel(const float* __restrict__ x, const float* __re
     }
   }
 }
+
+// ------------------------ K5f and K5b2 in float32: K2's register tiles
+
+// The float32 forward and pass 2 run their K2 counterparts' float32 per-tile
+// code (f32_tile.cuh) on a y tile they compute once, as K5b1 does. Per tile:
+// x with its one-cell halo [trows + 2][F + 2] (and in pass 2 the tile's
+// pooled rows of dout) by cp.async a tile ahead; y - mean = conv9 + cb - mean
+// (conv_centred) straight into the [kPix][KS] tile in which K2 centres the y
+// it stages, the same float values; then
+//   K5f: K2f's FwdTile::glu_pool: lin = x-hat . W' on FwdPlan's register
+//     tiles (W' = diag(inv scale) W and b' = b + bias . W formed once a
+//     block), g = (lin + b') sig, the mask and the pool (warp shuffles at
+//     block 1's geometry). So K5f gives K4f -> K2f's bits. One y tile
+//     (computed, not loaded, so K2f's second buffer has no load to hide): 58
+//     KB and two blocks of 8 warps an SM at C <= 64.
+//   K5b2: the recompute fixup's lin_f32, gate_f32, dxn_f32 and dy_f32 (dy =
+//     inv scale dxn - a - (y - mean) b2, the fixup's dy), dy written over the
+//     y - mean tile by its owner; then dW[tap][c] += x[p + tap] dy[p][c] and
+//     d conv_b += dy[p][c] (tap 9, x = 1) from shared memory: thread (g, s,
+//     q) = (tid / 128, (tid % 128) / Q, tid % Q), Q = CP / 4, takes taps 5 g
+//     .. 5 g + 4 of channels 4 q .. 4 q + 3 of the pixels p = s (mod S = 128
+//     / Q), 20 sums carried over its tiles in registers (all ten taps a
+//     thread spilled at C <= 64), the x patch read from the staged halo
+//     tile. dW is 7 % of the pass's FMAs; kept out of the products'
+//     registers, the fixup's 128 registers and two blocks of 8 warps an SM
+//     hold at C <= 64 (104 KB with two buffers). dW formed in registers as
+//     dy is (80 sums a thread, one block an SM) read 1.2356-1.2658 ms at the
+//     flagship shape against 1.0480-1.0635 (CUDA events, NVIDIA H100 80GB
+//     HBM3, 700.00 W, tools/bench_k5_torch.py --variants). At
+//     the end of its run each block writes its slot [9 C dW | C d conv_b],
+//     the S shares added in share order, and fold_kernel adds the slots in
+//     slot order in double: a run repeats bit for bit.
+// Launch plan of both: one wave of the resident blocks over the batch's
+// tiles, block k of G taking tiles [k n / G, (k + 1) n / G) of the n = B *
+// tiles, clip after clip (the wrapper sizes G from the occupancy
+// calculator). The crows layout launches the same kernels: in float32 the
+// two layouts are one function.
+
+// Dynamic shared memory of the float32 forward (ops/fused_entry_block.
+// fwd_f32_plan computes the same): the x-hat tile [kPix][KS], W' [CP][CP],
+// four vectors [CP], the conv weights [9][CP] and bias [CP], two x tiles
+// [kHalo] and the pixel table [kPix] (int).
+template <int NJ>
+constexpr size_t fwd_entry_smem() {
+  using P = FwdPlan<NJ>;
+  return sizeof(float) * ((size_t)kPix * P::KS + P::CP * P::CP + 14 * P::CP + 2 * kHalo + kPix);
+}
+
+template <int NJ>
+__global__ void __launch_bounds__(FwdPlan<NJ>::NT, FwdPlan<NJ>::MIN_BLOCKS)
+entry_block_fwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ cw, const float* __restrict__ cb,
+                           const float* __restrict__ scale, const float* __restrict__ bias,
+                           const float* __restrict__ mean, const float* __restrict__ var,
+                           const float* __restrict__ glu_w, const float* __restrict__ glu_b, float* __restrict__ out,
+                           int B, int T, int F, int C, int pt, int pf, float eps, Dropout dr, int vec) {
+  using P = FwdPlan<NJ>;
+  constexpr int CP = P::CP, KS = P::KS, NT = P::NT;
+  extern __shared__ __align__(16) float smem_e[];
+  float* xb = smem_e;           // [kPix][KS]: x-hat, then g
+  float* ws = xb + kPix * KS;   // [CP][CP]: W' (in, out)
+  float* vgain = ws + CP * CP;  // [CP] each, zeros past C: G, mean, bias, b'
+  float* vmean = vgain + CP;
+  float* vbias = vmean + CP;
+  float* vgb = vbias + CP;
+  float* cws = vgb + CP;                                 // [9][CP]: conv weights, zeros past C
+  float* cbs = cws + 9 * CP;                             // [CP]: conv bias
+  float* xts = cbs + CP;                                 // [2][kHalo]: x with its halo
+  int* tab_y = reinterpret_cast<int*>(xts + 2 * kHalo);  // [kPix]: the global pixel of tile pixel p
+
+  const unsigned long long seed = seed_of(dr);
+  const int Tp = T / pt, Fp = F / pf;
+  const float inv_win = 1.0f / (float)(pt * pf);
+  FwdTile<NJ>::stage_consts(ws, vgain, vmean, vbias, vgb, scale, bias, mean, var, glu_w, glu_b, C, eps);
+  stage_conv<CP, NT>(cws, cbs, cw, cb, C);
+
+  const Tile tl = tile_of(F, pt, pf);
+  const int n_tiles = tiles_per_clip(T, F, pt, pf);
+  const long long n = (long long)B * n_tiles;
+  const int first = (int)(blockIdx.x * n / gridDim.x), last = (int)((blockIdx.x + 1) * n / gridDim.x);
+  auto pos = [&](int t) { return tile_pos(t % n_tiles, t / n_tiles, T, F, tl); };
+  if (first < last) stage_x_async(xts, x, pos(first), T, F);
+  cp_async_commit();
+  for (int t = first; t < last; ++t) {
+    const int buf = (t - first) & 1;
+    const TilePos tp = pos(t);
+    const int tpix = tp.trows * tp.fcols;
+    cp_async_wait_all();
+    __syncthreads();  // this tile's x landed; every warp is done with the previous tile
+    if (t + 1 < last) {  // the next tile's x loads while this one multiplies
+      stage_x_async(xts + (buf ^ 1) * kHalo, x, pos(t + 1), T, F);
+      cp_async_commit();
+    }
+    conv_centred<CP, NT, false>(xb, xts + buf * kHalo, cws, cbs, vmean, nullptr, F, tpix);  // x-hat = y - mean
+    for (int p = threadIdx.x; p < kPix; p += NT) tab_y[p] = p < tpix ? (int)tp.pixel(p) : 0;
+    __syncthreads();  // x-hat and the table complete
+    FwdTile<NJ>::glu_pool(xb, ws, vgain, vbias, vgb, tab_y, tp, t / n_tiles, tpix, C, pt, pf, Tp, Fp, inv_win, dr,
+                          seed, out, vec);
+  }
+}
+
+// Dynamic shared memory of the float32 pass 2 (ops/fused_entry_block.
+// f32_wgrad_plan computes the same): the y - mean (then dy) and dlin tiles
+// [kPix][KS], `buffers` tiles of dout rows [drows][KS] (drows = 0: dout is
+// read from device memory), W [CP][CP], six vectors [CP], the conv weights
+// [9][CP] and bias [CP], `buffers` x tiles [kHalo] and two tables [kPix] (int).
+template <int NJ>
+size_t wgrad_entry_smem(int buffers, int drows) {
+  using P = RedPlan<NJ>;
+  return sizeof(float) * ((2 * kPix + (size_t)buffers * drows) * P::KS + P::CP * P::CP + 16 * P::CP +
+                          (size_t)buffers * kHalo + 2 * kPix);
+}
+
+// A slot: [9 C dW (tap-major) | C d conv_b].
+template <int NJ>
+__global__ void __launch_bounds__(kThreads, NJ == 4 ? 2 : 1)
+entry_block_bwd_wgrad_f32_kernel(const float* __restrict__ x, const float* __restrict__ dout,
+                                 const float* __restrict__ cw, const float* __restrict__ cb,
+                                 const float* __restrict__ scale, const float* __restrict__ bias,
+                                 const float* __restrict__ mean, const float* __restrict__ var,
+                                 const float* __restrict__ glu_w, const float* __restrict__ glu_b,
+                                 const float* __restrict__ a, const float* __restrict__ b2,
+                                 float* __restrict__ partials, int B, int T, int F, int C, int pt, int pf, float eps,
+                                 Dropout dr, int buffers, int drows, int vec) {
+  using P = RedPlan<NJ>;
+  constexpr int CP = P::CP, CG = P::CG, MI = P::MI, KS = P::KS;
+  constexpr int Q = CP / 4, S = kThreads / 2 / Q;  // dW: see the comment above
+  extern __shared__ __align__(16) float smem_e[];
+  float* xb = smem_e;                       // [kPix][KS]: y - mean, then dy (with ds: the slot's scratch at the end)
+  float* ds = xb + kPix * KS;               // [kPix][KS]: dlin
+  float* dsm = ds + kPix * KS;              // [buffers][drows][KS]: the tile's rows of dout
+  float* wsw = dsm + buffers * drows * KS;  // [CP][CP]: W (in, out), chunks swizzled
+  float* vmean = wsw + CP * CP;             // [CP] each, zeros past C
+  float* vgain = vmean + CP;                // inv * scale
+  float* vbias = vgain + CP;
+  float* vgb = vbias + CP;
+  float* va = vgb + CP;
+  float* vb2 = va + CP;
+  float* cws = vb2 + CP;                                       // [9][CP]: conv weights, zeros past C
+  float* cbs = cws + 9 * CP;                                   // [CP]: conv bias
+  float* xts = cbs + CP;                                       // [buffers][kHalo]: x with its halo
+  int* tab_y = reinterpret_cast<int*>(xts + buffers * kHalo);  // [kPix]: the global pixel of tile pixel p
+  int* tab_d = tab_y + kPix;  // [kPix]: its row of dout (of the staged rows, or of dout where drows == 0)
+
+  const int tid = threadIdx.x, FW = F + 2;
+  const unsigned long long seed = seed_of(dr);
+  const int Tp = T / pt, Fp = F / pf;
+  const float inv_win = 1.0f / (float)(pt * pf);
+  stage_w_swizzled<CP>(wsw, glu_w, C);  // once a block
+  for (int c = tid; c < CP; c += kThreads) {
+    const bool in = c < C;
+    vmean[c] = in ? mean[c] : 0.0f;
+    vgain[c] = in ? rsqrtf(var[c] + eps) * scale[c] : 0.0f;
+    vbias[c] = in ? bias[c] : 0.0f;
+    vgb[c] = in ? glu_b[c] : 0.0f;
+    va[c] = in ? a[c] : 0.0f;
+    vb2[c] = in ? b2[c] : 0.0f;
+  }
+  stage_conv<CP, kThreads>(cws, cbs, cw, cb, C);
+
+  const Tile tl = tile_of(F, pt, pf);
+  const int n_tiles = tiles_per_clip(T, F, pt, pf);
+  const long long n = (long long)B * n_tiles;
+  const int first = (int)(blockIdx.x * n / gridDim.x), last = (int)((blockIdx.x + 1) * n / gridDim.x);
+  auto pos = [&](int t) { return tile_pos(t % n_tiles, t / n_tiles, T, F, tl); };
+  // x and the dout rows of tile t into buffer buf by cp.async
+  auto stage = [&](int t, int buf) {
+    const TilePos tp = pos(t);
+    stage_x_async(xts + buf * kHalo, x, tp, T, F);
+    if (drows > 0) stage_dout_f32<CP>(dsm + buf * drows * KS, dout, tp, t / n_tiles, Tp, Fp, pt, pf, C, vec != 0);
+  };
+
+  const int cg = tid % CG, pg = tid / CG;
+  const int tg = tid / (kThreads / 2), sq = tid % Q, sh = (tid % (kThreads / 2)) / Q;  // taps 5 tg .. 5 tg + 4
+  const bool dw_on = 4 * sq < C;
+  const int dpr = S / F, dpc = S % F;  // a pixel step of S in rows and columns
+  int off[5];                          // tap 5 tg + k at r[off[k]] of a pixel's patch r; tap 9 is d conv_b
+  float dw[4][5];                      // this thread's share of dW[5 tg + k][4 sq + e] (of d conv_b at tap 9)
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const int tap = 5 * tg + k;
+    off[k] = tap < 9 ? (tap / 3) * FW + tap % 3 : 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dw[e][k] = 0.0f;
+  }
+
+  if (first < last) stage(first, 0);
+  cp_async_commit();
+  for (int t = first; t < last; ++t) {
+    const int buf = buffers == 2 ? (t - first) & 1 : 0;
+    const TilePos tp = pos(t);
+    const int tpix = tp.trows * tp.fcols;
+    cp_async_wait_all();
+    __syncthreads();  // this tile's x and dout landed; every warp is done with the previous tile
+    if (buffers == 2 && t + 1 < last) {  // the next tile loads while this one multiplies
+      stage(t + 1, buf ^ 1);
+      cp_async_commit();
+    }
+    const float* xt = xts + buf * kHalo;
+    conv_centred<CP, kThreads, false>(xb, xt, cws, cbs, vmean, nullptr, F, tpix);  // y - mean
+    tile_tables(tab_y, tab_d, tp, tpix, t / n_tiles, F, Tp, Fp, pt, pf, drows);
+    __syncthreads();  // y - mean and the tables complete
+
+    float acc[MI][8];
+    lin_f32<NJ>(acc, xb, wsw, vgain, vbias, pg, cg);
+    gate_f32<NJ>(acc, xb, ds, dsm + buf * drows * KS, dout, tab_y, tab_d, vgain, vbias, vgb, tpix, C, drows, vec != 0,
+                 inv_win, dr, seed, pg, cg, [](int, float) {});
+    __syncthreads();  // dlin complete (and every read of another thread's y - mean done)
+    dxn_f32<NJ>(acc, ds, wsw, pg, cg);
+    dy_f32<NJ>(acc, xb, vgain, va, vb2, tpix, C, pg, cg, [&](int p, int c0, float4 d) { st4(xb + p * KS + c0, d); });
+    __syncthreads();  // dy complete
+    if (dw_on) {  // dW[tap][c] += x[p + tap] dy[p][c], d conv_b[c] += dy[p][c] over this share's pixels
+      int pr = sh / F, pc = sh % F;
+      for (int p = sh; p < tpix; p += S) {
+        const float4 d4 = ld4(xb + p * KS + 4 * sq);
+        const float d[4] = {d4.x, d4.y, d4.z, d4.w};
+        const float* r = xt + pr * FW + pc;
+#pragma unroll
+        for (int k = 0; k < 5; ++k) {
+          const float xv = k == 4 && tg == 1 ? 1.0f : r[off[k]];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dw[e][k] = fmaf(xv, d[e], dw[e][k]);
+        }
+        pc += dpc;
+        pr += dpr;
+        if (pc >= F) {
+          pc -= F;
+          ++pr;
+        }
+      }
+    }
+    if (buffers == 1 && t + 1 < last) {
+      __syncthreads();  // every warp is done with the only buffers
+      stage(t + 1, 0);
+      cp_async_commit();
+    }
+  }
+
+  // the block's slot: the S shares added in share order, over the tiles' memory
+  __syncthreads();  // every warp is done with the last tile
+  float* red = smem_e;  // [S][10][CP]
+  if (dw_on) {
+#pragma unroll
+    for (int k = 0; k < 5; ++k)
+      st4(red + (sh * 10 + 5 * tg + k) * CP + 4 * sq, make_float4(dw[0][k], dw[1][k], dw[2][k], dw[3][k]));
+  }
+  __syncthreads();
+  float* ps = partials + (long long)blockIdx.x * 10 * C;
+  for (int i = tid; i < 10 * C; i += kThreads) {
+    const int k = i / C, c = i % C;
+    float v = 0.0f;
+    for (int g = 0; g < S; ++g) v += red[(g * 10 + k) * CP + c];
+    ps[i] = v;
+  }
+}
+static_assert(8 * 10 * 64 <= 2 * kPix * (64 + 4) && 4 * 10 * 128 <= 2 * kPix * (128 + 4),
+              "pass 2's slot scratch fits the y - mean and dlin tiles");
 
 // ----------------------------------- K5's backward in bfloat16: tensor cores
 
@@ -983,11 +892,7 @@ __device__ __forceinline__ void bwd_bf16_body(
   sh.tab_d = reinterpret_cast<int*>(sh.mbits + kPix * MS);   // [kPix]
   stage_bf16_consts<CP>(sh.ws, sh.vmean, sh.vinv, sh.vscale, sh.vbias, sh.vgb, sh.vgain, glu_w, scale, bias, mean, var,
                         glu_b, C, eps);
-  for (int i = threadIdx.x; i < 10 * CP; i += NTHR) {
-    const int tap = i / CP, c = i % CP;
-    const float v = c < C ? (tap < 9 ? cw[tap * C + c] : cb[c]) : 0.0f;
-    (tap < 9 ? cws[i] : cbs[c]) = v;
-  }
+  stage_conv<CP, NTHR>(cws, cbs, cw, cb, C);
   for (int i = threadIdx.x; i < (PASS == 2 ? 1 : 3) * P::WM * CP; i += NTHR) sums[i] = 0.0f;
   if constexpr (PASS == 2) {
     for (int c = threadIdx.x; c < CP; c += NTHR) {
@@ -1234,11 +1139,7 @@ entry_block_fwd_bf16_kernel(const bf16* __restrict__ x, const float* __restrict_
   float* cbs = cws + 9 * CP;  // [CP]: conv bias
   float* xt = cbs + CP;       // [kHalo]: x with its halo
   stage_bf16_consts<CP>(ws, vmean, vinv, vscale, vbias, vgb, nullptr, glu_w, scale, bias, mean, var, glu_b, C, eps);
-  for (int i = threadIdx.x; i < 10 * CP; i += NTHR) {
-    const int tap = i / CP, c = i % CP;
-    const float u = c < C ? (tap < 9 ? cw[tap * C + c] : cb[c]) : 0.0f;
-    (tap < 9 ? cws[i] : cbs[c]) = u;
-  }
+  stage_conv<CP, NTHR>(cws, cbs, cw, cb, C);
 
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, wm = warp / P::WN, wn = warp % P::WN;
   const unsigned long long seed = seed_of(dr);
@@ -1289,15 +1190,6 @@ dropout_mask_kernel(float* __restrict__ out, long long n, Dropout dr) {
 }
 
 // ----------------------------------------------------------------- launches
-
-size_t fwd_smem(int C) {
-  return sizeof(float) * ((size_t)kPix * (C + 1) + (size_t)C * C + 15 * (size_t)C + kHalo);
-}
-
-// Pass 2 in float32: the xn and dh slabs, W, the constants, the x tile, a and b2.
-size_t wgrad_smem(int C) {
-  return sizeof(float) * (2 * (size_t)kPix * (C + 1) + (size_t)C * (C + 1) + 17 * (size_t)C + kHalo);
-}
 
 dim3 tile_grid(int B, int T, int rows, int tiles_per_block) {
   const int n_tiles = (T + rows - 1) / rows;
@@ -1364,27 +1256,37 @@ int launch_entry_conv_wgrad(const void* x, const void* dy, float* partials, floa
   return (int)fold_wgrad<TX>(partials, out, (int)(grid.x * grid.y), 10 * C, 9 * C, classes, st);
 }
 
-// The parameters of a fused first-block launch, shared by the three kernels.
+// The parameters of a fused first-block launch, shared by the K5 kernels.
 struct BlockArgs {
   const void* x;
   const void* dout;
   const float *cw, *cb, *scale, *bias, *mean, *var, *glu_w, *glu_b, *a, *b2;
   int B, T, F, C, pt, pf;
   float eps;
-  int tiles_per_block;
   Dropout dr;
 };
 
+// The float32 forward's shared memory set; its blocks an SM into *resident
+// where that is not null (registers and shared memory).
 template <int NJ>
-int launch_block_fwd(const BlockArgs& g, void* out, cudaStream_t stream) {
-  const size_t smem = fwd_smem(g.C);
-  cudaError_t err = cudaFuncSetAttribute(entry_block_fwd_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+cudaError_t fwd_entry_attrs(int* resident) {
+  constexpr size_t smem = fwd_entry_smem<NJ>();
+  cudaError_t err = cudaFuncSetAttribute(entry_block_fwd_f32_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
+  if (err != cudaSuccess || resident == nullptr) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, entry_block_fwd_f32_kernel<NJ>, FwdPlan<NJ>::NT,
+                                                       smem);
+}
+
+template <int NJ>
+int launch_block_fwd(const BlockArgs& g, void* out, int blocks, cudaStream_t stream) {
+  if (blocks < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t err = fwd_entry_attrs<NJ>(nullptr);
   if (err != cudaSuccess) return (int)err;
-  const int rows = rows_per_tile(g.F, g.pt);
-  entry_block_fwd_kernel<NJ><<<tile_grid(g.B, g.T, rows, g.tiles_per_block), kThreads, smem, stream>>>(
+  const int vec = reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  entry_block_fwd_f32_kernel<NJ><<<blocks, FwdPlan<NJ>::NT, fwd_entry_smem<NJ>(), stream>>>(
       static_cast<const float*>(g.x), g.cw, g.cb, g.scale, g.bias, g.mean, g.var, g.glu_w, g.glu_b,
-      static_cast<float*>(out), g.T, g.F, g.C, g.pt, g.pf, g.eps, rows, g.tiles_per_block, g.dr);
+      static_cast<float*>(out), g.B, g.T, g.F, g.C, g.pt, g.pf, g.eps, g.dr, vec);
   return (int)cudaGetLastError();
 }
 
@@ -1424,21 +1326,37 @@ int launch_bwd_reduce_f32(const BlockArgs& g, float* partials, float* sums, int 
   return (int)launch_fold<float>(partials, sums, slots, g.C * g.C + 3 * g.C, stream);
 }
 
+// The float32 pass 2's shared memory set; its blocks an SM into *resident
+// where that is not null (registers and shared memory).
 template <int NJ>
-int launch_block_bwd_wgrad(const BlockArgs& g, float* partials, float* sums, cudaStream_t stream) {
-  const size_t smem = wgrad_smem(g.C);
-  cudaError_t err = cudaFuncSetAttribute(entry_block_bwd_wgrad_kernel<NJ>,
+cudaError_t wgrad_entry_attrs(int buffers, int drows, int* resident) {
+  const size_t smem = wgrad_entry_smem<NJ>(buffers, drows);
+  cudaError_t err = cudaFuncSetAttribute(entry_block_bwd_wgrad_f32_kernel<NJ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess || resident == nullptr) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, entry_block_bwd_wgrad_f32_kernel<NJ>, kThreads,
+                                                       smem);
+}
+
+// blocks: the grid, one slot each; buffers 1 or 2 with drows = kPix / (pt
+// pf), or one buffer and drows 0 (dout read from device memory): the plan of
+// ops/fused_entry_block.f32_wgrad_plan
+template <int NJ>
+int launch_bwd_wgrad_f32(const BlockArgs& g, float* partials, float* sums, int blocks, int buffers, int drows,
+                         cudaStream_t stream) {
+  const int rows = kPix / (g.pt * g.pf);
+  if (blocks < 1 || !((buffers == 1 || buffers == 2) && drows == rows) && !(buffers == 1 && drows == 0))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = wgrad_entry_attrs<NJ>(buffers, drows, nullptr);
   if (err != cudaSuccess) return (int)err;
-  const int rows = rows_per_tile(g.F, g.pt);
-  const dim3 grid = tile_grid(g.B, g.T, rows, g.tiles_per_block);
-  entry_block_bwd_wgrad_kernel<NJ><<<grid, kThreads, smem, stream>>>(
+  const bool vec = reinterpret_cast<uintptr_t>(g.dout) % 16 == 0;
+  entry_block_bwd_wgrad_f32_kernel<NJ><<<blocks, kThreads, wgrad_entry_smem<NJ>(buffers, drows), stream>>>(
       static_cast<const float*>(g.x), static_cast<const float*>(g.dout), g.cw, g.cb, g.scale, g.bias, g.mean,
-      g.var, g.glu_w, g.glu_b, g.a, g.b2, partials, g.T, g.F, g.C, g.pt, g.pf, g.eps, rows, g.tiles_per_block,
-      g.dr);
+      g.var, g.glu_w, g.glu_b, g.a, g.b2, partials, g.B, g.T, g.F, g.C, g.pt, g.pf, g.eps, g.dr, buffers, drows,
+      (int)vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_fold<float>(partials, sums, (int)(grid.x * grid.y), 10 * g.C, stream);
+  return (int)launch_fold<float>(partials, sums, blocks, 10 * g.C, stream);
 }
 
 // The bfloat16 forward's shared memory set; its blocks an SM into *resident
@@ -1527,10 +1445,10 @@ int launch_bwd_wgrad_bf16(const BlockArgs& g, float* partials, float* sums, int 
 BlockArgs block_args(const void* x, const void* dout, const void* cw, const void* cb, const void* scale,
                      const void* bias, const void* mean, const void* var, const void* glu_w,
                      const void* glu_b, const void* a, const void* b2, int B, int T, int F, int C,
-                     int pt, int pf, float eps, const Dropout& dr, int tiles_per_block) {
+                     int pt, int pf, float eps, const Dropout& dr) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   return BlockArgs{x, dout, f(cw), f(cb), f(scale), f(bias), f(mean), f(var), f(glu_w), f(glu_b),
-                   f(a), f(b2), B, T, F, C, pt, pf, eps, tiles_per_block, dr};
+                   f(a), f(b2), B, T, F, C, pt, pf, eps, dr};
 }
 
 inline const float* fp(const void* p) { return static_cast<const float*>(p); }
@@ -1575,24 +1493,31 @@ int dcase_entry_conv_wgrad(const void* x, const void* dy, void* partials, void* 
               : launch_entry_conv_wgrad<float>(x, dy, pa, o, B, T, F, C, tiles_per_block, classes, st);
 }
 
+// Blocks of the float32 forward that one SM of the current device holds at
+// C channels (0 on an error); the wrapper sizes the grid from it.
+int dcase_entry_block_fwd_resident(int C) {
+  int resident = 0;
+  const cudaError_t err = C <= 64 ? fwd_entry_attrs<4>(&resident) : fwd_entry_attrs<8>(&resident);
+  return err == cudaSuccess ? resident : 0;
+}
+
 // x: [B, T, F]; out: [B, T/pt, F/pf, C], both float32; cw: [3, 3, 1, C];
 // cb, scale, bias, mean, var, glu_b: [C]; glu_w: [C, C] (in, out); the
 // parameters float32, all contiguous. T % pt == 0, F % pf == 0,
 // pt * F <= 128, C % 4 == 0, C <= 128
-// (ops/fused_entry_block.py:entry_block_applicable); tiles =
-// dcase_bn_glu_pool_tiles(T, F, pt, pf). seed, threshold, keep_scale, packed
-// as in dcase_bn_glu_pool.
+// (ops/fused_entry_block.py:entry_block_applicable). seed, threshold,
+// keep_scale, packed as in dcase_bn_glu_pool; blocks: the grid, each block
+// an equal run of the batch's tiles.
 int dcase_entry_block_fwd(const void* x, const void* cw, const void* cb, const void* scale,
                           const void* bias, const void* mean, const void* var,
                           const void* glu_w, const void* glu_b, void* out, int B, int T, int F,
                           int C, int pt, int pf, float eps, const void* seed,
-                          unsigned int threshold, float keep_scale, int packed, int tiles_per_block,
+                          unsigned int threshold, float keep_scale, int packed, int blocks,
                           void* stream) {
   const BlockArgs g = block_args(x, nullptr, cw, cb, scale, bias, mean, var, glu_w, glu_b, nullptr, nullptr,
-                                 B, T, F, C, pt, pf, eps, dropout_of(seed, threshold, keep_scale, packed),
-                                 tiles_per_block);
+                                 B, T, F, C, pt, pf, eps, dropout_of(seed, threshold, keep_scale, packed));
   auto st = static_cast<cudaStream_t>(stream);
-  return C <= 64 ? launch_block_fwd<4>(g, out, st) : launch_block_fwd<8>(g, out, st);
+  return C <= 64 ? launch_block_fwd<4>(g, out, blocks, st) : launch_block_fwd<8>(g, out, blocks, st);
 }
 
 // Blocks of the bfloat16 forward that one SM of the current device holds at
@@ -1614,7 +1539,7 @@ int dcase_entry_block_fwd_bf16(const void* x, const void* cw, const void* cb, co
                                unsigned int threshold, float keep_scale, int packed, int blocks, int pool_elems,
                                void* stream) {
   const BlockArgs g = block_args(x, nullptr, cw, cb, scale, bias, mean, var, glu_w, glu_b, nullptr, nullptr,
-                                 B, T, F, C, pt, pf, eps, dropout_of(seed, threshold, keep_scale, packed), 0);
+                                 B, T, F, C, pt, pf, eps, dropout_of(seed, threshold, keep_scale, packed));
   auto st = static_cast<cudaStream_t>(stream);
   return C <= 64 ? launch_fwd_bf16<64>(g, out, blocks, pool_elems, st)
                  : launch_fwd_bf16<128>(g, out, blocks, pool_elems, st);
@@ -1646,7 +1571,7 @@ int dcase_entry_block_bwd_reduce(const void* x, const void* dout, const void* cw
                                  unsigned int threshold, float keep_scale, int packed,
                                  int blocks, int tiles_per_slot, int buffers, int drows, void* stream) {
   const BlockArgs g = block_args(x, dout, cw, cb, scale, bias, mean, var, glu_w, glu_b, nullptr, nullptr,
-                                 B, T, F, C, pt, pf, eps, dropout_of(seed, threshold, keep_scale, packed), 0);
+                                 B, T, F, C, pt, pf, eps, dropout_of(seed, threshold, keep_scale, packed));
   auto* pa = static_cast<float*>(partials);
   auto* su = static_cast<float*>(sums);
   auto st = static_cast<cudaStream_t>(stream);
@@ -1654,23 +1579,35 @@ int dcase_entry_block_bwd_reduce(const void* x, const void* dout, const void* cw
                  : launch_bwd_reduce_f32<8>(g, pa, su, blocks, tiles_per_slot, buffers, drows, st);
 }
 
+// Blocks of the float32 pass 2 that one SM of the current device holds at C
+// channels under (buffers, drows) (0 on an error); the wrapper sizes the
+// grid from it.
+int dcase_entry_block_bwd_wgrad_resident(int C, int buffers, int drows) {
+  int resident = 0;
+  const cudaError_t err = C <= 64 ? wgrad_entry_attrs<4>(buffers, drows, &resident)
+                                  : wgrad_entry_attrs<8>(buffers, drows, &resident);
+  return err == cudaSuccess ? resident : 0;
+}
+
 // Second backward pass in float32. a, b2: [C], from S1 and S2 (fused_block.py:
-// bwd_coefficients); partials: [slots, 10C]; sums: [10C] = dW [3, 3, 1, C] |
-// d conv_b [C], folded in slot order.
+// bwd_coefficients); blocks: the grid, one wave over the batch's tiles in
+// equal runs; partials: [blocks, 10C]; sums: [10C] = dW [3, 3, 1, C] | d
+// conv_b [C], folded in slot order; buffers, drows: the x and dout tiles in
+// shared memory (ops/fused_entry_block.f32_wgrad_plan).
 int dcase_entry_block_bwd_wgrad(const void* x, const void* dout, const void* cw, const void* cb,
                                 const void* scale, const void* bias, const void* mean,
                                 const void* var, const void* glu_w, const void* glu_b,
                                 const void* a, const void* b2, void* partials, void* sums,
                                 int B, int T, int F, int C, int pt, int pf, float eps,
                                 const void* seed, unsigned int threshold, float keep_scale,
-                                int packed, int tiles_per_block, void* stream) {
+                                int packed, int blocks, int buffers, int drows, void* stream) {
   const BlockArgs g = block_args(x, dout, cw, cb, scale, bias, mean, var, glu_w, glu_b, a, b2,
-                                 B, T, F, C, pt, pf, eps, dropout_of(seed, threshold, keep_scale, packed),
-                                 tiles_per_block);
+                                 B, T, F, C, pt, pf, eps, dropout_of(seed, threshold, keep_scale, packed));
   auto* pa = static_cast<float*>(partials);
   auto* su = static_cast<float*>(sums);
   auto st = static_cast<cudaStream_t>(stream);
-  return C <= 64 ? launch_block_bwd_wgrad<4>(g, pa, su, st) : launch_block_bwd_wgrad<8>(g, pa, su, st);
+  return C <= 64 ? launch_bwd_wgrad_f32<4>(g, pa, su, blocks, buffers, drows, st)
+                 : launch_bwd_wgrad_f32<8>(g, pa, su, blocks, buffers, drows, st);
 }
 
 // Blocks of bfloat16 pass `pass` (1 or 2) that one SM of the current device
@@ -1698,7 +1635,7 @@ int dcase_entry_block_bwd_reduce_bf16(const void* x, const void* dout, const voi
                                       unsigned int threshold, float keep_scale, int packed, int blocks, int buffers,
                                       int drows, void* stream) {
   const BlockArgs g = block_args(x, dout, cw, cb, scale, bias, mean, var, glu_w, glu_b, nullptr, nullptr,
-                                 B, T, F, C, pt, pf, eps, dropout_of(seed, threshold, keep_scale, packed), 0);
+                                 B, T, F, C, pt, pf, eps, dropout_of(seed, threshold, keep_scale, packed));
   auto* pa = static_cast<float*>(partials);
   auto* su = static_cast<float*>(sums);
   auto st = static_cast<cudaStream_t>(stream);
@@ -1719,7 +1656,7 @@ int dcase_entry_block_bwd_wgrad_bf16(const void* x, const void* dout, const void
                                      const void* seed, unsigned int threshold, float keep_scale, int packed,
                                      int blocks, int buffers, int drows, int partition, void* stream) {
   const BlockArgs g = block_args(x, dout, cw, cb, scale, bias, mean, var, glu_w, glu_b, a, b2,
-                                 B, T, F, C, pt, pf, eps, dropout_of(seed, threshold, keep_scale, packed), 0);
+                                 B, T, F, C, pt, pf, eps, dropout_of(seed, threshold, keep_scale, packed));
   auto* pa = static_cast<float*>(partials);
   auto* su = static_cast<float*>(sums);
   auto st = static_cast<cudaStream_t>(stream);

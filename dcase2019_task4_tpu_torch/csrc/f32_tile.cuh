@@ -1,6 +1,7 @@
-// The float32 tile code of the backward passes on the CUDA cores that K2b's
-// float32 reduce pass and recompute fixup (fused_block.cu) and K5b1's float32
-// pass (entry_block.cu) share.
+// The float32 tile code on the CUDA cores that K2's float32 kernels
+// (fused_block.cu: the forward, the reduce pass and the recompute fixup) and
+// K5's float32 kernels on a conv tile (entry_block.cu: the forward, pass 1
+// and pass 2) share. The forward's (FwdPlan, FwdTile) is at the end.
 //
 // On a tile of up to kPix pixels whose operand (x-hat = (y - mean) inv in the
 // reduce passes, y - mean in the fixup) lies in shared memory in rows of KS =
@@ -11,7 +12,7 @@
 // bias db (reduce_tile_f32, write_reduce_slot_f32). Thread (pg, cg) = (tid /
 // CG, tid % CG) of RedPlan<NJ> holds, for both channel products and the
 // element steps, pixels pg + PG i (i < MI) x channels h H + 4 cg + j (h < 2,
-// j < 4). Plain FP32 FMAs (no TF32).
+// j < 4); dy_f32 forms the fixup's dy from dxn. Plain FP32 FMAs (no TF32).
 
 #pragma once
 
@@ -422,6 +423,239 @@ __device__ __forceinline__ void write_reduce_slot_f32(float* ps, RedCarry& r, fl
             make_float4(fmaf(sc, r.mw[i][4 * h], bi * dbv.x), fmaf(sc, r.mw[i][4 * h + 1], bi * dbv.y),
                         fmaf(sc, r.mw[i][4 * h + 2], bi * dbv.z), fmaf(sc, r.mw[i][4 * h + 3], bi * dbv.w)));
       }
+    }
+  }
+}
+
+// ------------------------------------------------------------------ forward
+
+// Plan of the float32 forward for C <= 16 * NJ: the reduce pass's channels
+// (CP, H, CG, KS) and register tiles of MI pixels x 8 channels a thread, so
+// NT = 16 CG MI threads cover a tile of kPix pixels: 4 x 8 at C <= 64 (256
+// threads, two blocks an SM in 128 registers), 8 x 8 at C <= 128. 8 x 8 at
+// C <= 64 (128 threads) read 0.5103 ms at block 1 of the flagship shape
+// against 0.4162, and 4 x 8 without the register bound (one block an SM)
+// 0.5291 (NVIDIA H100 80GB HBM3, 700.00 W, CUDA events,
+// tools/bench_k2f_f32_torch.py --variants).
+template <int NJ>
+struct FwdPlan {
+  static constexpr int CP = 16 * NJ, H = CP / 2, CG = CP / 8, KS = CP + 4;
+  static constexpr int MI = NJ == 4 ? 4 : 8;          // pixels a thread
+  static constexpr int PG = kPix / MI;                // pixel groups
+  static constexpr int NT = PG * CG;                  // threads
+  static constexpr int MIN_BLOCKS = NJ == 4 ? 2 : 1;  // the blocks an SM that the registers must allow
+};
+
+// The per-tile steps of the float32 forward (fused_block.cu
+// bn_glu_pool_kernel, K2f) that K5f's float32 forward (entry_block.cu
+// entry_block_fwd_f32_kernel) runs on the y tile it computes: W' = diag(G)
+// W and b' = b + bias . W formed once a block (stage_consts), and per tile,
+// once x-hat = y - mean lies in xb [kPix][KS] with the tile's pixel table,
+// the product, the gate, the mask and the pool (glu_pool). See the comment
+// at bn_glu_pool_kernel.
+template <int NJ>
+struct FwdTile {
+  using P = FwdPlan<NJ>;
+  static constexpr int CP = P::CP, H = P::H, CG = P::CG, PG = P::PG, MI = P::MI, KS = P::KS, NT = P::NT;
+  static constexpr int Q = CP / 4, DP = NT / Q;  // the pool: chunk tid % Q of every DP-th window
+
+  // Once a block: vgain = G = inv * scale, vmean, vbias [CP] (zeros past C),
+  // then W' into ws [CP][CP] and b' into vgb [CP].
+  static __device__ __forceinline__ void stage_consts(float* ws, float* vgain, float* vmean, float* vbias, float* vgb,
+                                                      const float* __restrict__ scale, const float* __restrict__ bias,
+                                                      const float* __restrict__ mean, const float* __restrict__ var,
+                                                      const float* __restrict__ glu_w,
+                                                      const float* __restrict__ glu_b, int C, float eps) {
+    const int tid = threadIdx.x;
+    for (int c = tid; c < CP; c += NT) {  // once a block: G, mean, bias, then W' and b'
+      vgain[c] = c < C ? rsqrtf(var[c] + eps) * scale[c] : 0.0f;
+      vmean[c] = c < C ? mean[c] : 0.0f;
+      vbias[c] = c < C ? bias[c] : 0.0f;
+    }
+    __syncthreads();
+    for (int i = tid; i < CP * Q; i += NT) {
+      const int r = i / Q, q = i % Q;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (r < C && 4 * q < C) {
+        const float g = vgain[r];
+        v = make_float4(g * glu_w[r * C + 4 * q], g * glu_w[r * C + 4 * q + 1], g * glu_w[r * C + 4 * q + 2],
+                        g * glu_w[r * C + 4 * q + 3]);
+      }
+      st4(ws + r * CP + 4 * q, v);
+    }
+    for (int c = tid; c < CP; c += NT) {
+      float s = 0.0f;
+      if (c < C) {
+        s = glu_b[c];
+        for (int r = 0; r < C; ++r) s = fmaf(vbias[r], glu_w[r * C + c], s);
+      }
+      vgb[c] = s;
+    }
+  }
+
+  // One tile of clip b at tp (tpix pixels) once x-hat lies in xb and the
+  // pixel table in tab_y (after a barrier): lin, g and the mask in
+  // registers, then the pooled windows into out; g goes over xb where the
+  // pool reads it from shared memory. Every thread of the block calls it.
+  static __device__ __forceinline__ void glu_pool(float* xb, const float* ws, const float* vgain, const float* vbias,
+                                                  const float* vgb, const int* tab_y, const TilePos& tp, int b,
+                                                  int tpix, int C, int pt, int pf, int Tp, int Fp, float inv_win,
+                                                  const Dropout& dr, unsigned long long seed,
+                                                  float* __restrict__ out, int vec) {
+    const int tid = threadIdx.x, cg = tid % CG, pg = tid / CG, sq = tid % Q;
+    const int nq = C / 4;  // chunks of four input channels below C
+
+    // lin - b' = x-hat . W' over the input channels below C (W's rows past C are zeros)
+    float acc[MI][8];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    {
+      const float* xa = xb + pg * KS;
+      const float* wc = ws + 4 * cg;
+      for (int kq = 0; kq < nq; ++kq) {
+        float4 a[MI];
+#pragma unroll
+        for (int i = 0; i < MI; ++i) a[i] = ld4(xa + i * PG * KS + 4 * kq);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float* wr = wc + (4 * kq + kk) * CP;
+          const float4 b0 = ld4(wr), b1 = ld4(wr + H);
+          const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+          for (int i = 0; i < MI; ++i) {
+            const float av = at(a[i], kk);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
+          }
+        }
+      }
+    }
+
+    // per element: g = (lin + b') * sigmoid(x-hat G + bias), masked four channels a Philox call
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c0 = h * H + 4 * cg;
+      float4 gb = ld4(vgb + c0), gn = ld4(vgain + c0), of = ld4(vbias + c0);
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const int p = pg + PG * i;
+        float4 yv = ld4(xb + p * KS + c0);
+        float4 g;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float xn = fmaf(at(yv, e), at(gn, e), at(of, e));
+          at(g, e) = (acc[i][4 * h + e] + at(gb, e)) * __fdividef(1.0f, 1.0f + __expf(-xn));
+        }
+        if (dr.mode != 0 && p < tpix && c0 < C) {
+          const uint4 r = keep_values4((long long)tab_y[p] * C + c0, seed, dr.mode);
+          g.x *= r.x >= dr.threshold ? dr.keep_scale : 0.0f;
+          g.y *= r.y >= dr.threshold ? dr.keep_scale : 0.0f;
+          g.z *= r.z >= dr.threshold ? dr.keep_scale : 0.0f;
+          g.w *= r.w >= dr.threshold ? dr.keep_scale : 0.0f;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][4 * h + e] = at(g, e);
+      }
+    }
+    // a window's four channels, summed, into out
+    auto put = [&](int wr, int wc, int c0, float4 v) {
+      float* dst = out + (((long long)b * Tp + tp.t0 / pt + wr) * Fp + tp.f0 / pf + wc) * C + c0;
+      v = make_float4(v.x * inv_win, v.y * inv_win, v.z * inv_win, v.w * inv_win);
+      if (vec) {
+        st4(dst, v);
+      } else {
+        dst[0] = v.x;
+        dst[1] = v.y;
+        dst[2] = v.z;
+        dst[3] = v.w;
+      }
+    };
+    bool by_shuffles = false;
+    if constexpr (PG == 32 && CG == 8) by_shuffles = pt == 2 && pf == 4 && tp.trows == 2 && tp.fcols == 2 * PG;
+    if (by_shuffles) {  // block 1's geometry: rows i / 2 of column pg + 32 (i % 2), then the warp's four columns
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c0 = h * H + 4 * cg;
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          float4 v;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float u = acc[k][4 * h + e] + acc[k + 2][4 * h + e];
+            u += __shfl_xor_sync(0xffffffffu, u, 8);
+            u += __shfl_xor_sync(0xffffffffu, u, 16);
+            at(v, e) = u;
+          }
+          if ((pg & 3) == 0 && c0 < C) put(0, pg / 4 + 8 * k, c0, v);
+        }
+      }
+    } else {
+      __syncthreads();  // every read of y done: g goes over it
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+          st4(xb + (pg + PG * i) * KS + h * H + 4 * cg,
+              make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]));
+      __syncthreads();  // g complete
+
+      // the pool: window w = (wr, wc) of the tile's (trows / pt) x (fcols / pf), carried by counters
+      if (4 * sq < C) {
+        const int wcols = tp.fcols / pf, n_win = (tp.trows / pt) * wcols;
+        const int dwr = DP / wcols, dwc = DP % wcols;
+        int w = tid / Q;
+        int wr = w / wcols, wc = w % wcols;
+        for (; w < n_win; w += DP) {
+          const float* src = xb + (wr * pt * tp.fcols + wc * pf) * KS + 4 * sq;
+          float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          for (int dt = 0; dt < pt; ++dt)
+            for (int df = 0; df < pf; ++df) {
+              const float4 u = ld4(src + (dt * tp.fcols + df) * KS);
+              v.x += u.x;
+              v.y += u.y;
+              v.z += u.z;
+              v.w += u.w;
+            }
+          put(wr, wc, 4 * sq, v);
+          wc += dwc;
+          wr += dwr;
+          if (wc >= wcols) {
+            wc -= wcols;
+            ++wr;
+          }
+        }
+      }
+    }
+  }
+};
+
+// ------------------------------------------------- recompute fixup's epilogue
+
+// dy = inv scale dxn - a - (y - mean) b2 of this thread's elements (dxn in
+// acc, y - mean in xb [kPix][KS]), handed to put(p, c0, dy4) per pixel p <
+// tpix and four channels c0 < C: the recompute fixup (fused_block.cu) stores
+// it, K5b2's float32 pass (entry_block.cu) writes it over xb.
+template <int NJ, typename Put>
+__device__ __forceinline__ void dy_f32(const float (&acc)[RedPlan<NJ>::MI][8], const float* xb, const float* vgain,
+                                       const float* va, const float* vb2, int tpix, int C, int pg, int cg, Put put) {
+  using P = RedPlan<NJ>;
+  constexpr int H = P::H, PG = P::PG, MI = P::MI, KS = P::KS;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c0 = h * H + 4 * cg;
+    if (c0 >= C) continue;
+    float4 g = ld4(vgain + c0), av = ld4(va + c0), bv = ld4(vb2 + c0);
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      const int p = pg + PG * i;
+      if (p >= tpix) continue;
+      float4 yc = ld4(xb + p * KS + c0);
+      float4 out;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) at(out, e) = at(g, e) * acc[i][4 * h + e] - at(av, e) - at(yc, e) * at(bv, e);
+      put(p, c0, out);
     }
   }
 }

@@ -99,7 +99,8 @@
 // register tiles fed by 16-byte shared loads, the gate, the fast sigmoid and
 // the four-channel mask in registers; each window summed by warp shuffles at
 // block 1's geometry, elsewhere from g written over the tile by float4; only
-// the pooled tile is written (see the comment at the kernel). Backward
+// the pooled tile is written (see the comment at the kernel); its per-tile
+// steps (FwdTile, f32_tile.cuh) are K5f's float32 forward's too. Backward
 // reduce pass in float32 (bwd_reduce_f32): three channel products on
 // 8-channel register
 // tiles fed by 16-byte shared loads (a Hopper SM issues one shared load for
@@ -110,7 +111,7 @@
 // (bn_bwd_fixup_recompute_kernel) runs the same tile code without the third
 // product and the sums, on y - mean in place (so dy's (y - mean) b term is the
 // plain version's), and writes dy by float4. That float32 tile code lives
-// in f32_tile.cuh, which K5b1's float32 pass in entry_block.cu shares. The
+// in f32_tile.cuh, which K5's float32 passes in entry_block.cu share. The
 // four sums of a reduce pass's block go to its own slot of a workspace and
 // fold_kernel adds the slots in a fixed order in double precision: no float
 // atomics, so a run repeats bit for bit. Plain FP32 FMAs in float32 (no TF32). The bfloat16
@@ -176,22 +177,8 @@ __device__ __forceinline__ void stage_y_f32(float* xb, const float* __restrict__
 
 // ------------------------------------------------------------------ forward
 
-// Plan of the float32 forward for C <= 16 * NJ: the reduce pass's channels
-// (CP, H, CG, KS) and register tiles of MI pixels x 8 channels a thread, so
-// NT = 16 CG MI threads cover a tile of kPix pixels: 4 x 8 at C <= 64 (256
-// threads, two blocks an SM in 128 registers), 8 x 8 at C <= 128. 8 x 8 at
-// C <= 64 (128 threads) read 0.5103 ms at block 1 of the flagship shape
-// against 0.4162, and 4 x 8 without the register bound (one block an SM)
-// 0.5291 (NVIDIA H100 80GB HBM3, 700.00 W, CUDA events,
-// tools/bench_k2f_f32_torch.py --variants).
-template <int NJ>
-struct FwdPlan {
-  static constexpr int CP = 16 * NJ, H = CP / 2, CG = CP / 8, KS = CP + 4;
-  static constexpr int MI = NJ == 4 ? 4 : 8;          // pixels a thread
-  static constexpr int PG = kPix / MI;                // pixel groups
-  static constexpr int NT = PG * CG;                  // threads
-  static constexpr int MIN_BLOCKS = NJ == 4 ? 2 : 1;  // the blocks an SM that the registers must allow
-};
+// FwdPlan<NJ>, the float32 forward's plan, and its per-tile steps (FwdTile)
+// live in f32_tile.cuh, which K5f's float32 forward shares.
 
 // Dynamic shared memory of the float32 forward (ops/fused_block.forward_plan
 // computes the same): two buffers, each a y tile [kPix][KS] (then x-hat, then
@@ -236,8 +223,8 @@ bn_glu_pool_kernel(const float* __restrict__ y, const float* __restrict__ scale,
                    const float* __restrict__ glu_b, float* __restrict__ out, int T, int F, int C, int pt, int pf,
                    float eps, Tile tl, int tiles_per_block, Dropout dr, int vec) {
   using P = FwdPlan<NJ>;
-  constexpr int CP = P::CP, H = P::H, CG = P::CG, PG = P::PG, MI = P::MI, KS = P::KS, NT = P::NT;
-  constexpr int Q = CP / 4, DP = NT / Q;  // centring and the pool: chunk tid % Q of every DP-th row or window
+  constexpr int CP = P::CP, KS = P::KS, NT = P::NT;
+  constexpr int Q = CP / 4, DP = NT / Q;  // centring: chunk tid % Q of every DP-th row
   extern __shared__ __align__(16) float smem_f[];
   float* xs = smem_f;               // [2][kPix][KS]: y, then x-hat, then g
   float* ws = xs + 2 * kPix * KS;   // [CP][CP]: W' (in, out)
@@ -251,33 +238,8 @@ bn_glu_pool_kernel(const float* __restrict__ y, const float* __restrict__ scale,
   const unsigned long long seed = seed_of(dr);
   const int Tp = T / pt, Fp = F / pf;
   const float inv_win = 1.0f / (float)(pt * pf);
-  for (int c = tid; c < CP; c += NT) {  // once a block: G, mean, bias, then W' and b'
-    vgain[c] = c < C ? rsqrtf(var[c] + eps) * scale[c] : 0.0f;
-    vmean[c] = c < C ? mean[c] : 0.0f;
-    vbias[c] = c < C ? bias[c] : 0.0f;
-  }
-  __syncthreads();
-  for (int i = tid; i < CP * Q; i += NT) {
-    const int r = i / Q, q = i % Q;
-    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (r < C && 4 * q < C) {
-      const float g = vgain[r];
-      v = make_float4(g * glu_w[r * C + 4 * q], g * glu_w[r * C + 4 * q + 1], g * glu_w[r * C + 4 * q + 2],
-                      g * glu_w[r * C + 4 * q + 3]);
-    }
-    st4(ws + r * CP + 4 * q, v);
-  }
-  for (int c = tid; c < CP; c += NT) {
-    float s = 0.0f;
-    if (c < C) {
-      s = glu_b[c];
-      for (int r = 0; r < C; ++r) s = fmaf(vbias[r], glu_w[r * C + c], s);
-    }
-    vgb[c] = s;
-  }
+  FwdTile<NJ>::stage_consts(ws, vgain, vmean, vbias, vgb, scale, bias, mean, var, glu_w, glu_b, C, eps);
 
-  const int cg = tid % CG, pg = tid / CG;
-  const int nq = C / 4;  // chunks of four input channels below C
   const int sq = tid % Q;
   const int n_tiles = tiles_per_clip(T, F, pt, pf);
   const int first = blockIdx.x * tiles_per_block;
@@ -311,130 +273,8 @@ bn_glu_pool_kernel(const float* __restrict__ y, const float* __restrict__ scale,
       }
     }
     __syncthreads();  // x-hat complete
-
-    // lin - b' = x-hat . W' over the input channels below C (W's rows past C are zeros)
-    float acc[MI][8];
-#pragma unroll
-    for (int i = 0; i < MI; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-    {
-      const float* xa = xb + pg * KS;
-      const float* wc = ws + 4 * cg;
-      for (int kq = 0; kq < nq; ++kq) {
-        float4 a[MI];
-#pragma unroll
-        for (int i = 0; i < MI; ++i) a[i] = ld4(xa + i * PG * KS + 4 * kq);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const float* wr = wc + (4 * kq + kk) * CP;
-          const float4 b0 = ld4(wr), b1 = ld4(wr + H);
-          const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-          for (int i = 0; i < MI; ++i) {
-            const float av = at(a[i], kk);
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
-          }
-        }
-      }
-    }
-
-    // per element: g = (lin + b') * sigmoid(x-hat G + bias), masked four channels a Philox call
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c0 = h * H + 4 * cg;
-      float4 gb = ld4(vgb + c0), gn = ld4(vgain + c0), of = ld4(vbias + c0);
-#pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        const int p = pg + PG * i;
-        float4 yv = ld4(xb + p * KS + c0);
-        float4 g;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float xn = fmaf(at(yv, e), at(gn, e), at(of, e));
-          at(g, e) = (acc[i][4 * h + e] + at(gb, e)) * __fdividef(1.0f, 1.0f + __expf(-xn));
-        }
-        if (dr.mode != 0 && p < tpix && c0 < C) {
-          const uint4 r = keep_values4((long long)tab_y[p] * C + c0, seed, dr.mode);
-          g.x *= r.x >= dr.threshold ? dr.keep_scale : 0.0f;
-          g.y *= r.y >= dr.threshold ? dr.keep_scale : 0.0f;
-          g.z *= r.z >= dr.threshold ? dr.keep_scale : 0.0f;
-          g.w *= r.w >= dr.threshold ? dr.keep_scale : 0.0f;
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][4 * h + e] = at(g, e);
-      }
-    }
-    // a window's four channels, summed, into out
-    auto put = [&](int wr, int wc, int c0, float4 v) {
-      float* dst = out + (((long long)b * Tp + tp.t0 / pt + wr) * Fp + tp.f0 / pf + wc) * C + c0;
-      v = make_float4(v.x * inv_win, v.y * inv_win, v.z * inv_win, v.w * inv_win);
-      if (vec) {
-        st4(dst, v);
-      } else {
-        dst[0] = v.x;
-        dst[1] = v.y;
-        dst[2] = v.z;
-        dst[3] = v.w;
-      }
-    };
-    bool by_shuffles = false;
-    if constexpr (PG == 32 && CG == 8) by_shuffles = pt == 2 && pf == 4 && tp.trows == 2 && tp.fcols == 2 * PG;
-    if (by_shuffles) {  // block 1's geometry: rows i / 2 of column pg + 32 (i % 2), then the warp's four columns
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c0 = h * H + 4 * cg;
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          float4 v;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            float u = acc[k][4 * h + e] + acc[k + 2][4 * h + e];
-            u += __shfl_xor_sync(0xffffffffu, u, 8);
-            u += __shfl_xor_sync(0xffffffffu, u, 16);
-            at(v, e) = u;
-          }
-          if ((pg & 3) == 0 && c0 < C) put(0, pg / 4 + 8 * k, c0, v);
-        }
-      }
-    } else {
-      __syncthreads();  // every read of y done: g goes over it
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int i = 0; i < MI; ++i)
-          st4(xb + (pg + PG * i) * KS + h * H + 4 * cg,
-              make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2], acc[i][4 * h + 3]));
-      __syncthreads();  // g complete
-
-      // the pool: window w = (wr, wc) of the tile's (trows / pt) x (fcols / pf), carried by counters
-      if (4 * sq < C) {
-        const int wcols = tp.fcols / pf, n_win = (tp.trows / pt) * wcols;
-        const int dwr = DP / wcols, dwc = DP % wcols;
-        int w = tid / Q;
-        int wr = w / wcols, wc = w % wcols;
-        for (; w < n_win; w += DP) {
-          const float* src = xb + (wr * pt * tp.fcols + wc * pf) * KS + 4 * sq;
-          float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-          for (int dt = 0; dt < pt; ++dt)
-            for (int df = 0; df < pf; ++df) {
-              const float4 u = ld4(src + (dt * tp.fcols + df) * KS);
-              v.x += u.x;
-              v.y += u.y;
-              v.z += u.z;
-              v.w += u.w;
-            }
-          put(wr, wc, 4 * sq, v);
-          wc += dwc;
-          wr += dwr;
-          if (wc >= wcols) {
-            wc -= wcols;
-            ++wr;
-          }
-        }
-      }
-    }
+    FwdTile<NJ>::glu_pool(xb, ws, vgain, vbias, vgb, tab_y, tp, b, tpix, C, pt, pf, Tp, Fp, inv_win, dr, seed, out,
+                          vec);
   }
 }
 
@@ -600,7 +440,7 @@ bn_bwd_fixup_recompute_kernel(const float* __restrict__ y, const float* __restri
                               int B, int T, int F, int C, int pt, int pf, float eps, Tile tl, Dropout dr, int drows,
                               int vec) {
   using P = RedPlan<NJ>;
-  constexpr int CP = P::CP, H = P::H, CG = P::CG, PG = P::PG, MI = P::MI, KS = P::KS;
+  constexpr int CP = P::CP, CG = P::CG, MI = P::MI, KS = P::KS;
   constexpr int Q = CP / 4, DP = kThreads / Q;  // centring: chunk tid % Q of every DP-th row
   extern __shared__ __align__(16) float smem_x[];
   float* xb = smem_x;                        // [kPix][KS]: y, then y - mean
@@ -671,30 +511,17 @@ bn_bwd_fixup_recompute_kernel(const float* __restrict__ y, const float* __restri
     __syncthreads();  // dlin complete
     dxn_f32<NJ>(acc, ds, wsw, pg, cg);
     // dy = inv * scale * dxn - a - (y - mean) * b2
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c0 = h * H + 4 * cg;
-      if (c0 >= C) continue;
-      float4 g = ld4(vgain + c0), av = ld4(va + c0), bv = ld4(vb2 + c0);
-#pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        const int p = pg + PG * i;
-        if (p >= tpix) continue;
-        float4 yc = ld4(xb + p * KS + c0);
-        float4 out;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) at(out, e) = at(g, e) * acc[i][4 * h + e] - at(av, e) - at(yc, e) * at(bv, e);
-        float* dst = dy + (long long)tab_y[p] * C + c0;
-        if (vec4) {
-          st4(dst, out);
-        } else {
-          dst[0] = out.x;
-          dst[1] = out.y;
-          dst[2] = out.z;
-          dst[3] = out.w;
-        }
+    dy_f32<NJ>(acc, xb, vgain, va, vb2, tpix, C, pg, cg, [&](int p, int c0, float4 out) {
+      float* dst = dy + (long long)tab_y[p] * C + c0;
+      if (vec4) {
+        st4(dst, out);
+      } else {
+        dst[0] = out.x;
+        dst[1] = out.y;
+        dst[2] = out.z;
+        dst[3] = out.w;
       }
-    }
+    });
     if (t + 1 < last) {
       __syncthreads();  // every warp is done with the tiles
       stage(t + 1);
@@ -742,7 +569,7 @@ size_t bwd_bf16_smem(int buffers, int drows) {
 // bfloat16 forward): in the fragment's registers g = (lin + b) * sigmoid(xn)
 // with the float32 xn rebuilt from the staged y; g to shared memory in
 // float32 over the y tile and A; then per window and four channels the
-// keep-mask (mask4_at's draw, on the global element index) and the pool, each
+// keep-mask (keep_values4's draw, on the global element index) and the pool, each
 // column's pt-row time sum rounded to bfloat16 before the frequency sum;
 // 8-byte stores.
 template <int CP, int NW>

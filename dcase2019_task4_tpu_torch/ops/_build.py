@@ -63,12 +63,14 @@ SIGNATURES = {
     "dcase_batch_stats": (_I, [_P, _P, _P, _LL, _I, _I, _I, _P]),
     "dcase_entry_conv": (_I, [_P] * 6 + [_I] * 7 + [_P]),
     "dcase_entry_conv_wgrad": (_I, [_P] * 4 + [_I] * 7 + [_P]),
+    "dcase_entry_block_fwd_resident": (_I, [_I]),
     "dcase_entry_block_fwd": (_I, [_P] * 10 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _P]),
     "dcase_entry_block_fwd_bf16_resident": (_I, [_I]),
     "dcase_entry_block_fwd_bf16": (_I, [_P] * 10 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _I, _P]),
     "dcase_entry_block_bwd_reduce_resident": (_I, [_I] * 3),
     "dcase_entry_block_bwd_reduce": (_I, [_P] * 12 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _I, _I, _I, _P]),
-    "dcase_entry_block_bwd_wgrad": (_I, [_P] * 14 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _P]),
+    "dcase_entry_block_bwd_wgrad_resident": (_I, [_I] * 3),
+    "dcase_entry_block_bwd_wgrad": (_I, [_P] * 14 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _I, _I, _P]),
     "dcase_entry_block_bwd_bf16_resident": (_I, [_I] * 4),
     "dcase_entry_block_bwd_reduce_bf16": (_I, [_P] * 12 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _I, _I, _P]),
     "dcase_entry_block_bwd_wgrad_bf16": (_I, [_P] * 14 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _I, _I, _I, _P]),

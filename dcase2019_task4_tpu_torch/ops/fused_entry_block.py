@@ -9,25 +9,26 @@ version beside it:
 
   wrapper                  kernel                                  plain version
   entry_block_stats_apply  entry_conv_kernel<1> + fold             entry_conv_reference (sums)
-  entry_block_fwd          entry_block_fwd_kernel                  reference_entry_block
+  entry_block_fwd          entry_block_fwd_f32_kernel              reference_entry_block
                            (bfloat16: entry_block_fwd_bf16_kernel)
   entry_block_bwd_reduce   entry_block_bwd_reduce_f32_kernel + fold  entry_block_bwd_reduce_reference
                            (bfloat16: entry_block_bwd_reduce_bf16_kernel)
-  entry_block_bwd_wgrad    entry_block_bwd_wgrad_kernel + fold     entry_block_bwd_wgrad_reference
+  entry_block_bwd_wgrad    entry_block_bwd_wgrad_f32_kernel + fold entry_block_bwd_wgrad_reference
                            (bfloat16: entry_block_bwd_wgrad_bf16_kernel)
   entry_block_bwd_wgrad_parts  the same launch                     entry_block_bwd_wgrad_parts_reference
 
-Four of them compute the conv once into a tile and run their K2
-counterpart's per-tile code on it: pass 1 in float32 K2b's float32 reduce
-pass on FP32 register tiles (csrc/f32_tile.cuh; `f32_reduce_plan`), the
-bfloat16 forward K2f's bfloat16 forward on the tensor cores and the two
-bfloat16 passes K2b's bfloat16 tile code (csrc/bf16_tile.cuh;
-`fwd_bf16_plan`, `bf16_bwd_plan`). Their launch plan is one wave of the
-resident blocks over the batch's tiles in equal runs (`wave_grid`, from the
-CUDA occupancy calculator); pass 1 in float32 sums into the slots of K2b's
-float32 reduce pass (runs of a clip's tiles, equal runs of them a block),
-so it gives K4f → K2b's bits. The float32 forward and pass 2 take a grid of
-blocks cut per clip (`_TARGET_BLOCKS`, `_TARGET_BLOCKS_BWD`).
+The forward and both passes compute the conv once into a tile and run
+their K2 counterpart's per-tile code on it: in float32 K2's FP32
+register-tile code (csrc/f32_tile.cuh): the forward K2f's float32 forward
+(`fwd_f32_plan`), pass 1 K2b's float32 reduce pass (`f32_reduce_plan`), pass
+2 the recompute fixup's dxn and dy, then dW and d conv_b from the dy tile
+(`f32_wgrad_plan`); in bfloat16 K2's tile code on the tensor cores
+(csrc/bf16_tile.cuh; `fwd_bf16_plan`, `bf16_bwd_plan`). Their launch plan is
+one wave of the resident blocks over the batch's tiles in equal runs
+(`wave_grid`, from the CUDA occupancy calculator); pass 1 in float32 sums
+into the slots of K2b's float32 reduce pass (runs of a clip's tiles, equal
+runs of them a block), so it gives K4f → K2b's bits, and the float32
+forward gives K4f → K2f's.
 
 `entry_block_apply` ties them into one `torch.autograd.Function` with the
 contract of `fused_block.fused_bn_glu_dropout_pool`: mean and var come in
@@ -85,8 +86,6 @@ import torch
 
 from dcase2019_task4_tpu_torch.ops import _build, entry_conv, fused_block
 
-_TARGET_BLOCKS = 1056  # float32 forward: 8 resident blocks on each of the H100's 132 SMs
-_TARGET_BLOCKS_BWD = 528  # float32 pass 2: one partial slot per block, folded in fixed order
 _TILE_PIXELS = fused_block._TILE_PIXELS  # csrc/bf16_tile.cuh kPix
 
 
@@ -293,8 +292,8 @@ def entry_block_fwd(x, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, poo
         blocks = wave_grid(_resident(x.device.index, "fwd_bf16", C), B, tiles)
         status = lib.dcase_entry_block_fwd_bf16(*args, blocks, int(layout == "crows"), _build.stream_handle(x.device))
     else:
-        status = lib.dcase_entry_block_fwd(*args, fused_block._tiles_per_block(tiles, B, _TARGET_BLOCKS),
-                                           _build.stream_handle(x.device))
+        blocks = wave_grid(_resident(x.device.index, "fwd_f32", C), B, tiles)
+        status = lib.dcase_entry_block_fwd(*args, blocks, _build.stream_handle(x.device))
     _build.check(status, "entry_block_fwd")
     counter = "launches_train" if rate > 0.0 else "launches_eval"
     _tally(entry_block_fwd, counter, dtype=x.dtype)
@@ -307,14 +306,6 @@ entry_block_fwd.launches_train = 0  # launches with the dropout on (train mode)
 entry_block_fwd.launches_eval_bf16 = 0  # the same, of the bfloat16 kernel
 entry_block_fwd.launches_train_bf16 = 0
 entry_block_fwd.launches_packed = 0  # train launches of either dtype that drew the packed mask
-
-
-def _bwd_launch_geometry(lib, B, T, Fq, pool):
-    """float32 pass 2: (tiles a block takes, slots), about
-    _TARGET_BLOCKS_BWD blocks cut per clip."""
-    tiles = lib.dcase_bn_glu_pool_tiles(T, Fq, *pool)
-    tpb = fused_block._tiles_per_block(tiles, B, _TARGET_BLOCKS_BWD)
-    return tpb, -(-tiles // tpb) * B
 
 
 def bf16_bwd_plan(channels: int, pool, which: int):
@@ -361,6 +352,40 @@ def f32_reduce_plan(channels: int, pool):
     raise ValueError(f"the float32 pass 1 does not fit {channels} channels at pool {tuple(pool)}")
 
 
+def f32_wgrad_plan(channels: int, pool):
+    """Shared memory of the float32 pass 2 (K5b2) at `channels` C and `pool`
+    (pt, pf) → (buffers, drows, bytes), the channels padded to CP = 64 (C ≤
+    64) or 128 in rows of KS = CP + 4 floats (csrc/entry_block.cu
+    wgrad_entry_smem): the y − mean (then dy) and dlin tiles [128][KS],
+    `buffers` tiles of the pooled rows of dout [drows][KS] (drows = 128 //
+    (pt·pf)), W [CP][CP], six per-channel vectors [CP], the conv weights and
+    bias [10][CP], `buffers` x tiles [512] and two pixel tables [128] of
+    int32. Two buffers where they fit a block, else one, else one with drows
+    = 0 (dout read from device memory). At C ≤ 64 two blocks of 8 warps fit
+    an SM with two buffers."""
+    cp = 64 if channels <= 64 else 128
+    rows = _TILE_PIXELS // (pool[0] * pool[1])
+    for buffers, drows in ((2, rows), (1, rows), (1, 0)):
+        nbytes = 4 * ((2 * _TILE_PIXELS + buffers * drows) * (cp + 4) + cp * cp + 16 * cp + buffers * 4 * _TILE_PIXELS
+                      + 2 * _TILE_PIXELS)
+        if nbytes <= _build.MAX_SHARED:
+            return buffers, drows, nbytes
+    raise ValueError(f"the float32 pass 2 does not fit {channels} channels at pool {tuple(pool)}")
+
+
+def fwd_f32_plan(channels: int) -> int:
+    """Shared memory of the float32 forward (K5f) at `channels` C, in bytes,
+    the channels padded to CP = 64 (C ≤ 64) or 128 in rows of CP + 4 floats
+    (csrc/entry_block.cu fwd_entry_smem): one x-hat tile [128] rows (the
+    conv computes it, so no second buffer hides a load), W' [CP][CP], four
+    per-channel vectors, the conv weights and bias [14][CP], two x tiles
+    [512] and the pixel table [128] of int32. The pool does not enter it.
+    58 KB at C ≤ 64 (two blocks an SM, as the registers allow), 142 KB at
+    C ≤ 128."""
+    cp = 64 if channels <= 64 else 128
+    return 4 * (_TILE_PIXELS * (cp + 4) + cp * cp + 14 * cp + 2 * 4 * _TILE_PIXELS + _TILE_PIXELS)
+
+
 def fwd_bf16_plan(channels: int) -> int:
     """Shared memory of the bfloat16 forward (K5f) at `channels` C, in bytes,
     the channels padded to CP = 64 (C ≤ 64) or 128 in bfloat16 rows of RS =
@@ -383,16 +408,18 @@ def wave_grid(resident: int, B: int, tiles: int, halves: bool = False) -> int:
     return max(1, min(resident, B * tiles))
 
 
-_RESIDENT_ENTRIES = {"fwd_bf16": "dcase_entry_block_fwd_bf16_resident",
+_RESIDENT_ENTRIES = {"fwd_f32": "dcase_entry_block_fwd_resident", "fwd_bf16": "dcase_entry_block_fwd_bf16_resident",
                      "reduce_f32": "dcase_entry_block_bwd_reduce_resident",
+                     "wgrad_f32": "dcase_entry_block_bwd_wgrad_resident",
                      "bwd_bf16": "dcase_entry_block_bwd_bf16_resident"}
 
 
 @functools.cache
 def _resident(index: int, kernel: str, *plan) -> int:
-    """Blocks of `kernel` ("fwd_bf16": K5f in bfloat16, (C,); "reduce_f32":
-    pass 1 in float32, (C, buffers, drows); "bwd_bf16": a bfloat16 pass, (C,
-    which, buffers, drows)) that device `index` holds at once under its
+    """Blocks of `kernel` ("fwd_f32" / "fwd_bf16": K5f in float32 /
+    bfloat16, (C,); "reduce_f32" / "wgrad_f32": pass 1 / pass 2 in float32,
+    (C, buffers, drows); "bwd_bf16": a bfloat16 pass, (C, which, buffers,
+    drows)) that device `index` holds at once under its
     plan: what one SM holds (registers and shared memory, from the CUDA
     occupancy calculator) times its SMs."""
     with torch.cuda.device(index):
@@ -486,12 +513,13 @@ def _launch_bwd_wgrad(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, gl
     if partition == 2 and B % 2:
         raise ValueError(f"entry_block_bwd_wgrad: the crows layout splits an even batch, got {B} clips")
     lib = _build.library()
+    tiles = lib.dcase_bn_glu_pool_tiles(T, Fq, pt, pf)
     if bf16:
         buffers, drows, _ = bf16_bwd_plan(C, pool, 2)
-        slots = wave_grid(_resident(x.device.index, "bwd_bf16", C, 2, buffers, drows), B,
-                          lib.dcase_bn_glu_pool_tiles(T, Fq, pt, pf), partition == 2)
+        slots = wave_grid(_resident(x.device.index, "bwd_bf16", C, 2, buffers, drows), B, tiles, partition == 2)
     else:
-        tpb, slots = _bwd_launch_geometry(lib, B, T, Fq, pool)
+        buffers, drows, _ = f32_wgrad_plan(C, pool)
+        slots = wave_grid(_resident(x.device.index, "wgrad_f32", C, buffers, drows), B, tiles)
     partials = torch.empty((slots, (2 if partition == 1 else 1) * 10 * C), dtype=torch.float32, device=x.device)
     sums = torch.empty(10 * C, dtype=torch.float32, device=x.device)
     seed_t = fused_block._seed_tensor(seed, x.device)
@@ -502,7 +530,7 @@ def _launch_bwd_wgrad(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, gl
         status = lib.dcase_entry_block_bwd_wgrad_bf16(*args, slots, buffers, drows, partition,
                                                       _build.stream_handle(x.device))
     else:
-        status = lib.dcase_entry_block_bwd_wgrad(*args, tpb, _build.stream_handle(x.device))
+        status = lib.dcase_entry_block_bwd_wgrad(*args, slots, buffers, drows, _build.stream_handle(x.device))
     _build.check(status, "entry_block_bwd_wgrad")
     _tally(entry_block_bwd_wgrad, "launches", "launches_bwd_wgrad", x.dtype)
     fused_block.count_packed(entry_block_bwd_wgrad, packed)
@@ -516,8 +544,8 @@ def _launch_bwd_wgrad(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, gl
 def entry_block_bwd_wgrad(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, a, b2, pool, eps, *,
                           rate: float = 0.0, seed=0, layout: str = "planes", pack_bits: Optional[bool] = None):
     """K5b2: recompute conv, chain, mask and dxn; dy = inv·γ·dxn − a −
-    (y − mean)·b2 stays in registers → (dW [3, 3, 1, C], d conv_b [C]) in
-    float32, folded in a fixed order. bfloat16: dW is the gradient of the
+    (y − mean)·b2 stays on the chip → (dW [3, 3, 1, C], d conv_b [C]) in
+    float32, one slot a block folded in slot order. bfloat16: dW is the gradient of the
     bfloat16 weights, rounded in the two parts of `layout` (output-frequency
     parity, or batch halves under "crows") before they are added. CPU: the
     plain version."""

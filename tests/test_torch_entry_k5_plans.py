@@ -1,15 +1,18 @@
-"""K5b1 in float32 and K5f in bfloat16 on the host: their launch plans, and
+"""K5's kernels on K2's tile code, on the host: their launch plans, and
 their plain versions against the JAX package at widths the kernels pad.
 
 The CUDA kernels (csrc/entry_block.cu: entry_block_bwd_reduce_f32_kernel,
-K2b's float32 reduce pass on a conv tile; entry_block_fwd_bf16_kernel,
-K2f's bfloat16 forward on a conv tile) run only on the card, where
+K2b's float32 reduce pass on a conv tile; entry_block_fwd_f32_kernel and
+entry_block_fwd_bf16_kernel, K2f's float32 and bfloat16 forward on a conv
+tile; entry_block_bwd_wgrad_f32_kernel, the recompute fixup's float32 tile
+code on a conv tile, then dW from the dy tile) run only on the card, where
 tests/test_torch_kernels_gpu.py and chip_smoke.py hold them to their plain
 versions and to K4f -> K2. Here:
 
   * the shared-memory plans (`fused_entry_block.f32_reduce_plan`,
-    `fwd_bf16_plan`) fit a block at every width and pool the fused first
-    block admits, and are the kernels' own formulas, read from the source;
+    `fwd_f32_plan`, `f32_wgrad_plan`, `fwd_bf16_plan`) fit a block at every
+    width and pool the fused first block admits, and are the kernels' own
+    formulas, read from the source;
   * the grid (`wave_grid`): one wave of the resident blocks in equal runs
     that cover the batch's tiles once, as the kernels split them, in the
     crows layout too (neither kernel splits the batch into halves: pass 1
@@ -27,7 +30,12 @@ versions and to K4f -> K2. Here:
     bfloat16 ulp of itself plus one ulp of the largest pt-row column sum
     (planes) or of the largest g (crows) of its window over pt·pf, at most
     1e-3 of the elements beyond the one ulp alone (the bars of
-    tests/test_torch_entry_bf16.py).
+    tests/test_torch_entry_bf16.py). The forward in float32: within 1e-5
+    of the JAX fused block on the port's conv output and of the crows block.
+    Pass 2 in float32 (a and b2 from pass 1's plain version): dW and d conv_b
+    within 1e-4 of their max of the JAX crows block's VJP, d conv_b (a gauge
+    leaf: zero in exact arithmetic) with a floor of 1e-6 of the largest
+    gradient compared.
 """
 
 import re
@@ -56,6 +64,18 @@ def _f32_size(C, pool, buffers, drows):
     """csrc/entry_block.cu red_entry_smem, written out."""
     cp = 64 if C <= 64 else 128
     return 4 * ((2 * 128 + buffers * drows) * (cp + 4) + cp * cp + 17 * cp + buffers * 512 + 2 * 128)
+
+
+def _fwd_f32_size(C):
+    """csrc/entry_block.cu fwd_entry_smem, written out."""
+    cp = 64 if C <= 64 else 128
+    return 4 * (128 * (cp + 4) + cp * cp + 14 * cp + 2 * 512 + 128)
+
+
+def _wgrad_size(C, buffers, drows):
+    """csrc/entry_block.cu wgrad_entry_smem, written out."""
+    cp = 64 if C <= 64 else 128
+    return 4 * ((2 * 128 + buffers * drows) * (cp + 4) + cp * cp + 16 * cp + buffers * 512 + 2 * 128)
 
 
 def _fwd_size(C):
@@ -106,6 +126,55 @@ def test_f32_reduce_plan_matches_the_kernel_source():
         assert line in src, line
 
 
+@pytest.mark.parametrize("pool", POOLS)
+def test_f32_fwd_and_wgrad_plans_fit_every_admitted_width(pool):
+    """The float32 forward: one x-hat tile, the pool not in its bytes; pass 2:
+    two buffers of the x and dout tiles where they fit a block, else one,
+    else one with dout read from device memory. Both the kernels' layouts,
+    within the 232448 bytes a block may take."""
+    rows = 128 // (pool[0] * pool[1])
+    for C in range(4, 129, 4):
+        assert tfe.fwd_f32_plan(C) == _fwd_f32_size(C) <= _build.MAX_SHARED
+        want = next((b, d) for b, d in ((2, rows), (1, rows), (1, 0)) if _wgrad_size(C, b, d) <= _build.MAX_SHARED)
+        assert tfe.f32_wgrad_plan(C, pool) == (*want, _wgrad_size(C, *want))
+
+
+@pytest.mark.parametrize("C,pool,fwd,wgrad", [
+    (64, (2, 4), 59392, (2, 16, 103936)), (4, (2, 4), 59392, (2, 16, 103936)), (128, (2, 4), 144896, (2, 16, 230912)),
+    (96, (2, 2), 144896, (1, 32, 228864)), (128, (1, 1), 144896, (1, 0, 211968)), (64, (1, 1), 59392, (2, 128, 164864)),
+])
+def test_f32_fwd_and_wgrad_plans_at_the_main_path(C, pool, fwd, wgrad):
+    """The flagship's C = 64 at pool (2, 4): the forward 59392 bytes and pass
+    2 103936 with two buffers, both room for two blocks of 8 warps an SM
+    (233472 bytes, 1 KB reserved a block), as their 128-register bound
+    allows; at C = 128 one block an SM."""
+    assert tfe.fwd_f32_plan(C) == fwd and tfe.f32_wgrad_plan(C, pool) == wgrad
+    if C <= 64 and pool == (2, 4):
+        assert 2 * (fwd + 1024) <= 233472 and 2 * (wgrad[2] + 1024) <= 233472
+
+
+def test_f32_fwd_and_wgrad_plans_match_the_kernel_source():
+    src = (CSRC / "entry_block.cu").read_text()
+    tile = (CSRC / "f32_tile.cuh").read_text() + (CSRC / "bf16_tile.cuh").read_text()
+    for line in ("static constexpr int CP = 16 * NJ, H = CP / 2, CG = CP / 8, KS = CP + 4;",
+                 "static constexpr int MI = NJ == 4 ? 4 : 8;", "static constexpr int NT = PG * CG;",
+                 "static constexpr int MIN_BLOCKS = NJ == 4 ? 2 : 1;", "constexpr int kPix = 128;"):
+        assert line in tile, line
+    for line in ("return sizeof(float) * ((size_t)kPix * P::KS + P::CP * P::CP + 14 * P::CP + 2 * kHalo + kPix);",
+                 "return sizeof(float) * ((2 * kPix + (size_t)buffers * drows) * P::KS + P::CP * P::CP + 16 * P::CP +\n"
+                 "                          (size_t)buffers * kHalo + 2 * kPix);",
+                 "__launch_bounds__(FwdPlan<NJ>::NT, FwdPlan<NJ>::MIN_BLOCKS)\nentry_block_fwd_f32_kernel(",
+                 "__launch_bounds__(kThreads, NJ == 4 ? 2 : 1)\nentry_block_bwd_wgrad_f32_kernel(",
+                 "if (blocks < 1 || !((buffers == 1 || buffers == 2) && drows == rows) && !(buffers == 1 && drows == 0))",
+                 "C <= 64 ? launch_block_fwd<4>(g, out, blocks, st) : launch_block_fwd<8>(g, out, blocks, st)",
+                 "C <= 64 ? launch_bwd_wgrad_f32<4>(g, pa, su, blocks, buffers, drows, st)",
+                 "int dcase_entry_block_fwd_resident(int C) {",
+                 "int dcase_entry_block_bwd_wgrad_resident(int C, int buffers, int drows) {"):
+        assert line in src, line
+    for gone in ("entry_block_fwd_kernel", "entry_block_bwd_wgrad_kernel", "mix_rows", "conv_to_xn"):
+        assert gone not in src, gone
+
+
 @pytest.mark.parametrize("C,want", [(64, 51968), (4, 51968), (68, 114176), (128, 114176)])
 def test_fwd_bf16_plan_fits_every_admitted_width(C, want):
     """The bytes are the kernel's layout at every C the block admits; at C ≤
@@ -150,6 +219,18 @@ def test_both_kernels_split_the_batch_in_equal_runs():
                  "const int first = s0 < s1 ? (s0 / nb) * n_tiles + (s0 % nb) * tiles_per_slot : 0;",
                  "write_reduce_slot_f32<NJ>(partials + (long long)slot * (C * C + 3 * C), r, xb, v, C);"):
         assert line in red, line
+
+
+@pytest.mark.parametrize("kernel", ["entry_block_fwd_f32_kernel", "entry_block_bwd_wgrad_f32_kernel"])
+def test_f32_fwd_and_wgrad_split_the_batch_in_equal_runs(kernel):
+    """The float32 forward and pass 2 split the batch's tiles as the bfloat16
+    forward does (the runs `_runs` writes out); pass 2 writes one slot a
+    block, its sums over its run."""
+    body = _kernel_body(kernel)
+    assert "const long long n = (long long)B * n_tiles;" in body
+    assert "const int first = (int)(blockIdx.x * n / gridDim.x), last = (int)((blockIdx.x + 1) * n / gridDim.x);" in body
+    if kernel == "entry_block_bwd_wgrad_f32_kernel":
+        assert "float* ps = partials + (long long)blockIdx.x * 10 * C;" in body
 
 
 def _runs(G, n):
@@ -285,3 +366,47 @@ def test_plain_fwd_bf16_matches_jax_at_padded_widths(C, layout):
     diff, own = np.abs(got - want), _ulp(np.maximum(np.abs(got), np.abs(want)))
     assert not (diff > own + slack).any(), f"{(diff > own + slack).sum()} elements beyond one ulp + slack"
     assert (diff > own).sum() <= np.ceil(1e-3 * diff.size), "share beyond one bfloat16 ulp"
+
+
+@pytest.mark.parametrize("C", [36, 96])
+def test_plain_f32_fwd_matches_jax_at_padded_widths(C):
+    """K5f's plain float32 version in eval and in train mode at rate 0, against
+    the JAX fused block (K2) on the port's conv output and against the JAX
+    crows block, 1e-5."""
+    d = _inputs(C, C + 41)
+    t = {k: torch.from_numpy(v) for k, v in d.items()}
+    x = t["x"][..., 0]
+    mean, var, y = _batch_moments(d)
+    for train, (mu, va) in ((False, (t["run_mean"], t["run_var"])), (True, (mean, var))):
+        got = tfe.entry_block_fwd(x, t["w"], t["b"], t["scale"], t["bias"], mu, va, t["gw"], t["gb"], POOL, EPS)
+        j = [jnp.asarray(v) for v in (d["scale"], d["bias"], mu.numpy(), va.numpy(), d["gw"], d["gb"])]
+        planes = jfb.fused_bn_glu_dropout_pool(jnp.asarray(y.numpy()), *j, jnp.int32(0), 0.0, POOL, EPS, train, True)
+        crows = jcr.crows_apply({"w": jnp.asarray(d["w"]), "b": jnp.asarray(d["b"])}, *j, jnp.asarray(d["x"]),
+                                jnp.int32(0), 0.0, POOL, EPS, train, interpret=True)
+        for name, want in (("fused block", planes), ("crows block", crows)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5,
+                                       err_msg=f"{name}, train {train}")
+
+
+@pytest.mark.parametrize("C", [36, 96])
+def test_plain_f32_wgrad_matches_jax_at_padded_widths(C):
+    d = _inputs(C, C + 43)
+    mean, var, _ = _batch_moments(d)
+    t = {k: torch.from_numpy(v) for k, v in d.items()}
+    x = t["x"][..., 0]
+    args = (x, t["ct"], t["w"], t["b"], t["scale"], t["bias"], mean, var, t["gw"], t["gb"])
+    dgw, dgb, s1, s2 = tfe.entry_block_bwd_reduce(*args, POOL, EPS)
+    a, b2 = tfb.bwd_coefficients(t["scale"], var, EPS, s1, s2, x.numel())
+    dw, dcb = tfe.entry_block_bwd_wgrad(*args, a, b2, POOL, EPS)
+
+    def loss(w, b):
+        j = [jnp.asarray(v) for v in (d["scale"], d["bias"], mean.numpy(), var.numpy(), d["gw"], d["gb"])]
+        out = jcr.crows_apply({"w": w, "b": b}, *j, jnp.asarray(d["x"]), jnp.int32(0), 0.0, POOL, EPS, True,
+                              interpret=True)
+        return jnp.sum(out * jnp.asarray(d["ct"]))
+
+    g_w, g_b = (np.asarray(g) for g in jax.grad(loss, argnums=(0, 1))(jnp.asarray(d["w"]), jnp.asarray(d["b"])))
+    top = max(np.abs(v).max() for v in (g_w, g_b, dgw.numpy(), dgb.numpy(), s1.numpy(), s2.numpy()))
+    np.testing.assert_allclose(dw.numpy(), g_w, rtol=0, atol=1e-4 * np.abs(g_w).max(), err_msg="dW")
+    np.testing.assert_allclose(dcb.numpy(), g_b, rtol=0, atol=1e-4 * np.abs(g_b).max() + 1e-6 * top,
+                               err_msg="d conv_b")

@@ -26,9 +26,10 @@ tiles) and K2 (window tiles included; its tensor-core kernels also at C 20,
 64 and 100, ragged last tiles of one clip, the packed draw, the recompute
 knob's first pass and an unaligned y), and of the
 entry-block family (K4, K5 and the crows layout of K6, at small shapes and
-the flagship block-1 shape; K5b1 float32 and K5f bf16 also at their tile
-edges and bit for bit against K4f -> K2b and K4f -> K2f with the same
-seed), against their plain versions, one
+the flagship block-1 shape; K5b1 float32, K5f float32 and bf16 and K5b2
+float32 also at their tile edges and against K4f -> K2b, K4f -> K2f and K4f
+-> the recompute fixup -> K4w with the same seed, K6 float32 bit for bit
+as K5), against their plain versions, one
 scaled-configuration step and one flagship bfloat16 step per first-block
 configuration against the CPU. Last, the JAX package's three A/B knobs:
 K1's onedot kernel (1e-5 of max of the plain version, and of a float64 DFT
@@ -1257,6 +1258,101 @@ def test_entry_fwd_bf16_kernel(cuda, shape, C, pool, rate, pack):
         _within_ulps(got, ref, f"pooled output ({layout})",
                      _entry_pool_slack(y_ref, *vecs[2:], layout, mask, keep, pool))
         assert torch.equal(got, fn(x, *vecs, pool, 1e-3, layout=layout, **kw)), layout
+
+
+@pytest.mark.parametrize("rate,pack", [(0.0, False), (0.5, False), (0.5, True)])
+@pytest.mark.parametrize("shape,C,pool", K5_EDGES)
+def test_entry_fwd_f32_kernel(cuda, shape, C, pool, rate, pack):
+    """K5f in float32 (entry_block_fwd_f32_kernel: K2f's float32 forward on a
+    conv tile): bit for bit K4f -> K2f in float32 with the same seed and draw
+    (y - mean is the same float value, and neither the product per pixel nor
+    the pool window depends on the tiling); within 1e-5 of the plain version;
+    a bit-equal repeat and the launch counted."""
+    rng = np.random.default_rng(sum(shape) + C + 23)
+    fe = fused_entry_block
+    x, _, conv, vecs = _k5_inputs(rng, shape, C, pool, cuda, torch.float32)
+    seed = torch.tensor([67 + shape[1]])
+    kw = dict(rate=rate, seed=seed, pack_bits=pack)
+    fn = fe.entry_block_fwd
+    counter = "launches_train" if rate > 0.0 else "launches_eval"
+    before = getattr(fn, counter)
+    out = fn(x, *vecs, pool, 1e-3, **kw)
+    assert getattr(fn, counter) == before + 1
+    y = entry_conv.entry_conv_forward(conv, x)[0]
+    pair = fused_block.fused_bn_glu_pool(y, *vecs[2:], pool, 1e-3, **kw)
+    assert torch.equal(out, pair), f"K5f float32 against K4f -> K2f float32: {(out - pair).abs().max().item()}"
+    mask = fused_block.dropout_keep_mask(seed, shape + (C,), rate, device=cuda, pack_bits=pack) if rate else None
+    ref = fe.reference_entry_block(x, *vecs, pool, 1e-3, mask, 1.0 - rate)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+    assert torch.equal(out, fn(x, *vecs, pool, 1e-3, **kw))
+
+
+@pytest.mark.parametrize("rate,pack", [(0.0, False), (0.5, False), (0.5, True)])
+@pytest.mark.parametrize("shape,C,pool", K5_EDGES)
+def test_entry_wgrad_f32_pass(cuda, shape, C, pool, rate, pack):
+    """K5b2 in float32 (entry_block_bwd_wgrad_f32_kernel: the recompute
+    fixup's float32 tile code on a conv tile, then dW from the dy tile), a
+    and b2 from K5b1: against K4f -> the float32 recompute fixup (dy) -> K4w
+    in float32 (dW, d conv_b) with the same seed and draw, the same dy summed
+    in another order: dW within 1e-6 of its max, d conv_b (a gauge leaf, zero
+    in exact arithmetic) within 1e-6 of its max plus 1e-6 of dW's; against
+    the formulas in float64 within 1e-4 of max (d conv_b with the same
+    floor); a bit-equal repeat and the launch counted."""
+    rng = np.random.default_rng(sum(shape) + C + 24)
+    fe = fused_entry_block
+    x, dout, conv, vecs = _k5_inputs(rng, shape, C, pool, cuda, torch.float32)
+    seed = torch.tensor([71 + shape[1]])
+    kw = dict(rate=rate, seed=seed, pack_bits=pack)
+    red = fe.entry_block_bwd_reduce(x, dout, *vecs, pool, 1e-3, **kw)
+    a, b2 = fused_block.bwd_coefficients(vecs[2], vecs[5], 1e-3, red[2], red[3], x.numel())
+    fn = fe.entry_block_bwd_wgrad
+    before = (fn.launches, fn.launches_packed)
+    dw, dcb = fn(x, dout, *vecs, a, b2, pool, 1e-3, **kw)
+    assert (fn.launches, fn.launches_packed) == (before[0] + 1, before[1] + int(pack and rate > 0.0))
+    y = entry_conv.entry_conv_forward(conv, x)[0]
+    dy = fused_block.bwd_fixup_recompute(y, dout, *vecs[2:], a, b2, pool, 1e-3, **kw)
+    del y
+    want = entry_conv.entry_conv_wgrad(x, dy)
+    del dy
+    floor = 1e-6 * want[0].abs().max().item()
+    for name, got, w, extra in (("dW", dw, want[0], 0.0), ("d conv_b", dcb, want[1], floor)):
+        err = (got - w).abs().max().item()
+        assert err <= 1e-6 * w.abs().max().item() + extra, f"{name} against K4f -> fixup -> K4w: {err}"
+    mask = fused_block.dropout_keep_mask(seed, shape + (C,), rate, device=cuda, pack_bits=pack) if rate else None
+    dbl = [t.double() for t in (x, dout, *vecs, a, b2)]
+    ref = fe.entry_block_bwd_wgrad_reference(*dbl, pool, 1e-3, None if mask is None else mask.double(), 1.0 - rate)
+    for name, got, w, extra in (("dW", dw, ref[0], 0.0), ("d conv_b", dcb, ref[1], floor)):
+        assert (got.double() - w).abs().max().item() <= 1e-4 * w.abs().max().item() + extra, name
+    again = fn(x, dout, *vecs, a, b2, pool, 1e-3, **kw)
+    assert torch.equal(again[0], dw) and torch.equal(again[1], dcb)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("B,T", [(2, 38), (24, 864)])
+def test_crows_float32_equals_the_fused_entry_block(cuda, B, T, rate):
+    """K6 in float32 through ops/crows_block.py (F = 64, pool (2, 4), an even
+    batch) launches K5's float32 kernels with no mode bit: its output and
+    all six gradients are K5's bits, through the autograd Functions."""
+    rng = np.random.default_rng(B + T + int(10 * rate))
+    C, Fq = 64, 64
+    conv = _entry_params(rng, C, cuda)
+    scale, bias, _, _, gw, gb = _block_args(rng, C, cuda)
+    x = _t(rng.standard_normal((B, T, Fq, 1)), cuda)
+    dout = _t(rng.standard_normal((B, T // 2, Fq // 4, C)), cuda)
+    s, sq = fused_entry_block.entry_block_stats_apply(conv, x)
+    mean = s / (B * T * Fq)
+    var = sq / (B * T * Fq) - mean * mean
+
+    def run(apply):
+        leaves = [t.clone().requires_grad_(True) for t in (conv["w"], conv["b"], scale, bias, gw, gb)]
+        w, b, sc, bi, w2, b2 = leaves
+        out = apply({"w": w, "b": b}, sc, bi, mean, var, w2, b2, x, 9, rate, (2, 4), 1e-3, True)
+        out.backward(dout)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    names = ("out", "dW", "d conv_b", "d scale", "d bias", "d glu_w", "d glu_b")
+    for name, k6, k5 in zip(names, run(crows_block.crows_apply), run(fused_entry_block.entry_block_apply)):
+        assert torch.equal(k6, k5), name
 
 
 @pytest.mark.parametrize("flag", [None, "entry_conv_pallas", "entry_block_pallas", "entry_block_crows"])

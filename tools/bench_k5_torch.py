@@ -1,7 +1,10 @@
-"""K5's redesigned kernels alone, on one NVIDIA GPU: pass 1 in float32
+"""K5's redesigned kernels alone, on one NVIDIA GPU: the forward in float32
+and bfloat16 (`entry_block_fwd_f32_kernel`, `entry_block_fwd_bf16_kernel`,
+K5f: K2f's float32 / bfloat16 forward on a conv tile), pass 1 in float32
 (`entry_block_bwd_reduce_f32_kernel`, K5b1: K2b's float32 reduce pass on a
-conv tile), the forward in bfloat16 (`entry_block_fwd_bf16_kernel`, K5f:
-K2f's bfloat16 forward on a conv tile) and the two bfloat16 backward passes
+conv tile), pass 2 in float32 (`entry_block_bwd_wgrad_f32_kernel`, K5b2:
+the recompute fixup's float32 tile code on a conv tile, then dW from the
+dy tile) and the two bfloat16 backward passes
 (`entry_block_bwd_reduce_bf16_kernel`, `entry_block_bwd_wgrad_bf16_kernel`),
 all of csrc/entry_block.cu.
 
@@ -10,12 +13,13 @@ all of csrc/entry_block.cu.
 Prints the card's name and power limit; the ptxas report (registers,
 stack, spill) of every kernel of csrc/entry_block.cu and of K2's kernels
 whose tile code they share (csrc/f32_tile.cuh, csrc/bf16_tile.cuh; a spill
-of one of those fails the run at its end), and the four kernels'
+of one of those fails the run at its end), and the six kernels'
 instruction mix (`cuobjdump -sass` of the built library, through
-chip_smoke.py's `check_mma`: FFMA and no HMMA in K5b1 float32, HMMA in the
-bfloat16 ones); runs their GPU tests (`pytest tests/test_torch_kernels_gpu.py
--k "entry_reduce_f32 or entry_fwd_bf16 or entry_bwd_bf16 or
-entry_block_bf16"`) unless --no-tests; then chip_smoke.py's phase-3 rows of
+chip_smoke.py's `check_mma`: FFMA and no HMMA in the float32 ones, HMMA in
+the bfloat16 ones); runs their GPU tests (`pytest tests/test_torch_kernels_gpu.py
+-k "entry_reduce_f32 or entry_fwd_f32 or entry_wgrad_f32 or crows_float32
+or entry_fwd_bf16 or entry_bwd_bf16 or entry_block_bf16"`) unless
+--no-tests; then chip_smoke.py's phase-3 rows of
 the entry-block family at the flagship's block-1 shape (x [24, 864, 64], C =
 64; `chip_smoke.entry_kernels` in float32 and `entry_bf16_kernels`, under
 their bars) with device ms, bound, share of bound and the earlier kernels'
@@ -24,25 +28,31 @@ recorded reading.
 With --against DIR (a checkout of another commit, e.g. the parent's `git
 archive` under a directory that .gitignore lists) it measures DIR's package
 and this one in the order DIR, this, this, DIR, each in a process of its own
-that builds its package's kernels: the four kernels' device ms at the
-flagship block-1 shape (K5f bf16 eval and dropout, both layouts; K5b2 bf16
-in both partitions); the SHA-256 of the outputs of every other kernel of
-csrc/fused_block.cu and csrc/entry_block.cu (K2 in float32 and bfloat16,
-K4, K5s, K5f float32, K5b2 float32, K5's bfloat16 passes), which must be
-the same in both trees; and the device time of one traced MT step of the
+that builds its package's kernels: the six kernels' device ms at the
+flagship block-1 shape (K5f float32 eval, dropout and crows, K5b2 float32;
+K5b1 float32; K5f bf16 eval and dropout, both layouts; K5b2 bf16 in both
+partitions); the SHA-256 of the outputs of every kernel of
+csrc/fused_block.cu and csrc/entry_block.cu but K5f float32 and K5b2
+float32 (K2 in float32 and bfloat16, K4, K5s, K5b1 float32, K5f bfloat16,
+K5's bfloat16 passes), which must be the same in both trees; the device
+time of one warm predict call from a float32 `entry_block_pallas`
+checkpoint (chip_smoke.py's 48 clips); and the device time of one traced
+MT step of the
 flagship under `entry_block_pallas` and `entry_block_crows`, in float32 (B,
 R) and in bfloat16 (FB, FR), the generator on the card
 (chip_smoke.knob_card_steps, the knobs off), with block 1's device time in a
 second traced step (chip_smoke.block1_device_ms).
 
-With --variants it times other launch plans of K5b1 float32 (one of K2b's
-slots a block, K2b's own grid of 528 blocks at the flagship shape; one dout
-buffer) and of K5f bfloat16 (1056 blocks, the count of the per-clip grid at
-the float32 forward's target), each output held to the as-built kernel's
-bit for bit (neither kernel's outputs depend on its grid), timed by the
-profiler and by CUDA events around ten calls in a row, in turn and again in
-reverse order. About ten minutes of card time with both
-options. Imports the port only; needs a card; exits non-zero when a bar
+With --variants it times other launch plans at the flagship shape: K5f
+float32 with 1056 blocks (the earlier kernel's per-clip grid; the output
+held bit for bit: it does not depend on the grid), K5b2 float32 with 528
+blocks (the earlier kernel's count of slots) and with one dout buffer (dW
+and d conv_b held to 1e-6 of max: a grid of other runs sums in another
+order), each timed by the profiler and by CUDA events around ten calls in
+a row, in turn and again in reverse order; and K5b2 float32 with dW formed
+in registers as dy is (`DW_IN_REGISTERS`, source edits built apart) beside
+the as-built kernel, by CUDA events. About fifteen minutes of card time
+with both options. Imports the port only; needs a card; exits non-zero when a bar
 fails.
 """
 
@@ -59,17 +69,20 @@ import sys
 import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNELS = ("entry_block_bwd_reduce_f32_kernel", "entry_block_fwd_bf16_kernel", "entry_block_bwd_reduce_bf16_kernel",
-           "entry_block_bwd_wgrad_bf16_kernel")
-# K2's kernels whose tile code the four share (no name a substring of another listed one)
-SHARED = ("bn_glu_pool_bwd_kernel", "bn_bwd_fixup_recompute_kernel", "bn_glu_pool_bf16_kernel",
+KERNELS = ("entry_block_fwd_f32_kernel", "entry_block_bwd_reduce_f32_kernel", "entry_block_bwd_wgrad_f32_kernel",
+           "entry_block_fwd_bf16_kernel", "entry_block_bwd_reduce_bf16_kernel", "entry_block_bwd_wgrad_bf16_kernel")
+# K2's kernels whose tile code the six share (no name a substring of another listed one)
+SHARED = ("bn_glu_pool_kernel", "bn_glu_pool_bwd_kernel", "bn_bwd_fixup_recompute_kernel", "bn_glu_pool_bf16_kernel",
           "bn_glu_pool_bwd_bf16_kernel", "bn_bwd_fixup_recompute_bf16_kernel")
-ROWS = ("entry_block_bwd_reduce", "entry_block_fwd_eval_bf16", "entry_block_fwd_train_bf16", "crows_fwd_bf16",
-        "entry_block_bwd_reduce_bf16", "entry_block_bwd_wgrad_bf16", "crows_bwd_wgrad_bf16")
+ROWS = ("entry_block_fwd_eval", "entry_block_fwd_train", "crows_fwd", "entry_block_bwd_reduce", "entry_block_bwd_wgrad",
+        "entry_block_fwd_eval_bf16", "entry_block_fwd_train_bf16", "crows_fwd_bf16", "entry_block_bwd_reduce_bf16",
+        "entry_block_bwd_wgrad_bf16", "crows_bwd_wgrad_bf16")
 # the earlier kernels' device ms (PERF.md §6: chip_smoke.py, NVIDIA H100 80GB
-# HBM3, 700.00 W): K5b1 float32 and K5f bfloat16 as first ported (scalar FP32
-# FMAs), the bfloat16 passes on the tensor cores
-RECORDED = {"entry_block_bwd_reduce": 3.0876, "entry_block_fwd_eval_bf16": 1.1587,
+# HBM3, 700.00 W): K5f and K5b2 float32, K5b1 float32 and K5f bfloat16 as
+# first ported (scalar FP32 FMAs, the conv twice in K5f and K5b2 float32),
+# the bfloat16 passes on the tensor cores
+RECORDED = {"entry_block_fwd_eval": 0.9370, "entry_block_fwd_train": 1.0405, "crows_fwd": 1.0390,
+            "entry_block_bwd_reduce": 3.0876, "entry_block_bwd_wgrad": 2.5580, "entry_block_fwd_eval_bf16": 1.1587,
             "entry_block_fwd_train_bf16": 1.2577, "crows_fwd_bf16": 1.2235, "entry_block_bwd_reduce_bf16": 0.7042,
             "entry_block_bwd_wgrad_bf16": 0.6904, "crows_bwd_wgrad_bf16": 0.6798}
 # one traced MT step per first-block path: (flag, compute dtype)
@@ -110,10 +123,13 @@ def flagship_inputs(device, dtype):
 
 
 def kernel_calls(device):
-    """{name: call} of the four kernels at the flagship shape: K5b1 float32;
-    K5f bf16 eval and with dropout (planes), with dropout (crows); K5b1
-    bf16; K5b2 bf16 in the planes layout (output-frequency parity) and the
-    crows layout (batch halves), a and b2 from K5b1's sums."""
+    """{name: call} of the six kernels at the flagship shape: K5f float32
+    eval, with dropout, and with dropout in the crows layout (the same
+    function in float32); K5b1 float32; K5b2 float32, a and b2 from K5b1
+    float32's sums; K5f bf16 eval and with dropout (planes), with dropout
+    (crows); K5b1 bf16; K5b2 bf16 in the planes layout (output-frequency
+    parity) and the crows layout (batch halves), a and b2 from K5b1's
+    sums."""
     import torch
 
     from dcase2019_task4_tpu_torch.ops import fused_block as fb
@@ -124,8 +140,16 @@ def kernel_calls(device):
     kw = dict(rate=rate, seed=seed)
     red = fe.entry_block_bwd_reduce(x, dout, *vecs, pool, eps, **kw)
     a, b2 = fb.bwd_coefficients(vecs[2], vecs[5], eps, red[2], red[3], x.numel())
+    red32 = fe.entry_block_bwd_reduce(x32, dout32, *vecs32, pool, eps, **kw)
+    a32, b32 = fb.bwd_coefficients(vecs32[2], vecs32[5], eps, red32[2], red32[3], x32.numel())
     return {
+        "K5f entry_block_fwd float32 eval": lambda: fe.entry_block_fwd(x32, *vecs32, pool, eps),
+        "K5f entry_block_fwd float32 dropout": lambda: fe.entry_block_fwd(x32, *vecs32, pool, eps, **kw),
+        "K5f entry_block_fwd float32 dropout crows": lambda: fe.entry_block_fwd(x32, *vecs32, pool, eps,
+                                                                                layout="crows", **kw),
         "K5b1 entry_block_bwd_reduce float32": lambda: fe.entry_block_bwd_reduce(x32, dout32, *vecs32, pool, eps, **kw),
+        "K5b2 entry_block_bwd_wgrad float32": lambda: fe.entry_block_bwd_wgrad(x32, dout32, *vecs32, a32, b32, pool,
+                                                                               eps, **kw),
         "K5f entry_block_fwd bf16 eval": lambda: fe.entry_block_fwd(x, *vecs, pool, eps),
         "K5f entry_block_fwd bf16 dropout planes": lambda: fe.entry_block_fwd(x, *vecs, pool, eps, **kw),
         "K5f entry_block_fwd bf16 dropout crows": lambda: fe.entry_block_fwd(x, *vecs, pool, eps, layout="crows",
@@ -182,14 +206,15 @@ def digest(outs) -> str:
 
 def other_kernels(device) -> dict:
     """{call: digest} of every kernel of csrc/fused_block.cu and
-    csrc/entry_block.cu but K5b1 float32 and K5f bfloat16, on seeded
+    csrc/entry_block.cu but K5f float32 and K5b2 float32, on seeded
     inputs: K2 in float32 and bfloat16 at the flagship block-1 shape (C =
     64) and in bfloat16 at the scaled configuration's (C = 128), forward
     eval and train in both draws, K2s, the reduce pass with and without
     dy_partial, the fixup and the recompute fixup; K4's conv and weight
-    gradient, K5s, K5f float32, K5b2 float32 and K5's two bfloat16 passes
-    (K5b2 in both partitions) at the flagship block-1 shape. Pass 2 takes
-    seeded a and b2, so that no reading rests on K5b1 float32's bits."""
+    gradient, K5s, K5b1 float32, K5f bfloat16 (eval, train in both draws
+    and both layouts) and K5's two bfloat16 passes (K5b2 in both
+    partitions) at the flagship block-1 shape. Pass 2 takes seeded a and
+    b2."""
     import torch
 
     from dcase2019_task4_tpu_torch.ops import entry_conv as ec
@@ -245,20 +270,52 @@ def other_kernels(device) -> dict:
         mean = s1 / float(B * T * Fq)
         var = s2 / float(B * T * Fq) - mean * mean
         block = (conv["w"], conv["b"], *vecs, mean, var, gw, gb)
-        if dtype == torch.float32:
+        if dtype == torch.bfloat16:
             out[f"K5f eval {tag}"] = digest(fe.entry_block_fwd(x, *block, (2, 4), 1e-3))
         for pack in (False, True):
             kw = dict(rate=0.5, seed=seed, pack_bits=pack)
-            if dtype == torch.float32:
-                out[f"K5f train {tag} pack {pack}"] = digest(fe.entry_block_fwd(x, *block, (2, 4), 1e-3, **kw))
-            else:
-                out[f"K5b1 {tag} pack {pack}"] = digest(fe.entry_block_bwd_reduce(x, dout, *block, (2, 4), 1e-3, **kw))
-            for layout in ("planes", "crows") if dtype == torch.bfloat16 else ("planes",):
-                out[f"K5b2 {tag} {layout} pack {pack}"] = digest(
-                    fe.entry_block_bwd_wgrad(x, dout, *block, a, b2, (2, 4), 1e-3, layout=layout, **kw))
+            out[f"K5b1 {tag} pack {pack}"] = digest(fe.entry_block_bwd_reduce(x, dout, *block, (2, 4), 1e-3, **kw))
+            if dtype == torch.bfloat16:
+                for layout in ("planes", "crows"):
+                    out[f"K5f train {tag} {layout} pack {pack}"] = digest(
+                        fe.entry_block_fwd(x, *block, (2, 4), 1e-3, layout=layout, **kw))
+                    out[f"K5b2 {tag} {layout} pack {pack}"] = digest(
+                        fe.entry_block_bwd_wgrad(x, dout, *block, a, b2, (2, 4), 1e-3, layout=layout, **kw))
         del x, dy, dout
         torch.cuda.empty_cache()
     return out
+
+
+def predict_device_ms(device):
+    """Device time (torch.profiler) of one warm `cli.predict` call of
+    chip_smoke.py's 48 synthetic clips from its checkpoint stored with
+    `entry_block_pallas=True` (float32 B: K5f once a batch): {"all": every
+    kernel and copy, "K5f": the float32 forward's kernels, "copies": the
+    memory copies, "rest"}, or None where the profiler gave no trace."""
+    import tempfile
+
+    import torch
+    from torch.autograd import DeviceType
+
+    import chip_smoke as cs
+    from dcase2019_task4_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory() as work:
+        wav_dir, (_, model_entry_block, _, _) = cs.write_inputs(work, device)
+        argv = ["-m", model_entry_block, "-i", wav_dir, "-p", os.path.join(work, "events.tsv"), "--weak_fname",
+                os.path.join(work, "tags.tsv"), "--device", "cuda"]
+        cli.predict(argv)
+        torch.cuda.synchronize()
+        cs.PROFILER["lost"] = False
+        prof = cs.profiled(lambda: cli.predict(argv))
+    if prof is None:
+        return None
+    events = [(e.name, cs.event_us(e) / 1e3) for e in prof.events() if e.device_type == DeviceType.CUDA]
+    parts = {"all": sum(ms for _, ms in events),
+             "K5f": sum(ms for name, ms in events if "entry_block_fwd" in name),
+             "copies": sum(ms for name, ms in events if "memcpy" in name.lower())}
+    parts["rest"] = parts["all"] - parts["K5f"] - parts["copies"]
+    return parts
 
 
 def rows_from(root: str) -> int:
@@ -282,7 +339,7 @@ def rows_from(root: str) -> int:
     device = torch.device("cuda", 0)
     card = cs.card_line()
     got = {"root": root, "kernels": {}, "kernel_digests": {}, "digests": other_kernels(device), "steps": {},
-           "block1": {}, "spills": spills(log)}
+           "block1": {}, "spills": spills(log), "predict": predict_device_ms(device)}
     for name, call in kernel_calls(device).items():
         got["kernel_digests"][name] = digest(call())
         cs.PROFILER["lost"] = False
@@ -317,16 +374,19 @@ def against(other: str) -> bool:
             raise AssertionError(f"measuring {root} failed")
         runs.append(json.loads(lines[-1]))
 
-    def med(key, name):  # the median of the two runs of a tree, or None
-        for pair in ((runs[0], runs[3]), (runs[1], runs[2])):
-            vals = [r[key][name] for r in pair if r[key][name] is not None]
-            yield float(np.median(vals)) if vals else None
+    def medians(vals):  # the median of each tree's two runs (DIR, this), or None
+        for pair in ((vals[0], vals[3]), (vals[1], vals[2])):
+            got = [v for v in pair if v is not None]
+            yield float(np.median(got)) if got else None
+
+    def med(key, name):
+        return medians([r[key][name] for r in runs])
 
     def shown(v):
         return "not measured" if v is None else f"{v:.4f}"
 
     print(f"  {other} against this tree (medians of two runs each, device ms; DIR, this, this, DIR):")
-    print("  the four kernels at the flagship block-1 shape (their outputs' SHA-256 in each run):")
+    print("  the six kernels at the flagship block-1 shape (their outputs' SHA-256 in each run):")
     for name in runs[0]["kernels"]:
         old, new = med("kernels", name)
         ratio = f" ({old / new:.2f}x)" if old and new else ""
@@ -347,6 +407,11 @@ def against(other: str) -> bool:
         print(f"    {path}: step {shown(old)} -> {shown(new)}{delta}; runs "
               + ", ".join(shown(r["steps"][path]) for r in runs)
               + f"; block 1 {shown(b_old)} -> {shown(b_new)}; runs " + ", ".join(shown(r["block1"][path]) for r in runs))
+    print("  one warm predict call from a float32 entry_block_pallas checkpoint (48 clips), device time:")
+    for part in ("all", "K5f", "copies", "rest"):
+        vals = [r["predict"] and r["predict"][part] for r in runs]
+        old, new = medians(vals)
+        print(f"    {part}: {shown(old)} -> {shown(new)}; runs " + ", ".join(shown(v) for v in vals))
     return not differ
 
 
@@ -372,12 +437,115 @@ def kernel_rows(device):
               f"plain {row.plain_ms:.4f}; earlier {RECORDED[name]:.4f} ({100.0 * row.bound / RECORDED[name]:.1f} %)")
 
 
+# The other placement of K5b2 float32's dW (--variants): each thread keeps
+# dW of its own dy elements (MI pixels x 8 channels) in 80 registers and adds
+# x[p + tap] dy over its pixels as dy is formed, with no dy tile, no barrier
+# and no dW phase; one block an SM (the registers), the pixel groups' sums
+# added in group order at the end. Edits of csrc/entry_block.cu (text,
+# replacement, count), built apart by bench_k2_bf16_torch.ablation_libraries.
+DW_IN_REGISTERS = (
+    ("__launch_bounds__(kThreads, NJ == 4 ? 2 : 1)\nentry_block_bwd_wgrad_f32_kernel(",
+     "__launch_bounds__(kThreads, 1)\nentry_block_bwd_wgrad_f32_kernel(", 1),
+    ("  int off[5];  ", """  float rw[8][9], rb[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    rb[j] = 0.0f;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) rw[j][tap] = 0.0f;
+  }
+  int off[5];  """, 1),
+    ("    dy_f32<NJ>(acc, xb, vgain, va, vb2, tpix, C, pg, cg, [&](int p, int c0, float4 d) { st4(xb + p * KS + c0, d); });\n"
+     "    __syncthreads();  // dy complete\n    if (dw_on) {", """#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      const int p = pg + P::PG * i;
+      if (p >= tpix) continue;
+      const float* r = xt + (p / F) * FW + p % F;
+      float patch[9];
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) patch[tap] = r[(tap / 3) * FW + tap % 3];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c0 = h * P::H + 4 * cg;
+        if (c0 >= C) continue;
+        float4 g = ld4(vgain + c0), av = ld4(va + c0), bv = ld4(vb2 + c0), yc = ld4(xb + p * KS + c0);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float d = at(g, e) * acc[i][4 * h + e] - at(av, e) - at(yc, e) * at(bv, e);
+          rb[4 * h + e] += d;
+#pragma unroll
+          for (int tap = 0; tap < 9; ++tap) rw[4 * h + e][tap] = fmaf(patch[tap], d, rw[4 * h + e][tap]);
+        }
+      }
+    }
+    if (false) {""", 1),
+    ("  float* red = smem_e;  // [S][10][CP]\n", """  {
+    float* rr = smem_e;  // [PG][10][CP]
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = (j / 4) * P::H + 4 * cg + j % 4;
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) rr[(pg * 10 + tap) * CP + c] = rw[j][tap];
+      rr[(pg * 10 + 9) * CP + c] = rb[j];
+    }
+    __syncthreads();
+    float* ps = partials + (long long)blockIdx.x * 10 * C;
+    for (int i = tid; i < 10 * C; i += kThreads) {
+      float v = 0.0f;
+      for (int g = 0; g < P::PG; ++g) v += rr[(g * 10 + i / C) * CP + i % C];
+      ps[i] = v;
+    }
+    return;
+  }
+  float* red = smem_e;  // [S][10][CP]
+""", 1),
+)
+
+
+class _Swapped:
+    """A library whose K5b2 float32 entries come from `variant`, the rest
+    from `main`."""
+
+    def __init__(self, variant, main):
+        self.variant, self.main = variant, main
+
+    def __getattr__(self, name):
+        own = name in ("dcase_entry_block_bwd_wgrad", "dcase_entry_block_bwd_wgrad_resident")
+        return getattr(self.variant if own else self.main, name)
+
+
+def ablation_bounds():
+    """Print the bounds of the three ablation modes of K4f's kernel
+    (`entry_conv_kernel<MODE>`, the Pallas ablations of
+    tools/bench_entry_conv.py:171, timed by tools/bench_entry_conv_torch.py)
+    at the flagship block-1 shape, from chip_smoke.py's byte and operation
+    counts of K4f and K5s: statistics only (x read; the conv and the sums,
+    as K5s), one tap (x read, y written; one FMA an element and the sums)
+    and the bias written alone (y written)."""
+    import chip_smoke as cs
+    from dcase2019_task4_tpu_torch.config import Config
+
+    cfg = Config()
+    B, T, Fq, C = cfg.train.batch_size, cfg.dsp.max_frames, cfg.dsp.n_mels, cfg.model.nb_filters[0]
+    pixels = B * T * Fq
+    x_bytes, y_bytes, small = pixels * 4, pixels * C * 4, (10 * C + C * C + 5 * C) * 4
+    modes = (("stats only (K5s's counts)", x_bytes + small, 2.0 * 9 * pixels * C + 3.0 * pixels * C),
+             ("one tap", x_bytes + y_bytes + small, 2.0 * pixels * C + 3.0 * pixels * C),
+             ("write only", y_bytes + small, 0.0))
+    print(f"  ablation bounds of entry_conv_kernel at {[B, T, Fq, C]}: " + "; ".join(
+        f"{name} {cs.bound_ms(n_bytes, n_ops)[0]:.4f} ms by {cs.bound_ms(n_bytes, n_ops)[1]}"
+        for name, n_bytes, n_ops in modes))
+
+
 def variants(device):
     """Device ms (the profiler) and ms (CUDA events around ten calls in a
     row, a tenth of it) of other launch plans at the flagship shape, each
-    plan in turn and then in reverse order: K5b1 float32 with one of its
-    slots (K2b's) a block and with one dout buffer; K5f bfloat16 with 1056
-    blocks. Each output held to the as-built kernel's bits."""
+    plan in turn and then in reverse order: K5f float32 with 1056 blocks
+    (the earlier kernel's per-clip grid), K5b2 float32 with 528 blocks (the
+    earlier kernel's slots) and with one dout buffer; then K5b2 float32
+    with dW in registers (DW_IN_REGISTERS, its own library) beside the
+    as-built kernel, by CUDA events. K5f's output held to the as-built
+    kernel's bits, K5b2's dW and d conv_b to 1e-6 of their max (d conv_b with
+    a floor of 1e-6 of dW's: another plan sums in another order)."""
     import torch
 
     import chip_smoke as cs
@@ -386,42 +554,68 @@ def variants(device):
     from dcase2019_task4_tpu_torch.ops import fused_entry_block as fe
 
     x, dout, vecs, pool, eps, rate, seed = flagship_inputs(device, torch.float32)
-    reduce = lambda: fe.entry_block_bwd_reduce(x, dout, *vecs, pool, eps, rate=rate, seed=seed)  # noqa: E731
-    xb, _, vecs_b, _, _, _, _ = flagship_inputs(device, torch.bfloat16)
-    forward = lambda: fe.entry_block_fwd(xb, *vecs_b, pool, eps, rate=rate, seed=seed)  # noqa: E731
-    built = {"K5b1 float32": reduce(), "K5f bf16 dropout": [forward()]}
+    kw = dict(rate=rate, seed=seed)
+    forward = lambda: fe.entry_block_fwd(x, *vecs, pool, eps, **kw)  # noqa: E731
+    red = fe.entry_block_bwd_reduce(x, dout, *vecs, pool, eps, **kw)
+    a, b2 = fb.bwd_coefficients(vecs[2], vecs[5], eps, red[2], red[3], x.numel())
+    wgrad = lambda: fe.entry_block_bwd_wgrad(x, dout, *vecs, a, b2, pool, eps, **kw)  # noqa: E731
+    built = {"K5f float32 dropout": [forward()], "K5b2 float32": wgrad()}
 
     def held(name, outs):
         outs = outs if isinstance(outs, (tuple, list)) else [outs]
-        if not all(torch.equal(p, q) for p, q in zip(outs, built[name])):
-            raise AssertionError(f"{name} depends on its launch plan")
-        return "bit-equal to the as-built kernel"
+        if name.startswith("K5f"):
+            if not all(torch.equal(p, q) for p, q in zip(outs, built[name])):
+                raise AssertionError(f"{name} depends on its launch plan")
+            return "bit-equal to the as-built kernel"
+        floor = 1e-6 * built[name][0].abs().max().item()
+        errs = [(p - q).abs().max().item() / (1e-6 * q.abs().max().item() + (floor if k else 0.0))
+                for k, (p, q) in enumerate(zip(outs, built[name]))]
+        if not max(errs) <= 1.0:
+            raise AssertionError(f"{name}: another plan moves dW or d conv_b by more than 1e-6 of max")
+        return f"within {max(errs):.3f} of the 1e-6-of-max bar of the as-built kernel"
 
     def timed(fn):
         return cs.time_ms(lambda: [fn() for _ in range(10)]) / 10
 
-    B, T, Fq = x.shape
-    tiles = _build.library().dcase_bn_glu_pool_tiles(T, Fq, *pool)
-    per_clip = -(-tiles // fb._tiles_per_block(tiles, B, fb._TARGET_BLOCKS_BWD)) * B
-    per_clip_fwd = -(-tiles // fb._tiles_per_block(tiles, B, fe._TARGET_BLOCKS)) * B
-    grid, plan = fe.wave_grid, fe.f32_reduce_plan
+    grid, plan = fe.wave_grid, fe.f32_wgrad_plan
     one_buffer = lambda C, p: (1,) + plan(C, p)[1:]  # noqa: E731
-    cases = (("K5b1 float32", reduce, "as built (one wave over K2b's slots)", grid, plan),
-             ("K5b1 float32", reduce, f"{per_clip} blocks (one of K2b's slots a block)", lambda *a, **k: per_clip, plan),
-             ("K5b1 float32", reduce, "one dout buffer", grid, one_buffer),
-             ("K5f bf16 dropout", forward, "as built (one wave)", grid, plan),
-             ("K5f bf16 dropout", forward, f"{per_clip_fwd} blocks (the per-clip count at _TARGET_BLOCKS)",
-              lambda *a, **k: per_clip_fwd, plan))
+    cases = (("K5f float32 dropout", forward, "as built (one wave)", grid, plan),
+             ("K5f float32 dropout", forward, "1056 blocks (the earlier per-clip grid)", lambda *a, **k: 1056, plan),
+             ("K5b2 float32", wgrad, "as built (one wave)", grid, plan),
+             ("K5b2 float32", wgrad, "528 blocks (the earlier kernel's slots)", lambda *a, **k: 528, plan),
+             ("K5b2 float32", wgrad, "one dout buffer", grid, one_buffer))
     print("  launch plans at the flagship shape, each timed in turn and again in reverse order (device ms from "
           "the profiler; ms by CUDA events around ten calls in a row):")
     try:
         for name, call, label, g, p in cases + cases[::-1]:
-            fe.wave_grid, fe.f32_reduce_plan = g, p
+            fe.wave_grid, fe.f32_wgrad_plan = g, p
             cs.PROFILER["lost"] = False
             print(f"    {name}, {label}: device {cs.shown(cs.device_ms(call))}, events {timed(call):.4f} "
                   f"({held(name, call())})")
     finally:
-        fe.wave_grid, fe.f32_reduce_plan = grid, plan
+        fe.wave_grid, fe.f32_wgrad_plan = grid, plan
+
+    # dW's placement: the registers variant from its own library, by CUDA
+    # events only (the profiler traces nothing once a second CUDA library is
+    # loaded), in turn with the as-built kernel and again in reverse order
+    import bench_k2_bf16_torch as k2
+
+    (_, lib, ptxas), = k2.ablation_libraries((("dW in registers", DW_IN_REGISTERS),), "entry_block_bwd_wgrad_f32",
+                                             "entry_block.cu")
+    print("  K5b2 float32 with dW in registers (one block an SM): ptxas " + " | ".join(ptxas))
+    if lib is None:
+        return
+    main_lib = _build.library
+    swapped = _Swapped(lib, main_lib())
+    try:
+        for label in ("as built (dW from the dy tile)", "dW in registers", "dW in registers",
+                      "as built (dW from the dy tile)"):
+            _build.library = (lambda: swapped) if label == "dW in registers" else main_lib
+            fe._resident.cache_clear()
+            print(f"    K5b2 float32, {label}: events {timed(wgrad):.4f} ({held('K5b2 float32', wgrad())})")
+    finally:
+        _build.library = main_lib
+        fe._resident.cache_clear()
 
 
 def main() -> int:
@@ -463,7 +657,8 @@ def main() -> int:
     if not args.no_tests:
         tests = subprocess.run([sys.executable, "-m", "pytest", "tests/test_torch_kernels_gpu.py", "-q", "-s",
                                 "-p", "no:randomly", "-k",
-                                "entry_reduce_f32 or entry_fwd_bf16 or entry_bwd_bf16 or entry_block_bf16"],
+                                "entry_reduce_f32 or entry_fwd_f32 or entry_wgrad_f32 or crows_float32 or "
+                                "entry_fwd_bf16 or entry_bwd_bf16 or entry_block_bf16"],
                                cwd=REPO, capture_output=True, text=True)
         print(tests.stdout[-3000:], tests.stderr[-2000:])
         if tests.returncode != 0:
@@ -473,11 +668,15 @@ def main() -> int:
     sm = _build.sm_count(0)
     for C in (16, 64, 96, 128):
         for pool in ((2, 4), (1, 1)):
-            buffers, drows, nbytes = fe.f32_reduce_plan(C, pool)
-            print(f"K5b1 float32 at C = {C}, pool {pool}: {buffers} buffer(s) of {drows} dout rows, {nbytes} bytes; "
-                  f"{fe._resident(0, 'reduce_f32', C, buffers, drows)} blocks held at once on {sm} SMs")
-        print(f"K5f bf16 at C = {C}: {fe.fwd_bf16_plan(C)} bytes; {fe._resident(0, 'fwd_bf16', C)} blocks held at once")
+            for what, planned, kernel in (("K5b1", fe.f32_reduce_plan, "reduce_f32"),
+                                          ("K5b2", fe.f32_wgrad_plan, "wgrad_f32")):
+                buffers, drows, nbytes = planned(C, pool)
+                print(f"{what} float32 at C = {C}, pool {pool}: {buffers} buffer(s) of {drows} dout rows, {nbytes} "
+                      f"bytes; {fe._resident(0, kernel, C, buffers, drows)} blocks held at once on {sm} SMs")
+        print(f"K5f float32 at C = {C}: {fe.fwd_f32_plan(C)} bytes; {fe._resident(0, 'fwd_f32', C)} blocks held at "
+              f"once; K5f bf16: {fe.fwd_bf16_plan(C)} bytes; {fe._resident(0, 'fwd_bf16', C)} blocks held at once")
     kernel_rows(device)
+    ablation_bounds()
     same = True
     if args.against:
         same = against(args.against)
