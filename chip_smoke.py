@@ -270,6 +270,11 @@ ALIASES = {name + "_flagship": name for name in SCALED_ROWS + ("bwd_fixup_recomp
 SAME_KERNEL = {"crows_stats": "entry_block_stats", "crows_fwd": "entry_block_fwd_train",
                "crows_bwd_reduce": "entry_block_bwd_reduce", "crows_bwd_wgrad": "entry_block_bwd_wgrad",
                "crows_bwd_reduce_bf16": "entry_block_bwd_reduce_bf16"}
+# the CUDA kernel of a row of the conv alone (in csrc/entry_block.cu)
+KERNEL_NAMES = {"entry_conv": "entry_conv_kernel<0>", "entry_block_stats": "entry_conv_kernel<1>",
+                "crows_stats": "entry_conv_kernel<1>", "entry_conv_bf16": "entry_conv_bf16_kernel<true>",
+                "entry_block_stats_bf16": "entry_conv_bf16_kernel<false>",
+                "crows_stats_bf16": "entry_conv_bf16_kernel<false>"}
 # Launches each path makes: exactly these on predict (two batches) and on one
 # MT step (teacher forward, student forward and backward), and none of a
 # kernel the path has no entry for.
@@ -1600,6 +1605,27 @@ def entry_pool_slack(y, scale, bias, mean, var, w, b, pool, eps, mask=None, keep
     return bf16_ulp(top) + (flip_slack(xn_max, w_max) + sum_slack(C, xn_max, w_max)) / (keep * pt * pf) + y_flip
 
 
+def conv9_order_bf16(conv, x):
+    """The bfloat16 entry conv formed in conv9's order (csrc/entry_block.cu):
+    y = bf16(((cb + x00 w00) + x01 w01) + ...), the taps dt-major, in
+    float32 tensor operations on x's device. A product of a bfloat16 x and
+    a bfloat16-rounded weight is exact in float32, so each step rounds once,
+    as an FMA does: the kernels' y to the bit."""
+    import torch
+    import torch.nn.functional as F
+
+    from dcase2019_task4_tpu_torch.ops import _build
+
+    B, T, Fq = x.shape
+    w = _build.round_to(conv["w"], torch.bfloat16)
+    xp = F.pad(x.float(), (1, 1, 1, 1))
+    y = conv["b"].float().expand(B, T, Fq, -1).contiguous()
+    for dt in range(3):
+        for df in range(3):
+            y = y + xp[:, dt:dt + T, df:df + Fq, None] * w[dt, df, 0]
+    return y.to(torch.bfloat16)
+
+
 def entry_bf16_kernels(device, rows, rng):
     """Phase 3 for the bfloat16 modes of the entry-block family at the
     flagship block-1 shape (x [B, 864, 64] -> y [B, 864, 64, 64] -> pooled
@@ -1657,17 +1683,30 @@ def entry_bf16_kernels(device, rows, rng):
                   library_fn=lambda: L.conv2d(w_oihw, conv["b"], x[..., None]))
     rows["entry_conv_bf16"].add(shape, res, x_bytes + y_bytes + small, 3.0 * pixels * C, conv_ops)
     y, s1, s2 = ec.entry_conv_forward(conv, x)
+    if not torch.equal(y, conv9_order_bf16(conv, x)):
+        raise AssertionError("K4f bf16 y differs from the y formed in conv9's order (K5f bf16 = K4f -> K2f rests on it)")
+    print("  K4f bf16 y equals, bit for bit, the y formed in conv9's order on the card")
+    # K5s: the bound counts the conv on bfloat16 operands at the tensor cores'
+    # rate; the kernel's conv stays in conv9's order of FP32 FMAs (K5f bf16's
+    # bits rest on it), whose floor, the conv at the FP32 rate, is printed too
     res = compare(f"K5s entry_block_stats bf16 {shape} (sum, sum of squares of the rounded y; y not written)",
                   lambda: fe.entry_block_stats_apply(conv, x), lambda: ec.entry_conv_reference(conv, x)[1:],
                   rtol_of_max=1e-5, repeat=True)
     rows["entry_block_stats_bf16"].add(shape, res, x_bytes + small, 3.0 * pixels * C, conv_ops)
+    floor = bound_ms(x_bytes + small, conv_ops + 3.0 * pixels * C)[0]
+    print(f"  K5s bf16 {shape}: floor of a conv of FP32 FMAs {floor:.4f} ms, beside its bound "
+          f"{bound_ms(x_bytes + small, 3.0 * pixels * C, conv_ops)[0]:.4f} ms")
     k2s = fb.batch_stats(y)
-    for name, sums in (("K4f", (s1, s2)), ("K5s", fe.entry_block_stats_apply(conv, x))):
+    stats = fe.entry_block_stats_apply(conv, x)
+    if not all(torch.equal(p, q) for p, q in zip(stats, (s1, s2))):
+        raise AssertionError("K5s bf16 sums differ from K4f bf16's: the two modes must split the batch alike")
+    for name, sums in (("K4f", (s1, s2)), ("K5s", stats)):
         for got, want in zip(sums, k2s):
             err, limit = (got - want).abs().max().item(), 1e-6 * want.abs().max().item()
             if not err <= limit:
                 raise AssertionError(f"{name} bf16 sums against batch_stats(y): {err} exceeds {limit}")
-    print("  K4f and K5s bf16 sums equal K2s batch_stats of the stored bfloat16 y within 1e-6 of max")
+    print("  K5s bf16 sums equal K4f bf16's bit for bit, and both K2s batch_stats of the stored bfloat16 y within "
+          "1e-6 of max")
     mean = s1 / float(pixels)
     var = s2 / float(pixels) - mean * mean
 
@@ -2924,6 +2963,7 @@ BLOCK1_KERNELS = {
 }
 BLOCK1_KERNELS["step_crows"] = BLOCK1_KERNELS["step_entry_block"]
 BF16_NAMES = {"bn_glu_pool_kernel": "bn_glu_pool_bf16_kernel", "bn_glu_pool_bwd_kernel": "bn_glu_pool_bwd_bf16_kernel",
+              "entry_conv_kernel": "entry_conv_bf16_kernel",
               "entry_block_fwd_f32_kernel": "entry_block_fwd_bf16_kernel",
               "entry_block_bwd_reduce_f32_kernel": "entry_block_bwd_reduce_bf16_kernel",
               "entry_block_bwd_wgrad_f32_kernel": "entry_block_bwd_wgrad_bf16_kernel"}
@@ -3053,12 +3093,14 @@ MMA_KERNELS = ("conv3x3_bf16_kernel", "conv3x3_wgrad_bf16_kernel", "bn_glu_pool_
 # the float32 products redesigned as register-tiled FP32 FMAs: FFMA, and no
 # tensor-core instruction (no TF32); bn_glu_pool_kernel is K2f's float32
 # forward alone, bn_glu_pool_bwd_kernel K2b's float32 reduce pass alone,
-# bn_bwd_fixup_recompute_kernel its float32 recompute fixup alone and
-# entry_block_*_f32_kernel K5's three float32 kernels (no name here is a
-# substring of another listed name)
+# bn_bwd_fixup_recompute_kernel its float32 recompute fixup alone,
+# entry_block_*_f32_kernel K5's three float32 kernels and
+# entry_conv_bf16_kernel K4f / K5s on bfloat16 x, whose conv stays FP32 FMAs
+# in conv9's order (no name here is a substring of another listed name)
 FFMA_KERNELS = ("fused_stft_mel_onedot_kernel", "conv3x3_wgrad_kernel", "conv3x3_nhwc_kernel",
                 "bn_glu_pool_bwd_kernel", "bn_glu_pool_kernel", "bn_bwd_fixup_recompute_kernel",
-                "entry_block_bwd_reduce_f32_kernel", "entry_block_fwd_f32_kernel", "entry_block_bwd_wgrad_f32_kernel")
+                "entry_block_bwd_reduce_f32_kernel", "entry_block_fwd_f32_kernel", "entry_block_bwd_wgrad_f32_kernel",
+                "entry_conv_bf16_kernel")
 
 
 def check_mma(path):
@@ -3067,7 +3109,8 @@ def check_mma(path):
     bfloat16 kernels (K2b's recompute fixup and K5's bfloat16 forward too)
     must hold HGMMA (`wgmma`) or HMMA (`mma.sync`), the FP32 product kernels
     (onedot K1, K3's float32 forward / dx and weight gradient, K2f's forward,
-    K2b's reduce pass and recompute fixup, K5's float32 forward and passes) FFMA and
+    K2b's reduce pass and recompute fixup, K5's float32 forward and passes,
+    the bfloat16 K4f / K5s conv) FFMA and
     neither HGMMA nor HMMA. FFMA counts the float32 FMAs on the CUDA
     cores."""
     from dcase2019_task4_tpu_torch.ops import _build
@@ -3162,6 +3205,8 @@ def main() -> int:
         })
         if name in SAME_KERNEL:
             report[-1]["same_kernel_as"] = SAME_KERNEL[name]
+        if name in KERNEL_NAMES:
+            report[-1]["kernel"] = KERNEL_NAMES[name]
     for helper, counter in zip(helpers, ("launches", "launches_packed")):  # as counted over phases 4 and 5
         helper["launches"] = getattr(fused_block.dropout_mask, counter)
         if helper["launches"] != 0:

@@ -10,10 +10,13 @@
 //                                                 channels on TPU sublanes
 // by one kernel family:
 //   entry_conv_kernel<MODE>        conv + bias, y stored, per-channel sum y and
-//                                  sum y^2 (K4f); MODE 1 compiles the store out
-//                                  (K5s / K6s: statistics of a y that is never
-//                                  written); MODE 2 and 3 are the ablations of
-//                                  tools/bench_entry_conv_torch.py
+//                                  sum y^2 (K4f), float32; MODE 1 compiles the
+//                                  store out (K5s / K6s: statistics of a y that
+//                                  is never written); MODE 2 and 3 are the
+//                                  ablations of tools/bench_entry_conv_torch.py
+//   entry_conv_bf16_kernel<kStore>
+//                                  the same on bfloat16 x (K4f with kStore,
+//                                  K5s / K6s without), one wave of equal runs
 //   entry_conv_wgrad_kernel        dW = patches^T . dy, db = sum dy (K4w)
 //   entry_block_fwd_f32_kernel     conv -> BN -> GLU -> dropout -> pool (K5f),
 //                                  float32, on FP32 register tiles;
@@ -50,8 +53,11 @@
 // (DCASE_DROPOUT_PACK), regenerated in both backward passes.
 //
 // Bound at the flagship shape (x [24, 864, 64], C = 64): K4f writes y (340 MB,
-// 0.10 ms at 3.35 TB/s) for 1.8 GFLOP: bytes. K4w reads dy: bytes. K5s moves
-// 5 MB for 1.8 GFLOP with the sums: operations (0.03 ms). K5f moves 48 MB for
+// 0.10 ms at 3.35 TB/s; bfloat16 170 MB, 0.05 ms) for 1.8 GFLOP: bytes. K4w
+// reads dy: bytes. K5s moves 5 MB for 1.8 GFLOP with the sums: operations
+// (0.03 ms at the FP32 rate; in bfloat16 0.005 ms at the tensor cores' rate,
+// below the 0.03 ms that its conv in conv9's order of FP32 FMAs, on which K5f
+// bfloat16's bits rest, can reach). K5f moves 48 MB for
 // the conv and one 64x64 channel product per pixel (13.4 GFLOP with the
 // elementwise chain, 0.20 ms at 67 TFLOP/s): operations. Pass 1 needs the
 // conv once and three channel products (lin, dxn, d glu_w: 36.0 GFLOP with
@@ -63,10 +69,13 @@
 // Design: a tile is whole time rows of up to 128 pixels, whole pooling rows
 // in the fused kernels (the tiling of fused_block.cu). Per tile a block
 // stages x with a one-cell halo, zeros outside the tensor, into shared
-// memory: (rows + 2) x (F + 2) floats. K4 and K5s take one block per (run of
-// pixel tiles, clip): a thread owns four neighbouring channels (their 36
-// weights in registers) of every (256 / (C / 4))-th pixel, stores y as
-// float4 and sums in double. The six K5 kernels with a channel product
+// memory: (rows + 2) x (F + 2) floats. K4 and K5s in float32 take one block
+// per (run of pixel tiles, clip): a thread owns four neighbouring channels
+// (their 36 weights in registers) of every (256 / (C / 4))-th pixel, stores y
+// as float4 and sums in double. In bfloat16 they run one wave of equal runs
+// of time rows in tiles of several rows, x a tile ahead, each thread forming
+// runs of four pixels from one shared window and summing in float32 a tile
+// (see entry_conv_bf16_kernel). The six K5 kernels with a channel product
 // compute y once a tile, in conv9's order (K4f's), into the tile their K2
 // counterpart stages y into, and run that counterpart's per-tile code on it,
 // over one wave of the resident blocks in equal runs of the batch's tiles:
@@ -152,13 +161,13 @@ __device__ __forceinline__ float conv9(const float* r, int FW, const float (&w)[
 
 // ------------------------------------------------------- K4: the conv alone
 
-// MODE 0: store y and emit the sums. MODE 1: the sums only (y never written).
-// MODE 2: one tap instead of nine (no patch). MODE 3: write the bias only.
-// The sums are those of y rounded to TX, as stored.
-template <int MODE, typename TX>
+// Float32. MODE 0: store y and emit the sums. MODE 1: the sums only (y never
+// written). MODE 2: one tap instead of nine (no patch). MODE 3: write the
+// bias only. bfloat16 x goes to entry_conv_bf16_kernel below.
+template <int MODE>
 __global__ void __launch_bounds__(kThreads)
-entry_conv_kernel(const TX* __restrict__ x, const float* __restrict__ w,
-                  const float* __restrict__ cb, TX* __restrict__ y,
+entry_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                  const float* __restrict__ cb, float* __restrict__ y,
                   double* __restrict__ partials, int T, int F, int C, int rows,
                   int tiles_per_block) {
   __shared__ float xt[kHalo];
@@ -198,10 +207,9 @@ entry_conv_kernel(const TX* __restrict__ x, const float* __restrict__ w,
         if (MODE == 3) v[k] = br[k];
         else if (MODE == 2) v[k] = fmaf(r[FW + 1], wr[k][4], br[k]);
         else v[k] = conv9(r, FW, wr[k], br[k]);
-        v[k] = rounded<TX>(v[k]);
       }
       if (MODE != 1)
-        Vec4<TX>::store(y + (((long long)b * T + t0) * F + p) * C + 4 * lane,
+        Vec4<float>::store(y + (((long long)b * T + t0) * F + p) * C + 4 * lane,
                         make_float4(v[0], v[1], v[2], v[3]));
       if (MODE != 3) {
 #pragma unroll
@@ -300,6 +308,202 @@ entry_conv_wgrad_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
       for (int g = cl; g < groups; g += classes) t += red[g * 10 * C + i];
       partials[((long long)slot * classes + cl) * 10 * C + i] = t;
     }
+}
+
+// ------------------------------------- K4f / K5s in bfloat16: one wave
+
+// y = bf16(conv9 + cb) of bfloat16 x, stored (kStore: K4f) or not (K5s, K6's
+// statistics), with the per-channel sums of the rounded y. The function of
+// entry_conv_kernel<0 | 1, bf16>, which it replaces; y is the same bits (the
+// FMAs in conv9's order on exact products), the sums differ in their last
+// bits (another order of the float32 and float64 additions).
+//
+// Launch plan: one wave of the resident blocks (the wrapper sizes it from
+// dcase_entry_conv_bf16_resident, the fewer of the two modes', so K4f and
+// K5s split alike and give the same sums), block k of G taking time rows
+// [k n / G, (k + 1) n / G) of the n = B T rows of the batch, clip after
+// clip, cut into tiles of up to `rows` rows that stay inside a clip (a run's
+// last tile of a clip, and the clip's last tile, shorter). The kernel rounds
+// the float32 weights to bfloat16 itself. Per tile: x with its one-cell
+// halo, zeros outside the tensor, as float32 [trows + 2][FS] (FS =
+// conv_stride(F): every run's window in the row, a multiple of four floats)
+// in one of two buffers, loaded into registers during the previous tile; one
+// barrier. A thread owns kConvChans neighbouring channels (their 9
+// kConvChans weights in registers) and takes runs of kConvRun pixels along
+// f: it reads the run's 3 x (kConvRun + 2) window with three 16-byte and
+// three 8-byte shared loads and forms kConvChans kConvRun outputs from it
+// (conv_run), stores each pixel's kConvChans channels at once (8 bytes) and
+// sums y and y^2 in float32. Once
+// a tile it adds those sums to its float64 sums in shared memory; at the end
+// the block adds its threads' sums in a fixed order into its slot [2C]
+// (float64), which fold_warps_kernel adds in a fixed order. A run repeats
+// bit for bit.
+constexpr int kConvThreads = 128;  // threads of a block
+constexpr int kConvRun = 4;        // neighbouring pixels along f a thread forms from one window
+constexpr int kConvChans = 4;      // neighbouring channels a thread forms
+constexpr int kConvHalo = 1024;    // floats of a staged x tile, at most
+constexpr int kConvNX = kConvHalo / kConvThreads;  // x values a thread loads a tile ahead
+
+// Row stride of a staged x tile: the runs' windows of a row (kConvRun
+// ceil(F / kConvRun) + 2 floats), rounded up to four.
+__host__ __device__ inline int conv_stride(int F) { return kConvRun * ((F + kConvRun - 1) / kConvRun) + 4; }
+
+// One run of kConvRun pixels from its window win [3][kConvRun + 2]: every
+// tap of all kConvRun x kConvChans outputs before the next (kConvRun
+// kConvChans independent FMA chains; each output still adds the bias, then
+// the taps dt-major: conv9's order), then per pixel bf16(y), its kConvChans
+// channels stored at yp + j C (kStore) and added to the float32 sums s (y) and q (y^2). N: the pixels
+// kept, kConvRun, or 0 for the first n of them (a run cut by F; past F the
+// window holds zeros and the outputs are dropped).
+template <bool kStore, int N>
+__device__ __forceinline__ void conv_run(const float (&win)[3][kConvRun + 2], const float (&wr)[kConvChans][9],
+                                         const float (&br)[kConvChans], float (&s)[kConvChans],
+                                         float (&q)[kConvChans], bf16* yp, int C, int n = kConvRun) {
+  float acc[kConvRun][kConvChans];
+#pragma unroll
+  for (int j = 0; j < kConvRun; ++j)
+#pragma unroll
+    for (int k = 0; k < kConvChans; ++k) acc[j][k] = br[k];
+#pragma unroll
+  for (int dt = 0; dt < 3; ++dt)
+#pragma unroll
+    for (int df = 0; df < 3; ++df)
+#pragma unroll
+      for (int j = 0; j < kConvRun; ++j)
+#pragma unroll
+        for (int k = 0; k < kConvChans; ++k) acc[j][k] = fmaf(win[dt][j + df], wr[k][dt * 3 + df], acc[j][k]);
+#pragma unroll
+  for (int j = 0; j < kConvRun; ++j) {
+    if (N == 0 && j >= n) break;
+    uint32_t packed[kConvChans / 2];
+#pragma unroll
+    for (int k = 0; k < kConvChans; k += 2) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(acc[j][k], acc[j][k + 1]);
+      const uint32_t u = *reinterpret_cast<const uint32_t*>(&h);
+      packed[k / 2] = u;
+      const float lo = __uint_as_float(u << 16), hi = __uint_as_float(u & 0xffff0000u);  // y as stored
+      s[k] += lo;
+      q[k] = fmaf(lo, lo, q[k]);
+      s[k + 1] += hi;
+      q[k + 1] = fmaf(hi, hi, q[k + 1]);
+    }
+    if constexpr (kStore) *reinterpret_cast<uint2*>(yp + j * C) = make_uint2(packed[0], packed[1]);
+  }
+}
+
+// 4 blocks an SM (up to 128 registers). tools/bench_k5_torch.py --variants
+// times eight channels a thread (16-byte stores, two blocks an SM) as an
+// edit of this source.
+template <bool kStore>
+__global__ void __launch_bounds__(kConvThreads, 4)
+entry_conv_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ w, const float* __restrict__ cb,
+                       bf16* __restrict__ y, double* __restrict__ partials, int B, int T, int F, int C, int rows) {
+  __shared__ __align__(16) float xs[2][kConvHalo];
+  __shared__ double dsum[2 * kConvChans][kConvThreads];  // per thread: its float64 sums of y, then of y^2
+  const int tid = threadIdx.x;
+  const int lanes = C / kConvChans, groups = kConvThreads / lanes;
+  const int c0 = kConvChans * (tid % lanes), grp = tid / lanes;
+  const bool active = grp < groups;
+  const int FS = conv_stride(F), RW = (F + kConvRun - 1) / kConvRun;
+
+  float wr[kConvChans][9], br[kConvChans];  // the weights rounded to bfloat16 (exact products with x), the bias
+#pragma unroll
+  for (int k = 0; k < kConvChans; ++k) {
+    br[k] = active ? cb[c0 + k] : 0.0f;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) wr[k][tap] = active ? rounded<bf16>(w[tap * C + c0 + k]) : 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k < 2 * kConvChans; ++k) dsum[k][tid] = 0.0;
+
+  // this block's time rows and its first tile
+  const long long n = (long long)B * T;
+  const int r_end = (int)((blockIdx.x + 1) * n / gridDim.x);
+  int cur = (int)(blockIdx.x * n / gridDim.x);
+  auto trows_at = [&](int r) { return min(min(rows, T - r % T), r_end - r); };
+
+  // x of the tile at row r into registers: cell i = tid + j kConvThreads of
+  // the [trows + 2][FS] tile, at (i / FS, i % FS), stepped without a divide
+  const int r_first = tid / FS, q_first = tid % FS, dr = kConvThreads / FS, dq = kConvThreads % FS;
+  auto load = [&](float (&xr)[kConvNX], int r) {
+    const int b = r / T, t0 = r % T, cells = (trows_at(r) + 2) * FS;
+    const bf16* xb = x + (long long)b * T * F;
+    int rr = r_first, q = q_first;
+#pragma unroll
+    for (int j = 0; j < kConvNX; ++j) {
+      const int t = t0 - 1 + rr, f = q - 1;
+      xr[j] = tid + j * kConvThreads < cells && t >= 0 && t < T && f >= 0 && f < F
+                  ? __bfloat162float(xb[t * F + f]) : 0.0f;
+      rr += dr;
+      q += dq;
+      if (q >= FS) {
+        q -= FS;
+        ++rr;
+      }
+    }
+  };
+
+  float xr[kConvNX];
+  if (cur < r_end) load(xr, cur);
+  for (int buf = 0; cur < r_end; buf ^= 1) {
+    const int b = cur / T, t0 = cur % T, trows = trows_at(cur);
+    float* xt = xs[buf];
+#pragma unroll
+    for (int j = 0; j < kConvNX; ++j)
+      if (tid + j * kConvThreads < (trows + 2) * FS) xt[tid + j * kConvThreads] = xr[j];
+    __syncthreads();  // x in place; every thread is done with this buffer's tile before last
+    cur += trows;
+    if (cur < r_end) load(xr, cur);  // the next tile's x, in flight during this tile
+    if (!active) continue;
+
+    float s[kConvChans], q[kConvChans];
+#pragma unroll
+    for (int k = 0; k < kConvChans; ++k) s[k] = q[k] = 0.0f;
+    // runs u = grp, grp + groups, ... of the tile's trows RW: row u / RW, first pixel kConvRun (u % RW)
+    int row = grp / RW, col = grp % RW;
+    const int drow = groups / RW, dcol = groups % RW;
+    for (; row < trows;) {
+      const float* xw = xt + row * FS + kConvRun * col;
+      float win[3][kConvRun + 2];
+#pragma unroll
+      for (int dt = 0; dt < 3; ++dt) {
+        const float4 a = *reinterpret_cast<const float4*>(xw + dt * FS);
+        const float2 e = *reinterpret_cast<const float2*>(xw + dt * FS + 4);
+        win[dt][0] = a.x;
+        win[dt][1] = a.y;
+        win[dt][2] = a.z;
+        win[dt][3] = a.w;
+        win[dt][4] = e.x;
+        win[dt][5] = e.y;
+      }
+      const int f0 = kConvRun * col;
+      bf16* yp = kStore ? y + (((long long)b * T + t0 + row) * F + f0) * C + c0 : nullptr;
+      if (f0 + kConvRun <= F)
+        conv_run<kStore, kConvRun>(win, wr, br, s, q, yp, C);
+      else  // the row's last run, cut by F
+        conv_run<kStore, 0>(win, wr, br, s, q, yp, C, F - f0);
+      row += drow;
+      col += dcol;
+      if (col >= RW) {
+        col -= RW;
+        ++row;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kConvChans; ++k) {  // this tile's float32 sums into the thread's float64 ones
+      dsum[k][tid] += (double)s[k];
+      dsum[kConvChans + k][tid] += (double)q[k];
+    }
+  }
+
+  // the block's slot: its threads' sums, added in group order
+  __syncthreads();
+  for (int i = tid; i < 2 * C; i += kConvThreads) {
+    const int sq = i / C, c = i % C, l = c / kConvChans, k = c % kConvChans;
+    double t = 0.0;
+    for (int g = 0; g < groups; ++g) t += dsum[sq * kConvChans + k][g * lanes + l];
+    partials[(long long)blockIdx.x * 2 * C + i] = t;
+  }
 }
 
 // --------------------------------- K5b1 in float32: K2b's register tiles
@@ -1212,7 +1416,7 @@ cudaError_t fold_wgrad(const float* partials, float* out, int slots, int width, 
                                         width, n_round, stream);
 }
 
-template <int MODE, typename TX>
+template <int MODE>
 int launch_entry_conv(const void* x, const float* w, const float* cb, void* y,
                       double* partials, float* sums, int B, int T, int F, int C,
                       int tiles_per_block, cudaStream_t stream) {
@@ -1220,24 +1424,52 @@ int launch_entry_conv(const void* x, const float* w, const float* cb, void* y,
   const dim3 grid = tile_grid(B, T, rows, tiles_per_block);
   const int groups = kThreads / (C / 4);
   const size_t smem = sizeof(double) * (size_t)groups * 2 * C;
-  entry_conv_kernel<MODE, TX><<<grid, kThreads, smem, stream>>>(
-      static_cast<const TX*>(x), w, cb, static_cast<TX*>(y), partials, T, F, C, rows, tiles_per_block);
+  entry_conv_kernel<MODE><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(x), w, cb, static_cast<float*>(y), partials, T, F, C, rows, tiles_per_block);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_fold<double>(partials, sums, (int)(grid.x * grid.y), 2 * C, stream);
 }
 
-template <typename TX>
-int launch_entry_conv_mode(int mode, const void* x, const float* w, const float* cb, void* y,
-                           double* partials, float* sums, int B, int T, int F, int C,
-                           int tiles_per_block, cudaStream_t st) {
+int launch_entry_conv_f32(int mode, const void* x, const float* w, const float* cb, void* y, double* partials,
+                          float* sums, int B, int T, int F, int C, int tiles_per_block, cudaStream_t st) {
   switch (mode) {
-    case 0: return launch_entry_conv<0, TX>(x, w, cb, y, partials, sums, B, T, F, C, tiles_per_block, st);
-    case 1: return launch_entry_conv<1, TX>(x, w, cb, y, partials, sums, B, T, F, C, tiles_per_block, st);
-    case 2: return launch_entry_conv<2, TX>(x, w, cb, y, partials, sums, B, T, F, C, tiles_per_block, st);
-    case 3: return launch_entry_conv<3, TX>(x, w, cb, y, partials, sums, B, T, F, C, tiles_per_block, st);
+    case 0: return launch_entry_conv<0>(x, w, cb, y, partials, sums, B, T, F, C, tiles_per_block, st);
+    case 1: return launch_entry_conv<1>(x, w, cb, y, partials, sums, B, T, F, C, tiles_per_block, st);
+    case 2: return launch_entry_conv<2>(x, w, cb, y, partials, sums, B, T, F, C, tiles_per_block, st);
+    case 3: return launch_entry_conv<3>(x, w, cb, y, partials, sums, B, T, F, C, tiles_per_block, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Blocks of entry_conv_bf16_kernel that one SM holds, the fewer of its two
+// modes' (registers; the shared memory is static).
+cudaError_t conv_bf16_resident(int* resident) {
+  int stored = 0, sums_only = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&stored, entry_conv_bf16_kernel<true>,
+                                                                  kConvThreads, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&sums_only, entry_conv_bf16_kernel<false>, kConvThreads, 0);
+  *resident = stored < sums_only ? stored : sums_only;
+  return err;
+}
+
+// blocks: the grid (one slot each); rows: a tile's time rows, (rows + 2)
+// conv_stride(F) <= kConvHalo: the plan of ops/entry_conv.conv_bf16_plan
+int launch_entry_conv_bf16(bool store, const void* x, const float* w, const float* cb, void* y, double* partials,
+                           float* sums, int B, int T, int F, int C, int blocks, int rows, cudaStream_t st) {
+  if (blocks < 1 || rows < 1 || (rows + 2) * conv_stride(F) > kConvHalo || C % kConvChans != 0 ||
+      (long long)B * T >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  auto* xb = static_cast<const bf16*>(x);
+  auto* yb = static_cast<bf16*>(y);
+  if (store)
+    entry_conv_bf16_kernel<true><<<blocks, kConvThreads, 0, st>>>(xb, w, cb, yb, partials, B, T, F, C, rows);
+  else
+    entry_conv_bf16_kernel<false><<<blocks, kConvThreads, 0, st>>>(xb, w, cb, yb, partials, B, T, F, C, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_fold_warps<double>(partials, sums, blocks, 2 * C, st);
 }
 
 template <typename TX>
@@ -1458,23 +1690,33 @@ inline const float* fp(const void* p) { return static_cast<const float*>(p); }
 extern "C" {
 
 // x: [B, T, F] float32, or bfloat16 when bf16 != 0; w: [3, 3, 1, C] float32
-// (rounded to the element type by the caller); cb: [C] float32; y:
-// [B, T, F, C] in x's type (unused in mode 1); partials: [slots, 2C] float64
-// scratch, slots = B * ceil(tiles / tiles_per_block) with tiles =
-// dcase_bn_glu_pool_tiles(T, F, 1, 1); sums: [2, C] float32 = sum y | sum
-// y^2 of y as stored. F <= 128, C % 4 == 0, C <= 128
+// (rounded to bfloat16 by the caller or, in bfloat16, by the kernel); cb: [C]
+// float32; y: [B, T, F, C] in x's type (unused in mode 1); sums: [2, C]
+// float32 = sum y | sum y^2 of y as stored. F <= 128, C % 4 == 0, C <= 128
 // (ops/entry_conv.py:entry_conv_packable). mode: 0 full, 1 sums only, 2 one
-// tap, 3 bias write only.
+// tap, 3 bias write only (2 and 3 in float32 only).
+// float32: entry_conv_kernel<mode>; grid: the tiles of a clip a block takes
+// (tiles = dcase_bn_glu_pool_tiles(T, F, 1, 1)); partials: [B *
+// ceil(tiles / grid), 2C] float64 scratch; rows unused.
+// bfloat16: entry_conv_bf16_kernel; grid: the blocks (one wave of equal runs
+// of the batch's time rows); partials: [grid, 2C] float64 scratch; rows: a
+// tile's time rows (ops/entry_conv.conv_bf16_plan).
 int dcase_entry_conv(const void* x, const void* w, const void* cb, void* y, void* partials,
-                     void* sums, int B, int T, int F, int C, int mode, int tiles_per_block, int bf16,
+                     void* sums, int B, int T, int F, int C, int mode, int grid, int bf16, int rows,
                      void* stream) {
   auto* pa = static_cast<double*>(partials);
   auto* su = static_cast<float*>(sums);
   auto st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_entry_conv_mode<__nv_bfloat16>(mode, x, fp(w), fp(cb), y, pa, su, B, T, F, C,
-                                                      tiles_per_block, st)
-              : launch_entry_conv_mode<float>(mode, x, fp(w), fp(cb), y, pa, su, B, T, F, C,
-                                              tiles_per_block, st);
+  if (!bf16) return launch_entry_conv_f32(mode, x, fp(w), fp(cb), y, pa, su, B, T, F, C, grid, st);
+  if (mode != 0 && mode != 1) return (int)cudaErrorInvalidValue;
+  return launch_entry_conv_bf16(mode == 0, x, fp(w), fp(cb), y, pa, su, B, T, F, C, grid, rows, st);
+}
+
+// Blocks of the bfloat16 conv that one SM of the current device holds in
+// both modes (0 on an error); the wrapper sizes the grid from it.
+int dcase_entry_conv_bf16_resident() {
+  int resident = 0;
+  return conv_bf16_resident(&resident) == cudaSuccess ? resident : 0;
 }
 
 // x, dy: [B, T, F], [B, T, F, C] in one type (float32, or bfloat16 when

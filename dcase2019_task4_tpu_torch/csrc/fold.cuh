@@ -40,6 +40,32 @@ cudaError_t launch_fold(const TIn* partials, float* out, int slots, int width,
   return cudaGetLastError();
 }
 
+// out[k] = the sum over the slots of partials[s][k], a warp a column: lane l
+// adds slots l, l + 32, ... in that order in double, then the warp adds its
+// lanes' sums in a fixed tree of shuffles. A fixed order (a run repeats bit
+// for bit) with the slots' loads spread over 32 lanes: for many slots
+// (one a block of a wave) where fold_kernel's one thread a column waits on
+// each load in turn.
+template <typename TIn>
+__global__ void __launch_bounds__(kFoldThreads)
+fold_warps_kernel(const TIn* __restrict__ partials, float* __restrict__ out, int slots, int width) {
+  const int k = blockIdx.x * (kFoldThreads / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (k >= width) return;  // the whole warp
+  double t = 0.0;
+#pragma unroll 4
+  for (int s = lane; s < slots; s += 32) t += (double)partials[(long long)s * width + k];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+  if (lane == 0) out[k] = (float)t;
+}
+
+template <typename TIn>
+cudaError_t launch_fold_warps(const TIn* partials, float* out, int slots, int width, cudaStream_t stream) {
+  constexpr int kCols = kFoldThreads / 32;
+  fold_warps_kernel<TIn><<<(width + kCols - 1) / kCols, kFoldThreads, 0, stream>>>(partials, out, slots, width);
+  return cudaGetLastError();
+}
+
 // out[k] = sum over classes c = 0 .. classes-1, in that order, of R(sum over
 // s = 0 .. slots-1, in that order, in double, of partials[c * class_stride +
 // s * slot_stride + k]), where R rounds to TR (and widens back) for

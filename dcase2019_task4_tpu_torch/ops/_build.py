@@ -61,7 +61,8 @@ SIGNATURES = {
     "dcase_bn_bwd_fixup_recompute_resident": (_I, [_I, _I, _I, _I]),
     "dcase_bn_bwd_fixup": (_I, [_P, _P, _P, _P, _P, _LL, _I, _I, _P]),
     "dcase_batch_stats": (_I, [_P, _P, _P, _LL, _I, _I, _I, _P]),
-    "dcase_entry_conv": (_I, [_P] * 6 + [_I] * 7 + [_P]),
+    "dcase_entry_conv": (_I, [_P] * 6 + [_I] * 8 + [_P]),
+    "dcase_entry_conv_bf16_resident": (_I, []),
     "dcase_entry_conv_wgrad": (_I, [_P] * 4 + [_I] * 7 + [_P]),
     "dcase_entry_block_fwd_resident": (_I, [_I]),
     "dcase_entry_block_fwd": (_I, [_P] * 10 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _P]),
@@ -226,6 +227,43 @@ def sm_count(index: int) -> int:
     import torch
 
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def wave_grid(resident: int, B: int, tiles: int, halves: bool = False) -> int:
+    """Blocks of a kernel launched as one wave: the `resident` blocks the
+    card holds, each an equal run of the batch's B · `tiles` tiles (clip
+    after clip; never more blocks than tiles), one partial slot each where
+    it sums. Under `halves` (the crows layout's dW in batch halves) an even
+    number, half of them over each half of the clips."""
+    if halves:
+        return 2 * max(1, min(resident // 2, (B // 2) * tiles))
+    return max(1, min(resident, B * tiles))
+
+
+# the library's entry that counts the blocks an SM holds, by kernel
+RESIDENT_ENTRIES = {"fwd_f32": "dcase_entry_block_fwd_resident", "fwd_bf16": "dcase_entry_block_fwd_bf16_resident",
+                    "reduce_f32": "dcase_entry_block_bwd_reduce_resident",
+                    "wgrad_f32": "dcase_entry_block_bwd_wgrad_resident",
+                    "bwd_bf16": "dcase_entry_block_bwd_bf16_resident",
+                    "conv_bf16": "dcase_entry_conv_bf16_resident"}
+
+
+@functools.cache
+def resident(index: int, kernel: str, *plan) -> int:
+    """Blocks of `kernel` ("fwd_f32" / "fwd_bf16": K5f in float32 /
+    bfloat16, (C,); "reduce_f32" / "wgrad_f32": pass 1 / pass 2 in float32,
+    (C, buffers, drows); "bwd_bf16": a bfloat16 pass, (C, which, buffers,
+    drows); "conv_bf16": K4f / K5s in bfloat16, (), the fewer of its two
+    modes') that device `index` holds at once under its plan: what one SM
+    holds (registers and shared memory, from the CUDA occupancy calculator)
+    times its SMs."""
+    import torch
+
+    with torch.cuda.device(index):
+        blocks = getattr(library(), RESIDENT_ENTRIES[kernel])(*plan)
+    if blocks < 1:
+        raise KernelError(f"{kernel} does not fit an SM under {plan}")
+    return blocks * sm_count(index)
 
 
 def stream_handle(device) -> int:

@@ -7,7 +7,9 @@ tensor every wrapper launches its hand-written kernel in csrc/entry_block.cu
 
   wrapper              kernel                              plain version
   entry_conv_forward   entry_conv_kernel<0> + fold         entry_conv_reference
+                       (bfloat16: entry_conv_bf16_kernel<true> + fold_warps)
   entry_conv_stats     entry_conv_kernel<1> + fold         entry_conv_reference (sums only)
+                       (bfloat16: entry_conv_bf16_kernel<false> + fold_warps)
   entry_conv_wgrad     entry_conv_wgrad_kernel + fold      entry_conv_wgrad_reference
   entry_conv_wgrad_parts  the same launch                 entry_conv_wgrad_parts_reference
   entry_conv_ablation  entry_conv_kernel<2>, <3>           entry_conv_ablation_reference
@@ -45,7 +47,12 @@ import torch.nn.functional as F
 from dcase2019_task4_tpu_torch.ops import _build
 
 _TILE_PIXELS = 128  # csrc/entry_block.cu kPix
-_TARGET_BLOCKS = 1056  # 8 resident blocks on each of the H100's 132 SMs
+_TARGET_BLOCKS = 1056  # float32 conv: 8 resident blocks on each of the H100's 132 SMs
+_CONV_THREADS = 128  # csrc/entry_block.cu kConvThreads: threads of a block of the bfloat16 conv
+_CONV_RUN = 4  # kConvRun: pixels along f a thread of the bfloat16 conv forms at once
+_CONV_CHANS = 4  # kConvChans: channels a thread of the bfloat16 conv forms
+_CONV_HALO = 1024  # kConvHalo: floats of its staged x tile, at most
+_CONV_TILE_PIXELS = 1024  # the pixels its tile aims at (the halo caps it: 13 rows at F = 64)
 _WGRAD_SLOTS = 528  # partial-sum slots of the weight gradient (10·C floats each)
 _MODES = {"full": 0, "stats_only": 1, "no_patch": 2, "write_only": 3}
 
@@ -179,34 +186,67 @@ def _check_cuda(x: torch.Tensor, C: int, what: str):
         raise ValueError(f"{what} kernel does not take freq={x.shape[2]}, channels={C}")
 
 
-def _params_on(params, x):
-    """The weights rounded to x's dtype (held in float32) and the float32
-    bias, on x's device."""
-    w = _build.round_to(params["w"].detach().to(device=x.device, dtype=torch.float32), x.dtype).contiguous()
+def _params_on(params, x, rounded: bool = True):
+    """The weights rounded to x's dtype (held in float32; unrounded where
+    not `rounded`: the bfloat16 conv kernel rounds them itself) and the
+    float32 bias, on x's device."""
+    w = params["w"].detach().to(device=x.device, dtype=torch.float32)
+    w = (_build.round_to(w, x.dtype) if rounded else w).contiguous()
     b = params["b"].detach().to(device=x.device, dtype=torch.float32).contiguous()
     if w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, 1) or tuple(b.shape) != (w.shape[-1],):
         raise ValueError(f"the entry conv takes w [3, 3, 1, C] and b [C], got {tuple(w.shape)}, {tuple(b.shape)}")
     return w, b
 
 
+def conv_stride(freq: int) -> int:
+    """Row stride of the bfloat16 conv's staged x tile, in floats: every
+    run's window of a row (4·ceil(F / 4) + 2), rounded up to four
+    (csrc/entry_block.cu conv_stride)."""
+    return _CONV_RUN * -(-freq // _CONV_RUN) + 4
+
+
+def conv_bf16_plan(freq: int, channels: int):
+    """The bfloat16 conv's plan at F = `freq` and C = `channels` → (rows,
+    halo, smem): tiles of `rows` time rows (about _CONV_TILE_PIXELS pixels,
+    at least one row) whose staged x, halo = (rows + 2)·conv_stride(F)
+    floats, stays within kConvHalo = 1024 (4 KB); smem, the block's static
+    shared memory in bytes: two x tiles [1024] float32 and each of the 128
+    threads' float64 sums of y and y² [2·4] (four channels a thread, C a
+    multiple of four). On an NVIDIA H100 80GB HBM3 (700 W) at x [24, 864,
+    64], C = 64, 13-row tiles read fastest and four channels a thread tie
+    with eight (PERF.md, tools/bench_k5_torch.py --variants)."""
+    if channels % _CONV_CHANS:
+        raise ValueError(f"the bfloat16 conv takes C a multiple of {_CONV_CHANS}, got {channels}")
+    stride = conv_stride(freq)
+    rows = max(1, min(_CONV_TILE_PIXELS // freq, _CONV_HALO // stride - 2))
+    return rows, (rows + 2) * stride, 2 * _CONV_HALO * 4 + 2 * _CONV_CHANS * _CONV_THREADS * 8
+
+
 def _launch(params, x: torch.Tensor, mode: str, what: str):
-    """One launch of entry_conv_kernel<mode> + fold → (y or None, Σy, Σy²)."""
+    """One launch of the conv kernel in `mode` + fold → (y or None, Σy,
+    Σy²): float32 entry_conv_kernel<mode> over blocks of (clip, run of
+    tiles); bfloat16 entry_conv_bf16_kernel over one wave of the resident
+    blocks, each an equal run of the batch's time rows (`conv_bf16_plan`)."""
     x = _features(x).detach().contiguous()
-    w, b = _params_on(params, x)
+    bf16 = x.dtype == torch.bfloat16
+    w, b = _params_on(params, x, rounded=not bf16)
     B, T, Fq = x.shape
     C = w.shape[-1]
     _check_cuda(x, C, what)
     lib = _build.library()
-    tiles = lib.dcase_bn_glu_pool_tiles(T, Fq, 1, 1)
-    tpb = max(1, -(-tiles * B // _TARGET_BLOCKS))
-    slots = -(-tiles // tpb) * B
+    if bf16:
+        rows = conv_bf16_plan(Fq, C)[0]
+        grid = slots = _build.wave_grid(_build.resident(x.device.index, "conv_bf16"), B, T)
+    else:
+        tiles = lib.dcase_bn_glu_pool_tiles(T, Fq, 1, 1)
+        grid = max(1, -(-tiles * B // _TARGET_BLOCKS))  # tiles a block
+        slots, rows = -(-tiles // grid) * B, 0
     partials = torch.empty((slots, 2 * C), dtype=torch.float64, device=x.device)
     sums = torch.empty((2, C), dtype=torch.float32, device=x.device)
     y = None if mode == "stats_only" else torch.empty((B, T, Fq, C), dtype=x.dtype, device=x.device)
     status = lib.dcase_entry_conv(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), 0 if y is None else y.data_ptr(), partials.data_ptr(),
-        sums.data_ptr(), B, T, Fq, C, _MODES[mode], tpb, int(x.dtype == torch.bfloat16),
-        _build.stream_handle(x.device),
+        sums.data_ptr(), B, T, Fq, C, _MODES[mode], grid, int(bf16), rows, _build.stream_handle(x.device),
     )
     _build.check(status, what)
     return y, sums[0], sums[1]
@@ -215,8 +255,9 @@ def _launch(params, x: torch.Tensor, mode: str, what: str):
 def entry_conv_forward(params, x: torch.Tensor):
     """K4f, no graph: x [B, T, F(, 1)] (float32 or bfloat16) → (y [B, T, F, C]
     in x's dtype, Σy [C], Σy² [C]), the float32 sums of y as stored,
-    accumulated in double and folded in a fixed order (a run repeats bit for
-    bit). CPU: the plain version."""
+    accumulated in double (in bfloat16 in float32 over a thread's pixels of
+    a tile first) and folded in a fixed order (a run repeats bit for bit).
+    CPU: the plain version."""
     if x.device.type == "cpu":
         y, s1, s2 = entry_conv_reference(params, x)
         return y.detach(), s1, s2

@@ -9,6 +9,7 @@ version beside it:
 
   wrapper                  kernel                                  plain version
   entry_block_stats_apply  entry_conv_kernel<1> + fold             entry_conv_reference (sums)
+                           (bfloat16: entry_conv_bf16_kernel<false> + fold_warps)
   entry_block_fwd          entry_block_fwd_f32_kernel              reference_entry_block
                            (bfloat16: entry_block_fwd_bf16_kernel)
   entry_block_bwd_reduce   entry_block_bwd_reduce_f32_kernel + fold  entry_block_bwd_reduce_reference
@@ -25,9 +26,9 @@ register-tile code (csrc/f32_tile.cuh): the forward K2f's float32 forward
 (`f32_wgrad_plan`); in bfloat16 K2's tile code on the tensor cores
 (csrc/bf16_tile.cuh; `fwd_bf16_plan`, `bf16_bwd_plan`). Their launch plan is
 one wave of the resident blocks over the batch's tiles in equal runs
-(`wave_grid`, from the CUDA occupancy calculator); pass 1 in float32 sums
-into the slots of K2b's float32 reduce pass (runs of a clip's tiles, equal
-runs of them a block), so it gives K4f → K2b's bits, and the float32
+(`_build.wave_grid`, from the CUDA occupancy calculator); pass 1 in float32
+sums into the slots of K2b's float32 reduce pass (runs of a clip's tiles,
+equal runs of them a block), so it gives K4f → K2b's bits, and the float32
 forward gives K4f → K2f's.
 
 `entry_block_apply` ties them into one `torch.autograd.Function` with the
@@ -79,7 +80,6 @@ values. In float32 the layouts give the same bits.
 from __future__ import annotations
 
 import contextlib
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -289,10 +289,10 @@ def entry_block_fwd(x, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, poo
             vecs[4].data_ptr(), out.data_ptr(), B, T, Fq, C, pt, pf, float(eps), seed_t.data_ptr(), threshold,
             keep_scale, packed)
     if x.dtype == torch.bfloat16:
-        blocks = wave_grid(_resident(x.device.index, "fwd_bf16", C), B, tiles)
+        blocks = _build.wave_grid(_build.resident(x.device.index, "fwd_bf16", C), B, tiles)
         status = lib.dcase_entry_block_fwd_bf16(*args, blocks, int(layout == "crows"), _build.stream_handle(x.device))
     else:
-        blocks = wave_grid(_resident(x.device.index, "fwd_f32", C), B, tiles)
+        blocks = _build.wave_grid(_build.resident(x.device.index, "fwd_f32", C), B, tiles)
         status = lib.dcase_entry_block_fwd(*args, blocks, _build.stream_handle(x.device))
     _build.check(status, "entry_block_fwd")
     counter = "launches_train" if rate > 0.0 else "launches_eval"
@@ -397,38 +397,6 @@ def fwd_bf16_plan(channels: int) -> int:
     return 2 * (cp + 8) * (2 * _TILE_PIXELS + cp) + 4 * (15 * cp + 4 * _TILE_PIXELS)
 
 
-def wave_grid(resident: int, B: int, tiles: int, halves: bool = False) -> int:
-    """Blocks of a kernel launched as one wave: the `resident` blocks the
-    card holds, each an equal run of the batch's B · `tiles` tiles (clip
-    after clip; never more blocks than tiles), one partial slot each where
-    it sums. Under `halves` (the crows layout's dW in batch halves) an even
-    number, half of them over each half of the clips."""
-    if halves:
-        return 2 * max(1, min(resident // 2, (B // 2) * tiles))
-    return max(1, min(resident, B * tiles))
-
-
-_RESIDENT_ENTRIES = {"fwd_f32": "dcase_entry_block_fwd_resident", "fwd_bf16": "dcase_entry_block_fwd_bf16_resident",
-                     "reduce_f32": "dcase_entry_block_bwd_reduce_resident",
-                     "wgrad_f32": "dcase_entry_block_bwd_wgrad_resident",
-                     "bwd_bf16": "dcase_entry_block_bwd_bf16_resident"}
-
-
-@functools.cache
-def _resident(index: int, kernel: str, *plan) -> int:
-    """Blocks of `kernel` ("fwd_f32" / "fwd_bf16": K5f in float32 /
-    bfloat16, (C,); "reduce_f32" / "wgrad_f32": pass 1 / pass 2 in float32,
-    (C, buffers, drows); "bwd_bf16": a bfloat16 pass, (C, which, buffers,
-    drows)) that device `index` holds at once under its
-    plan: what one SM holds (registers and shared memory, from the CUDA
-    occupancy calculator) times its SMs."""
-    with torch.cuda.device(index):
-        resident = getattr(_build.library(), _RESIDENT_ENTRIES[kernel])(*plan)
-    if resident < 1:
-        raise _build.KernelError(f"{kernel} does not fit an SM under {plan}")
-    return resident * _build.sm_count(index)
-
-
 def _check_dout(x, dout, pool, C):
     B, T, Fq = x.shape
     if tuple(dout.shape) != (B, T // pool[0], Fq // pool[1], C):
@@ -461,13 +429,14 @@ def entry_block_bwd_reduce(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_
     tiles = lib.dcase_bn_glu_pool_tiles(T, Fq, pt, pf)
     if bf16:
         buffers, drows, _ = bf16_bwd_plan(C, pool, 1)
-        blocks = slots = wave_grid(_resident(x.device.index, "bwd_bf16", C, 1, buffers, drows), B, tiles)
+        resident = _build.resident(x.device.index, "bwd_bf16", C, 1, buffers, drows)
+        blocks = slots = _build.wave_grid(resident, B, tiles)
         plan = (blocks, buffers, drows)
     else:  # the slots of K2b's float32 reduce pass, over one wave of blocks
         buffers, drows, _ = f32_reduce_plan(C, pool)
         tps = fused_block._tiles_per_block(tiles, B, fused_block._TARGET_BLOCKS_BWD)
         slots = B * -(-tiles // tps)
-        blocks = wave_grid(_resident(x.device.index, "reduce_f32", C, buffers, drows), 1, slots)
+        blocks = _build.wave_grid(_build.resident(x.device.index, "reduce_f32", C, buffers, drows), 1, slots)
         plan = (blocks, tps, buffers, drows)
     width = C * C + 3 * C
     partials = torch.empty((slots, width), dtype=torch.float32, device=x.device)
@@ -516,10 +485,11 @@ def _launch_bwd_wgrad(x, dout, conv_w, conv_b, scale, bias, mean, var, glu_w, gl
     tiles = lib.dcase_bn_glu_pool_tiles(T, Fq, pt, pf)
     if bf16:
         buffers, drows, _ = bf16_bwd_plan(C, pool, 2)
-        slots = wave_grid(_resident(x.device.index, "bwd_bf16", C, 2, buffers, drows), B, tiles, partition == 2)
+        resident = _build.resident(x.device.index, "bwd_bf16", C, 2, buffers, drows)
+        slots = _build.wave_grid(resident, B, tiles, partition == 2)
     else:
         buffers, drows, _ = f32_wgrad_plan(C, pool)
-        slots = wave_grid(_resident(x.device.index, "wgrad_f32", C, buffers, drows), B, tiles)
+        slots = _build.wave_grid(_build.resident(x.device.index, "wgrad_f32", C, buffers, drows), B, tiles)
     partials = torch.empty((slots, (2 if partition == 1 else 1) * 10 * C), dtype=torch.float32, device=x.device)
     sums = torch.empty(10 * C, dtype=torch.float32, device=x.device)
     seed_t = fused_block._seed_tensor(seed, x.device)

@@ -111,7 +111,7 @@ def _runs(G, B, tiles, halves):
     (132, 2, 6, False, 12), (132, 2, 6, True, 12), (132, 2, 7, True, 14), (1, 2, 6, True, 2), (132, 1, 1, False, 1),
 ])
 def test_bf16_bwd_grid_is_one_wave_of_equal_runs(resident, B, tiles, halves, want):
-    G = tfe.wave_grid(resident, B, tiles, halves)
+    G = _build.wave_grid(resident, B, tiles, halves)
     assert G == want
     runs = _runs(G, B, tiles, halves)
     assert [a for a, _ in runs[1:]] == [b for _, b in runs[:-1]]  # consecutive runs

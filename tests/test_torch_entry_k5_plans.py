@@ -251,7 +251,7 @@ def test_reduce_f32_slots_are_k2b_blocks(resident, B, tiles):
     slot = [((s // nb) * tiles + (s % nb) * tps, (s // nb) * tiles + min(tiles, (s % nb + 1) * tps))
             for s in range(B * nb)]
     assert slot == k2b
-    G = tfe.wave_grid(resident, 1, B * nb)
+    G = _build.wave_grid(resident, 1, B * nb)
     assert G == min(resident, B * nb)
     covered = []
     for s0, s1 in _runs(G, B * nb):
@@ -268,7 +268,7 @@ def test_wave_grid_is_one_wave_of_equal_runs(resident, B, tiles, want):
     block an SM, 264 at the forward's two), never more blocks than tiles;
     the runs cover every tile once, are consecutive and differ by at most
     one tile; the crows layout (an even batch) takes the same grid."""
-    G = tfe.wave_grid(resident, B, tiles)
+    G = _build.wave_grid(resident, B, tiles)
     assert G == want
     runs = _runs(G, B * tiles)
     assert runs[0][0] == 0 and runs[-1][1] == B * tiles

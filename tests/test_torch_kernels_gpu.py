@@ -26,7 +26,9 @@ tiles) and K2 (window tiles included; its tensor-core kernels also at C 20,
 64 and 100, ragged last tiles of one clip, the packed draw, the recompute
 knob's first pass and an unaligned y), and of the
 entry-block family (K4, K5 and the crows layout of K6, at small shapes and
-the flagship block-1 shape; K5b1 float32, K5f float32 and bf16 and K5b2
+the flagship block-1 shape; K4f / K5s bf16 also at F 1 to 128, C 4 to 128
+and short last tiles, y bit for bit the conv9-order y and the two modes'
+sums the same bits; K5b1 float32, K5f float32 and bf16 and K5b2
 float32 also at their tile edges and against K4f -> K2b, K4f -> K2f and K4f
 -> the recompute fixup -> K4w with the same seed, K6 float32 bit for bit
 as K5), against their plain versions, one
@@ -1019,6 +1021,56 @@ def test_entry_conv_bf16(cuda, shape, C):
     assert all(torch.equal(p, q) for p, q in zip(entry_conv.entry_conv_wgrad(x, dy), (w.grad, b.grad)))
     s_only = fused_entry_block.entry_block_stats_apply(params, x)
     assert torch.equal(s_only[0], s1) and torch.equal(s_only[1], s2)
+
+
+def _conv9_order_bf16(params, x):
+    """y = bf16(((cb + x00 w00) + x01 w01) + ...), the taps dt-major as the
+    kernels' conv9 adds them, in float32 tensor operations: a product of a
+    bfloat16 x and a bfloat16-rounded weight is exact, so each step rounds
+    once, as an FMA does."""
+    B, T, Fq = x.shape
+    w = params["w"].bfloat16().float()
+    xp = torch.nn.functional.pad(x.float(), (1, 1, 1, 1))
+    y = params["b"].float().expand(B, T, Fq, -1).contiguous()
+    for dt in range(3):
+        for df in range(3):
+            y = y + xp[:, dt:dt + T, df:df + Fq, None] * w[dt, df, 0]
+    return y.bfloat16()
+
+
+# x [B, T, F] and C at the bfloat16 conv's edges: F 1 to 128 (runs cut by F
+# % 4, tiles of 4 to 126 rows), C 4 to 128 (1 to 32 lanes of four channels),
+# T leaving a short last tile, and the flagship block-1 shape
+ENTRY_CONV_BF16_EDGES = [((2, 131, 1), 4), ((3, 37, 7), 36), ((2, 45, 63), 64), ((2, 27, 64), 96), ((1, 21, 128), 128),
+                         ((2, 19, 64), 36), ((24, 864, 64), 64)]
+
+
+@pytest.mark.parametrize("shape,C", ENTRY_CONV_BF16_EDGES)
+def test_entry_conv_bf16_kernel(cuda, shape, C):
+    """K4f and K5s in bfloat16 (entry_conv_bf16_kernel): y bit for bit the y
+    formed in conv9's order (so K5f bf16 = K4f -> K2f bf16 keeps holding),
+    and within one ulp plus the float32 sum's slack of the plain version;
+    K5s's sums K4f's bits, within 1e-6 of max of K2s's sums of the stored
+    y, a repeat the same bits, the crows entry K5s's bits; each launch
+    counted."""
+    rng = np.random.default_rng(sum(shape) + C + 29)
+    params = _entry_params(rng, C, cuda)
+    x = _t(rng.standard_normal(shape), cuda).bfloat16()
+    fwd, stats = entry_conv.entry_conv_forward, fused_entry_block.entry_block_stats_apply
+    counts = (fwd.launches_bf16, stats.launches_bf16, fwd.launches, stats.launches)
+    y, s1, s2 = fwd(params, x)
+    sums = stats(params, x)
+    assert (fwd.launches_bf16, stats.launches_bf16, fwd.launches, stats.launches) == \
+        (counts[0] + 1, counts[1] + 1, counts[2], counts[3])
+    assert y.dtype == torch.bfloat16 and s1.dtype == torch.float32
+    assert torch.equal(y, _conv9_order_bf16(params, x)), "y against the y formed in conv9's order"
+    _within_ulps(y, entry_conv.entry_conv_reference(params, x)[0], "y", _sum_slack(9, x, params["w"].bfloat16()))
+    assert torch.equal(sums[0], s1) and torch.equal(sums[1], s2), "K5s's sums against K4f's"
+    for got, want in zip((s1, s2), fused_block.batch_stats(y)):
+        assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+    again = fwd(params, x)
+    assert all(torch.equal(p, q) for p, q in zip(again, (y, s1, s2)))
+    assert all(torch.equal(p, q) for p, q in zip(crows_block.crows_stats_apply(params, x), sums))
 
 
 @pytest.mark.parametrize("layout", ["planes", "crows"])

@@ -4,21 +4,24 @@ K5f: K2f's float32 / bfloat16 forward on a conv tile), pass 1 in float32
 (`entry_block_bwd_reduce_f32_kernel`, K5b1: K2b's float32 reduce pass on a
 conv tile), pass 2 in float32 (`entry_block_bwd_wgrad_f32_kernel`, K5b2:
 the recompute fixup's float32 tile code on a conv tile, then dW from the
-dy tile) and the two bfloat16 backward passes
-(`entry_block_bwd_reduce_bf16_kernel`, `entry_block_bwd_wgrad_bf16_kernel`),
-all of csrc/entry_block.cu.
+dy tile), the two bfloat16 backward passes
+(`entry_block_bwd_reduce_bf16_kernel`, `entry_block_bwd_wgrad_bf16_kernel`)
+and the bfloat16 conv with and without its store (`entry_conv_bf16_kernel`:
+K4f bf16, and K5s bf16, which K6's statistics launch too), all of
+csrc/entry_block.cu.
 
     python tools/bench_k5_torch.py [--no-tests] [--variants] [--against DIR]
 
 Prints the card's name and power limit; the ptxas report (registers,
 stack, spill) of every kernel of csrc/entry_block.cu and of K2's kernels
 whose tile code they share (csrc/f32_tile.cuh, csrc/bf16_tile.cuh; a spill
-of one of those fails the run at its end), and the six kernels'
+of one of those fails the run at its end), and the seven kernels'
 instruction mix (`cuobjdump -sass` of the built library, through
-chip_smoke.py's `check_mma`: FFMA and no HMMA in the float32 ones, HMMA in
-the bfloat16 ones); runs their GPU tests (`pytest tests/test_torch_kernels_gpu.py
--k "entry_reduce_f32 or entry_fwd_f32 or entry_wgrad_f32 or crows_float32
-or entry_fwd_bf16 or entry_bwd_bf16 or entry_block_bf16"`) unless
+chip_smoke.py's `check_mma`: FFMA and no HMMA in the float32 ones and the
+bfloat16 conv, HMMA in the other bfloat16 ones); runs their GPU tests
+(`pytest tests/test_torch_kernels_gpu.py -k "entry_reduce_f32 or
+entry_fwd_f32 or entry_wgrad_f32 or crows_float32 or entry_fwd_bf16 or
+entry_bwd_bf16 or entry_block_bf16 or entry_conv_bf16"`) unless
 --no-tests; then chip_smoke.py's phase-3 rows of
 the entry-block family at the flagship's block-1 shape (x [24, 864, 64], C =
 64; `chip_smoke.entry_kernels` in float32 and `entry_bf16_kernels`, under
@@ -28,31 +31,35 @@ recorded reading.
 With --against DIR (a checkout of another commit, e.g. the parent's `git
 archive` under a directory that .gitignore lists) it measures DIR's package
 and this one in the order DIR, this, this, DIR, each in a process of its own
-that builds its package's kernels: the six kernels' device ms at the
-flagship block-1 shape (K5f float32 eval, dropout and crows, K5b2 float32;
-K5b1 float32; K5f bf16 eval and dropout, both layouts; K5b2 bf16 in both
-partitions); the SHA-256 of the outputs of every kernel of
-csrc/fused_block.cu and csrc/entry_block.cu but K5f float32 and K5b2
-float32 (K2 in float32 and bfloat16, K4, K5s, K5b1 float32, K5f bfloat16,
-K5's bfloat16 passes), which must be the same in both trees; the device
-time of one warm predict call from a float32 `entry_block_pallas`
-checkpoint (chip_smoke.py's 48 clips); and the device time of one traced
-MT step of the
-flagship under `entry_block_pallas` and `entry_block_crows`, in float32 (B,
-R) and in bfloat16 (FB, FR), the generator on the card
-(chip_smoke.knob_card_steps, the knobs off), with block 1's device time in a
-second traced step (chip_smoke.block1_device_ms).
+that builds its package's kernels: the kernels' device ms at the flagship
+block-1 shape (K5f float32 eval, dropout and crows, K5b2 float32; K5b1
+float32; K5f bf16 eval and dropout, both layouts; K5b2 bf16 in both
+partitions; K4f bf16, K5s bf16); the SHA-256 of the outputs of every
+kernel of csrc/fused_block.cu and csrc/entry_block.cu but K5f float32 and
+K5b2 float32 (K2 in float32 and bfloat16, K4, K5s float32, K5b1 float32,
+K5f bfloat16, K5's bfloat16 passes; of K4f bf16 its y), which must be the
+same in both trees, and K4f's and K5s's bfloat16 sums, which must agree
+within 1e-6 of their max; the device time of one warm predict call from a
+float32 `entry_block_pallas` checkpoint (chip_smoke.py's 48 clips); and the
+device time of one traced MT step of the flagship under
+`entry_block_pallas` and `entry_block_crows`, in float32 (B, R), and under
+those and `entry_conv_pallas` in bfloat16 (FB, FR, FC), the generator on
+the card (chip_smoke.knob_card_steps, the knobs off), with block 1's device
+time in a second traced step (chip_smoke.block1_device_ms).
 
 With --variants it times other launch plans at the flagship shape: K5f
 float32 with 1056 blocks (the earlier kernel's per-clip grid; the output
 held bit for bit: it does not depend on the grid), K5b2 float32 with 528
 blocks (the earlier kernel's count of slots) and with one dout buffer (dW
 and d conv_b held to 1e-6 of max: a grid of other runs sums in another
-order), each timed by the profiler and by CUDA events around ten calls in
-a row, in turn and again in reverse order; and K5b2 float32 with dW formed
-in registers as dy is (`DW_IN_REGISTERS`, source edits built apart) beside
-the as-built kernel, by CUDA events. About fifteen minutes of card time
-with both options. Imports the port only; needs a card; exits non-zero when a bar
+order), K4f and K5s bf16 with tiles of 512 and of 256 pixels (y held bit
+for bit, the sums to 1e-6 of max), each timed by the profiler and by CUDA
+events around ten calls in a row, in turn and again in reverse order; and,
+as source edits built apart, K5b2 float32 with dW formed in registers as
+dy is (`DW_IN_REGISTERS`) and K4f / K5s bf16 with eight channels a thread
+(`CONV_EIGHT_CHANNELS`), each beside the as-built kernel, by CUDA
+events. About twenty minutes of card time with both
+options. Imports the port only; needs a card; exits non-zero when a bar
 fails.
 """
 
@@ -70,25 +77,30 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = ("entry_block_fwd_f32_kernel", "entry_block_bwd_reduce_f32_kernel", "entry_block_bwd_wgrad_f32_kernel",
-           "entry_block_fwd_bf16_kernel", "entry_block_bwd_reduce_bf16_kernel", "entry_block_bwd_wgrad_bf16_kernel")
+           "entry_block_fwd_bf16_kernel", "entry_block_bwd_reduce_bf16_kernel", "entry_block_bwd_wgrad_bf16_kernel",
+           "entry_conv_bf16_kernel")
 # K2's kernels whose tile code the six share (no name a substring of another listed one)
 SHARED = ("bn_glu_pool_kernel", "bn_glu_pool_bwd_kernel", "bn_bwd_fixup_recompute_kernel", "bn_glu_pool_bf16_kernel",
           "bn_glu_pool_bwd_bf16_kernel", "bn_bwd_fixup_recompute_bf16_kernel")
 ROWS = ("entry_block_fwd_eval", "entry_block_fwd_train", "crows_fwd", "entry_block_bwd_reduce", "entry_block_bwd_wgrad",
         "entry_block_fwd_eval_bf16", "entry_block_fwd_train_bf16", "crows_fwd_bf16", "entry_block_bwd_reduce_bf16",
-        "entry_block_bwd_wgrad_bf16", "crows_bwd_wgrad_bf16")
+        "entry_block_bwd_wgrad_bf16", "crows_bwd_wgrad_bf16", "entry_conv_bf16", "entry_block_stats_bf16",
+        "crows_stats_bf16")
 # the earlier kernels' device ms (PERF.md §6: chip_smoke.py, NVIDIA H100 80GB
 # HBM3, 700.00 W): K5f and K5b2 float32, K5b1 float32 and K5f bfloat16 as
 # first ported (scalar FP32 FMAs, the conv twice in K5f and K5b2 float32),
-# the bfloat16 passes on the tensor cores
+# the bfloat16 passes on the tensor cores, the bfloat16 conv as first ported
+# (entry_conv_kernel<0 | 1, bf16>)
 RECORDED = {"entry_block_fwd_eval": 0.9370, "entry_block_fwd_train": 1.0405, "crows_fwd": 1.0390,
             "entry_block_bwd_reduce": 3.0876, "entry_block_bwd_wgrad": 2.5580, "entry_block_fwd_eval_bf16": 1.1587,
             "entry_block_fwd_train_bf16": 1.2577, "crows_fwd_bf16": 1.2235, "entry_block_bwd_reduce_bf16": 0.7042,
-            "entry_block_bwd_wgrad_bf16": 0.6904, "crows_bwd_wgrad_bf16": 0.6798}
+            "entry_block_bwd_wgrad_bf16": 0.6904, "crows_bwd_wgrad_bf16": 0.6798, "entry_conv_bf16": 0.1893,
+            "entry_block_stats_bf16": 0.1373, "crows_stats_bf16": 0.1375}
 # one traced MT step per first-block path: (flag, compute dtype)
 STEP_PATHS = {"step_entry_block": ("entry_block_pallas", "float32"), "step_crows": ("entry_block_crows", "float32"),
               "step_bf16_entry_block": ("entry_block_pallas", "bfloat16"),
-              "step_bf16_crows": ("entry_block_crows", "bfloat16")}
+              "step_bf16_crows": ("entry_block_crows", "bfloat16"),
+              "step_bf16_entry_conv": ("entry_conv_pallas", "bfloat16")}
 SEED = 20190415
 
 
@@ -123,20 +135,22 @@ def flagship_inputs(device, dtype):
 
 
 def kernel_calls(device):
-    """{name: call} of the six kernels at the flagship shape: K5f float32
+    """{name: call} of the kernels at the flagship shape: K5f float32
     eval, with dropout, and with dropout in the crows layout (the same
     function in float32); K5b1 float32; K5b2 float32, a and b2 from K5b1
     float32's sums; K5f bf16 eval and with dropout (planes), with dropout
     (crows); K5b1 bf16; K5b2 bf16 in the planes layout (output-frequency
     parity) and the crows layout (batch halves), a and b2 from K5b1's
-    sums."""
+    sums; K4f bf16 and K5s bf16."""
     import torch
 
+    from dcase2019_task4_tpu_torch.ops import entry_conv as ec
     from dcase2019_task4_tpu_torch.ops import fused_block as fb
     from dcase2019_task4_tpu_torch.ops import fused_entry_block as fe
 
     x32, dout32, vecs32, pool, eps, rate, seed = flagship_inputs(device, torch.float32)
     x, dout, vecs, _, _, _, _ = flagship_inputs(device, torch.bfloat16)
+    conv = {"w": vecs[0], "b": vecs[1]}
     kw = dict(rate=rate, seed=seed)
     red = fe.entry_block_bwd_reduce(x, dout, *vecs, pool, eps, **kw)
     a, b2 = fb.bwd_coefficients(vecs[2], vecs[5], eps, red[2], red[3], x.numel())
@@ -159,6 +173,8 @@ def kernel_calls(device):
                                                                                    **kw),
         "K5b2 entry_block_bwd_wgrad bf16 crows": lambda: fe.entry_block_bwd_wgrad(x, dout, *vecs, a, b2, pool, eps,
                                                                                   layout="crows", **kw),
+        "K4f entry_conv bf16": lambda: ec.entry_conv_forward(conv, x),
+        "K5s entry_block_stats bf16": lambda: fe.entry_block_stats_apply(conv, x),
     }
 
 
@@ -204,7 +220,7 @@ def digest(outs) -> str:
     return h.hexdigest()[:16]
 
 
-def other_kernels(device) -> dict:
+def other_kernels(device, sums: dict) -> dict:
     """{call: digest} of every kernel of csrc/fused_block.cu and
     csrc/entry_block.cu but K5f float32 and K5b2 float32, on seeded
     inputs: K2 in float32 and bfloat16 at the flagship block-1 shape (C =
@@ -214,7 +230,10 @@ def other_kernels(device) -> dict:
     gradient, K5s, K5b1 float32, K5f bfloat16 (eval, train in both draws
     and both layouts) and K5's two bfloat16 passes (K5b2 in both
     partitions) at the flagship block-1 shape. Pass 2 takes seeded a and
-    b2."""
+    b2. Of K4f bf16 the digest holds y alone: its sums and K5s bf16's go
+    into `sums` as lists ({call: [Σy, Σy²]}), to be held to 1e-6 of max,
+    and the bfloat16 K5 kernels take their mean and var from K2s's sums of
+    K4f's y."""
     import torch
 
     from dcase2019_task4_tpu_torch.ops import entry_conv as ec
@@ -263,10 +282,19 @@ def other_kernels(device) -> dict:
         dy = t(B, T, Fq, C).to(dtype)
         dout = t(B, T // 2, Fq // 4, C).to(dtype)
         tag = str(dtype)[6:]
-        out[f"K4f {tag}"] = digest(ec.entry_conv_forward(conv, x))
+        y, s1, s2 = ec.entry_conv_forward(conv, x)
         out[f"K4w {tag}"] = digest(ec.entry_conv_wgrad(x, dy))
-        s1, s2 = fe.entry_block_stats_apply(conv, x)
-        out[f"K5s {tag}"] = digest((s1, s2))
+        if dtype == torch.bfloat16:
+            out[f"K4f {tag} y"] = digest(y)
+            sums[f"K4f {tag}"] = [s1.tolist(), s2.tolist()]
+            s1, s2 = fe.entry_block_stats_apply(conv, x)
+            sums[f"K5s {tag}"] = [s1.tolist(), s2.tolist()]
+            s1, s2 = fb.batch_stats(y)  # the K5 kernels' batch statistics from K2s on y: the same bits in both trees
+        else:
+            out[f"K4f {tag}"] = digest((y, s1, s2))
+            s1, s2 = fe.entry_block_stats_apply(conv, x)
+            out[f"K5s {tag}"] = digest((s1, s2))
+        del y
         mean = s1 / float(B * T * Fq)
         var = s2 / float(B * T * Fq) - mean * mean
         block = (conv["w"], conv["b"], *vecs, mean, var, gw, gb)
@@ -338,8 +366,9 @@ def rows_from(root: str) -> int:
     log = _build.build()["log"] or (_build.BUILD_DIR / "build.log").read_text()
     device = torch.device("cuda", 0)
     card = cs.card_line()
-    got = {"root": root, "kernels": {}, "kernel_digests": {}, "digests": other_kernels(device), "steps": {},
-           "block1": {}, "spills": spills(log), "predict": predict_device_ms(device)}
+    sums = {}
+    got = {"root": root, "kernels": {}, "kernel_digests": {}, "digests": other_kernels(device, sums), "sums": sums,
+           "steps": {}, "block1": {}, "spills": spills(log), "predict": predict_device_ms(device)}
     for name, call in kernel_calls(device).items():
         got["kernel_digests"][name] = digest(call())
         cs.PROFILER["lost"] = False
@@ -396,6 +425,15 @@ def against(other: str) -> bool:
     differ = [name for name in runs[0]["digests"] if len({r["digests"][name] for r in runs}) != 1]
     print(f"  every other kernel of fused_block.cu and entry_block.cu, {len(runs[0]['digests'])} calls: outputs "
           + ("bit-identical in all four runs" if not differ else "DIFFER in " + ", ".join(differ)))
+    for name in runs[0]["sums"]:  # the bfloat16 conv's sums: 1e-6 of max of DIR's, the same bits in a tree's runs
+        want = [np.asarray(v, np.float64) for v in runs[0]["sums"][name]]
+        errs = [max(np.abs(np.asarray(g) - w).max() / np.abs(w).max() for g, w in zip(r["sums"][name], want))
+                for r in runs]
+        same = all(r["sums"][name] == runs[j]["sums"][name] for r, j in ((runs[1], 2), (runs[3], 0)))
+        print(f"    {name} sums against DIR's: {max(errs):.3e} of max (bar 1e-6); each tree's runs "
+              f"{'bit-equal' if same else 'DIFFER'}")
+        if not (max(errs) <= 1e-6 and same):
+            differ.append(name)
     for label, run in (("DIR", runs[0]), ("this tree", runs[1])):
         print(f"  kernels of entry_block.cu and fused_block.cu that spill in {label}: "
               + ("; ".join(run["spills"]) or "none"))
@@ -500,17 +538,27 @@ DW_IN_REGISTERS = (
 """, 1),
 )
 
+# Eight channels a thread in the bfloat16 conv (--variants): 72 weights and 32
+# outputs a run in registers, two blocks an SM, each pixel's channels in one
+# 16-byte store. Edits of csrc/entry_block.cu, as above.
+CONV_EIGHT_CHANNELS = (
+    ("constexpr int kConvChans = 4;", "constexpr int kConvChans = 8;", 1),
+    ("__launch_bounds__(kConvThreads, 4)\nentry_conv_bf16_kernel(",
+     "__launch_bounds__(kConvThreads, 2)\nentry_conv_bf16_kernel(", 1),
+    ("*reinterpret_cast<uint2*>(yp + j * C) = make_uint2(packed[0], packed[1]);",
+     "*reinterpret_cast<uint4*>(yp + j * C) = make_uint4(packed[0], packed[1], packed[2], packed[3]);", 1),
+)
+
 
 class _Swapped:
-    """A library whose K5b2 float32 entries come from `variant`, the rest
-    from `main`."""
+    """A library whose `entries` come from `variant`, the rest from
+    `main`."""
 
-    def __init__(self, variant, main):
-        self.variant, self.main = variant, main
+    def __init__(self, variant, main, entries):
+        self.variant, self.main, self.entries = variant, main, entries
 
     def __getattr__(self, name):
-        own = name in ("dcase_entry_block_bwd_wgrad", "dcase_entry_block_bwd_wgrad_resident")
-        return getattr(self.variant if own else self.main, name)
+        return getattr(self.variant if name in self.entries else self.main, name)
 
 
 def ablation_bounds():
@@ -541,11 +589,14 @@ def variants(device):
     row, a tenth of it) of other launch plans at the flagship shape, each
     plan in turn and then in reverse order: K5f float32 with 1056 blocks
     (the earlier kernel's per-clip grid), K5b2 float32 with 528 blocks (the
-    earlier kernel's slots) and with one dout buffer; then K5b2 float32
-    with dW in registers (DW_IN_REGISTERS, its own library) beside the
-    as-built kernel, by CUDA events. K5f's output held to the as-built
-    kernel's bits, K5b2's dW and d conv_b to 1e-6 of their max (d conv_b with
-    a floor of 1e-6 of dW's: another plan sums in another order)."""
+    earlier kernel's slots) and with one dout buffer; K4f and K5s bf16 with
+    tiles of 512 and 256 pixels; then, each from its own library beside the
+    as-built kernel, by CUDA events: K5b2 float32 with dW in registers
+    (DW_IN_REGISTERS) and K4f / K5s bf16 with eight channels a thread
+    (CONV_EIGHT_CHANNELS). K5f's output and K4f's y held to the
+    as-built kernel's bits, K5b2's dW and d conv_b and the conv's sums to
+    1e-6 of their max (d conv_b with a floor of 1e-6 of dW's: another plan
+    sums in another order)."""
     import torch
 
     import chip_smoke as cs
@@ -577,7 +628,7 @@ def variants(device):
     def timed(fn):
         return cs.time_ms(lambda: [fn() for _ in range(10)]) / 10
 
-    grid, plan = fe.wave_grid, fe.f32_wgrad_plan
+    grid, plan = _build.wave_grid, fe.f32_wgrad_plan
     one_buffer = lambda C, p: (1,) + plan(C, p)[1:]  # noqa: E731
     cases = (("K5f float32 dropout", forward, "as built (one wave)", grid, plan),
              ("K5f float32 dropout", forward, "1056 blocks (the earlier per-clip grid)", lambda *a, **k: 1056, plan),
@@ -588,34 +639,81 @@ def variants(device):
           "the profiler; ms by CUDA events around ten calls in a row):")
     try:
         for name, call, label, g, p in cases + cases[::-1]:
-            fe.wave_grid, fe.f32_wgrad_plan = g, p
+            _build.wave_grid, fe.f32_wgrad_plan = g, p
             cs.PROFILER["lost"] = False
             print(f"    {name}, {label}: device {cs.shown(cs.device_ms(call))}, events {timed(call):.4f} "
                   f"({held(name, call())})")
     finally:
-        fe.wave_grid, fe.f32_wgrad_plan = grid, plan
+        _build.wave_grid, fe.f32_wgrad_plan = grid, plan
 
-    # dW's placement: the registers variant from its own library, by CUDA
-    # events only (the profiler traces nothing once a second CUDA library is
-    # loaded), in turn with the as-built kernel and again in reverse order
+    # the bfloat16 conv (K4f, K5s): channels a thread and tile heights; y does
+    # not depend on the plan, the sums are held to 1e-6 of max
+    from dcase2019_task4_tpu_torch.ops import entry_conv as ec
+
+    xb = flagship_inputs(device, torch.bfloat16)[0]
+    conv = {"w": vecs[0], "b": vecs[1]}
+    k4f, k5s = lambda: ec.entry_conv_forward(conv, xb), lambda: fe.entry_block_stats_apply(conv, xb)  # noqa: E731
+    y0, s0, q0 = k4f()
+
+    def conv_held(out):
+        y, s1, s2 = out if len(out) == 3 else (y0, *out)
+        if not torch.equal(y, y0):
+            raise AssertionError("K4f bf16's y depends on its plan")
+        err = max((p - q).abs().max().item() / q.abs().max().item() for p, q in ((s1, s0), (s2, q0)))
+        if not err <= 1e-6:
+            raise AssertionError(f"the bfloat16 conv's sums move by {err:.3e} of max under another plan")
+        return f"y bit-equal, sums within {err:.2e} of max of the as-built kernel's"
+
+    pixels = ec._CONV_TILE_PIXELS
+    heights = (("as built", pixels), ("tiles of 512 pixels", 512), ("tiles of 256 pixels", 256))
+    print("  the bfloat16 conv's tile heights at the flagship shape (as above):")
+    try:
+        for label, tile_pixels in heights + heights[::-1]:
+            ec._CONV_TILE_PIXELS = tile_pixels
+            for name, call in (("K4f bf16", k4f), ("K5s bf16", k5s)):
+                cs.PROFILER["lost"] = False
+                print(f"    {name}, {label} ({ec.conv_bf16_plan(xb.shape[2], 64)[0]} rows): device "
+                      f"{cs.shown(cs.device_ms(call))}, events {timed(call):.4f} ({conv_held(call())})")
+    finally:
+        ec._CONV_TILE_PIXELS = pixels
+
+    # edits of the source, each from its own library (built together: one
+    # library path each), by CUDA events only (the profiler traces nothing
+    # once a second CUDA library is loaded), in turn with the as-built kernel
+    # and again in reverse order: K5b2 float32's dW in registers, the
+    # bfloat16 conv's eight channels a thread
     import bench_k2_bf16_torch as k2
 
-    (_, lib, ptxas), = k2.ablation_libraries((("dW in registers", DW_IN_REGISTERS),), "entry_block_bwd_wgrad_f32",
-                                             "entry_block.cu")
-    print("  K5b2 float32 with dW in registers (one block an SM): ptxas " + " | ".join(ptxas))
-    if lib is None:
-        return
     main_lib = _build.library
-    swapped = _Swapped(lib, main_lib())
-    try:
-        for label in ("as built (dW from the dy tile)", "dW in registers", "dW in registers",
-                      "as built (dW from the dy tile)"):
-            _build.library = (lambda: swapped) if label == "dW in registers" else main_lib
-            fe._resident.cache_clear()
-            print(f"    K5b2 float32, {label}: events {timed(wgrad):.4f} ({held('K5b2 float32', wgrad())})")
-    finally:
-        _build.library = main_lib
-        fe._resident.cache_clear()
+    edited = {  # label: (edits, the library's entries they change, (name, call, check) of the timed calls)
+        "K5b2 float32 with dW in registers (one block an SM)": (
+            DW_IN_REGISTERS, ("dcase_entry_block_bwd_wgrad", "dcase_entry_block_bwd_wgrad_resident"),
+            (("K5b2 float32", wgrad, lambda: held("K5b2 float32", wgrad())),)),
+        "K4f / K5s bf16 with eight channels a thread (16-byte stores)": (
+            CONV_EIGHT_CHANNELS, ("dcase_entry_conv", "dcase_entry_conv_bf16_resident"),
+            (("K4f bf16", k4f, lambda: conv_held(k4f())), ("K5s bf16", k5s, lambda: conv_held(k5s())))),
+    }
+    libraries = k2.ablation_libraries(tuple((label, edits) for label, (edits, _, _) in edited.items()), "entry_",
+                                      "entry_block.cu")
+    for label, lib, ptxas in libraries:
+        _, entries, calls = edited[label]
+        spills = [line for line in ptxas if "0 bytes spill stores, 0 bytes spill loads" not in line]
+        print(f"  {label}: ptxas of {len(ptxas)} kernels of entry_block.cu, spills: " + ("; ".join(spills) or "none"))
+        if lib is None:
+            continue
+        swapped = _Swapped(lib, main_lib(), entries)
+        if "dcase_entry_conv_bf16_resident" in entries:
+            print(f"    blocks an SM: {lib.dcase_entry_conv_bf16_resident()} (as built "
+                  f"{main_lib().dcase_entry_conv_bf16_resident()})")
+        try:
+            for as_built in (True, False, False, True):
+                _build.library = main_lib if as_built else (lambda: swapped)
+                _build.resident.cache_clear()
+                for name, call, check in calls:
+                    print(f"    {name}, {'as built' if as_built else 'the edit'}: events {timed(call):.4f} ({check()})")
+        finally:
+            _build.library = main_lib
+            _build.resident.cache_clear()
 
 
 def main() -> int:
@@ -658,7 +756,7 @@ def main() -> int:
         tests = subprocess.run([sys.executable, "-m", "pytest", "tests/test_torch_kernels_gpu.py", "-q", "-s",
                                 "-p", "no:randomly", "-k",
                                 "entry_reduce_f32 or entry_fwd_f32 or entry_wgrad_f32 or crows_float32 or "
-                                "entry_fwd_bf16 or entry_bwd_bf16 or entry_block_bf16"],
+                                "entry_fwd_bf16 or entry_bwd_bf16 or entry_block_bf16 or entry_conv_bf16"],
                                cwd=REPO, capture_output=True, text=True)
         print(tests.stdout[-3000:], tests.stderr[-2000:])
         if tests.returncode != 0:
@@ -672,9 +770,13 @@ def main() -> int:
                                           ("K5b2", fe.f32_wgrad_plan, "wgrad_f32")):
                 buffers, drows, nbytes = planned(C, pool)
                 print(f"{what} float32 at C = {C}, pool {pool}: {buffers} buffer(s) of {drows} dout rows, {nbytes} "
-                      f"bytes; {fe._resident(0, kernel, C, buffers, drows)} blocks held at once on {sm} SMs")
-        print(f"K5f float32 at C = {C}: {fe.fwd_f32_plan(C)} bytes; {fe._resident(0, 'fwd_f32', C)} blocks held at "
-              f"once; K5f bf16: {fe.fwd_bf16_plan(C)} bytes; {fe._resident(0, 'fwd_bf16', C)} blocks held at once")
+                      f"bytes; {_build.resident(0, kernel, C, buffers, drows)} blocks held at once on {sm} SMs")
+        print(f"K5f float32 at C = {C}: {fe.fwd_f32_plan(C)} bytes; {_build.resident(0, 'fwd_f32', C)} blocks held "
+              f"at once; K5f bf16: {fe.fwd_bf16_plan(C)} bytes; {_build.resident(0, 'fwd_bf16', C)} blocks held at once")
+    from dcase2019_task4_tpu_torch.ops import entry_conv as ec
+
+    print(f"K4f / K5s bf16 at F = 64, C = 64: (rows, halo, smem) {ec.conv_bf16_plan(64, 64)}; "
+          f"{_build.resident(0, 'conv_bf16')} blocks held at once")
     kernel_rows(device)
     ablation_bounds()
     same = True
