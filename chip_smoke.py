@@ -271,10 +271,12 @@ SAME_KERNEL = {"crows_stats": "entry_block_stats", "crows_fwd": "entry_block_fwd
                "crows_bwd_reduce": "entry_block_bwd_reduce", "crows_bwd_wgrad": "entry_block_bwd_wgrad",
                "crows_bwd_reduce_bf16": "entry_block_bwd_reduce_bf16"}
 # the CUDA kernel of a row of the conv alone (in csrc/entry_block.cu)
-KERNEL_NAMES = {"entry_conv": "entry_conv_kernel<0>", "entry_block_stats": "entry_conv_kernel<1>",
-                "crows_stats": "entry_conv_kernel<1>", "entry_conv_bf16": "entry_conv_bf16_kernel<true>",
-                "entry_block_stats_bf16": "entry_conv_bf16_kernel<false>",
-                "crows_stats_bf16": "entry_conv_bf16_kernel<false>"}
+KERNEL_NAMES = {"entry_conv": "entry_conv_kernel<0>", "entry_block_stats": "entry_conv_run_kernel<float, false>",
+                "crows_stats": "entry_conv_run_kernel<float, false>",
+                "entry_conv_bf16": "entry_conv_run_kernel<bf16, true>",
+                "entry_block_stats_bf16": "entry_conv_run_kernel<bf16, false>",
+                "crows_stats_bf16": "entry_conv_run_kernel<bf16, false>", "batch_stats": "stats_kernel<float>",
+                "batch_stats_bf16": "stats_bf16_kernel", "batch_stats_bf16_flagship": "stats_bf16_kernel"}
 # Launches each path makes: exactly these on predict (two batches) and on one
 # MT step (teacher forward, student forward and backward), and none of a
 # kernel the path has no entry for.
@@ -1173,14 +1175,26 @@ def entry_kernels(device, rows, rng):
                   lambda: fe.entry_block_stats_apply(conv, x), lambda: ec.entry_conv_reference(conv, x)[1:],
                   rtol_of_max=1e-5, repeat=True)
     rows["entry_block_stats"].add(shape, res, x_bytes + small, conv_ops + 3.0 * pixels * C)
-    # both held to K2s on the stored y: the running variance is sum y^2 / n - mean^2
+    # K5s runs the one-wave conv (entry_conv_run_kernel<float, false>), whose
+    # conv of FP32 FMAs is its bound: printed as its floor, as in bfloat16
+    print(f"  K5s {shape}: floor of a conv of FP32 FMAs {bound_ms(x_bytes + small, conv_ops + 3.0 * pixels * C)[0]:.4f} "
+          "ms, its bound")
+    # both held to K2s on the stored y (the running variance is sum y^2 / n -
+    # mean^2) and to the float64 sums of y; K5s sums in float32 a tile, so
+    # its last bits are not K4f's
     k2s = fb.batch_stats(y)
+    yd = y.double()
+    exact = (yd.sum(dim=(0, 1, 2)), (yd * yd).sum(dim=(0, 1, 2)))
+    del yd
     for name, sums in (("K4f", (s1, s2)), ("K5s", fe.entry_block_stats_apply(conv, x))):
-        for got, want in zip(sums, k2s):
+        for got, want, want64 in zip(sums, k2s, exact):
             err, limit = (got - want).abs().max().item(), 1e-6 * want.abs().max().item()
             if not err <= limit:
                 raise AssertionError(f"{name} sums against batch_stats(y): {err} exceeds {limit}")
-    print("  K4f and K5s sums equal K2s batch_stats(y) within 1e-6 of max")
+            err, limit = (got.double() - want64).abs().max().item(), 1e-5 * want64.abs().max().item()
+            if not err <= limit:
+                raise AssertionError(f"{name} sums against the float64 sums of y: {err} exceeds {limit}")
+    print("  K4f and K5s sums equal K2s batch_stats(y) within 1e-6 of max and the float64 sums of y within 1e-5")
     n = float(pixels)
     mean = s1 / n
     var = s2 / n - mean * mean
@@ -1981,6 +1995,20 @@ def k3_bf16_kernels(device, rows, rng, cfg, suffix: str = ""):
         torch.cuda.empty_cache()
 
 
+def stats_bf16_exact(y, sums):
+    """K2s on bfloat16 y (stats_bf16_kernel, float32 sums over runs of 64 of
+    a thread's rows) held to the float64 sums of y, each channel within 1e-6
+    relative."""
+    yd = y.double()
+    errs = []
+    for name, got, want in zip(("sum y", "sum y^2"), sums, (yd.sum(dim=(0, 1, 2)), (yd * yd).sum(dim=(0, 1, 2)))):
+        errs.append(((got.double() - want).abs() / want.abs()).max().item())
+        if not errs[-1] <= 1e-6:
+            raise AssertionError(f"K2s bf16 {list(y.shape)} {name}: {errs[-1]:.3e} relative to the float64 sums")
+    print(f"  K2s bf16 {list(y.shape)}: sum y, sum y^2 within {errs[0]:.2e}, {errs[1]:.2e} relative of the float64 "
+          "sums (bar 1e-6)")
+
+
 def bf16_block_kernels(device, rows, rng, cfg, suffix: str = "", with_k3: bool = True):
     """Phase 3 for the bfloat16 modes of K3 and K2 at a configuration's
     shapes, rows named with `suffix`: the scaled configuration's (K3 at
@@ -2032,6 +2060,7 @@ def bf16_block_kernels(device, rows, rng, cfg, suffix: str = "", with_k3: bool =
                       rtol_of_max=1e-5, repeat=True, library_fn=lambda: torch.var_mean(y, dim=(0, 1, 2), correction=0))
         rows["batch_stats_bf16" + suffix].add(shape, res, y_bytes + 2 * C * 4, 3.0 * y.numel())
         s, sq = fb.batch_stats(y)
+        stats_bf16_exact(y, (s, sq))
         mean = s / pixels
         var = sq / pixels - mean * mean
 
@@ -2098,6 +2127,14 @@ def bf16_block_kernels(device, rows, rng, cfg, suffix: str = "", with_k3: bool =
                 raise AssertionError(f"K2b Function bf16 {shape}: {name} error {err} exceeds {limit}")
         del y, dout, mask, dyp, leaves, ref, pooled
         torch.cuda.empty_cache()
+    if suffix == "_flagship":  # K2s at a width of four channels a thread (C % 8 != 0), block 3's geometry
+        y = t(np.random.default_rng(SEED + 36).standard_normal((B, *geometries[-1], 36))).to(bf16)
+        before = fb.batch_stats.launches_bf16
+        sums = fb.batch_stats(y)
+        if fb.batch_stats.launches_bf16 != before + 1 or not all(
+                torch.equal(p, q) for p, q in zip(sums, fb.batch_stats(y))):
+            raise AssertionError(f"K2s bf16 {list(y.shape)}: not one launch, or a repeat gives other bits")
+        stats_bf16_exact(y, sums)
 
 
 def make_clips(n: int, rng):
@@ -2956,14 +2993,14 @@ def compare_step1_gradients(names, want, got, what: str):
 # next one's, so its launches are the longest of each name.
 BLOCK1_KERNELS = {
     "step": (("bn_glu_pool_kernel", 2), ("bn_glu_pool_bwd_kernel", 1), ("bn_bwd_fixup_kernel", 1), ("stats_kernel", 2)),
-    "step_entry_block": (("entry_conv_kernel", 2), ("entry_block_fwd_f32_kernel", 2),
+    "step_entry_block": (("entry_conv_run_kernel", 2), ("entry_block_fwd_f32_kernel", 2),
                          ("entry_block_bwd_reduce_f32_kernel", 1), ("entry_block_bwd_wgrad_f32_kernel", 1)),
     "step_entry_conv": (("entry_conv_kernel", 2), ("entry_conv_wgrad_kernel", 1), ("bn_glu_pool_kernel", 2),
                         ("bn_glu_pool_bwd_kernel", 1), ("bn_bwd_fixup_kernel", 1)),
 }
 BLOCK1_KERNELS["step_crows"] = BLOCK1_KERNELS["step_entry_block"]
 BF16_NAMES = {"bn_glu_pool_kernel": "bn_glu_pool_bf16_kernel", "bn_glu_pool_bwd_kernel": "bn_glu_pool_bwd_bf16_kernel",
-              "entry_conv_kernel": "entry_conv_bf16_kernel",
+              "entry_conv_kernel": "entry_conv_run_kernel", "stats_kernel": "stats_bf16_kernel",
               "entry_block_fwd_f32_kernel": "entry_block_fwd_bf16_kernel",
               "entry_block_bwd_reduce_f32_kernel": "entry_block_bwd_reduce_bf16_kernel",
               "entry_block_bwd_wgrad_f32_kernel": "entry_block_bwd_wgrad_bf16_kernel"}
@@ -3095,12 +3132,12 @@ MMA_KERNELS = ("conv3x3_bf16_kernel", "conv3x3_wgrad_bf16_kernel", "bn_glu_pool_
 # forward alone, bn_glu_pool_bwd_kernel K2b's float32 reduce pass alone,
 # bn_bwd_fixup_recompute_kernel its float32 recompute fixup alone,
 # entry_block_*_f32_kernel K5's three float32 kernels and
-# entry_conv_bf16_kernel K4f / K5s on bfloat16 x, whose conv stays FP32 FMAs
-# in conv9's order (no name here is a substring of another listed name)
+# entry_conv_run_kernel K4f / K5s on bfloat16 x and K5s on float32 x, whose
+# conv is FP32 FMAs in conv9's order (no name here is a substring of another listed name)
 FFMA_KERNELS = ("fused_stft_mel_onedot_kernel", "conv3x3_wgrad_kernel", "conv3x3_nhwc_kernel",
                 "bn_glu_pool_bwd_kernel", "bn_glu_pool_kernel", "bn_bwd_fixup_recompute_kernel",
                 "entry_block_bwd_reduce_f32_kernel", "entry_block_fwd_f32_kernel", "entry_block_bwd_wgrad_f32_kernel",
-                "entry_conv_bf16_kernel")
+                "entry_conv_run_kernel")
 
 
 def check_mma(path):

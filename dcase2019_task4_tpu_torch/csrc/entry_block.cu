@@ -11,12 +11,14 @@
 // by one kernel family:
 //   entry_conv_kernel<MODE>        conv + bias, y stored, per-channel sum y and
 //                                  sum y^2 (K4f), float32; MODE 1 compiles the
-//                                  store out (K5s / K6s: statistics of a y that
-//                                  is never written); MODE 2 and 3 are the
-//                                  ablations of tools/bench_entry_conv_torch.py
-//   entry_conv_bf16_kernel<kStore>
-//                                  the same on bfloat16 x (K4f with kStore,
-//                                  K5s / K6s without), one wave of equal runs
+//                                  store out (statistics of a y that is never
+//                                  written: entry_conv_stats, the ablation of
+//                                  K5s); MODE 2 and 3 are the ablations of
+//                                  tools/bench_entry_conv_torch.py
+//   entry_conv_run_kernel<TX, kStore>
+//                                  the same over one wave of equal runs: on
+//                                  bfloat16 x K4f (kStore) and K5s / K6s (no
+//                                  store), on float32 x K5s / K6s
 //   entry_conv_wgrad_kernel        dW = patches^T . dy, db = sum dy (K4w)
 //   entry_block_fwd_f32_kernel     conv -> BN -> GLU -> dropout -> pool (K5f),
 //                                  float32, on FP32 register tiles;
@@ -69,13 +71,13 @@
 // Design: a tile is whole time rows of up to 128 pixels, whole pooling rows
 // in the fused kernels (the tiling of fused_block.cu). Per tile a block
 // stages x with a one-cell halo, zeros outside the tensor, into shared
-// memory: (rows + 2) x (F + 2) floats. K4 and K5s in float32 take one block
+// memory: (rows + 2) x (F + 2) floats. K4f and K4w in float32 take one block
 // per (run of pixel tiles, clip): a thread owns four neighbouring channels
 // (their 36 weights in registers) of every (256 / (C / 4))-th pixel, stores y
-// as float4 and sums in double. In bfloat16 they run one wave of equal runs
-// of time rows in tiles of several rows, x a tile ahead, each thread forming
-// runs of four pixels from one shared window and summing in float32 a tile
-// (see entry_conv_bf16_kernel). The six K5 kernels with a channel product
+// as float4 and sums in double. K5s in both types and K4f in bfloat16 run one
+// wave of equal runs of time rows in tiles of several rows, x a tile ahead,
+// each thread forming runs of four pixels from one shared window and summing
+// in float32 a tile (see entry_conv_run_kernel). The six K5 kernels with a channel product
 // compute y once a tile, in conv9's order (K4f's), into the tile their K2
 // counterpart stages y into, and run that counterpart's per-tile code on it,
 // over one wave of the resident blocks in equal runs of the batch's tiles:
@@ -163,7 +165,8 @@ __device__ __forceinline__ float conv9(const float* r, int FW, const float (&w)[
 
 // Float32. MODE 0: store y and emit the sums. MODE 1: the sums only (y never
 // written). MODE 2: one tap instead of nine (no patch). MODE 3: write the
-// bias only. bfloat16 x goes to entry_conv_bf16_kernel below.
+// bias only. bfloat16 x, and K5s on float32 x, go to entry_conv_run_kernel
+// below.
 template <int MODE>
 __global__ void __launch_bounds__(kThreads)
 entry_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
@@ -310,21 +313,26 @@ entry_conv_wgrad_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
     }
 }
 
-// ------------------------------------- K4f / K5s in bfloat16: one wave
+// ------------------------------------------ K4f / K5s: one wave of runs
 
-// y = bf16(conv9 + cb) of bfloat16 x, stored (kStore: K4f) or not (K5s, K6's
-// statistics), with the per-channel sums of the rounded y. The function of
-// entry_conv_kernel<0 | 1, bf16>, which it replaces; y is the same bits (the
-// FMAs in conv9's order on exact products), the sums differ in their last
-// bits (another order of the float32 and float64 additions).
+// y = conv9 + cb of x, stored (kStore: K4f, bfloat16 only) or not (K5s, K6's
+// statistics), with the per-channel sums of y: on bfloat16 x, y = bf16(conv9
+// + cb) of the weights rounded to bfloat16 and the sums of the rounded y; on
+// float32 x, the weights as given and y unrounded. The function of
+// entry_conv_kernel<0 | 1>, which it replaces in bfloat16 and for K5s in
+// float32 (float32 K4f, whose store bounds it, stays there); y is the same
+// bits (the FMAs in conv9's order; in bfloat16 on exact products), the sums
+// differ in their last bits (another order of the float32 and float64
+// additions).
 //
 // Launch plan: one wave of the resident blocks (the wrapper sizes it from
-// dcase_entry_conv_bf16_resident, the fewer of the two modes', so K4f and
-// K5s split alike and give the same sums), block k of G taking time rows
+// dcase_entry_conv_bf16_resident, the fewer of the two bfloat16 modes', so
+// K4f and K5s split alike and give the same sums, or from
+// dcase_entry_conv_f32_resident), block k of G taking time rows
 // [k n / G, (k + 1) n / G) of the n = B T rows of the batch, clip after
 // clip, cut into tiles of up to `rows` rows that stay inside a clip (a run's
-// last tile of a clip, and the clip's last tile, shorter). The kernel rounds
-// the float32 weights to bfloat16 itself. Per tile: x with its one-cell
+// last tile of a clip, and the clip's last tile, shorter). In bfloat16 the
+// kernel rounds the float32 weights itself. Per tile: x with its one-cell
 // halo, zeros outside the tensor, as float32 [trows + 2][FS] (FS =
 // conv_stride(F): every run's window in the row, a multiple of four floats)
 // in one of two buffers, loaded into registers during the previous tile; one
@@ -333,7 +341,8 @@ entry_conv_wgrad_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
 // f: it reads the run's 3 x (kConvRun + 2) window with three 16-byte and
 // three 8-byte shared loads and forms kConvChans kConvRun outputs from it
 // (conv_run), stores each pixel's kConvChans channels at once (8 bytes) and
-// sums y and y^2 in float32. Once
+// sums y and y^2 in float32 (a thread's pixels of one tile: 104 at the
+// flagship shape, at most kConvHalo). Once
 // a tile it adds those sums to its float64 sums in shared memory; at the end
 // the block adds its threads' sums in a fixed order into its slot [2C]
 // (float64), which fold_warps_kernel adds in a fixed order. A run repeats
@@ -351,14 +360,15 @@ __host__ __device__ inline int conv_stride(int F) { return kConvRun * ((F + kCon
 // One run of kConvRun pixels from its window win [3][kConvRun + 2]: every
 // tap of all kConvRun x kConvChans outputs before the next (kConvRun
 // kConvChans independent FMA chains; each output still adds the bias, then
-// the taps dt-major: conv9's order), then per pixel bf16(y), its kConvChans
-// channels stored at yp + j C (kStore) and added to the float32 sums s (y) and q (y^2). N: the pixels
-// kept, kConvRun, or 0 for the first n of them (a run cut by F; past F the
-// window holds zeros and the outputs are dropped).
-template <bool kStore, int N>
+// the taps dt-major: conv9's order), then per pixel y (in bfloat16 bf16(y),
+// its kConvChans channels stored at yp + j C under kStore) added to the
+// float32 sums s (y) and q (y^2). N: the pixels kept, kConvRun, or 0 for the
+// first n of them (a run cut by F; past F the window holds zeros and the
+// outputs are dropped).
+template <typename TX, bool kStore, int N>
 __device__ __forceinline__ void conv_run(const float (&win)[3][kConvRun + 2], const float (&wr)[kConvChans][9],
                                          const float (&br)[kConvChans], float (&s)[kConvChans],
-                                         float (&q)[kConvChans], bf16* yp, int C, int n = kConvRun) {
+                                         float (&q)[kConvChans], TX* yp, int C, int n = kConvRun) {
   float acc[kConvRun][kConvChans];
 #pragma unroll
   for (int j = 0; j < kConvRun; ++j)
@@ -375,29 +385,38 @@ __device__ __forceinline__ void conv_run(const float (&win)[3][kConvRun + 2], co
 #pragma unroll
   for (int j = 0; j < kConvRun; ++j) {
     if (N == 0 && j >= n) break;
-    uint32_t packed[kConvChans / 2];
+    if constexpr (std::is_same<TX, float>::value) {  // y unrounded, never stored
 #pragma unroll
-    for (int k = 0; k < kConvChans; k += 2) {
-      const __nv_bfloat162 h = __floats2bfloat162_rn(acc[j][k], acc[j][k + 1]);
-      const uint32_t u = *reinterpret_cast<const uint32_t*>(&h);
-      packed[k / 2] = u;
-      const float lo = __uint_as_float(u << 16), hi = __uint_as_float(u & 0xffff0000u);  // y as stored
-      s[k] += lo;
-      q[k] = fmaf(lo, lo, q[k]);
-      s[k + 1] += hi;
-      q[k + 1] = fmaf(hi, hi, q[k + 1]);
+      for (int k = 0; k < kConvChans; ++k) {
+        s[k] += acc[j][k];
+        q[k] = fmaf(acc[j][k], acc[j][k], q[k]);
+      }
+    } else {
+      uint32_t packed[kConvChans / 2];
+#pragma unroll
+      for (int k = 0; k < kConvChans; k += 2) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(acc[j][k], acc[j][k + 1]);
+        const uint32_t u = *reinterpret_cast<const uint32_t*>(&h);
+        packed[k / 2] = u;
+        const float lo = __uint_as_float(u << 16), hi = __uint_as_float(u & 0xffff0000u);  // y as stored
+        s[k] += lo;
+        q[k] = fmaf(lo, lo, q[k]);
+        s[k + 1] += hi;
+        q[k + 1] = fmaf(hi, hi, q[k + 1]);
+      }
+      if constexpr (kStore) *reinterpret_cast<uint2*>(yp + j * C) = make_uint2(packed[0], packed[1]);
     }
-    if constexpr (kStore) *reinterpret_cast<uint2*>(yp + j * C) = make_uint2(packed[0], packed[1]);
   }
 }
 
 // 4 blocks an SM (up to 128 registers). tools/bench_k5_torch.py --variants
 // times eight channels a thread (16-byte stores, two blocks an SM) as an
 // edit of this source.
-template <bool kStore>
+template <typename TX, bool kStore>
 __global__ void __launch_bounds__(kConvThreads, 4)
-entry_conv_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ w, const float* __restrict__ cb,
-                       bf16* __restrict__ y, double* __restrict__ partials, int B, int T, int F, int C, int rows) {
+entry_conv_run_kernel(const TX* __restrict__ x, const float* __restrict__ w, const float* __restrict__ cb,
+                      TX* __restrict__ y, double* __restrict__ partials, int B, int T, int F, int C, int rows) {
+  static_assert(std::is_same<TX, bf16>::value || !kStore, "float32 K4f stays on entry_conv_kernel<0>");
   __shared__ __align__(16) float xs[2][kConvHalo];
   __shared__ double dsum[2 * kConvChans][kConvThreads];  // per thread: its float64 sums of y, then of y^2
   const int tid = threadIdx.x;
@@ -406,12 +425,12 @@ entry_conv_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ w, 
   const bool active = grp < groups;
   const int FS = conv_stride(F), RW = (F + kConvRun - 1) / kConvRun;
 
-  float wr[kConvChans][9], br[kConvChans];  // the weights rounded to bfloat16 (exact products with x), the bias
+  float wr[kConvChans][9], br[kConvChans];  // the weights (in bfloat16 rounded: exact products with x), the bias
 #pragma unroll
   for (int k = 0; k < kConvChans; ++k) {
     br[k] = active ? cb[c0 + k] : 0.0f;
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap) wr[k][tap] = active ? rounded<bf16>(w[tap * C + c0 + k]) : 0.0f;
+    for (int tap = 0; tap < 9; ++tap) wr[k][tap] = active ? rounded<TX>(w[tap * C + c0 + k]) : 0.0f;
   }
 #pragma unroll
   for (int k = 0; k < 2 * kConvChans; ++k) dsum[k][tid] = 0.0;
@@ -427,13 +446,13 @@ entry_conv_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ w, 
   const int r_first = tid / FS, q_first = tid % FS, dr = kConvThreads / FS, dq = kConvThreads % FS;
   auto load = [&](float (&xr)[kConvNX], int r) {
     const int b = r / T, t0 = r % T, cells = (trows_at(r) + 2) * FS;
-    const bf16* xb = x + (long long)b * T * F;
+    const TX* xb = x + (long long)b * T * F;
     int rr = r_first, q = q_first;
 #pragma unroll
     for (int j = 0; j < kConvNX; ++j) {
       const int t = t0 - 1 + rr, f = q - 1;
       xr[j] = tid + j * kConvThreads < cells && t >= 0 && t < T && f >= 0 && f < F
-                  ? __bfloat162float(xb[t * F + f]) : 0.0f;
+                  ? to_float(xb[t * F + f]) : 0.0f;
       rr += dr;
       q += dq;
       if (q >= FS) {
@@ -477,11 +496,11 @@ entry_conv_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ w, 
         win[dt][5] = e.y;
       }
       const int f0 = kConvRun * col;
-      bf16* yp = kStore ? y + (((long long)b * T + t0 + row) * F + f0) * C + c0 : nullptr;
+      TX* yp = kStore ? y + (((long long)b * T + t0 + row) * F + f0) * C + c0 : nullptr;
       if (f0 + kConvRun <= F)
-        conv_run<kStore, kConvRun>(win, wr, br, s, q, yp, C);
+        conv_run<TX, kStore, kConvRun>(win, wr, br, s, q, yp, C);
       else  // the row's last run, cut by F
-        conv_run<kStore, 0>(win, wr, br, s, q, yp, C, F - f0);
+        conv_run<TX, kStore, 0>(win, wr, br, s, q, yp, C, F - f0);
       row += drow;
       col += dcol;
       if (col >= RW) {
@@ -1442,31 +1461,41 @@ int launch_entry_conv_f32(int mode, const void* x, const float* w, const float* 
   }
 }
 
-// Blocks of entry_conv_bf16_kernel that one SM holds, the fewer of its two
-// modes' (registers; the shared memory is static).
-cudaError_t conv_bf16_resident(int* resident) {
+// Blocks of entry_conv_run_kernel that one SM holds (registers; the shared
+// memory is static): in bfloat16 the fewer of its two modes', in float32 of
+// its one mode (the sums).
+cudaError_t conv_run_resident(bool bf16_x, int* resident) {
   int stored = 0, sums_only = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&stored, entry_conv_bf16_kernel<true>,
+  if (!bf16_x)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, entry_conv_run_kernel<float, false>,
+                                                         kConvThreads, 0);
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&stored, entry_conv_run_kernel<bf16, true>,
                                                                   kConvThreads, 0);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&sums_only, entry_conv_bf16_kernel<false>, kConvThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&sums_only, entry_conv_run_kernel<bf16, false>,
+                                                        kConvThreads, 0);
   *resident = stored < sums_only ? stored : sums_only;
   return err;
 }
 
 // blocks: the grid (one slot each); rows: a tile's time rows, (rows + 2)
-// conv_stride(F) <= kConvHalo: the plan of ops/entry_conv.conv_bf16_plan
-int launch_entry_conv_bf16(bool store, const void* x, const float* w, const float* cb, void* y, double* partials,
-                           float* sums, int B, int T, int F, int C, int blocks, int rows, cudaStream_t st) {
+// conv_stride(F) <= kConvHalo: the plan of ops/entry_conv.conv_run_plan;
+// store: bfloat16 only
+int launch_entry_conv_run(bool bf16_x, bool store, const void* x, const float* w, const float* cb, void* y,
+                          double* partials, float* sums, int B, int T, int F, int C, int blocks, int rows,
+                          cudaStream_t st) {
   if (blocks < 1 || rows < 1 || (rows + 2) * conv_stride(F) > kConvHalo || C % kConvChans != 0 ||
-      (long long)B * T >= (1LL << 31))
+      (long long)B * T >= (1LL << 31) || (store && !bf16_x))
     return (int)cudaErrorInvalidValue;
-  auto* xb = static_cast<const bf16*>(x);
-  auto* yb = static_cast<bf16*>(y);
-  if (store)
-    entry_conv_bf16_kernel<true><<<blocks, kConvThreads, 0, st>>>(xb, w, cb, yb, partials, B, T, F, C, rows);
+  if (!bf16_x)
+    entry_conv_run_kernel<float, false><<<blocks, kConvThreads, 0, st>>>(
+        static_cast<const float*>(x), w, cb, nullptr, partials, B, T, F, C, rows);
+  else if (store)
+    entry_conv_run_kernel<bf16, true><<<blocks, kConvThreads, 0, st>>>(
+        static_cast<const bf16*>(x), w, cb, static_cast<bf16*>(y), partials, B, T, F, C, rows);
   else
-    entry_conv_bf16_kernel<false><<<blocks, kConvThreads, 0, st>>>(xb, w, cb, yb, partials, B, T, F, C, rows);
+    entry_conv_run_kernel<bf16, false><<<blocks, kConvThreads, 0, st>>>(
+        static_cast<const bf16*>(x), w, cb, nullptr, partials, B, T, F, C, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_fold_warps<double>(partials, sums, blocks, 2 * C, st);
@@ -1695,28 +1724,35 @@ extern "C" {
 // float32 = sum y | sum y^2 of y as stored. F <= 128, C % 4 == 0, C <= 128
 // (ops/entry_conv.py:entry_conv_packable). mode: 0 full, 1 sums only, 2 one
 // tap, 3 bias write only (2 and 3 in float32 only).
-// float32: entry_conv_kernel<mode>; grid: the tiles of a clip a block takes
-// (tiles = dcase_bn_glu_pool_tiles(T, F, 1, 1)); partials: [B *
-// ceil(tiles / grid), 2C] float64 scratch; rows unused.
-// bfloat16: entry_conv_bf16_kernel; grid: the blocks (one wave of equal runs
-// of the batch's time rows); partials: [grid, 2C] float64 scratch; rows: a
-// tile's time rows (ops/entry_conv.conv_bf16_plan).
+// rows 0 (float32 only): entry_conv_kernel<mode>; grid: the tiles of a clip
+// a block takes (tiles = dcase_bn_glu_pool_tiles(T, F, 1, 1)); partials: [B
+// * ceil(tiles / grid), 2C] float64 scratch.
+// rows > 0: entry_conv_run_kernel (bfloat16 in modes 0 and 1, float32 in
+// mode 1); grid: the blocks (one wave of equal runs of the batch's time
+// rows); partials: [grid, 2C] float64 scratch; rows: a tile's time rows
+// (ops/entry_conv.conv_run_plan).
 int dcase_entry_conv(const void* x, const void* w, const void* cb, void* y, void* partials,
                      void* sums, int B, int T, int F, int C, int mode, int grid, int bf16, int rows,
                      void* stream) {
   auto* pa = static_cast<double*>(partials);
   auto* su = static_cast<float*>(sums);
   auto st = static_cast<cudaStream_t>(stream);
-  if (!bf16) return launch_entry_conv_f32(mode, x, fp(w), fp(cb), y, pa, su, B, T, F, C, grid, st);
+  if (!bf16 && rows == 0) return launch_entry_conv_f32(mode, x, fp(w), fp(cb), y, pa, su, B, T, F, C, grid, st);
   if (mode != 0 && mode != 1) return (int)cudaErrorInvalidValue;
-  return launch_entry_conv_bf16(mode == 0, x, fp(w), fp(cb), y, pa, su, B, T, F, C, grid, rows, st);
+  return launch_entry_conv_run(bf16 != 0, mode == 0, x, fp(w), fp(cb), y, pa, su, B, T, F, C, grid, rows, st);
 }
 
-// Blocks of the bfloat16 conv that one SM of the current device holds in
-// both modes (0 on an error); the wrapper sizes the grid from it.
+// Blocks of the one-wave conv that one SM of the current device holds (0 on
+// an error), on bfloat16 x in both modes, on float32 x (the sums); the
+// wrapper sizes the grid from it.
 int dcase_entry_conv_bf16_resident() {
   int resident = 0;
-  return conv_bf16_resident(&resident) == cudaSuccess ? resident : 0;
+  return conv_run_resident(true, &resident) == cudaSuccess ? resident : 0;
+}
+
+int dcase_entry_conv_f32_resident() {
+  int resident = 0;
+  return conv_run_resident(false, &resident) == cudaSuccess ? resident : 0;
 }
 
 // x, dy: [B, T, F], [B, T, F, C] in one type (float32, or bfloat16 when

@@ -14,7 +14,8 @@
 //                            whose first pass writes no dy_partial), float32
 //                            y; bn_bwd_fixup_recompute_bf16_kernel on
 //                            bfloat16 y
-//   stats_kernel             _stats_kernel (batch_stats)
+//   stats_kernel             _stats_kernel (batch_stats), float32 y;
+//                            stats_bf16_kernel on bfloat16 y
 //   fold_kernel (fold.cuh)   the carried accumulators of the sequential TPU
 //                            grid (dw_ref, db_ref, s1_ref, s2_ref, sum_ref)
 // The lane packing (kron(I_k, W), 0/1 pooling matrices on the MXU, per-tile
@@ -114,7 +115,10 @@
 // in f32_tile.cuh, which K5's float32 passes in entry_block.cu share. The
 // four sums of a reduce pass's block go to its own slot of a workspace and
 // fold_kernel adds the slots in a fixed order in double precision: no float
-// atomics, so a run repeats bit for bit. Plain FP32 FMAs in float32 (no TF32). The bfloat16
+// atomics, so a run repeats bit for bit. The statistics of bfloat16 y
+// (stats_bf16_kernel) stream y over one wave of equal runs of rows, 16-byte
+// loads a few rows ahead, float32 sums over bounded runs (see the comment at
+// the kernel). Plain FP32 FMAs in float32 (no TF32). The bfloat16
 // forward, reduce pass and recompute fixup (see the comments at
 // bn_glu_pool_bf16_kernel, bn_glu_pool_bwd_bf16_kernel and
 // bn_bwd_fixup_recompute_bf16_kernel; their tile code, and the pixel
@@ -934,6 +938,7 @@ bn_bwd_fixup_kernel(const TY* __restrict__ y, TY* dyp, const float* __restrict__
 // Block `blockIdx.x` sums rows [r0, r1) of y [rows, C] per channel in double
 // and writes [C sums | C sums of squares] to its slot. A thread owns four
 // neighbouring channels of every (kThreads / (C / 4))-th row (C % 4 == 0).
+// float32 y; bfloat16 y goes to stats_bf16_kernel below.
 template <typename TY>
 __global__ void __launch_bounds__(kThreads)
 stats_kernel(const TY* __restrict__ y, double* __restrict__ partials, long long rows,
@@ -965,6 +970,132 @@ stats_kernel(const TY* __restrict__ y, double* __restrict__ partials, long long 
     for (int g = 0; g < groups; ++g) t += dred[g * 2 * C + i];
     partials[(long long)blockIdx.x * 2 * C + i] = t;
   }
+}
+
+// The same function on bfloat16 y as a streaming reduction, bound by reading
+// y (3 flops an element against 2 bytes: 170 MB, 0.05 ms at 3.35 TB/s at the
+// flagship's block 1). Launch plan (ops/fused_block.stats_bf16_plan): one
+// wave of at most the resident blocks, block k of G taking rows [k rows / G,
+// (k + 1) rows / G), and no more blocks than give each thread kStatsUnroll
+// rows. A thread owns V neighbouring channels (V = 8: one 16-byte load a row,
+// C % 8 == 0 and y 16-byte aligned; else V = 4, 8 bytes) of every
+// (kStatsThreads / (C / V))-th row of its block's run, in batches of
+// kStatsUnroll rows: it issues the loads of the next batch before it adds the
+// current one, so a batch is always in flight. It sums y and y^2 in float32 (y^2
+// of a bfloat16 value is exact, one FMA rounding) over runs of kStatsRun of
+// its rows and adds each run into its float64 sums in shared memory once: no
+// float64 per element. Sum y carries the exact rounding error of each float32
+// add (TwoSum, six FADDs; their float32 sum e, added into float64 with s), as
+// each channel is held within 1e-6 relative of float64 sums of y: where a
+// channel's sum y nearly cancels (0.415 over 1.3 M standard-normal values at
+// the flagship's block 1), plain float32 runs missed it by 2.1e-6, 5e-6
+// relative, on an NVIDIA H100 80GB HBM3, and Kahan's compensation still by
+// about 7e-7 in a numpy emulation of this order; with TwoSum the emulation
+// is exact. Sum y^2 adds no cancellation, and the bound on the run keeps its
+// float32 partials within a few ulp. At the end the block adds its threads'
+// float64 sums in a fixed order into its slot [2C], which fold_warps_kernel
+// adds in a fixed order: a run repeats bit for bit. Two batches of 8 rows in
+// registers (128 a thread at V = 8, no spill) and two blocks an SM: 0.0654 ms
+// at the flagship's block 1, 78 % of the bound, on an NVIDIA H100 80GB HBM3
+// (700 W), where batches of 4 rows with registers capped for three blocks an
+// SM spilled and read 0.0710, and one batch of 4 rows in flight at a time
+// 0.1007 (tools/bench_k2_bf16_torch.py --stats, PERF.md).
+constexpr int kStatsThreads = 256;  // threads of a block
+constexpr int kStatsBlocks = 2;     // blocks an SM at least (registers capped for it)
+constexpr int kStatsUnroll = 8;     // rows of a batch: loaded together, in flight while the previous batch adds
+constexpr int kStatsRun = 64;       // rows a thread sums in float32 before it adds them into float64
+static_assert(kStatsRun % kStatsUnroll == 0, "a run is whole batches of loads");
+
+template <int V>
+struct StatsRow;  // V bfloat16 of one row, as loaded
+template <>
+struct StatsRow<8> {
+  uint4 u;
+  __device__ __forceinline__ void load(const bf16* p) { u = *reinterpret_cast<const uint4*>(p); }
+  __device__ __forceinline__ void zero() { u = make_uint4(0u, 0u, 0u, 0u); }
+  __device__ __forceinline__ uint32_t word(int i) const { return i == 0 ? u.x : i == 1 ? u.y : i == 2 ? u.z : u.w; }
+};
+template <>
+struct StatsRow<4> {
+  uint2 u;
+  __device__ __forceinline__ void load(const bf16* p) { u = *reinterpret_cast<const uint2*>(p); }
+  __device__ __forceinline__ void zero() { u = make_uint2(0u, 0u); }
+  __device__ __forceinline__ uint32_t word(int i) const { return i == 0 ? u.x : u.y; }
+};
+
+template <int V>
+__global__ void __launch_bounds__(kStatsThreads, kStatsBlocks)
+stats_bf16_kernel(const bf16* __restrict__ y, double* __restrict__ partials, long long rows, int C) {
+  __shared__ double dsum[2 * V][kStatsThreads];  // per thread: its float64 sums of y, then of y^2
+  const int tid = threadIdx.x;
+  const int lanes = C / V, groups = kStatsThreads / lanes;  // groups >= 1: C <= 1024
+  const int lane = tid % lanes, grp = tid / lanes;
+  const long long r1 = (blockIdx.x + 1) * rows / gridDim.x;
+  long long r = blockIdx.x * rows / gridDim.x + grp;
+  const long long step = (long long)groups * kStatsUnroll;
+  const bf16* yl = y + (long long)lane * V;
+#pragma unroll
+  for (int k = 0; k < 2 * V; ++k) dsum[k][tid] = 0.0;
+  auto load = [&](StatsRow<V> (&v)[kStatsUnroll], long long r0) {  // rows past the run's end add zeros
+#pragma unroll
+    for (int u = 0; u < kStatsUnroll; ++u) {
+      const long long ru = r0 + (long long)u * groups;
+      if (ru < r1) v[u].load(yl + ru * C);
+      else v[u].zero();
+    }
+  };
+  if (grp < groups) {
+    float s[V], e[V], q[V];  // e: the rounding errors of the float32 sum s so far (TwoSum), exact each
+#pragma unroll
+    for (int k = 0; k < V; ++k) s[k] = e[k] = q[k] = 0.0f;
+    StatsRow<V> cur[kStatsUnroll], nxt[kStatsUnroll];
+    load(cur, r);
+    for (int n = 1; r < r1; ++n) {
+      load(nxt, r + step);  // in flight while this batch adds
+#pragma unroll
+      for (int u = 0; u < kStatsUnroll; ++u)
+#pragma unroll
+        for (int i = 0; i < V / 2; ++i) {
+          const uint32_t w = cur[u].word(i);
+          const float pair[2] = {__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u)};
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int k = 2 * i + h;
+            const float x = pair[h], t = s[k] + x, xb = t - s[k];
+            e[k] += (s[k] - (t - xb)) + (x - xb);
+            s[k] = t;
+            q[k] = fmaf(x, x, q[k]);
+          }
+        }
+#pragma unroll
+      for (int u = 0; u < kStatsUnroll; ++u) cur[u] = nxt[u];
+      r += step;
+      if (n == kStatsRun / kStatsUnroll || r >= r1) {  // the run into the thread's float64 sums
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          dsum[k][tid] += (double)s[k] + (double)e[k];
+          dsum[V + k][tid] += (double)q[k];
+          s[k] = e[k] = q[k] = 0.0f;
+        }
+        n = 0;
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < 2 * C; i += kStatsThreads) {  // the block's slot: its threads' sums in group order
+    const int sq = i / C, c = i % C, l = c / V, k = c % V;
+    double t = 0.0;
+    for (int g = 0; g < groups; ++g) t += dsum[sq * V + k][g * lanes + l];
+    partials[(long long)blockIdx.x * 2 * C + i] = t;
+  }
+}
+
+// Channels a thread of stats_bf16_kernel owns: 8 where C % 8 == 0 and y is
+// 16-byte aligned, else 4 (y 8-byte aligned; 0: not taken).
+int stats_bf16_vec(const void* y, int C) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(y);
+  if (C % 8 == 0 && a % 16 == 0) return 8;
+  return C % 4 == 0 && a % 8 == 0 ? 4 : 0;
 }
 
 // Arguments shared by the forward and both backward passes.
@@ -1148,6 +1279,22 @@ int launch_stats(const void* y, void* partials, void* out, long long rows, int C
                                   static_cast<float*>(out), blocks, 2 * C, st);
 }
 
+// blocks: the grid (one slot each), ops/fused_block.stats_bf16_plan
+int launch_stats_bf16(const void* y, void* partials, void* out, long long rows, int C, int blocks,
+                      cudaStream_t st) {
+  const int vec = stats_bf16_vec(y, C);
+  if (vec == 0 || blocks < 1 || C > 1024) return (int)cudaErrorInvalidValue;
+  auto* yb = static_cast<const bf16*>(y);
+  auto* pa = static_cast<double*>(partials);
+  if (vec == 8)
+    stats_bf16_kernel<8><<<blocks, kStatsThreads, 0, st>>>(yb, pa, rows, C);
+  else
+    stats_bf16_kernel<4><<<blocks, kStatsThreads, 0, st>>>(yb, pa, rows, C);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_fold_warps<double>(pa, static_cast<float*>(out), blocks, 2 * C, st);
+}
+
 template <typename TY>
 int launch_fixup(const void* y, void* dyp, const void* a, const void* b, const void* mean,
                  long long n, int C, cudaStream_t st) {
@@ -1286,12 +1433,26 @@ int dcase_bn_bwd_fixup(const void* y, void* dyp, const void* a, const void* b,
 
 // y: [rows, C] float32, or bfloat16 when bf16 != 0 (C % 4 == 0, C <= 1024);
 // partials: [blocks, 2C] float64 scratch; out: [2, C] float32 = sums | sums
-// of squares.
+// of squares. float32: stats_kernel, rows_per_block = ceil(rows / blocks);
+// bfloat16: stats_bf16_kernel, blocks from ops/fused_block.stats_bf16_plan
+// (y 8-byte aligned; V = 8 channels a thread where C % 8 == 0 and y is
+// 16-byte aligned).
 int dcase_batch_stats(const void* y, void* partials, void* out, long long rows, int C,
                       int blocks, int bf16, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_stats<__nv_bfloat16>(y, partials, out, rows, C, blocks, st)
+  return bf16 ? launch_stats_bf16(y, partials, out, rows, C, blocks, st)
               : launch_stats<float>(y, partials, out, rows, C, blocks, st);
+}
+
+// Blocks of stats_bf16_kernel<vec> (vec 8 or 4 channels a thread) that one SM
+// of the current device holds (0 on an error); the wrapper sizes the grid
+// from it.
+int dcase_batch_stats_bf16_resident(int vec) {
+  int resident = 0;
+  const cudaError_t err = vec == 8
+      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, stats_bf16_kernel<8>, kStatsThreads, 0)
+      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, stats_bf16_kernel<4>, kStatsThreads, 0);
+  return err == cudaSuccess && (vec == 8 || vec == 4) ? resident : 0;
 }
 
 }  // extern "C"

@@ -61,8 +61,10 @@ SIGNATURES = {
     "dcase_bn_bwd_fixup_recompute_resident": (_I, [_I, _I, _I, _I]),
     "dcase_bn_bwd_fixup": (_I, [_P, _P, _P, _P, _P, _LL, _I, _I, _P]),
     "dcase_batch_stats": (_I, [_P, _P, _P, _LL, _I, _I, _I, _P]),
+    "dcase_batch_stats_bf16_resident": (_I, [_I]),
     "dcase_entry_conv": (_I, [_P] * 6 + [_I] * 8 + [_P]),
     "dcase_entry_conv_bf16_resident": (_I, []),
+    "dcase_entry_conv_f32_resident": (_I, []),
     "dcase_entry_conv_wgrad": (_I, [_P] * 4 + [_I] * 7 + [_P]),
     "dcase_entry_block_fwd_resident": (_I, [_I]),
     "dcase_entry_block_fwd": (_I, [_P] * 10 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _P]),
@@ -245,7 +247,8 @@ RESIDENT_ENTRIES = {"fwd_f32": "dcase_entry_block_fwd_resident", "fwd_bf16": "dc
                     "reduce_f32": "dcase_entry_block_bwd_reduce_resident",
                     "wgrad_f32": "dcase_entry_block_bwd_wgrad_resident",
                     "bwd_bf16": "dcase_entry_block_bwd_bf16_resident",
-                    "conv_bf16": "dcase_entry_conv_bf16_resident"}
+                    "conv_bf16": "dcase_entry_conv_bf16_resident", "conv_f32": "dcase_entry_conv_f32_resident",
+                    "stats_bf16": "dcase_batch_stats_bf16_resident"}
 
 
 @functools.cache
@@ -254,9 +257,10 @@ def resident(index: int, kernel: str, *plan) -> int:
     bfloat16, (C,); "reduce_f32" / "wgrad_f32": pass 1 / pass 2 in float32,
     (C, buffers, drows); "bwd_bf16": a bfloat16 pass, (C, which, buffers,
     drows); "conv_bf16": K4f / K5s in bfloat16, (), the fewer of its two
-    modes') that device `index` holds at once under its plan: what one SM
-    holds (registers and shared memory, from the CUDA occupancy calculator)
-    times its SMs."""
+    modes'; "conv_f32": K5s in float32, (); "stats_bf16": K2s on bfloat16
+    y, (channels a thread,)) that device `index` holds at once under its
+    plan: what one SM holds (registers and shared memory, from the CUDA
+    occupancy calculator) times its SMs."""
     import torch
 
     with torch.cuda.device(index):

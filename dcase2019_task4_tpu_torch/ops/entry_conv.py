@@ -7,9 +7,9 @@ tensor every wrapper launches its hand-written kernel in csrc/entry_block.cu
 
   wrapper              kernel                              plain version
   entry_conv_forward   entry_conv_kernel<0> + fold         entry_conv_reference
-                       (bfloat16: entry_conv_bf16_kernel<true> + fold_warps)
+                       (bfloat16: entry_conv_run_kernel<bf16, true> + fold_warps)
   entry_conv_stats     entry_conv_kernel<1> + fold         entry_conv_reference (sums only)
-                       (bfloat16: entry_conv_bf16_kernel<false> + fold_warps)
+                       (bfloat16: entry_conv_run_kernel<bf16, false> + fold_warps)
   entry_conv_wgrad     entry_conv_wgrad_kernel + fold      entry_conv_wgrad_reference
   entry_conv_wgrad_parts  the same launch                 entry_conv_wgrad_parts_reference
   entry_conv_ablation  entry_conv_kernel<2>, <3>           entry_conv_ablation_reference
@@ -48,9 +48,9 @@ from dcase2019_task4_tpu_torch.ops import _build
 
 _TILE_PIXELS = 128  # csrc/entry_block.cu kPix
 _TARGET_BLOCKS = 1056  # float32 conv: 8 resident blocks on each of the H100's 132 SMs
-_CONV_THREADS = 128  # csrc/entry_block.cu kConvThreads: threads of a block of the bfloat16 conv
-_CONV_RUN = 4  # kConvRun: pixels along f a thread of the bfloat16 conv forms at once
-_CONV_CHANS = 4  # kConvChans: channels a thread of the bfloat16 conv forms
+_CONV_THREADS = 128  # csrc/entry_block.cu kConvThreads: threads of a block of the one-wave conv
+_CONV_RUN = 4  # kConvRun: pixels along f a thread of the one-wave conv forms at once
+_CONV_CHANS = 4  # kConvChans: channels a thread of the one-wave conv forms
 _CONV_HALO = 1024  # kConvHalo: floats of its staged x tile, at most
 _CONV_TILE_PIXELS = 1024  # the pixels its tile aims at (the halo caps it: 13 rows at F = 64)
 _WGRAD_SLOTS = 528  # partial-sum slots of the weight gradient (10·C floats each)
@@ -199,44 +199,51 @@ def _params_on(params, x, rounded: bool = True):
 
 
 def conv_stride(freq: int) -> int:
-    """Row stride of the bfloat16 conv's staged x tile, in floats: every
+    """Row stride of the one-wave conv's staged x tile, in floats: every
     run's window of a row (4·ceil(F / 4) + 2), rounded up to four
     (csrc/entry_block.cu conv_stride)."""
     return _CONV_RUN * -(-freq // _CONV_RUN) + 4
 
 
-def conv_bf16_plan(freq: int, channels: int):
-    """The bfloat16 conv's plan at F = `freq` and C = `channels` → (rows,
-    halo, smem): tiles of `rows` time rows (about _CONV_TILE_PIXELS pixels,
-    at least one row) whose staged x, halo = (rows + 2)·conv_stride(F)
-    floats, stays within kConvHalo = 1024 (4 KB); smem, the block's static
-    shared memory in bytes: two x tiles [1024] float32 and each of the 128
+def conv_run_plan(freq: int, channels: int):
+    """The plan of the one-wave conv (entry_conv_run_kernel: K4f / K5s in
+    bfloat16, K5s in float32; x is staged as float32 in both types, so one
+    plan serves both) at F = `freq` and C = `channels` → (rows, halo,
+    smem): tiles of `rows` time rows (about _CONV_TILE_PIXELS pixels, at
+    least one row) whose staged x, halo = (rows + 2)·conv_stride(F) floats,
+    stays within kConvHalo = 1024 (4 KB); smem, the block's static shared
+    memory in bytes: two x tiles [1024] float32 and each of the 128
     threads' float64 sums of y and y² [2·4] (four channels a thread, C a
     multiple of four). On an NVIDIA H100 80GB HBM3 (700 W) at x [24, 864,
-    64], C = 64, 13-row tiles read fastest and four channels a thread tie
-    with eight (PERF.md, tools/bench_k5_torch.py --variants)."""
+    64] bfloat16, C = 64, 13-row tiles read fastest and four channels a
+    thread tie with eight; on float32 x (K5s) 13-row tiles read fastest too
+    and eight channels a thread slower (PERF.md, tools/bench_k5_torch.py
+    --variants)."""
     if channels % _CONV_CHANS:
-        raise ValueError(f"the bfloat16 conv takes C a multiple of {_CONV_CHANS}, got {channels}")
+        raise ValueError(f"the one-wave conv takes C a multiple of {_CONV_CHANS}, got {channels}")
     stride = conv_stride(freq)
     rows = max(1, min(_CONV_TILE_PIXELS // freq, _CONV_HALO // stride - 2))
     return rows, (rows + 2) * stride, 2 * _CONV_HALO * 4 + 2 * _CONV_CHANS * _CONV_THREADS * 8
 
 
-def _launch(params, x: torch.Tensor, mode: str, what: str):
+def _launch(params, x: torch.Tensor, mode: str, what: str, wave: bool = False):
     """One launch of the conv kernel in `mode` + fold → (y or None, Σy,
     Σy²): float32 entry_conv_kernel<mode> over blocks of (clip, run of
-    tiles); bfloat16 entry_conv_bf16_kernel over one wave of the resident
-    blocks, each an equal run of the batch's time rows (`conv_bf16_plan`)."""
+    tiles); bfloat16, and float32 statistics under `wave`, the one-wave
+    entry_conv_run_kernel over the resident blocks, each an equal run of
+    the batch's time rows (`conv_run_plan`)."""
     x = _features(x).detach().contiguous()
     bf16 = x.dtype == torch.bfloat16
     w, b = _params_on(params, x, rounded=not bf16)
     B, T, Fq = x.shape
     C = w.shape[-1]
     _check_cuda(x, C, what)
+    if wave and not bf16 and mode != "stats_only":
+        raise ValueError(f"{what}: the one-wave conv takes float32 x for the statistics only")
     lib = _build.library()
-    if bf16:
-        rows = conv_bf16_plan(Fq, C)[0]
-        grid = slots = _build.wave_grid(_build.resident(x.device.index, "conv_bf16"), B, T)
+    if bf16 or wave:
+        rows = conv_run_plan(Fq, C)[0]
+        grid = slots = _build.wave_grid(_build.resident(x.device.index, "conv_bf16" if bf16 else "conv_f32"), B, T)
     else:
         tiles = lib.dcase_bn_glu_pool_tiles(T, Fq, 1, 1)
         grid = max(1, -(-tiles * B // _TARGET_BLOCKS))  # tiles a block
@@ -272,9 +279,11 @@ entry_conv_forward.launches_bf16 = 0  # bfloat16 launches
 
 def entry_conv_stats(params, x: torch.Tensor):
     """The statistics-only mode of the K4f kernel as an ablation: (Σy, Σy²)
-    of a conv output that is never written (the fused first block launches
-    the same mode through `fused_entry_block.entry_block_stats_apply`). CPU:
-    the plain version."""
+    of a conv output that is never written, on K4f's own kernel and grid
+    (so in float32 K4f's sums bit for bit; the fused first block's
+    statistics, `fused_entry_block.entry_block_stats_apply`, run the
+    one-wave kernel, in bfloat16 the same launch as this). CPU: the plain
+    version."""
     if x.device.type == "cpu":
         _, s1, s2 = entry_conv_reference(params, x)
         return s1, s2

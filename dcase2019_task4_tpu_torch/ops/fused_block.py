@@ -10,6 +10,7 @@ version beside it:
   fused_bn_glu_pool           bn_glu_pool_kernel (float32),  reference_block
                               bn_glu_pool_bf16_kernel
   batch_stats                 stats_kernel + fold            batch_stats_reference
+                              (bfloat16: stats_bf16_kernel + fold_warps)
   bwd_reduce                  bn_glu_pool_bwd_kernel         bwd_reference (first half)
                               (float32),
                               bn_glu_pool_bwd_bf16_kernel;
@@ -86,7 +87,9 @@ from dcase2019_task4_tpu_torch.ops import _build
 
 _TILE_PIXELS = 128  # csrc/fused_block.cu kPix
 _TARGET_BLOCKS = 1056  # bfloat16 forward: 8 resident blocks on each of the H100's 132 SMs
-_TARGET_BLOCKS_BWD = 528  # backward and statistics: partial slots folded in fixed order
+_TARGET_BLOCKS_BWD = 528  # backward and float32 statistics: partial slots folded in fixed order
+_STATS_THREADS = 256  # csrc/fused_block.cu kStatsThreads: threads of a block of the bfloat16 statistics
+_STATS_UNROLL = 8  # kStatsUnroll: rows of a thread's batch of loads
 
 _PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
 _PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
@@ -522,12 +525,33 @@ fused_bn_glu_pool.launches_train_bf16 = 0
 fused_bn_glu_pool.launches_packed = 0  # train launches of either dtype that drew the packed mask
 
 
+def stats_bf16_vec(channels: int, aligned16: bool = True) -> int:
+    """Channels a thread of K2s on bfloat16 y owns (csrc/fused_block.cu
+    stats_bf16_vec): 8, one 16-byte load a row, where C % 8 == 0 and y is
+    16-byte aligned, else 4 (8 bytes)."""
+    return 8 if channels % 8 == 0 and aligned16 else 4
+
+
+def stats_bf16_plan(channels: int, rows: int, resident: int, vec: int) -> int:
+    """The grid of K2s on bfloat16 y (stats_bf16_kernel) for y [rows,
+    `channels`] at `vec` channels a thread, so C / vec threads a row and
+    groups = 256 // (C / vec) rows in flight a block: one wave of at most
+    the `resident` blocks the card holds, each an equal run of the rows,
+    and no more than give each thread _STATS_UNROLL rows (one batch of
+    loads): at the flagship's block 3 ([24, 216, 4, 64], 20 736 rows) 81
+    blocks, not 528 blocks of a few dozen rows."""
+    groups = _STATS_THREADS // (channels // vec)
+    return max(1, min(resident, -(-rows // (groups * _STATS_UNROLL))))
+
+
 def batch_stats(y: torch.Tensor):
     """K2s: per-channel (Σy, Σy²) of y [B, T, F, C] (float32 or bfloat16)
-    as two float32 [C] tensors without a graph. Each block sums a
-    contiguous run of pixels in double precision and the per-block partials
-    are folded in a fixed order, so a run repeats bit for bit. CPU: the
-    plain version."""
+    as two float32 [C] tensors without a graph. float32: each block sums a
+    contiguous run of pixels in double precision. bfloat16: one wave of
+    equal runs of rows (`stats_bf16_plan`), 16-byte loads several rows
+    ahead, y and y² summed in float32 over runs of 64 of a thread's rows,
+    each run added into double. The per-block partials are folded in a
+    fixed order, so a run repeats bit for bit. CPU: the plain version."""
     if y.dim() != 4:
         raise ValueError(f"batch_stats takes [B, T, F, C], got {tuple(y.shape)}")
     y = y.detach()
@@ -541,7 +565,13 @@ def batch_stats(y: torch.Tensor):
                          f"got {y.dtype}, C={C}")
     rows = y.numel() // C
     lib = _build.library()
-    blocks = max(1, min(_TARGET_BLOCKS_BWD, -(-rows // 64)))
+    if y.dtype == torch.bfloat16:
+        if y.data_ptr() % 8:
+            raise ValueError("batch_stats of bfloat16 y takes y 8-byte aligned")
+        vec = stats_bf16_vec(C, y.data_ptr() % 16 == 0)
+        blocks = stats_bf16_plan(C, rows, _build.resident(y.device.index, "stats_bf16", vec), vec)
+    else:
+        blocks = max(1, min(_TARGET_BLOCKS_BWD, -(-rows // 64)))
     partials = torch.empty((blocks, 2 * C), dtype=torch.float64, device=y.device)
     out = torch.empty((2, C), dtype=torch.float32, device=y.device)
     status = lib.dcase_batch_stats(y.data_ptr(), partials.data_ptr(), out.data_ptr(), rows, C, blocks,

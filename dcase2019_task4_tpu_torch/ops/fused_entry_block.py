@@ -8,8 +8,8 @@ csrc/entry_block.cu (or raises); on a CPU tensor it runs the plain PyTorch
 version beside it:
 
   wrapper                  kernel                                  plain version
-  entry_block_stats_apply  entry_conv_kernel<1> + fold             entry_conv_reference (sums)
-                           (bfloat16: entry_conv_bf16_kernel<false> + fold_warps)
+  entry_block_stats_apply  entry_conv_run_kernel<float, false>     entry_conv_reference (sums)
+                           + fold_warps (bfloat16: <bf16, false>)
   entry_block_fwd          entry_block_fwd_f32_kernel              reference_entry_block
                            (bfloat16: entry_block_fwd_bf16_kernel)
   entry_block_bwd_reduce   entry_block_bwd_reduce_f32_kernel + fold  entry_block_bwd_reduce_reference
@@ -247,12 +247,16 @@ def entry_block_stats_apply(conv_params, x, compute_dtype=None):
     """K5s: x [B, T, F, 1] → per-channel (Σy, Σy²) of the entry conv output
     in the compute dtype (x's when None; the features are cast to it),
     float32, no graph, y never written (callers form mean and var from them
-    and pass those on detached). CPU: the plain version."""
+    and pass those on detached): the one-wave conv (`entry_conv.
+    conv_run_plan`), the float32 sums of a thread's pixels of a tile added
+    into float64 once a tile, folded in a fixed order (a run repeats bit for
+    bit; in float32 not K4f's bits, whose kernel sums in float64 per pixel).
+    CPU: the plain version."""
     x = entry_conv._features(x)
     x = x.to(entry_conv.compute_dtype_of(compute_dtype, x))
     if x.device.type == "cpu":
         return entry_conv.entry_conv_reference(conv_params, x)[1:]
-    _, s1, s2 = entry_conv._launch(conv_params, x, "stats_only", "entry_block_stats_apply")
+    _, s1, s2 = entry_conv._launch(conv_params, x, "stats_only", "entry_block_stats_apply", wave=True)
     _tally(entry_block_stats_apply, "launches", dtype=x.dtype)
     return s1, s2
 

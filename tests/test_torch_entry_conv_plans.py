@@ -1,19 +1,23 @@
-"""K4f and K5s in bfloat16 (csrc/entry_block.cu entry_conv_bf16_kernel) on
-the host: the kernel's plan and how it splits the batch, and the plain
-bfloat16 conv and its sums against the JAX package.
+"""The one-wave conv (csrc/entry_block.cu entry_conv_run_kernel: K4f and K5s
+in bfloat16, K5s in float32) on the host: the kernel's plan and how it
+splits the batch, and the plain conv and its sums against the JAX package.
 
 The kernel runs only on the card, where tests/test_torch_kernels_gpu.py and
 chip_smoke.py hold it to its plain version, to a y formed in conv9's order
 and to K2s's sums of its y. Here:
 
-  * `entry_conv.conv_bf16_plan` (tile rows, staged x floats, static shared
+  * `entry_conv.conv_run_plan` (tile rows, staged x floats, static shared
     memory) is the kernel's own formulas, read from the source, and fits
-    every width `entry_conv_packable` admits;
+    every width `entry_conv_packable` admits; x is staged as float32 in
+    both types, so one plan serves both;
   * the launch is one wave of the resident blocks, each an equal run of the
     batch's time rows, clip after clip, cut into tiles of at most `rows`
     rows inside a clip (`_tiles` writes out the kernel's loop), at a T that
     leaves a short last tile; K4f and K5s take one grid (the resident entry
-    is the fewer of the two modes'), so their sums are the same bits;
+    is the fewer of the two modes'), so their sums are the same bits; in
+    float32 K5s alone takes it (its own resident entry), the ablation
+    entry_conv_stats and K4f keep K4f's kernel, and the wrapper hands the
+    kernel this plan (a recording stand-in for the library);
   * the port's plain bfloat16 y and sums against the JAX package where
     tests/test_torch_entry_bf16.py (C = 64, F = 64, JAX's `entry_conv` in
     interpret mode) does not reach, each y element within one bfloat16 ulp,
@@ -24,9 +28,15 @@ and to K2s's sums of its y. Here:
     `entry_conv` and `entry_block_stats` take even F only, the latter
     returns NaN there): there y is held to the JAX package's conv layer on
     the same rounded operands in float32, the float32 bias added, then
-    rounded, and at F = 63 the sums to the float32 sums of that y.
+    rounded, and at F = 63 the sums to the float32 sums of that y;
+  * the port's plain float32 statistics against the JAX package's in
+    interpret mode where tests/test_torch_entry_block.py and
+    tests/test_torch_crows_block.py (C = 64 at F = 8 and 64) do not reach:
+    C = 36 against the crows statistics, F = 32 against `entry_block_stats`,
+    within 1e-5 of their max.
 """
 
+import inspect
 import re
 from pathlib import Path
 
@@ -37,8 +47,10 @@ import torch
 
 from dcase2019_task4_tpu.models import layers as jlayers
 from dcase2019_task4_tpu.ops import crows_block as jcr
+from dcase2019_task4_tpu.ops import fused_entry_block as jfe
 from dcase2019_task4_tpu_torch.ops import _build
 from dcase2019_task4_tpu_torch.ops import entry_conv as tec
+from dcase2019_task4_tpu_torch.ops import fused_entry_block as tfe
 
 SRC = (Path(tec.__file__).parent.parent / "csrc" / "entry_block.cu").read_text()
 FREQS = [1, 7, 63, 64, 128]
@@ -59,7 +71,8 @@ def test_conv_bf16_plan_matches_the_kernel_source():
                  "__shared__ double dsum[2 * kConvChans][kConvThreads];",
                  "if (blocks < 1 || rows < 1 || (rows + 2) * conv_stride(F) > kConvHalo || C % kConvChans != 0 ||",
                  "const int lanes = C / kConvChans, groups = kConvThreads / lanes;",
-                 "*resident = stored < sums_only ? stored : sums_only;"):
+                 "*resident = stored < sums_only ? stored : sums_only;",
+                 "float (&q)[kConvChans], TX* yp, int C, int n = kConvRun) {"):
         assert line in SRC, line
     assert tec._CONV_THREADS == int(re.search(r"constexpr int kConvThreads = (\d+);", SRC).group(1))
     assert tec._CONV_RUN == int(re.search(r"constexpr int kConvRun = (\d+);", SRC).group(1))
@@ -67,8 +80,8 @@ def test_conv_bf16_plan_matches_the_kernel_source():
     assert tec._CONV_HALO == int(re.search(r"constexpr int kConvHalo = (\d+);", SRC).group(1))
     for F in FREQS:
         assert tec.conv_stride(F) == 4 * -(-F // 4) + 4
-    assert tec.conv_bf16_plan(64, 64) == (13, 1020, _smem())
-    assert "__launch_bounds__(kConvThreads, 4)\nentry_conv_bf16_kernel(" in SRC
+    assert tec.conv_run_plan(64, 64) == (13, 1020, _smem())
+    assert "__launch_bounds__(kConvThreads, 4)\nentry_conv_run_kernel(" in SRC
 
 
 @pytest.mark.parametrize("F", FREQS)
@@ -85,13 +98,13 @@ def test_conv_bf16_plan_fits_every_admitted_width(F, monkeypatch):
             assert tec.entry_conv_packable(F, C, 7)
             stride = tec.conv_stride(F)
             assert stride % 4 == 0 and 4 * -(-F // 4) + 2 <= stride
-            rows, halo, smem = tec.conv_bf16_plan(F, C)
+            rows, halo, smem = tec.conv_run_plan(F, C)
             assert 1 <= C // 4 <= 32
             assert rows >= 1 and halo == (rows + 2) * stride <= 1024
             assert rows == max(1, min(pixels // F, 1024 // stride - 2))
             assert smem == _smem() <= 48 * 1024
     with pytest.raises(ValueError):
-        tec.conv_bf16_plan(F, 6)
+        tec.conv_run_plan(F, 6)
 
 
 def _tiles(G, B, T, rows):
@@ -117,7 +130,7 @@ def test_conv_bf16_splits_the_batch_in_one_wave_of_equal_runs(resident, B, T, F)
     runs differ by at most one row and cover every row of every clip once,
     in order; every tile lies in one clip and has at most `rows` rows, and
     at a T that is no multiple of `rows` a clip ends in a short tile."""
-    rows = tec.conv_bf16_plan(F, 64)[0]
+    rows = tec.conv_run_plan(F, 64)[0]
     G = _build.wave_grid(resident, B, T)
     assert G == min(resident, B * T)
     blocks = _tiles(G, B, T, rows)
@@ -183,3 +196,103 @@ def test_plain_bf16_conv_and_sums_match_jax(case):
         yf = y_ref.astype(jnp.float32)
         s_ref, sq_ref = jnp.sum(yf, axis=(0, 1, 2)), jnp.sum(yf * yf, axis=(0, 1, 2))
     _held(y, s1, s2, y_ref, s_ref, sq_ref)
+
+
+# ------------------------------------------------ K5s in float32, one wave
+
+
+def test_float32_statistics_take_the_one_wave_conv():
+    """K5s in float32 runs entry_conv_run_kernel<float, false> (no store:
+    float32 K4f keeps entry_conv_kernel<0>), its grid from its own resident
+    entry, and the C entry sends float32 x there when the wrapper hands it a
+    tile height (rows > 0), else to entry_conv_kernel<mode>."""
+    for line in ('static_assert(std::is_same<TX, bf16>::value || !kStore, "float32 K4f stays on entry_conv_kernel<0>");',
+                 "    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, entry_conv_run_kernel<float, false>,",
+                 "    entry_conv_run_kernel<float, false><<<blocks, kConvThreads, 0, st>>>(",
+                 "  if (!bf16 && rows == 0) return launch_entry_conv_f32(mode, x, fp(w), fp(cb), y, pa, su, B, T, F, C, grid, st);",
+                 "(long long)B * T >= (1LL << 31) || (store && !bf16_x))",
+                 "int dcase_entry_conv_f32_resident() {",
+                 "    for (int tap = 0; tap < 9; ++tap) wr[k][tap] = active ? rounded<TX>(w[tap * C + c0 + k]) : 0.0f;",
+                 "                  ? to_float(xb[t * F + f]) : 0.0f;"):
+        assert line in SRC, line
+    assert _build.RESIDENT_ENTRIES["conv_f32"] == "dcase_entry_conv_f32_resident"
+    assert "dcase_entry_conv_f32_resident" in _build.SIGNATURES
+    assert 'wave=True' in inspect.getsource(tfe.entry_block_stats_apply)
+    assert 'wave=True' not in inspect.getsource(tec.entry_conv_stats)
+
+
+class _Recorder:
+    """A stand-in for the kernel library that records dcase_entry_conv's
+    arguments (B, T, F, C, mode, grid, bf16, rows) and the slots of its
+    partials."""
+
+    def __init__(self):
+        self.calls = []
+
+    def dcase_entry_conv(self, x, w, cb, y, partials, sums, B, T, F, C, mode, grid, bf16, rows, stream):
+        self.calls.append((B, T, F, C, mode, grid, bf16, rows))
+        return 0
+
+    def dcase_bn_glu_pool_tiles(self, T, F, pt, pf):
+        return -(-T // (128 // F))
+
+
+@pytest.mark.parametrize("resident,B,T,F,C", [(528, 24, 864, 64, 64), (396, 3, 37, 64, 36), (8, 2, 11, 7, 4),
+                                              (264, 2, 45, 128, 128)])
+def test_float32_statistics_launch_one_wave_of_equal_runs(resident, B, T, F, C, monkeypatch):
+    """The wrapper hands K5s float32 the plan of the one-wave conv: mode 1,
+    a grid of `wave_grid(resident)` blocks (the float32 entry's), a tile
+    height from `conv_run_plan`, one float64 slot a block; the kernel's
+    split of that grid (`_tiles`) covers every time row of every clip
+    once, in runs that differ by at most a row, in tiles inside a clip,
+    with a short last tile where T is no multiple of the tile height. The
+    ablation entry_conv_stats keeps K4f's kernel (rows 0) and its per-clip
+    grid; bfloat16 x takes the bfloat16 entry's count."""
+    rec = _Recorder()
+    monkeypatch.setattr(_build, "library", lambda: rec)
+    monkeypatch.setattr(_build, "resident", lambda index, kernel, *plan: {"conv_f32": resident,
+                                                                         "conv_bf16": resident // 2}[kernel])
+    monkeypatch.setattr(_build, "stream_handle", lambda device: 0)
+    monkeypatch.setattr(tec, "_check_cuda", lambda x, C, what: None)
+    rng = np.random.default_rng(B + T + F + C)
+    params = {"w": torch.from_numpy(rng.standard_normal((3, 3, 1, C)).astype(np.float32)),
+              "b": torch.from_numpy(rng.standard_normal(C).astype(np.float32))}
+    x = torch.from_numpy(rng.standard_normal((B, T, F)).astype(np.float32))
+    _, s1, s2 = tec._launch(params, x, "stats_only", "entry_block_stats_apply", wave=True)
+    tec._launch(params, x, "stats_only", "entry_conv_stats")
+    tec._launch(params, x.to(torch.bfloat16), "stats_only", "entry_block_stats_apply", wave=True)
+    rows = tec.conv_run_plan(F, C)[0]
+    G = _build.wave_grid(resident, B, T)
+    tiles_per_block = max(1, -(-rec.dcase_bn_glu_pool_tiles(T, F, 1, 1) * B // tec._TARGET_BLOCKS))
+    assert rec.calls == [(B, T, F, C, 1, G, 0, rows), (B, T, F, C, 1, tiles_per_block, 0, 0),
+                         (B, T, F, C, 1, _build.wave_grid(resident // 2, B, T), 1, rows)]
+    assert s1.shape == s2.shape == (C,)
+    blocks = _tiles(G, B, T, rows)
+    lengths = [sum(tr for _, _, tr in tiles) for tiles in blocks]
+    assert max(lengths) - min(lengths) <= 1
+    assert [(b, t0 + i) for tiles in blocks for b, t0, tr in tiles for i in range(tr)] == \
+        [(b, t) for b in range(B) for t in range(T)]
+    assert all(1 <= tr <= rows and t0 + tr <= T for tiles in blocks for _, t0, tr in tiles)
+    if T % rows:
+        assert any(t0 + tr == T and tr < rows for tiles in blocks for _, t0, tr in tiles)
+    with pytest.raises(ValueError):
+        tec._launch(params, x, "full", "entry_conv_forward", wave=True)
+
+
+@pytest.mark.parametrize("case", ["C36 crows_stats", "F32 entry_block_stats"])
+def test_plain_float32_statistics_match_jax(case):
+    """The port's plain float32 statistics (what K5s computes) against the
+    JAX package's statistics kernels in interpret mode, within 1e-5 of
+    their max."""
+    shape, C = {"C36 crows_stats": ((2, 8, 64), 36), "F32 entry_block_stats": ((2, 16, 32), 64)}[case]
+    x, w, b = _inputs(shape, C, sum(shape) + C + 1)
+    conv = {"w": jnp.asarray(w), "b": jnp.asarray(b)}
+    s1, s2 = tfe.entry_block_stats_apply({"w": torch.from_numpy(w), "b": torch.from_numpy(b)}, torch.from_numpy(x))
+    assert s1.dtype == s2.dtype == torch.float32
+    if case.startswith("C36"):
+        s_ref, sq_ref = jcr.crows_stats_apply(conv, jnp.asarray(x), compute_dtype=jnp.float32, interpret=True)
+    else:
+        s_ref, sq_ref = jfe.entry_block_stats_apply(conv, jnp.asarray(x), interpret=True)
+    for name, got, want in (("sum y", s1, s_ref), ("sum y^2", s2, sq_ref)):
+        want = np.asarray(want, np.float32)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max(), err_msg=name)

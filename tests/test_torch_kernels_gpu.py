@@ -28,7 +28,10 @@ knob's first pass and an unaligned y), and of the
 entry-block family (K4, K5 and the crows layout of K6, at small shapes and
 the flagship block-1 shape; K4f / K5s bf16 also at F 1 to 128, C 4 to 128
 and short last tiles, y bit for bit the conv9-order y and the two modes'
-sums the same bits; K5b1 float32, K5f float32 and bf16 and K5b2
+sums the same bits; K5s float32 on the same one-wave kernel at those
+widths, its sums within 1e-6 of max of K2s of K4f's y; K2s on bfloat16 y
+at the flagship's and the scaled configuration's shapes, C = 36 and an
+8-byte-aligned y, within 1e-6 relative of float64 sums; K5b1 float32, K5f float32 and bf16 and K5b2
 float32 also at their tile edges and against K4f -> K2b, K4f -> K2f and K4f
 -> the recompute fixup -> K4w with the same seed, K6 float32 bit for bit
 as K5), against their plain versions, one
@@ -1071,6 +1074,71 @@ def test_entry_conv_bf16_kernel(cuda, shape, C):
     again = fwd(params, x)
     assert all(torch.equal(p, q) for p, q in zip(again, (y, s1, s2)))
     assert all(torch.equal(p, q) for p, q in zip(crows_block.crows_stats_apply(params, x), sums))
+
+
+@pytest.mark.parametrize("shape,C", ENTRY_CONV_BF16_EDGES)
+def test_entry_stats_f32_kernel(cuda, shape, C):
+    """K5s in float32 on the one-wave conv (entry_conv_run_kernel<float,
+    false>): its sums within 1e-6 of max of K2s's sums of K4f's y and
+    within 1e-5 of max of the float64 sums of that y (it sums in float32 a
+    tile, so not K4f's bits), a repeat the same bits, the crows entry K5s's
+    bits; each launch counted on K5s's float32 counter alone (the ablation
+    entry_conv_stats keeps K4f's kernel)."""
+    rng = np.random.default_rng(sum(shape) + C + 31)
+    params = _entry_params(rng, C, cuda)
+    x = _t(rng.standard_normal(shape), cuda)
+    stats = fused_entry_block.entry_block_stats_apply
+    counts = (stats.launches, stats.launches_bf16, entry_conv.entry_conv_stats.launches)
+    s1, s2 = stats(params, x)
+    assert (stats.launches, stats.launches_bf16, entry_conv.entry_conv_stats.launches) == \
+        (counts[0] + 1, counts[1], counts[2])
+    assert s1.dtype == s2.dtype == torch.float32
+    y = entry_conv.entry_conv_forward(params, x)[0]
+    yd = y.double()
+    for got, want, exact in zip((s1, s2), fused_block.batch_stats(y), (yd.sum(dim=(0, 1, 2)), (yd * yd).sum(dim=(0, 1, 2)))):
+        assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+        assert (got.double() - exact).abs().max().item() <= 1e-5 * exact.abs().max().item()
+    again = stats(params, x)
+    assert torch.equal(again[0], s1) and torch.equal(again[1], s2)
+    assert all(torch.equal(p, q) for p, q in zip(crows_block.crows_stats_apply(params, x), (s1, s2)))
+
+
+# y of K2s on bfloat16 y: the flagship's three blocks, the scaled
+# configuration's three, C = 36 (four channels a thread) at two sizes, (offset
+# 4) a y 8- but not 16-byte aligned, four channels a thread at C = 64, and
+# (cancel) channel 0 made to sum to under a bfloat16 ulp of its partial sums
+STATS_BF16_SHAPES = [((24, 864, 64, 64), 0, False), ((24, 432, 16, 64), 0, False), ((24, 216, 4, 64), 0, False),
+                     ((24, 864, 128, 128), 0, False), ((24, 432, 32, 128), 0, False), ((24, 216, 8, 128), 0, False),
+                     ((24, 216, 4, 36), 0, False), ((3, 37, 7, 36), 0, False), ((2, 19, 64, 64), 4, False),
+                     ((24, 864, 64, 64), 0, True), ((24, 216, 4, 36), 0, True)]
+
+
+@pytest.mark.parametrize("shape,offset,cancel", STATS_BF16_SHAPES)
+def test_k2s_bf16_kernel(cuda, shape, offset, cancel):
+    """K2s on bfloat16 y (stats_bf16_kernel): each channel's sums within
+    1e-6 relative of the float64 sums of y (where a channel nearly cancels
+    too: the kernel carries each float32 add's rounding error) and within
+    1e-5 of max of the plain version, a repeat the same bits, one launch
+    counted on the bfloat16 counter."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape) + 41)
+    n = int(np.prod(shape))
+    y = torch.randn(n + offset, generator=gen, device=cuda).bfloat16()[offset:].view(shape)
+    if cancel:  # channel 0 centred, then its last value set to minus the sum of the rest
+        col = y.view(-1, shape[-1])
+        col[:, 0] = (col[:, 0].double() - col[:, 0].double().mean()).bfloat16()
+        col[-1, 0] = -col[:-1, 0].double().sum()
+        assert abs(col[:, 0].double().sum().item()) < 1e-5 * col[:, 0].double().abs().sum().item()
+    counts = (fused_block.batch_stats.launches, fused_block.batch_stats.launches_bf16)
+    s, sq = fused_block.batch_stats(y)
+    assert (fused_block.batch_stats.launches, fused_block.batch_stats.launches_bf16) == (counts[0], counts[1] + 1)
+    yd = y.double()
+    for got, exact in zip((s, sq), (yd.sum(dim=(0, 1, 2)), (yd * yd).sum(dim=(0, 1, 2)))):
+        torch.testing.assert_close(got.double(), exact, rtol=1e-6, atol=0)
+    del yd
+    for got, want in zip((s, sq), fused_block.batch_stats_reference(y)):
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    again = fused_block.batch_stats(y)
+    assert torch.equal(again[0], s) and torch.equal(again[1], sq)
 
 
 @pytest.mark.parametrize("layout", ["planes", "crows"])

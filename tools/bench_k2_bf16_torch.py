@@ -1,8 +1,10 @@
 """K2's two bfloat16 kernels on the tensor cores, the forward
 (`bn_glu_pool_bf16_kernel`) and the reduce pass (`bn_glu_pool_bwd_bf16_kernel`)
-of csrc/fused_block.cu, alone, on one NVIDIA GPU.
+of csrc/fused_block.cu, alone, on one NVIDIA GPU; with --stats, K2s on
+bfloat16 y (`stats_bf16_kernel`) instead.
 
     python tools/bench_k2_bf16_torch.py [--no-tests] [--variants] [--ablations]
+    python tools/bench_k2_bf16_torch.py --stats [--no-tests] [--variants] [--against DIR]
 
 Prints the card's name and power limit; the ptxas report (registers,
 stack, spill) of every instantiation of the two (a spill fails the run at
@@ -28,6 +30,25 @@ wrappers then call; times by CUDA events and ptxas lines only, no bars (a
 variant that leaves work out computes something else). About three minutes of card
 time, five with --ablations. Imports the port only; needs a card; exits
 non-zero when a bar fails.
+
+--stats: the ptxas report of `stats_bf16_kernel` (a spill fails the run),
+its GPU tests (`-k k2s_bf16`) unless --no-tests, then at each shape it runs
+at (`STATS_SHAPES`: the flagship's three blocks, C = 64; the scaled
+configuration's three, C = 128; C = 36, four channels a thread) the sums
+held to the float64 sums of y (each channel within 1e-6 relative,
+chip_smoke.stats_bf16_exact), the device ms (the kernel and its fold),
+the ms by CUDA events, the bound (y read once) and the share. With
+--variants: one wave of 2 and of 4 blocks an SM against the occupancy
+calculator's (sums within 1e-6 of max of the as-built plan's), by the
+profiler; and as source edits built apart, batches of 4 and 16 rows a
+thread (`kStatsUnroll`, registers capped for 2 and 1 blocks an SM,
+`kStatsBlocks`) beside the as-built 8 (2 blocks), by CUDA events in turn
+and in reverse order. With --against DIR (e.g. the parent's `git archive` under a
+directory that .gitignore lists): DIR's K2s and this tree's at the same
+shapes on the same y, each in a process of its own that builds its package,
+in the order DIR, this, this, DIR, device ms medians, and the sums of the
+two trees within 1e-6 of max of each other. About four minutes of card time
+with both options.
 """
 
 from __future__ import annotations
@@ -45,6 +66,11 @@ sys.path.insert(0, REPO)
 
 KERNELS = ("bn_glu_pool_bf16_kernel", "bn_glu_pool_bwd_bf16_kernel")
 ROWS = ("fused_bn_glu_pool_eval_bf16", "fused_bn_glu_pool_train_bf16", "bwd_reduce_bf16")
+# K2s on bfloat16 y: the flagship's three blocks (batch 24, C = 64), the
+# scaled configuration's (C = 128), and C = 36 at the flagship's block 3
+STATS_SHAPES = ((24, 864, 64, 64), (24, 432, 16, 64), (24, 216, 4, 64), (24, 864, 128, 128), (24, 432, 32, 128),
+                (24, 216, 8, 128), (24, 216, 4, 36))
+STATS_SEED = 20190419
 
 
 def configs():
@@ -253,11 +279,202 @@ def variants(device):
         fb.bf16_reduce_plan, (fb._TARGET_BLOCKS, fb._TARGET_BLOCKS_BWD) = planned, targets
 
 
+def stats_inputs(device):
+    """{shape: y} of K2s at STATS_SHAPES, bfloat16, from a generator on the
+    card (the same y in every process on the card)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(STATS_SEED)
+    return {shape: torch.randn(shape, generator=gen, device=device).bfloat16() for shape in STATS_SHAPES}
+
+
+def stats_from(root: str) -> int:
+    """In a process of its own: K2s of the package at `root` (built there)
+    at STATS_SHAPES, device ms and sums, as one JSON line."""
+    import json
+
+    sys.path.insert(0, root)
+    import torch
+
+    import chip_smoke as cs
+    from dcase2019_task4_tpu_torch.ops import _build
+    from dcase2019_task4_tpu_torch.ops import fused_block as fb
+
+    _build.build()
+    got = {"root": root, "ms": {}, "sums": {}}
+    for shape, y in stats_inputs(torch.device("cuda", 0)).items():
+        got["sums"][str(shape)] = [t.tolist() for t in fb.batch_stats(y)]
+        cs.PROFILER["lost"] = False
+        got["ms"][str(shape)] = cs.device_ms(lambda: fb.batch_stats(y))
+    print(json.dumps(got))
+    return 0
+
+
+def stats_against(other: str) -> bool:
+    """DIR's K2s and this tree's, in the order DIR, this, this, DIR; → whether
+    the two trees' sums agree within 1e-6 of max and each tree's runs are
+    the same bits."""
+    import json
+
+    runs = []
+    for root in (other, REPO, REPO, other):
+        done = subprocess.run([sys.executable, os.path.abspath(__file__), "--stats-from", os.path.abspath(root)],
+                              cwd=root, capture_output=True, text=True)
+        lines = [line for line in done.stdout.splitlines() if line.startswith("{")]
+        if done.returncode != 0 or not lines:
+            print(done.stdout[-3000:], done.stderr[-3000:])
+            raise AssertionError(f"measuring {root} failed")
+        runs.append(json.loads(lines[-1]))
+
+    def shown(v):
+        return "not measured" if v is None else f"{v:.4f}"
+
+    def median(vals):
+        vals = [v for v in vals if v is not None]
+        return float(np.median(vals)) if vals else None
+
+    ok, totals = True, {"DIR": 0.0, "this": 0.0}
+    print(f"  K2s bf16, {other} against this tree (device ms, medians of two runs each; runs DIR, this, this, DIR):")
+    for key in runs[0]["ms"]:
+        old, new = median([runs[0]["ms"][key], runs[3]["ms"][key]]), median([runs[1]["ms"][key], runs[2]["ms"][key]])
+        want = [np.asarray(v, np.float64) for v in runs[0]["sums"][key]]
+        err = max(np.abs(np.asarray(g) - w).max() / np.abs(w).max() for g, w in zip(runs[1]["sums"][key], want))
+        same = runs[0]["sums"][key] == runs[3]["sums"][key] and runs[1]["sums"][key] == runs[2]["sums"][key]
+        ok = ok and err <= 1e-6 and same
+        if key.endswith(", 64)") and old is not None and new is not None:
+            totals["DIR"] += old
+            totals["this"] += new
+        ratio = f" ({old / new:.2f}x)" if old and new else ""
+        print(f"    {key}: {shown(old)} -> {shown(new)}{ratio}; runs " + ", ".join(shown(r["ms"][key]) for r in runs)
+              + f"; sums {err:.2e} of max of DIR's, each tree's runs {'bit-equal' if same else 'DIFFER'}")
+    print(f"    the flagship's three shapes (C = 64) summed: {totals['DIR']:.4f} -> {totals['this']:.4f}")
+    return ok
+
+
+def stats_variants(device, inputs):
+    """Other plans of K2s bf16 at STATS_SHAPES: one wave of 2 and 4 blocks an
+    SM against the occupancy calculator's count (device ms), then as source
+    edits batches of 4 rows (registers capped for 2 blocks an SM) and of 16
+    (for 1) against the as-built 8 (for 2), by CUDA events, in turn and in
+    reverse order."""
+    import chip_smoke as cs
+    from dcase2019_task4_tpu_torch.ops import _build
+    from dcase2019_task4_tpu_torch.ops import fused_block as fb
+
+    built = {shape: fb.batch_stats(y) for shape, y in inputs.items()}
+
+    def held(shape, got):
+        err = max((p - q).abs().max().item() / q.abs().max().item() for p, q in zip(got, built[shape]))
+        if not err <= 1e-6:
+            raise AssertionError(f"K2s bf16 {shape}: another plan moves the sums by {err:.3e} of max")
+        return f"{err:.1e} of max of the as-built plan's"
+
+    resident = _build.resident
+    sm = _build.sm_count(0)
+    plans = (("as built", None), ("2 blocks an SM", 2), ("4 blocks an SM", 4))
+    print(f"  K2s bf16 launch plans (device ms; as built {resident(0, 'stats_bf16', 8)} blocks of 8 channels a "
+          f"thread, {resident(0, 'stats_bf16', 4)} of 4, on {sm} SMs):")
+    try:
+        for label, per_sm in plans + plans[::-1]:
+            _build.resident = resident if per_sm is None else (lambda *a, n=per_sm: n * sm)
+            for shape, y in inputs.items():
+                cs.PROFILER["lost"] = False
+                print(f"    {shape}, {label}: {cs.shown(cs.device_ms(lambda: fb.batch_stats(y)))} "
+                      f"({held(shape, fb.batch_stats(y))})")
+    finally:
+        _build.resident = resident
+
+    edits = tuple((f"batches of {u} rows, registers capped for {b} blocks an SM",
+                   (("constexpr int kStatsUnroll = 8;", f"constexpr int kStatsUnroll = {u};", 1),
+                    ("constexpr int kStatsBlocks = 2;", f"constexpr int kStatsBlocks = {b};", 1)))
+                  for u, b in ((4, 2), (16, 1)))
+    main_lib = _build.library
+    for label, lib, ptxas in ablation_libraries(edits, "stats_bf16_kernel"):
+        print(f"  {label}: ptxas " + "; ".join(ptxas))
+        if lib is None:
+            continue
+        try:
+            for as_built in (True, False, False, True):
+                _build.library = main_lib if as_built else (lambda lib=lib: lib)
+                _build.resident.cache_clear()
+                for shape, y in inputs.items():
+                    ms = cs.time_ms(lambda: [fb.batch_stats(y) for _ in range(10)]) / 10
+                    print(f"    {shape}, {'as built' if as_built else 'the edit'}: events {ms:.4f} "
+                          f"({held(shape, fb.batch_stats(y))})")
+        finally:
+            _build.library = main_lib
+            _build.resident.cache_clear()
+
+
+def stats_main(args) -> int:
+    """The --stats mode (see the module's docstring)."""
+    import torch
+
+    import chip_smoke as cs
+    from dcase2019_task4_tpu_torch.ops import _build
+    from dcase2019_task4_tpu_torch.ops import fused_block as fb
+
+    print(cs.card_line())
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    info = _build.build()
+    log = info["log"] or (_build.BUILD_DIR / "build.log").read_text()
+    lines, spilled, seen = log.splitlines(), 0, 0
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and "stats_bf16_kernel" in line:
+            seen += 1
+            report = " ".join(s.strip() for s in lines[i + 1:i + 4] if "bytes" in s or "registers" in s)
+            print(line.strip()[:150])
+            print("  ", report)
+            spilled += "0 bytes spill stores, 0 bytes spill loads" not in report
+    if not seen:
+        print("bench_k2_bf16_torch: no ptxas report of stats_bf16_kernel", file=sys.stderr)
+        return 1
+    mix = ("LDG", "STG", "FADD", "FFMA", "DADD", "F2F", "IMAD", "LDS", "STS", "BAR")
+    for name, counts in _build.sass_counts(info["path"], ("stats_bf16_kernel",), mix).items():
+        print(f"{name[:90]}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    if not args.no_tests:
+        tests = subprocess.run([sys.executable, "-m", "pytest", "tests/test_torch_kernels_gpu.py", "-q",
+                                "-p", "no:randomly", "-k", "k2s_bf16 or batch_stats or fused_block_bf16_backward"],
+                               cwd=REPO, capture_output=True, text=True)
+        print(tests.stdout[-3000:], tests.stderr[-2000:])
+        if tests.returncode != 0:
+            return tests.returncode
+    device = torch.device("cuda", 0)
+    inputs = stats_inputs(device)
+    print("K2s bf16: device ms (events ms), bound ms, share of bound")
+    for shape, y in inputs.items():
+        sums = fb.batch_stats(y)
+        cs.stats_bf16_exact(y, sums)
+        cs.PROFILER["lost"] = False
+        dev = cs.device_ms(lambda: fb.batch_stats(y))
+        bound = cs.bound_ms(y.numel() * 2 + 2 * shape[-1] * 4, 3.0 * y.numel())[0]
+        share = f"{100.0 * bound / dev:.1f} %" if dev else "not measured"
+        events = cs.time_ms(lambda: fb.batch_stats(y))
+        print(f"  {shape}: {cs.shown(dev)} ({events:.4f}), {bound:.4f} by bytes, {share}")
+    ok = True
+    if args.against:
+        ok = stats_against(args.against)
+    if args.variants:
+        stats_variants(device, inputs)
+    print(cs.card_line())
+    if spilled:
+        print("bench_k2_bf16_torch: stats_bf16_kernel spills", file=sys.stderr)
+        return 1
+    if not ok:
+        print("bench_k2_bf16_torch: K2s sums differ from DIR's beyond 1e-6 of max, or a run repeats other bits",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--no-tests", action="store_true", help="skip the GPU tests of the two kernels")
     parser.add_argument("--variants", action="store_true", help="also time other launch plans of the two")
     parser.add_argument("--ablations", action="store_true", help="also time source variants of the two")
+    parser.add_argument("--stats", action="store_true", help="K2s on bfloat16 y instead of the two")
+    parser.add_argument("--against", metavar="DIR", help="with --stats: also measure DIR's K2s beside this one")
+    parser.add_argument("--stats-from", metavar="DIR", help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     import torch
@@ -265,11 +482,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("bench_k2_bf16_torch: needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    if args.stats_from:
+        return stats_from(args.stats_from)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.stats:
+        return stats_main(args)
     import chip_smoke as cs
     from dcase2019_task4_tpu_torch.ops import _build
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     print(cs.card_line())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     info = _build.build()

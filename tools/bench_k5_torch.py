@@ -6,9 +6,9 @@ conv tile), pass 2 in float32 (`entry_block_bwd_wgrad_f32_kernel`, K5b2:
 the recompute fixup's float32 tile code on a conv tile, then dW from the
 dy tile), the two bfloat16 backward passes
 (`entry_block_bwd_reduce_bf16_kernel`, `entry_block_bwd_wgrad_bf16_kernel`)
-and the bfloat16 conv with and without its store (`entry_conv_bf16_kernel`:
-K4f bf16, and K5s bf16, which K6's statistics launch too), all of
-csrc/entry_block.cu.
+and the one-wave conv with and without its store (`entry_conv_run_kernel`:
+K4f bf16, and K5s in bfloat16 and float32, which K6's statistics launch
+too), all of csrc/entry_block.cu.
 
     python tools/bench_k5_torch.py [--no-tests] [--variants] [--against DIR]
 
@@ -18,10 +18,11 @@ whose tile code they share (csrc/f32_tile.cuh, csrc/bf16_tile.cuh; a spill
 of one of those fails the run at its end), and the seven kernels'
 instruction mix (`cuobjdump -sass` of the built library, through
 chip_smoke.py's `check_mma`: FFMA and no HMMA in the float32 ones and the
-bfloat16 conv, HMMA in the other bfloat16 ones); runs their GPU tests
+one-wave conv, HMMA in the other bfloat16 ones); runs their GPU tests
 (`pytest tests/test_torch_kernels_gpu.py -k "entry_reduce_f32 or
 entry_fwd_f32 or entry_wgrad_f32 or crows_float32 or entry_fwd_bf16 or
-entry_bwd_bf16 or entry_block_bf16 or entry_conv_bf16"`) unless
+entry_bwd_bf16 or entry_block_bf16 or entry_conv_bf16 or
+entry_stats_f32"`) unless
 --no-tests; then chip_smoke.py's phase-3 rows of
 the entry-block family at the flagship's block-1 shape (x [24, 864, 64], C =
 64; `chip_smoke.entry_kernels` in float32 and `entry_bf16_kernels`, under
@@ -34,16 +35,19 @@ and this one in the order DIR, this, this, DIR, each in a process of its own
 that builds its package's kernels: the kernels' device ms at the flagship
 block-1 shape (K5f float32 eval, dropout and crows, K5b2 float32; K5b1
 float32; K5f bf16 eval and dropout, both layouts; K5b2 bf16 in both
-partitions; K4f bf16, K5s bf16); the SHA-256 of the outputs of every
-kernel of csrc/fused_block.cu and csrc/entry_block.cu but K5f float32 and
-K5b2 float32 (K2 in float32 and bfloat16, K4, K5s float32, K5b1 float32,
-K5f bfloat16, K5's bfloat16 passes; of K4f bf16 its y), which must be the
-same in both trees, and K4f's and K5s's bfloat16 sums, which must agree
-within 1e-6 of their max; the device time of one warm predict call from a
+partitions; K4f bf16, K5s bf16, K5s float32); the SHA-256 of the outputs
+of every kernel of csrc/fused_block.cu and csrc/entry_block.cu but K5f
+float32, K5b2 float32 and the sums below (K2 in float32 and bfloat16 but
+K2s bf16, K4, K5b1 float32, K5f bfloat16, K5's bfloat16 passes; of K4f
+bf16 its y; the K5 kernels take mean and var from K2s float32 of K4f's y,
+in bfloat16 from float64 sums of y, the same bits in both trees), which
+must be the same in both trees, and the sums of K4f bf16, K5s in both
+types and K2s bf16, which must agree within 1e-6 of their max; the device time of one warm predict call from a
 float32 `entry_block_pallas` checkpoint (chip_smoke.py's 48 clips); and the
 device time of one traced MT step of the flagship under
-`entry_block_pallas` and `entry_block_crows`, in float32 (B, R), and under
-those and `entry_conv_pallas` in bfloat16 (FB, FR, FC), the generator on
+`entry_block_pallas` and `entry_block_crows`, in float32 (B, R), and in
+bfloat16 under the default (F) and those and `entry_conv_pallas` (FB, FR,
+FC), the generator on
 the card (chip_smoke.knob_card_steps, the knobs off), with block 1's device
 time in a second traced step (chip_smoke.block1_device_ms).
 
@@ -52,11 +56,12 @@ float32 with 1056 blocks (the earlier kernel's per-clip grid; the output
 held bit for bit: it does not depend on the grid), K5b2 float32 with 528
 blocks (the earlier kernel's count of slots) and with one dout buffer (dW
 and d conv_b held to 1e-6 of max: a grid of other runs sums in another
-order), K4f and K5s bf16 with tiles of 512 and of 256 pixels (y held bit
-for bit, the sums to 1e-6 of max), each timed by the profiler and by CUDA
-events around ten calls in a row, in turn and again in reverse order; and,
-as source edits built apart, K5b2 float32 with dW formed in registers as
-dy is (`DW_IN_REGISTERS`) and K4f / K5s bf16 with eight channels a thread
+order), K4f and K5s bf16 and K5s float32 with tiles of 512 and of 256
+pixels (y held bit for bit, the sums to 1e-6 of max), each timed by the
+profiler and by CUDA events around ten calls in a row, in turn and again
+in reverse order; and, as source edits built apart, K5b2 float32 with dW
+formed in registers as dy is (`DW_IN_REGISTERS`) and the one-wave conv
+(K4f / K5s bf16, K5s float32) with eight channels a thread
 (`CONV_EIGHT_CHANNELS`), each beside the as-built kernel, by CUDA
 events. About twenty minutes of card time with both
 options. Imports the port only; needs a card; exits non-zero when a bar
@@ -78,26 +83,29 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = ("entry_block_fwd_f32_kernel", "entry_block_bwd_reduce_f32_kernel", "entry_block_bwd_wgrad_f32_kernel",
            "entry_block_fwd_bf16_kernel", "entry_block_bwd_reduce_bf16_kernel", "entry_block_bwd_wgrad_bf16_kernel",
-           "entry_conv_bf16_kernel")
+           "entry_conv_run_kernel")
 # K2's kernels whose tile code the six share (no name a substring of another listed one)
 SHARED = ("bn_glu_pool_kernel", "bn_glu_pool_bwd_kernel", "bn_bwd_fixup_recompute_kernel", "bn_glu_pool_bf16_kernel",
           "bn_glu_pool_bwd_bf16_kernel", "bn_bwd_fixup_recompute_bf16_kernel")
 ROWS = ("entry_block_fwd_eval", "entry_block_fwd_train", "crows_fwd", "entry_block_bwd_reduce", "entry_block_bwd_wgrad",
         "entry_block_fwd_eval_bf16", "entry_block_fwd_train_bf16", "crows_fwd_bf16", "entry_block_bwd_reduce_bf16",
         "entry_block_bwd_wgrad_bf16", "crows_bwd_wgrad_bf16", "entry_conv_bf16", "entry_block_stats_bf16",
-        "crows_stats_bf16")
+        "crows_stats_bf16", "entry_block_stats", "crows_stats")
 # the earlier kernels' device ms (PERF.md §6: chip_smoke.py, NVIDIA H100 80GB
 # HBM3, 700.00 W): K5f and K5b2 float32, K5b1 float32 and K5f bfloat16 as
 # first ported (scalar FP32 FMAs, the conv twice in K5f and K5b2 float32),
 # the bfloat16 passes on the tensor cores, the bfloat16 conv as first ported
-# (entry_conv_kernel<0 | 1, bf16>)
+# (entry_conv_kernel<0 | 1, bf16>), K5s / K6s float32 on entry_conv_kernel<1>
 RECORDED = {"entry_block_fwd_eval": 0.9370, "entry_block_fwd_train": 1.0405, "crows_fwd": 1.0390,
             "entry_block_bwd_reduce": 3.0876, "entry_block_bwd_wgrad": 2.5580, "entry_block_fwd_eval_bf16": 1.1587,
             "entry_block_fwd_train_bf16": 1.2577, "crows_fwd_bf16": 1.2235, "entry_block_bwd_reduce_bf16": 0.7042,
             "entry_block_bwd_wgrad_bf16": 0.6904, "crows_bwd_wgrad_bf16": 0.6798, "entry_conv_bf16": 0.1893,
-            "entry_block_stats_bf16": 0.1373, "crows_stats_bf16": 0.1375}
-# one traced MT step per first-block path: (flag, compute dtype)
-STEP_PATHS = {"step_entry_block": ("entry_block_pallas", "float32"), "step_crows": ("entry_block_crows", "float32"),
+            "entry_block_stats_bf16": 0.1373, "crows_stats_bf16": 0.1375, "entry_block_stats": 0.1267,
+            "crows_stats": 0.1273}
+# one traced MT step per first-block path: (flag, compute dtype); the default
+# bfloat16 path (F, no flag) for K2s bf16 at all three blocks
+STEP_PATHS = {"step_bf16": (None, "bfloat16"), "step_entry_block": ("entry_block_pallas", "float32"),
+              "step_crows": ("entry_block_crows", "float32"),
               "step_bf16_entry_block": ("entry_block_pallas", "bfloat16"),
               "step_bf16_crows": ("entry_block_crows", "bfloat16"),
               "step_bf16_entry_conv": ("entry_conv_pallas", "bfloat16")}
@@ -141,7 +149,7 @@ def kernel_calls(device):
     float32's sums; K5f bf16 eval and with dropout (planes), with dropout
     (crows); K5b1 bf16; K5b2 bf16 in the planes layout (output-frequency
     parity) and the crows layout (batch halves), a and b2 from K5b1's
-    sums; K4f bf16 and K5s bf16."""
+    sums; K4f bf16, K5s bf16 and K5s float32."""
     import torch
 
     from dcase2019_task4_tpu_torch.ops import entry_conv as ec
@@ -175,6 +183,7 @@ def kernel_calls(device):
                                                                                   layout="crows", **kw),
         "K4f entry_conv bf16": lambda: ec.entry_conv_forward(conv, x),
         "K5s entry_block_stats bf16": lambda: fe.entry_block_stats_apply(conv, x),
+        "K5s entry_block_stats float32": lambda: fe.entry_block_stats_apply(conv, x32),
     }
 
 
@@ -225,15 +234,16 @@ def other_kernels(device, sums: dict) -> dict:
     csrc/entry_block.cu but K5f float32 and K5b2 float32, on seeded
     inputs: K2 in float32 and bfloat16 at the flagship block-1 shape (C =
     64) and in bfloat16 at the scaled configuration's (C = 128), forward
-    eval and train in both draws, K2s, the reduce pass with and without
-    dy_partial, the fixup and the recompute fixup; K4's conv and weight
-    gradient, K5s, K5b1 float32, K5f bfloat16 (eval, train in both draws
+    eval and train in both draws, K2s float32, the reduce pass with and
+    without dy_partial, the fixup and the recompute fixup; K4's conv and
+    weight gradient, K5b1 float32, K5f bfloat16 (eval, train in both draws
     and both layouts) and K5's two bfloat16 passes (K5b2 in both
     partitions) at the flagship block-1 shape. Pass 2 takes seeded a and
-    b2. Of K4f bf16 the digest holds y alone: its sums and K5s bf16's go
-    into `sums` as lists ({call: [Σy, Σy²]}), to be held to 1e-6 of max,
-    and the bfloat16 K5 kernels take their mean and var from K2s's sums of
-    K4f's y."""
+    b2. Of K4f bf16 the digest holds y alone: its sums, K5s's in both types
+    and K2s bf16's go into `sums` as lists ({call: [Σy, Σy²]}), to be held
+    to 1e-6 of max; the K5 kernels take their mean and var from K2s
+    float32's sums of K4f's y, in bfloat16 from the float64 sums of K4f's
+    y (the same bits in both trees)."""
     import torch
 
     from dcase2019_task4_tpu_torch.ops import entry_conv as ec
@@ -256,7 +266,10 @@ def other_kernels(device, sums: dict) -> dict:
                 yh.var(dim=(0, 1, 2), unbiased=False).float(), t(C, C, scale=C ** -0.5), t(C, scale=0.1))
         del yh
         tag = f"{str(dtype)[6:]} {[B, T, Fq, C]}"
-        out[f"K2s {tag}"] = digest(fb.batch_stats(y))
+        if dtype == torch.float32:
+            out[f"K2s {tag}"] = digest(fb.batch_stats(y))
+        else:
+            sums[f"K2s {tag}"] = [t.tolist() for t in fb.batch_stats(y)]
         out[f"K2f eval {tag}"] = digest(fb.fused_bn_glu_pool(y, *vecs, (2, 4), 1e-3))
         for pack in (False, True):
             kw = dict(rate=0.5, seed=seed, pack_bits=pack)
@@ -287,13 +300,13 @@ def other_kernels(device, sums: dict) -> dict:
         if dtype == torch.bfloat16:
             out[f"K4f {tag} y"] = digest(y)
             sums[f"K4f {tag}"] = [s1.tolist(), s2.tolist()]
-            s1, s2 = fe.entry_block_stats_apply(conv, x)
-            sums[f"K5s {tag}"] = [s1.tolist(), s2.tolist()]
-            s1, s2 = fb.batch_stats(y)  # the K5 kernels' batch statistics from K2s on y: the same bits in both trees
+            yd = y.double()  # the K5 kernels' batch statistics: the same bits in both trees
+            s1, s2 = yd.sum(dim=(0, 1, 2)).float(), (yd * yd).sum(dim=(0, 1, 2)).float()
+            del yd
         else:
             out[f"K4f {tag}"] = digest((y, s1, s2))
-            s1, s2 = fe.entry_block_stats_apply(conv, x)
-            out[f"K5s {tag}"] = digest((s1, s2))
+            s1, s2 = fb.batch_stats(y)  # K2s float32 of K4f's y: the same bits in both trees
+        sums[f"K5s {tag}"] = [t.tolist() for t in fe.entry_block_stats_apply(conv, x)]
         del y
         mean = s1 / float(B * T * Fq)
         var = s2 / float(B * T * Fq) - mean * mean
@@ -376,7 +389,7 @@ def rows_from(root: str) -> int:
     torch.cuda.empty_cache()
     cfg = Config()
     for path, (flag, dtype) in STEP_PATHS.items():
-        model = dataclasses.replace(cfg.model, compute_dtype=dtype, **{flag: True})
+        model = dataclasses.replace(cfg.model, compute_dtype=dtype, **({flag: True} if flag else {}))
         run = dataclasses.replace(cfg, model=model)
         cs.PROFILER["lost"] = False
         _, _, _, on_device, state = cs.knob_card_steps(device, run, path, 2, False, cs.step_data(run, device))
@@ -425,7 +438,7 @@ def against(other: str) -> bool:
     differ = [name for name in runs[0]["digests"] if len({r["digests"][name] for r in runs}) != 1]
     print(f"  every other kernel of fused_block.cu and entry_block.cu, {len(runs[0]['digests'])} calls: outputs "
           + ("bit-identical in all four runs" if not differ else "DIFFER in " + ", ".join(differ)))
-    for name in runs[0]["sums"]:  # the bfloat16 conv's sums: 1e-6 of max of DIR's, the same bits in a tree's runs
+    for name in runs[0]["sums"]:  # the redesigned sums: 1e-6 of max of DIR's, the same bits in a tree's runs
         want = [np.asarray(v, np.float64) for v in runs[0]["sums"][name]]
         errs = [max(np.abs(np.asarray(g) - w).max() / np.abs(w).max() for g, w in zip(r["sums"][name], want))
                 for r in runs]
@@ -538,13 +551,13 @@ DW_IN_REGISTERS = (
 """, 1),
 )
 
-# Eight channels a thread in the bfloat16 conv (--variants): 72 weights and 32
-# outputs a run in registers, two blocks an SM, each pixel's channels in one
-# 16-byte store. Edits of csrc/entry_block.cu, as above.
+# Eight channels a thread in the one-wave conv (--variants): 72 weights and
+# 32 outputs a run in registers, two blocks an SM, each pixel's channels in
+# one 16-byte store. Edits of csrc/entry_block.cu, as above.
 CONV_EIGHT_CHANNELS = (
     ("constexpr int kConvChans = 4;", "constexpr int kConvChans = 8;", 1),
-    ("__launch_bounds__(kConvThreads, 4)\nentry_conv_bf16_kernel(",
-     "__launch_bounds__(kConvThreads, 2)\nentry_conv_bf16_kernel(", 1),
+    ("__launch_bounds__(kConvThreads, 4)\nentry_conv_run_kernel(",
+     "__launch_bounds__(kConvThreads, 2)\nentry_conv_run_kernel(", 1),
     ("*reinterpret_cast<uint2*>(yp + j * C) = make_uint2(packed[0], packed[1]);",
      "*reinterpret_cast<uint4*>(yp + j * C) = make_uint4(packed[0], packed[1], packed[2], packed[3]);", 1),
 )
@@ -646,34 +659,42 @@ def variants(device):
     finally:
         _build.wave_grid, fe.f32_wgrad_plan = grid, plan
 
-    # the bfloat16 conv (K4f, K5s): channels a thread and tile heights; y does
-    # not depend on the plan, the sums are held to 1e-6 of max
+    # the one-wave conv (K4f, K5s bf16; K5s float32): channels a thread and
+    # tile heights; y does not depend on the plan, the sums are held to 1e-6
+    # of max of the as-built plan's
     from dcase2019_task4_tpu_torch.ops import entry_conv as ec
 
     xb = flagship_inputs(device, torch.bfloat16)[0]
     conv = {"w": vecs[0], "b": vecs[1]}
     k4f, k5s = lambda: ec.entry_conv_forward(conv, xb), lambda: fe.entry_block_stats_apply(conv, xb)  # noqa: E731
+    k5s32 = lambda: fe.entry_block_stats_apply(conv, x)  # noqa: E731
     y0, s0, q0 = k4f()
+    sums32 = k5s32()
 
     def conv_held(out):
         y, s1, s2 = out if len(out) == 3 else (y0, *out)
         if not torch.equal(y, y0):
             raise AssertionError("K4f bf16's y depends on its plan")
-        err = max((p - q).abs().max().item() / q.abs().max().item() for p, q in ((s1, s0), (s2, q0)))
+        return sums_held((s1, s2), (s0, q0))
+
+    def sums_held(got, want):
+        err = max((p - q).abs().max().item() / q.abs().max().item() for p, q in zip(got, want))
         if not err <= 1e-6:
-            raise AssertionError(f"the bfloat16 conv's sums move by {err:.3e} of max under another plan")
-        return f"y bit-equal, sums within {err:.2e} of max of the as-built kernel's"
+            raise AssertionError(f"the one-wave conv's sums move by {err:.3e} of max under another plan")
+        return f"sums within {err:.2e} of max of the as-built kernel's"
 
     pixels = ec._CONV_TILE_PIXELS
     heights = (("as built", pixels), ("tiles of 512 pixels", 512), ("tiles of 256 pixels", 256))
-    print("  the bfloat16 conv's tile heights at the flagship shape (as above):")
+    convs = (("K4f bf16", k4f, lambda: "y bit-equal, " + conv_held(k4f())),
+             ("K5s bf16", k5s, lambda: conv_held(k5s())), ("K5s float32", k5s32, lambda: sums_held(k5s32(), sums32)))
+    print("  the one-wave conv's tile heights at the flagship shape (as above):")
     try:
         for label, tile_pixels in heights + heights[::-1]:
             ec._CONV_TILE_PIXELS = tile_pixels
-            for name, call in (("K4f bf16", k4f), ("K5s bf16", k5s)):
+            for name, call, check in convs:
                 cs.PROFILER["lost"] = False
-                print(f"    {name}, {label} ({ec.conv_bf16_plan(xb.shape[2], 64)[0]} rows): device "
-                      f"{cs.shown(cs.device_ms(call))}, events {timed(call):.4f} ({conv_held(call())})")
+                print(f"    {name}, {label} ({ec.conv_run_plan(xb.shape[2], 64)[0]} rows): device "
+                      f"{cs.shown(cs.device_ms(call))}, events {timed(call):.4f} ({check()})")
     finally:
         ec._CONV_TILE_PIXELS = pixels
 
@@ -681,7 +702,7 @@ def variants(device):
     # library path each), by CUDA events only (the profiler traces nothing
     # once a second CUDA library is loaded), in turn with the as-built kernel
     # and again in reverse order: K5b2 float32's dW in registers, the
-    # bfloat16 conv's eight channels a thread
+    # one-wave conv's eight channels a thread
     import bench_k2_bf16_torch as k2
 
     main_lib = _build.library
@@ -689,9 +710,10 @@ def variants(device):
         "K5b2 float32 with dW in registers (one block an SM)": (
             DW_IN_REGISTERS, ("dcase_entry_block_bwd_wgrad", "dcase_entry_block_bwd_wgrad_resident"),
             (("K5b2 float32", wgrad, lambda: held("K5b2 float32", wgrad())),)),
-        "K4f / K5s bf16 with eight channels a thread (16-byte stores)": (
-            CONV_EIGHT_CHANNELS, ("dcase_entry_conv", "dcase_entry_conv_bf16_resident"),
-            (("K4f bf16", k4f, lambda: conv_held(k4f())), ("K5s bf16", k5s, lambda: conv_held(k5s())))),
+        "K4f / K5s bf16, K5s float32 with eight channels a thread (16-byte stores)": (
+            CONV_EIGHT_CHANNELS,
+            ("dcase_entry_conv", "dcase_entry_conv_bf16_resident", "dcase_entry_conv_f32_resident"),
+            convs),
     }
     libraries = k2.ablation_libraries(tuple((label, edits) for label, (edits, _, _) in edited.items()), "entry_",
                                       "entry_block.cu")
@@ -703,8 +725,9 @@ def variants(device):
             continue
         swapped = _Swapped(lib, main_lib(), entries)
         if "dcase_entry_conv_bf16_resident" in entries:
-            print(f"    blocks an SM: {lib.dcase_entry_conv_bf16_resident()} (as built "
-                  f"{main_lib().dcase_entry_conv_bf16_resident()})")
+            print(f"    blocks an SM, bfloat16 / float32: {lib.dcase_entry_conv_bf16_resident()} / "
+                  f"{lib.dcase_entry_conv_f32_resident()} (as built {main_lib().dcase_entry_conv_bf16_resident()} / "
+                  f"{main_lib().dcase_entry_conv_f32_resident()})")
         try:
             for as_built in (True, False, False, True):
                 _build.library = main_lib if as_built else (lambda: swapped)
@@ -756,7 +779,8 @@ def main() -> int:
         tests = subprocess.run([sys.executable, "-m", "pytest", "tests/test_torch_kernels_gpu.py", "-q", "-s",
                                 "-p", "no:randomly", "-k",
                                 "entry_reduce_f32 or entry_fwd_f32 or entry_wgrad_f32 or crows_float32 or "
-                                "entry_fwd_bf16 or entry_bwd_bf16 or entry_block_bf16 or entry_conv_bf16"],
+                                "entry_fwd_bf16 or entry_bwd_bf16 or entry_block_bf16 or entry_conv_bf16 or "
+                                "entry_stats_f32"],
                                cwd=REPO, capture_output=True, text=True)
         print(tests.stdout[-3000:], tests.stderr[-2000:])
         if tests.returncode != 0:
@@ -775,8 +799,8 @@ def main() -> int:
               f"at once; K5f bf16: {fe.fwd_bf16_plan(C)} bytes; {_build.resident(0, 'fwd_bf16', C)} blocks held at once")
     from dcase2019_task4_tpu_torch.ops import entry_conv as ec
 
-    print(f"K4f / K5s bf16 at F = 64, C = 64: (rows, halo, smem) {ec.conv_bf16_plan(64, 64)}; "
-          f"{_build.resident(0, 'conv_bf16')} blocks held at once")
+    print(f"K4f / K5s bf16, K5s float32 at F = 64, C = 64: (rows, halo, smem) {ec.conv_run_plan(64, 64)}; "
+          f"{_build.resident(0, 'conv_bf16')} / {_build.resident(0, 'conv_f32')} blocks held at once")
     kernel_rows(device)
     ablation_bounds()
     same = True
