@@ -8,12 +8,14 @@ printing a result:
 
   1. card   — nvidia-smi's name and power limit, torch's device name;
   2. build  — compile csrc/*.cu with nvcc for sm_90a, one compiler per source
-     in parallel (ptxas report printed); the product instruction of K3's,
-     K2's and K5f / K5b1 / K5b2's bfloat16 kernels read from the library's
-     machine code (HGMMA or HMMA, with the FFMA count; a kernel with neither
-     fails), and of the FP32 product kernels (onedot K1, K3's float32
-     kernels, K2f's and K2b's float32 kernels, K5's three float32 kernels:
-     FFMA, and a kernel with HGMMA or HMMA fails);
+     in parallel (ptxas report printed; K4w's two kernels' registers and
+     spills printed apart, and a spill of either fails); the product
+     instruction of K3's, K2's and K5f / K5b1 / K5b2's and K4w's bfloat16
+     kernels read from the library's machine code (HGMMA or HMMA, with the
+     FFMA count; a kernel with neither fails), and of the FP32 product
+     kernels (onedot K1, K3's float32 kernels, K2f's and K2b's float32
+     kernels, K5's three float32 kernels, K4w's float32 kernel: FFMA, and a
+     kernel with HGMMA or HMMA fails);
   3. kernels — each hand-written kernel against its plain PyTorch version on
      the card, at the flagship shapes, float32 with TF32 off: max abs error
      against a stated tolerance, median time over 10 runs after 3 warm-ups
@@ -276,7 +278,9 @@ KERNEL_NAMES = {"entry_conv": "entry_conv_kernel<0>", "entry_block_stats": "entr
                 "entry_conv_bf16": "entry_conv_run_kernel<bf16, true>",
                 "entry_block_stats_bf16": "entry_conv_run_kernel<bf16, false>",
                 "crows_stats_bf16": "entry_conv_run_kernel<bf16, false>", "batch_stats": "stats_kernel<float>",
-                "batch_stats_bf16": "stats_bf16_kernel", "batch_stats_bf16_flagship": "stats_bf16_kernel"}
+                "batch_stats_bf16": "stats_bf16_kernel", "batch_stats_bf16_flagship": "stats_bf16_kernel",
+                "entry_conv_wgrad": "entry_conv_dw_f32_kernel",
+                "entry_conv_wgrad_bf16": "entry_conv_dw_bf16_kernel<64>"}
 # Launches each path makes: exactly these on predict (two batches) and on one
 # MT step (teacher forward, student forward and backward), and none of a
 # kernel the path has no entry for.
@@ -2995,12 +2999,13 @@ BLOCK1_KERNELS = {
     "step": (("bn_glu_pool_kernel", 2), ("bn_glu_pool_bwd_kernel", 1), ("bn_bwd_fixup_kernel", 1), ("stats_kernel", 2)),
     "step_entry_block": (("entry_conv_run_kernel", 2), ("entry_block_fwd_f32_kernel", 2),
                          ("entry_block_bwd_reduce_f32_kernel", 1), ("entry_block_bwd_wgrad_f32_kernel", 1)),
-    "step_entry_conv": (("entry_conv_kernel", 2), ("entry_conv_wgrad_kernel", 1), ("bn_glu_pool_kernel", 2),
+    "step_entry_conv": (("entry_conv_kernel", 2), ("entry_conv_dw_f32_kernel", 1), ("bn_glu_pool_kernel", 2),
                         ("bn_glu_pool_bwd_kernel", 1), ("bn_bwd_fixup_kernel", 1)),
 }
 BLOCK1_KERNELS["step_crows"] = BLOCK1_KERNELS["step_entry_block"]
 BF16_NAMES = {"bn_glu_pool_kernel": "bn_glu_pool_bf16_kernel", "bn_glu_pool_bwd_kernel": "bn_glu_pool_bwd_bf16_kernel",
-              "entry_conv_kernel": "entry_conv_run_kernel", "stats_kernel": "stats_bf16_kernel",
+              "entry_conv_kernel": "entry_conv_run_kernel", "entry_conv_dw_f32_kernel": "entry_conv_dw_bf16_kernel",
+              "stats_kernel": "stats_bf16_kernel",
               "entry_block_fwd_f32_kernel": "entry_block_fwd_bf16_kernel",
               "entry_block_bwd_reduce_f32_kernel": "entry_block_bwd_reduce_bf16_kernel",
               "entry_block_bwd_wgrad_f32_kernel": "entry_block_bwd_wgrad_bf16_kernel"}
@@ -3126,18 +3131,21 @@ def profile_step(step, state, batch, generator, acc, card: str, step_ms: float, 
 # K3's, K2's and K5's bfloat16 kernels: their products must be tensor-core instructions
 MMA_KERNELS = ("conv3x3_bf16_kernel", "conv3x3_wgrad_bf16_kernel", "bn_glu_pool_bf16_kernel",
                "bn_glu_pool_bwd_bf16_kernel", "bn_bwd_fixup_recompute_bf16_kernel", "entry_block_fwd_bf16_kernel",
-               "entry_block_bwd_reduce_bf16_kernel", "entry_block_bwd_wgrad_bf16_kernel")
+               "entry_block_bwd_reduce_bf16_kernel", "entry_block_bwd_wgrad_bf16_kernel", "entry_conv_dw_bf16_kernel")
 # the float32 products redesigned as register-tiled FP32 FMAs: FFMA, and no
 # tensor-core instruction (no TF32); bn_glu_pool_kernel is K2f's float32
 # forward alone, bn_glu_pool_bwd_kernel K2b's float32 reduce pass alone,
 # bn_bwd_fixup_recompute_kernel its float32 recompute fixup alone,
 # entry_block_*_f32_kernel K5's three float32 kernels and
 # entry_conv_run_kernel K4f / K5s on bfloat16 x and K5s on float32 x, whose
-# conv is FP32 FMAs in conv9's order (no name here is a substring of another listed name)
+# conv is FP32 FMAs in conv9's order, entry_conv_dw_f32_kernel K4w on float32
+# x (no name here is a substring of another listed name)
 FFMA_KERNELS = ("fused_stft_mel_onedot_kernel", "conv3x3_wgrad_kernel", "conv3x3_nhwc_kernel",
                 "bn_glu_pool_bwd_kernel", "bn_glu_pool_kernel", "bn_bwd_fixup_recompute_kernel",
                 "entry_block_bwd_reduce_f32_kernel", "entry_block_fwd_f32_kernel", "entry_block_bwd_wgrad_f32_kernel",
-                "entry_conv_run_kernel")
+                "entry_conv_run_kernel", "entry_conv_dw_f32_kernel")
+# the kernels whose ptxas report phase 2 prints apart and fails on a spill: K4w's
+NO_SPILL_KERNELS = ("entry_conv_dw_f32_kernel", "entry_conv_dw_bf16_kernel")
 
 
 def check_mma(path):
@@ -3165,6 +3173,25 @@ def check_mma(path):
                 raise AssertionError(f"{name}: neither HGMMA nor HMMA in its machine code")
             if kernel in FFMA_KERNELS and op != "FFMA":
                 raise AssertionError(f"{name}: an FP32-FMA kernel with {op or 'no FFMA'} in its machine code")
+
+
+def check_spills(log, kernels):
+    """Print ptxas's registers and spills of each instantiation of `kernels`
+    (substrings of the mangled names) from the build log; fail where one
+    spills or is missing."""
+    lines = log.splitlines()
+    for kernel in kernels:
+        found = 0
+        for i, line in enumerate(lines):
+            if "Compiling entry" in line and kernel in line:
+                found += 1
+                report = " ".join(s.strip() for s in lines[i + 1:i + 4] if "spill" in s or "registers" in s)
+                name = line.split("'")[1]
+                print(f"  ptxas of {kernel} ({name[:60]}): {report}")
+                if "0 bytes spill stores, 0 bytes spill loads" not in report:
+                    raise AssertionError(f"{kernel} spills: {report}")
+        if not found:
+            raise AssertionError(f"no ptxas report of {kernel} in the build log")
 
 
 def main() -> int:
@@ -3197,9 +3224,11 @@ def main() -> int:
     print("== phase 2: build")
     info = _build.build()
     print(f"  built {os.path.relpath(info['path'], REPO)} in {info['seconds']:.2f} s")
-    for line in info["log"].splitlines():
+    log = info["log"] or (_build.BUILD_DIR / "build.log").read_text()
+    for line in log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
+    check_spills(log, NO_SPILL_KERNELS)
     _build.library()
     check_mma(info["path"])
 

@@ -19,7 +19,10 @@
 //                                  the same over one wave of equal runs: on
 //                                  bfloat16 x K4f (kStore) and K5s / K6s (no
 //                                  store), on float32 x K5s / K6s
-//   entry_conv_wgrad_kernel        dW = patches^T . dy, db = sum dy (K4w)
+//   entry_conv_dw_f32_kernel       dW = patches^T . dy, db = sum dy (K4w) over one
+//                                  wave of equal runs, float32, FP32 FMAs;
+//                                  entry_conv_dw_bf16_kernel on bfloat16 x,
+//                                  on the tensor cores
 //   entry_block_fwd_f32_kernel     conv -> BN -> GLU -> dropout -> pool (K5f),
 //                                  float32, on FP32 register tiles;
 //                                  entry_block_fwd_bf16_kernel on bfloat16 x,
@@ -71,13 +74,15 @@
 // Design: a tile is whole time rows of up to 128 pixels, whole pooling rows
 // in the fused kernels (the tiling of fused_block.cu). Per tile a block
 // stages x with a one-cell halo, zeros outside the tensor, into shared
-// memory: (rows + 2) x (F + 2) floats. K4f and K4w in float32 take one block
-// per (run of pixel tiles, clip): a thread owns four neighbouring channels
-// (their 36 weights in registers) of every (256 / (C / 4))-th pixel, stores y
-// as float4 and sums in double. K5s in both types and K4f in bfloat16 run one
+// memory: (rows + 2) x (F + 2) floats. K4f in float32 takes one block per
+// (run of pixel tiles, clip): a thread owns four neighbouring channels (their
+// 36 weights in registers) of every (256 / (C / 4))-th pixel, stores y as
+// float4 and sums in double. K5s in both types and K4f in bfloat16 run one
 // wave of equal runs of time rows in tiles of several rows, x a tile ahead,
 // each thread forming runs of four pixels from one shared window and summing
-// in float32 a tile (see entry_conv_run_kernel). The six K5 kernels with a channel product
+// in float32 a tile (see entry_conv_run_kernel). K4w runs one wave of equal
+// runs of time rows too, dy streamed a tile ahead by cp.async (see
+// entry_conv_dw_f32_kernel). The six K5 kernels with a channel product
 // compute y once a tile, in conv9's order (K4f's), into the tile their K2
 // counterpart stages y into, and run that counterpart's per-tile code on it,
 // over one wave of the resident blocks in equal runs of the batch's tiles:
@@ -113,8 +118,8 @@
 // fold onto w: by output-frequency parity in the parity-plane basis
 // (entry_conv.py:65-77,232, fused_entry_block.py:416), by batch half in the
 // crows basis (crows_block.py:105-115,535). The kernels keep the parts apart
-// (K4w: a thread's pixels share one frequency parity when F is even; K5b2: the
-// pixels in class order, the blocks in batch halves) and fold_classes_kernel
+// (K4w and K5b2: the pixels in class order; K5b2 in the crows basis the blocks
+// in batch halves) and fold_classes_kernel (K4w: fold_classes_warps_kernel)
 // rounds each part's sum and adds the rounded parts.
 
 #include <cuda_runtime.h>
@@ -138,15 +143,14 @@ constexpr int kHalo = 4 * kPix; // floats of a staged x tile: (rows + 2) * (F + 
 int rows_per_tile(int F, int pt) { return pt * (kPix / (pt * F)); }
 
 // x[b, t0 - 1 .. t0 + trows, -1 .. F] -> xt [trows + 2][F + 2], zeros outside.
-template <typename TX>
-__device__ __forceinline__ void stage_x(float* xt, const TX* __restrict__ x, int b, int T,
+__device__ __forceinline__ void stage_x(float* xt, const float* __restrict__ x, int b, int T,
                                         int F, int t0, int trows) {
   const int FW = F + 2;
   const int n = (trows + 2) * FW;
   for (int i = threadIdx.x; i < n; i += kThreads) {
     const int r = i / FW, q = i % FW;
     const int t = t0 - 1 + r, f = q - 1;
-    xt[i] = (t >= 0 && t < T && f >= 0 && f < F) ? to_float(x[((long long)b * T + t) * F + f]) : 0.0f;
+    xt[i] = (t >= 0 && t < T && f >= 0 && f < F) ? x[((long long)b * T + t) * F + f] : 0.0f;
   }
 }
 
@@ -240,78 +244,336 @@ entry_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// Slot of a block: classes x [9 * C dW (tap-major) | C db]. classes 2: the
-// sums over even and over odd output frequencies apart (F even; a thread's
-// pixels p = grp + groups * n then share the parity of grp, with `groups`
-// made even).
-template <typename TX>
-__global__ void __launch_bounds__(kThreads)
-entry_conv_wgrad_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
-                        float* __restrict__ partials, int T, int F, int C, int rows,
-                        int tiles_per_block, int classes) {
-  __shared__ float xt[kHalo];
-  extern __shared__ float red[];  // [groups][10 * C]
-  const int tid = threadIdx.x;
-  const int lanes = C / 4, groups = (kThreads / lanes) & (classes == 2 ? ~1 : ~0);
-  const int lane = tid % lanes, grp = tid / lanes;
-  const bool active = grp < groups;
-  const int b = blockIdx.y;
-  const int FW = F + 2;
+// ------------------------------------------------------ K4w: one wave of runs
 
-  float dw[4][9], db[4];
+// dW[tap][c] = sum x[t + dt - 1, f + df - 1] dy[t, f, c] (tap 3 dt + df) and
+// db[c] = sum dy[t, f, c], zeros outside the tensor: on float32 x and dy in
+// FP32 FMAs (entry_conv_dw_f32_kernel), on bfloat16 x and dy on mma.sync
+// with every product exact (entry_conv_dw_bf16_kernel), the bfloat16 dW in
+// the parts the original rounds apart (output-frequency parity, F even). K4w
+// reads dy once: bytes bound it (340 MB in float32, 170 MB in bfloat16 at the
+// flagship shape: 0.103 / 0.052 ms at 3.35 TB/s; its 1.53 GFLOP take 0.023 ms
+// at the FP32 rate).
+//
+// Launch plan of both: one wave of the resident blocks (the wrapper sizes it
+// from dcase_entry_conv_wgrad_resident), block k of G taking time rows [k n /
+// G, (k + 1) n / G) of the n = B T rows of the batch, clip after clip, cut
+// into tiles of up to `rows` rows inside a clip (at most kDwTilePix pixels;
+// a clip's or a run's last tile shorter). A tile's dy is one stretch of
+// device memory; it goes into shared memory by 16-byte cp.async (8-byte in
+// bfloat16 where C % 8 == 4) a tile ahead, into the other of two buffers, so
+// that a whole tile is in flight while the block multiplies the one before:
+// one barrier a tile. Three blocks an SM at the flagship shape (tiles of two
+// rows, 32 KB of dy in float32, 16 KB in bfloat16; ops/entry_conv.wgrad_plan).
+// Each block writes one slot, classes x [9 C dW (tap-major) | C db];
+// fold_classes_warps_kernel adds the slots in a fixed order (a warp a
+// column): a run repeats bit for bit.
+//
+// float32: the tile's x with its one-cell halo [trows + 2][F + 2] comes by
+// cp.async beside its dy; dW and db from the dy tile with K5b2 float32's loop
+// (add_dw_f32): thread (s, q) takes the ten rows (nine taps, db) for channels
+// 4 q .. 4 q + 3 of the pixels s, s + S, ... (S = 256 / (C / 4)): 40 sums in
+// registers, dy by LDS.128 once a pixel, the patch from the staged x.
+//
+// bfloat16: dW = patches^T . dy on mma.sync m16n8k16 (M: the nine taps, a row
+// of ones for db, zeros to 16; N: channels; K: the tile's pixels). x is
+// bfloat16, so each patch value is exact in the operand; dy is read as
+// stored. Under the parity partition pixel p is column k = (p % 2) H + p / 2
+// of both operands (H = kDwTilePix / 2; dy's rows land there by cp.async),
+// so the k-chunks below H hold even output frequencies and those above odd
+// ones, summed apart to the slot; else k = p. A tile's patch matrix is
+// gathered from x into registers while the tile before multiplies and stored
+// after it, into the other of two buffers.
+constexpr int kDwThreads = 256;        // threads of a block
+constexpr int kDwTilePix = 128;        // pixels of a tile, at most: the bfloat16 product's K
+constexpr int kDwKS = kDwTilePix + 8;  // row stride of the patch matrix: an odd number of 16-byte units
+
+// Floats of a staged x tile with its halo, rounded up to four.
+__host__ __device__ inline int dw_halo(int F, int rows) { return 4 * (((rows + 2) * (F + 2) + 3) / 4); }
+
+// Pixel shares of the float32 kernel's threads.
+__host__ __device__ inline int dw_shares(int C) { return kDwThreads / (C / 4); }
+
+// Dynamic shared memory of the float32 kernel at tiles of `rows` rows
+// (ops/entry_conv.wgrad_plan computes the same): two dy tiles [rows F][C] (at
+// the end the shares' sums [S][10][C], where they take more) and two x tiles.
+size_t dw_f32_smem(int F, int C, int rows) {
+  const size_t tiles = 2 * (size_t)rows * F * C, shares = (size_t)dw_shares(C) * 10 * C;
+  return 4 * ((tiles > shares ? tiles : shares) + 2 * (size_t)dw_halo(F, rows));
+}
+
+// Dynamic shared memory of the bfloat16 kernel at CP = 64 or 128 padded
+// channels (ops/entry_conv.wgrad_plan computes the same): two dy tiles
+// [kDwTilePix][CP + 8] and two patch matrices [16][kDwKS], bfloat16.
+template <int CP>
+constexpr size_t dw_bf16_smem() {
+  return 2 * (2 * (size_t)kDwTilePix * (CP + 8) + 2 * 16 * (size_t)kDwKS);
+}
+
+// dW[row0 + k][4 sq + e] += x[p + tap] dy[p][4 sq + e] for the R rows row0 ..
+// row0 + R - 1 (row 9: d conv_b, x = 1) over the pixels p = sh, sh + S, ... <
+// tpix of a tile: dy's rows at dyt + p ds, x with its halo in xt [rows + 2][F
+// + 2], off[k] the place of row row0 + k's tap in a pixel's patch. K5b2
+// float32 takes five rows a thread (its two thread halves), K4w float32 all
+// ten.
+template <int R>
+__device__ __forceinline__ void add_dw_f32(float (&dw)[4][R], const float* dyt, int ds, const float* xt,
+                                           const int (&off)[R], int F, int tpix, int sh, int S, int sq, int row0) {
+  const int FW = F + 2, dpr = S / F, dpc = S % F;  // a pixel step of S in rows and columns
+  int pr = sh / F, pc = sh % F;
+  for (int p = sh; p < tpix; p += S) {
+    const float4 d4 = ld4(dyt + p * ds + 4 * sq);
+    const float d[4] = {d4.x, d4.y, d4.z, d4.w};
+    const float* r = xt + pr * FW + pc;
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    db[k] = 0.0f;
+    for (int k = 0; k < R; ++k) {
+      const float xv = k == R - 1 && row0 + k == 9 ? 1.0f : r[off[k]];
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap) dw[k][tap] = 0.0f;
+      for (int e = 0; e < 4; ++e) dw[e][k] = fmaf(xv, d[e], dw[e][k]);
+    }
+    pc += dpc;
+    pr += dpr;
+    if (pc >= F) {
+      pc -= F;
+      ++pr;
+    }
+  }
+}
+
+// x, dy float32 [B, T, F], [B, T, F, C]; a slot [10 C] a block.
+__global__ void __launch_bounds__(kDwThreads)
+entry_conv_dw_f32_kernel(const float* __restrict__ x, const float* __restrict__ dy, float* __restrict__ partials,
+                         int B, int T, int F, int C, int rows) {
+  extern __shared__ __align__(16) float smem_e[];
+  const int tid = threadIdx.x, FW = F + 2, Q = C / 4, S = dw_shares(C);
+  const int sq = tid % Q, sh = tid / Q;  // channels 4 sq .. of the pixels sh, sh + S, ...
+  const int tile = rows * F * C, halo = dw_halo(F, rows);
+  float* dys = smem_e;  // [2][rows F][C]: dy (at the end [S][10][C]: the shares' sums)
+  float* xts = dys + (2 * tile > S * 10 * C ? 2 * tile : S * 10 * C);  // [2][halo]: x with its halo
+  int off[10];      // tap k at r[off[k]] of a pixel's patch r
+  float dw[4][10];  // this thread's share of dW[k][4 sq + e] (of db at row 9)
+#pragma unroll
+  for (int k = 0; k < 10; ++k) {
+    off[k] = k < 9 ? (k / 3) * FW + k % 3 : 0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dw[e][k] = 0.0f;
   }
 
-  const int n_tiles = (T + rows - 1) / rows;
-  const int first = blockIdx.x * tiles_per_block;
-  const int last = min(n_tiles, first + tiles_per_block);
-  for (int tile = first; tile < last; ++tile) {
-    const int t0 = tile * rows;
-    const int trows = min(rows, T - t0);
-    const int tpix = trows * F;
-    __syncthreads();
-    stage_x(xt, x, b, T, F, t0, trows);
-    __syncthreads();
-    if (!active) continue;
-    for (int p = grp; p < tpix; p += groups) {
-      const float* r = xt + (p / F) * FW + (p % F);
-      const float4 d4 = Vec4<TX>::load(dy + (((long long)b * T + t0) * F + p) * C + 4 * lane);
-      const float d[4] = {d4.x, d4.y, d4.z, d4.w};
-      float patch[9];
-#pragma unroll
-      for (int dt = 0; dt < 3; ++dt)
-#pragma unroll
-        for (int df = 0; df < 3; ++df) patch[dt * 3 + df] = r[dt * FW + df];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        db[k] += d[k];
-#pragma unroll
-        for (int tap = 0; tap < 9; ++tap) dw[k][tap] = fmaf(patch[tap], d[k], dw[k][tap]);
+  // this block's time rows: the tile it multiplies starts at cur, the next
+  // one to load at ahead
+  const long long n = (long long)B * T;
+  const int r_end = (int)((blockIdx.x + 1) * n / gridDim.x);
+  int cur = (int)(blockIdx.x * n / gridDim.x), ahead = cur;
+  auto trows_at = [&](int r) { return min(min(rows, T - r % T), r_end - r); };
+  // dy of the tile at row `ahead` (contiguous) and x with its halo into
+  // buffer buf by cp.async, as one group (empty past the run)
+  auto stage = [&](int buf) {
+    if (ahead < r_end) {
+      const int b = ahead / T, t0 = ahead % T, trows = trows_at(ahead);
+      const float* src = dy + (long long)ahead * F * C;
+      float* dst = dys + buf * tile;
+      for (int i = tid; i < trows * F * C / 4; i += kDwThreads) cp_async16(dst + 4 * i, src + 4 * i, 16);
+      float* xt = xts + buf * halo;
+      for (int i = tid; i < (trows + 2) * FW; i += kDwThreads) {
+        const int t = t0 - 1 + i / FW, f = i % FW - 1;
+        const bool ok = t >= 0 && t < T && f >= 0 && f < F;
+        cp_async4(xt + i, ok ? x + ((long long)b * T + t) * F + f : x, ok ? 4 : 0);
       }
+      ahead += trows;
     }
+    cp_async_commit();
+  };
+
+  stage(0);
+  for (int buf = 0; cur < r_end; buf ^= 1) {
+    const int trows = trows_at(cur);
+    cp_async_wait_all();
+    __syncthreads();  // this tile's dy and x landed; every thread is done with the other buffers
+    stage(buf ^ 1);   // the next tile loads while this one multiplies
+    if (sh < S) add_dw_f32<10>(dw, dys + buf * tile, C, xts + buf * halo, off, F, trows * F, sh, S, sq, 0);
+    cur += trows;
   }
 
-  if (active) {
+  // the block's slot: the S shares added in share order, over the dy tiles' memory
+  cp_async_wait_all();
+  __syncthreads();  // every thread is done with the last tile
+  float* red = smem_e;  // [S][10][C]
+  if (sh < S) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) red[(grp * 10 + tap) * C + 4 * lane + k] = dw[k][tap];
-      red[(grp * 10 + 9) * C + 4 * lane + k] = db[k];
-    }
+    for (int k = 0; k < 10; ++k)
+      st4(red + (sh * 10 + k) * C + 4 * sq, make_float4(dw[0][k], dw[1][k], dw[2][k], dw[3][k]));
   }
   __syncthreads();
-  const int slot = blockIdx.y * gridDim.x + blockIdx.x;
-  for (int i = tid; i < 10 * C; i += kThreads)
-    for (int cl = 0; cl < classes; ++cl) {
-      float t = 0.0f;
-      for (int g = cl; g < groups; g += classes) t += red[g * 10 * C + i];
-      partials[((long long)slot * classes + cl) * 10 * C + i] = t;
-    }
+  float* ps = partials + (long long)blockIdx.x * 10 * C;
+  for (int i = tid; i < 10 * C; i += kDwThreads) {
+    float v = 0.0f;
+    for (int g = 0; g < S; ++g) v += red[g * 10 * C + i];
+    ps[i] = v;
+  }
 }
+
+// x, dy bfloat16 [B, T, F], [B, T, F, C], C <= CP (64 or 128); a slot
+// classes x [10 C] a block (classes 2 under parity: F even).
+template <int CP>
+__global__ void __launch_bounds__(kDwThreads)
+entry_conv_dw_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy, float* __restrict__ partials,
+                          int B, int T, int F, int C, int rows, int parity) {
+  constexpr int RS = CP + 8;              // row stride of a dy tile: an odd number of 16-byte units
+  constexpr int NW = kDwThreads / 32, NP = CP / 16, NS = NW / NP;  // warps: channel pairs of fragments, k-slices
+  constexpr int H = kDwTilePix / 2, NG = (9 * H + kDwThreads - 1) / kDwThreads;  // a thread's patch pairs
+  static_assert(NW % NP == 0 && (H / 16) % NS == 0, "warp layout");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* dys = reinterpret_cast<bf16*>(smem_raw);  // [2][kDwTilePix][RS]: dy, rows in k order
+  bf16* pms = dys + 2 * kDwTilePix * RS;          // [2][16][kDwKS]: patches^T, columns in k order
+  const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, g = lane / 4, q = lane % 4;
+  auto pixel = [&](int k) { return parity ? 2 * (k % H) + k / H : k; };
+
+  // rows 9 (ones: db) to 15 (zeros) of both patch matrices, once
+  for (int i = tid; i < 2 * 7 * kDwKS; i += kDwThreads) {
+    const int m = i / (7 * kDwKS), j = i % (7 * kDwKS);
+    pms[(m * 16 + 9) * kDwKS + j] = __float2bfloat16_rn(j < kDwKS ? 1.0f : 0.0f);
+  }
+
+  // this block's time rows: the tile it multiplies starts at cur, the next
+  // one to load at ahead
+  const long long n = (long long)B * T;
+  const int r_end = (int)((blockIdx.x + 1) * n / gridDim.x);
+  int cur = (int)(blockIdx.x * n / gridDim.x), ahead = cur;
+  auto trows_at = [&](int r) { return min(min(rows, T - r % T), r_end - r); };
+  // dy of the tile at row `ahead` into buffer buf by cp.async, pixel p at row
+  // k, zeros at the rows of no pixel of the tile, as one group (empty past
+  // the run): thread tid copies column chunk tid % per of rows tid / per, +
+  // 256 / per, ...
+  const int cw = C % 8 == 0 ? 8 : 4, per = C / cw;  // 16-byte copies of 8 channels, else 8-byte of 4
+  const int kstep = kDwThreads / per, c_own = cw * (tid % per), k_own = tid / per;
+  auto stage = [&](int buf) {
+    if (ahead < r_end) {
+      const int tpix = trows_at(ahead) * F;
+      const bf16* src = dy + (long long)ahead * F * C + c_own;
+      bf16* dst = dys + buf * kDwTilePix * RS + c_own;
+      for (int k = k_own; k < kDwTilePix && tid < kstep * per; k += kstep) {
+        const int p = pixel(k);
+        const bool ok = p < tpix;
+        if (cw == 8) cp_async16(dst + k * RS, ok ? src + p * C : dy, ok ? 16 : 0);
+        else cp_async8(dst + k * RS, ok ? src + p * C : dy, ok ? 8 : 0);
+      }
+      ahead += trows_at(ahead);
+    }
+    cp_async_commit();
+  };
+  // the pairs (tap, k, k + 1), i = tid + 256 j = tap H + k / 2, of the patch
+  // matrix of a tile: x at the patch of pixel(k + e), zeros outside the
+  // tensor and past the tile. Per pair and element, fixed over the tiles:
+  // the tap's row dt, the pixel's time row in the tile (prow; past any tile
+  // where the tap's column lies outside the tensor) and x's offset from the
+  // tile's first pixel.
+  int g_dt[NG], g_prow[NG][2], g_off[NG][2];
+#pragma unroll
+  for (int j = 0; j < NG; ++j) {
+    const int i = tid + j * kDwThreads, tap = (i < 9 * H ? i : 0) / H, k = 2 * (i % H);
+    g_dt[j] = tap / 3;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int p = pixel(k + e), f = p % F + tap % 3 - 1;
+      g_prow[j][e] = i < 9 * H && f >= 0 && f < F ? p / F : kDwTilePix;
+      g_off[j][e] = (p / F + tap / 3 - 1) * F + f;
+    }
+  }
+  auto gather = [&](uint32_t (&pv)[NG], int r) {
+    const int t0 = r % T, trows = trows_at(r);
+    const unsigned short* xb = xs + (long long)r * F;  // the tile's first pixel
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      uint32_t v = 0;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int t = t0 + g_prow[j][e] + g_dt[j] - 1;
+        if (g_prow[j][e] < trows && t >= 0 && t < T) v |= (uint32_t)xb[g_off[j][e]] << (16 * e);
+      }
+      pv[j] = v;
+    }
+  };
+  auto place = [&](const uint32_t (&pv)[NG], int buf) {
+#pragma unroll
+    for (int j = 0; j < NG; ++j) {
+      const int i = tid + j * kDwThreads;
+      if (i < 9 * H) *reinterpret_cast<uint32_t*>(pms + (buf * 16 + i / H) * kDwKS + 2 * (i % H)) = pv[j];
+    }
+  };
+
+  // dW of rows 0-15 x this warp's 16 channels, k < H and k >= H apart
+  const int np = warp % NP, sl = warp / NP;
+  float acc[2][2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+  const int a_lane = (lane % 16) * kDwKS + (lane / 16) * 8;
+  const int b_lane = (lane % 8 + 8 * ((lane / 8) % 2)) * RS + np * 16 + (lane / 16) * 8;
+
+  stage(0);
+  uint32_t pv[NG];
+  if (cur < r_end) {
+    gather(pv, cur);
+    place(pv, 0);
+  }
+  for (int buf = 0; cur < r_end; buf ^= 1) {
+    const int next = cur + trows_at(cur);
+    cp_async_wait_all();
+    __syncthreads();  // this tile's dy and patches in place; every warp is done with the other buffers
+    stage(buf ^ 1);   // the next tile's dy loads, and its patches gather, while this one multiplies
+    if (next < r_end) gather(pv, next);
+    const uint32_t a0 = smem_addr(pms + buf * 16 * kDwKS + a_lane);
+    const uint32_t b0 = smem_addr(dys + buf * kDwTilePix * RS + b_lane);
+#pragma unroll
+    for (int j = 0; j < kDwTilePix / 16 / NS; ++j) {
+      const int kc = sl + NS * j;  // k-chunk; kc < H / 16 iff NS j < H / 16
+      uint32_t af[4], bq[4];
+      ldmatrix_x4(af, a0 + 2 * (kc * 16));
+      ldmatrix_x4_trans(bq, b0 + 2 * (kc * 16 * RS));
+      mma_bf16(acc[(NS * j) / (H / 16)][0], af, bq[0], bq[1]);
+      mma_bf16(acc[(NS * j) / (H / 16)][1], af, bq[2], bq[3]);
+    }
+    if (next < r_end) place(pv, buf ^ 1);
+    cur = next;
+  }
+
+  // the k-slices' sums added in slice order, over the dy tiles' memory
+  cp_async_wait_all();
+  __syncthreads();  // every warp is done with the last tile
+  float* red = reinterpret_cast<float*>(smem_raw);  // [NS][2][10][CP]
+#pragma unroll
+  for (int hk = 0; hk < 2; ++hk)
+#pragma unroll
+    for (int nf = 0; nf < 2; ++nf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = g + 8 * (e / 2), c = np * 16 + nf * 8 + 2 * q + e % 2;
+        if (row < 10) red[((sl * 2 + hk) * 10 + row) * CP + c] = acc[hk][nf][e];
+      }
+  __syncthreads();
+  float* ps = partials + (long long)blockIdx.x * (parity ? 2 : 1) * 10 * C;
+  for (int i = tid; i < 10 * C; i += kDwThreads) {
+    const int row = i / C, c = i % C;
+    float h[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int hk = 0; hk < 2; ++hk)
+#pragma unroll
+      for (int s = 0; s < NS; ++s) h[hk] += red[((s * 2 + hk) * 10 + row) * CP + c];
+    if (parity) {
+      ps[i] = h[0];
+      ps[10 * C + i] = h[1];
+    } else {
+      ps[i] = h[0] + h[1];
+    }
+  }
+}
+static_assert((8 * 16 / 64) * 2 * 10 * 64 * 4 <= 2 * 2 * kDwTilePix * (64 + 8) &&
+                  (8 * 16 / 128) * 2 * 10 * 128 * 4 <= 2 * 2 * kDwTilePix * (128 + 8),
+              "the bfloat16 kernel's slot scratch fits two of its dy tiles");
 
 // ------------------------------------------ K4f / K5s: one wave of runs
 
@@ -874,7 +1136,6 @@ entry_block_bwd_wgrad_f32_kernel(const float* __restrict__ x, const float* __res
   const int cg = tid % CG, pg = tid / CG;
   const int tg = tid / (kThreads / 2), sq = tid % Q, sh = (tid % (kThreads / 2)) / Q;  // taps 5 tg .. 5 tg + 4
   const bool dw_on = 4 * sq < C;
-  const int dpr = S / F, dpc = S % F;  // a pixel step of S in rows and columns
   int off[5];                          // tap 5 tg + k at r[off[k]] of a pixel's patch r; tap 9 is d conv_b
   float dw[4][5];                      // this thread's share of dW[5 tg + k][4 sq + e] (of d conv_b at tap 9)
 #pragma unroll
@@ -910,26 +1171,7 @@ entry_block_bwd_wgrad_f32_kernel(const float* __restrict__ x, const float* __res
     dxn_f32<NJ>(acc, ds, wsw, pg, cg);
     dy_f32<NJ>(acc, xb, vgain, va, vb2, tpix, C, pg, cg, [&](int p, int c0, float4 d) { st4(xb + p * KS + c0, d); });
     __syncthreads();  // dy complete
-    if (dw_on) {  // dW[tap][c] += x[p + tap] dy[p][c], d conv_b[c] += dy[p][c] over this share's pixels
-      int pr = sh / F, pc = sh % F;
-      for (int p = sh; p < tpix; p += S) {
-        const float4 d4 = ld4(xb + p * KS + 4 * sq);
-        const float d[4] = {d4.x, d4.y, d4.z, d4.w};
-        const float* r = xt + pr * FW + pc;
-#pragma unroll
-        for (int k = 0; k < 5; ++k) {
-          const float xv = k == 4 && tg == 1 ? 1.0f : r[off[k]];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) dw[e][k] = fmaf(xv, d[e], dw[e][k]);
-        }
-        pc += dpc;
-        pr += dpr;
-        if (pc >= F) {
-          pc -= F;
-          ++pr;
-        }
-      }
-    }
+    if (dw_on) add_dw_f32<5>(dw, xb, KS, xt, off, F, tpix, sh, S, sq, 5 * tg);  // dW and d conv_b, this share's pixels
     if (buffers == 1 && t + 1 < last) {
       __syncthreads();  // every warp is done with the only buffers
       stage(t + 1, 0);
@@ -1419,20 +1661,17 @@ dim3 tile_grid(int B, int T, int rows, int tiles_per_block) {
   return dim3((n_tiles + tiles_per_block - 1) / tiles_per_block, B);
 }
 
-// The fold of a weight gradient's slots: float32 sums unrounded (float32,
-// one class), else the parts' sums rounded to TX and added. parts: 1, 2
-// (the two halves of each slot, by output-frequency parity) or -2 (two
-// classes of slots: the first and the second half of the clips).
-template <typename TX>
-cudaError_t fold_wgrad(const float* partials, float* out, int slots, int width, int n_round, int parts,
-                       cudaStream_t stream) {
-  if (std::is_same<TX, float>::value && parts == 1)
-    return launch_fold<float>(partials, out, slots, width, stream);
+// The fold of K5b2 bfloat16's slots: the parts' sums rounded to bfloat16 and
+// added. parts: 1, 2 (the two halves of each slot, by output-frequency
+// parity) or -2 (two classes of slots: the first and the second half of the
+// clips).
+cudaError_t fold_wgrad_bf16(const float* partials, float* out, int slots, int width, int n_round, int parts,
+                            cudaStream_t stream) {
   if (parts == -2)
-    return launch_fold_classes<float, TX>(partials, out, slots / 2, width, 2, width,
-                                          (long long)(slots / 2) * width, n_round, stream);
-  return launch_fold_classes<float, TX>(partials, out, slots, width, parts, (long long)parts * width,
-                                        width, n_round, stream);
+    return launch_fold_classes<float, bf16>(partials, out, slots / 2, width, 2, width,
+                                            (long long)(slots / 2) * width, n_round, stream);
+  return launch_fold_classes<float, bf16>(partials, out, slots, width, parts, (long long)parts * width,
+                                          width, n_round, stream);
 }
 
 template <int MODE>
@@ -1501,20 +1740,45 @@ int launch_entry_conv_run(bool bf16_x, bool store, const void* x, const float* w
   return (int)launch_fold_warps<double>(partials, sums, blocks, 2 * C, st);
 }
 
+// K4w's shared memory set at F, C and tiles of `rows` rows (bfloat16 x: the
+// kernel of CP = 64 or 128); its blocks an SM into *resident where that is not
+// null (registers and shared memory).
+cudaError_t dw_attrs(bool bf16_x, int F, int C, int rows, int* resident) {
+  const void* fn = !bf16_x ? reinterpret_cast<const void*>(entry_conv_dw_f32_kernel)
+                   : C <= 64 ? reinterpret_cast<const void*>(entry_conv_dw_bf16_kernel<64>)
+                             : reinterpret_cast<const void*>(entry_conv_dw_bf16_kernel<128>);
+  const size_t smem = !bf16_x ? dw_f32_smem(F, C, rows) : C <= 64 ? dw_bf16_smem<64>() : dw_bf16_smem<128>();
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess || resident == nullptr) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, fn, kDwThreads, smem);
+}
+
+// blocks: the grid (one slot each); rows: a tile's time rows, at most
+// kDwTilePix pixels (ops/entry_conv.wgrad_plan); classes 1, or 2 (bfloat16, F
+// even: dW by output-frequency parity)
 template <typename TX>
-int launch_entry_conv_wgrad(const void* x, const void* dy, float* partials, float* out, int B, int T,
-                            int F, int C, int tiles_per_block, int classes, cudaStream_t st) {
-  if (classes != 1 && (classes != 2 || F % 2 != 0)) return (int)cudaErrorInvalidValue;
-  const int rows = rows_per_tile(F, 1);
-  const dim3 grid = tile_grid(B, T, rows, tiles_per_block);
-  const int groups = kThreads / (C / 4);
-  const size_t smem = sizeof(float) * (size_t)groups * 10 * C;
-  entry_conv_wgrad_kernel<TX><<<grid, kThreads, smem, st>>>(
-      static_cast<const TX*>(x), static_cast<const TX*>(dy), partials, T, F, C, rows, tiles_per_block,
-      classes);
-  cudaError_t err = cudaGetLastError();
+int launch_entry_conv_wgrad(const void* x, const void* dy, float* partials, float* out, int B, int T, int F, int C,
+                            int blocks, int rows, int classes, cudaStream_t st) {
+  constexpr bool kBf16 = !std::is_same<TX, float>::value;
+  if (blocks < 1 || F < 1 || F > kDwTilePix || C < 4 || C > 128 || C % 4 != 0 || rows < 1 ||
+      rows * F > kDwTilePix || (classes != 1 && (classes != 2 || !kBf16 || F % 2 != 0)) ||
+      (long long)B * T >= (1LL << 31) || reinterpret_cast<uintptr_t>(dy) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = dw_attrs(kBf16, F, C, rows, nullptr);
   if (err != cudaSuccess) return (int)err;
-  return (int)fold_wgrad<TX>(partials, out, (int)(grid.x * grid.y), 10 * C, 9 * C, classes, st);
+  if constexpr (!kBf16)
+    entry_conv_dw_f32_kernel<<<blocks, kDwThreads, dw_f32_smem(F, C, rows), st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(dy), partials, B, T, F, C, rows);
+  else if (C <= 64)
+    entry_conv_dw_bf16_kernel<64><<<blocks, kDwThreads, dw_bf16_smem<64>(), st>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(dy), partials, B, T, F, C, rows, classes == 2);
+  else
+    entry_conv_dw_bf16_kernel<128><<<blocks, kDwThreads, dw_bf16_smem<128>(), st>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(dy), partials, B, T, F, C, rows, classes == 2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_fold_classes_warps<float, TX>(partials, out, blocks, 10 * C, classes, (long long)classes * 10 * C,
+                                                   10 * C, 9 * C, st);
 }
 
 // The parameters of a fused first-block launch, shared by the K5 kernels.
@@ -1700,7 +1964,7 @@ int launch_bwd_wgrad_bf16(const BlockArgs& g, float* partials, float* sums, int 
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int parts = partition == 0 ? 1 : partition == 1 ? 2 : -2;
-  return (int)fold_wgrad<__nv_bfloat16>(partials, sums, blocks, 10 * g.C, 9 * g.C, parts, st);
+  return (int)fold_wgrad_bf16(partials, sums, blocks, 10 * g.C, 9 * g.C, parts, st);
 }
 
 BlockArgs block_args(const void* x, const void* dout, const void* cw, const void* cb, const void* scale,
@@ -1755,20 +2019,30 @@ int dcase_entry_conv_f32_resident() {
   return conv_run_resident(false, &resident) == cudaSuccess ? resident : 0;
 }
 
+// Blocks of K4w that one SM of the current device holds at F, C and tiles of
+// `rows` rows, on bfloat16 x when bf16 != 0 (0 on an error); the wrapper
+// sizes the grid from it.
+int dcase_entry_conv_wgrad_resident(int bf16, int F, int C, int rows) {
+  int resident = 0;
+  return dw_attrs(bf16 != 0, F, C, rows, &resident) == cudaSuccess ? resident : 0;
+}
+
 // x, dy: [B, T, F], [B, T, F, C] in one type (float32, or bfloat16 when
-// bf16 != 0); partials: [slots, classes * 10C] float32; out: [10C] = dW
-// [3, 3, 1, C] | db [C], folded from the slots in slot order. classes 1, or
-// 2 (F even): dW as the sum over the output-frequency parities of each
-// parity's sum. In bfloat16 each part's dW is rounded to bfloat16 before the
-// parts are added (the gradient of the bfloat16 weights); db is not rounded.
-int dcase_entry_conv_wgrad(const void* x, const void* dy, void* partials, void* out, int B,
-                           int T, int F, int C, int tiles_per_block, int bf16, int classes,
-                           void* stream) {
+// bf16 != 0), dy 16-byte aligned; blocks: the grid, one wave of equal runs
+// of the batch's time rows; rows: a tile's time rows (ops/entry_conv.
+// wgrad_plan); partials: [blocks, classes * 10C] float32; out: [10C] = dW
+// [3, 3, 1, C] | db [C], folded from the slots in a fixed order. classes 1,
+// or 2 (bfloat16, F even): dW as the sum over the output-frequency parities
+// of each parity's sum. In bfloat16 each part's dW is rounded to bfloat16
+// before the parts are added (the gradient of the bfloat16 weights); db is
+// not rounded.
+int dcase_entry_conv_wgrad(const void* x, const void* dy, void* partials, void* out, int B, int T, int F, int C,
+                           int blocks, int rows, int bf16, int classes, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto* pa = static_cast<float*>(partials);
   auto* o = static_cast<float*>(out);
-  return bf16 ? launch_entry_conv_wgrad<__nv_bfloat16>(x, dy, pa, o, B, T, F, C, tiles_per_block, classes, st)
-              : launch_entry_conv_wgrad<float>(x, dy, pa, o, B, T, F, C, tiles_per_block, classes, st);
+  return bf16 ? launch_entry_conv_wgrad<__nv_bfloat16>(x, dy, pa, o, B, T, F, C, blocks, rows, classes, st)
+              : launch_entry_conv_wgrad<float>(x, dy, pa, o, B, T, F, C, blocks, rows, classes, st);
 }
 
 // Blocks of the float32 forward that one SM of the current device holds at

@@ -9,7 +9,8 @@
 // adds the parts (a weight gradient in a lane-packed basis: one part per lane
 // copy, or per batch half), fold_classes_kernel keeps one float32 sum per
 // part ("class"), rounds each to the compute dtype and adds the rounded sums
-// in class order.
+// in class order; fold_classes_warps_kernel does so with a warp a column, for
+// many slots (one a block of a wave).
 
 #pragma once
 
@@ -84,6 +85,39 @@ fold_classes_kernel(const TIn* __restrict__ partials, float* __restrict__ out, i
     total += k < n_round ? rounded<TR>((float)t) : (float)t;
   }
   out[k] = total;
+}
+
+// fold_classes_kernel's function in fold_warps_kernel's order: a warp a
+// column; for each class lane l adds slots l, l + 32, ... in that order in
+// double, the warp adds its lanes' sums in the fixed tree of shuffles, and
+// the class's sum is rounded (k < n_round) and added in class order.
+template <typename TIn, typename TR>
+__global__ void __launch_bounds__(kFoldThreads)
+fold_classes_warps_kernel(const TIn* __restrict__ partials, float* __restrict__ out, int slots, int width,
+                          int classes, long long slot_stride, long long class_stride, int n_round) {
+  const int k = blockIdx.x * (kFoldThreads / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (k >= width) return;  // the whole warp
+  float total = 0.0f;
+  for (int c = 0; c < classes; ++c) {
+    const TIn* p = partials + c * class_stride + k;
+    double t = 0.0;
+#pragma unroll 4
+    for (int s = lane; s < slots; s += 32) t += (double)p[s * slot_stride];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+    total += k < n_round ? rounded<TR>((float)t) : (float)t;
+  }
+  if (lane == 0) out[k] = total;
+}
+
+template <typename TIn, typename TR>
+cudaError_t launch_fold_classes_warps(const TIn* partials, float* out, int slots, int width, int classes,
+                                      long long slot_stride, long long class_stride, int n_round,
+                                      cudaStream_t stream) {
+  constexpr int kCols = kFoldThreads / 32;
+  fold_classes_warps_kernel<TIn, TR><<<(width + kCols - 1) / kCols, kFoldThreads, 0, stream>>>(
+      partials, out, slots, width, classes, slot_stride, class_stride, n_round);
+  return cudaGetLastError();
 }
 
 template <typename TIn, typename TR>

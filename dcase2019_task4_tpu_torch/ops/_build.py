@@ -65,7 +65,8 @@ SIGNATURES = {
     "dcase_entry_conv": (_I, [_P] * 6 + [_I] * 8 + [_P]),
     "dcase_entry_conv_bf16_resident": (_I, []),
     "dcase_entry_conv_f32_resident": (_I, []),
-    "dcase_entry_conv_wgrad": (_I, [_P] * 4 + [_I] * 7 + [_P]),
+    "dcase_entry_conv_wgrad": (_I, [_P] * 4 + [_I] * 8 + [_P]),
+    "dcase_entry_conv_wgrad_resident": (_I, [_I] * 4),
     "dcase_entry_block_fwd_resident": (_I, [_I]),
     "dcase_entry_block_fwd": (_I, [_P] * 10 + [_I] * 6 + [_F, _P, _U, _F, _I, _I, _P]),
     "dcase_entry_block_fwd_bf16_resident": (_I, [_I]),
@@ -197,20 +198,28 @@ def round_to(t, dtype):
     return t.to(dtype).float()
 
 
-def fold_parts(slots):
+def fold_parts(slots, warps: bool = False):
     """[parts, slots, width] per-block partial sums of a weight gradient →
-    [parts, width] float32: each part's slots added in slot order in
-    float64, then rounded to float32, as fold.cuh's fold_classes_kernel adds
-    them before it rounds each part. So the kernel's folded output is, bit
-    for bit, the sum over the parts in part order of each part rounded to
-    the compute dtype; and each part shows whether the kernel split the sum
-    as the original does."""
+    [parts, width] float32: each part's slots added in float64, then rounded
+    to float32, in the order fold.cuh adds them before it rounds each part:
+    in slot order (fold_classes_kernel), or under `warps` in
+    fold_classes_warps_kernel's (lane l of 32 adds slots l, l + 32, ... in
+    order, then lane l adds lane l ^ o's sum for o = 16, 8, 4, 2, 1; lane
+    0's). So the kernel's folded output is, bit for bit, the sum over the
+    parts in part order of each part rounded to the compute dtype; and each
+    part shows whether the kernel split the sum as the original does."""
     import torch
 
-    total = torch.zeros((slots.shape[0], slots.shape[2]), dtype=torch.float64, device=slots.device)
+    lanes = 32 if warps else 1
+    total = torch.zeros((slots.shape[0], lanes, slots.shape[2]), dtype=torch.float64, device=slots.device)
     for s in range(slots.shape[1]):
-        total = total + slots[:, s].double()
-    return total.float()
+        total[:, s % lanes] += slots[:, s].double()
+    lane = torch.arange(lanes, device=slots.device)
+    o = lanes // 2
+    while o:
+        total = total + total[:, lane ^ o]
+        o //= 2
+    return total[:, 0].float()
 
 
 def count_launch(wrapper, name: str, dtype) -> None:
@@ -248,7 +257,7 @@ RESIDENT_ENTRIES = {"fwd_f32": "dcase_entry_block_fwd_resident", "fwd_bf16": "dc
                     "wgrad_f32": "dcase_entry_block_bwd_wgrad_resident",
                     "bwd_bf16": "dcase_entry_block_bwd_bf16_resident",
                     "conv_bf16": "dcase_entry_conv_bf16_resident", "conv_f32": "dcase_entry_conv_f32_resident",
-                    "stats_bf16": "dcase_batch_stats_bf16_resident"}
+                    "conv_wgrad": "dcase_entry_conv_wgrad_resident", "stats_bf16": "dcase_batch_stats_bf16_resident"}
 
 
 @functools.cache
@@ -257,8 +266,9 @@ def resident(index: int, kernel: str, *plan) -> int:
     bfloat16, (C,); "reduce_f32" / "wgrad_f32": pass 1 / pass 2 in float32,
     (C, buffers, drows); "bwd_bf16": a bfloat16 pass, (C, which, buffers,
     drows); "conv_bf16": K4f / K5s in bfloat16, (), the fewer of its two
-    modes'; "conv_f32": K5s in float32, (); "stats_bf16": K2s on bfloat16
-    y, (channels a thread,)) that device `index` holds at once under its
+    modes'; "conv_f32": K5s in float32, (); "conv_wgrad": K4w, (bfloat16
+    0 or 1, F, C, rows); "stats_bf16": K2s on bfloat16 y, (channels a thread,))
+    that device `index` holds at once under its
     plan: what one SM holds (registers and shared memory, from the CUDA
     occupancy calculator) times its SMs."""
     import torch

@@ -10,7 +10,8 @@ tensor every wrapper launches its hand-written kernel in csrc/entry_block.cu
                        (bfloat16: entry_conv_run_kernel<bf16, true> + fold_warps)
   entry_conv_stats     entry_conv_kernel<1> + fold         entry_conv_reference (sums only)
                        (bfloat16: entry_conv_run_kernel<bf16, false> + fold_warps)
-  entry_conv_wgrad     entry_conv_wgrad_kernel + fold      entry_conv_wgrad_reference
+  entry_conv_wgrad     entry_conv_dw_f32_kernel + fold     entry_conv_wgrad_reference
+                       (bfloat16: entry_conv_dw_bf16_kernel<CP>; both + fold_classes_warps)
   entry_conv_wgrad_parts  the same launch                 entry_conv_wgrad_parts_reference
   entry_conv_ablation  entry_conv_kernel<2>, <3>           entry_conv_ablation_reference
 
@@ -53,7 +54,9 @@ _CONV_RUN = 4  # kConvRun: pixels along f a thread of the one-wave conv forms at
 _CONV_CHANS = 4  # kConvChans: channels a thread of the one-wave conv forms
 _CONV_HALO = 1024  # kConvHalo: floats of its staged x tile, at most
 _CONV_TILE_PIXELS = 1024  # the pixels its tile aims at (the halo caps it: 13 rows at F = 64)
-_WGRAD_SLOTS = 528  # partial-sum slots of the weight gradient (10·C floats each)
+_DW_THREADS = 256  # csrc/entry_block.cu kDwThreads: threads of a block of the weight gradient
+_DW_TILE_PIXELS = 128  # kDwTilePix: pixels a tile of the weight gradient, at most (the bfloat16 product's K)
+_DW_TILE_BYTES = 32768  # the bytes of dy its tile aims at
 _MODES = {"full": 0, "stats_only": 1, "no_patch": 2, "write_only": 3}
 
 
@@ -323,28 +326,58 @@ def _wgrad_args(x: torch.Tensor, dy: torch.Tensor, what: str):
     return x
 
 
+def wgrad_plan(freq: int, channels: int, dtype) -> tuple:
+    """The plan of K4w (entry_conv_dw_f32_kernel, entry_conv_dw_bf16_kernel)
+    at F = `freq`, C = `channels` and x's dtype → (rows, smem): tiles of
+    `rows` time rows, about _DW_TILE_BYTES of dy (at least one row, at most
+    _DW_TILE_PIXELS pixels), and the block's dynamic shared memory in bytes
+    (csrc/entry_block.cu dw_f32_smem, dw_bf16_smem): float32, two dy tiles
+    [rows·F][C] (or, where they take more, the thread shares' sums
+    [S][10][C], S = 256 // (C / 4), written there at the end) and two x
+    tiles with their halo, (rows + 2)·(F + 2) floats rounded up to four;
+    bfloat16, two dy tiles [_DW_TILE_PIXELS][CP + 8] and two patch matrices
+    [16][_DW_TILE_PIXELS + 8], CP = 64 (C ≤ 64) or 128. The card's
+    occupancy calculator turns smem into blocks an SM (`_build.resident(...,
+    "conv_wgrad", bf16, F, C, rows)`). On an NVIDIA H100 80GB HBM3 (700 W) at
+    x [24, 864, 64], C = 64, tiles of two rows read fastest in both types,
+    at three blocks an SM; tiles of one row and fewer blocks an SM slower
+    (PERF.md, tools/bench_k5_torch.py --variants k4w)."""
+    if channels % 4 or not 4 <= channels <= 128:
+        raise ValueError(f"K4w takes C a multiple of 4 up to 128, got {channels}")
+    bf16 = dtype == torch.bfloat16
+    rows = max(1, min(_DW_TILE_BYTES // (freq * channels * (2 if bf16 else 4)), _DW_TILE_PIXELS // freq))
+    if bf16:
+        cp = 64 if channels <= 64 else 128
+        return rows, 2 * (2 * _DW_TILE_PIXELS * (cp + 8) + 2 * 16 * (_DW_TILE_PIXELS + 8))
+    halo = 4 * -(-(rows + 2) * (freq + 2) // 4)
+    shares = _DW_THREADS // (channels // 4)
+    return rows, 4 * (max(2 * rows * freq * channels, shares * 10 * channels) + 2 * halo)
+
+
 def _launch_wgrad(x: torch.Tensor, dy: torch.Tensor):
     """The kernel and its fold → (dW, db, the per-block slots [parts,
-    slots, 10·C] float32 the fold read)."""
+    slots, 10·C] float32 the fold read): one wave of the resident blocks,
+    each an equal run of the batch's time rows (`wgrad_plan`)."""
     B, T, Fq = x.shape
     C = dy.shape[-1]
     x = x.detach().contiguous()
     _check_cuda(x, C, "entry_conv_wgrad")
     if dy.device != x.device or not dy.is_contiguous():
         raise ValueError("entry_conv_wgrad: dy must be contiguous on x's device")
+    if dy.data_ptr() % 16:
+        dy = dy.clone()  # the kernel copies dy by 16-byte cp.async
     bf16 = x.dtype == torch.bfloat16
     classes = 2 if bf16 and Fq % 2 == 0 else 1
+    rows = wgrad_plan(Fq, C, x.dtype)[0]
+    blocks = _build.wave_grid(_build.resident(x.device.index, "conv_wgrad", int(bf16), Fq, C, rows), B, T)
     lib = _build.library()
-    tiles = lib.dcase_bn_glu_pool_tiles(T, Fq, 1, 1)
-    tpb = max(1, -(-tiles * B // _WGRAD_SLOTS))
-    slots = -(-tiles // tpb) * B
-    partials = torch.empty((slots, classes * 10 * C), dtype=torch.float32, device=x.device)
+    partials = torch.empty((blocks, classes * 10 * C), dtype=torch.float32, device=x.device)
     out = torch.empty(10 * C, dtype=torch.float32, device=x.device)
     status = lib.dcase_entry_conv_wgrad(x.data_ptr(), dy.data_ptr(), partials.data_ptr(), out.data_ptr(),
-                                        B, T, Fq, C, tpb, int(bf16), classes, _build.stream_handle(x.device))
+                                        B, T, Fq, C, blocks, rows, int(bf16), classes, _build.stream_handle(x.device))
     _build.check(status, "entry_conv_wgrad")
     _build.count_launch(entry_conv_wgrad, "launches", x.dtype)
-    return out[: 9 * C].view(3, 3, 1, C), out[9 * C:], partials.view(slots, classes, 10 * C).transpose(0, 1)
+    return out[: 9 * C].view(3, 3, 1, C), out[9 * C:], partials.view(blocks, classes, 10 * C).transpose(0, 1)
 
 
 def entry_conv_wgrad(x: torch.Tensor, dy: torch.Tensor):
@@ -362,7 +395,8 @@ def entry_conv_wgrad(x: torch.Tensor, dy: torch.Tensor):
 def entry_conv_wgrad_parts(x: torch.Tensor, dy: torch.Tensor):
     """`entry_conv_wgrad`'s (dW, db) and, from the same launch, the float32
     dW sums of the parts it rounds apart, [parts, 3, 3, 1, C], folded from
-    the kernel's per-block slots by `_build.fold_parts`: dW is, bit for
+    the kernel's per-block slots by `_build.fold_parts` (in the order of the
+    kernel's fold, a warp a column): dW is, bit for
     bit, the sum in part order of each part rounded to x's dtype. For
     checks on the card that the kernel splits the sum as the original does.
     CPU: the plain versions."""
@@ -372,7 +406,7 @@ def entry_conv_wgrad_parts(x: torch.Tensor, dy: torch.Tensor):
         return dw, db, torch.stack(entry_conv_wgrad_parts_reference(x, dy) if x.dtype == torch.bfloat16 else [dw])
     dw, db, slots = _launch_wgrad(x, dy)
     C = dy.shape[-1]
-    return dw, db, _build.fold_parts(slots)[:, : 9 * C].view(-1, 3, 3, 1, C)
+    return dw, db, _build.fold_parts(slots, warps=True)[:, : 9 * C].view(-1, 3, 3, 1, C)
 
 
 entry_conv_wgrad.launches = 0  # float32 launches

@@ -26,7 +26,8 @@ tiles) and K2 (window tiles included; its tensor-core kernels also at C 20,
 64 and 100, ragged last tiles of one clip, the packed draw, the recompute
 knob's first pass and an unaligned y), and of the
 entry-block family (K4, K5 and the crows layout of K6, at small shapes and
-the flagship block-1 shape; K4f / K5s bf16 also at F 1 to 128, C 4 to 128
+the flagship block-1 shape; K4w in both types also at C 4 to 128, F 1 to
+128, short tiles and a misaligned dy; K4f / K5s bf16 also at F 1 to 128, C 4 to 128
 and short last tiles, y bit for bit the conv9-order y and the two modes'
 sums the same bits; K5s float32 on the same one-wave kernel at those
 widths, its sums within 1e-6 of max of K2s of K4f's y; K2s on bfloat16 y
@@ -1024,6 +1025,53 @@ def test_entry_conv_bf16(cuda, shape, C):
     assert all(torch.equal(p, q) for p, q in zip(entry_conv.entry_conv_wgrad(x, dy), (w.grad, b.grad)))
     s_only = fused_entry_block.entry_block_stats_apply(params, x)
     assert torch.equal(s_only[0], s1) and torch.equal(s_only[1], s2)
+
+
+# K4w's one-wave kernels (x [B, T, F], C): C = 36, F = 63, a T that leaves a
+# short tile (tiles of 4 rows at F = 32, C = 12), C = 128, F = 1 and 128, and
+# the flagship block-1 shape
+WGRAD_SHAPES = [((2, 37, 64), 36), ((2, 37, 63), 64), ((2, 37, 32), 12), ((3, 29, 64), 128), ((2, 45, 128), 128),
+                ((1, 300, 1), 4), ((24, 864, 64), 64)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,C", WGRAD_SHAPES)
+def test_entry_conv_wgrad_one_wave(cuda, shape, C, dtype):
+    """K4w (entry_conv_dw_f32_kernel, entry_conv_dw_bf16_kernel) against its
+    plain version: float32 dW and db within 1e-4 of their max; bfloat16 dW
+    within one ulp of each parity part of the plain version's, the kernel's
+    part sums (read from its slots) within 1e-4 of their max and dW their
+    rounded sum bit for bit, db within 1e-5 of its max. One launch a call, a
+    repeat bit for bit, and a dy that is not 16-byte aligned gives the same
+    bits."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(sum(shape) + C + len(dtype))
+    x = _t(rng.standard_normal(shape), cuda).to(dt)
+    dy = _t(rng.standard_normal(shape + (C,)), cuda).to(dt)
+    fn = entry_conv.entry_conv_wgrad
+    before = (fn.launches, fn.launches_bf16)
+    dw, db = fn(x, dy)
+    assert (fn.launches, fn.launches_bf16) == (before[0] + (dt == torch.float32), before[1] + (dt == torch.bfloat16))
+    dw_ref, db_ref = entry_conv.entry_conv_wgrad_reference(x, dy)
+    assert dw.shape == (3, 3, 1, C) and db.shape == (C,) and dw.dtype == db.dtype == torch.float32
+    if dt == torch.float32:
+        for got, want in ((dw, dw_ref), (db, db_ref)):
+            assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    else:
+        parts = entry_conv.entry_conv_wgrad_parts_reference(x, dy)
+        assert len(parts) == (2 if shape[2] % 2 == 0 else 1)
+        _parts_rule(dw, dw_ref, parts, "dW")
+        dw_k, db_k, parts_k = entry_conv.entry_conv_wgrad_parts(x, dy)
+        assert torch.equal(dw_k, dw) and torch.equal(db_k, db)
+        _check_parts(dw_k, parts_k, parts, "dW parity sums")
+        assert (db - db_ref).abs().max().item() <= 1e-5 * db_ref.abs().max().item()
+    assert all(torch.equal(p, q) for p, q in zip(fn(x, dy), (dw, db)))
+    if x.numel() < 10 ** 6:
+        store = torch.empty(dy.numel() + 1, dtype=dt, device=cuda)
+        shifted = store[1:].view(dy.shape)
+        shifted.copy_(dy)
+        assert shifted.data_ptr() % 16
+        assert all(torch.equal(p, q) for p, q in zip(fn(x, shifted), (dw, db)))
 
 
 def _conv9_order_bf16(params, x):
