@@ -139,6 +139,22 @@ printing a result:
      device time and peak memory beside the default's; two steps each of
      the knobs under `entry_block_pallas`, of the scaled configuration and
      of the flagship in bfloat16, launches exact.
+  6. train through the CLI — `train_meanteacher --synthetic_audio -s 96
+     --epochs 2` at the flagship `Config()` on the card (77 weak, 96
+     unlabeled and 77 synthetic training clips, 8 steps an epoch at
+     [6|12|6], validation, checkpoints, SaveBest, the final test on 96
+     validation and 96 public-eval clips), then `train_crnn` for one epoch:
+     every batch a step receives lies on the card and was copied from
+     pinned memory, every kernel of the predict and step paths launched
+     and no other, the training kernels exactly their count a step,
+     every epoch's losses finite and every record key written; each
+     epoch's time, steps a second and queue-wait share printed. The best
+     checkpoint through the CheckpointEvaluator on the card and on the CPU:
+     strong probabilities of 24 validation clips within 1e-4. Then one
+     short epoch of the Experiment (`-s 24`, 2 steps, dropout and noise 0)
+     on the card and on the CPU from the same state: the batches bit for
+     bit, the scaler moments within 1e-5 of their largest, the epoch's loss
+     means and the validation probabilities within 1e-4.
 
 Phase 3 also holds the knobs' kernels at the flagship shapes (`knob_kernels`:
 K1 onedot against its plain version and a float64 DFT, 1e-5 of max, twice
@@ -3194,6 +3210,214 @@ def check_spills(log, kernels):
             raise AssertionError(f"no ptxas report of {kernel} in the build log")
 
 
+# the training CLI path (phase 6): the kernels it launches a step, and the
+# Mean-Teacher run's record keys (the JAX package's)
+TRAIN_CLI_KERNELS = sorted(set(PREDICT_MIN) | set(STEP_MIN))
+SUPERVISED_STEP = {"fused_stft_mel": 1, "conv2d_forward": 2, "conv2d_dx": 2, "conv2d_wgrad": 2,
+                   "fused_bn_glu_pool_train": 3, "batch_stats": 3, "bwd_reduce": 3, "bwd_fixup": 3}
+TRAIN_ONLY = ("conv2d_dx", "conv2d_wgrad", "fused_bn_glu_pool_train", "batch_stats", "bwd_reduce", "bwd_fixup")
+RECORD_KEYS = ("epoch", "epoch_time_s", "loss", "weak_class_loss", "strong_class_loss", "consistency_strong",
+               "consistency_weak", "consistency_weight", "weak_ema_class_loss", "strong_ema_class_loss",
+               "event_macro_f1", "weak_macro_f1", "global_valid", "saved_best", "steps_per_s", "queue_wait_share")
+CLI_SUBPART, CLI_EPOCHS, PARITY_SUBPART = 96, 2, 24
+
+
+@contextlib.contextmanager
+def watched_steps(seen: dict):
+    """Every batch a train step receives must lie on the card; `seen`
+    counts the steps. The feed's copy counters start at 0."""
+    from dcase2019_task4_tpu_torch.data import pipeline
+    from dcase2019_task4_tpu_torch.train import steps
+
+    real = steps.TrainStep.__call__
+
+    def call(self, state, batch, generator, acc):
+        off = [k for k, v in batch.items() if v.device.type != "cuda"]
+        if off:
+            raise AssertionError(f"a train step received {off} off the card")
+        seen["steps"] += 1
+        return real(self, state, batch, generator, acc)
+
+    pipeline.device_prefetch.batches = pipeline.device_prefetch.pinned = 0
+    steps.TrainStep.__call__ = call
+    try:
+        yield
+    finally:
+        steps.TrainStep.__call__ = real
+
+
+@contextlib.contextmanager
+def quiet_log():
+    """The training log's INFO lines (sed reports) off stdout."""
+    import logging
+
+    from dcase2019_task4_tpu_torch.utils.logger import get_logger
+
+    log = get_logger()
+    level = log.level
+    log.setLevel(logging.WARNING)
+    try:
+        yield
+    finally:
+        log.setLevel(level)
+
+
+def train_cli(command: str, args, card: str, per_step: dict):
+    """One training CLI run on the card: every batch on the card from pinned
+    memory, the training kernels launched `per_step` times a step, nothing
+    off the path launched, every record's losses finite. → (launches,
+    records)."""
+    from dcase2019_task4_tpu_torch import cli
+    from dcase2019_task4_tpu_torch.data import pipeline
+    from dcase2019_task4_tpu_torch.utils.metrics_writer import read_metrics
+
+    seen = {"steps": 0}
+    with watched_steps(seen), quiet_log():
+        zero_launches()
+        t0 = time.perf_counter()
+        cli.main([command, *args])
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    n = seen["steps"]
+    fed = pipeline.device_prefetch.batches, pipeline.device_prefetch.pinned
+    if n == 0 or fed != (n, n):
+        raise AssertionError(f"{command}: {n} steps, {fed[0]} batches copied to the card, {fed[1]} from pinned memory")
+    for name, count in launches.items():
+        if name not in TRAIN_CLI_KERNELS and count:
+            raise AssertionError(f"{command} launched {name} {count} times, which its path has no use for")
+        if name in TRAIN_CLI_KERNELS and count < 1:
+            raise AssertionError(f"{command} launched {name} no time")
+        if name in TRAIN_ONLY and count != n * per_step[name]:
+            raise AssertionError(f"{command}: {name} launched {count} times in {n} steps "
+                                 f"(expected {per_step[name]} a step)")
+    store = args[args.index("--store_dir") + 1]
+    records = read_metrics(os.path.join(store, "metrics.jsonl"))
+    for r in records:
+        keys = RECORD_KEYS if command == "train_meanteacher" else [k for k in RECORD_KEYS if "consistency" not in k
+                                                                    and "_ema_" not in k]
+        missing = [k for k in keys if k not in r]
+        losses = [k for k in r if "loss" in k or k.startswith("consistency_")]
+        if missing or not all(np.isfinite(r[k]) for k in losses):
+            raise AssertionError(f"{command} epoch {r['epoch']}: missing {missing} or a loss not finite: {r}")
+        print(f"  {command} epoch {r['epoch']}: {r['epoch_time_s']:.2f} s with validation and checkpoints, "
+              f"{r['steps_per_s']:.3f} steps/s in the training loop, queue wait {100 * r['queue_wait_share']:.2f} % "
+              f"of the loop, loss {r['loss']:.4f}, event F1 {r['event_macro_f1']:.4f}, weak F1 "
+              f"{r['weak_macro_f1']:.4f} on {card}")
+    for f in ("model/baseline_best", "predictions/baseline_validation.tsv", "predictions/baseline_eval2019.tsv"):
+        if not os.path.exists(os.path.join(store, f)):
+            raise AssertionError(f"{command} left no {f}")
+    print(f"  {command}: {n} steps, {len(records)} epochs, {wall:.1f} s in all (clips rendered on the host, "
+          f"the final test included) on {card}")
+    return launches, records
+
+
+def host_batch_times(exp):
+    """The worker thread's work for one training batch, timed on this
+    machine's CPU: rendering an unlabeled clip (that stream is not cached),
+    and assembling and pinning whole batches of an epoch (the weak and
+    synthetic clips cached by the scaler pass)."""
+    from dcase2019_task4_tpu_torch.data.pipeline import pin_batch
+
+    names = [s.name for s in exp.pipeline.streams]
+    unlabeled = exp.pipeline.streams[names.index("unlabeled")]
+    n = exp.pipeline.sampler.batch_sizes[names.index("unlabeled")]
+    t0 = time.perf_counter()
+    for fn in unlabeled.filenames[:n]:
+        unlabeled.source.get_audio(fn)
+    render = (time.perf_counter() - t0) / n
+    batches = exp.pipeline.sampler.epoch_batches(1)
+    t0 = time.perf_counter()
+    for b in batches:
+        pin_batch(exp.pipeline.assemble(b))
+    batch = (time.perf_counter() - t0) / len(batches)
+    print(f"  host work a training batch on this machine's CPU: render {render * 1e3:.3f} ms an unlabeled clip "
+          f"({n} a batch, {n * render * 1e3:.3f} ms); assemble and pin {batch * 1e3:.3f} ms a batch of "
+          f"{exp.pipeline.batch_size} ({len(batches)} batches), a ceiling of {1 / batch:.3f} steps/s for the loop")
+
+
+def parity_epoch(card: str):
+    """One short epoch of the Experiment on the card and on the CPU from the
+    same state, dropout and noise 0: batches bit for bit, the scaler moments
+    within 1e-5 of their largest, the epoch's loss means within 1e-4, the
+    validation probabilities within 1e-4."""
+    from dcase2019_task4_tpu_torch.config import Config
+    from dcase2019_task4_tpu_torch.train.experiment import Experiment
+
+    base = Config()
+    cfg = dataclasses.replace(base, model=dataclasses.replace(base.model, dropout=0.0),
+                              train=dataclasses.replace(base.train, noise_std=0.0))
+    with quiet_log():
+        exps = {dev: Experiment(cfg, subpart_data=PARITY_SUBPART, synthetic_audio=True, seed=SEED, device=dev).build()
+                for dev in ("cuda", "cpu")}
+    card_exp, cpu_exp = exps["cuda"], exps["cpu"]
+    for key in ("mean_", "mean_of_square_"):
+        a, b = getattr(card_exp.scaler, key), getattr(cpu_exp.scaler, key)
+        err = float(np.abs(a - b).max() / np.abs(b).max())
+        print(f"  scaler {key}: card against CPU {err:.3g} of the largest (limit 1e-5)")
+        if not err <= 1e-5:
+            raise AssertionError(f"scaler {key} differs by {err:.3g} of its largest")
+    # the same state on both: the card's scaler, then the card's weights
+    cpu_exp.scaler.load_state_dict(card_exp.scaler.state_dict())
+    cpu_exp._build_steps()
+    cpu_exp.state.student.load_state_dict(card_exp.state.student.state_dict())
+    cpu_exp.state.teacher.load_state_dict(card_exp.state.teacher.state_dict())
+    for a, b in zip(card_exp.pipeline.iter_epoch(0, prefetch=0), cpu_exp.pipeline.iter_epoch(0, prefetch=0)):
+        for k in b:
+            if not np.array_equal(a[k], b[k]):
+                raise AssertionError(f"the epoch's batches differ in {k}")
+    host_batch_times(card_exp)
+    means = {}
+    for dev, exp in exps.items():
+        with quiet_log():
+            means[dev] = exp.train_epoch(0).averages("")
+    worst = max(abs(means["cuda"][k] - means["cpu"][k]) for k in means["cpu"])
+    print(f"  parity epoch ({len(card_exp.pipeline)} steps at batch {card_exp.pipeline.batch_size}): loss means "
+          f"card {means['cuda']['loss']:.6f}, CPU {means['cpu']['loss']:.6f}, largest difference {worst:.3g} "
+          f"(limit 1e-4)")
+    if not worst <= 1e-4:
+        raise AssertionError(f"an epoch loss mean differs by {worst:.3g}")
+    for stream in ("valid_synth_stream", "valid_weak_stream"):
+        got = [(s.cpu(), w.cpu()) for _, s, w in card_exp._eval_batches(getattr(card_exp, stream))]
+        want = [(s, w) for _, s, w in cpu_exp._eval_batches(getattr(cpu_exp, stream))]
+        err = max(float((a - b).abs().max()) for g, w in zip(got, want) for a, b in zip(g, w))
+        print(f"  {stream} probabilities: card against CPU {err:.3g} (limit 1e-4)")
+        if not err <= 1e-4:
+            raise AssertionError(f"{stream} probabilities differ by {err:.3g}")
+
+
+def phase_train_cli(card: str):
+    """Phase 6: train_meanteacher for two epochs and train_crnn for one
+    through the port's CLI at the flagship Config() on the card, the best
+    checkpoint against a CPU evaluator, then one short epoch on the card and
+    on the CPU. → launches by path."""
+    from dcase2019_task4_tpu_torch.config import Config
+    from dcase2019_task4_tpu_torch.eval.evaluate import CheckpointEvaluator
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        mt = os.path.join(tmp, "mt")
+        launches["train_meanteacher"], records = train_cli(
+            "train_meanteacher", ["--synthetic_audio", "-s", str(CLI_SUBPART), "--epochs", str(CLI_EPOCHS),
+                                  "--store_dir", mt], card, STEP_MIN)
+        if len(records) != CLI_EPOCHS:
+            raise AssertionError(f"train_meanteacher wrote {len(records)} epoch records")
+        launches["train_crnn"], _ = train_cli(
+            "train_crnn", ["--synthetic_audio", "-s", str(CLI_SUBPART), "--epochs", "1",
+                           "--store_dir", os.path.join(tmp, "crnn")], card, SUPERVISED_STEP)
+        best = os.path.join(mt, "model", "baseline_best")
+        with quiet_log():
+            on = {dev: CheckpointEvaluator(best, device=dev, synthetic_audio=True).test_model(
+                Config().paths.validation, PARITY_SUBPART) for dev in ("cuda", "cpu")}
+        err = float(np.abs(on["cuda"]["strong"] - on["cpu"]["strong"]).max())
+        print(f"  baseline_best restored by the CheckpointEvaluator: strong probabilities of {PARITY_SUBPART} "
+              f"validation clips, card against CPU {err:.3g} (limit {STRONG_TOL}); event F1 card "
+              f"{on['cuda']['event_macro_f1']:.4f}, CPU {on['cpu']['event_macro_f1']:.4f}")
+        if not err <= STRONG_TOL:
+            raise AssertionError(f"the best checkpoint's strong probabilities differ by {err:.3g}")
+    parity_epoch(card)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3254,6 +3478,8 @@ def main() -> int:
     launches.update(bf16_launches)
     print("== phase 5, the knobs path: DCASE_FUSED_MEL_ONEDOT, DCASE_FUSED_BWD_RECOMPUTE and DCASE_DROPOUT_PACK on")
     launches.update(phase_train_knobs(device, card))
+    print("== phase 6: training through the CLI (train_meanteacher, train_crnn), then a short epoch on card and CPU")
+    launches.update(phase_train_cli(card))
 
     report = []
     for name, (src, replaces) in KERNELS.items():

@@ -1,16 +1,237 @@
 """Command-line entry points of the PyTorch/CUDA port.
 
+    python -m dcase2019_task4_tpu_torch.cli train_meanteacher [-s N] [--epochs E] [--store_dir DIR]
+        [--synthetic_audio] [-n] [--bf16 | --scaled] [--resume CKPT] [--early_stopping P]
+        [--eval_every K] [--ramped_adam] [--device cuda]
+    python -m dcase2019_task4_tpu_torch.cli train_crnn ... [-n]
+    python -m dcase2019_task4_tpu_torch.cli evaluate -m CKPT [-s N] [-p OUT.tsv] [--sets TSV ...]
+        [--synthetic_audio] [--device cuda]
     python -m dcase2019_task4_tpu_torch.cli predict -m CKPT -i WAV_DIR_OR_TSV -p OUT.tsv
         [--weak_fname TAGS.tsv] [--threshold T | --thresholds_json F]
         [--median_windows_json F] [--synthetic_audio] [--device cuda]
 
-`dcase19-torch-predict` is the same `predict` as a console script.
+The console scripts `dcase19-torch-train-meanteacher`, `dcase19-torch-train-crnn`,
+`dcase19-torch-evaluate` and `dcase19-torch-predict` are the same commands.
+The flags are the JAX package's (dcase2019_task4_tpu/cli.py), plus
+`--device`. Flags of what the port does not have yet fail with a message
+that names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
+
+from dcase2019_task4_tpu_torch.config import Config
+from dcase2019_task4_tpu_torch.utils.logger import get_logger
+
+# flag → the ROADMAP item (Queue 1) that ports what it selects
+NOT_PORTED = {
+    "data_parallel": "data parallel, ROADMAP Queue 1 item 6",
+    "multihost": "multi-host training, ROADMAP Queue 1 item 6",
+    "coordinator_address": "multi-host training, ROADMAP Queue 1 item 6",
+    "num_processes": "multi-host training, ROADMAP Queue 1 item 6",
+    "process_id": "multi-host training, ROADMAP Queue 1 item 6",
+    "device_cache": "the device-resident epoch (make_device_epoch), ROADMAP Queue 1 item 2",
+    "torch_checkpoint": "train/torch_import.py, ROADMAP Queue 1 item 7",
+    "export": "eval/export.py, ROADMAP Queue 1 item 7",
+    "export_batch": "eval/export.py, ROADMAP Queue 1 item 7",
+    "tune_thresholds": "eval/thresholds.py, ROADMAP Queue 1 item 5",
+    "save_thresholds": "eval/thresholds.py, ROADMAP Queue 1 item 5",
+}
+
+
+def _refuse_not_ported(parser, args):
+    for flag, item in NOT_PORTED.items():
+        value = getattr(args, flag, None)
+        if value is not None and value is not False:  # `--process_id 0` is set too
+            parser.error(f"--{flag} is not ported yet ({item})")
+
+
+def _device_arg(parser):
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="Torch device. 'cuda' without a card raises; there is no CPU fallback.")
+
+
+def _common_train_args(parser):
+    parser.add_argument("-s", "--subpart_data", type=int, default=None,
+                        help="Number of files per set (smoke-scale runs).")
+    parser.add_argument("--epochs", type=int, default=None, help="Override n_epoch.")
+    parser.add_argument("--store_dir", type=str, default=None)
+    parser.add_argument("--synthetic_audio", action="store_true", default=False,
+                        help="Fabricate class-consistent audio instead of reading wavs.")
+    parser.add_argument("--synthetic_variability", type=float, default=0.0,
+                        help="With --synthetic_audio: nuisance variation strength (0 = the "
+                        "deterministic tone-bank source).")
+    parser.add_argument("--paired_teacher_view", action="store_true", default=False,
+                        help="Mean-Teacher only, with --synthetic_audio: the teacher featurizes an "
+                        "independent render of each training clip.")
+    parser.add_argument("--data_parallel", action="store_true", default=False,
+                        help="Not ported yet (ROADMAP Queue 1 item 6).")
+    parser.add_argument("--bf16", action="store_true", default=False,
+                        help="bfloat16 conv compute.")
+    parser.add_argument("--scaled", action="store_true", default=False,
+                        help="Scaled config: 128 mels, 128-ch convs, 128-cell BiGRU, SpecAugment, bf16.")
+    parser.add_argument("--resume", type=str, default=None,
+                        help="Checkpoint to resume training from (either package's).")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--early_stopping", type=int, default=None,
+                        help="Stop after N epochs without improvement of the SaveBest criterion.")
+    parser.add_argument("--ramped_adam", action="store_true", default=False,
+                        help="Ramped Adam hyperparameter schedule (train/schedules.py).")
+    parser.add_argument("--device_cache", action="store_true", default=False,
+                        help="Not ported yet (ROADMAP Queue 1 item 2).")
+    parser.add_argument("--eval_every", type=int, default=1,
+                        help="Validate/checkpoint/SaveBest every Nth epoch (and the last).")
+    parser.add_argument("--multihost", action="store_true", default=False,
+                        help="Not ported yet (ROADMAP Queue 1 item 6).")
+    parser.add_argument("--coordinator_address", type=str, default=None,
+                        help="Not ported yet (ROADMAP Queue 1 item 6).")
+    parser.add_argument("--num_processes", type=int, default=None,
+                        help="Not ported yet (ROADMAP Queue 1 item 6).")
+    parser.add_argument("--process_id", type=int, default=None,
+                        help="Not ported yet (ROADMAP Queue 1 item 6).")
+    _device_arg(parser)
+
+
+def _build_experiment(args, mean_teacher: bool, no_synthetic=False, no_weak=False):
+    import dataclasses
+
+    from dcase2019_task4_tpu_torch.train.experiment import Experiment
+
+    if args.scaled:
+        from dcase2019_task4_tpu_torch.config import scaled_config
+
+        cfg = scaled_config()
+    else:
+        cfg = Config()
+    if args.bf16:
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"))
+    return Experiment(
+        cfg,
+        mean_teacher=mean_teacher,
+        no_synthetic=no_synthetic,
+        no_weak=no_weak,
+        subpart_data=args.subpart_data,
+        synthetic_audio=args.synthetic_audio,
+        synthetic_variability=args.synthetic_variability,
+        seed=args.seed,
+        ramped_adam=args.ramped_adam,
+        paired_teacher_view=args.paired_teacher_view,
+        device=args.device,
+    )
+
+
+def _train(argv, mean_teacher: bool):
+    if mean_teacher:
+        parser = argparse.ArgumentParser(prog="dcase19-torch-train-meanteacher",
+                                         description="Mean-Teacher CRNN training (main.py parity)")
+        _common_train_args(parser)
+        parser.add_argument("-n", "--no_synthetic", action="store_true", default=False,
+                            help="Not using synthetic labels during training")
+    else:
+        parser = argparse.ArgumentParser(prog="dcase19-torch-train-crnn",
+                                         description="Supervised CRNN training (main_simple_CRNN.py parity)")
+        _common_train_args(parser)
+        parser.add_argument("-n", "--no_weak", action="store_true", default=False,
+                            help="Not using weak labels during training")
+    args = parser.parse_args(argv)
+    _refuse_not_ported(parser, args)
+    log = get_logger()
+    if mean_teacher:
+        log.info("MEAN TEACHER")
+        log.info(f"subpart_data = {args.subpart_data}")
+        log.info(f"Using synthetic data = {not args.no_synthetic}")
+        store = args.store_dir or os.path.join(
+            Config().paths.store_dir, "MeanTeacher" + ("_no_synthetic" if args.no_synthetic else "_with_synthetic"))
+        exp = _build_experiment(args, mean_teacher=True, no_synthetic=args.no_synthetic)
+    else:
+        log.info("Simple CRNNs")
+        store = args.store_dir or os.path.join(
+            Config().paths.store_dir, "simple_CRNN" + ("_synthetic_only" if args.no_weak else "_with_weak"))
+        exp = _build_experiment(args, mean_teacher=False, no_weak=args.no_weak)
+    exp.build()
+    result = exp.run(store_dir=store, n_epoch=args.epochs, resume_from=args.resume,
+                     early_stopping=args.early_stopping, eval_every=args.eval_every)
+    # final test on validation + public eval (main.py:356-373)
+    _final_test(exp, store, args)
+    return result if argv is not None else None  # a console script exits 0
+
+
+def train_meanteacher(argv=None):
+    """Mean-Teacher training (main.py parity); returns the last validation
+    metrics when called with an argument list."""
+    return _train(argv, mean_teacher=True)
+
+
+def train_crnn(argv=None):
+    """Supervised CRNN training (main_simple_CRNN.py parity); returns the
+    last validation metrics when called with an argument list."""
+    return _train(argv, mean_teacher=False)
+
+
+def _final_test(exp, store, args):
+    """The best checkpoint's predictions on the validation and public-eval
+    sets, under `<store>/predictions/`."""
+    from dcase2019_task4_tpu_torch.eval.evaluate import CheckpointEvaluator
+
+    best = os.path.join(store, "model", "baseline_best")
+    if not os.path.exists(best):
+        return
+    pred_dir = os.path.join(store, "predictions")
+    os.makedirs(pred_dir, exist_ok=True)
+    ev = CheckpointEvaluator(best, device=args.device, synthetic_audio=args.synthetic_audio)
+    ev.test_model(exp.cfg.paths.validation, args.subpart_data, os.path.join(pred_dir, "baseline_validation.tsv"))
+    ev.test_model(exp.cfg.paths.eval_desed, args.subpart_data, os.path.join(pred_dir, "baseline_eval2019.tsv"))
+
+
+def evaluate(argv=None):
+    """Checkpoint evaluation (TestModel.py parity): each set's event- and
+    segment-based F1 and weak tagging F1. Returns {set: {event_macro_f1,
+    weak_macro_f1}} when called with an argument list."""
+    parser = argparse.ArgumentParser(prog="dcase19-torch-evaluate",
+                                     description="Checkpoint evaluation (TestModel.py parity)")
+    parser.add_argument("-m", "--model_path", type=str, required=True, help="Checkpoint to evaluate.")
+    parser.add_argument("-s", "--subpart_data", type=int, default=None)
+    parser.add_argument("-p", "--save_predictions_fname", type=str, default=None,
+                        help="Predictions TSV of the last set.")
+    parser.add_argument("--synthetic_audio", action="store_true", default=False)
+    parser.add_argument("--torch_checkpoint", action="store_true", default=False,
+                        help="Not ported yet (ROADMAP Queue 1 item 7).")
+    parser.add_argument("--sets", type=str, nargs="*", default=None,
+                        help="TSV paths; default: eval2018, validation, public eval")
+    parser.add_argument("--tune_thresholds", action="store_true", default=False,
+                        help="Not ported yet (ROADMAP Queue 1 item 5).")
+    parser.add_argument("--save_thresholds", type=str, default=None,
+                        help="Not ported yet (ROADMAP Queue 1 item 5).")
+    parser.add_argument("--threshold", type=float, default=0.5, help="Strong-decode binarization threshold.")
+    parser.add_argument("--thresholds_json", type=str, default=None,
+                        help="Per-class decode thresholds JSON (dict or [C] list). Overrides --threshold.")
+    parser.add_argument("--median_windows_json", type=str, default=None,
+                        help="Per-class decode median-window JSON ([C] odd ints or {class: w}).")
+    parser.add_argument("--data_parallel", action="store_true", default=False,
+                        help="Not ported yet (ROADMAP Queue 1 item 6).")
+    parser.add_argument("--export", type=str, default=None, help="Not ported yet (ROADMAP Queue 1 item 7).")
+    parser.add_argument("--export_batch", type=int, default=None,
+                        help="Not ported yet (ROADMAP Queue 1 item 7).")
+    _device_arg(parser)
+    args = parser.parse_args(argv)
+    _refuse_not_ported(parser, args)
+
+    from dcase2019_task4_tpu_torch.eval.evaluate import CheckpointEvaluator
+
+    ev = CheckpointEvaluator(args.model_path, device=args.device, synthetic_audio=args.synthetic_audio)
+    paths = ev.cfg.paths
+    sets = args.sets or [paths.eval2018, paths.validation, paths.eval_desed]
+    threshold = ev.load_thresholds(args.thresholds_json) if args.thresholds_json else args.threshold
+    median_window = ev.load_windows(args.median_windows_json) if args.median_windows_json else None
+    results = {}
+    for i, tsv in enumerate(sets):
+        save = args.save_predictions_fname if i == len(sets) - 1 else None
+        res = ev.test_model(tsv, args.subpart_data, save, threshold=threshold, median_window=median_window)
+        results[tsv] = {k: res[k] for k in ("event_macro_f1", "weak_macro_f1")}
+    return results if argv is not None else None
 
 
 def predict(argv=None):
@@ -39,8 +260,7 @@ def predict(argv=None):
     parser.add_argument("--median_windows_json", type=str, default=None,
                         help="Per-class decode median-window JSON ([C] odd ints or {class: w}).")
     parser.add_argument("--synthetic_audio", action="store_true", default=False)
-    parser.add_argument("--device", type=str, default="cuda",
-                        help="Torch device. 'cuda' without a card raises; there is no CPU fallback.")
+    _device_arg(parser)
     args = parser.parse_args(argv)
 
     from dcase2019_task4_tpu_torch.eval.evaluate import CheckpointEvaluator
@@ -59,7 +279,8 @@ def predict(argv=None):
     return {k: v for k, v in res.items() if k != "events"}
 
 
-COMMANDS = {"predict": predict}
+COMMANDS = {"train_meanteacher": train_meanteacher, "train_crnn": train_crnn, "evaluate": evaluate,
+            "predict": predict}
 
 
 def main(argv=None):

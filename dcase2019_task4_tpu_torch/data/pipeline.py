@@ -1,22 +1,34 @@
-"""Eval batch assembly, without pandas (counterpart of the inference part
-of dcase2019_task4_tpu/data/pipeline.py, which imports the jax frontend).
+"""Host→device data pipeline without pandas: packed streams, batch
+assembly, prefetch (counterpart of dcase2019_task4_tpu/data/pipeline.py).
 
-Batches are fixed-size int16 PCM buffers, reflect-padded per clip on the
-host exactly as librosa's centre padding (ops/mel.host_reflect_pad); the
-evaluator dequantizes them on the device. Plain wav sources go through the
-C++ batch packer (dcase2019_task4_tpu_torch.native, built with g++ on
-first use), as the JAX package's BatchPipeline._pack_audio does; other
-sources, and machines without g++, through Python.
+  * labels for each stream are packed ONCE into a dense [N, T', C] array
+    (Manifest.encode_targets): the hot path is pure array gathers;
+  * audio is reflect-padded on the host into fixed int16 [B, L + n_fft]
+    buffers, exactly as librosa's centre padding (ops/mel.host_reflect_pad),
+    and featurized on the device inside the step. Plain wav sources go
+    through the C++ batch packer (dcase2019_task4_tpu_torch.native, built
+    with g++ on first use); other sources, and machines without g++,
+    through Python;
+  * a background thread assembles batches ahead of the step, and
+    `device_prefetch` copies them to the card `depth` batches ahead from
+    pinned host memory, without blocking the host.
+
+A worker that fails re-raises its error in the consumer after the batches
+it made (the JAX package's worker ends the epoch quietly instead).
 """
 
 from __future__ import annotations
 
-import csv
-from types import SimpleNamespace
-from typing import Dict, Iterator, List
+import queue
+import threading
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
+import torch
 
+from dcase2019_task4_tpu_torch.data.encoder import LabelCodec
+from dcase2019_task4_tpu_torch.data.manifests import Manifest
+from dcase2019_task4_tpu_torch.data.sampler import MultiStreamSampler
 from dcase2019_task4_tpu_torch.ops.mel import host_reflect_pad
 
 
@@ -25,84 +37,239 @@ def quantize_audio_int16(audio: np.ndarray) -> np.ndarray:
     return np.clip(np.round(audio * 32768.0), -32768, 32767).astype(np.int16)
 
 
-def read_manifest(tsv_path: str) -> SimpleNamespace:
-    """A filename TSV → the fields SyntheticAudioSource reads: `kind`
-    ("strong" with onset/offset/event_label, "weak" with event_labels,
-    otherwise "unlabeled"), unique `filenames` in order of appearance, and
-    per-file `events` [(label, onset, offset)] or `weak_labels`. Same
-    schema detection as data/manifests.load_manifest."""
-    with open(tsv_path, newline="") as f:
-        rows = list(csv.DictReader(f, delimiter="\t"))
-    cols = set(rows[0]) if rows else set()
-    if "filename" not in cols:
-        raise ValueError(f"{tsv_path}: no filename column ({sorted(cols)})")
-    filenames: List[str] = list(dict.fromkeys(r["filename"] for r in rows))
-    if {"onset", "offset", "event_label"} <= cols:
-        events: Dict[str, list] = {f: [] for f in filenames}
-        for r in rows:
-            if r["event_label"]:
-                events[r["filename"]].append((r["event_label"], float(r["onset"]), float(r["offset"])))
-        return SimpleNamespace(kind="strong", filenames=filenames,
-                               events=[events[f] for f in filenames])
-    if "event_labels" in cols:
-        first = {}
-        for r in rows:
-            first.setdefault(r["filename"], r["event_labels"])
-        return SimpleNamespace(kind="weak", filenames=filenames,
-                               weak_labels=[first[f].split(",") if first[f] else [] for f in filenames])
-    return SimpleNamespace(kind="unlabeled", filenames=filenames)
-
-
-def dir_manifest(names: List[str]) -> SimpleNamespace:
+def dir_manifest(names: List[str]) -> Manifest:
     """Minimal manifest for a directory of wavs (no labels)."""
-    return SimpleNamespace(kind="unlabeled", filenames=list(names))
+    return Manifest("unlabeled", list(names), [{"filename": n} for n in names], ["filename"])
 
 
 class Stream:
-    """Filenames plus the audio source that renders or reads them."""
+    """One data stream (weak / unlabeled / synthetic): filenames, packed
+    targets (with a `codec`), the audio source, an optional in-memory audio
+    cache and an optional second view `source2` (same labels, an independent
+    render of every clip)."""
 
-    def __init__(self, manifest, source):
+    def __init__(self, name: str, manifest: Manifest, source, codec: Optional[LabelCodec] = None,
+                 sample_rate: int = 44100, hop_length: int = 511, pooling_time_ratio: int = 8,
+                 cache_audio: bool = False, source2=None):
+        self.name = name
+        self.manifest = manifest
         self.filenames = list(manifest.filenames)
         self.source = source
+        self.source2 = source2
+        self.targets = (None if codec is None else
+                        manifest.encode_targets(codec, sample_rate, hop_length, pooling_time_ratio))
+        self._cache: Optional[dict] = {} if cache_audio else None
+        self._cache2: Optional[dict] = {} if cache_audio else None
 
     def __len__(self):
         return len(self.filenames)
 
+    def _get(self, source, cache, idx: int) -> np.ndarray:
+        if cache is not None and idx in cache:
+            return cache[idx]
+        a = source.get_audio(self.filenames[idx])
+        if cache is not None:
+            cache[idx] = a
+        return a
+
     def get_audio(self, idx: int) -> np.ndarray:
-        return self.source.get_audio(self.filenames[idx])
+        return self._get(self.source, self._cache, idx)
+
+    def get_audio2(self, idx: int) -> np.ndarray:
+        assert self.source2 is not None, f"stream {self.name} has no view-2 source"
+        return self._get(self.source2, self._cache2, idx)
 
 
-def _native_pack(stream: Stream, idx: List[int], max_samples: int, n_fft: int, hop_length: int):
-    """(audio, frames, bad rows) from the C++ packer, or None when it does
-    not apply (no toolchain, or a source that is not a wav directory)."""
-    if not hasattr(stream.source, "path_for"):
+def _native_paths(items):
+    """Wav paths of the (stream, idx) items for the C++ packer, or None when
+    it does not apply (no toolchain, or a source that is not a wav tree)."""
+    if not all(hasattr(s.source, "path_for") for s, _ in items):
         return None
     from dcase2019_task4_tpu_torch import native
 
     if not native.available():
         return None
-    paths = [stream.source.path_for(stream.filenames[i]) for i in idx]
+    return [s.source.path_for(s.filenames[i]) for s, i in items]
+
+
+def pack_items(items, max_samples: int, n_fft: int, hop_length: int, max_frames: int):
+    """[(stream, idx)] → (int16 [B, max_samples + n_fft], int32 valid frames [B])."""
+    paths = _native_paths(items)
+    if paths is None:
+        padded, frames = host_reflect_pad([s.get_audio(i) for s, i in items], max_samples, n_fft,
+                                          hop_length, max_frames)
+        return quantize_audio_int16(padded), frames
+    from dcase2019_task4_tpu_torch import native
+
     audio, frames, errors = native.pack_batch(paths, max_samples, n_fft, hop_length, 44100)
-    return np.array(audio), np.array(frames), [k for k, e in enumerate(errors) if e]
+    audio, frames = np.array(audio), np.array(frames)
+    bad = [k for k, e in enumerate(errors) if e]
+    if bad:  # rows the packer could not decode (resampling, exotic codecs)
+        padded, f2 = host_reflect_pad([items[k][0].get_audio(items[k][1]) for k in bad], max_samples,
+                                      n_fft, hop_length, max_frames)
+        audio[bad] = quantize_audio_int16(padded)
+        frames[bad] = f2
+    return audio, frames
 
 
 def pack_audio(stream: Stream, idx: List[int], max_samples: int, n_fft: int, hop_length: int,
                max_frames: int):
-    """Clips idx → (int16 [B, max_samples + n_fft], int32 valid frames [B])."""
-    packed = _native_pack(stream, idx, max_samples, n_fft, hop_length)
-    if packed is None:
-        padded, frames = host_reflect_pad(
-            [stream.get_audio(i) for i in idx], max_samples, n_fft, hop_length, max_frames
-        )
-        return quantize_audio_int16(padded), frames
-    audio, frames, bad = packed
-    if bad:  # rows the packer could not decode (resampling, exotic codecs)
-        padded, f2 = host_reflect_pad(
-            [stream.get_audio(idx[k]) for k in bad], max_samples, n_fft, hop_length, max_frames
-        )
-        audio[bad] = quantize_audio_int16(padded)
-        frames[bad] = f2
-    return audio, frames
+    """Clips idx of one stream → (int16 audio, int32 valid frames)."""
+    return pack_items([(stream, i) for i in idx], max_samples, n_fft, hop_length, max_frames)
+
+
+def pin_batch(batch: Dict) -> Dict:
+    """Arrays of a batch as tensors in pinned (page-locked) host memory."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory() if isinstance(v, np.ndarray) else v
+            for k, v in batch.items()}
+
+
+def device_prefetch(batch_iter, depth: int = 2, device="cuda") -> Iterator[Dict]:
+    """Copy each batch's arrays to `device` `depth` batches ahead of the
+    consumer. On a card the copy is `non_blocking`, which overlaps the host
+    only from pinned memory (`BatchPipeline.iter_epoch(pin=True)` pins in its
+    worker thread); `device_prefetch.batches` counts the batches copied to a
+    card and `device_prefetch.pinned` those whose every array came from
+    pinned memory. On the CPU the arrays are wrapped, not copied."""
+    import collections
+
+    device = torch.device(device)
+
+    def put(b):
+        out, pinned = {}, True
+        for k, v in b.items():
+            if isinstance(v, np.ndarray):
+                v = torch.from_numpy(v)
+            if isinstance(v, torch.Tensor):
+                if device.type != "cpu":
+                    pinned = pinned and v.is_pinned()
+                v = v.to(device, non_blocking=True)
+            out[k] = v
+        if device.type != "cpu":
+            device_prefetch.batches += 1
+            device_prefetch.pinned += int(pinned)
+        return out
+
+    buf = collections.deque()
+    it = iter(batch_iter)
+    for b in it:
+        buf.append(put(b))
+        if len(buf) >= depth:
+            break
+    while buf:
+        out = buf.popleft()
+        for b in it:
+            buf.append(put(b))
+            break
+        yield out
+
+
+device_prefetch.batches = 0
+device_prefetch.pinned = 0
+
+
+class BatchPipeline:
+    """Assembles [weak | unlabeled | synthetic] batches for the train step.
+
+    Batch layout follows the reference's MultiStreamBatchSampler composition
+    (main.py:238-247): contiguous per-stream sub-batches so loss masks are
+    static slices. One device: no shard tiling and no per-host cut.
+    """
+
+    def __init__(
+        self,
+        streams: Sequence[Stream],
+        batch_sizes: Sequence[int],
+        max_samples: int,
+        n_fft: int,
+        hop_length: int,
+        max_frames: int,
+        seed: int = 0,
+    ):
+        self.streams = list(streams)
+        self.batch_sizes = list(batch_sizes)
+        self.sampler = MultiStreamSampler([len(s) for s in streams], batch_sizes, seed)
+        self.max_samples = max_samples
+        self.n_fft = n_fft
+        self.hop_length = hop_length
+        self.max_frames = max_frames
+        # paired-teacher-view mode: every training stream carries a second
+        # independently-rendered view; batches gain an "audio2" array the
+        # step's teacher pass featurizes instead of the student's audio
+        self.paired_views = len(self.streams) > 0 and all(s.source2 is not None for s in self.streams)
+        assert self.paired_views or not any(s.source2 is not None for s in self.streams), (
+            "paired views must be all-streams-or-none (mixed batches would "
+            "silently hand some teacher rows the student view)")
+
+    def __len__(self):
+        return len(self.sampler)
+
+    @property
+    def batch_size(self):
+        return self.sampler.batch_size
+
+    def stream_slices(self):
+        return self.sampler.stream_slices()
+
+    def assemble(self, pairs: np.ndarray) -> Dict[str, np.ndarray]:
+        """pairs: [batch, 2] of (stream_id, idx) → batch dict (int16 audio)."""
+        items = [(self.streams[s], i) for s, i in pairs]
+        audio, frames = pack_items(items, self.max_samples, self.n_fft, self.hop_length, self.max_frames)
+        batch = {"audio": audio, "frames": frames, "target": np.stack([s.targets[i] for s, i in items])}
+        if self.paired_views:
+            padded, _ = host_reflect_pad([s.get_audio2(i) for s, i in items], self.max_samples, self.n_fft,
+                                         self.hop_length, self.max_frames)
+            batch["audio2"] = quantize_audio_int16(padded)
+        return batch
+
+    def iter_epoch(self, epoch: int, prefetch: int = 2, pin: bool = False) -> Iterator[Dict]:
+        """The epoch's batches, assembled by a background thread up to
+        `prefetch` ahead (none with prefetch 0), their arrays in pinned
+        tensors with `pin`. An error of the worker is raised here. Closing
+        the generator early (or dropping it) stops the worker."""
+        batches = self.sampler.epoch_batches(epoch)
+        make = (lambda b: pin_batch(self.assemble(b))) if pin else self.assemble
+        if prefetch <= 0:
+            for b in batches:
+                yield make(b)
+            return
+        q: "queue.Queue" = queue.Queue(maxsize=prefetch)
+        stop = object()
+        failed: List[BaseException] = []
+        cancel = threading.Event()
+
+        def put(item) -> bool:
+            while not cancel.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def worker():
+            try:
+                for b in batches:
+                    if not put(make(b)):
+                        return
+            except BaseException as e:  # handed to the consumer
+                failed.append(e)
+            finally:
+                put(stop)
+
+        t = threading.Thread(target=worker, name="BatchPipeline.iter_epoch", daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is stop:
+                    break
+                yield item
+        finally:
+            cancel.set()
+            t.join()
+        if failed:
+            raise failed[0]
 
 
 def iter_eval_batches(
@@ -114,16 +281,20 @@ def iter_eval_batches(
     max_frames: int,
 ) -> Iterator[Dict]:
     """Fixed-size batches over a stream; the last batch is padded by
-    repeating the final clip (callers slice by `n_valid`)."""
+    repeating the final clip (callers slice by `n_valid`). Holds the
+    targets where the stream has them."""
     n = len(stream)
     for start in range(0, n, batch_size):
         idx = list(range(start, min(start + batch_size, n)))
         n_valid = len(idx)
         idx += [idx[-1]] * (batch_size - n_valid)
         audio, frames = pack_audio(stream, idx, max_samples, n_fft, hop_length, max_frames)
-        yield {
+        batch = {
             "audio": audio,
             "frames": frames,
             "filenames": [stream.filenames[i] for i in idx[:n_valid]],
             "n_valid": n_valid,
         }
+        if stream.targets is not None:
+            batch["target"] = np.stack([stream.targets[i] for i in idx])
+        yield batch

@@ -62,6 +62,8 @@ def decode_batch(strong_probs, filenames: List[str], codec: LabelCodec, sample_r
 
 
 def write_events_tsv(rows: List[Event], path: Optional[str]) -> List[Event]:
+    """Event rows → a TSV with the reference's header (with a path), and
+    the rows back (the JAX package's `predictions_to_tsv`, over rows)."""
     if path is not None:
         with open(path, "w", newline="") as f:
             w = csv.writer(f, delimiter="\t", lineterminator="\n")

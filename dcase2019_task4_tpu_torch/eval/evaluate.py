@@ -1,8 +1,11 @@
-"""Checkpoint inference (counterpart of the serving part of
-dcase2019_task4_tpu/eval/evaluate.py): rebuild config, scaler, codec,
+"""Checkpoint evaluation (counterpart of dcase2019_task4_tpu/eval/evaluate.py,
+the reference's TestModel.py:25-62): rebuild config, scaler, codec,
 frontend and model from a checkpoint on an explicit device, run batched
-inference over a wav directory or filename TSV, and write the events TSV
-(and optionally the weak clip-tag TSV). No jax and no pandas.
+inference over a wav directory or filename TSV, write the events TSV (and
+optionally the weak clip-tag TSV), and with `test_model` score a labelled
+set: event- and segment-based F1 and weak tagging F1. No jax and no pandas.
+Threshold tuning (`tune_thresholds`) and long-audio windows are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -18,8 +21,11 @@ import torch
 from dcase2019_task4_tpu_torch.config import Config, DSPConfig, ModelConfig, PathsConfig, TrainConfig
 from dcase2019_task4_tpu_torch.data.audio_io import SyntheticAudioSource, WavAudioSource
 from dcase2019_task4_tpu_torch.data.encoder import LabelCodec
-from dcase2019_task4_tpu_torch.data.pipeline import Stream, dir_manifest, iter_eval_batches, read_manifest
+from dcase2019_task4_tpu_torch.data.manifests import load_manifest, subpart_manifest
+from dcase2019_task4_tpu_torch.data.pipeline import Stream, dir_manifest, iter_eval_batches
 from dcase2019_task4_tpu_torch.eval.decode import decode_batch, write_events_tsv
+from dcase2019_task4_tpu_torch.eval.sed_scores import compute_strong_metrics
+from dcase2019_task4_tpu_torch.eval.tagging import TaggingF1
 from dcase2019_task4_tpu_torch.models.crnn import CRNN
 from dcase2019_task4_tpu_torch.ops.mel import MelFrontend
 from dcase2019_task4_tpu_torch.train import checkpoints as ckpt
@@ -126,20 +132,23 @@ class CheckpointEvaluator:
             raise ValueError(f"median windows must be odd, got {w.tolist()}")
         return w
 
-    def _stream(self, source_path: str) -> Stream:
+    def _stream(self, source_path: str, subpart: Optional[int] = None) -> Stream:
+        """A wav directory or a filename TSV (its first `subpart` files by
+        the subpart draw) → a Stream with the codec's targets."""
         d = self.cfg.dsp
         if os.path.isdir(source_path):
             names = sorted(f for f in os.listdir(source_path) if f.lower().endswith(".wav"))
             manifest = dir_manifest(names)
             audio_dir = source_path
         else:
-            manifest = read_manifest(source_path)
+            manifest = subpart_manifest(load_manifest(source_path), subpart)
             audio_dir = self.cfg.paths.audio_dir_for_meta(source_path)
         if self.synthetic_audio:
             src = SyntheticAudioSource(manifest, self.codec.labels, d.sample_rate, d.max_len_seconds)
         else:
             src = WavAudioSource(audio_dir, d.sample_rate)
-        return Stream(manifest, src)
+        return Stream("eval", manifest, src, self.codec, d.sample_rate, d.hop_length,
+                      self.meta["pooling_time_ratio"])
 
     def predict_set(self, source_path: str, save_predictions_fname: str,
                     weak_fname: Optional[str] = None, weak_threshold=0.5,
@@ -183,4 +192,46 @@ class CheckpointEvaluator:
             "n_files": len(stream),
             "strong": np.concatenate(strong_all) if strong_all else np.zeros((0, 0, n_cls), np.float32),
             "weak": np.concatenate(weak_all) if weak_all else np.zeros((0, n_cls), np.float32),
+        }
+
+    def test_model(self, tsv_path: str, subpart: Optional[int] = None,
+                   save_predictions_fname: Optional[str] = None, tune_thresholds: bool = False,
+                   threshold=0.5, median_window=None) -> Dict:
+        """Full evaluation of one TSV set (reference test_model,
+        TestModel.py:25-62): strong decode, event- and segment-based
+        metrics, weak tagging F1. `median_window` is a scalar or a
+        per-class [C] vector (None: the config's). Returns the two macro F1s,
+        the prediction rows and the strong probabilities."""
+        if tune_thresholds:
+            raise NotImplementedError("threshold tuning (eval/thresholds.py) is not ported yet: "
+                                      "ROADMAP Queue 1 item 5")
+        if median_window is None:
+            median_window = self.cfg.train.median_window
+        self.log.info(tsv_path)
+        stream = self._stream(tsv_path, subpart)
+        d = self.cfg.dsp
+        predictions, strong_all, acc = [], [], TaggingF1(len(self.codec.labels))
+        for batch in iter_eval_batches(stream, self.cfg.train.batch_size, d.max_samples, d.n_window,
+                                       d.hop_length, d.max_frames):
+            strong, weak = self._predict(self.features(batch["audio"], batch["frames"]))
+            nv = batch["n_valid"]
+            strong = strong[:nv].cpu()
+            predictions += decode_batch(strong, batch["filenames"], self.codec, d.sample_rate, d.hop_length,
+                                        self.meta["pooling_time_ratio"], threshold=threshold,
+                                        median_window=median_window)
+            acc.update(weak[:nv].cpu().numpy(), batch["target"][:nv])
+            strong_all.append(strong.numpy())
+        if save_predictions_fname:
+            self.log.info(f"Saving predictions at: {save_predictions_fname}")
+            write_events_tsv(predictions, save_predictions_fname)
+        event_metric = compute_strong_metrics(predictions, stream.manifest.rows, self.log)
+        weak_f1 = acc.per_class_f1()
+        self.log.info(f"Weak F1-score per class: {dict(zip(self.codec.labels, np.round(weak_f1 * 100, 2)))}")
+        self.log.info(f"Weak F1-score macro averaged: {np.mean(weak_f1):.4f}")
+        return {
+            "event_macro_f1": event_metric.results_class_wise_average_metrics()["f_measure"]["f_measure"],
+            "weak_macro_f1": float(np.mean(weak_f1)),
+            "predictions": predictions,
+            "strong": np.concatenate(strong_all) if strong_all else np.zeros((0, 0, len(self.codec.labels)),
+                                                                             np.float32),
         }

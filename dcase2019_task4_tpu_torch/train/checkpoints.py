@@ -1,14 +1,23 @@
-"""Checkpoint weight bridge, numpy only (counterpart of
+"""Checkpoints and the weight bridge, numpy only (counterpart of
 dcase2019_task4_tpu/train/checkpoints.py, which imports jax).
 
-Reads the JAX package's v2 checkpoint — one ``.npz`` with a ``leaf_NNNNN``
+The JAX package's v2 checkpoint is one ``.npz`` with a ``leaf_NNNNN``
 array per pytree leaf and a ``__meta__`` entry of UTF-8 JSON holding the
-metadata, per-leaf dtypes, shapes and keypath strings — and selects the
-leaves of the stored TrainState's ``params`` and ``bn_state`` by their
-keypaths (``.params['cnn'][0]['conv']['w']``), which is all inference
-reads. Loading uses ``allow_pickle=False``; the legacy pickle format is not
-read. The writer emits the same layout holding params and bn_state only,
-so a process without jax can produce a checkpoint the port's CLI loads.
+metadata, per-leaf dtypes, shapes and keypath strings
+(``.params['cnn'][0]['conv']['w']``). Leaves are selected by their
+keypaths. Loading uses ``allow_pickle=False``; the legacy pickle format is
+not read.
+
+* Inference reads the stored TrainState's ``params`` and ``bn_state``
+  (`load_inference_state`); `save_inference_checkpoint` writes only those.
+* Training saves and restores the whole TrainState (`save_checkpoint`,
+  `restore_checkpoint`): student, teacher, both BatchNorm states, Adam's
+  moments and count, and the step, as the JAX TrainState's leaves in its
+  flatten order, so each package restores the other's checkpoint. Plain
+  Adam is optax.adam's state (``.opt_state[0].count / .mu / .nu``); the
+  ramped Adam is its optax.inject_hyperparams state (``.opt_state.count``,
+  ``.hyperparams``, ``.hyperparams_states``, ``.inner_state[0]``), whose
+  hyperparameters are those the last update used, as optax stores them.
 
 `params_from_jax` / `params_to_jax` map between that pytree (HWIO convs,
 [in, out] dense weights) and the port's CRNN state_dict (OIHW,
@@ -17,11 +26,12 @@ so a process without jax can produce a checkpoint the port's CLI loads.
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import os
 import re
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,7 +81,7 @@ def _listify(node):
     return {k: _listify(v) for k, v in node.items()}
 
 
-def _load(path: str, want_leaves: bool) -> Tuple[Dict, Dict]:
+def _load(path: str, want_leaves: bool, keep=("params", "bn_state")) -> Tuple[Dict, Dict]:
     with open(path, "rb") as f:
         if f.read(2) != b"PK":
             raise ValueError(f"{path} is not an npz (v2) checkpoint; legacy pickle checkpoints are not read")
@@ -84,7 +94,7 @@ def _load(path: str, want_leaves: bool) -> Tuple[Dict, Dict]:
                 raise ValueError(f"{path} has no leaf_paths; re-save it with a current writer")
             for i, p in enumerate(paths):
                 keys = _parse_path(p)
-                if keys[0] in ("params", "bn_state"):
+                if keep is None or keys[0] in keep:
                     _insert(tree, keys, _decode_leaf(z[f"leaf_{i:05d}"], meta_doc["dtypes"][i]))
     return _listify(tree), meta_doc
 
@@ -122,12 +132,8 @@ def _json_default(o):
     raise TypeError(f"checkpoint metadata value {o!r} is not JSON-serializable")
 
 
-def save_inference_checkpoint(path: str, params: Dict, bn_state: Dict, metadata: Dict[str, Any]):
-    """Write params and bn_state (JAX pytree layout, numpy) as a v2 npz with
-    the same metadata document the JAX writer produces."""
-    leaves: List = []
-    _flatten(params, ".params", leaves)
-    _flatten(bn_state, ".bn_state", leaves)
+def _write(path: str, leaves: List, metadata: Dict[str, Any]):
+    """(keypath, array) leaves in order → a v2 npz at `path` (atomic)."""
     arrays = {f"leaf_{i:05d}": a for i, (_, a) in enumerate(leaves)}
     meta_doc = {
         "version": 2,
@@ -145,6 +151,24 @@ def save_inference_checkpoint(path: str, params: Dict, bn_state: Dict, metadata:
     with open(tmp, "wb") as f:
         f.write(buf.getvalue())
     os.replace(tmp, path)
+
+
+def save_inference_checkpoint(path: str, params: Dict, bn_state: Dict, metadata: Dict[str, Any]):
+    """Write params and bn_state (JAX pytree layout, numpy) as a v2 npz with
+    the same metadata document the JAX writer produces."""
+    leaves: List = []
+    _flatten(params, ".params", leaves)
+    _flatten(bn_state, ".bn_state", leaves)
+    _write(path, leaves, metadata)
+
+
+def config_to_dict(cfg) -> Dict:
+    def conv(o):
+        if dataclasses.is_dataclass(o):
+            return {k: conv(v) for k, v in dataclasses.asdict(o).items()}
+        return o
+
+    return conv(cfg)
 
 
 def _t(a) -> torch.Tensor:
@@ -242,11 +266,12 @@ def _named_to_jax(named: Dict[str, torch.Tensor]) -> Dict:
 
 
 def train_state_from_jax(state, params, bn_state, ema_params=None, ema_bn_state=None,
-                         mu=None, nu=None, step: int = 0):
+                         mu=None, nu=None, step: int = 0, count: Optional[int] = None):
     """Load numpy pytrees in the JAX layout into a TrainState (train/steps.py)
     in place: student, teacher (when given), Adam's `exp_avg` / `exp_avg_sq`
-    / `step` (when mu and nu are given; both packages then take the same
-    step from the same state) and the step counter. Returns `state`."""
+    / `step` (when mu and nu are given, the step from `count`, default
+    `step`; both packages then take the same step from the same state) and
+    the step counter. Returns `state`."""
     state.student.load_state_dict(params_from_jax(params, bn_state))
     if ema_params is not None:
         state.teacher.load_state_dict(params_from_jax(ema_params, ema_bn_state))
@@ -254,7 +279,7 @@ def train_state_from_jax(state, params, bn_state, ema_params=None, ema_bn_state=
         first, second = _named_from_jax(mu), _named_from_jax(nu)
         for name, p in state.student.named_parameters():
             state.optimizer.state[p] = {
-                "step": torch.tensor(float(step)),
+                "step": torch.tensor(float(step if count is None else count)),
                 "exp_avg": first[name].to(p.device),
                 "exp_avg_sq": second[name].to(p.device),
             }
@@ -278,3 +303,71 @@ def train_state_to_jax(state) -> Dict:
             named[name] = torch.zeros_like(p) if moment is None else moment
         out[key] = _named_to_jax(named)
     return out
+
+
+# ------------------------------------------------- whole TrainState on disk
+
+
+def adam_count(optimizer) -> int:
+    """The updates Adam has taken (0 before the first)."""
+    for st in optimizer.state.values():
+        if "step" in st:
+            return int(st["step"])
+    return 0
+
+
+def train_state_leaves(state, ramped_adam: bool = False) -> List:
+    """The TrainState as (keypath, array) leaves of the JAX TrainState, in
+    its flatten order (see the module docstring)."""
+    j = train_state_to_jax(state)
+    leaves: List = []
+    for key in ("params", "bn_state", "ema_params", "ema_bn_state"):
+        if j[key] is not None:
+            _flatten(j[key], f".{key}", leaves)
+    count = np.asarray(adam_count(state.optimizer), np.int32)
+    inner = ".opt_state[0]"
+    if ramped_adam:
+        group = state.optimizer.param_groups[0]
+        hyper = {"b1": group["betas"][0], "b2": group["betas"][1], "learning_rate": group["lr"]}
+        leaves.append((".opt_state.count", count))
+        leaves += [(f".opt_state.hyperparams['{k}']", np.asarray(hyper[k], np.float32)) for k in sorted(hyper)]
+        leaves += [(f".opt_state.hyperparams_states['{k}'].count", count) for k in sorted(hyper)]
+        inner = ".opt_state.inner_state[0]"
+    leaves.append((f"{inner}.count", count))
+    _flatten(j["mu"], f"{inner}.mu", leaves)
+    _flatten(j["nu"], f"{inner}.nu", leaves)
+    leaves.append((".step", np.asarray(state.step, np.int32)))
+    return leaves
+
+
+def save_checkpoint(path: str, state, metadata: Dict[str, Any], ramped_adam: bool = False):
+    """The whole TrainState (train/steps.py) as a v2 npz the JAX package's
+    restore_checkpoint takes into its template (plain Adam, or with
+    `ramped_adam` the ramped Adam's state)."""
+    _write(path, train_state_leaves(state, ramped_adam), metadata)
+
+
+def restore_checkpoint(path: str, state, ramped_adam: bool = False):
+    """Load a whole-TrainState checkpoint (either package's writer) of plain
+    Adam, or with `ramped_adam` of the ramped Adam, into `state` in place →
+    (state, metadata). The stored optimizer, keypaths and shapes must be
+    those of `state`, as the JAX template restore demands."""
+    tree, meta_doc = _load(path, want_leaves=True, keep=None)
+    stored = meta_doc["leaf_paths"]
+    ramped = any(p.startswith(".opt_state.inner_state") for p in stored)
+    if ramped != ramped_adam:
+        names = {True: "ramped Adam", False: "plain Adam"}
+        raise ValueError(f"checkpoint {path} holds the state of {names[ramped]}; "
+                         f"this run uses {names[ramped_adam]}")
+    want = train_state_leaves(state, ramped)
+    diffs = [f"  leaf {i}: saved {p} {tuple(shape)}, template {q} {tuple(a.shape)}"
+             for i, ((q, a), p, shape) in enumerate(zip(want, stored, meta_doc["leaf_shapes"]))
+             if p != q or list(a.shape) != list(shape)]
+    if len(stored) != len(want) or diffs:
+        raise ValueError(f"checkpoint {path} does not match the train state ({len(stored)} leaves saved, "
+                         f"{len(want)} in the template):\n" + "\n".join(diffs[:8]))
+    opt = tree["opt_state"]
+    inner = opt["inner_state"][0] if ramped else opt[0]
+    train_state_from_jax(state, tree["params"], tree["bn_state"], tree.get("ema_params"), tree.get("ema_bn_state"),
+                         inner["mu"], inner["nu"], step=int(tree["step"]), count=int(inner["count"]))
+    return state, meta_doc["metadata"]

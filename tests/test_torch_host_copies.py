@@ -174,3 +174,62 @@ def test_native_packer_equals_the_original(tmp_path, monkeypatch):
     b, sr2, err2 = jnative.decode_wav(paths[0], 44100)
     np.testing.assert_array_equal(a, b)
     assert (sr, err) == (sr2, err2)
+
+
+@pytest.mark.parametrize("comp", ["sup", "inf"])
+def test_meters_save_best_and_early_stopping(comp):
+    from dcase2019_task4_tpu.utils import meters as jmeters
+    from dcase2019_task4_tpu_torch.utils import meters as tmeters
+
+    values = np.random.default_rng(6).random(12).round(2).tolist() + [0.5, 0.5, 0.5, 0.5]
+    mine, theirs = tmeters.SaveBest(comp), jmeters.SaveBest(comp)
+    stop_m, stop_t = tmeters.EarlyStopping(2, comp), jmeters.EarlyStopping(2, comp)
+    for v in values:
+        assert mine.apply(v) == theirs.apply(v)
+        assert stop_m.apply(v) == stop_t.apply(v)
+        assert (mine.best_val, mine.best_epoch, stop_m.best_epoch) == (theirs.best_val, theirs.best_epoch,
+                                                                      stop_t.best_epoch)
+    a, b = tmeters.AverageMeterSet(), jmeters.AverageMeterSet()
+    for i, v in enumerate(values):
+        for m in (a, b):
+            m.update("loss", v, i + 1)
+            m.update("tiny", v * 1e-3)
+    assert a.averages() == b.averages() and a.averages("") == b.averages("") and str(a) == str(b)
+    with pytest.raises(ValueError):
+        tmeters.SaveBest("max")
+
+
+def test_metrics_writer_round_trip(tmp_path):
+    from dcase2019_task4_tpu.utils import metrics_writer as jwriter
+    from dcase2019_task4_tpu_torch.utils import metrics_writer as twriter
+
+    record = {"epoch": np.int64(3), "loss": np.float32(0.25), "f1": np.array([0.5, 1.0]), "best": True}
+    for mod, name in ((twriter, "mine.jsonl"), (jwriter, "theirs.jsonl")):
+        with mod.MetricsWriter(str(tmp_path / name)) as w:
+            w.write(record)
+            w.write({"epoch": 4})
+        mod.MetricsWriter(None).write(record)  # no path: writes nothing
+    mine, theirs = twriter.read_metrics(str(tmp_path / "mine.jsonl")), jwriter.read_metrics(str(tmp_path / "theirs.jsonl"))
+    for a, b in zip(mine, theirs):
+        a.pop("ts"), b.pop("ts")
+        assert a == b
+    assert mine[0] == {"epoch": 3, "loss": 0.25, "f1": [0.5, 1.0], "best": True}
+
+
+def test_drop_missing_audio(tmp_path):
+    from dcase2019_task4_tpu.data import features_cache as jcache
+    from dcase2019_task4_tpu.data import manifests as jman
+    from dcase2019_task4_tpu_torch.data import features_cache as tcache
+    from dcase2019_task4_tpu_torch.data import manifests as tman
+
+    tsv = tmp_path / "weak.tsv"
+    tsv.write_text("filename\tevent_labels\na.wav\tDog\nb.wav\tCat,Dog\nc.wav\t\n")
+    taudio.write_wav(str(tmp_path / "a.wav"), np.zeros(100, np.float32), 44100)
+    taudio.write_wav(str(tmp_path / "c.wav"), np.zeros(100, np.float32), 44100)
+    mine = tcache.drop_missing_audio(tman.load_manifest(str(tsv)), taudio.WavAudioSource(str(tmp_path)))
+    theirs = jcache.drop_missing_audio(jman.load_manifest(str(tsv)), jaudio.WavAudioSource(str(tmp_path)))
+    assert mine.filenames == theirs.filenames == ["a.wav", "c.wav"]
+    assert mine.weak_labels == theirs.weak_labels == [["Dog"], []]
+    whole = tman.load_manifest(str(tsv))
+    (tmp_path / "b.wav").write_bytes((tmp_path / "a.wav").read_bytes())
+    assert tcache.drop_missing_audio(whole, taudio.WavAudioSource(str(tmp_path))) is whole

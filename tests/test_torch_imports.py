@@ -35,7 +35,9 @@ def test_every_module_is_listed():
                  "models.crnn", "models.layers", "train.checkpoints", "data.pipeline",
                  "eval.decode", "eval.evaluate", "config", "utils.logger", "utils.scaler",
                  "data.encoder", "data.audio_io", "native", "train.ramps", "train.losses",
-                 "train.schedules", "train.steps", "ops.entry_conv", "ops.fused_entry_block", "ops.crows_block"):
+                 "train.schedules", "train.steps", "ops.entry_conv", "ops.fused_entry_block", "ops.crows_block",
+                 "data.manifests", "data.sampler", "data.features_cache", "eval.sed_scores", "eval.tagging",
+                 "utils.meters", "utils.metrics_writer", "train.experiment"):
         assert f"dcase2019_task4_tpu_torch.{name}" in MODULES
 
 

@@ -32,7 +32,7 @@ from dcase2019_task4_tpu.models.crnn import CRNN
 from dcase2019_task4_tpu.train import checkpoints as jckpt
 from dcase2019_task4_tpu.train.steps import init_train_state
 from dcase2019_task4_tpu_torch import cli
-from dcase2019_task4_tpu_torch.data.pipeline import read_manifest
+from dcase2019_task4_tpu_torch.data.manifests import load_manifest as read_manifest
 from dcase2019_task4_tpu_torch.eval.evaluate import CheckpointEvaluator, resolve_device
 from dcase2019_task4_tpu_torch.models.crnn import CRNN as TorchCRNN
 from dcase2019_task4_tpu_torch.models.crnn import seeded_init_
