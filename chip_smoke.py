@@ -155,6 +155,26 @@ printing a result:
      on the card and on the CPU from the same state: the batches bit for
      bit, the scaler moments within 1e-5 of their largest, the epoch's loss
      means and the validation probabilities within 1e-4.
+  7. the rest of the user paths, through the CLI on the card —
+     (a) `train_meanteacher --synthetic_audio -s 96 --epochs 2
+     --device_cache`, phase 6's run with the training set resident on the
+     card: the resident MiB, each epoch's loop seconds and steps a second
+     (no batch queue), epoch 0's gathered batches bit for bit the streamed
+     pipeline's, each epoch's loss means within 1e-4 of phase 6's, the
+     training kernels exactly their count a step and no batch copied from
+     the host; (b) `evaluate --tune_thresholds --save_thresholds` on its
+     best checkpoint (24 validation clips): the three JSON files with the
+     ten classes, then `predict --thresholds_json --median_windows_json`
+     reads them back and its events are the decode of its probabilities
+     under them; (c) `predict --long` and `--long --overlap` with those
+     files on wavs of 25, 7 and 10 s: the JAX package's window count, strong
+     probabilities within 1e-4 of the CPU run's and the same TSV rows
+     (unless a probability within their difference of a threshold flipped,
+     which is printed); (d) `precompute` of 48 synthetic 10 s clips laid
+     out as a user lays out a set (a TSV under dataset_metadata, its wavs
+     where the configuration maps it, both removed after): the .npy files
+     within 1e-5 of max of the CPU run's. Each path's launches are exact per
+     batch (per step for training) and nothing else launches.
 
 Phase 3 also holds the knobs' kernels at the flagship shapes (`knob_kernels`:
 K1 onedot against its plain version and a float64 DFT, 1e-5 of max, twice
@@ -3222,19 +3242,28 @@ RECORD_KEYS = ("epoch", "epoch_time_s", "loss", "weak_class_loss", "strong_class
 CLI_SUBPART, CLI_EPOCHS, PARITY_SUBPART = 96, 2, 24
 
 
+def off_card(tensors: dict):
+    """The keys of `tensors` whose tensor does not lie on the card."""
+    return [k for k, v in tensors.items() if v.device.type != "cuda"]
+
+
 @contextlib.contextmanager
 def watched_steps(seen: dict):
     """Every batch a train step receives must lie on the card; `seen`
-    counts the steps. The feed's copy counters start at 0."""
+    counts the steps, and keeps a copy on the card of the first
+    `seen["keep"]` batches in `seen["kept"]` where it asks for them. The
+    feed's copy counters start at 0."""
     from dcase2019_task4_tpu_torch.data import pipeline
     from dcase2019_task4_tpu_torch.train import steps
 
     real = steps.TrainStep.__call__
 
     def call(self, state, batch, generator, acc):
-        off = [k for k, v in batch.items() if v.device.type != "cuda"]
+        off = off_card(batch)
         if off:
             raise AssertionError(f"a train step received {off} off the card")
+        if seen["steps"] < seen.get("keep", 0):
+            seen["kept"].append({k: v.clone() for k, v in batch.items()})
         seen["steps"] += 1
         return real(self, state, batch, generator, acc)
 
@@ -3262,16 +3291,17 @@ def quiet_log():
         log.setLevel(level)
 
 
-def train_cli(command: str, args, card: str, per_step: dict):
-    """One training CLI run on the card: every batch on the card from pinned
-    memory, the training kernels launched `per_step` times a step, nothing
-    off the path launched, every record's losses finite. → (launches,
-    records)."""
+def train_cli(command: str, args, card: str, per_step: dict, seen: Optional[dict] = None):
+    """One training CLI run on the card: every batch on the card, copied
+    from pinned memory (or, under --device_cache, gathered there: none
+    copied), the training kernels launched `per_step` times a step,
+    nothing off the path launched, every record's losses finite. `seen`
+    (watched_steps) may ask for the first batches. → (launches, records)."""
     from dcase2019_task4_tpu_torch import cli
     from dcase2019_task4_tpu_torch.data import pipeline
     from dcase2019_task4_tpu_torch.utils.metrics_writer import read_metrics
 
-    seen = {"steps": 0}
+    seen = {"steps": 0} if seen is None else seen
     with watched_steps(seen), quiet_log():
         zero_launches()
         t0 = time.perf_counter()
@@ -3280,7 +3310,7 @@ def train_cli(command: str, args, card: str, per_step: dict):
         launches = read_launches()
     n = seen["steps"]
     fed = pipeline.device_prefetch.batches, pipeline.device_prefetch.pinned
-    if n == 0 or fed != (n, n):
+    if n == 0 or fed != ((0, 0) if "--device_cache" in args else (n, n)):
         raise AssertionError(f"{command}: {n} steps, {fed[0]} batches copied to the card, {fed[1]} from pinned memory")
     for name, count in launches.items():
         if name not in TRAIN_CLI_KERNELS and count:
@@ -3415,6 +3445,363 @@ def phase_train_cli(card: str):
         if not err <= STRONG_TOL:
             raise AssertionError(f"the best checkpoint's strong probabilities differ by {err:.3g}")
     parity_epoch(card)
+    return launches, records
+
+
+# phase 7: the rest of the user paths. One eval batch of the predict path
+# (K1, K3f at blocks 2-3, K2f eval at the three blocks); K1 alone in precompute
+PREDICT_BATCH = {name: count // 2 for name, count in PREDICT_MIN.items()}
+PRECOMPUTE_BATCH = {"fused_stft_mel": 1}
+LONG_SECONDS = {"long_25s.wav": 25.0, "long_07s.wav": 7.0, "long_10s.wav": 10.0}
+
+
+@contextlib.contextmanager
+def captured_experiments(seen: list):
+    """Each Experiment a training CLI runs lands in `seen`."""
+    from dcase2019_task4_tpu_torch.train.experiment import Experiment
+
+    run = Experiment.run
+
+    def recorded(self, *args, **kwargs):
+        seen.append(self)
+        return run(self, *args, **kwargs)
+
+    Experiment.run = recorded
+    try:
+        yield
+    finally:
+        Experiment.run = run
+
+
+def long_windows(lengths, overlap: bool):
+    """The JAX package's windows (eval/evaluate.py:306-317) at the
+    flagship, over the files in name order as a wav folder is read: 10 s
+    windows, end to end or half a window apart on the pooled-frame grid.
+    `lengths` maps a file to its samples. → [(file, start s)]."""
+    from dcase2019_task4_tpu_torch.config import Config
+
+    cfg = Config()
+    d, ptr = cfg.dsp, cfg.model.pooling_time_ratio
+    hop = max(1, (d.max_frames // ptr) // 2) * d.hop_length * ptr if overlap else d.max_samples
+    return [(name, w * hop / d.sample_rate) for name in sorted(lengths)
+            for w in range(1 + max(0, -(-(lengths[name] - d.max_samples) // hop)))]
+
+
+def events_of(path: str):
+    return [(r["event_label"], float(r["onset"]), float(r["offset"]), r["filename"]) for r in read_tsv(path)]
+
+
+def decoded_timelines(probs, windows, overlap: bool, frame_s: float):
+    """The probabilities the decoder thresholds, per file: each window's
+    own [T', C] from its start, or (overlap) the file's windows averaged
+    where they overlap into one timeline from 0 s, as predict_long does.
+    → {file: [(start s, [n, C])]}."""
+    out = {}
+    for p, (name, t0) in zip(probs, windows):
+        out.setdefault(name, []).append((t0, np.asarray(p, np.float64)))
+    if overlap:
+        for name, entries in out.items():
+            first = [int(round(t0 / frame_s)) for t0, _ in entries]
+            n = max(first) + entries[0][1].shape[0]
+            buf = np.zeros((n, entries[0][1].shape[1]))
+            cnt = np.zeros((n, 1))
+            for f0, (_, p) in zip(first, entries):
+                buf[f0:f0 + len(p)] += p
+                cnt[f0:f0 + len(p)] += 1.0
+            out[name] = [(0.0, buf / np.maximum(cnt, 1.0))]
+    return out
+
+
+def same_rows(what: str, got, want, probs_a, probs_b, windows, thresholds, median_windows, overlap: bool,
+              frame_s: float):
+    """Event rows equal, unless each row that differs has, of its own file
+    and class and within its class's median window of its span, a
+    probability of either run (as the decoder reads it: per window, or the
+    averaged timeline under `overlap`) that lies within the runs' largest
+    difference there of the class's threshold, where a decision may flip
+    (printed, as tests/test_torch_experiment.py allows)."""
+    if got == want:
+        return
+    from dcase2019_task4_tpu_torch.config import DEFAULT_CLASSES
+
+    lines = [decoded_timelines(p, windows, overlap, frame_s) for p in (probs_a, probs_b)]
+    diff = max(float(np.abs(pa - pb).max()) for name in lines[0]
+               for (_, pa), (_, pb) in zip(lines[0][name], lines[1][name]))
+    differ = sorted(set(got) ^ set(want))
+    for label, on, off, name in differ:
+        c = list(DEFAULT_CLASSES).index(label)
+        margin = int(median_windows[c]) + 1
+        near = 0
+        for line in lines:
+            for t0, p in line[name]:
+                lo = max(0, int(np.floor((on - t0) / frame_s)) - margin)
+                hi = min(len(p), int(np.ceil((off - t0) / frame_s)) + margin)
+                if lo < hi:
+                    near += int((np.abs(p[lo:hi, c] - thresholds[c]) <= diff).sum())
+        print(f"  {what}: row {(label, on, off, name)} differs; {near} of its class's probabilities near its span "
+              f"lie within {diff:.3g} of the threshold")
+        if near == 0:
+            raise AssertionError(f"{what}: the event row {(label, on, off, name)} differs with no probability of "
+                                 f"its file and class near the threshold")
+
+
+def resident_epoch(card: str, streamed_records, work: str):
+    """(a) `train_meanteacher --device_cache` at phase 6's flagship run:
+    the resident rows, epoch 0's gathered batches against the streamed
+    pipeline's bit for bit, each epoch's loss means within 1e-4 of phase
+    6's streamed records, the training kernels exactly their count a step.
+    → (launches, the best checkpoint)."""
+    import torch
+
+    mt = os.path.join(work, "mt_resident")
+    # every batch is kept on the card (clones: nothing is copied to the host
+    # inside the loop); epoch 0's are compared after the run
+    exps, seen = [], {"steps": 0, "keep": float("inf"), "kept": []}
+    with captured_experiments(exps):
+        launches, records = train_cli(
+            "train_meanteacher", ["--synthetic_audio", "-s", str(CLI_SUBPART), "--epochs", str(CLI_EPOCHS),
+                                  "--store_dir", mt, "--device_cache"], card, STEP_MIN, seen)
+    (exp,) = exps
+    dd = exp._device_data
+    steps = len(exp.pipeline)
+    if dd is None or len(records) != CLI_EPOCHS or seen["steps"] != CLI_EPOCHS * steps:
+        raise AssertionError(f"the resident run: {len(records)} records, {seen['steps']} steps")
+    on_card = sum(t.numel() * t.element_size() for t in dd.data.values())
+    if off_card(dd.data):
+        raise AssertionError(f"the resident arrays {off_card(dd.data)} are not on the card")
+    print(f"  resident dataset: {dd.n_real} clips in {dd.data['audio'].shape[0]} rows, {on_card / 2**20:.1f} MiB on "
+          f"the card (estimate {dd.nbytes / 2**20:.1f} MiB) on {card}")
+    for s in exp.epoch_stats:
+        print(f"  resident epoch {s['epoch']}: the loop {s['seconds']:.3f} s for {s['steps']} steps = "
+              f"{s['steps'] / s['seconds']:.3f} steps/s, queue wait {s['queue_wait_s']:.1f} s on {card}")
+    got = seen["kept"][:steps]
+    for i, want in enumerate(exp.pipeline.iter_epoch(0, prefetch=0)):
+        for k in want:
+            if not np.array_equal(got[i][k].cpu().numpy(), want[k]):
+                raise AssertionError(f"epoch 0 batch {i}: the gathered {k} is not the streamed pipeline's")
+    print(f"  epoch 0's {steps} gathered batches equal the streamed pipeline's bit for bit")
+    del seen["kept"][:]
+    worst = 0.0
+    for mine, theirs in zip(records, streamed_records):
+        for k in theirs:
+            if "loss" in k or k.startswith("consistency_"):
+                worst = max(worst, abs(mine[k] - theirs[k]))
+    print(f"  per-epoch loss means against phase 6's streamed run: largest difference {worst:.3g} (limit {TRAIN_TOL})")
+    if not worst <= TRAIN_TOL:
+        raise AssertionError(f"a resident epoch's loss mean differs from the streamed run's by {worst:.3g}")
+    torch.cuda.synchronize()
+    return launches, os.path.join(mt, "model", "baseline_best")
+
+
+def tuned_thresholds(card: str, best: str, work: str):
+    """(b) `evaluate --tune_thresholds --save_thresholds` on the resident
+    run's best checkpoint (24 validation clips): the three JSON files with
+    the ten classes; then `predict` reads them back, and its events are the
+    decode of its probabilities under them. → (launches by path, the
+    event thresholds and windows flags, the event thresholds, the
+    windows)."""
+    import torch
+
+    from dcase2019_task4_tpu_torch import cli
+    from dcase2019_task4_tpu_torch.config import DEFAULT_CLASSES, Config
+    from dcase2019_task4_tpu_torch.data.encoder import LabelCodec
+    from dcase2019_task4_tpu_torch.data.manifests import load_manifest, subpart_manifest
+    from dcase2019_task4_tpu_torch.eval.decode import decode_batch
+
+    cfg = Config()
+    validation = cfg.paths.validation
+    saved = os.path.join(work, "tuned.json")
+    launches = {}
+    with quiet_log():
+        zero_launches()
+        t0 = time.perf_counter()
+        res = cli.evaluate(["-m", best, "--synthetic_audio", "-s", str(PARITY_SUBPART), "--sets", validation,
+                            "--tune_thresholds", "--save_thresholds", saved, "--device", "cuda"])[validation]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["evaluate_tune_thresholds"] = read_launches()
+    check_launches(launches["evaluate_tune_thresholds"], PREDICT_BATCH, 1, "evaluate --tune_thresholds")
+    root, ext = os.path.splitext(saved)
+    files = {"weak": saved, "event": f"{root}.event{ext}", "windows": f"{root}.event_windows{ext}"}
+    tuned = {}
+    for what, path in files.items():
+        with open(path) as f:
+            tuned[what] = json.load(f)
+        if list(tuned[what]) != list(DEFAULT_CLASSES):
+            raise AssertionError(f"{path} holds {list(tuned[what])}, not the ten classes")
+    print(f"  evaluate --tune_thresholds on {PARITY_SUBPART} validation clips: {wall:.2f} s on {card}; weak macro F1 "
+          f"{res['weak_macro_f1']:.4f} → tuned {res['tuned_weak_macro_f1']:.4f}, event macro F1 "
+          f"{res['event_macro_f1']:.4f} → tuned {res['tuned_event_macro_f1']:.4f}; windows "
+          f"{sorted(set(tuned['windows'].values()))}; three JSON files of ten classes written")
+    out = os.path.join(work, "tuned_events.tsv")
+    with quiet_log():
+        zero_launches()
+        pred = cli.predict(["-m", best, "-i", validation, "-s", str(PARITY_SUBPART), "--synthetic_audio", "-p", out,
+                            "--thresholds_json", files["event"], "--median_windows_json", files["windows"],
+                            "--device", "cuda"])
+        torch.cuda.synchronize()
+        launches["predict_tuned"] = read_launches()
+    check_launches(launches["predict_tuned"], PREDICT_BATCH, 1, "predict with the tuned JSON files")
+    d = cfg.dsp
+    names = subpart_manifest(load_manifest(validation), PARITY_SUBPART).filenames
+    codec = LabelCodec(DEFAULT_CLASSES, d.max_frames // cfg.model.pooling_time_ratio)
+    want = decode_batch(torch.as_tensor(pred["strong"]), names, codec, d.sample_rate, d.hop_length,
+                        cfg.model.pooling_time_ratio, threshold=np.asarray(list(tuned["event"].values())),
+                        median_window=np.asarray(list(tuned["windows"].values())))
+    if events_of(out) != want:
+        raise AssertionError("predict's events are not the decode of its probabilities under the tuned files")
+    print(f"  predict --thresholds_json --median_windows_json: {len(want)} event rows, the decode under the tuned "
+          f"thresholds and windows")
+    return (launches, ["--thresholds_json", files["event"], "--median_windows_json", files["windows"]],
+            np.asarray(list(tuned["event"].values())), np.asarray(list(tuned["windows"].values())))
+
+
+def long_predict(card: str, best: str, work: str, tuned, thresholds, median_windows):
+    """(c) `predict --long` and `--long --overlap` on wavs of 25, 7 and 10 s,
+    with the tuned thresholds and windows (`tuned`: their flags;
+    `thresholds`, `median_windows`: the values they hold): the JAX
+    package's window count, strong probabilities within 1e-4 of the CPU
+    run's, the same TSV rows. → launches by path."""
+    import torch
+
+    from dcase2019_task4_tpu_torch import cli
+    from dcase2019_task4_tpu_torch.config import DEFAULT_CLASSES, Config
+    from dcase2019_task4_tpu_torch.data.audio_io import synth_clip, write_wav
+
+    cfg = Config()
+    d, frames = cfg.dsp, cfg.dsp.max_frames // cfg.model.pooling_time_ratio
+    wav_dir = os.path.join(work, "long_wavs")
+    os.makedirs(wav_dir)
+    rng = np.random.default_rng(SEED)
+    lengths = {}
+    for name, dur in LONG_SECONDS.items():
+        events = []
+        for _ in range(int(rng.integers(2, 5))):
+            on = float(rng.uniform(0, dur - 0.5))
+            events.append((int(rng.integers(0, len(DEFAULT_CLASSES))), on, on + float(rng.uniform(0.5, dur - on))))
+        audio = np.clip(synth_clip(name, events, dur, d.sample_rate), -1, 1)
+        write_wav(os.path.join(wav_dir, name), audio, d.sample_rate)
+        lengths[name] = len(audio)
+    frame_s = d.hop_length * cfg.model.pooling_time_ratio / d.sample_rate
+    launches = {}
+    for path, flags in (("predict_long", []), ("predict_long_overlap", ["--overlap"])):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            out = os.path.join(work, f"{path}_{dev}.tsv")
+            with quiet_log():
+                zero_launches()
+                t0 = time.perf_counter()
+                res = cli.predict(["-m", best, "-i", wav_dir, "-p", out, "--long", *flags, *tuned, "--device", dev])
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    launches[path] = read_launches()
+                runs[dev] = (res, events_of(out), time.perf_counter() - t0)
+        res, rows, wall = runs["cuda"]
+        windows = long_windows(lengths, bool(flags))
+        want = len(windows)
+        if res["n_windows"] != want or runs["cpu"][0]["n_windows"] != want or res["n_files"] != len(LONG_SECONDS):
+            raise AssertionError(f"{path}: {res['n_windows']} windows, the formula gives {want}")
+        check_launches(launches[path], PREDICT_BATCH, -(-want // 24), path)
+        strong, cpu_strong = res["strong"], runs["cpu"][0]["strong"]
+        if strong.shape != (want, frames, len(DEFAULT_CLASSES)) or not np.isfinite(strong).all():
+            raise AssertionError(f"{path}: strong probabilities of shape {strong.shape}")
+        diff = float(np.abs(strong - cpu_strong).max())
+        print(f"  {path}: {len(LONG_SECONDS)} files ({', '.join(f'{s:g} s' for s in LONG_SECONDS.values())}), "
+              f"{want} windows, {len(rows)} event rows, {wall:.2f} s on {card} (CPU {runs['cpu'][2]:.2f} s); "
+              f"strong against the CPU run {diff:.3g} (limit {STRONG_TOL})")
+        if not diff <= STRONG_TOL:
+            raise AssertionError(f"{path}: card and CPU strong probabilities differ by {diff:.3g}")
+        for label, on, off, fname in rows:
+            if not 0.0 <= on < off <= LONG_SECONDS[fname] + 1e-6:
+                raise AssertionError(f"{path}: bad event row {(label, on, off, fname)}")
+        same_rows(path, rows, runs["cpu"][1], strong, cpu_strong, windows, thresholds, median_windows, bool(flags),
+                  frame_s)
+    return launches
+
+
+@contextlib.contextmanager
+def metadata_set(names):
+    """A filename TSV in a fresh folder of the checkout's dataset_metadata,
+    and its audio folder where the configuration maps it (as a user lays
+    out a set for `precompute`); both removed at the end. → (tsv, audio
+    folder)."""
+    import shutil
+
+    from dcase2019_task4_tpu_torch.config import Config
+
+    paths = Config().paths
+    meta = tempfile.mkdtemp(prefix="chip_smoke_", dir=paths.metadata_dir)
+    tsv = os.path.join(meta, "clips.tsv")
+    audio = paths.audio_dir_for_meta(tsv)
+    made = audio  # the outermost folder this makes
+    while not os.path.exists(os.path.dirname(made)):
+        made = os.path.dirname(made)
+    try:
+        with open(tsv, "w") as f:
+            f.write("filename\n" + "".join(f"{n}\n" for n in names))
+        os.makedirs(audio)
+        yield tsv, audio
+    finally:
+        shutil.rmtree(meta)
+        shutil.rmtree(made, ignore_errors=True)
+
+
+def precompute_cli(card: str, work: str):
+    """(d) `precompute` of 48 synthetic 10 s clips on the card and on the
+    CPU: the same files, each within 1e-5 of max of the CPU run's. →
+    launches by path."""
+    import torch
+
+    from dcase2019_task4_tpu_torch import cli
+    from dcase2019_task4_tpu_torch.config import Config
+    from dcase2019_task4_tpu_torch.data.audio_io import write_wav
+    from dcase2019_task4_tpu_torch.data.features_cache import NpyFeatureSource
+
+    cfg = Config()
+    names, _, clips = make_clips(N_CLIPS, np.random.default_rng(SEED))
+    launches, walls = {}, {}
+    with metadata_set(names) as (tsv, audio_dir):
+        for name, audio in zip(names, clips):
+            write_wav(os.path.join(audio_dir, name), audio, cfg.dsp.sample_rate)
+        for dev in ("cuda", "cpu"):
+            with quiet_log():
+                zero_launches()
+                t0 = time.perf_counter()
+                done = cli.precompute(["--sets", tsv, "--feature_dir", os.path.join(work, dev), "--device", dev])
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    launches["precompute"] = read_launches()
+                walls[dev] = time.perf_counter() - t0
+            if done != {tsv: names}:
+                raise AssertionError(f"precompute on {dev} cached {done}")
+    check_launches(launches["precompute"], PRECOMPUTE_BATCH, N_CLIPS // 24, "precompute")
+    card_files, cpu_files = (NpyFeatureSource(cfg, os.path.join(work, dev)) for dev in ("cuda", "cpu"))
+    worst = 0.0
+    for name in names:
+        a, b = card_files.get_features(name), cpu_files.get_features(name)
+        if a.shape != b.shape or a.shape[1] != cfg.dsp.n_mels or not np.isfinite(a).all():
+            raise AssertionError(f"precompute: {name} has shape {a.shape} on the card, {b.shape} on the CPU")
+        worst = max(worst, float(np.abs(a - b).max() / np.abs(b).max()))
+    print(f"  precompute: {len(names)} clips to .npy in {walls['cuda']:.2f} s on {card} (CPU {walls['cpu']:.2f} s), "
+          f"card against CPU {worst:.3g} of max (limit 1e-5)")
+    if not worst <= 1e-5:
+        raise AssertionError(f"precomputed features differ by {worst:.3g} of max")
+    return launches
+
+
+def phase_rest(card: str, streamed_records):
+    """Phase 7: the resident training epoch, threshold tuning, long-clip
+    predict and feature precompute through the port's CLI on the card. →
+    launches by path."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        launches, best = resident_epoch(card, streamed_records, work)
+        launches = {"train_meanteacher_device_cache": launches}
+        tuned_launches, tuned, thresholds, windows = tuned_thresholds(card, best, work)
+        launches.update(tuned_launches)
+        launches.update(long_predict(card, best, work, tuned, thresholds, windows))
+        launches.update(precompute_cli(card, work))
+    print(f"  phase 7: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -3479,7 +3866,10 @@ def main() -> int:
     print("== phase 5, the knobs path: DCASE_FUSED_MEL_ONEDOT, DCASE_FUSED_BWD_RECOMPUTE and DCASE_DROPOUT_PACK on")
     launches.update(phase_train_knobs(device, card))
     print("== phase 6: training through the CLI (train_meanteacher, train_crnn), then a short epoch on card and CPU")
-    launches.update(phase_train_cli(card))
+    cli_launches, streamed_records = phase_train_cli(card)
+    launches.update(cli_launches)
+    print("== phase 7: the rest of the user paths (--device_cache, --tune_thresholds, predict --long, precompute)")
+    launches.update(phase_rest(card, streamed_records))
 
     report = []
     for name, (src, replaces) in KERNELS.items():

@@ -2,16 +2,20 @@
 
     python -m dcase2019_task4_tpu_torch.cli train_meanteacher [-s N] [--epochs E] [--store_dir DIR]
         [--synthetic_audio] [-n] [--bf16 | --scaled] [--resume CKPT] [--early_stopping P]
-        [--eval_every K] [--ramped_adam] [--device cuda]
+        [--eval_every K] [--ramped_adam] [--device_cache] [--device cuda]
     python -m dcase2019_task4_tpu_torch.cli train_crnn ... [-n]
     python -m dcase2019_task4_tpu_torch.cli evaluate -m CKPT [-s N] [-p OUT.tsv] [--sets TSV ...]
-        [--synthetic_audio] [--device cuda]
-    python -m dcase2019_task4_tpu_torch.cli predict -m CKPT -i WAV_DIR_OR_TSV -p OUT.tsv
+        [--tune_thresholds [--save_thresholds F.json]] [--synthetic_audio] [--device cuda]
+    python -m dcase2019_task4_tpu_torch.cli predict -m CKPT -i WAV_DIR_OR_TSV -p OUT.tsv [-s N]
         [--weak_fname TAGS.tsv] [--threshold T | --thresholds_json F]
-        [--median_windows_json F] [--synthetic_audio] [--device cuda]
+        [--median_windows_json F] [--long [--overlap] [--merge_gap G]] [--synthetic_audio]
+        [--device cuda]
+    python -m dcase2019_task4_tpu_torch.cli precompute [--sets TSV ...] [-s N] [--feature_dir DIR]
+        [--nolog] [--device cuda]
 
 The console scripts `dcase19-torch-train-meanteacher`, `dcase19-torch-train-crnn`,
-`dcase19-torch-evaluate` and `dcase19-torch-predict` are the same commands.
+`dcase19-torch-evaluate`, `dcase19-torch-predict` and
+`dcase19-torch-extract-features` (precompute) are the same commands.
 The flags are the JAX package's (dcase2019_task4_tpu/cli.py), plus
 `--device`. Flags of what the port does not have yet fail with a message
 that names the ROADMAP item that ports it.
@@ -33,12 +37,9 @@ NOT_PORTED = {
     "coordinator_address": "multi-host training, ROADMAP Queue 1 item 6",
     "num_processes": "multi-host training, ROADMAP Queue 1 item 6",
     "process_id": "multi-host training, ROADMAP Queue 1 item 6",
-    "device_cache": "the device-resident epoch (make_device_epoch), ROADMAP Queue 1 item 2",
     "torch_checkpoint": "train/torch_import.py, ROADMAP Queue 1 item 7",
     "export": "eval/export.py, ROADMAP Queue 1 item 7",
     "export_batch": "eval/export.py, ROADMAP Queue 1 item 7",
-    "tune_thresholds": "eval/thresholds.py, ROADMAP Queue 1 item 5",
-    "save_thresholds": "eval/thresholds.py, ROADMAP Queue 1 item 5",
 }
 
 
@@ -81,7 +82,8 @@ def _common_train_args(parser):
     parser.add_argument("--ramped_adam", action="store_true", default=False,
                         help="Ramped Adam hyperparameter schedule (train/schedules.py).")
     parser.add_argument("--device_cache", action="store_true", default=False,
-                        help="Not ported yet (ROADMAP Queue 1 item 2).")
+                        help="Keep the whole training set on the device and gather each batch there "
+                        "(small sets; the same batches and draws as the streamed pipeline).")
     parser.add_argument("--eval_every", type=int, default=1,
                         help="Validate/checkpoint/SaveBest every Nth epoch (and the last).")
     parser.add_argument("--multihost", action="store_true", default=False,
@@ -120,6 +122,7 @@ def _build_experiment(args, mean_teacher: bool, no_synthetic=False, no_weak=Fals
         ramped_adam=args.ramped_adam,
         paired_teacher_view=args.paired_teacher_view,
         device=args.device,
+        device_cache=args.device_cache,
     )
 
 
@@ -202,9 +205,12 @@ def evaluate(argv=None):
     parser.add_argument("--sets", type=str, nargs="*", default=None,
                         help="TSV paths; default: eval2018, validation, public eval")
     parser.add_argument("--tune_thresholds", action="store_true", default=False,
-                        help="Not ported yet (ROADMAP Queue 1 item 5).")
+                        help="Also grid-search per-class weak thresholds and event thresholds and median "
+                        "windows on each set, and report their F1s.")
     parser.add_argument("--save_thresholds", type=str, default=None,
-                        help="Not ported yet (ROADMAP Queue 1 item 5).")
+                        help="With --tune_thresholds: write the last set's tuned weak thresholds as "
+                        "{class: threshold} JSON to this path, and its event thresholds and windows "
+                        "beside it (<root>.event<ext>, <root>.event_windows<ext>).")
     parser.add_argument("--threshold", type=float, default=0.5, help="Strong-decode binarization threshold.")
     parser.add_argument("--thresholds_json", type=str, default=None,
                         help="Per-class decode thresholds JSON (dict or [C] list). Overrides --threshold.")
@@ -229,9 +235,26 @@ def evaluate(argv=None):
     results = {}
     for i, tsv in enumerate(sets):
         save = args.save_predictions_fname if i == len(sets) - 1 else None
-        res = ev.test_model(tsv, args.subpart_data, save, threshold=threshold, median_window=median_window)
-        results[tsv] = {k: res[k] for k in ("event_macro_f1", "weak_macro_f1")}
+        res = ev.test_model(tsv, args.subpart_data, save, tune_thresholds=args.tune_thresholds,
+                            threshold=threshold, median_window=median_window)
+        results[tsv] = {k: v for k, v in res.items() if k not in ("predictions", "strong")}
+        if args.save_thresholds and "tuned_thresholds" in res:
+            _save_thresholds(args.save_thresholds, ev.codec.labels, res)
     return results if argv is not None else None
+
+
+def _save_thresholds(path: str, labels, res):
+    """The tuned weak thresholds at `path`, and the event thresholds and
+    windows beside it, each as {class: value} JSON (the formats
+    --weak_thresholds_json, --thresholds_json and --median_windows_json
+    read)."""
+    import json
+
+    root, ext = os.path.splitext(path)
+    for out, key in ((path, "tuned_thresholds"), (f"{root}.event{ext or '.json'}", "tuned_event_thresholds"),
+                     (f"{root}.event_windows{ext or '.json'}", "tuned_event_windows")):
+        with open(out, "w") as f:
+            json.dump(dict(zip(labels, res[key])), f, indent=1)
 
 
 def predict(argv=None):
@@ -248,6 +271,7 @@ def predict(argv=None):
     parser.add_argument("-i", "--input", type=str, required=True,
                         help="Directory of wavs, or a filename TSV.")
     parser.add_argument("-p", "--save_predictions_fname", type=str, required=True)
+    parser.add_argument("-s", "--subpart_data", type=int, default=None)
     parser.add_argument("--weak_fname", type=str, default=None,
                         help="Also write clip-level tags (filename⇥event_labels).")
     parser.add_argument("--weak_threshold", type=float, default=0.5)
@@ -260,27 +284,73 @@ def predict(argv=None):
     parser.add_argument("--median_windows_json", type=str, default=None,
                         help="Per-class decode median-window JSON ([C] odd ints or {class: w}).")
     parser.add_argument("--synthetic_audio", action="store_true", default=False)
+    parser.add_argument("--long", action="store_true", default=False,
+                        help="Wavs of any length: cut into windows of the model's clip length, decode each "
+                        "window, stitch events across the boundaries.")
+    parser.add_argument("--merge_gap", type=float, default=0.2,
+                        help="With --long: stitch same-class events whose gap is at most this many seconds.")
+    parser.add_argument("--overlap", action="store_true", default=False,
+                        help="With --long: half-window hop, probabilities averaged where windows overlap, "
+                        "one decode per file over its whole timeline (no stitching).")
     _device_arg(parser)
     args = parser.parse_args(argv)
 
     from dcase2019_task4_tpu_torch.eval.evaluate import CheckpointEvaluator
 
+    if args.long and args.weak_fname:
+        parser.error("--weak_fname is per-clip; not defined under --long")
     ev = CheckpointEvaluator(args.model_path, device=args.device, synthetic_audio=args.synthetic_audio)
     threshold = ev.load_thresholds(args.thresholds_json) if args.thresholds_json else args.threshold
     median_window = ev.load_windows(args.median_windows_json) if args.median_windows_json else None
-    weak_threshold = (ev.load_thresholds(args.weak_thresholds_json) if args.weak_thresholds_json
-                      else args.weak_threshold)
-    res = ev.predict_set(
-        args.input, args.save_predictions_fname, weak_fname=args.weak_fname,
-        weak_threshold=weak_threshold, threshold=threshold, median_window=median_window,
-    )
+    if args.long:
+        res = ev.predict_long(args.input, args.save_predictions_fname, subpart=args.subpart_data,
+                              threshold=threshold, merge_gap=args.merge_gap, overlap=args.overlap,
+                              median_window=median_window)
+    else:
+        weak_threshold = (ev.load_thresholds(args.weak_thresholds_json) if args.weak_thresholds_json
+                          else args.weak_threshold)
+        res = ev.predict_set(
+            args.input, args.save_predictions_fname, subpart=args.subpart_data, weak_fname=args.weak_fname,
+            weak_threshold=weak_threshold, threshold=threshold, median_window=median_window,
+        )
     if argv is None:
         return None
     return {k: v for k, v in res.items() if k != "events"}
 
 
+def precompute(argv=None):
+    """Log-mel features of each set's clips to the reference's .npy layout
+    (data/features_cache.py), computed on the device. Returns {set: the
+    filenames cached} when called with an argument list."""
+    parser = argparse.ArgumentParser(prog="dcase19-torch-extract-features",
+                                     description="Precompute log-mel features to .npy")
+    parser.add_argument("--sets", type=str, nargs="*", default=None,
+                        help="TSV paths; default: weak, unlabeled, synthetic, validation")
+    parser.add_argument("-s", "--subpart_data", type=int, default=None)
+    parser.add_argument("--feature_dir", type=str, default=None)
+    parser.add_argument("--nolog", action="store_true", default=False,
+                        help="Store the linear mel (the reference's save_log_feature=False).")
+    _device_arg(parser)
+    args = parser.parse_args(argv)
+    from dcase2019_task4_tpu_torch.data.audio_io import WavAudioSource
+    from dcase2019_task4_tpu_torch.data.features_cache import precompute_features
+    from dcase2019_task4_tpu_torch.data.manifests import load_manifest, subpart_manifest
+
+    cfg = Config()
+    sets = args.sets or [cfg.paths.weak, cfg.paths.unlabel, cfg.paths.synthetic, cfg.paths.validation]
+    log = get_logger()
+    results = {}
+    for tsv in sets:
+        m = subpart_manifest(load_manifest(tsv), args.subpart_data)
+        src = WavAudioSource(cfg.paths.audio_dir_for_meta(tsv), cfg.dsp.sample_rate)
+        results[tsv] = precompute_features(m, src, cfg, args.feature_dir, save_log_feature=not args.nolog,
+                                           device=args.device)
+        log.info(f"{tsv}: cached {len(results[tsv])}/{len(m)} files")
+    return results if argv is not None else None
+
+
 COMMANDS = {"train_meanteacher": train_meanteacher, "train_crnn": train_crnn, "evaluate": evaluate,
-            "predict": predict}
+            "predict": predict, "precompute": precompute}
 
 
 def main(argv=None):

@@ -11,7 +11,10 @@ assembly, prefetch (counterpart of dcase2019_task4_tpu/data/pipeline.py).
     through Python;
   * a background thread assembles batches ahead of the step, and
     `device_prefetch` copies them to the card `depth` batches ahead from
-    pinned host memory, without blocking the host.
+    pinned host memory, without blocking the host;
+  * `DeviceResidentData` (`--device_cache`) instead renders a small
+    training set once and keeps every row on the device, where each
+    epoch's batches are gathered there by index.
 
 A worker that fails re-raises its error in the consumer after the batches
 it made (the JAX package's worker ends the epoch quietly instead).
@@ -25,6 +28,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dcase2019_task4_tpu_torch.data.encoder import LabelCodec
 from dcase2019_task4_tpu_torch.data.manifests import Manifest
@@ -270,6 +274,85 @@ class BatchPipeline:
             t.join()
         if failed:
             raise failed[0]
+
+
+class DeviceResidentData:
+    """The whole (small) training set resident in device memory (the JAX
+    package's DeviceResidentData, data/pipeline.py:279-405, on one device).
+
+    Every stream's clips are rendered once, reflect-padded and quantized to
+    int16 on the host exactly as `BatchPipeline.assemble` does, stacked in
+    stream order with their frame counts and float32 targets (and "audio2"
+    with paired views), the rows padded to a multiple of max(batch, 8) by
+    repeating the last row, then copied to `device` one array at a time.
+    `epoch_indices` maps the sampler's (stream, index) pairs to these rows,
+    so a gathered batch is bit for bit the streamed one.
+
+    `max_bytes` (8 GiB, as in JAX) guards the size: the full DESED training
+    set at 44.1 kHz is about 16 GiB of int16 and is refused with a
+    ValueError, not left to run out of memory. Inside a process group of
+    more than one process the rows would be sharded over the processes'
+    devices, which is data-parallel training, not ported: it raises."""
+
+    def __init__(self, pipeline: BatchPipeline, device="cuda", max_bytes: int = 8 << 30):
+        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+            raise ValueError("a device-resident dataset sharded over several processes is data-parallel "
+                             "training, not ported yet (ROADMAP Queue 1 item 6)")
+        sizes = [len(s) for s in pipeline.streams]
+        n_total = sum(sizes)
+        self.offsets = np.cumsum([0] + sizes[:-1]).astype(np.int32)
+        pad_len = pipeline.max_samples + pipeline.n_fft  # host_reflect_pad's layout
+        t_shape = pipeline.streams[0].targets.shape[1:]
+        est = n_total * (pad_len * 2 * (2 if pipeline.paired_views else 1) + 4 + int(np.prod(t_shape)) * 4)
+        if est > max_bytes:
+            raise ValueError(
+                f"device-resident dataset would need ~{est / 2**30:.1f} GiB "
+                f"(> {max_bytes / 2**30:.1f} GiB cap) for {n_total} clips — "
+                "use the streamed pipeline (or raise max_bytes)"
+            )
+        pad_args = (pipeline.max_samples, pipeline.n_fft, pipeline.hop_length, pipeline.max_frames)
+        audio_rows, audio2_rows, frame_rows, target_rows = [], [], [], []
+        chunk = 64  # bounds the host's float32 staging memory
+        for s in pipeline.streams:
+            for lo in range(0, len(s), chunk):
+                idx = range(lo, min(lo + chunk, len(s)))
+                padded, frames = host_reflect_pad([s.get_audio(i) for i in idx], *pad_args)
+                audio_rows.append(quantize_audio_int16(padded))
+                frame_rows.append(frames)
+                if pipeline.paired_views:
+                    padded2, _ = host_reflect_pad([s.get_audio2(i) for i in idx], *pad_args)
+                    audio2_rows.append(quantize_audio_int16(padded2))
+            target_rows.append(s.targets)
+        arrays = {"audio": np.concatenate(audio_rows), "frames": np.concatenate(frame_rows),
+                  "target": np.concatenate(target_rows).astype(np.float32)}
+        if audio2_rows:
+            arrays["audio2"] = np.concatenate(audio2_rows)
+        # rows to a multiple of the batch (the last repeated): the scaler's
+        # pass reads fixed [B] chunks and masks the tail by n_real; the
+        # sampler never emits a row at or past n_real
+        self.n_real = n_total
+        pad = (-n_total) % max(pipeline.sampler.batch_size, 8)
+        if pad:
+            arrays = {k: np.concatenate([v, np.repeat(v[-1:], pad, 0)]) for k, v in arrays.items()}
+        device = torch.device(device)
+        self.data = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+        self.nbytes = est
+
+    def epoch_indices(self, sampler: MultiStreamSampler, epoch: int) -> np.ndarray:
+        """[steps, B] int32 global rows of one epoch: the sampler's
+        (stream_id, index) pairs through the stream offsets."""
+        pairs = sampler.epoch_batches(epoch)
+        return (self.offsets[pairs[..., 0]] + pairs[..., 1]).astype(np.int32)
+
+    def iter_epoch(self, sampler: MultiStreamSampler, epoch: int) -> Iterator[Dict[str, torch.Tensor]]:
+        """One epoch's batches gathered on the device: the `epoch_indices`
+        rows uploaded once, every resident array `index_select`ed by each
+        step's row (the JAX package's make_device_epoch gathers inside its
+        scan). The batches equal `BatchPipeline.iter_epoch`'s bit for bit."""
+        rows = torch.as_tensor(self.epoch_indices(sampler, epoch), dtype=torch.int64,
+                               device=self.data["audio"].device)
+        for r in rows:
+            yield {k: v.index_select(0, r) for k, v in self.data.items()}
 
 
 def iter_eval_batches(

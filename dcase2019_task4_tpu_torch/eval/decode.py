@@ -6,7 +6,8 @@ threshold, median-filter over time with a scalar or per-class odd window
 (scipy's reflect edges), run-length decode with LabelCodec, and scale
 pooled frames to seconds by `frames · pooling_time_ratio / (sample_rate /
 hop_length)`. The TSV has the reference's columns
-`event_label onset offset filename`, tab-separated.
+`event_label onset offset filename`, tab-separated. `merge_window_events`
+stitches the per-window events of a long file (predict --long).
 """
 
 from __future__ import annotations
@@ -70,3 +71,28 @@ def write_events_tsv(rows: List[Event], path: Optional[str]) -> List[Event]:
             w.writerow(COLUMNS)
             w.writerows(rows)
     return rows
+
+
+def merge_window_events(rows: List[Event], merge_gap: float = 0.2) -> List[Event]:
+    """Stitch per-window events into file-level events (long-audio decode;
+    JAX eval/decode.py:118-144). Rows hold onsets and offsets in file
+    seconds. Within each (filename, class), in order of first appearance,
+    events sorted by onset merge while the next onset lies within
+    `merge_gap` seconds of the running offset: a window is decoded on its
+    own, so an event across a window boundary arrives as two fragments.
+    The result is sorted by (filename, onset, event_label)."""
+    groups = {}
+    for label, on, off, fname in rows:
+        groups.setdefault((fname, label), []).append((on, off))
+    out = []
+    for (fname, label), spans in groups.items():
+        spans.sort(key=lambda s: s[0])
+        cur_on, cur_off = spans[0]
+        for on, off in spans[1:]:
+            if on <= cur_off + merge_gap:
+                cur_off = max(cur_off, off)
+            else:
+                out.append((label, cur_on, cur_off, fname))
+                cur_on, cur_off = on, off
+        out.append((label, cur_on, cur_off, fname))
+    return sorted(out, key=lambda r: (r[3], r[1], r[0]))

@@ -3,9 +3,10 @@ the reference's TestModel.py:25-62): rebuild config, scaler, codec,
 frontend and model from a checkpoint on an explicit device, run batched
 inference over a wav directory or filename TSV, write the events TSV (and
 optionally the weak clip-tag TSV), and with `test_model` score a labelled
-set: event- and segment-based F1 and weak tagging F1. No jax and no pandas.
-Threshold tuning (`tune_thresholds`) and long-audio windows are not ported
-yet.
+set: event- and segment-based F1 and weak tagging F1, and with
+`tune_thresholds` the tuned per-class thresholds and median windows
+(eval/thresholds.py). `predict_long` serves wavs of any length in windows
+of the model's clip length. No jax and no pandas.
 """
 
 from __future__ import annotations
@@ -22,12 +23,17 @@ from dcase2019_task4_tpu_torch.config import Config, DSPConfig, ModelConfig, Pat
 from dcase2019_task4_tpu_torch.data.audio_io import SyntheticAudioSource, WavAudioSource
 from dcase2019_task4_tpu_torch.data.encoder import LabelCodec
 from dcase2019_task4_tpu_torch.data.manifests import load_manifest, subpart_manifest
-from dcase2019_task4_tpu_torch.data.pipeline import Stream, dir_manifest, iter_eval_batches
-from dcase2019_task4_tpu_torch.eval.decode import decode_batch, write_events_tsv
+from dcase2019_task4_tpu_torch.data.pipeline import Stream, dir_manifest, iter_eval_batches, quantize_audio_int16
+from dcase2019_task4_tpu_torch.eval.decode import (
+    decode_batch,
+    grids_to_events,
+    merge_window_events,
+    write_events_tsv,
+)
 from dcase2019_task4_tpu_torch.eval.sed_scores import compute_strong_metrics
 from dcase2019_task4_tpu_torch.eval.tagging import TaggingF1
 from dcase2019_task4_tpu_torch.models.crnn import CRNN
-from dcase2019_task4_tpu_torch.ops.mel import MelFrontend
+from dcase2019_task4_tpu_torch.ops.mel import MelFrontend, host_reflect_pad
 from dcase2019_task4_tpu_torch.train import checkpoints as ckpt
 from dcase2019_task4_tpu_torch.train.steps import make_eval_features, make_predict_step
 from dcase2019_task4_tpu_torch.utils.logger import get_logger
@@ -133,16 +139,17 @@ class CheckpointEvaluator:
         return w
 
     def _stream(self, source_path: str, subpart: Optional[int] = None) -> Stream:
-        """A wav directory or a filename TSV (its first `subpart` files by
-        the subpart draw) → a Stream with the codec's targets."""
+        """A wav directory or a filename TSV (`subpart` files of it by the
+        subpart draw) → a Stream with the codec's targets."""
         d = self.cfg.dsp
         if os.path.isdir(source_path):
             names = sorted(f for f in os.listdir(source_path) if f.lower().endswith(".wav"))
             manifest = dir_manifest(names)
             audio_dir = source_path
         else:
-            manifest = subpart_manifest(load_manifest(source_path), subpart)
+            manifest = load_manifest(source_path)
             audio_dir = self.cfg.paths.audio_dir_for_meta(source_path)
+        manifest = subpart_manifest(manifest, subpart)
         if self.synthetic_audio:
             src = SyntheticAudioSource(manifest, self.codec.labels, d.sample_rate, d.max_len_seconds)
         else:
@@ -150,7 +157,7 @@ class CheckpointEvaluator:
         return Stream("eval", manifest, src, self.codec, d.sample_rate, d.hop_length,
                       self.meta["pooling_time_ratio"])
 
-    def predict_set(self, source_path: str, save_predictions_fname: str,
+    def predict_set(self, source_path: str, save_predictions_fname: str, subpart: Optional[int] = None,
                     weak_fname: Optional[str] = None, weak_threshold=0.5,
                     threshold=0.5, median_window=None) -> Dict:
         """Groundtruth-free batched inference over a wav directory or a
@@ -160,7 +167,7 @@ class CheckpointEvaluator:
         clip probability clears `weak_threshold` (scalar or [C]). Returns
         the events, the clip count and the strong/weak probabilities."""
         d = self.cfg.dsp
-        stream = self._stream(source_path)
+        stream = self._stream(source_path, subpart)
         ptr = self.meta["pooling_time_ratio"]
         window = self.cfg.train.median_window if median_window is None else median_window
         events, weak_rows, strong_all, weak_all = [], [], [], []
@@ -194,6 +201,93 @@ class CheckpointEvaluator:
             "weak": np.concatenate(weak_all) if weak_all else np.zeros((0, n_cls), np.float32),
         }
 
+    def predict_long(self, source_path: str, save_predictions_fname: str, subpart: Optional[int] = None,
+                     threshold=0.5, merge_gap: float = 0.2, overlap: bool = False,
+                     median_window=None) -> Dict:
+        """Inference over wavs of any length (JAX eval/evaluate.py:246-405).
+
+        Each file is cut into windows of the model's `max_len_seconds`
+        (the model's static shape), the windows of all files are batched,
+        each window is decoded on its own, its events shifted by the
+        window's start and stitched across boundaries within `merge_gap`
+        seconds (`merge_window_events`). With `overlap` the windows advance
+        by half a window on the pooled-frame grid, the probabilities are
+        averaged where windows overlap, and each file is decoded once over
+        its whole timeline (scipy's median, scalar or per-class window; no
+        stitching). Events are cut at the file's length. Writes the events
+        TSV; returns the events, the file and window counts and the
+        windows' strong probabilities [n_windows, T', C] in window order."""
+        from scipy.ndimage import median_filter
+
+        d = self.cfg.dsp
+        stream = self._stream(source_path, subpart)
+        window = d.max_samples
+        ptr = self.meta["pooling_time_ratio"]
+        frame_samples = d.hop_length * ptr  # samples a pooled output frame
+        win_frames = d.max_frames // ptr  # pooled frames a window
+        # half a window, snapped to the pooled-frame grid, so window outputs
+        # land on whole frames of the file's timeline
+        hop_samples = max(1, win_frames // 2) * frame_samples if overlap else window
+        mw = self.cfg.train.median_window if median_window is None else median_window
+        jobs, durations = [], {}  # (filename, start s, start pooled frame, audio)
+        for fname in stream.filenames:
+            audio = np.asarray(stream.source.get_audio(fname), dtype=np.float32)
+            durations[fname] = len(audio) / d.sample_rate
+            for w in range(1 + max(0, -(-(len(audio) - window) // hop_samples))):
+                s0 = w * hop_samples
+                jobs.append((fname, s0 / d.sample_rate, s0 // frame_samples, audio[s0:s0 + window]))
+        B = self.cfg.train.batch_size
+        events, strong_all, probs_by_file = [], [], {}
+        for start in range(0, len(jobs), B):
+            chunk = jobs[start:start + B]
+            n_valid = len(chunk)
+            chunk += [chunk[-1]] * (B - n_valid)  # the tail batch padded, sliced off below
+            padded, frames = host_reflect_pad([c[3] for c in chunk], window, d.n_window, d.hop_length,
+                                              d.max_frames)
+            strong, _ = self._predict(self.features(quantize_audio_int16(padded), frames))
+            strong = strong[:n_valid].cpu()
+            strong_all.append(strong.numpy())
+            if overlap:
+                for (fname, _, sf, _), p in zip(chunk, strong_all[-1]):
+                    probs_by_file.setdefault(fname, []).append((int(sf), p))
+                continue
+            # each window's row key is its place in the chunk
+            for label, on, off, k in decode_batch(strong, list(range(n_valid)), self.codec, d.sample_rate,
+                                                  d.hop_length, ptr, threshold=threshold, median_window=mw):
+                fname, t0 = chunk[k][0], chunk[k][1]
+                events.append((label, on + t0, off + t0, fname))
+        if overlap:
+            th = np.asarray(threshold)
+            for fname in stream.filenames:
+                entries = probs_by_file.get(fname, [])
+                if not entries:
+                    continue
+                n_frames = max(sf for sf, _ in entries) + win_frames
+                buf = np.zeros((n_frames, len(self.codec.labels)), dtype=np.float64)
+                cnt = np.zeros((n_frames, 1), dtype=np.float64)
+                for sf, p in entries:
+                    buf[sf:sf + win_frames] += p
+                    cnt[sf:sf + win_frames] += 1.0
+                binary = (buf / np.maximum(cnt, 1.0) > th).astype(np.float32)
+                if np.ndim(mw) == 0:
+                    med = median_filter(binary, size=(int(mw), 1))
+                else:  # per-class windows: each column on its own
+                    med = np.stack([median_filter(binary[:, c], size=int(w))
+                                    for c, w in enumerate(np.asarray(mw).reshape(-1))], axis=1)
+                events += grids_to_events(med[None], [fname], self.codec, d.sample_rate, d.hop_length, ptr)
+        else:
+            events = merge_window_events(events, merge_gap)
+        events = [(label, on, min(off, durations[f]), f) for label, on, off, f in events if on < durations[f]]
+        self.log.info(f"Saving predictions at: {save_predictions_fname}")
+        write_events_tsv(events, save_predictions_fname)
+        n_cls = len(self.codec.labels)
+        return {
+            "events": events,
+            "n_files": len(stream),
+            "n_windows": len(jobs),
+            "strong": np.concatenate(strong_all) if strong_all else np.zeros((0, win_frames, n_cls), np.float32),
+        }
+
     def test_model(self, tsv_path: str, subpart: Optional[int] = None,
                    save_predictions_fname: Optional[str] = None, tune_thresholds: bool = False,
                    threshold=0.5, median_window=None) -> Dict:
@@ -201,16 +295,17 @@ class CheckpointEvaluator:
         TestModel.py:25-62): strong decode, event- and segment-based
         metrics, weak tagging F1. `median_window` is a scalar or a
         per-class [C] vector (None: the config's). Returns the two macro F1s,
-        the prediction rows and the strong probabilities."""
-        if tune_thresholds:
-            raise NotImplementedError("threshold tuning (eval/thresholds.py) is not ported yet: "
-                                      "ROADMAP Queue 1 item 5")
+        the prediction rows and the strong probabilities. `tune_thresholds`
+        also grid-searches per-class weak tagging thresholds and per-class
+        strong-decode thresholds and median windows (3, 5, 7) on this set
+        (eval/thresholds.py) and returns them with their macro F1s."""
         if median_window is None:
             median_window = self.cfg.train.median_window
         self.log.info(tsv_path)
         stream = self._stream(tsv_path, subpart)
         d = self.cfg.dsp
         predictions, strong_all, acc = [], [], TaggingF1(len(self.codec.labels))
+        weak_probs, weak_targets, strong_fnames = [], [], []
         for batch in iter_eval_batches(stream, self.cfg.train.batch_size, d.max_samples, d.n_window,
                                        d.hop_length, d.max_frames):
             strong, weak = self._predict(self.features(batch["audio"], batch["frames"]))
@@ -221,6 +316,10 @@ class CheckpointEvaluator:
                                         median_window=median_window)
             acc.update(weak[:nv].cpu().numpy(), batch["target"][:nv])
             strong_all.append(strong.numpy())
+            if tune_thresholds:
+                weak_probs.append(weak[:nv].cpu().numpy())
+                weak_targets.append(batch["target"][:nv])
+                strong_fnames += batch["filenames"]
         if save_predictions_fname:
             self.log.info(f"Saving predictions at: {save_predictions_fname}")
             write_events_tsv(predictions, save_predictions_fname)
@@ -228,10 +327,37 @@ class CheckpointEvaluator:
         weak_f1 = acc.per_class_f1()
         self.log.info(f"Weak F1-score per class: {dict(zip(self.codec.labels, np.round(weak_f1 * 100, 2)))}")
         self.log.info(f"Weak F1-score macro averaged: {np.mean(weak_f1):.4f}")
-        return {
+        out = {
             "event_macro_f1": event_metric.results_class_wise_average_metrics()["f_measure"]["f_measure"],
             "weak_macro_f1": float(np.mean(weak_f1)),
             "predictions": predictions,
             "strong": np.concatenate(strong_all) if strong_all else np.zeros((0, 0, len(self.codec.labels)),
                                                                              np.float32),
+        }
+        if tune_thresholds and weak_probs:
+            out.update(self._tune(np.concatenate(weak_probs), np.concatenate(weak_targets), out["strong"],
+                                  strong_fnames, stream.manifest))
+        return out
+
+    def _tune(self, weak_probs, weak_targets, strong, fnames, groundtruth) -> Dict:
+        """The tuned weak thresholds and event thresholds and windows of one
+        set, with their macro F1s (JAX eval/evaluate.py:472-497)."""
+        from dcase2019_task4_tpu_torch.eval.thresholds import tune_event_thresholds, tune_weak_thresholds
+
+        d, labels = self.cfg.dsp, self.codec.labels
+        th, tuned_f1 = tune_weak_thresholds(weak_probs, weak_targets)
+        self.log.info(f"Tuned per-class thresholds: {dict(zip(labels, np.round(th, 2)))}")
+        self.log.info(f"Tuned weak F1 macro averaged: {np.mean(tuned_f1):.4f}")
+        ev = tune_event_thresholds(strong, fnames, groundtruth, self.codec, d.sample_rate, d.hop_length,
+                                   self.meta["pooling_time_ratio"], median_windows=(3, 5, 7))
+        self.log.info(f"Tuned per-class EVENT thresholds: {dict(zip(labels, np.round(ev['thresholds'], 2)))} "
+                      f"windows {dict(zip(labels, ev['windows'].tolist()))}")
+        self.log.info(f"Tuned event F1 macro averaged: {ev['macro_f1']:.4f} "
+                      f"(decode-default 0.5/5: {ev['default_macro_f1']:.4f})")
+        return {
+            "tuned_thresholds": th.tolist(),
+            "tuned_weak_macro_f1": float(np.mean(tuned_f1)),
+            "tuned_event_thresholds": np.asarray(ev["thresholds"]).tolist(),
+            "tuned_event_windows": np.asarray(ev["windows"]).tolist(),
+            "tuned_event_macro_f1": ev["macro_f1"],
         }

@@ -7,8 +7,11 @@ dcase2019_task4_tpu/train/experiment.py, on one device):
 
 Stream composition, splits, seeds, loss masks, ramp lengths, optimizer and
 EMA hyperparameters all follow the JAX package (and with it the reference
-recipe). What the JAX package adds for many devices (mesh, multi-host,
-the device-resident epoch) is not ported here.
+recipe). What the JAX package adds for many devices (mesh, multi-host) is
+not ported here. `device_cache` keeps the whole training set on the
+device (data.pipeline.DeviceResidentData) and gathers each epoch's
+batches there: the same batches and draws as the streamed loop, and no
+batch queue.
 
 Every tensor lives on `device` (the card unless the caller passes
 "cpu"). The initial weights come from a CPU generator seeded with `seed`,
@@ -38,7 +41,13 @@ from dcase2019_task4_tpu_torch.data.manifests import (
     split_weak,
     subpart_manifest,
 )
-from dcase2019_task4_tpu_torch.data.pipeline import BatchPipeline, Stream, device_prefetch, iter_eval_batches
+from dcase2019_task4_tpu_torch.data.pipeline import (
+    BatchPipeline,
+    DeviceResidentData,
+    Stream,
+    device_prefetch,
+    iter_eval_batches,
+)
 from dcase2019_task4_tpu_torch.eval.decode import decode_batch, write_events_tsv
 from dcase2019_task4_tpu_torch.eval.evaluate import resolve_device
 from dcase2019_task4_tpu_torch.eval.sed_scores import compute_strong_metrics
@@ -72,10 +81,15 @@ class Experiment:
         ramped_adam: bool = False,
         paired_teacher_view: bool = False,
         device="cuda",
+        device_cache: bool = False,
     ):
         self.cfg = cfg
         self.device = resolve_device(str(device))
         self.ramped_adam = ramped_adam
+        # the whole training set resident on the device, each epoch gathered
+        # there by index: the same batches and draws as the streamed path
+        self.device_cache = device_cache
+        self._device_data: Optional[DeviceResidentData] = None
         self.mean_teacher = mean_teacher
         self.no_synthetic = no_synthetic
         self.no_weak = no_weak
@@ -191,6 +205,11 @@ class Experiment:
         self.strong_slice = slices[names.index("synthetic")] if "synthetic" in names else None
         self.valid_synth_stream = self._make_stream("valid_synth", valid_synth_m, p.synthetic)
         self.valid_weak_stream = self._make_stream("valid_weak", valid_weak_m, p.weak)
+        if self.device_cache:
+            t0 = time.time()
+            self._device_data = DeviceResidentData(self.pipeline, self.device)
+            self.log.info(f"device-resident dataset: {self._device_data.nbytes / 2**20:.0f} MiB pinned in "
+                          f"{time.time() - t0:.1f}s (one gathered batch a step, no batch queue)")
         self._fit_scaler()
         self._build_steps()
         self._built = True
@@ -219,7 +238,8 @@ class Experiment:
         """Dataset-moment pass on the device over all training streams
         (reference Scaler.calculate_scaler over the ConcatDataset,
         main.py:249-250: equal weight per clip, features without noise).
-        Only two [n_mels] vectors come back per batch, summed in float64.
+        Only two [n_mels] vectors come back per batch, summed in float64;
+        under `device_cache` the batches are slices of the resident rows.
         DCASE_SCALER_CACHE=<dir> memoizes the fit (`_scaler_cache_key`)."""
         cache_dir = os.environ.get("DCASE_SCALER_CACHE")
         cache_path = None
@@ -236,15 +256,19 @@ class Experiment:
         d = self.cfg.dsp
         total = total_sq = None
         count = 0
-        for stream in self.pipeline.streams:
-            for batch in iter_eval_batches(stream, B, d.max_samples, d.n_window, d.hop_length, d.max_frames):
-                nv = batch["n_valid"]
-                s, sq = stats(torch.as_tensor(batch["audio"], device=self.device),
-                              torch.as_tensor(batch["frames"], device=self.device), nv)
-                s, sq = s.cpu().numpy().astype(np.float64), sq.cpu().numpy().astype(np.float64)
-                total = s if total is None else total + s
-                total_sq = sq if total_sq is None else total_sq + sq
-                count += nv
+        if self._device_data is not None:  # the resident rows in [B] slices, the tail masked by n_valid
+            dd = self._device_data
+            batches = ((dd.data["audio"][lo:lo + B], dd.data["frames"][lo:lo + B], min(dd.n_real - lo, B))
+                       for lo in range(0, dd.n_real, B))
+        else:
+            batches = ((b["audio"], b["frames"], b["n_valid"]) for stream in self.pipeline.streams
+                       for b in iter_eval_batches(stream, B, d.max_samples, d.n_window, d.hop_length, d.max_frames))
+        for audio, frames, nv in batches:
+            s, sq = stats(torch.as_tensor(audio, device=self.device), torch.as_tensor(frames, device=self.device), nv)
+            s, sq = s.cpu().numpy().astype(np.float64), sq.cpu().numpy().astype(np.float64)
+            total = s if total is None else total + s
+            total_sq = sq if total_sq is None else total_sq + sq
+            count += nv
         self.scaler.mean_ = total / count
         self.scaler.mean_of_square_ = total_sq / count
         self.scaler._finalize()
@@ -313,21 +337,28 @@ class Experiment:
         """One epoch (reference train(), main.py:52-165): the multi-stream
         batches through the step, the metric sums fetched once, the loss
         asserted sane on the host at the first, every 20th and the last
-        step (main.py:147-148). `epoch_stats` gains the epoch's wall time,
-        steps and the seconds the loop waited on the batch queue."""
+        step (main.py:147-148). Under `device_cache` the batches are
+        gathered from the resident rows instead. `epoch_stats` gains the
+        epoch's wall time, steps and the seconds the loop waited on the
+        batch queue (0.0 with resident rows)."""
         meters = AverageMeterSet()
         generator = torch.Generator(device=self.device).manual_seed(hash((self.seed, epoch)) % (2**31))
         start = time.time()
         n, wait = 0, 0.0
         acc = self.train_step.zero_metrics(self.device)
-        prefetch = self.cfg.train.num_prefetch
-        host_iter = self.pipeline.iter_epoch(epoch, prefetch=prefetch, pin=self.device.type == "cuda")
-        feed = device_prefetch(host_iter, prefetch, self.device)
+        if self._device_data is not None:  # gathered on the device: no batch queue to wait on
+            host_iter = None
+            feed = self._device_data.iter_epoch(self.pipeline.sampler, epoch)
+        else:
+            prefetch = self.cfg.train.num_prefetch
+            host_iter = self.pipeline.iter_epoch(epoch, prefetch=prefetch, pin=self.device.type == "cuda")
+            feed = device_prefetch(host_iter, prefetch, self.device)
         try:
             while True:
                 t0 = time.time()
                 batch = next(feed, None)
-                wait += time.time() - t0
+                if host_iter is not None:
+                    wait += time.time() - t0
                 if batch is None:
                     break
                 if self._set_step is not None:
@@ -339,7 +370,8 @@ class Experiment:
                     assert not (np.isnan(loss) or loss > 1e5), f"Loss explosion: {loss}"
                     assert loss >= 0, "Loss problem, cannot be negative"
         finally:
-            host_iter.close()  # an epoch left early stops the batch worker
+            if host_iter is not None:
+                host_iter.close()  # an epoch left early stops the batch worker
         # exact per-batch epoch means from the on-device metric sums — one
         # fetch per epoch (main.py:106-150)
         if n:

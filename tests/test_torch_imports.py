@@ -37,7 +37,7 @@ def test_every_module_is_listed():
                  "data.encoder", "data.audio_io", "native", "train.ramps", "train.losses",
                  "train.schedules", "train.steps", "ops.entry_conv", "ops.fused_entry_block", "ops.crows_block",
                  "data.manifests", "data.sampler", "data.features_cache", "eval.sed_scores", "eval.tagging",
-                 "utils.meters", "utils.metrics_writer", "train.experiment"):
+                 "utils.meters", "utils.metrics_writer", "train.experiment", "eval.thresholds"):
         assert f"dcase2019_task4_tpu_torch.{name}" in MODULES
 
 
@@ -131,6 +131,13 @@ def test_predict_help_runs():
     proc = _run("", "-m", "dcase2019_task4_tpu_torch.cli", "predict", "--help")
     assert proc.returncode == 0, proc.stderr
     assert "--device" in proc.stdout and "--weak_fname" in proc.stdout
+    assert all(flag in proc.stdout for flag in ("--long", "--overlap", "--merge_gap", "--subpart_data"))
+
+
+def test_precompute_help_runs():
+    proc = _run("", "-m", "dcase2019_task4_tpu_torch.cli", "precompute", "--help")
+    assert proc.returncode == 0, proc.stderr
+    assert all(flag in proc.stdout for flag in ("--device", "--feature_dir", "--nolog", "--sets"))
 
 
 def test_unknown_command_exits_nonzero():

@@ -163,10 +163,8 @@ def test_the_model_flags_train_through_the_cli(tmp_path, monkeypatch, flags):
     (["train_meanteacher", "--coordinator_address", "localhost:1234"], "item 6"),
     (["train_crnn", "--num_processes", "2"], "item 6"),
     (["train_crnn", "--process_id", "0"], "item 6"),
-    (["train_crnn", "--device_cache"], "item 2"),
     (["evaluate", "-m", "x", "--torch_checkpoint"], "item 7"),
     (["evaluate", "-m", "x", "--export", "out"], "item 7"),
-    (["evaluate", "-m", "x", "--tune_thresholds"], "item 5"),
     (["evaluate", "-m", "x", "--data_parallel"], "item 6"),
 ])
 def test_flags_not_ported_fail_naming_the_roadmap_item(capsys, argv, item):
