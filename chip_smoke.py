@@ -175,6 +175,31 @@ printing a result:
      where the configuration maps it, both removed after): the .npy files
      within 1e-5 of max of the CPU run's. Each path's launches are exact per
      batch (per step for training) and nothing else launches.
+  8. data parallel — (a) phase 6's `train_meanteacher --synthetic_audio -s 96
+     --epochs 2` with `--data_parallel` in a child process whose environment
+     is torchrun's for one rank (RANK=0, WORLD_SIZE=1, LOCAL_RANK=0, a free
+     MASTER_PORT on the loopback): the group's backend is NCCL, each epoch's
+     loss means within 1e-4 of phase 6's, the training kernels exactly their
+     count a step, every step's collectives 6 BatchNorm-statistics, 3 S1 / S2
+     and 1 gradient all-reduce, steps a second beside phase 6's; (b) two ranks
+     on the one card over Gloo (NCCL refuses two ranks on one device; the
+     backend is named in `multihost.initialize`), children of this script
+     (`--child ranks`), each on its shard-major [6|12|6] cut of 48 seeded
+     clips, against one process on the card over the 48, one Mean-Teacher step
+     from one seeded state at dropout and noise 0, under the default path,
+     `entry_block_pallas`, `entry_block_crows` and `entry_conv_pallas` in
+     float32 and the default in bf16: metrics within 1e-4, every gradient
+     leaf within 1e-4 of its max with phase 5's gauge floor (bf16: phase 5's
+     bf16 bars, 2e-2 of its max), both models' BatchNorm buffers within 1e-5,
+     the ranks' parameters bit-equal after the step, each rank's launches
+     exact (the forward kernels counted in their eval form at dropout 0) and
+     its collectives as in (a); (c) `evaluate --data_parallel --threshold
+     0.05 --tune_thresholds` on those ranks on (a)'s best checkpoint (24
+     validation clips) against one process: results and TSV rows equal.
+     Two ranks that share a card show correctness, not scaling.
+     `python3 chip_smoke.py --cards N` runs (b) and (c) alone with one NCCL
+     rank a card on N cards, against one process on the first, on phase 4's
+     seeded flagship checkpoint.
 
 Phase 3 also holds the knobs' kernels at the flagship shapes (`knob_kernels`:
 K1 onedot against its plain version and a float64 DFT, 1e-5 of max, twice
@@ -188,9 +213,10 @@ inputs rotated through more than twice the 50 MB L2 (`cold_fixup_device_ms`).
 Phase 4 also predicts from the default checkpoint with K1's onedot knob on
 (launches exact, within 1e-4 of its own CPU run and of the FFT K1's).
 
-The line before the last is {"kernels": [...]}: every number in it is one
-this run measured (launches on both paths as counted, the largest error
-beside the limit it was held to, the bound per shape with what binds it);
+The line before the last is {"kernels": [...], "helpers": [...],
+"parallel": {...}}: every number in it is one this run measured (launches on
+both paths as counted, the largest error beside the limit it was held to, the
+bound per shape with what binds it; phase 8's collectives a step);
 the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports only the port: neither jax, nor pandas, nor the JAX package.
@@ -2825,9 +2851,10 @@ def step_data(cfg, device):
     return (audio, frames, target), (mean, std)
 
 
-def built_step(cfg, dev, packed, scaler, n_weak: int, n_unlabel: int):
+def built_step(cfg, dev, packed, scaler, n_weak: int, n_unlabel: int, mesh=None):
     """`make_train_step` for `cfg` on `dev` (SpecAugment where `cfg` has it),
-    its frontend built now (so K1's knob as it is now), and the batch."""
+    its frontend built now (so K1's knob as it is now), and the batch; with
+    `mesh` the data-parallel step of one rank."""
     import torch
 
     from dcase2019_task4_tpu_torch.train import steps
@@ -2839,7 +2866,7 @@ def built_step(cfg, dev, packed, scaler, n_weak: int, n_unlabel: int):
     step = steps.make_train_step(
         slice(0, n_weak), slice(n_weak + n_unlabel, n), mean_teacher=True, rampup_length=10,
         max_consistency_cost=tr.max_consistency_cost, ema_alpha=tr.ema_alpha, frontend=flagship_frontend(dev, cfg),
-        scaler_mean=scaler[0], scaler_std=scaler[1], noise_std=tr.noise_std, spec_augment_cfg=sa)
+        scaler_mean=scaler[0], scaler_std=scaler[1], noise_std=tr.noise_std, spec_augment_cfg=sa, mesh=mesh)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in zip(("audio", "frames", "target"), packed)}
     return step, batch
 
@@ -3805,24 +3832,424 @@ def phase_rest(card: str, streamed_records):
     return launches
 
 
-def main() -> int:
+# phase 8: data parallel. (a) the training CLI under --data_parallel in a
+# group of one NCCL rank; (b) two ranks on the one card over Gloo (NCCL
+# refuses two ranks on one device) against one process over their global
+# batch; (c) evaluate --data_parallel on those two ranks against one
+# process. Two ranks that share a card show correctness, not scaling.
+DP_WORLD = 2
+DP_RANK_SIZES = (6, 12, 6)  # a rank's [weak | unlabeled | synthetic]; the global batch is 48
+DP_PATHS = {"step": ({}, False), "step_entry_block": ({"entry_block_pallas": True}, False),
+            "step_crows": ({"entry_block_crows": True}, False), "step_entry_conv": ({"entry_conv_pallas": True}, False),
+            "step_bf16": ({}, True)}
+# a Mean-Teacher step's collectives under every first-block path: Σy, Σy²
+# of both models' three blocks, S1 / S2 of the student's three backward
+# passes, one flat gradient buffer
+DP_COLLECTIVES = {"bn_stats": 6, "bn_backward": 3, "gradients": 1}
+BN_TOL = 1e-5
+DP_EVAL_SUBPART, DP_EVAL_THRESHOLD = 24, 0.05
+CHILD = [sys.executable, os.path.abspath(__file__)]  # the command of a phase-8 process
+
+
+def dp_config(flags: dict, bf16: bool):
+    """The flagship `Config()` with dropout and noise 0, the first-block
+    `flags`, float32 or bfloat16 compute."""
+    from dcase2019_task4_tpu_torch.config import Config
+
+    base = Config()
+    model = dataclasses.replace(base.model, dropout=0.0, compute_dtype="bfloat16" if bf16 else "float32", **flags)
+    return dataclasses.replace(base, model=model, train=dataclasses.replace(base.train, noise_std=0.0))
+
+
+def at_rate_zero(per_step: dict) -> dict:
+    """A path's launches a step with the dropout off: each forward kernel
+    counts under its eval form (the wrappers count by the rate), the crows
+    forward on the fused entry block's own counter."""
+    out = {}
+    for name, count in per_step.items():
+        if name.startswith("crows_fwd"):
+            continue
+        if name.startswith(("fused_bn_glu_pool_train", "entry_block_fwd_train")):
+            name = name.replace("_train", "_eval")
+        out[name] = out.get(name, 0) + count
+    return out
+
+
+def dp_step(cfg, dev, packed, scaler, sizes, path: str, mesh=None) -> dict:
+    """One Mean-Teacher step from the seeded state on the batch `packed`
+    laid out `sizes` ([weak | unlabeled | synthetic]); with `mesh` one
+    rank's. → its metrics (the ranks' mean), the student's gradients, both
+    models' BatchNorm buffers, the parameters after it, its launches
+    (checked exact) and its collectives, on the host."""
+    import torch
+
+    from dcase2019_task4_tpu_torch.parallel import mesh as pmesh
+
+    state = seeded_state(cfg, dev)
+    if mesh is not None:
+        pmesh.replicate_state(state, mesh)
+    step, batch = built_step(cfg, dev, packed, scaler, sizes[0], sizes[1], mesh=mesh)
+    zero_launches()
+    pmesh.collectives.clear()
+    state, metrics, _ = step(state, batch, torch.Generator(device=dev).manual_seed(SEED), step.zero_metrics(dev))
+    torch.cuda.synchronize()
+    launches, collectives = read_launches(), dict(pmesh.collectives)
+    check_launches(launches, at_rate_zero(PATHS[path]), 1, f"{path} data-parallel step")
+    metrics = step.mean_over_ranks(metrics)
+
+    def host(named):
+        return {k: v.detach().float().cpu().clone() for k, v in named}
+
+    buffers = {f"{who}.{k}": v for who, model in (("student", state.student), ("teacher", state.teacher))
+               for k, v in host((k, v) for k, v in model.state_dict().items() if "running_" in k).items()}
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": host((n, p.grad) for n, p in state.student.named_parameters()),
+            "params": host(state.student.named_parameters()), "bn": buffers, "collectives": collectives,
+            "launches": launches}
+
+
+def dp_rank_rows(world: int = DP_WORLD) -> np.ndarray:
+    """Rows of the stream-major global batch in the ranks' shard-major order."""
+    from dcase2019_task4_tpu_torch.parallel.mesh import interleave_for_sharding
+
+    return interleave_for_sharding(np.arange(sum(DP_RANK_SIZES) * world), DP_RANK_SIZES, world)
+
+
+def child_dp_ranks(args: dict) -> int:
+    """(b) and (c) in one rank: the step under every path of DP_PATHS on
+    this rank's cut of the global batch, then `evaluate --data_parallel`."""
+    import torch
+
+    from dcase2019_task4_tpu_torch import cli
+    from dcase2019_task4_tpu_torch.parallel import mesh as pmesh, multihost
+
+    rank, world, device = args["rank"], args["world"], torch.device(args["device"])
+    multihost.initialize(f"file://{args['store']}", world, rank, backend=args["backend"], device=device)
+    try:
+        mesh = pmesh.make_mesh(device)
+        data = np.load(args["batch"])
+        n = sum(DP_RANK_SIZES)
+        rows = dp_rank_rows(world)[rank * n:(rank + 1) * n]
+        packed = tuple(data[k][rows] for k in ("audio", "frames", "target"))
+        out = {"backend": mesh.backend, "world_size": mesh.world_size}
+        for path, (flags, bf16) in DP_PATHS.items():
+            t0 = time.perf_counter()
+            out[path] = dp_step(dp_config(flags, bf16), device, packed, (data["mean"], data["std"]), DP_RANK_SIZES,
+                                path, mesh)
+            out[path]["seconds"] = time.perf_counter() - t0
+        with quiet_log():
+            zero_launches()
+            out["evaluate"] = cli.evaluate(args["evaluate"] + ["--device", str(device), "--data_parallel"])
+            out["evaluate_launches"] = read_launches()
+        torch.save(out, f"{args['out']}.rank{rank}.pt")
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def child_world1(args: dict) -> int:
+    """(a) in a child whose environment is torchrun's for one rank:
+    `train_meanteacher --data_parallel` at phase 6's run, its launches and
+    its collectives a step."""
+    import torch.distributed as dist
+
+    from dcase2019_task4_tpu_torch.parallel import mesh as pmesh
+    from dcase2019_task4_tpu_torch.train import steps
+
+    per_step, real = [], steps.TrainStep.__call__
+
+    def counted(self, *a, **kw):
+        before = dict(pmesh.collectives)
+        out = real(self, *a, **kw)
+        per_step.append({k: v - before.get(k, 0) for k, v in pmesh.collectives.items() if v != before.get(k, 0)})
+        return out
+
+    steps.TrainStep.__call__ = counted
+    try:
+        launches, records = train_cli("train_meanteacher", args["argv"], args["card"], STEP_MIN)
+    finally:
+        steps.TrainStep.__call__ = real
+    out = {"backend": str(dist.get_backend()), "world_size": dist.get_world_size(), "launches": launches,
+           "records": records, "per_step": per_step}
+    dist.destroy_process_group()
+    with open(args["out"], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def start_children(kind: str, args_per_child, env_per_child=None):
+    """`python3 chip_smoke.py --child kind ARGS` for each entry, all at once
+    → a function that waits for them (`timeout` seconds in all), stops every
+    one still running when one fails or the time is up, prints their output
+    indented, and fails unless each exited 0."""
+    env_per_child = env_per_child or [{}] * len(args_per_child)
+    procs = [subprocess.Popen([*CHILD, "--child", kind, json.dumps(a)], cwd=REPO,
+                              env=dict(os.environ, **e), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for a, e in zip(args_per_child, env_per_child)]
+
+    def wait(timeout: float = 600.0):
+        outs = [""] * len(procs)
+        try:
+            deadline = time.monotonic() + timeout
+            for i, p in enumerate(procs):
+                outs[i] = p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for i, (p, text) in enumerate(zip(procs, outs)):
+            for line in (text or "").splitlines():
+                print(f"    [{kind} {i}] {line}")
+            if p.returncode != 0:
+                raise AssertionError(f"{kind} child {i} exited {p.returncode}")
+
+    return wait
+
+
+def free_port() -> int:
+    """A free TCP port on this machine's loopback (torchrun's MASTER_PORT)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_world1(card: str, streamed_records, work: str):
+    """(a) → (launches, the best checkpoint, collectives a step)."""
+    mt = os.path.join(work, "mt_dp")
+    out = os.path.join(work, "world1.json")
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(free_port())}
+    t0 = time.perf_counter()
+    start_children("world1", [{"card": card, "out": out,
+                               "argv": ["--synthetic_audio", "-s", str(CLI_SUBPART), "--epochs", str(CLI_EPOCHS),
+                                        "--store_dir", mt, "--data_parallel"]}], [env])()
+    with open(out) as f:
+        res = json.load(f)
+    print(f"  (a) train_meanteacher --data_parallel in a group of {res['world_size']} over {res['backend']}: "
+          f"{time.perf_counter() - t0:.1f} s with the child's start")
+    if res["backend"] != "nccl" or res["world_size"] != 1:
+        raise AssertionError(f"(a) ran over {res['backend']} at world size {res['world_size']}")
+    per_step = res["per_step"]
+    if not per_step or any(s != DP_COLLECTIVES for s in per_step):
+        raise AssertionError(f"(a) collectives a step {per_step[:3]}..., expected {DP_COLLECTIVES}")
+    print(f"  (a) collectives a step, every one of {len(per_step)} steps: {DP_COLLECTIVES} (one NCCL all-reduce each)")
+    worst = 0.0
+    for mine, theirs in zip(res["records"], streamed_records):
+        for k in theirs:
+            if "loss" in k or k.startswith("consistency_"):
+                worst = max(worst, abs(mine[k] - theirs[k]))
+        print(f"  (a) epoch {mine['epoch']}: {mine['steps_per_s']:.3f} steps/s under --data_parallel against "
+              f"{theirs['steps_per_s']:.3f} in phase 6, on {card}")
+    print(f"  (a) per-epoch loss means against phase 6's run: largest difference {worst:.3g} (limit {TRAIN_TOL})")
+    if len(res["records"]) != CLI_EPOCHS or not worst <= TRAIN_TOL:
+        raise AssertionError(f"(a) {len(res['records'])} epochs, loss means {worst:.3g} from phase 6's")
+    return res["launches"], os.path.join(mt, "model", "baseline_best"), DP_COLLECTIVES
+
+
+def dp_compare(path: str, single: dict, ranks, bf16: bool):
+    """One path's ranks against the one process: metrics, gradients
+    (the bfloat16 step at phase 5's bfloat16 bars), both models' BatchNorm
+    buffers, the ranks' parameters bit for bit, launches and collectives."""
+    import torch
+
+    r0 = ranks[0]
+    for r in ranks:
+        if r["collectives"].get("bn_stats") != 6 or r["collectives"].get("bn_backward") != 3 \
+                or r["collectives"].get("gradients") != 1:
+            raise AssertionError(f"{path}: a rank's collectives {r['collectives']}")
+    worst_m = max(abs(r0["metrics"][k] - v) for k, v in single["metrics"].items())
+    if not worst_m <= TRAIN_TOL:
+        raise AssertionError(f"{path}: the ranks' metrics differ from one process's by {worst_m:.3g}")
+    names = list(single["grads"])
+    if bf16:
+        top = max(g.abs().max().item() for g in single["grads"].values())
+        worst, worst_gauge, share = 0.0, 0.0, 0.0
+        for name in names:
+            want, got = single["grads"][name], r0["grads"][name]
+            gauge = is_gauge_leaf(name)
+            floor = SCALED_GAUGE_FLOOR if gauge else SCALED_GRAD_FLOOR
+            limit = SCALED_GRAD_TOL * want.abs().max().item() + floor * top
+            err = (got - want).abs().max().item()
+            if not err <= limit:
+                raise AssertionError(f"{path}, {name}: the ranks' gradient differs by {err} (limit {limit})")
+            if gauge:
+                worst_gauge = max(worst_gauge, err / limit)
+            else:
+                worst = max(worst, err / limit)
+                share = max(share, err / want.abs().max().item())
+        grad_note = (f"worst leaf at {worst:.2f} of its limit ({SCALED_GRAD_TOL} of its max + {SCALED_GRAD_FLOOR} of "
+                     f"the largest; {share:.2e} of its max), worst gauge leaf at {worst_gauge:.2f}")
+    else:
+        worst, worst_gauge = compare_step1_gradients(names, [single["grads"][n] for n in names],
+                                                     [r0["grads"][n] for n in names], f"{path}, {len(ranks)} ranks against one")
+        grad_note = (f"worst leaf at {worst:.2f} of its limit ({TRAIN_TOL} of its max), worst gauge leaf at "
+                     f"{worst_gauge:.2f}")
+    worst_bn = max((r0["bn"][k] - v).abs().max().item() for k, v in single["bn"].items())
+    if not worst_bn <= BN_TOL:
+        raise AssertionError(f"{path}: a BatchNorm buffer differs by {worst_bn:.3g} (limit {BN_TOL})")
+    for r in ranks[1:]:
+        for name, v in r0["params"].items():
+            if not torch.equal(v, r["params"][name]):
+                raise AssertionError(f"{path}: the ranks' {name} differ after the step")
+    seconds = " / ".join(f"{r['seconds']:.1f}" for r in ranks)
+    print(f"  (b) {path}: metrics within {worst_m:.3g} (limit {TRAIN_TOL}); gradients {grad_note}; BatchNorm "
+          f"buffers of both models within {worst_bn:.3g} (limit {BN_TOL}); the ranks' parameters bit-equal; "
+          f"collectives {r0['collectives']}; step in the ranks {seconds} s (first call of its kernels included)")
+
+
+def dp_against_one(device, best: str, work: str, world: int, backend: str, rank_devices):
+    """(b) and (c): `world` ranks over `backend`, rank r on `rank_devices[r]`,
+    each on its [6|12|6] cut of a global batch of world × 24 clips, against
+    one process on `device` over the whole batch, under every path of
+    DP_PATHS; then `evaluate --data_parallel` on the ranks against one
+    process, on `best`. → launches by path."""
+    import torch
+
+    from dcase2019_task4_tpu_torch import cli
+    from dcase2019_task4_tpu_torch.config import Config
+    from dcase2019_task4_tpu_torch.utils.scaler import Scaler
+
+    launches = {}
+    sizes = [b * world for b in DP_RANK_SIZES]
+    cfg0 = dp_config({}, False)
+    audio, frames, target = train_batch(cfg0, *sizes)
+    mean, std = Scaler().load_state_dict(
+        fit_scaler(flagship_frontend(device, cfg0, onedot=False), audio, frames, device)).mean_std_f32
+    batch_path = os.path.join(work, "batch.npz")
+    np.savez(batch_path, audio=audio, frames=frames, target=target, mean=mean, std=std)
+    # a low threshold, so the 2-epoch model's TSV has rows; the tuners too
+    eval_args = ["-m", best, "--synthetic_audio", "-s", str(DP_EVAL_SUBPART), "--sets", Config().paths.validation,
+                 "--threshold", str(DP_EVAL_THRESHOLD), "--tune_thresholds", "-p"]
+    out = os.path.join(work, "ranks")
+    t0 = time.perf_counter()
+    wait = start_children("ranks", [{"rank": r, "world": world, "backend": backend, "device": str(rank_devices[r]),
+                                     "store": os.path.join(work, "store"), "batch": batch_path, "out": out,
+                                     "evaluate": eval_args + [os.path.join(work, "ranks_eval.tsv")]}
+                                    for r in range(world)])
+    # the one process over the global batch while the ranks start
+    single = {}
+    try:
+        for path, (flags, bf16) in DP_PATHS.items():
+            single[path] = dp_step(dp_config(flags, bf16), device, (audio, frames, target), (mean, std), sizes, path)
+    except BaseException:
+        with contextlib.suppress(Exception):
+            wait(timeout=1.0)  # stops the ranks
+        raise
+    wait()
+    what = f"{world} {backend} ranks"
+    print(f"  (b, c) {what}: {time.perf_counter() - t0:.1f} s with their start")
+    ranks = [torch.load(f"{out}.rank{r}.pt", weights_only=False) for r in range(world)]
+    if any(r["backend"] != backend or r["world_size"] != world for r in ranks):
+        raise AssertionError(f"(b) the ranks did not run as a {backend} group of {world}")
+    for path, (_, bf16) in DP_PATHS.items():
+        dp_compare(path, single[path], [r[path] for r in ranks], bf16)
+        launches[f"{path}_{world}_ranks"] = ranks[0][path]["launches"]
+
+    # (c) the same evaluate in one process
+    with quiet_log():
+        zero_launches()
+        one = cli.evaluate(eval_args + [os.path.join(work, "single_eval.tsv"), "--device", str(device)])
+        launches["evaluate_one_process"] = read_launches()
+    for r in ranks:
+        if r["evaluate"] != one:
+            raise AssertionError(f"(c) evaluate on {what} {r['evaluate']} against one process {one}")
+    rows_ranks = read_tsv(os.path.join(work, "ranks_eval.tsv"))
+    rows_one = read_tsv(os.path.join(work, "single_eval.tsv"))
+    if rows_ranks != rows_one:
+        raise AssertionError(f"(c) the TSVs differ: {len(rows_ranks)} rows on {what}, {len(rows_one)} in one")
+    (res,) = one.values()
+    n_ranks = [r["evaluate_launches"]["fused_stft_mel"] for r in ranks]
+    print(f"  (c) evaluate --data_parallel --threshold {DP_EVAL_THRESHOLD} --tune_thresholds on {what} "
+          f"({DP_EVAL_SUBPART} validation clips, K1 launched {n_ranks} times by the ranks, "
+          f"{launches['evaluate_one_process']['fused_stft_mel']} by one process): event F1 "
+          f"{res['event_macro_f1']:.4f}, weak F1 {res['weak_macro_f1']:.4f}, tuned event F1 "
+          f"{res['tuned_event_macro_f1']:.4f}, {len(rows_one)} TSV rows: all equal to one process's")
+    return launches
+
+
+def phase_data_parallel(device, card: str, streamed_records):
+    """Phase 8 → (launches by path, the counts of the kernels line's
+    "parallel" entry)."""
+    t_phase = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory() as work:
+        launches["train_meanteacher_data_parallel"], best, per_step = dp_world1(card, streamed_records, work)
+        launches.update(dp_against_one(device, best, work, DP_WORLD, "gloo", [device] * DP_WORLD))
+    print(f"  phase 8: {time.perf_counter() - t_phase:.1f} s")
+    return launches, {"collectives_a_step": per_step, "gloo_ranks_on_one_card": DP_WORLD,
+                      "paths_held": list(DP_PATHS)}
+
+
+def data_parallel_cards(n_cards: int) -> int:
+    """`python3 chip_smoke.py --cards N`: phase 8's (b) and (c) with one NCCL
+    rank a card on N cards, against one process on the first, on the seeded
+    flagship checkpoint of phase 4; after the build, and nothing else. The
+    last line is the result line, with the cards' count."""
+    import torch
+
+    from dcase2019_task4_tpu_torch.ops import _build
+
+    if torch.cuda.device_count() < n_cards:
+        print(f"chip_smoke --cards {n_cards}: {torch.cuda.device_count()} cards", file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    card = card_line()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+    info = _build.build()
+    print(f"  built in {info['seconds']:.2f} s")
+    device = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory() as work:
+        _, paths = write_inputs(work, device)
+        launches = dp_against_one(device, paths[0], work, n_cards, "nccl",
+                                  [torch.device("cuda", r) for r in range(n_cards)])
+    print(f"  {n_cards} NCCL ranks, one a card: {time.perf_counter() - t0:.1f} s in all on {card} (each card)")
+    print(card)
+    print(json.dumps({"parallel": {"nccl_ranks": n_cards, "paths_held": list(DP_PATHS),
+                                   "launches_by_path": launches}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}}))
+    return 0
+
+
+CHILDREN = {"world1": child_world1, "ranks": child_dp_ranks}
+
+
+def set_up() -> bool:
+    """False without a card. Otherwise: the port on the path, the JAX
+    package's knobs off (as with their variables unset; the knobs path
+    turns them on itself), TF32 off."""
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
               file=sys.stderr)
-        return 2
+        return False
     sys.path.insert(0, REPO)
-    from dcase2019_task4_tpu_torch.ops import _build
-
-    device = torch.device("cuda", 0)
     from dcase2019_task4_tpu_torch.ops import fused_block, fused_mel
 
-    # the default paths run with the JAX package's knobs off, as with their
-    # variables unset; the knobs path turns them on itself
     fused_mel.ONEDOT = fused_block.RECOMPUTE_FIXUP = fused_block.PACK_BITS = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    return True
+
+
+def main() -> int:
+    import torch
+
+    if not set_up():
+        return 2
+    if sys.argv[1:2] == ["--child"]:  # a process of phase 8
+        return CHILDREN[sys.argv[2]](json.loads(sys.argv[3]))
+    if sys.argv[1:2] == ["--cards"]:  # phase 8's ranks, one a card
+        return data_parallel_cards(int(sys.argv[2]))
+    from dcase2019_task4_tpu_torch.ops import _build, fused_block
+
+    device = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
     print("== phase 1: card")
@@ -3870,6 +4297,9 @@ def main() -> int:
     launches.update(cli_launches)
     print("== phase 7: the rest of the user paths (--device_cache, --tune_thresholds, predict --long, precompute)")
     launches.update(phase_rest(card, streamed_records))
+    print("== phase 8: data parallel (--data_parallel over NCCL at world size 1; two Gloo ranks on the one card)")
+    dp_launches, parallel = phase_data_parallel(device, card, streamed_records)
+    launches.update(dp_launches)
 
     report = []
     for name, (src, replaces) in KERNELS.items():
@@ -3896,7 +4326,7 @@ def main() -> int:
     print(f"  predict clips/s (warm): {clips_per_s:.2f}; MT step {step_ms:.3f} ms; scaled MT step {scaled_ms:.3f} ms; "
           f"flagship bf16 MT step {bf16_ms:.3f} ms on {card}; whole script {time.perf_counter() - t_start:.0f} s")
     print(card)
-    print(json.dumps({"kernels": report, "helpers": helpers}))
+    print(json.dumps({"kernels": report, "helpers": helpers, "parallel": parallel}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))
     return 0

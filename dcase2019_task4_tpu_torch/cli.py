@@ -3,13 +3,14 @@
     python -m dcase2019_task4_tpu_torch.cli train_meanteacher [-s N] [--epochs E] [--store_dir DIR]
         [--synthetic_audio] [-n] [--bf16 | --scaled] [--resume CKPT] [--early_stopping P]
         [--eval_every K] [--ramped_adam] [--device_cache] [--device cuda]
+        [--data_parallel | --multihost --coordinator_address H:P --num_processes N --process_id I]
     python -m dcase2019_task4_tpu_torch.cli train_crnn ... [-n]
     python -m dcase2019_task4_tpu_torch.cli evaluate -m CKPT [-s N] [-p OUT.tsv] [--sets TSV ...]
-        [--tune_thresholds [--save_thresholds F.json]] [--synthetic_audio] [--device cuda]
+        [--tune_thresholds [--save_thresholds F.json]] [--synthetic_audio] [--device cuda] [--data_parallel]
     python -m dcase2019_task4_tpu_torch.cli predict -m CKPT -i WAV_DIR_OR_TSV -p OUT.tsv [-s N]
         [--weak_fname TAGS.tsv] [--threshold T | --thresholds_json F]
         [--median_windows_json F] [--long [--overlap] [--merge_gap G]] [--synthetic_audio]
-        [--device cuda]
+        [--device cuda] [--data_parallel]
     python -m dcase2019_task4_tpu_torch.cli precompute [--sets TSV ...] [-s N] [--feature_dir DIR]
         [--nolog] [--device cuda]
 
@@ -19,6 +20,15 @@ The console scripts `dcase19-torch-train-meanteacher`, `dcase19-torch-train-crnn
 The flags are the JAX package's (dcase2019_task4_tpu/cli.py), plus
 `--device`. Flags of what the port does not have yet fail with a message
 that names the ROADMAP item that ports it.
+
+Data parallel, one process a card: `torchrun --nproc_per_node=<cards> -m
+dcase2019_task4_tpu_torch.cli <command> ... --data_parallel` (each rank
+reads torchrun's RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and MASTER_PORT
+and takes cuda:LOCAL_RANK, or the CPU with `--device cpu`); or, for the
+training commands, one process a card started by hand with `--multihost
+--coordinator_address HOST:PORT --num_processes N --process_id I`
+(which implies `--data_parallel`). The batch size is a rank's. A caller
+that brought up its process group itself keeps it.
 """
 
 from __future__ import annotations
@@ -32,11 +42,6 @@ from dcase2019_task4_tpu_torch.utils.logger import get_logger
 
 # flag → the ROADMAP item (Queue 1) that ports what it selects
 NOT_PORTED = {
-    "data_parallel": "data parallel, ROADMAP Queue 1 item 6",
-    "multihost": "multi-host training, ROADMAP Queue 1 item 6",
-    "coordinator_address": "multi-host training, ROADMAP Queue 1 item 6",
-    "num_processes": "multi-host training, ROADMAP Queue 1 item 6",
-    "process_id": "multi-host training, ROADMAP Queue 1 item 6",
     "torch_checkpoint": "train/torch_import.py, ROADMAP Queue 1 item 7",
     "export": "eval/export.py, ROADMAP Queue 1 item 7",
     "export_batch": "eval/export.py, ROADMAP Queue 1 item 7",
@@ -55,6 +60,49 @@ def _device_arg(parser):
                         help="Torch device. 'cuda' without a card raises; there is no CPU fallback.")
 
 
+def _data_parallel_arg(parser):
+    parser.add_argument("--data_parallel", action="store_true", default=False,
+                        help="One process a card in a torch.distributed group (run under torchrun): BatchNorm "
+                        "statistics and gradients of the global batch, validation sharded by file.")
+
+
+def _mesh(args):
+    """The data-parallel mesh the flags ask for, or None. The group comes
+    up through `multihost.initialize`: from the multi-host flags (any of
+    them selects multi-host), or from torchrun's environment; a group the
+    caller already brought up is kept.
+    `args.device` becomes this rank's device (cuda:LOCAL_RANK unless it
+    names a card)."""
+    multihost = bool(getattr(args, "multihost", False) or getattr(args, "coordinator_address", None)
+                     or getattr(args, "num_processes", None) is not None
+                     or getattr(args, "process_id", None) is not None)
+    if not (multihost or args.data_parallel):
+        return None
+    import torch
+    import torch.distributed as dist
+
+    from dcase2019_task4_tpu_torch.eval.evaluate import resolve_device
+    from dcase2019_task4_tpu_torch.parallel import mesh, multihost as mh
+
+    device = resolve_device(args.device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    args.device = str(device)
+    if not dist.is_initialized():
+        if multihost:
+            mh.initialize(args.coordinator_address, args.num_processes, args.process_id, device=device)
+        else:
+            missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT") if k not in os.environ]
+            if missing:
+                raise RuntimeError(f"--data_parallel runs under torchrun: {', '.join(missing)} not set "
+                                   "(or give --multihost with its flags)")
+            mh.initialize(f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}", int(os.environ["WORLD_SIZE"]),
+                          int(os.environ["RANK"]), device=device)
+    m = mesh.make_mesh(device, multihost=multihost)
+    get_logger().info(f"data parallel: rank {m.rank} of {m.world_size} on {device} over {m.backend}")
+    return m
+
+
 def _common_train_args(parser):
     parser.add_argument("-s", "--subpart_data", type=int, default=None,
                         help="Number of files per set (smoke-scale runs).")
@@ -68,8 +116,7 @@ def _common_train_args(parser):
     parser.add_argument("--paired_teacher_view", action="store_true", default=False,
                         help="Mean-Teacher only, with --synthetic_audio: the teacher featurizes an "
                         "independent render of each training clip.")
-    parser.add_argument("--data_parallel", action="store_true", default=False,
-                        help="Not ported yet (ROADMAP Queue 1 item 6).")
+    _data_parallel_arg(parser)
     parser.add_argument("--bf16", action="store_true", default=False,
                         help="bfloat16 conv compute.")
     parser.add_argument("--scaled", action="store_true", default=False,
@@ -87,13 +134,12 @@ def _common_train_args(parser):
     parser.add_argument("--eval_every", type=int, default=1,
                         help="Validate/checkpoint/SaveBest every Nth epoch (and the last).")
     parser.add_argument("--multihost", action="store_true", default=False,
-                        help="Not ported yet (ROADMAP Queue 1 item 6).")
+                        help="One process a card started by hand: bring up the process group from the three "
+                        "flags below (parallel/multihost.py); implies --data_parallel.")
     parser.add_argument("--coordinator_address", type=str, default=None,
-                        help="Not ported yet (ROADMAP Queue 1 item 6).")
-    parser.add_argument("--num_processes", type=int, default=None,
-                        help="Not ported yet (ROADMAP Queue 1 item 6).")
-    parser.add_argument("--process_id", type=int, default=None,
-                        help="Not ported yet (ROADMAP Queue 1 item 6).")
+                        help="host:port where process 0 listens (multi-host).")
+    parser.add_argument("--num_processes", type=int, default=None, help="Processes in all (multi-host).")
+    parser.add_argument("--process_id", type=int, default=None, help="This process's index (multi-host).")
     _device_arg(parser)
 
 
@@ -102,6 +148,7 @@ def _build_experiment(args, mean_teacher: bool, no_synthetic=False, no_weak=Fals
 
     from dcase2019_task4_tpu_torch.train.experiment import Experiment
 
+    mesh = _mesh(args)
     if args.scaled:
         from dcase2019_task4_tpu_torch.config import scaled_config
 
@@ -123,6 +170,7 @@ def _build_experiment(args, mean_teacher: bool, no_synthetic=False, no_weak=Fals
         paired_teacher_view=args.paired_teacher_view,
         device=args.device,
         device_cache=args.device_cache,
+        mesh=mesh,
     )
 
 
@@ -184,7 +232,7 @@ def _final_test(exp, store, args):
         return
     pred_dir = os.path.join(store, "predictions")
     os.makedirs(pred_dir, exist_ok=True)
-    ev = CheckpointEvaluator(best, device=args.device, synthetic_audio=args.synthetic_audio)
+    ev = CheckpointEvaluator(best, device=args.device, synthetic_audio=args.synthetic_audio, mesh=exp.mesh)
     ev.test_model(exp.cfg.paths.validation, args.subpart_data, os.path.join(pred_dir, "baseline_validation.tsv"))
     ev.test_model(exp.cfg.paths.eval_desed, args.subpart_data, os.path.join(pred_dir, "baseline_eval2019.tsv"))
 
@@ -216,8 +264,7 @@ def evaluate(argv=None):
                         help="Per-class decode thresholds JSON (dict or [C] list). Overrides --threshold.")
     parser.add_argument("--median_windows_json", type=str, default=None,
                         help="Per-class decode median-window JSON ([C] odd ints or {class: w}).")
-    parser.add_argument("--data_parallel", action="store_true", default=False,
-                        help="Not ported yet (ROADMAP Queue 1 item 6).")
+    _data_parallel_arg(parser)
     parser.add_argument("--export", type=str, default=None, help="Not ported yet (ROADMAP Queue 1 item 7).")
     parser.add_argument("--export_batch", type=int, default=None,
                         help="Not ported yet (ROADMAP Queue 1 item 7).")
@@ -227,7 +274,8 @@ def evaluate(argv=None):
 
     from dcase2019_task4_tpu_torch.eval.evaluate import CheckpointEvaluator
 
-    ev = CheckpointEvaluator(args.model_path, device=args.device, synthetic_audio=args.synthetic_audio)
+    mesh = _mesh(args)
+    ev = CheckpointEvaluator(args.model_path, device=args.device, synthetic_audio=args.synthetic_audio, mesh=mesh)
     paths = ev.cfg.paths
     sets = args.sets or [paths.eval2018, paths.validation, paths.eval_desed]
     threshold = ev.load_thresholds(args.thresholds_json) if args.thresholds_json else args.threshold
@@ -238,7 +286,7 @@ def evaluate(argv=None):
         res = ev.test_model(tsv, args.subpart_data, save, tune_thresholds=args.tune_thresholds,
                             threshold=threshold, median_window=median_window)
         results[tsv] = {k: v for k, v in res.items() if k not in ("predictions", "strong")}
-        if args.save_thresholds and "tuned_thresholds" in res:
+        if args.save_thresholds and "tuned_thresholds" in res and ev.is_writer():
             _save_thresholds(args.save_thresholds, ev.codec.labels, res)
     return results if argv is not None else None
 
@@ -292,6 +340,7 @@ def predict(argv=None):
     parser.add_argument("--overlap", action="store_true", default=False,
                         help="With --long: half-window hop, probabilities averaged where windows overlap, "
                         "one decode per file over its whole timeline (no stitching).")
+    _data_parallel_arg(parser)
     _device_arg(parser)
     args = parser.parse_args(argv)
 
@@ -299,7 +348,8 @@ def predict(argv=None):
 
     if args.long and args.weak_fname:
         parser.error("--weak_fname is per-clip; not defined under --long")
-    ev = CheckpointEvaluator(args.model_path, device=args.device, synthetic_audio=args.synthetic_audio)
+    mesh = _mesh(args)
+    ev = CheckpointEvaluator(args.model_path, device=args.device, synthetic_audio=args.synthetic_audio, mesh=mesh)
     threshold = ev.load_thresholds(args.thresholds_json) if args.thresholds_json else args.threshold
     median_window = ev.load_windows(args.median_windows_json) if args.median_windows_json else None
     if args.long:

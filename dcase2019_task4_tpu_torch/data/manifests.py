@@ -214,6 +214,17 @@ def subpart_manifest(m: Manifest, subpart_data: Optional[int], seed: int = 10) -
     return _subset(m, _keep_files(m, (m.filenames[i] for i in pos)))
 
 
+def shard_manifest(m: Manifest, process_index: int, process_count: int) -> Manifest:
+    """Every process_count-th unique filename, from the process_index-th
+    (round-robin), with their rows in file order: one process's share of
+    an evaluation set. Event, segment and tagging counts are additive over
+    any partition of the files (eval/sed_scores.py count_vector), so the
+    merged numbers are exact."""
+    if process_count <= 1:
+        return m
+    return _subset(m, _keep_files(m, m.filenames[process_index::process_count]))
+
+
 def split_weak(m: Manifest, frac: float = 0.8, seed: int = 26):
     """80/20 split of a weak manifest by row (reference main.py:215-218):
     train rows in sampled order, valid rows in file order."""

@@ -14,7 +14,9 @@ assembly, prefetch (counterpart of dcase2019_task4_tpu/data/pipeline.py).
     pinned host memory, without blocking the host;
   * `DeviceResidentData` (`--device_cache`) instead renders a small
     training set once and keeps every row on the device, where each
-    epoch's batches are gathered there by index.
+    epoch's batches are gathered there by index;
+  * data parallel: every rank draws the same global batch from the shared
+    seed, reorders it shard-major and builds only its own cut.
 
 A worker that fails re-raises its error in the consumer after the batches
 it made (the JAX package's worker ends the epoch quietly instead).
@@ -28,12 +30,13 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from dcase2019_task4_tpu_torch.data.encoder import LabelCodec
 from dcase2019_task4_tpu_torch.data.manifests import Manifest
 from dcase2019_task4_tpu_torch.data.sampler import MultiStreamSampler
 from dcase2019_task4_tpu_torch.ops.mel import host_reflect_pad
+from dcase2019_task4_tpu_torch.parallel.mesh import interleave_for_sharding
+from dcase2019_task4_tpu_torch.parallel.multihost import host_shard_pairs
 
 
 def quantize_audio_int16(audio: np.ndarray) -> np.ndarray:
@@ -177,7 +180,17 @@ class BatchPipeline:
 
     Batch layout follows the reference's MultiStreamBatchSampler composition
     (main.py:238-247): contiguous per-stream sub-batches so loss masks are
-    static slices. One device: no shard tiling and no per-host cut.
+    static slices.
+
+    `batch_sizes` are per-shard sizes. With `n_shards` > 1 the sampler
+    draws the global batch, that layout tiled `n_shards` times
+    ([w·n | u·n | s·n]), and `local_pairs` reorders it shard-major
+    (`interleave_for_sharding`: each contiguous 1/n_shards chunk is a whole
+    [w | u | s] layout) and keeps this process's contiguous
+    1/process_count cut (`host_shard_pairs`). Every process runs the same
+    sampler from the same seed, so the processes' cuts, in process order,
+    are the shard-major global batch. With one process a card, n_shards =
+    process_count = the world size.
     """
 
     def __init__(
@@ -189,10 +202,16 @@ class BatchPipeline:
         hop_length: int,
         max_frames: int,
         seed: int = 0,
+        n_shards: int = 1,
+        process_index: int = 0,
+        process_count: int = 1,
     ):
+        if n_shards % process_count:
+            raise ValueError(f"{n_shards} shards do not divide over {process_count} processes")
         self.streams = list(streams)
         self.batch_sizes = list(batch_sizes)
-        self.sampler = MultiStreamSampler([len(s) for s in streams], batch_sizes, seed)
+        self.n_shards, self.process_index, self.process_count = n_shards, process_index, process_count
+        self.sampler = MultiStreamSampler([len(s) for s in streams], [b * n_shards for b in batch_sizes], seed)
         self.max_samples = max_samples
         self.n_fft = n_fft
         self.hop_length = hop_length
@@ -210,14 +229,30 @@ class BatchPipeline:
 
     @property
     def batch_size(self):
+        """The global batch size."""
         return self.sampler.batch_size
 
     def stream_slices(self):
-        return self.sampler.stream_slices()
+        """Per-shard stream slices (the global ones with one shard)."""
+        slices, start = [], 0
+        for b in self.batch_sizes:
+            slices.append(slice(start, start + b))
+            start += b
+        return slices
+
+    def local_pairs(self, pairs: np.ndarray) -> np.ndarray:
+        """A global [batch, 2] of (stream_id, idx) → this process's cut of
+        its shard-major order (the pairs themselves with one shard)."""
+        if self.n_shards > 1:
+            pairs = interleave_for_sharding(pairs, self.batch_sizes, self.n_shards)
+        if self.process_count > 1:
+            pairs = host_shard_pairs(pairs, self.process_index, self.process_count)
+        return pairs
 
     def assemble(self, pairs: np.ndarray) -> Dict[str, np.ndarray]:
-        """pairs: [batch, 2] of (stream_id, idx) → batch dict (int16 audio)."""
-        items = [(self.streams[s], i) for s, i in pairs]
+        """pairs: a global [batch, 2] of (stream_id, idx) → this process's
+        batch dict (int16 audio)."""
+        items = [(self.streams[s], i) for s, i in self.local_pairs(pairs)]
         audio, frames = pack_items(items, self.max_samples, self.n_fft, self.hop_length, self.max_frames)
         batch = {"audio": audio, "frames": frames, "target": np.stack([s.targets[i] for s, i in items])}
         if self.paired_views:
@@ -290,14 +325,19 @@ class DeviceResidentData:
 
     `max_bytes` (8 GiB, as in JAX) guards the size: the full DESED training
     set at 44.1 kHz is about 16 GiB of int16 and is refused with a
-    ValueError, not left to run out of memory. Inside a process group of
-    more than one process the rows would be sharded over the processes'
-    devices, which is data-parallel training, not ported: it raises."""
+    ValueError, not left to run out of memory.
 
-    def __init__(self, pipeline: BatchPipeline, device="cuda", max_bytes: int = 8 << 30):
-        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-            raise ValueError("a device-resident dataset sharded over several processes is data-parallel "
-                             "training, not ported yet (ROADMAP Queue 1 item 6)")
+    Data parallel (the JAX package's `DeviceResidentData(mesh=)`): every
+    rank keeps the whole row store on its card and gathers its cut of each
+    shard-major global batch (`BatchPipeline.local_pairs`), so the size
+    guard is a card's. A multi-host `mesh` is refused, as the JAX package
+    refuses several processes (its hosts stream their cuts)."""
+
+    def __init__(self, pipeline: BatchPipeline, device="cuda", max_bytes: int = 8 << 30, mesh=None):
+        if mesh is not None and mesh.multihost:
+            raise ValueError("device-resident data is not multi-host: under --multihost each process streams "
+                             "its cut of the batches")
+        self._local_pairs = pipeline.local_pairs
         sizes = [len(s) for s in pipeline.streams]
         n_total = sum(sizes)
         self.offsets = np.cumsum([0] + sizes[:-1]).astype(np.int32)
@@ -339,9 +379,11 @@ class DeviceResidentData:
         self.nbytes = est
 
     def epoch_indices(self, sampler: MultiStreamSampler, epoch: int) -> np.ndarray:
-        """[steps, B] int32 global rows of one epoch: the sampler's
-        (stream_id, index) pairs through the stream offsets."""
+        """[steps, B] int32 rows of one epoch: this process's cut of the
+        sampler's (stream_id, index) pairs through the stream offsets."""
         pairs = sampler.epoch_batches(epoch)
+        if len(pairs):
+            pairs = np.stack([self._local_pairs(p) for p in pairs])
         return (self.offsets[pairs[..., 0]] + pairs[..., 1]).astype(np.int32)
 
     def iter_epoch(self, sampler: MultiStreamSampler, epoch: int) -> Iterator[Dict[str, torch.Tensor]]:

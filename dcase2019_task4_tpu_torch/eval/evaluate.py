@@ -7,6 +7,13 @@ set: event- and segment-based F1 and weak tagging F1, and with
 `tune_thresholds` the tuned per-class thresholds and median windows
 (eval/thresholds.py). `predict_long` serves wavs of any length in windows
 of the model's clip length. No jax and no pandas.
+
+Data parallel (`mesh`, parallel/mesh.py; the JAX evaluator's mesh, which
+shards each batch over devices): each rank infers every world-th file
+(`shard_manifest`), and the ranks' probabilities are gathered on every
+rank (`all_gather_objects`, host tensors) in the file order of a
+single-process run. Decoding, scoring, threshold tuning and the results are
+then the single-process ones on every rank; rank 0 alone writes the TSVs.
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ import torch
 from dcase2019_task4_tpu_torch.config import Config, DSPConfig, ModelConfig, PathsConfig, TrainConfig
 from dcase2019_task4_tpu_torch.data.audio_io import SyntheticAudioSource, WavAudioSource
 from dcase2019_task4_tpu_torch.data.encoder import LabelCodec
-from dcase2019_task4_tpu_torch.data.manifests import load_manifest, subpart_manifest
+from dcase2019_task4_tpu_torch.data.manifests import load_manifest, shard_manifest, subpart_manifest
 from dcase2019_task4_tpu_torch.data.pipeline import Stream, dir_manifest, iter_eval_batches, quantize_audio_int16
 from dcase2019_task4_tpu_torch.eval.decode import (
     decode_batch,
@@ -34,6 +41,7 @@ from dcase2019_task4_tpu_torch.eval.sed_scores import compute_strong_metrics
 from dcase2019_task4_tpu_torch.eval.tagging import TaggingF1
 from dcase2019_task4_tpu_torch.models.crnn import CRNN
 from dcase2019_task4_tpu_torch.ops.mel import MelFrontend, host_reflect_pad
+from dcase2019_task4_tpu_torch.parallel.mesh import all_gather_objects
 from dcase2019_task4_tpu_torch.train import checkpoints as ckpt
 from dcase2019_task4_tpu_torch.train.steps import make_eval_features, make_predict_step
 from dcase2019_task4_tpu_torch.utils.logger import get_logger
@@ -65,9 +73,10 @@ def resolve_device(name: str) -> torch.device:
 
 
 class CheckpointEvaluator:
-    def __init__(self, ckpt_path: str, device="cuda", synthetic_audio: bool = False, logger=None):
+    def __init__(self, ckpt_path: str, device="cuda", synthetic_audio: bool = False, logger=None, mesh=None):
         self.log = logger or get_logger()
         self.device = resolve_device(str(device))
+        self.mesh = mesh
         meta = ckpt.read_metadata(ckpt_path)
         self.meta = meta
         self.cfg = config_from_metadata(meta)
@@ -157,6 +166,51 @@ class CheckpointEvaluator:
         return Stream("eval", manifest, src, self.codec, d.sample_rate, d.hop_length,
                       self.meta["pooling_time_ratio"])
 
+    def _share(self, stream: Stream) -> Stream:
+        """This rank's files of `stream` (every world-th, round-robin), or
+        the stream itself without a mesh."""
+        if self.mesh is None:
+            return stream
+        manifest = shard_manifest(stream.manifest, self.mesh.rank, self.mesh.world_size)
+        return Stream("eval", manifest, stream.source, self.codec, self.cfg.dsp.sample_rate, self.cfg.dsp.hop_length,
+                      self.meta["pooling_time_ratio"])
+
+    def _gathered(self, stream: Stream, per_file: Dict[str, tuple]) -> Dict[str, tuple]:
+        """{file: what this rank inferred for it} → the same for every file
+        of `stream`, in its file order, from all the ranks."""
+        if self.mesh is None:
+            return per_file
+        merged = {}
+        for part in all_gather_objects(per_file, self.mesh):
+            merged.update(part)
+        return {f: merged[f] for f in stream.filenames}
+
+    def _batches(self, stream: Stream):
+        """(filenames, strong [n, T', C] on the CPU, weak [n, C] numpy,
+        targets [n, ...]) of each eval batch of `stream`. Under a mesh the
+        rank infers its share and the ranks' results come back as one item:
+        every file of the stream, in its order."""
+        d = self.cfg.dsp
+        per_file = {}
+        for batch in iter_eval_batches(self._share(stream), self.cfg.train.batch_size, d.max_samples, d.n_window,
+                                       d.hop_length, d.max_frames):
+            strong, weak = self._predict(self.features(batch["audio"], batch["frames"]))
+            nv = batch["n_valid"]
+            item = (batch["filenames"], strong[:nv].cpu(), weak[:nv].cpu().numpy(), batch["target"][:nv])
+            if self.mesh is None:
+                yield item
+            else:
+                per_file.update((f, (s, w, t)) for f, s, w, t in zip(item[0], *item[1:]))
+        if self.mesh is not None:
+            rows = self._gathered(stream, per_file)
+            if rows:
+                strong, weak, target = zip(*rows.values())
+                yield list(rows), torch.stack(strong), np.stack(weak), np.stack(target)
+
+    def is_writer(self) -> bool:
+        """Whether this process writes the files (rank 0, or the only one)."""
+        return self.mesh is None or self.mesh.rank == 0
+
     def predict_set(self, source_path: str, save_predictions_fname: str, subpart: Optional[int] = None,
                     weak_fname: Optional[str] = None, weak_threshold=0.5,
                     threshold=0.5, median_window=None) -> Dict:
@@ -171,23 +225,18 @@ class CheckpointEvaluator:
         ptr = self.meta["pooling_time_ratio"]
         window = self.cfg.train.median_window if median_window is None else median_window
         events, weak_rows, strong_all, weak_all = [], [], [], []
-        for batch in iter_eval_batches(stream, self.cfg.train.batch_size, d.max_samples,
-                                       d.n_window, d.hop_length, d.max_frames):
-            strong, weak = self._predict(self.features(batch["audio"], batch["frames"]))
-            nv = batch["n_valid"]
-            strong = strong[:nv].cpu()
-            weak = weak[:nv].cpu().numpy()
-            events += decode_batch(strong, batch["filenames"], self.codec, d.sample_rate,
+        for filenames, strong, weak, _ in self._batches(stream):
+            events += decode_batch(strong, filenames, self.codec, d.sample_rate,
                                    d.hop_length, ptr, threshold=threshold, median_window=window)
             strong_all.append(strong.numpy())
             weak_all.append(weak)
             if weak_fname:
-                for fname, probs in zip(batch["filenames"], weak):
+                for fname, probs in zip(filenames, weak):
                     tags = [self.codec.labels[i] for i in np.nonzero(probs > weak_threshold)[0]]
                     weak_rows.append((fname, ",".join(tags)))
         self.log.info(f"Saving predictions at: {save_predictions_fname}")
-        write_events_tsv(events, save_predictions_fname)
-        if weak_fname:
+        write_events_tsv(events, save_predictions_fname if self.is_writer() else None)
+        if weak_fname and self.is_writer():
             with open(weak_fname, "w", newline="") as f:
                 w = csv.writer(f, delimiter="\t", lineterminator="\n")
                 w.writerow(("filename", "event_labels"))
@@ -230,14 +279,14 @@ class CheckpointEvaluator:
         hop_samples = max(1, win_frames // 2) * frame_samples if overlap else window
         mw = self.cfg.train.median_window if median_window is None else median_window
         jobs, durations = [], {}  # (filename, start s, start pooled frame, audio)
-        for fname in stream.filenames:
+        for fname in self._share(stream).filenames:
             audio = np.asarray(stream.source.get_audio(fname), dtype=np.float32)
             durations[fname] = len(audio) / d.sample_rate
             for w in range(1 + max(0, -(-(len(audio) - window) // hop_samples))):
                 s0 = w * hop_samples
                 jobs.append((fname, s0 / d.sample_rate, s0 // frame_samples, audio[s0:s0 + window]))
         B = self.cfg.train.batch_size
-        events, strong_all, probs_by_file = [], [], {}
+        probs = []
         for start in range(0, len(jobs), B):
             chunk = jobs[start:start + B]
             n_valid = len(chunk)
@@ -245,21 +294,28 @@ class CheckpointEvaluator:
             padded, frames = host_reflect_pad([c[3] for c in chunk], window, d.n_window, d.hop_length,
                                               d.max_frames)
             strong, _ = self._predict(self.features(quantize_audio_int16(padded), frames))
-            strong = strong[:n_valid].cpu()
-            strong_all.append(strong.numpy())
-            if overlap:
-                for (fname, _, sf, _), p in zip(chunk, strong_all[-1]):
-                    probs_by_file.setdefault(fname, []).append((int(sf), p))
-                continue
-            # each window's row key is its place in the chunk
-            for label, on, off, k in decode_batch(strong, list(range(n_valid)), self.codec, d.sample_rate,
+            probs += list(strong[:n_valid].cpu().numpy())
+        # {file: (duration, [(start s, start pooled frame, probabilities) a window])}, every file's
+        # under a mesh, in file order
+        windows = {f: (durations[f], []) for f in durations}
+        for (fname, t0, sf, _), p in zip(jobs, probs):
+            windows[fname][1].append((t0, int(sf), p))
+        windows = self._gathered(stream, windows)
+        durations = {f: dur for f, (dur, _) in windows.items()}
+        jobs = [(f, t0, sf, p) for f, (_, ws) in windows.items() for t0, sf, p in ws]
+        strong_all = np.stack([p for *_, p in jobs]) if jobs else np.zeros((0, win_frames, len(self.codec.labels)),
+                                                                             np.float32)
+        events = []
+        if not overlap and jobs:
+            # each window's row key is its place in the list
+            for label, on, off, k in decode_batch(strong_all, list(range(len(jobs))), self.codec, d.sample_rate,
                                                   d.hop_length, ptr, threshold=threshold, median_window=mw):
-                fname, t0 = chunk[k][0], chunk[k][1]
+                fname, t0 = jobs[k][0], jobs[k][1]
                 events.append((label, on + t0, off + t0, fname))
         if overlap:
             th = np.asarray(threshold)
-            for fname in stream.filenames:
-                entries = probs_by_file.get(fname, [])
+            for fname, (_, ws) in windows.items():
+                entries = [(sf, p) for _, sf, p in ws]
                 if not entries:
                     continue
                 n_frames = max(sf for sf, _ in entries) + win_frames
@@ -279,14 +335,8 @@ class CheckpointEvaluator:
             events = merge_window_events(events, merge_gap)
         events = [(label, on, min(off, durations[f]), f) for label, on, off, f in events if on < durations[f]]
         self.log.info(f"Saving predictions at: {save_predictions_fname}")
-        write_events_tsv(events, save_predictions_fname)
-        n_cls = len(self.codec.labels)
-        return {
-            "events": events,
-            "n_files": len(stream),
-            "n_windows": len(jobs),
-            "strong": np.concatenate(strong_all) if strong_all else np.zeros((0, win_frames, n_cls), np.float32),
-        }
+        write_events_tsv(events, save_predictions_fname if self.is_writer() else None)
+        return {"events": events, "n_files": len(stream), "n_windows": len(jobs), "strong": strong_all}
 
     def test_model(self, tsv_path: str, subpart: Optional[int] = None,
                    save_predictions_fname: Optional[str] = None, tune_thresholds: bool = False,
@@ -306,21 +356,17 @@ class CheckpointEvaluator:
         d = self.cfg.dsp
         predictions, strong_all, acc = [], [], TaggingF1(len(self.codec.labels))
         weak_probs, weak_targets, strong_fnames = [], [], []
-        for batch in iter_eval_batches(stream, self.cfg.train.batch_size, d.max_samples, d.n_window,
-                                       d.hop_length, d.max_frames):
-            strong, weak = self._predict(self.features(batch["audio"], batch["frames"]))
-            nv = batch["n_valid"]
-            strong = strong[:nv].cpu()
-            predictions += decode_batch(strong, batch["filenames"], self.codec, d.sample_rate, d.hop_length,
+        for filenames, strong, weak, target in self._batches(stream):
+            predictions += decode_batch(strong, filenames, self.codec, d.sample_rate, d.hop_length,
                                         self.meta["pooling_time_ratio"], threshold=threshold,
                                         median_window=median_window)
-            acc.update(weak[:nv].cpu().numpy(), batch["target"][:nv])
+            acc.update(weak, target)
             strong_all.append(strong.numpy())
             if tune_thresholds:
-                weak_probs.append(weak[:nv].cpu().numpy())
-                weak_targets.append(batch["target"][:nv])
-                strong_fnames += batch["filenames"]
-        if save_predictions_fname:
+                weak_probs.append(weak)
+                weak_targets.append(target)
+                strong_fnames += filenames
+        if save_predictions_fname and self.is_writer():
             self.log.info(f"Saving predictions at: {save_predictions_fname}")
             write_events_tsv(predictions, save_predictions_fname)
         event_metric = compute_strong_metrics(predictions, stream.manifest.rows, self.log)

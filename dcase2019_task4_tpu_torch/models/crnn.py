@@ -41,6 +41,13 @@ detached: its backward already carries the through-statistics terms. The
 BatchNorm buffers are updated in place and belong to this module alone, so
 a student and an EMA teacher keep their own. Dropout follows the GRU.
 
+Data parallel (`forward(..., mesh=)`, the JAX model's batch_axis /
+axis_size): every training BatchNorm takes the global batch's statistics.
+The fused blocks' Σy, Σy² are summed over the ranks in one buffer with
+n = local · world (`_batch_moments`), and each fused Function sums its
+backward's S1, S2 over the ranks between its two passes; the plain
+BatchNorm sums through a differentiable all-reduce (models/layers.py).
+
 The attention head keeps the reference's semantics: softmax over the
 class axis, normalisation summed over time (models/CRNN.py:77-83).
 """
@@ -56,6 +63,7 @@ from dcase2019_task4_tpu_torch.config import ModelConfig
 from dcase2019_task4_tpu_torch.models import layers as L
 from dcase2019_task4_tpu_torch.ops import crows_block, entry_conv, fused_block, fused_entry_block, packed_conv
 from dcase2019_task4_tpu_torch.ops.gru import bigru, bigru_init_
+from dcase2019_task4_tpu_torch.parallel.mesh import all_reduce_
 
 _SEED_HIGH = 2 ** 31 - 2 ** 20  # dropout seeds are drawn from [0, _SEED_HIGH), as in the JAX model
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -106,9 +114,14 @@ class CRNN(nn.Module):
         return L.draw(lambda shape, **kw: torch.randint(0, _SEED_HIGH, shape, dtype=torch.int64, **kw),
                       (1,), generator, generator.device)
 
-    def _batch_moments(self, bn, s, sq, n: int):
+    def _batch_moments(self, bn, s, sq, n: int, mesh):
         """Σy, Σy² → (mean, biased var = Σy²/n − mean²) as the JAX model forms
-        them, with the running buffers updated in place."""
+        them, with the running buffers updated in place. Under a mesh the
+        sums are the global batch's (one all-reduce of both, no graph) and
+        n = local · world, in the unbiased factor too."""
+        if mesh is not None:
+            s, sq = all_reduce_(torch.cat([s, sq]), mesh, "bn_stats").split(s.numel())
+            n *= mesh.world_size
         mean = s / n
         var = sq / n - mean * mean
         L.update_running_stats(bn.running_mean, bn.running_var, mean, var, n, self.cfg.bn_momentum)
@@ -129,7 +142,7 @@ class CRNN(nn.Module):
         return None
 
     def _entry_block(self, block: ConvBlock, x: torch.Tensor, engine,
-                     generator: Optional[torch.Generator]) -> torch.Tensor:
+                     generator: Optional[torch.Generator], mesh) -> torch.Tensor:
         """First block as one kernel family: batch statistics from the
         statistics pass over a conv output that is never stored, the
         running-stat update, one dropout seed, then the fused Function (eval
@@ -140,15 +153,15 @@ class CRNN(nn.Module):
         conv = {"w": block.conv.weight.permute(2, 3, 1, 0), "b": block.conv.bias}
         if self.training:
             s, sq = stats_apply(conv, x, cd)
-            mean, var = self._batch_moments(bn, s, sq, x.shape[0] * x.shape[1] * x.shape[2])
+            mean, var = self._batch_moments(bn, s, sq, x.shape[0] * x.shape[1] * x.shape[2], mesh)
             seed = self._draw_seed(generator)
         else:
             mean, var, seed = bn.running_mean, bn.running_var, 0
         return apply(conv, bn.weight, bn.bias, mean, var, block.act.weight.t(), block.act.bias, x, seed,
-                     cfg.dropout, tuple(cfg.pooling[0]), cfg.bn_eps, self.training, compute_dtype=cd)
+                     cfg.dropout, tuple(cfg.pooling[0]), cfg.bn_eps, self.training, compute_dtype=cd, mesh=mesh)
 
     def _block(self, i: int, block: ConvBlock, x: torch.Tensor, use_fused: bool,
-               generator: Optional[torch.Generator]) -> torch.Tensor:
+               generator: Optional[torch.Generator], mesh) -> torch.Tensor:
         cfg = self.cfg
         conv = block.conv
         train = self.training
@@ -161,7 +174,7 @@ class CRNN(nn.Module):
         if entry:
             engine = self._entry_engine(block, x, use_fused)
             if engine is not None:
-                return self._entry_block(block, x, engine, generator)
+                return self._entry_block(block, x, engine, generator, mesh)
         if (
             entry
             and use_fused
@@ -193,20 +206,20 @@ class CRNN(nn.Module):
             if train:
                 # Σy, Σy² without a graph (K2s, or K4f's own sums); var = Σy²/n − mean² as in the JAX model
                 s, sq = entry_stats if entry_stats is not None else fused_block.batch_stats(x)
-                mean, var = self._batch_moments(bn, s, sq, x.numel() // x.shape[-1])
+                mean, var = self._batch_moments(bn, s, sq, x.numel() // x.shape[-1], mesh)
                 seed = self._draw_seed(generator)
             else:
                 mean, var, seed = bn.running_mean, bn.running_var, 0
             return fused_block.fused_bn_glu_dropout_pool(
                 x, bn.weight, bn.bias, mean, var, block.act.weight.t(), block.act.bias,
-                seed, rate, pool, cfg.bn_eps, train,
+                seed, rate, pool, cfg.bn_eps, train, mesh=mesh,
             )
         if cd != torch.float32:
             raise NotImplementedError(f"compute_dtype {cfg.compute_dtype!r}: block {i + 1} of shape "
                                       f"{tuple(x.shape)} needs the fused block, which does not take it")
         if train:
             x = L.batchnorm_train(x, bn.weight, bn.bias, bn.running_mean, bn.running_var,
-                                  cfg.bn_eps, cfg.bn_momentum)
+                                  cfg.bn_eps, cfg.bn_momentum, mesh)
         else:
             x = L.batchnorm_eval(x, bn.weight, bn.bias, bn.running_mean, bn.running_var, cfg.bn_eps)
         act = block.act
@@ -215,23 +228,25 @@ class CRNN(nn.Module):
             x = L.dropout(x, rate, generator)
         return L.avg_pool(x, pool)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None, mesh=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x [B, T, F] (or [B, T, F, 1]) features → (strong, weak). In
         training mode `generator` feeds every dropout draw (the global CPU
-        generator when None) and the BatchNorm buffers are updated. Eval
-        mode is inference: it runs without a graph."""
+        generator when None) and the BatchNorm buffers are updated, with the
+        statistics of the global batch under a data-parallel `mesh`
+        (parallel/mesh.py). Eval mode is inference: it runs without a graph
+        and needs no mesh."""
         if not self.training:
             with torch.no_grad():
-                return self._forward(x, None)
-        return self._forward(x, torch.default_generator if generator is None else generator)
+                return self._forward(x, None, None)
+        return self._forward(x, torch.default_generator if generator is None else generator, mesh)
 
-    def _forward(self, x, generator):
+    def _forward(self, x, generator, mesh):
         if x.dim() == 3:
             x = x[..., None]
         use_fused = self._use_fused()
         for i, block in enumerate(self.cnn):
-            x = self._block(i, block, x, use_fused, generator)
+            x = self._block(i, block, x, use_fused, generator, mesh)
         B, T, Fq, C = x.shape
         x = x[:, :, 0, :] if Fq == 1 else x.permute(0, 1, 3, 2).reshape(B, T, C * Fq)
         x, _ = self.rnn(x.to(torch.float32).contiguous())

@@ -17,6 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from dcase2019_task4_tpu_torch.parallel.mesh import all_reduce_sum
+
 
 def conv2d(weight, bias, x: torch.Tensor, stride: int = 1, padding: int = 1) -> torch.Tensor:
     """NHWC conv with an OIHW weight (nn.Conv2d layout) → NHWC, contiguous,
@@ -41,15 +43,28 @@ def batchnorm_eval(x, scale, bias, mean, var, eps: float):
     return (x - mean) * torch.rsqrt(var + eps) * scale + bias
 
 
-def batchnorm_train(x, scale, bias, running_mean, running_var, eps: float, momentum: float):
+def batchnorm_train(x, scale, bias, running_mean, running_var, eps: float, momentum: float, mesh=None):
     """BatchNorm over all axes but the channel with batch statistics, in the
     graph (torch BatchNorm2d semantics): biased variance to normalise,
     unbiased for the running update, running ← (1−m)·running + m·batch,
-    written into the two buffers in place."""
+    written into the two buffers in place.
+
+    Under a data-parallel `mesh` of more than one rank the statistics are
+    the global batch's, as the JAX layer forms them (layers.py:176-181):
+    Σx and Σx² summed over the ranks in one buffer, n = local · world,
+    var = Σx²/n − mean². The sum is differentiable: its backward sums the
+    cotangent over the ranks. At world size 1 the single-process formulas
+    above stand, whose bits Σx²/n − mean² would not repeat."""
     axes = tuple(range(x.dim() - 1))
-    mean = x.mean(dim=axes)
-    var = x.var(dim=axes, unbiased=False)
     n = x.numel() // x.shape[-1]
+    if mesh is not None and mesh.world_size > 1:
+        s, sq = all_reduce_sum(torch.cat([x.sum(dim=axes), (x * x).sum(dim=axes)]), mesh).split(x.shape[-1])
+        n *= mesh.world_size
+        mean = s / n
+        var = sq / n - mean * mean
+    else:
+        mean = x.mean(dim=axes)
+        var = x.var(dim=axes, unbiased=False)
     update_running_stats(running_mean, running_var, mean, var, n, momentum)
     return (x - mean) * torch.rsqrt(var + eps) * scale + bias
 

@@ -63,19 +63,20 @@ crows_stats_apply.launches_bf16 = 0
 
 
 def crows_apply(conv_params, scale, bias, mean, var, glu_w, glu_b, x, seed, rate: float,
-                pool: Tuple[int, int], eps: float, train: bool, compute_dtype=None, pack_bits=None):
+                pool: Tuple[int, int], eps: float, train: bool, compute_dtype=None, pack_bits=None, mesh=None):
     """Logical-parameter entry: x [B, T, F, 1] + conv {"w": [3, 3, 1, C], "b":
     [C]} + [C] BatchNorm vectors + [C, C] GLU weight → pooled
     [B, T/pt, F/pf, C], with the contract of
     `fused_entry_block.entry_block_apply` (detached mean/var, the two-pass
-    backward inside; `pack_bits` the dropout draw, default
+    backward inside, its S1, S2 summed over the ranks of a data-parallel
+    `mesh` between the passes; `pack_bits` the dropout draw, default
     `fused_block.PACK_BITS`)."""
     if not crows_applicable((*x.shape[:3], 1), pool):
         raise ValueError(f"crows_apply does not take x {tuple(x.shape)} with pool {tuple(pool)}")
     with fused_entry_block.called_through(crows_apply):
         return fused_entry_block.entry_block_apply(conv_params, scale, bias, mean, var, glu_w, glu_b, x, seed, rate,
                                                    pool, eps, train, compute_dtype, layout="crows",
-                                                   pack_bits=pack_bits)
+                                                   pack_bits=pack_bits, mesh=mesh)
 
 
 crows_apply.launches_eval = 0

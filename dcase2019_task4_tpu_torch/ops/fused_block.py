@@ -84,6 +84,7 @@ from typing import Optional, Tuple
 import torch
 
 from dcase2019_task4_tpu_torch.ops import _build
+from dcase2019_task4_tpu_torch.parallel.mesh import all_reduce_
 
 _TILE_PIXELS = 128  # csrc/fused_block.cu kPix
 _TARGET_BLOCKS = 1056  # bfloat16 forward: 8 resident blocks on each of the H100's 132 SMs
@@ -723,13 +724,15 @@ bwd_fixup.launches_bf16 = 0
 
 class _FusedBlock(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, y, scale, bias, mean, var, glu_w, glu_b, seed, rate, pool, eps, train, pack_bits, recompute):
+    def forward(ctx, y, scale, bias, mean, var, glu_w, glu_b, seed, rate, pool, eps, train, pack_bits, recompute,
+                mesh):
         rate = float(rate) if train else 0.0
         seed = torch.as_tensor(seed, dtype=torch.int64).reshape(1).clone()
         ctx.save_for_backward(y, scale, bias, mean, var, glu_w, glu_b, seed)
         ctx.rate, ctx.pool, ctx.eps = rate, tuple(int(p) for p in pool), float(eps)
         # the modes this forward ran under: the backward regenerates its mask
         ctx.pack_bits, ctx.recompute = pack_mode(pack_bits), recompute_mode(recompute)
+        ctx.mesh = mesh
         return fused_bn_glu_pool(y, scale, bias, mean, var, glu_w, glu_b, pool, eps, rate=rate, seed=seed,
                                  pack_bits=ctx.pack_bits)
 
@@ -741,19 +744,34 @@ class _FusedBlock(torch.autograd.Function):
         dyp, dw, db, s1, s2 = bwd_reduce(y, dout, scale, bias, mean, var, glu_w, glu_b, ctx.pool, ctx.eps,
                                          recompute=ctx.recompute, **kw)
         B, T, Fq, _ = y.shape
-        a, b = bwd_coefficients(scale.detach().to(torch.float32), var.to(torch.float32), ctx.eps, s1, s2, B * T * Fq)
+        # the forward normalised with the global batch's statistics, so the
+        # coefficients take the global S1, S2 and n (JAX fused_block.py:529-536)
+        s1g, s2g, n = global_sums(s1, s2, B * T * Fq, ctx.mesh)
+        a, b = bwd_coefficients(scale.detach().to(torch.float32), var.to(torch.float32), ctx.eps, s1g, s2g, n)
         if ctx.recompute:
             dy = bwd_fixup_recompute(y, dout, scale, bias, mean, var, glu_w, glu_b, a, b, ctx.pool, ctx.eps, **kw)
         else:
             dy = bwd_fixup(y, dyp, a, b, mean)
-        # dscale = S2, dbias = S1; mean/var are detached inputs; seed, rate,
-        # pool, eps, train and the modes take no gradient
-        return dy, s2, s1, None, None, dw, db, None, None, None, None, None, None, None
+        # dscale = S2, dbias = S1 and dw, db stay this rank's sums (the step's
+        # gradient mean makes them the global batch's); mean/var are detached
+        # inputs; seed, rate, pool, eps, train, the modes and the mesh take no
+        # gradient
+        return dy, s2, s1, None, None, dw, db, None, None, None, None, None, None, None, None
+
+
+def global_sums(s1, s2, n: int, mesh):
+    """S1, S2 and the element count of the global batch: under a
+    data-parallel mesh S1 and S2 summed over the ranks in one all-reduce and
+    n = local · world; without one, as given."""
+    if mesh is None:
+        return s1, s2, n
+    s1, s2 = all_reduce_(torch.cat([s1, s2]), mesh, "bn_backward").split(s1.numel())
+    return s1, s2, n * mesh.world_size
 
 
 def fused_bn_glu_dropout_pool(y, scale, bias, mean, var, glu_w, glu_b, seed, rate: float,
                               pool: Tuple[int, int], eps: float, train: bool, *,
-                              pack_bits: Optional[bool] = None, recompute: Optional[bool] = None):
+                              pack_bits: Optional[bool] = None, recompute: Optional[bool] = None, mesh=None):
     """Fused BN→GLU→dropout→avg-pool with its exact backward.
 
     y [B, T, F, C] conv output (float32 or bfloat16: the compute dtype,
@@ -763,9 +781,11 @@ def fused_bn_glu_dropout_pool(y, scale, bias, mean, var, glu_w, glu_b, seed, rat
     db). seed: int or integer tensor, new each step; `train` switches the
     dropout on (rate is ignored in eval mode). `pack_bits` and `recompute`
     (default PACK_BITS and RECOMPUTE_FIXUP, read here) are recorded for the
-    backward."""
+    backward. Under a data-parallel `mesh` mean/var are the global batch's,
+    and the backward sums S1, S2 over the ranks between its passes: only
+    the fixup runs after the collective."""
     if mean.requires_grad or var.requires_grad:
         raise ValueError("mean and var must be detached: the backward already carries the "
                          "through-statistics terms")
     return _FusedBlock.apply(y, scale, bias, mean, var, glu_w, glu_b, seed, rate, pool, eps, train,
-                             pack_mode(pack_bits), recompute_mode(recompute))
+                             pack_mode(pack_bits), recompute_mode(recompute), mesh)

@@ -558,12 +558,13 @@ entry_block_bwd_wgrad.launches_packed = 0
 class _EntryBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, seed, rate, pool, eps, train, layout,
-                pack_bits):
+                pack_bits, mesh):
         rate = float(rate) if train else 0.0
         seed = torch.as_tensor(seed, dtype=torch.int64).reshape(1).clone()
         ctx.save_for_backward(x, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, seed)
         ctx.rate, ctx.pool, ctx.eps, ctx.entry = rate, tuple(int(p) for p in pool), float(eps), _entry
         ctx.layout, ctx.pack_bits = layout, bool(pack_bits)  # the backward regenerates this forward's mask
+        ctx.mesh = mesh
         return entry_block_fwd(x, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, pool, eps,
                                rate=rate, seed=seed, layout=layout, pack_bits=ctx.pack_bits)
 
@@ -575,18 +576,20 @@ class _EntryBlock(torch.autograd.Function):
         with called_through(ctx.entry):
             dgw, dgb, s1, s2 = entry_block_bwd_reduce(*args, ctx.pool, ctx.eps, **kw)
             # between the passes: the through-statistics coefficients from the
-            # whole S1, S2 (a data-parallel run all-reduces them here)
+            # global batch's S1, S2 and n (JAX fused_entry_block.py:352-356)
+            s1g, s2g, n = fused_block.global_sums(s1, s2, x.numel(), ctx.mesh)
             a, b2 = fused_block.bwd_coefficients(scale.detach().to(torch.float32), var.to(torch.float32), ctx.eps,
-                                                 s1, s2, x.numel())
+                                                 s1g, s2g, n)
             dw, dcb = entry_block_bwd_wgrad(*args, a, b2, ctx.pool, ctx.eps, layout=ctx.layout, **kw)
-        # x carries no gradient; dscale = S2, dbias = S1; mean/var are
-        # detached inputs; seed, rate, pool, eps, train, layout, pack_bits take none
-        return None, dw, dcb, s2, s1, None, None, dgw, dgb, None, None, None, None, None, None, None
+        # x carries no gradient; dscale = S2, dbias = S1 (this rank's sums);
+        # mean/var are detached inputs; seed, rate, pool, eps, train, layout,
+        # pack_bits and the mesh take none
+        return None, dw, dcb, s2, s1, None, None, dgw, dgb, None, None, None, None, None, None, None, None
 
 
 def entry_block_apply(conv_params, scale, bias, mean, var, glu_w, glu_b, x, seed, rate: float,
                       pool: Tuple[int, int], eps: float, train: bool, compute_dtype=None, layout: str = "planes",
-                      pack_bits: Optional[bool] = None):
+                      pack_bits: Optional[bool] = None, mesh=None):
     """The fused first block with its exact backward: x [B, T, F, 1] + conv
     {"w": [3, 3, 1, C], "b": [C]} + [C] BatchNorm vectors + [C, C] GLU
     weight (in, out) → pooled [B, T/pt, F/pf, C] in the compute dtype (x's
@@ -597,7 +600,9 @@ def entry_block_apply(conv_params, scale, bias, mean, var, glu_w, glu_b, x, seed
     seed: int or integer tensor, new each step; `train` switches the dropout
     on (rate is ignored in eval mode). `layout`: whose bfloat16 roundings to
     reproduce, "planes" (this module's original) or "crows". `pack_bits`:
-    the dropout draw (default `fused_block.PACK_BITS`, read here)."""
+    the dropout draw (default `fused_block.PACK_BITS`, read here). Under a
+    data-parallel `mesh` mean/var are the global batch's, and the backward
+    sums S1, S2 over the ranks between K5b1 and K5b2."""
     _check_layout(layout)
     if mean.requires_grad or var.requires_grad:
         raise ValueError("mean and var must be detached: the backward already carries the "
@@ -605,4 +610,4 @@ def entry_block_apply(conv_params, scale, bias, mean, var, glu_w, glu_b, x, seed
     x = entry_conv._features(x)
     x = x.to(entry_conv.compute_dtype_of(compute_dtype, x))
     return _EntryBlock.apply(x, conv_params["w"], conv_params["b"], scale, bias, mean, var,
-                             glu_w, glu_b, seed, rate, pool, eps, train, layout, fused_block.pack_mode(pack_bits))
+                             glu_w, glu_b, seed, rate, pool, eps, train, layout, fused_block.pack_mode(pack_bits), mesh)

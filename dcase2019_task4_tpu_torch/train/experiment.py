@@ -1,5 +1,5 @@
 """End-to-end experiment assembly without jax and pandas (counterpart of
-dcase2019_task4_tpu/train/experiment.py, on one device):
+dcase2019_task4_tpu/train/experiment.py):
 
   TSV manifests → packed streams → pinned host batches → [device] K1
   frontend → CRNN → losses, Adam and EMA (train/steps.py) → batched
@@ -7,8 +7,7 @@ dcase2019_task4_tpu/train/experiment.py, on one device):
 
 Stream composition, splits, seeds, loss masks, ramp lengths, optimizer and
 EMA hyperparameters all follow the JAX package (and with it the reference
-recipe). What the JAX package adds for many devices (mesh, multi-host) is
-not ported here. `device_cache` keeps the whole training set on the
+recipe). `device_cache` keeps the whole training set on the
 device (data.pipeline.DeviceResidentData) and gathers each epoch's
 batches there: the same batches and draws as the streamed loop, and no
 batch queue.
@@ -19,6 +18,18 @@ so a run on the card and one on the CPU start from the same state; each
 epoch's draws (teacher noise, SpecAugment, dropout) come from one
 `torch.Generator` on the device, seeded with hash((seed, epoch)) % 2**31
 as the JAX package seeds its key.
+
+Data parallel (`mesh`, parallel/mesh.py; one process a card): the batch
+size is a rank's, and every rank draws the same global batch and trains on
+its shard-major cut with the per-rank loss slices; rank 0's state is
+broadcast after the build and after a restore; rank r > 0 seeds its
+epoch's generator from (seed, epoch, r), so the ranks' draws are
+equivalent to the JAX package's per-device draws in distribution only.
+Each rank validates every world-th file (`shard_manifest`) and the
+additive event, segment and tagging counts are summed over the ranks, so
+every rank logs the same numbers and SaveBest reads them. Rank 0 alone
+writes metrics.jsonl and the checkpoints; the others wait for them before
+reading one.
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from dcase2019_task4_tpu_torch.data.encoder import LabelCodec
 from dcase2019_task4_tpu_torch.data.manifests import (
     Manifest,
     load_manifest,
+    shard_manifest,
     split_synthetic,
     split_weak,
     subpart_manifest,
@@ -50,9 +62,16 @@ from dcase2019_task4_tpu_torch.data.pipeline import (
 )
 from dcase2019_task4_tpu_torch.eval.decode import decode_batch, write_events_tsv
 from dcase2019_task4_tpu_torch.eval.evaluate import resolve_device
-from dcase2019_task4_tpu_torch.eval.sed_scores import compute_strong_metrics
-from dcase2019_task4_tpu_torch.eval.tagging import TaggingF1
+from dcase2019_task4_tpu_torch.eval.sed_scores import (
+    SedMetrics,
+    compute_strong_metrics,
+    event_based_metrics,
+    segment_based_metrics,
+)
+from dcase2019_task4_tpu_torch.eval.tagging import TaggingF1, macro_f_measure
 from dcase2019_task4_tpu_torch.ops.mel import MelFrontend
+from dcase2019_task4_tpu_torch.parallel.mesh import replicate_state
+from dcase2019_task4_tpu_torch.parallel.multihost import all_sum_hosts, sync_hosts
 from dcase2019_task4_tpu_torch.train import checkpoints as ckpt
 from dcase2019_task4_tpu_torch.train.steps import (
     init_train_state,
@@ -65,6 +84,13 @@ from dcase2019_task4_tpu_torch.utils.logger import get_logger
 from dcase2019_task4_tpu_torch.utils.meters import AverageMeterSet, EarlyStopping, SaveBest
 from dcase2019_task4_tpu_torch.utils.metrics_writer import MetricsWriter
 from dcase2019_task4_tpu_torch.utils.scaler import Scaler
+
+
+def epoch_seed(seed: int, epoch: int, rank: int = 0) -> int:
+    """The seed of an epoch's generator: hash((seed, epoch)) % 2**31 on
+    rank 0, as the JAX package seeds its key, and from (seed, epoch, rank)
+    on the other ranks of a data-parallel run."""
+    return hash((seed, epoch) if rank == 0 else (seed, epoch, rank)) % (2**31)
 
 
 class Experiment:
@@ -82,9 +108,13 @@ class Experiment:
         paired_teacher_view: bool = False,
         device="cuda",
         device_cache: bool = False,
+        mesh=None,
     ):
         self.cfg = cfg
         self.device = resolve_device(str(device))
+        self.mesh = mesh
+        self.process_index = 0 if mesh is None else mesh.rank
+        self.process_count = 1 if mesh is None else mesh.world_size
         self.ramped_adam = ramped_adam
         # the whole training set resident on the device, each epoch gathered
         # there by index: the same batches and draws as the streamed path
@@ -165,7 +195,6 @@ class Experiment:
         # 80/20 splits, seed 26 (main.py:215-223)
         train_weak_m, valid_weak_m = split_weak(weak_m, 1 - t.valid_fraction, t.split_seed)
         train_synth_m, valid_synth_m = split_synthetic(synth_m, 1 - t.valid_fraction, t.split_seed)
-        self.valid_synth_rows = valid_synth_m.rows
         self.valid_weak_m = valid_weak_m
 
         bs = t.batch_size
@@ -196,18 +225,26 @@ class Experiment:
             ]
             batch_sizes = [bs // 4, bs // 2, bs // 4]
         d = cfg.dsp
+        # data parallel: every rank draws the global batch (the per-rank
+        # layout tiled world times) and builds its shard-major cut
         self.pipeline = BatchPipeline(streams, batch_sizes, d.max_samples, d.n_window, d.hop_length,
-                                      d.max_frames, seed=self.seed)
-        # loss masks = static slices of the stream layout (main.py:238-247)
+                                      d.max_frames, seed=self.seed, n_shards=self.process_count,
+                                      process_index=self.process_index, process_count=self.process_count)
+        # loss masks = static per-rank slices of the stream layout (main.py:238-247)
         slices = self.pipeline.stream_slices()
         names = [s.name for s in streams]
         self.weak_slice = slices[names.index("weak")] if "weak" in names else None
         self.strong_slice = slices[names.index("synthetic")] if "synthetic" in names else None
+        # data parallel: each rank validates every world-th file; validate()
+        # sums the additive counts over the ranks
+        valid_synth_m = shard_manifest(valid_synth_m, self.process_index, self.process_count)
+        valid_weak_m = shard_manifest(valid_weak_m, self.process_index, self.process_count)
+        self.valid_synth_rows = valid_synth_m.rows
         self.valid_synth_stream = self._make_stream("valid_synth", valid_synth_m, p.synthetic)
         self.valid_weak_stream = self._make_stream("valid_weak", valid_weak_m, p.weak)
         if self.device_cache:
             t0 = time.time()
-            self._device_data = DeviceResidentData(self.pipeline, self.device)
+            self._device_data = DeviceResidentData(self.pipeline, self.device, mesh=self.mesh)
             self.log.info(f"device-resident dataset: {self._device_data.nbytes / 2**20:.0f} MiB pinned in "
                           f"{time.time() - t0:.1f}s (one gathered batch a step, no batch queue)")
         self._fit_scaler()
@@ -273,7 +310,7 @@ class Experiment:
         self.scaler.mean_of_square_ = total_sq / count
         self.scaler._finalize()
         self.log.info(f"scaler fit in {time.time() - t0:.1f}s ({count} clips)")
-        if cache_path:
+        if cache_path and self.process_index == 0:
             os.makedirs(cache_dir, exist_ok=True)
             self.scaler.save(cache_path)
             self.log.info(f"scaler stats cached: {cache_path}")
@@ -283,10 +320,10 @@ class Experiment:
         if len(self.pipeline) == 0:
             sizes = {s.name: len(s) for s in self.pipeline.streams}
             raise ValueError(
-                f"0 steps/epoch: batch {self.pipeline.batch_size} "
-                f"(per-stream {self.pipeline.sampler.batch_sizes}) exceeds "
-                f"the available stream sizes {sizes}: lower the batch size "
-                "or raise --subpart_data"
+                f"0 steps/epoch: global batch {self.pipeline.batch_size} "
+                f"(per-stream {self.pipeline.sampler.batch_sizes}, the batch of each of "
+                f"{self.process_count} ranks) exceeds the available stream sizes {sizes}: "
+                "lower the batch size or the world size, or raise --subpart_data"
             )
         # rampup_length = steps/epoch · the config's n_epoch / 2 (main.py:72)
         rampup_length = len(self.pipeline) * t.n_epoch // 2
@@ -325,10 +362,13 @@ class Experiment:
             scaler_std=std,
             noise_std=t.noise_std if self.mean_teacher else 0.0,
             spec_augment_cfg=sa_cfg,
+            mesh=self.mesh,
         )
         self.eval_features = make_eval_features(self.frontend, mean, std)
         self.state = init_train_state(self.cfg.model, make_optimizer, torch.Generator().manual_seed(self.seed),
                                       with_ema=self.mean_teacher, device=self.device)
+        if self.mesh is not None:
+            replicate_state(self.state, self.mesh)
         self.predict_step = make_predict_step(self.state.student)
 
     # -------------------------------------------------------------- train
@@ -340,9 +380,11 @@ class Experiment:
         step (main.py:147-148). Under `device_cache` the batches are
         gathered from the resident rows instead. `epoch_stats` gains the
         epoch's wall time, steps and the seconds the loop waited on the
-        batch queue (0.0 with resident rows)."""
+        batch queue (0.0 with resident rows). Data parallel: the metric sums
+        are averaged over the ranks once, at the epoch's end."""
         meters = AverageMeterSet()
-        generator = torch.Generator(device=self.device).manual_seed(hash((self.seed, epoch)) % (2**31))
+        generator = torch.Generator(device=self.device).manual_seed(epoch_seed(self.seed, epoch,
+                                                                               self.process_index))
         start = time.time()
         n, wait = 0, 0.0
         acc = self.train_step.zero_metrics(self.device)
@@ -376,6 +418,7 @@ class Experiment:
         # fetch per epoch (main.py:106-150)
         if n:
             keys = self.train_step.metric_keys
+            acc = self.train_step.mean_over_ranks(acc)
             sums = torch.stack([acc[k] for k in keys]).cpu().tolist()
             for k, v in zip(keys, sums):
                 meters.update(k, v / n, n)
@@ -410,11 +453,31 @@ class Experiment:
 
     def weak_f1(self, stream: Stream) -> np.ndarray:
         """Per-class weak tagging F1 over a stream (get_f_measure_by_class,
-        evaluation_measures.py:19-83)."""
+        evaluation_measures.py:19-83). Data parallel: the confusion counts
+        summed over the ranks (exact for a sharded stream, and for one every
+        rank scores whole, since F1 does not change with the counts'
+        scale)."""
         acc = TaggingF1(len(self.classes))
         for batch, _, weak in self._eval_batches(stream):
             acc.update(weak.cpu().numpy(), batch["target"][: batch["n_valid"]])
-        return acc.per_class_f1()
+        if self.mesh is None:
+            return acc.per_class_f1()
+        tp, fp, fn = all_sum_hosts(np.stack([acc.tp, acc.fp, acc.fn]), self.mesh)
+        return macro_f_measure(tp, fp, fn)
+
+    def _merged_strong_metrics(self, predictions):
+        """Data parallel: this rank's files scored, the additive count
+        vectors summed over the ranks and the metrics rebuilt, so every rank
+        logs the numbers of an unsharded run."""
+        ev_local = event_based_metrics(self.valid_synth_rows, predictions, 0.200, 0.2)
+        seg_local = segment_based_metrics(self.valid_synth_rows, predictions, 1.0)
+        ev = SedMetrics.from_counts(self.classes, "Event-based",
+                                    all_sum_hosts(ev_local.count_vector(self.classes), self.mesh))
+        seg = SedMetrics.from_counts(self.classes, "Segment-based",
+                                     all_sum_hosts(seg_local.count_vector(self.classes), self.mesh), segment_based=True)
+        self.log.info(str(ev))
+        self.log.info(str(seg))
+        return ev
 
     def _log_weak(self, weak: np.ndarray):
         self.log.info(f"Weak F1 per class: {dict(zip(self.classes, np.round(weak * 100, 2)))}")
@@ -434,7 +497,10 @@ class Experiment:
                 self._log_weak(self.weak_f1(self.pipeline.streams[names.index("weak")]))
         self.log.info("### Valid synthetic metric ###")
         predictions = self.predict_dataframe(self.valid_synth_stream)
-        event_metric = compute_strong_metrics(predictions, self.valid_synth_rows, self.log)
+        if self.mesh is None:
+            event_metric = compute_strong_metrics(predictions, self.valid_synth_rows, self.log)
+        else:
+            event_metric = self._merged_strong_metrics(predictions)
         self.log.info("### Valid weak metric ###")
         weak = self.weak_f1(self.valid_weak_stream)
         self._log_weak(weak)
@@ -455,7 +521,9 @@ class Experiment:
         }
 
     def _save(self, path: str, meta: Dict):
-        ckpt.save_checkpoint(path, self.state, meta, ramped_adam=self.ramped_adam)
+        """Rank 0 writes; the ranks hold the same state."""
+        if self.process_index == 0:
+            ckpt.save_checkpoint(path, self.state, meta, ramped_adam=self.ramped_adam)
 
     def run(
         self,
@@ -491,7 +559,7 @@ class Experiment:
             meta = self.restore(resume_from)
             start_epoch = int(meta["epoch"]) + 1
             self.log.info(f"resumed from {resume_from} at epoch {start_epoch}")
-        writer = MetricsWriter(os.path.join(store_dir, "metrics.jsonl"))
+        writer = MetricsWriter(os.path.join(store_dir, "metrics.jsonl") if self.process_index == 0 else None)
         for epoch in range(start_epoch, n_epoch):
             t0 = time.time()
             meters = self.train_epoch(epoch)
@@ -530,8 +598,11 @@ class Experiment:
                 )
                 break
         writer.close()
+        sync_hosts(self.mesh)  # rank 0's checkpoints are on disk before any rank reads one
         if t.save_best and os.path.exists(best_path):
             self.state, meta = ckpt.restore_checkpoint(best_path, self.state, self.ramped_adam)
+            if self.mesh is not None:
+                replicate_state(self.state, self.mesh)
             self.log.info(f"testing model: {best_path} (epoch {meta['epoch']})")
         return last_valid
 
@@ -546,4 +617,6 @@ class Experiment:
         self.scaler.load_state_dict(meta["scaler"])
         self._build_steps()
         self.state, _ = ckpt.restore_checkpoint(path, self.state, self.ramped_adam)
+        if self.mesh is not None:
+            replicate_state(self.state, self.mesh)
         return meta

@@ -19,6 +19,16 @@ caller passes, in the order of the JAX step's key split (steps.py:214):
 the teacher's feature noise, the SpecAugment masks of the student features,
 the student's dropout, the teacher's dropout; each is made on the
 generator's device.
+
+Data parallel (`mesh`, parallel/mesh.py; the JAX step under shard_map):
+each rank runs the step on its own chunk of the global batch, laid out
+[weak | unlabeled | synthetic] with the per-rank slices, and draws from its
+own generator. Both models' BatchNorm statistics are the global batch's
+(models/crnn.py), and after the backward the student's gradients are
+averaged over the ranks in one flat all-reduce (the JAX step's pmean)
+before Adam, so every rank takes the same update. The metrics stay this
+rank's: `TrainStep.mean_over_ranks` averages an epoch's sums in one
+all-reduce where the JAX step pmeans every step's.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import torch
 
 from dcase2019_task4_tpu_torch.models.crnn import CRNN, init_
 from dcase2019_task4_tpu_torch.ops.specaugment import spec_augment
+from dcase2019_task4_tpu_torch.parallel.mesh import all_reduce_, mean_over_ranks_
 from dcase2019_task4_tpu_torch.train import losses
 from dcase2019_task4_tpu_torch.train.ramps import sigmoid_rampup
 
@@ -87,12 +98,21 @@ class TrainStep:
     `acc` built by `zero_metrics(device)`. The sums live on the device;
     fetch them once per epoch and divide by the step count."""
 
-    def __init__(self, fn, metric_keys):
+    def __init__(self, fn, metric_keys, mesh=None):
         self._fn = fn
         self.metric_keys = tuple(metric_keys)
+        self.mesh = mesh
 
     def zero_metrics(self, device=None) -> Dict[str, torch.Tensor]:
         return {k: torch.zeros((), dtype=torch.float32, device=device) for k in self.metric_keys}
+
+    def mean_over_ranks(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Metric sums (or one step's metrics) → their mean over the ranks of
+        the step's mesh, in one all-reduce; the same dict without a mesh."""
+        if self.mesh is None:
+            return metrics
+        flat = all_reduce_(torch.stack([metrics[k] for k in self.metric_keys]), self.mesh, "metrics")
+        return dict(zip(self.metric_keys, flat / self.mesh.world_size))
 
     def __call__(self, state, batch, generator, acc):
         return self._fn(state, batch, generator, acc)
@@ -114,9 +134,13 @@ def make_train_step(
 ):
     """Build the step. The arguments are those of the JAX make_train_step
     without `model` and `optimizer` (they live in the TrainState) and without
-    `donate` and `axis_name`; `mesh` is refused: data-parallel training is
-    not ported yet. A non-empty `spec_augment_cfg` (the keyword arguments of
-    `ops.specaugment.spec_augment`) masks the student's normalised features.
+    `donate` and `axis_name`. A non-empty `spec_augment_cfg` (the keyword
+    arguments of `ops.specaugment.spec_augment`) masks the student's
+    normalised features. With a data-parallel `mesh` (parallel/mesh.py)
+    the batch is this rank's chunk, `weak_slice` / `strong_slice` are
+    per-rank slices, and the statistics and gradients are the global
+    batch's (the module docstring); the state must start equal on every
+    rank (`parallel.mesh.replicate_state`).
 
     Batch dict (tensors on the compute device):
       * fused-frontend mode (frontend given): {"audio": [B, Lp] reflect-padded
@@ -127,8 +151,6 @@ def make_train_step(
 
     Returns a TrainStep. After a step the student's `.grad` fields hold that
     step's gradients."""
-    if mesh is not None:
-        raise NotImplementedError("make_train_step: data-parallel training (mesh=) is not ported yet")
     spec_augment_cfg = dict(spec_augment_cfg or {})
 
     # static metric-key set, in the JAX step's order
@@ -179,11 +201,11 @@ def make_train_step(
         target = batch["target"]
         metrics: Dict[str, torch.Tensor] = {}
 
-        strong_s, weak_s = student(student_x, generator)
+        strong_s, weak_s = student(student_x, generator, mesh=mesh)
         if mean_teacher:
             teacher.train()  # batch statistics and dropout, as the reference's EMA model
             with torch.no_grad():
-                strong_t, weak_t = teacher(teacher_x, generator)
+                strong_t, weak_t = teacher(teacher_x, generator, mesh=mesh)
             cons_weight = max_consistency_cost * sigmoid_rampup(float(state.step), rampup_length)
 
         loss = torch.zeros((), dtype=torch.float32, device=strong_s.device)
@@ -202,6 +224,10 @@ def make_train_step(
 
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh is not None:
+            # the mean of the ranks' gradients is the gradient of the global
+            # batch's loss (equal per-rank rows of each stream)
+            mean_over_ranks_([p.grad for p in student.parameters() if p.grad is not None], mesh, "gradients")
         state.optimizer.step()
 
         if mean_teacher:
@@ -219,7 +245,7 @@ def make_train_step(
         new_acc = {k: acc[k] + metrics[k] for k in metric_keys}
         return state, metrics, new_acc
 
-    return TrainStep(step_fn, metric_keys)
+    return TrainStep(step_fn, metric_keys, mesh)
 
 
 def make_eval_features(frontend, scaler_mean=None, scaler_std=None):

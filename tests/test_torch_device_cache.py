@@ -43,6 +43,7 @@ from dcase2019_task4_tpu_torch.data import audio_io as taudio
 from dcase2019_task4_tpu_torch.data import manifests as tman
 from dcase2019_task4_tpu_torch.data import pipeline as tpipe
 from dcase2019_task4_tpu_torch.data.encoder import LabelCodec
+from dcase2019_task4_tpu_torch.parallel.mesh import Mesh
 from dcase2019_task4_tpu_torch.train import steps as tsteps
 from dcase2019_task4_tpu_torch.train.experiment import Experiment
 from dcase2019_task4_tpu_torch.utils.metrics_writer import read_metrics
@@ -118,12 +119,15 @@ def test_the_size_guard_and_the_sharded_branch_raise():
     _, tp = pipelines(False)
     with pytest.raises(ValueError, match="GiB"):
         tpipe.DeviceResidentData(tp, "cpu", max_bytes=1024)
-    # inside a process group of two, the rows would be sharded: data parallel
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tpipe.dist, "is_initialized", lambda: True)
-        mp.setattr(tpipe.dist, "get_world_size", lambda: 2)
-        with pytest.raises(ValueError, match="ROADMAP Queue 1 item 6"):
-            tpipe.DeviceResidentData(tp, "cpu")
+    # data parallel is ported: under a mesh of one process a card the rows
+    # stay whole on each card and a rank gathers its cut; only a multi-host
+    # mesh raises, as the JAX package refuses several processes
+    # (tests/test_torch_parallel_experiment.py runs the group itself)
+    mesh = Mesh(None, None, 0, 2, torch.device("cpu"), "gloo", multihost=True)
+    with pytest.raises(ValueError, match="multi-host"):
+        tpipe.DeviceResidentData(tp, "cpu", mesh=mesh)
+    dd = tpipe.DeviceResidentData(tp, "cpu", mesh=dataclasses.replace(mesh, multihost=False))
+    assert dd.n_real == sum(len(s) for s in tp.streams)
 
 
 @pytest.fixture(scope="module")

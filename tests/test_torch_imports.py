@@ -37,7 +37,8 @@ def test_every_module_is_listed():
                  "data.encoder", "data.audio_io", "native", "train.ramps", "train.losses",
                  "train.schedules", "train.steps", "ops.entry_conv", "ops.fused_entry_block", "ops.crows_block",
                  "data.manifests", "data.sampler", "data.features_cache", "eval.sed_scores", "eval.tagging",
-                 "utils.meters", "utils.metrics_writer", "train.experiment", "eval.thresholds"):
+                 "utils.meters", "utils.metrics_writer", "train.experiment", "eval.thresholds", "parallel.mesh",
+                 "parallel.multihost"):
         assert f"dcase2019_task4_tpu_torch.{name}" in MODULES
 
 

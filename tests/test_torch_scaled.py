@@ -170,7 +170,7 @@ def test_crnn_matches_jax(jax_model, train):
     strong_ref, weak_ref, bn_ref = apply(params, bn, jnp.asarray(x), train=train, rng=jax.random.PRNGKey(1))
     calls = {"k2": [], "k3": []}
     real_k2, real_k3 = tfb.fused_bn_glu_dropout_pool, tpc.conv2d_packed
-    tfb.fused_bn_glu_dropout_pool = lambda y, *a: (calls["k2"].append(y.dtype), real_k2(y, *a))[1]
+    tfb.fused_bn_glu_dropout_pool = lambda y, *a, **kw: (calls["k2"].append(y.dtype), real_k2(y, *a, **kw))[1]
     tpc.conv2d_packed = lambda p, x_: (calls["k3"].append(x_.dtype), real_k3(p, x_))[1]
     try:
         net = _port_model(params, bn).train(train)

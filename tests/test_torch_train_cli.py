@@ -8,7 +8,7 @@ best checkpoint, metrics.jsonl and both prediction TSVs; the scoring
 the final test wrote, and its F1s and rows are the JAX package's
 `CheckpointEvaluator.test_model` on the same checkpoint (the rows' times
 equal, the F1s equal). Flags of what is not ported fail naming the ROADMAP
-item.
+item; the data-parallel flags reach the process group's set-up.
 """
 
 import csv
@@ -158,14 +158,8 @@ def test_the_model_flags_train_through_the_cli(tmp_path, monkeypatch, flags):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["train_meanteacher", "--data_parallel"], "item 6"),
-    (["train_meanteacher", "--multihost"], "item 6"),
-    (["train_meanteacher", "--coordinator_address", "localhost:1234"], "item 6"),
-    (["train_crnn", "--num_processes", "2"], "item 6"),
-    (["train_crnn", "--process_id", "0"], "item 6"),
     (["evaluate", "-m", "x", "--torch_checkpoint"], "item 7"),
     (["evaluate", "-m", "x", "--export", "out"], "item 7"),
-    (["evaluate", "-m", "x", "--data_parallel"], "item 6"),
 ])
 def test_flags_not_ported_fail_naming_the_roadmap_item(capsys, argv, item):
     with pytest.raises(SystemExit) as exc:
@@ -173,6 +167,67 @@ def test_flags_not_ported_fail_naming_the_roadmap_item(capsys, argv, item):
     assert exc.value.code != 0
     err = capsys.readouterr().err
     assert "not ported yet" in err and f"ROADMAP Queue 1 {item}" in err
+
+
+class _Reached(Exception):
+    """The mesh was made: the command stops there."""
+
+
+TORCHRUN = ("127.0.0.1:29500", 1, 0)  # the address is handed on, never opened
+
+
+@pytest.mark.parametrize("argv, called, multihost", [
+    (["train_meanteacher", "--data_parallel"], TORCHRUN, False),
+    (["train_meanteacher", "--multihost"], (None, None, None), True),
+    (["train_meanteacher", "--coordinator_address", "localhost:1234"], ("localhost:1234", None, None), True),
+    (["train_crnn", "--num_processes", "2"], (None, 2, None), True),
+    (["train_crnn", "--process_id", "0"], (None, None, 0), True),
+    (["evaluate", "-m", "x", "--data_parallel"], TORCHRUN, False),
+])
+def test_parallel_flags_reach_the_group_set_up(tmp_path, monkeypatch, argv, called, multihost):
+    """The five data-parallel flags are ported: `--data_parallel` brings the
+    group up from torchrun's environment, the multi-host flags from
+    themselves, both through `multihost.initialize`, which stands in here
+    for a group of world size 1 at a `file://` store; the command stops
+    once its mesh is made."""
+    import torch.distributed as dist
+
+    from dcase2019_task4_tpu_torch.parallel import mesh, multihost as mh
+
+    for key, value in (("RANK", "0"), ("WORLD_SIZE", "1"), ("LOCAL_RANK", "0"), ("MASTER_ADDR", "127.0.0.1"),
+                       ("MASTER_PORT", "29500")):
+        monkeypatch.setenv(key, value)
+    calls, meshes = [], []
+    real_init, real_mesh = mh.initialize, mesh.make_mesh
+
+    def initialize(address, n, pid, backend=None, device="cuda"):
+        calls.append((address, n, pid, str(device)))
+        return real_init(f"file://{tmp_path / 'store'}", 1, 0, backend="gloo", device="cpu")
+
+    def make_mesh(*args, **kwargs):
+        meshes.append(real_mesh(*args, **kwargs))
+        raise _Reached
+
+    monkeypatch.setattr(mh, "initialize", initialize)
+    monkeypatch.setattr(mesh, "make_mesh", make_mesh)
+    try:
+        with pytest.raises(_Reached):
+            cli.main(argv + ["--device", "cpu"])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert calls == [(*called, "cpu")]
+    (m,) = meshes
+    assert (m.rank, m.world_size, m.backend, m.device.type, m.multihost) == (0, 1, "gloo", "cpu", multihost)
+
+
+def test_multihost_flags_come_together():
+    from dcase2019_task4_tpu_torch.parallel import multihost as mh
+
+    with pytest.raises(ValueError, match="--coordinator_address, --num_processes and --process_id"):
+        mh.initialize("localhost:1234", None, None, device="cpu")
+    with pytest.raises(ValueError, match="process_id 2"):
+        mh.initialize("localhost:1234", 2, 2, device="cpu")
 
 
 def test_cuda_without_a_card_raises():

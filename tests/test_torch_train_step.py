@@ -50,6 +50,7 @@ from dcase2019_task4_tpu.train import steps as jsteps
 from dcase2019_task4_tpu_torch.models import crnn as tcrnn
 from dcase2019_task4_tpu_torch.ops import fused_entry_block as tfeb
 from dcase2019_task4_tpu_torch.ops import mel as tmel
+from dcase2019_task4_tpu_torch.parallel.mesh import Mesh
 from dcase2019_task4_tpu_torch.train import checkpoints as tckpt
 from dcase2019_task4_tpu_torch.train import losses as tlosses
 from dcase2019_task4_tpu_torch.train import ramps as tramps
@@ -508,11 +509,18 @@ def test_scaler_and_metric_accumulator():
 
 
 def test_mesh_and_specaugment_are_refused():
-    """`mesh=` is refused; SpecAugment is ported and no longer refused: a
-    step with a SpecAugment configuration builds with the same metrics (its
-    parity with JAX is tests/test_torch_scaled.py's)."""
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tsteps.make_train_step(WEAK, STRONG, mesh=object())
+    """Neither is refused any more. `mesh=` builds the data-parallel step
+    and keeps its mesh for the metric mean (its parity with one process and
+    with JAX is tests/test_torch_parallel.py's); without a mesh the metrics
+    come back as they are. SpecAugment is ported: a step with a SpecAugment
+    configuration builds with the same metrics (its parity with JAX is
+    tests/test_torch_scaled.py's)."""
+    mesh = Mesh(None, None, 0, 1, torch.device("cpu"), "gloo")
+    step = tsteps.make_train_step(WEAK, STRONG, mesh=mesh)
+    assert step.mesh is mesh and step.metric_keys == tsteps.make_train_step(WEAK, STRONG).metric_keys
+    plain = tsteps.make_train_step(WEAK, STRONG)
+    acc = plain.zero_metrics()
+    assert plain.mean_over_ranks(acc) is acc
     sa = tsteps.make_train_step(WEAK, STRONG, spec_augment_cfg={"time_masks": 2})
     assert sa.metric_keys == tsteps.make_train_step(WEAK, STRONG, spec_augment_cfg={}).metric_keys
     assert tsteps.make_train_step(WEAK, STRONG, spec_augment_cfg={}).metric_keys[0] == "loss"
