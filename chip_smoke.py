@@ -200,6 +200,23 @@ printing a result:
      `python3 chip_smoke.py --cards N` runs (b) and (c) alone with one NCCL
      rank a card on N cards, against one process on the first, on phase 4's
      seeded flagship checkpoint.
+  9. serving — (a) `evaluate --export` at batch 24 on the card of phase 4's
+     default and `entry_block_pallas` checkpoints, each artifact loaded in a
+     child (`--child serve`) that imports torch and `eval.export` and no
+     port models / train / data module, called on 24 seeded int16 clips:
+     launches exact (default K1 1, K3f 2, K2f eval 3; B K1 1, K5f 1, K3f 2,
+     K2f 2), strong and weak within 1e-6 of max of the evaluator's direct
+     path, size, export time and warm ms beside the direct path's; then the
+     same weights stored with `entry_conv_pallas` and `entry_block_crows`
+     and phase 4's bfloat16 `entry_block_pallas` checkpoint, exported and
+     loaded here, held alike; (b) a reference-layout torch.save file of the
+     default weights (the reference's names, no attention head) through
+     `evaluate` and `predict --torch_checkpoint` on 24 synthetic validation
+     clips: strong probabilities bit for bit the port checkpoint's, weak
+     within 1e-6 (the heads are both `seeded_init_` seed 0), evaluate's F1s
+     equal, launches exact; (c) `tools/profile_step_torch.py --batch 24` in
+     a child beside (a)'s children: exit 0, every kernel of the default
+     step named with time, its device ms a step beside phase 5's.
 
 Phase 3 also holds the knobs' kernels at the flagship shapes (`knob_kernels`:
 K1 onedot against its plain version and a float64 DFT, 1e-5 of max, twice
@@ -214,7 +231,7 @@ Phase 4 also predicts from the default checkpoint with K1's onedot knob on
 (launches exact, within 1e-4 of its own CPU run and of the FFT K1's).
 
 The line before the last is {"kernels": [...], "helpers": [...],
-"parallel": {...}}: every number in it is one this run measured (launches on
+"parallel": {...}, "serving": {...}}: every number in it is one this run measured (launches on
 both paths as counted, the largest error beside the limit it was held to, the
 bound per shape with what binds it; phase 8's collectives a step);
 the last line is
@@ -2315,98 +2332,99 @@ def print_device_time(what: str, fn, card: str, k1: str = "fused_stft_mel_kernel
           f"copies, K1 {k1:.3f} ms of it, on {card}")
 
 
-def phase_predict(device, card: str):
+def phase_predict(device, card: str, work: str):
+    """Phase 4, its inputs written into `work` (phase 9 exports and imports
+    the same checkpoints)."""
     import torch
 
     from dcase2019_task4_tpu_torch import cli
 
-    with tempfile.TemporaryDirectory() as work:
-        wav_dir, (model, model_entry_block, model_scaled, model_bf16) = write_inputs(work, device)
-        out, tags = os.path.join(work, "events.tsv"), os.path.join(work, "tags.tsv")
-        argv = ["-m", model, "-i", wav_dir, "-p", out, "--weak_fname", tags]
+    wav_dir, (model, model_entry_block, model_scaled, model_bf16) = write_inputs(work, device)
+    out, tags = os.path.join(work, "events.tsv"), os.path.join(work, "tags.tsv")
+    argv = ["-m", model, "-i", wav_dir, "-p", out, "--weak_fname", tags]
 
-        zero_launches()
-        res = cli.predict(argv + ["--device", "cuda"])
-        torch.cuda.synchronize()
-        launches = read_launches()
-        print(f"  launches during predict: {launches}")
-        check_launches(launches, PREDICT_MIN, 1, "the predict run")
-        strong = res["strong"]
-        if res["n_files"] != N_CLIPS or strong.shape != (N_CLIPS, 108, 10) or not np.isfinite(strong).all():
-            raise AssertionError(f"strong probabilities: n_files {res['n_files']}, shape {strong.shape}")
-        events, tag_rows = read_tsv(out), read_tsv(tags)
-        if len(tag_rows) != N_CLIPS or any(set(r) != {"event_label", "onset", "offset", "filename"} for r in events):
-            raise AssertionError("events / tags TSV malformed")
-        for r in events:
-            if not 0.0 <= float(r["onset"]) < float(r["offset"]):
-                raise AssertionError(f"bad event row {r}")
-        print(f"  events TSV: {len(events)} rows; tags TSV: {len(tag_rows)} rows")
+    zero_launches()
+    res = cli.predict(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"  launches during predict: {launches}")
+    check_launches(launches, PREDICT_MIN, 1, "the predict run")
+    strong = res["strong"]
+    if res["n_files"] != N_CLIPS or strong.shape != (N_CLIPS, 108, 10) or not np.isfinite(strong).all():
+        raise AssertionError(f"strong probabilities: n_files {res['n_files']}, shape {strong.shape}")
+    events, tag_rows = read_tsv(out), read_tsv(tags)
+    if len(tag_rows) != N_CLIPS or any(set(r) != {"event_label", "onset", "offset", "filename"} for r in events):
+        raise AssertionError("events / tags TSV malformed")
+    for r in events:
+        if not 0.0 <= float(r["onset"]) < float(r["offset"]):
+            raise AssertionError(f"bad event row {r}")
+    print(f"  events TSV: {len(events)} rows; tags TSV: {len(tag_rows)} rows")
 
-        t0 = time.perf_counter()
-        cli.predict(argv + ["--device", "cuda"])
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
-        clips_per_s = N_CLIPS / warm_s
-        print(f"  warm CUDA predict: {N_CLIPS} clips in {warm_s:.3f} s = {clips_per_s:.2f} clips/s "
-              f"(checkpoint load, wav decode, features, model, decode, TSV writes) on {card}")
-        print_device_time("one warm predict call", lambda: cli.predict(argv + ["--device", "cuda"]), card)
+    t0 = time.perf_counter()
+    cli.predict(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    clips_per_s = N_CLIPS / warm_s
+    print(f"  warm CUDA predict: {N_CLIPS} clips in {warm_s:.3f} s ({1e3 * warm_s:.3f} ms) = {clips_per_s:.2f} clips/s "
+          f"(checkpoint load, wav decode, features, model, decode, TSV writes) on {card}")
+    print_device_time("one warm predict call", lambda: cli.predict(argv + ["--device", "cuda"]), card)
 
-        cpu = cli.predict(argv + ["--device", "cpu"])
-        diff = float(np.abs(cpu["strong"] - strong).max())
-        print(f"  CUDA vs CPU (plain versions) strong max abs diff: {diff:.3e} (limit {STRONG_TOL})")
+    cpu = cli.predict(argv + ["--device", "cpu"])
+    diff = float(np.abs(cpu["strong"] - strong).max())
+    print(f"  CUDA vs CPU (plain versions) strong max abs diff: {diff:.3e} (limit {STRONG_TOL})")
+    if not diff <= STRONG_TOL:
+        raise AssertionError(f"CUDA and CPU strong probabilities differ by {diff}")
+
+    # the same weights, stored with entry_block_pallas=True: the checkpoint's
+    # configuration alone selects the fused first block
+    argv = ["-m", model_entry_block, "-i", wav_dir, "-p", out, "--weak_fname", tags]
+    zero_launches()
+    res = cli.predict(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    launches_entry = read_launches()
+    print(f"  launches during predict with entry_block_pallas=True in the checkpoint: {launches_entry}")
+    check_launches(launches_entry, PREDICT_ENTRY_BLOCK, 1, "the predict run with the fused first block")
+    if res["strong"].shape != strong.shape or not np.isfinite(res["strong"]).all():
+        raise AssertionError(f"strong probabilities with the fused first block: shape {res['strong'].shape}")
+    cpu_entry = cli.predict(argv + ["--device", "cpu"])
+    for what, other in (("the default configuration on the card", strong), ("its own CPU run", cpu_entry["strong"])):
+        diff = float(np.abs(res["strong"] - other).max())
+        print(f"  fused first block vs {what}: strong max abs diff {diff:.3e} (limit {STRONG_TOL})")
         if not diff <= STRONG_TOL:
-            raise AssertionError(f"CUDA and CPU strong probabilities differ by {diff}")
+            raise AssertionError(f"strong probabilities with the fused first block differ from {what} by {diff}")
+    t0 = time.perf_counter()
+    cli.predict(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    print(f"  warm CUDA predict with the fused first block: {N_CLIPS / (time.perf_counter() - t0):.2f} clips/s "
+          f"({clips_per_s:.2f} with the default configuration) on {card}")
+    launches_scaled = predict_bf16(model_scaled, wav_dir, work, card, "scaled", PREDICT_SCALED)
+    launches_bf16 = predict_bf16(model_bf16, wav_dir, work, card, "flagship bfloat16 entry_block_pallas",
+                                 PREDICT_BF16_ENTRY_BLOCK)
 
-        # the same weights, stored with entry_block_pallas=True: the checkpoint's
-        # configuration alone selects the fused first block
-        argv = ["-m", model_entry_block, "-i", wav_dir, "-p", out, "--weak_fname", tags]
+    # the default checkpoint (stored without the knob) with K1's onedot knob on
+    argv = ["-m", model, "-i", wav_dir, "-p", out, "--weak_fname", tags]
+    with knobs(False, onedot=True):
         zero_launches()
         res = cli.predict(argv + ["--device", "cuda"])
         torch.cuda.synchronize()
-        launches_entry = read_launches()
-        print(f"  launches during predict with entry_block_pallas=True in the checkpoint: {launches_entry}")
-        check_launches(launches_entry, PREDICT_ENTRY_BLOCK, 1, "the predict run with the fused first block")
+        launches_onedot = read_launches()
+        print(f"  launches during predict with DCASE_FUSED_MEL_ONEDOT on: {launches_onedot}")
+        check_launches(launches_onedot, PREDICT_ONEDOT, 1, "the predict run with K1's onedot variant")
         if res["strong"].shape != strong.shape or not np.isfinite(res["strong"]).all():
-            raise AssertionError(f"strong probabilities with the fused first block: shape {res['strong'].shape}")
-        cpu_entry = cli.predict(argv + ["--device", "cpu"])
-        for what, other in (("the default configuration on the card", strong), ("its own CPU run", cpu_entry["strong"])):
-            diff = float(np.abs(res["strong"] - other).max())
-            print(f"  fused first block vs {what}: strong max abs diff {diff:.3e} (limit {STRONG_TOL})")
-            if not diff <= STRONG_TOL:
-                raise AssertionError(f"strong probabilities with the fused first block differ from {what} by {diff}")
+            raise AssertionError(f"strong probabilities with onedot K1: shape {res['strong'].shape}")
         t0 = time.perf_counter()
         cli.predict(argv + ["--device", "cuda"])
         torch.cuda.synchronize()
-        print(f"  warm CUDA predict with the fused first block: {N_CLIPS / (time.perf_counter() - t0):.2f} clips/s "
-              f"({clips_per_s:.2f} with the default configuration) on {card}")
-        launches_scaled = predict_bf16(model_scaled, wav_dir, work, card, "scaled", PREDICT_SCALED)
-        launches_bf16 = predict_bf16(model_bf16, wav_dir, work, card, "flagship bfloat16 entry_block_pallas",
-                                     PREDICT_BF16_ENTRY_BLOCK)
-
-        # the default checkpoint (stored without the knob) with K1's onedot knob on
-        argv = ["-m", model, "-i", wav_dir, "-p", out, "--weak_fname", tags]
-        with knobs(False, onedot=True):
-            zero_launches()
-            res = cli.predict(argv + ["--device", "cuda"])
-            torch.cuda.synchronize()
-            launches_onedot = read_launches()
-            print(f"  launches during predict with DCASE_FUSED_MEL_ONEDOT on: {launches_onedot}")
-            check_launches(launches_onedot, PREDICT_ONEDOT, 1, "the predict run with K1's onedot variant")
-            if res["strong"].shape != strong.shape or not np.isfinite(res["strong"]).all():
-                raise AssertionError(f"strong probabilities with onedot K1: shape {res['strong'].shape}")
-            t0 = time.perf_counter()
-            cli.predict(argv + ["--device", "cuda"])
-            torch.cuda.synchronize()
-            print(f"  warm CUDA predict with onedot K1: {N_CLIPS / (time.perf_counter() - t0):.2f} clips/s "
-                  f"({clips_per_s:.2f} with the FFT K1) on {card}")
-            print_device_time("one warm predict call with onedot K1", lambda: cli.predict(argv + ["--device", "cuda"]),
-                              card, k1="fused_stft_mel_onedot_kernel")
-            cpu_onedot = cli.predict(argv + ["--device", "cpu"])
-        for what, other in (("its own CPU run", cpu_onedot["strong"]), ("the FFT K1 on the card", strong)):
-            diff = float(np.abs(res["strong"] - other).max())
-            print(f"  onedot K1 vs {what}: strong max abs diff {diff:.3e} (limit {STRONG_TOL})")
-            if not diff <= STRONG_TOL:
-                raise AssertionError(f"strong probabilities with onedot K1 differ from {what} by {diff}")
+        print(f"  warm CUDA predict with onedot K1: {N_CLIPS / (time.perf_counter() - t0):.2f} clips/s "
+              f"({clips_per_s:.2f} with the FFT K1) on {card}")
+        print_device_time("one warm predict call with onedot K1", lambda: cli.predict(argv + ["--device", "cuda"]),
+                          card, k1="fused_stft_mel_onedot_kernel")
+        cpu_onedot = cli.predict(argv + ["--device", "cpu"])
+    for what, other in (("its own CPU run", cpu_onedot["strong"]), ("the FFT K1 on the card", strong)):
+        diff = float(np.abs(res["strong"] - other).max())
+        print(f"  onedot K1 vs {what}: strong max abs diff {diff:.3e} (limit {STRONG_TOL})")
+        if not diff <= STRONG_TOL:
+            raise AssertionError(f"strong probabilities with onedot K1 differ from {what} by {diff}")
     return ({"predict": launches, "predict_entry_block": launches_entry, "predict_scaled": launches_scaled,
              "predict_bf16_entry_block": launches_bf16, "predict_onedot": launches_onedot}, clips_per_s)
 
@@ -2641,7 +2659,8 @@ def phase_train(device, card: str):
     default_card_ms = float(np.median(card_ms[1:]))
     print(f"  MT step with the generator on the card: {default_card_ms:.3f} ms per step "
           f"(median of {TRAIN_STEPS - 1}; {warm_ms:.3f} ms with the CPU generator) on {card}")
-    default_block1 = block1_device_ms(step, state, batch, card_generator, acc, "step", card)
+    step_totals = {}
+    default_block1 = block1_device_ms(step, state, batch, card_generator, acc, "step", card, step_totals)
 
     # steps 1 and 2 again on the CPU: plain versions, same state, same generator seed
     cpu_state = steps.TrainState(base.student, base.teacher, base.optimizer)
@@ -2723,7 +2742,7 @@ def phase_train(device, card: str):
         print(f"  block 1 device time in one step: {shown(block1, 3)} ms with {flag}, {shown(default_block1, 3)} ms default, on {card}")
         del st, fresh
         torch.cuda.empty_cache()
-    return all_launches, warm_ms
+    return all_launches, warm_ms, step_totals.get("step")
 
 
 def phase_train_bf16(device, card: str, cfg, what: str, path: str, n_steps: int, profile: bool):
@@ -3076,13 +3095,15 @@ BLOCK1_KERNELS.update({f"step_bf16{path[4:]}": tuple((BF16_NAMES.get(k, k), n) f
                        for path in ("step", "step_entry_block", "step_crows", "step_entry_conv")})
 
 
-def block1_device_ms(step, state, batch, generator, acc, path: str, card: str) -> Optional[float]:
+def block1_device_ms(step, state, batch, generator, acc, path: str, card: str,
+                     step_totals: Optional[dict] = None) -> Optional[float]:
     """Device time of CRNN block 1 (teacher and student forward, student
     backward) in one profiled step: its kernels by name, plus, in the default
     configuration, what the cuDNN convolution operators spent on the device
     (forward ×2 and the weight gradient). A reading, printed per item with
-    the whole step's device time beside it; None when the profiler gave no
-    trace with all of block 1's kernels."""
+    the whole step's device time beside it (kept in `step_totals[path]`
+    where given); None when the profiler gave no trace with all of block
+    1's kernels."""
     from torch.autograd import DeviceType
 
     def kernels_of(prof):
@@ -3114,6 +3135,8 @@ def block1_device_ms(step, state, batch, generator, acc, path: str, card: str) -
     print(f"  block 1 in one step ({path}, {card}): {total:.3f} ms = " + " + ".join(items))
     print(f"  the whole step's device time in that profile ({path}): {sum(us for _, us in launches) / 1e3:.3f} ms "
           f"in {len(launches)} kernels and copies")
+    if step_totals is not None:
+        step_totals[path] = sum(us for _, us in launches) / 1e3
     return total
 
 
@@ -4216,7 +4239,319 @@ def data_parallel_cards(n_cards: int) -> int:
     return 0
 
 
-CHILDREN = {"world1": child_world1, "ranks": child_dp_ranks}
+# ------------------------------------------------------------------ phase 9
+
+# One call of a serving artifact at batch 24: exactly these launches
+SERVE = {"fused_stft_mel": 1, "conv2d_forward": 2, "fused_bn_glu_pool_eval": 3}
+SERVE_ENTRY_BLOCK = {"fused_stft_mel": 1, "conv2d_forward": 2, "fused_bn_glu_pool_eval": 2, "entry_block_fwd_eval": 1}
+SERVE_ENTRY_CONV = dict(SERVE, entry_conv=1)
+SERVE_CROWS = dict(SERVE_ENTRY_BLOCK, crows_fwd_eval=1)  # K5f's kernel, counted on crows' own counter too
+SERVE_BF16_ENTRY_BLOCK = {"fused_stft_mel": 1, "conv2d_forward_bf16": 2, "fused_bn_glu_pool_eval_bf16": 2,
+                          "entry_block_fwd_eval_bf16": 1}
+SERVE_TOL = 1e-6  # artifact against the evaluator's direct path, as a share of the largest probability
+# the CUDA kernel a row of the default step launches, as torch.profiler names it
+STEP_KERNELS = {"fused_stft_mel": "fused_stft_mel_kernel", "conv2d_forward": "conv3x3_nhwc_kernel",
+                "conv2d_dx": "conv3x3_nhwc_kernel", "conv2d_wgrad": "conv3x3_wgrad_kernel",
+                "fused_bn_glu_pool_train": "bn_glu_pool_kernel", "batch_stats": "stats_kernel",
+                "bwd_reduce": "bn_glu_pool_bwd_kernel", "bwd_fixup": "bn_bwd_fixup_kernel"}
+PORT_PACKAGES = ("models", "train", "data", "eval")
+
+
+def port_modules_beyond_export():
+    """The port's models / train / data / eval modules this process holds,
+    but for `eval.export` (and its package)."""
+    return sorted(m for m in sys.modules if m.startswith("dcase2019_task4_tpu_torch.")
+                  and m.split(".")[1] in PORT_PACKAGES
+                  and m not in ("dcase2019_task4_tpu_torch.eval", "dcase2019_task4_tpu_torch.eval.export"))
+
+
+def warm_ms(fn, runs: int = 5) -> float:
+    """Median host ms of `runs` synchronised calls after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def call_artifact(served, audio, frames, per_call: dict, what: str):
+    """One call of a loaded artifact, its launches held exact (K6's on
+    crows' own counter under "crows_fwd_eval") → (strong, weak, launches,
+    warm ms)."""
+    import torch
+
+    from dcase2019_task4_tpu_torch.ops import crows_block
+
+    zero_launches()
+    crows_before = crows_block.crows_apply.launches_eval
+    strong, weak = served(audio, frames)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check_launches(launches, per_call, 1, f"one call of the {what} artifact")
+    launches["crows_fwd_eval"] = crows_block.crows_apply.launches_eval - crows_before
+    if launches["crows_fwd_eval"] != per_call.get("crows_fwd_eval", 0):
+        raise AssertionError(f"the {what} artifact launched K6 {launches['crows_fwd_eval']} times")
+    ms = warm_ms(lambda: served(audio, frames))
+    return strong.cpu().numpy(), weak.cpu().numpy(), {k: v for k, v in launches.items() if v}, ms
+
+
+def child_serve(args: dict) -> int:
+    """`--child serve ARGS`: load an artifact with torch and eval.export
+    alone, call it on the saved batch → its outputs (.npy) and a JSON line."""
+    from dcase2019_task4_tpu_torch.eval.export import load_serving
+
+    t0 = time.perf_counter()
+    served = load_serving(args["artifact"])
+    load_s = time.perf_counter() - t0
+    loaded = port_modules_beyond_export()
+    if loaded:
+        raise AssertionError(f"loading the artifact imported {loaded}")
+    audio, frames = np.load(args["audio"]), np.load(args["frames"])
+    strong, weak, launches, ms = call_artifact(served, audio, frames, args["per_call"], args["what"])
+    if port_modules_beyond_export():
+        raise AssertionError(f"calling the artifact imported {port_modules_beyond_export()}")
+    np.save(args["out"] + ".strong.npy", strong)
+    np.save(args["out"] + ".weak.npy", weak)
+    figures = {"load_s": load_s, "warm_ms": ms, "launches": launches,
+               "modules": sorted(m for m in sys.modules if m.startswith("dcase2019_task4_tpu_torch."))}
+    with open(args["out"] + ".json", "w") as f:
+        json.dump(figures, f)
+    print(json.dumps(figures))
+    return 0
+
+
+def serving_checkpoints(work: str, model: str, model_bf16_entry_block: str):
+    """(name, checkpoint, launches of one call) of phase 9's exports: phase
+    4's default and `entry_block_pallas` checkpoints, and the same weights
+    stored with `entry_conv_pallas` and with `entry_block_crows`, and phase
+    4's bfloat16 `entry_block_pallas` checkpoint."""
+    from dcase2019_task4_tpu_torch.train import checkpoints as ckpt
+
+    params, bn_state = ckpt.load_inference_state(model)
+    meta = ckpt.read_metadata(model)
+    cases = [("default", model, SERVE), ("entry_block_pallas", os.path.join(work, "model_entry_block.npz"),
+                                         SERVE_ENTRY_BLOCK)]
+    for flag, per_call in (("entry_conv_pallas", SERVE_ENTRY_CONV), ("entry_block_crows", SERVE_CROWS)):
+        stored = copy.deepcopy(meta)
+        stored["config"]["model"][flag] = True
+        path = os.path.join(work, f"model_{flag}.npz")
+        ckpt.save_inference_checkpoint(path, params, bn_state, stored)
+        cases.append((flag, path, per_call))
+    cases.append(("bf16 entry_block_pallas", model_bf16_entry_block, SERVE_BF16_ENTRY_BLOCK))
+    return cases
+
+
+def export_case(device, what: str, ckpt_path: str, audio, frames, work: str) -> dict:
+    """`evaluate --export` of one checkpoint at batch 24 on the card, and
+    the evaluator's direct path (features → predict) on the 24 clips: its
+    outputs and warm ms."""
+    import torch
+
+    from dcase2019_task4_tpu_torch import cli
+    from dcase2019_task4_tpu_torch.eval.evaluate import CheckpointEvaluator
+
+    artifact = os.path.join(work, what.replace(" ", "_") + ".dc19serve")
+    t0 = time.perf_counter()
+    header = cli.evaluate(["-m", ckpt_path, "--export", artifact, "--device", str(device)])
+    export_s = time.perf_counter() - t0
+    if header["batch_size"] != 24 or header["platforms"] != [device.type]:
+        raise AssertionError(f"the {what} artifact's header: {header}")
+    ev = CheckpointEvaluator(ckpt_path, device=device)
+    strong, weak = (t.cpu().numpy() for t in ev._predict(ev.features(audio, frames)))
+    direct_ms = warm_ms(lambda: ev._predict(ev.features(audio, frames)))
+    del ev
+    torch.cuda.empty_cache()
+    return {"artifact": artifact, "strong": strong, "weak": weak, "export_s": export_s, "direct_ms": direct_ms,
+            "bytes": os.path.getsize(artifact)}
+
+
+def held_to_direct(case: dict, what: str, got_strong, got_weak, where: str, per_call: dict, served_ms, card: str):
+    """The artifact's outputs within SERVE_TOL of max of the direct path's;
+    its line printed → the figures of the kernels line."""
+    errs = [float(np.abs(g - w).max() / np.abs(w).max()) for g, w in ((got_strong, case["strong"]),
+                                                                       (got_weak, case["weak"]))]
+    print(f"  {what}: exported in {case['export_s']:.2f} s, {case['bytes'] / 2 ** 20:.2f} MiB; loaded in {where}; "
+          f"strong / weak against the direct path {errs[0]:.3e} / {errs[1]:.3e} of max (limit {SERVE_TOL}); launches "
+          f"a call {per_call}; warm call: artifact {served_ms:.3f} ms, direct path {case['direct_ms']:.3f} ms on {card}")
+    if not max(errs) <= SERVE_TOL:
+        raise AssertionError(f"the {what} artifact differs from the direct path by {errs} of max")
+    return {"export_s": case["export_s"], "bytes": case["bytes"], "direct_ms": case["direct_ms"],
+            "artifact_ms": served_ms, "max_err_of_max": max(errs)}
+
+
+def reference_checkpoint(model: str, path: str):
+    """The weights of the port checkpoint `model` written as the reference's
+    torch.save file (main.py:293-309): its names, no attention head, the
+    flagship's kwargs left to the reference's defaults."""
+    import torch
+
+    from dcase2019_task4_tpu_torch.train import checkpoints as ckpt
+
+    sd = ckpt.params_from_jax(*ckpt.load_inference_state(model))
+    meta = ckpt.read_metadata(model)
+    cnn, rnn, dense = {}, {}, {}
+    names = {"conv": "conv{}", "bn": "batchnorm{}", "act": "glu{}.linear"}
+    for key, value in sd.items():
+        part, rest = key.split(".", 1)
+        if part == "cnn":
+            i, layer, leaf = rest.split(".")
+            if leaf != "num_batches_tracked":
+                cnn[f"{names[layer].format(i)}.{leaf}"] = value
+        elif part == "rnn":
+            rnn[f"rnn.{rest}"] = value
+        elif part == "dense":
+            dense[rest] = value
+    torch.save({"model": {"name": "CRNN", "args": [], "kwargs": {}, "state_dict": {"cnn": cnn, "rnn": rnn,
+                                                                                  "dense": dense}},
+                "scaler": meta["scaler"], "many_hot_encoder": meta["many_hot_encoder"],
+                "pooling_time_ratio": meta["pooling_time_ratio"]}, path)
+
+
+def serving_import(device, work: str, model: str, card: str) -> dict:
+    """Phase 9 (b): `evaluate` and `predict --torch_checkpoint` on 24
+    synthetic validation clips from the reference-layout file of phase 4's
+    default weights, against `predict` on the port's own checkpoint."""
+    import torch
+
+    from dcase2019_task4_tpu_torch import cli
+    from dcase2019_task4_tpu_torch.config import Config
+    from dcase2019_task4_tpu_torch.eval.evaluate import CheckpointEvaluator
+
+    ref = os.path.join(work, "reference_baseline_best")
+    reference_checkpoint(model, ref)
+    validation = Config().paths.validation
+    common = ["--synthetic_audio", "-s", "24", "--device", str(device)]
+    runs = {}
+    for what, argv in (("evaluate", ["evaluate", "-m", ref, "--torch_checkpoint", "--sets", validation]),
+                       ("predict", ["predict", "-m", ref, "--torch_checkpoint", "-i", validation,
+                                    "-p", os.path.join(work, "ref_events.tsv")]),
+                       ("own evaluate", ["evaluate", "-m", model, "--sets", validation]),
+                       ("own predict", ["predict", "-m", model, "-i", validation,
+                                        "-p", os.path.join(work, "own_events.tsv")])):
+        zero_launches()
+        t0 = time.perf_counter()
+        runs[what] = getattr(cli, argv[0])(argv[1:] + common)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        check_launches(read_launches(), PREDICT_BATCH, 1, f"{what} on 24 validation clips")
+        print(f"  {what}{' --torch_checkpoint' if 'own' not in what else ''}: {seconds:.2f} s, launches "
+              f"{PREDICT_BATCH} exact")
+    ref_head = CheckpointEvaluator.from_torch_checkpoint(ref, device="cpu").model.dense_softmax
+    own_head = CheckpointEvaluator(model, device="cpu").model.dense_softmax
+    aligned = all(torch.equal(a, b) for a, b in zip(ref_head.parameters(), own_head.parameters()))
+    if not aligned:
+        raise AssertionError("the imported attention head is not the checkpoint's (seeded_init_ with seed 0 both)")
+    pred, own = runs["predict"], runs["own predict"]
+    if pred["strong"].shape != (24, 108, 10) or not np.array_equal(pred["strong"], own["strong"]):
+        raise AssertionError("strong probabilities of the imported file are not the port checkpoint's bits")
+    weak_err = float(np.abs(pred["weak"] - own["weak"]).max())
+    if not weak_err <= SERVE_TOL:
+        raise AssertionError(f"weak probabilities of the imported file differ by {weak_err}")
+    (ref_metrics,), (own_metrics,) = runs["evaluate"].values(), runs["own evaluate"].values()
+    if ref_metrics != own_metrics:
+        raise AssertionError(f"evaluate --torch_checkpoint {ref_metrics} against the port checkpoint's {own_metrics}")
+    print(f"  imported file against the port's own checkpoint of the same weights on {card}: strong bit for bit, "
+          f"weak {weak_err:.3e} (limit {SERVE_TOL}; the head aligned: both seeded_init_ with seed 0), "
+          f"evaluate's F1s equal ({ref_metrics})")
+    return {"weak_max_abs_err": weak_err, "event_macro_f1": ref_metrics["event_macro_f1"]}
+
+
+def start_profiler(work: str):
+    """tools/profile_step_torch.py --batch 24 in a child → a function that
+    waits for it (its stdout lines printed) and returns its JSON line."""
+    proc = subprocess.Popen([sys.executable, os.path.join(REPO, "tools", "profile_step_torch.py"), "--batch", "24",
+                             "--trace_dir", os.path.join(work, "profile_trace")], cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+    def wait(timeout: float = 600.0) -> dict:
+        try:
+            out, err = proc.communicate(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        for line in out.splitlines()[:-1]:
+            print(f"    [profile_step_torch] {line}")
+        if proc.returncode != 0:
+            print(err[-4000:])
+            raise AssertionError(f"tools/profile_step_torch.py exited {proc.returncode}")
+        return json.loads(out.splitlines()[-1])
+
+    return wait
+
+
+def profiler_held(result: dict, card: str, step_device_ms: Optional[float]) -> dict:
+    """Phase 9 (c): every kernel of the default step's row named in the
+    profiler's top ops with a time above 0; its device ms a step beside
+    phase 5's."""
+    for row in STEP_MIN:
+        if not sum(t for name, t, _ in result["ops"] if STEP_KERNELS[row] in name) > 0:
+            raise AssertionError(f"the profiler's top ops name no {STEP_KERNELS[row]} ({row}) with time")
+    phase5 = "not measured" if step_device_ms is None else f"{step_device_ms:.3f} ms"
+    print(f"  profile_step_torch.py: {result['device_ms_per_step']:.3f} device ms a step (all device events of its "
+          f"traced card-generator steps, summed by name) against phase 5's profiled step {phase5}; "
+          f"{result['ms_per_step']:.3f} ms a step on the host clock; every kernel of the default step named, on {card}")
+    return {"device_ms_per_step": result["device_ms_per_step"], "phase5_step_device_ms": step_device_ms}
+
+
+def phase_serving(device, card: str, work: str, step_device_ms: Optional[float]) -> dict:
+    """Phase 9 → the figures of the kernels line's "serving" entry. (a)
+    `evaluate --export` at batch 24 on the card of phase 4's default and
+    `entry_block_pallas` checkpoints, each artifact loaded and called in a
+    child that imports torch and eval.export alone (`--child serve`), beside
+    (c) the step profiler's child, all three at once; then the exports of
+    the same weights stored with `entry_conv_pallas` and `entry_block_crows`
+    and of phase 4's bfloat16 `entry_block_pallas` checkpoint, loaded here;
+    each artifact against the evaluator's direct path on the same 24
+    clips. (b) The reference-layout file of the default weights through
+    `evaluate` and `predict --torch_checkpoint`."""
+    from dcase2019_task4_tpu_torch.eval.export import load_serving
+
+    t_phase = time.perf_counter()
+    model, model_bf16 = os.path.join(work, "model.npz"), os.path.join(work, "model_bf16_entry_block.npz")
+    _, _, clips = make_clips(24, np.random.default_rng(SEED + 9))
+    audio, frames = pack_clips(clips)
+    batch = {"audio": os.path.join(work, "serve_audio.npy"), "frames": os.path.join(work, "serve_frames.npy")}
+    np.save(batch["audio"], audio)
+    np.save(batch["frames"], frames)
+    cases = serving_checkpoints(work, model, model_bf16)
+    in_child = cases[:2]  # default and entry_block_pallas
+    exported = {what: export_case(device, what, path, audio, frames, work) for what, path, _ in in_child}
+    wait_serve = start_children("serve", [dict(batch, artifact=exported[what]["artifact"], per_call=per_call,
+                                                what=what, out=os.path.join(work, what.replace(" ", "_")))
+                                           for what, _, per_call in in_child])
+    wait_profiler = start_profiler(work)
+    wait_serve(300.0)
+    profile = wait_profiler()
+    figures = {"exports": {}}
+    for what, _, per_call in in_child:
+        out = os.path.join(work, what.replace(" ", "_"))
+        with open(out + ".json") as f:
+            served_ms = json.load(f)["warm_ms"]
+        figures["exports"][what] = held_to_direct(exported[what], what, np.load(out + ".strong.npy"),
+                                                  np.load(out + ".weak.npy"), "a child with torch and eval.export "
+                                                  "alone", per_call, served_ms, card)
+    for what, path, per_call in cases[2:]:
+        case = export_case(device, what, path, audio, frames, work)
+        got_strong, got_weak, _, served_ms = call_artifact(load_serving(case["artifact"]), audio, frames, per_call,
+                                                           what)
+        figures["exports"][what] = held_to_direct(case, what, got_strong, got_weak, "this process", per_call,
+                                                  served_ms, card)
+    figures["import"] = serving_import(device, work, model, card)
+    figures["profiler"] = profiler_held(profile, card, step_device_ms)
+    figures["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 9: {figures['seconds']:.1f} s")
+    return figures
+
+
+CHILDREN = {"world1": child_world1, "ranks": child_dp_ranks, "serve": child_serve}
 
 
 def set_up() -> bool:
@@ -4276,10 +4611,11 @@ def main() -> int:
     fused_block.dropout_mask.launches_packed = 0
 
     print("== phase 4: predict through the CLI")
-    launches, clips_per_s = phase_predict(device, card)
+    inputs = tempfile.TemporaryDirectory()  # phase 4's checkpoints, exported and imported again in phase 9
+    launches, clips_per_s = phase_predict(device, card, inputs.name)
 
     print("== phase 5: Mean-Teacher training steps")
-    train_launches, step_ms = phase_train(device, card)
+    train_launches, step_ms, step_device_ms = phase_train(device, card)
     launches.update(train_launches)
     print("== phase 5, scaled configuration (bfloat16, 128 mels, 128 channels, SpecAugment)")
     from dcase2019_task4_tpu_torch.config import scaled_config
@@ -4300,6 +4636,9 @@ def main() -> int:
     print("== phase 8: data parallel (--data_parallel over NCCL at world size 1; two Gloo ranks on the one card)")
     dp_launches, parallel = phase_data_parallel(device, card, streamed_records)
     launches.update(dp_launches)
+    print("== phase 9: serving export (evaluate --export), reference import (--torch_checkpoint), step profiler")
+    serving = phase_serving(device, card, inputs.name, step_device_ms)
+    inputs.cleanup()
 
     report = []
     for name, (src, replaces) in KERNELS.items():
@@ -4326,7 +4665,7 @@ def main() -> int:
     print(f"  predict clips/s (warm): {clips_per_s:.2f}; MT step {step_ms:.3f} ms; scaled MT step {scaled_ms:.3f} ms; "
           f"flagship bf16 MT step {bf16_ms:.3f} ms on {card}; whole script {time.perf_counter() - t_start:.0f} s")
     print(card)
-    print(json.dumps({"kernels": report, "helpers": helpers, "parallel": parallel}))
+    print(json.dumps({"kernels": report, "helpers": helpers, "parallel": parallel, "serving": serving}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))
     return 0

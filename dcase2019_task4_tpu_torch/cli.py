@@ -5,21 +5,22 @@
         [--eval_every K] [--ramped_adam] [--device_cache] [--device cuda]
         [--data_parallel | --multihost --coordinator_address H:P --num_processes N --process_id I]
     python -m dcase2019_task4_tpu_torch.cli train_crnn ... [-n]
-    python -m dcase2019_task4_tpu_torch.cli evaluate -m CKPT [-s N] [-p OUT.tsv] [--sets TSV ...]
-        [--tune_thresholds [--save_thresholds F.json]] [--synthetic_audio] [--device cuda] [--data_parallel]
-    python -m dcase2019_task4_tpu_torch.cli predict -m CKPT -i WAV_DIR_OR_TSV -p OUT.tsv [-s N]
-        [--weak_fname TAGS.tsv] [--threshold T | --thresholds_json F]
+    python -m dcase2019_task4_tpu_torch.cli evaluate -m CKPT [--torch_checkpoint] [-s N] [-p OUT.tsv]
+        [--sets TSV ...] [--tune_thresholds [--save_thresholds F.json]] [--synthetic_audio] [--device cuda]
+        [--data_parallel] [--export ARTIFACT [--export_batch B]]
+    python -m dcase2019_task4_tpu_torch.cli predict -m CKPT [--torch_checkpoint] -i WAV_DIR_OR_TSV -p OUT.tsv
+        [-s N] [--weak_fname TAGS.tsv] [--threshold T | --thresholds_json F]
         [--median_windows_json F] [--long [--overlap] [--merge_gap G]] [--synthetic_audio]
         [--device cuda] [--data_parallel]
     python -m dcase2019_task4_tpu_torch.cli precompute [--sets TSV ...] [-s N] [--feature_dir DIR]
         [--nolog] [--device cuda]
+    python -m dcase2019_task4_tpu_torch.cli download [--sets TSV ...] [--n_jobs J] [--chunk_size K]
 
 The console scripts `dcase19-torch-train-meanteacher`, `dcase19-torch-train-crnn`,
-`dcase19-torch-evaluate`, `dcase19-torch-predict` and
-`dcase19-torch-extract-features` (precompute) are the same commands.
-The flags are the JAX package's (dcase2019_task4_tpu/cli.py), plus
-`--device`. Flags of what the port does not have yet fail with a message
-that names the ROADMAP item that ports it.
+`dcase19-torch-evaluate`, `dcase19-torch-predict`,
+`dcase19-torch-extract-features` (precompute) and `dcase19-torch-download`
+are the same commands. The flags are the JAX package's
+(dcase2019_task4_tpu/cli.py), plus `--device`.
 
 Data parallel, one process a card: `torchrun --nproc_per_node=<cards> -m
 dcase2019_task4_tpu_torch.cli <command> ... --data_parallel` (each rank
@@ -40,24 +41,27 @@ import sys
 from dcase2019_task4_tpu_torch.config import Config
 from dcase2019_task4_tpu_torch.utils.logger import get_logger
 
-# flag → the ROADMAP item (Queue 1) that ports what it selects
-NOT_PORTED = {
-    "torch_checkpoint": "train/torch_import.py, ROADMAP Queue 1 item 7",
-    "export": "eval/export.py, ROADMAP Queue 1 item 7",
-    "export_batch": "eval/export.py, ROADMAP Queue 1 item 7",
-}
-
-
-def _refuse_not_ported(parser, args):
-    for flag, item in NOT_PORTED.items():
-        value = getattr(args, flag, None)
-        if value is not None and value is not False:  # `--process_id 0` is set too
-            parser.error(f"--{flag} is not ported yet ({item})")
-
-
 def _device_arg(parser):
     parser.add_argument("--device", type=str, default="cuda",
                         help="Torch device. 'cuda' without a card raises; there is no CPU fallback.")
+
+
+def _torch_checkpoint_arg(parser):
+    parser.add_argument("--torch_checkpoint", action="store_true", default=False,
+                        help="model_path is a reference torch.save checkpoint (imported by "
+                        "train/torch_import.py; the reference stores no attention head, the model keeps "
+                        "its own seeded one).")
+
+
+def _evaluator(args, mesh):
+    """The CheckpointEvaluator of `args.model_path`: a checkpoint of either
+    package, or with `--torch_checkpoint` a reference torch.save file."""
+    from dcase2019_task4_tpu_torch.eval.evaluate import CheckpointEvaluator
+
+    kw = dict(device=args.device, synthetic_audio=args.synthetic_audio, mesh=mesh)
+    if args.torch_checkpoint:
+        return CheckpointEvaluator.from_torch_checkpoint(args.model_path, **kw)
+    return CheckpointEvaluator(args.model_path, **kw)
 
 
 def _data_parallel_arg(parser):
@@ -188,7 +192,6 @@ def _train(argv, mean_teacher: bool):
         parser.add_argument("-n", "--no_weak", action="store_true", default=False,
                             help="Not using weak labels during training")
     args = parser.parse_args(argv)
-    _refuse_not_ported(parser, args)
     log = get_logger()
     if mean_teacher:
         log.info("MEAN TEACHER")
@@ -248,8 +251,7 @@ def evaluate(argv=None):
     parser.add_argument("-p", "--save_predictions_fname", type=str, default=None,
                         help="Predictions TSV of the last set.")
     parser.add_argument("--synthetic_audio", action="store_true", default=False)
-    parser.add_argument("--torch_checkpoint", action="store_true", default=False,
-                        help="Not ported yet (ROADMAP Queue 1 item 7).")
+    _torch_checkpoint_arg(parser)
     parser.add_argument("--sets", type=str, nargs="*", default=None,
                         help="TSV paths; default: eval2018, validation, public eval")
     parser.add_argument("--tune_thresholds", action="store_true", default=False,
@@ -265,17 +267,25 @@ def evaluate(argv=None):
     parser.add_argument("--median_windows_json", type=str, default=None,
                         help="Per-class decode median-window JSON ([C] odd ints or {class: w}).")
     _data_parallel_arg(parser)
-    parser.add_argument("--export", type=str, default=None, help="Not ported yet (ROADMAP Queue 1 item 7).")
+    parser.add_argument("--export", type=str, default=None,
+                        help="Instead of evaluating, export the serving function (audio → event probabilities, "
+                        "weights and scaler in the program) as a torch.export artifact at this path "
+                        "(eval/export.py; load with eval.export.load_serving, which needs torch and the "
+                        "port's op library).")
     parser.add_argument("--export_batch", type=int, default=None,
-                        help="Not ported yet (ROADMAP Queue 1 item 7).")
+                        help="Batch size the artifact is traced at (default: the checkpoint's batch size).")
     _device_arg(parser)
     args = parser.parse_args(argv)
-    _refuse_not_ported(parser, args)
-
-    from dcase2019_task4_tpu_torch.eval.evaluate import CheckpointEvaluator
 
     mesh = _mesh(args)
-    ev = CheckpointEvaluator(args.model_path, device=args.device, synthetic_audio=args.synthetic_audio, mesh=mesh)
+    ev = _evaluator(args, mesh)
+    if args.export:
+        from dcase2019_task4_tpu_torch.eval.export import export_serving
+
+        header = export_serving(ev, args.export, batch_size=args.export_batch)
+        print(f"exported serving artifact → {args.export} "
+              f"(batch {header['batch_size']}, platforms {header['platforms']})")
+        return header if argv is not None else None
     paths = ev.cfg.paths
     sets = args.sets or [paths.eval2018, paths.validation, paths.eval_desed]
     threshold = ev.load_thresholds(args.thresholds_json) if args.thresholds_json else args.threshold
@@ -332,6 +342,7 @@ def predict(argv=None):
     parser.add_argument("--median_windows_json", type=str, default=None,
                         help="Per-class decode median-window JSON ([C] odd ints or {class: w}).")
     parser.add_argument("--synthetic_audio", action="store_true", default=False)
+    _torch_checkpoint_arg(parser)
     parser.add_argument("--long", action="store_true", default=False,
                         help="Wavs of any length: cut into windows of the model's clip length, decode each "
                         "window, stitch events across the boundaries.")
@@ -343,13 +354,10 @@ def predict(argv=None):
     _data_parallel_arg(parser)
     _device_arg(parser)
     args = parser.parse_args(argv)
-
-    from dcase2019_task4_tpu_torch.eval.evaluate import CheckpointEvaluator
-
     if args.long and args.weak_fname:
         parser.error("--weak_fname is per-clip; not defined under --long")
     mesh = _mesh(args)
-    ev = CheckpointEvaluator(args.model_path, device=args.device, synthetic_audio=args.synthetic_audio, mesh=mesh)
+    ev = _evaluator(args, mesh)
     threshold = ev.load_thresholds(args.thresholds_json) if args.thresholds_json else args.threshold
     median_window = ev.load_windows(args.median_windows_json) if args.median_windows_json else None
     if args.long:
@@ -399,8 +407,28 @@ def precompute(argv=None):
     return results if argv is not None else None
 
 
+def download(argv=None):
+    """DESED audio download (download_data.py parity): each set's clips
+    fetched from YouTube into the audio directory its TSV maps to, and a
+    `missing_files_<set>.tsv` of what failed. Returns {set: [(filename,
+    error), ...]} when called with an argument list."""
+    parser = argparse.ArgumentParser(prog="dcase19-torch-download",
+                                     description="DESED audio download (download_data.py parity)")
+    parser.add_argument("--sets", type=str, nargs="*", default=None,
+                        help="TSV paths; default: validation, weak, unlabeled")
+    parser.add_argument("--n_jobs", type=int, default=3)
+    parser.add_argument("--chunk_size", type=int, default=10)
+    args = parser.parse_args(argv)
+    from dcase2019_task4_tpu_torch.data.download import download_sets
+
+    cfg = Config()
+    sets = args.sets or [cfg.paths.validation, cfg.paths.weak, cfg.paths.unlabel]
+    result = download_sets(cfg, sets, n_jobs=args.n_jobs, chunk_size=args.chunk_size)
+    return result if argv is not None else None
+
+
 COMMANDS = {"train_meanteacher": train_meanteacher, "train_crnn": train_crnn, "evaluate": evaluate,
-            "predict": predict, "precompute": precompute}
+            "predict": predict, "precompute": precompute, "download": download}
 
 
 def main(argv=None):

@@ -73,15 +73,14 @@ def resolve_device(name: str) -> torch.device:
 
 
 class CheckpointEvaluator:
-    def __init__(self, ckpt_path: str, device="cuda", synthetic_audio: bool = False, logger=None, mesh=None):
+    def __init__(self, ckpt_path: Optional[str] = None, device="cuda", synthetic_audio: bool = False, logger=None,
+                 mesh=None, _prebuilt=None):
+        """From a checkpoint of either package at `ckpt_path`, or from a
+        built (cfg, model, scaler, codec, meta) in `_prebuilt` (as
+        `from_torch_checkpoint` builds it; the JAX evaluator's hook)."""
         self.log = logger or get_logger()
         self.device = resolve_device(str(device))
         self.mesh = mesh
-        meta = ckpt.read_metadata(ckpt_path)
-        self.meta = meta
-        self.cfg = config_from_metadata(meta)
-        self.codec = LabelCodec.load_state_dict(meta["many_hot_encoder"])
-        self.scaler = Scaler().load_state_dict(meta["scaler"])
         # float32 work (the whole float32 model; the GRU, heads and features of
         # a bfloat16 one) in full float32 on the card: cuDNN convolutions
         # default to TF32 (about three decimal digits), which the reference
@@ -89,9 +88,18 @@ class CheckpointEvaluator:
         # raises for any other.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        self.model = CRNN(self.cfg.model, device=self.device)
-        params, bn_state = ckpt.load_inference_state(ckpt_path)
-        self.model.load_state_dict(ckpt.params_from_jax(params, bn_state))
+        if _prebuilt is not None:
+            self.cfg, model, self.scaler, self.codec, self.meta = _prebuilt
+            self.model = model.to(self.device)
+        else:
+            meta = ckpt.read_metadata(ckpt_path)
+            self.meta = meta
+            self.cfg = config_from_metadata(meta)
+            self.codec = LabelCodec.load_state_dict(meta["many_hot_encoder"])
+            self.scaler = Scaler().load_state_dict(meta["scaler"])
+            self.model = CRNN(self.cfg.model, device=self.device)
+            params, bn_state = ckpt.load_inference_state(ckpt_path)
+            self.model.load_state_dict(ckpt.params_from_jax(params, bn_state))
         self.model.eval()
         d = self.cfg.dsp
         self.frontend = MelFrontend(
@@ -103,7 +111,22 @@ class CheckpointEvaluator:
         self._features = make_eval_features(self.frontend, mean, std)
         self._predict = make_predict_step(self.model)
         self.synthetic_audio = synthetic_audio
-        self.log.info(f"Model loaded at epoch: {meta['epoch']} on {self.device}")
+        self.log.info(f"Model loaded at epoch: {self.meta['epoch']} on {self.device}")
+
+    @classmethod
+    def from_torch_checkpoint(cls, path: str, device="cuda", synthetic_audio: bool = False, logger=None,
+                              mesh=None) -> "CheckpointEvaluator":
+        """Evaluate a reference torch.save checkpoint (TestModel.py's input
+        format) by importing its weights (train/torch_import.py). The
+        reference stores no attention head: the model keeps its own seeded
+        one (train/torch_import.py)."""
+        from dcase2019_task4_tpu_torch.train.torch_import import import_reference_checkpoint
+
+        model, scaler, codec, ptr = import_reference_checkpoint(path)
+        cfg = Config(model=model.cfg)
+        meta = {"epoch": "torch-import", "pooling_time_ratio": ptr, "mean_teacher": True}
+        return cls(device=device, synthetic_audio=synthetic_audio, logger=logger, mesh=mesh,
+                   _prebuilt=(cfg, model, scaler, codec, meta))
 
     def features(self, audio: np.ndarray, frames: np.ndarray) -> torch.Tensor:
         """int16 padded audio [B, Lp] + valid frames [B] → normalised

@@ -48,6 +48,14 @@ n = local · world (`_batch_moments`), and each fused Function sums its
 backward's S1, S2 over the ranks between its two passes; the plain
 BatchNorm sums through a differentiable all-reduce (models/layers.py).
 
+In eval mode every kernel is reached through its torch.library op (the
+`dcase19_torch` namespace, registered beside each wrapper in ops/): K3f
+`conv2d_forward`, K2f `fused_bn_glu_pool_eval`, and for block 1 under the
+flags K4f `entry_conv_forward`, K5f `entry_block_fwd_eval` or K6
+`crows_block_fwd_eval`, so that predict, evaluate and the serving export
+(eval/export.py, torch.export) run one code path. The training forward
+keeps the autograd Functions.
+
 The attention head keeps the reference's semantics: softmax over the
 class axis, normalisation summed over time (models/CRNN.py:77-83).
 """
@@ -128,37 +136,39 @@ class CRNN(nn.Module):
         return mean, var
 
     def _entry_engine(self, block: ConvBlock, x: torch.Tensor, use_fused: bool):
-        """(statistics pass, fused block) of the entries that run the whole
-        first block as fused kernels under this configuration and input, or
-        None: crows before planes, as in the JAX model."""
+        """(statistics pass, fused block, its eval-mode op) of the entries
+        that run the whole first block as fused kernels under this
+        configuration and input, or None: crows before planes, as in the JAX
+        model."""
         cfg = self.cfg
         if not (use_fused and cfg.activation == "glu"):
             return None
         pool, C0 = tuple(cfg.pooling[0]), block.conv.out_channels
         if cfg.entry_block_crows and C0 == 64 and crows_block.crows_applicable(x.shape, pool):
-            return crows_block.crows_stats_apply, crows_block.crows_apply
+            return crows_block.crows_stats_apply, crows_block.crows_apply, torch.ops.dcase19_torch.crows_block_fwd_eval
         if cfg.entry_block_pallas and fused_entry_block.entry_block_applicable(x.shape, pool, C0):
-            return fused_entry_block.entry_block_stats_apply, fused_entry_block.entry_block_apply
+            return (fused_entry_block.entry_block_stats_apply, fused_entry_block.entry_block_apply,
+                    torch.ops.dcase19_torch.entry_block_fwd_eval)
         return None
 
     def _entry_block(self, block: ConvBlock, x: torch.Tensor, engine,
                      generator: Optional[torch.Generator], mesh) -> torch.Tensor:
         """First block as one kernel family: batch statistics from the
         statistics pass over a conv output that is never stored, the
-        running-stat update, one dropout seed, then the fused Function (eval
-        mode: running statistics, rate 0)."""
+        running-stat update, one dropout seed, then the fused Function; in
+        eval mode the entry's op on the running statistics (rate 0)."""
         cfg, bn = self.cfg, block.bn
-        stats_apply, apply = engine
+        stats_apply, apply, eval_op = engine
         cd = self.compute_dtype
         conv = {"w": block.conv.weight.permute(2, 3, 1, 0), "b": block.conv.bias}
-        if self.training:
-            s, sq = stats_apply(conv, x, cd)
-            mean, var = self._batch_moments(bn, s, sq, x.shape[0] * x.shape[1] * x.shape[2], mesh)
-            seed = self._draw_seed(generator)
-        else:
-            mean, var, seed = bn.running_mean, bn.running_var, 0
-        return apply(conv, bn.weight, bn.bias, mean, var, block.act.weight.t(), block.act.bias, x, seed,
-                     cfg.dropout, tuple(cfg.pooling[0]), cfg.bn_eps, self.training, compute_dtype=cd, mesh=mesh)
+        if not self.training:
+            return eval_op(x[..., 0].to(cd), conv["w"], conv["b"], bn.weight, bn.bias, bn.running_mean,
+                           bn.running_var, block.act.weight.t(), block.act.bias, list(cfg.pooling[0]), cfg.bn_eps)
+        s, sq = stats_apply(conv, x, cd)
+        mean, var = self._batch_moments(bn, s, sq, x.shape[0] * x.shape[1] * x.shape[2], mesh)
+        return apply(conv, bn.weight, bn.bias, mean, var, block.act.weight.t(), block.act.bias, x,
+                     self._draw_seed(generator), cfg.dropout, tuple(cfg.pooling[0]), cfg.bn_eps, True,
+                     compute_dtype=cd, mesh=mesh)
 
     def _block(self, i: int, block: ConvBlock, x: torch.Tensor, use_fused: bool,
                generator: Optional[torch.Generator], mesh) -> torch.Tensor:
@@ -186,7 +196,9 @@ class CRNN(nn.Module):
             params = {"w": conv.weight.permute(2, 3, 1, 0), "b": conv.bias}
             want_stats = train and cfg.activation == "glu" and fused_block.applicable(
                 (x.shape[0], x.shape[1], x.shape[2], conv.out_channels), pool)
-            if want_stats:
+            if not train:
+                x = torch.ops.dcase19_torch.entry_conv_forward(x[..., 0].to(cd), params["w"], params["b"])
+            elif want_stats:
                 x, *entry_stats = entry_conv.entry_conv_apply(params, x, compute_dtype=cd, want_stats=True)
             else:
                 x = entry_conv.entry_conv_apply(params, x, compute_dtype=cd)
@@ -196,23 +208,25 @@ class CRNN(nn.Module):
             and conv.in_channels == conv.out_channels
             and packed_conv.applicable(x.shape[2], x.shape[3])
         ):
-            x = packed_conv.conv2d_packed({"w": conv.weight.permute(2, 3, 1, 0), "b": conv.bias},
-                                          x.to(cd).contiguous())
+            w = conv.weight.permute(2, 3, 1, 0)
+            x = x.to(cd).contiguous()
+            x = (packed_conv.conv2d_packed({"w": w, "b": conv.bias}, x) if train
+                 else torch.ops.dcase19_torch.conv2d_forward(x, w, conv.bias))
         else:
             x = L.conv2d(conv.weight, conv.bias, x.to(cd), cfg.stride[i], cfg.padding[i])
         bn = block.bn
         if use_fused and cfg.activation == "glu" and fused_block.applicable(x.shape, pool):
             x = x.contiguous()
-            if train:
-                # Σy, Σy² without a graph (K2s, or K4f's own sums); var = Σy²/n − mean² as in the JAX model
-                s, sq = entry_stats if entry_stats is not None else fused_block.batch_stats(x)
-                mean, var = self._batch_moments(bn, s, sq, x.numel() // x.shape[-1], mesh)
-                seed = self._draw_seed(generator)
-            else:
-                mean, var, seed = bn.running_mean, bn.running_var, 0
+            if not train:
+                return torch.ops.dcase19_torch.fused_bn_glu_pool_eval(
+                    x, bn.weight, bn.bias, bn.running_mean, bn.running_var, block.act.weight.t(), block.act.bias,
+                    list(pool), cfg.bn_eps)
+            # Σy, Σy² without a graph (K2s, or K4f's own sums); var = Σy²/n − mean² as in the JAX model
+            s, sq = entry_stats if entry_stats is not None else fused_block.batch_stats(x)
+            mean, var = self._batch_moments(bn, s, sq, x.numel() // x.shape[-1], mesh)
             return fused_block.fused_bn_glu_dropout_pool(
                 x, bn.weight, bn.bias, mean, var, block.act.weight.t(), block.act.bias,
-                seed, rate, pool, cfg.bn_eps, train, mesh=mesh,
+                self._draw_seed(generator), rate, pool, cfg.bn_eps, True, mesh=mesh,
             )
         if cd != torch.float32:
             raise NotImplementedError(f"compute_dtype {cfg.compute_dtype!r}: block {i + 1} of shape "

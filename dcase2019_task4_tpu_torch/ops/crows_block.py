@@ -35,7 +35,9 @@ is exact here: pt = 2 and pf divides F = 64, so pt·pf is a power of two.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
+
+import torch
 
 from dcase2019_task4_tpu_torch.ops import fused_entry_block
 
@@ -87,3 +89,22 @@ crows_apply.launches_eval_bf16 = 0
 crows_apply.launches_train_bf16 = 0
 crows_apply.launches_bwd_reduce_bf16 = 0
 crows_apply.launches_bwd_wgrad_bf16 = 0
+
+
+@torch.library.custom_op("dcase19_torch::crows_block_fwd_eval", mutates_args=())
+def crows_block_fwd_eval(x: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor, scale: torch.Tensor,
+                         bias: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, glu_w: torch.Tensor,
+                         glu_b: torch.Tensor, pool: List[int], eps: float) -> torch.Tensor:
+    """K6's forward at rate 0 (K5's kernel with layout "crows", counted on
+    `crows_apply.launches_eval` too) as a torch.library op: the eval-mode
+    CRNN's and the serving export's only way to the first block under
+    `entry_block_crows`; x in the compute dtype. The wrapper dispatches by
+    x's device."""
+    if not crows_applicable((*x.shape[:3], 1), pool):
+        raise ValueError(f"crows_block_fwd_eval does not take x {tuple(x.shape)} with pool {tuple(pool)}")
+    with fused_entry_block.called_through(crows_apply):
+        return fused_entry_block.entry_block_fwd(x, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, pool, eps,
+                                                 layout="crows")
+
+
+crows_block_fwd_eval.register_fake(fused_entry_block._fwd_eval_fake)

@@ -280,6 +280,20 @@ entry_conv_forward.launches = 0  # float32 launches
 entry_conv_forward.launches_bf16 = 0  # bfloat16 launches
 
 
+@torch.library.custom_op("dcase19_torch::entry_conv_forward", mutates_args=())
+def entry_conv_forward_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`entry_conv_forward` as a torch.library op, the eval-mode CRNN's and
+    the serving export's only way to K4f: → y (the kernel's Σy, Σy² serve
+    the training BatchNorm, which does not call the op). The wrapper
+    dispatches by x's device."""
+    return entry_conv_forward({"w": w, "b": b}, x)[0]
+
+
+@entry_conv_forward_op.register_fake
+def _(x, w, b):
+    return x.new_empty((*_features(x).shape, w.shape[-1]))
+
+
 def entry_conv_stats(params, x: torch.Tensor):
     """The statistics-only mode of the K4f kernel as an ablation: (Σy, Σy²)
     of a conv output that is never written, on K4f's own kernel and grid

@@ -79,7 +79,7 @@ from __future__ import annotations
 
 import functools
 import os
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -524,6 +524,23 @@ fused_bn_glu_pool.launches_train = 0  # launches with the dropout on (train mode
 fused_bn_glu_pool.launches_eval_bf16 = 0  # the same, of the bfloat16 kernel
 fused_bn_glu_pool.launches_train_bf16 = 0
 fused_bn_glu_pool.launches_packed = 0  # train launches of either dtype that drew the packed mask
+
+
+@torch.library.custom_op("dcase19_torch::fused_bn_glu_pool_eval", mutates_args=())
+def fused_bn_glu_pool_eval(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
+                           var: torch.Tensor, glu_w: torch.Tensor, glu_b: torch.Tensor, pool: List[int],
+                           eps: float) -> torch.Tensor:
+    """K2f at rate 0 (BatchNorm with the given, running, statistics) as a
+    torch.library op: the eval-mode CRNN's and the serving export's only way
+    to K2's forward (training keeps `fused_bn_glu_dropout_pool`); the
+    wrapper dispatches by y's device."""
+    return fused_bn_glu_pool(y, scale, bias, mean, var, glu_w, glu_b, pool, eps)
+
+
+@fused_bn_glu_pool_eval.register_fake
+def _(y, scale, bias, mean, var, glu_w, glu_b, pool, eps):
+    B, T, Fq, C = y.shape
+    return y.new_empty((B, T // pool[0], Fq // pool[1], C))
 
 
 def stats_bf16_vec(channels: int, aligned16: bool = True) -> int:

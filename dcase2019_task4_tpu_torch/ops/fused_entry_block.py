@@ -80,7 +80,7 @@ values. In float32 the layouts give the same bits.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -310,6 +310,25 @@ entry_block_fwd.launches_train = 0  # launches with the dropout on (train mode)
 entry_block_fwd.launches_eval_bf16 = 0  # the same, of the bfloat16 kernel
 entry_block_fwd.launches_train_bf16 = 0
 entry_block_fwd.launches_packed = 0  # train launches of either dtype that drew the packed mask
+
+
+def _fwd_eval_fake(x, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, pool, eps):
+    B, T, Fq = entry_conv._features(x).shape
+    return x.new_empty((B, T // pool[0], Fq // pool[1], conv_w.shape[-1]))
+
+
+@torch.library.custom_op("dcase19_torch::entry_block_fwd_eval", mutates_args=())
+def entry_block_fwd_eval(x: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor, scale: torch.Tensor,
+                         bias: torch.Tensor, mean: torch.Tensor, var: torch.Tensor, glu_w: torch.Tensor,
+                         glu_b: torch.Tensor, pool: List[int], eps: float) -> torch.Tensor:
+    """K5f at rate 0, layout "planes", as a torch.library op: the eval-mode
+    CRNN's and the serving export's only way to the fused first block under
+    `entry_block_pallas` (training keeps `entry_block_apply`); x in the
+    compute dtype. The wrapper dispatches by x's device."""
+    return entry_block_fwd(x, conv_w, conv_b, scale, bias, mean, var, glu_w, glu_b, pool, eps, layout="planes")
+
+
+entry_block_fwd_eval.register_fake(_fwd_eval_fake)
 
 
 def bf16_bwd_plan(channels: int, pool, which: int):

@@ -327,3 +327,40 @@ def fused_stft_mel_onedot(chunks: torch.Tensor, bases: OnedotBases, *, n_fft: in
 
 
 fused_stft_mel_onedot.launches = 0
+
+
+# ------------------------------------------------------ torch.library ops
+#
+# The serving forward reaches K1 only through these custom ops
+# (ops/mel.py `MelFrontend.linear_mel`), so torch.export can trace it:
+# the ctypes launch above passes raw pointers, which export cannot follow.
+# Each op's one implementation is the wrapper, which dispatches by the
+# tensor's device (the plain version on the CPU, the kernel on cuda, and
+# raises on any other); the fake gives the output's shape and dtype.
+
+
+@torch.library.custom_op("dcase19_torch::fused_stft_mel", mutates_args=())
+def fused_stft_mel_op(chunks: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, mel_fb: torch.Tensor,
+                      window: torch.Tensor, twiddle: torch.Tensor, bands: torch.Tensor, band_weights: torch.Tensor,
+                      n_fft: int, hop: int, T: int) -> torch.Tensor:
+    """`fused_stft_mel` with `FusedMelBases` unpacked into its tensors."""
+    bases = FusedMelBases(cos, sin, mel_fb, window, twiddle, bands, band_weights)
+    return fused_stft_mel(chunks, bases, n_fft=n_fft, hop=hop, T=T)
+
+
+@fused_stft_mel_op.register_fake
+def _(chunks, cos, sin, mel_fb, window, twiddle, bands, band_weights, n_fft, hop, T):
+    return chunks.new_empty((chunks.shape[0], T, mel_fb.shape[1]), dtype=torch.float32)
+
+
+@torch.library.custom_op("dcase19_torch::fused_stft_mel_onedot", mutates_args=())
+def fused_stft_mel_onedot_op(chunks: torch.Tensor, dft: torch.Tensor, mel_fb: torch.Tensor, plan_chunks: torch.Tensor,
+                             plan_bands: torch.Tensor, slots: int, n_fft: int, hop: int, T: int) -> torch.Tensor:
+    """`fused_stft_mel_onedot` with `OnedotBases` unpacked."""
+    bases = OnedotBases(dft, mel_fb, plan_chunks, plan_bands, slots)
+    return fused_stft_mel_onedot(chunks, bases, n_fft=n_fft, hop=hop, T=T)
+
+
+@fused_stft_mel_onedot_op.register_fake
+def _(chunks, dft, mel_fb, plan_chunks, plan_bands, slots, n_fft, hop, T):
+    return chunks.new_empty((chunks.shape[0], T, mel_fb.shape[1]), dtype=torch.float32)

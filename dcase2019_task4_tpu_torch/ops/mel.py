@@ -27,8 +27,6 @@ from dcase2019_task4_tpu_torch.ops.fused_mel import (
     build_bases,
     build_onedot_bases,
     extra_rows,
-    fused_stft_mel,
-    fused_stft_mel_onedot,
 )
 
 
@@ -201,11 +199,12 @@ class MelFrontend(nn.Module):
     def linear_mel(self, padded: torch.Tensor) -> torch.Tensor:
         """Padded audio [B, Lp] (float32, or int16 PCM) → linear mel
         [B, T, n_mels] through the fused STFT→mel kernel (K1), or its onedot
-        variant in a frontend built with it."""
-        kw = dict(n_fft=self.n_window, hop=self.hop_length, T=self.max_frames)
+        variant in a frontend built with it, each called as its torch.library
+        op (ops/fused_mel.py), so that torch.export traces it."""
+        chunks, dims = self._hop_chunks(padded), (self.n_window, self.hop_length, self.max_frames)
         if self.onedot:
-            return fused_stft_mel_onedot(self._hop_chunks(padded), self.onedot_bases(), **kw)
-        return fused_stft_mel(self._hop_chunks(padded), self.bases(), **kw)
+            return torch.ops.dcase19_torch.fused_stft_mel_onedot(chunks, *self.onedot_bases(), *dims)
+        return torch.ops.dcase19_torch.fused_stft_mel(chunks, *self.bases(), *dims)
 
     def amplitude_to_db(self, mel: torch.Tensor, frame_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """librosa amplitude_to_db with ref=1: 20·log10(max(amin, x)), then

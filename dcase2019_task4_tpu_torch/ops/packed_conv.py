@@ -270,6 +270,19 @@ conv2d_forward.launches = 0  # float32 launches
 conv2d_forward.launches_bf16 = 0  # bfloat16 launches
 
 
+@torch.library.custom_op("dcase19_torch::conv2d_forward", mutates_args=())
+def conv2d_forward_op(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`conv2d_forward` as a torch.library op, the eval-mode CRNN's and the
+    serving export's only way to K3 (the training forward keeps the
+    autograd Function below): the wrapper dispatches by x's device."""
+    return conv2d_forward({"w": w, "b": b}, x)
+
+
+@conv2d_forward_op.register_fake
+def _(x, w, b):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
 def conv2d_dx(w: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """K3 input gradient: the forward kernel on the weights flipped in both
     taps and transposed in (Cin, Cout), without bias; dy's dtype in and

@@ -40,6 +40,7 @@ Bars, each stated where it is checked:
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -485,19 +486,27 @@ def test_flagship_bf16_crnn_eval_matches_jax(flag):
                                                                               train=False)
     net = tcrnn.CRNN(tconfig.ModelConfig(**_model_kw(**flags)))
     net.load_state_dict(tckpt.params_from_jax(_np_tree(params), _np_tree(state)))
+    # the eval-mode model reaches the first-block kernels through its ops,
+    # whose implementations are the forward wrappers: K5f (with the layout
+    # the entry asks for) and K4f
     calls = []
-    real = {name: getattr(mod, name) for mod, name in ((tcr, "crows_apply"), (tfe, "entry_block_apply"),
-                                                      (tec, "entry_conv_apply"))}
+    spied = ((tfe, "entry_block_fwd"), (tec, "entry_conv_forward"))
+    real = {name: getattr(mod, name) for mod, name in spied}
+
+    def spy(*a, _n, **kw):
+        calls.append(f"{_n}[{kw['layout']}]" if _n == "entry_block_fwd" else _n)
+        return real[_n](*a, **kw)
+
     try:
-        for mod, name in ((tcr, "crows_apply"), (tfe, "entry_block_apply"), (tec, "entry_conv_apply")):
-            setattr(mod, name, lambda *a, _n=name, **kw: (calls.append(_n), real[_n](*a, **kw))[1])
+        for mod, name in spied:
+            setattr(mod, name, functools.partial(spy, _n=name))
         strong, weak = net.eval()(torch.from_numpy(x))
     finally:
-        for mod, name in ((tcr, "crows_apply"), (tfe, "entry_block_apply"), (tec, "entry_conv_apply")):
+        for mod, name in spied:
             setattr(mod, name, real[name])
-    expected = {None: [], "entry_block_pallas": ["entry_block_apply"],
-                "entry_block_crows": ["crows_apply", "entry_block_apply"],  # crows runs the fused block's Function
-                "entry_conv_pallas": ["entry_conv_apply"]}[flag]
+    expected = {None: [], "entry_block_pallas": ["entry_block_fwd[planes]"],
+                "entry_block_crows": ["entry_block_fwd[crows]"],
+                "entry_conv_pallas": ["entry_conv_forward"]}[flag]
     assert calls == expected
     np.testing.assert_allclose(strong.numpy(), np.asarray(s_ref), rtol=0, atol=1e-5)
     np.testing.assert_allclose(weak.numpy(), np.asarray(w_ref), rtol=0, atol=1e-5)

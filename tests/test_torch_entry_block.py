@@ -358,7 +358,8 @@ def test_crnn_with_the_flag_equals_the_port_without_it(train):
     """Dropout 0.5 from one generator seed: the first block draws its seed at
     the same place in the stream, so outputs, BatchNorm buffers and every
     gradient agree with the default path; the flag's path goes through the
-    entry block's entries and never through F.conv2d or K2 for block 1."""
+    entry block's entries (in eval mode its op, which calls the K5f wrapper
+    `entry_block_fwd`) and never through F.conv2d or K2 for block 1."""
     cfg = dataclasses.replace(_cfg(entry_block_pallas=True), nb_filters=(16, 16, 16), n_rnn_cell=16)
     base = tcrnn.seeded_init_(tcrnn.CRNN(cfg), 3)
     x = torch.from_numpy(np.random.default_rng(3).standard_normal((2, TM, 64)).astype(np.float32))
@@ -367,7 +368,8 @@ def test_crnn_with_the_flag_equals_the_port_without_it(train):
         net = tcrnn.CRNN(dataclasses.replace(cfg, entry_block_pallas=flag)).train(train)
         net.load_state_dict(base.state_dict())
         calls = []
-        real = [(tfe, n, _spy(tfe, n, calls)) for n in ("entry_block_stats_apply", "entry_block_apply")]
+        real = [(tfe, n, _spy(tfe, n, calls)) for n in ("entry_block_stats_apply", "entry_block_apply",
+                                                        "entry_block_fwd")]
         real.append((tfb, "batch_stats", _spy(tfb, "batch_stats", calls)))
         real.append((TL, "conv2d", _spy(TL, "conv2d", calls)))
         try:
@@ -382,10 +384,11 @@ def test_crnn_with_the_flag_equals_the_port_without_it(train):
         results.append((strong.detach(), weak.detach(), grads, [b.clone() for b in net.buffers()], calls))
     (s1, w1, g1, b1, calls1), (s0, w0, g0, b0, calls0) = results
     if train:
-        assert calls1 == ["entry_block_stats_apply", "entry_block_apply", "batch_stats", "batch_stats"]
+        assert calls1 == ["entry_block_stats_apply", "entry_block_apply", "entry_block_fwd", "batch_stats",
+                          "batch_stats"]
         assert calls0 == ["conv2d", "batch_stats", "batch_stats", "batch_stats"]
     else:
-        assert calls1 == ["entry_block_apply"] and calls0 == ["conv2d"]
+        assert calls1 == ["entry_block_fwd"] and calls0 == ["conv2d"]
     assert torch.allclose(s1, s0, atol=2e-6) and torch.allclose(w1, w0, atol=2e-6)
     for a, b in zip(b1, b0):
         assert torch.allclose(a, b, atol=1e-6)
@@ -399,17 +402,18 @@ def test_gate_falls_through_to_the_default_path():
     """Where the gate says a shape does not apply (an odd number of frames
     under a time pool of 2), the default path runs, as in the JAX model; with
     16 filters the crows gate (64) does not apply either, and the planes
-    entry takes the block."""
+    entry takes the block (in eval mode through its op, which calls the K5f
+    wrapper `entry_block_fwd` in the planes layout)."""
     cfg = dataclasses.replace(_cfg(entry_block_pallas=True, entry_block_crows=True), nb_filters=(16, 16, 16),
                               n_rnn_cell=16)
     net = tcrnn.seeded_init_(tcrnn.CRNN(cfg), 4).eval()
     calls = []
-    real = [(tfe, "entry_block_apply", _spy(tfe, "entry_block_apply", calls)), (TL, "conv2d", _spy(TL, "conv2d", calls))]
+    real = [(tfe, "entry_block_fwd", _spy(tfe, "entry_block_fwd", calls)), (TL, "conv2d", _spy(TL, "conv2d", calls))]
     try:
         net(torch.zeros(1, TM, 64))
-        assert calls == ["entry_block_apply"]
+        assert calls == ["entry_block_fwd"]
         net(torch.zeros(1, TM + 1, 64))
-        assert calls == ["entry_block_apply", "conv2d"]
+        assert calls == ["entry_block_fwd", "conv2d"]
     finally:
         for module, name, fn in real:
             setattr(module, name, fn)

@@ -20,12 +20,14 @@ from dcase2019_task4_tpu import config as jconfig
 from dcase2019_task4_tpu import native as jnative
 from dcase2019_task4_tpu.data import audio_io as jaudio
 from dcase2019_task4_tpu.data import encoder as jencoder
+from dcase2019_task4_tpu.data import transforms as jtransforms
 from dcase2019_task4_tpu.utils import logger as jlogger
 from dcase2019_task4_tpu.utils import scaler as jscaler
 from dcase2019_task4_tpu_torch import config as tconfig
 from dcase2019_task4_tpu_torch import native as tnative
 from dcase2019_task4_tpu_torch.data import audio_io as taudio
 from dcase2019_task4_tpu_torch.data import encoder as tencoder
+from dcase2019_task4_tpu_torch.data import transforms as ttransforms
 from dcase2019_task4_tpu_torch.utils import logger as tlogger
 from dcase2019_task4_tpu_torch.utils import scaler as tscaler
 
@@ -42,9 +44,21 @@ def _events(rng, n):
 
 def test_the_copies_are_separate_modules():
     for mine, theirs in ((tconfig, jconfig), (tnative, jnative), (taudio, jaudio), (tencoder, jencoder),
-                         (tlogger, jlogger), (tscaler, jscaler)):
+                         (tlogger, jlogger), (tscaler, jscaler), (ttransforms, jtransforms)):
         assert mine.__file__ != theirs.__file__
         assert "dcase2019_task4_tpu_torch" in mine.__file__
+
+
+def test_transforms_are_the_original_code():
+    """data/transforms.py is framework-free: the copy is the original's
+    code under its own docstring (tests/test_torch_transforms.py holds
+    each transform to the original's outputs bit for bit)."""
+    def body(module):
+        with open(module.__file__) as f:
+            text = f.read()
+        return text[text.index('"""', 3) + 3:]
+
+    assert body(ttransforms) == body(jtransforms)
 
 
 @pytest.mark.parametrize("make", ["Config", "scaled_config"])

@@ -38,19 +38,20 @@ def test_every_module_is_listed():
                  "train.schedules", "train.steps", "ops.entry_conv", "ops.fused_entry_block", "ops.crows_block",
                  "data.manifests", "data.sampler", "data.features_cache", "eval.sed_scores", "eval.tagging",
                  "utils.meters", "utils.metrics_writer", "train.experiment", "eval.thresholds", "parallel.mesh",
-                 "parallel.multihost"):
+                 "parallel.multihost", "eval.export", "train.torch_import", "data.download", "data.transforms",
+                 "utils.profiling", "utils.cost_model"):
         assert f"dcase2019_task4_tpu_torch.{name}" in MODULES
 
 
-@pytest.mark.parametrize("target", ["package", "chip_smoke", "bench_entry_conv_torch"])
+@pytest.mark.parametrize("target", ["package", "chip_smoke", "bench_entry_conv_torch", "profile_step_torch"])
 def test_no_jax_and_no_pandas(target):
     if target == "package":
         imports = "\n".join(f"import {m}" for m in MODULES)
     elif target == "chip_smoke":  # what chip_smoke.py reaches: its module and every port module it calls
         imports = "import chip_smoke\n" + "\n".join(f"import {m}" for m in MODULES)
-    else:  # the tool, run as far as it goes without a card (it imports what it uses inside main)
-        imports = ("import sys; sys.path.insert(0, 'tools')\nimport bench_entry_conv_torch\n"
-                   "rc = bench_entry_conv_torch.main([])\n"
+    else:  # a tool, run as far as it goes without a card (it imports what it uses inside main)
+        imports = (f"import sys; sys.path.insert(0, 'tools')\nimport {target}\n"
+                   f"rc = {target}.main([])\n"
                    "import torch\nassert rc == 2 or torch.cuda.is_available(), rc")
     proc = _run(imports + "\nimport sys\nprint(sorted(m for m in sys.modules if m in ('jax', 'pandas') "
                           "or m == 'dcase2019_task4_tpu' or m.startswith('dcase2019_task4_tpu.')))")
@@ -70,7 +71,8 @@ _JAX_PACKAGE_USE = re.compile(
 
 def _port_sources():
     files = glob.glob(os.path.join(ROOT, "dcase2019_task4_tpu_torch", "**", "*.py"), recursive=True)
-    return sorted(files) + [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tools", "bench_entry_conv_torch.py")]
+    return sorted(files) + [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tools", "bench_entry_conv_torch.py"),
+                            os.path.join(ROOT, "tools", "profile_step_torch.py")]
 
 
 def test_source_scan_finds_no_import_of_the_jax_package():

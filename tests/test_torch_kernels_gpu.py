@@ -47,7 +47,12 @@ it off; bfloat16 one ulp plus the slack of dxn's products; both at C 16 to
 unaligned y and dout bit-equal), the packed keep-mask kernel bit for bit, K2 and
 K5 with the packed draw against their plain versions with that mask, and
 one training step with all three knobs on against the CPU, its launches
-counted.
+counted. Then the eval-mode forward's torch.library ops (`dcase19_torch::`
+K1 both variants, K3f, K2f eval in both types, K4f, K5f, K6), each the bits
+of its wrapper with one launch of its kernel, and `torch.library.opcheck`
+on cuda; and the flagship's serving artifact exported and loaded on the
+card at batch 24 (within 1e-6 of max of the direct path, K1 1, K3f 2, K2f
+3 launches a call).
 """
 
 import numpy as np
@@ -1835,3 +1840,111 @@ def test_train_step_with_the_three_knobs_repeats_a_cpu_step(cuda, flag, monkeypa
     assert d["bwd_fixup_recompute.launches"] == d["bwd_reduce.launches_nodyp"] == blocks, d
     assert d["fused_bn_glu_pool.launches_packed"] == d["fused_bn_glu_pool.launches_train"] == 2 * blocks, d
     assert d["entry_block_fwd.launches_packed"] == d["entry_block_fwd.launches_train"] == (2 if flag else 0), d
+
+
+# ------------------------------------------- the serving ops and the export
+
+
+def _op_cases_on(device, bf16_y: bool = False):
+    """name -> (op, args, wrapper call, (wrapper, counter)) of every
+    `dcase19_torch` op at small shapes on `device`."""
+    rng = np.random.default_rng(11)
+    fe = MelFrontend(sample_rate=8000, n_window=256, hop_length=101, n_mels=16, f_max=4000.0, max_frames=37,
+                     device=device, onedot=True)
+    chunks = fe._hop_chunks(_t(0.1 * rng.standard_normal((3, 37 * 101 + 256)), device))
+    dims = (256, 101, 37)
+    kw = dict(n_fft=256, hop=101, T=37)
+    C, pool = 16, [2, 4]
+    scale, bias, mean, var, gw, gb = _block_args(rng, C, device)
+    vecs = (scale, bias, mean, var, gw, gb)
+    y = _t(rng.standard_normal((3, 10, 20, C)), device)
+    x3 = _t(rng.standard_normal((3, 10, 20)), device)
+    conv = _entry_params(rng, C, device)
+    w3 = _t(0.2 * rng.standard_normal((3, 3, C, C)), device)
+    c64 = _entry_params(rng, 64, device)
+    vec64 = _block_args(rng, 64, device)
+    x64 = _t(rng.standard_normal((2, 10, 64)), device)
+    fb, fe_block = fused_block, fused_entry_block
+    return {
+        "fused_stft_mel": (fused_mel.fused_stft_mel_op, (chunks, *fe.bases(), *dims),
+                           lambda: fused_mel.fused_stft_mel(chunks, fe.bases(), **kw), (fused_mel.fused_stft_mel, "launches")),
+        "fused_stft_mel_onedot": (fused_mel.fused_stft_mel_onedot_op, (chunks, *fe.onedot_bases(), *dims),
+                                  lambda: fused_mel.fused_stft_mel_onedot(chunks, fe.onedot_bases(), **kw),
+                                  (fused_mel.fused_stft_mel_onedot, "launches")),
+        "conv2d_forward": (packed_conv.conv2d_forward_op, (y, w3, gb),
+                           lambda: packed_conv.conv2d_forward({"w": w3, "b": gb}, y), (packed_conv.conv2d_forward, "launches")),
+        "fused_bn_glu_pool_eval": (fb.fused_bn_glu_pool_eval, (y, *vecs, pool, 1e-3),
+                                   lambda: fb.fused_bn_glu_pool(y, *vecs, pool, 1e-3), (fb.fused_bn_glu_pool, "launches_eval")),
+        "fused_bn_glu_pool_eval_bf16": (fb.fused_bn_glu_pool_eval, (y.bfloat16(), *vecs, pool, 1e-3),
+                                        lambda: fb.fused_bn_glu_pool(y.bfloat16(), *vecs, pool, 1e-3),
+                                        (fb.fused_bn_glu_pool, "launches_eval_bf16")),
+        "entry_conv_forward": (entry_conv.entry_conv_forward_op, (x3, conv["w"], conv["b"]),
+                               lambda: entry_conv.entry_conv_forward(conv, x3), (entry_conv.entry_conv_forward, "launches")),
+        "entry_block_fwd_eval": (fe_block.entry_block_fwd_eval, (x3, conv["w"], conv["b"], *vecs, pool, 1e-3),
+                                 lambda: fe_block.entry_block_fwd(x3, conv["w"], conv["b"], *vecs, pool, 1e-3),
+                                 (fe_block.entry_block_fwd, "launches_eval")),
+        "crows_block_fwd_eval": (crows_block.crows_block_fwd_eval, (x64, c64["w"], c64["b"], *vec64, [2, 4], 1e-3),
+                                 lambda: fe_block.entry_block_fwd(x64, c64["w"], c64["b"], *vec64, [2, 4], 1e-3,
+                                                                  layout="crows"),
+                                 (crows_block.crows_apply, "launches_eval")),
+    }
+
+
+SERVING_OPS = ("fused_stft_mel", "fused_stft_mel_onedot", "conv2d_forward", "fused_bn_glu_pool_eval",
+               "fused_bn_glu_pool_eval_bf16", "entry_conv_forward", "entry_block_fwd_eval", "crows_block_fwd_eval")
+
+
+@pytest.mark.parametrize("name", SERVING_OPS)
+def test_serving_op_is_its_wrapper_on_the_card(cuda, name):
+    """Each torch.library op on cuda: its wrapper's bits, one launch of the
+    wrapper's kernel a call (K6's on crows' own counter), and opcheck."""
+    op, args, wrapper_call, (counted, counter) = _op_cases_on(cuda)[name]
+    before = getattr(counted, counter)
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert getattr(counted, counter) == before + 1
+    want = wrapper_call()
+    if name == "entry_conv_forward":
+        want = want[0]  # y; the op leaves the sums to training
+    for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+        assert g.device == w.device and g.dtype == w.dtype and torch.equal(g, w), name
+    torch.library.opcheck(op, args)
+
+
+def test_flagship_default_artifact_on_the_card(cuda, tmp_path):
+    """The flagship `Config()` (seeded weights, batch 24) exported on the
+    card and loaded back: platforms ["cuda"], strong and weak within 1e-6
+    of the evaluator's direct path on the same batch, and one call
+    launches K1 once, K3f twice and K2f eval three times."""
+    from dcase2019_task4_tpu_torch.config import DEFAULT_CLASSES, Config
+    from dcase2019_task4_tpu_torch.data.encoder import LabelCodec
+    from dcase2019_task4_tpu_torch.eval.evaluate import CheckpointEvaluator
+    from dcase2019_task4_tpu_torch.eval.export import export_serving, load_serving
+    from dcase2019_task4_tpu_torch.models.crnn import CRNN, seeded_init_
+    from dcase2019_task4_tpu_torch.ops.mel import host_reflect_pad
+    from dcase2019_task4_tpu_torch.utils.scaler import Scaler
+
+    cfg = Config()
+    d = cfg.dsp
+    scaler = Scaler().load_state_dict({"mean_": [-40.0] * d.n_mels, "mean_of_square_": [1700.0] * d.n_mels})
+    meta = {"epoch": 0, "pooling_time_ratio": 8, "mean_teacher": True}
+    ev = CheckpointEvaluator(device=cuda, _prebuilt=(cfg, seeded_init_(CRNN(cfg.model), 0), scaler,
+                                                      LabelCodec(DEFAULT_CLASSES, d.max_frames // 8), meta))
+    path = str(tmp_path / "flagship.dc19serve")
+    header = export_serving(ev, path)
+    assert header["platforms"] == ["cuda"] and header["batch_size"] == 24
+    served = load_serving(path)
+    rng = np.random.default_rng(3)
+    padded, frames = host_reflect_pad([0.1 * rng.standard_normal(int(d.sample_rate * s)) for s in np.linspace(2, 10, 24)],
+                                      d.max_samples, d.n_window, d.hop_length, d.max_frames)
+    audio = np.clip(np.round(padded * 32768.0), -32768, 32767).astype(np.int16)
+    counters = ((fused_mel.fused_stft_mel, "launches"), (packed_conv.conv2d_forward, "launches"),
+                (fused_block.fused_bn_glu_pool, "launches_eval"))
+    before = [getattr(f, n) for f, n in counters]
+    strong, weak = served(audio, frames)
+    torch.cuda.synchronize()
+    assert [getattr(f, n) - b for (f, n), b in zip(counters, before)] == [1, 2, 3]
+    want_strong, want_weak = ev._predict(ev.features(audio, frames))
+    assert strong.device.type == "cuda" and strong.shape == (24, 108, 10) and weak.shape == (24, 10)
+    for got, want in ((strong, want_strong), (weak, want_weak)):
+        assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()

@@ -168,15 +168,17 @@ def test_crnn_matches_jax(jax_model, train):
     model, params, bn, x = jax_model
     apply = jax.jit(model.apply, static_argnames="train")
     strong_ref, weak_ref, bn_ref = apply(params, bn, jnp.asarray(x), train=train, rng=jax.random.PRNGKey(1))
+    # the forward wrappers, which the training Functions and the eval-mode
+    # ops both call
     calls = {"k2": [], "k3": []}
-    real_k2, real_k3 = tfb.fused_bn_glu_dropout_pool, tpc.conv2d_packed
-    tfb.fused_bn_glu_dropout_pool = lambda y, *a, **kw: (calls["k2"].append(y.dtype), real_k2(y, *a, **kw))[1]
-    tpc.conv2d_packed = lambda p, x_: (calls["k3"].append(x_.dtype), real_k3(p, x_))[1]
+    real_k2, real_k3 = tfb.fused_bn_glu_pool, tpc.conv2d_forward
+    tfb.fused_bn_glu_pool = lambda y, *a, **kw: (calls["k2"].append(y.dtype), real_k2(y, *a, **kw))[1]
+    tpc.conv2d_forward = lambda p, x_: (calls["k3"].append(x_.dtype), real_k3(p, x_))[1]
     try:
         net = _port_model(params, bn).train(train)
         strong, weak = net(torch.from_numpy(x), torch.Generator().manual_seed(0))
     finally:
-        tfb.fused_bn_glu_dropout_pool, tpc.conv2d_packed = real_k2, real_k3
+        tfb.fused_bn_glu_pool, tpc.conv2d_forward = real_k2, real_k3
     # the fused block at all three blocks and K3 at blocks 2 and 3, in bfloat16
     assert calls == {"k2": [torch.bfloat16] * 3, "k3": [torch.bfloat16] * 2}
     assert strong.dtype == weak.dtype == torch.float32

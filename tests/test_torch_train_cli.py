@@ -7,8 +7,8 @@ best checkpoint, metrics.jsonl and both prediction TSVs; the scoring
 `evaluate` reads the checkpoint back and writes the validation predictions
 the final test wrote, and its F1s and rows are the JAX package's
 `CheckpointEvaluator.test_model` on the same checkpoint (the rows' times
-equal, the F1s equal). Flags of what is not ported fail naming the ROADMAP
-item; the data-parallel flags reach the process group's set-up.
+equal, the F1s equal). The data-parallel flags reach the process group's
+set-up.
 """
 
 import csv
@@ -155,18 +155,6 @@ def test_the_model_flags_train_through_the_cli(tmp_path, monkeypatch, flags):
     assert meta["config"]["model"]["compute_dtype"] == "bfloat16"
     assert meta["config"]["train"]["spec_augment"] == ("--scaled" in flags)
     assert os.path.exists(os.path.join(store, "predictions", "baseline_eval2019.tsv"))
-
-
-@pytest.mark.parametrize("argv, item", [
-    (["evaluate", "-m", "x", "--torch_checkpoint"], "item 7"),
-    (["evaluate", "-m", "x", "--export", "out"], "item 7"),
-])
-def test_flags_not_ported_fail_naming_the_roadmap_item(capsys, argv, item):
-    with pytest.raises(SystemExit) as exc:
-        cli.main(argv)
-    assert exc.value.code != 0
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and f"ROADMAP Queue 1 {item}" in err
 
 
 class _Reached(Exception):
