@@ -217,6 +217,25 @@ printing a result:
      equal, launches exact; (c) `tools/profile_step_torch.py --batch 24` in
      a child beside (a)'s children: exit 0, every kernel of the default
      step named with time, its device ms a step beside phase 5's.
+ 10. study — the semi-supervised study's tools and the graft entry points:
+     (a) `graft_entry_torch.entry()` on the card (the flagship forward at
+     batch 4, seeded weights): launches exact (K1 1, K3f 2, K2f eval 3),
+     strong and weak within 1e-4 of the same forward on the CPU; then
+     `dryrun_multichip(2)` on two Gloo ranks sharing the card: a finite
+     loss, equal on both; (b) `tools/ablate_ssl_torch.py` on its four arms,
+     seed 0, `--subpart 24 --subpart_unlabeled 96 --epochs 3 --eval_every 1
+     --nuisance_shift 0.4,0.6`, the training set resident on the card: exit
+     0 or 1 (printed: at 3 epochs the F1 check is a verdict, not a
+     failure), the JSON holding the four arms, each arm's steps an epoch and
+     clip counts those of the same arguments' Experiment built on the CPU,
+     every loss mean finite, every default predict and step kernel launched
+     (the counts zeroed just before the run, read just after); (c)
+     `tools/diag_invariance_torch.py`'s measurement with 2 renders on (b)'s
+     mt and mt_nv best checkpoints, on the card and on the CPU: the two
+     stds within 1e-4, the flip rate equal unless a probability lies
+     within 1e-5 of 0.5 (each such flip printed); (d)
+     `tools/twin_epochs_torch.py --epochs 1 --subpart 24` at the flagship on
+     the card, both twins there: `ok`.
 
 Phase 3 also holds the knobs' kernels at the flagship shapes (`knob_kernels`:
 K1 onedot against its plain version and a float64 DFT, 1e-5 of max, twice
@@ -231,7 +250,7 @@ Phase 4 also predicts from the default checkpoint with K1's onedot knob on
 (launches exact, within 1e-4 of its own CPU run and of the FFT K1's).
 
 The line before the last is {"kernels": [...], "helpers": [...],
-"parallel": {...}, "serving": {...}}: every number in it is one this run measured (launches on
+"parallel": {...}, "serving": {...}, "study": {...}}: every number in it is one this run measured (launches on
 both paths as counted, the largest error beside the limit it was held to, the
 bound per shape with what binds it; phase 8's collectives a step);
 the last line is
@@ -4551,6 +4570,175 @@ def phase_serving(device, card: str, work: str, step_device_ms: Optional[float])
     return figures
 
 
+# ----------------------------------------------------------------- phase 10
+# the semi-supervised study's tools and the graft entry points (graft_entry_torch.py):
+# (b)'s run, cut to 24 labeled files a manifest, 96 unlabeled, 3 epochs
+ENTRY = SERVE  # one eval-mode forward at batch 4: K1 1, K3f 2, K2f eval 3
+STUDY_SUBPART, STUDY_UNLABELED, STUDY_EPOCHS, STUDY_BAND = 24, 96, 3, (0.4, 0.6)
+STUDY_ARMS = ("supervised", "mt", "mt_cc0", "mt_nv")
+STUDY_ARGS = ["--subpart", str(STUDY_SUBPART), "--subpart_unlabeled", str(STUDY_UNLABELED), "--epochs",
+              str(STUDY_EPOCHS), "--eval_every", "1", "--nuisance_shift", "0.4,0.6", "--arms", ",".join(STUDY_ARMS)]
+STUDY_STEP_KERNELS = sorted(set(STEP_MIN) | set(PREDICT_MIN))  # the study's arms launch each of these
+DIAG_RENDERS, DIAG_STD_TOL, DIAG_FLIP_TOL = 2, 1e-4, 1e-5
+
+
+def study_tools():
+    """The port's study tools, imported from tools/."""
+    tools = os.path.join(REPO, "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import ablate_ssl_torch
+    import diag_invariance_torch
+    import twin_epochs_torch
+
+    return ablate_ssl_torch, diag_invariance_torch, twin_epochs_torch
+
+
+def entry_on_card(card: str) -> dict:
+    """(a) `graft_entry_torch.entry()` on the card: launches exact, strong
+    and weak within 1e-4 of the same forward on the CPU; then
+    `dryrun_multichip(2)` on two Gloo ranks sharing the card."""
+    import torch
+
+    import graft_entry_torch
+
+    zero_launches()
+    forward, args = graft_entry_torch.entry()
+    strong, weak = forward(*args)
+    torch.cuda.synchronize()
+    check_launches(read_launches(), ENTRY, 1, "entry()")
+    forward_cpu, args_cpu = graft_entry_torch.entry(device="cpu")
+    strong_cpu, weak_cpu = forward_cpu(*args_cpu)
+    diff = max(float((strong.cpu() - strong_cpu).abs().max()), float((weak.cpu() - weak_cpu).abs().max()))
+    print(f"  (a) entry(): strong {tuple(strong.shape)}, weak {tuple(weak.shape)}, launches exact "
+          f"{ENTRY}; card against CPU {diff:.3e} (limit {STRONG_TOL})")
+    if not diff <= STRONG_TOL:
+        raise AssertionError(f"entry() on the card is {diff:.3e} from the CPU forward")
+    t0 = time.perf_counter()
+    loss = graft_entry_torch.dryrun_multichip(2)
+    print(f"  (a) dryrun_multichip(2) on two Gloo ranks on {card}: loss {loss:.6f}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"entry_card_vs_cpu": diff, "dryrun_loss": loss}
+
+
+def arm_counts_on_cpu(ablate, arm: str) -> dict:
+    """steps_per_epoch and the clip counts of `arm` from an Experiment of (b)'s
+    arguments built on the CPU. The counts come from the manifests, splits
+    and sampler alone, so the build leaves out the scaler's pass, the steps
+    and the resident rows."""
+    d = ablate.ARMS[arm]
+    exp = ablate.arm_experiment(d["mean_teacher"], d["max_cc"], STUDY_SUBPART, STUDY_EPOCHS, SEED, 1.0,
+                                STUDY_UNLABELED, device_cache=False, labeled_band=STUDY_BAND,
+                                paired_view=d.get("paired", False), device="cpu")
+    exp._fit_scaler = exp._build_steps = lambda: None
+    with quiet_log():
+        exp.build()
+    streams = exp.pipeline.streams
+    return {"steps_per_epoch": len(exp.pipeline),
+            "n_labeled_clips": sum(len(s) for s in streams if s.name in ("weak", "synthetic")),
+            "n_unlabeled_clips": sum(len(s) for s in streams if s.name == "unlabeled")}
+
+
+def study_ablation(card: str, work: str) -> tuple:
+    """(b) `tools/ablate_ssl_torch.py` on the four arms → (its JSON, the
+    launches of the run)."""
+    from dcase2019_task4_tpu_torch.utils.metrics_writer import read_metrics
+
+    ablate, _, _ = study_tools()
+    out, store = os.path.join(work, "ablation.json"), os.path.join(work, "ablation")
+    zero_launches()
+    t0 = time.perf_counter()
+    rc = ablate.main(STUDY_ARGS + ["--device", "cuda", "--store", store, "--out", out])
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    if rc not in (0, 1):
+        raise AssertionError(f"ablate_ssl_torch.py exited {rc}")
+    print(f"  (b) ablate_ssl_torch.py {' '.join(STUDY_ARGS)}: exit {rc} "
+          f"({'mt beat supervised by the margin' if rc == 0 else 'mt did not beat supervised by the margin'}: "
+          f"a verdict at {STUDY_EPOCHS} epochs, not a failure), {seconds:.1f} s on {card}")
+    with open(out) as f:
+        doc = json.load(f)
+    runs = {r["arm"]: r for r in doc["runs"]}
+    if sorted(runs) != sorted(STUDY_ARMS) or sorted(doc["summary"]) != sorted(STUDY_ARMS):
+        raise AssertionError(f"the ablation JSON holds the arms {sorted(runs)}")
+    for arm in STUDY_ARMS:
+        want = arm_counts_on_cpu(ablate, arm)
+        got = {k: runs[arm][k] for k in want}
+        if got != want:
+            raise AssertionError(f"{arm}: {got} on the card, {want} from the CPU build")
+        records = read_metrics(os.path.join(store, f"{arm}_s{SEED}", "metrics.jsonl"))
+        losses = [r[k] for r in records for k in r if "loss" in k or k.startswith("consistency_")]
+        if len(records) != STUDY_EPOCHS or not losses or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"{arm}: {len(records)} epochs, loss means {losses}")
+        r = runs[arm]
+        print(f"  (b) {arm}: {got}, best event F1 {r['best_event_macro_f1']}, weak F1 {r['best_weak_macro_f1']}, "
+              f"{r['wall_s']} s; loss means finite ({len(losses)})")
+    missing = [k for k in STUDY_STEP_KERNELS if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"the study launched no {missing}")
+    print(f"  (b) launches over the four arms: {({k: launches[k] for k in STUDY_STEP_KERNELS})}")
+    return {"exit": rc, "seconds": seconds, "runs": doc["runs"], "summary": doc["summary"]}, launches, store
+
+
+def study_invariance(store: str) -> dict:
+    """(c) `diag_invariance_torch` with 2 renders on (b)'s mt and mt_nv best
+    checkpoints, on the card and on the CPU: stds within 1e-4, flip rates
+    equal unless a probability lies within 1e-5 of 0.5 (printed)."""
+    _, diag, _ = study_tools()
+    out = {}
+    for arm in ("mt", "mt_nv"):
+        ckpt = os.path.join(store, f"{arm}_s{SEED}", "model", "baseline_best")
+        s_card, w_card, epoch = diag.probabilities(ckpt, DIAG_RENDERS, STUDY_SUBPART, 1.0, device="cuda")
+        s_cpu, w_cpu, _ = diag.probabilities(ckpt, DIAG_RENDERS, STUDY_SUBPART, 1.0, device="cpu")
+        got, want = diag.dispersion(s_card, w_card, epoch), diag.dispersion(s_cpu, w_cpu, epoch)
+        gaps = {k: abs(got[k] - want[k]) for k in ("strong_std", "weak_std")}
+        print(f"  (c) {arm}: card {got}; CPU stds {want['strong_std']:.6g} / {want['weak_std']:.6g}, flip rate "
+              f"{want['flip_rate']:.6g}; gaps {gaps} (limit {DIAG_STD_TOL})")
+        if max(gaps.values()) > DIAG_STD_TOL:
+            raise AssertionError(f"{arm}: the dispersion on the card is {gaps} from the CPU's")
+        if got["flip_rate"] != want["flip_rate"]:
+            flipped = (s_card >= 0.5) != (s_cpu >= 0.5)
+            near = flipped & (np.abs(s_card - 0.5) <= DIAG_FLIP_TOL) & (np.abs(s_cpu - 0.5) <= DIAG_FLIP_TOL)
+            print(f"  (c) {arm}: flip rate {got['flip_rate']} on the card, {want['flip_rate']} on the CPU; "
+                  f"flipped cells (card, CPU): {list(zip(s_card[flipped].tolist(), s_cpu[flipped].tolist()))}")
+            if not np.array_equal(flipped, near):
+                raise AssertionError(f"{arm}: a decision flipped with no probability within {DIAG_FLIP_TOL} of 0.5")
+        out[arm] = {"card": got, "cpu": want}
+    return out
+
+
+def study_twin(card: str, work: str) -> dict:
+    """(d) `tools/twin_epochs_torch.py --epochs 1 --subpart 24` at the
+    flagship on the card: `ok`."""
+    _, _, twin = study_tools()
+    out = os.path.join(work, "twin.json")
+    t0 = time.perf_counter()
+    with quiet_log():
+        rc = twin.main(["--epochs", "1", "--subpart", str(STUDY_SUBPART), "--device", "cuda", "--out", out])
+    with open(out) as f:
+        doc = json.load(f)
+    row = doc["per_epoch"][0]
+    print(f"  (d) twin_epochs_torch.py --epochs 1 --subpart {STUDY_SUBPART}: exit {rc}, ok {doc['ok']}, loss port "
+          f"{row['ours']['loss']:.6f} twin {row['torch']['loss']:.6f}, scaler gaps {doc['scaler_gap']}, "
+          f"{time.perf_counter() - t0:.1f} s on {doc['card']}")
+    if rc != 0 or doc["ok"] is not True:
+        raise AssertionError(f"twin_epochs_torch.py: exit {rc}, ok {doc['ok']}")
+    return {"per_epoch": doc["per_epoch"], "final_eval": doc["final_eval"], "scaler_gap": doc["scaler_gap"]}
+
+
+def phase_study(card: str) -> tuple:
+    """Phase 10 → (the study's launches, its figures)."""
+    t_phase = time.perf_counter()
+    figures = {"entry": entry_on_card(card)}
+    with tempfile.TemporaryDirectory() as work:
+        figures["ablation"], launches, store = study_ablation(card, work)
+        figures["invariance"] = study_invariance(store)
+        figures["twin"] = study_twin(card, work)
+    figures["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 10: {figures['seconds']:.1f} s")
+    return launches, figures
+
+
 CHILDREN = {"world1": child_world1, "ranks": child_dp_ranks, "serve": child_serve}
 
 
@@ -4639,6 +4827,9 @@ def main() -> int:
     print("== phase 9: serving export (evaluate --export), reference import (--torch_checkpoint), step profiler")
     serving = phase_serving(device, card, inputs.name, step_device_ms)
     inputs.cleanup()
+    print("== phase 10: the study's tools (ablate_ssl, diag_invariance, twin_epochs) and graft entry / dryrun")
+    study_launches, study = phase_study(card)
+    launches["study"] = study_launches
 
     report = []
     for name, (src, replaces) in KERNELS.items():
@@ -4665,7 +4856,8 @@ def main() -> int:
     print(f"  predict clips/s (warm): {clips_per_s:.2f}; MT step {step_ms:.3f} ms; scaled MT step {scaled_ms:.3f} ms; "
           f"flagship bf16 MT step {bf16_ms:.3f} ms on {card}; whole script {time.perf_counter() - t_start:.0f} s")
     print(card)
-    print(json.dumps({"kernels": report, "helpers": helpers, "parallel": parallel, "serving": serving}))
+    print(json.dumps({"kernels": report, "helpers": helpers, "parallel": parallel, "serving": serving,
+                      "study": study}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                               "count": torch.cuda.device_count()}}))
     return 0

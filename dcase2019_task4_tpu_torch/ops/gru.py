@@ -1,4 +1,4 @@
-"""Bidirectional multi-layer GRU.
+"""Bidirectional multi-layer GRU, and the BiLSTM.
 
 The JAX package writes the BiGRU as a `lax.scan` with PyTorch's exact cell
 math and weight layout (dcase2019_task4_tpu/ops/gru.py:107-158: w_ih
@@ -8,6 +8,14 @@ module builds it, initialises it as the JAX package does (each gate's
 block of w_ih and w_hh orthogonal, biases U(±1/√H)) and maps its weights to
 and from the JAX pytree (a list over layers of {"fwd": {...}, "bwd":
 {...}}). Training goes through cuDNN's GRU backward.
+
+`BiLSTM` is the counterpart of the JAX package's bilstm_init /
+bilstm_apply (dcase2019_task4_tpu/ops/gru.py:160-240), the recurrence of
+the reference's BidirectionalLSTM, which no model of the reference calls:
+the same plain `lax.scan` with torch's cell math and layout (w_ih [4H,
+in], w_hh [4H, H], gates i, f, g, o), so `nn.LSTM(bidirectional=True,
+batch_first=True)` ports it and `state_from_jax` carries the JAX pytree
+onto its `lstm`.
 """
 
 from __future__ import annotations
@@ -27,6 +35,20 @@ def bigru(input_size: int, hidden: int, num_layers: int, device=None) -> nn.GRU:
     dropout_recurrent is 0)."""
     return nn.GRU(input_size, hidden, num_layers=num_layers, bidirectional=True,
                   batch_first=True, device=device)
+
+
+class BiLSTM(nn.Module):
+    """[B, T, in] → [B, T, 2H]: both directions' hidden states of every
+    layer's output concatenated (forward first), torch LSTM semantics."""
+
+    def __init__(self, input_size: int, hidden: int, num_layers: int, device=None):
+        super().__init__()
+        self.lstm = nn.LSTM(input_size, hidden, num_layers=num_layers, bidirectional=True, batch_first=True,
+                            device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out, _ = self.lstm(x)
+        return out
 
 
 def _orthogonal(rows: int, cols: int, generator: torch.Generator) -> torch.Tensor:

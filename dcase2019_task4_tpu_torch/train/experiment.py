@@ -101,8 +101,11 @@ class Experiment:
         no_synthetic: bool = False,
         no_weak: bool = False,
         subpart_data: Optional[int] = None,
+        subpart_unlabeled: Optional[int] = None,
         synthetic_audio: bool = False,
         synthetic_variability: float = 0.0,
+        synthetic_bands: Optional[Dict] = None,
+        logger=None,
         seed: int = 0,
         ramped_adam: bool = False,
         paired_teacher_view: bool = False,
@@ -124,8 +127,16 @@ class Experiment:
         self.no_synthetic = no_synthetic
         self.no_weak = no_weak
         self.subpart_data = subpart_data
+        # a separate cap for the unlabeled manifest (default: subpart_data):
+        # the semi-supervised ablation (tools/ablate_ssl_torch.py) keeps the
+        # labeled budget and raises only this, toward the real ~5:1 ratio
+        self.subpart_unlabeled = subpart_unlabeled if subpart_unlabeled is not None else subpart_data
         self.synthetic_audio = synthetic_audio
         self.synthetic_variability = synthetic_variability
+        # {stream_name: (lo, hi)}: the synthetic source's nuisance quantile
+        # band for that stream (audio_io.synth_clip `nuisance_band`), the
+        # full band for a stream not listed; both views of a stream take it
+        self.synthetic_bands = dict(synthetic_bands or {})
         # the teacher featurizes an independent second render of each clip
         self.paired_teacher_view = paired_teacher_view
         if paired_teacher_view:
@@ -133,7 +144,7 @@ class Experiment:
                 "paired_teacher_view needs --synthetic_audio (a second view "
                 "is rendered, not recorded) and the Mean-Teacher recipe"
             )
-        self.log = get_logger()
+        self.log = logger or get_logger()
         self.seed = seed
         self.classes = list(cfg.classes)
         ptr = cfg.model.pooling_time_ratio
@@ -156,22 +167,24 @@ class Experiment:
 
     # ------------------------------------------------------------ sources
 
-    def _source_for(self, manifest: Manifest, tsv_path: str, view_salt: str = "desed-synth"):
+    def _source_for(self, manifest: Manifest, tsv_path: str, stream_name: str = "",
+                    view_salt: str = "desed-synth"):
         if self.synthetic_audio:
             return SyntheticAudioSource(
                 manifest, self.classes, self.cfg.dsp.sample_rate, self.cfg.dsp.max_len_seconds,
-                variability=self.synthetic_variability, seed_salt=view_salt,
+                variability=self.synthetic_variability, nuisance_band=self.synthetic_bands.get(stream_name),
+                seed_salt=view_salt,
             )
         return WavAudioSource(self.cfg.paths.audio_dir_for_meta(tsv_path), self.cfg.dsp.sample_rate)
 
     def _make_stream(self, name: str, manifest: Manifest, tsv_path: str, cache=True) -> Stream:
         d = self.cfg.dsp
-        source = self._source_for(manifest, tsv_path)
+        source = self._source_for(manifest, tsv_path, stream_name=name)
         source2 = None
         if self.paired_teacher_view:
-            # same manifest and variability, distinct salt → an
+            # same manifest, band and variability, distinct salt → an
             # independent nuisance render of every clip (same labels)
-            source2 = self._source_for(manifest, tsv_path, view_salt="desed-synth/v2")
+            source2 = self._source_for(manifest, tsv_path, stream_name=name, view_salt="desed-synth/v2")
         if not self.synthetic_audio:
             # drop rows whose wav is absent, with a logged error per file
             # (reference DatasetDcase2019Task4.py:254-262)
@@ -189,7 +202,7 @@ class Experiment:
         cfg, t = self.cfg, self.cfg.train
         p = cfg.paths
         weak_m = subpart_manifest(load_manifest(p.weak), self.subpart_data, t.subpart_seed)
-        unlabel_m = subpart_manifest(load_manifest(p.unlabel), self.subpart_data, t.subpart_seed)
+        unlabel_m = subpart_manifest(load_manifest(p.unlabel), self.subpart_unlabeled, t.subpart_seed)
         synth_m = subpart_manifest(load_manifest(p.synthetic), self.subpart_data, t.subpart_seed)
 
         # 80/20 splits, seed 26 (main.py:215-223)
@@ -254,14 +267,16 @@ class Experiment:
 
     def _scaler_cache_key(self) -> str:
         """Hash over everything that determines the scaler moments: the
-        per-stream file lists, the DSP config, the audio-source kind, and
-        each real wav's (size, mtime_ns). The same key as the JAX
-        package's for the same run."""
+        per-stream file lists, the DSP config, the audio-source kind (with
+        the variability and any nuisance bands), and each real wav's (size,
+        mtime_ns). The same key as the JAX package's for the same run."""
         h = hashlib.sha1()
         h.update(repr(self.cfg.dsp).encode())
         h.update(repr(bool(self.synthetic_audio)).encode())
         if self.synthetic_audio:
             h.update(repr(float(self.synthetic_variability)).encode())
+            if self.synthetic_bands:
+                h.update(repr(sorted(self.synthetic_bands.items())).encode())
         for s in self.pipeline.streams:
             h.update(s.name.encode())
             for fn in s.filenames:

@@ -8,6 +8,8 @@ which wraps jax.profiler).
     device ops by total time: kernels, copies and memsets (the trace's
     `kernel`, `gpu_memcpy` and `gpu_memset` events), summed by name.
   * `Throughput`: a steady-state items/s meter with warm-up discard (a copy).
+  * `card_line(device)`: the card's name and power limit, written beside
+    every number a tool measures on it.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import glob
 import gzip
 import json
 import os
+import subprocess
 import time
 from typing import List, Optional, Tuple
 
@@ -40,6 +43,28 @@ def trace(trace_dir: str, cuda: Optional[bool] = None):
     if cuda:
         torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(trace_dir, f"{time.time_ns()}.pt.trace.json"))
+
+
+def card_line(device) -> str:
+    """`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` of
+    the card that holds a CUDA `device`, or "cpu" for the CPU. The card is
+    found by its UUID: nvidia-smi numbers the cards physically and ignores
+    CUDA_VISIBLE_DEVICES, which renumbers torch's. Raises if nvidia-smi has
+    no line for the card."""
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    index = torch.cuda.current_device() if device.index is None else device.index
+    uuid = str(torch.cuda.get_device_properties(index).uuid).lower()
+    out = subprocess.run(["nvidia-smi", "--query-gpu=uuid,name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    for line in out.stdout.strip().splitlines():
+        card_uuid, _, rest = line.partition(", ")
+        if card_uuid.strip().lower().removeprefix("gpu-") == uuid:
+            return rest.strip()
+    raise RuntimeError(f"nvidia-smi lists no card of UUID {uuid} (cuda:{index}): {out.stdout!r}")
 
 
 def _newest_trace(trace_dir: str) -> Optional[str]:

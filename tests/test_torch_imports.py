@@ -43,7 +43,15 @@ def test_every_module_is_listed():
         assert f"dcase2019_task4_tpu_torch.{name}" in MODULES
 
 
-@pytest.mark.parametrize("target", ["package", "chip_smoke", "bench_entry_conv_torch", "profile_step_torch"])
+# the tools and graft entry points, each run as far as it goes without a card, with
+# the arguments it needs to get there (summarize_run_torch needs no card: it
+# reads a file, and a missing one gives 2)
+TOOL_ARGS = {"bench_entry_conv_torch": [], "profile_step_torch": [], "ablate_ssl_torch": [],
+             "diag_invariance_torch": ["--ckpt", "x=missing"], "twin_epochs_torch": [], "diag_mt_var_torch": [],
+             "summarize_run_torch": ["missing"], "graft_entry_torch": []}
+
+
+@pytest.mark.parametrize("target", ["package", "chip_smoke", *TOOL_ARGS])
 def test_no_jax_and_no_pandas(target):
     if target == "package":
         imports = "\n".join(f"import {m}" for m in MODULES)
@@ -51,7 +59,7 @@ def test_no_jax_and_no_pandas(target):
         imports = "import chip_smoke\n" + "\n".join(f"import {m}" for m in MODULES)
     else:  # a tool, run as far as it goes without a card (it imports what it uses inside main)
         imports = (f"import sys; sys.path.insert(0, 'tools')\nimport {target}\n"
-                   f"rc = {target}.main([])\n"
+                   f"rc = {target}.main({TOOL_ARGS[target]!r})\n"
                    "import torch\nassert rc == 2 or torch.cuda.is_available(), rc")
     proc = _run(imports + "\nimport sys\nprint(sorted(m for m in sys.modules if m in ('jax', 'pandas') "
                           "or m == 'dcase2019_task4_tpu' or m.startswith('dcase2019_task4_tpu.')))")
@@ -71,8 +79,8 @@ _JAX_PACKAGE_USE = re.compile(
 
 def _port_sources():
     files = glob.glob(os.path.join(ROOT, "dcase2019_task4_tpu_torch", "**", "*.py"), recursive=True)
-    return sorted(files) + [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "tools", "bench_entry_conv_torch.py"),
-                            os.path.join(ROOT, "tools", "profile_step_torch.py")]
+    return sorted(files) + [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "graft_entry_torch.py")] + [
+        os.path.join(ROOT, "tools", f"{tool}.py") for tool in TOOL_ARGS if tool != "graft_entry_torch"]
 
 
 def test_source_scan_finds_no_import_of_the_jax_package():

@@ -2,12 +2,15 @@
 `top_device_ops` on a hand-written torch.profiler chrome trace (names,
 sums, order, launch shapes; host events ignored; the newest trace read),
 `trace` on a CPU forward writes a trace that reads back, and `Throughput`
-equals the JAX package's under a patched clock."""
+equals the JAX package's under a patched clock; `card_line` picks the
+card of a device by its UUID under a patched torch and nvidia-smi."""
 
 import gzip
 import json
 import os
+import subprocess
 import time
+import types
 
 import pytest
 import torch
@@ -89,3 +92,36 @@ def test_the_step_tools_groups_name_kernels_plainly():
         "Memcpy DtoD (Device -> Device)", "sm80_xmma_gemm_f32f32_f32f32_f32_tn_n")] == [
         "bn_glu_pool_bwd_kernel", "conv3x3_wgrad_kernel", "at::native::elementwise_kernel", "Memcpy DtoD",
         "sm80_xmma_gemm_f32f32_f32f32_f32_tn_n"]
+
+
+SMI = ("GPU-aaaaaaaa-0000-0000-0000-000000000000, NVIDIA H100 80GB HBM3, 700.00 W\n"
+       "GPU-BBBBBBBB-1111-1111-1111-111111111111, NVIDIA H100 80GB HBM3, 500.00 W\n")
+
+
+@pytest.mark.parametrize("index, uuid, want", [
+    (0, "bbbbbbbb-1111-1111-1111-111111111111", "NVIDIA H100 80GB HBM3, 500.00 W"),  # CUDA_VISIBLE_DEVICES=1
+    (1, "aaaaaaaa-0000-0000-0000-000000000000", "NVIDIA H100 80GB HBM3, 700.00 W"),  # CUDA_VISIBLE_DEVICES=1,0
+])
+def test_card_line_finds_the_card_by_uuid(monkeypatch, index, uuid, want):
+    """torch's index counts only the visible cards; nvidia-smi's line is
+    found by the card's UUID, whatever its place in the output."""
+    seen = {}
+
+    def run(cmd, **kw):
+        seen["cmd"] = cmd
+        return types.SimpleNamespace(stdout=SMI)
+
+    monkeypatch.setattr(subprocess, "run", run)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda i: types.SimpleNamespace(uuid=uuid) if i == index else None)
+    assert prof.card_line(torch.device("cuda", index)) == want
+    assert seen["cmd"][1] == "--query-gpu=uuid,name,power.limit"
+    assert prof.card_line("cpu") == "cpu"
+
+
+def test_card_line_raises_for_a_card_nvidia_smi_does_not_list(monkeypatch):
+    monkeypatch.setattr(subprocess, "run", lambda cmd, **kw: types.SimpleNamespace(stdout=SMI))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda i: types.SimpleNamespace(uuid="cccccccc-2222-2222-2222-222222222222"))
+    with pytest.raises(RuntimeError, match="no card of UUID"):
+        prof.card_line("cuda:0")
