@@ -236,6 +236,17 @@ printing a result:
      within 1e-5 of 0.5 (each such flip printed); (d)
      `tools/twin_epochs_torch.py --epochs 1 --subpart 24` at the flagship on
      the card, both twins there: `ok`.
+ 11. flat-layout checkpoint — `DCASE_FLAT_OPT=1` at the flagship (float32,
+     TF32 off, cuDNN's deterministic algorithms): one Mean-Teacher step at
+     batch 24 from one state with the switch unset and set, every metric
+     and the student's and teacher's parameters bit for bit; the flat
+     checkpoint after it (Adam's moments one 1-D leaf each) restored on the
+     card and on the CPU, then three more steps at a batch of 4 on both,
+     each step's metrics within TRAIN_TOL; that checkpoint restored into a
+     fresh state on the card and one step taken from both bit for bit; a
+     plain-Adam v1 pickle refused without the opt-in and restored behind
+     it leaf for leaf; the launches of the Adam and EMA tail from the
+     profiler.
 
 Phase 3 also holds the knobs' kernels at the flagship shapes (`knob_kernels`:
 K1 onedot against its plain version and a float64 DFT, 1e-5 of max, twice
@@ -4739,6 +4750,225 @@ def phase_study(card: str) -> tuple:
     return launches, figures
 
 
+# phase 11: the flat-layout checkpoint (DCASE_FLAT_OPT=1) and legacy v1 checkpoints
+
+
+@contextlib.contextmanager
+def flat_opt(on: bool):
+    """DCASE_FLAT_OPT set to 1 (or unset) inside; restored after."""
+    before = os.environ.pop("DCASE_FLAT_OPT", None)
+    if on:
+        os.environ["DCASE_FLAT_OPT"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("DCASE_FLAT_OPT", None)
+        if before is not None:
+            os.environ["DCASE_FLAT_OPT"] = before
+
+
+def same_state(a, b) -> list:
+    """Names of the student and teacher parameters that differ in any bit."""
+    import torch
+
+    out = []
+    for model in ("student", "teacher"):
+        for (name, p), q in zip(getattr(a, model).named_parameters(), getattr(b, model).parameters()):
+            if not torch.equal(p, q):
+                out.append(f"{model}.{name}")
+    return out
+
+
+def tail_launches(state, step_no: int, alpha: float, card: str):
+    """The kernels the update tail (Adam's step and the EMA) puts on the card
+    once, from the gradients the last step left, counted in a trace with
+    the host's launch calls beside the device's kernel events. The trace
+    opens with `open_trace`'s spin kernels (uncounted): traces of this short
+    tail without them came back with no device event. The state takes one
+    more update."""
+    from torch.autograd import DeviceType
+
+    from dcase2019_task4_tpu_torch.train import steps
+
+    def tail():
+        state.optimizer.step()
+        steps.ema_update(state.student, state.teacher, step_no, alpha)
+
+    def spin_then_tail():
+        open_trace()
+        tail()
+
+    def holds_the_tail(prof) -> bool:
+        return any(e.device_type == DeviceType.CUDA and "multi_tensor_apply" in e.name for e in prof.events())
+
+    tail()  # warm: the first call allocates what later calls reuse
+    prof = profiled(spin_then_tail, with_host=True, complete=holds_the_tail, tries=5, retry=True)
+    if prof is None:
+        print(f"  Adam + EMA tail launches: not measured on {card}")
+        return
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and "emcpy" not in e.name
+               and "emset" not in e.name and "spin_kernel" not in e.name]
+    calls = [e for e in events if e.device_type == DeviceType.CPU and e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                                                 "cudaLaunchKernelExC")]
+    print(f"  Adam + EMA tail launches (the one tail of either DCASE_FLAT_OPT setting): {len(kernels)} kernels on "
+          f"the card, {len(calls) - STEP_SPINS} launch calls on the host, on {card}")
+
+
+def phase_flat_opt(device, card: str):
+    """Phase 11 at the flagship (float32, TF32 off). (a) One Mean-Teacher
+    step at batch 24 from one state with DCASE_FLAT_OPT unset and set: loss,
+    every metric, the student's and the teacher's parameters bit for bit
+    (the switch is a checkpoint layout and leaves the step alone); (b) the
+    flat checkpoint after it (Adam's moments one 1-D leaf each) restored on
+    the card and on the CPU, then three more steps at a batch of 4 [1|2|1]
+    on both (phase 5's CPU batch for the bf16 steps), each step's metrics
+    within TRAIN_TOL; (c) that flat checkpoint restored into a fresh state
+    on the card, and one step taken from both bit for bit; (d) a plain-Adam
+    v1 pickle written with numpy and pickle, refused without the opt-in and
+    restored behind it leaf for leaf; (e) the launches of the Adam and EMA
+    tail, read from the profiler. Under cuDNN's deterministic algorithms
+    (block 1's conv and its gradients), which bit-for-bit claims need."""
+    import torch
+
+    t_phase = time.perf_counter()
+    deterministic, torch.backends.cudnn.deterministic = torch.backends.cudnn.deterministic, True
+    try:
+        flat_opt_checks(device, card)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print(f"  phase 11: {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
+def flat_opt_checks(device, card: str):
+    """The checks of phase 11 (`phase_flat_opt`)."""
+    import pickle
+
+    import torch
+
+    from dcase2019_task4_tpu_torch.config import Config
+    from dcase2019_task4_tpu_torch.train import checkpoints as ckpt
+    from dcase2019_task4_tpu_torch.train import steps
+    from dcase2019_task4_tpu_torch.utils.scaler import Scaler
+
+    cfg = Config()
+    tr = cfg.train
+    mean, std = None, None
+
+    def adam(params):
+        return torch.optim.Adam(params, lr=tr.lr, betas=(tr.beta1, tr.beta2), eps=tr.adam_eps)
+
+    def batch_of(n: int, dev):
+        """(the step's slices, the packed batch on `dev`) of n clips [n/4 | n/2 | n/4]."""
+        n_weak, n_unlabel = n // 4, n // 2
+        audio, frames, target = train_batch(cfg, n_weak, n_unlabel, n // 4)
+        return (slice(0, n_weak), slice(n_weak + n_unlabel, n)), {
+            "audio": torch.as_tensor(audio, device=dev), "frames": torch.as_tensor(frames, device=dev),
+            "target": torch.as_tensor(target, device=dev)}
+
+    def built(dev, base, slices):
+        """(state on `dev` with `base`'s weights, a step over `slices`)."""
+        st = steps.TrainState(copy.deepcopy(base.student).to(dev), copy.deepcopy(base.teacher).to(dev), None)
+        st.optimizer = adam(st.student.parameters())
+        step = steps.make_train_step(
+            *slices, mean_teacher=True, rampup_length=10, max_consistency_cost=tr.max_consistency_cost,
+            ema_alpha=tr.ema_alpha, frontend=flagship_frontend(dev), scaler_mean=mean, scaler_std=std,
+            noise_std=tr.noise_std)
+        return st, step
+
+    def take(st, step, batch, seed):
+        st, metrics, _ = step(st, batch, torch.Generator().manual_seed(seed), step.zero_metrics(batch["audio"].device))
+        torch.cuda.synchronize()
+        return metrics
+
+    slices, batch = batch_of(tr.batch_size, device)
+    mean, std = Scaler().load_state_dict(
+        fit_scaler(flagship_frontend(device), batch["audio"].cpu().numpy(), batch["frames"].cpu().numpy(),
+                   device)).mean_std_f32
+    base = steps.init_train_state(cfg.model, adam, torch.Generator().manual_seed(SEED))
+
+    # (a) step 1 from one state under each setting
+    runs = {}
+    for name, flat in (("unset", False), ("flat", True)):
+        with flat_opt(flat):
+            st, step = built(device, base, slices)
+            runs[name] = (st, step, take(st, step, batch, SEED + 2))
+    differ = same_state(runs["unset"][0], runs["flat"][0])
+    metrics_differ = [k for k, v in runs["unset"][2].items() if not torch.equal(v, runs["flat"][2][k])]
+    if differ or metrics_differ:
+        raise AssertionError(f"step 1 under DCASE_FLAT_OPT=1 is not the step with it unset: metrics {metrics_differ}, "
+                             f"parameters {differ[:4]} ({len(differ)} differ)")
+    n_params = sum(p.numel() for p in base.student.parameters())
+    print(f"  step 1 at batch {tr.batch_size}, DCASE_FLAT_OPT=1 against unset: loss "
+          f"{runs['flat'][2]['loss'].item():.9g} both, every metric, the {n_params} student and {n_params} teacher "
+          f"parameters bit for bit on {card}")
+
+    st, step, _ = runs["flat"]
+    with tempfile.TemporaryDirectory() as work, flat_opt(True):
+        # (b) steps 2-4 at a batch of 4 on the card and on the CPU, from the
+        # card's state after step 1 through its flat checkpoint
+        path = os.path.join(work, "flat_step1.npz")
+        ckpt.save_checkpoint(path, st, {"epoch": 0})
+        moments = [a.shape for p, a in ckpt.train_state_leaves(st) if p.endswith((".mu", ".nu"))]
+        if moments != [(n_params,), (n_params,)]:
+            raise AssertionError(f"the flat checkpoint's moments are not one 1-D leaf each: {moments}")
+        small, card_batch = batch_of(4, device)
+        _, cpu_batch = batch_of(4, torch.device("cpu"))
+        card_st, card_step = built(device, base, small)
+        cpu_st, cpu_step = built(torch.device("cpu"), base, small)
+        ckpt.restore_checkpoint(path, card_st)
+        ckpt.restore_checkpoint(path, cpu_st)
+        worst, t0 = 0.0, time.perf_counter()
+        for i in range(2, 5):
+            m = take(card_st, card_step, card_batch, SEED + 2 + i)
+            cpu_m = take(cpu_st, cpu_step, cpu_batch, SEED + 2 + i)
+            compare_metrics(i, {k: v.item() for k, v in m.items()}, cpu_m)
+            worst = max(worst, max(abs(v.item() - m[k].item()) for k, v in cpu_m.items()))
+            print(f"  step {i} at batch 4 from the flat checkpoint: loss {m['loss'].item():.7f} on the card, "
+                  f"{cpu_m['loss'].item():.7f} on the CPU")
+        print(f"  steps 2-4, card against CPU: largest metric difference {worst:.3g} (limit {TRAIN_TOL}); "
+              f"{time.perf_counter() - t0:.1f} s for the three steps on both, on {card}")
+
+        # (c) the flat checkpoint after step 1 restored into a fresh state on
+        # the card, one step on from both
+        fresh_base = steps.init_train_state(cfg.model, adam, torch.Generator().manual_seed(SEED + 9))
+        other, _ = built(device, fresh_base, slices)
+        ckpt.restore_checkpoint(path, other)
+        if other.step != st.step or ckpt.adam_count(other.optimizer) != ckpt.adam_count(st.optimizer):
+            raise AssertionError("the restored flat state has another step or Adam count")
+        m_a, m_b = take(st, step, batch, SEED + 20), take(other, step, batch, SEED + 20)
+        differ = same_state(st, other) + [k for k, v in m_a.items() if not torch.equal(v, m_b[k])]
+        if differ:
+            raise AssertionError(f"the step after a flat restore is not the saved state's step: {differ[:4]}")
+        print(f"  flat checkpoint after step 1 restored into a fresh state: step 2 at batch {tr.batch_size} "
+              f"from both bit for bit (loss {m_a['loss'].item():.9g}) on {card}")
+
+    # (d) a plain-Adam v1 pickle, written as the JAX package's test writes one
+    with tempfile.TemporaryDirectory() as work, flat_opt(False):
+        leaves = [np.asarray(a) for _, a in ckpt.train_state_leaves(runs["unset"][0])]
+        legacy = os.path.join(work, "v1.pkl")
+        with open(legacy, "wb") as f:
+            pickle.dump({"version": 1, "leaves": leaves, "metadata": {"epoch": 9}}, f)
+        target, _ = built(device, fresh_base, slices)
+        try:
+            ckpt.restore_checkpoint(legacy, target, allow_legacy_pickle=False)
+            raise AssertionError("a v1 file was read without the opt-in")
+        except ValueError as e:
+            if "allow_legacy_pickle" not in str(e):
+                raise
+        _, meta = ckpt.restore_checkpoint(legacy, target, allow_legacy_pickle=True)
+        got = ckpt.train_state_leaves(target)
+        bad = [p for (p, a), b in zip(got, leaves) if not np.array_equal(a, b)]
+        if bad or meta != {"epoch": 9} or len(got) != len(leaves):
+            raise AssertionError(f"the v1 restore differs: {bad[:4]}")
+        print(f"  v1 pickle of {len(leaves)} leaves: refused without the opt-in, restored behind it leaf for leaf "
+              f"on {card}")
+
+    # (e) the tail's launches (last: it takes one more update)
+    st_ = runs["unset"][0]
+    tail_launches(st_, st_.step, tr.ema_alpha, card)
+
+
 CHILDREN = {"world1": child_world1, "ranks": child_dp_ranks, "serve": child_serve}
 
 
@@ -4830,6 +5060,8 @@ def main() -> int:
     print("== phase 10: the study's tools (ablate_ssl, diag_invariance, twin_epochs) and graft entry / dryrun")
     study_launches, study = phase_study(card)
     launches["study"] = study_launches
+    print("== phase 11: the flat-layout checkpoint (DCASE_FLAT_OPT=1) and legacy v1 checkpoints")
+    phase_flat_opt(device, card)
 
     report = []
     for name, (src, replaces) in KERNELS.items():

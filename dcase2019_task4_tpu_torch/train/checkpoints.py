@@ -5,8 +5,14 @@ The JAX package's v2 checkpoint is one ``.npz`` with a ``leaf_NNNNN``
 array per pytree leaf and a ``__meta__`` entry of UTF-8 JSON holding the
 metadata, per-leaf dtypes, shapes and keypath strings
 (``.params['cnn'][0]['conv']['w']``). Leaves are selected by their
-keypaths. Loading uses ``allow_pickle=False``; the legacy pickle format is
-not read.
+keypaths. Loading uses ``allow_pickle=False``.
+
+The legacy v1 checkpoint, a pickle of ``{"version": 1, "leaves": [...],
+"metadata": {...}}`` with the leaves in the JAX TrainState's flatten order,
+is read only behind the JAX package's opt-in (``allow_legacy_pickle=True``
+or ``DCASE_ALLOW_LEGACY_PICKLE=1``), and then through an unpickler that
+admits numpy's array reconstruction and plain builtins and refuses any
+other class by name without importing it.
 
 * Inference reads the stored TrainState's ``params`` and ``bn_state``
   (`load_inference_state`); `save_inference_checkpoint` writes only those.
@@ -18,6 +24,14 @@ not read.
   ramped Adam is its optax.inject_hyperparams state (``.opt_state.count``,
   ``.hyperparams``, ``.hyperparams_states``, ``.inner_state[0]``), whose
   hyperparameters are those the last update used, as optax stores them.
+  Under DCASE_FLAT_OPT=1 (`flat_opt_layout`) Adam's ``mu`` and ``nu`` are
+  written as ONE 1-D leaf each, the layout of the JAX package's flat tail
+  (optax.flatten): the parameters raveled in the JAX tree's order (dict
+  keys sorted, HWIO convs, [in, out] dense weights), which is not the
+  port's own buffer order. The port's optimizer keeps its moments per
+  parameter either way: the flat tail's update is the per-leaf update
+  element by element, so the switch is only this file layout. A
+  checkpoint restores only under the setting that wrote it.
 
 `params_from_jax` / `params_to_jax` map between that pytree (HWIO convs,
 [in, out] dense weights) and the port's CRNN state_dict (OIHW,
@@ -27,9 +41,11 @@ not read.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import io
 import json
 import os
+import pickle
 import re
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -39,6 +55,17 @@ import torch
 from dcase2019_task4_tpu_torch.ops.gru import state_from_jax, state_to_jax
 
 _KEY = re.compile(r"\.(\w+)|\['([^']*)'\]|\[(\d+)\]")
+
+
+def flat_opt_layout() -> bool:
+    """DCASE_FLAT_OPT=1, the JAX package's switch of its flat update tail
+    (optax.flatten): Adam's moments are written and read as one 1-D leaf
+    each. Read where a checkpoint is written or restored."""
+    return os.environ.get("DCASE_FLAT_OPT", "0") == "1"
+
+
+def _layout_name(flat: bool) -> str:
+    return "flat (DCASE_FLAT_OPT=1)" if flat else "per-leaf (DCASE_FLAT_OPT unset)"
 
 
 def _decode_leaf(arr: np.ndarray, dtype_tag: str) -> np.ndarray:
@@ -81,10 +108,94 @@ def _listify(node):
     return {k: _listify(v) for k, v in node.items()}
 
 
-def _load(path: str, want_leaves: bool, keep=("params", "bn_state")) -> Tuple[Dict, Dict]:
+# ------------------------------------------------- legacy v1 (pickle) files
+
+# what a v1 file may name: numpy's array and scalar reconstruction (under
+# numpy 1 and numpy 2 module names) and builtins that build plain data
+_NUMPY_NAMES = {
+    "numpy": {"ndarray", "dtype"},
+    "numpy.core.multiarray": {"_reconstruct", "scalar"},
+    "numpy._core.multiarray": {"_reconstruct", "scalar"},
+    "numpy.core.numeric": {"_frombuffer"},
+    "numpy._core.numeric": {"_frombuffer"},
+}
+_BUILTIN_NAMES = {"bool", "bytearray", "bytes", "complex", "dict", "float", "frozenset", "int", "list", "range",
+                  "set", "slice", "str", "tuple"}
+
+
+class _LegacyUnpickler(pickle.Unpickler):
+    """Unpickles a v1 checkpoint without importing anything beyond numpy and
+    builtins: every other global is refused by its name."""
+
+    def find_class(self, module, name):
+        if module == "builtins" and name in _BUILTIN_NAMES:
+            return super().find_class(module, name)
+        if name in _NUMPY_NAMES.get(module, ()):
+            try:
+                return getattr(importlib.import_module(module), name)
+            except ImportError:  # a numpy 2 file under numpy 1, or the reverse
+                swap = ("numpy._core", "numpy.core") if "._core" in module else ("numpy.core", "numpy._core")
+                return getattr(importlib.import_module(module.replace(*swap)), name)
+        if module.split(".")[0] == "ml_dtypes":
+            raise pickle.UnpicklingError(
+                f"the legacy checkpoint holds a leaf of dtype ml_dtypes.{name} (bfloat16 and its kin), which "
+                "needs the ml_dtypes package; re-save it as an npz (v2) checkpoint with the JAX package")
+        raise pickle.UnpicklingError(f"the legacy checkpoint names {module}.{name}; only numpy arrays and "
+                                     "builtins are read from a v1 file")
+
+
+def _legacy_pickle_allowed(allow_legacy_pickle) -> bool:
+    if allow_legacy_pickle is None:
+        return os.environ.get("DCASE_ALLOW_LEGACY_PICKLE", "0") == "1"
+    return bool(allow_legacy_pickle)
+
+
+def _legacy_pickle_error(path: str) -> ValueError:
+    return ValueError(
+        f"{path} is not an npz (v2) checkpoint. Legacy v1 checkpoints are "
+        "pickles, and unpickling executes arbitrary code — load one ONLY if "
+        "you created it yourself, by passing allow_legacy_pickle=True or "
+        "setting DCASE_ALLOW_LEGACY_PICKLE=1."
+    )
+
+
+def _is_zip(path: str) -> bool:
     with open(path, "rb") as f:
-        if f.read(2) != b"PK":
-            raise ValueError(f"{path} is not an npz (v2) checkpoint; legacy pickle checkpoints are not read")
+        return f.read(2) == b"PK"
+
+
+def _load_v1(path: str, allow_legacy_pickle) -> Tuple[List[np.ndarray], Dict]:
+    """→ (leaves, metadata) of a v1 file, behind the opt-in."""
+    if not _legacy_pickle_allowed(allow_legacy_pickle):
+        raise _legacy_pickle_error(path)
+    with open(path, "rb") as f:
+        payload = _LegacyUnpickler(f).load()
+    if not isinstance(payload, dict) or payload.get("version") != 1 or "leaves" not in payload:
+        raise ValueError(f"{path} is not a v1 checkpoint (a dict of version 1 with leaves and metadata)")
+    return [np.asarray(a) for a in payload["leaves"]], payload["metadata"]
+
+
+def _tree_from_v1(path: str, leaves: List[np.ndarray], template: List, exact: bool = True) -> Dict:
+    """v1 leaves, positional, placed at the (keypath, array) template's
+    keypaths: as many leaves as the template (at least as many when not
+    `exact`), each of the template leaf's shape."""
+    if len(leaves) < len(template) or (exact and len(leaves) != len(template)):
+        raise ValueError(f"legacy checkpoint {path} holds {len(leaves)} leaves but the template has "
+                         f"{len(template)} — the configs differ")
+    diffs = [f"  leaf {i}: saved {tuple(a.shape)}, template {q} {tuple(t.shape)}"
+             for i, (a, (q, t)) in enumerate(zip(leaves, template)) if a.shape != t.shape]
+    if diffs:
+        raise ValueError(f"legacy checkpoint {path} does not match the template:\n" + "\n".join(diffs[:8]))
+    tree: Dict = {}
+    for (q, _), a in zip(template, leaves):
+        _insert(tree, _parse_path(q), a)
+    return _listify(tree)
+
+
+# ------------------------------------------------- v2 (npz) files
+
+
+def _load(path: str, want_leaves: bool, keep=("params", "bn_state")) -> Tuple[Dict, Dict]:
     with np.load(path, allow_pickle=False) as z:
         meta_doc = json.loads(bytes(z["__meta__"]).decode("utf-8"))
         tree: Dict = {}
@@ -99,13 +210,30 @@ def _load(path: str, want_leaves: bool, keep=("params", "bn_state")) -> Tuple[Di
     return _listify(tree), meta_doc
 
 
-def read_metadata(path: str) -> Dict[str, Any]:
+def read_metadata(path: str, allow_legacy_pickle=None) -> Dict[str, Any]:
+    """The checkpoint's metadata; of a v1 file only behind the opt-in
+    (None: the DCASE_ALLOW_LEGACY_PICKLE switch)."""
+    if not _is_zip(path):
+        return _load_v1(path, allow_legacy_pickle)[1]
     return _load(path, want_leaves=False)[1]["metadata"]
 
 
-def load_inference_state(path: str) -> Tuple[Dict, Dict]:
+def load_inference_state(path: str, allow_legacy_pickle=None) -> Tuple[Dict, Dict]:
     """→ (params, bn_state) as nested dicts/lists of numpy arrays, the JAX
-    package's pytree layout."""
+    package's pytree layout. Of a v1 file (behind the opt-in) the leading
+    leaves, as many as the params and bn_state of the model that its
+    metadata's config builds."""
+    if not _is_zip(path):
+        from dcase2019_task4_tpu_torch.eval.evaluate import config_from_metadata
+        from dcase2019_task4_tpu_torch.models.crnn import CRNN
+
+        leaves, metadata = _load_v1(path, allow_legacy_pickle)
+        params, bn_state = params_to_jax(CRNN(config_from_metadata(metadata).model, device="cpu"))
+        template: List = []
+        _flatten(params, ".params", template)
+        _flatten(bn_state, ".bn_state", template)
+        tree = _tree_from_v1(path, leaves, template, exact=False)
+        return tree["params"], tree["bn_state"]
     tree, _ = _load(path, want_leaves=True)
     if "params" not in tree or "bn_state" not in tree:
         raise ValueError(f"{path} holds no params/bn_state leaves")
@@ -265,6 +393,26 @@ def _named_to_jax(named: Dict[str, torch.Tensor]) -> Dict:
     return tree
 
 
+def _ravel_jax(tree) -> np.ndarray:
+    """A JAX params-shaped pytree → one 1-D array in ravel_pytree's order."""
+    leaves: List = []
+    _flatten(tree, "", leaves)
+    return np.concatenate([a.reshape(-1) for _, a in leaves])
+
+
+def _unravel_jax(flat: np.ndarray, like) -> Dict:
+    """The inverse of `_ravel_jax`, shaped as the pytree `like`."""
+    leaves: List = []
+    _flatten(like, "", leaves)
+    sizes = [a.size for _, a in leaves]
+    if flat.shape != (sum(sizes),):
+        raise ValueError(f"a flat optimizer leaf of shape {flat.shape} does not fit {sum(sizes)} parameters")
+    tree: Dict = {}
+    for (q, a), part in zip(leaves, np.split(flat, np.cumsum(sizes)[:-1])):
+        _insert(tree, _parse_path(q), part.reshape(a.shape))
+    return _listify(tree)
+
+
 def train_state_from_jax(state, params, bn_state, ema_params=None, ema_bn_state=None,
                          mu=None, nu=None, step: int = 0, count: Optional[int] = None):
     """Load numpy pytrees in the JAX layout into a TrainState (train/steps.py)
@@ -318,7 +466,8 @@ def adam_count(optimizer) -> int:
 
 def train_state_leaves(state, ramped_adam: bool = False) -> List:
     """The TrainState as (keypath, array) leaves of the JAX TrainState, in
-    its flatten order (see the module docstring)."""
+    its flatten order (see the module docstring); Adam's moments one 1-D
+    leaf each under DCASE_FLAT_OPT=1."""
     j = train_state_to_jax(state)
     leaves: List = []
     for key in ("params", "bn_state", "ema_params", "ema_bn_state"):
@@ -334,8 +483,11 @@ def train_state_leaves(state, ramped_adam: bool = False) -> List:
         leaves += [(f".opt_state.hyperparams_states['{k}'].count", count) for k in sorted(hyper)]
         inner = ".opt_state.inner_state[0]"
     leaves.append((f"{inner}.count", count))
-    _flatten(j["mu"], f"{inner}.mu", leaves)
-    _flatten(j["nu"], f"{inner}.nu", leaves)
+    for key in ("mu", "nu"):
+        if flat_opt_layout():
+            leaves.append((f"{inner}.{key}", _ravel_jax(j[key])))
+        else:
+            _flatten(j[key], f"{inner}.{key}", leaves)
     leaves.append((".step", np.asarray(state.step, np.int32)))
     return leaves
 
@@ -343,31 +495,55 @@ def train_state_leaves(state, ramped_adam: bool = False) -> List:
 def save_checkpoint(path: str, state, metadata: Dict[str, Any], ramped_adam: bool = False):
     """The whole TrainState (train/steps.py) as a v2 npz the JAX package's
     restore_checkpoint takes into its template (plain Adam, or with
-    `ramped_adam` the ramped Adam's state)."""
+    `ramped_adam` the ramped Adam's state; its moments per-leaf or flat as
+    DCASE_FLAT_OPT says)."""
     _write(path, train_state_leaves(state, ramped_adam), metadata)
 
 
-def restore_checkpoint(path: str, state, ramped_adam: bool = False):
+def restore_checkpoint(path: str, state, ramped_adam: bool = False, allow_legacy_pickle=None):
     """Load a whole-TrainState checkpoint (either package's writer) of plain
     Adam, or with `ramped_adam` of the ramped Adam, into `state` in place →
     (state, metadata). The stored optimizer, keypaths and shapes must be
-    those of `state`, as the JAX template restore demands."""
-    tree, meta_doc = _load(path, want_leaves=True, keep=None)
-    stored = meta_doc["leaf_paths"]
-    ramped = any(p.startswith(".opt_state.inner_state") for p in stored)
-    if ramped != ramped_adam:
-        names = {True: "ramped Adam", False: "plain Adam"}
-        raise ValueError(f"checkpoint {path} holds the state of {names[ramped]}; "
-                         f"this run uses {names[ramped_adam]}")
-    want = train_state_leaves(state, ramped)
-    diffs = [f"  leaf {i}: saved {p} {tuple(shape)}, template {q} {tuple(a.shape)}"
-             for i, ((q, a), p, shape) in enumerate(zip(want, stored, meta_doc["leaf_shapes"]))
-             if p != q or list(a.shape) != list(shape)]
-    if len(stored) != len(want) or diffs:
-        raise ValueError(f"checkpoint {path} does not match the train state ({len(stored)} leaves saved, "
-                         f"{len(want)} in the template):\n" + "\n".join(diffs[:8]))
+    those of `state`, as the JAX template restore demands, and the moments'
+    layout (per-leaf or flat) that of this process's DCASE_FLAT_OPT. A v1 file is read only behind the opt-in (None: the
+    DCASE_ALLOW_LEGACY_PICKLE switch), positionally into `state`'s leaves."""
+    flat = flat_opt_layout()
+    if not _is_zip(path):
+        leaves, metadata = _load_v1(path, allow_legacy_pickle)
+        template = train_state_leaves(state, ramped_adam)
+        try:
+            tree = _tree_from_v1(path, leaves, template)
+        except ValueError as e:
+            raise ValueError(f"{e}\n(this state: {'ramped' if ramped_adam else 'plain'} Adam, the "
+                             f"{_layout_name(flat)} optimizer layout)")
+        ramped = ramped_adam
+    else:
+        tree, meta_doc = _load(path, want_leaves=True, keep=None)
+        metadata = meta_doc["metadata"]
+        stored = meta_doc["leaf_paths"]
+        ramped = any(p.startswith(".opt_state.inner_state") for p in stored)
+        if ramped != ramped_adam:
+            names = {True: "ramped Adam", False: "plain Adam"}
+            raise ValueError(f"checkpoint {path} holds the state of {names[ramped]}; "
+                             f"this run uses {names[ramped_adam]}")
+        stored_flat = any(p.endswith(".mu") for p in stored)
+        if stored_flat != flat:
+            raise ValueError(f"checkpoint {path} holds the {_layout_name(stored_flat)} optimizer layout; this "
+                             f"run reads the {_layout_name(flat)} one: restore it under the DCASE_FLAT_OPT "
+                             "setting that wrote it")
+        want = train_state_leaves(state, ramped)
+        diffs = [f"  leaf {i}: saved {p} {tuple(shape)}, template {q} {tuple(a.shape)}"
+                 for i, ((q, a), p, shape) in enumerate(zip(want, stored, meta_doc["leaf_shapes"]))
+                 if p != q or list(a.shape) != list(shape)]
+        if len(stored) != len(want) or diffs:
+            raise ValueError(f"checkpoint {path} does not match the train state ({len(stored)} leaves saved, "
+                             f"{len(want)} in the template):\n" + "\n".join(diffs[:8]))
     opt = tree["opt_state"]
     inner = opt["inner_state"][0] if ramped else opt[0]
+    mu, nu = inner["mu"], inner["nu"]
+    if flat:
+        like = params_to_jax(state.student)[0]
+        mu, nu = _unravel_jax(mu, like), _unravel_jax(nu, like)
     train_state_from_jax(state, tree["params"], tree["bn_state"], tree.get("ema_params"), tree.get("ema_bn_state"),
-                         inner["mu"], inner["nu"], step=int(tree["step"]), count=int(inner["count"]))
-    return state, meta_doc["metadata"]
+                         mu, nu, step=int(tree["step"]), count=int(inner["count"]))
+    return state, metadata

@@ -52,7 +52,9 @@ K1 both variants, K3f, K2f eval in both types, K4f, K5f, K6), each the bits
 of its wrapper with one launch of its kernel, and `torch.library.opcheck`
 on cuda; and the flagship's serving artifact exported and loaded on the
 card at batch 24 (within 1e-6 of max of the direct path, K1 1, K3f 2, K2f
-3 launches a call).
+3 launches a call). And DCASE_FLAT_OPT=1: one training step under each
+setting, bit for bit the same, and its flat checkpoint restored on the card
+leaf for leaf, for plain and ramped Adam.
 """
 
 import numpy as np
@@ -534,6 +536,61 @@ def _step_on_the_card_against_the_cpu(cuda, flag):
     floor = 1e-6 * max(a.abs().max().item() for a in g_cpu)
     for a, b in zip(g_cpu, g_gpu):
         assert (a - b).abs().max().item() <= 1e-4 * a.abs().max().item() + floor
+
+
+@pytest.mark.parametrize("ramped", [False, True], ids=["adam", "ramped_adam"])
+def test_flat_step_one_is_the_per_leaf_step_on_the_card(cuda, monkeypatch, tmp_path, ramped):
+    """DCASE_FLAT_OPT=1 on the card: one Mean-Teacher step from one state
+    with the switch unset and set gives the same loss, metrics, student and
+    teacher parameters bit for bit (tests/test_torch_flat_opt.py's CPU pin),
+    and the flat checkpoint after it restores into a fresh state on the card
+    leaf for leaf, for plain and ramped Adam; under cuDNN's deterministic
+    algorithms (block 1's conv), which a bit-for-bit claim needs."""
+    import copy
+
+    from dcase2019_task4_tpu_torch.config import ModelConfig
+    from dcase2019_task4_tpu_torch.train import checkpoints, schedules, steps
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = ModelConfig(nb_filters=(16, 16, 16), n_rnn_cell=16)
+    base = steps.init_train_state(cfg, lambda p: torch.optim.Adam(p, lr=1e-3), torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    audio = (0.1 * torch.randn(8, 95 * 511 + 2048, generator=g) * 32768).clamp(-32768, 32767).to(torch.int16)
+    batch = {"audio": audio.to(cuda), "frames": torch.full((8,), 96, device=cuda),
+             "target": (torch.rand(8, 12, 10, generator=g) > 0.8).float().to(cuda)}
+
+    def fresh():
+        state = steps.TrainState(copy.deepcopy(base.student).to(cuda), copy.deepcopy(base.teacher).to(cuda), None)
+        if ramped:
+            state.optimizer, set_step = schedules.meanteacher_adam(state.student.parameters(), 40, 20)
+            set_step(0)
+        else:
+            state.optimizer = torch.optim.Adam(state.student.parameters(), lr=1e-3)
+        return state
+
+    results = []
+    for flat in (False, True):
+        monkeypatch.setenv("DCASE_FLAT_OPT", "1" if flat else "0")
+        state = fresh()
+        step = steps.make_train_step(slice(0, 2), slice(6, 8), rampup_length=10,
+                                     frontend=MelFrontend(max_frames=96, device=cuda))
+        _, metrics, _ = step(state, batch, torch.Generator().manual_seed(2), step.zero_metrics(cuda))
+        results.append((metrics, [p.detach().clone() for p in state.student.parameters()],
+                        [p.detach().clone() for p in state.teacher.parameters()]))
+    (m_tree, s_tree, t_tree), (m_flat, s_flat, t_flat) = results
+    for k in m_tree:
+        assert torch.equal(m_tree[k], m_flat[k]), k
+    for a, b in zip(s_tree + t_tree, s_flat + t_flat):
+        assert torch.equal(a, b)
+    path = str(tmp_path / "flat.npz")
+    checkpoints.save_checkpoint(path, state, {"epoch": 0}, ramped_adam=ramped)
+    other = fresh()
+    checkpoints.restore_checkpoint(path, other, ramped_adam=ramped)
+    want, got = checkpoints.train_state_leaves(state, ramped), checkpoints.train_state_leaves(other, ramped)
+    assert [k for k, _ in got] == [k for k, _ in want]
+    for (k, a), (_, b) in zip(want, got):
+        if "hyperparams[" not in k:  # read from the param groups, set by the schedule
+            np.testing.assert_array_equal(b, a, err_msg=k)
 
 
 def test_wrappers_refuse_non_contiguous_input(cuda):

@@ -8,7 +8,9 @@ best checkpoint, metrics.jsonl and both prediction TSVs; the scoring
 the final test wrote, and its F1s and rows are the JAX package's
 `CheckpointEvaluator.test_model` on the same checkpoint (the rows' times
 equal, the F1s equal). The data-parallel flags reach the process group's
-set-up.
+set-up. A legacy v1 (pickle) copy of a checkpoint is refused by
+`evaluate`, `predict` and `--resume` without DCASE_ALLOW_LEGACY_PICKLE=1
+and read as the npz is with it.
 """
 
 import csv
@@ -107,6 +109,56 @@ def test_evaluate_reads_the_checkpoint_back_as_the_jax_evaluator_does(trained, t
     assert [r["filename"] for r in mine] == list(want["filename"])
     np.testing.assert_array_equal([float(r["onset"]) for r in mine], want["onset"].to_numpy())
     np.testing.assert_array_equal([float(r["offset"]) for r in mine], want["offset"].to_numpy())
+
+
+def test_the_clis_read_a_v1_checkpoint_behind_the_switch(trained, tmp_path, monkeypatch):
+    """The epoch-1 checkpoint rewritten as a legacy v1 pickle (its leaves in
+    order and its metadata): `evaluate`, `predict` and `--resume` refuse it
+    without DCASE_ALLOW_LEGACY_PICKLE=1 and, with it, give what the npz
+    gives."""
+    import json
+    import pickle
+
+    mt = trained["mt"]
+    npz = os.path.join(mt, "model", "baseline_epoch_1")
+    with np.load(npz, allow_pickle=False) as z:
+        doc = json.loads(bytes(z["__meta__"]).decode("utf-8"))
+        leaves = [z[f"leaf_{i:05d}"] for i in range(doc["n_leaves"])]
+    v1 = str(tmp_path / "baseline_epoch_1.v1")
+    with open(v1, "wb") as f:
+        pickle.dump({"version": 1, "leaves": leaves, "metadata": doc["metadata"]}, f)
+    validation = TINY_CFG.paths.validation
+
+    def evaluate(path, name):
+        out = str(tmp_path / f"{name}.tsv")
+        res = cli.evaluate(["-m", path, "--synthetic_audio", "-s", "12", "--sets", validation, "-p", out,
+                            "--device", "cpu"])
+        return res, read_tsv(out)
+
+    def predict(path, name):
+        res = cli.predict(["-m", path, "-i", validation, "-s", "12", "--synthetic_audio",
+                           "-p", str(tmp_path / f"{name}.pred.tsv"), "--device", "cpu"])
+        return res, read_tsv(str(tmp_path / f"{name}.pred.tsv"))
+
+    def resume(path, name):
+        store = str(tmp_path / name)
+        assert cli.main(["train_meanteacher", "--synthetic_audio", "-s", "12", "--epochs", "3", "--store_dir", store,
+                         "--device", "cpu", "--resume", path]) == 0
+        return [{k: v for k, v in r.items() if k != "ts" and not k.endswith(("_s", "_share"))}
+                for r in read_metrics(os.path.join(store, "metrics.jsonl"))]
+
+    monkeypatch.delenv("DCASE_ALLOW_LEGACY_PICKLE", raising=False)
+    for run in (evaluate, predict, resume):
+        with pytest.raises(ValueError, match="DCASE_ALLOW_LEGACY_PICKLE=1"):
+            run(v1, f"refused_{run.__name__}")
+    want = {run.__name__: run(npz, f"npz_{run.__name__}") for run in (evaluate, predict, resume)}
+    monkeypatch.setenv("DCASE_ALLOW_LEGACY_PICKLE", "1")
+    got = {run.__name__: run(v1, f"v1_{run.__name__}") for run in (evaluate, predict, resume)}
+    assert got["evaluate"] == want["evaluate"]
+    assert got["predict"][1] == want["predict"][1] and got["predict"][0]["n_files"] == want["predict"][0]["n_files"]
+    for key in ("strong", "weak"):
+        np.testing.assert_array_equal(got["predict"][0][key], want["predict"][0][key])
+    assert [r["epoch"] for r in got["resume"]] == [2] and got["resume"] == want["resume"]
 
 
 # a bf16 model runs every block through the fused kernel, whose pool takes
